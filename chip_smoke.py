@@ -10,11 +10,11 @@ Phases (each raises on failure, so the process exits non-zero and prints no
 
 1. device  — card name and power limit; TF32 off for matmuls and cuDNN.
 2. build   — builds the CUDA kernels from ``paddle_tpu_torch/kernels/csrc``.
-3. kernels — each kernel at the serving path's shapes against its plain
-             PyTorch version on the same inputs, with times of the kernel,
-             the plain version and ``F.scaled_dot_product_attention`` (a
-             yardstick the port never calls) and the least time the card
-             could take (bound).
+3. kernels — each kernel at its path's shapes (and at odd shapes) against
+             its plain PyTorch version on the same inputs, with times of the
+             kernel, the plain version and a PyTorch library call where one
+             computes the same function (a yardstick the port never calls),
+             and the least time the card could take (bound).
 4. parity  — fp32, GPT-3 6.7B width at depth 2: the engine's greedy tokens
              (paged-attention kernel) equal ``model.generate``'s (flash
              kernel), and its logprobs match a teacher-forced forward.
@@ -26,6 +26,18 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              answer is then checked against the model's own forward, and
              the same check must fail on answers served with a fault
              planted in the paged-attention kernel.
+6. train-parity — fp32, the 1.16B Llama's width at depth 2, batch 2 x 512:
+             one step's loss and every parameter gradient through the
+             kernels against the same step with each kernel wrapper swapped
+             for its plain version, then a 3-step AdamW loss curve of both.
+7. train   — bf16, the 1.16B Llama at full width and depth (20 layers,
+             recompute), AdamW lr 3e-4 / wd 0.1, batch 4 x 2048: one step's
+             gradients through the kernels against the plain-swapped step
+             (and two planted backward faults that the check must catch),
+             then several steps on one batch with the counters reset before
+             and read after (each kernel's launches per step as reckoned
+             from the code, no plain call), a falling finite loss, step
+             time, tokens/s, MFU, peak memory and a profiled step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
@@ -452,7 +464,8 @@ def phase_serving(seed):
     torch.cuda.synchronize()
     counts = kernels.counters()
     for name, c in counts.items():
-        if c["launches"] <= 0 or c["plain_calls"] != 0:
+        if c["plain_calls"] != 0 or (c["launches"] <= 0 and name in (
+                "paged_attention", "flash_attention")):
             raise RuntimeError(f"serving: kernel {name} counts {c}")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     gen_tokens = sum(len(s) - len(p) for p, (s, _lp) in zip(prompts, outs))
@@ -570,16 +583,8 @@ def _step_breakdown(model, cfg, ctx_len, reps=3):
             for _ in range(reps):
                 run()
             torch.cuda.synchronize()
-        # device records only: a CPU op's device time is its kernels'
-        # again, and CUPTI's "Command Buffer Full" record marks the host
-        # waiting on a full launch queue, not device work
-        by_name = {}
-        for e in prof.events():
-            if e.device_type != torch.autograd.DeviceType.CUDA or \
-                    e.name.startswith("Command Buffer"):
-                continue
-            ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
-            by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        # device records only: a CPU op's device time is its kernels' again
+        by_name = {k: ms / reps for k, ms in _device_ms(prof).items()}
         device = sum(by_name.values())
         groups = {}
         for name, ms in by_name.items():
@@ -592,6 +597,691 @@ def _step_breakdown(model, cfg, ctx_len, reps=3):
             "groups_ms": groups or None,
             "top": [[name[:80], ms] for name, ms in top]}
     del pool
+    return out
+
+
+# -- phase: training kernels --------------------------------------------------
+
+def _tol_bwd(dtype):
+    """(rtol, atol) of a backward kernel against its plain version: as
+    ``_tol``, plus rtol 1e-4 because the two sum fp32 products over up to
+    s terms (rows or keys) in different orders."""
+    import torch
+
+    return (1e-4, 1e-4) if dtype == torch.float32 else (2.0 ** -8 + 1e-4,
+                                                        1e-4)
+
+
+def _rope_tol(dtype):
+    """RoPE against its plain version: the bf16 rounding of ``_tol``, and
+    atol 1e-3, which covers one or two ulps of inv_i times a position of
+    2047 (~2.4e-4 rad) on inputs of magnitude up to ~4."""
+    import torch
+
+    return (0.0 if dtype == torch.float32 else 2.0 ** -8, 1e-3)
+
+
+def _rand(gen, shape, dtype):
+    import torch
+
+    return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+
+def _visible_pairs(sq, sk, offset, causal):
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, i + offset + 1)) for i in range(sq))
+
+
+def _dname(dtype):
+    return str(dtype).split(".")[1]
+
+
+def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
+                    timed=True, with_dlse=False):
+    """dK/dV and dQ kernels at one shape against their plain versions on
+    fp32 copies of the same inputs. Returns one row per kernel."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+        flash_attention_plain)
+
+    d = 128
+    scale = 1.0 / d ** 0.5
+    q, do = (_rand(gen, (bh, sq, d), dtype) for _ in range(2))
+    k, v = (_rand(gen, (bh, sk, d), dtype) for _ in range(2))
+    f32 = [t.float() for t in (q, k, v, do)]
+    with torch.no_grad():
+        o, lse = flash_attention_plain(*f32[:3], offset, causal, scale)
+    delta = (f32[3] * o).sum(-1)
+    if with_dlse:
+        delta = delta - _rand(gen, (bh, sq), torch.float32)
+    del o
+    args = (lse, delta, offset, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
+    tol = _tol_bwd(dtype)
+    err_dkv = max(_compare(f"flash_bwd_dkv[{label}].dk", dk, rdk, tol)[0],
+                  _compare(f"flash_bwd_dkv[{label}].dv", dv, rdv, tol)[0])
+    del rdk, rdv
+    rdq = flash_attention_bwd_dq_plain(*f32, *args)
+    err_dq = _compare(f"flash_bwd_dq[{label}].dq", dq, rdq, tol)[0]
+    if offset < 0 and causal and dq[:, :-offset].abs().max().item() != 0.0:
+        raise RuntimeError(f"flash_bwd_dq[{label}]: rows that see no key "
+                           f"have non-zero dq")
+    del rdq, f32
+    torch.cuda.empty_cache()
+    base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
+            "bh": bh, "sq": sq, "sk": sk, "offset": offset, "causal": causal,
+            "tol": tol}
+    rows = [dict(base, kernel="flash_attention_bwd_dkv", max_abs_err=err_dkv),
+            dict(base, kernel="flash_attention_bwd_dq", max_abs_err=err_dq)]
+    if timed:
+        rows[0]["kernel_ms"] = _time_ms(
+            lambda: flash_attention_bwd_dkv(q, k, v, do, *args), iters=10,
+            warmup=2)
+        rows[1]["kernel_ms"] = _time_ms(
+            lambda: flash_attention_bwd_dq(q, k, v, do, *args), iters=10,
+            warmup=2)
+        rows[0]["plain_ms"] = _time_ms(
+            lambda: flash_attention_bwd_dkv_plain(q, k, v, do, *args),
+            iters=3, warmup=1)
+        rows[1]["plain_ms"] = _time_ms(
+            lambda: flash_attention_bwd_dq_plain(q, k, v, do, *args),
+            iters=3, warmup=1)
+        torch.cuda.empty_cache()
+        # library yardstick: torch's SDPA forward + backward (dq, dk and dv
+        # together) minus its forward, on [1, bh, s, d]; its is_causal is
+        # top-left aligned, which equals ours for sq == sk and offset 0
+        lib = None
+        if not causal or (sq == sk and offset == 0):
+            leaves = [t[None].detach().requires_grad_() for t in (q, k, v)]
+
+            def fwd():
+                return TF.scaled_dot_product_attention(*leaves,
+                                                       is_causal=causal)
+
+            def fwd_bwd():
+                torch.autograd.grad(fwd(), leaves, do[None])
+
+            lib = _time_ms(fwd_bwd, iters=10, warmup=2) - \
+                _time_ms(fwd, iters=10, warmup=2)
+            del leaves
+        esz = q.element_size()
+        pairs = bh * _visible_pairs(sq, sk, offset, causal)
+        io = (2 * bh * sq * d + 2 * bh * sk * d) * esz + 2 * bh * sq * 4
+        for row, out_bytes, flops_per in (
+                (rows[0], 2 * bh * sk * d * esz, 8 * d),
+                (rows[1], bh * sq * d * esz, 6 * d)):
+            b_ms, b_by = _bound(io + out_bytes, flops_per * pairs,
+                                _dname(dtype))
+            row.update(library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                       visible_pairs=pairs)
+    for row in rows:
+        _emit(row)
+    return rows
+
+
+def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True):
+    """RMSNorm forward and backward kernels (plain or +residual variant)
+    against their plain versions on fp32 copies of the same inputs."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import rmsnorm
+
+    eps = 1e-5
+    x, dy = _rand(gen, (n, h), dtype), _rand(gen, (n, h), dtype)
+    res = _rand(gen, (n, h), dtype) if residual else None
+    dr = _rand(gen, (n, h), dtype) if residual else None
+    w = (1.0 + 0.1 * _rand(gen, (h,), torch.float32)).to(dtype)
+
+    def f32(t):
+        return None if t is None else t.float()
+
+    y, s, rstd = rmsnorm.rms_norm_fwd(x, res, w, eps)
+    dx, dw = rmsnorm.rms_norm_bwd(s, w, rstd, dy, dr)
+    torch.cuda.synchronize()
+    tol = _tol(dtype)
+    ry, rs, rrstd = rmsnorm.rms_norm_fwd_plain(f32(x), f32(res), f32(w), eps)
+    err_f = _compare(f"rms_norm[{label}].y", y, ry, tol)[0]
+    if residual:
+        err_f = max(err_f, _compare(f"rms_norm[{label}].s", s, rs, tol)[0])
+    _compare(f"rms_norm[{label}].rstd", rstd, rrstd, (1e-5, 0.0))
+    # the backward on the kernel's own saved s and rstd; dw sums n rows in
+    # another order (rtol 1e-4 more)
+    rdx, rdw = rmsnorm.rms_norm_bwd_plain(f32(s), f32(w), rstd, f32(dy),
+                                          f32(dr))
+    err_b = max(_compare(f"rms_norm_bwd[{label}].dx", dx, rdx, tol)[0],
+                _compare(f"rms_norm_bwd[{label}].dw", dw, rdw,
+                         (tol[0] + 1e-4, tol[1]))[0])
+    name = "rms_norm_residual" if residual else "rms_norm"
+    base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
+            "n": n, "h": h, "tol": tol}
+    rows = [dict(base, kernel=name, max_abs_err=err_f),
+            dict(base, kernel=name + "_bwd", max_abs_err=err_b)]
+    if timed:
+        rows[0]["kernel_ms"] = _time_ms(
+            lambda: rmsnorm.rms_norm_fwd(x, res, w, eps))
+        rows[0]["plain_ms"] = _time_ms(
+            lambda: rmsnorm.rms_norm_fwd_plain(x, res, w, eps))
+        rows[1]["kernel_ms"] = _time_ms(
+            lambda: rmsnorm.rms_norm_bwd(s, w, rstd, dy, dr))
+        rows[1]["plain_ms"] = _time_ms(
+            lambda: rmsnorm.rms_norm_bwd_plain(s, w, rstd, dy, dr))
+        lib_f = lib_b = None
+        if not residual:
+            # torch.nn.functional.rms_norm; its backward is autograd's
+            xl = x.detach().requires_grad_()
+            wl = w.detach().requires_grad_()
+
+            def lib_fwd():
+                return TF.rms_norm(xl, (h,), wl, eps)
+
+            def lib_fwd_bwd():
+                torch.autograd.grad(lib_fwd(), (xl, wl), dy)
+
+            lib_f = _time_ms(lib_fwd)
+            lib_b = _time_ms(lib_fwd_bwd) - lib_f
+        esz = x.element_size()
+        k = 2 if residual else 1
+        fwd_bytes = 2 * k * n * h * esz + h * esz + n * 4
+        bwd_bytes = (2 + k) * n * h * esz + 2 * h * esz + n * 4
+        for row, nbytes, flops, lib in (
+                (rows[0], fwd_bytes, (4 + k) * n * h, lib_f),
+                (rows[1], bwd_bytes, 10 * n * h, lib_b)):
+            # elementwise fp32 arithmetic on the CUDA cores
+            b_ms, b_by = _bound(nbytes, flops, "float32")
+            row.update(library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    for row in rows:
+        _emit(row)
+    return rows
+
+
+def _rope_case(label, dtype, shape, pos_offset, theta, gen, timed=True):
+    """RoPE forward and inverse kernels against the plain version on fp32
+    copies of the same input."""
+    import torch
+
+    from paddle_tpu_torch.kernels import rope
+
+    x = _rand(gen, shape, dtype)
+    rows = []
+    for inverse in (False, True):
+        out = rope.rope(x, theta, pos_offset, inverse)
+        torch.cuda.synchronize()
+        ref = rope.rope_plain(x.float(), theta, pos_offset, inverse)
+        name = "rope_inverse" if inverse else "rope"
+        err = _compare(f"{name}[{label}]", out, ref, _rope_tol(dtype))[0]
+        row = {"phase": "kernel", "kernel": name, "case": label,
+               "dtype": _dname(dtype), "shape": list(shape),
+               "pos_offset": pos_offset, "theta": theta, "max_abs_err": err,
+               "tol": _rope_tol(dtype)}
+        if timed:
+            row["kernel_ms"] = _time_ms(
+                lambda: rope.rope(x, theta, pos_offset, inverse))
+            row["plain_ms"] = _time_ms(
+                lambda: rope.rope_plain(x, theta, pos_offset, inverse))
+            # one read and one write of x; a rotation (6 FLOPs) per pair
+            b_ms, b_by = _bound(2 * x.numel() * x.element_size(),
+                                3 * x.numel(), "float32")
+            row.update(library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        _emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_train_kernels(seed):
+    """The five training kernels at the 1.16B Llama step's shapes (timed)
+    and at odd shapes (checked only)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 10)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = _dname(dtype)
+        # batch 4 x 16 heads, causal 2048, head dim 128
+        rows += _flash_bwd_case(f"train-{name}", dtype, 64, 2048, 2048, 0,
+                                True, gen)
+        for residual in (False, True):
+            rows += _rmsnorm_case(f"train-{name}", dtype, 8192, 2048,
+                                  residual, gen)
+        rows += _rope_case(f"train-{name}", dtype, (4, 2048, 16, 128), 0,
+                           1e4, gen)
+        # odd shapes: ragged lengths with a causal offset and a live lse
+        # cotangent; rows that see no key; ragged rows and a width that is
+        # not a multiple of 32; a position offset near 2048
+        rows += _flash_bwd_case(f"ragged300x340-off40-{name}", dtype, 3, 300,
+                                340, 40, True, gen, timed=False,
+                                with_dlse=True)
+        rows += _flash_bwd_case(f"masked-off-8-{name}", dtype, 3, 64, 64, -8,
+                                True, gen, timed=False)
+        for residual in (False, True):
+            rows += _rmsnorm_case(f"odd1000x1000-{name}", dtype, 1000, 1000,
+                                  residual, gen, timed=False)
+        rows += _rope_case(f"odd-off2000-{name}", dtype, (3, 37, 5, 64),
+                           2000, 1e4, gen, timed=False)
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- phases: training parity and the training step ------------------------------
+
+# the 1.16B Llama of the JAX package's flagship training bench
+# (bench.py _configs()["big"]): vocab 32000, hidden 2048, 5632, 20 layers,
+# 16 heads of 128 (no GQA), 2048 positions
+BIG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+           num_hidden_layers=20, num_attention_heads=16,
+           num_key_value_heads=16, max_position_embeddings=2048)
+# fp32 parity, kernels against plain-swapped: both compute in fp32 and
+# differ by summation order; loss rtol 1e-5, each parameter's gradient
+# within 1e-4 relative L2, the 3-step AdamW curve within rtol 1e-4
+PARITY_LOSS_RTOL, PARITY_GRAD_TOL, PARITY_CURVE_RTOL = 1e-5, 1e-4, 1e-4
+# bf16 full-depth gradient check: the largest relative L2 error of any
+# parameter's gradient, kernels against plain-swapped. About 3x the sound
+# reading (0.045, layer 17's k_proj; bf16 rounding on two paths through 20
+# layers); the planted faults read 1.31 (RoPE) and 43.8 (dQ) and more
+TRAIN_GRAD_TOL = 0.15
+TRAIN_STEPS = 6
+
+
+def _flash_module():
+    """The module ``paddle_tpu_torch.kernels.flash_attention`` (the package
+    re-exports a function of the same name)."""
+    import importlib
+
+    return importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+
+
+def _plain_swaps():
+    """(module, attribute, plain version) for every kernel wrapper that
+    the training path calls; the autograd functions look these attributes
+    up at call time."""
+    from paddle_tpu_torch.kernels import rmsnorm, rope
+
+    fa = _flash_module()
+    return [(fa, "flash_attention_fwd", fa.flash_attention_plain),
+            (fa, "flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv_plain),
+            (fa, "flash_attention_bwd_dq", fa.flash_attention_bwd_dq_plain),
+            (rmsnorm, "rms_norm_fwd", rmsnorm.rms_norm_fwd_plain),
+            (rmsnorm, "rms_norm_bwd", rmsnorm.rms_norm_bwd_plain),
+            (rope, "rope", rope.rope_plain)]
+
+
+def _faulty(fault):
+    """A planted backward fault: ``dq_unscaled`` drops the softmax scale
+    from dQ (the kernel's result times sqrt(d)); ``rope_no_sign`` applies
+    the forward rotation, not its inverse, to RoPE's cotangent."""
+    from paddle_tpu_torch.kernels import rope
+
+    fa = _flash_module()
+    if fault == "dq_unscaled":
+        real = fa.flash_attention_bwd_dq
+        return [(fa, "flash_attention_bwd_dq",
+                 lambda *a: real(*a) / a[-1])]
+    real = rope.rope
+    return [(rope, "rope", lambda x, theta, pos, inverse:
+             real(x, theta, pos, False))]
+
+
+class _swapped:
+    """Context manager: set module attributes, restore them on exit."""
+
+    def __init__(self, swaps):
+        self.swaps = swaps
+        self.saved = []
+
+    def __enter__(self):
+        self.saved = [(m, a, getattr(m, a)) for m, a, _f in self.swaps]
+        for m, a, f in self.swaps:
+            setattr(m, a, f)
+        return self
+
+    def __exit__(self, *exc):
+        for m, a, f in self.saved:
+            setattr(m, a, f)
+        return False
+
+
+def _loss_and_grads(model, ids):
+    """One forward and backward in training mode: (loss, {name: grad})."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss = model(ids, labels=ids)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _grad_errors(grads, ref):
+    """{name: ||g - ref|| / ||ref||} over every parameter (fp32 norms)."""
+    return {n: ((g.float() - ref[n].float()).norm()
+                / ref[n].float().norm().clamp_min(1e-30)).item()
+            for n, g in grads.items()}
+
+
+def _worst(errs, k=3):
+    return sorted(errs.items(), key=lambda kv: -kv[1])[:k]
+
+
+def _train_curve(model, state, ids, steps):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model.load_state_dict(state)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.1)
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+    return [float(step(ids, ids)) for _ in range(steps)]
+
+
+def phase_train_parity(seed):
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**{**BIG, "num_hidden_layers": 2}, dtype="float32",
+                      use_recompute=True)
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=pt_seed(seed + 3, DEVICE))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 3)
+    ids = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+                        device=DEVICE)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    with _swapped(_plain_swaps()):
+        loss_p, grads_p = _loss_and_grads(model, ids)
+    kernels.reset_counters()
+    loss_k, grads_k = _loss_and_grads(model, ids)
+    counts = kernels.counters()
+    unused = [n for n, c in counts.items() if c["plain_calls"]
+              or (c["launches"] == 0 and n != "paged_attention")]
+    if unused:
+        raise RuntimeError(f"train-parity: kernels not all launched: "
+                           f"{ {n: counts[n] for n in unused} }")
+    errs = _grad_errors(grads_k, grads_p)
+    del grads_k, grads_p
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    curve_k = _train_curve(model, state, ids, 3)
+    with _swapped(_plain_swaps()):
+        curve_p = _train_curve(model, state, ids, 3)
+    curve_rel = max(abs(a - b) / abs(b) for a, b in zip(curve_k, curve_p))
+    row = {"phase": "train-parity", "layers": 2, "dtype": "float32",
+           "batch": [2, 512], "loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": loss_rel, "loss_rtol": PARITY_LOSS_RTOL,
+           "grad_rel_l2_max": max(errs.values()),
+           "grad_worst": _worst(errs), "grad_tol": PARITY_GRAD_TOL,
+           "params_checked": len(errs), "curve_kernels": curve_k,
+           "curve_plain": curve_p, "curve_rel_err": curve_rel,
+           "curve_rtol": PARITY_CURVE_RTOL}
+    _emit(row)
+    if not (loss_rel <= PARITY_LOSS_RTOL
+            and max(errs.values()) <= PARITY_GRAD_TOL
+            and curve_rel <= PARITY_CURVE_RTOL):
+        raise RuntimeError(f"train-parity: kernels differ from plain: {row}")
+    if not curve_k[-1] < curve_k[0]:
+        raise RuntimeError(f"train-parity: loss did not fall {curve_k}")
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def _train_group(name):
+    low = name.lower()
+    for key, group in (("flash_fwd_kernel", "flash_fwd"),
+                       ("flash_bwd_dkv", "flash_bwd_dkv"),
+                       ("flash_bwd_dq", "flash_bwd_dq"),
+                       ("rmsnorm", "rmsnorm"), ("rope_kernel", "rope"),
+                       ("softmax", "ce_softmax"),
+                       ("embedding", "embedding")):
+        if key in low:
+            return group
+    if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet",
+                              "sm90_")):
+        return "gemm"
+    return "other"
+
+
+def _device_ms(prof):
+    """{kernel name: device ms} from a profiler session's device records
+    (CUPTI's "Command Buffer Full" records mark the host waiting on a full
+    launch queue, and annotations span other records; neither is work)."""
+    import torch
+
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.name.startswith("Command Buffer") or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        out[e.name] = out.get(e.name, 0.0) + ms
+    return out
+
+
+def _train_breakdown(model, opt, ids):
+    """One training step in three phases (forward, backward, optimizer),
+    each in its own profiler session and closed by a synchronise: wall ms
+    by the host clock, device ms by kernel group from torch.profiler's
+    device records, and the device's idle share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    model.train()
+    state = {}
+
+    def forward():
+        state["loss"] = model(ids, labels=ids)
+
+    def backward():
+        state.pop("loss").backward()
+
+    def optimizer():
+        opt.step()
+        opt.clear_grad()
+
+    phases = {}
+    for name, fn in (("forward", forward), ("backward", backward),
+                     ("optimizer", optimizer)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        by_name = _device_ms(prof)
+        groups = {}
+        for k, ms in by_name.items():
+            g = "optimizer" if name == "optimizer" else _train_group(k)
+            groups[g] = groups.get(g, 0.0) + ms
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        phases[name] = {"wall_ms": wall,
+                        "device_ms": sum(by_name.values()),
+                        "groups_ms": groups,
+                        "top": [[k[:70], ms] for k, ms in top]}
+    wall = sum(p["wall_ms"] for p in phases.values())
+    device = sum(p["device_ms"] for p in phases.values())
+    groups = {}
+    for p in phases.values():
+        for g, ms in p["groups_ms"].items():
+            groups[g] = groups.get(g, 0.0) + ms
+    return {"wall_ms": wall, "device_ms": device or None,
+            "idle_share": (1.0 - device / wall) if device else None,
+            "groups_ms": groups, "phases": phases}
+
+
+def phase_train(seed):
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         llama_flops_per_token,
+                                         llama_param_count)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(**BIG, dtype="bfloat16", use_recompute=True)
+    batch, seq = 4, 2048
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=pt_seed(seed + 4, DEVICE))
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 4)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                        device=DEVICE)
+
+    # gradients at full depth, on the initial weights: kernels against the
+    # plain-swapped step, and two planted backward faults that must fail
+    with _swapped(_plain_swaps()):
+        loss_p, grads_p = _loss_and_grads(model, ids)
+    loss_k, grads_k = _loss_and_grads(model, ids)
+    sound = _grad_errors(grads_k, grads_p)
+    del grads_k
+    faults = {}
+    for fault in ("dq_unscaled", "rope_no_sign"):
+        with _swapped(_faulty(fault)):
+            _l, grads_f = _loss_and_grads(model, ids)
+        errs = _grad_errors(grads_f, grads_p)
+        del grads_f
+        faults[fault] = {"grad_rel_l2_max": max(errs.values()),
+                         "worst": _worst(errs, 1),
+                         "caught": max(errs.values()) > TRAIN_GRAD_TOL}
+    del grads_p
+    torch.cuda.empty_cache()
+    check = {"phase": "train-grad-check", "layers": cfg.num_hidden_layers,
+             "dtype": "bfloat16", "loss_kernels": loss_k,
+             "loss_plain": loss_p, "grad_rel_l2_max": max(sound.values()),
+             "grad_worst": _worst(sound), "grad_tol": TRAIN_GRAD_TOL,
+             "faults": faults}
+    _emit(check)
+    if not max(sound.values()) <= TRAIN_GRAD_TOL:
+        raise RuntimeError(f"train: kernel gradients differ from plain "
+                           f"{check}")
+    if not all(f["caught"] for f in faults.values()):
+        raise RuntimeError(f"train: the gradient check missed a planted "
+                           f"fault {faults}")
+
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.1)
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, ids)))
+        secs.append(time.perf_counter() - t0)
+    counts = kernels.counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    L = cfg.num_hidden_layers
+    # per step, from the code: recompute runs every layer's forward twice
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd_dkv": L,
+                "flash_attention_bwd_dq": L, "rms_norm": 2 * L + 1,
+                "rms_norm_residual": 2 * L, "rms_norm_bwd": L + 1,
+                "rms_norm_residual_bwd": L, "rope": 4 * L,
+                "rope_inverse": 2 * L, "paged_attention": 0}
+    wrong = {n: (c, per_step[n] * TRAIN_STEPS) for n, c in counts.items()
+             if c["plain_calls"] or
+             c["launches"] != per_step[n] * TRAIN_STEPS}
+    if wrong:
+        raise RuntimeError(f"train: kernel counts differ from the expected "
+                           f"(reading, expected launches): {wrong}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise RuntimeError(f"train: loss not finite and falling: {losses}")
+    step_s = sum(secs[1:]) / (len(secs) - 1)
+    tok_s = batch * seq / step_s
+    mfu = llama_flops_per_token(cfg, seq) * tok_s / PEAK_FLOPS["bfloat16"]
+    breakdown = _train_breakdown(model, opt, ids)
+    _emit({"phase": "train", "ok": True, "model": "llama-1.16b",
+           "params": llama_param_count(cfg), "layers": L,
+           "dtype": "bfloat16", "recompute": True, "batch": [batch, seq],
+           "model_init_s": t_init, "losses": losses,
+           "step_ms": step_s * 1e3, "step_ms_each": [x * 1e3 for x in secs],
+           "tokens_per_s": tok_s, "mfu": mfu, "peak_mem_gb": peak_gb,
+           "kernel_counts": counts,
+           "expected_launches_per_step": per_step})
+    _emit({"phase": "train-breakdown", **breakdown})
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _kernels_line(rows, serving, training):
+    """One entry per kernel for the ``kernels`` line: its representative
+    case's times and bound, the largest error over all its cases, and its
+    launches on the two main paths (serving, training)."""
+    # (kernel, representative case, source, TPU kernel replaced, the
+    # counters whose launches it sums)
+    table = [
+        ("paged_attention", "decode-bfloat16", "paged_attention.cu",
+         "paddle_tpu/kernels/pallas/paged_attention.py:46",
+         ["paged_attention"]),
+        ("flash_attention", "causal512-bfloat16", "flash_attention.cu",
+         "paddle_tpu/kernels/flash_attention.py:64", ["flash_attention"]),
+        ("flash_attention_bwd_dkv", "train-bfloat16",
+         "flash_attention_bwd.cu",
+         "paddle_tpu/kernels/flash_attention.py:154",
+         ["flash_attention_bwd_dkv"]),
+        ("flash_attention_bwd_dq", "train-bfloat16",
+         "flash_attention_bwd.cu",
+         "paddle_tpu/kernels/flash_attention.py:206",
+         ["flash_attention_bwd_dq"]),
+        ("rms_norm", "train-bfloat16", "rmsnorm.cu",
+         "paddle_tpu/kernels/pallas/rmsnorm.py:57",
+         ["rms_norm", "rms_norm_residual"]),
+        ("rms_norm_bwd", "train-bfloat16", "rmsnorm.cu",
+         "paddle_tpu/kernels/pallas/rmsnorm.py:147",
+         ["rms_norm_bwd", "rms_norm_residual_bwd"]),
+        ("rope", "train-bfloat16", "rope.cu",
+         "paddle_tpu/kernels/pallas/rope.py:50", ["rope", "rope_inverse"]),
+    ]
+    also = {"rms_norm": ("paddle_tpu/kernels/pallas/rmsnorm.py:47",
+                         "rms_norm_residual"),
+            "rms_norm_bwd": ("paddle_tpu/kernels/pallas/rmsnorm.py:127",
+                             "rms_norm_residual_bwd"),
+            "rope": (None, "rope_inverse")}
+    out = []
+    for name, case, src, replaces, counters in table:
+        mine = [x for x in rows if x["kernel"] in counters]
+        r = next(x for x in mine if x["kernel"] == name and
+                 x["case"] == case)
+        by_path = {p: sum(c[n]["launches"] for n in counters)
+                   for p, c in (("serving", serving), ("training", training))}
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/" + src,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
+            "max_abs_err": max(x["max_abs_err"] for x in mine),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "case": case}
+        if name in also:
+            also_replaces, variant = also[name]
+            v = next(x for x in mine if x["kernel"] == variant and
+                     x["case"] == case)
+            entry["variant"] = {
+                "name": variant, "replaces": also_replaces,
+                "launches": training[variant]["launches"],
+                "ms": v["kernel_ms"], "plain_ms": v["plain_ms"],
+                "bound_ms": v["bound_ms"], "library_ms": v["library_ms"]}
+        out.append(entry)
     return out
 
 
@@ -636,29 +1326,13 @@ def main() -> int:
            "spill_lines": spills[:8]})
 
     rows = phase_kernels(SEED)
+    rows += phase_train_kernels(SEED)
     phase_parity(SEED)
-    counts = phase_serving(SEED)
+    serving = phase_serving(SEED)
+    phase_train_parity(SEED)
+    training = phase_train(SEED)
 
-    reps = {"paged_attention": "decode-bfloat16",
-            "flash_attention": "causal512-bfloat16"}
-    meta = {"paged_attention": (
-                "paddle_tpu_torch/kernels/csrc/paged_attention.cu",
-                "paddle_tpu/kernels/pallas/paged_attention.py:46"),
-            "flash_attention": (
-                "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
-                "paddle_tpu/kernels/flash_attention.py:64")}
-    out = []
-    for name, case in reps.items():
-        r = next(x for x in rows if x["kernel"] == name and x["case"] == case)
-        out.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": counts[name]["launches"],
-            "max_abs_err": max(x["max_abs_err"] for x in rows
-                               if x["kernel"] == name),
-            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "case": case})
-    _emit({"kernels": out})
+    _emit({"kernels": _kernels_line(rows, serving, training)})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -6,16 +6,28 @@ the kernels by resetting before and reading after.
 """
 from . import flash_attention as _flash
 from . import paged_attention as _paged
+from . import rmsnorm as _rmsnorm
+from . import rope as _rope
 from .flash_attention import (flash_attention, flash_attention_plain,
                               flash_attention_with_lse)
 from .paged_attention import paged_attention, paged_attention_plain
+from .rmsnorm import rms_norm, rms_norm_residual
+from .rope import rope_apply
 
 __all__ = ["paged_attention", "paged_attention_plain", "flash_attention",
-           "flash_attention_with_lse", "flash_attention_plain", "counters",
-           "reset_counters"]
+           "flash_attention_with_lse", "flash_attention_plain", "rms_norm",
+           "rms_norm_residual", "rope_apply", "counters", "reset_counters"]
 
 _COUNTS = {"paged_attention": _paged.COUNTS,
-           "flash_attention": _flash.COUNTS}
+           "flash_attention": _flash.COUNTS,
+           "flash_attention_bwd_dkv": _flash.COUNTS_DKV,
+           "flash_attention_bwd_dq": _flash.COUNTS_DQ,
+           "rms_norm": _rmsnorm.COUNTS,
+           "rms_norm_residual": _rmsnorm.COUNTS_RESIDUAL,
+           "rms_norm_bwd": _rmsnorm.COUNTS_BWD,
+           "rms_norm_residual_bwd": _rmsnorm.COUNTS_RESIDUAL_BWD,
+           "rope": _rope.COUNTS,
+           "rope_inverse": _rope.COUNTS_INVERSE}
 
 
 def counters():

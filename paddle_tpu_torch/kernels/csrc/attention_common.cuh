@@ -1,6 +1,7 @@
-// Shared pieces of the two attention kernels (paged_attention.cu,
-// flash_attention.cu): type conversion, the per-warp online-softmax state,
-// and the cross-warp merge.
+// Shared pieces of the attention kernels (paged_attention.cu,
+// flash_attention.cu, flash_attention_bwd.cu): type conversion, warp sums,
+// the per-warp online-softmax state and the cross-warp merge. rmsnorm.cu and
+// rope.cu use the conversions and warp sums.
 //
 // Work split used by both kernels: a block owns R query rows of one
 // (sequence, head) group. Its NW warps split the KEYS between them, each warp

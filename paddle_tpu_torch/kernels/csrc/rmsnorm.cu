@@ -1,0 +1,191 @@
+// RMSNorm and RMSNorm+residual, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of paddle_tpu/kernels/pallas/rmsnorm.py:
+//   forward  `_fwd_kernel` (:47, +residual) and `_fwd_kernel_plain` (:57),
+//            both launched by `_fwd_pallas` (:66; calls :75 and :88);
+//   backward `_bwd_kernel` (:127, +residual) and `_bwd_kernel_plain` (:147),
+//            both launched by `_bwd_pallas` (:166; calls :179 and :186).
+// Same functions, on rows of width h:
+//   forward  s = x (+ res, in fp32; stored in x's type), rstd = rsqrt(mean(s^2)
+//            + eps) (fp32 [n]), y = s * rstd * w;
+//   backward g = dy * w, ds = rstd * (g - s * rstd^2 * mean(g * s)) (+ dres),
+//            dx = ds, and dw = sum over rows of dy * s * rstd (fp32, cast to
+//            w's type).
+// The plain and +residual variants are one kernel templated on RESIDUAL: the
+// plain one reads no residual and writes no s, as on the TPU.
+//
+// What bounds it on the H100: bytes. Each element is read and written once
+// with a handful of FLOPs (about 1 FLOP per byte against the ~295 at which
+// bf16 tensor cores would become the limit), so the floor is the [n, h]
+// tensors moved over 3.35 TB/s.
+//
+// What the design does about it, simple first: the forward gives each row to
+// one warp (lanes stride the row, so every load is coalesced); the second
+// pass over the row, which writes y, finds it in L1/L2. The TPU backward
+// carries dw in VMEM across its sequential row grid; Hopper blocks run in
+// parallel and carry nothing, so each backward block walks a contiguous
+// chunk of rows, keeps its dw partial in shared memory (each thread owns
+// fixed columns, so no two threads touch one entry) and writes it as one row
+// of an fp32 [n_blocks, h] scratch; a second small kernel sums the columns.
+// Deterministic, no atomics.
+
+#include "attention_common.cuh"
+
+namespace {
+
+constexpr int kFwdWarps = 4;     // rows per forward block
+constexpr int kBwdThreads = 256;
+
+template <typename T, bool RESIDUAL>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                   const T* __restrict__ w, T* __restrict__ y,
+                   T* __restrict__ s_out, float* __restrict__ rstd, int n,
+                   int h, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kFwdWarps + warp;
+  if (row >= n) return;
+  const size_t base = (size_t)row * h;
+  float ss = 0.f;
+  for (int d = lane; d < h; d += 32) {
+    float s = pt::to_f(x[base + d]);
+    if (RESIDUAL) s += pt::to_f(res[base + d]);
+    ss = fmaf(s, s, ss);
+  }
+  const float r = rsqrtf(pt::warp_sum(ss) / (float)h + eps);
+  for (int d = lane; d < h; d += 32) {
+    float s = pt::to_f(x[base + d]);
+    if (RESIDUAL) s += pt::to_f(res[base + d]);
+    y[base + d] = pt::from_f<T>(s * r * pt::to_f(w[d]));
+    if (RESIDUAL) s_out[base + d] = pt::from_f<T>(s);
+  }
+  if (lane == 0) rstd[row] = r;
+}
+
+// One block per chunk of `rows_per_block` rows. Shared memory: dw partial
+// [h] + one float per warp for the row reduction.
+template <typename T, bool RESIDUAL>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ s, const T* __restrict__ w,
+                   const float* __restrict__ rstd, const T* __restrict__ dy,
+                   const T* __restrict__ dr, T* __restrict__ dx,
+                   float* __restrict__ dw_part, int n, int h,
+                   int rows_per_block) {
+  extern __shared__ float sm[];
+  float* dw_acc = sm;
+  float* red = sm + h;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int d = tid; d < h; d += kBwdThreads) dw_acc[d] = 0.f;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int r1 = min(n, r0 + rows_per_block);
+  for (int row = r0; row < r1; ++row) {
+    const size_t base = (size_t)row * h;
+    const float r = rstd[row];
+    float part = 0.f;  // sum of g * s over this thread's columns
+    for (int d = tid; d < h; d += kBwdThreads)
+      part = fmaf(pt::to_f(dy[base + d]) * pt::to_f(w[d]),
+                  pt::to_f(s[base + d]), part);
+    part = pt::warp_sum(part);
+    if (lane == 0) red[warp] = part;
+    __syncthreads();
+    float tot = 0.f;
+#pragma unroll
+    for (int i = 0; i < kBwdThreads / 32; ++i) tot += red[i];
+    const float mean_gs = tot / (float)h;
+    for (int d = tid; d < h; d += kBwdThreads) {
+      const float sv = pt::to_f(s[base + d]);
+      const float dyv = pt::to_f(dy[base + d]);
+      float ds = r * (dyv * pt::to_f(w[d]) - sv * (r * r) * mean_gs);
+      if (RESIDUAL) ds += pt::to_f(dr[base + d]);
+      dx[base + d] = pt::from_f<T>(ds);
+      dw_acc[d] = fmaf(dyv * sv, r, dw_acc[d]);
+    }
+    __syncthreads();  // `red` is rewritten by the next row
+  }
+  for (int d = tid; d < h; d += kBwdThreads)
+    dw_part[(size_t)blockIdx.x * h + d] = dw_acc[d];
+}
+
+// dw[d] = sum over blocks of dw_part[b, d], in fp32, cast to T.
+template <typename T>
+__global__ void rmsnorm_dw_sum_kernel(const float* __restrict__ dw_part,
+                                      T* __restrict__ dw, int n_blocks,
+                                      int h) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= h) return;
+  float acc = 0.f;
+  for (int b = 0; b < n_blocks; ++b) acc += dw_part[(size_t)b * h + d];
+  dw[d] = pt::from_f<T>(acc);
+}
+
+template <typename T, bool RESIDUAL>
+void fwd(const void* x, const void* res, const void* w, void* y, void* s,
+         float* rstd, int n, int h, float eps, cudaStream_t st) {
+  const unsigned grid = (unsigned)((n + kFwdWarps - 1) / kFwdWarps);
+  rmsnorm_fwd_kernel<T, RESIDUAL><<<grid, kFwdWarps * 32, 0, st>>>(
+      (const T*)x, (const T*)res, (const T*)w, (T*)y, (T*)s, rstd, n, h, eps);
+}
+
+template <typename T, bool RESIDUAL>
+int bwd(const void* s, const void* w, const float* rstd, const void* dy,
+        const void* dr, void* dx, void* dw, float* dw_part, int n, int h,
+        int n_blocks, cudaStream_t st) {
+  const int rows_per_block = (n + n_blocks - 1) / n_blocks;
+  const size_t smem = sizeof(float) * (h + kBwdThreads / 32);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        rmsnorm_bwd_kernel<T, RESIDUAL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  rmsnorm_bwd_kernel<T, RESIDUAL><<<n_blocks, kBwdThreads, smem, st>>>(
+      (const T*)s, (const T*)w, rstd, (const T*)dy, (const T*)dr, (T*)dx,
+      dw_part, n, h, rows_per_block);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rmsnorm_dw_sum_kernel<T><<<(h + 255) / 256, 256, 0, st>>>(
+      dw_part, (T*)dw, n_blocks, h);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x, res, w, y, s share it). `res` and `s`
+// are read/written only when `residual` is 1. Returns cudaGetLastError().
+extern "C" int pt_rmsnorm_fwd(const void* x, const void* res, const void* w,
+                              void* y, void* s, void* rstd, int n, int h,
+                              float eps, int residual, int dtype,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n == 0) return (int)cudaGetLastError();
+  float* r = (float*)rstd;
+  if (dtype == 0) {
+    if (residual) fwd<float, true>(x, res, w, y, s, r, n, h, eps, st);
+    else fwd<float, false>(x, res, w, y, s, r, n, h, eps, st);
+  } else {
+    if (residual) fwd<__nv_bfloat16, true>(x, res, w, y, s, r, n, h, eps, st);
+    else fwd<__nv_bfloat16, false>(x, res, w, y, s, r, n, h, eps, st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Launches the row kernel on `n_blocks` blocks (fp32 scratch dw_part
+// [n_blocks, h] from the caller) and then the column sum into dw [h].
+extern "C" int pt_rmsnorm_bwd(const void* s, const void* w, const void* rstd,
+                              const void* dy, const void* dr, void* dx,
+                              void* dw, void* dw_part, int n, int h,
+                              int n_blocks, int residual, int dtype,
+                              void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* r = (const float*)rstd;
+  float* part = (float*)dw_part;
+  if (dtype == 0)
+    return residual
+        ? bwd<float, true>(s, w, r, dy, dr, dx, dw, part, n, h, n_blocks, st)
+        : bwd<float, false>(s, w, r, dy, dr, dx, dw, part, n, h, n_blocks, st);
+  return residual
+      ? bwd<__nv_bfloat16, true>(s, w, r, dy, dr, dx, dw, part, n, h,
+                                 n_blocks, st)
+      : bwd<__nv_bfloat16, false>(s, w, r, dy, dr, dx, dw, part, n, h,
+                                  n_blocks, st);
+}

@@ -1,13 +1,26 @@
-"""Flash-attention forward with per-row log-sum-exp.
+"""Flash attention with per-row log-sum-exp, forward and backward.
 
-Port of the forward half of ``paddle_tpu/kernels/flash_attention.py``:
+Port of ``paddle_tpu/kernels/flash_attention.py``:
 ``flash_attention_with_lse`` over ``[bh, s, d]`` and ``flash_attention``
 over the paddle layout ``[b, s, h, d]``. ``offset`` shifts q's global
 positions for the causal mask and ``lse`` is returned, as ring attention
-needs both. On a CUDA tensor the hand-written kernel
-(``csrc/flash_attention.cu``) runs or the call raises; on a CPU tensor
-:func:`flash_attention_plain` runs. The backward kernels wait for the
-training slice.
+needs both. ``flash_attention_with_lse`` is a ``torch.autograd.Function``:
+it saves q, k, v, o and lse and takes the cotangents of both o and lse,
+folded into ``delta = rowsum(dO * O) - dlse`` (plain PyTorch, as in the JAX
+``_flash_bwd``), which the two backward kernels read.
+
+Each of the three kernels has a wrapper that launches it on a CUDA tensor
+or raises, and runs its plain version on a CPU tensor:
+
+- :func:`flash_attention_fwd` (``csrc/flash_attention.cu``) /
+  :func:`flash_attention_plain`;
+- :func:`flash_attention_bwd_dkv` (``csrc/flash_attention_bwd.cu``) /
+  :func:`flash_attention_bwd_dkv_plain`;
+- :func:`flash_attention_bwd_dq` (same source) /
+  :func:`flash_attention_bwd_dq_plain`.
+
+The backward plain versions are the explicit formulas of the JAX kernels
+(``_bwd_dkv_kernel``, ``_bwd_dq_kernel``) over the dense score matrix.
 """
 from __future__ import annotations
 
@@ -19,24 +32,33 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention", "flash_attention_with_lse",
-           "flash_attention_plain", "COUNTS"]
+           "flash_attention_fwd", "flash_attention_plain",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
+           "COUNTS", "COUNTS_DKV", "COUNTS_DQ"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-COUNTS = _build.Counts()
+COUNTS = _build.Counts()      # forward
+COUNTS_DKV = _build.Counts()  # backward, dK/dV
+COUNTS_DQ = _build.Counts()   # backward, dQ
+
+
+def _mask(sq, sk, offset, causal, device):
+    """[sq, sk] visibility: key j is visible to row i iff j <= i + offset
+    under ``causal``, always otherwise."""
+    if not causal:
+        return torch.ones(sq, sk, dtype=torch.bool, device=device)
+    qpos = torch.arange(sq, device=device)[:, None] + int(offset)
+    return torch.arange(sk, device=device)[None, :] <= qpos
 
 
 def flash_attention_plain(q, k, v, offset, causal, scale):
     """Dense attention (the JAX ``_sdpa_xla`` math) plus the lse. A row
     that sees no key gives o = 0 and lse = -1e30, as the TPU kernel
     does."""
-    sq, sk = q.shape[1], k.shape[1]
+    mask = _mask(q.shape[1], k.shape[1], offset, causal, q.device)
     logits = torch.einsum("bqd,bkd->bqk", q, k).float() * scale
-    if causal:
-        qpos = torch.arange(sq, device=q.device)[:, None] + int(offset)
-        mask = torch.arange(sk, device=q.device)[None, :] <= qpos
-    else:
-        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
     logits = torch.where(mask, logits, _NEG)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(logits - m), 0.0)
@@ -45,18 +67,65 @@ def flash_attention_plain(q, k, v, offset, causal, scale):
     return o, (m + torch.log(l))[..., 0]
 
 
-def _launch(q, k, v, offset, causal, scale):
-    for name, t in (("k", k), ("v", v)):
+def _probs_plain(q, k, lse, offset, causal, scale):
+    """p = exp(scale * q.k - lse) on visible pairs, exactly 0 elsewhere
+    (fp32 [bh, sq, sk])."""
+    mask = _mask(q.shape[1], k.shape[1], offset, causal, q.device)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    return torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, offset, causal,
+                                  scale):
+    """dK, dV of the JAX ``_bwd_dkv_kernel`` over the dense scores, fp32,
+    returned in k's and v's dtype."""
+    p = _probs_plain(q, k, lse, offset, causal, scale)
+    dof = do.float()
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset, causal,
+                                 scale):
+    """dQ of the JAX ``_bwd_dq_kernel`` over the dense scores, fp32,
+    returned in q's dtype."""
+    p = _probs_plain(q, k, lse, offset, causal, scale)
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+
+
+def _check_kernel_inputs(name, q, tensors):
+    for t in tensors:
         if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+            raise ValueError(f"{name}: tensor on {t.device}, q on "
+                             f"{q.device}")
     if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if q.shape[2] > 256:
+        raise ValueError(f"{name} kernel takes head_dim <= 256, got "
+                         f"{q.shape[2]}")
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flash_attention_fwd(q, k, v, offset, causal, scale):
+    """(o, lse): the forward kernel on CUDA, the plain version on the
+    CPU."""
+    if q.device.type == "cpu":
+        COUNTS.plain()
+        return flash_attention_plain(q, k, v, offset, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_kernel_inputs("flash_attention", q, (k, v))
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d > 256:
-        raise ValueError(f"flash_attention kernel takes head_dim <= 256, "
-                         f"got {d}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
@@ -64,18 +133,104 @@ def _launch(q, k, v, offset, causal, scale):
                        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_void_p])
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
-                 float(scale), _DTYPES[q.dtype], stream)
+                 float(scale), _DTYPES[q.dtype], _stream(q))
     _build.check(err, "pt_flash_attention_fwd")
     COUNTS.launched()
     return o, lse
 
 
+def _bwd_inputs(q, k, v, do, lse, delta):
+    _check_kernel_inputs("flash_attention_bwd", q, (k, v, do, lse, delta))
+    bh, sq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d or \
+            do.shape != q.shape or tuple(lse.shape) != (bh, sq) or \
+            tuple(delta.shape) != (bh, sq) or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise ValueError(
+            f"flash_attention_bwd: q {tuple(q.shape)} {q.dtype}, k "
+            f"{tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} {v.dtype}, do "
+            f"{tuple(do.shape)}, lse {tuple(lse.shape)}, delta "
+            f"{tuple(delta.shape)} do not fit")
+    return (q.contiguous(), k.contiguous(), v.contiguous(),
+            do.to(q.dtype).contiguous(), lse.float().contiguous(),
+            delta.float().contiguous())
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, offset, causal, scale):
+    """(dK, dV): the dK/dV kernel on CUDA, the plain version on the CPU.
+    ``delta`` = rowsum(dO * O) - dlse, fp32 [bh, sq]."""
+    if q.device.type == "cpu":
+        COUNTS_DKV.plain()
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, offset,
+                                             causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.kernel("pt_flash_attention_bwd_dkv", [ctypes.c_void_p] * 8 +
+                       [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                             ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
+                 float(scale), _DTYPES[q.dtype], _stream(q))
+    _build.check(err, "pt_flash_attention_bwd_dkv")
+    COUNTS_DKV.launched()
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, offset, causal, scale):
+    """dQ: the dQ kernel on CUDA, the plain version on the CPU."""
+    if q.device.type == "cpu":
+        COUNTS_DQ.plain()
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset,
+                                            causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dq = torch.empty_like(q)
+    fn = _build.kernel("pt_flash_attention_bwd_dq", [ctypes.c_void_p] * 7 +
+                       [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                             ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq, sk,
+                 d, int(offset), int(bool(causal)), float(scale),
+                 _DTYPES[q.dtype], _stream(q))
+    _build.check(err, "pt_flash_attention_bwd_dq")
+    COUNTS_DQ.launched()
+    return dq
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, offset, causal, scale):
+        o, lse = flash_attention_fwd(q, k, v, offset, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (offset, causal, scale)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        # the lse cotangent folds into the same ds formula (d lse / d s = p)
+        delta = (do.float() * o.float()).sum(dim=-1) - dlse.float()
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, *ctx.args)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_with_lse(q, k, v, offset=0, causal=False, scale=None):
     """q/k/v: [bh, s, d]. Returns (out [bh, sq, d] in q.dtype, lse [bh, sq]
-    fp32). ``offset`` shifts q's global positions for the causal mask."""
+    fp32), differentiable in q, k and v through both outputs. ``offset``
+    shifts q's global positions for the causal mask."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape or \
             q.shape[0] != k.shape[0] or q.shape[2] != k.shape[2]:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}"
@@ -84,12 +239,8 @@ def flash_attention_with_lse(q, k, v, offset=0, causal=False, scale=None):
         raise TypeError("q, k and v must share a dtype")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cuda":
-        return _launch(q, k, v, offset, causal, scale)
-    if q.device.type != "cpu":
-        raise ValueError(f"unsupported device {q.device}")
-    COUNTS.plain()
-    return flash_attention_plain(q, k, v, offset, causal, scale)
+    return _FlashAttention.apply(q, k, v, int(offset), bool(causal),
+                                 float(scale))
 
 
 def flash_attention(q, k, v, causal: bool = False, scale: float = None):

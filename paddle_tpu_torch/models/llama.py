@@ -1,0 +1,287 @@
+"""Llama-family causal LM (port of ``paddle_tpu/models/llama.py``).
+
+Pre-norm decoder layers with RMSNorm, rotate-half RoPE, grouped-query
+attention (``num_key_value_heads`` < ``num_attention_heads``) and a SwiGLU
+MLP, no biases. The layer takes the fused form the TPU runs with the
+JAX package's fused-kernel gate open: ``input_layernorm`` -> attention ->
+``rms_norm_residual`` (residual add and post-attention norm in one kernel)
+-> MLP. On CUDA the norms, RoPE and attention (forward and backward) run the
+hand-written kernels of ``paddle_tpu_torch.kernels``.
+
+Parameter names follow the JAX package with its scanned layer stack
+unrolled (``llama.layers.3.self_attn.q_proj.weight``); Linear weights are
+PyTorch's ``[out, in]``. ``models.convert.llama_state_from_numpy`` moves a
+JAX state dict across. Left out: the KV-cache branch of attention (training
+does not use it) and context parallelism (the distributed slice).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as TF
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..device import resolve_device, seed
+from ..kernels.rope import rope_apply
+from ..nn import RMSNorm
+from ..nn.functional import rms_norm_residual, scaled_dot_product_attention
+
+__all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
+           "LlamaModel", "LlamaForCausalLM", "apply_rotary_pos_emb",
+           "llama_flops_per_token", "llama_param_count"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+IGNORE_INDEX = -100
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    use_recompute: bool = False
+    ce_chunk: int = 2048  # fused lm_head + CE token-chunk size
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.dtype not in _DTYPES:
+            raise ValueError(f"dtype {self.dtype!r} not in {sorted(_DTYPES)}")
+        if self.hidden_size % self.num_attention_heads or \
+                self.num_attention_heads % self.num_key_value_heads:
+            raise ValueError("hidden_size must divide into the heads and the "
+                             "heads into the key/value heads")
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @staticmethod
+    def llama2_7b(**overrides):
+        return LlamaConfig(**{**dict(
+            vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+            num_hidden_layers=32, num_attention_heads=32,
+            num_key_value_heads=32, max_position_embeddings=4096),
+            **overrides})
+
+    @staticmethod
+    def llama3_8b(**overrides):
+        return LlamaConfig(**{**dict(
+            vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=32, num_attention_heads=32,
+            num_key_value_heads=8, max_position_embeddings=8192,
+            rope_theta=500000.0), **overrides})
+
+    @staticmethod
+    def tiny(**overrides):
+        return LlamaConfig(**{**dict(
+            vocab_size=256, hidden_size=128, intermediate_size=256,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, max_position_embeddings=256,
+            dtype="float32"), **overrides})
+
+
+def apply_rotary_pos_emb(x, theta: float = 10000.0, pos_offset: int = 0):
+    """Rotate-half RoPE on [b, s, h, d] through the RoPE kernel."""
+    return rope_apply(x, theta, pos_offset)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.config = config
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.hidden_size // config.num_attention_heads
+        h, hd = config.hidden_size, self.head_dim
+        self.q_proj = nn.Linear(h, self.num_heads * hd, bias=False)
+        self.k_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False)
+        self.v_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False)
+        self.o_proj = nn.Linear(self.num_heads * hd, h, bias=False)
+
+    def forward(self, hidden):
+        b, s = hidden.shape[0], hidden.shape[1]
+        hd, theta = self.head_dim, self.config.rope_theta
+        q = self.q_proj(hidden).view(b, s, self.num_heads, hd)
+        k = self.k_proj(hidden).view(b, s, self.num_kv_heads, hd)
+        v = self.v_proj(hidden).view(b, s, self.num_kv_heads, hd)
+        q = apply_rotary_pos_emb(q, theta)
+        k = apply_rotary_pos_emb(k, theta)
+        if self.num_kv_heads != self.num_heads:
+            rep = self.num_heads // self.num_kv_heads
+            k = k.repeat_interleave(rep, dim=2)
+            v = v.repeat_interleave(rep, dim=2)
+        out = scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           training=self.training)
+        return self.o_proj(out.reshape(b, s, self.num_heads * hd))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        self.gate_proj = nn.Linear(h, i, bias=False)
+        self.up_proj = nn.Linear(h, i, bias=False)
+        self.down_proj = nn.Linear(i, h, bias=False)
+
+    def forward(self, x):
+        return self.down_proj(TF.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.self_attn = LlamaAttention(config)
+        self.mlp = LlamaMLP(config)
+        self.input_layernorm = RMSNorm(config.hidden_size,
+                                       config.rms_norm_eps)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size,
+                                                config.rms_norm_eps)
+
+    def forward(self, hidden):
+        attn_out = self.self_attn(self.input_layernorm(hidden))
+        norm = self.post_attention_layernorm
+        mlp_in, hidden = rms_norm_residual(attn_out, hidden, norm.weight,
+                                           norm.epsilon)
+        return hidden + self.mlp(mlp_in)
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size,
+                                         config.hidden_size)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+
+    def forward(self, input_ids):
+        hidden = self.embed_tokens(input_ids)
+        remat = self.config.use_recompute and self.training and \
+            torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                # the layer's forward runs again in the backward; the model
+                # draws no random numbers, so no RNG state is stashed
+                hidden = checkpoint(layer, hidden, use_reentrant=False,
+                                    preserve_rng_state=False)
+            else:
+                hidden = layer(hidden)
+        return self.norm(hidden)
+
+
+def _ce_chunk_sum(h, w, lab):
+    """Summed CE of one token chunk: logits [c, vocab] in fp32 live only
+    inside this call (and again in its backward, under checkpoint)."""
+    logits = torch.matmul(h, w.t()).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    mask = lab != IGNORE_INDEX
+    safe = torch.where(mask, lab, 0)
+    picked = logp.gather(1, safe[:, None])[:, 0]
+    return -torch.where(mask, picked, 0.0).sum()
+
+
+def fused_linear_ce(hidden2d, w, labels1d, chunk):
+    """lm_head product + softmax cross entropy over token chunks (the JAX
+    ``_fused_linear_ce``): ``n_chunks = max(n // chunk, 1)`` chunks of
+    ``ceil(n / n_chunks)`` tokens, padded rows masked with -100 (the
+    ignored label), mean over the counted tokens. ``w`` is the head weight
+    [vocab, h]. The fp32 [N, vocab] logits never exist at once: each chunk
+    is checkpointed, so its logits are recomputed in the backward, one
+    chunk at a time."""
+    n = hidden2d.shape[0]
+    n_chunks = max(n // chunk, 1)
+    c = -(-n // n_chunks)
+    pad = n_chunks * c - n
+    if pad:
+        hidden2d = TF.pad(hidden2d, (0, 0, 0, pad))
+        labels1d = TF.pad(labels1d, (0, pad), value=IGNORE_INDEX)
+    total = hidden2d.new_zeros((), dtype=torch.float32)
+    grad = torch.is_grad_enabled() and (hidden2d.requires_grad
+                                        or w.requires_grad)
+    for i in range(n_chunks):
+        h, lab = hidden2d[i * c:(i + 1) * c], labels1d[i * c:(i + 1) * c]
+        if grad:
+            total = total + checkpoint(_ce_chunk_sum, h, w, lab,
+                                       use_reentrant=False,
+                                       preserve_rng_state=False)
+        else:
+            total = total + _ce_chunk_sum(h, w, lab)
+    count = (labels1d != IGNORE_INDEX).sum().clamp_min(1)
+    return total / count
+
+
+class LlamaForCausalLM(nn.Module):
+    """Built on ``device`` (``None`` = CUDA) in ``config.dtype``, with
+    random weights drawn from ``generator`` (a ``torch.Generator`` on that
+    device; ``None`` = seed 0): normal(0, 0.02) matrices and embeddings,
+    unit RMSNorm weights."""
+
+    def __init__(self, config: LlamaConfig, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.config = config
+        with torch.device("meta"):
+            self.llama = LlamaModel(config)
+            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                     bias=False)
+        self.to_empty(device=dev)
+        self.to(config.torch_dtype)
+        if config.tie_word_embeddings:
+            # after materialising: to_empty gives every module its own copy
+            self.lm_head.weight = self.llama.embed_tokens.weight
+        self._init_weights(generator if generator is not None
+                           else seed(0, dev))
+
+    @torch.no_grad()
+    def _init_weights(self, g: torch.Generator):
+        for name, p in self.named_parameters():
+            if name.endswith("layernorm.weight") or name == "llama.norm.weight":
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=g)
+
+    def forward(self, input_ids, labels=None):
+        """``input_ids`` [b, s] -> logits [b, s, vocab]; with ``labels``
+        [b, s], the mean next-token CE (fp32 scalar) through the chunked
+        fused head, labels equal to -100 not counted."""
+        hidden = self.llama(input_ids)
+        if labels is None:
+            return self.lm_head(hidden)
+        h = hidden[:, :-1, :].reshape(-1, self.config.hidden_size)
+        lab = labels[:, 1:].reshape(-1)
+        return fused_linear_ce(h, self.lm_head.weight, lab,
+                               self.config.ce_chunk)
+
+    def loss_from_logits(self, logits, labels):
+        v = self.config.vocab_size
+        return TF.cross_entropy(logits[:, :-1, :].reshape(-1, v).float(),
+                                labels[:, 1:].reshape(-1),
+                                ignore_index=IGNORE_INDEX)
+
+
+def llama_param_count(config: LlamaConfig) -> int:
+    h, i, v, L = (config.hidden_size, config.intermediate_size,
+                  config.vocab_size, config.num_hidden_layers)
+    kvh = config.num_key_value_heads * (h // config.num_attention_heads)
+    per_layer = h * h + 2 * h * kvh + h * h + 3 * h * i + 2 * h
+    return L * per_layer + 2 * v * h + h
+
+
+def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+    """Model FLOPs per token (forward + backward, 6N plus the attention
+    term), for MFU."""
+    attn = 12 * config.num_hidden_layers * config.hidden_size * seq_len
+    return 6 * llama_param_count(config) + attn

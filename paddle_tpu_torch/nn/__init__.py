@@ -1,3 +1,4 @@
 from . import functional
+from .layer import RMSNorm
 
-__all__ = ["functional"]
+__all__ = ["functional", "RMSNorm"]

@@ -2,10 +2,10 @@
 
 Layout convention (paddle's): q/k/v are [batch, seq, num_heads, head_dim].
 On CUDA ``scaled_dot_product_attention`` always goes to the hand-written
-flash kernel: the JAX package's ``attention_backend`` gate encodes TPU tile
-rules (block-divisible sequences, MXU head dims) and has no counterpart
-here, since the kernel masks ragged edges. On CPU the kernel's plain
-version runs.
+flash kernels, forward and backward: the JAX package's ``attention_backend``
+gate encodes TPU tile rules (block-divisible sequences, MXU head dims) and
+has no counterpart here, since the kernels mask ragged edges. On CPU the
+kernels' plain versions run.
 """
 from __future__ import annotations
 
@@ -22,11 +22,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     KV-cached decode step attends its whole cache."""
     if attn_mask is not None:
         raise NotImplementedError(
-            "attn_mask is not ported yet (serving needs none); see "
-            "ROADMAP.md, Queue 1")
+            "attn_mask is not ported yet (serving and the Llama step need "
+            "none); see ROADMAP.md, Queue 1")
     if dropout_p > 0.0 and training:
         raise NotImplementedError(
-            "attention dropout is not ported yet (serving needs none); see "
-            "ROADMAP.md, Queue 1")
+            "attention dropout is not ported yet (serving and the Llama "
+            "step need none); see ROADMAP.md, Queue 1")
     return flash_attention(query, key, value, causal=bool(is_causal),
                            scale=scale)

@@ -2,7 +2,8 @@
 
 On the CPU the port's wrappers run their plain PyTorch versions; these are
 held against the JAX package's Pallas kernels run in interpret mode (and,
-for paged attention, its composed twin too) on the same numpy inputs. The
+for paged attention and RMSNorm, its composed twin too) on the same numpy
+inputs, forward and gradients. The
 CUDA kernels are held against the plain versions by the tests marked
 ``gpu``, which skip without a card and live in ``test_torch_gpu.py``.
 """
@@ -10,13 +11,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.kernels import flash_attention as jflash
 from paddle_tpu.kernels.pallas import paged_attention as jpaged
+from paddle_tpu.kernels.pallas import rmsnorm as jrms
+from paddle_tpu.kernels.pallas import rope as jrope
 from paddle_tpu_torch.kernels import (counters, flash_attention,
                                       flash_attention_with_lse,
-                                      paged_attention, reset_counters)
+                                      paged_attention, reset_counters,
+                                      rms_norm, rms_norm_residual,
+                                      rope_apply)
 
 # fp32 on both sides; the two differ only in summation order
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -130,3 +136,112 @@ def test_wrappers_reject_bad_inputs():
         flash_attention_with_lse(torch.zeros(1, 2, 8),
                                  torch.zeros(1, 2, 8, dtype=torch.float64),
                                  torch.zeros(1, 2, 8, dtype=torch.float64))
+
+
+def _grads(fn, inputs, cotangents):
+    """Outputs of ``fn`` on leaf copies of ``inputs`` and the gradients of
+    sum(out * cotangent) with respect to each input."""
+    leaves = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, [torch.from_numpy(c) for c in cotangents])
+    return ([o.detach().numpy() for o in outs],
+            [t.grad.numpy() for t in leaves])
+
+
+@pytest.mark.parametrize("sq,sk,offset,causal", [
+    (16, 16, 0, True),     # self-attention, two 8-row blocks each way
+    (16, 24, 8, True),     # sq != sk, bottom-right aligned
+    (24, 32, 3, True),     # offset > 0 that is not sk - sq
+    (16, 16, -4, True),    # the first rows see no key: zero gradients
+    (8, 24, 0, False),
+])
+def test_flash_attention_backward_matches_jax(sq, sk, offset, causal):
+    """dq, dk, dv of a loss that reads both o and lse, against jax.vjp of
+    the Pallas kernels in interpret mode (8-row blocks, so the backward
+    grids take several steps)."""
+    rng = np.random.default_rng(11)
+    bh, d, scale = 2, 16, 0.3
+    q = rng.standard_normal((bh, sq, d), dtype=np.float32)
+    k = rng.standard_normal((bh, sk, d), dtype=np.float32)
+    v = rng.standard_normal((bh, sk, d), dtype=np.float32)
+    go = rng.standard_normal((bh, sq, d), dtype=np.float32)
+    gl = rng.standard_normal((bh, sq), dtype=np.float32)
+    (jo, jl), vjp = jax.vjp(
+        lambda a, b, c: jflash.flash_attention_with_lse(
+            a, b, c, offset, causal, scale, 8, 8), q, k, v)
+    jgrads = vjp((jnp.asarray(go), jnp.asarray(gl)))
+    reset_counters()
+    (o, lse), grads = _grads(
+        lambda a, b, c: flash_attention_with_lse(a, b, c, offset, causal,
+                                                 scale), (q, k, v), (go, gl))
+    _close(o, jo)
+    _close(lse, jl)
+    for got, ref in zip(grads, jgrads):
+        _close(got, ref, rtol=1e-4, atol=1e-4)  # fp32, longer sums
+    c = counters()
+    assert c["flash_attention_bwd_dkv"] == {"launches": 0, "plain_calls": 1}
+    assert c["flash_attention_bwd_dq"] == {"launches": 0, "plain_calls": 1}
+    if offset < 0:  # rows that see no key get exactly zero dq
+        assert not grads[0][:, :-offset].any()
+
+
+@pytest.mark.parametrize("impl", ["interpret", "composed"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", [(3, 5, 40), (7, 129)])
+def test_rms_norm_matches_jax(shape, residual, impl):
+    """Forward outputs and every gradient (x, res, w, and through s's own
+    cotangent) against the Pallas kernels in interpret mode and the
+    composed twin; odd widths and row counts."""
+    rng = np.random.default_rng(12)
+    h, eps = shape[-1], 1e-5
+    x = rng.standard_normal(shape, dtype=np.float32)
+    res = rng.standard_normal(shape, dtype=np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(h)).astype(np.float32)
+    gy = rng.standard_normal(shape, dtype=np.float32)
+    gs = rng.standard_normal(shape, dtype=np.float32)
+    reset_counters()
+    if residual:
+        jout, vjp = jax.vjp(lambda a, b, c: jrms.rms_norm_residual(
+            a, b, c, eps, impl=impl), x, res, w)
+        jgrads = vjp((jnp.asarray(gy), jnp.asarray(gs)))
+        outs, grads = _grads(lambda a, b, c: rms_norm_residual(a, b, c, eps),
+                             (x, res, w), (gy, gs))
+        name = "rms_norm_residual"
+    else:
+        jout, vjp = jax.vjp(lambda a, c: jrms.rms_norm(a, c, eps, impl=impl),
+                            x, w)
+        jgrads = vjp(jnp.asarray(gy))
+        jout = (jout,)
+        outs, grads = _grads(lambda a, c: rms_norm(a, c, eps), (x, w), (gy,))
+        name = "rms_norm"
+    for got, ref in zip(outs, jout):
+        _close(got, ref)
+    for got, ref in zip(grads, jgrads):
+        _close(got, ref, rtol=1e-4, atol=1e-4)  # dw sums over rows
+    c = counters()
+    assert c[name] == {"launches": 0, "plain_calls": 1}
+    assert c[name + "_bwd"] == {"launches": 0, "plain_calls": 1}
+
+
+@pytest.mark.parametrize("pos_offset,theta", [(0, 10000.0), (37, 10000.0),
+                                              (5, 500000.0)])
+def test_rope_matches_jax(pos_offset, theta):
+    """Forward and gradient (the inverse rotation of the cotangent) against
+    the Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 10, 3, 16), dtype=np.float32)
+    g = rng.standard_normal(x.shape, dtype=np.float32)
+    jout, vjp = jax.vjp(lambda a: jrope.rope_apply(
+        a, theta, pos_offset, impl="interpret"), x)
+    (jgrad,) = vjp(jnp.asarray(g))
+    reset_counters()
+    (out,), (grad,) = _grads(lambda a: rope_apply(a, theta, pos_offset),
+                             (x,), (g,))
+    _close(out, jout)
+    _close(grad, jgrad)
+    c = counters()
+    assert c["rope"] == {"launches": 0, "plain_calls": 1}
+    assert c["rope_inverse"] == {"launches": 0, "plain_calls": 1}
+    with pytest.raises(ValueError, match="even"):
+        rope_apply(torch.zeros(1, 2, 1, 3))

@@ -19,6 +19,7 @@ from paddle_tpu.serving.generation import (_build_window_step,
                                            _extract_gpt_params)
 from paddle_tpu_torch import resolve_device, seed
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                     LlamaConfig, LlamaForCausalLM,
                                      gpt_engine_params)
 from paddle_tpu_torch.serving import (DeadlineExceeded, GenerationConfig,
                                       GenerationEngine, PagedKVPool,
@@ -197,6 +198,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         seed(0)
     with pytest.raises(RuntimeError, match="CUDA"):
         GPTForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaForCausalLM(LlamaConfig.tiny())
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedKVPool(1, 4, 2, 1, 2)
     model = GPTForCausalLM(cfg, device="cpu")
