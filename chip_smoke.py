@@ -38,6 +38,28 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              and read after (each kernel's launches per step as reckoned
              from the code, no plain call), a falling finite loss, step
              time, tokens/s, MFU, peak memory and a profiled step.
+8. moe-kernels — the MoE path's kernels (routing, row gather, combine,
+             grouped GEMM forward, dgrad and wgrad) at the MoE step's shapes
+             (timed, with bound and yardstick) and at odd shapes (token
+             counts that no block divides, an expert with no row and one
+             with one row, top_k 1 and 8, 128 experts) against their plain
+             versions.
+9. moe-train-parity — fp32, the 1.46B MoE Llama's width at depth 2, batch
+             2 x 512, fused dispatch: one step's loss and every gradient
+             through the kernels against the plain-swapped step, then a
+             3-step Adafactor loss curve of both.
+10. moe-train — bf16, the 1.46B MoE Llama (DeepSeekMoE-style, 8 experts,
+             top-2) at full width and depth (16 layers, recompute),
+             Adafactor lr 1e-2, batch 4 x 2048: full-depth gradients
+             against the plain-swapped step, which replays the routing
+             kernel's top-k picks so that no near-tie routes a token
+             elsewhere, with three planted faults that the check must catch
+             (routing without its cross-block base, a grouped GEMM forward
+             and a wgrad that drop each group's last partial row tile);
+             then steps with the
+             counters reset before and read after (exact launches, no plain
+             call), a falling finite loss, step time, tokens/s, MFU on
+             activated FLOPs, peak memory and a profiled step.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
@@ -901,8 +923,10 @@ def _flash_module():
 
 def _plain_swaps():
     """(module, attribute, plain version) for every kernel wrapper that
-    the training path calls; the autograd functions look these attributes
-    up at call time."""
+    the training paths (dense and MoE) call; the autograd functions and
+    the MoE MLP look these attributes up at call time."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.kernels import moe_dispatch as md
     from paddle_tpu_torch.kernels import rmsnorm, rope
 
     fa = _flash_module()
@@ -911,7 +935,11 @@ def _plain_swaps():
             (fa, "flash_attention_bwd_dq", fa.flash_attention_bwd_dq_plain),
             (rmsnorm, "rms_norm_fwd", rmsnorm.rms_norm_fwd_plain),
             (rmsnorm, "rms_norm_bwd", rmsnorm.rms_norm_bwd_plain),
-            (rope, "rope", rope.rope_plain)]
+            (rope, "rope", rope.rope_plain),
+            (md, "route", md.route_plain),
+            (md, "gather_rows", md.gather_rows_plain),
+            (md, "combine_rows", md.combine_rows_plain),
+            (gm, "gmm", gm.gmm_plain), (gm, "tgmm", gm.tgmm_plain)]
 
 
 def _faulty(fault):
@@ -982,6 +1010,29 @@ def _train_curve(model, state, ids, steps):
     return [float(step(ids, ids)) for _ in range(steps)]
 
 
+# the kernels of the dense training step, and their launches per step as
+# reckoned from the code: recompute runs every layer's forward twice, the
+# final norm adds one forward and one backward
+DENSE_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
+                       "flash_attention_bwd_dq", "rms_norm",
+                       "rms_norm_residual", "rms_norm_bwd",
+                       "rms_norm_residual_bwd", "rope", "rope_inverse")
+
+
+def _dense_launches(L):
+    """{counter: launches per step} of the dense training step; every
+    other counter 0."""
+    from paddle_tpu_torch import kernels
+
+    per_step = {n: 0 for n in kernels.counters()}
+    per_step.update({
+        "flash_attention": 2 * L, "flash_attention_bwd_dkv": L,
+        "flash_attention_bwd_dq": L, "rms_norm": 2 * L + 1,
+        "rms_norm_residual": 2 * L, "rms_norm_bwd": L + 1,
+        "rms_norm_residual_bwd": L, "rope": 4 * L, "rope_inverse": 2 * L})
+    return per_step
+
+
 def phase_train_parity(seed):
     import torch
 
@@ -1004,7 +1055,7 @@ def phase_train_parity(seed):
     loss_k, grads_k = _loss_and_grads(model, ids)
     counts = kernels.counters()
     unused = [n for n, c in counts.items() if c["plain_calls"]
-              or (c["launches"] == 0 and n != "paged_attention")]
+              or (c["launches"] == 0 and n in DENSE_TRAIN_KERNELS)]
     if unused:
         raise RuntimeError(f"train-parity: kernels not all launched: "
                            f"{ {n: counts[n] for n in unused} }")
@@ -1036,7 +1087,13 @@ def phase_train_parity(seed):
 
 def _train_group(name):
     low = name.lower()
-    for key, group in (("flash_fwd_kernel", "flash_fwd"),
+    for key, group in (("tgmm_kernel", "grouped_gemm_wgrad"),
+                       ("gmm_kernel", "grouped_gemm"),
+                       ("route_local_kernel", "moe_route"),
+                       ("route_scan_kernel", "moe_route"),
+                       ("gather_rows_kernel", "moe_gather"),
+                       ("combine_rows_kernel", "moe_combine"),
+                       ("flash_fwd_kernel", "flash_fwd"),
                        ("flash_bwd_dkv", "flash_bwd_dkv"),
                        ("flash_bwd_dq", "flash_bwd_dq"),
                        ("rmsnorm", "rmsnorm"), ("rope_kernel", "rope"),
@@ -1189,12 +1246,7 @@ def phase_train(seed):
     counts = kernels.counters()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     L = cfg.num_hidden_layers
-    # per step, from the code: recompute runs every layer's forward twice
-    per_step = {"flash_attention": 2 * L, "flash_attention_bwd_dkv": L,
-                "flash_attention_bwd_dq": L, "rms_norm": 2 * L + 1,
-                "rms_norm_residual": 2 * L, "rms_norm_bwd": L + 1,
-                "rms_norm_residual_bwd": L, "rope": 4 * L,
-                "rope_inverse": 2 * L, "paged_attention": 0}
+    per_step = _dense_launches(L)
     wrong = {n: (c, per_step[n] * TRAIN_STEPS) for n, c in counts.items()
              if c["plain_calls"] or
              c["launches"] != per_step[n] * TRAIN_STEPS}
@@ -1222,10 +1274,586 @@ def phase_train(seed):
     return counts
 
 
-def _kernels_line(rows, serving, training):
+# -- phase: MoE kernels -------------------------------------------------------
+
+def _gmm_tol(dtype):
+    """(rtol, atol) of the grouped GEMM kernels against their plain versions
+    on fp32 copies of the same inputs, which are scaled so that the outputs
+    are O(1): fp32 order differences stay near 1e-6; bf16 adds one rounding
+    of the result (2**-8 of the value)."""
+    import torch
+
+    return (1e-5, 1e-4) if dtype == torch.float32 else (2.0 ** -8, 1e-4)
+
+
+def _gmm_case(label, dtype, sizes, k, n, gen, timed=True):
+    """Forward, dgrad and wgrad kernels on ``sizes`` row groups (a device
+    int32 tensor or a list): lhs [m, k] / sqrt(k), rhs [g, k, n], dout
+    [m, n] / sqrt(n), so that the forward and dgrad outputs are O(1).
+    Returns one row per kernel."""
+    import torch
+
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+
+    gs = torch.as_tensor(sizes, dtype=torch.int32, device=DEVICE)
+    host = gs.tolist()
+    m, g = int(sum(host)), len(host)
+    lhs = (_rand(gen, (m, k), torch.float32) / k ** 0.5).to(dtype)
+    rhs = _rand(gen, (g, k, n), dtype)
+    dout = (_rand(gen, (m, n), torch.float32) / n ** 0.5).to(dtype)
+    out = gm.gmm(lhs, rhs, gs)
+    d_lhs = gm.gmm(dout, rhs, gs, trans_rhs=True)
+    d_rhs = gm.tgmm(lhs, dout, gs)
+    torch.cuda.synchronize()
+    f32 = [t.float() for t in (lhs, rhs, dout)]
+    tol = _gmm_tol(dtype)
+    errs = [_compare(f"grouped_matmul[{label}]", out,
+                     gm.gmm_plain(f32[0], f32[1], gs), tol)[0],
+            _compare(f"grouped_matmul_dgrad[{label}]", d_lhs,
+                     gm.gmm_plain(f32[2], f32[1], gs, True), tol)[0],
+            _compare(f"grouped_matmul_wgrad[{label}]", d_rhs,
+                     gm.tgmm_plain(f32[0], f32[2], gs), tol)[0]]
+    for j, size in enumerate(host):
+        if size == 0 and d_rhs[j].abs().max().item() != 0.0:
+            raise RuntimeError(f"grouped_matmul_wgrad[{label}]: empty group "
+                               f"{j} has a non-zero gradient")
+    del f32
+    base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
+            "m": m, "k": k, "n": n, "groups": g,
+            "group_sizes": host if g <= 16 else None, "tol": tol}
+    names = ("grouped_matmul", "grouped_matmul_dgrad", "grouped_matmul_wgrad")
+    rows = [dict(base, kernel=nm, max_abs_err=err)
+            for nm, err in zip(names, errs)]
+    if timed:
+        ranges, start = [], 0
+        for size in host:
+            ranges.append((start, start + size))
+            start += size
+        rhs_t = rhs.transpose(1, 2)
+        calls = (
+            (lambda: gm.gmm(lhs, rhs, gs), lambda: gm.gmm_plain(lhs, rhs, gs),
+             lambda: [lhs[a:b] @ rhs[j] for j, (a, b) in enumerate(ranges)],
+             m * k + g * k * n + m * n),
+            (lambda: gm.gmm(dout, rhs, gs, trans_rhs=True),
+             lambda: gm.gmm_plain(dout, rhs, gs, True),
+             lambda: [dout[a:b] @ rhs_t[j] for j, (a, b) in enumerate(ranges)],
+             m * n + g * k * n + m * k),
+            (lambda: gm.tgmm(lhs, dout, gs),
+             lambda: gm.tgmm_plain(lhs, dout, gs),
+             lambda: [lhs[a:b].t() @ dout[a:b] for a, b in ranges],
+             m * k + m * n + g * k * n))
+        for row, (kern, plain, lib, elems) in zip(rows, calls):
+            # the yardstick is a per-group loop of cuBLAS products in the
+            # inputs' type: the port never calls it
+            b_ms, b_by = _bound(elems * lhs.element_size(), 2 * m * k * n,
+                                _dname(dtype))
+            row.update(kernel_ms=_time_ms(kern, iters=10, warmup=2),
+                       plain_ms=_time_ms(plain, iters=5, warmup=1),
+                       library_ms=_time_ms(lib, iters=10, warmup=2),
+                       library="per-group torch.matmul loop (cuBLAS)",
+                       bound_ms=b_ms, bound_by=b_by,
+                       tflops=2 * m * k * n / 1e9)
+            row["tflop_per_s"] = row["tflops"] / row["kernel_ms"]
+    for row in rows:
+        _emit(row)
+    return rows
+
+
+def _route_inputs(dtype, n, h, e, seed, special=False):
+    """Router inputs drawn with numpy (x ~ N(0, 1), wg ~ N(0, 0.3^2)), so
+    that their top-k margin can be checked off the card; with ``special``
+    expert e-1 gets no row and expert e-2 exactly one (token 0)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, h), dtype=np.float32)
+    wg = 0.3 * rng.standard_normal((h, e), dtype=np.float32)
+    if special:
+        x[:, 0] = 4.0
+        x[:, 1] = 0.0
+        x[0, 1] = 4.0
+        wg[0, e - 1] = wg[0, e - 2] = -4.0
+        wg[1, e - 2] = 12.0
+    return (torch.from_numpy(x).to(DEVICE).to(dtype),
+            torch.from_numpy(wg).to(DEVICE).to(dtype))
+
+
+def _logit_margin(xt, wg, k):
+    """Smallest gap between consecutive fp64 logits among a token's top
+    k + 1. The kernel's and the plain version's fp32 logits differ by
+    summation order (~2e-5 at h = 1536); above 1e-4 no near-tie decides a
+    choice, and choices, positions and counts must agree exactly."""
+    logits = xt.double() @ wg.double()
+    top = logits.sort(dim=1, descending=True).values[:, :k + 1]
+    return (top[:, :-1] - top[:, 1:]).min().item()
+
+
+def _route_case(label, dtype, n, h, e, k, seed, special=False, timed=True):
+    """The routing kernel against its plain version: choices, positions,
+    counts and top-1 counts exact, gates within 1e-4 and probability sums
+    within rtol 1e-4 (the fp32 logits differ by ~2e-5). Returns (row, the
+    kernel's counts)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    xt, wg = _route_inputs(dtype, n, h, e, seed, special)
+    margin = _logit_margin(xt, wg, k)
+    if not margin > 1e-4:
+        raise RuntimeError(f"moe_route[{label}]: inputs have a near-tie "
+                           f"(margin {margin}); the exact check needs > 1e-4")
+    got = md.route(xt, wg, k)
+    torch.cuda.synchronize()
+    ref = md.route_plain(xt, wg, k)
+    names = ("gv", "gi", "pos", "cnt", "me", "ce")
+    for name, a, b in zip(names, got, ref):
+        if name in ("gi", "pos", "cnt", "ce") and not torch.equal(a, b):
+            bad = (a != b).sum().item()
+            raise RuntimeError(f"moe_route[{label}].{name}: {bad} entries "
+                               f"differ from the plain version")
+    err = _compare(f"moe_route[{label}].gv", got[0], ref[0], (0.0, 1e-4))[0]
+    _compare(f"moe_route[{label}].me", got[4], ref[4], (1e-4, 1e-4))
+    again = md.route(xt, wg, k)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise RuntimeError(f"moe_route[{label}]: two runs differ")
+    cnt = got[3]
+    if special and not (cnt[e - 1].item() == 0 and cnt[e - 2].item() == 1):
+        raise RuntimeError(f"moe_route[{label}]: counts {cnt.tolist()}")
+    row = {"phase": "kernel", "kernel": "moe_route", "case": label,
+           "dtype": _dname(dtype), "n": n, "h": h, "e": e, "top_k": k,
+           "margin": margin, "max_abs_err": err, "tol": (0.0, 1e-4),
+           "counts": cnt.tolist() if e <= 16 else None}
+    if timed:
+        esz = xt.element_size()
+        nbytes = (n * h + h * e) * esz + n * k * 12 + 3 * e * 4
+        b_ms, b_by = _bound(nbytes, 2 * n * h * e, "float32")
+        row.update(kernel_ms=_time_ms(lambda: md.route(xt, wg, k)),
+                   plain_ms=_time_ms(lambda: md.route_plain(xt, wg, k)),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    _emit(row)
+    return row, cnt
+
+
+def _rows_case(label, dtype, n, k, h, gen, timed=True):
+    """Gather (exact) and combine (``_tol``) kernels against their plain
+    versions: gather [n * k] rows of a [n, h] source, each source row k
+    times in a shuffled order (as the dispatch's ``g2f // k`` does), and
+    combine [n * k, h] rows into [n, h] through a permutation with fp32
+    gates."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    src = _rand(gen, (n, h), dtype)
+    idx = (torch.randperm(n * k, generator=gen, device=DEVICE) // k).to(
+        torch.int32)
+    y = _rand(gen, (n * k, h), dtype)
+    dest2 = torch.randperm(n * k, generator=gen, device=DEVICE).to(
+        torch.int32).view(n, k)
+    gates = torch.rand(n, k, generator=gen, device=DEVICE)
+    out = md.gather_rows(src, idx)
+    comb = md.combine_rows(y, gates, dest2)
+    torch.cuda.synchronize()
+    if not torch.equal(out, md.gather_rows_plain(src, idx)):
+        raise RuntimeError(f"moe_gather[{label}]: differs from the plain "
+                           f"version")
+    err = _compare(f"moe_combine[{label}]", comb,
+                   md.combine_rows_plain(y.float(), gates, dest2),
+                   _tol(dtype))[0]
+    base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
+            "n": n, "top_k": k, "h": h}
+    rows = [dict(base, kernel="moe_gather", max_abs_err=0.0, tol="exact"),
+            dict(base, kernel="moe_combine", max_abs_err=err,
+                 tol=_tol(dtype))]
+    if timed:
+        esz = src.element_size()
+        # the gather reads each source row that idx names once
+        rows_read = torch.unique(idx).numel()
+        b_g = _bound((rows_read + n * k) * h * esz + n * k * 4, 0, "float32")
+        b_c = _bound((n * k * h + n * h) * esz + n * k * 8, 2 * n * k * h,
+                     "float32")
+        # the combine's yardstick: embedding_bag's weighted sum of the
+        # rows that each token's k indices name (gates in y's dtype)
+        bags, weights = dest2.long(), gates.to(dtype)
+        rows[0].update(kernel_ms=_time_ms(lambda: md.gather_rows(src, idx)),
+                       plain_ms=_time_ms(
+                           lambda: md.gather_rows_plain(src, idx)),
+                       library_ms=_time_ms(
+                           lambda: torch.index_select(src, 0, idx)),
+                       library="torch.index_select",
+                       bound_ms=b_g[0], bound_by=b_g[1])
+        rows[1].update(kernel_ms=_time_ms(
+            lambda: md.combine_rows(y, gates, dest2)),
+            plain_ms=_time_ms(lambda: md.combine_rows_plain(y, gates, dest2)),
+            library_ms=_time_ms(lambda: TF.embedding_bag(
+                bags, y, per_sample_weights=weights, mode="sum")),
+            library="torch.nn.functional.embedding_bag",
+            bound_ms=b_c[0], bound_by=b_c[1])
+    for row in rows:
+        _emit(row)
+    return rows
+
+
+# the MoE flagship of the JAX package's bench (bench.py _configs()["moe"],
+# "BASELINE config 5", DeepSeekMoE/Qwen2-MoE-style): vocab 32000, hidden
+# 1536, expert intermediate 2048, 16 layers, 12 heads of 128 (no GQA), 8
+# experts, top-2, capacity factor 1.25 (unused by the dropless fused
+# dispatch), aux weight 0.01; 1,457,505,792 parameters, 551,536,128
+# activated per token
+MOE = dict(vocab_size=32000, hidden_size=1536, intermediate_size=2048,
+           num_hidden_layers=16, num_attention_heads=12,
+           num_key_value_heads=12, max_position_embeddings=2048,
+           num_experts=8, top_k=2, capacity_factor=1.25)
+MOE_BATCH = (4, 2048)
+MOE_ROUTE_SEED = 17  # its inputs at [8192, 1536] have a margin > 1e-4
+# the MoE kernels, and their launches per MoE layer per training step
+# (recompute runs the forward twice; the combine's backward gathers twice,
+# the dispatch's backward is a combine)
+MOE_KERNELS = {"moe_route": 2, "moe_gather": 4, "moe_combine": 3,
+               "grouped_matmul": 6, "grouped_matmul_dgrad": 3,
+               "grouped_matmul_wgrad": 3}
+
+
+def phase_moe_kernels(seed):
+    """The MoE path's kernels at its shapes (timed) and at odd shapes
+    (checked only), bf16 and fp32."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 20)
+    n, s = MOE_BATCH[0] * MOE_BATCH[1], MOE["hidden_size"]
+    e, k, i = MOE["num_experts"], MOE["top_k"], MOE["intermediate_size"]
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = _dname(dtype)
+        # the step's shapes: 8192 tokens, top-2 of 8 experts, the groups
+        # that this routing gives
+        row, counts = _route_case(f"moe-{name}", dtype, n, s, e, k,
+                                  MOE_ROUTE_SEED)
+        rows.append(row)
+        rows += _rows_case(f"moe-{name}", dtype, n, k, s, gen)
+        rows += _gmm_case(f"moe-gate-{name}", dtype, counts, s, i, gen)
+        rows += _gmm_case(f"moe-down-{name}", dtype, counts, i, s, gen)
+        torch.cuda.empty_cache()
+        # odd shapes: 37 tokens (not a multiple of the routing block of 32)
+        # with an expert that gets no row and one that gets one; top_k 1
+        # on 16 experts; 128 experts at top-2; top-8; groups empty, of one
+        # row, ragged and exact tile multiples; 128 groups; narrow widths
+        for case in ((f"odd37-e8k2-{name}", 37, 64, 8, 2, 16, True),
+                     (f"odd513-e16k1-{name}", 513, 96, 16, 1, 17, True),
+                     (f"odd200-e128k2-{name}", 200, 128, 128, 2, 16, False),
+                     (f"odd64-e128k8-{name}", 64, 40, 128, 8, 20, False)):
+            rows.append(_route_case(*case[:1], dtype, *case[1:],
+                                    timed=False)[0])
+        rows += _rows_case(f"odd37-k8-h8-{name}", dtype, 37, 8, 8, gen,
+                           timed=False)
+        rows += _gmm_case(f"odd-groups-{name}", dtype, [0, 1, 300, 7, 0, 129],
+                          64, 136, gen, timed=False)
+        rows += _gmm_case(f"odd-128groups-{name}", dtype, [5] * 128, 16, 24,
+                          gen, timed=False)
+        torch.cuda.empty_cache()
+    return rows
+
+
+# -- phases: MoE training parity and the MoE training step ---------------------
+
+# bf16 full-depth gradient check of the MoE step: the largest relative L2
+# error of any parameter's gradient, kernels against the step with every
+# kernel swapped for its plain version. The plain step replays the routing
+# kernel's top-k picks: left to itself, bf16 roundings that differ by half
+# an ulp flip the routing of tokens near a tie, and the flips cascade with
+# depth (the experts' gradients then read 0.18 at layer 0 to 0.30 at layer
+# 15, which would mask a small fault). The picks themselves are held
+# exactly in moe-kernels. About 3x the sound reading (0.021, layer 13's
+# k_proj; experts 0.015-0.018); the planted faults read 0.185 (wgrad), 0.354
+# (grouped GEMM forward) and ~550 (routing).
+MOE_TRAIN_GRAD_TOL = 0.06
+MOE_TRAIN_STEPS = 6
+
+
+def _full_tile_rows(m, group_sizes, device):
+    """[m] bool: the rows that lie in one of their group's full
+    ``TILE_ROWS``-row tiles (not in its last partial tile)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+
+    sizes = group_sizes.long()
+    ends = torch.cumsum(sizes, dim=0)
+    starts = ends - sizes
+    keep = sizes // gm.TILE_ROWS * gm.TILE_ROWS
+    row = torch.arange(m, device=device)
+    grp = torch.bucketize(row, ends, right=True).clamp(max=sizes.numel() - 1)
+    return (row - starts[grp]) < keep[grp]
+
+
+def _route_recorder(tape):
+    """Swaps that make the routing kernel's wrapper append each call's top-k
+    pick (gate_i) to ``tape``."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    real = md.route
+
+    def route(xt, wg, top_k):
+        out = real(xt, wg, top_k)
+        tape.append(out[1].clone())
+        return out
+    return [(md, "route", route)]
+
+
+def _route_replay(tape):
+    """Swaps that make the plain router take its top-k picks from ``tape``,
+    in call order (a step calls the router in the same order each time:
+    every layer's forward, then the recomputed forwards); it then derives
+    gates, positions, counts and aux statistics from them as usual."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    def topk_first(p, k):
+        gi = tape.pop(0).long()
+        if gi.shape != (p.shape[0], k):
+            raise RuntimeError(f"route replay: pick {tuple(gi.shape)} for "
+                               f"probabilities {tuple(p.shape)}, k={k}")
+        return p.gather(1, gi), gi
+    return [(md, "topk_first", topk_first)]
+
+
+def _moe_faulty(fault):
+    """A planted fault: ``route_no_base`` drops the cross-block base from
+    the routing kernel's positions (each block's positions restart at 0);
+    ``gmm_drops_tail`` zeroes the grouped GEMM forward's output rows in each
+    group's last partial row tile (``TILE_ROWS`` rows); ``wgrad_drops_tail``
+    runs the wgrad kernel without those rows."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    if fault == "route_no_base":
+        real = md.route
+
+        def route(xt, wg, top_k):
+            gv, gi, pos, cnt, me, ce = real(xt, wg, top_k)
+            n, e = gi.shape[0], wg.shape[1]
+            per = md.ROUTE_BLOCK_TOKENS * top_k
+            nb = -(-n * top_k // per)
+            flat = gi.reshape(-1).long()
+            oh = TF.pad(TF.one_hot(flat, e), (0, 0, 0, nb * per - flat.numel()))
+            blk = oh.view(nb, per, e).sum(dim=1)
+            base = torch.cumsum(blk, dim=0) - blk
+            rb = torch.arange(flat.numel(), device=flat.device) // per
+            pos = (pos.reshape(-1) - base[rb, flat]).to(torch.int32)
+            return gv, gi, pos.view(n, top_k), cnt, me, ce
+        return [(md, "route", route)]
+    if fault == "gmm_drops_tail":
+        real_gmm = gm.gmm
+
+        def gmm(lhs, rhs, group_sizes, trans_rhs=False):
+            out = real_gmm(lhs, rhs, group_sizes, trans_rhs)
+            if trans_rhs:
+                return out
+            inside = _full_tile_rows(lhs.shape[0], group_sizes, lhs.device)
+            return out * inside[:, None].to(out.dtype)
+        return [(gm, "gmm", gmm)]
+    real = gm.tgmm
+
+    def tgmm(lhs, dout, group_sizes):
+        inside = _full_tile_rows(lhs.shape[0], group_sizes, lhs.device)
+        return real(lhs * inside[:, None].to(lhs.dtype), dout, group_sizes)
+    return [(gm, "tgmm", tgmm)]
+
+
+def _moe_model(dtype, layers, seed):
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
+
+    cfg = LlamaMoEConfig(**{**MOE, "num_hidden_layers": layers},
+                         dtype=dtype, use_recompute=True)
+    return cfg, LlamaForCausalLM(cfg, device=DEVICE,
+                                 generator=pt_seed(seed, DEVICE))
+
+
+def _adafactor_curve(model, state, ids, steps):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Adafactor
+
+    model.load_state_dict(state)
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y),
+                     Adafactor(learning_rate=1e-2,
+                               parameters=model.parameters()))
+    return [float(step(ids, ids)) for _ in range(steps)]
+
+
+def phase_moe_train_parity(seed):
+    import torch
+
+    from paddle_tpu_torch import kernels, set_flags
+
+    set_flags({"FLAGS_moe_dispatch": "fused"})
+    cfg, model = _moe_model("float32", 2, seed + 5)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 5)
+    ids = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+                        device=DEVICE)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    with _swapped(_plain_swaps()):
+        loss_p, grads_p = _loss_and_grads(model, ids)
+    kernels.reset_counters()
+    loss_k, grads_k = _loss_and_grads(model, ids)
+    counts = kernels.counters()
+    unused = [n for n, c in counts.items() if c["plain_calls"] or (
+        c["launches"] == 0 and (n in DENSE_TRAIN_KERNELS
+                                or n in MOE_KERNELS))]
+    if unused:
+        raise RuntimeError(f"moe-train-parity: kernels not all launched: "
+                           f"{ {n: counts[n] for n in unused} }")
+    errs = _grad_errors(grads_k, grads_p)
+    del grads_k, grads_p
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    curve_k = _adafactor_curve(model, state, ids, 3)
+    with _swapped(_plain_swaps()):
+        curve_p = _adafactor_curve(model, state, ids, 3)
+    curve_rel = max(abs(a - b) / abs(b) for a, b in zip(curve_k, curve_p))
+    row = {"phase": "moe-train-parity", "layers": 2, "dtype": "float32",
+           "batch": [2, 512], "dispatch": "fused", "loss_kernels": loss_k,
+           "loss_plain": loss_p, "loss_rel_err": loss_rel,
+           "loss_rtol": PARITY_LOSS_RTOL,
+           "grad_rel_l2_max": max(errs.values()),
+           "grad_worst": _worst(errs), "grad_tol": PARITY_GRAD_TOL,
+           "params_checked": len(errs), "curve_kernels": curve_k,
+           "curve_plain": curve_p, "curve_rel_err": curve_rel,
+           "curve_rtol": PARITY_CURVE_RTOL}
+    _emit(row)
+    if not (loss_rel <= PARITY_LOSS_RTOL
+            and max(errs.values()) <= PARITY_GRAD_TOL
+            and curve_rel <= PARITY_CURVE_RTOL):
+        raise RuntimeError(f"moe-train-parity: kernels differ from plain: "
+                           f"{row}")
+    if not curve_k[-1] < curve_k[0]:
+        raise RuntimeError(f"moe-train-parity: loss did not fall {curve_k}")
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def phase_moe_train(seed):
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import kernels, set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (llama_moe_flops_per_token,
+                                         llama_moe_param_counts)
+    from paddle_tpu_torch.optimizer import Adafactor
+
+    set_flags({"FLAGS_moe_dispatch": "fused"})
+    batch, seq = MOE_BATCH
+    t0 = time.perf_counter()
+    cfg, model = _moe_model("bfloat16", MOE["num_hidden_layers"], seed + 6)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 6)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                        device=DEVICE)
+
+    # gradients at full depth on the initial weights: kernels against the
+    # plain-swapped step fed the kernels' routing picks; three planted
+    # faults (routing, grouped GEMM forward, wgrad) must exceed the limit
+    tape = []
+    with _swapped(_route_recorder(tape)):
+        loss_k, grads_k = _loss_and_grads(model, ids)
+    picks = len(tape)
+    with _swapped(_plain_swaps() + _route_replay(tape)):
+        loss_p, grads_p = _loss_and_grads(model, ids)
+    if picks != 2 * cfg.num_hidden_layers or tape:
+        raise RuntimeError(f"moe-train: the plain step used "
+                           f"{picks - len(tape)} of {picks} recorded picks")
+    sound = _grad_errors(grads_k, grads_p)
+    del grads_k
+    faults = {}
+    for fault in ("route_no_base", "gmm_drops_tail", "wgrad_drops_tail"):
+        with _swapped(_moe_faulty(fault)):
+            _l, grads_f = _loss_and_grads(model, ids)
+        errs = _grad_errors(grads_f, grads_p)
+        del grads_f
+        faults[fault] = {"grad_rel_l2_max": max(errs.values()),
+                         "worst": _worst(errs, 1),
+                         "caught": max(errs.values()) > MOE_TRAIN_GRAD_TOL}
+    del grads_p
+    torch.cuda.empty_cache()
+    L = cfg.num_hidden_layers
+    experts_by_layer = [max(v for n, v in sound.items()
+                            if n.startswith(f"llama.layers.{li}.mlp.experts."))
+                        for li in range(L)]
+    check = {"phase": "moe-train-grad-check", "layers": L,
+             "dtype": "bfloat16", "loss_kernels": loss_k,
+             "loss_plain": loss_p, "routing_picks_replayed": picks,
+             "grad_rel_l2_max": max(sound.values()),
+             "grad_worst": _worst(sound),
+             "experts_by_layer": experts_by_layer,
+             "grad_tol": MOE_TRAIN_GRAD_TOL, "faults": faults}
+    _emit(check)
+    if not max(sound.values()) <= MOE_TRAIN_GRAD_TOL:
+        raise RuntimeError(f"moe-train: kernel gradients differ from plain "
+                           f"{check}")
+    if not all(f["caught"] for f in faults.values()):
+        raise RuntimeError(f"moe-train: the gradient check missed a planted "
+                           f"fault {faults}")
+
+    opt = Adafactor(learning_rate=1e-2, parameters=model.parameters())
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    losses, secs = [], []
+    for _ in range(MOE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, ids)))
+        secs.append(time.perf_counter() - t0)
+    counts = kernels.counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    per_step = _dense_launches(L)
+    per_step.update({n: c * L for n, c in MOE_KERNELS.items()})
+    wrong = {n: (c, per_step[n] * MOE_TRAIN_STEPS) for n, c in counts.items()
+             if c["plain_calls"] or
+             c["launches"] != per_step[n] * MOE_TRAIN_STEPS}
+    if wrong:
+        raise RuntimeError(f"moe-train: kernel counts differ from the "
+                           f"expected (reading, expected launches): {wrong}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise RuntimeError(f"moe-train: loss not finite and falling: "
+                           f"{losses}")
+    step_s = sum(secs[1:]) / (len(secs) - 1)
+    tok_s = batch * seq / step_s
+    mfu = llama_moe_flops_per_token(cfg, seq) * tok_s / \
+        PEAK_FLOPS["bfloat16"]
+    total, activated = llama_moe_param_counts(cfg)
+    breakdown = _train_breakdown(model, opt, ids)
+    _emit({"phase": "moe-train", "ok": True, "model": "llama-moe-1.46b",
+           "params": total, "activated_params": activated, "layers": L,
+           "experts": cfg.num_experts, "top_k": cfg.top_k,
+           "dtype": "bfloat16", "recompute": True, "dispatch": "fused",
+           "optimizer": "Adafactor lr 1e-2", "batch": [batch, seq],
+           "model_init_s": t_init, "losses": losses,
+           "step_ms": step_s * 1e3, "step_ms_each": [x * 1e3 for x in secs],
+           "tokens_per_s": tok_s, "mfu_activated": mfu,
+           "peak_mem_gb": peak_gb, "kernel_counts": counts,
+           "expected_launches_per_step": per_step})
+    _emit({"phase": "moe-train-breakdown", **breakdown})
+    del model, opt, step
+    torch.cuda.empty_cache()
+    set_flags({"FLAGS_moe_dispatch": "index"})
+    return counts
+
+
+def _kernels_line(rows, serving, training, moe):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
-    launches on the two main paths (serving, training)."""
+    launches on the three main paths (serving, training, moe-training)."""
     # (kernel, representative case, source, TPU kernel replaced, the
     # counters whose launches it sums)
     table = [
@@ -1250,6 +1878,20 @@ def _kernels_line(rows, serving, training):
          ["rms_norm_bwd", "rms_norm_residual_bwd"]),
         ("rope", "train-bfloat16", "rope.cu",
          "paddle_tpu/kernels/pallas/rope.py:50", ["rope", "rope_inverse"]),
+        ("moe_route", "moe-bfloat16", "moe_dispatch.cu",
+         "paddle_tpu/kernels/pallas/moe_dispatch.py:59", ["moe_route"]),
+        ("moe_gather", "moe-bfloat16", "moe_dispatch.cu",
+         "paddle_tpu/kernels/pallas/moe_dispatch.py:235", ["moe_gather"]),
+        ("moe_combine", "moe-bfloat16", "moe_dispatch.cu",
+         "paddle_tpu/kernels/pallas/moe_dispatch.py:261", ["moe_combine"]),
+        ("grouped_matmul", "moe-gate-bfloat16", "grouped_matmul.cu",
+         "paddle_tpu/kernels/grouped_matmul.py:55", ["grouped_matmul"]),
+        ("grouped_matmul_dgrad", "moe-gate-bfloat16", "grouped_matmul.cu",
+         "paddle_tpu/kernels/grouped_matmul.py:55",
+         ["grouped_matmul_dgrad"]),
+        ("grouped_matmul_wgrad", "moe-gate-bfloat16", "grouped_matmul.cu",
+         "paddle_tpu/kernels/grouped_matmul.py:55",
+         ["grouped_matmul_wgrad"]),
     ]
     also = {"rms_norm": ("paddle_tpu/kernels/pallas/rmsnorm.py:47",
                          "rms_norm_residual"),
@@ -1262,7 +1904,8 @@ def _kernels_line(rows, serving, training):
         r = next(x for x in mine if x["kernel"] == name and
                  x["case"] == case)
         by_path = {p: sum(c[n]["launches"] for n in counters)
-                   for p, c in (("serving", serving), ("training", training))}
+                   for p, c in (("serving", serving), ("training", training),
+                                ("moe-training", moe))}
         entry = {
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/" + src,
@@ -1278,7 +1921,8 @@ def _kernels_line(rows, serving, training):
                      x["case"] == case)
             entry["variant"] = {
                 "name": variant, "replaces": also_replaces,
-                "launches": training[variant]["launches"],
+                "launches": training[variant]["launches"]
+                + moe[variant]["launches"],
                 "ms": v["kernel_ms"], "plain_ms": v["plain_ms"],
                 "bound_ms": v["bound_ms"], "library_ms": v["library_ms"]}
         out.append(entry)
@@ -1331,8 +1975,11 @@ def main() -> int:
     serving = phase_serving(SEED)
     phase_train_parity(SEED)
     training = phase_train(SEED)
+    rows += phase_moe_kernels(SEED)
+    phase_moe_train_parity(SEED)
+    moe = phase_moe_train(SEED)
 
-    _emit({"kernels": _kernels_line(rows, serving, training)})
+    _emit({"kernels": _kernels_line(rows, serving, training, moe)})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

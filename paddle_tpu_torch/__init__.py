@@ -6,5 +6,6 @@ kernels written for ``sm_90a`` (``paddle_tpu_torch.kernels``). Importing it
 builds nothing: the kernels compile at first use on a machine with ``nvcc``.
 """
 from .device import resolve_device, seed
+from .framework import get_flags, set_flags
 
-__all__ = ["resolve_device", "seed"]
+__all__ = ["resolve_device", "seed", "get_flags", "set_flags"]

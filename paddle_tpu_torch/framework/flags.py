@@ -1,0 +1,56 @@
+"""Global flags (counterpart of ``paddle_tpu/framework/flags.py``).
+
+The port holds one flag so far, ``FLAGS_moe_dispatch``: how an MoE layer
+moves tokens to its experts. Its default and values are the JAX package's,
+less the two modes not ported yet (``sort``, ``einsum``):
+
+- ``index`` (default): capacity routing by a cumsum over the expert one-hot,
+  plain PyTorch (the JAX package has no kernel there either);
+- ``gmm``: dropless; rows sorted by expert with a stable argsort, then the
+  grouped-GEMM kernel;
+- ``fused``: dropless; the routing kernel orders the rows without a sort,
+  the gather and combine kernels move them, the grouped-GEMM kernel runs
+  the experts.
+
+Consumers read the flag per call, so ``set_flags`` takes effect at once.
+An unknown flag or value raises.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterable, Union
+
+__all__ = ["set_flags", "get_flags", "MOE_DISPATCH_MODES"]
+
+MOE_DISPATCH_MODES = ("index", "gmm", "fused")
+
+_VALUES: Dict[str, Any] = {"FLAGS_moe_dispatch": "index"}
+_CHOICES = {"FLAGS_moe_dispatch": MOE_DISPATCH_MODES}
+
+
+def _key(name: str) -> str:
+    key = name if name.startswith("FLAGS_") else "FLAGS_" + name
+    if key not in _VALUES:
+        raise ValueError(f"unknown flag {name!r}; known: {sorted(_VALUES)}")
+    return key
+
+
+def set_flags(flags: Dict[str, Any]) -> None:
+    """Set flags by name (``FLAGS_`` prefix optional); every name and value
+    is checked before any is stored."""
+    staged = {}
+    for name, value in flags.items():
+        key = _key(name)
+        if value not in _CHOICES[key]:
+            raise ValueError(f"{key} must be one of {_CHOICES[key]}, got "
+                             f"{value!r}")
+        staged[key] = value
+    _VALUES.update(staged)
+
+
+def get_flags(flags: Union[str, Iterable[str], None] = None
+              ) -> Dict[str, Any]:
+    """``{name: value}`` for one name, several, or (``None``) all."""
+    if flags is None:
+        return dict(_VALUES)
+    names = [flags] if isinstance(flags, str) else list(flags)
+    return {_key(n): _VALUES[_key(n)] for n in names}

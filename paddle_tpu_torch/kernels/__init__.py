@@ -5,18 +5,22 @@
 the kernels by resetting before and reading after.
 """
 from . import flash_attention as _flash
+from . import grouped_matmul as _gmm
+from . import moe_dispatch as _moe
 from . import paged_attention as _paged
 from . import rmsnorm as _rmsnorm
 from . import rope as _rope
 from .flash_attention import (flash_attention, flash_attention_plain,
                               flash_attention_with_lse)
+from .moe_dispatch import fused_moe_mlp, fused_route
 from .paged_attention import paged_attention, paged_attention_plain
 from .rmsnorm import rms_norm, rms_norm_residual
 from .rope import rope_apply
 
 __all__ = ["paged_attention", "paged_attention_plain", "flash_attention",
            "flash_attention_with_lse", "flash_attention_plain", "rms_norm",
-           "rms_norm_residual", "rope_apply", "counters", "reset_counters"]
+           "rms_norm_residual", "rope_apply", "fused_route",
+           "fused_moe_mlp", "counters", "reset_counters"]
 
 _COUNTS = {"paged_attention": _paged.COUNTS,
            "flash_attention": _flash.COUNTS,
@@ -27,7 +31,13 @@ _COUNTS = {"paged_attention": _paged.COUNTS,
            "rms_norm_bwd": _rmsnorm.COUNTS_BWD,
            "rms_norm_residual_bwd": _rmsnorm.COUNTS_RESIDUAL_BWD,
            "rope": _rope.COUNTS,
-           "rope_inverse": _rope.COUNTS_INVERSE}
+           "rope_inverse": _rope.COUNTS_INVERSE,
+           "moe_route": _moe.COUNTS_ROUTE,
+           "moe_gather": _moe.COUNTS_GATHER,
+           "moe_combine": _moe.COUNTS_COMBINE,
+           "grouped_matmul": _gmm.COUNTS,
+           "grouped_matmul_dgrad": _gmm.COUNTS_DGRAD,
+           "grouped_matmul_wgrad": _gmm.COUNTS_WGRAD}
 
 
 def counters():

@@ -1,0 +1,58 @@
+// 16-byte vector loads and stores, converted to and from fp32, for the MoE
+// kernels (grouped_matmul.cu, moe_dispatch.cu). One vector holds 8 bf16 or
+// 4 fp32 values; the pointer must be 16-byte aligned, which the wrappers
+// check (every row width they pass is a multiple of 8 elements).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace pt {
+
+template <typename T>
+struct Vec16 {
+  static constexpr int N = 16 / (int)sizeof(T);
+
+  __device__ __forceinline__ static void load(const T* p, float* out);
+  __device__ __forceinline__ static void store(T* p, const float* in);
+};
+
+template <>
+__device__ __forceinline__ void Vec16<float>::load(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x;
+  out[1] = v.y;
+  out[2] = v.z;
+  out[3] = v.w;
+}
+
+template <>
+__device__ __forceinline__ void Vec16<float>::store(float* p, const float* in) {
+  *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+}
+
+template <>
+__device__ __forceinline__ void Vec16<__nv_bfloat16>::load(
+    const __nv_bfloat16* p, float* out) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+template <>
+__device__ __forceinline__ void Vec16<__nv_bfloat16>::store(
+    __nv_bfloat16* p, const float* in) {
+  uint4 raw;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+}  // namespace pt

@@ -1,0 +1,346 @@
+"""Fused MoE routing and dispatch: the kernels that feed the grouped GEMM.
+
+Port of ``paddle_tpu/kernels/pallas/moe_dispatch.py``
+(``FLAGS_moe_dispatch='fused'``). Three kernels, each with a wrapper that
+launches it on a CUDA tensor or raises, and runs its plain PyTorch version
+on a CPU tensor:
+
+- :func:`route` (``csrc/moe_dispatch.cu``) / :func:`route_plain`: the whole
+  router. Gate logits ``x @ wg`` in fp32, softmax, an iterative top-k whose
+  ties go to the lowest expert, renormalisation, and each (token, choice)'s
+  position in its expert's row block in token-major order (row ``t * k +
+  c``): the order of a stable argsort of the experts, without a sort. Also
+  the per-expert counts and the aux statistics ``me`` (probability sums)
+  and ``ce`` (top-1 counts). Bitwise deterministic, so that activation
+  recompute routes every token as the first forward did.
+- :func:`gather_rows` / :func:`gather_rows_plain`: ``out[i] =
+  src[idx[i]]``.
+- :func:`combine_rows` / :func:`combine_rows_plain`: ``out[t] = sum_c
+  gates[t, c] * y[dest2[t, c]]`` in fp32.
+
+Around them, the JAX module's structure: :func:`fused_route`, the dispatch
+and combine autograd Functions with gather-only backwards (dispatch's is a
+unit-gate combine; combine's is two gathers, a scale and a rowwise dot), the
+router's backward a recompute of the differentiable chain
+(:func:`_route_diff`) from the saved top-k pick, and :func:`fused_moe_mlp`.
+The int32 scatter that maps grouped rows back to flat rows and the
+offsets cumsum stay plain PyTorch, as they sit outside any kernel in JAX.
+The autograd Functions look the wrappers up by module attribute at call
+time.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as TF
+
+from . import _build
+from .grouped_matmul import grouped_matmul
+
+__all__ = ["fused_moe_mlp", "fused_route", "route", "route_plain",
+           "gather_rows", "gather_rows_plain", "combine_rows",
+           "combine_rows_plain", "topk_first", "MAX_EXPERTS", "MAX_TOP_K",
+           "ROUTE_BLOCK_TOKENS", "COUNTS_ROUTE", "COUNTS_GATHER",
+           "COUNTS_COMBINE"]
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_EXPERTS = 128       # as the JAX module: its expert axis rides the lanes
+MAX_TOP_K = 8           # choices the routing kernel keeps per token
+ROUTE_BLOCK_TOKENS = 32  # tokens per block of the routing kernel's pass 1
+COUNTS_ROUTE = _build.Counts()
+COUNTS_GATHER = _build.Counts()
+COUNTS_COMBINE = _build.Counts()
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_cuda(t, name):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def topk_first(p, k):
+    """Top-k of ``p`` [n, e] >= 0 as the TPU kernel takes it: ``k`` rounds
+    of ``argmax`` (the first maximum, so ties go to the lowest index, as
+    ``lax.top_k`` does), each pick masked with -1. Returns (values, int64
+    indices), descending; differentiable in ``p`` through the values."""
+    with torch.no_grad():
+        masked = p.detach().clone()
+        idxs = []
+        for _ in range(k):
+            i = masked.argmax(dim=-1)
+            idxs.append(i)
+            masked.scatter_(1, i[:, None], -1.0)
+    gi = torch.stack(idxs, 1)
+    return p.gather(1, gi), gi
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+def route_plain(xt, wg, top_k):
+    """The JAX ``_routing_composed`` with the kernel's tie rule: (gv f32 [n,
+    k], gi i32 [n, k], pos i32 [n, k], cnt i32 [e], me f32 [e], ce f32
+    [e])."""
+    n = xt.shape[0]
+    e = wg.shape[1]
+    p = torch.softmax(xt.float() @ wg.float(), dim=-1)
+    gv, gi = topk_first(p, top_k)
+    gv = gv / gv.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    flat_e = gi.reshape(n * top_k)                        # token-major
+    oh = (flat_e[:, None] == torch.arange(e, device=xt.device)[None, :]
+          ).to(torch.int32)
+    pos = ((torch.cumsum(oh, dim=0) - 1) * oh).sum(dim=-1)
+    cnt = oh.sum(dim=0)
+    ce = (gi[:, 0][:, None] == torch.arange(e, device=xt.device)[None, :]
+          ).float().sum(dim=0)
+    return (gv, gi.to(torch.int32), pos.reshape(n, top_k).to(torch.int32),
+            cnt.to(torch.int32), p.sum(dim=0), ce)
+
+
+def route(xt, wg, top_k):
+    """The routing kernel on CUDA, the plain version on the CPU; same
+    outputs as :func:`route_plain`."""
+    if xt.device.type == "cpu":
+        COUNTS_ROUTE.plain()
+        return route_plain(xt, wg, top_k)
+    _check_cuda(xt, "route")
+    n, h = xt.shape
+    e = wg.shape[1]
+    if xt.dtype not in _DTYPES or wg.dtype != xt.dtype or \
+            wg.device != xt.device:
+        raise TypeError(f"route kernel takes x and wg of one dtype (float32 "
+                        f"or bfloat16) on one device, got {xt.dtype} on "
+                        f"{xt.device} and {wg.dtype} on {wg.device}")
+    if not 1 <= e <= MAX_EXPERTS or not 1 <= top_k <= min(e, MAX_TOP_K):
+        raise ValueError(f"route kernel takes 1..{MAX_EXPERTS} experts and "
+                         f"1..min(e, {MAX_TOP_K}) choices, got e={e}, "
+                         f"top_k={top_k}")
+    dev = xt.device
+    gv = torch.empty(n, top_k, dtype=torch.float32, device=dev)
+    gi = torch.empty(n, top_k, dtype=torch.int32, device=dev)
+    pos = torch.empty(n, top_k, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(e, dtype=torch.int32, device=dev)
+    me = torch.zeros(e, dtype=torch.float32, device=dev)
+    ce = torch.zeros(e, dtype=torch.float32, device=dev)
+    if n == 0:
+        return gv, gi, pos, cnt, me, ce
+    nb = -(-n // ROUTE_BLOCK_TOKENS)
+    blk_cnt = torch.empty(nb, e, dtype=torch.int32, device=dev)
+    blk_me = torch.empty(nb, e, dtype=torch.float32, device=dev)
+    blk_ce = torch.empty(nb, e, dtype=torch.int32, device=dev)
+    xt, wg = xt.contiguous(), wg.contiguous()
+    fn = _build.kernel("pt_moe_route", [ctypes.c_void_p] * 2 +
+                       [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 +
+                       [ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        err = fn(xt.data_ptr(), wg.data_ptr(), n, h, e, top_k,
+                 gv.data_ptr(), gi.data_ptr(), pos.data_ptr(),
+                 cnt.data_ptr(), me.data_ptr(), ce.data_ptr(),
+                 blk_cnt.data_ptr(), blk_me.data_ptr(), blk_ce.data_ptr(),
+                 _DTYPES[xt.dtype], _stream(xt))
+    _build.check(err, "pt_moe_route")
+    COUNTS_ROUTE.launched()
+    return gv, gi, pos, cnt, me, ce
+
+
+def _route_diff(xt, wg, gate_i, e):
+    """The differentiable router chain, recomputed from the saved top-k
+    pick (the JAX ``_route_diff``): softmax, the chosen probabilities,
+    renormalisation, and the Switch/GShard aux."""
+    p = torch.softmax(xt.float() @ wg.float(), dim=-1)
+    v = p.gather(1, gate_i.long())
+    gate = v / v.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    me = p.mean(dim=0)
+    ce = TF.one_hot(gate_i[:, 0].long(), e).float().mean(dim=0)
+    return gate, e * (me * ce).sum()
+
+
+class _FusedRoute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xt, wg, top_k):
+        gv, gi, pos, cnt, me, ce = route(xt, wg, top_k)
+        n, e = xt.shape[0], wg.shape[1]
+        aux = e * ((me / n) * (ce / n)).sum()
+        ctx.save_for_backward(xt, wg, gi)
+        ctx.mark_non_differentiable(gi, pos, cnt)
+        return gv, gi, pos, cnt, aux
+
+    @staticmethod
+    def backward(ctx, d_gv, _d_gi, _d_pos, _d_cnt, d_aux):
+        xt, wg, gi = ctx.saved_tensors
+        with torch.enable_grad():
+            x = xt.detach().requires_grad_()
+            w = wg.detach().requires_grad_()
+            gate, aux = _route_diff(x, w, gi, wg.shape[1])
+            dx, dw = torch.autograd.grad((gate, aux), (x, w),
+                                         (d_gv.float(), d_aux.float()))
+        return dx.to(xt.dtype), dw.to(wg.dtype), None
+
+
+def fused_route(xt, wg, top_k):
+    """(gate_v f32 [n, k], gate_i i32, pos_in_expert i32, counts i32 [e],
+    aux): the router in one kernel call; differentiable in (xt, wg)
+    through gate_v and aux."""
+    return _FusedRoute.apply(xt, wg, int(top_k))
+
+
+# ---------------------------------------------------------------------------
+# row movement
+# ---------------------------------------------------------------------------
+
+def gather_rows_plain(src, idx):
+    """``src[idx]`` by rows."""
+    return src[idx.long()]
+
+
+def gather_rows(src, idx):
+    """``out[i] = src[idx[i]]`` for ``src`` [n_src, h], ``idx`` [n]: the
+    gather kernel on CUDA (an index outside the rows gives a zero row), the
+    plain version on the CPU."""
+    if src.device.type == "cpu":
+        COUNTS_GATHER.plain()
+        return gather_rows_plain(src, idx)
+    _check_cuda(src, "gather_rows")
+    if src.dim() != 2 or idx.dim() != 1 or idx.device != src.device:
+        raise ValueError(f"gather_rows: src {tuple(src.shape)} on "
+                         f"{src.device}, idx {tuple(idx.shape)} on "
+                         f"{idx.device}")
+    row_bytes = src.shape[1] * src.element_size()
+    if row_bytes % 16:
+        raise ValueError(f"gather_rows kernel moves rows of a multiple of "
+                         f"16 bytes, got {row_bytes}")
+    src = src.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    out = torch.empty(idx.shape[0], src.shape[1], dtype=src.dtype,
+                      device=src.device)
+    fn = _build.kernel("pt_moe_gather", [ctypes.c_void_p] * 3 +
+                       [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(src.device):
+        err = fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                 idx.shape[0], src.shape[0], row_bytes, _stream(src))
+    _build.check(err, "pt_moe_gather")
+    COUNTS_GATHER.launched()
+    return out
+
+
+def combine_rows_plain(y, gates, dest2):
+    """``sum_c gates[:, c] * y[dest2[:, c]]`` accumulated in fp32, in y's
+    dtype."""
+    acc = torch.zeros(dest2.shape[0], y.shape[1], dtype=torch.float32,
+                      device=y.device)
+    for c in range(dest2.shape[1]):
+        acc = acc + gates[:, c:c + 1].float() * y[dest2[:, c].long()].float()
+    return acc.to(y.dtype)
+
+
+def combine_rows(y, gates, dest2):
+    """Top-k weighted combine of ``y`` [n_y, h] rows into [n, h]: the
+    combine kernel on CUDA, the plain version on the CPU."""
+    if y.device.type == "cpu":
+        COUNTS_COMBINE.plain()
+        return combine_rows_plain(y, gates, dest2)
+    _check_cuda(y, "combine_rows")
+    if y.dtype not in _DTYPES:
+        raise TypeError(f"combine_rows kernel takes float32 or bfloat16, got "
+                        f"{y.dtype}")
+    if y.dim() != 2 or dest2.dim() != 2 or gates.shape != dest2.shape or \
+            y.shape[1] % 8 or gates.device != y.device or \
+            dest2.device != y.device:
+        raise ValueError(f"combine_rows: y {tuple(y.shape)}, gates "
+                         f"{tuple(gates.shape)}, dest2 {tuple(dest2.shape)} "
+                         f"(h a multiple of 8, one device)")
+    n, k = dest2.shape
+    y = y.contiguous()
+    gates = gates.float().contiguous()
+    dest2 = dest2.to(torch.int32).contiguous()
+    out = torch.empty(n, y.shape[1], dtype=y.dtype, device=y.device)
+    fn = _build.kernel("pt_moe_combine", [ctypes.c_void_p] * 4 +
+                       [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with torch.cuda.device(y.device):
+        err = fn(y.data_ptr(), gates.data_ptr(), dest2.data_ptr(),
+                 out.data_ptr(), n, k, y.shape[1], y.shape[0],
+                 _DTYPES[y.dtype], _stream(y))
+    _build.check(err, "pt_moe_combine")
+    COUNTS_COMBINE.launched()
+    return out
+
+
+class _FusedDispatch(torch.autograd.Function):
+    """Grouped-layout gather ``xs[i] = xt[src_tok[i]]`` whose backward is a
+    unit-gate combine through the same destination map."""
+
+    @staticmethod
+    def forward(ctx, xt, src_tok, dest2):
+        ctx.save_for_backward(dest2)
+        return gather_rows(xt, src_tok)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dest2,) = ctx.saved_tensors
+        ones = torch.ones(dest2.shape, dtype=torch.float32,
+                          device=dest2.device)
+        return combine_rows(g.contiguous(), ones, dest2), None, None
+
+
+class _FusedCombine(torch.autograd.Function):
+    """Weighted scatter-back with a gather-only backward (``g2f`` maps each
+    grouped row to its flat (token, choice) row)."""
+
+    @staticmethod
+    def forward(ctx, ys, gates, dest2, g2f):
+        ctx.save_for_backward(ys, gates, dest2, g2f)
+        return combine_rows(ys, gates, dest2)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        ys, gates, dest2, g2f = ctx.saved_tensors
+        n, k = dest2.shape
+        d_out = d_out.contiguous()
+        gate_sorted = gates.reshape(n * k)[g2f.long()]
+        d_ys = (gather_rows(d_out, g2f // k).float() *
+                gate_sorted[:, None]).to(ys.dtype)
+        y_rows = gather_rows(ys, dest2.reshape(n * k)).reshape(n, k, -1)
+        d_gates = (d_out[:, None, :].float() * y_rows.float()).sum(dim=-1)
+        return d_ys, d_gates.to(gates.dtype), None, None
+
+
+# ---------------------------------------------------------------------------
+# the fused dropless MoE MLP
+# ---------------------------------------------------------------------------
+
+def fused_moe_mlp(x, wg, w_gate, w_up, w_down, *, top_k):
+    """Dropless routed expert SwiGLU with fused dispatch: ``x`` [b, s, h],
+    router ``wg`` [h, e], experts ``w_gate``/``w_up`` [e, h, i] and
+    ``w_down`` [e, i, h] -> ([b, s, h], aux). Row order is the stable
+    argsort's (token-major positions), so the result matches the ``gmm``
+    dispatch; ``capacity_factor`` does not apply."""
+    b, s, h = x.shape
+    n = b * s
+    e = wg.shape[1]
+    if e > MAX_EXPERTS:
+        raise ValueError(f"fused MoE dispatch supports <= {MAX_EXPERTS} "
+                         f"experts, got {e}; use FLAGS_moe_dispatch='index'")
+    kn = top_k * n
+    xt = x.reshape(n, h)
+    gate_v, gate_i, pos, counts, aux = fused_route(xt, wg, top_k)
+    # grouped row of each flat (token, choice) row: the expert's block
+    # offset plus the position in it (no argsort)
+    offsets = torch.cumsum(counts, dim=0) - counts
+    dest2 = (offsets[gate_i.long()] + pos).to(torch.int32)   # [n, k]
+    dest = dest2.reshape(kn).long()
+    rng = torch.arange(kn, dtype=torch.int32, device=x.device)
+    # the one int32 scatter: grouped row -> flat row (token = row // k)
+    g2f = torch.zeros(kn, dtype=torch.int32, device=x.device).scatter_(
+        0, dest, rng)
+    xs = _FusedDispatch.apply(xt, g2f // top_k, dest2)     # [kn, h] grouped
+    g_proj = grouped_matmul(xs, w_gate, counts)
+    u_proj = grouped_matmul(xs, w_up, counts)
+    act = TF.silu(g_proj) * u_proj
+    ys = grouped_matmul(act, w_down, counts)               # [kn, h]
+    out = _FusedCombine.apply(ys, gate_v, dest2, g2f)
+    return out.reshape(b, s, h).to(x.dtype), aux

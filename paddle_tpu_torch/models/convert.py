@@ -5,11 +5,17 @@ arrays) into this package's ``state_dict``: the names are the same, and the
 Linear weights are transposed, since the JAX package stores them ``[in,
 out]`` and computes ``x @ W`` while ``nn.Linear`` stores ``[out, in]``.
 
-``llama_state_from_numpy`` does the same for the JAX ``LlamaForCausalLM``,
-whose decoder stack is one scan over STACKED per-layer parameters
-(``llama.layers.self_attn__q_proj__weight`` [L, in, out]): each stacked
-array is split into per-layer entries (``llama.layers.{i}.self_attn.q_proj
-.weight`` [out, in]), and ``lm_head.weight`` [h, vocab] is transposed.
+``llama_state_from_numpy`` does the same for the JAX ``LlamaForCausalLM``
+(dense or MoE) in either of its layouts. With ``scan_layers=True`` (the
+default) the decoder stack is one scan over STACKED per-layer parameters
+(``llama.layers.self_attn__q_proj__weight`` [L, in, out]); each is split
+into per-layer entries (``llama.layers.{i}.self_attn.q_proj.weight``).
+With ``scan_layers=False`` the entries are per layer already
+(``llama.layers.{i}.self_attn.q_proj.weight`` [in, out]). Linear weights
+are transposed to ``[out, in]``, ``lm_head.weight`` [h, vocab] too. The MoE
+router ``mlp.gate_weight`` [h, e] is a raw parameter used as ``x @ w`` and
+the expert stacks ``mlp.experts.{gate,up,down}`` ([e, h, i], [e, i, h])
+keep the JAX layout: neither is transposed.
 
 ``gpt_engine_params`` reads a model's live weights into the nested dict the
 serving window step takes (the counterpart of the JAX engine's
@@ -82,57 +88,86 @@ def gpt_state_from_numpy(flat: Mapping[str, Any],
     return out
 
 
-def _llama_stacked_shapes(config: LlamaConfig) -> Dict[str, tuple]:
-    """Per-layer shapes of the JAX stack, by stacked name, as the JAX
-    package stores them (Linear [in, out])."""
-    h, i = config.hidden_size, config.intermediate_size
+def _llama_layer_entries(config: LlamaConfig) -> Dict[str, tuple]:
+    """Per-layer entries of the JAX Llama by the port's dotted name: (shape
+    as the JAX package stores it, whether it is a Linear weight stored [in,
+    out])."""
+    h = config.hidden_size
     kv = config.num_key_value_heads * (h // config.num_attention_heads)
-    return {"self_attn__q_proj__weight": (h, h),
-            "self_attn__k_proj__weight": (h, kv),
-            "self_attn__v_proj__weight": (h, kv),
-            "self_attn__o_proj__weight": (h, h),
-            "mlp__gate_proj__weight": (h, i),
-            "mlp__up_proj__weight": (h, i),
-            "mlp__down_proj__weight": (i, h),
-            "input_layernorm__weight": (h,),
-            "post_attention_layernorm__weight": (h,)}
+    out = {"self_attn.q_proj.weight": ((h, h), True),
+           "self_attn.k_proj.weight": ((h, kv), True),
+           "self_attn.v_proj.weight": ((h, kv), True),
+           "self_attn.o_proj.weight": ((h, h), True),
+           "input_layernorm.weight": ((h,), False),
+           "post_attention_layernorm.weight": ((h,), False)}
+    e = getattr(config, "num_experts", 0)
+    if e > 1:
+        i = config.moe_intermediate_size or config.intermediate_size
+        out.update({"mlp.gate_weight": ((h, e), False),
+                    "mlp.experts.gate": ((e, h, i), False),
+                    "mlp.experts.up": ((e, h, i), False),
+                    "mlp.experts.down": ((e, i, h), False)})
+    else:
+        i = config.intermediate_size
+        out.update({"mlp.gate_proj.weight": ((h, i), True),
+                    "mlp.up_proj.weight": ((h, i), True),
+                    "mlp.down_proj.weight": ((i, h), True)})
+    return out
+
+
+def _per_layer_layout(flat: Mapping[str, Any]) -> bool:
+    """True for the JAX ``scan_layers=False`` layout (``llama.layers.0.``
+    entries), False for the stacked one."""
+    return any(k.startswith("llama.layers.") and
+               k[len("llama.layers."):].split(".", 1)[0].isdigit()
+               for k in flat)
 
 
 def llama_state_from_numpy(flat: Mapping[str, Any],
                            config: LlamaConfig) -> Dict[str, torch.Tensor]:
-    """``{name: np.ndarray}`` of the JAX ``LlamaForCausalLM`` (scanned,
-    stacked layers) -> a ``state_dict`` for the port's
-    :class:`~paddle_tpu_torch.models.LlamaForCausalLM` (CPU tensors).
-    Raises on a missing, unexpected or misshapen entry."""
+    """``{name: np.ndarray}`` of the JAX ``LlamaForCausalLM``, dense or MoE,
+    stacked (``scan_layers=True``) or per layer -> a ``state_dict`` for
+    the port's :class:`~paddle_tpu_torch.models.LlamaForCausalLM` (CPU
+    tensors). Raises on a missing, unexpected or misshapen entry."""
     h, v, L = (config.hidden_size, config.vocab_size,
                config.num_hidden_layers)
-    stacked = {f"llama.layers.{k}": (L, *s)
-               for k, s in _llama_stacked_shapes(config).items()}
-    want = {"llama.embed_tokens.weight": (v, h), "llama.norm.weight": (h,),
-            **stacked}
+    entries = _llama_layer_entries(config)
+    per_layer = _per_layer_layout(flat)
+    # JAX name -> (shape, port leaf, Linear?, layer index or None: stacked)
+    want = {"llama.embed_tokens.weight": ((v, h), None, False, None),
+            "llama.norm.weight": ((h,), None, False, None)}
     if not config.tie_word_embeddings:
-        want["lm_head.weight"] = (h, v)
+        want["lm_head.weight"] = ((h, v), None, True, None)
+    for leaf, (shape, linear) in entries.items():
+        if per_layer:
+            for li in range(L):
+                want[f"llama.layers.{li}.{leaf}"] = (shape, leaf, linear, li)
+        else:
+            want["llama.layers." + leaf.replace(".", "__")] = (
+                (L, *shape), leaf, linear, None)
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
     if missing or extra:
         raise KeyError(f"state mismatch: missing {missing[:4]}, "
                        f"unexpected {extra[:4]}")
     out = {}
+
+    def put(name, a, linear):  # a copy: the source may be read-only
+        out[name] = torch.from_numpy(np.array(a.T if linear else a,
+                                              order="C"))
+
     for name, arr in flat.items():
         a = _as_f32(arr)
-        if a.shape != want[name]:
-            raise ValueError(f"{name}: shape {a.shape}, expected "
-                             f"{want[name]}")
-        if name in stacked:
-            leaf = name[len("llama.layers."):].replace("__", ".")
-            for li in range(L):
-                part = a[li].T if a.ndim == 3 else a[li]  # Linear [out, in]
-                out[f"llama.layers.{li}.{leaf}"] = torch.from_numpy(
-                    np.ascontiguousarray(part))
-        elif name == "lm_head.weight":
-            out[name] = torch.from_numpy(np.ascontiguousarray(a.T))
+        shape, leaf, linear, li = want[name]
+        if a.shape != shape:
+            raise ValueError(f"{name}: shape {a.shape}, expected {shape}")
+        if leaf is None:
+            put(name, a, linear)
+        elif li is not None:
+            put(f"llama.layers.{li}.{leaf}", a, linear)
         else:
-            out[name] = torch.from_numpy(np.ascontiguousarray(a))
+            for i in range(L):
+                put(f"llama.layers.{i}.{leaf}", a[i], linear)
     if config.tie_word_embeddings:
         out["lm_head.weight"] = out["llama.embed_tokens.weight"]
     return out

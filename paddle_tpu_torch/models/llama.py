@@ -13,6 +13,13 @@ unrolled (``llama.layers.3.self_attn.q_proj.weight``); Linear weights are
 PyTorch's ``[out, in]``. ``models.convert.llama_state_from_numpy`` moves a
 JAX state dict across. Left out: the KV-cache branch of attention (training
 does not use it) and context parallelism (the distributed slice).
+
+``LlamaMoEConfig`` (the DeepSeekMoE/Qwen2-MoE-style recipe) makes every MLP
+an ``nn.MoELayer`` (top-k routed experts, ``FLAGS_moe_dispatch`` picks the
+dispatch). Each MoE layer returns its load-balancing aux loss beside its
+output; the stack threads the per-layer values out of the (checkpointed)
+layers and sums them, so a recomputed layer counts once, and the labelled
+loss is ``ce + aux_loss_weight * sum(aux)``, as in the JAX model.
 """
 from __future__ import annotations
 
@@ -26,12 +33,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, seed
 from ..kernels.rope import rope_apply
-from ..nn import RMSNorm
+from ..nn import MoELayer, RMSNorm
 from ..nn.functional import rms_norm_residual, scaled_dot_product_attention
 
-__all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
-           "LlamaModel", "LlamaForCausalLM", "apply_rotary_pos_emb",
-           "llama_flops_per_token", "llama_param_count"]
+__all__ = ["LlamaConfig", "LlamaMoEConfig", "LlamaAttention", "LlamaMLP",
+           "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
+           "apply_rotary_pos_emb", "llama_flops_per_token",
+           "llama_param_count", "llama_moe_param_counts",
+           "llama_moe_flops_per_token"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 IGNORE_INDEX = -100
@@ -90,6 +99,26 @@ class LlamaConfig:
             dtype="float32"), **overrides})
 
 
+@dataclass
+class LlamaMoEConfig(LlamaConfig):
+    """DeepSeekMoE/Qwen2-MoE-style config: every MLP is a top-k routed
+    expert layer (``capacity_factor`` applies to the ``index`` dispatch
+    only)."""
+    num_experts: int = 8
+    top_k: int = 2
+    moe_intermediate_size: int = 0  # 0 = intermediate_size
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+
+    @staticmethod
+    def tiny(**overrides):
+        return LlamaMoEConfig(**{**dict(
+            vocab_size=256, hidden_size=128, intermediate_size=256,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, max_position_embeddings=256,
+            dtype="float32", num_experts=4, top_k=2), **overrides})
+
+
 def apply_rotary_pos_emb(x, theta: float = 10000.0, pos_offset: int = 0):
     """Rotate-half RoPE on [b, s, h, d] through the RoPE kernel."""
     return rope_apply(x, theta, pos_offset)
@@ -138,10 +167,21 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
+    """Returns the new hidden state; an MoE layer (``num_experts`` > 1)
+    returns ``(hidden, aux)``."""
+
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.self_attn = LlamaAttention(config)
-        self.mlp = LlamaMLP(config)
+        self.is_moe = getattr(config, "num_experts", 0) > 1
+        if self.is_moe:
+            self.mlp = MoELayer(
+                config.hidden_size, config.num_experts,
+                intermediate_size=config.moe_intermediate_size
+                or config.intermediate_size,
+                top_k=config.top_k, capacity_factor=config.capacity_factor)
+        else:
+            self.mlp = LlamaMLP(config)
         self.input_layernorm = RMSNorm(config.hidden_size,
                                        config.rms_norm_eps)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
@@ -152,6 +192,9 @@ class LlamaDecoderLayer(nn.Module):
         norm = self.post_attention_layernorm
         mlp_in, hidden = rms_norm_residual(attn_out, hidden, norm.weight,
                                            norm.epsilon)
+        if self.is_moe:
+            out, aux = self.mlp.forward_with_aux(mlp_in)
+            return hidden + out, aux
         return hidden + self.mlp(mlp_in)
 
 
@@ -166,19 +209,29 @@ class LlamaModel(nn.Module):
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
 
-    def forward(self, input_ids):
+    def forward_with_aux(self, input_ids):
+        """-> (final hidden [b, s, h], summed MoE aux loss or None)."""
         hidden = self.embed_tokens(input_ids)
         remat = self.config.use_recompute and self.training and \
             torch.is_grad_enabled()
+        aux = None
         for layer in self.layers:
             if remat:
                 # the layer's forward runs again in the backward; the model
                 # draws no random numbers, so no RNG state is stashed
-                hidden = checkpoint(layer, hidden, use_reentrant=False,
-                                    preserve_rng_state=False)
+                out = checkpoint(layer, hidden, use_reentrant=False,
+                                 preserve_rng_state=False)
             else:
-                hidden = layer(hidden)
-        return self.norm(hidden)
+                out = layer(hidden)
+            if layer.is_moe:
+                hidden, a = out
+                aux = a if aux is None else aux + a
+            else:
+                hidden = out
+        return self.norm(hidden), aux
+
+    def forward(self, input_ids):
+        return self.forward_with_aux(input_ids)[0]
 
 
 def _ce_chunk_sum(h, w, lab):
@@ -256,14 +309,18 @@ class LlamaForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None):
         """``input_ids`` [b, s] -> logits [b, s, vocab]; with ``labels``
         [b, s], the mean next-token CE (fp32 scalar) through the chunked
-        fused head, labels equal to -100 not counted."""
-        hidden = self.llama(input_ids)
+        fused head, labels equal to -100 not counted, plus
+        ``aux_loss_weight`` times the summed aux of an MoE model."""
+        hidden, aux = self.llama.forward_with_aux(input_ids)
         if labels is None:
             return self.lm_head(hidden)
         h = hidden[:, :-1, :].reshape(-1, self.config.hidden_size)
         lab = labels[:, 1:].reshape(-1)
-        return fused_linear_ce(h, self.lm_head.weight, lab,
+        loss = fused_linear_ce(h, self.lm_head.weight, lab,
                                self.config.ce_chunk)
+        if aux is not None:
+            loss = loss + self.config.aux_loss_weight * aux
+        return loss
 
     def loss_from_logits(self, logits, labels):
         v = self.config.vocab_size
@@ -285,3 +342,29 @@ def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
     term), for MFU."""
     attn = 12 * config.num_hidden_layers * config.hidden_size * seq_len
     return 6 * llama_param_count(config) + attn
+
+
+def llama_moe_param_counts(config: LlamaMoEConfig):
+    """(total, activated per token) parameter counts of the MoE model: every
+    token runs attention, embeddings and the router but only ``top_k`` of
+    the ``num_experts`` expert FFNs."""
+    h, v, L = (config.hidden_size, config.vocab_size,
+               config.num_hidden_layers)
+    i = config.moe_intermediate_size or config.intermediate_size
+    kvh = config.num_key_value_heads * (h // config.num_attention_heads)
+    attn_layer = h * h + 2 * h * kvh + h * h + 2 * h
+    expert = 3 * h * i
+    gate = h * config.num_experts
+    shared = L * (attn_layer + gate) + 2 * v * h + h
+    total = shared + L * config.num_experts * expert
+    activated = shared + L * config.top_k * expert
+    return total, activated
+
+
+def llama_moe_flops_per_token(config: LlamaMoEConfig, seq_len: int) -> float:
+    """Model FLOPs per token for MFU on the MoE model: 6 x the ACTIVATED
+    parameters plus the attention term (capacity overcompute counts as
+    overhead, not useful work)."""
+    _, activated = llama_moe_param_counts(config)
+    attn = 12 * config.num_hidden_layers * config.hidden_size * seq_len
+    return 6 * activated + attn

@@ -1,4 +1,4 @@
 from . import functional
-from .layer import RMSNorm
+from .layer import MoELayer, RMSNorm
 
-__all__ = ["functional", "RMSNorm"]
+__all__ = ["functional", "MoELayer", "RMSNorm"]

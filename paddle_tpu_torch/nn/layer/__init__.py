@@ -1,3 +1,4 @@
+from .moe import MoELayer
 from .norm import RMSNorm
 
-__all__ = ["RMSNorm"]
+__all__ = ["MoELayer", "RMSNorm"]

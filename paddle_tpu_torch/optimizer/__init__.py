@@ -1,3 +1,3 @@
-from .optimizer import AdamW
+from .optimizer import Adafactor, AdamW
 
-__all__ = ["AdamW"]
+__all__ = ["AdamW", "Adafactor"]

@@ -235,3 +235,204 @@ def test_rope_kernel_matches_plain(cuda, shape, pos_offset, theta, dtype,
     if dtype == torch.float32:
         back = rope.rope(fwd, theta, pos_offset, True)
         _close(back.cpu(), x.cpu(), (0.0, 1e-5))
+
+
+# -- MoE kernels ---------------------------------------------------------------
+
+def _gmm_inputs(cuda, dtype, sizes, k, n, seed):
+    """lhs scaled by 1/sqrt(k) so that products are O(1) and fp32 order
+    differences stay near 1e-6."""
+    rng = np.random.default_rng(seed)
+    m = int(sum(sizes)) + 3  # three rows past the groups: zeros
+    lhs = rng.standard_normal((m, k), dtype=np.float32) / np.sqrt(k)
+    rhs = rng.standard_normal((len(sizes), k, n), dtype=np.float32)
+    dout = rng.standard_normal((m, n), dtype=np.float32)
+    t = [torch.from_numpy(a).to(cuda).to(dtype) for a in (lhs, rhs, dout)]
+    return t + [torch.tensor(sizes, dtype=torch.int32, device=cuda)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, (1e-5, 1e-4)),
+                                       (torch.bfloat16, (2.0 ** -8, 1e-4))])
+@pytest.mark.parametrize("sizes,k,n", [
+    ([0, 1, 300, 7, 0, 129], 64, 136), ([1000], 8, 8),
+    ([128, 128, 0], 256, 128), ([5] * 128, 16, 24)])
+def test_grouped_matmul_kernels_match_plain(cuda, sizes, k, n, dtype, tol):
+    """Forward, dgrad (transposed rhs) and wgrad kernels against their plain
+    versions: empty groups, a 1-row group, groups of exact and ragged tile
+    multiples, 128 groups, rows past the groups' sum (zeros), k and n
+    multiples of 8 that are not of the tile."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+
+    lhs, rhs, dout, gs = _gmm_inputs(cuda, dtype, sizes, k, n, 15)
+    reset_counters()
+    out = gm.gmm(lhs, rhs, gs)
+    d_lhs = gm.gmm(dout, rhs, gs, trans_rhs=True)
+    d_rhs = gm.tgmm(lhs, dout, gs)
+    torch.cuda.synchronize()
+    c = counters()
+    assert [c[f"grouped_matmul{s}"]["launches"]
+            for s in ("", "_dgrad", "_wgrad")] == [1, 1, 1]
+    f = [t.float() for t in (lhs, rhs, dout)]
+    for got, ref in ((out, gm.gmm_plain(f[0], f[1], gs)),
+                     (d_lhs, gm.gmm_plain(f[2], f[1], gs, True)),
+                     (d_rhs, gm.tgmm_plain(f[0], f[2], gs))):
+        assert got.dtype == dtype
+        _close(got.float().cpu(), ref.cpu(), tol)
+    assert not out[sum(sizes):].any() and not d_lhs[sum(sizes):].any()
+    for g, s in enumerate(sizes):
+        if s == 0:
+            assert not d_rhs[g].any()
+
+
+@pytest.mark.gpu
+def test_grouped_matmul_rejects_what_the_kernel_does_not_take(cuda):
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+
+    lhs = torch.zeros(4, 12, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gm.gmm(lhs, torch.zeros(2, 12, 16, device=cuda),
+               torch.tensor([2, 2], dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="groups"):
+        gm.gmm(torch.zeros(4, 8, device=cuda),
+               torch.zeros(129, 8, 8, device=cuda),
+               torch.zeros(129, dtype=torch.int32, device=cuda))
+
+
+def _route_inputs(cuda, dtype, n, h, e, seed, special=False):
+    """Router inputs; with ``special`` expert e-1 gets no row and expert
+    e-2 exactly one (token 0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, h), dtype=np.float32)
+    wg = 0.3 * rng.standard_normal((h, e), dtype=np.float32)
+    if special:
+        x[:, 0] = 4.0
+        x[:, 1] = 0.0
+        x[0, 1] = 4.0
+        wg[0, e - 1] = wg[0, e - 2] = -4.0
+        wg[1, e - 2] = 12.0
+    xt = torch.from_numpy(x).to(cuda).to(dtype)
+    return xt, torch.from_numpy(wg).to(cuda).to(dtype)
+
+
+def logit_margin(xt, wg, k):
+    """Smallest gap between consecutive logits among a token's top k + 1
+    (fp64). The fp32 logits of the kernel and the plain version differ by
+    their summation order, some 1e-5 at h = 1536; a margin above 1e-4
+    means that no near-tie decides a choice."""
+    logits = xt.double() @ wg.double()
+    top = logits.sort(dim=1, descending=True).values[:, :k + 1]
+    return float((top[:, :-1] - top[:, 1:]).min())
+
+
+# (n, h, e, k, special, seed): seeds whose inputs have a margin above 1e-4
+_ROUTE_CASES = [(37, 64, 8, 2, True, 16), (1000, 1536, 8, 2, False, 16),
+                (513, 96, 16, 1, True, 17), (200, 128, 128, 2, False, 16),
+                (64, 40, 128, 8, False, 20), (8192, 1536, 8, 2, False, 17)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,e,k,special,seed", _ROUTE_CASES)
+def test_route_kernel_matches_plain(cuda, n, h, e, k, special, seed, dtype):
+    """Choices, positions (token-major, across blocks of 32 tokens) and
+    counts exact, ce exact; gates within 1e-4 and me within rtol 1e-4:
+    the fp32 logits differ by summation order by some 2e-5 at logits of
+    ~30, and gates and probabilities move by as much. Token counts that
+    32 does not divide, an expert with no row and one with one row, top_k
+    1 and 8, 128 experts."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    xt, wg = _route_inputs(cuda, dtype, n, h, e, seed, special)
+    assert logit_margin(xt, wg, k) > 1e-4
+    reset_counters()
+    got = md.route(xt, wg, k)
+    torch.cuda.synchronize()
+    assert counters()["moe_route"]["launches"] == 1
+    ref = md.route_plain(xt, wg, k)
+    gv, gi, pos, cnt, me, ce = (t.cpu() for t in got)
+    rgv, rgi, rpos, rcnt, rme, rce = (t.cpu() for t in ref)
+    assert torch.equal(gi, rgi) and torch.equal(pos, rpos)
+    assert torch.equal(cnt, rcnt) and torch.equal(ce, rce)
+    _close(gv, rgv, (0.0, 1e-4))
+    _close(me, rme, (1e-4, 1e-4))
+    if special:
+        assert cnt[e - 1] == 0 and cnt[e - 2] == 1
+    # run again: bitwise the same (recompute relies on it)
+    again = md.route(xt, wg, k)
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(again, (gv, gi, pos, cnt, me, ce)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", _TOLS)
+@pytest.mark.parametrize("n,k,h", [(37, 2, 64), (1000, 1, 1536),
+                                   (129, 8, 8)])
+def test_gather_and_combine_kernels_match_plain(cuda, n, k, h, dtype, tol):
+    """Gather is exact; combine within ``tol`` of the fp32 plain version."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    rng = np.random.default_rng(17)
+    src = torch.from_numpy(rng.standard_normal((n, h), dtype=np.float32)
+                           ).to(cuda).to(dtype)
+    idx = torch.from_numpy(rng.integers(0, n, size=n * k).astype(np.int32)
+                           ).to(cuda)
+    gates = torch.from_numpy(rng.random((n, k), dtype=np.float32)).to(cuda)
+    dest2 = torch.from_numpy(rng.permutation(n * k).reshape(n, k)
+                             .astype(np.int32)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal((n * k, h), dtype=np.float32)
+                         ).to(cuda).to(dtype)
+    reset_counters()
+    out = md.gather_rows(src, idx)
+    comb = md.combine_rows(y, gates, dest2)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["moe_gather"]["launches"] == 1
+    assert c["moe_combine"]["launches"] == 1
+    assert torch.equal(out, md.gather_rows_plain(src, idx))
+    _close(comb.float().cpu(),
+           md.combine_rows_plain(y.float(), gates, dest2).cpu(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_moe_mlp_backward_uses_the_kernels(cuda, dtype, monkeypatch):
+    """Forward and backward of ``fused_moe_mlp`` launch each kernel the
+    reckoned number of times (backward: a combine, two gathers, dgrad and
+    wgrad per projection) and agree with the same call on the plain
+    versions: fp32 within 1e-4 relative L2, bf16 within 2e-2."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    rng = np.random.default_rng(18)
+    h, e, i = 64, 8, 96
+    arrays = [rng.standard_normal((2, 37, h), dtype=np.float32),
+              0.3 * rng.standard_normal((h, e), dtype=np.float32)] + \
+        [rng.standard_normal(s, dtype=np.float32) / np.sqrt(s[1])
+         for s in ((e, h, i), (e, h, i), (e, i, h))]
+
+    def run():
+        leaves = [torch.from_numpy(a).to(cuda).to(dtype).requires_grad_()
+                  for a in arrays]
+        o, aux = md.fused_moe_mlp(*leaves, top_k=2)
+        ((o.float() ** 2).sum() + aux).backward()
+        return [o.detach().float()] + [t.grad.float() for t in leaves]
+
+    reset_counters()
+    got = run()
+    torch.cuda.synchronize()
+    c = counters()
+    assert {n: c[n]["launches"] for n in (
+        "moe_route", "moe_gather", "moe_combine", "grouped_matmul",
+        "grouped_matmul_dgrad", "grouped_matmul_wgrad")} == {
+        "moe_route": 1, "moe_gather": 3, "moe_combine": 2,
+        "grouped_matmul": 3, "grouped_matmul_dgrad": 3,
+        "grouped_matmul_wgrad": 3}
+    assert all(v["plain_calls"] == 0 for v in c.values())
+    for mod, name in ((md, "route"), (md, "gather_rows"),
+                      (md, "combine_rows"), (gm, "gmm"), (gm, "tgmm")):
+        monkeypatch.setattr(mod, name, getattr(mod, name + "_plain"))
+    ref = run()
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, ref):
+        assert ((a - b).norm() / b.norm()).item() <= limit
