@@ -14,15 +14,21 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              its plain PyTorch version on the same inputs, with times of the
              kernel, the plain version and a PyTorch library call where one
              computes the same function (a yardstick the port never calls),
-             and the least time the card could take (bound).
+             and the least time the card could take (bound). The
+             tensor-core flash forward and dK/dV kernels (bf16, head dim
+             128) are held to the bound of their bf16 roundings of P and dS
+             and timed beside the CUDA-core kernels on the same inputs;
+             the CUDA-core ones keep their fp32 cases.
 4. parity  — fp32, GPT-3 6.7B width at depth 2: the engine's greedy tokens
              (paged-attention kernel) equal ``model.generate``'s (flash
              kernel), and its logprobs match a teacher-forced forward.
 5. serving — bf16, full 32-layer GPT-3 6.7B with random weights: an engine
              with 8 slots answers 16 requests (half share a 256-token
              prefix), then ``model.generate`` decodes two prompts; the
-             kernels' counters are reset before and read after, and both
-             kernels must have launched and no plain version run. Every
+             kernels' counters are reset before and read after: paged
+             attention must have launched, generate's prefill must have
+             gone to the tensor-core flash kernel and its single-row steps
+             to the CUDA-core one, exactly, and no plain version run. Every
              answer is then checked against the model's own forward, and
              the same check must fail on answers served with a fault
              planted in the paged-attention kernel.
@@ -36,7 +42,9 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              (and two planted backward faults that the check must catch),
              then several steps on one batch with the counters reset before
              and read after (each kernel's launches per step as reckoned
-             from the code, no plain call), a falling finite loss, step
+             from the code: every flash forward and dK/dV on the tensor-core
+             kernels, none on the CUDA-core ones; no plain call), a falling
+             finite loss, step
              time, tokens/s, MFU, peak memory and a profiled step.
 8. moe-kernels — the MoE path's kernels (routing, row gather, combine,
              grouped GEMM forward, dgrad and wgrad) at the MoE step's shapes
@@ -219,13 +227,36 @@ def _paged_case(label, dtype, S, W, lengths, active, gen):
     return row
 
 
+def _compare_bound(name, out, ref, bound):
+    """Elementwise |out - ref| <= bound (the tensor-core kernels' bound from
+    their bf16 roundings, ``sm90_fwd_bound`` / ``sm90_dkv_bound``); returns
+    the max abs error and the largest share of the bound it reaches."""
+    import torch
+
+    out = out.float()
+    if not torch.isfinite(out).all():
+        raise RuntimeError(f"{name}: non-finite kernel output")
+    diff = (out - ref).abs()
+    excess = (diff - bound).max().item()
+    if not excess <= 0:
+        raise RuntimeError(f"{name}: error exceeds its bound by {excess} "
+                           f"(max abs err {diff.max().item()})")
+    return diff.max().item(), (diff / bound).max().item()
+
+
+# the tensor-core kernels' tolerance, as the rows record it
+SM90_TOL = "2^-8|ref| + 2^-8 (P|V|, P^T|dO|, |dS^T||Q|) + 1e-4"
+
+
 def _flash_case(label, dtype, bh, sq, sk, causal, gen):
+    """The forward at one shape against its plain version on fp32 copies
+    of the same inputs. bf16 at head dim 128 with sq > 1 runs the
+    tensor-core kernel, held to its bound and timed beside the CUDA-core
+    kernel on the same inputs; the rest runs the CUDA-core kernel."""
     import torch
     import torch.nn.functional as TF
 
-    from paddle_tpu_torch.kernels.flash_attention import (
-        flash_attention_plain, flash_attention_with_lse)
-
+    fa = _flash_module()
     d = 128
     dev = DEVICE
     q = torch.randn(bh, sq, d, generator=gen, device=dev).to(dtype)
@@ -233,17 +264,25 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen):
     v = torch.randn(bh, sk, d, generator=gen, device=dev).to(dtype)
     off = sk - sq if causal else 0
     scale = 1.0 / d ** 0.5
-    o, lse = flash_attention_with_lse(q, k, v, off, causal, scale)
+    sm90 = fa.takes_sm90(dtype, d, sq)
+    o, lse = fa.flash_attention_with_lse(q, k, v, off, causal, scale)
     torch.cuda.synchronize()
-    ro, rlse = flash_attention_plain(q.float(), k.float(), v.float(), off,
-                                     causal, scale)
-    err, rel = _compare(f"flash_attention[{label}]", o, ro, _tol(dtype))
+    f32 = [t.float() for t in (q, k, v)]
+    ro, rlse = fa.flash_attention_plain(*f32, off, causal, scale)
+    if sm90:
+        bound = fa.sm90_fwd_bound(*f32, off, causal, scale, ro)
+        err, share = _compare_bound(f"flash_attention_sm90[{label}]", o, ro,
+                                    bound)
+        del bound
+    else:
+        err, _rel = _compare(f"flash_attention[{label}]", o, ro, _tol(dtype))
     lse_err, _ = _compare(f"flash_attention[{label}].lse", lse, rlse,
                           (0.0, 1e-3))
-    del ro, rlse
-    ms = _time_ms(lambda: flash_attention_with_lse(q, k, v, off, causal,
+    del ro, rlse, f32
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: fa.flash_attention_with_lse(q, k, v, off, causal,
                                                       scale))
-    plain_ms = _time_ms(lambda: flash_attention_plain(
+    plain_ms = _time_ms(lambda: fa.flash_attention_plain(
         q, k, v, off, causal, scale), iters=5, warmup=1)
     # library yardstick: torch's SDPA on [1, bh, s, d]; its is_causal is
     # top-left aligned, which equals ours for sq == sk, and sq == 1 at the
@@ -257,12 +296,20 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen):
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz + bh * sq * 4
     flops = 4 * d * bh * pairs
     bound_ms, bound_by = _bound(nbytes, flops, str(dtype).split(".")[1])
-    row = {"phase": "kernel", "kernel": "flash_attention", "case": label,
-           "dtype": str(dtype).split(".")[1], "bh": bh, "sq": sq, "sk": sk,
-           "causal": causal, "max_abs_err": err, "max_rel_err": rel,
-           "lse_max_abs_err": lse_err, "tol": _tol(dtype), "kernel_ms": ms,
-           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by}
+    row = {"phase": "kernel",
+           "kernel": "flash_attention_sm90" if sm90 else "flash_attention",
+           "case": label, "dtype": str(dtype).split(".")[1], "bh": bh,
+           "sq": sq, "sk": sk, "causal": causal, "max_abs_err": err,
+           "lse_max_abs_err": lse_err,
+           "tol": SM90_TOL if sm90 else _tol(dtype), "kernel_ms": ms,
+           "tflop_per_s": flops / ms / 1e9, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    if sm90:
+        # PR 1's CUDA-core kernel on the same inputs
+        row.update(bound_share_max=share, cuda_core_ms=_time_ms(
+            lambda: fa.flash_attention_fwd_cuda_core(q, k, v, off, causal,
+                                                     scale), iters=5,
+            warmup=1))
     _emit(row)
     return row
 
@@ -292,6 +339,10 @@ def phase_kernels(seed):
     for sq in (128, 512, 2048):
         rows.append(_flash_case(f"causal{sq}-bfloat16", torch.bfloat16, 32,
                                 sq, sq, True, gen))
+    # the training steps' shapes: dense batch 4 x 16 heads, MoE 4 x 12
+    for bh in (64, 48):
+        rows.append(_flash_case(f"train-bh{bh}-bfloat16", torch.bfloat16, bh,
+                                2048, 2048, True, gen))
     rows.append(_flash_case("causal512-float32", torch.float32, 32, 512, 512,
                             True, gen))
     rows.append(_flash_case("decode1x640-bfloat16", torch.bfloat16, 32, 1,
@@ -486,9 +537,19 @@ def phase_serving(seed):
     torch.cuda.synchronize()
     counts = kernels.counters()
     for name, c in counts.items():
-        if c["plain_calls"] != 0 or (c["launches"] <= 0 and name in (
-                "paged_attention", "flash_attention")):
+        if c["plain_calls"] != 0 or (c["launches"] <= 0 and
+                                     name == "paged_attention"):
             raise RuntimeError(f"serving: kernel {name} counts {c}")
+    # generate's flash launches, exactly: each layer's prefill (96 rows) on
+    # the tensor-core kernel, each later single-row step on the CUDA-core one
+    L = cfg.num_hidden_layers
+    flash = {n: counts[n]["launches"] for n in (
+        "flash_attention_sm90", "flash_attention")}
+    if flash != {"flash_attention_sm90": L,
+                 "flash_attention": L * (gen_new - 1)}:
+        raise RuntimeError(f"serving: generate's flash launches {flash}, "
+                           f"expected {L} prefill and {L * (gen_new - 1)} "
+                           f"decode")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     gen_tokens = sum(len(s) - len(p) for p, (s, _lp) in zip(prompts, outs))
     ttft = np.array([(first[i] - t_sub[i]) * 1e3 for i in range(16)])
@@ -552,6 +613,8 @@ def _kernel_group(name):
     low = name.lower()
     if "paged_attention_kernel" in low:
         return "paged_attention"
+    if "flash_fwd_sm90" in low:
+        return "flash_attention_sm90"
     if "flash_fwd_kernel" in low:
         return "flash_attention"
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
@@ -662,36 +725,44 @@ def _dname(dtype):
 def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
                     timed=True, with_dlse=False):
     """dK/dV and dQ kernels at one shape against their plain versions on
-    fp32 copies of the same inputs. Returns one row per kernel."""
+    fp32 copies of the same inputs. bf16 dK/dV runs the tensor-core kernel,
+    held to its bound and timed beside the CUDA-core kernel on the same
+    inputs. Returns one row per kernel."""
     import torch
     import torch.nn.functional as TF
 
-    from paddle_tpu_torch.kernels.flash_attention import (
-        flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
-        flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
-        flash_attention_plain)
-
+    fa = _flash_module()
     d = 128
     scale = 1.0 / d ** 0.5
+    sm90 = fa.takes_sm90(dtype, d)
     q, do = (_rand(gen, (bh, sq, d), dtype) for _ in range(2))
     k, v = (_rand(gen, (bh, sk, d), dtype) for _ in range(2))
     f32 = [t.float() for t in (q, k, v, do)]
     with torch.no_grad():
-        o, lse = flash_attention_plain(*f32[:3], offset, causal, scale)
+        o, lse = fa.flash_attention_plain(*f32[:3], offset, causal, scale)
     delta = (f32[3] * o).sum(-1)
     if with_dlse:
         delta = delta - _rand(gen, (bh, sq), torch.float32)
     del o
     args = (lse, delta, offset, causal, scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
-    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, *args)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, *args)
     torch.cuda.synchronize()
-    rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(*f32, *args)
     tol = _tol_bwd(dtype)
-    err_dkv = max(_compare(f"flash_bwd_dkv[{label}].dk", dk, rdk, tol)[0],
-                  _compare(f"flash_bwd_dkv[{label}].dv", dv, rdv, tol)[0])
+    if sm90:
+        bdk, bdv = fa.sm90_dkv_bound(*f32, *args, rdk, rdv)
+        (ek, sk_), (ev, sv_) = (
+            _compare_bound(f"flash_bwd_dkv_sm90[{label}].dk", dk, rdk, bdk),
+            _compare_bound(f"flash_bwd_dkv_sm90[{label}].dv", dv, rdv, bdv))
+        err_dkv, share = max(ek, ev), max(sk_, sv_)
+        del bdk, bdv
+    else:
+        err_dkv = max(
+            _compare(f"flash_bwd_dkv[{label}].dk", dk, rdk, tol)[0],
+            _compare(f"flash_bwd_dkv[{label}].dv", dv, rdv, tol)[0])
     del rdk, rdv
-    rdq = flash_attention_bwd_dq_plain(*f32, *args)
+    rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
     err_dq = _compare(f"flash_bwd_dq[{label}].dq", dq, rdq, tol)[0]
     if offset < 0 and causal and dq[:, :-offset].abs().max().item() != 0.0:
         raise RuntimeError(f"flash_bwd_dq[{label}]: rows that see no key "
@@ -699,22 +770,31 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
     del rdq, f32
     torch.cuda.empty_cache()
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
-            "bh": bh, "sq": sq, "sk": sk, "offset": offset, "causal": causal,
-            "tol": tol}
-    rows = [dict(base, kernel="flash_attention_bwd_dkv", max_abs_err=err_dkv),
-            dict(base, kernel="flash_attention_bwd_dq", max_abs_err=err_dq)]
+            "bh": bh, "sq": sq, "sk": sk, "offset": offset, "causal": causal}
+    rows = [dict(base, kernel="flash_attention_bwd_dkv_sm90" if sm90
+                 else "flash_attention_bwd_dkv", max_abs_err=err_dkv,
+                 tol=SM90_TOL if sm90 else tol),
+            dict(base, kernel="flash_attention_bwd_dq", max_abs_err=err_dq,
+                 tol=tol)]
+    if sm90:
+        rows[0]["bound_share_max"] = share
     if timed:
         rows[0]["kernel_ms"] = _time_ms(
-            lambda: flash_attention_bwd_dkv(q, k, v, do, *args), iters=10,
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, *args), iters=10,
             warmup=2)
         rows[1]["kernel_ms"] = _time_ms(
-            lambda: flash_attention_bwd_dq(q, k, v, do, *args), iters=10,
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, *args), iters=10,
             warmup=2)
+        if sm90:  # PR 2's CUDA-core kernel on the same inputs
+            rows[0]["cuda_core_ms"] = _time_ms(
+                lambda: fa.flash_attention_bwd_dkv_cuda_core(q, k, v, do,
+                                                             *args),
+                iters=3, warmup=1)
         rows[0]["plain_ms"] = _time_ms(
-            lambda: flash_attention_bwd_dkv_plain(q, k, v, do, *args),
+            lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, *args),
             iters=3, warmup=1)
         rows[1]["plain_ms"] = _time_ms(
-            lambda: flash_attention_bwd_dq_plain(q, k, v, do, *args),
+            lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, *args),
             iters=3, warmup=1)
         torch.cuda.empty_cache()
         # library yardstick: torch's SDPA forward + backward (dq, dk and dv
@@ -743,7 +823,8 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             b_ms, b_by = _bound(io + out_bytes, flops_per * pairs,
                                 _dname(dtype))
             row.update(library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                       visible_pairs=pairs)
+                       visible_pairs=pairs,
+                       tflop_per_s=flops_per * pairs / row["kernel_ms"] / 1e9)
     for row in rows:
         _emit(row)
     return rows
@@ -1010,9 +1091,11 @@ def _train_curve(model, state, ids, steps):
     return [float(step(ids, ids)) for _ in range(steps)]
 
 
-# the kernels of the dense training step, and their launches per step as
-# reckoned from the code: recompute runs every layer's forward twice, the
-# final norm adds one forward and one backward
+# the kernels of the dense training step in fp32 (the parity phases; bf16
+# takes the tensor-core flash forward and dK/dV instead of the CUDA-core
+# ones), and their launches per bf16 step as reckoned from the code:
+# recompute runs every layer's forward twice, the final norm adds one
+# forward and one backward
 DENSE_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
                        "flash_attention_bwd_dq", "rms_norm",
                        "rms_norm_residual", "rms_norm_bwd",
@@ -1020,13 +1103,14 @@ DENSE_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
 
 
 def _dense_launches(L):
-    """{counter: launches per step} of the dense training step; every
-    other counter 0."""
+    """{counter: launches per step} of the bf16 dense training step; every
+    other counter 0: all 2L flash forwards and L dK/dV launches go to the
+    tensor-core kernels, none to the CUDA-core ones."""
     from paddle_tpu_torch import kernels
 
     per_step = {n: 0 for n in kernels.counters()}
     per_step.update({
-        "flash_attention": 2 * L, "flash_attention_bwd_dkv": L,
+        "flash_attention_sm90": 2 * L, "flash_attention_bwd_dkv_sm90": L,
         "flash_attention_bwd_dq": L, "rms_norm": 2 * L + 1,
         "rms_norm_residual": 2 * L, "rms_norm_bwd": L + 1,
         "rms_norm_residual_bwd": L, "rope": 4 * L, "rope_inverse": 2 * L})
@@ -1083,6 +1167,7 @@ def phase_train_parity(seed):
         raise RuntimeError(f"train-parity: loss did not fall {curve_k}")
     del model, state
     torch.cuda.empty_cache()
+    return counts
 
 
 def _train_group(name):
@@ -1093,6 +1178,8 @@ def _train_group(name):
                        ("route_scan_kernel", "moe_route"),
                        ("gather_rows_kernel", "moe_gather"),
                        ("combine_rows_kernel", "moe_combine"),
+                       ("flash_fwd_sm90", "flash_fwd_sm90"),
+                       ("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90"),
                        ("flash_fwd_kernel", "flash_fwd"),
                        ("flash_bwd_dkv", "flash_bwd_dkv"),
                        ("flash_bwd_dq", "flash_bwd_dq"),
@@ -1735,6 +1822,7 @@ def phase_moe_train_parity(seed):
         raise RuntimeError(f"moe-train-parity: loss did not fall {curve_k}")
     del model, state
     torch.cuda.empty_cache()
+    return counts
 
 
 def phase_moe_train(seed):
@@ -1850,22 +1938,31 @@ def phase_moe_train(seed):
     return counts
 
 
-def _kernels_line(rows, serving, training, moe):
+def _kernels_line(rows, paths):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
-    launches on the three main paths (serving, training, moe-training)."""
+    launches on the main paths (``paths``: {path: counters read after its
+    run}): serving, the bf16 training steps, and the fp32 depth-2 training
+    steps of the parity phases, which run the CUDA-core flash kernels)."""
     # (kernel, representative case, source, TPU kernel replaced, the
     # counters whose launches it sums)
     table = [
         ("paged_attention", "decode-bfloat16", "paged_attention.cu",
          "paddle_tpu/kernels/pallas/paged_attention.py:46",
          ["paged_attention"]),
-        ("flash_attention", "causal512-bfloat16", "flash_attention.cu",
+        ("flash_attention", "causal512-float32", "flash_attention.cu",
          "paddle_tpu/kernels/flash_attention.py:64", ["flash_attention"]),
-        ("flash_attention_bwd_dkv", "train-bfloat16",
+        ("flash_attention_sm90", "causal2048-bfloat16", "flash_fwd_sm90.cu",
+         "paddle_tpu/kernels/flash_attention.py:64",
+         ["flash_attention_sm90"]),
+        ("flash_attention_bwd_dkv", "train-float32",
          "flash_attention_bwd.cu",
          "paddle_tpu/kernels/flash_attention.py:154",
          ["flash_attention_bwd_dkv"]),
+        ("flash_attention_bwd_dkv_sm90", "train-bfloat16",
+         "flash_bwd_dkv_sm90.cu",
+         "paddle_tpu/kernels/flash_attention.py:154",
+         ["flash_attention_bwd_dkv_sm90"]),
         ("flash_attention_bwd_dq", "train-bfloat16",
          "flash_attention_bwd.cu",
          "paddle_tpu/kernels/flash_attention.py:206",
@@ -1904,8 +2001,7 @@ def _kernels_line(rows, serving, training, moe):
         r = next(x for x in mine if x["kernel"] == name and
                  x["case"] == case)
         by_path = {p: sum(c[n]["launches"] for n in counters)
-                   for p, c in (("serving", serving), ("training", training),
-                                ("moe-training", moe))}
+                   for p, c in paths.items()}
         entry = {
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/" + src,
@@ -1915,14 +2011,16 @@ def _kernels_line(rows, serving, training, moe):
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": case}
+        if "cuda_core_ms" in r:
+            entry["cuda_core_ms"] = r["cuda_core_ms"]
         if name in also:
             also_replaces, variant = also[name]
             v = next(x for x in mine if x["kernel"] == variant and
                      x["case"] == case)
             entry["variant"] = {
                 "name": variant, "replaces": also_replaces,
-                "launches": training[variant]["launches"]
-                + moe[variant]["launches"],
+                "launches": sum(c[variant]["launches"]
+                                for c in paths.values()),
                 "ms": v["kernel_ms"], "plain_ms": v["plain_ms"],
                 "bound_ms": v["bound_ms"], "library_ms": v["library_ms"]}
         out.append(entry)
@@ -1973,13 +2071,15 @@ def main() -> int:
     rows += phase_train_kernels(SEED)
     phase_parity(SEED)
     serving = phase_serving(SEED)
-    phase_train_parity(SEED)
+    training_fp32 = phase_train_parity(SEED)
     training = phase_train(SEED)
     rows += phase_moe_kernels(SEED)
-    phase_moe_train_parity(SEED)
+    moe_fp32 = phase_moe_train_parity(SEED)
     moe = phase_moe_train(SEED)
 
-    _emit({"kernels": _kernels_line(rows, serving, training, moe)})
+    _emit({"kernels": _kernels_line(rows, {
+        "serving": serving, "training": training, "moe-training": moe,
+        "training-fp32": training_fp32, "moe-training-fp32": moe_fp32})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -24,7 +24,9 @@ __all__ = ["paged_attention", "paged_attention_plain", "flash_attention",
 
 _COUNTS = {"paged_attention": _paged.COUNTS,
            "flash_attention": _flash.COUNTS,
+           "flash_attention_sm90": _flash.COUNTS_SM90,
            "flash_attention_bwd_dkv": _flash.COUNTS_DKV,
+           "flash_attention_bwd_dkv_sm90": _flash.COUNTS_DKV_SM90,
            "flash_attention_bwd_dq": _flash.COUNTS_DQ,
            "rms_norm": _rmsnorm.COUNTS,
            "rms_norm_residual": _rmsnorm.COUNTS_RESIDUAL,

@@ -1,0 +1,280 @@
+// Flash-attention forward on Hopper's tensor cores (sm_90a): bf16 inputs,
+// head dim 64 or 128, fp32 accumulation, per-row log-sum-exp.
+//
+// Replaces the TPU kernel `_fwd_kernel` (paddle_tpu/kernels/flash_attention.py
+// :64, launched by `_flash_fwd` at :124) for the inputs it takes; fp32, other
+// head dims and single-row decode stay on the CUDA-core kernel of
+// flash_attention.cu. Same function: q [bh,sq,d] against k, v [bh,sk,d];
+// under `causal` row i sees key j iff j <= i + offset; o [bh,sq,d] bf16 and
+// lse [bh,sq] fp32; a row that sees no key gives o = 0 and lse = -1e30. P is
+// rounded to bf16 before P.V, as the TPU kernel rounds `p.astype(v.dtype)`
+// (:96-98); the row sum l adds the fp32 p.
+//
+// What bounds it on the H100: operations (4 d FLOPs per visible (row, key)
+// pair; causal 2048 at d 128 is ~500 FLOPs per byte of q/k/v/o).
+//
+// What the design does about it: both products run as wgmma on the tensor
+// cores. One block of two warpgroups per (bh, tile of 128 query rows); each
+// warpgroup owns 64 rows. Q is loaded once by TMA into shared memory; K and
+// V tiles of 128 keys stream through a 2-stage ring, loaded by TMA (128-byte
+// swizzle) and signalled through mbarriers ("full" when the bytes landed,
+// "empty" when all 256 threads are done with a stage). Per key tile:
+//   S = Q.K^T       wgmma m64n128k16, both operands K-major in shared memory;
+//   online softmax  on the accumulator fragment in registers, in log2 units,
+//                   row max and sum over the 4 threads of a quad;
+//   O += P.V        wgmma with P as the bf16 register A operand and V read
+//                   MN-major from shared memory (transpose bit).
+// Under causal, tiles above the diagonal are not loaded (the TPU kernel's
+// skip at :102-106) and only tiles that cross the diagonal or the end of
+// the keys are masked. Rows and keys past sq / sk read zeros from TMA and
+// are masked or not written, so any length works. Thread 0 issues the TMA
+// loads between its own tiles (no producer warp yet).
+
+#include "sm90_common.cuh"
+
+namespace {
+
+using namespace sm90;
+
+constexpr int kRows = 128;    // query rows per block (two warpgroups of 64)
+constexpr int kKeys = 128;    // keys per K / V tile
+constexpr int kThreads = 256;
+
+template <int D>
+struct FwdLayout {
+  static constexpr int kHalves = D / 64;
+  static constexpr uint32_t kHalfQ = kRows * 128;   // bytes of one Q half
+  static constexpr uint32_t kHalfKV = kKeys * 128;  // bytes of one K/V half
+  static constexpr uint32_t kTileKV = kHalves * kHalfKV;
+  static constexpr uint32_t kQ = kHalves * kHalfQ;
+  static constexpr uint32_t kBars = kQ + 2 * 2 * kTileKV;  // full[2] empty[2] q
+  static constexpr size_t kSmem = kBars + 64 + 1024;       // + alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                      int sq, int sk, int offset, int causal,
+                      float scale_log2) {
+  using L = FwdLayout<D>;
+  constexpr int H = L::kHalves;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sKV = sQ + L::kQ;  // stage s: K at + 2 s kTileKV, V after it
+  const uint32_t bar = sQ + L::kBars;
+  const uint32_t qbar = bar + 32;
+
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest rows first
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int row_lo = q0 + wg * 64 + warp * 16 + lane / 4;  // d[i], i % 4 < 2
+  const int row_hi = row_lo + 8;                           // d[i], i % 4 >= 2
+  const int cq = 2 * (lane % 4);
+
+  const int kend = causal ? min(sk, q0 + kRows + offset) : sk;
+  const int n_tiles = kend > 0 ? (kend + kKeys - 1) / kKeys : 0;
+
+  const CUtensorMap* mk = &tk;
+  const CUtensorMap* mv = &tv;
+  auto load_kv = [=](int stage, int tile) {
+    const uint32_t full = bar + 8 * stage;
+    const uint32_t sK = sKV + 2 * stage * L::kTileKV;
+    mbar_expect_tx(full, 2 * L::kTileKV);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      tma_load(sK + h * L::kHalfKV, mk, full, 64 * h, tile * kKeys, b);
+      tma_load(sK + L::kTileKV + h * L::kHalfKV, mv, full, 64 * h,
+               tile * kKeys, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(bar + 8 * s, 1);
+      mbar_init(bar + 16 + 8 * s, kThreads);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(qbar, L::kQ);
+#pragma unroll
+    for (int h = 0; h < H; ++h)
+      tma_load(sQ + h * L::kHalfQ, &tq, qbar, 64 * h, q0, b);
+    for (int s = 0; s < 2 && s < n_tiles; ++s) load_kv(s, s);
+  }
+  __syncwarp();
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_lo = kNeg, m_hi = kNeg, l_lo = 0.f, l_hi = 0.f;
+  const uint32_t sQw = sQ + wg * 64 * 128;  // this warpgroup's 64 rows
+  mbar_wait(qbar, 0);
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int stage = it & 1;
+    const uint32_t parity = (it >> 1) & 1;
+    const int k0 = it * kKeys;
+    const uint32_t sK = sKV + 2 * stage * L::kTileKV;
+    const uint32_t sV = sK + L::kTileKV;
+    mbar_wait(bar + 8 * stage, parity);
+
+    // S = Q . K^T over d in k16 steps
+    float s[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // k within the 64-wide half
+      wgmma_ss_n128(s, desc(sQw + (kk / 4) * L::kHalfQ + off, 16, 1024),
+                    desc(sK + (kk / 4) * L::kHalfKV + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // online softmax in log2 units: v = scale * log2(e) * s, masked -> kNeg
+    const bool mask = k0 + kKeys > sk ||
+                      (causal && k0 + kKeys - 1 > q0 + wg * 64 + offset);
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      float v = s[i] * scale_log2;
+      if (mask) {
+        const int col = k0 + 8 * (i / 4) + cq + (i & 1);
+        const int row = (i & 2) ? row_hi : row_lo;
+        if (col >= sk || (causal && col > row + offset)) v = kNeg;
+      }
+      s[i] = v;
+      if (i & 2)
+        mx_hi = fmaxf(mx_hi, v);
+      else
+        mx_lo = fmaxf(mx_lo, v);
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, x));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, x));
+    }
+    const float a_lo = exp2f(m_lo - mx_lo), a_hi = exp2f(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    l_lo *= a_lo;
+    l_hi *= a_hi;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      // masked entries are zeroed explicitly: in a row that has seen no key
+      // yet the max is kNeg too and exp2(0) would be 1
+      const float mrow = (i & 2) ? m_hi : m_lo;
+      const float p = s[i] > 0.5f * kNeg ? exp2f(s[i] - mrow) : 0.f;
+      s[i] = p;
+      if (i & 2)
+        l_hi += p;
+      else
+        l_lo += p;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? a_hi : a_lo;
+
+    // O += P . V over the 128 keys in k16 steps, P rounded to bf16
+    uint32_t pa[8][4];
+    acc_to_a<64>(s, pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t dv = desc(sV + kk * 16 * 128, L::kHalfKV, 1024);
+      if constexpr (D == 128)
+        wgmma_rs_n128(acc, pa[kk], dv);
+      else
+        wgmma_rs_n64(acc, pa[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    // release the stage; thread 0 refills it with tile it + 2 once all 256
+    // threads are done with it
+    mbar_arrive(bar + 16 + 8 * stage);
+    if (tid == 0 && it + 2 < n_tiles) {
+      mbar_wait(bar + 16 + 8 * stage, parity);
+      load_kv(stage, it + 2);
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, x);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, x);
+  }
+  const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
+  const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
+  const size_t base = (size_t)b * sq;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = (i & 2) ? row_hi : row_lo;
+    const float inv = (i & 2) ? inv_hi : inv_lo;
+    if (row < sq) {
+      const int col = 8 * (i / 4) + cq;
+      *reinterpret_cast<__nv_bfloat162*>(o + (base + row) * D + col) =
+          __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
+    }
+  }
+  if (lane % 4 == 0) {
+    // natural-log lse = m ln 2 + ln l; a row that saw no key keeps -1e30
+    if (row_lo < sq)
+      lse[base + row_lo] = l_lo > 0.f ? m_lo * kLn2 + logf(l_lo) : kNeg;
+    if (row_hi < sq)
+      lse[base + row_hi] = l_hi > 0.f ? m_hi * kLn2 + logf(l_hi) : kNeg;
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int sq, int sk, int offset, int causal, float scale,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, bh, sq, D, kRows) || !make_map(&tk, k, bh, sk, D, kKeys) ||
+      !make_map(&tv, v, bh, sk, D, kKeys))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = FwdLayout<D>::kSmem;
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+    attr = true;
+  }
+  const dim3 grid((unsigned)((sq + kRows - 1) / kRows), (unsigned)bh);
+  flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, lse, sq, sk, offset, causal,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// bf16 q [bh, sq, hd], k, v [bh, sk, hd], o [bh, sq, hd]; lse [bh, sq] fp32;
+// hd 64 or 128; every pointer 16-byte aligned (TMA). Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a head
+// dim the kernel does not take or a tensor map the driver refuses.
+extern "C" int pt_flash_attention_fwd_sm90(const void* q, const void* k,
+                                           const void* v, void* o, void* lse,
+                                           int bh, int sq, int sk, int hd,
+                                           int offset, int causal, float scale,
+                                           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bh * sq == 0) return (int)cudaGetLastError();
+  if (hd == 128)
+    return launch<128>(q, k, v, o, (float*)lse, bh, sq, sk, offset, causal,
+                       scale, st);
+  if (hd == 64)
+    return launch<64>(q, k, v, o, (float*)lse, bh, sq, sk, offset, causal,
+                      scale, st);
+  return (int)cudaErrorInvalidValue;
+}

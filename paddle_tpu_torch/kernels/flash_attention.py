@@ -9,18 +9,36 @@ it saves q, k, v, o and lse and takes the cotangents of both o and lse,
 folded into ``delta = rowsum(dO * O) - dlse`` (plain PyTorch, as in the JAX
 ``_flash_bwd``), which the two backward kernels read.
 
-Each of the three kernels has a wrapper that launches it on a CUDA tensor
-or raises, and runs its plain version on a CPU tensor:
+Each kernel has a wrapper that launches it on a CUDA tensor or raises, and
+runs its plain version on a CPU tensor:
 
-- :func:`flash_attention_fwd` (``csrc/flash_attention.cu``) /
-  :func:`flash_attention_plain`;
-- :func:`flash_attention_bwd_dkv` (``csrc/flash_attention_bwd.cu``) /
-  :func:`flash_attention_bwd_dkv_plain`;
-- :func:`flash_attention_bwd_dq` (same source) /
+- :func:`flash_attention_fwd` / :func:`flash_attention_plain`. On CUDA it
+  takes one of two kernels by (dtype, head dim, sq), in plain code:
+  bf16 with head dim 64 or 128 and more than one query row goes to the
+  tensor-core kernel (``csrc/flash_fwd_sm90.cu``,
+  :func:`flash_attention_fwd_sm90`); everything else (fp32, other head
+  dims, single-row decode) to the CUDA-core kernel
+  (``csrc/flash_attention.cu``, :func:`flash_attention_fwd_cuda_core`);
+- :func:`flash_attention_bwd_dkv` / :func:`flash_attention_bwd_dkv_plain`,
+  likewise: bf16 with head dim 64 or 128 goes to
+  ``csrc/flash_bwd_dkv_sm90.cu`` (:func:`flash_attention_bwd_dkv_sm90`),
+  the rest to ``csrc/flash_attention_bwd.cu``
+  (:func:`flash_attention_bwd_dkv_cuda_core`);
+- :func:`flash_attention_bwd_dq` (``csrc/flash_attention_bwd.cu``) /
   :func:`flash_attention_bwd_dq_plain`.
+
+Each kernel counts its own launches (``COUNTS`` / ``COUNTS_SM90`` for the
+forward, ``COUNTS_DKV`` / ``COUNTS_DKV_SM90`` for dK/dV), so a run shows
+which one ran; CPU calls count as plain calls of the dispatching wrapper's
+CUDA-core counter.
 
 The backward plain versions are the explicit formulas of the JAX kernels
 (``_bwd_dkv_kernel``, ``_bwd_dq_kernel``) over the dense score matrix.
+
+The tensor-core kernels round P (forward and dV) and dS (dK) to bf16 as
+the A operands of their products, where the plain versions keep fp32.
+:func:`sm90_fwd_bound` and :func:`sm90_dkv_bound` give the elementwise
+error bound that this rounding allows against the fp32 plain version.
 """
 from __future__ import annotations
 
@@ -35,13 +53,20 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd", "flash_attention_plain",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
-           "COUNTS", "COUNTS_DKV", "COUNTS_DQ"]
+           "flash_attention_fwd_sm90", "flash_attention_fwd_cuda_core",
+           "flash_attention_bwd_dkv_sm90",
+           "flash_attention_bwd_dkv_cuda_core", "takes_sm90",
+           "sm90_fwd_bound", "sm90_dkv_bound", "COUNTS", "COUNTS_SM90",
+           "COUNTS_DKV", "COUNTS_DKV_SM90", "COUNTS_DQ"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-COUNTS = _build.Counts()      # forward
-COUNTS_DKV = _build.Counts()  # backward, dK/dV
-COUNTS_DQ = _build.Counts()   # backward, dQ
+_SM90_HEAD_DIMS = (64, 128)
+COUNTS = _build.Counts()           # forward, CUDA cores
+COUNTS_SM90 = _build.Counts()      # forward, tensor cores
+COUNTS_DKV = _build.Counts()       # backward dK/dV, CUDA cores
+COUNTS_DKV_SM90 = _build.Counts()  # backward dK/dV, tensor cores
+COUNTS_DQ = _build.Counts()        # backward, dQ
 
 
 def _mask(sq, sk, offset, causal, device):
@@ -69,9 +94,12 @@ def flash_attention_plain(q, k, v, offset, causal, scale):
 
 def _probs_plain(q, k, lse, offset, causal, scale):
     """p = exp(scale * q.k - lse) on visible pairs, exactly 0 elsewhere
-    (fp32 [bh, sq, sk])."""
+    (fp32 [bh, sq, sk]); with ``lse`` None, the row's own log-sum-exp (the
+    normalised probabilities)."""
     mask = _mask(q.shape[1], k.shape[1], offset, causal, q.device)
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if lse is None:
+        lse = torch.where(mask, s, _NEG).logsumexp(dim=-1)
     return torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
 
 
@@ -98,6 +126,47 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset, causal,
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
 
 
+def takes_sm90(dtype, head_dim, sq=None) -> bool:
+    """Whether a CUDA call goes to the tensor-core kernel: bf16, head dim 64
+    or 128, and (forward, ``sq`` given) more than one query row; a
+    single-row decode reads each key once and is bound by bytes, which the
+    CUDA-core kernel serves."""
+    return (dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS
+            and (sq is None or sq > 1))
+
+
+def sm90_fwd_bound(q, k, v, offset, causal, scale, o_ref):
+    """Elementwise bound of |o - o_ref| for the tensor-core forward against
+    the fp32 plain version ``o_ref`` on the same (fp32) inputs:
+    ``2**-8 |o_ref| + 2**-8 (P |V|) + 1e-4``. The kernel rounds its result to
+    bf16 once (half an ulp, 2**-9 of the value) and rounds each normalised
+    probability to bf16 before P.V (2**-9 of each term of P |V|); each term
+    gets twice its worst case, plus fp32 summation order."""
+    p = _probs_plain(q, k, None, offset, causal, scale)
+    return (2.0 ** -8 * o_ref.abs()
+            + 2.0 ** -8 * torch.einsum("bqk,bkd->bqd", p, v.float().abs())
+            + 1e-4)
+
+
+def sm90_dkv_bound(q, k, v, do, lse, delta, offset, causal, scale, dk_ref,
+                   dv_ref):
+    """Elementwise bounds (dK, dV) for the tensor-core dK/dV kernel against
+    the fp32 plain version (``dk_ref``, ``dv_ref``) on the same inputs:
+    ``2**-8 |dK| + 2**-8 (|dS^T| |Q|) + 1e-4`` and ``2**-8 |dV| + 2**-8
+    (P^T |dO|) + 1e-4``: one bf16 rounding of each result, and one of each
+    p and ds before its product, each term at twice its worst case."""
+    p = _probs_plain(q, k, lse, offset, causal, scale)
+    dof = do.float()
+    dp = torch.einsum("bqd,bkd->bqk", dof, v.float())
+    ds = (p * (dp - delta[..., None]) * scale).abs()
+    bdk = (2.0 ** -8 * dk_ref.abs()
+           + 2.0 ** -8 * torch.einsum("bqk,bqd->bkd", ds, q.float().abs())
+           + 1e-4)
+    bdv = (2.0 ** -8 * dv_ref.abs()
+           + 2.0 ** -8 * torch.einsum("bqk,bqd->bkd", p, dof.abs()) + 1e-4)
+    return bdk, bdv
+
+
 def _check_kernel_inputs(name, q, tensors):
     for t in tensors:
         if t.device != q.device:
@@ -115,15 +184,51 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _on_cuda(name, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel runs on CUDA tensors, got "
+                         f"{q.device}")
+
+
+def _tma_ready(t):
+    """t contiguous with a 16-byte aligned start, as TMA reads it."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _fwd_inputs(name, q, k, v):
+    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3 or \
+            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2] or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: q {tuple(q.shape)} {q.dtype}, k "
+                         f"{tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} "
+                         f"{v.dtype} do not fit")
+    _check_kernel_inputs(name, q, (k, v))
+
+
+def _check_sm90(name, q):
+    if not takes_sm90(q.dtype, q.shape[2]):
+        raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 "
+                         f"with head_dim in {_SM90_HEAD_DIMS}, got {q.dtype}"
+                         f" head_dim {q.shape[2]}")
+
+
 def flash_attention_fwd(q, k, v, offset, causal, scale):
-    """(o, lse): the forward kernel on CUDA, the plain version on the
-    CPU."""
+    """(o, lse): on CUDA the tensor-core kernel where :func:`takes_sm90`,
+    else the CUDA-core kernel; the plain version on the CPU."""
     if q.device.type == "cpu":
         COUNTS.plain()
         return flash_attention_plain(q, k, v, offset, causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    _check_kernel_inputs("flash_attention", q, (k, v))
+    if takes_sm90(q.dtype, q.shape[2], q.shape[1]):
+        return flash_attention_fwd_sm90(q, k, v, offset, causal, scale)
+    return flash_attention_fwd_cuda_core(q, k, v, offset, causal, scale)
+
+
+def flash_attention_fwd_cuda_core(q, k, v, offset, causal, scale):
+    """(o, lse) from the CUDA-core kernel (``csrc/flash_attention.cu``):
+    fp32 or bf16, head dim up to 256."""
+    _on_cuda("flash_attention", q)
+    _fwd_inputs("flash_attention", q, k, v)
     bh, sq, d = q.shape
     sk = k.shape[1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -138,6 +243,28 @@ def flash_attention_fwd(q, k, v, offset, causal, scale):
                  float(scale), _DTYPES[q.dtype], _stream(q))
     _build.check(err, "pt_flash_attention_fwd")
     COUNTS.launched()
+    return o, lse
+
+
+def flash_attention_fwd_sm90(q, k, v, offset, causal, scale):
+    """(o, lse) from the tensor-core kernel (``csrc/flash_fwd_sm90.cu``):
+    bf16, head dim 64 or 128."""
+    _on_cuda("flash_attention_sm90", q)
+    _fwd_inputs("flash_attention_sm90", q, k, v)
+    _check_sm90("flash_attention_sm90", q)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
+    fn = _build.kernel("pt_flash_attention_fwd_sm90", [ctypes.c_void_p] * 5 +
+                       [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
+                 float(scale), _stream(q))
+    _build.check(err, "pt_flash_attention_fwd_sm90")
+    COUNTS_SM90.launched()
     return o, lse
 
 
@@ -159,14 +286,25 @@ def _bwd_inputs(q, k, v, do, lse, delta):
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, offset, causal, scale):
-    """(dK, dV): the dK/dV kernel on CUDA, the plain version on the CPU.
-    ``delta`` = rowsum(dO * O) - dlse, fp32 [bh, sq]."""
+    """(dK, dV): on CUDA the tensor-core kernel where :func:`takes_sm90`,
+    else the CUDA-core kernel; the plain version on the CPU. ``delta`` =
+    rowsum(dO * O) - dlse, fp32 [bh, sq]."""
     if q.device.type == "cpu":
         COUNTS_DKV.plain()
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, offset,
                                              causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    if takes_sm90(q.dtype, q.shape[2]):
+        return flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, offset,
+                                            causal, scale)
+    return flash_attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta, offset,
+                                             causal, scale)
+
+
+def flash_attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta, offset,
+                                      causal, scale):
+    """(dK, dV) from the CUDA-core kernel (``csrc/flash_attention_bwd.cu``):
+    fp32 or bf16, head dim up to 256."""
+    _on_cuda("flash_attention_bwd_dkv", q)
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -184,14 +322,37 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, offset, causal, scale):
     return dk, dv
 
 
+def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, offset, causal,
+                                 scale):
+    """(dK, dV) from the tensor-core kernel (``csrc/flash_bwd_dkv_sm90.cu``):
+    bf16, head dim 64 or 128."""
+    _on_cuda("flash_attention_bwd_dkv_sm90", q)
+    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    _check_sm90("flash_attention_bwd_dkv_sm90", q)
+    q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.kernel("pt_flash_attention_bwd_dkv_sm90",
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
+                       [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
+                 float(scale), _stream(q))
+    _build.check(err, "pt_flash_attention_bwd_dkv_sm90")
+    COUNTS_DKV_SM90.launched()
+    return dk, dv
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, offset, causal, scale):
     """dQ: the dQ kernel on CUDA, the plain version on the CPU."""
     if q.device.type == "cpu":
         COUNTS_DQ.plain()
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset,
                                             causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
+    _on_cuda("flash_attention_bwd_dq", q)
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
     bh, sq, d = q.shape
     sk = k.shape[1]

@@ -17,7 +17,8 @@ from paddle_tpu_torch.kernels import (counters, flash_attention_plain,
 from paddle_tpu_torch.kernels import rmsnorm, rope
 from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
-    flash_attention_bwd_dq, flash_attention_bwd_dq_plain)
+    flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
+    flash_attention_fwd, sm90_dkv_bound, sm90_fwd_bound, takes_sm90)
 
 
 def _close(a, b, tol):
@@ -25,6 +26,22 @@ def _close(a, b, tol):
     np.testing.assert_allclose(np.asarray(a, np.float32),
                                np.asarray(b, np.float32), rtol=rtol,
                                atol=atol)
+
+
+def _within(got, ref, bound, what):
+    """|got - ref| <= bound elementwise (the tensor-core kernels' bound)."""
+    excess = ((got.float() - ref).abs() - bound).max().item()
+    assert excess <= 0, f"{what}: exceeds its bound by {excess}"
+
+
+def _fwd_counter(dtype, d, sq):
+    return "flash_attention_sm90" if takes_sm90(dtype, d, sq) \
+        else "flash_attention"
+
+
+def _dkv_counter(dtype, d):
+    return "flash_attention_bwd_dkv_sm90" if takes_sm90(dtype, d) \
+        else "flash_attention_bwd_dkv"
 
 
 # (rtol, atol) against the plain version on fp32 copies of the inputs:
@@ -85,10 +102,14 @@ def test_flash_attention_kernel_matches_plain(cuda, sq, sk, offset, causal,
     reset_counters()
     o, lse = flash_attention_with_lse(*qkv, offset, causal)
     torch.cuda.synchronize()
-    ro, rl = flash_attention_plain(*[t.float() for t in qkv], offset, causal,
-                                   1.0 / d ** 0.5)
-    assert counters()["flash_attention"]["launches"] == 1
-    _close(o.float().cpu(), ro.cpu(), tol)
+    f32 = [t.float() for t in qkv]
+    ro, rl = flash_attention_plain(*f32, offset, causal, 1.0 / d ** 0.5)
+    assert counters()[_fwd_counter(dtype, d, sq)]["launches"] == 1
+    if takes_sm90(dtype, d, sq):
+        _within(o, ro, sm90_fwd_bound(*f32, offset, causal, 1.0 / d ** 0.5,
+                                      ro), "o")
+    else:
+        _close(o.float().cpu(), ro.cpu(), tol)
     _close(lse.cpu(), rl.cpu(), (0.0, 1e-3))
 
 
@@ -126,13 +147,20 @@ def test_flash_attention_backward_kernels_match_plain(cuda, sq, sk, offset,
     dq = flash_attention_bwd_dq(q, k, v, do, *args)
     torch.cuda.synchronize()
     c = counters()
-    assert c["flash_attention_bwd_dkv"]["launches"] == 1
+    assert c[_dkv_counter(dtype, d)]["launches"] == 1
     assert c["flash_attention_bwd_dq"]["launches"] == 1
     rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
     rdq = flash_attention_bwd_dq_plain(*f32, *args)
     for got, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
         assert got.dtype == dtype
-        _close(got.float().cpu(), ref.cpu(), tol)
+    if takes_sm90(dtype, d):
+        bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
+        _within(dk, rdk, bdk, "dk")
+        _within(dv, rdv, bdv, "dv")
+    else:
+        _close(dk.float().cpu(), rdk.cpu(), tol)
+        _close(dv.float().cpu(), rdv.cpu(), tol)
+    _close(dq.float().cpu(), rdq.cpu(), tol)
     if offset < 0:
         assert not dq[:, :-offset].any()
 
@@ -156,7 +184,8 @@ def test_flash_attention_autograd_uses_the_kernels(cuda, dtype, tol):
     torch.autograd.backward([o, lse], [go.to(dtype), gl])
     torch.cuda.synchronize()
     c = counters()
-    assert c["flash_attention_bwd_dkv"]["launches"] == 1
+    assert c[_fwd_counter(dtype, d, sq)]["launches"] == 1
+    assert c[_dkv_counter(dtype, d)]["launches"] == 1
     assert c["flash_attention_bwd_dq"]["launches"] == 1
     f32 = [t.detach().float() for t in leaves]
     ro, rl = flash_attention_plain(*f32, 0, True, 1.0 / d ** 0.5)
@@ -165,9 +194,106 @@ def test_flash_attention_autograd_uses_the_kernels(cuda, dtype, tol):
     rdk, rdv = flash_attention_bwd_dkv_plain(*f32, go.to(dtype).float(),
                                                 *args)
     rdq = flash_attention_bwd_dq_plain(*f32, go.to(dtype).float(), *args)
-    for leaf, ref in zip(leaves, (rdq, rdk, rdv)):
-        _close(leaf.grad.float().cpu(), ref.cpu(), _BWD_TOLS[
-            0 if dtype == torch.float32 else 1][1])
+    btol = _BWD_TOLS[0 if dtype == torch.float32 else 1][1]
+    _close(leaves[0].grad.float().cpu(), rdq.cpu(), btol)
+    if takes_sm90(dtype, d):
+        bdk, bdv = sm90_dkv_bound(*f32, go.to(dtype).float(), *args, rdk,
+                                  rdv)
+        _within(leaves[1].grad, rdk, bdk, "dk")
+        _within(leaves[2].grad, rdv, bdv, "dv")
+    else:
+        _close(leaves[1].grad.float().cpu(), rdk.cpu(), btol)
+        _close(leaves[2].grad.float().cpu(), rdv.cpu(), btol)
+
+
+# the tensor-core kernels at tile edges: lengths that 64 and 128 do not
+# divide with a causal offset, rows that see no key (offset -8), non-causal,
+# head dims 64 and 128, two query rows against a long cache, bh 3
+_SM90_CASES = [(300, 340, 40, True, 128), (300, 340, 40, True, 64),
+               (64, 64, -8, True, 128), (100, 77, 0, False, 128),
+               (130, 130, 0, True, 64), (2, 200, 198, True, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,offset,causal,d", _SM90_CASES)
+def test_flash_attention_sm90_kernels_match_plain(cuda, sq, sk, offset,
+                                                  causal, d):
+    """The tensor-core forward and dK/dV kernels against the fp32 plain
+    versions on the same bf16 inputs, each output within the bound of its
+    bf16 roundings (``sm90_fwd_bound``, ``sm90_dkv_bound``); only the
+    tensor-core counters rise. Rows that see no key give o = 0 and, given
+    a dO of 1000, still add nothing to dK and dV."""
+    rng = np.random.default_rng(19)
+    bh, scale = 3, 1.0 / d ** 0.5
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda)
+
+    q, k, v, do = (rnd(bh, s, d).to(torch.bfloat16)
+                   for s in (sq, sk, sk, sq))
+    if offset < 0:
+        do[:, :-offset] *= 1000
+    f32 = [t.float() for t in (q, k, v, do)]
+    reset_counters()
+    o, lse = flash_attention_fwd(q, k, v, offset, causal, scale)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_sm90"]["launches"] == 1
+    assert c["flash_attention"]["launches"] == 0
+    ro, rl = flash_attention_plain(*f32[:3], offset, causal, scale)
+    _within(o, ro, sm90_fwd_bound(*f32[:3], offset, causal, scale, ro), "o")
+    _close(lse.cpu(), rl.cpu(), (0.0, 1e-3))
+    if offset < 0:
+        assert not o[:, :-offset].any()
+    delta = (f32[3] * ro).sum(-1) - rnd(bh, sq)
+    args = (rl, delta, offset, causal, scale)
+    reset_counters()
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_bwd_dkv_sm90"]["launches"] == 1
+    assert c["flash_attention_bwd_dkv"]["launches"] == 0
+    rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
+    bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
+    _within(dk, rdk, bdk, "dk")
+    _within(dv, rdv, bdv, "dv")
+
+
+@pytest.mark.gpu
+def test_flash_attention_picks_its_kernel(cuda):
+    """bf16 at head dim 64 / 128 with more than one row takes the
+    tensor-core kernels; fp32, head dim 32 and single-row decode the
+    CUDA-core ones; a CUDA tensor that neither takes raises."""
+    def run(dtype, sq, d):
+        q = torch.randn(2, sq, d, device=cuda).to(dtype)
+        k = torch.randn(2, 40, d, device=cuda).to(dtype)
+        reset_counters()
+        flash_attention_fwd(q, k, k, 40 - sq, True, 0.1)
+        flash_attention_bwd_dkv(q, k, k, q, torch.zeros(2, sq, device=cuda),
+                                torch.zeros(2, sq, device=cuda), 40 - sq,
+                                True, 0.1)
+        torch.cuda.synchronize()
+        c = counters()
+        return [n for n in ("flash_attention", "flash_attention_sm90",
+                            "flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dkv_sm90")
+                if c[n]["launches"]]
+
+    assert run(torch.bfloat16, 8, 128) == ["flash_attention_sm90",
+                                           "flash_attention_bwd_dkv_sm90"]
+    assert run(torch.bfloat16, 8, 64) == ["flash_attention_sm90",
+                                          "flash_attention_bwd_dkv_sm90"]
+    assert run(torch.bfloat16, 1, 128) == ["flash_attention",
+                                           "flash_attention_bwd_dkv_sm90"]
+    assert run(torch.float32, 8, 128) == ["flash_attention",
+                                          "flash_attention_bwd_dkv"]
+    assert run(torch.bfloat16, 8, 32) == ["flash_attention",
+                                          "flash_attention_bwd_dkv"]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention_fwd(*[torch.zeros(1, 4, 64, device=cuda,
+                                          dtype=torch.float16)] * 3, 0,
+                            True, 0.1)
 
 
 @pytest.mark.gpu

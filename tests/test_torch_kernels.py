@@ -7,6 +7,8 @@ inputs, forward and gradients. The
 CUDA kernels are held against the plain versions by the tests marked
 ``gpu``, which skip without a card and live in ``test_torch_gpu.py``.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,8 @@ from paddle_tpu_torch.kernels import (counters, flash_attention,
                                       rms_norm, rms_norm_residual,
                                       rope_apply)
 
+# the module (the package re-exports a function of the same name)
+_FA = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
 # fp32 on both sides; the two differ only in summation order
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -184,6 +188,79 @@ def test_flash_attention_backward_matches_jax(sq, sk, offset, causal):
     assert c["flash_attention_bwd_dq"] == {"launches": 0, "plain_calls": 1}
     if offset < 0:  # rows that see no key get exactly zero dq
         assert not grads[0][:, :-offset].any()
+
+
+def _sm90_emulated(q, k, v, do, delta, offset, causal, scale, drop_tile):
+    """The tensor-core kernels' arithmetic in PyTorch on bf16-valued fp32
+    tensors: products summed in fp32; P rounded to bf16 before P.V (the row
+    sum adds the fp32 p) and before dV; dS rounded to bf16 before dK;
+    outputs rounded to bf16. ``drop_tile`` plants a fault: the last tile
+    of 128 keys is left out, as if its loop turn were skipped."""
+
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    sk = k.shape[1]
+    mask = _FA._mask(q.shape[1], sk, offset, causal, q.device)
+    if drop_tile:
+        mask[:, (sk - 1) // 128 * 128:] = False
+    s = torch.einsum("bqd,bkd->bqk", q, k) * scale
+    sm = torch.where(mask, s, -1e30)
+    m = sm.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sm - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = bf16(torch.einsum("bqk,bkd->bqd", bf16(p), v) / l)
+    lse = (m + torch.log(l))[..., 0]
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dv = bf16(torch.einsum("bqk,bqd->bkd", bf16(p), do))
+    ds = p * (torch.einsum("bqd,bkd->bqk", do, v) - delta[..., None]) * scale
+    dk = bf16(torch.einsum("bqk,bqd->bkd", bf16(ds), q))
+    return o, lse, dk, dv
+
+
+def test_sm90_bounds_hold_for_the_kernels_roundings():
+    """The elementwise bounds that the card tests and chip_smoke.py hold
+    the tensor-core kernels to: an emulation of their bf16 roundings stays
+    within them against the fp32 plain versions at bh 2, s 512, d 128,
+    causal; the same emulation without its last key tile exceeds them."""
+    rng = np.random.default_rng(21)
+    bh, s, d, scale = 2, 512, 128, 128 ** -0.5
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (bh, s, d), dtype=np.float32)).to(torch.bfloat16).float()
+        for _ in range(4))
+    ro, rl = _FA.flash_attention_plain(q, k, v, 0, True, scale)
+    delta = (do * ro).sum(-1)
+    args = (rl, delta, 0, True, scale)
+    rdk, rdv = _FA.flash_attention_bwd_dkv_plain(q, k, v, do, *args)
+    bo = _FA.sm90_fwd_bound(q, k, v, 0, True, scale, ro)
+    bdk, bdv = _FA.sm90_dkv_bound(q, k, v, do, *args, rdk, rdv)
+
+    def excess(got, ref, bound):
+        return ((got - ref).abs() - bound).max().item()
+
+    o, lse, dk, dv = _sm90_emulated(q, k, v, do, delta, 0, True, scale,
+                                    False)
+    assert excess(o, ro, bo) <= 0
+    assert excess(dk, rdk, bdk) <= 0 and excess(dv, rdv, bdv) <= 0
+    _close(lse, rl, rtol=0.0, atol=1e-3)
+    # the bounds are not loose: the rounding's own error fills a fair part
+    assert (o - ro).abs().max().item() > 0.05 * (bo - 1e-4).max().item()
+    o, _lse, dk, dv = _sm90_emulated(q, k, v, do, delta, 0, True, scale,
+                                     True)
+    assert excess(o, ro, bo) > 0
+    assert excess(dk, rdk, bdk) > 0 and excess(dv, rdv, bdv) > 0
+
+
+@pytest.mark.parametrize("dtype,d,sq,want", [
+    (torch.bfloat16, 128, 2048, True), (torch.bfloat16, 64, 2, True),
+    (torch.bfloat16, 128, 1, False), (torch.bfloat16, 128, None, True),
+    (torch.bfloat16, 32, 64, False), (torch.bfloat16, 256, 64, False),
+    (torch.float32, 128, 64, False), (torch.float32, 64, None, False)])
+def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want):
+    """The wrappers' choice of kernel on CUDA, in plain code: bf16 with
+    head dim 64 or 128 (and, for the forward, more than one row) goes to
+    the tensor-core kernels, the rest to the CUDA-core ones."""
+    assert _FA.takes_sm90(dtype, d, sq) is want
 
 
 @pytest.mark.parametrize("impl", ["interpret", "composed"])
