@@ -15,10 +15,10 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              kernel, the plain version and a PyTorch library call where one
              computes the same function (a yardstick the port never calls),
              and the least time the card could take (bound). The
-             tensor-core flash forward and dK/dV kernels (bf16, head dim
-             128) are held to the bound of their bf16 roundings of P and dS
-             and timed beside the CUDA-core kernels on the same inputs;
-             the CUDA-core ones keep their fp32 cases.
+             tensor-core flash forward, dK/dV and dQ kernels (bf16, head
+             dim 128) are held to the bound of their bf16 roundings of P
+             and dS and timed beside the CUDA-core kernels on the same
+             inputs; the CUDA-core ones keep their fp32 cases.
 4. parity  — fp32, GPT-3 6.7B width at depth 2: the engine's greedy tokens
              (paged-attention kernel) equal ``model.generate``'s (flash
              kernel), and its logprobs match a teacher-forced forward.
@@ -42,16 +42,18 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              (and two planted backward faults that the check must catch),
              then several steps on one batch with the counters reset before
              and read after (each kernel's launches per step as reckoned
-             from the code: every flash forward and dK/dV on the tensor-core
-             kernels, none on the CUDA-core ones; no plain call), a falling
-             finite loss, step
+             from the code: every flash forward, dK/dV and dQ on the
+             tensor-core kernels, none on the CUDA-core ones; no plain
+             call), a falling finite loss, step
              time, tokens/s, MFU, peak memory and a profiled step.
 8. moe-kernels — the MoE path's kernels (routing, row gather, combine,
              grouped GEMM forward, dgrad and wgrad) at the MoE step's shapes
              (timed, with bound and yardstick) and at odd shapes (token
              counts that no block divides, an expert with no row and one
              with one row, top_k 1 and 8, 128 experts) against their plain
-             versions.
+             versions; bf16 runs the tensor-core grouped GEMM, timed beside
+             the CUDA-core one on the same inputs, and fp32 the CUDA-core
+             one.
 9. moe-train-parity — fp32, the 1.46B MoE Llama's width at depth 2, batch
              2 x 512, fused dispatch: one step's loss and every gradient
              through the kernels against the plain-swapped step, then a
@@ -65,7 +67,8 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              (routing without its cross-block base, a grouped GEMM forward
              and a wgrad that drop each group's last partial row tile);
              then steps with the
-             counters reset before and read after (exact launches, no plain
+             counters reset before and read after (exact launches, every
+             grouped GEMM on the tensor-core kernels, no plain
              call), a falling finite loss, step time, tokens/s, MFU on
              activated FLOPs, peak memory and a profiled step.
 
@@ -245,7 +248,7 @@ def _compare_bound(name, out, ref, bound):
 
 
 # the tensor-core kernels' tolerance, as the rows record it
-SM90_TOL = "2^-8|ref| + 2^-8 (P|V|, P^T|dO|, |dS^T||Q|) + 1e-4"
+SM90_TOL = "2^-8|ref| + 2^-8 (P|V|, P^T|dO|, |dS^T||Q|, |dS||K|) + 1e-4"
 
 
 def _flash_case(label, dtype, bh, sq, sk, causal, gen):
@@ -725,11 +728,10 @@ def _dname(dtype):
 def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
                     timed=True, with_dlse=False):
     """dK/dV and dQ kernels at one shape against their plain versions on
-    fp32 copies of the same inputs. bf16 dK/dV runs the tensor-core kernel,
-    held to its bound and timed beside the CUDA-core kernel on the same
-    inputs. Returns one row per kernel."""
+    fp32 copies of the same inputs. bf16 runs the tensor-core kernels, each
+    held to the bound of its roundings and timed beside the CUDA-core
+    kernel on the same inputs. Returns one row per kernel."""
     import torch
-    import torch.nn.functional as TF
 
     fa = _flash_module()
     d = 128
@@ -763,7 +765,13 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             _compare(f"flash_bwd_dkv[{label}].dv", dv, rdv, tol)[0])
     del rdk, rdv
     rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
-    err_dq = _compare(f"flash_bwd_dq[{label}].dq", dq, rdq, tol)[0]
+    if sm90:
+        bdq = fa.sm90_dq_bound(*f32, *args, rdq)
+        err_dq, share_dq = _compare_bound(f"flash_bwd_dq_sm90[{label}].dq",
+                                          dq, rdq, bdq)
+        del bdq
+    else:
+        err_dq = _compare(f"flash_bwd_dq[{label}].dq", dq, rdq, tol)[0]
     if offset < 0 and causal and dq[:, :-offset].abs().max().item() != 0.0:
         raise RuntimeError(f"flash_bwd_dq[{label}]: rows that see no key "
                            f"have non-zero dq")
@@ -771,13 +779,14 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
     torch.cuda.empty_cache()
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
             "bh": bh, "sq": sq, "sk": sk, "offset": offset, "causal": causal}
-    rows = [dict(base, kernel="flash_attention_bwd_dkv_sm90" if sm90
-                 else "flash_attention_bwd_dkv", max_abs_err=err_dkv,
-                 tol=SM90_TOL if sm90 else tol),
-            dict(base, kernel="flash_attention_bwd_dq", max_abs_err=err_dq,
-                 tol=tol)]
+    suffix = "_sm90" if sm90 else ""
+    rows = [dict(base, kernel="flash_attention_bwd_dkv" + suffix,
+                 max_abs_err=err_dkv, tol=SM90_TOL if sm90 else tol),
+            dict(base, kernel="flash_attention_bwd_dq" + suffix,
+                 max_abs_err=err_dq, tol=SM90_TOL if sm90 else tol)]
     if sm90:
         rows[0]["bound_share_max"] = share
+        rows[1]["bound_share_max"] = share_dq
     if timed:
         rows[0]["kernel_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, *args), iters=10,
@@ -785,10 +794,14 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         rows[1]["kernel_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, *args), iters=10,
             warmup=2)
-        if sm90:  # PR 2's CUDA-core kernel on the same inputs
+        if sm90:  # the CUDA-core kernels on the same inputs
             rows[0]["cuda_core_ms"] = _time_ms(
                 lambda: fa.flash_attention_bwd_dkv_cuda_core(q, k, v, do,
                                                              *args),
+                iters=3, warmup=1)
+            rows[1]["cuda_core_ms"] = _time_ms(
+                lambda: fa.flash_attention_bwd_dq_cuda_core(q, k, v, do,
+                                                            *args),
                 iters=3, warmup=1)
         rows[0]["plain_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, *args),
@@ -797,23 +810,9 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, *args),
             iters=3, warmup=1)
         torch.cuda.empty_cache()
-        # library yardstick: torch's SDPA forward + backward (dq, dk and dv
-        # together) minus its forward, on [1, bh, s, d]; its is_causal is
-        # top-left aligned, which equals ours for sq == sk and offset 0
-        lib = None
+        lib = spread = None
         if not causal or (sq == sk and offset == 0):
-            leaves = [t[None].detach().requires_grad_() for t in (q, k, v)]
-
-            def fwd():
-                return TF.scaled_dot_product_attention(*leaves,
-                                                       is_causal=causal)
-
-            def fwd_bwd():
-                torch.autograd.grad(fwd(), leaves, do[None])
-
-            lib = _time_ms(fwd_bwd, iters=10, warmup=2) - \
-                _time_ms(fwd, iters=10, warmup=2)
-            del leaves
+            lib, spread = _sdpa_bwd_ms(q, k, v, do, causal)
         esz = q.element_size()
         pairs = bh * _visible_pairs(sq, sk, offset, causal)
         io = (2 * bh * sq * d + 2 * bh * sk * d) * esz + 2 * bh * sq * 4
@@ -822,12 +821,31 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
                 (rows[1], bh * sq * d * esz, 6 * d)):
             b_ms, b_by = _bound(io + out_bytes, flops_per * pairs,
                                 _dname(dtype))
-            row.update(library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                       visible_pairs=pairs,
+            row.update(library_ms=lib, library_ms_spread=spread,
+                       bound_ms=b_ms, bound_by=b_by, visible_pairs=pairs,
                        tflop_per_s=flops_per * pairs / row["kernel_ms"] / 1e9)
     for row in rows:
         _emit(row)
     return rows
+
+
+def _sdpa_bwd_ms(q, k, v, do, causal, repeats=5):
+    """Library yardstick of the flash backward: torch's SDPA backward (dq,
+    dk and dv together) on [1, bh, s, d]. The graph is built once and only
+    ``torch.autograd.grad(out, leaves, do, retain_graph=True)`` is timed,
+    ``repeats`` times: (median ms, [min, max] ms). Its is_causal is
+    top-left aligned, which equals ours for sq == sk and offset 0."""
+    import torch
+    import torch.nn.functional as TF
+
+    leaves = [t[None].detach().requires_grad_() for t in (q, k, v)]
+    out = TF.scaled_dot_product_attention(*leaves, is_causal=causal)
+    cot = do[None]
+    reads = sorted(_time_ms(lambda: torch.autograd.grad(
+        out, leaves, cot, retain_graph=True), iters=10, warmup=2)
+        for _ in range(repeats))
+    del out, leaves
+    return reads[len(reads) // 2], [reads[0], reads[-1]]
 
 
 def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True):
@@ -1092,7 +1110,7 @@ def _train_curve(model, state, ids, steps):
 
 
 # the kernels of the dense training step in fp32 (the parity phases; bf16
-# takes the tensor-core flash forward and dK/dV instead of the CUDA-core
+# takes the tensor-core flash forward, dK/dV and dQ instead of the CUDA-core
 # ones), and their launches per bf16 step as reckoned from the code:
 # recompute runs every layer's forward twice, the final norm adds one
 # forward and one backward
@@ -1104,14 +1122,14 @@ DENSE_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
 
 def _dense_launches(L):
     """{counter: launches per step} of the bf16 dense training step; every
-    other counter 0: all 2L flash forwards and L dK/dV launches go to the
-    tensor-core kernels, none to the CUDA-core ones."""
+    other counter 0: all 2L flash forwards and the L dK/dV and L dQ
+    launches go to the tensor-core kernels, none to the CUDA-core ones."""
     from paddle_tpu_torch import kernels
 
     per_step = {n: 0 for n in kernels.counters()}
     per_step.update({
         "flash_attention_sm90": 2 * L, "flash_attention_bwd_dkv_sm90": L,
-        "flash_attention_bwd_dq": L, "rms_norm": 2 * L + 1,
+        "flash_attention_bwd_dq_sm90": L, "rms_norm": 2 * L + 1,
         "rms_norm_residual": 2 * L, "rms_norm_bwd": L + 1,
         "rms_norm_residual_bwd": L, "rope": 4 * L, "rope_inverse": 2 * L})
     return per_step
@@ -1172,7 +1190,9 @@ def phase_train_parity(seed):
 
 def _train_group(name):
     low = name.lower()
-    for key, group in (("tgmm_kernel", "grouped_gemm_wgrad"),
+    for key, group in (("tgmm_sm90_kernel", "grouped_gemm_wgrad_sm90"),
+                       ("gmm_sm90_kernel", "grouped_gemm_sm90"),
+                       ("tgmm_kernel", "grouped_gemm_wgrad"),
                        ("gmm_kernel", "grouped_gemm"),
                        ("route_local_kernel", "moe_route"),
                        ("route_scan_kernel", "moe_route"),
@@ -1180,6 +1200,7 @@ def _train_group(name):
                        ("combine_rows_kernel", "moe_combine"),
                        ("flash_fwd_sm90", "flash_fwd_sm90"),
                        ("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90"),
+                       ("flash_bwd_dq_sm90", "flash_bwd_dq_sm90"),
                        ("flash_fwd_kernel", "flash_fwd"),
                        ("flash_bwd_dkv", "flash_bwd_dkv"),
                        ("flash_bwd_dq", "flash_bwd_dq"),
@@ -1376,8 +1397,9 @@ def _gmm_tol(dtype):
 def _gmm_case(label, dtype, sizes, k, n, gen, timed=True):
     """Forward, dgrad and wgrad kernels on ``sizes`` row groups (a device
     int32 tensor or a list): lhs [m, k] / sqrt(k), rhs [g, k, n], dout
-    [m, n] / sqrt(n), so that the forward and dgrad outputs are O(1).
-    Returns one row per kernel."""
+    [m, n] / sqrt(n), so that the forward and dgrad outputs are O(1). bf16
+    runs the tensor-core kernels, timed beside the CUDA-core ones on the
+    same inputs; fp32 the CUDA-core ones. Returns one row per kernel."""
     import torch
 
     from paddle_tpu_torch.kernels import grouped_matmul as gm
@@ -1394,21 +1416,23 @@ def _gmm_case(label, dtype, sizes, k, n, gen, timed=True):
     torch.cuda.synchronize()
     f32 = [t.float() for t in (lhs, rhs, dout)]
     tol = _gmm_tol(dtype)
-    errs = [_compare(f"grouped_matmul[{label}]", out,
+    sm90 = gm.takes_sm90(dtype)
+    names = tuple(nm + ("_sm90" if sm90 else "") for nm in (
+        "grouped_matmul", "grouped_matmul_dgrad", "grouped_matmul_wgrad"))
+    errs = [_compare(f"{names[0]}[{label}]", out,
                      gm.gmm_plain(f32[0], f32[1], gs), tol)[0],
-            _compare(f"grouped_matmul_dgrad[{label}]", d_lhs,
+            _compare(f"{names[1]}[{label}]", d_lhs,
                      gm.gmm_plain(f32[2], f32[1], gs, True), tol)[0],
-            _compare(f"grouped_matmul_wgrad[{label}]", d_rhs,
+            _compare(f"{names[2]}[{label}]", d_rhs,
                      gm.tgmm_plain(f32[0], f32[2], gs), tol)[0]]
     for j, size in enumerate(host):
         if size == 0 and d_rhs[j].abs().max().item() != 0.0:
-            raise RuntimeError(f"grouped_matmul_wgrad[{label}]: empty group "
-                               f"{j} has a non-zero gradient")
+            raise RuntimeError(f"{names[2]}[{label}]: empty group {j} has a "
+                               f"non-zero gradient")
     del f32
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
             "m": m, "k": k, "n": n, "groups": g,
             "group_sizes": host if g <= 16 else None, "tol": tol}
-    names = ("grouped_matmul", "grouped_matmul_dgrad", "grouped_matmul_wgrad")
     rows = [dict(base, kernel=nm, max_abs_err=err)
             for nm, err in zip(names, errs)]
     if timed:
@@ -1418,18 +1442,22 @@ def _gmm_case(label, dtype, sizes, k, n, gen, timed=True):
             start += size
         rhs_t = rhs.transpose(1, 2)
         calls = (
-            (lambda: gm.gmm(lhs, rhs, gs), lambda: gm.gmm_plain(lhs, rhs, gs),
+            (lambda: gm.gmm(lhs, rhs, gs),
+             lambda: gm.gmm_cuda_core(lhs, rhs, gs),
+             lambda: gm.gmm_plain(lhs, rhs, gs),
              lambda: [lhs[a:b] @ rhs[j] for j, (a, b) in enumerate(ranges)],
              m * k + g * k * n + m * n),
             (lambda: gm.gmm(dout, rhs, gs, trans_rhs=True),
+             lambda: gm.gmm_cuda_core(dout, rhs, gs, trans_rhs=True),
              lambda: gm.gmm_plain(dout, rhs, gs, True),
              lambda: [dout[a:b] @ rhs_t[j] for j, (a, b) in enumerate(ranges)],
              m * n + g * k * n + m * k),
             (lambda: gm.tgmm(lhs, dout, gs),
+             lambda: gm.tgmm_cuda_core(lhs, dout, gs),
              lambda: gm.tgmm_plain(lhs, dout, gs),
              lambda: [lhs[a:b].t() @ dout[a:b] for a, b in ranges],
              m * k + m * n + g * k * n))
-        for row, (kern, plain, lib, elems) in zip(rows, calls):
+        for row, (kern, cuda_core, plain, lib, elems) in zip(rows, calls):
             # the yardstick is a per-group loop of cuBLAS products in the
             # inputs' type: the port never calls it
             b_ms, b_by = _bound(elems * lhs.element_size(), 2 * m * k * n,
@@ -1441,6 +1469,8 @@ def _gmm_case(label, dtype, sizes, k, n, gen, timed=True):
                        bound_ms=b_ms, bound_by=b_by,
                        tflops=2 * m * k * n / 1e9)
             row["tflop_per_s"] = row["tflops"] / row["kernel_ms"]
+            if sm90:  # the CUDA-core kernel on the same inputs
+                row["cuda_core_ms"] = _time_ms(cuda_core, iters=3, warmup=1)
     for row in rows:
         _emit(row)
     return rows
@@ -1595,12 +1625,14 @@ MOE = dict(vocab_size=32000, hidden_size=1536, intermediate_size=2048,
            num_experts=8, top_k=2, capacity_factor=1.25)
 MOE_BATCH = (4, 2048)
 MOE_ROUTE_SEED = 17  # its inputs at [8192, 1536] have a margin > 1e-4
-# the MoE kernels, and their launches per MoE layer per training step
-# (recompute runs the forward twice; the combine's backward gathers twice,
-# the dispatch's backward is a combine)
+# the MoE kernels of the bf16 step, and their launches per MoE layer per
+# training step (recompute runs the forward twice; the combine's backward
+# gathers twice, the dispatch's backward is a combine); the fp32 parity
+# phases run the CUDA-core grouped GEMM (MOE_FP32_KERNELS) instead
 MOE_KERNELS = {"moe_route": 2, "moe_gather": 4, "moe_combine": 3,
-               "grouped_matmul": 6, "grouped_matmul_dgrad": 3,
-               "grouped_matmul_wgrad": 3}
+               "grouped_matmul_sm90": 6, "grouped_matmul_dgrad_sm90": 3,
+               "grouped_matmul_wgrad_sm90": 3}
+MOE_FP32_KERNELS = tuple(n.replace("_sm90", "") for n in MOE_KERNELS)
 
 
 def phase_moe_kernels(seed):
@@ -1792,7 +1824,7 @@ def phase_moe_train_parity(seed):
     counts = kernels.counters()
     unused = [n for n, c in counts.items() if c["plain_calls"] or (
         c["launches"] == 0 and (n in DENSE_TRAIN_KERNELS
-                                or n in MOE_KERNELS))]
+                                or n in MOE_FP32_KERNELS))]
     if unused:
         raise RuntimeError(f"moe-train-parity: kernels not all launched: "
                            f"{ {n: counts[n] for n in unused} }")
@@ -1943,7 +1975,8 @@ def _kernels_line(rows, paths):
     case's times and bound, the largest error over all its cases, and its
     launches on the main paths (``paths``: {path: counters read after its
     run}): serving, the bf16 training steps, and the fp32 depth-2 training
-    steps of the parity phases, which run the CUDA-core flash kernels)."""
+    steps of the parity phases, which run the CUDA-core flash and grouped
+    GEMM kernels)."""
     # (kernel, representative case, source, TPU kernel replaced, the
     # counters whose launches it sums)
     table = [
@@ -1963,10 +1996,14 @@ def _kernels_line(rows, paths):
          "flash_bwd_dkv_sm90.cu",
          "paddle_tpu/kernels/flash_attention.py:154",
          ["flash_attention_bwd_dkv_sm90"]),
-        ("flash_attention_bwd_dq", "train-bfloat16",
+        ("flash_attention_bwd_dq", "train-float32",
          "flash_attention_bwd.cu",
          "paddle_tpu/kernels/flash_attention.py:206",
          ["flash_attention_bwd_dq"]),
+        ("flash_attention_bwd_dq_sm90", "train-bfloat16",
+         "flash_bwd_dq_sm90.cu",
+         "paddle_tpu/kernels/flash_attention.py:206",
+         ["flash_attention_bwd_dq_sm90"]),
         ("rms_norm", "train-bfloat16", "rmsnorm.cu",
          "paddle_tpu/kernels/pallas/rmsnorm.py:57",
          ["rms_norm", "rms_norm_residual"]),
@@ -1981,14 +2018,22 @@ def _kernels_line(rows, paths):
          "paddle_tpu/kernels/pallas/moe_dispatch.py:235", ["moe_gather"]),
         ("moe_combine", "moe-bfloat16", "moe_dispatch.cu",
          "paddle_tpu/kernels/pallas/moe_dispatch.py:261", ["moe_combine"]),
-        ("grouped_matmul", "moe-gate-bfloat16", "grouped_matmul.cu",
+        ("grouped_matmul", "moe-gate-float32", "grouped_matmul.cu",
          "paddle_tpu/kernels/grouped_matmul.py:55", ["grouped_matmul"]),
-        ("grouped_matmul_dgrad", "moe-gate-bfloat16", "grouped_matmul.cu",
+        ("grouped_matmul_dgrad", "moe-gate-float32", "grouped_matmul.cu",
          "paddle_tpu/kernels/grouped_matmul.py:55",
          ["grouped_matmul_dgrad"]),
-        ("grouped_matmul_wgrad", "moe-gate-bfloat16", "grouped_matmul.cu",
+        ("grouped_matmul_wgrad", "moe-gate-float32", "grouped_matmul.cu",
          "paddle_tpu/kernels/grouped_matmul.py:55",
          ["grouped_matmul_wgrad"]),
+        ("grouped_matmul_sm90", "moe-gate-bfloat16", "grouped_matmul_sm90.cu",
+         "paddle_tpu/kernels/grouped_matmul.py:55", ["grouped_matmul_sm90"]),
+        ("grouped_matmul_dgrad_sm90", "moe-gate-bfloat16",
+         "grouped_matmul_sm90.cu", "paddle_tpu/kernels/grouped_matmul.py:55",
+         ["grouped_matmul_dgrad_sm90"]),
+        ("grouped_matmul_wgrad_sm90", "moe-gate-bfloat16",
+         "grouped_matmul_sm90.cu", "paddle_tpu/kernels/grouped_matmul.py:55",
+         ["grouped_matmul_wgrad_sm90"]),
     ]
     also = {"rms_norm": ("paddle_tpu/kernels/pallas/rmsnorm.py:47",
                          "rms_norm_residual"),
@@ -2011,8 +2056,9 @@ def _kernels_line(rows, paths):
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": case}
-        if "cuda_core_ms" in r:
-            entry["cuda_core_ms"] = r["cuda_core_ms"]
+        for key in ("cuda_core_ms", "library_ms_spread"):
+            if r.get(key) is not None:
+                entry[key] = r[key]
         if name in also:
             also_replaces, variant = also[name]
             v = next(x for x in mine if x["kernel"] == variant and

@@ -28,6 +28,7 @@ _COUNTS = {"paged_attention": _paged.COUNTS,
            "flash_attention_bwd_dkv": _flash.COUNTS_DKV,
            "flash_attention_bwd_dkv_sm90": _flash.COUNTS_DKV_SM90,
            "flash_attention_bwd_dq": _flash.COUNTS_DQ,
+           "flash_attention_bwd_dq_sm90": _flash.COUNTS_DQ_SM90,
            "rms_norm": _rmsnorm.COUNTS,
            "rms_norm_residual": _rmsnorm.COUNTS_RESIDUAL,
            "rms_norm_bwd": _rmsnorm.COUNTS_BWD,
@@ -39,7 +40,10 @@ _COUNTS = {"paged_attention": _paged.COUNTS,
            "moe_combine": _moe.COUNTS_COMBINE,
            "grouped_matmul": _gmm.COUNTS,
            "grouped_matmul_dgrad": _gmm.COUNTS_DGRAD,
-           "grouped_matmul_wgrad": _gmm.COUNTS_WGRAD}
+           "grouped_matmul_wgrad": _gmm.COUNTS_WGRAD,
+           "grouped_matmul_sm90": _gmm.COUNTS_SM90,
+           "grouped_matmul_dgrad_sm90": _gmm.COUNTS_DGRAD_SM90,
+           "grouped_matmul_wgrad_sm90": _gmm.COUNTS_WGRAD_SM90}
 
 
 def counters():

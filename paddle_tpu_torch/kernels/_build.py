@@ -8,10 +8,10 @@ unchanged tree builds once. Nothing here runs at import time: the CPU tests
 import every module on a machine without ``nvcc``.
 
 Each C entry point takes its pointers and the stream as ``void*`` and
-returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
-non-zero code, because a launch the CUDA runtime refuses (too many threads,
-too much shared memory) never runs and a later synchronise does not report
-it. The full ``ptxas -v`` log (registers, spills) is kept beside the library
+returns ``cudaGetLastError()`` after its launch (or -1 where
+``cuTensorMapEncodeTiled`` refuses a TMA tensor map); :func:`check` raises on a non-zero code,
+because a launch the CUDA runtime refuses (too many threads, too much
+shared memory) never runs and a later synchronise does not report it. The full ``ptxas -v`` log (registers, spills) is kept beside the library
 as ``build.log``.
 """
 from __future__ import annotations
@@ -149,7 +149,13 @@ def kernel(name: str, argtypes):
     return fn
 
 
+# codes an entry point returns for its own refusals (CUDA's are positive)
+_OWN_ERRORS = {-1: "cuTensorMapEncodeTiled refused a TMA tensor map"}
+
+
 def check(err: int, what: str) -> None:
+    if err in _OWN_ERRORS:
+        raise RuntimeError(f"{what}: {_OWN_ERRORS[err]}")
     if err != 0:
         msg = library().pt_cuda_error_string(int(err)).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -239,20 +239,15 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dk, void* dv, int bh,
            int sq, int sk, int offset, int causal, float scale,
            cudaStream_t stream) {
+  constexpr size_t smem = DkvLayout<D>::kSmem;
+  if (const cudaError_t e = allow_smem(flash_bwd_dkv_sm90_kernel<D>, smem))
+    return (int)e;
   CUtensorMap tq, tk, tv, tdo;
   if (!make_map(&tq, q, bh, sq, D, kRows) ||
       !make_map(&tk, k, bh, sk, D, kKeys) ||
       !make_map(&tv, v, bh, sk, D, kKeys) ||
       !make_map(&tdo, dout, bh, sq, D, kRows))
-    return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = DkvLayout<D>::kSmem;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(flash_bwd_dkv_sm90_kernel<D>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    attr = true;
-  }
+    return kMapRefused;
   const dim3 grid((unsigned)((sk + kKeys - 1) / kKeys), (unsigned)bh);
   flash_bwd_dkv_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
@@ -264,8 +259,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 // bf16 q, dout [bh, sq, hd]; k, v, dk, dv [bh, sk, hd]; lse, delta [bh, sq]
 // fp32; hd 64 or 128; every bf16 pointer 16-byte aligned (TMA). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a head
-// dim the kernel does not take or a tensor map the driver refuses.
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for a head dim
+// the kernel does not take, or kMapRefused (-1) for a tensor map that
+// cuTensorMapEncodeTiled refuses.
 extern "C" int pt_flash_attention_bwd_dkv_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,

@@ -238,18 +238,13 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int bh, int sq, int sk, int offset, int causal, float scale,
            cudaStream_t stream) {
+  constexpr size_t smem = FwdLayout<D>::kSmem;
+  if (const cudaError_t e = allow_smem(flash_fwd_sm90_kernel<D>, smem))
+    return (int)e;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, bh, sq, D, kRows) || !make_map(&tk, k, bh, sk, D, kKeys) ||
       !make_map(&tv, v, bh, sk, D, kKeys))
-    return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = FwdLayout<D>::kSmem;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(flash_fwd_sm90_kernel<D>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-    attr = true;
-  }
+    return kMapRefused;
   const dim3 grid((unsigned)((sq + kRows - 1) / kRows), (unsigned)bh);
   flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, (__nv_bfloat16*)o, lse, sq, sk, offset, causal,
@@ -261,8 +256,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // bf16 q [bh, sq, hd], k, v [bh, sk, hd], o [bh, sq, hd]; lse [bh, sq] fp32;
 // hd 64 or 128; every pointer 16-byte aligned (TMA). Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a head
-// dim the kernel does not take or a tensor map the driver refuses.
+// cudaGetLastError() after the launch, cudaErrorInvalidValue for a head dim
+// the kernel does not take, or kMapRefused (-1) for a tensor map that
+// cuTensorMapEncodeTiled refuses.
 extern "C" int pt_flash_attention_fwd_sm90(const void* q, const void* k,
                                            const void* v, void* o, void* lse,
                                            int bh, int sq, int sk, int hd,

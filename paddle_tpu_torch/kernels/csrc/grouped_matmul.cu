@@ -21,26 +21,30 @@
 // reduction in steps of 16, both operand tiles staged in shared memory as
 // fp32 (converted once on the way in, with 16-byte vector loads), the next
 // step's tiles fetched into registers while the current one is multiplied;
-// each thread accumulates an 8 x 8 sub-tile in registers. Tensor cores
-// (mma.sync / wgmma with TMA) are later work.
+// each thread accumulates an 8 x 8 sub-tile in registers. bf16 operands go
+// to the tensor-core kernels of grouped_matmul_sm90.cu; this one stays for
+// fp32.
 //
-// The group sizes stay on the device: the host never learns them, so a
-// step does not wait on the card. gmm launches ceil(m/128) + G + 1 row
+// The group sizes stay on the device (group_layout.cuh): the host never
+// learns them, so a step does not wait on the card. gmm launches
+// ceil(m/128) + G + 1 row
 // tiles (an upper bound: each group wastes at most one partial tile, and
 // the rows past the last group form one more "group" of zeros); each block
 // scans the <= 129 sizes in shared memory, finds its group and its tile in
 // it, and exits when it has none. No tile crosses a group boundary. tgmm
 // launches one block per (K tile, N tile, group) and walks its group's rows.
 
+#include "group_layout.cuh"
 #include "vec16.cuh"
 
 namespace {
 
-constexpr int kTile = 128;    // output tile edge (rows and columns)
-constexpr int kStep = 16;      // reduction step
-constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 8 outputs each
+using pt::GroupLayout;
+
+constexpr int kTile = pt::kGroupTile;      // output tile edge (rows, columns)
+constexpr int kStep = 16;                   // reduction step
+constexpr int kThreads = pt::kGroupThreads; // 16 x 16 threads, 8 x 8 outputs
 constexpr int kLds = kTile + 4;
-constexpr int kMaxGroups = 128;
 
 // One operand tile: kTile "outer" indices (rows of the output for the left
 // operand, columns for the right) by kStep reduction indices, staged as
@@ -164,62 +168,6 @@ __device__ __forceinline__ void epilogue(T* c, long long ldc, int rows,
   }
 }
 
-// Row range of every group in shared memory: group g < G covers rows
-// [start[g], end[g]) (exclusive prefix of the sizes, negatives as 0,
-// clamped to [0, M)); entry G covers the rows past the last group. tile0[g]
-// is the exclusive prefix of the groups' kTile-row tile counts. All threads
-// of the block call it; it ends in __syncthreads().
-struct GroupLayout {
-  int start[kMaxGroups + 1];
-  int end[kMaxGroups + 1];
-  int tile0[kMaxGroups + 2];
-  long long wsum[kThreads / 32];
-  int wtiles[kThreads / 32];
-};
-
-__device__ void group_layout(const int* __restrict__ sizes, int G, int M,
-                             GroupLayout& L) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  long long size = t < G ? (long long)max(sizes[t], 0) : 0;
-  // inclusive scan of the sizes over t (warp shuffles, then warp totals)
-  long long inc = size;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const long long n = __shfl_up_sync(0xffffffffu, inc, d);
-    if (lane >= d) inc += n;
-  }
-  if (lane == 31) L.wsum[warp] = inc;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) inc += L.wsum[w];
-  int s = 0, e = 0;
-  if (t < G) {
-    s = (int)min(inc - size, (long long)M);
-    e = (int)min(inc, (long long)M);
-  }
-  if (t == G) {
-    // rows past the last group: the scan's value at G is the full sum
-    s = (int)min(inc, (long long)M);
-    e = M;
-  }
-  if (t <= G) {
-    L.start[t] = s;
-    L.end[t] = e;
-  }
-  int nt = t <= G ? (e - s + kTile - 1) / kTile : 0;
-  int tinc = nt;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int n = __shfl_up_sync(0xffffffffu, tinc, d);
-    if (lane >= d) tinc += n;
-  }
-  if (lane == 31) L.wtiles[warp] = tinc;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) tinc += L.wtiles[w];
-  if (t <= G) L.tile0[t] = tinc - nt;
-  if (t == G) L.tile0[G + 1] = tinc;
-  __syncthreads();
-}
-
 template <typename T, bool TRANS>
 __global__ void __launch_bounds__(kThreads, 2)
 gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
@@ -228,20 +176,12 @@ gmm_kernel(const T* __restrict__ lhs, const T* __restrict__ rhs,
   __shared__ __align__(16) float As[kStep][kLds];
   __shared__ __align__(16) float Bs[kStep][kLds];
   __shared__ GroupLayout L;
-  __shared__ int s_group, s_row0, s_rows;
-  if (threadIdx.x == 0) s_group = -1;
-  group_layout(sizes, G, M, L);
-  const int tile = blockIdx.x;
-  const int t = threadIdx.x;
-  if (t <= G && tile >= L.tile0[t] && tile < L.tile0[t + 1]) {
-    s_group = t;
-    s_row0 = L.start[t] + (tile - L.tile0[t]) * kTile;
-    s_rows = min(kTile, L.end[t] - s_row0);
-  }
-  __syncthreads();
-  const int g = s_group;
+  __shared__ pt::RowTile s_tile;
+  pt::group_layout(sizes, G, M, L);
+  const pt::RowTile rt = pt::row_tile(L, G, blockIdx.x, s_tile);
+  const int g = rt.group;
   if (g < 0) return;  // past the last tile: uniform across the block
-  const int row0 = s_row0, rows = s_rows;
+  const int row0 = rt.row0, rows = rt.rows;
   const int j0 = blockIdx.y * kTile;
   float acc[8][8];
 #pragma unroll
@@ -266,7 +206,7 @@ tgmm_kernel(const T* __restrict__ lhs, const T* __restrict__ dout,
   __shared__ __align__(16) float As[kStep][kLds];
   __shared__ __align__(16) float Bs[kStep][kLds];
   __shared__ GroupLayout L;
-  group_layout(sizes, G, M, L);
+  pt::group_layout(sizes, G, M, L);
   const int g = blockIdx.z;
   const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
   const int start = L.start[g], rows = L.end[g] - L.start[g];

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the tensor-core attention kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu): TMA tensor maps and loads,
-// mbarriers, wgmma descriptors and the wgmma instructions they use.
+// Hopper (sm_90a) building blocks of the tensor-core kernels
+// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu,
+// grouped_matmul_sm90.cu): TMA tensor maps and loads, mbarriers, wgmma
+// descriptors and the wgmma instructions they use.
 //
 // Layout contract. Every operand tile in shared memory is what a TMA load
 // with CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 64 bf16 (128 bytes), the
@@ -62,7 +63,8 @@ inline EncodeTiledFn encode_fn() {
 
 // A map over a contiguous bf16 tensor [bh, s, d] whose box is [box_rows][64]
 // of one (b): rows past s read as zeros, never as the next sequence's.
-// Returns false if the driver refuses it.
+// Returns false if cuTensorMapEncodeTiled refuses it, as it does in a host
+// thread with no current context (see allow_smem).
 inline bool make_map(CUtensorMap* map, const void* base, int bh, int s, int d,
                      int box_rows) {
   EncodeTiledFn fn = encode_fn();
@@ -76,6 +78,23 @@ inline bool make_map(CUtensorMap* map, const void* base, int bh, int s, int d,
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// What an entry point returns when cuTensorMapEncodeTiled refuses one of
+// its tensor maps (CUDA's own error codes are positive).
+constexpr int kMapRefused = -1;
+
+// Let `kernel` take `bytes` of dynamic shared memory (above the 48 KB
+// default). Every launcher calls it first, before it encodes its tensor
+// maps: as the launch's first CUDA runtime call it also binds the device's
+// primary context to the calling host thread, and cuTensorMapEncodeTiled
+// refuses to encode a map in a thread that has none (autograd's worker
+// thread, before it has made any CUDA call of its own).
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 // -- device: shared-memory addresses, mbarriers, TMA ----------------------------
@@ -131,6 +150,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands); a barrier among the readers
+// follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr),
+               "r"(0)
+               : "memory");
 }
 
 // -- device: wgmma ---------------------------------------------------------------
@@ -196,16 +228,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// D[64 x 128] (+)= A[64 x 16] . B[16 x 128]; A and B K-major in shared
-// memory (descriptors), fp32 accumulators, bf16 inputs.
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128]; A and B in shared memory
+// (descriptors), fp32 accumulators, bf16 inputs. K-major by default; TA /
+// TB = 1 set the transpose bit of A / B, which then are MN-major (M or N
+// contiguous, the reduction down the 128-byte rows).
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                              uint64_t db, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // D[64 x 64] += A[64 x 16] . B[16 x 64]; A in registers (four bf16x2 per

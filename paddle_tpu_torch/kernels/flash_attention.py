@@ -24,21 +24,25 @@ runs its plain version on a CPU tensor:
   ``csrc/flash_bwd_dkv_sm90.cu`` (:func:`flash_attention_bwd_dkv_sm90`),
   the rest to ``csrc/flash_attention_bwd.cu``
   (:func:`flash_attention_bwd_dkv_cuda_core`);
-- :func:`flash_attention_bwd_dq` (``csrc/flash_attention_bwd.cu``) /
-  :func:`flash_attention_bwd_dq_plain`.
+- :func:`flash_attention_bwd_dq` / :func:`flash_attention_bwd_dq_plain`,
+  likewise: bf16 with head dim 64 or 128 goes to
+  ``csrc/flash_bwd_dq_sm90.cu`` (:func:`flash_attention_bwd_dq_sm90`), the
+  rest to ``csrc/flash_attention_bwd.cu``
+  (:func:`flash_attention_bwd_dq_cuda_core`).
 
 Each kernel counts its own launches (``COUNTS`` / ``COUNTS_SM90`` for the
-forward, ``COUNTS_DKV`` / ``COUNTS_DKV_SM90`` for dK/dV), so a run shows
-which one ran; CPU calls count as plain calls of the dispatching wrapper's
-CUDA-core counter.
+forward, ``COUNTS_DKV`` / ``COUNTS_DKV_SM90`` for dK/dV, ``COUNTS_DQ`` /
+``COUNTS_DQ_SM90`` for dQ), so a run shows which one ran; CPU calls count
+as plain calls of the dispatching wrapper's CUDA-core counter.
 
 The backward plain versions are the explicit formulas of the JAX kernels
 (``_bwd_dkv_kernel``, ``_bwd_dq_kernel``) over the dense score matrix.
 
-The tensor-core kernels round P (forward and dV) and dS (dK) to bf16 as
-the A operands of their products, where the plain versions keep fp32.
-:func:`sm90_fwd_bound` and :func:`sm90_dkv_bound` give the elementwise
-error bound that this rounding allows against the fp32 plain version.
+The tensor-core kernels round P (forward and dV) and dS (dK, dQ) to bf16
+as the A operands of their products, where the plain versions keep fp32.
+:func:`sm90_fwd_bound`, :func:`sm90_dkv_bound` and :func:`sm90_dq_bound`
+give the elementwise error bound that this rounding allows against the
+fp32 plain version.
 """
 from __future__ import annotations
 
@@ -55,9 +59,11 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
            "flash_attention_fwd_sm90", "flash_attention_fwd_cuda_core",
            "flash_attention_bwd_dkv_sm90",
-           "flash_attention_bwd_dkv_cuda_core", "takes_sm90",
-           "sm90_fwd_bound", "sm90_dkv_bound", "COUNTS", "COUNTS_SM90",
-           "COUNTS_DKV", "COUNTS_DKV_SM90", "COUNTS_DQ"]
+           "flash_attention_bwd_dkv_cuda_core",
+           "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq_cuda_core",
+           "takes_sm90", "sm90_fwd_bound", "sm90_dkv_bound", "sm90_dq_bound",
+           "COUNTS", "COUNTS_SM90", "COUNTS_DKV", "COUNTS_DKV_SM90",
+           "COUNTS_DQ", "COUNTS_DQ_SM90"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,7 +72,8 @@ COUNTS = _build.Counts()           # forward, CUDA cores
 COUNTS_SM90 = _build.Counts()      # forward, tensor cores
 COUNTS_DKV = _build.Counts()       # backward dK/dV, CUDA cores
 COUNTS_DKV_SM90 = _build.Counts()  # backward dK/dV, tensor cores
-COUNTS_DQ = _build.Counts()        # backward, dQ
+COUNTS_DQ = _build.Counts()        # backward dQ, CUDA cores
+COUNTS_DQ_SM90 = _build.Counts()   # backward dQ, tensor cores
 
 
 def _mask(sq, sk, offset, causal, device):
@@ -165,6 +172,19 @@ def sm90_dkv_bound(q, k, v, do, lse, delta, offset, causal, scale, dk_ref,
     bdv = (2.0 ** -8 * dv_ref.abs()
            + 2.0 ** -8 * torch.einsum("bqk,bqd->bkd", p, dof.abs()) + 1e-4)
     return bdk, bdv
+
+
+def sm90_dq_bound(q, k, v, do, lse, delta, offset, causal, scale, dq_ref):
+    """Elementwise bound of |dQ - dq_ref| for the tensor-core dQ kernel
+    against the fp32 plain version ``dq_ref`` on the same inputs:
+    ``2**-8 |dQ| + 2**-8 (|dS| |K|) + 1e-4``: one bf16 rounding of the
+    result, and one of each ds before dS.K, each at twice its worst case."""
+    p = _probs_plain(q, k, lse, offset, causal, scale)
+    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).abs()
+    return (2.0 ** -8 * dq_ref.abs()
+            + 2.0 ** -8 * torch.einsum("bqk,bkd->bqd", ds, k.float().abs())
+            + 1e-4)
 
 
 def _check_kernel_inputs(name, q, tensors):
@@ -347,11 +367,23 @@ def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, offset, causal,
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, offset, causal, scale):
-    """dQ: the dQ kernel on CUDA, the plain version on the CPU."""
+    """dQ: on CUDA the tensor-core kernel where :func:`takes_sm90`, else the
+    CUDA-core kernel; the plain version on the CPU."""
     if q.device.type == "cpu":
         COUNTS_DQ.plain()
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset,
                                             causal, scale)
+    if takes_sm90(q.dtype, q.shape[2]):
+        return flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset,
+                                           causal, scale)
+    return flash_attention_bwd_dq_cuda_core(q, k, v, do, lse, delta, offset,
+                                            causal, scale)
+
+
+def flash_attention_bwd_dq_cuda_core(q, k, v, do, lse, delta, offset, causal,
+                                     scale):
+    """dQ from the CUDA-core kernel (``csrc/flash_attention_bwd.cu``): fp32
+    or bf16, head dim up to 256."""
     _on_cuda("flash_attention_bwd_dq", q)
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
     bh, sq, d = q.shape
@@ -367,6 +399,29 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, offset, causal, scale):
                  _DTYPES[q.dtype], _stream(q))
     _build.check(err, "pt_flash_attention_bwd_dq")
     COUNTS_DQ.launched()
+    return dq
+
+
+def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset, causal,
+                                scale):
+    """dQ from the tensor-core kernel (``csrc/flash_bwd_dq_sm90.cu``): bf16,
+    head dim 64 or 128."""
+    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    _check_sm90("flash_attention_bwd_dq_sm90", q)
+    _on_cuda("flash_attention_bwd_dq_sm90", q)
+    q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dq = torch.empty_like(q)
+    fn = _build.kernel("pt_flash_attention_bwd_dq_sm90",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
+                       [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq, sk,
+                 d, int(offset), int(bool(causal)), float(scale), _stream(q))
+    _build.check(err, "pt_flash_attention_bwd_dq_sm90")
+    COUNTS_DQ_SM90.launched()
     return dq
 
 

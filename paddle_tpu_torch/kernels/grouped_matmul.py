@@ -12,13 +12,23 @@ megablox's VJP is on the TPU:
 - wgrad ``d_rhs[g] = lhs[rows_g]^T @ d_out[rows_g]``: :func:`tgmm`
   (zeros for an empty group).
 
-On a CUDA tensor :func:`gmm` and :func:`tgmm` launch the hand-written
-kernels (``csrc/grouped_matmul.cu``) or raise; on a CPU tensor they run
-:func:`gmm_plain` and :func:`tgmm_plain`, loops over the groups of fp32
-``torch.matmul``. ``group_sizes`` stays on the device: the kernels read it
-there, so a step never waits for the host to learn the sizes (the plain
-versions do read them on the host). The autograd Function looks the two
-wrappers up by module attribute at call time.
+On a CUDA tensor :func:`gmm` and :func:`tgmm` launch a hand-written
+kernel or raise, chosen by dtype in plain code (:func:`takes_sm90`): bf16
+goes to the tensor-core kernels (``csrc/grouped_matmul_sm90.cu``,
+:func:`gmm_sm90`, :func:`tgmm_sm90`), fp32 to the CUDA-core ones
+(``csrc/grouped_matmul.cu``, :func:`gmm_cuda_core`,
+:func:`tgmm_cuda_core`). On a CPU tensor they run :func:`gmm_plain` and
+:func:`tgmm_plain`, loops over the groups of fp32 ``torch.matmul``.
+``group_sizes`` stays on the device: the kernels read it there, so a step
+never waits for the host to learn the sizes (the plain versions do read
+them on the host). The autograd Function looks the two wrappers up by
+module attribute at call time.
+
+Each kernel counts its own launches: ``COUNTS`` / ``COUNTS_SM90``
+(forward), ``COUNTS_DGRAD`` / ``COUNTS_DGRAD_SM90``, ``COUNTS_WGRAD`` /
+``COUNTS_WGRAD_SM90``; CPU calls count as plain calls of the CUDA-core
+counters. Products of bf16 values are exact in fp32 and neither kernel
+rounds anything but its result, so both keep one tolerance.
 """
 from __future__ import annotations
 
@@ -29,15 +39,20 @@ import torch
 from . import _build
 
 __all__ = ["grouped_matmul", "gmm", "tgmm", "gmm_plain", "tgmm_plain",
-           "MAX_GROUPS", "TILE_ROWS", "COUNTS", "COUNTS_DGRAD",
-           "COUNTS_WGRAD"]
+           "gmm_sm90", "tgmm_sm90", "gmm_cuda_core", "tgmm_cuda_core",
+           "takes_sm90", "MAX_GROUPS", "TILE_ROWS", "COUNTS", "COUNTS_DGRAD",
+           "COUNTS_WGRAD", "COUNTS_SM90", "COUNTS_DGRAD_SM90",
+           "COUNTS_WGRAD_SM90"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUPS = 128  # the kernels scan the sizes in one block's shared memory
 TILE_ROWS = 128   # rows of one group per forward/dgrad block
-COUNTS = _build.Counts()        # forward
-COUNTS_DGRAD = _build.Counts()  # d_lhs (transposed rhs)
-COUNTS_WGRAD = _build.Counts()  # d_rhs
+COUNTS = _build.Counts()             # forward, CUDA cores
+COUNTS_DGRAD = _build.Counts()       # d_lhs (transposed rhs), CUDA cores
+COUNTS_WGRAD = _build.Counts()       # d_rhs, CUDA cores
+COUNTS_SM90 = _build.Counts()        # forward, tensor cores
+COUNTS_DGRAD_SM90 = _build.Counts()  # d_lhs, tensor cores
+COUNTS_WGRAD_SM90 = _build.Counts()  # d_rhs, tensor cores
 
 
 def _ranges(group_sizes, m):
@@ -81,11 +96,17 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _kernel_operands(name, a, b, group_sizes, widths):
+def takes_sm90(dtype) -> bool:
+    """Whether a CUDA call goes to the tensor-core kernels: bf16 operands;
+    fp32 stays on the CUDA-core kernels."""
+    return dtype == torch.bfloat16
+
+
+def _kernel_operands(name, a, b, group_sizes, widths, sm90):
     """What the kernels take: one device, float32 or bfloat16 operands of
-    one dtype, ``widths`` (the k and n of the product) multiples of 8,
-    1..128 groups; contiguous, 16-byte aligned operands and int32
-    sizes."""
+    one dtype (bfloat16 only for the tensor-core kernels, ``sm90``),
+    ``widths`` (the k and n of the product) multiples of 8, 1..128 groups,
+    a CUDA device; contiguous, 16-byte aligned operands and int32 sizes."""
     for t in (b, group_sizes):
         if t.device != a.device:
             raise ValueError(f"{name}: tensor on {t.device}, lhs on "
@@ -93,6 +114,9 @@ def _kernel_operands(name, a, b, group_sizes, widths):
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise TypeError(f"{name} kernel takes float32 or bfloat16 operands "
                         f"of one dtype, got {a.dtype} and {b.dtype}")
+    if sm90 and not takes_sm90(a.dtype):
+        raise TypeError(f"{name}: the tensor-core kernel takes bfloat16 "
+                        f"operands, got {a.dtype}")
     g = group_sizes.shape[0]
     if not 1 <= g <= MAX_GROUPS:
         raise ValueError(f"{name} kernel takes 1..{MAX_GROUPS} groups, got "
@@ -100,6 +124,9 @@ def _kernel_operands(name, a, b, group_sizes, widths):
     if any(w % 8 for w in widths):
         raise ValueError(f"{name} kernel takes k and n that are multiples "
                          f"of 8, got {tuple(a.shape)} and {tuple(b.shape)}")
+    if a.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel runs on CUDA tensors, got "
+                         f"{a.device}")
 
     def prep(t):
         t = t.contiguous()
@@ -109,53 +136,96 @@ def _kernel_operands(name, a, b, group_sizes, widths):
 
 
 def gmm(lhs, rhs, group_sizes, trans_rhs=False):
-    """Forward (or, with ``trans_rhs``, dgrad) product: the kernel on CUDA,
+    """Forward (or, with ``trans_rhs``, dgrad) product: on CUDA the
+    tensor-core kernel where :func:`takes_sm90`, else the CUDA-core kernel;
     the plain version on the CPU."""
-    counts = COUNTS_DGRAD if trans_rhs else COUNTS
     if lhs.device.type == "cpu":
-        counts.plain()
+        (COUNTS_DGRAD if trans_rhs else COUNTS).plain()
         return gmm_plain(lhs, rhs, group_sizes, trans_rhs)
-    if lhs.device.type != "cuda":
-        raise ValueError(f"unsupported device {lhs.device}")
-    lhs, rhs, sizes = _kernel_operands("gmm", lhs, rhs, group_sizes,
-                                       rhs.shape[1:])
+    if takes_sm90(lhs.dtype):
+        return gmm_sm90(lhs, rhs, group_sizes, trans_rhs)
+    return gmm_cuda_core(lhs, rhs, group_sizes, trans_rhs)
+
+
+def _gmm_launch(entry, lhs, rhs, group_sizes, trans_rhs, sm90):
+    lhs, rhs, sizes = _kernel_operands(entry, lhs, rhs, group_sizes,
+                                       rhs.shape[1:], sm90)
     m, k = lhs.shape
     g = rhs.shape[0]
     n = rhs.shape[1] if trans_rhs else rhs.shape[2]
     out = torch.empty(m, n, dtype=lhs.dtype, device=lhs.device)
-    fn = _build.kernel("pt_gmm", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                       + [ctypes.c_void_p])
+    args = [lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(), out.data_ptr(),
+            m, k, n, g, int(bool(trans_rhs))]
+    if not sm90:
+        args.append(_DTYPES[lhs.dtype])
+    fn = _build.kernel(entry, [ctypes.c_void_p] * 4 +
+                       [ctypes.c_int] * (len(args) - 4) + [ctypes.c_void_p])
     with torch.cuda.device(lhs.device):
-        err = fn(lhs.data_ptr(), rhs.data_ptr(), sizes.data_ptr(),
-                 out.data_ptr(), m, k, n, g, int(bool(trans_rhs)),
-                 _DTYPES[lhs.dtype], _stream(lhs))
-    _build.check(err, "pt_gmm")
-    counts.launched()
+        err = fn(*args, _stream(lhs))
+    _build.check(err, entry)
+    return out
+
+
+def gmm_cuda_core(lhs, rhs, group_sizes, trans_rhs=False):
+    """Forward or dgrad from the CUDA-core kernel
+    (``csrc/grouped_matmul.cu``): fp32 or bf16."""
+    out = _gmm_launch("pt_gmm", lhs, rhs, group_sizes, trans_rhs, False)
+    (COUNTS_DGRAD if trans_rhs else COUNTS).launched()
+    return out
+
+
+def gmm_sm90(lhs, rhs, group_sizes, trans_rhs=False):
+    """Forward or dgrad from the tensor-core kernel
+    (``csrc/grouped_matmul_sm90.cu``): bf16."""
+    out = _gmm_launch("pt_gmm_sm90", lhs, rhs, group_sizes, trans_rhs, True)
+    (COUNTS_DGRAD_SM90 if trans_rhs else COUNTS_SM90).launched()
     return out
 
 
 def tgmm(lhs, dout, group_sizes):
-    """wgrad ``[g, k, n]``: the kernel on CUDA, the plain version on the
+    """wgrad ``[g, k, n]``: on CUDA the tensor-core kernel where
+    :func:`takes_sm90`, else the CUDA-core kernel; the plain version on the
     CPU."""
     if lhs.device.type == "cpu":
         COUNTS_WGRAD.plain()
         return tgmm_plain(lhs, dout, group_sizes)
-    if lhs.device.type != "cuda":
-        raise ValueError(f"unsupported device {lhs.device}")
-    lhs, dout, sizes = _kernel_operands("tgmm", lhs, dout, group_sizes,
-                                        (lhs.shape[1], dout.shape[1]))
+    if takes_sm90(lhs.dtype):
+        return tgmm_sm90(lhs, dout, group_sizes)
+    return tgmm_cuda_core(lhs, dout, group_sizes)
+
+
+def _tgmm_launch(entry, lhs, dout, group_sizes, sm90):
+    lhs, dout, sizes = _kernel_operands(entry, lhs, dout, group_sizes,
+                                        (lhs.shape[1], dout.shape[1]), sm90)
     m, k = lhs.shape
     n = dout.shape[1]
     g = sizes.shape[0]
     out = torch.empty(g, k, n, dtype=lhs.dtype, device=lhs.device)
-    fn = _build.kernel("pt_tgmm", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
+    args = [lhs.data_ptr(), dout.data_ptr(), sizes.data_ptr(),
+            out.data_ptr(), m, k, n, g]
+    if not sm90:
+        args.append(_DTYPES[lhs.dtype])
+    fn = _build.kernel(entry, [ctypes.c_void_p] * 4 +
+                       [ctypes.c_int] * (len(args) - 4) + [ctypes.c_void_p])
     with torch.cuda.device(lhs.device):
-        err = fn(lhs.data_ptr(), dout.data_ptr(), sizes.data_ptr(),
-                 out.data_ptr(), m, k, n, g, _DTYPES[lhs.dtype],
-                 _stream(lhs))
-    _build.check(err, "pt_tgmm")
+        err = fn(*args, _stream(lhs))
+    _build.check(err, entry)
+    return out
+
+
+def tgmm_cuda_core(lhs, dout, group_sizes):
+    """wgrad from the CUDA-core kernel (``csrc/grouped_matmul.cu``): fp32
+    or bf16."""
+    out = _tgmm_launch("pt_tgmm", lhs, dout, group_sizes, False)
     COUNTS_WGRAD.launched()
+    return out
+
+
+def tgmm_sm90(lhs, dout, group_sizes):
+    """wgrad from the tensor-core kernel (``csrc/grouped_matmul_sm90.cu``):
+    bf16."""
+    out = _tgmm_launch("pt_tgmm_sm90", lhs, dout, group_sizes, True)
+    COUNTS_WGRAD_SM90.launched()
     return out
 
 

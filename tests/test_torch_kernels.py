@@ -193,9 +193,9 @@ def test_flash_attention_backward_matches_jax(sq, sk, offset, causal):
 def _sm90_emulated(q, k, v, do, delta, offset, causal, scale, drop_tile):
     """The tensor-core kernels' arithmetic in PyTorch on bf16-valued fp32
     tensors: products summed in fp32; P rounded to bf16 before P.V (the row
-    sum adds the fp32 p) and before dV; dS rounded to bf16 before dK;
-    outputs rounded to bf16. ``drop_tile`` plants a fault: the last tile
-    of 128 keys is left out, as if its loop turn were skipped."""
+    sum adds the fp32 p) and before dV; dS rounded to bf16 before dK and
+    dQ; outputs rounded to bf16. ``drop_tile`` plants a fault: the last
+    tile of 128 keys is left out, as if its loop turn were skipped."""
 
     def bf16(t):
         return t.to(torch.bfloat16).float()
@@ -215,14 +215,18 @@ def _sm90_emulated(q, k, v, do, delta, offset, causal, scale, drop_tile):
     dv = bf16(torch.einsum("bqk,bqd->bkd", bf16(p), do))
     ds = p * (torch.einsum("bqd,bkd->bqk", do, v) - delta[..., None]) * scale
     dk = bf16(torch.einsum("bqk,bqd->bkd", bf16(ds), q))
-    return o, lse, dk, dv
+    dq = bf16(torch.einsum("bqk,bkd->bqd", bf16(ds), k))
+    return {"o": o, "lse": lse, "dk": dk, "dv": dv, "dq": dq}
 
 
-def test_sm90_bounds_hold_for_the_kernels_roundings():
+@pytest.mark.parametrize("out", ["o", "dk", "dv", "dq"])
+def test_sm90_bounds_hold_for_the_kernels_roundings(out):
     """The elementwise bounds that the card tests and chip_smoke.py hold
-    the tensor-core kernels to: an emulation of their bf16 roundings stays
-    within them against the fp32 plain versions at bh 2, s 512, d 128,
-    causal; the same emulation without its last key tile exceeds them."""
+    the tensor-core kernels to (``sm90_fwd_bound`` for o, ``sm90_dkv_bound``
+    for dK and dV, ``sm90_dq_bound`` for dQ): an emulation of their bf16
+    roundings stays within them against the fp32 plain versions at bh 2,
+    s 512, d 128, causal, filling a fair part of them; the same emulation
+    without its last key tile exceeds them."""
     rng = np.random.default_rng(21)
     bh, s, d, scale = 2, 512, 128, 128 ** -0.5
     q, k, v, do = (torch.from_numpy(rng.standard_normal(
@@ -231,36 +235,84 @@ def test_sm90_bounds_hold_for_the_kernels_roundings():
     ro, rl = _FA.flash_attention_plain(q, k, v, 0, True, scale)
     delta = (do * ro).sum(-1)
     args = (rl, delta, 0, True, scale)
-    rdk, rdv = _FA.flash_attention_bwd_dkv_plain(q, k, v, do, *args)
-    bo = _FA.sm90_fwd_bound(q, k, v, 0, True, scale, ro)
-    bdk, bdv = _FA.sm90_dkv_bound(q, k, v, do, *args, rdk, rdv)
+    if out == "o":
+        ref = ro
+        bound = _FA.sm90_fwd_bound(q, k, v, 0, True, scale, ro)
+    elif out == "dq":
+        ref = _FA.flash_attention_bwd_dq_plain(q, k, v, do, *args)
+        bound = _FA.sm90_dq_bound(q, k, v, do, *args, ref)
+    else:
+        rdk, rdv = _FA.flash_attention_bwd_dkv_plain(q, k, v, do, *args)
+        ref = rdk if out == "dk" else rdv
+        bound = _FA.sm90_dkv_bound(q, k, v, do, *args, rdk, rdv)[
+            0 if out == "dk" else 1]
 
-    def excess(got, ref, bound):
+    def excess(got):
         return ((got - ref).abs() - bound).max().item()
 
-    o, lse, dk, dv = _sm90_emulated(q, k, v, do, delta, 0, True, scale,
-                                    False)
-    assert excess(o, ro, bo) <= 0
-    assert excess(dk, rdk, bdk) <= 0 and excess(dv, rdv, bdv) <= 0
-    _close(lse, rl, rtol=0.0, atol=1e-3)
-    # the bounds are not loose: the rounding's own error fills a fair part
-    assert (o - ro).abs().max().item() > 0.05 * (bo - 1e-4).max().item()
-    o, _lse, dk, dv = _sm90_emulated(q, k, v, do, delta, 0, True, scale,
-                                     True)
-    assert excess(o, ro, bo) > 0
-    assert excess(dk, rdk, bdk) > 0 and excess(dv, rdv, bdv) > 0
+    sound = _sm90_emulated(q, k, v, do, delta, 0, True, scale, False)
+    assert excess(sound[out]) <= 0
+    _close(sound["lse"], rl, rtol=0.0, atol=1e-3)
+    # the bound is not loose: the roundings' own error fills a fair part
+    assert (sound[out] - ref).abs().max().item() > \
+        0.05 * (bound - 1e-4).max().item()
+    fault = _sm90_emulated(q, k, v, do, delta, 0, True, scale, True)
+    assert excess(fault[out]) > 0
 
 
 @pytest.mark.parametrize("dtype,d,sq,want", [
     (torch.bfloat16, 128, 2048, True), (torch.bfloat16, 64, 2, True),
     (torch.bfloat16, 128, 1, False), (torch.bfloat16, 128, None, True),
     (torch.bfloat16, 32, 64, False), (torch.bfloat16, 256, 64, False),
-    (torch.float32, 128, 64, False), (torch.float32, 64, None, False)])
-def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want):
+    (torch.float32, 128, 64, False), (torch.float32, 64, None, False),
+    (torch.bfloat16, 64, None, True), (torch.bfloat16, 32, None, False),
+    (torch.bfloat16, 256, None, False), (torch.float32, 128, None, False)])
+def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
+                                                monkeypatch):
     """The wrappers' choice of kernel on CUDA, in plain code: bf16 with
     head dim 64 or 128 (and, for the forward, more than one row) goes to
-    the tensor-core kernels, the rest to the CUDA-core ones."""
+    the tensor-core kernels, the rest to the CUDA-core ones. For the
+    backward (``sq`` None) the dK/dV and dQ dispatchers are driven on meta
+    tensors (neither CPU nor CUDA) with both kernels' wrappers replaced by
+    recorders, so the choice itself is what runs."""
     assert _FA.takes_sm90(dtype, d, sq) is want
+    if sq is not None:
+        return
+    took = []
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        for route in ("sm90", "cuda_core"):
+            monkeypatch.setattr(
+                _FA, f"{name}_{route}",
+                lambda *a, n=name, r=route: took.append((n, r)))
+    q = torch.empty(2, 16, d, dtype=dtype, device="meta")
+    stats = torch.empty(2, 16, device="meta")
+    args = (q, q, q, q, stats, stats, 0, True, 0.1)
+    _FA.flash_attention_bwd_dkv(*args)
+    _FA.flash_attention_bwd_dq(*args)
+    route = "sm90" if want else "cuda_core"
+    assert took == [("flash_attention_bwd_dkv", route),
+                    ("flash_attention_bwd_dq", route)]
+
+
+@pytest.mark.parametrize("dtype,d,device,error,match", [
+    (torch.float32, 128, "cpu", ValueError, "bfloat16"),
+    (torch.bfloat16, 32, "cpu", ValueError, "head_dim"),
+    (torch.float16, 128, "cpu", TypeError, "float32 or bfloat16"),
+    (torch.bfloat16, 128, "cpu", ValueError, "CUDA tensors"),
+    (torch.bfloat16, 64, "meta", ValueError, "CUDA tensors")])
+def test_sm90_dq_wrapper_rejects_what_its_kernel_does_not_take(
+        dtype, d, device, error, match):
+    """The tensor-core dQ wrapper raises, before any build or launch, on
+    inputs its kernel does not take (not bf16, head dim other than 64 or
+    128) and on tensors off the card; it never falls back."""
+    q = torch.zeros(2, 8, d, dtype=dtype, device=device)
+    stats = torch.zeros(2, 8, device=device)
+    reset_counters()
+    with pytest.raises(error, match=match):
+        _FA.flash_attention_bwd_dq_sm90(q, q, q, q, stats, stats, 0, True,
+                                        0.1)
+    assert counters()["flash_attention_bwd_dq_sm90"] == {"launches": 0,
+                                                         "plain_calls": 0}
 
 
 @pytest.mark.parametrize("impl", ["interpret", "composed"])

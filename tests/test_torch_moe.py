@@ -106,6 +106,64 @@ def test_grouped_matmul_matches_ragged_dot(sizes):
             for s in ("", "_dgrad", "_wgrad")] == [1, 1, 1]
 
 
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "sm90"),
+                                         (torch.float32, "cuda_core")])
+@pytest.mark.parametrize("call", ["forward", "dgrad", "wgrad"])
+def test_grouped_matmul_picks_its_kernel(call, dtype, route, monkeypatch):
+    """The wrappers' choice of kernel on CUDA, in plain code: bf16 goes to
+    the tensor-core kernels and fp32 to the CUDA-core ones. Driven on meta
+    tensors (neither CPU nor CUDA) with every kernel wrapper replaced by a
+    recorder, so the choice itself is what runs."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+
+    took = []
+    for name in ("gmm", "tgmm"):
+        for r in ("sm90", "cuda_core"):
+            monkeypatch.setattr(gm, f"{name}_{r}",
+                                lambda *a, n=name, r=r: took.append((n, r)))
+    lhs = torch.empty(40, 16, dtype=dtype, device="meta")
+    rhs = torch.empty(3, 16, 24, dtype=dtype, device="meta")
+    sizes = torch.empty(3, dtype=torch.int32, device="meta")
+    if call == "wgrad":
+        gm.tgmm(lhs, torch.empty(40, 24, dtype=dtype, device="meta"), sizes)
+    else:
+        gm.gmm(lhs, rhs, sizes, trans_rhs=call == "dgrad")
+    assert took == [("tgmm" if call == "wgrad" else "gmm", route)]
+    assert gm.takes_sm90(dtype) is (route == "sm90")
+
+
+@pytest.mark.parametrize("wrapper", ["gmm_sm90", "dgrad_sm90", "tgmm_sm90"])
+@pytest.mark.parametrize("case,error,match", [
+    ("float32", TypeError, "bfloat16"),
+    ("float16", TypeError, "float32 or bfloat16"),
+    ("width12", ValueError, "multiples of 8"),
+    ("groups129", ValueError, "groups"),
+    ("cpu", ValueError, "CUDA tensors")])
+def test_grouped_matmul_sm90_wrappers_reject_what_the_kernels_do_not_take(
+        wrapper, case, error, match):
+    """Each tensor-core wrapper raises, before any build or launch, on
+    operands its kernel does not take (not bf16, a width that is not a
+    multiple of 8, more than 128 groups) and on tensors off the card; it
+    never falls back."""
+    from paddle_tpu_torch.kernels import grouped_matmul as gm
+
+    dtype = {"float32": torch.float32,
+             "float16": torch.float16}.get(case, torch.bfloat16)
+    k = 12 if case == "width12" else 16
+    g = 129 if case == "groups129" else 2
+    lhs = torch.zeros(8, k, dtype=dtype)
+    sizes = torch.full((g,), 4, dtype=torch.int32)
+    reset_counters()
+    with pytest.raises(error, match=match):
+        if wrapper == "tgmm_sm90":
+            gm.tgmm_sm90(lhs, torch.zeros(8, 24, dtype=dtype), sizes)
+        else:
+            gm.gmm_sm90(lhs, torch.zeros(g, k, 24, dtype=dtype), sizes,
+                        trans_rhs=wrapper == "dgrad_sm90")
+    assert all(v == {"launches": 0, "plain_calls": 0}
+               for n, v in counters().items() if n.startswith("grouped"))
+
+
 # -- routing, gather, combine ------------------------------------------------
 
 def _router_inputs(n, h, e, seed):
