@@ -18,20 +18,29 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              tensor-core flash forward, dK/dV and dQ kernels (bf16, head
              dim 128) are held to the bound of their bf16 roundings of P
              and dS and timed beside the CUDA-core kernels on the same
-             inputs; the CUDA-core ones keep their fp32 cases.
+             inputs; the CUDA-core ones keep their fp32 cases. Paged
+             attention runs the kernel its route names (split-K decode at
+             W = 1, the tensor-core window kernel for bf16 windows, the
+             general kernel for fp32 windows), checked to that kernel's
+             tolerance and timed beside the general kernel, at the
+             serving shapes and at odd ones (W 5 and 130, GQA, 1- and
+             64-key contexts).
 4. parity  — fp32, GPT-3 6.7B width at depth 2: the engine's greedy tokens
-             (paged-attention kernel) equal ``model.generate``'s (flash
-             kernel), and its logprobs match a teacher-forced forward.
+             (split-K decode kernel, the general kernel for the prefill
+             windows) equal ``model.generate``'s (flash kernel), and its
+             logprobs match a teacher-forced forward.
 5. serving — bf16, full 32-layer GPT-3 6.7B with random weights: an engine
              with 8 slots answers 16 requests (half share a 256-token
              prefix), then ``model.generate`` decodes two prompts; the
-             kernels' counters are reset before and read after: paged
-             attention must have launched, generate's prefill must have
-             gone to the tensor-core flash kernel and its single-row steps
-             to the CUDA-core one, exactly, and no plain version run. Every
-             answer is then checked against the model's own forward, and
-             the same check must fail on answers served with a fault
-             planted in the paged-attention kernel.
+             kernels' counters are reset before and read after, exactly:
+             every layer of every prefill window on the tensor-core paged
+             kernel, of every decode step on the split-K decode kernel,
+             none on the general one; generate's prefill on the
+             tensor-core flash kernel and its single-row steps on the
+             CUDA-core one; no plain version run. Every answer is then
+             checked against the model's own forward, and the same check
+             must fail on answers served with each of three faults
+             planted in the paged-attention wrapper.
 6. train-parity — fp32, the 1.16B Llama's width at depth 2, batch 2 x 512:
              one step's loss and every parameter gradient through the
              kernels against the same step with each kernel wrapper swapped
@@ -93,7 +102,7 @@ SEED = 0  # inputs and random weights are drawn from it
 # (argmax gap 0.0625 = one bf16 ulp of logits in [8, 16), logprob 0.063);
 # the planted faults read 1.0 and more
 GAP_TOL, LP_TOL = 0.2, 0.2
-FAULTS = ("shifted_tables", "unscaled")
+FAULTS = ("shifted_tables", "unscaled", "first_split_only")
 
 
 def _emit(obj) -> None:
@@ -124,6 +133,37 @@ def _time_ms(fn, iters=20, warmup=3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def _graph_ms(fn, iters=20, reps=5):
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph, replayed ``reps`` times between CUDA events, so no host time is
+    in it (the wrappers allocate from the graph's pool while it is
+    captured). ``_time_ms``, the yardstick of every ``ms`` here, times the
+    same calls as the host issues them."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / (reps * iters)
 
 
 def _bound(nbytes, flops, dtype_name):
@@ -162,16 +202,30 @@ def _tol(dtype):
     return (0.0, 1e-4) if dtype == torch.float32 else (2.0 ** -8, 1e-4)
 
 
-def _paged_case(label, dtype, S, W, lengths, active, gen):
-    """K1 at one path shape: lengths [S] window starts, `active` slots own
-    real pages (the rest have all-zero tables, as in the engine)."""
+# the counter of each paged-attention route (``paged_attention.route``)
+PAGED_COUNTERS = {"decode": "paged_attention_decode",
+                  "sm90": "paged_attention_sm90",
+                  "cuda_core": "paged_attention"}
+
+
+def _paged_case(label, dtype, S, W, lengths, active, gen, kvh=32,
+                timed=True):
+    """Paged attention at one shape: lengths [S] window starts, `active`
+    slots own real pages (the rest have all-zero tables, as in the engine);
+    32 query heads, `kvh` kv heads. Records the route that ran and holds
+    it to its tolerance: the single rounding of the decode kernel and PR
+    1's kernel, ``sm90_paged_bound`` for the tensor-core window kernel;
+    timed beside the general kernel, ``paged_attention.cu``, on the same
+    inputs (``cuda_core_ms``)."""
     import torch
     import torch.nn.functional as TF
 
+    from paddle_tpu_torch.kernels import counters, reset_counters
     from paddle_tpu_torch.kernels.paged_attention import (
-        paged_attention, paged_attention_plain)
+        paged_attention, paged_attention_cuda_core, paged_attention_plain,
+        route, sm90_paged_bound)
 
-    nh = kvh = 32
+    nh = 32
     hd, PL, B = 128, 16, 128
     P = 8 * B + 2 * B + 1
     dev = DEVICE
@@ -185,14 +239,43 @@ def _paged_case(label, dtype, S, W, lengths, active, gen):
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     pos = lens[:, None] + torch.arange(W, dtype=torch.int32, device=dev)
     scale = 1.0 / hd ** 0.5
+    which = route(dtype, hd, W, nh // kvh, PL)
+    kernel = PAGED_COUNTERS[which]
 
+    reset_counters()
     out = paged_attention(q, ka, va, tables, pos, scale)
     torch.cuda.synchronize()
-    ref = paged_attention_plain(q.float(), ka.float(), va.float(), tables,
-                                pos, scale)
-    err, rel = _compare(f"paged_attention[{label}]", out, ref, _tol(dtype))
-    del ref
-    ms = _time_ms(lambda: paged_attention(q, ka, va, tables, pos, scale))
+    ran = {n: c["launches"] for n, c in counters().items()
+           if n in PAGED_COUNTERS.values()}
+    if ran != {n: int(n == kernel) for n in PAGED_COUNTERS.values()}:
+        raise RuntimeError(f"paged_attention[{label}]: route {which} but "
+                           f"launches {ran}")
+    f32 = (q.float(), ka.float(), va.float(), tables, pos, scale)
+    ref = paged_attention_plain(*f32)
+    if which == "sm90":
+        bound = sm90_paged_bound(*f32, ref)
+        err, share = _compare_bound(f"{kernel}[{label}]", out, ref, bound)
+        tol = SM90_TOL
+        del bound
+    else:
+        err, _rel = _compare(f"{kernel}[{label}]", out, ref, _tol(dtype))
+        tol, share = _tol(dtype), None
+    del ref, f32
+    row = {"phase": "kernel", "kernel": kernel, "route": which,
+           "case": label, "dtype": _dname(dtype), "S": S, "W": W,
+           "nh": nh, "kvh": kvh, "max_abs_err": err, "tol": tol}
+    if share is not None:
+        row["bound_share_max"] = share
+    if not timed:
+        _emit(row)
+        return row
+
+    def call():
+        return paged_attention(q, ka, va, tables, pos, scale)
+
+    # CUDA events around eager calls, as every kernel is timed; and once
+    # in CUDA-graph replay, the device time without the wrapper's host time
+    ms, graph_ms = _time_ms(call), _graph_ms(call)
     plain_ms = _time_ms(lambda: paged_attention_plain(
         q, ka, va, tables, pos, scale), iters=5, warmup=1)
     # library yardstick: SDPA over the pre-gathered dense context with the
@@ -203,15 +286,20 @@ def _paged_case(label, dtype, S, W, lengths, active, gen):
     qd = q.transpose(1, 2)
     mask = (torch.arange(L, device=dev)[None, None, :]
             <= pos[:, :, None])[:, None]
-    lib_ms = _time_ms(lambda: TF.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask))
+
+    def lib():
+        return TF.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                               enable_gqa=kvh != nh)
+
+    lib_ms = _time_ms(lib)
     del kd, vd
+    torch.cuda.empty_cache()
     # least work: every distinct visible key position (page id, offset)
     # read once for K and V — idle slots' all-zero tables see the scratch
     # page's 16 keys, however often — q read, out written; 4*hd FLOPs per
     # visible (row, key) pair
     esz = q.element_size()
-    vis_rows = torch.clamp(pos.long() + 1, max=L)                # [S, W]
+    vis_rows = torch.clamp(pos.long() + 1, min=0, max=L)         # [S, W]
     vis_slot = vis_rows.max(dim=1).values                        # [S]
     j = torch.arange(L, device=dev)
     keys = tables.long()[:, j // PL] * PL + j % PL               # [S, L]
@@ -219,13 +307,15 @@ def _paged_case(label, dtype, S, W, lengths, active, gen):
     nbytes = (2 * n_keys * kvh * hd * esz
               + 2 * q.numel() * esz + tables.numel() * 4 + pos.numel() * 4)
     flops = 4 * hd * nh * int(vis_rows.sum())
-    bound_ms, bound_by = _bound(nbytes, flops, str(dtype).split(".")[1])
-    row = {"phase": "kernel", "kernel": "paged_attention", "case": label,
-           "dtype": str(dtype).split(".")[1], "S": S, "W": W,
-           "distinct_keys": n_keys,
-           "max_abs_err": err, "max_rel_err": rel, "tol": _tol(dtype),
-           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by}
+    bound_ms, bound_by = _bound(nbytes, flops, _dname(dtype))
+    row.update(distinct_keys=n_keys, kernel_ms=ms, graph_ms=graph_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+               bound_by=bound_by, tflop_per_s=flops / ms / 1e9)
+    if which != "cuda_core":
+        # the general kernel on the same inputs
+        row.update(cuda_core_ms=_time_ms(
+            lambda: paged_attention_cuda_core(q, ka, va, tables, pos, scale),
+            iters=5, warmup=1))
     _emit(row)
     return row
 
@@ -324,9 +414,16 @@ def phase_kernels(seed):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     rng = np.random.default_rng(seed)
+    # bring the card to its working clocks before the first timing
+    warm = torch.randn(8192, 8192, generator=gen, device=DEVICE,
+                       dtype=torch.bfloat16)
+    for _ in range(100):
+        warm @ warm
+    torch.cuda.synchronize()
+    del warm
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
+        name = _dname(dtype)
         # decode: 8 slots, lengths spread over 1..2047
         lengths = np.sort(rng.integers(1, 2048, size=8))
         lengths[-1] = 2047
@@ -339,6 +436,23 @@ def phase_kernels(seed):
         rows.append(_paged_case(f"prefill512-{name}", dtype, 8, 512,
                                 [0] * 8, [0], gen))
         torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    # decode at the serving run's mean context
+    rows.append(_paged_case("decode370-bfloat16", bf, 8, 1, [370] * 8,
+                            range(8), gen))
+    # odd shapes, checked and not timed: windows of 5 and 130 rows, GQA
+    # 32 / 8, one-key and 64-key contexts
+    spread = np.sort(rng.integers(0, 2000, size=8)).tolist()
+    for label, W, lens, active, kvh in (
+            ("w5-gqa4", 5, spread, range(8), 8),
+            ("w130", 130, [256] + [0] * 7, [0], 32),
+            ("w5-64keys", 5, [59] * 8, range(8), 32),
+            ("decode-gqa4", 1, spread, range(8), 8),
+            ("decode-1key", 1, [0] * 8, range(8), 32),
+            ("decode-64keys", 1, [63] * 8, range(8), 32)):
+        rows.append(_paged_case(f"{label}-bfloat16", bf, 8, W, lens, active,
+                                gen, kvh=kvh, timed=False))
+    torch.cuda.empty_cache()
     for sq in (128, 512, 2048):
         rows.append(_flash_case(f"causal{sq}-bfloat16", torch.bfloat16, 32,
                                 sq, sq, True, gen))
@@ -402,14 +516,28 @@ def _serving_config():
 def _faulty_k1(fault, k1):
     """K1 with a planted fault, to show that the serving check catches
     one: ``shifted_tables`` reads block j + 1's page for block j;
-    ``unscaled`` drops the 1/sqrt(hd) of the scores."""
+    ``unscaled`` drops the 1/sqrt(hd) of the scores; ``first_split_only``
+    clamps each decode row's pos to the last key of the decode kernel's
+    first split, which is what a merge that dropped the later splits would
+    serve."""
     import torch
+
+    from paddle_tpu_torch.kernels.paged_attention import (decode_splits,
+                                                          split_bounds)
 
     def faulty(q, k_arena, v_arena, tables, pos, scale):
         if fault == "shifted_tables":
             tables = torch.cat([tables[:, 1:], tables[:, :1] * 0], dim=1)
-        else:
+        elif fault == "unscaled":
             scale = 1.0
+        elif q.shape[1] == 1:
+            S, B = tables.shape
+            n = decode_splits(
+                S * k_arena.shape[2], B,
+                torch.cuda.get_device_properties(q.device)
+                .multi_processor_count)
+            _first, end = split_bounds(pos, k_arena.shape[1], B, n)
+            pos = torch.minimum(pos, (end[:, :1] - 1).to(pos.dtype))
         return k1(q, k_arena, v_arena, tables, pos, scale)
     return faulty
 
@@ -439,6 +567,7 @@ def phase_parity(seed):
     import numpy as np
     import torch
 
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch import seed as pt_seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.serving import GenerationConfig, GenerationEngine
@@ -456,10 +585,18 @@ def phase_parity(seed):
     eng = GenerationEngine(model, GenerationConfig(
         max_slots=4, max_seq_len=2048, page_len=16,
         prefill_buckets=(128, 512)), device=DEVICE)
+    kernels.reset_counters()
     with eng:
         futs = [eng.submit(p, max_new_tokens=new, return_logprobs=True)
                 for p in prompts]
         outs = [f.result(timeout=600) for f in futs]
+    # fp32: decode steps on the split-K decode kernel, prefill windows on
+    # the general kernel (the tensor-core one takes bf16 only)
+    counts = kernels.counters()
+    paged = {n: counts[n]["launches"] for n in PAGED_COUNTERS.values()}
+    if not paged["paged_attention_decode"] or not paged["paged_attention"] \
+            or paged["paged_attention_sm90"]:
+        raise RuntimeError(f"parity: paged-attention launches {paged}")
     lp_errs = []
     with torch.inference_mode():
         for p, (seq, lps) in zip(prompts, outs):
@@ -480,9 +617,11 @@ def phase_parity(seed):
         raise RuntimeError("parity: the shared prefix was not reused")
     _emit({"phase": "parity", "ok": True, "requests": len(prompts),
            "new_tokens": new, "logprob_max_abs_err": max(lp_errs),
-           "logprob_tol": 2e-3, "prefix_hit_rate": st["prefix_hit_rate"]})
+           "logprob_tol": 2e-3, "prefix_hit_rate": st["prefix_hit_rate"],
+           "paged_launches": paged})
     del eng, model
     torch.cuda.empty_cache()
+    return counts
 
 
 def phase_serving(seed):
@@ -540,12 +679,23 @@ def phase_serving(seed):
     torch.cuda.synchronize()
     counts = kernels.counters()
     for name, c in counts.items():
-        if c["plain_calls"] != 0 or (c["launches"] <= 0 and
-                                     name == "paged_attention"):
+        if c["plain_calls"] != 0:
             raise RuntimeError(f"serving: kernel {name} counts {c}")
+    # the engine's paged attention, exactly: every layer of every prefill
+    # window on the tensor-core kernel, of every decode step on the split-K
+    # decode kernel, none on the general kernel
+    L = cfg.num_hidden_layers
+    eng_counts = st["counters"]
+    paged = {n: counts[n]["launches"] for n in PAGED_COUNTERS.values()}
+    want = {"paged_attention_sm90": L * eng_counts.get("prefills_total", 0),
+            "paged_attention_decode": L * eng_counts.get("decode_steps", 0),
+            "paged_attention": 0}
+    if paged != want or not want["paged_attention_decode"] or \
+            not want["paged_attention_sm90"]:
+        raise RuntimeError(f"serving: paged-attention launches {paged}, "
+                           f"expected {want}")
     # generate's flash launches, exactly: each layer's prefill (96 rows) on
     # the tensor-core kernel, each later single-row step on the CUDA-core one
-    L = cfg.num_hidden_layers
     flash = {n: counts[n]["launches"] for n in (
         "flash_attention_sm90", "flash_attention")}
     if flash != {"flash_attention_sm90": L,
@@ -614,7 +764,8 @@ def phase_serving(seed):
 
 def _kernel_group(name):
     low = name.lower()
-    if "paged_attention_kernel" in low:
+    if any(k in low for k in ("paged_attention_kernel", "decode_split_kernel",
+                              "decode_merge_kernel", "paged_sm90_kernel")):
         return "paged_attention"
     if "flash_fwd_sm90" in low:
         return "flash_attention_sm90"
@@ -1974,13 +2125,22 @@ def _kernels_line(rows, paths):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
     launches on the main paths (``paths``: {path: counters read after its
-    run}): serving, the bf16 training steps, and the fp32 depth-2 training
-    steps of the parity phases, which run the CUDA-core flash and grouped
-    GEMM kernels)."""
+    run}): serving, the bf16 training steps, and the fp32 runs of the
+    parity phases (the depth-2 engine, whose prefill windows run the
+    general paged-attention kernel, and the depth-2 training steps, which
+    run the CUDA-core flash and grouped GEMM kernels)."""
     # (kernel, representative case, source, TPU kernel replaced, the
     # counters whose launches it sums)
     table = [
-        ("paged_attention", "decode-bfloat16", "paged_attention.cu",
+        ("paged_attention_decode", "decode-bfloat16",
+         "paged_attention_decode.cu",
+         "paddle_tpu/kernels/pallas/paged_attention.py:46",
+         ["paged_attention_decode"]),
+        ("paged_attention_sm90", "prefill512-bfloat16",
+         "paged_attention_sm90.cu",
+         "paddle_tpu/kernels/pallas/paged_attention.py:46",
+         ["paged_attention_sm90"]),
+        ("paged_attention", "prefill128-float32", "paged_attention.cu",
          "paddle_tpu/kernels/pallas/paged_attention.py:46",
          ["paged_attention"]),
         ("flash_attention", "causal512-float32", "flash_attention.cu",
@@ -2056,7 +2216,7 @@ def _kernels_line(rows, paths):
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": case}
-        for key in ("cuda_core_ms", "library_ms_spread"):
+        for key in ("cuda_core_ms", "library_ms_spread", "graph_ms"):
             if r.get(key) is not None:
                 entry[key] = r[key]
         if name in also:
@@ -2115,7 +2275,7 @@ def main() -> int:
 
     rows = phase_kernels(SEED)
     rows += phase_train_kernels(SEED)
-    phase_parity(SEED)
+    serving_fp32 = phase_parity(SEED)
     serving = phase_serving(SEED)
     training_fp32 = phase_train_parity(SEED)
     training = phase_train(SEED)
@@ -2124,7 +2284,8 @@ def main() -> int:
     moe = phase_moe_train(SEED)
 
     _emit({"kernels": _kernels_line(rows, {
-        "serving": serving, "training": training, "moe-training": moe,
+        "serving": serving, "serving-fp32": serving_fp32,
+        "training": training, "moe-training": moe,
         "training-fp32": training_fp32, "moe-training-fp32": moe_fp32})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

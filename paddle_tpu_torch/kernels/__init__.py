@@ -23,6 +23,8 @@ __all__ = ["paged_attention", "paged_attention_plain", "flash_attention",
            "fused_moe_mlp", "counters", "reset_counters"]
 
 _COUNTS = {"paged_attention": _paged.COUNTS,
+           "paged_attention_decode": _paged.COUNTS_DECODE,
+           "paged_attention_sm90": _paged.COUNTS_SM90,
            "flash_attention": _flash.COUNTS,
            "flash_attention_sm90": _flash.COUNTS_SM90,
            "flash_attention_bwd_dkv": _flash.COUNTS_DKV,

@@ -27,7 +27,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["library", "kernel", "check", "build_info", "Counts"]
+__all__ = ["library", "kernel", "check", "launch", "build_info", "Counts"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -159,6 +159,24 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().pt_cuda_error_string(int(err)).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(fn, what: str, device, *args) -> None:
+    """Call the C entry ``fn`` with ``args`` and the current stream of the
+    CUDA ``device`` (a tensor's, so its index is set), made the current
+    device for the call if it is not, and raise on its error
+    (:func:`check`). The stream handle comes from
+    torch's raw-stream query, which costs less per call than building a
+    ``torch.cuda.Stream``."""
+    import torch
+
+    idx = device.index
+    if idx == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    check(err, what)
 
 
 class Counts:

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
 // (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu,
-// grouped_matmul_sm90.cu): TMA tensor maps and loads, mbarriers, wgmma
-// descriptors and the wgmma instructions they use.
+// grouped_matmul_sm90.cu, paged_attention_sm90.cu): TMA tensor maps and
+// loads, mbarriers, wgmma descriptors and the wgmma instructions they use.
 //
 // Layout contract. Every operand tile in shared memory is what a TMA load
 // with CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 64 bf16 (128 bytes), the
@@ -61,23 +61,34 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A map over a contiguous bf16 tensor [bh, s, d] whose box is [box_rows][64]
-// of one (b): rows past s read as zeros, never as the next sequence's.
-// Returns false if cuTensorMapEncodeTiled refuses it, as it does in a host
-// thread with no current context (see allow_smem).
-inline bool make_map(CUtensorMap* map, const void* base, int bh, int s, int d,
-                     int box_rows) {
+// A map over a bf16 tensor of `rank` dims given innermost first (`dims`),
+// with the byte strides of dims 1 .. rank - 1 (`strides`, multiples of 16)
+// and the box `box` (box[0] = 64: one 128-byte swizzled row). Elements past
+// a dim's end read as zeros. Returns false if cuTensorMapEncodeTiled
+// refuses it, as it does in a host thread with no current context (see
+// allow_smem).
+inline bool make_map_nd(CUtensorMap* map, const void* base, int rank,
+                        const cuuint64_t* dims, const cuuint64_t* strides,
+                        const cuuint32_t* box) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return false;
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A map over a contiguous bf16 tensor [bh, s, d] whose box is [box_rows][64]
+// of one (b): rows past s read as zeros, never as the next sequence's.
+inline bool make_map(CUtensorMap* map, const void* base, int bh, int s, int d,
+                     int box_rows) {
   const cuuint64_t rows = s > 0 ? s : 1;  // an empty map is never loaded
   const cuuint64_t dims[3] = {(cuuint64_t)d, rows, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)d * 2, rows * d * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map_nd(map, base, 3, dims, strides, box);
 }
 
 // What an entry point returns when cuTensorMapEncodeTiled refuses one of
@@ -149,6 +160,19 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// One TMA box of a 4-D map, as tma_load.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 

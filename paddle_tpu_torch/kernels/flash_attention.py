@@ -200,10 +200,6 @@ def _check_kernel_inputs(name, q, tensors):
                          f"{q.shape[2]}")
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _on_cuda(name, q):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the kernel runs on CUDA tensors, got "
@@ -257,11 +253,10 @@ def flash_attention_fwd_cuda_core(q, k, v, offset, causal, scale):
     fn = _build.kernel("pt_flash_attention_fwd", [ctypes.c_void_p] * 5 +
                        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
-                 float(scale), _DTYPES[q.dtype], _stream(q))
-    _build.check(err, "pt_flash_attention_fwd")
+    _build.launch(fn, "pt_flash_attention_fwd", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh,
+                  sq, sk, d, int(offset), int(bool(causal)), float(scale),
+                  _DTYPES[q.dtype])
     COUNTS.launched()
     return o, lse
 
@@ -279,11 +274,9 @@ def flash_attention_fwd_sm90(q, k, v, offset, causal, scale):
     lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
     fn = _build.kernel("pt_flash_attention_fwd_sm90", [ctypes.c_void_p] * 5 +
                        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
-                 float(scale), _stream(q))
-    _build.check(err, "pt_flash_attention_fwd_sm90")
+    _build.launch(fn, "pt_flash_attention_fwd_sm90", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh,
+                  sq, sk, d, int(offset), int(bool(causal)), float(scale))
     COUNTS_SM90.launched()
     return o, lse
 
@@ -332,12 +325,11 @@ def flash_attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta, offset,
     fn = _build.kernel("pt_flash_attention_bwd_dkv", [ctypes.c_void_p] * 8 +
                        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
-                 float(scale), _DTYPES[q.dtype], _stream(q))
-    _build.check(err, "pt_flash_attention_bwd_dkv")
+    _build.launch(fn, "pt_flash_attention_bwd_dkv", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, sk,
+                  d, int(offset), int(bool(causal)), float(scale),
+                  _DTYPES[q.dtype])
     COUNTS_DKV.launched()
     return dk, dv
 
@@ -356,12 +348,11 @@ def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, offset, causal,
     fn = _build.kernel("pt_flash_attention_bwd_dkv_sm90",
                        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
                        [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
-                 float(scale), _stream(q))
-    _build.check(err, "pt_flash_attention_bwd_dkv_sm90")
+    _build.launch(fn, "pt_flash_attention_bwd_dkv_sm90", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
+                  float(scale))
     COUNTS_DKV_SM90.launched()
     return dk, dv
 
@@ -392,12 +383,10 @@ def flash_attention_bwd_dq_cuda_core(q, k, v, do, lse, delta, offset, causal,
     fn = _build.kernel("pt_flash_attention_bwd_dq", [ctypes.c_void_p] * 7 +
                        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                              ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq, sk,
-                 d, int(offset), int(bool(causal)), float(scale),
-                 _DTYPES[q.dtype], _stream(q))
-    _build.check(err, "pt_flash_attention_bwd_dq")
+    _build.launch(fn, "pt_flash_attention_bwd_dq", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), bh, sq, sk, d, int(offset),
+                  int(bool(causal)), float(scale), _DTYPES[q.dtype])
     COUNTS_DQ.launched()
     return dq
 
@@ -416,11 +405,10 @@ def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset, causal,
     fn = _build.kernel("pt_flash_attention_bwd_dq_sm90",
                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
                        [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq, sk,
-                 d, int(offset), int(bool(causal)), float(scale), _stream(q))
-    _build.check(err, "pt_flash_attention_bwd_dq_sm90")
+    _build.launch(fn, "pt_flash_attention_bwd_dq_sm90", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                  delta.data_ptr(), dq.data_ptr(), bh, sq, sk, d, int(offset),
+                  int(bool(causal)), float(scale))
     COUNTS_DQ_SM90.launched()
     return dq
 

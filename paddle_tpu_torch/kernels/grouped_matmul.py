@@ -92,10 +92,6 @@ def tgmm_plain(lhs, dout, group_sizes):
     return out.to(lhs.dtype)
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def takes_sm90(dtype) -> bool:
     """Whether a CUDA call goes to the tensor-core kernels: bf16 operands;
     fp32 stays on the CUDA-core kernels."""
@@ -160,9 +156,7 @@ def _gmm_launch(entry, lhs, rhs, group_sizes, trans_rhs, sm90):
         args.append(_DTYPES[lhs.dtype])
     fn = _build.kernel(entry, [ctypes.c_void_p] * 4 +
                        [ctypes.c_int] * (len(args) - 4) + [ctypes.c_void_p])
-    with torch.cuda.device(lhs.device):
-        err = fn(*args, _stream(lhs))
-    _build.check(err, entry)
+    _build.launch(fn, entry, lhs.device, *args)
     return out
 
 
@@ -207,9 +201,7 @@ def _tgmm_launch(entry, lhs, dout, group_sizes, sm90):
         args.append(_DTYPES[lhs.dtype])
     fn = _build.kernel(entry, [ctypes.c_void_p] * 4 +
                        [ctypes.c_int] * (len(args) - 4) + [ctypes.c_void_p])
-    with torch.cuda.device(lhs.device):
-        err = fn(*args, _stream(lhs))
-    _build.check(err, entry)
+    _build.launch(fn, entry, lhs.device, *args)
     return out
 
 

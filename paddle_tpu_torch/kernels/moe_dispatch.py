@@ -53,10 +53,6 @@ COUNTS_GATHER = _build.Counts()
 COUNTS_COMBINE = _build.Counts()
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _check_cuda(t, name):
     if t.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {t.device}")
@@ -137,13 +133,11 @@ def route(xt, wg, top_k):
     fn = _build.kernel("pt_moe_route", [ctypes.c_void_p] * 2 +
                        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 +
                        [ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        err = fn(xt.data_ptr(), wg.data_ptr(), n, h, e, top_k,
-                 gv.data_ptr(), gi.data_ptr(), pos.data_ptr(),
-                 cnt.data_ptr(), me.data_ptr(), ce.data_ptr(),
-                 blk_cnt.data_ptr(), blk_me.data_ptr(), blk_ce.data_ptr(),
-                 _DTYPES[xt.dtype], _stream(xt))
-    _build.check(err, "pt_moe_route")
+    _build.launch(fn, "pt_moe_route", dev, xt.data_ptr(), wg.data_ptr(), n, h,
+                  e, top_k, gv.data_ptr(), gi.data_ptr(), pos.data_ptr(),
+                  cnt.data_ptr(), me.data_ptr(), ce.data_ptr(),
+                  blk_cnt.data_ptr(), blk_me.data_ptr(), blk_ce.data_ptr(),
+                  _DTYPES[xt.dtype])
     COUNTS_ROUTE.launched()
     return gv, gi, pos, cnt, me, ce
 
@@ -220,10 +214,9 @@ def gather_rows(src, idx):
                       device=src.device)
     fn = _build.kernel("pt_moe_gather", [ctypes.c_void_p] * 3 +
                        [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    with torch.cuda.device(src.device):
-        err = fn(src.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                 idx.shape[0], src.shape[0], row_bytes, _stream(src))
-    _build.check(err, "pt_moe_gather")
+    _build.launch(fn, "pt_moe_gather", src.device, src.data_ptr(),
+                  idx.data_ptr(), out.data_ptr(), idx.shape[0], src.shape[0],
+                  row_bytes)
     COUNTS_GATHER.launched()
     return out
 
@@ -261,11 +254,9 @@ def combine_rows(y, gates, dest2):
     out = torch.empty(n, y.shape[1], dtype=y.dtype, device=y.device)
     fn = _build.kernel("pt_moe_combine", [ctypes.c_void_p] * 4 +
                        [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    with torch.cuda.device(y.device):
-        err = fn(y.data_ptr(), gates.data_ptr(), dest2.data_ptr(),
-                 out.data_ptr(), n, k, y.shape[1], y.shape[0],
-                 _DTYPES[y.dtype], _stream(y))
-    _build.check(err, "pt_moe_combine")
+    _build.launch(fn, "pt_moe_combine", y.device, y.data_ptr(),
+                  gates.data_ptr(), dest2.data_ptr(), out.data_ptr(), n, k,
+                  y.shape[1], y.shape[0], _DTYPES[y.dtype])
     COUNTS_COMBINE.launched()
     return out
 

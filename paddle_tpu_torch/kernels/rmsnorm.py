@@ -82,10 +82,6 @@ def _check(name, rows, w, rstd, others):
         raise ValueError(f"{name}: rstd {tuple(rstd.shape)} != ({n},)")
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def rms_norm_fwd(x2, res2, w, eps):
     """Forward on [n, h] rows: the kernel on CUDA, the plain version on
     the CPU. Returns (y, s, rstd)."""
@@ -109,11 +105,9 @@ def rms_norm_fwd(x2, res2, w, eps):
     fn = _build.kernel("pt_rmsnorm_fwd", [ctypes.c_void_p] * 6 +
                        [ctypes.c_int] * 2 + [ctypes.c_float] +
                        [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    with torch.cuda.device(x2.device):
-        err = fn(x2.data_ptr(), res_p, w.data_ptr(), y.data_ptr(),
-                 s.data_ptr(), rstd.data_ptr(), n, h, float(eps),
-                 int(res2 is not None), _DTYPES[x2.dtype], _stream(x2))
-    _build.check(err, "pt_rmsnorm_fwd")
+    _build.launch(fn, "pt_rmsnorm_fwd", x2.device, x2.data_ptr(), res_p,
+                  w.data_ptr(), y.data_ptr(), s.data_ptr(), rstd.data_ptr(), n,
+                  h, float(eps), int(res2 is not None), _DTYPES[x2.dtype])
     counts.launched()
     return y, s, rstd
 
@@ -138,11 +132,10 @@ def rms_norm_bwd(s, w, rstd, dy, dr):
     part = torch.empty(n_blocks, h, dtype=torch.float32, device=s.device)
     fn = _build.kernel("pt_rmsnorm_bwd", [ctypes.c_void_p] * 8 +
                        [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    with torch.cuda.device(s.device):
-        err = fn(s.data_ptr(), w.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
-                 dr_p, dx.data_ptr(), dw.data_ptr(), part.data_ptr(), n, h,
-                 n_blocks, int(dr is not None), _DTYPES[s.dtype], _stream(s))
-    _build.check(err, "pt_rmsnorm_bwd")
+    _build.launch(fn, "pt_rmsnorm_bwd", s.device, s.data_ptr(), w.data_ptr(),
+                  rstd.data_ptr(), dy.data_ptr(), dr_p, dx.data_ptr(),
+                  dw.data_ptr(), part.data_ptr(), n, h, n_blocks,
+                  int(dr is not None), _DTYPES[s.dtype])
     counts.launched()
     return dx, dw
 

@@ -68,11 +68,9 @@ def rope(x, theta, pos_offset, inverse):
     fn = _build.kernel("pt_rope", [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_float] + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), b, s, h, d,
-                 float(math.log(theta)), int(pos_offset), int(bool(inverse)),
-                 _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "pt_rope")
+    _build.launch(fn, "pt_rope", x.device, x.data_ptr(), out.data_ptr(), b, s,
+                  h, d, float(math.log(theta)), int(pos_offset),
+                  int(bool(inverse)), _DTYPES[x.dtype])
     counts.launched()
     return out
 

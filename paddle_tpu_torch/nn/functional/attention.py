@@ -9,6 +9,8 @@ kernels' plain versions run.
 """
 from __future__ import annotations
 
+import torch
+
 from ...kernels.flash_attention import flash_attention
 
 __all__ = ["scaled_dot_product_attention"]
@@ -19,7 +21,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, scale=None):
     """q/k/v: [batch, seq, heads, head_dim]. Under ``is_causal`` the mask is
     bottom-right aligned (row i sees keys up to ``i + sk - sq``), so a
-    KV-cached decode step attends its whole cache."""
+    KV-cached decode step attends its whole cache. With more queries than
+    keys the first ``sq - sk`` rows see no key; as in the JAX package's
+    softmax over an all-masked row, each of them is the mean of V over the
+    keys (plain PyTorch, so its gradient is 1/sk to every V row and none to
+    q or k). The flash kernels keep o = 0 on such rows, which ring
+    attention relies on."""
     if attn_mask is not None:
         raise NotImplementedError(
             "attn_mask is not ported yet (serving and the Llama step need "
@@ -28,5 +35,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         raise NotImplementedError(
             "attention dropout is not ported yet (serving and the Llama "
             "step need none); see ROADMAP.md, Queue 1")
-    return flash_attention(query, key, value, causal=bool(is_causal),
+    sq, sk = query.shape[1], key.shape[1]
+    if not is_causal or sq <= sk or sk == 0:
+        return flash_attention(query, key, value, causal=bool(is_causal),
+                               scale=scale)
+    blind = sq - sk
+    mean_v = value.float().mean(dim=1, keepdim=True).to(value.dtype)
+    seen = flash_attention(query[:, blind:], key, value, causal=True,
                            scale=scale)
+    return torch.cat([mean_v.expand(-1, blind, -1, -1), seen], dim=1)

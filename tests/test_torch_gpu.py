@@ -6,6 +6,8 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,9 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
     flash_attention_fwd, sm90_dkv_bound, sm90_dq_bound, sm90_fwd_bound,
     takes_sm90)
+
+# the module (the package re-exports a function of the same name)
+pa = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
 
 
 def _close(a, b, tol):
@@ -54,34 +59,128 @@ def cuda():
     return torch.device("cuda")
 
 
+_PAGED_COUNTERS = {"decode": "paged_attention_decode",
+                   "sm90": "paged_attention_sm90",
+                   "cuda_core": "paged_attention"}
+
+
+def _paged_case(cuda, dtype, nh, kvh, hd, PL, W, lens, idle=(), B=None,
+                seed=9):
+    """Inputs at one shape: slot s's window starts at lens[s] (pos = lens +
+    w, negative rows see no key); every slot owns distinct random pages
+    and the slots in ``idle`` an all-zero table (the scratch page), as in
+    the engine. With ``B`` given, the tables are B pages wide whatever
+    lens says, so a slot's pos may run past its table (as the engine's
+    padded prefill rows near ``max_seq_len`` do), and their entries are
+    drawn from 40 pages with repeats, the scratch page mid-table."""
+    rng = np.random.default_rng(seed)
+    S = len(lens)
+    shared = B is not None
+    if not shared:
+        B = max(1, -(-(max(lens) + W) // PL))
+    P = 40 if shared else S * B + 1
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    q, ka, va = rnd(S, W, nh, hd), rnd(P, PL, kvh, hd), rnd(P, PL, kvh, hd)
+    if shared:
+        tables = torch.from_numpy(rng.integers(0, P, (S, B)).astype(np.int32))
+        tables[0, B // 2] = 0
+    else:
+        tables = torch.from_numpy((rng.permutation(P - 1)[:S * B] + 1)
+                                  .reshape(S, B).astype(np.int32))
+    tables[list(idle)] = 0
+    pos = torch.tensor(lens, dtype=torch.int32)[:, None] + \
+        torch.arange(W, dtype=torch.int32)
+    return ([t.to(cuda).to(dtype) for t in (q, ka, va)]
+            + [tables.to(cuda), pos.to(cuda)])
+
+
+def _check_paged(got, args, hd):
+    """Against the plain version on fp32 copies: the window kernel within
+    ``sm90_paged_bound``, the others within one rounding of the result."""
+    f32 = [a.float() if a.is_floating_point() else a for a in args]
+    scale = 1.0 / hd ** 0.5
+    ref = paged_attention_plain(*f32, scale)
+    which = pa.route(args[0].dtype, hd, args[0].shape[1],
+                     args[0].shape[2] // args[1].shape[2], args[1].shape[1])
+    if which == "sm90":
+        _within(got, ref, pa.sm90_paged_bound(*f32, scale, ref), "o")
+    else:
+        _close(got.float().cpu(), ref.cpu(), dict(_TOLS)[args[0].dtype])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", _TOLS)
-@pytest.mark.parametrize("nh,kvh,hd,PL,W", [(4, 4, 16, 4, 2), (4, 2, 16, 4, 2),
-                                            (6, 2, 12, 5, 2),
-                                            (8, 2, 128, 16, 5),
-                                            (32, 32, 128, 16, 1)])
-def test_paged_attention_kernel_matches_plain(cuda, nh, kvh, hd, PL, W,
-                                              dtype, tol):
-    rng = np.random.default_rng(9)
-    S, P, B = 3, 40, 6
-    q = torch.from_numpy(rng.standard_normal((S, W, nh, hd),
-                                             dtype=np.float32))
-    ka = torch.from_numpy(rng.standard_normal((P, PL, kvh, hd),
-                                              dtype=np.float32))
-    va = torch.from_numpy(rng.standard_normal((P, PL, kvh, hd),
-                                              dtype=np.float32))
-    tables = torch.from_numpy(rng.integers(0, P, (S, B)).astype(np.int32))
-    lens = torch.tensor([0, PL + 1, B * PL + 3], dtype=torch.int32)
-    pos = lens[:, None] + torch.arange(W, dtype=torch.int32)
-    args = [t.to(cuda) for t in (q, ka, va)]
-    args = [a.to(dtype) for a in args] + [tables.to(cuda), pos.to(cuda)]
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,kvh,hd,PL,W,lens,idle,B", [
+    (4, 4, 16, 4, 2, (0, 5, 27), (), None),           # the general kernel
+    (4, 2, 16, 4, 2, (0, 5, 27), (), None),
+    (6, 2, 12, 5, 2, (0, 6, 33), (), None),
+    (8, 2, 128, 16, 5, (0, 17, 99), (), None),
+    (32, 32, 128, 16, 1, (0, 17, 99), (), None),      # decode
+    (32, 32, 128, 16, 1, (0, 63, 2046), (), None),    # 1, 64, 2047 keys
+    (32, 32, 128, 16, 1, (-1, 0, 370), (1,), None),   # no key; idle slot
+    (32, 4, 128, 16, 1, (5, 300, 1000), (), None),    # GQA 8
+    (16, 8, 64, 32, 1, (3, 64, 513), (), None),       # GQA 2, PL 32, hd 64
+    (8, 8, 8, 16, 1, (2, 40, 77), (), None),          # hd 8
+    (4, 4, 256, 16, 1, (2, 40, 700), (), None),       # hd 256
+    (8, 2, 128, 16, 5, (-3, 59, 2042), (), None),     # rows see none
+    (16, 8, 128, 32, 63, (0, 64, 256), (), None),     # W 63, 256 prefix
+    (32, 4, 64, 16, 65, (0, 1, 500), (), None),       # W 65, GQA 8
+    (8, 8, 128, 16, 130, (256, 0, 0), (1, 2), None),  # W 130, idle slots
+    (4, 2, 128, 8, 200, (0, 1000, 3), (), None),      # PL 8
+    # tables of B = 6 pages, random with repeats and the scratch page
+    # mid-table; slot 2's pos runs past the table (to B * PL + 3 and on)
+    (4, 4, 16, 4, 2, (0, 5, 27), (), 6),
+    (4, 2, 16, 4, 2, (0, 5, 27), (), 6),
+    (6, 2, 12, 5, 2, (0, 6, 33), (), 6),
+    (8, 2, 128, 16, 5, (0, 17, 99), (), 6),
+    (8, 2, 128, 16, 130, (0, 40, 50), (), 6),         # W 130 over the end
+    (32, 32, 128, 16, 1, (0, 17, 99), (), 6),
+    (32, 8, 128, 16, 1, (0, 17, 99), (), 6),          # decode, GQA 4
+    (4, 4, 256, 16, 1, (2, 40, 100), (), 6)])         # decode, hd 256
+def test_paged_attention_kernel_matches_plain(cuda, nh, kvh, hd, PL, W, lens,
+                                              idle, B, dtype):
+    """Each CUDA call runs the one kernel ``route`` names (its counter reads
+    1, the other two 0): decode at W = 1, the tensor-core window kernel for
+    bf16 windows, the general kernel for the rest; each against the plain
+    version."""
+    args = _paged_case(cuda, dtype, nh, kvh, hd, PL, W, lens, idle, B)
     reset_counters()
     got = paged_attention(*args)
     torch.cuda.synchronize()
-    ref = paged_attention_plain(*[a.float() if a.is_floating_point() else a
-                                  for a in args], 1.0 / hd ** 0.5)
-    assert counters()["paged_attention"]["launches"] == 1
-    _close(got.float().cpu(), ref.cpu(), tol)
+    want = _PAGED_COUNTERS[pa.route(dtype, hd, W, nh // kvh, PL)]
+    c = counters()
+    assert {n: c[n]["launches"] for n in _PAGED_COUNTERS.values()} == \
+        {n: int(n == want) for n in _PAGED_COUNTERS.values()}
+    _check_paged(got, args, hd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 130])
+def test_paged_attention_takes_a_q_that_is_not_16_byte_aligned(cuda, W):
+    """TMA and 16-byte loads need aligned starts: the wrapper clones a q
+    that does not have one, and the result still matches."""
+    args = _paged_case(cuda, torch.bfloat16, 8, 2, 128, 16, W, (3, 200))
+    flat = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    q = flat[1:].view(args[0].shape)
+    q.copy_(args[0])
+    assert q.data_ptr() % 16 != 0
+    got = paged_attention(q, *args[1:])
+    torch.cuda.synchronize()
+    _check_paged(got, args, 128)
+
+
+@pytest.mark.gpu
+def test_paged_attention_raises_where_no_kernel_takes_it(cuda):
+    args = _paged_case(cuda, torch.float16, 4, 4, 64, 16, 1, (3, 20))
+    reset_counters()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        paged_attention(*args)
+    assert all(counters()[n] == {"launches": 0, "plain_calls": 0}
+               for n in _PAGED_COUNTERS.values())
 
 
 @pytest.mark.gpu
@@ -492,7 +591,7 @@ def test_grouped_matmul_sm90_autograd_uses_the_tensor_core_kernels(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dkv", "flash_dq",
-                                    "gmm", "gmm_dgrad", "tgmm"])
+                                    "gmm", "gmm_dgrad", "tgmm", "paged"])
 def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
     """Each tensor-core kernel as the first CUDA call of a new host thread
     (as autograd's worker thread makes it): cuTensorMapEncodeTiled
@@ -510,6 +609,7 @@ def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
     lhs, rhs = torch.randn(40, 64, **bf), torch.randn(2, 64, 72, **bf)
     dout = torch.randn(40, 72, **bf)
     sizes = torch.tensor([15, 25], dtype=torch.int32, device=cuda)
+    paged = _paged_case(cuda, torch.bfloat16, 8, 2, 128, 16, 130, (40, 3))
     calls = {
         "flash_fwd": lambda: fa.flash_attention_fwd_sm90(q, q, q, 0, True,
                                                          0.1),
@@ -519,7 +619,8 @@ def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
             q, q, q, q, stats, stats, 0, True, 0.1),
         "gmm": lambda: gm.gmm_sm90(lhs, rhs, sizes),
         "gmm_dgrad": lambda: gm.gmm_sm90(dout, rhs, sizes, trans_rhs=True),
-        "tgmm": lambda: gm.tgmm_sm90(lhs, dout, sizes)}
+        "tgmm": lambda: gm.tgmm_sm90(lhs, dout, sizes),
+        "paged": lambda: pa.paged_attention_sm90(*paged, 0.1)}
     torch.cuda.synchronize()
     errors = []
 

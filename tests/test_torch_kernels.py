@@ -130,6 +130,38 @@ def test_flash_attention_paddle_layout_matches_jax():
     _close(got, ref)
 
 
+@pytest.mark.parametrize("sq,sk", [(6, 4), (9, 3), (4, 4), (3, 8)])
+def test_causal_sdpa_matches_jax_when_queries_outnumber_keys(sq, sk):
+    """``scaled_dot_product_attention(is_causal=True)`` against the JAX
+    package's, forward within 1e-5 and the q, k, v gradients against
+    jax.vjp within 1e-4: with sq > sk the first sq - sk rows see no key and
+    both give mean(V) (the JAX softmax of an all-masked row is uniform);
+    sq <= sk is the control. The flash kernels keep o = 0 on such rows
+    (``test_flash_attention_plain_matches_jax``, offset < 0)."""
+    from paddle_tpu.nn.functional.attention import (
+        scaled_dot_product_attention as jsdpa)
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+    rng = np.random.default_rng(13)
+    b, h, d = 2, 3, 8
+    q = rng.standard_normal((b, sq, h, d), dtype=np.float32)
+    k = rng.standard_normal((b, sk, h, d), dtype=np.float32)
+    v = rng.standard_normal((b, sk, h, d), dtype=np.float32)
+    go = rng.standard_normal((b, sq, h, d), dtype=np.float32)
+    jo, vjp = jax.vjp(lambda a, c, e: jsdpa(a, c, e, is_causal=True).data,
+                      jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    jgrads = vjp(jnp.asarray(go))
+    (o,), grads = _grads(lambda a, c, e: scaled_dot_product_attention(
+        a, c, e, is_causal=True), (q, k, v), (go,))
+    _close(o, jo)
+    for got, ref in zip(grads, jgrads):
+        _close(got, ref, rtol=1e-4, atol=1e-4)
+    if sq > sk:
+        _close(o[:, :sq - sk], np.broadcast_to(v.mean(axis=1, keepdims=True),
+                                               (b, sq - sk, h, d)))
+        assert not grads[0][:, :sq - sk].any()
+
+
 def test_wrappers_reject_bad_inputs():
     q = torch.zeros(1, 1, 4, 8)
     ka = torch.zeros(2, 4, 3, 8)
