@@ -18,7 +18,13 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              tensor-core flash forward, dK/dV and dQ kernels (bf16, head
              dim 128) are held to the bound of their bf16 roundings of P
              and dS and timed beside the CUDA-core kernels on the same
-             inputs; the CUDA-core ones keep their fp32 cases. Paged
+             inputs; the CUDA-core ones keep their fp32 cases. The
+             single-row split-K decode kernel is timed eager and in
+             CUDA-graph replay beside the CUDA-core kernel and SDPA
+             (both ways too) at bh 32 x 640 keys and at serving's
+             generate (bh 64 x 100), and checked at odd cases (2047 keys,
+             fp32, head dim 64, a causal cut, a row that sees no key, one
+             key, a strided paddle-layout q and an unaligned one). Paged
              attention runs the kernel its route names (split-K decode at
              W = 1, the tensor-core window kernel for bf16 windows, the
              general kernel for fp32 windows), checked to that kernel's
@@ -27,8 +33,9 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              64-key contexts).
 4. parity  — fp32, GPT-3 6.7B width at depth 2: the engine's greedy tokens
              (split-K decode kernel, the general kernel for the prefill
-             windows) equal ``model.generate``'s (flash kernel), and its
-             logprobs match a teacher-forced forward.
+             windows) equal ``model.generate``'s (flash kernels: its
+             single-row steps on the split-K flash decode kernel, counted
+             exactly), and its logprobs match a teacher-forced forward.
 5. serving — bf16, full 32-layer GPT-3 6.7B with random weights: an engine
              with 8 slots answers 16 requests (half share a 256-token
              prefix), then ``model.generate`` decodes two prompts; the
@@ -37,10 +44,14 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              kernel, of every decode step on the split-K decode kernel,
              none on the general one; generate's prefill on the
              tensor-core flash kernel and its single-row steps on the
-             CUDA-core one; no plain version run. Every answer is then
-             checked against the model's own forward, and the same check
-             must fail on answers served with each of three faults
-             planted in the paged-attention wrapper.
+             split-K decode kernel, none on the CUDA-core one; no plain
+             version run. Every answer is then checked against the
+             model's own forward, and the same check must fail on answers
+             served with each of three faults planted in the
+             paged-attention wrapper, and on generate's tokens with a
+             fault planted in the flash decode route (each step sees only
+             its first split's keys). A profiled generate gives its
+             device time by kernel group.
 6. train-parity — fp32, the 1.16B Llama's width at depth 2, batch 2 x 512:
              one step's loss and every parameter gradient through the
              kernels against the same step with each kernel wrapper swapped
@@ -407,6 +418,102 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen):
     return row
 
 
+def _flash_decode_case(label, dtype, b, h, sk, d, offset, causal, gen,
+                       layout="cache", timed=False):
+    """The split-K decode kernel at one query row per (batch, head), paddle
+    layout: q [b, 1, h, d] against a cache k, v [b, sk, h, d], through
+    ``flash_decode`` (o and lse) or, for ``layout`` "qkv_view" (q a view
+    into a fused QKV tensor, as a decode step makes it) and "unaligned_q"
+    (q one element off a 16-byte boundary), through the paddle-layout
+    ``flash_attention`` under inference mode (o only). Held to one rounding
+    of o and 1e-3 of lse against ``flash_attention_plain`` on fp32 copies;
+    a row that sees no key must give o = 0 and lse = -1e30 exactly. Timed
+    eager and in CUDA-graph replay beside the CUDA-core kernel
+    (``flash_attention_fwd_cuda_core``) and torch's SDPA on the same
+    inputs in [bh, s, d] (copied there once, outside the timing)."""
+    import torch
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import counters, reset_counters
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention
+
+    fa = _flash_module()
+    scale = 1.0 / d ** 0.5
+    q, k, v = (_rand(gen, (b, s, h, d), dtype) for s in (1, sk, sk))
+    if layout == "qkv_view":
+        q = torch.stack([q, k[:, :1], v[:, :1]], dim=2)[:, :, 0]
+    elif layout == "unaligned_q":
+        flat = torch.empty(q.numel() + 1, dtype=dtype, device=DEVICE)
+        q = flat[1:].view(q.shape).copy_(q)
+
+    def call():
+        if layout == "cache":
+            return fa.flash_decode(q, k, v, offset, causal, scale)
+        with torch.inference_mode():
+            return flash_attention(q, k, v, causal=causal, scale=scale), None
+
+    reset_counters()
+    o, lse = call()
+    torch.cuda.synchronize()
+    ran = {n: counters()[n]["launches"] for n in (
+        "flash_attention_decode", "flash_attention", "flash_attention_sm90")}
+    if ran != {"flash_attention_decode": 1, "flash_attention": 0,
+               "flash_attention_sm90": 0}:
+        raise RuntimeError(f"flash_attention_decode[{label}]: launches {ran}")
+
+    def bhsd(t):
+        return t.transpose(1, 2).reshape(b * h, t.shape[1], d).contiguous()
+
+    qb, kb, vb = bhsd(q), bhsd(k), bhsd(v)
+    ro, rl = fa.flash_attention_plain(qb.float(), kb.float(), vb.float(),
+                                      offset, causal, scale)
+    err, _rel = _compare(f"flash_attention_decode[{label}]", bhsd(o), ro,
+                         _tol(dtype))
+    row = {"phase": "kernel", "kernel": "flash_attention_decode",
+           "case": label, "dtype": _dname(dtype), "b": b, "h": h, "sk": sk,
+           "d": d, "offset": offset, "causal": causal, "layout": layout,
+           "max_abs_err": err, "tol": _tol(dtype)}
+    if lse is not None:
+        row["lse_max_abs_err"] = _compare(
+            f"flash_attention_decode[{label}].lse", lse.reshape(-1),
+            rl.reshape(-1), (0.0, 1e-3))[0]
+    if causal and offset < 0 and (o.any().item() or (
+            lse is not None and not bool((lse == -1e30).all()))):
+        raise RuntimeError(f"flash_attention_decode[{label}]: a row that "
+                           f"sees no key gives o != 0 or lse != -1e30")
+    del ro, rl
+    if timed:
+        def pr1():
+            return fa.flash_attention_fwd_cuda_core(qb, kb, vb, offset,
+                                                    causal, scale)
+
+        # SDPA on [1, bh, s, d]: without a mask a row sees every key,
+        # which is this row's view under causal at offset sk - 1
+        if causal and offset != sk - 1:
+            raise ValueError(f"{label}: SDPA times the whole cache")
+
+        def lib():
+            return TF.scaled_dot_product_attention(qb[None], kb[None],
+                                                   vb[None])
+
+        n = min(sk, max(0, offset + 1)) if causal else sk
+        esz = q.element_size()
+        nbytes = 2 * b * h * n * d * esz + 2 * b * h * d * esz + b * h * 4
+        bound_ms, bound_by = _bound(nbytes, 4 * d * b * h * n, _dname(dtype))
+        row.update(
+            kernel_ms=_time_ms(call), graph_ms=_graph_ms(call),
+            cuda_core_ms=_time_ms(pr1), cuda_core_graph_ms=_graph_ms(pr1),
+            library_ms=_time_ms(lib), library_graph_ms=_graph_ms(lib),
+            plain_ms=_time_ms(lambda: fa.flash_decode_plain(
+                q, k, v, offset, causal, scale), iters=5, warmup=1),
+            bound_ms=bound_ms, bound_by=bound_by,
+            splits=list(fa.decode_plan(b * h, n, torch.cuda
+                                       .get_device_properties(0)
+                                       .multi_processor_count)))
+    _emit(row)
+    return row
+
+
 def phase_kernels(seed):
     import numpy as np
     import torch
@@ -462,8 +569,32 @@ def phase_kernels(seed):
                                 2048, 2048, True, gen))
     rows.append(_flash_case("causal512-float32", torch.float32, 32, 512, 512,
                             True, gen))
-    rows.append(_flash_case("decode1x640-bfloat16", torch.bfloat16, 32, 1,
-                            640, True, gen))
+    # single-row decode, split-K: bh 32 at 640 keys and serving's generate
+    # (two prompts x 32 heads, ~100 keys), timed; then odd cases, checked
+    bf, f32 = torch.bfloat16, torch.float32
+    for label, dtype, b, h, sk, d, off, causal, layout, timed in (
+            ("decode1x640-bfloat16", bf, 2, 16, 640, 128, 639, True,
+             "cache", True),
+            ("decode64x100-bfloat16", bf, 2, 32, 100, 128, 99, True,
+             "cache", True),
+            ("decode1x640-float32", f32, 2, 16, 640, 128, 639, True,
+             "cache", True),
+            ("decode-sk2047-bfloat16", bf, 1, 32, 2047, 128, 2046, True,
+             "cache", False),
+            ("decode-hd64-bfloat16", bf, 2, 16, 640, 64, 639, True,
+             "cache", False),
+            ("decode-cut300-bfloat16", bf, 2, 16, 640, 128, 300, True,
+             "cache", False),
+            ("decode-nokey-bfloat16", bf, 2, 16, 64, 128, -1, True,
+             "cache", False),
+            ("decode-sk1-bfloat16", bf, 2, 16, 1, 128, 0, True, "cache",
+             False),
+            ("decode-qkv-view-bfloat16", bf, 2, 32, 100, 128, 99, True,
+             "qkv_view", False),
+            ("decode-unaligned-q-bfloat16", bf, 2, 32, 100, 128, 99, True,
+             "unaligned_q", False)):
+        rows.append(_flash_decode_case(label, dtype, b, h, sk, d, off,
+                                       causal, gen, layout, timed))
     rows.append(_flash_case("ragged300-bfloat16", torch.bfloat16, 32, 300,
                             300, True, gen))
     torch.cuda.empty_cache()
@@ -563,6 +694,62 @@ def _fault_readings(model, prompts, new, fault):
                 for p, (seq, lps) in zip(prompts, outs)]
 
 
+def _generate_fault_readings(model, gen_ids, new):
+    """``model.generate`` with a ``first_split_only`` fault planted in the
+    flash decode route: each single-row step sees only the keys of the
+    decode kernel's first split, which is what a merge that dropped the
+    later splits would give; returns each row's readings against the
+    (sound) teacher-forced forward."""
+    import torch
+
+    fa = _flash_module()
+    real = fa.flash_decode
+
+    def faulty(q, k, v, offset, causal, scale, with_lse=True):
+        n = min(k.shape[1], offset + 1) if causal else k.shape[1]
+        _n_split, first = fa.decode_plan(
+            q.shape[0] * q.shape[2], n,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+        return real(q, k[:, :first], v[:, :first], min(offset, first - 1),
+                    causal, scale, with_lse)
+
+    fa.flash_decode = faulty
+    try:
+        with torch.inference_mode():
+            out = model.generate(gen_ids, max_new_tokens=new)
+    finally:
+        fa.flash_decode = real
+    with torch.inference_mode():
+        return [_readings(model, out[r], gen_ids.shape[1], None)
+                for r in range(out.shape[0])]
+
+
+def _generate_breakdown(model, gen_ids, new):
+    """One profiled ``model.generate`` as serving runs it: wall ms by the
+    host clock, device ms by kernel group and the device's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model.generate(gen_ids, max_new_tokens=new)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.generate(gen_ids, max_new_tokens=new)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    by_name = _device_ms(prof)
+    groups = {}
+    for name, ms in by_name.items():
+        g = _train_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    device = sum(by_name.values())
+    return {"wall_ms": wall, "device_ms": device or None,
+            "idle_share": (1.0 - device / wall) if device else None,
+            "groups_ms": groups or None}
+
+
 def phase_parity(seed):
     import numpy as np
     import torch
@@ -598,6 +785,7 @@ def phase_parity(seed):
             or paged["paged_attention_sm90"]:
         raise RuntimeError(f"parity: paged-attention launches {paged}")
     lp_errs = []
+    kernels.reset_counters()
     with torch.inference_mode():
         for p, (seq, lps) in zip(prompts, outs):
             ref = model.generate(torch.as_tensor(p, device=DEVICE)[None],
@@ -612,13 +800,21 @@ def phase_parity(seed):
                 raise RuntimeError(f"parity: argmax gap {r[0]} (tol 1e-3), "
                                    f"logprob err {r[1]} (tol 2e-3)")
             lp_errs.append(r[1])
+    # generate's single-row steps on the split-K decode kernel, exactly
+    gen_counts = kernels.counters()
+    decode = gen_counts["flash_attention_decode"]["launches"]
+    want = cfg.num_hidden_layers * (new - 1) * len(prompts)
+    if decode != want or any(c["plain_calls"] for c in gen_counts.values()):
+        raise RuntimeError(f"parity: generate's decode launches {decode}, "
+                           f"expected {want}, and no plain call")
     st = eng.stats()
     if st["prefix_hit_rate"] <= 0:
         raise RuntimeError("parity: the shared prefix was not reused")
     _emit({"phase": "parity", "ok": True, "requests": len(prompts),
            "new_tokens": new, "logprob_max_abs_err": max(lp_errs),
            "logprob_tol": 2e-3, "prefix_hit_rate": st["prefix_hit_rate"],
-           "paged_launches": paged})
+           "paged_launches": paged, "generate_decode_launches": decode})
+    counts["flash_attention_decode"] = gen_counts["flash_attention_decode"]
     del eng, model
     torch.cuda.empty_cache()
     return counts
@@ -695,11 +891,13 @@ def phase_serving(seed):
         raise RuntimeError(f"serving: paged-attention launches {paged}, "
                            f"expected {want}")
     # generate's flash launches, exactly: each layer's prefill (96 rows) on
-    # the tensor-core kernel, each later single-row step on the CUDA-core one
+    # the tensor-core kernel, each later single-row step on the split-K
+    # decode kernel, none on the CUDA-core one
     flash = {n: counts[n]["launches"] for n in (
-        "flash_attention_sm90", "flash_attention")}
+        "flash_attention_sm90", "flash_attention_decode", "flash_attention")}
     if flash != {"flash_attention_sm90": L,
-                 "flash_attention": L * (gen_new - 1)}:
+                 "flash_attention_decode": L * (gen_new - 1),
+                 "flash_attention": 0}:
         raise RuntimeError(f"serving: generate's flash launches {flash}, "
                            f"expected {L} prefill and {L * (gen_new - 1)} "
                            f"decode")
@@ -718,6 +916,9 @@ def phase_serving(seed):
                    for r in range(gen_out.shape[0])]
     del eng
     faults = {f: _fault_readings(model, prompts[:4], 16, f) for f in FAULTS}
+    # generate's decode steps with their merge cut to the first split
+    faults["generate_first_split_only"] = _generate_fault_readings(
+        model, gen_ids, gen_new)
     check = {"gap_tol": GAP_TOL, "logprob_tol": LP_TOL,
              "argmax_gap_max": max(c[0] for c in checks),
              "logprob_err_max": max(c[1] for c in checks),
@@ -740,6 +941,7 @@ def phase_serving(seed):
         raise RuntimeError("serving: malformed generate output")
     ctx = int(np.mean([len(p) for p in prompts])) + new // 2
     breakdown = _step_breakdown(model, cfg, ctx)
+    breakdown["generate"] = _generate_breakdown(model, gen_ids, gen_new)
     _emit({"phase": "serving", "ok": True, "model": "gpt3_6_7b",
            "layers": cfg.num_hidden_layers, "dtype": "bfloat16",
            "requests": 16, "new_tokens_each": new,
@@ -999,17 +1201,26 @@ def _sdpa_bwd_ms(q, k, v, do, causal, repeats=5):
     return reads[len(reads) // 2], [reads[0], reads[-1]]
 
 
-def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True):
+def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True, start=0):
     """RMSNorm forward and backward kernels (plain or +residual variant)
-    against their plain versions on fp32 copies of the same inputs."""
+    against their plain versions on fp32 copies of the same inputs; with
+    ``start`` 1, x and the residual begin one element off a 16-byte
+    boundary (the forward's scalar instance). The forward is timed eager
+    and in CUDA-graph replay, beside ``F.rms_norm`` timed both ways."""
     import torch
     import torch.nn.functional as TF
 
     from paddle_tpu_torch.kernels import rmsnorm
 
+    def off(t):
+        if t is None or not start:
+            return t
+        flat = torch.empty(t.numel() + start, dtype=t.dtype, device=DEVICE)
+        return flat[start:].view(t.shape).copy_(t)
+
     eps = 1e-5
-    x, dy = _rand(gen, (n, h), dtype), _rand(gen, (n, h), dtype)
-    res = _rand(gen, (n, h), dtype) if residual else None
+    x, dy = off(_rand(gen, (n, h), dtype)), _rand(gen, (n, h), dtype)
+    res = off(_rand(gen, (n, h), dtype)) if residual else None
     dr = _rand(gen, (n, h), dtype) if residual else None
     w = (1.0 + 0.1 * _rand(gen, (h,), torch.float32)).to(dtype)
 
@@ -1034,12 +1245,15 @@ def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True):
                          (tol[0] + 1e-4, tol[1]))[0])
     name = "rms_norm_residual" if residual else "rms_norm"
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
-            "n": n, "h": h, "tol": tol}
+            "n": n, "h": h, "start": start, "tol": tol}
     rows = [dict(base, kernel=name, max_abs_err=err_f),
             dict(base, kernel=name + "_bwd", max_abs_err=err_b)]
     if timed:
-        rows[0]["kernel_ms"] = _time_ms(
-            lambda: rmsnorm.rms_norm_fwd(x, res, w, eps))
+        def fwd():
+            return rmsnorm.rms_norm_fwd(x, res, w, eps)
+
+        rows[0]["kernel_ms"] = _time_ms(fwd)
+        rows[0]["graph_ms"] = _graph_ms(fwd)
         rows[0]["plain_ms"] = _time_ms(
             lambda: rmsnorm.rms_norm_fwd_plain(x, res, w, eps))
         rows[1]["kernel_ms"] = _time_ms(
@@ -1058,8 +1272,17 @@ def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True):
             def lib_fwd_bwd():
                 torch.autograd.grad(lib_fwd(), (xl, wl), dy)
 
+            def lib_fwd_nograd():
+                with torch.no_grad():
+                    return TF.rms_norm(x, (h,), w, eps)
+
             lib_f = _time_ms(lib_fwd)
             lib_b = _time_ms(lib_fwd_bwd) - lib_f
+            rows[0]["library_graph_ms"] = _graph_ms(lib_fwd_nograd)
+            # a copy of x moves the forward's bytes: the card's practical
+            # rate for this read/write mix, in graph replay
+            buf = torch.empty_like(x)
+            rows[0]["copy_graph_ms"] = _graph_ms(lambda: buf.copy_(x))
         esz = x.element_size()
         k = 2 if residual else 1
         fwd_bytes = 2 * k * n * h * esz + h * esz + n * 4
@@ -1137,6 +1360,16 @@ def phase_train_kernels(seed):
         for residual in (False, True):
             rows += _rmsnorm_case(f"odd1000x1000-{name}", dtype, 1000, 1000,
                                   residual, gen, timed=False)
+            # the MoE step's width, timed; a width that is not whole
+            # 16-byte vectors in bf16, one row, and unaligned starts
+            rows += _rmsnorm_case(f"moe-{name}", dtype, 8192, 1536,
+                                  residual, gen)
+            rows += _rmsnorm_case(f"odd33x1001-{name}", dtype, 33, 1001,
+                                  residual, gen, timed=False)
+            rows += _rmsnorm_case(f"one-row-{name}", dtype, 1, 2048,
+                                  residual, gen, timed=False)
+            rows += _rmsnorm_case(f"unaligned-{name}", dtype, 65, 2048,
+                                  residual, gen, timed=False, start=1)
         rows += _rope_case(f"odd-off2000-{name}", dtype, (3, 37, 5, 64),
                            2000, 1e4, gen, timed=False)
         torch.cuda.empty_cache()
@@ -1349,6 +1582,7 @@ def _train_group(name):
                        ("route_scan_kernel", "moe_route"),
                        ("gather_rows_kernel", "moe_gather"),
                        ("combine_rows_kernel", "moe_combine"),
+                       ("flash_decode", "flash_decode"),
                        ("flash_fwd_sm90", "flash_fwd_sm90"),
                        ("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90"),
                        ("flash_bwd_dq_sm90", "flash_bwd_dq_sm90"),
@@ -2148,6 +2382,9 @@ def _kernels_line(rows, paths):
         ("flash_attention_sm90", "causal2048-bfloat16", "flash_fwd_sm90.cu",
          "paddle_tpu/kernels/flash_attention.py:64",
          ["flash_attention_sm90"]),
+        ("flash_attention_decode", "decode1x640-bfloat16", "flash_decode.cu",
+         "paddle_tpu/kernels/flash_attention.py:64",
+         ["flash_attention_decode"]),
         ("flash_attention_bwd_dkv", "train-float32",
          "flash_attention_bwd.cu",
          "paddle_tpu/kernels/flash_attention.py:154",
@@ -2216,7 +2453,8 @@ def _kernels_line(rows, paths):
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": case}
-        for key in ("cuda_core_ms", "library_ms_spread", "graph_ms"):
+        for key in ("cuda_core_ms", "library_ms_spread", "graph_ms",
+                    "cuda_core_graph_ms", "library_graph_ms"):
             if r.get(key) is not None:
                 entry[key] = r[key]
         if name in also:
@@ -2229,6 +2467,8 @@ def _kernels_line(rows, paths):
                                 for c in paths.values()),
                 "ms": v["kernel_ms"], "plain_ms": v["plain_ms"],
                 "bound_ms": v["bound_ms"], "library_ms": v["library_ms"]}
+            if v.get("graph_ms") is not None:
+                entry["variant"]["graph_ms"] = v["graph_ms"]
         out.append(entry)
     return out
 

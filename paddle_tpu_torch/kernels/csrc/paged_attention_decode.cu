@@ -40,38 +40,17 @@
 //    rescale per group of keys, in log2 units with exp2).
 //  - The block's groups merge through shared memory, and the block writes its
 //    split's partial (o not normalised, m, l) in fp32. A second kernel merges
-//    the splits of each (slot, head) in split order: no atomics, bitwise
-//    repeatable. `merge_partials_plain` in paged_attention.py is the same
-//    merge in PyTorch.
+//    the splits of each (slot, head) in split order (decode_common.cuh,
+//    shared with flash_decode.cu): no atomics, bitwise repeatable.
+//    `merge_partials_plain` in flash_attention.py is the same merge in
+//    PyTorch.
 
-#include "attention_common.cuh"
+#include "decode_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnroll = 4;  // keys each lane loads before it folds them
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 16 bytes of T as floats (VEC = 16 / sizeof(T) of them)
-template <typename T>
-__device__ __forceinline__ void unpack(const uint4& r, float* f);
-template <>
-__device__ __forceinline__ void unpack<float>(const uint4& r, float* f) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
-}
-template <>
-__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& r,
-                                                      float* f) {
-  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 // One split of one (slot, kv head): lanes t of group grp (G lanes) own the
 // 16-byte chunks c = t + v * G (v < NV) of a key row; R = 1 (rep 1) or 8
@@ -119,7 +98,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = (t + c * G) * VEC;
       uint4 raw = make_uint4(0, 0, 0, 0);
       if (r < rep && col < hd) raw = *reinterpret_cast<const uint4*>(qr + col);
-      unpack<T>(raw, &qf[r][c * VEC]);
+      pt::unpack16<T>(raw, &qf[r][c * VEC]);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         qf[r][c * VEC + i] *= scale_log2;
@@ -158,7 +137,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kUnroll; ++u) {
       float kf[E];
 #pragma unroll
-      for (int c = 0; c < NV; ++c) unpack<T>(kr[u][c], &kf[c * VEC]);
+      for (int c = 0; c < NV; ++c) pt::unpack16<T>(kr[u][c], &kf[c * VEC]);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r >= rows) continue;
@@ -201,7 +180,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < kUnroll; ++u) {
       float vf[E];
 #pragma unroll
-      for (int c = 0; c < NV; ++c) unpack<T>(vr[u][c], &vf[c * VEC]);
+      for (int c = 0; c < NV; ++c) pt::unpack16<T>(vr[u][c], &vf[c * VEC]);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (r >= rows) continue;
@@ -257,15 +236,11 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_o,
                                     int n_split) {
   const size_t sh = blockIdx.x;  // s * nh + h
   const float2* ml = part_ml + sh * n_split;
-  float M = pt::kNeg;
-  for (int i = 0; i < n_split; ++i) M = fmaxf(M, ml[i].x);
+  const float* po = part_o + sh * n_split * hd;
+  const float M = pt::splits_max(ml, n_split);
   for (int d = threadIdx.x; d < hd; d += blockDim.x) {
-    float L = 0.f, A = 0.f;
-    for (int i = 0; i < n_split; ++i) {
-      const float c = exp2f(ml[i].x - M);
-      L = fmaf(ml[i].y, c, L);
-      A = fmaf(part_o[(sh * n_split + i) * hd + d], c, A);
-    }
+    float L;
+    const float A = pt::splits_sum(ml, po, n_split, hd, d, M, &L);
     out[sh * hd + d] = pt::from_f<T>(L > 0.f ? A / L : 0.f);
   }
 }
@@ -286,7 +261,7 @@ int launch(const void* q, const void* k, const void* v, const int* tables,
   }
   kernel<<<dim3(n_split, kvh, S), kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, tables, pos, part_o, part_ml, qs,
-      nh, kvh, hd, PL, B, n_split, split_keys, scale * kLog2e);
+      nh, kvh, hd, PL, B, n_split, split_keys, scale * pt::kLog2e);
   if (const cudaError_t e = cudaGetLastError()) return (int)e;
   decode_merge_kernel<T><<<S * nh, hd < 128 ? hd : 128, 0, stream>>>(
       part_o, part_ml, (T*)out, hd, n_split);

@@ -19,9 +19,19 @@
 // bf16 tensor cores would become the limit), so the floor is the [n, h]
 // tensors moved over 3.35 TB/s.
 //
-// What the design does about it, simple first: the forward gives each row to
-// one warp (lanes stride the row, so every load is coalesced); the second
-// pass over the row, which writes y, finds it in L1/L2. The TPU backward
+// What the design does about it. The forward reads each row from device
+// memory once and keeps it in registers: a warp takes a row, each lane loads
+// NV 16-byte vectors of it (8 bf16 or 4 fp32 values; vec16.cuh), all issued
+// before any is used, sums the squares, and writes y (and s) from the same
+// registers with 16-byte stores; w is read as vectors too. One instance per
+// range of vectors per lane (NV 2, 4, 8, and 16 for fp32: up to 64 floats a
+// lane) covers rows up to 2048 wide, which both training steps use (2048
+// dense, 1536 MoE), at 4 warps (rows) a block; at 80 registers a thread
+// some 24 rows (96 KB) are in flight on each SM. A wider row takes a looping
+// instance that reads it twice with the same vectors (the second pass from
+// L1/L2), and a row that is not whole 16-byte vectors, or an operand that
+// does not start on a 16-byte boundary, takes the scalar instance (lanes
+// stride the row one element at a time, two passes). The TPU backward
 // carries dw in VMEM across its sequential row grid; Hopper blocks run in
 // parallel and carry nothing, so each backward block walks a contiguous
 // chunk of rows, keeps its dw partial in shared memory (each thread owns
@@ -30,18 +40,21 @@
 // Deterministic, no atomics.
 
 #include "attention_common.cuh"
+#include "vec16.cuh"
 
 namespace {
 
 constexpr int kFwdWarps = 4;     // rows per forward block
 constexpr int kBwdThreads = 256;
 
+// Scalar instance: any width and alignment. Lanes stride the row one element
+// at a time; the second pass, which writes y, reads the row again.
 template <typename T, bool RESIDUAL>
 __global__ void __launch_bounds__(kFwdWarps * 32)
-rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
-                   const T* __restrict__ w, T* __restrict__ y,
-                   T* __restrict__ s_out, float* __restrict__ rstd, int n,
-                   int h, float eps) {
+rmsnorm_fwd_scalar_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                          const T* __restrict__ w, T* __restrict__ y,
+                          T* __restrict__ s_out, float* __restrict__ rstd,
+                          int n, int h, float eps) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kFwdWarps + warp;
   if (row >= n) return;
@@ -60,6 +73,89 @@ rmsnorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
     if (RESIDUAL) s_out[base + d] = pt::from_f<T>(s);
   }
   if (lane == 0) rstd[row] = r;
+}
+
+// Vector instances: rows of nv = h / VEC 16-byte vectors, 16-byte aligned.
+// NV > 0: lane l holds vectors l + 32 i (i < NV) in registers between the
+// sum of squares and the write, so the row is read once. NV == 0: the
+// looping instance for wider rows, which reads each vector twice.
+template <typename T, bool RESIDUAL, int NV>
+__global__ void __launch_bounds__(kFwdWarps * 32)
+rmsnorm_fwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                       const T* __restrict__ w, T* __restrict__ y,
+                       T* __restrict__ s_out, float* __restrict__ rstd,
+                       int n, int h, float eps) {
+  using V = pt::Vec16<T>;
+  constexpr int VEC = V::N;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kFwdWarps + warp;
+  if (row >= n) return;
+  const int nv = h / VEC;
+  const size_t base = (size_t)row * h;
+  float ss = 0.f;
+  if constexpr (NV > 0) {
+    float sv[NV][VEC];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int at = (lane + 32 * c) * VEC;
+      if (lane + 32 * c < nv) {
+        V::load(x + base + at, sv[c]);
+        if (RESIDUAL) {
+          float rv[VEC];
+          V::load(res + base + at, rv);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i) sv[c][i] += rv[i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) sv[c][i] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < NV; ++c)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) ss = fmaf(sv[c][i], sv[c][i], ss);
+    const float r = rsqrtf(pt::warp_sum(ss) / (float)h + eps);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const int at = (lane + 32 * c) * VEC;
+      if (lane + 32 * c < nv) {
+        float wv[VEC], yv[VEC];
+        V::load(w + at, wv);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) yv[i] = sv[c][i] * r * wv[i];
+        V::store(y + base + at, yv);
+        if (RESIDUAL) V::store(s_out + base + at, sv[c]);
+      }
+    }
+    if (lane == 0) rstd[row] = r;
+  } else {
+    float sv[VEC], rv[VEC];
+    for (int c = lane; c < nv; c += 32) {
+      V::load(x + base + c * VEC, sv);
+      if (RESIDUAL) V::load(res + base + c * VEC, rv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        if (RESIDUAL) sv[i] += rv[i];
+        ss = fmaf(sv[i], sv[i], ss);
+      }
+    }
+    const float r = rsqrtf(pt::warp_sum(ss) / (float)h + eps);
+    for (int c = lane; c < nv; c += 32) {
+      float wv[VEC], yv[VEC];
+      V::load(x + base + c * VEC, sv);
+      if (RESIDUAL) V::load(res + base + c * VEC, rv);
+      V::load(w + c * VEC, wv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        if (RESIDUAL) sv[i] += rv[i];
+        yv[i] = sv[i] * r * wv[i];
+      }
+      V::store(y + base + c * VEC, yv);
+      if (RESIDUAL) V::store(s_out + base + c * VEC, sv);
+    }
+    if (lane == 0) rstd[row] = r;
+  }
 }
 
 // One block per chunk of `rows_per_block` rows. Shared memory: dw partial
@@ -118,12 +214,39 @@ __global__ void rmsnorm_dw_sum_kernel(const float* __restrict__ dw_part,
   dw[d] = pt::from_f<T>(acc);
 }
 
+inline bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// The instance a row takes: scalar unless the row is whole 16-byte vectors
+// and every operand starts on a 16-byte boundary; then the fewest vectors
+// per lane that hold it (at most 64 floats a lane), or the looping one.
 template <typename T, bool RESIDUAL>
 void fwd(const void* x, const void* res, const void* w, void* y, void* s,
          float* rstd, int n, int h, float eps, cudaStream_t st) {
   const unsigned grid = (unsigned)((n + kFwdWarps - 1) / kFwdWarps);
-  rmsnorm_fwd_kernel<T, RESIDUAL><<<grid, kFwdWarps * 32, 0, st>>>(
-      (const T*)x, (const T*)res, (const T*)w, (T*)y, (T*)s, rstd, n, h, eps);
+  constexpr int VEC = 16 / (int)sizeof(T);
+  const bool vec = h % VEC == 0 && aligned16(x) && aligned16(w) &&
+                   aligned16(y) && (!RESIDUAL || (aligned16(res) &&
+                                                  aligned16(s)));
+  const int per_lane = (h / VEC + 31) / 32;
+  using Fn = void (*)(const T*, const T*, const T*, T*, T*, float*, int, int,
+                      float);
+  Fn kernel = rmsnorm_fwd_vec_kernel<T, RESIDUAL, 0>;
+  if (!vec)
+    kernel = rmsnorm_fwd_scalar_kernel<T, RESIDUAL>;
+  else if (per_lane <= 2)
+    kernel = rmsnorm_fwd_vec_kernel<T, RESIDUAL, 2>;
+  else if (per_lane <= 4)
+    kernel = rmsnorm_fwd_vec_kernel<T, RESIDUAL, 4>;
+  else if (per_lane <= 8)
+    kernel = rmsnorm_fwd_vec_kernel<T, RESIDUAL, 8>;
+  else if constexpr (sizeof(T) == 4) {
+    if (per_lane <= 16) kernel = rmsnorm_fwd_vec_kernel<T, RESIDUAL, 16>;
+  }
+  kernel<<<grid, kFwdWarps * 32, 0, st>>>((const T*)x, (const T*)res,
+                                          (const T*)w, (T*)y, (T*)s, rstd, n,
+                                          h, eps);
 }
 
 template <typename T, bool RESIDUAL>

@@ -1,7 +1,9 @@
 // 16-byte vector loads and stores, converted to and from fp32, for the MoE
-// kernels (grouped_matmul.cu, moe_dispatch.cu). One vector holds 8 bf16 or
-// 4 fp32 values; the pointer must be 16-byte aligned, which the wrappers
-// check (every row width they pass is a multiple of 8 elements).
+// kernels (grouped_matmul.cu, moe_dispatch.cu) and the RMSNorm forward
+// (rmsnorm.cu). One vector holds 8 bf16 or 4 fp32 values; the pointer must
+// be 16-byte aligned, which the callers check (the MoE wrappers pass row
+// widths that are multiples of 8 elements; the RMSNorm forward takes its
+// scalar kernel for anything else).
 #pragma once
 
 #include <cuda_bf16.h>

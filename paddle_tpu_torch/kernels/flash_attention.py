@@ -13,11 +13,15 @@ Each kernel has a wrapper that launches it on a CUDA tensor or raises, and
 runs its plain version on a CPU tensor:
 
 - :func:`flash_attention_fwd` / :func:`flash_attention_plain`. On CUDA it
-  takes one of two kernels by (dtype, head dim, sq), in plain code:
-  bf16 with head dim 64 or 128 and more than one query row goes to the
+  takes one of three kernels by (dtype, head dim, sq), which :func:`route`
+  picks in plain code: a single query row in fp32 or bf16 whose head dim
+  (up to 256) is whole 16-byte chunks goes to the split-K decode kernel
+  (``csrc/flash_decode.cu``, :func:`flash_decode`, whose plain version
+  :func:`flash_decode_plain` computes the same split plan, partials and
+  merge); bf16 with head dim 64 or 128 and more than one query row to the
   tensor-core kernel (``csrc/flash_fwd_sm90.cu``,
-  :func:`flash_attention_fwd_sm90`); everything else (fp32, other head
-  dims, single-row decode) to the CUDA-core kernel
+  :func:`flash_attention_fwd_sm90`); everything else (fp32 with more than
+  one row, other head dims) to the CUDA-core kernel
   (``csrc/flash_attention.cu``, :func:`flash_attention_fwd_cuda_core`);
 - :func:`flash_attention_bwd_dkv` / :func:`flash_attention_bwd_dkv_plain`,
   likewise: bf16 with head dim 64 or 128 goes to
@@ -30,10 +34,17 @@ runs its plain version on a CPU tensor:
   rest to ``csrc/flash_attention_bwd.cu``
   (:func:`flash_attention_bwd_dq_cuda_core`).
 
-Each kernel counts its own launches (``COUNTS`` / ``COUNTS_SM90`` for the
-forward, ``COUNTS_DKV`` / ``COUNTS_DKV_SM90`` for dK/dV, ``COUNTS_DQ`` /
-``COUNTS_DQ_SM90`` for dQ), so a run shows which one ran; CPU calls count
-as plain calls of the dispatching wrapper's CUDA-core counter.
+Each kernel counts its own launches (``COUNTS`` / ``COUNTS_SM90`` /
+``COUNTS_DECODE`` for the forward, ``COUNTS_DKV`` / ``COUNTS_DKV_SM90`` for
+dK/dV, ``COUNTS_DQ`` / ``COUNTS_DQ_SM90`` for dQ), so a run shows which one
+ran; CPU calls count as plain calls of the dispatching wrapper's CUDA-core
+counter, and :func:`flash_decode`'s own as plain calls of
+``COUNTS_DECODE``.
+
+:func:`flash_attention` (paddle layout) sends a single query row that
+needs no gradient straight to :func:`flash_decode`, which reads q, k and v
+through their strides where they lie: a KV-cached decode step copies
+nothing into ``[bh, s, d]``.
 
 The backward plain versions are the explicit formulas of the JAX kernels
 (``_bwd_dkv_kernel``, ``_bwd_dq_kernel``) over the dense score matrix.
@@ -47,6 +58,7 @@ fp32 plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -61,15 +73,26 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd_dkv_sm90",
            "flash_attention_bwd_dkv_cuda_core",
            "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq_cuda_core",
-           "takes_sm90", "sm90_fwd_bound", "sm90_dkv_bound", "sm90_dq_bound",
-           "COUNTS", "COUNTS_SM90", "COUNTS_DKV", "COUNTS_DKV_SM90",
-           "COUNTS_DQ", "COUNTS_DQ_SM90"]
+           "flash_decode", "flash_decode_plain", "decode_plan",
+           "merge_partials_plain", "route", "takes_sm90", "sm90_fwd_bound",
+           "sm90_dkv_bound", "sm90_dq_bound", "COUNTS", "COUNTS_SM90",
+           "COUNTS_DECODE", "COUNTS_DKV", "COUNTS_DKV_SM90", "COUNTS_DQ",
+           "COUNTS_DQ_SM90"]
 
 _NEG = -1e30
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SM90_HEAD_DIMS = (64, 128)
+# the decode kernel's split plan: about 2 blocks per SM, and at least 32
+# keys a split (the keys a block folds per turn at bf16 head dim 128: 8
+# side by side, 4 deep); the plain version plans for an H100's 132 SMs
+_DECODE_BLOCKS_PER_SM = 2
+_DECODE_SPLIT_KEYS = 32
+_H100_SMS = 132
 COUNTS = _build.Counts()           # forward, CUDA cores
 COUNTS_SM90 = _build.Counts()      # forward, tensor cores
+COUNTS_DECODE = _build.Counts()    # forward, one row, split-K (+ its merge)
 COUNTS_DKV = _build.Counts()       # backward dK/dV, CUDA cores
 COUNTS_DKV_SM90 = _build.Counts()  # backward dK/dV, tensor cores
 COUNTS_DQ = _build.Counts()        # backward dQ, CUDA cores
@@ -137,9 +160,92 @@ def takes_sm90(dtype, head_dim, sq=None) -> bool:
     """Whether a CUDA call goes to the tensor-core kernel: bf16, head dim 64
     or 128, and (forward, ``sq`` given) more than one query row; a
     single-row decode reads each key once and is bound by bytes, which the
-    CUDA-core kernel serves."""
+    split-K decode kernel serves (:func:`route`)."""
     return (dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS
             and (sq is None or sq > 1))
+
+
+def route(dtype, head_dim, sq) -> str:
+    """Which forward kernel a CUDA call goes to: ``"decode"`` for one query
+    row in fp32 or bf16 with head dim up to 256 whose rows are whole
+    16-byte chunks, ``"sm90"`` where :func:`takes_sm90`, ``"cuda_core"``
+    for the rest (whose kernel raises on a dtype or head dim it does not
+    take)."""
+    if sq == 1 and dtype in _DTYPES and head_dim <= 256 and \
+            head_dim * dtype.itemsize % 16 == 0:
+        return "decode"
+    if takes_sm90(dtype, head_dim, sq):
+        return "sm90"
+    return "cuda_core"
+
+
+def _visible_keys(sk, offset, causal):
+    """Keys one query row at global position ``offset`` sees: the first
+    ``offset + 1`` (none below 0) under ``causal``, all ``sk`` otherwise."""
+    return max(0, min(sk, int(offset) + 1)) if causal else sk
+
+
+def decode_plan(bh, n_keys, sms):
+    """(n_split, split_len) of the decode kernel for ``bh`` rows that see
+    ``n_keys`` keys on a card of ``sms`` SMs, from shapes alone: about 2
+    blocks per SM, splits of at least 32 keys and a multiple of 32, and
+    split i owning keys ``[i * split_len, (i + 1) * split_len)``; at least
+    one split, which for ``n_keys`` 0 owns no key."""
+    want = -(-_DECODE_BLOCKS_PER_SM * sms // max(bh, 1))
+    per = -(-n_keys // want)
+    split_len = max(1, -(-per // _DECODE_SPLIT_KEYS)) * _DECODE_SPLIT_KEYS
+    return max(1, -(-n_keys // split_len)), split_len
+
+
+def merge_partials_plain(o, m, l, dtype):
+    """The split-K decode kernels' merge (``csrc/decode_common.cuh``) in
+    PyTorch, over the splits in their fixed order: ``o`` [S, nh, n_split,
+    hd] partial sums, ``m`` (log2 units) and ``l`` [S, nh, n_split]; M =
+    max m_i, out = sum o_i exp2(m_i - M) / sum l_i exp2(m_i - M), and 0
+    where that sum is 0 (a row that saw no key). Returns [S, 1, nh, hd] in
+    ``dtype``."""
+    M = m.amax(dim=-1, keepdim=True)
+    c = torch.exp2(m - M)
+    L = (l * c).sum(dim=-1)
+    A = (o * c[..., None]).sum(dim=-2)
+    out = torch.where(L[..., None] > 0, A / L.clamp_min(1e-30)[..., None],
+                      0.0)
+    return out[:, None].to(dtype)
+
+
+def flash_decode_plain(q, k, v, offset, causal, scale, n_split=None,
+                       split_len=None):
+    """The decode kernel's two passes in PyTorch, paddle layout: ``q`` [b,
+    1, h, d], ``k``/``v`` [b, sk, h, d] -> (o [b, 1, h, d] in q's dtype,
+    lse [b, h] fp32). The keys a row sees are cut into the splits of
+    :func:`decode_plan` (for an H100, unless ``n_split`` and ``split_len``
+    are given); each split's partial (o, m, l in log2 units) is taken over
+    its own keys, a split that owns none giving m = -1e30 and l = 0, and
+    :func:`merge_partials_plain` merges them. lse = (M + log2 L) ln 2, and
+    a row that sees no key gives o = 0 and lse = -1e30."""
+    b, _one, h, d = q.shape
+    sk = k.shape[1]
+    n = _visible_keys(sk, offset, causal)
+    if n_split is None:
+        n_split, split_len = decode_plan(b * h, n, _H100_SMS)
+    if n_split * split_len < n:
+        raise ValueError(f"{n_split} splits of {split_len} keys do not cover "
+                         f"{n} visible keys")
+    s = torch.einsum("bhd,bkhd->bhk", q[:, 0].float(), k.float()) * \
+        (scale * _LOG2E)
+    j = torch.arange(sk, device=q.device)
+    first = torch.arange(n_split, device=q.device)[:, None] * split_len
+    own = (j >= first) & (j < torch.clamp(first + split_len, max=n))
+    s = torch.where(own, s[:, :, None, :], _NEG)        # [b, h, n_split, sk]
+    m = s.amax(dim=-1)
+    p = torch.where(own, torch.exp2(s - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhnk,bkhd->bhnd", p, v.float())
+    M = m.amax(dim=-1)
+    L = (l * torch.exp2(m - M[..., None])).sum(dim=-1)
+    lse = torch.where(L > 0, (M + torch.log2(L.clamp_min(1e-30))) * _LN2,
+                      _NEG)
+    return merge_partials_plain(o, m, l, q.dtype), lse
 
 
 def sm90_fwd_bound(q, k, v, offset, causal, scale, o_ref):
@@ -230,14 +336,94 @@ def _check_sm90(name, q):
 
 
 def flash_attention_fwd(q, k, v, offset, causal, scale):
-    """(o, lse): on CUDA the tensor-core kernel where :func:`takes_sm90`,
-    else the CUDA-core kernel; the plain version on the CPU."""
+    """(o, lse): on CUDA the kernel :func:`route` names (the decode kernel
+    on [bh, 1, 1, d] views of the [bh, s, d] inputs); the plain version on
+    the CPU."""
     if q.device.type == "cpu":
         COUNTS.plain()
         return flash_attention_plain(q, k, v, offset, causal, scale)
-    if takes_sm90(q.dtype, q.shape[2], q.shape[1]):
+    which = route(q.dtype, q.shape[2], q.shape[1])
+    if which == "decode":
+        o, lse = flash_decode(q[:, :, None], k[:, :, None], v[:, :, None],
+                              offset, causal, scale)
+        return o.view(q.shape), lse.view(q.shape[:2])
+    if which == "sm90":
         return flash_attention_fwd_sm90(q, k, v, offset, causal, scale)
     return flash_attention_fwd_cuda_core(q, k, v, offset, causal, scale)
+
+
+def _in_place(t):
+    """``t`` [b, s, h, d] as the decode kernel reads it: the head dim
+    contiguous, and the start and every other stride a multiple of 16
+    bytes (a decode step's q, a view into its fused QKV projection, and
+    its cache are such tensors); anything else is copied. The checks are
+    few because this runs once per tensor on every decode step."""
+    step = 16 // t.element_size()
+    st = t.stride()
+    if st[3] == 1 and t.data_ptr() % 16 == 0 and not (
+            st[0] % step or st[1] % step or st[2] % step):
+        return t
+    return _tma_ready(t)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def flash_decode(q, k, v, offset, causal, scale, with_lse=True):
+    """One query row per (batch, head), paddle layout: ``q`` [b, 1, h, d],
+    ``k``/``v`` [b, sk, h, d] -> (o [b, 1, h, d] in q's dtype, lse [b, h]
+    fp32, or None without ``with_lse``). Under ``causal`` key j is visible
+    iff j <= ``offset``. On CUDA the split-K decode kernel and its merge
+    (``csrc/flash_decode.cu``), reading q, k and v through their strides
+    (copied only where a start or stride is not a multiple of 16 bytes),
+    with the split plan of :func:`decode_plan` and one fp32 scratch tensor
+    for the partials; the plain version on the CPU."""
+    if q.device.type == "cpu":
+        COUNTS_DECODE.plain()
+        o, lse = flash_decode_plain(q, k, v, offset, causal, scale)
+        return o, (lse if with_lse else None)
+    _on_cuda("flash_attention_decode", q)
+    if q.dim() != 4 or q.shape[1] != 1 or k.dim() != 4 or \
+            v.shape != k.shape or k.shape[0] != q.shape[0] or \
+            k.shape[2:] != q.shape[2:] or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise ValueError(f"flash_attention_decode: q {tuple(q.shape)} "
+                         f"{q.dtype}, k {tuple(k.shape)} {k.dtype}, v "
+                         f"{tuple(v.shape)} {v.dtype} do not fit")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention_decode: k on {k.device}, v on "
+                         f"{v.device}, q on {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_decode kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    b, _one, h, d = q.shape
+    if route(q.dtype, d, 1) != "decode":
+        raise ValueError(f"flash_attention_decode takes head_dim up to 256 "
+                         f"in whole 16-byte chunks, got {d} in {q.dtype}")
+    q, k, v = _in_place(q), _in_place(k), _in_place(v)
+    n = _visible_keys(k.shape[1], offset, causal)
+    n_split, split_len = decode_plan(b * h, n, _sms(q.device.index))
+    o = torch.empty(b, 1, h, d, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b, h, dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    # [bh, n_split, d] partial o, then [bh, n_split, 2] (m, l)
+    n_o = b * h * n_split * d
+    part = torch.empty(n_o + 2 * b * h * n_split, dtype=torch.float32,
+                       device=q.device)
+    fn = _build.kernel("pt_flash_decode", [ctypes.c_void_p] * 7 +
+                       [ctypes.c_longlong] * 10 + [ctypes.c_int] * 6 +
+                       [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    _build.launch(fn, "pt_flash_decode", q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  None if lse is None else lse.data_ptr(), part.data_ptr(),
+                  part.data_ptr() + 4 * n_o, q.stride(0), q.stride(2),
+                  k.stride(0), k.stride(1), k.stride(2), v.stride(0),
+                  v.stride(1), v.stride(2), o.stride(0), o.stride(2), b, h, d,
+                  n, split_len, n_split, float(scale), _DTYPES[q.dtype])
+    COUNTS_DECODE.launched()
+    return o, lse
 
 
 def flash_attention_fwd_cuda_core(q, k, v, offset, causal, scale):
@@ -459,6 +645,12 @@ def flash_attention(q, k, v, causal: bool = False, scale: float = None):
 
     # self-attention with sk >= sq: rows see the key prefix plus the diagonal
     offset = sk - sq if causal else 0
+    if sq == 1 and route(q.dtype, d, sq) == "decode" and not (
+            torch.is_grad_enabled() and
+            (q.requires_grad or k.requires_grad or v.requires_grad)):
+        # a decode step: the kernel reads q, k and v where they lie
+        return flash_decode(q, k, v, offset, causal, scale,
+                            with_lse=False)[0]
     o, _ = flash_attention_with_lse(bhsd(q, sq), bhsd(k, sk), bhsd(v, sk),
                                     offset, causal, scale)
     return o.reshape(b, h, sq, d).transpose(1, 2)

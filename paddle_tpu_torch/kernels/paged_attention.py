@@ -18,7 +18,8 @@ CUDA tensor it launches exactly one of three hand-written kernels, which
   CUDA cores. The grid is (slot, kv head, split); each split owns a run of
   the slot's visible pages and writes a partial (o, m, l) in fp32, which a
   second kernel merges in a fixed order. :func:`split_partials_plain` and
-  :func:`merge_partials_plain` are the same two passes in PyTorch;
+  :func:`merge_partials_plain` (shared with the flash decode kernel, whose
+  merge is the same code) are the same two passes in PyTorch;
 - ``"sm90"`` (W > 1, bf16, head dim 64 or 128, page length 8-64 dividing
   64): ``csrc/paged_attention_sm90.cu``, both products on the tensor cores
   (wgmma), K/V loaded by TMA page by page through the page table. It
@@ -36,7 +37,7 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import _on_cuda, _tma_ready
+from .flash_attention import _on_cuda, _tma_ready, merge_partials_plain
 
 __all__ = ["paged_attention", "paged_attention_plain", "route",
            "paged_attention_decode", "paged_attention_sm90",
@@ -182,20 +183,6 @@ def split_partials_plain(q, k_arena, v_arena, tables, pos, scale, n_split):
     p = torch.where(own[:, None], torch.exp2(s - m[..., None]), 0.0)
     o = torch.einsum("shnL,sLhd->shnd", p, vv.float())
     return o, m, p.sum(dim=-1)
-
-
-def merge_partials_plain(o, m, l, dtype):
-    """The decode kernel's merge, in the same fixed order over the splits:
-    M = max m_i, out = sum o_i exp2(m_i - M) / sum l_i exp2(m_i - M), and
-    0 where that sum is 0 (a row that saw no key). Returns [S, 1, nh, hd]
-    in ``dtype``."""
-    M = m.amax(dim=-1, keepdim=True)
-    c = torch.exp2(m - M)
-    L = (l * c).sum(dim=-1)
-    A = (o * c[..., None]).sum(dim=-2)
-    out = torch.where(L[..., None] > 0, A / L.clamp_min(1e-30)[..., None],
-                      0.0)
-    return out[:, None].to(dtype)
 
 
 # -- launchers ----------------------------------------------------------------

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.kernels import (counters, flash_attention_plain,
+from paddle_tpu_torch.kernels import (counters, flash_attention,
+                                      flash_attention_plain,
                                       flash_attention_with_lse,
                                       paged_attention, paged_attention_plain,
                                       reset_counters)
@@ -20,8 +21,8 @@ from paddle_tpu_torch.kernels import rmsnorm, rope
 from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
-    flash_attention_fwd, sm90_dkv_bound, sm90_dq_bound, sm90_fwd_bound,
-    takes_sm90)
+    flash_attention_fwd, route, sm90_dkv_bound, sm90_dq_bound,
+    sm90_fwd_bound, takes_sm90)
 
 # the module (the package re-exports a function of the same name)
 pa = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
@@ -41,8 +42,12 @@ def _within(got, ref, bound, what):
 
 
 def _counter(name, dtype, d, sq=None):
-    """The counter of the kernel that ``name``'s wrapper picks: the
-    tensor-core one (``name``_sm90) where ``takes_sm90``."""
+    """The counter of the kernel that ``name``'s wrapper picks: for a
+    forward (``sq`` given) the decode kernel (``name``_decode) where
+    ``route`` says so, else the tensor-core one (``name``_sm90) where
+    ``takes_sm90``."""
+    if sq is not None and route(dtype, d, sq) == "decode":
+        return name + "_decode"
     return name + "_sm90" if takes_sm90(dtype, d, sq) else name
 
 
@@ -376,8 +381,10 @@ def test_flash_attention_sm90_kernels_match_plain(cuda, sq, sk, offset,
 @pytest.mark.gpu
 def test_flash_attention_picks_its_kernel(cuda):
     """bf16 at head dim 64 / 128 with more than one row takes the
-    tensor-core kernels; fp32, head dim 32 and single-row decode the
-    CUDA-core ones; a CUDA tensor that neither takes raises."""
+    tensor-core kernels; a single-row forward the decode kernel (its
+    backward the kernels its dtype and head dim pick); fp32 and head dim
+    32 with more rows the CUDA-core ones; a CUDA tensor that none takes
+    raises."""
     def run(dtype, sq, d):
         q = torch.randn(2, sq, d, device=cuda).to(dtype)
         k = torch.randn(2, 40, d, device=cuda).to(dtype)
@@ -389,6 +396,7 @@ def test_flash_attention_picks_its_kernel(cuda):
         torch.cuda.synchronize()
         c = counters()
         return [n for n in ("flash_attention", "flash_attention_sm90",
+                            "flash_attention_decode",
                             "flash_attention_bwd_dkv",
                             "flash_attention_bwd_dkv_sm90",
                             "flash_attention_bwd_dq",
@@ -399,7 +407,10 @@ def test_flash_attention_picks_its_kernel(cuda):
     cuda_core_bwd = ["flash_attention_bwd_dkv", "flash_attention_bwd_dq"]
     assert run(torch.bfloat16, 8, 128) == ["flash_attention_sm90"] + sm90_bwd
     assert run(torch.bfloat16, 8, 64) == ["flash_attention_sm90"] + sm90_bwd
-    assert run(torch.bfloat16, 1, 128) == ["flash_attention"] + sm90_bwd
+    assert run(torch.bfloat16, 1, 128) == ["flash_attention_decode"] + \
+        sm90_bwd
+    assert run(torch.float32, 1, 128) == ["flash_attention_decode"] + \
+        cuda_core_bwd
     assert run(torch.float32, 8, 128) == ["flash_attention"] + cuda_core_bwd
     assert run(torch.bfloat16, 8, 32) == ["flash_attention"] + cuda_core_bwd
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -408,21 +419,133 @@ def test_flash_attention_picks_its_kernel(cuda):
                             True, 0.1)
 
 
+# the decode kernel: (b, h, sk, d, offset, causal). bh 32 at 640 keys (the
+# kernels phase's decode1x640), bh 64 at 100 (serving's generate), 2047
+# keys, head dims 8 to 256 (one to 64 chunks a row), a causal cut, a row
+# that sees no key, one key, and no mask
+_DECODE_CASES = [(2, 16, 640, 128, 639, True), (2, 32, 100, 128, 99, True),
+                 (1, 32, 2047, 128, 2046, True), (2, 4, 640, 64, 639, True),
+                 (2, 4, 640, 128, 300, True), (2, 4, 64, 128, -1, True),
+                 (2, 4, 1, 128, 0, True), (2, 4, 77, 128, 0, False),
+                 (3, 2, 300, 256, 299, True), (3, 2, 40, 16, 39, True),
+                 (3, 2, 40, 8, 39, True)]
+
+
+def _decode_inputs(cuda, dtype, b, h, sk, d, seed=23):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, s, h, d),
+                                                 dtype=np.float32))
+            .to(cuda).to(dtype) for s in (1, sk, sk)]
+
+
+def _check_decode(o, lse, q, k, v, offset, causal, tol):
+    """o [b, 1, h, d] and lse [b, h] against ``flash_attention_plain`` on
+    fp32 copies; a row that sees no key gives o = 0 and lse = -1e30
+    exactly."""
+    b, _one, h, d = q.shape
+
+    def bhsd(t):
+        return t.float().transpose(1, 2).reshape(b * h, t.shape[1], d)
+
+    ro, rl = flash_attention_plain(bhsd(q), bhsd(k), bhsd(v), offset, causal,
+                                   1.0 / d ** 0.5)
+    _close(bhsd(o).cpu(), ro.cpu(), tol)
+    if lse is not None:
+        _close(lse.reshape(-1).cpu(), rl.reshape(-1).cpu(), (0.0, 1e-3))
+    if causal and offset < 0:
+        assert not o.any()
+        assert lse is None or bool((lse == -1e30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", _TOLS)
+@pytest.mark.parametrize("b,h,sk,d,offset,causal", _DECODE_CASES)
+def test_flash_decode_kernel_matches_plain(cuda, b, h, sk, d, offset, causal,
+                                           dtype, tol):
+    """The split-K decode kernel, through ``flash_attention_fwd`` on [bh,
+    1, d] rows: its counter reads 1 and the other forwards' 0, o within one
+    rounding of the fp32 plain version and lse within 1e-3."""
+    q, k, v = _decode_inputs(cuda, dtype, b, h, sk, d)
+
+    def bhsd(t):
+        return t.transpose(1, 2).reshape(b * h, t.shape[1], d)
+
+    reset_counters()
+    o, lse = flash_attention_fwd(bhsd(q), bhsd(k), bhsd(v), offset, causal,
+                                 1.0 / d ** 0.5)
+    torch.cuda.synchronize()
+    c = counters()
+    assert [c[n]["launches"] for n in ("flash_attention_decode",
+                                       "flash_attention",
+                                       "flash_attention_sm90")] == [1, 0, 0]
+    assert o.shape == (b * h, 1, d) and lse.shape == (b * h, 1)
+    _check_decode(o.view(b, h, 1, d).transpose(1, 2),
+                  lse.view(b, h), q, k, v, offset, causal, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", _TOLS)
+@pytest.mark.parametrize("layout", ["qkv_view", "unaligned_q", "gqa_expand",
+                                    "contiguous"])
+def test_flash_decode_reads_the_paddle_layout_in_place(cuda, layout, dtype,
+                                                       tol):
+    """``flash_attention`` (paddle layout) at one query row and no gradient
+    launches the decode kernel on its [b, s, h, d] views: q a view into a
+    fused QKV projection (read in place, as k and v), q off a 16-byte
+    boundary (copied), kv heads expanded with a stride of 0 (read in
+    place)."""
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    b, h, sk, d = 2, 8, 300, 128
+    q, k, v = _decode_inputs(cuda, dtype, b, h, sk, d, seed=24)
+    if layout == "qkv_view":
+        qkv = torch.stack([q, q, q], dim=2)         # [b, 1, 3, h, d]
+        q = qkv[:, :, 0]
+        assert fa._in_place(q) is q
+    elif layout == "unaligned_q":
+        flat = torch.empty(q.numel() + 1, dtype=dtype, device=cuda)
+        q = flat[1:].view(q.shape).copy_(q)
+        assert q.data_ptr() % 16 != 0
+    elif layout == "gqa_expand":
+        k, v = (t[:, :, :1].expand(b, sk, h, d) for t in (k, v))
+        assert k.stride(2) == 0 and fa._in_place(k) is k
+    reset_counters()
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_decode"]["launches"] == 1
+    assert c["flash_attention"]["launches"] == 0
+    assert o.shape == (b, 1, h, d)
+    _check_decode(o, None, q, k, v, sk - 1, True, tol)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", _TOLS)
 @pytest.mark.parametrize("n,h", [(5, 40), (33, 129), (1030, 2048),
-                                 (3, 16384)])
+                                 (3, 16384), (7, 1), (9, 1001), (65, 1536),
+                                 (4, 8192), (1, 2048), (2, 512)])
 @pytest.mark.parametrize("residual", [False, True])
-def test_rms_norm_kernels_match_plain(cuda, n, h, residual, dtype, tol):
+@pytest.mark.parametrize("start", [0, 1])
+def test_rms_norm_kernels_match_plain(cuda, n, h, residual, start, dtype,
+                                      tol):
     """Forward (y, s, rstd) and backward (dx, dw) kernels against their plain
-    versions; widths that are not a multiple of 32, ragged row counts, and
-    a width whose dw partial row needs more than 48 KB of shared memory.
-    dw sums n rows in another order: rtol 1e-4 on top of ``tol``."""
+    versions; widths that are not a multiple of 32 or of a 16-byte vector
+    (1, 129, 1001: the forward's scalar instance), the training steps'
+    widths (2048, 1536) and wider ones (8192, 16384: the looping
+    instance), ragged row counts and one row, a width whose dw partial row
+    needs more than 48 KB of shared memory, and (``start`` 1) x and the
+    residual one element off a 16-byte boundary. dw sums n rows in another
+    order: rtol 1e-4 on top of ``tol``."""
     rng = np.random.default_rng(13)
 
     def rnd(*shape):
-        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
-                                ).to(cuda).to(dtype)
+        t = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                             ).to(cuda).to(dtype)
+        if start:
+            flat = torch.empty(t.numel() + start, dtype=dtype, device=cuda)
+            t = flat[start:].view(t.shape).copy_(t)
+            assert t.data_ptr() % 16 != 0
+        return t
 
     x, res, dy, dr = rnd(n, h), rnd(n, h), rnd(n, h), rnd(n, h)
     w = (1.0 + 0.1 * rnd(h).float()).to(dtype)
@@ -591,12 +714,13 @@ def test_grouped_matmul_sm90_autograd_uses_the_tensor_core_kernels(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dkv", "flash_dq",
-                                    "gmm", "gmm_dgrad", "tgmm", "paged"])
+                                    "gmm", "gmm_dgrad", "tgmm", "paged",
+                                    "flash_decode"])
 def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
-    """Each tensor-core kernel as the first CUDA call of a new host thread
-    (as autograd's worker thread makes it): cuTensorMapEncodeTiled
-    encodes no TMA map in a thread without a current context, so the
-    launcher must bind one first."""
+    """Each tensor-core kernel, and the decode kernel, as the first CUDA
+    call of a new host thread (as autograd's worker thread makes it):
+    cuTensorMapEncodeTiled encodes no TMA map in a thread without a
+    current context, so the launcher must bind one first."""
     import importlib
     import threading
 
@@ -610,9 +734,13 @@ def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
     dout = torch.randn(40, 72, **bf)
     sizes = torch.tensor([15, 25], dtype=torch.int32, device=cuda)
     paged = _paged_case(cuda, torch.bfloat16, 8, 2, 128, 16, 130, (40, 3))
+    q4 = q[:, :1, None]  # [2, 1, 1, 128]: one row for the decode kernel
     calls = {
         "flash_fwd": lambda: fa.flash_attention_fwd_sm90(q, q, q, 0, True,
                                                          0.1),
+        "flash_decode": lambda: fa.flash_decode(q4, q[:, :, None],
+                                                q[:, :, None], 129, True,
+                                                0.1),
         "flash_dkv": lambda: fa.flash_attention_bwd_dkv_sm90(
             q, q, q, q, stats, stats, 0, True, 0.1),
         "flash_dq": lambda: fa.flash_attention_bwd_dq_sm90(

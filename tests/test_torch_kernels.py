@@ -117,17 +117,91 @@ def test_flash_attention_plain_matches_jax(sq, sk, offset, causal):
         assert not np.asarray(o)[:, :-offset].any()
 
 
-def test_flash_attention_paddle_layout_matches_jax():
-    """[b, s, h, d] wrapper with a KV cache longer than the queries."""
+@pytest.mark.parametrize("sq,grad", [(8, False), (1, False), (1, True)])
+def test_flash_attention_paddle_layout_matches_jax(sq, grad):
+    """[b, s, h, d] wrapper with a KV cache longer than the queries, against
+    the JAX ``flash_attention`` (fp32, 1e-5). A single row that needs no
+    gradient takes the decode route on [b, s, h, d] views (q a view into a
+    fused QKV tensor, read in place), counted on ``flash_attention_decode``;
+    with gradients it keeps the ``_FlashAttention`` path, counted on
+    ``flash_attention``, and its q, k, v gradients match jax.vjp within
+    1e-4."""
     rng = np.random.default_rng(8)
-    q = rng.standard_normal((2, 8, 3, 16), dtype=np.float32)
+    qkv = rng.standard_normal((2, sq, 3, 3, 16), dtype=np.float32)
     k = rng.standard_normal((2, 24, 3, 16), dtype=np.float32)
     v = rng.standard_normal((2, 24, 3, 16), dtype=np.float32)
-    ref = jflash.flash_attention(jnp.asarray(q), jnp.asarray(k),
-                                 jnp.asarray(v), causal=True, block_q=8,
-                                 block_k=8)
-    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=True)
+    q = qkv[:, :, 0]
+    go = rng.standard_normal(q.shape, dtype=np.float32)
+
+    def jfn(a, c, e):
+        return jflash.flash_attention(a, c, e, causal=True, block_q=8,
+                                      block_k=8)
+
+    ref, vjp = jax.vjp(jfn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    reset_counters()
+    if grad:
+        (got,), grads = _grads(lambda a, c, e: flash_attention(
+            a, c, e, causal=True), (q, k, v), (go,))
+        for g, r in zip(grads, vjp(jnp.asarray(go))):
+            _close(g, r, rtol=1e-4, atol=1e-4)
+    else:
+        tq = torch.from_numpy(qkv)[:, :, 0]
+        assert sq > 1 or _FA._in_place(tq) is tq
+        with torch.no_grad():
+            got = flash_attention(tq, *map(torch.from_numpy, (k, v)),
+                                  causal=True)
     _close(got, ref)
+    c = counters()
+    decode = sq == 1 and not grad
+    assert c["flash_attention_decode"] == {"launches": 0,
+                                           "plain_calls": int(decode)}
+    assert c["flash_attention"] == {"launches": 0,
+                                    "plain_calls": int(not decode)}
+
+
+def _decode_plans(bh, n):
+    """The split plans the decode kernel would use for ``bh`` rows seeing
+    ``n`` keys (on an H100 and on cards of 8 and 1000 SMs), and the first
+    of them with three more splits, which start past the last visible key
+    and own none."""
+    plans = {_FA.decode_plan(bh, n, sms) for sms in (132, 8, 1000)}
+    n_split, split_len = _FA.decode_plan(bh, n, 132)
+    return sorted(plans) + [(n_split + 3, split_len)]
+
+
+@pytest.mark.parametrize("sk,offset,causal", [
+    (sk, off, True) for sk in (1, 7, 300, 1000)
+    for off in sorted({sk - 1, sk // 2, -1})] + [
+    (sk, 0, False) for sk in (1, 7, 300, 1000)])
+def test_flash_decode_plain_matches_jax(sk, offset, causal):
+    """The decode kernel's plain version (split plan, partials in log2
+    units, fixed-order merge) at one query row against the JAX
+    ``flash_attention_with_lse`` (Pallas interpret mode), o and lse within
+    1e-5, for every split plan of ``_decode_plans``: causal offsets at the
+    end of the cache, half way and below 0 (o = 0 and lse = -1e30
+    exactly), and no mask."""
+    rng = np.random.default_rng(25)
+    b, h, d, scale = 2, 3, 16, 0.3
+    q = rng.standard_normal((b, 1, h, d), dtype=np.float32)
+    k = rng.standard_normal((b, sk, h, d), dtype=np.float32)
+    v = rng.standard_normal((b, sk, h, d), dtype=np.float32)
+
+    def bhsd(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(b * h, -1, d))
+
+    jo, jl = jflash.flash_attention_with_lse(bhsd(q), bhsd(k), bhsd(v),
+                                             offset, causal, scale)
+    jo = np.asarray(jo).reshape(b, h, 1, d).transpose(0, 2, 1, 3)
+    jl = np.asarray(jl).reshape(b, h)
+    n = _FA._visible_keys(sk, offset, causal)
+    for n_split, split_len in _decode_plans(b * h, n):
+        o, lse = _FA.flash_decode_plain(
+            *map(torch.from_numpy, (q, k, v)), offset, causal, scale,
+            n_split=n_split, split_len=split_len)
+        _close(o, jo)
+        _close(lse, jl)
+        if n == 0:
+            assert not o.any() and bool((lse == -1e30).all())
 
 
 @pytest.mark.parametrize("sq,sk", [(6, 4), (9, 3), (4, 4), (3, 8)])
@@ -324,6 +398,44 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
     route = "sm90" if want else "cuda_core"
     assert took == [("flash_attention_bwd_dkv", route),
                     ("flash_attention_bwd_dq", route)]
+
+
+@pytest.mark.parametrize("dtype,d,sq,want", [
+    (torch.bfloat16, 128, 1, "decode"), (torch.float32, 128, 1, "decode"),
+    (torch.bfloat16, 64, 1, "decode"), (torch.bfloat16, 256, 1, "decode"),
+    (torch.float32, 256, 1, "decode"), (torch.bfloat16, 8, 1, "decode"),
+    (torch.float32, 4, 1, "decode"), (torch.bfloat16, 12, 1, "cuda_core"),
+    (torch.float32, 6, 1, "cuda_core"), (torch.bfloat16, 264, 1, "cuda_core"),
+    (torch.float16, 128, 1, "cuda_core"), (torch.bfloat16, 128, 2, "sm90"),
+    (torch.bfloat16, 64, 300, "sm90"), (torch.float32, 128, 2, "cuda_core"),
+    (torch.bfloat16, 32, 64, "cuda_core")])
+def test_forward_route_picks_by_dtype_head_dim_and_rows(dtype, d, sq, want,
+                                                        monkeypatch):
+    """``route`` in plain code: one query row in fp32 or bf16 whose head
+    dim (up to 256) is whole 16-byte chunks goes to the decode kernel, bf16
+    at head dim 64 / 128 with more rows to the tensor-core kernel, the rest
+    to the CUDA-core one. ``flash_attention_fwd`` is driven on meta tensors
+    (neither CPU nor CUDA) with the three kernels' wrappers replaced by
+    recorders, so the choice itself is what runs."""
+    assert _FA.route(dtype, d, sq) == want
+    took = []
+
+    def recorder(name):
+        def rec(q, *_args):
+            took.append(name)
+            return (torch.empty(q.shape[0], 1, 1, d, device="meta"),
+                    torch.empty(q.shape[0], 1, device="meta"))
+        return rec
+
+    for name in ("flash_decode", "flash_attention_fwd_sm90",
+                 "flash_attention_fwd_cuda_core"):
+        monkeypatch.setattr(_FA, name, recorder(name))
+    q = torch.empty(2, sq, d, dtype=dtype, device="meta")
+    k = torch.empty(2, 40, d, dtype=dtype, device="meta")
+    _FA.flash_attention_fwd(q, k, k, 39, True, 0.1)
+    assert took == [{"decode": "flash_decode",
+                     "sm90": "flash_attention_fwd_sm90",
+                     "cuda_core": "flash_attention_fwd_cuda_core"}[want]]
 
 
 @pytest.mark.parametrize("dtype,d,device,error,match", [
