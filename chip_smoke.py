@@ -59,7 +59,9 @@ Phases (each raises on failure, so the process exits non-zero and prints no
 7. train   — bf16, the 1.16B Llama at full width and depth (20 layers,
              recompute), AdamW lr 3e-4 / wd 0.1, batch 4 x 2048: one step's
              gradients through the kernels against the plain-swapped step
-             (and two planted backward faults that the check must catch),
+             (and three planted backward faults that the check must
+             catch, one the inverse RoPE reading its strided cotangent as
+             if it were contiguous),
              then several steps on one batch with the counters reset before
              and read after (each kernel's launches per step as reckoned
              from the code: every flash forward, dK/dV and dQ on the
@@ -83,9 +85,10 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              Adafactor lr 1e-2, batch 4 x 2048: full-depth gradients
              against the plain-swapped step, which replays the routing
              kernel's top-k picks so that no near-tie routes a token
-             elsewhere, with three planted faults that the check must catch
+             elsewhere, with four planted faults that the check must catch
              (routing without its cross-block base, a grouped GEMM forward
-             and a wgrad that drop each group's last partial row tile);
+             and a wgrad that drop each group's last partial row tile, the
+             combine backward's scaled gather without its scale);
              then steps with the
              counters reset before and read after (exact launches, every
              grouped GEMM on the tensor-core kernels, no plain
@@ -175,6 +178,18 @@ def _graph_ms(fn, iters=20, reps=5):
     torch.cuda.synchronize()
     del graph
     return t0.elapsed_time(t1) / (reps * iters)
+
+
+def _release():
+    """Free what a phase left: collect Python's reference cycles first (the
+    serving engine is one, and holds its KV pool), so that the memory is
+    returned now and a later phase's peak does not count it."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _bound(nbytes, flops, dtype_name):
@@ -304,7 +319,7 @@ def _paged_case(label, dtype, S, W, lengths, active, gen, kvh=32,
 
     lib_ms = _time_ms(lib)
     del kd, vd
-    torch.cuda.empty_cache()
+    _release()
     # least work: every distinct visible key position (page id, offset)
     # read once for K and V — idle slots' all-zero tables see the scratch
     # page's 16 keys, however often — q read, out written; 4*hd FLOPs per
@@ -383,7 +398,7 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen):
     lse_err, _ = _compare(f"flash_attention[{label}].lse", lse, rlse,
                           (0.0, 1e-3))
     del ro, rlse, f32
-    torch.cuda.empty_cache()
+    _release()
     ms = _time_ms(lambda: fa.flash_attention_with_lse(q, k, v, off, causal,
                                                       scale))
     plain_ms = _time_ms(lambda: fa.flash_attention_plain(
@@ -542,7 +557,7 @@ def phase_kernels(seed):
                                 [256] + [0] * 7, [0], gen))
         rows.append(_paged_case(f"prefill512-{name}", dtype, 8, 512,
                                 [0] * 8, [0], gen))
-        torch.cuda.empty_cache()
+        _release()
     bf = torch.bfloat16
     # decode at the serving run's mean context
     rows.append(_paged_case("decode370-bfloat16", bf, 8, 1, [370] * 8,
@@ -559,7 +574,7 @@ def phase_kernels(seed):
             ("decode-64keys", 1, [63] * 8, range(8), 32)):
         rows.append(_paged_case(f"{label}-bfloat16", bf, 8, W, lens, active,
                                 gen, kvh=kvh, timed=False))
-    torch.cuda.empty_cache()
+    _release()
     for sq in (128, 512, 2048):
         rows.append(_flash_case(f"causal{sq}-bfloat16", torch.bfloat16, 32,
                                 sq, sq, True, gen))
@@ -597,7 +612,7 @@ def phase_kernels(seed):
                                        causal, gen, layout, timed))
     rows.append(_flash_case("ragged300-bfloat16", torch.bfloat16, 32, 300,
                             300, True, gen))
-    torch.cuda.empty_cache()
+    _release()
     return rows
 
 
@@ -816,7 +831,7 @@ def phase_parity(seed):
            "paged_launches": paged, "generate_decode_launches": decode})
     counts["flash_attention_decode"] = gen_counts["flash_attention_decode"]
     del eng, model
-    torch.cuda.empty_cache()
+    _release()
     return counts
 
 
@@ -960,7 +975,7 @@ def phase_serving(seed):
            "peak_mem_gb": peak_gb, "kernel_counts": counts})
     _emit({"phase": "serving-breakdown", "mean_context": ctx, **breakdown})
     del model
-    torch.cuda.empty_cache()
+    _release()
     return counts
 
 
@@ -1129,7 +1144,7 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         raise RuntimeError(f"flash_bwd_dq[{label}]: rows that see no key "
                            f"have non-zero dq")
     del rdq, f32
-    torch.cuda.empty_cache()
+    _release()
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
             "bh": bh, "sq": sq, "sk": sk, "offset": offset, "causal": causal}
     suffix = "_sm90" if sm90 else ""
@@ -1162,7 +1177,7 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         rows[1]["plain_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, *args),
             iters=3, warmup=1)
-        torch.cuda.empty_cache()
+        _release()
         lib = spread = None
         if not causal or (sq == sk and offset == 0):
             lib, spread = _sdpa_bwd_ms(q, k, v, do, causal)
@@ -1298,14 +1313,35 @@ def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True, start=0):
     return rows
 
 
-def _rope_case(label, dtype, shape, pos_offset, theta, gen, timed=True):
+def _rope_input(gen, shape, dtype, layout):
+    """x [b, s, h, d]: contiguous, ``bhsd`` (a view of a contiguous [b, h,
+    s, d] tensor, the layout of the cotangent that reaches RoPE's backward
+    from the attention) or ``offset1`` (contiguous, starting one element
+    past a 16-byte boundary: the scalar instance)."""
+    import torch
+
+    b, s, h, d = shape
+    if layout == "bhsd":
+        return _rand(gen, (b, h, s, d), dtype).transpose(1, 2)
+    x = _rand(gen, shape, dtype)
+    if layout == "offset1":
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=DEVICE)
+        x = flat[1:].view(shape).copy_(x)
+    return x
+
+
+def _rope_case(label, dtype, shape, pos_offset, theta, gen, timed=True,
+               layout="contiguous"):
     """RoPE forward and inverse kernels against the plain version on fp32
-    copies of the same input."""
+    copies of the same input, read in ``layout`` (:func:`_rope_input`)
+    through the instance ``rope_plan`` names. Timed eager and in CUDA-graph
+    replay, beside a copy of the same bytes (graph)."""
     import torch
 
     from paddle_tpu_torch.kernels import rope
 
-    x = _rand(gen, shape, dtype)
+    x = _rope_input(gen, shape, dtype, layout)
+    plan = rope.rope_plan(x.shape, x.stride(), x.element_size(), x.data_ptr())
     rows = []
     for inverse in (False, True):
         out = rope.rope(x, theta, pos_offset, inverse)
@@ -1313,15 +1349,23 @@ def _rope_case(label, dtype, shape, pos_offset, theta, gen, timed=True):
         ref = rope.rope_plain(x.float(), theta, pos_offset, inverse)
         name = "rope_inverse" if inverse else "rope"
         err = _compare(f"{name}[{label}]", out, ref, _rope_tol(dtype))[0]
+        if not out.is_contiguous():
+            raise RuntimeError(f"{name}[{label}]: result not contiguous")
         row = {"phase": "kernel", "kernel": name, "case": label,
                "dtype": _dname(dtype), "shape": list(shape),
-               "pos_offset": pos_offset, "theta": theta, "max_abs_err": err,
-               "tol": _rope_tol(dtype)}
+               "layout": layout, "plan": plan, "pos_offset": pos_offset,
+               "theta": theta, "max_abs_err": err, "tol": _rope_tol(dtype)}
         if timed:
-            row["kernel_ms"] = _time_ms(
-                lambda: rope.rope(x, theta, pos_offset, inverse))
+            def run():
+                return rope.rope(x, theta, pos_offset, inverse)
+
+            buf = torch.empty(shape, dtype=dtype, device=DEVICE)
+            row["kernel_ms"] = _time_ms(run)
+            row["graph_ms"] = _graph_ms(run)
             row["plain_ms"] = _time_ms(
                 lambda: rope.rope_plain(x, theta, pos_offset, inverse))
+            # a copy moves the same bytes: the card's practical rate
+            row["copy_graph_ms"] = _graph_ms(lambda: buf.copy_(out))
             # one read and one write of x; a rotation (6 FLOPs) per pair
             b_ms, b_by = _bound(2 * x.numel() * x.element_size(),
                                 3 * x.numel(), "float32")
@@ -1349,6 +1393,9 @@ def phase_train_kernels(seed):
                                   residual, gen)
         rows += _rope_case(f"train-{name}", dtype, (4, 2048, 16, 128), 0,
                            1e4, gen)
+        # the cotangent's layout at the training shape, read in place
+        rows += _rope_case(f"train-bhsd-{name}", dtype, (4, 2048, 16, 128),
+                           0, 1e4, gen, layout="bhsd")
         # odd shapes: ragged lengths with a causal offset and a live lse
         # cotangent; rows that see no key; ragged rows and a width that is
         # not a multiple of 32; a position offset near 2048
@@ -1372,7 +1419,19 @@ def phase_train_kernels(seed):
                                   residual, gen, timed=False, start=1)
         rows += _rope_case(f"odd-off2000-{name}", dtype, (3, 37, 5, 64),
                            2000, 1e4, gen, timed=False)
-        torch.cuda.empty_cache()
+        # head dims 6 (not whole vectors) and 16, a start one element off a
+        # 16-byte boundary, a position offset of 2041, theta 5e5
+        for case in ((f"d6-off2041-{name}", (2, 7, 3, 6), 2041, 1e4,
+                      "contiguous"),
+                     (f"d6-bhsd-{name}", (2, 7, 3, 6), 0, 1e4, "bhsd"),
+                     (f"d16-bhsd-{name}", (2, 9, 3, 16), 2041, 1e4, "bhsd"),
+                     (f"offset1-{name}", (3, 17, 5, 128), 2041, 1e4,
+                      "offset1"),
+                     (f"theta5e5-{name}", (1, 2048, 2, 128), 0, 5e5,
+                      "contiguous")):
+            rows += _rope_case(case[0], dtype, *case[1:4], gen, timed=False,
+                               layout=case[4])
+        _release()
     return rows
 
 
@@ -1428,7 +1487,11 @@ def _plain_swaps():
 def _faulty(fault):
     """A planted backward fault: ``dq_unscaled`` drops the softmax scale
     from dQ (the kernel's result times sqrt(d)); ``rope_no_sign`` applies
-    the forward rotation, not its inverse, to RoPE's cotangent."""
+    the forward rotation, not its inverse, to RoPE's cotangent;
+    ``rope_reads_contiguous`` has the inverse read the strided cotangent
+    (a [b, s, h, d] view of [b, h, s, d]) as if it were contiguous."""
+    import torch
+
     from paddle_tpu_torch.kernels import rope
 
     fa = _flash_module()
@@ -1437,8 +1500,16 @@ def _faulty(fault):
         return [(fa, "flash_attention_bwd_dq",
                  lambda *a: real(*a) / a[-1])]
     real = rope.rope
-    return [(rope, "rope", lambda x, theta, pos, inverse:
-             real(x, theta, pos, False))]
+    if fault == "rope_no_sign":
+        return [(rope, "rope", lambda x, theta, pos, inverse:
+                 real(x, theta, pos, False))]
+
+    def reads_contiguous(x, theta, pos, inverse):
+        if inverse and not x.is_contiguous():
+            x = x.as_strided(x.shape, torch.empty(x.shape,
+                                                  device="meta").stride())
+        return real(x, theta, pos, inverse)
+    return [(rope, "rope", reads_contiguous)]
 
 
 class _swapped:
@@ -1568,7 +1639,7 @@ def phase_train_parity(seed):
     if not curve_k[-1] < curve_k[0]:
         raise RuntimeError(f"train-parity: loss did not fall {curve_k}")
     del model, state
-    torch.cuda.empty_cache()
+    _release()
     return counts
 
 
@@ -1669,6 +1740,20 @@ def _train_breakdown(model, opt, ids):
             "groups_ms": groups, "phases": phases}
 
 
+# device ms per step of the RoPE and "other" (elementwise) groups with the
+# earlier RoPE kernel (angles per element, a transposing copy of the
+# cotangent before each inverse) and the combine backward's gate scale as
+# three elementwise passes: the profiled steps on an H100 80GB HBM3 at
+# 700 W (PERF.md, section 5)
+EARLIER_GROUPS_MS = {"train": {"rope": 6.7, "other": 34.6},
+                     "moe-train": {"rope": 4.1, "other": 34.5}}
+
+
+def _beside_earlier(path, breakdown):
+    return {g: {"ms": breakdown["groups_ms"].get(g, 0.0), "earlier_ms": ms}
+            for g, ms in EARLIER_GROUPS_MS[path].items()}
+
+
 def phase_train(seed):
     import math
 
@@ -1695,14 +1780,14 @@ def phase_train(seed):
                         device=DEVICE)
 
     # gradients at full depth, on the initial weights: kernels against the
-    # plain-swapped step, and two planted backward faults that must fail
+    # plain-swapped step, and three planted backward faults that must fail
     with _swapped(_plain_swaps()):
         loss_p, grads_p = _loss_and_grads(model, ids)
     loss_k, grads_k = _loss_and_grads(model, ids)
     sound = _grad_errors(grads_k, grads_p)
     del grads_k
     faults = {}
-    for fault in ("dq_unscaled", "rope_no_sign"):
+    for fault in ("dq_unscaled", "rope_no_sign", "rope_reads_contiguous"):
         with _swapped(_faulty(fault)):
             _l, grads_f = _loss_and_grads(model, ids)
         errs = _grad_errors(grads_f, grads_p)
@@ -1711,7 +1796,7 @@ def phase_train(seed):
                          "worst": _worst(errs, 1),
                          "caught": max(errs.values()) > TRAIN_GRAD_TOL}
     del grads_p
-    torch.cuda.empty_cache()
+    _release()
     check = {"phase": "train-grad-check", "layers": cfg.num_hidden_layers,
              "dtype": "bfloat16", "loss_kernels": loss_k,
              "loss_plain": loss_p, "grad_rel_l2_max": max(sound.values()),
@@ -1761,9 +1846,10 @@ def phase_train(seed):
            "tokens_per_s": tok_s, "mfu": mfu, "peak_mem_gb": peak_gb,
            "kernel_counts": counts,
            "expected_launches_per_step": per_step})
-    _emit({"phase": "train-breakdown", **breakdown})
+    _emit({"phase": "train-breakdown", **breakdown,
+           "beside_earlier": _beside_earlier("train", breakdown)})
     del model, opt, step
-    torch.cuda.empty_cache()
+    _release()
     return counts
 
 
@@ -1938,11 +2024,16 @@ def _route_case(label, dtype, n, h, e, k, seed, special=False, timed=True):
 
 
 def _rows_case(label, dtype, n, k, h, gen, timed=True):
-    """Gather (exact) and combine (``_tol``) kernels against their plain
-    versions: gather [n * k] rows of a [n, h] source, each source row k
-    times in a shuffled order (as the dispatch's ``g2f // k`` does), and
-    combine [n * k, h] rows into [n, h] through a permutation with fp32
-    gates."""
+    """Gather (exact), scaled gather (exact) and combine (``_tol``) kernels
+    against their plain versions: gather [n * k] rows of a [n, h] source,
+    each source row k times in a shuffled order (as the dispatch's ``g2f //
+    k`` does), the same with an fp32 row scale (the combine's backward:
+    gathered cotangent times each row's gate), and combine [n * k, h] rows
+    into [n, h] through a permutation with fp32 gates. Timed: the gather
+    eager and in graph replay beside ``index_select`` (both ways) and two
+    copies (graph): one that moves the bytes the bound counts, one of the
+    output; the scaled gather both ways beside the composition it
+    replaces (gather, fp32 copy, multiply, cast)."""
     import torch
     import torch.nn.functional as TF
 
@@ -1951,48 +2042,123 @@ def _rows_case(label, dtype, n, k, h, gen, timed=True):
     src = _rand(gen, (n, h), dtype)
     idx = (torch.randperm(n * k, generator=gen, device=DEVICE) // k).to(
         torch.int32)
+    scale = torch.rand(n * k, generator=gen, device=DEVICE)
     y = _rand(gen, (n * k, h), dtype)
     dest2 = torch.randperm(n * k, generator=gen, device=DEVICE).to(
         torch.int32).view(n, k)
     gates = torch.rand(n, k, generator=gen, device=DEVICE)
     out = md.gather_rows(src, idx)
+    out_s = md.gather_rows(src, idx, scale)
     comb = md.combine_rows(y, gates, dest2)
     torch.cuda.synchronize()
     if not torch.equal(out, md.gather_rows_plain(src, idx)):
         raise RuntimeError(f"moe_gather[{label}]: differs from the plain "
                            f"version")
+    if not torch.equal(out_s, md.gather_rows_plain(src, idx, scale)):
+        raise RuntimeError(f"moe_gather_scaled[{label}]: differs from the "
+                           f"plain version")
     err = _compare(f"moe_combine[{label}]", comb,
                    md.combine_rows_plain(y.float(), gates, dest2),
                    _tol(dtype))[0]
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
             "n": n, "top_k": k, "h": h}
     rows = [dict(base, kernel="moe_gather", max_abs_err=0.0, tol="exact"),
+            dict(base, kernel="moe_gather_scaled", max_abs_err=0.0,
+                 tol="exact"),
             dict(base, kernel="moe_combine", max_abs_err=err,
                  tol=_tol(dtype))]
     if timed:
         esz = src.element_size()
-        # the gather reads each source row that idx names once
+        # the gather reads each source row that idx names once (and the
+        # scaled one its fp32 scale)
         rows_read = torch.unique(idx).numel()
-        b_g = _bound((rows_read + n * k) * h * esz + n * k * 4, 0, "float32")
+        g_bytes = (rows_read + n * k) * h * esz + n * k * 4
+        b_g = _bound(g_bytes, 0, "float32")
+        b_s = _bound(g_bytes + n * k * 4, n * k * h, "float32")
         b_c = _bound((n * k * h + n * h) * esz + n * k * 8, 2 * n * k * h,
                      "float32")
+        # a copy that moves the bytes the bound counts, and one of the
+        # output: the card's practical rates for this traffic
+        half_rows = (rows_read + n * k) // 2
+        a_in = torch.empty(half_rows, h, dtype=dtype, device=DEVICE)
+        a_out = torch.empty_like(a_in)
+        o_buf = torch.empty_like(out)
+
+        def gather():
+            return md.gather_rows(src, idx)
+
+        def scaled():
+            return md.gather_rows(src, idx, scale)
+
+        def composition():
+            return (md.gather_rows(src, idx).float() *
+                    scale[:, None]).to(dtype)
+
+        def index_select():
+            return torch.index_select(src, 0, idx)
+
+        rows[0].update(kernel_ms=_time_ms(gather), graph_ms=_graph_ms(gather),
+                       plain_ms=_time_ms(
+                           lambda: md.gather_rows_plain(src, idx)),
+                       library_ms=_time_ms(index_select),
+                       library_graph_ms=_graph_ms(index_select),
+                       library="torch.index_select",
+                       copy_graph_ms=_graph_ms(lambda: a_out.copy_(a_in)),
+                       copy_out_graph_ms=_graph_ms(lambda: o_buf.copy_(out)),
+                       bound_ms=b_g[0], bound_by=b_g[1])
+        rows[1].update(kernel_ms=_time_ms(scaled), graph_ms=_graph_ms(scaled),
+                       plain_ms=_time_ms(
+                           lambda: md.gather_rows_plain(src, idx, scale)),
+                       composition_ms=_time_ms(composition),
+                       composition_graph_ms=_graph_ms(composition),
+                       library_ms=None, bound_ms=b_s[0], bound_by=b_s[1])
         # the combine's yardstick: embedding_bag's weighted sum of the
         # rows that each token's k indices name (gates in y's dtype)
         bags, weights = dest2.long(), gates.to(dtype)
-        rows[0].update(kernel_ms=_time_ms(lambda: md.gather_rows(src, idx)),
-                       plain_ms=_time_ms(
-                           lambda: md.gather_rows_plain(src, idx)),
-                       library_ms=_time_ms(
-                           lambda: torch.index_select(src, 0, idx)),
-                       library="torch.index_select",
-                       bound_ms=b_g[0], bound_by=b_g[1])
-        rows[1].update(kernel_ms=_time_ms(
+        rows[2].update(kernel_ms=_time_ms(
             lambda: md.combine_rows(y, gates, dest2)),
             plain_ms=_time_ms(lambda: md.combine_rows_plain(y, gates, dest2)),
             library_ms=_time_ms(lambda: TF.embedding_bag(
                 bags, y, per_sample_weights=weights, mode="sum")),
             library="torch.nn.functional.embedding_bag",
             bound_ms=b_c[0], bound_by=b_c[1])
+    for row in rows:
+        _emit(row)
+    return rows
+
+
+def _gather_case(label, dtype, n_src, n_out, h, gen, special=False):
+    """The gather, unscaled and scaled, equal to its plain version at an
+    odd shape; ``special``: indices -1 and n_src (zero rows) and scales
+    of 0, -0 and below 0 in the first rows."""
+    import torch
+
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    src = _rand(gen, (n_src, h), dtype)
+    idx = torch.randint(0, n_src, (n_out,), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    scale = torch.randn(n_out, generator=gen, device=DEVICE)
+    if special:
+        idx[:4] = torch.tensor([-1, n_src, 0, n_src - 1], device=DEVICE)
+        scale[2:6] = torch.tensor([0.0, -0.0, -1.5, 0.0], device=DEVICE)
+    out = md.gather_rows(src, idx)
+    out_s = md.gather_rows(src, idx, scale)
+    torch.cuda.synchronize()
+    for name, got, ref in (
+            ("moe_gather", out, md.gather_rows_plain(src, idx)),
+            ("moe_gather_scaled", out_s,
+             md.gather_rows_plain(src, idx, scale))):
+        if not torch.equal(got, ref):
+            raise RuntimeError(f"{name}[{label}]: differs from the plain "
+                               f"version")
+        if special and got[:2].any():
+            raise RuntimeError(f"{name}[{label}]: an index outside the "
+                               f"rows gave a row that is not zero")
+    rows = [{"phase": "kernel", "kernel": name, "case": label,
+             "dtype": _dname(dtype), "n_src": n_src, "n_out": n_out, "h": h,
+             "special": special, "max_abs_err": 0.0, "tol": "exact"}
+            for name in ("moe_gather", "moe_gather_scaled")]
     for row in rows:
         _emit(row)
     return rows
@@ -2040,7 +2206,7 @@ def phase_moe_kernels(seed):
         rows += _rows_case(f"moe-{name}", dtype, n, k, s, gen)
         rows += _gmm_case(f"moe-gate-{name}", dtype, counts, s, i, gen)
         rows += _gmm_case(f"moe-down-{name}", dtype, counts, i, s, gen)
-        torch.cuda.empty_cache()
+        _release()
         # odd shapes: 37 tokens (not a multiple of the routing block of 32)
         # with an expert that gets no row and one that gets one; top_k 1
         # on 16 experts; 128 experts at top-2; top-8; groups empty, of one
@@ -2053,11 +2219,21 @@ def phase_moe_kernels(seed):
                                     timed=False)[0])
         rows += _rows_case(f"odd37-k8-h8-{name}", dtype, 37, 8, 8, gen,
                            timed=False)
+        # gather: one 16-byte vector a row (h 8 in bf16), the looping
+        # instance (h 4096), one output row, indices outside the rows and
+        # scales of 0 and below 0
+        for case in ((f"h8-{name}", 37, 74, 8, False),
+                     (f"h4096-{name}", 50, 90, 4096, False),
+                     (f"one-row-{name}", 5, 1, 1536, False),
+                     (f"outside-{name}", 40, 80, 1536, True),
+                     (f"outside-h8-{name}", 9, 20, 8, True)):
+            rows += _gather_case(case[0], dtype, *case[1:4], gen,
+                                 special=case[4])
         rows += _gmm_case(f"odd-groups-{name}", dtype, [0, 1, 300, 7, 0, 129],
                           64, 136, gen, timed=False)
         rows += _gmm_case(f"odd-128groups-{name}", dtype, [5] * 128, 16, 24,
                           gen, timed=False)
-        torch.cuda.empty_cache()
+        _release()
     return rows
 
 
@@ -2124,7 +2300,9 @@ def _route_replay(tape):
 
 
 def _moe_faulty(fault):
-    """A planted fault: ``route_no_base`` drops the cross-block base from
+    """A planted fault: ``gather_scale_dropped`` has the combine
+    backward's scaled gather ignore its scale (the gates);
+    ``route_no_base`` drops the cross-block base from
     the routing kernel's positions (each block's positions restart at 0);
     ``gmm_drops_tail`` zeroes the grouped GEMM forward's output rows in each
     group's last partial row tile (``TILE_ROWS`` rows); ``wgrad_drops_tail``
@@ -2135,6 +2313,10 @@ def _moe_faulty(fault):
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     from paddle_tpu_torch.kernels import moe_dispatch as md
 
+    if fault == "gather_scale_dropped":
+        real_gather = md.gather_rows
+        return [(md, "gather_rows",
+                 lambda src, idx, scale=None: real_gather(src, idx))]
     if fault == "route_no_base":
         real = md.route
 
@@ -2238,7 +2420,7 @@ def phase_moe_train_parity(seed):
     if not curve_k[-1] < curve_k[0]:
         raise RuntimeError(f"moe-train-parity: loss did not fall {curve_k}")
     del model, state
-    torch.cuda.empty_cache()
+    _release()
     return counts
 
 
@@ -2265,8 +2447,9 @@ def phase_moe_train(seed):
                         device=DEVICE)
 
     # gradients at full depth on the initial weights: kernels against the
-    # plain-swapped step fed the kernels' routing picks; three planted
-    # faults (routing, grouped GEMM forward, wgrad) must exceed the limit
+    # plain-swapped step fed the kernels' routing picks; four planted
+    # faults (routing, grouped GEMM forward, wgrad, the gather's scale) must
+    # exceed the limit
     tape = []
     with _swapped(_route_recorder(tape)):
         loss_k, grads_k = _loss_and_grads(model, ids)
@@ -2279,7 +2462,8 @@ def phase_moe_train(seed):
     sound = _grad_errors(grads_k, grads_p)
     del grads_k
     faults = {}
-    for fault in ("route_no_base", "gmm_drops_tail", "wgrad_drops_tail"):
+    for fault in ("route_no_base", "gmm_drops_tail", "wgrad_drops_tail",
+                  "gather_scale_dropped"):
         with _swapped(_moe_faulty(fault)):
             _l, grads_f = _loss_and_grads(model, ids)
         errs = _grad_errors(grads_f, grads_p)
@@ -2288,7 +2472,7 @@ def phase_moe_train(seed):
                          "worst": _worst(errs, 1),
                          "caught": max(errs.values()) > MOE_TRAIN_GRAD_TOL}
     del grads_p
-    torch.cuda.empty_cache()
+    _release()
     L = cfg.num_hidden_layers
     experts_by_layer = [max(v for n, v in sound.items()
                             if n.startswith(f"llama.layers.{li}.mlp.experts."))
@@ -2348,9 +2532,10 @@ def phase_moe_train(seed):
            "tokens_per_s": tok_s, "mfu_activated": mfu,
            "peak_mem_gb": peak_gb, "kernel_counts": counts,
            "expected_launches_per_step": per_step})
-    _emit({"phase": "moe-train-breakdown", **breakdown})
+    _emit({"phase": "moe-train-breakdown", **breakdown,
+           "beside_earlier": _beside_earlier("moe-train", breakdown)})
     del model, opt, step
-    torch.cuda.empty_cache()
+    _release()
     set_flags({"FLAGS_moe_dispatch": "index"})
     return counts
 
@@ -2432,11 +2617,14 @@ def _kernels_line(rows, paths):
          "grouped_matmul_sm90.cu", "paddle_tpu/kernels/grouped_matmul.py:55",
          ["grouped_matmul_wgrad_sm90"]),
     ]
+    # a second function of the same kernel: (TPU kernel it replaces where
+    # another, its name; launches from its own counter where it has one)
     also = {"rms_norm": ("paddle_tpu/kernels/pallas/rmsnorm.py:47",
                          "rms_norm_residual"),
             "rms_norm_bwd": ("paddle_tpu/kernels/pallas/rmsnorm.py:127",
                              "rms_norm_residual_bwd"),
-            "rope": (None, "rope_inverse")}
+            "rope": (None, "rope_inverse"),
+            "moe_gather": (None, "moe_gather_scaled")}
     out = []
     for name, case, src, replaces, counters in table:
         mine = [x for x in rows if x["kernel"] in counters]
@@ -2453,22 +2641,35 @@ def _kernels_line(rows, paths):
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": case}
-        for key in ("cuda_core_ms", "library_ms_spread", "graph_ms",
-                    "cuda_core_graph_ms", "library_graph_ms"):
+        extras = ("cuda_core_ms", "library_ms_spread", "graph_ms",
+                  "cuda_core_graph_ms", "library_graph_ms", "copy_graph_ms",
+                  "copy_out_graph_ms", "composition_ms",
+                  "composition_graph_ms")
+        for key in extras:
             if r.get(key) is not None:
                 entry[key] = r[key]
         if name in also:
             also_replaces, variant = also[name]
-            v = next(x for x in mine if x["kernel"] == variant and
+            v = next(x for x in rows if x["kernel"] == variant and
                      x["case"] == case)
             entry["variant"] = {
                 "name": variant, "replaces": also_replaces,
-                "launches": sum(c[variant]["launches"]
-                                for c in paths.values()),
                 "ms": v["kernel_ms"], "plain_ms": v["plain_ms"],
                 "bound_ms": v["bound_ms"], "library_ms": v["library_ms"]}
-            if v.get("graph_ms") is not None:
-                entry["variant"]["graph_ms"] = v["graph_ms"]
+            if variant in counters:
+                entry["variant"]["launches"] = sum(
+                    c[variant]["launches"] for c in paths.values())
+            for key in extras:
+                if v.get(key) is not None:
+                    entry["variant"][key] = v[key]
+        if name == "rope":
+            # the inverse as the training step runs it: on the cotangent's
+            # [b, s, h, d] view of [b, h, s, d], read in place
+            v = next(x for x in rows if x["kernel"] == "rope_inverse" and
+                     x["case"] == "train-bhsd-bfloat16")
+            entry["inverse_strided"] = {
+                key: v[key] for key in ("case", "kernel_ms", "graph_ms",
+                                        "copy_graph_ms", "bound_ms")}
         out.append(entry)
     return out
 

@@ -27,7 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["library", "kernel", "check", "launch", "build_info", "Counts"]
+__all__ = ["library", "kernel", "check", "launch", "build_info", "Counts",
+           "sm_count"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -42,6 +43,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _fns: Dict[str, object] = {}
 _info: Dict[str, object] = {}
+_sms: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -177,6 +179,19 @@ def launch(fn, what: str, device, *args) -> None:
         with torch.cuda.device(idx):
             err = fn(*args, torch._C._cuda_getCurrentRawStream(idx))
     check(err, what)
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of the CUDA ``device`` (a
+    ``torch.device`` with its index), which the launchers size their grids
+    from; read once per device."""
+    n = _sms.get(device.index)
+    if n is None:
+        import torch
+
+        n = _sms[device.index] = torch.cuda.get_device_properties(
+            device.index).multi_processor_count
+    return n
 
 
 class Counts:

@@ -58,7 +58,6 @@ fp32 plain version.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -366,11 +365,6 @@ def _in_place(t):
     return _tma_ready(t)
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def flash_decode(q, k, v, offset, causal, scale, with_lse=True):
     """One query row per (batch, head), paddle layout: ``q`` [b, 1, h, d],
     ``k``/``v`` [b, sk, h, d] -> (o [b, 1, h, d] in q's dtype, lse [b, h]
@@ -404,7 +398,7 @@ def flash_decode(q, k, v, offset, causal, scale, with_lse=True):
                          f"in whole 16-byte chunks, got {d} in {q.dtype}")
     q, k, v = _in_place(q), _in_place(k), _in_place(v)
     n = _visible_keys(k.shape[1], offset, causal)
-    n_split, split_len = decode_plan(b * h, n, _sms(q.device.index))
+    n_split, split_len = decode_plan(b * h, n, _build.sm_count(q.device))
     o = torch.empty(b, 1, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, dtype=torch.float32, device=q.device) \
         if with_lse else None

@@ -14,7 +14,9 @@ on a CPU tensor:
   and ``ce`` (top-1 counts). Bitwise deterministic, so that activation
   recompute routes every token as the first forward did.
 - :func:`gather_rows` / :func:`gather_rows_plain`: ``out[i] =
-  src[idx[i]]``.
+  src[idx[i]]`` (a zero row for an index outside the rows), optionally
+  times an fp32 row scale rounded once to src's dtype (the combine's
+  backward scales the gathered cotangent by the gates in the same pass).
 - :func:`combine_rows` / :func:`combine_rows_plain`: ``out[t] = sum_c
   gates[t, c] * y[dest2[t, c]]`` in fp32.
 
@@ -187,18 +189,27 @@ def fused_route(xt, wg, top_k):
 # row movement
 # ---------------------------------------------------------------------------
 
-def gather_rows_plain(src, idx):
-    """``src[idx]`` by rows."""
-    return src[idx.long()]
+def gather_rows_plain(src, idx, scale=None):
+    """``src[idx]`` by rows, a zero row where an index lies outside
+    ``[0, n_src)``; with ``scale`` [n] the rows times it in fp32, rounded
+    once to src's dtype."""
+    i = idx.long()
+    inside = (i >= 0) & (i < src.shape[0])
+    out = torch.where(inside[:, None], src[torch.where(inside, i, 0)],
+                      src.new_zeros(()))
+    if scale is None:
+        return out
+    return (out.float() * scale.float()[:, None]).to(src.dtype)
 
 
-def gather_rows(src, idx):
-    """``out[i] = src[idx[i]]`` for ``src`` [n_src, h], ``idx`` [n]: the
+def gather_rows(src, idx, scale=None):
+    """``out[i] = src[idx[i]]`` for ``src`` [n_src, h], ``idx`` [n], times
+    ``scale[i]`` (fp32 [n], rounded once to src's dtype) when given: the
     gather kernel on CUDA (an index outside the rows gives a zero row), the
     plain version on the CPU."""
     if src.device.type == "cpu":
         COUNTS_GATHER.plain()
-        return gather_rows_plain(src, idx)
+        return gather_rows_plain(src, idx, scale)
     _check_cuda(src, "gather_rows")
     if src.dim() != 2 or idx.dim() != 1 or idx.device != src.device:
         raise ValueError(f"gather_rows: src {tuple(src.shape)} on "
@@ -208,15 +219,27 @@ def gather_rows(src, idx):
     if row_bytes % 16:
         raise ValueError(f"gather_rows kernel moves rows of a multiple of "
                          f"16 bytes, got {row_bytes}")
+    if scale is not None:
+        if src.dtype not in _DTYPES:
+            raise TypeError(f"gather_rows kernel scales float32 or bfloat16 "
+                            f"rows, got {src.dtype}")
+        if tuple(scale.shape) != tuple(idx.shape) or \
+                scale.device != src.device:
+            raise ValueError(f"gather_rows: scale {tuple(scale.shape)} on "
+                             f"{scale.device} for idx {tuple(idx.shape)}")
+        scale = scale.float().contiguous()
     src = src.contiguous()
+    if src.data_ptr() % 16:  # a view that starts off a vector boundary
+        src = src.clone()
     idx = idx.to(torch.int32).contiguous()
     out = torch.empty(idx.shape[0], src.shape[1], dtype=src.dtype,
                       device=src.device)
-    fn = _build.kernel("pt_moe_gather", [ctypes.c_void_p] * 3 +
-                       [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    _build.launch(fn, "pt_moe_gather", src.device, src.data_ptr(),
-                  idx.data_ptr(), out.data_ptr(), idx.shape[0], src.shape[0],
-                  row_bytes)
+    fn = _build.kernel("pt_moe_gather_rows", [ctypes.c_void_p] * 4 +
+                       [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    _build.launch(fn, "pt_moe_gather_rows", src.device, src.data_ptr(),
+                  idx.data_ptr(), None if scale is None else scale.data_ptr(),
+                  out.data_ptr(), idx.shape[0], src.shape[0], row_bytes,
+                  _DTYPES.get(src.dtype, 0), _build.sm_count(src.device))
     COUNTS_GATHER.launched()
     return out
 
@@ -293,8 +316,8 @@ class _FusedCombine(torch.autograd.Function):
         n, k = dest2.shape
         d_out = d_out.contiguous()
         gate_sorted = gates.reshape(n * k)[g2f.long()]
-        d_ys = (gather_rows(d_out, g2f // k).float() *
-                gate_sorted[:, None]).to(ys.dtype)
+        # the gathered cotangent times each row's gate, in the gather's pass
+        d_ys = gather_rows(d_out, g2f // k, gate_sorted).to(ys.dtype)
         y_rows = gather_rows(ys, dest2.reshape(n * k)).reshape(n, k, -1)
         d_gates = (d_out[:, None, :].float() * y_rows.float()).sum(dim=-1)
         return d_ys, d_gates.to(gates.dtype), None, None

@@ -261,9 +261,7 @@ def paged_attention_decode(q, k_arena, v_arena, tables, pos, scale):
         "paged_attention_decode", q, k_arena, v_arena, tables, pos)
     q = _q_in_place(q)
     PL, B = k_arena.shape[1], tables.shape[1]
-    n_split = decode_splits(
-        S * kvh, B,
-        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    n_split = decode_splits(S * kvh, B, _build.sm_count(q.device))
     out = torch.empty(S, W, nh, hd, dtype=q.dtype, device=q.device)
     # [S, nh, n_split, hd] partial o, then [S, nh, n_split, 2] (m, l)
     n_o = S * nh * n_split * hd

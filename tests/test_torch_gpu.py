@@ -598,6 +598,70 @@ def test_rope_kernel_matches_plain(cuda, shape, pos_offset, theta, dtype,
         _close(back.cpu(), x.cpu(), (0.0, 1e-5))
 
 
+def _strided_rope_input(cuda, dtype, shape, layout, seed):
+    """x [b, s, h, d] in one of the layouts the kernel reads in place:
+    ``bhsd`` (a view of a contiguous [b, h, s, d] tensor, the cotangent
+    that reaches RoPE's backward from the attention) or ``offset1`` (a
+    contiguous tensor that starts one element past a 16-byte boundary)."""
+    rng = np.random.default_rng(seed)
+    b, s, h, d = shape
+    if layout == "bhsd":
+        a = rng.standard_normal((b, h, s, d), dtype=np.float32)
+        return torch.from_numpy(a).to(cuda).to(dtype).transpose(1, 2)
+    a = rng.standard_normal(shape, dtype=np.float32)
+    flat = torch.empty(a.size + 1, dtype=dtype, device=cuda)
+    return flat[1:].view(shape).copy_(torch.from_numpy(a).to(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", _TOLS)
+@pytest.mark.parametrize("shape,layout,plan", [
+    ((4, 64, 16, 128), "bhsd", "vector"), ((2, 9, 3, 16), "bhsd", "vector"),
+    ((3, 17, 5, 128), "offset1", "scalar"), ((2, 7, 3, 6), "bhsd", "scalar"),
+    ((2, 7, 3, 6), "offset1", "scalar")])
+def test_rope_kernel_reads_strided_and_unaligned_rows(cuda, shape, layout,
+                                                      plan, dtype, tol):
+    """Forward and inverse on a strided or misaligned x, each against the
+    plain version, through the instance ``rope_plan`` names; the result
+    is contiguous [b, s, h, d]."""
+    x = _strided_rope_input(cuda, dtype, shape, layout, 15)
+    assert not x.is_contiguous() or x.data_ptr() % 16
+    assert rope.rope_plan(x.shape, x.stride(), x.element_size(),
+                          x.data_ptr()) == plan
+    for inverse in (False, True):
+        got = rope.rope(x, 1e4, 2041, inverse)
+        torch.cuda.synchronize()
+        assert got.is_contiguous() and got.shape == x.shape
+        ref = rope.rope_plain(x.float(), 1e4, 2041, inverse)
+        _close(got.float().cpu(), ref.cpu(), (tol[0], 1e-3))
+
+
+@pytest.mark.gpu
+def test_rope_backward_reads_the_transposed_cotangent_in_place(cuda):
+    """``rope_apply``'s backward on the cotangent the attention leaves (a
+    [b, s, h, d] view of [b, h, s, d]) launches one CUDA kernel, the RoPE
+    kernel, and no copy, and equals the inverse rotation of that
+    cotangent."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(2, 64, 4, 128, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    y = rope.rope_apply(x, 1e4, 0)
+    g = _strided_rope_input(cuda, torch.bfloat16, (2, 64, 4, 128), "bhsd",
+                            16)
+    torch.cuda.synchronize()
+    reset_counters()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        (dx,) = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "rope_kernel" in names[0], names
+    assert counters()["rope_inverse"]["launches"] == 1
+    ref = rope.rope_plain(g.float(), 1e4, 0, True)
+    _close(dx.float().cpu(), ref.cpu(), (2.0 ** -8, 1e-3))
+
+
 # -- MoE kernels ---------------------------------------------------------------
 
 def _gmm_inputs(cuda, dtype, sizes, k, n, seed):
@@ -858,6 +922,52 @@ def test_gather_and_combine_kernels_match_plain(cuda, n, k, h, dtype, tol):
     assert torch.equal(out, md.gather_rows_plain(src, idx))
     _close(comb.float().cpu(),
            md.combine_rows_plain(y.float(), gates, dest2).cpu(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n_src,n_out,h,special", [
+    (37, 74, 8, False), (300, 600, 1536, False), (50, 90, 4096, False),
+    (5, 1, 1536, False), (40, 80, 1536, True), (9, 20, 8, True)])
+def test_gather_kernel_cases_match_plain(cuda, n_src, n_out, h, special,
+                                         dtype):
+    """The gather, unscaled and with an fp32 row scale, equals its plain
+    version exactly: one 16-byte vector a row (h 8 bf16), the step's
+    width, the looping instance (h 4096), one output row, and
+    (``special``) indices -1 and n_src (zero rows) with scales of 0 and
+    below 0. The unscaled entry ``pt_moe_gather`` gives the same rows."""
+    import ctypes
+
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    rng = np.random.default_rng(19)
+    src = torch.from_numpy(rng.standard_normal((n_src, h), dtype=np.float32)
+                           ).to(cuda).to(dtype)
+    idx = rng.integers(0, n_src, size=n_out).astype(np.int32)
+    scale = rng.standard_normal(n_out).astype(np.float32)
+    if special:
+        idx[:4] = [-1, n_src, 0, n_src - 1]
+        scale[2:6] = [0.0, -0.0, -1.5, 0.0]
+    idx = torch.from_numpy(idx).to(cuda)
+    scale = torch.from_numpy(scale).to(cuda)
+    reset_counters()
+    out = md.gather_rows(src, idx)
+    out_s = md.gather_rows(src, idx, scale)
+    torch.cuda.synchronize()
+    assert counters()["moe_gather"]["launches"] == 2
+    assert torch.equal(out, md.gather_rows_plain(src, idx))
+    assert torch.equal(out_s, md.gather_rows_plain(src, idx, scale))
+    if special:
+        assert not out[:2].any() and not out_s[:2].any()
+    old = torch.empty_like(out)
+    fn = _build.kernel("pt_moe_gather", [ctypes.c_void_p] * 3 +
+                       [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    _build.launch(fn, "pt_moe_gather", src.device, src.data_ptr(),
+                  idx.data_ptr(), old.data_ptr(), n_out, n_src,
+                  h * src.element_size())
+    torch.cuda.synchronize()
+    assert torch.equal(old, out)
 
 
 @pytest.mark.gpu

@@ -204,6 +204,22 @@ def test_flash_decode_plain_matches_jax(sk, offset, causal):
             assert not o.any() and bool((lse == -1e30).all())
 
 
+def test_flash_decode_runs_on_every_call():
+    """Two calls on the same tensors are two runs (two plain calls here, two
+    launches on the card), and the second sees the cache as it is then: a
+    memoized wrapper would hand back the first result."""
+    rng = np.random.default_rng(26)
+    q = torch.from_numpy(rng.standard_normal((1, 1, 2, 16), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 5, 2, 16), np.float32))
+    reset_counters()
+    o1, _ = _FA.flash_decode(q, k, k, 4, True, 0.25)
+    k.mul_(2.0)
+    o2, _ = _FA.flash_decode(q, k, k, 4, True, 0.25)
+    assert counters()["flash_attention_decode"]["plain_calls"] == 2
+    ref, _ = _FA.flash_decode_plain(q, k, k, 4, True, 0.25)
+    assert not torch.equal(o1, o2) and torch.equal(o2, ref)
+
+
 @pytest.mark.parametrize("sq,sk", [(6, 4), (9, 3), (4, 4), (3, 8)])
 def test_causal_sdpa_matches_jax_when_queries_outnumber_keys(sq, sk):
     """``scaled_dot_product_attention(is_causal=True)`` against the JAX
@@ -518,3 +534,60 @@ def test_rope_matches_jax(pos_offset, theta):
     assert c["rope_inverse"] == {"launches": 0, "plain_calls": 1}
     with pytest.raises(ValueError, match="even"):
         rope_apply(torch.zeros(1, 2, 1, 3))
+
+
+def test_rope_grad_on_the_attention_layout_matches_jax(monkeypatch):
+    """The cotangent reaches RoPE's backward as the attention wrapper
+    leaves it: a [b, s, h, d] view of a [b, h, s, d] tensor, not
+    contiguous. The gradient, read through those strides, against
+    ``jax.vjp`` of the Pallas kernel in interpret mode (1e-5)."""
+    rope_mod = importlib.import_module("paddle_tpu_torch.kernels.rope")
+    rng = np.random.default_rng(22)
+    b, s, h, d = 2, 10, 3, 16
+    x = rng.standard_normal((b, s, h, d), dtype=np.float32)
+    g_bhsd = rng.standard_normal((b * h, s, d), dtype=np.float32)
+    _jout, vjp = jax.vjp(lambda a: jrope.rope_apply(
+        a, 1e4, 7, impl="interpret"), x)
+    (jgrad,) = vjp(jnp.asarray(
+        g_bhsd.reshape(b, h, s, d).transpose(0, 2, 1, 3)))
+    seen = []
+    real = rope_mod.rope
+
+    def recording(t, theta, pos_offset, inverse):
+        if inverse:
+            seen.append((t.is_contiguous(), t.stride()))
+        return real(t, theta, pos_offset, inverse)
+
+    monkeypatch.setattr(rope_mod, "rope", recording)
+    xt = torch.from_numpy(x).requires_grad_()
+    # the flash wrapper's bhsd: [b, s, h, d] -> [b * h, s, d]
+    y = rope_apply(xt, 1e4, 7).transpose(1, 2).reshape(b * h, s, d)
+    y.backward(torch.from_numpy(g_bhsd))
+    assert seen == [(False, (s * h * d, d, s * d, 1))]
+    _close(xt.grad, jgrad)
+
+
+@pytest.mark.parametrize("shape,strides,itemsize,ptr,plan", [
+    # the training step's q/k and its cotangent's [b, s, h, d] view of
+    # [b, h, s, d], bf16 and fp32
+    ((4, 2048, 16, 128), (4194304, 2048, 128, 1), 2, 0, "vector"),
+    ((4, 2048, 16, 128), (4194304, 128, 262144, 1), 2, 0, "vector"),
+    ((4, 2048, 16, 128), (4194304, 128, 262144, 1), 4, 64, "vector"),
+    # head dim 16 (one vector a half in bf16) and 6 (not whole vectors)
+    ((2, 9, 3, 16), (432, 16, 144, 1), 2, 0, "vector"),
+    ((2, 7, 3, 6), (126, 18, 6, 1), 2, 0, "scalar"),
+    ((2, 7, 3, 6), (126, 18, 6, 1), 4, 0, "scalar"),
+    # a start one element off a 16-byte boundary, a head stride off one
+    ((3, 17, 5, 128), (10880, 640, 128, 1), 2, 2, "scalar"),
+    ((2, 3, 4, 128), (1584, 528, 132, 1), 2, 0, "scalar"),
+    # dims of length 1 have any stride
+    ((1, 8, 1, 128), (5, 128, 3, 1), 2, 16, "vector"),
+    # d not contiguous: copied first
+    ((2, 3, 4, 8), (96, 32, 1, 4), 4, 0, "copy")])
+def test_rope_plan_picks_the_instance(shape, strides, itemsize, ptr, plan):
+    """``rope_plan``: the vector instance for 16-byte rows on 16-byte
+    boundaries, the scalar one for the rest with d contiguous, a copy only
+    when d is not."""
+    from paddle_tpu_torch.kernels.rope import rope_plan
+
+    assert rope_plan(shape, strides, itemsize, ptr) == plan

@@ -242,6 +242,43 @@ def test_gather_and_combine_match_jax(impl):
     assert counters()["moe_combine"]["plain_calls"] == 1
 
 
+@pytest.mark.parametrize("impl", ["interpret", "composed"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scaled_gather_matches_jax_composition(impl, dtype):
+    """``gather_rows(src, idx, scale)`` equals the JAX combine backward's
+    composition ``(_gather_rows(src, idx).astype(f32) * scale[:, None])
+    .astype(dtype)`` exactly, with scales of 0 and below 0. Indices -1
+    and n_src give zero rows in the port (its kernel's contract); the
+    reference leaves them undefined (the composed gather wraps -1 and fills
+    past the end with NaN, the interpret-mode kernel clamps), so those
+    rows are held to zero and the rest to the reference."""
+    rng = np.random.default_rng(21)
+    n_src, n_out, h = 11, 23, 16
+    src = rng.standard_normal((n_src, h), dtype=np.float32)
+    idx = rng.integers(0, n_src, size=n_out).astype(np.int32)
+    idx[:2] = [-1, n_src]
+    scale = rng.standard_normal(n_out).astype(np.float32)
+    scale[2:5] = [0.0, -0.0, -2.5]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jsrc = jnp.asarray(src).astype(jdt)
+    ref = (jmoe._gather_rows(jsrc, jnp.asarray(idx), impl)
+           .astype(jnp.float32) * jnp.asarray(scale)[:, None]).astype(jdt)
+    ref = np.asarray(ref.astype(jnp.float32))
+    tsrc = torch.from_numpy(np.array(jsrc.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    reset_counters()
+    got = gather_rows(tsrc, torch.from_numpy(idx), torch.from_numpy(scale))
+    assert got.dtype == tsrc.dtype
+    assert counters()["moe_gather"] == {"launches": 0, "plain_calls": 1}
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got[2:], ref[2:])
+    np.testing.assert_array_equal(got[:2], 0.0)
+    unscaled = gather_rows(tsrc, torch.from_numpy(idx)).float().numpy()
+    np.testing.assert_array_equal(unscaled[:2], 0.0)
+    np.testing.assert_array_equal(
+        unscaled[2:], np.asarray(jsrc.astype(jnp.float32))[idx[2:]])
+
+
 # -- the fused MoE MLP ---------------------------------------------------------
 
 def _moe_weights(h=32, e=4, i=48, seed=7):
