@@ -30,7 +30,11 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              general kernel for fp32 windows), checked to that kernel's
              tolerance and timed beside the general kernel, at the
              serving shapes and at odd ones (W 5 and 130, GQA, 1- and
-             64-key contexts).
+             64-key contexts). The RMSNorm backward and (phase 8) the
+             MoE routing are timed eager and in graph replay beside the
+             earlier kernels on the same inputs (``earlier_ms``,
+             ``earlier_graph_ms``) and a copy of the bytes their bound
+             counts.
 4. parity  — fp32, GPT-3 6.7B width at depth 2: the engine's greedy tokens
              (split-K decode kernel, the general kernel for the prefill
              windows) equal ``model.generate``'s (flash kernels: its
@@ -754,12 +758,7 @@ def _generate_breakdown(model, gen_ids, new):
             model.generate(gen_ids, max_new_tokens=new)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-    by_name = _device_ms(prof)
-    groups = {}
-    for name, ms in by_name.items():
-        g = _train_group(name)
-        groups[g] = groups.get(g, 0.0) + ms
-    device = sum(by_name.values())
+    _by_name, groups, device = _device_ms(prof, _train_group)
     return {"wall_ms": wall, "device_ms": device or None,
             "idle_share": (1.0 - device / wall) if device else None,
             "groups_ms": groups or None}
@@ -1040,12 +1039,10 @@ def _step_breakdown(model, cfg, ctx_len, reps=3):
                 run()
             torch.cuda.synchronize()
         # device records only: a CPU op's device time is its kernels' again
-        by_name = {k: ms / reps for k, ms in _device_ms(prof).items()}
-        device = sum(by_name.values())
-        groups = {}
-        for name, ms in by_name.items():
-            g = _kernel_group(name)
-            groups[g] = groups.get(g, 0.0) + ms
+        by_name, groups, device = _device_ms(prof, _kernel_group)
+        by_name = {k: ms / reps for k, ms in by_name.items()}
+        groups = {g: ms / reps for g, ms in groups.items()}
+        device /= reps
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         out[label] = {
             "wall_ms": wall, "device_ms": device or None,
@@ -1221,7 +1218,10 @@ def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True, start=0):
     against their plain versions on fp32 copies of the same inputs; with
     ``start`` 1, x and the residual begin one element off a 16-byte
     boundary (the forward's scalar instance). The forward is timed eager
-    and in CUDA-graph replay, beside ``F.rms_norm`` timed both ways."""
+    and in CUDA-graph replay, beside ``F.rms_norm`` timed both ways; the
+    backward both ways beside the earlier backward on the same inputs
+    (both ways), ``F.rms_norm``'s autograd backward and a copy of the
+    bytes its bound counts (graph)."""
     import torch
     import torch.nn.functional as TF
 
@@ -1271,10 +1271,25 @@ def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True, start=0):
         rows[0]["graph_ms"] = _graph_ms(fwd)
         rows[0]["plain_ms"] = _time_ms(
             lambda: rmsnorm.rms_norm_fwd_plain(x, res, w, eps))
-        rows[1]["kernel_ms"] = _time_ms(
-            lambda: rmsnorm.rms_norm_bwd(s, w, rstd, dy, dr))
-        rows[1]["plain_ms"] = _time_ms(
-            lambda: rmsnorm.rms_norm_bwd_plain(s, w, rstd, dy, dr))
+
+        def bwd():
+            return rmsnorm.rms_norm_bwd(s, w, rstd, dy, dr)
+
+        k = 2 if residual else 1
+        earlier = _earlier_rms_bwd(s, w, rstd, dy, dr)
+        e_dx = earlier()[0]
+        torch.cuda.synchronize()
+        _compare(f"rms_norm_bwd_earlier[{label}].dx", e_dx, rdx, tol)
+        # a copy that moves the bytes the bound counts (s, dy, dr read, dx
+        # written): the card's practical rate for this traffic
+        c_in = torch.empty((2 + k) * n // 2, h, dtype=dtype, device=DEVICE)
+        c_out = torch.empty_like(c_in)
+        rows[1].update(kernel_ms=_time_ms(bwd), graph_ms=_graph_ms(bwd),
+                       plain_ms=_time_ms(lambda: rmsnorm.rms_norm_bwd_plain(
+                           s, w, rstd, dy, dr)),
+                       earlier_ms=_time_ms(earlier),
+                       earlier_graph_ms=_graph_ms(earlier),
+                       copy_graph_ms=_graph_ms(lambda: c_out.copy_(c_in)))
         lib_f = lib_b = None
         if not residual:
             # torch.nn.functional.rms_norm; its backward is autograd's
@@ -1294,12 +1309,19 @@ def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True, start=0):
             lib_f = _time_ms(lib_fwd)
             lib_b = _time_ms(lib_fwd_bwd) - lib_f
             rows[0]["library_graph_ms"] = _graph_ms(lib_fwd_nograd)
+            # the backward in graph replay: autograd's forward and backward
+            # captured together, less the forward with its graph built;
+            # where this torch cannot capture autograd, eager only and why
+            try:
+                rows[1]["library_graph_ms"] = (_graph_ms(lib_fwd_bwd) -
+                                               _graph_ms(lib_fwd))
+            except RuntimeError as err:
+                rows[1]["library_graph_error"] = str(err)[:200]
             # a copy of x moves the forward's bytes: the card's practical
             # rate for this read/write mix, in graph replay
             buf = torch.empty_like(x)
             rows[0]["copy_graph_ms"] = _graph_ms(lambda: buf.copy_(x))
         esz = x.element_size()
-        k = 2 if residual else 1
         fwd_bytes = 2 * k * n * h * esz + h * esz + n * 4
         bwd_bytes = (2 + k) * n * h * esz + 2 * h * esz + n * 4
         for row, nbytes, flops, lib in (
@@ -1311,6 +1333,35 @@ def _rmsnorm_case(label, dtype, n, h, residual, gen, timed=True, start=0):
     for row in rows:
         _emit(row)
     return rows
+
+
+def _earlier_rms_bwd(s, w, rstd, dy, dr):
+    """The earlier RMSNorm backward (a 256-thread block a row with scalar
+    loads on 512 blocks, then a column sum of one thread per column) on
+    the same inputs, for timing beside the new one: a call that launches
+    it and returns (dx, dw, its scratch)."""
+    import ctypes
+
+    import torch
+
+    from paddle_tpu_torch.kernels import _build
+
+    n, h = s.shape
+    dx = torch.empty_like(s)
+    dw = torch.empty(h, dtype=w.dtype, device=s.device)
+    blocks = max(1, min(n, 512))
+    part = torch.empty(blocks, h, dtype=torch.float32, device=s.device)
+    fn = _build.kernel("pt_rmsnorm_bwd_earlier", [ctypes.c_void_p] * 8 +
+                       [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    args = (s.data_ptr(), w.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
+            None if dr is None else dr.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), part.data_ptr(), n, h, blocks, int(dr is not None),
+            int(s.dtype == torch.bfloat16))
+
+    def call():  # holds every buffer whose pointer it passes
+        _build.launch(fn, "pt_rmsnorm_bwd_earlier", s.device, *args)
+        return dx, dw, part
+    return call
 
 
 def _rope_input(gen, shape, dtype, layout):
@@ -1649,8 +1700,7 @@ def _train_group(name):
                        ("gmm_sm90_kernel", "grouped_gemm_sm90"),
                        ("tgmm_kernel", "grouped_gemm_wgrad"),
                        ("gmm_kernel", "grouped_gemm"),
-                       ("route_local_kernel", "moe_route"),
-                       ("route_scan_kernel", "moe_route"),
+                       ("moe_route", "moe_route"),
                        ("gather_rows_kernel", "moe_gather"),
                        ("combine_rows_kernel", "moe_combine"),
                        ("flash_decode", "flash_decode"),
@@ -1671,21 +1721,42 @@ def _train_group(name):
     return "other"
 
 
-def _device_ms(prof):
-    """{kernel name: device ms} from a profiler session's device records
+def _busy_ms(spans):
+    """ms covered by the union of (start, end) spans in us. A kernel
+    launched as a programmatic dependent (griddepcontrol: the RMSNorm
+    backward's column sum, the routing fix-up, the decode merges) is
+    recorded from its early launch, while it still waits on the grid
+    before it, so a sum of spans would count that wait twice."""
+    total, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total / 1e3
+
+
+def _device_ms(prof, group_of):
+    """(device ms by kernel name, by group ``group_of(name)``, and in all),
+    each the union of its device records' spans, from a profiler session
     (CUPTI's "Command Buffer Full" records mark the host waiting on a full
     launch queue, and annotations span other records; neither is work)."""
     import torch
 
-    out = {}
+    spans = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA or \
                 e.name.startswith("Command Buffer") or \
                 getattr(e, "is_user_annotation", False):
             continue
-        ms = (e.time_range.end - e.time_range.start) / 1e3
-        out[e.name] = out.get(e.name, 0.0) + ms
-    return out
+        spans.setdefault(e.name, []).append((e.time_range.start,
+                                             e.time_range.end))
+    by_group = {}
+    for name, sp in spans.items():
+        by_group.setdefault(group_of(name), []).extend(sp)
+    return ({k: _busy_ms(sp) for k, sp in spans.items()},
+            {g: _busy_ms(sp) for g, sp in by_group.items()},
+            _busy_ms([x for sp in spans.values() for x in sp]))
 
 
 def _train_breakdown(model, opt, ids):
@@ -1719,14 +1790,12 @@ def _train_breakdown(model, opt, ids):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        by_name = _device_ms(prof)
-        groups = {}
-        for k, ms in by_name.items():
-            g = "optimizer" if name == "optimizer" else _train_group(k)
-            groups[g] = groups.get(g, 0.0) + ms
+        by_name, groups, device = _device_ms(
+            prof, lambda k, phase=name: "optimizer" if phase == "optimizer"
+            else _train_group(k))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         phases[name] = {"wall_ms": wall,
-                        "device_ms": sum(by_name.values()),
+                        "device_ms": device,
                         "groups_ms": groups,
                         "top": [[k[:70], ms] for k, ms in top]}
     wall = sum(p["wall_ms"] for p in phases.values())
@@ -1740,13 +1809,16 @@ def _train_breakdown(model, opt, ids):
             "groups_ms": groups, "phases": phases}
 
 
-# device ms per step of the RoPE and "other" (elementwise) groups with the
-# earlier RoPE kernel (angles per element, a transposing copy of the
-# cotangent before each inverse) and the combine backward's gate scale as
-# three elementwise passes: the profiled steps on an H100 80GB HBM3 at
-# 700 W (PERF.md, section 5)
-EARLIER_GROUPS_MS = {"train": {"rope": 6.7, "other": 34.6},
-                     "moe-train": {"rope": 4.1, "other": 34.5}}
+# device ms per step of groups before a redesign, the profiled steps on
+# an H100 80GB HBM3 at 700 W (PERF.md, section 5): RoPE and "other"
+# (elementwise) with the earlier RoPE kernel (angles per element, a
+# transposing copy of the cotangent before each inverse) and the combine
+# backward's gate scale as three elementwise passes; "rmsnorm" with the
+# earlier backward (a block a row, scalar loads) and "moe_route" with the
+# earlier routing kernels (32 tokens a block, a one-block scan)
+EARLIER_GROUPS_MS = {"train": {"rope": 6.7, "other": 34.6, "rmsnorm": 6.39},
+                     "moe-train": {"rope": 4.1, "other": 34.5,
+                                   "rmsnorm": 4.21, "moe_route": 3.36}}
 
 
 def _beside_earlier(path, breakdown):
@@ -1977,10 +2049,45 @@ def _logit_margin(xt, wg, k):
     return (top[:, :-1] - top[:, 1:]).min().item()
 
 
+def _earlier_route(xt, wg, k):
+    """The earlier routing kernels (32 tokens a block, a one-block scan)
+    on the same inputs, for timing beside the new ones: a call that
+    launches them and returns (route's six outputs, its scratch)."""
+    import ctypes
+
+    import torch
+
+    from paddle_tpu_torch.kernels import _build
+
+    n, h = xt.shape
+    e, dev = wg.shape[1], xt.device
+    outs = [torch.empty(n, k, device=dev),
+            torch.empty(n, k, dtype=torch.int32, device=dev),
+            torch.empty(n, k, dtype=torch.int32, device=dev),
+            torch.empty(e, dtype=torch.int32, device=dev),
+            torch.empty(e, device=dev), torch.empty(e, device=dev)]
+    # per block of 32 tokens: counts, probability sums, top-1 counts
+    scratch = torch.empty(3, -(-n // 32), e, dtype=torch.int32, device=dev)
+    fn = _build.kernel("pt_moe_route_earlier", [ctypes.c_void_p] * 2 +
+                       [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 +
+                       [ctypes.c_int, ctypes.c_void_p])
+    args = (xt.data_ptr(), wg.data_ptr(), n, h, e, k,
+            *[t.data_ptr() for t in outs],
+            *[scratch[i].data_ptr() for i in range(3)],
+            int(xt.dtype == torch.bfloat16))
+
+    def call():  # holds every buffer whose pointer it passes
+        _build.launch(fn, "pt_moe_route_earlier", dev, *args)
+        return outs, scratch
+    return call
+
+
 def _route_case(label, dtype, n, h, e, k, seed, special=False, timed=True):
     """The routing kernel against its plain version: choices, positions,
     counts and top-1 counts exact, gates within 1e-4 and probability sums
-    within rtol 1e-4 (the fp32 logits differ by ~2e-5). Returns (row, the
+    within rtol 1e-4 (the fp32 logits differ by ~2e-5). Timed: eager and in
+    graph replay, beside the earlier routing kernels on the same inputs
+    (which must route alike) and a copy of x's bytes. Returns (row, the
     kernel's counts)."""
     import torch
 
@@ -2016,8 +2123,24 @@ def _route_case(label, dtype, n, h, e, k, seed, special=False, timed=True):
         esz = xt.element_size()
         nbytes = (n * h + h * e) * esz + n * k * 12 + 3 * e * 4
         b_ms, b_by = _bound(nbytes, 2 * n * h * e, "float32")
-        row.update(kernel_ms=_time_ms(lambda: md.route(xt, wg, k)),
+        earlier = _earlier_route(xt, wg, k)
+        e_out = earlier()[0]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(e_out[1:4], got[1:4])):
+            raise RuntimeError(f"moe_route[{label}]: the earlier kernels "
+                               f"route otherwise")
+        # a copy that moves x's bytes (half of x read, half written)
+        half = xt[:n // 2]
+        c_out = torch.empty_like(half)
+
+        def kernel():
+            return md.route(xt, wg, k)
+
+        row.update(kernel_ms=_time_ms(kernel), graph_ms=_graph_ms(kernel),
                    plain_ms=_time_ms(lambda: md.route_plain(xt, wg, k)),
+                   earlier_ms=_time_ms(earlier),
+                   earlier_graph_ms=_graph_ms(earlier),
+                   copy_graph_ms=_graph_ms(lambda: c_out.copy_(half)),
                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
     _emit(row)
     return row, cnt
@@ -2310,6 +2433,7 @@ def _moe_faulty(fault):
     import torch
     import torch.nn.functional as TF
 
+    from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     from paddle_tpu_torch.kernels import moe_dispatch as md
 
@@ -2323,8 +2447,8 @@ def _moe_faulty(fault):
         def route(xt, wg, top_k):
             gv, gi, pos, cnt, me, ce = real(xt, wg, top_k)
             n, e = gi.shape[0], wg.shape[1]
-            per = md.ROUTE_BLOCK_TOKENS * top_k
-            nb = -(-n * top_k // per)
+            nb, tokens = md.route_plan(n, _build.sm_count(xt.device))
+            per = tokens * top_k
             flat = gi.reshape(-1).long()
             oh = TF.pad(TF.one_hot(flat, e), (0, 0, 0, nb * per - flat.numel()))
             blk = oh.view(nb, per, e).sum(dim=1)
@@ -2644,7 +2768,7 @@ def _kernels_line(rows, paths):
         extras = ("cuda_core_ms", "library_ms_spread", "graph_ms",
                   "cuda_core_graph_ms", "library_graph_ms", "copy_graph_ms",
                   "copy_out_graph_ms", "composition_ms",
-                  "composition_graph_ms")
+                  "composition_graph_ms", "earlier_ms", "earlier_graph_ms")
         for key in extras:
             if r.get(key) is not None:
                 entry[key] = r[key]

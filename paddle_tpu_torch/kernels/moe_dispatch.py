@@ -41,15 +41,16 @@ from . import _build
 from .grouped_matmul import grouped_matmul
 
 __all__ = ["fused_moe_mlp", "fused_route", "route", "route_plain",
-           "gather_rows", "gather_rows_plain", "combine_rows",
+           "route_plan", "gather_rows", "gather_rows_plain", "combine_rows",
            "combine_rows_plain", "topk_first", "MAX_EXPERTS", "MAX_TOP_K",
-           "ROUTE_BLOCK_TOKENS", "COUNTS_ROUTE", "COUNTS_GATHER",
+           "ROUTE_BLOCKS_PER_SM", "COUNTS_ROUTE", "COUNTS_GATHER",
            "COUNTS_COMBINE"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_EXPERTS = 128       # as the JAX module: its expert axis rides the lanes
 MAX_TOP_K = 8           # choices the routing kernel keeps per token
-ROUTE_BLOCK_TOKENS = 32  # tokens per block of the routing kernel's pass 1
+# routing blocks each SM keeps resident (the kernel's launch bounds)
+ROUTE_BLOCKS_PER_SM = 2
 COUNTS_ROUTE = _build.Counts()
 COUNTS_GATHER = _build.Counts()
 COUNTS_COMBINE = _build.Counts()
@@ -100,8 +101,18 @@ def route_plain(xt, wg, top_k):
             cnt.to(torch.int32), p.sum(dim=0), ce)
 
 
+def route_plan(n, sms):
+    """(blocks, tokens per block) of the routing kernel for ``n >= 1``
+    tokens on a card of ``sms`` SMs: the blocks the card keeps resident,
+    each routing a contiguous run of tokens (the last run shorter), so
+    that a block's rows are token-major and the positions are its local
+    ranks plus the counts of the blocks before it."""
+    tokens = -(-n // (sms * ROUTE_BLOCKS_PER_SM))
+    return -(-n // tokens), tokens
+
+
 def route(xt, wg, top_k):
-    """The routing kernel on CUDA, the plain version on the CPU; same
+    """The routing kernels on CUDA, the plain version on the CPU; same
     outputs as :func:`route_plain`."""
     if xt.device.type == "cpu":
         COUNTS_ROUTE.plain()
@@ -119,27 +130,40 @@ def route(xt, wg, top_k):
                          f"1..min(e, {MAX_TOP_K}) choices, got e={e}, "
                          f"top_k={top_k}")
     dev = xt.device
-    gv = torch.empty(n, top_k, dtype=torch.float32, device=dev)
-    gi = torch.empty(n, top_k, dtype=torch.int32, device=dev)
-    pos = torch.empty(n, top_k, dtype=torch.int32, device=dev)
-    cnt = torch.zeros(e, dtype=torch.int32, device=dev)
-    me = torch.zeros(e, dtype=torch.float32, device=dev)
-    ce = torch.zeros(e, dtype=torch.float32, device=dev)
     if n == 0:
-        return gv, gi, pos, cnt, me, ce
-    nb = -(-n // ROUTE_BLOCK_TOKENS)
-    blk_cnt = torch.empty(nb, e, dtype=torch.int32, device=dev)
-    blk_me = torch.empty(nb, e, dtype=torch.float32, device=dev)
-    blk_ce = torch.empty(nb, e, dtype=torch.int32, device=dev)
+        return (torch.empty(0, top_k, device=dev),
+                torch.empty(0, top_k, dtype=torch.int32, device=dev),
+                torch.empty(0, top_k, dtype=torch.int32, device=dev),
+                torch.zeros(e, dtype=torch.int32, device=dev),
+                torch.zeros(e, device=dev), torch.zeros(e, device=dev))
+    blocks, tokens = route_plan(n, _build.sm_count(dev))
+    # one allocation, every entry written by the kernels: gv, gi, pos [n,
+    # k], cnt, me, ce [e], then the scratch [3, blocks, e] (per block and
+    # expert: counts, probability sums as fp32 bits, top-1 counts)
+    nk = n * top_k
+    buf = torch.empty(3 * nk + 3 * e + 3 * blocks * e, dtype=torch.int32,
+                      device=dev)
+    gv = buf[:nk].view(torch.float32).view(n, top_k)
+    gi, pos = buf[nk:2 * nk].view(n, top_k), buf[2 * nk:3 * nk].view(n, top_k)
+    cnt = buf[3 * nk:3 * nk + e]
+    me = buf[3 * nk + e:3 * nk + 2 * e].view(torch.float32)
+    ce = buf[3 * nk + 2 * e:3 * nk + 3 * e].view(torch.float32)
+    blk = buf[3 * nk + 3 * e:]
+    pad = -h % (16 // xt.element_size())
+    if pad:  # the kernel reads whole 16-byte vectors; zeros add nothing
+        xt, wg = TF.pad(xt, (0, pad)), TF.pad(wg, (0, 0, 0, pad))
     xt, wg = xt.contiguous(), wg.contiguous()
+    if xt.data_ptr() % 16:  # a view that starts off a vector boundary
+        xt = xt.clone()
+    if wg.data_ptr() % 16:
+        wg = wg.clone()
     fn = _build.kernel("pt_moe_route", [ctypes.c_void_p] * 2 +
-                       [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 +
+                       [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7 +
                        [ctypes.c_int, ctypes.c_void_p])
-    _build.launch(fn, "pt_moe_route", dev, xt.data_ptr(), wg.data_ptr(), n, h,
-                  e, top_k, gv.data_ptr(), gi.data_ptr(), pos.data_ptr(),
-                  cnt.data_ptr(), me.data_ptr(), ce.data_ptr(),
-                  blk_cnt.data_ptr(), blk_me.data_ptr(), blk_ce.data_ptr(),
-                  _DTYPES[xt.dtype])
+    _build.launch(fn, "pt_moe_route", dev, xt.data_ptr(), wg.data_ptr(), n,
+                  h + pad, e, top_k, tokens, gv.data_ptr(), gi.data_ptr(),
+                  pos.data_ptr(), cnt.data_ptr(), me.data_ptr(),
+                  ce.data_ptr(), blk.data_ptr(), _DTYPES[xt.dtype])
     COUNTS_ROUTE.launched()
     return gv, gi, pos, cnt, me, ce
 

@@ -25,13 +25,18 @@ import torch
 from . import _build
 
 __all__ = ["rms_norm", "rms_norm_residual", "rms_norm_fwd", "rms_norm_bwd",
-           "rms_norm_fwd_plain", "rms_norm_bwd_plain", "COUNTS",
-           "COUNTS_RESIDUAL", "COUNTS_BWD", "COUNTS_RESIDUAL_BWD"]
+           "rms_norm_fwd_plain", "rms_norm_bwd_plain", "rms_norm_bwd_plan",
+           "BWD_BLOCKS_PER_SM", "BWD_WARPS", "BWD_WIDEST", "BWD_COL_GROUPS",
+           "COUNTS", "COUNTS_RESIDUAL", "COUNTS_BWD", "COUNTS_RESIDUAL_BWD"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# blocks of the backward's row kernel: each writes one fp32 dw partial row,
-# which a second kernel sums (4 per SM of the H100's 132, rounded)
-_BWD_BLOCKS = 512
+# the backward's plan (csrc/rmsnorm.cu): resident blocks per SM, each
+# writing one fp32 dw partial row; warps (rows in flight) per block of the
+# vector instances; their widest row; row groups of the column sum
+BWD_BLOCKS_PER_SM = 2
+BWD_WARPS = 4
+BWD_WIDEST = 8192
+BWD_COL_GROUPS = 16
 COUNTS = _build.Counts()               # forward, plain variant
 COUNTS_RESIDUAL = _build.Counts()      # forward, +residual
 COUNTS_BWD = _build.Counts()           # backward, plain variant
@@ -57,6 +62,23 @@ def rms_norm_bwd_plain(s, w, rstd, dy, dr):
         ds = ds + dr.float()
     dw = (dyf * sf * r).sum(dim=0)
     return ds.to(s.dtype), dw.to(w.dtype)
+
+
+def rms_norm_bwd_plan(n, h, itemsize, sms, aligned=True):
+    """(blocks, rows per block, instance) of the backward on ``n`` rows of
+    ``h`` values of ``itemsize`` bytes on a card of ``sms`` SMs: the
+    resident blocks (at most one a row, at least one), each a contiguous
+    chunk of rows (the last shorter, or none) and one dw partial row; the
+    instance is ``"vector"`` (rows of whole 16-byte vectors, at most 8 a
+    lane), ``"looping"`` (wider, up to ``BWD_WIDEST``) or ``"scalar"``
+    (the rest, and operands off a 16-byte boundary)."""
+    blocks = max(1, min(n, sms * BWD_BLOCKS_PER_SM))
+    rows = -(-n // blocks)
+    vec = 16 // itemsize
+    if h % vec or h > BWD_WIDEST or not aligned:
+        return blocks, rows, "scalar"
+    per_lane = -(-(h // vec) // 32)
+    return blocks, rows, "vector" if per_lane <= 8 else "looping"
 
 
 def _check(name, rows, w, rstd, others):
@@ -128,7 +150,8 @@ def rms_norm_bwd(s, w, rstd, dy, dr):
     dr_p = None if dr is None else dr.contiguous().data_ptr()
     dx = torch.empty_like(s)
     dw = torch.empty(h, dtype=w.dtype, device=s.device)
-    n_blocks = max(1, min(n, _BWD_BLOCKS))
+    n_blocks = rms_norm_bwd_plan(n, h, s.element_size(),
+                                 _build.sm_count(s.device))[0]
     part = torch.empty(n_blocks, h, dtype=torch.float32, device=s.device)
     fn = _build.kernel("pt_rmsnorm_bwd", [ctypes.c_void_p] * 8 +
                        [ctypes.c_int] * 5 + [ctypes.c_void_p])

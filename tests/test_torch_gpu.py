@@ -523,7 +523,8 @@ def test_flash_decode_reads_the_paddle_layout_in_place(cuda, layout, dtype,
 @pytest.mark.parametrize("dtype,tol", _TOLS)
 @pytest.mark.parametrize("n,h", [(5, 40), (33, 129), (1030, 2048),
                                  (3, 16384), (7, 1), (9, 1001), (65, 1536),
-                                 (4, 8192), (1, 2048), (2, 512)])
+                                 (4, 8192), (1, 2048), (2, 512), (100, 2048),
+                                 (6401, 2048), (300, 1536)])
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("start", [0, 1])
 def test_rms_norm_kernels_match_plain(cuda, n, h, residual, start, dtype,
@@ -534,8 +535,12 @@ def test_rms_norm_kernels_match_plain(cuda, n, h, residual, start, dtype,
     widths (2048, 1536) and wider ones (8192, 16384: the looping
     instance), ragged row counts and one row, a width whose dw partial row
     needs more than 48 KB of shared memory, and (``start`` 1) x and the
-    residual one element off a 16-byte boundary. dw sums n rows in another
-    order: rtol 1e-4 on top of ``tol``."""
+    residual one element off a 16-byte boundary. The backward's plan on
+    132 SMs: 100 rows are fewer than its 264 blocks; 6401 rows are one
+    more than 256 blocks of 25 (the last block holds one row, seven
+    none); fp32 rows of 1536 and 2048 take its looping instance. dw sums
+    n rows in another order: rtol 1e-4 on top of ``tol``. A second
+    backward is bitwise the first."""
     rng = np.random.default_rng(13)
 
     def rnd(*shape):
@@ -567,6 +572,8 @@ def test_rms_norm_kernels_match_plain(cuda, n, h, residual, start, dtype,
     rdx, rdw = rmsnorm.rms_norm_bwd_plain(s.float(), f[2], rstd, f[3], f[4])
     _close(dx.float().cpu(), rdx.cpu(), tol)
     _close(dw.float().cpu(), rdw.cpu(), (tol[0] + 1e-4, tol[1]))
+    dx2, dw2 = rmsnorm.rms_norm_bwd(s, w, rstd, dy, dr)
+    assert torch.equal(dx2, dx) and torch.equal(dw2, dw)
 
 
 @pytest.mark.gpu
@@ -779,16 +786,20 @@ def test_grouped_matmul_sm90_autograd_uses_the_tensor_core_kernels(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dkv", "flash_dq",
                                     "gmm", "gmm_dgrad", "tgmm", "paged",
-                                    "flash_decode"])
+                                    "flash_decode", "route", "rms_norm_bwd"])
 def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
-    """Each tensor-core kernel, and the decode kernel, as the first CUDA
-    call of a new host thread (as autograd's worker thread makes it):
-    cuTensorMapEncodeTiled encodes no TMA map in a thread without a
-    current context, so the launcher must bind one first."""
+    """Each tensor-core kernel, the decode kernel, the routing kernels and
+    the RMSNorm backward as the first CUDA call of a new host thread (as
+    autograd's worker thread makes it): cuTensorMapEncodeTiled encodes no
+    TMA map in a thread without a current context, so the launcher must
+    bind one first; the routing and backward launchers set their shared
+    memory limits once and launch their second kernel as a programmatic
+    dependent there too."""
     import importlib
     import threading
 
     from paddle_tpu_torch.kernels import grouped_matmul as gm
+    from paddle_tpu_torch.kernels import moe_dispatch as md
 
     fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
     bf = dict(device=cuda, dtype=torch.bfloat16)
@@ -799,7 +810,13 @@ def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
     sizes = torch.tensor([15, 25], dtype=torch.int32, device=cuda)
     paged = _paged_case(cuda, torch.bfloat16, 8, 2, 128, 16, 130, (40, 3))
     q4 = q[:, :1, None]  # [2, 1, 1, 128]: one row for the decode kernel
+    rows = torch.randn(300, 1536, **bf)
+    w_n = torch.ones(1536, **bf)
+    rstd = torch.ones(300, device=cuda)
     calls = {
+        "route": lambda: md.route(rows, torch.randn(1536, 8, **bf), 2),
+        "rms_norm_bwd": lambda: rmsnorm.rms_norm_bwd(rows, w_n, rstd, rows,
+                                                     rows),
         "flash_fwd": lambda: fa.flash_attention_fwd_sm90(q, q, q, 0, True,
                                                          0.1),
         "flash_decode": lambda: fa.flash_decode(q4, q[:, :, None],
@@ -858,19 +875,33 @@ def logit_margin(xt, wg, k):
 # (n, h, e, k, special, seed): seeds whose inputs have a margin above 1e-4
 _ROUTE_CASES = [(37, 64, 8, 2, True, 16), (1000, 1536, 8, 2, False, 16),
                 (513, 96, 16, 1, True, 17), (200, 128, 128, 2, False, 16),
-                (64, 40, 128, 8, False, 20), (8192, 1536, 8, 2, False, 17)]
+                (64, 40, 128, 8, False, 20), (8192, 1536, 8, 2, False, 17),
+                # the plan's edges on 132 SMs (264 blocks): one token; a
+                # pass of 16 tokens and one either side; one token a
+                # block and one either side; 32 tokens a block, and one
+                # more (33 a block, the last block one token)
+                (1, 1536, 8, 2, False, 16), (15, 1536, 8, 2, False, 16),
+                (16, 1536, 8, 2, False, 16), (17, 1536, 8, 2, False, 16),
+                (263, 1536, 8, 2, False, 16), (264, 1536, 8, 2, False, 16),
+                (265, 1536, 8, 2, False, 16), (8448, 1536, 8, 2, False, 16),
+                (8449, 1536, 8, 2, False, 16),
+                # a width that is not whole 16-byte vectors (zero-padded);
+                # 16 experts at top-8 (all four 32-row slices of a pass);
+                # 128 experts over wg tiles of 160 columns
+                (100, 37, 8, 2, False, 16), (300, 1536, 16, 8, False, 16),
+                (500, 200, 128, 2, False, 16)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,e,k,special,seed", _ROUTE_CASES)
 def test_route_kernel_matches_plain(cuda, n, h, e, k, special, seed, dtype):
-    """Choices, positions (token-major, across blocks of 32 tokens) and
+    """Choices, positions (token-major, across the plan's blocks) and
     counts exact, ce exact; gates within 1e-4 and me within rtol 1e-4:
     the fp32 logits differ by summation order by some 2e-5 at logits of
-    ~30, and gates and probabilities move by as much. Token counts that
-    32 does not divide, an expert with no row and one with one row, top_k
-    1 and 8, 128 experts."""
+    ~30, and gates and probabilities move by as much. Token counts at the
+    plan's edges, an expert with no row and one with one row, top_k 1 and
+    8, 128 experts, a width the kernel pads."""
     from paddle_tpu_torch.kernels import moe_dispatch as md
 
     xt, wg = _route_inputs(cuda, dtype, n, h, e, seed, special)
@@ -892,6 +923,21 @@ def test_route_kernel_matches_plain(cuda, n, h, e, k, special, seed, dtype):
     again = md.route(xt, wg, k)
     assert all(torch.equal(a.cpu(), b) for a, b in
                zip(again, (gv, gi, pos, cnt, me, ce)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_kernel_reads_an_unaligned_x(cuda, dtype):
+    """x a view one element off a 16-byte boundary: the wrapper copies it
+    to an aligned tensor, and the outputs equal those of the aligned x."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    xt, wg = _route_inputs(cuda, dtype, 37, 64, 8, 16, True)
+    flat = torch.empty(xt.numel() + 1, dtype=dtype, device=cuda)
+    off = flat[1:].view(xt.shape).copy_(xt)
+    assert off.data_ptr() % 16 != 0
+    got, ref = md.route(off, wg, 2), md.route(xt, wg, 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 @pytest.mark.gpu

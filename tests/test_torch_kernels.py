@@ -513,6 +513,104 @@ def test_rms_norm_matches_jax(shape, residual, impl):
     assert c[name + "_bwd"] == {"launches": 0, "plain_calls": 1}
 
 
+def _rms_bwd_emulated(s, w, rstd, dy, dr, sms):
+    """The RMSNorm backward kernels' plan in PyTorch: dx row by row;
+    ``rms_norm_bwd_plan``'s blocks each sum dy * s * rstd over their rows
+    into one partial row (the vector instances: each of BWD_WARPS warps
+    over every BWD_WARPS-th row, then the warps in order; the scalar one:
+    the rows in order), and the column sum adds the partial rows in
+    BWD_COL_GROUPS groups (group g: rows g, g + BWD_COL_GROUPS, ...),
+    then the groups in order."""
+    from paddle_tpu_torch.kernels import rmsnorm as rm
+
+    n, h = s.shape
+    blocks, rows, inst = rm.rms_norm_bwd_plan(n, h, s.element_size(), sms)
+    sf, dyf, r = s.float(), dy.float(), rstd[:, None]
+    g = dyf * w.float()
+    ds = r * (g - sf * (r * r) * (g * sf).mean(dim=-1, keepdim=True))
+    if dr is not None:
+        ds = ds + dr.float()
+    contrib = dyf * sf * r
+    part = torch.zeros(blocks, h)
+    for b in range(blocks):
+        r0, r1 = b * rows, min(n, (b + 1) * rows)
+        if inst == "scalar":
+            for row in range(r0, r1):
+                part[b] += contrib[row]
+            continue
+        for wp in range(rm.BWD_WARPS):
+            acc = torch.zeros(h)
+            for row in range(r0 + wp, r1, rm.BWD_WARPS):
+                acc += contrib[row]
+            part[b] += acc
+    groups = torch.zeros(rm.BWD_COL_GROUPS, h)
+    for b in range(blocks):
+        groups[b % rm.BWD_COL_GROUPS] += part[b]
+    dw = groups[0]
+    for q in range(1, rm.BWD_COL_GROUPS):
+        dw = dw + groups[q]
+    return ds.to(s.dtype), dw.to(w.dtype)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n,h,sms", [
+    (7, 129, 132),    # not whole vectors (scalar), fewer rows than blocks
+    (1, 40, 132),     # one row
+    (65, 64, 4),      # 8 blocks of 9 rows, the last of 2
+    (33, 16, 2),      # 4 blocks of 9, the last of 6
+    (300, 2304, 2)])  # the looping instance, 4 blocks of 75
+def test_rms_norm_bwd_plan_emulation_matches_jax(n, h, sms, residual):
+    """dx and dw of the backward kernels' plan, emulated in PyTorch on the
+    port's forward (s, rstd), against ``jax.vjp`` of the JAX package's
+    ``rms_norm`` / ``rms_norm_residual`` (composed), within the gradient
+    tolerances of ``test_rms_norm_matches_jax``."""
+    from paddle_tpu_torch.kernels import rmsnorm as rm
+
+    rng = np.random.default_rng(n + h)
+    eps = 1e-5
+    x = rng.standard_normal((n, h), dtype=np.float32)
+    res = rng.standard_normal((n, h), dtype=np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(h)).astype(np.float32)
+    gy = rng.standard_normal((n, h), dtype=np.float32)
+    gs = rng.standard_normal((n, h), dtype=np.float32)
+    if residual:
+        _o, vjp = jax.vjp(lambda a, b, c: jrms.rms_norm_residual(
+            a, b, c, eps, impl="composed"), x, res, w)
+        jdx, _jdres, jdw = vjp((jnp.asarray(gy), jnp.asarray(gs)))
+    else:
+        _o, vjp = jax.vjp(lambda a, c: jrms.rms_norm(a, c, eps,
+                                                     impl="composed"), x, w)
+        jdx, jdw = vjp(jnp.asarray(gy))
+    _y, s, rstd = rm.rms_norm_fwd_plain(
+        torch.from_numpy(x), torch.from_numpy(res) if residual else None,
+        torch.from_numpy(w), eps)
+    dx, dw = _rms_bwd_emulated(s, torch.from_numpy(w), rstd,
+                               torch.from_numpy(gy),
+                               torch.from_numpy(gs) if residual else None,
+                               sms)
+    _close(dx, jdx, rtol=1e-4, atol=1e-4)
+    _close(dw, jdw, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n,h,itemsize,aligned,plan", [
+    (1, 2048, 2, True, (1, 1, "vector")),          # one row
+    (0, 2048, 2, True, (1, 0, "vector")),          # none: a zero dw row
+    (100, 2048, 2, True, (100, 1, "vector")),      # fewer rows than blocks
+    (8192, 2048, 2, True, (264, 32, "vector")),    # the dense step
+    (8192, 1536, 2, True, (264, 32, "vector")),    # the MoE step
+    (6401, 2048, 2, True, (264, 25, "vector")),    # the last block one row
+    (8192, 2048, 4, True, (264, 32, "looping")),   # fp32: 16 vectors a lane
+    (33, 1001, 2, True, (33, 1, "scalar")),        # not whole vectors
+    (3, 16384, 2, True, (3, 1, "scalar")),         # wider than BWD_WIDEST
+    (65, 2048, 2, False, (65, 1, "scalar"))])      # off a 16-byte boundary
+def test_rms_norm_bwd_plan(n, h, itemsize, aligned, plan):
+    """``rms_norm_bwd_plan`` at 132 SMs: 2 blocks a SM, at most one a row
+    and at least one; the instance by width, item size and alignment."""
+    from paddle_tpu_torch.kernels.rmsnorm import rms_norm_bwd_plan
+
+    assert rms_norm_bwd_plan(n, h, itemsize, 132, aligned) == plan
+
+
 @pytest.mark.parametrize("pos_offset,theta", [(0, 10000.0), (37, 10000.0),
                                               (5, 500000.0)])
 def test_rope_matches_jax(pos_offset, theta):

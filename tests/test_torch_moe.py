@@ -12,6 +12,7 @@ Integer outputs of the router (choices, positions, counts) must be exact.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as TF
 
 import jax
 import jax.numpy as jnp
@@ -222,6 +223,93 @@ def test_route_ties_go_to_the_lowest_expert():
     np.testing.assert_array_equal(gi.numpy(), np.tile([0, 1, 2], (5, 1)))
     np.testing.assert_array_equal(cnt.numpy(), [5, 5, 5, 0, 0, 0])
     np.testing.assert_array_equal(pos.numpy()[:, 0], np.arange(5))
+
+
+def _fixed_order_sum(parts):
+    """Sum of ``parts`` [nb, e] over its rows in the routing kernels' order:
+    lane q adds rows q, q + 32, ... in turn, then a butterfly over the 32
+    lanes (xor 16, 8, 4, 2, 1)."""
+    lanes = torch.zeros(32, parts.shape[1])
+    for q in range(parts.shape[0]):
+        lanes[q % 32] += parts[q]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[torch.arange(32) ^ o]
+    return lanes[0]
+
+
+def _route_emulated(xt, wg, k, sms):
+    """The routing kernels' plan in PyTorch: ``route_plan``'s blocks, each
+    a contiguous run of tokens whose rows (token-major) get their rank
+    among the block's rows of their expert; the exclusive scan of the
+    block counts over the blocks gives each block's base, which the
+    fix-up adds; the counts are the totals, me and ce the blocks' sums
+    added in the kernels' fixed order."""
+    from paddle_tpu_torch.kernels import moe_dispatch as md
+
+    n, e = xt.shape[0], wg.shape[1]
+    p = torch.softmax(xt.float() @ wg.float(), dim=-1)
+    gv, gi = md.topk_first(p, k)
+    gv = gv / gv.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    blocks, tokens = md.route_plan(n, sms)
+    pos = torch.empty(n * k, dtype=torch.int64)
+    blk_cnt = torch.zeros(blocks, e, dtype=torch.int64)
+    blk_me = torch.zeros(blocks, e)
+    blk_ce = torch.zeros(blocks, e)
+    flat = gi.reshape(-1)
+    for b in range(blocks):
+        t0, t1 = b * tokens, min(n, (b + 1) * tokens)
+        assert t0 < t1  # no block is empty
+        rows = flat[t0 * k:t1 * k]
+        oh = TF.one_hot(rows, e)
+        pos[t0 * k:t1 * k] = ((torch.cumsum(oh, 0) - 1) * oh).sum(-1)
+        blk_cnt[b] = oh.sum(0)
+        for t in range(t0, t1):  # token order, as thread j adds them
+            blk_me[b] += p[t]
+        blk_ce[b] = TF.one_hot(gi[t0:t1, 0], e).sum(0).float()
+    base = torch.cumsum(blk_cnt, 0) - blk_cnt
+    pos += base[torch.arange(n * k) // (tokens * k), flat]
+    return (gv, gi.to(torch.int32), pos.view(n, k).to(torch.int32),
+            blk_cnt.sum(0).to(torch.int32), _fixed_order_sum(blk_me),
+            _fixed_order_sum(blk_ce))
+
+
+@pytest.mark.parametrize("n,h,e,k,sms,seed", [
+    (37, 16, 8, 2, 4, 45),     # 8 blocks of 5 tokens, the last of 2
+    (5, 16, 8, 1, 4, 13),      # fewer tokens than blocks: a token a block
+    (100, 24, 16, 2, 3, 116),  # 6 blocks of 17, the last of 15
+    (64, 16, 128, 8, 2, 1),    # 128 experts, top-8, 4 blocks of 16
+    (300, 12, 128, 2, 132, 428)])
+def test_routing_plan_emulation_matches_jax(n, h, e, k, sms, seed):
+    """The routing kernels' block plan, emulated in PyTorch, against the
+    JAX ``fused_route``: choices, positions and counts exact; gates and
+    aux within 1e-5 (me summed per block, then over the blocks in a fixed
+    order). The seeds keep every top-k margin above 1e-5."""
+    xt, wg = _router_inputs(n, h, e, seed)
+    assert _topk_margin(xt, wg, k) > 1e-5
+    jgv, jgi, jpos, jcnt, jaux = jmoe.fused_route(jnp.asarray(xt),
+                                                  jnp.asarray(wg), k,
+                                                  "composed")
+    gv, gi, pos, cnt, me, ce = _route_emulated(_t(xt), _t(wg), k, sms)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(jgi, np.int32))
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos, np.int32))
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(jcnt, np.int32))
+    _close(gv, jgv)
+    _close(e * ((me / n) * (ce / n)).sum(), jaux)
+
+
+@pytest.mark.parametrize("n,sms,blocks,tokens", [
+    (1, 132, 1, 1), (200, 132, 200, 1), (264, 132, 264, 1),
+    (265, 132, 133, 2), (8192, 132, 256, 32), (8448, 132, 264, 32),
+    (8449, 132, 257, 33), (37, 4, 8, 5)])
+def test_route_plan_covers_the_tokens(n, sms, blocks, tokens):
+    """``route_plan``: at most the resident blocks (2 a SM), none empty,
+    together exactly the n tokens; one token a block when there are fewer
+    tokens than blocks."""
+    from paddle_tpu_torch.kernels.moe_dispatch import route_plan
+
+    assert route_plan(n, sms) == (blocks, tokens)
+    assert blocks <= 2 * sms
+    assert (blocks - 1) * tokens < n <= blocks * tokens
 
 
 @pytest.mark.parametrize("impl", ["interpret", "composed"])
