@@ -59,7 +59,10 @@ Phases (each raises on failure, so the process exits non-zero and prints no
 6. train-parity — fp32, the 1.16B Llama's width at depth 2, batch 2 x 512:
              one step's loss and every parameter gradient through the
              kernels against the same step with each kernel wrapper swapped
-             for its plain version, then a 3-step AdamW loss curve of both.
+             for its plain version (the optimizer's too), then a 3-step
+             AdamW loss curve of both, and a 3-step curve of the finetune
+             recipe (LinearWarmup + ClipGradByGlobalNorm(1.0) + AdamW)
+             with the optimizer's launches counted exactly.
 7. train   — bf16, the 1.16B Llama at full width and depth (20 layers,
              recompute), AdamW lr 3e-4 / wd 0.1, batch 4 x 2048: one step's
              gradients through the kernels against the plain-swapped step
@@ -70,8 +73,18 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              and read after (each kernel's launches per step as reckoned
              from the code: every flash forward, dK/dV and dQ on the
              tensor-core kernels, none on the CUDA-core ones; no plain
-             call), a falling finite loss, step
-             time, tokens/s, MFU, peak memory and a profiled step.
+             call; AdamW's update one fused launch a step), a falling
+             finite loss, step time, tokens/s, MFU, peak memory and a
+             profiled step.
+   optimizer — the fused optimizer's kernels over the dense model's full
+             parameter set, bf16 (AdamW, and with ClipGradByGlobalNorm):
+             against their plain versions (99.9% of p, m, v bit for bit,
+             one ulp at most; two runs the same bits), timed eager and in
+             graph replay beside their bounds and
+             torch.optim.AdamW(fused=True); then in fp32 on the first
+             tensors, with three planted faults (no bias correction, the
+             decoupled decay dropped, the clip scale ignored) that the
+             check must catch.
 8. moe-kernels — the MoE path's kernels (routing, row gather, combine,
              grouped GEMM forward, dgrad and wgrad) at the MoE step's shapes
              (timed, with bound and yardstick) and at odd shapes (token
@@ -96,8 +109,12 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              then steps with the
              counters reset before and read after (exact launches, every
              grouped GEMM on the tensor-core kernels, no plain
-             call), a falling finite loss, step time, tokens/s, MFU on
-             activated FLOPs, peak memory and a profiled step.
+             call; Adafactor one stats and one update call a step), a
+             falling finite loss, step time, tokens/s, MFU on activated
+             FLOPs, peak memory and a profiled step.
+   optimizer — Adafactor's two kernels over the MoE model's full parameter
+             set, as for AdamW above (no library call computes its rule),
+             with a planted fault: the update's RMS clip dropped.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
@@ -1516,13 +1533,14 @@ def _flash_module():
 
 def _plain_swaps():
     """(module, attribute, plain version) for every kernel wrapper that
-    the training paths (dense and MoE) call; the autograd functions and
-    the MoE MLP look these attributes up at call time."""
+    the training paths (dense and MoE) call; the autograd functions, the
+    MoE MLP and the optimizers look these attributes up at call time."""
     from paddle_tpu_torch.kernels import grouped_matmul as gm
     from paddle_tpu_torch.kernels import moe_dispatch as md
     from paddle_tpu_torch.kernels import rmsnorm, rope
 
     fa = _flash_module()
+    ko = _opt_module()
     return [(fa, "flash_attention_fwd", fa.flash_attention_plain),
             (fa, "flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv_plain),
             (fa, "flash_attention_bwd_dq", fa.flash_attention_bwd_dq_plain),
@@ -1532,7 +1550,8 @@ def _plain_swaps():
             (md, "route", md.route_plain),
             (md, "gather_rows", md.gather_rows_plain),
             (md, "combine_rows", md.combine_rows_plain),
-            (gm, "gmm", gm.gmm_plain), (gm, "tgmm", gm.tgmm_plain)]
+            (gm, "gmm", gm.gmm_plain), (gm, "tgmm", gm.tgmm_plain)] + [
+                (ko, n, getattr(ko, n + "_plain")) for n in OPT_KERNELS]
 
 
 def _faulty(fault):
@@ -1604,15 +1623,27 @@ def _worst(errs, k=3):
     return sorted(errs.items(), key=lambda kv: -kv[1])[:k]
 
 
-def _train_curve(model, state, ids, steps):
+def _train_curve(model, state, ids, steps, finetune=False):
+    """AdamW lr 3e-4 / wd 0.1 losses; ``finetune``: the JAX package's
+    finetune recipe (``bench.py:855-864``), the rate a ``LinearWarmup``
+    from 0 over 2 steps (stepped after each) and ClipGradByGlobalNorm(1.0)."""
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
 
     model.load_state_dict(state)
-    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
-                weight_decay=0.1)
+    sched = lr.LinearWarmup(learning_rate=3e-4, warmup_steps=2,
+                            start_lr=0.0, end_lr=3e-4) if finetune else None
+    opt = AdamW(learning_rate=sched or 3e-4, parameters=model.parameters(),
+                weight_decay=0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0) if finetune else None)
     step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt)
-    return [float(step(ids, ids)) for _ in range(steps)]
+    losses = []
+    for _ in range(steps):
+        losses.append(float(step(ids, ids)))
+        if sched is not None:
+            sched.step()
+    return losses
 
 
 # the kernels of the dense training step in fp32 (the parity phases; bf16
@@ -1629,7 +1660,8 @@ DENSE_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
 def _dense_launches(L):
     """{counter: launches per step} of the bf16 dense training step; every
     other counter 0: all 2L flash forwards and the L dK/dV and L dQ
-    launches go to the tensor-core kernels, none to the CUDA-core ones."""
+    launches go to the tensor-core kernels, none to the CUDA-core ones;
+    AdamW's update is one ``adam_update`` launch over every parameter."""
     from paddle_tpu_torch import kernels
 
     per_step = {n: 0 for n in kernels.counters()}
@@ -1637,7 +1669,8 @@ def _dense_launches(L):
         "flash_attention_sm90": 2 * L, "flash_attention_bwd_dkv_sm90": L,
         "flash_attention_bwd_dq_sm90": L, "rms_norm": 2 * L + 1,
         "rms_norm_residual": 2 * L, "rms_norm_bwd": L + 1,
-        "rms_norm_residual_bwd": L, "rope": 4 * L, "rope_inverse": 2 * L})
+        "rms_norm_residual_bwd": L, "rope": 4 * L, "rope_inverse": 2 * L,
+        "adam_update": 1})
     return per_step
 
 
@@ -1674,6 +1707,15 @@ def phase_train_parity(seed):
     with _swapped(_plain_swaps()):
         curve_p = _train_curve(model, state, ids, 3)
     curve_rel = max(abs(a - b) / abs(b) for a, b in zip(curve_k, curve_p))
+    # the finetune recipe: warmup and the global-norm clip, whose sums of
+    # squares are one multi_tensor_sumsq launch a step
+    kernels.reset_counters()
+    tune_k = _train_curve(model, state, ids, 3, finetune=True)
+    tune_counts = kernels.counters()
+    with _swapped(_plain_swaps()):
+        tune_p = _train_curve(model, state, ids, 3, finetune=True)
+    tune_rel = max(abs(a - b) / abs(b) for a, b in zip(tune_k, tune_p))
+    tune_opt = {n: tune_counts[n]["launches"] for n in OPT_KERNELS}
     row = {"phase": "train-parity", "layers": 2, "dtype": "float32",
            "batch": [2, 512], "loss_kernels": loss_k, "loss_plain": loss_p,
            "loss_rel_err": loss_rel, "loss_rtol": PARITY_LOSS_RTOL,
@@ -1681,17 +1723,26 @@ def phase_train_parity(seed):
            "grad_worst": _worst(errs), "grad_tol": PARITY_GRAD_TOL,
            "params_checked": len(errs), "curve_kernels": curve_k,
            "curve_plain": curve_p, "curve_rel_err": curve_rel,
-           "curve_rtol": PARITY_CURVE_RTOL}
+           "curve_rtol": PARITY_CURVE_RTOL, "finetune_kernels": tune_k,
+           "finetune_plain": tune_p, "finetune_rel_err": tune_rel,
+           "finetune_optimizer_launches": tune_opt}
     _emit(row)
     if not (loss_rel <= PARITY_LOSS_RTOL
             and max(errs.values()) <= PARITY_GRAD_TOL
-            and curve_rel <= PARITY_CURVE_RTOL):
+            and curve_rel <= PARITY_CURVE_RTOL
+            and tune_rel <= PARITY_CURVE_RTOL):
         raise RuntimeError(f"train-parity: kernels differ from plain: {row}")
-    if not curve_k[-1] < curve_k[0]:
-        raise RuntimeError(f"train-parity: loss did not fall {curve_k}")
+    if tune_opt != {"multi_tensor_sumsq": 3, "adam_update": 3,
+                    "adafactor_stats": 0, "adafactor_update": 0} or any(
+                        c["plain_calls"] for c in tune_counts.values()):
+        raise RuntimeError(f"train-parity: the finetune steps' optimizer "
+                           f"launches {tune_opt}")
+    if not (curve_k[-1] < curve_k[0] and tune_k[-1] < tune_k[0]):
+        raise RuntimeError(f"train-parity: loss did not fall {curve_k} "
+                           f"{tune_k}")
     del model, state
     _release()
-    return counts
+    return counts, tune_counts
 
 
 def _train_group(name):
@@ -1740,13 +1791,15 @@ def _device_ms(prof, group_of):
     """(device ms by kernel name, by group ``group_of(name)``, and in all),
     each the union of its device records' spans, from a profiler session
     (CUPTI's "Command Buffer Full" records mark the host waiting on a full
-    launch queue, and annotations span other records; neither is work)."""
+    launch queue, annotations span other records and ``spin_kernel`` is
+    the session's marker (``_train_breakdown``); none of them is work)."""
     import torch
 
     spans = {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA or \
                 e.name.startswith("Command Buffer") or \
+                "spin_kernel" in e.name or \
                 getattr(e, "is_user_annotation", False):
             continue
         spans.setdefault(e.name, []).append((e.time_range.start,
@@ -1784,18 +1837,33 @@ def _train_breakdown(model, opt, ids):
     for name, fn in (("forward", forward), ("backward", backward),
                      ("optimizer", optimizer)):
         torch.cuda.synchronize()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # a marker kernel first: in this script's later sessions the
+            # first device records of a session went missing (PR 10's
+            # first runs lost the optimizer's table copy and its first
+            # kernel); the marker is not counted (_device_ms)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
+            ev0.record()
             fn()
+            ev1.record()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         by_name, groups, device = _device_ms(
             prof, lambda k, phase=name: "optimizer" if phase == "optimizer"
             else _train_group(k))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        # events_ms: the stream's time from the phase's first operation to
+        # its last, gaps included (a bound on its device time that does not
+        # rest on the profiler's records)
         phases[name] = {"wall_ms": wall,
                         "device_ms": device,
+                        "events_ms": ev0.elapsed_time(ev1),
+                        "kernels": len(by_name),
                         "groups_ms": groups,
                         "top": [[k[:70], ms] for k, ms in top]}
     wall = sum(p["wall_ms"] for p in phases.values())
@@ -1815,10 +1883,13 @@ def _train_breakdown(model, opt, ids):
 # transposing copy of the cotangent before each inverse) and the combine
 # backward's gate scale as three elementwise passes; "rmsnorm" with the
 # earlier backward (a block a row, scalar loads) and "moe_route" with the
-# earlier routing kernels (32 tokens a block, a one-block scan)
-EARLIER_GROUPS_MS = {"train": {"rope": 6.7, "other": 34.6, "rmsnorm": 6.39},
+# earlier routing kernels (32 tokens a block, a one-block scan);
+# "optimizer" with the per-tensor update loop (PR 9's run)
+EARLIER_GROUPS_MS = {"train": {"rope": 6.7, "other": 34.6, "rmsnorm": 6.39,
+                               "optimizer": 74.3},
                      "moe-train": {"rope": 4.1, "other": 34.5,
-                                   "rmsnorm": 4.21, "moe_route": 3.36}}
+                                   "rmsnorm": 4.21, "moe_route": 3.36,
+                                   "optimizer": 77.5}}
 
 
 def _beside_earlier(path, breakdown):
@@ -1920,9 +1991,10 @@ def phase_train(seed):
            "expected_launches_per_step": per_step})
     _emit({"phase": "train-breakdown", **breakdown,
            "beside_earlier": _beside_earlier("train", breakdown)})
+    shapes = [tuple(p.shape) for p in model.parameters()]
     del model, opt, step
     _release()
-    return counts
+    return counts, shapes
 
 
 # -- phase: MoE kernels -------------------------------------------------------
@@ -2630,6 +2702,8 @@ def phase_moe_train(seed):
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     per_step = _dense_launches(L)
     per_step.update({n: c * L for n, c in MOE_KERNELS.items()})
+    # Adafactor, not AdamW: its statistics and its update, one call each
+    per_step.update(adam_update=0, adafactor_stats=1, adafactor_update=1)
     wrong = {n: (c, per_step[n] * MOE_TRAIN_STEPS) for n, c in counts.items()
              if c["plain_calls"] or
              c["launches"] != per_step[n] * MOE_TRAIN_STEPS}
@@ -2658,10 +2732,307 @@ def phase_moe_train(seed):
            "expected_launches_per_step": per_step})
     _emit({"phase": "moe-train-breakdown", **breakdown,
            "beside_earlier": _beside_earlier("moe-train", breakdown)})
+    shapes = [tuple(p.shape) for p in model.parameters()]
     del model, opt, step
     _release()
     set_flags({"FLAGS_moe_dispatch": "index"})
-    return counts
+    return counts, shapes
+
+
+# -- phase: the fused optimizer -----------------------------------------------
+
+# the optimizer's kernels (csrc/optimizer.cu)
+OPT_KERNELS = ("multi_tensor_sumsq", "adam_update", "adafactor_stats",
+               "adafactor_update")
+OPT_STEP = 7  # the step number of the checked update (bias corrections)
+# the check of a kernel against its plain version: bf16 parameters and
+# moments equal bit for bit in 99.9% of elements and one ulp apart at most
+# (a rounding flipped by the last bit of an fp32 sum taken in another
+# order), an ulp of the larger of the two results and the value before the
+# update; fp32 every element within rtol of its plain value plus rtol of
+# its tensor's largest element (a moment is a sum that cancels), as
+# tests/test_torch_gpu.py holds them
+OPT_RTOL = {"adam": 1e-6, "adafactor": 1e-5}
+OPT_BF16_SAME = 0.999
+# planted faults, set through the wrappers' arguments: the bias corrections
+# at an enormous step (1 - b^t = 1), the decoupled decay's weight 0, the
+# clip scale not applied, Adafactor's update-clip threshold infinite.
+# Checked in fp32, where every term shows: in bf16 the decoupled decay at
+# lr 3e-4 is under half an ulp of p and rounds away in both versions
+OPT_FAULTS = {"adam": ("no_bias_correction", "decoupled_decay_dropped",
+                       "clip_scale_ignored"),
+              "adafactor": ("rms_clip_dropped",)}
+# the fp32 check runs on the set's first tensors up to this many elements
+OPT_FP32_ELEMENTS = 120_000_000
+
+
+def _opt_module():
+    import importlib
+
+    return importlib.import_module("paddle_tpu_torch.kernels.optimizer")
+
+
+class _OptCase:
+    """One optimizer update over tensors of ``shapes``, through the kernels
+    or their plain versions, each run from the same seeded tensors: p
+    (scale 0.02), g (1e-3) and the rule's state as after some steps
+    (Adam's m and v; Adafactor's vr/vc or v at about a tenth of E[g^2],
+    so that its update clip is active). AdamW lr 3e-4, wd 0.1;
+    Adafactor lr 1e-2; ``clip``: ClipGradByGlobalNorm(1.0)."""
+
+    def __init__(self, rule, shapes, dtype, clip, gen):
+        import torch
+
+        def rnd(shape, scale):
+            return (torch.randn(shape, generator=gen, device=DEVICE) *
+                    scale).to(dtype)
+
+        def acc(shape):
+            return (torch.rand(shape, generator=gen, device=DEVICE) +
+                    0.5) * 1e-7
+
+        self.rule, self.clip = rule, clip
+        self.p = [rnd(s, 0.02) for s in shapes]
+        self.g = [rnd(s, 1e-3) for s in shapes]
+        if rule == "adam":
+            self.slots = [[rnd(s, 1e-4) for s in shapes],
+                          [rnd(s, 1e-3).square() for s in shapes]]
+        else:
+            self.slots = [[acc(s[:-1] if len(s) > 1 else s) for s in shapes],
+                          [acc(s[:-2] + s[-1:]) if len(s) > 1 else None
+                           for s in shapes]]
+        self.slots.append([None] * len(shapes))  # no first moment
+        self.init = [t.clone() for t in self.live()]
+        self.lr = 3e-4 if rule == "adam" else 1e-2
+
+    def live(self):
+        """What an update writes: p and the state tensors."""
+        return self.p + [t for s in self.slots for t in s if t is not None]
+
+    def batch(self, step=OPT_STEP):
+        return _opt_module().StepBatch(self.p, self.g, self.slots,
+                                       [True] * len(self.p), self.lr, step,
+                                       rule=self.rule)
+
+    def calls(self, b, plain=False, fault=None):
+        """{kernel: closure} of one update over batch ``b``; Adafactor's
+        update closure reads the stats of one stats call made here."""
+        kopt = _opt_module()
+        sfx = "_plain" if plain else ""
+        out, norms, clip = {}, None, ("none",)
+        if self.clip:
+            out["multi_tensor_sumsq"] = lambda: getattr(
+                kopt, "multi_tensor_sumsq" + sfx)(b, 1.0, 2)
+            norms = out["multi_tensor_sumsq"]()
+            clip = ("none",) if fault == "clip_scale_ignored" else ("scale",)
+        if self.rule == "adam":
+            wd = 0.0 if fault == "decoupled_decay_dropped" else 0.1
+            out["adam_update"] = lambda: getattr(kopt, "adam_update" + sfx)(
+                b, beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=wd,
+                decoupled=True, clip=clip, norms=norms)
+            return out
+
+        def stats():
+            return getattr(kopt, "adafactor_stats" + sfx)(
+                b, decay_rate=0.8, epsilon1=1e-30, weight_decay=0.0,
+                pscale=True, clip=clip, norms=norms)
+
+        out["adafactor_stats"] = stats
+        st = stats()
+        thr = float("inf") if fault == "rms_clip_dropped" else 1.0
+        out["adafactor_update"] = lambda: getattr(
+            kopt, "adafactor_update" + sfx)(
+                b, st, beta1=0.0, epsilon2=1e-3, clip_threshold=thr,
+                pscale=True, weight_decay=0.0, clip=clip, norms=norms)
+        return out
+
+    def update(self, plain=False, fault=None):
+        """One update from the initial tensors; returns what it wrote."""
+        import torch
+
+        for t, t0 in zip(self.live(), self.init):
+            t.copy_(t0)
+        b = self.batch(2 ** 30 if fault == "no_bias_correction"
+                       else OPT_STEP)
+        calls = self.calls(b, plain, fault)  # runs sumsq and stats once
+        last = "adam_update" if self.rule == "adam" else "adafactor_update"
+        calls[last]()
+        torch.cuda.synchronize()
+        return [t.clone() for t in self.live()]
+
+
+def _bf16_ulps(a, b, scale):
+    """|a - b| in bf16 ulps of ``scale`` (elementwise)."""
+    import torch
+
+    m = scale.float().abs().clamp_min(2.0 ** -126)
+    return (a.float() - b.float()).abs() / torch.exp2(
+        torch.floor(torch.log2(m)) - 7)
+
+
+def _opt_agreement(got, ref, init):
+    """(share of bf16 elements equal bit for bit, largest distance in bf16
+    ulps at the operands' scale max(|a|, |b|, |before|), largest fp32
+    error over rtol's scale |ref| + max|ref|, largest distance in ulps at
+    the result's own scale max(|a|, |b|), count of elements within one ulp
+    only at the operands' scale); ``init``: the tensors before the update.
+    The check reads the first three: the operands' scale is that of the
+    fp32 terms of an update that cancels, whose result may land near
+    zero, where its own ulp is tiny."""
+    import torch
+
+    same = total = base_only = 0
+    ulps = worst = own = 0.0
+    for a, b, a0 in zip(got, ref, init):
+        if a.dtype == torch.bfloat16:
+            same += int((a.view(torch.int16) == b.view(torch.int16)).sum())
+            total += a.numel()
+            top = torch.maximum(a.float().abs(), b.float().abs())
+            at_own = _bf16_ulps(a, b, top)
+            at_ops = _bf16_ulps(a, b, torch.maximum(top, a0.float().abs()))
+            ulps = max(ulps, float(at_ops.max()))
+            own = max(own, float(at_own.max()))
+            base_only += int(((at_own > 1) & (at_ops <= 1)).sum())
+        else:
+            scale = b.abs() + b.abs().max()
+            worst = max(worst, float(((a - b).abs() /
+                                      scale.clamp_min(1e-30)).max()))
+    return (same / total if total else 1.0), ulps, worst, own, base_only
+
+
+def _opt_sound(rule, agreement):
+    same, ulps, worst = agreement[:3]
+    return same >= OPT_BF16_SAME and ulps <= 1 and worst <= OPT_RTOL[rule]
+
+
+def _opt_nbytes(ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def phase_optimizer(path, shapes, rule, seed):
+    """The fused optimizer's kernels over a model's full parameter set
+    (``shapes``), bf16: each kernel's update against its plain version
+    (the check above, two runs bit for bit the same, one launch a call),
+    timed eager and in CUDA-graph replay beside the plain version, the
+    bound of the bytes its function moves and a PyTorch yardstick
+    (``torch.optim.AdamW(fused=True)`` on the same tensors; for the sums
+    of squares ``torch._foreach_norm``; none computes Adafactor's rule);
+    then the same check in fp32 on the set's first tensors, which each
+    planted fault must fail. Dense: AdamW with and without
+    ClipGradByGlobalNorm(1.0); MoE: Adafactor."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 30)
+    variants = ([(f"{path}-bfloat16", False), (f"{path}-clip-bfloat16", True)]
+                if rule == "adam" else [(f"{path}-bfloat16", False)])
+    rows = []
+    for case, clip in variants:
+        oc = _OptCase(rule, shapes, torch.bfloat16, clip, gen)
+        ref = oc.update(plain=True)
+        kernels.reset_counters()
+        got = oc.update()
+        counts = kernels.counters()
+        again = oc.update()
+        agree = _opt_agreement(got, ref, oc.init)
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got[:len(oc.p)], ref))
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        del ref, got, again
+        want = {n: 0 for n in OPT_KERNELS}
+        b = oc.batch()
+        calls = oc.calls(b)
+        want.update({n: 1 for n in calls})
+        launched = {n: counts[n]["launches"] for n in OPT_KERNELS}
+        plain = sum(counts[n]["plain_calls"] for n in OPT_KERNELS)
+        check = {"phase": "optimizer-check", "case": case, "rule": rule,
+                 "tensors": len(shapes),
+                 "elements": sum(p.numel() for p in oc.p),
+                 "bitwise_share": agree[0], "max_ulps": agree[1],
+                 "max_ulps_own_scale": agree[3],
+                 "within_one_ulp_only_at_operands": agree[4],
+                 "fp32_state_err": agree[2], "deterministic": deterministic,
+                 "launches": launched}
+        _emit(check)
+        if not (_opt_sound(rule, agree) and deterministic and plain == 0
+                and launched == want):
+            raise RuntimeError(f"optimizer: kernels differ from plain or "
+                               f"launch otherwise {check}")
+        plain_calls = oc.calls(b, plain=True)
+        n, nm = len(oc.p), b.n_matrices
+        P, G = _opt_nbytes(oc.p), _opt_nbytes(oc.g)
+        S = _opt_nbytes(oc.slots[0]) + _opt_nbytes(oc.slots[1])
+        nbytes = {"multi_tensor_sumsq": G + 4 * (2 * n + 1),
+                  "adam_update": P + G + S + P + S,
+                  "adafactor_stats": G + P + 2 * S + 4 * (n + nm),
+                  "adafactor_update": G + 2 * P + S + 4 * (n + nm)}
+        lib = {}
+        if rule == "adam":
+            lp = [torch.nn.Parameter(t.clone()) for t in oc.p]
+            for t, g in zip(lp, oc.g):
+                t.grad = g
+            fused = torch.optim.AdamW(lp, lr=oc.lr, weight_decay=0.1,
+                                      fused=True)
+            lib["adam_update"] = _time_ms(fused.step, iters=5, warmup=2)
+            del fused, lp
+            lib["multi_tensor_sumsq"] = _time_ms(
+                lambda: torch._foreach_norm(oc.g), iters=5, warmup=2)
+        for name, fn in calls.items():
+            b_ms, b_by = _bound(nbytes[name], 0, "float32")
+            row = {"phase": "kernel", "kernel": name, "case": case,
+                   "dtype": "bfloat16", "tensors": n,
+                   "elements": sum(p.numel() for p in oc.p),
+                   "max_abs_err": err, "bitwise_share": agree[0],
+                   "max_ulps": agree[1],
+                   "kernel_ms": _time_ms(fn, iters=10, warmup=2),
+                   "graph_ms": _graph_ms(fn, iters=5, reps=3),
+                   "plain_ms": _time_ms(plain_calls[name], iters=2,
+                                        warmup=1),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib.get(name)}
+            if name in lib:
+                row["library"] = ("torch.optim.AdamW(fused=True)"
+                                  if name == "adam_update"
+                                  else "torch._foreach_norm")
+            rows.append(row)
+            _emit(row)
+        del oc, b, calls, plain_calls
+        _release()
+
+    # fp32 on the first tensors: sound, and every planted fault caught
+    sub, total = [], 0
+    for s in shapes:
+        k = math.prod(s)
+        if sub and total + k > OPT_FP32_ELEMENTS:
+            break
+        sub.append(s)
+        total += k
+    oc = _OptCase(rule, sub, torch.float32, rule == "adam", gen)
+    ref = oc.update(plain=True)
+    sound = _opt_agreement(oc.update(), ref, oc.init)
+    faults = {}
+    for fault in OPT_FAULTS[rule]:
+        reading = _opt_agreement(oc.update(fault=fault), ref, oc.init)
+        faults[fault] = {"fp32_err": reading[2],
+                         "caught": not _opt_sound(rule, reading)}
+    check = {"phase": "optimizer-fault-check", "rule": rule,
+             "tensors": len(sub), "elements": total, "fp32_err": sound[2],
+             "rtol": OPT_RTOL[rule], "clip": rule == "adam",
+             "faults": faults}
+    _emit(check)
+    del oc, ref
+    _release()
+    if not _opt_sound(rule, sound):
+        raise RuntimeError(f"optimizer: fp32 kernels differ from plain "
+                           f"{check}")
+    if not all(f["caught"] for f in faults.values()):
+        raise RuntimeError(f"optimizer: the check missed a planted fault "
+                           f"{faults}")
+    return rows
 
 
 def _kernels_line(rows, paths):
@@ -2740,6 +3111,16 @@ def _kernels_line(rows, paths):
         ("grouped_matmul_wgrad_sm90", "moe-gate-bfloat16",
          "grouped_matmul_sm90.cu", "paddle_tpu/kernels/grouped_matmul.py:55",
          ["grouped_matmul_wgrad_sm90"]),
+        # no Pallas kernel: XLA fuses the JAX package's update
+        # (Optimizer._get_fused's fused, optimizer.py:127, and the clips)
+        ("multi_tensor_sumsq", "dense-clip-bfloat16", "optimizer.cu",
+         "paddle_tpu/nn/clip.py:48", ["multi_tensor_sumsq"]),
+        ("adam_update", "dense-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:127", ["adam_update"]),
+        ("adafactor_stats", "moe-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:443", ["adafactor_stats"]),
+        ("adafactor_update", "moe-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:443", ["adafactor_update"]),
     ]
     # a second function of the same kernel: (TPU kernel it replaces where
     # another, its name; launches from its own counter where it has one)
@@ -2765,7 +3146,7 @@ def _kernels_line(rows, paths):
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "case": case}
-        extras = ("cuda_core_ms", "library_ms_spread", "graph_ms",
+        extras = ("cuda_core_ms", "library_ms_spread", "graph_ms", "library",
                   "cuda_core_graph_ms", "library_graph_ms", "copy_graph_ms",
                   "copy_out_graph_ms", "composition_ms",
                   "composition_graph_ms", "earlier_ms", "earlier_graph_ms")
@@ -2842,16 +3223,19 @@ def main() -> int:
     rows += phase_train_kernels(SEED)
     serving_fp32 = phase_parity(SEED)
     serving = phase_serving(SEED)
-    training_fp32 = phase_train_parity(SEED)
-    training = phase_train(SEED)
+    training_fp32, finetune_fp32 = phase_train_parity(SEED)
+    training, dense_shapes = phase_train(SEED)
+    rows += phase_optimizer("dense", dense_shapes, "adam", SEED)
     rows += phase_moe_kernels(SEED)
     moe_fp32 = phase_moe_train_parity(SEED)
-    moe = phase_moe_train(SEED)
+    moe, moe_shapes = phase_moe_train(SEED)
+    rows += phase_optimizer("moe", moe_shapes, "adafactor", SEED)
 
     _emit({"kernels": _kernels_line(rows, {
         "serving": serving, "serving-fp32": serving_fp32,
         "training": training, "moe-training": moe,
-        "training-fp32": training_fp32, "moe-training-fp32": moe_fp32})})
+        "training-fp32": training_fp32, "moe-training-fp32": moe_fp32,
+        "finetune-fp32": finetune_fp32})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -2,7 +2,11 @@
 
 The JAX ``TrainStep`` traces forward, backward and the optimizer update into
 one compiled executable. PyTorch runs eagerly, so here the step is the same
-three phases in order, with autograd as the tape; capturing it in a CUDA
+three phases in order, with autograd as the tape. The update is fused as
+the JAX package fuses it: ``optimizer.step()`` applies the gradient clip,
+the weight decay and the rule to every parameter in a few launches of the
+multi-tensor kernels (``kernels/optimizer.py``), with the learning rate and
+the step number read on the device. Capturing the whole step in a CUDA
 graph is later work.
 """
 from __future__ import annotations

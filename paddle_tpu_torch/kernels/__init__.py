@@ -7,6 +7,7 @@ the kernels by resetting before and reading after.
 from . import flash_attention as _flash
 from . import grouped_matmul as _gmm
 from . import moe_dispatch as _moe
+from . import optimizer as _opt
 from . import paged_attention as _paged
 from . import rmsnorm as _rmsnorm
 from . import rope as _rope
@@ -46,7 +47,11 @@ _COUNTS = {"paged_attention": _paged.COUNTS,
            "grouped_matmul_wgrad": _gmm.COUNTS_WGRAD,
            "grouped_matmul_sm90": _gmm.COUNTS_SM90,
            "grouped_matmul_dgrad_sm90": _gmm.COUNTS_DGRAD_SM90,
-           "grouped_matmul_wgrad_sm90": _gmm.COUNTS_WGRAD_SM90}
+           "grouped_matmul_wgrad_sm90": _gmm.COUNTS_WGRAD_SM90,
+           "multi_tensor_sumsq": _opt.COUNTS_SUMSQ,
+           "adam_update": _opt.COUNTS_ADAM,
+           "adafactor_stats": _opt.COUNTS_ADAFACTOR_STATS,
+           "adafactor_update": _opt.COUNTS_ADAFACTOR_UPDATE}
 
 
 def counters():

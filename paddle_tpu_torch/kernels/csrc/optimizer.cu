@@ -1,0 +1,850 @@
+// Fused multi-tensor optimizer update for Hopper (sm_90a): gradient
+// clipping, coupled or decoupled weight decay and the Adam / AdamW or
+// Adafactor rule over every parameter of a step in a few launches.
+//
+// Replaces what XLA fuses for the JAX package: `Optimizer._get_fused`
+// (paddle_tpu/optimizer/optimizer.py:117-147) over `Adam._rule` (:265-276)
+// and `Adafactor._rule` (:443-473), with the clips of paddle_tpu/nn/clip.py
+// (:22-52) applied first. No Pallas kernel exists for it: the TPU gets the
+// fusion from XLA's jit of one function over all parameters.
+//
+// The chunk table (built by paddle_tpu_torch/kernels/optimizer.py once per
+// step, copied to the device from pinned memory on the stream):
+//   words [0, 2): int32 view [lr as fp32 bits, step, n_tensors, n_chunks]
+//   then n_tensors entries of kTensorWords int64 (pointers, sizes, flags)
+//   then n_chunks chunk words: tensor << 40 | chunk index in the tensor
+//   then n_matrices matrix words (Adafactor): tensor << 40 | leading index
+// A chunk is a contiguous element range: kSpan elements of a flat tensor,
+// or a tile of kSpan whole rows of one [R, C] matrix of a factored one
+// (Adafactor's tensors of 2+ dimensions; rows are over the last axis).
+// One block takes one chunk. The learning rate and the step are read from
+// the table on the device, and the bias corrections 1 - b^t (in double,
+// rounded once to fp32) and Adafactor's 1 - t^-decay (in fp32, as the JAX
+// package takes it) are computed here from the step: nothing that changes
+// from step to step is a kernel argument.
+//
+// Rounding follows the JAX package's order (and the plain versions in
+// kernels/optimizer.py, which the card tests hold these kernels to): each
+// fp32 operation is rounded on its own (__fmul_rn / __fadd_rn / __fdiv_rn,
+// so nvcc contracts nothing into an FMA); the clip's product is rounded to
+// the gradient's dtype, the coupled decay g + bf16(wd * p) is rounded to
+// the parameter's dtype, and p, m, v are each cast back to their dtype
+// after the rule; the decoupled decay subtracts bf16(lr * wd * p_old) from
+// the rounded new p.
+//
+// Sums across blocks take a second pass in a fixed order, never atomics,
+// so two runs give the same bits: the clip's per-tensor sums of squares
+// and their global sum (pt_opt_sumsq, 2 launches), Adafactor's column sums,
+// mean(vr) and parameter sum of squares (pt_opt_adafactor_stats, 2
+// launches), and its per-tensor sum of u^2, which every block of the apply
+// pass re-sums from the first pass's partials in the same order
+// (pt_opt_adafactor_update, 2 launches). pt_opt_adam is one launch.
+//
+// What bounds it on the H100: bytes. AdamW reads p, g, m, v and writes p,
+// m, v (14 B per bf16 parameter: 4.84 ms for 1.16B parameters at 3.35
+// TB/s). Adafactor's update depends on two whole-tensor sums (the RMS of u
+// and of p), so it reads g three times: g and p (stats), g (sum of u^2),
+// g and p and writes p (apply), about 12 B per bf16 parameter.
+// What the design does about it: 16-byte vector loads of 8 elements per
+// thread (two vectors for fp32), one block per chunk of 64K elements or
+// 256K-element row tiles, many blocks in flight; a tensor's operands that
+// are not all 16-byte aligned take a scalar loop.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "vec16.cuh"
+
+namespace {
+
+constexpr int kTensorWords = 16;
+constexpr int kHeaderWords = 2;
+// tensor entry words
+constexpr int kP = 0, kG = 1, kS0 = 2, kS1 = 3, kS2 = 4, kNumel = 5,
+              kCols = 6, kRows = 7, kSpan = 8, kTiles = 9, kChunkBegin = 10,
+              kChunkEnd = 11, kFlags = 12, kMatBase = 13, kColBase = 14;
+// flags
+constexpr int64_t kBf16 = 1, kDecay = 2, kVec = 4, kFactored = 8;
+constexpr int kThreads = 256;     // sumsq, adam and Adafactor's u passes
+constexpr int kStatsThreads = 128;  // Adafactor's stats pass: 4 warps
+constexpr int kStatsWarps = kStatsThreads / 32;
+constexpr int kFinishThreads = 1024;
+constexpr int kMaxTileRows = 1024;  // kernels/optimizer.py MAX_TILE_ROWS
+
+__device__ __forceinline__ float fmul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float fsub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float fdiv(float a, float b) { return __fdiv_rn(a, b); }
+// jnp.maximum / jnp.minimum and torch's clamp: NaN in, NaN out
+__device__ __forceinline__ float nanmax(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+}
+__device__ __forceinline__ float nanmin(float a, float b) {
+  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
+}
+
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ float ld(const float* p) { return *p; }
+  static __device__ __forceinline__ void st(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ float rnd(float x) { return x; }
+  static __device__ __forceinline__ void ld8(const float* p, float* o) {
+    pt::Vec16<float>::load(p, o);
+    pt::Vec16<float>::load(p + 4, o + 4);
+  }
+  static __device__ __forceinline__ void st8(float* p, const float* v) {
+    pt::Vec16<float>::store(p, v);
+    pt::Vec16<float>::store(p + 4, v + 4);
+  }
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float rnd(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ void ld8(const __nv_bfloat16* p, float* o) {
+    pt::Vec16<__nv_bfloat16>::load(p, o);
+  }
+  static __device__ __forceinline__ void st8(__nv_bfloat16* p, const float* v) {
+    pt::Vec16<__nv_bfloat16>::store(p, v);
+  }
+};
+
+// every lane ends with the same bits: each butterfly step adds the same
+// two values on both lanes, and fp32 addition commutes
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fadd(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// the block's sum in a fixed order, returned to every thread; `sm` holds
+// one float a warp
+template <int NT>
+__device__ __forceinline__ float block_sum(float v, float* sm) {
+  v = warp_sum(v);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) sm[w] = v;
+  __syncthreads();
+  return warp_sum(lane < NT / 32 ? sm[lane] : 0.f);
+}
+
+struct Header {
+  float lr;
+  int step, n_tensors, n_chunks;
+};
+__device__ __forceinline__ Header header(const int64_t* table) {
+  const int32_t* h = reinterpret_cast<const int32_t*>(table);
+  return {__int_as_float(h[0]), h[1], h[2], h[3]};
+}
+__device__ __forceinline__ const int64_t* entry(const int64_t* table, int i) {
+  return table + kHeaderWords + (int64_t)i * kTensorWords;
+}
+__device__ __forceinline__ const int64_t* chunk_words(const int64_t* table,
+                                                      int n_tensors) {
+  return table + kHeaderWords + (int64_t)n_tensors * kTensorWords;
+}
+
+struct Chunk {
+  int tensor;
+  int64_t k;     // chunk index within the tensor
+  int64_t off;   // first element
+  int64_t len;   // elements
+  int64_t b;     // factored: leading (matrix) index
+  int64_t r0;    // factored: first row within the matrix
+  int64_t nr;    // factored: rows
+};
+__device__ __forceinline__ Chunk chunk_at(const int64_t* table, int n_tensors,
+                                          int c) {
+  const int64_t w = chunk_words(table, n_tensors)[c];
+  Chunk ch;
+  ch.tensor = (int)(w >> 40);
+  ch.k = w & ((1LL << 40) - 1);
+  const int64_t* e = entry(table, ch.tensor);
+  const int64_t span = e[kSpan];
+  if (e[kFlags] & kFactored) {
+    const int64_t R = e[kRows], C = e[kCols], tiles = e[kTiles];
+    ch.b = ch.k / tiles;
+    ch.r0 = (ch.k % tiles) * span;
+    ch.nr = R - ch.r0 < span ? R - ch.r0 : span;
+    ch.off = (ch.b * R + ch.r0) * C;
+    ch.len = ch.nr * C;
+  } else {
+    ch.b = 0;
+    ch.r0 = 0;
+    ch.nr = 0;
+    ch.off = ch.k * span;
+    const int64_t rest = e[kNumel] - ch.off;
+    ch.len = rest < span ? rest : span;
+  }
+  return ch;
+}
+
+// the clip and the coupled decay, in the JAX package's order
+// (optimizer.py:128-134): g = clip(g) in g's dtype, then g + wd * p in p's
+struct Clip {
+  int mode;  // 0 none, 1 scale from norms[n_tensors + i], 2 value [lo, hi]
+  float lo, hi;
+};
+template <typename T>
+struct Prep {
+  int mode;
+  float scale, lo, hi, wd;
+  bool coupled;
+  __device__ __forceinline__ float operator()(float g, float p) const {
+    if (mode == 1) {
+      g = Elem<T>::rnd(fmul(g, scale));
+    } else if (mode == 2) {
+      g = g < lo ? lo : g;
+      g = g > hi ? hi : g;
+    }
+    if (coupled) g = Elem<T>::rnd(fadd(g, Elem<T>::rnd(fmul(wd, p))));
+    return g;
+  }
+};
+template <typename T>
+__device__ __forceinline__ Prep<T> make_prep(const Clip& c, const float* norms,
+                                             int n_tensors, int i, float wd,
+                                             bool coupled) {
+  Prep<T> r;
+  r.mode = c.mode;
+  r.scale = c.mode == 1 ? norms[n_tensors + i] : 1.f;
+  r.lo = Elem<T>::rnd(c.lo);
+  r.hi = Elem<T>::rnd(c.hi);
+  r.wd = wd;
+  r.coupled = coupled;
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// (a) sums of squares of the gradients: per chunk, then per tensor and in all
+
+template <typename T>
+__device__ float sumsq_chunk(const T* g, int64_t len, bool vec) {
+  float acc = 0.f;
+  const int64_t vend = vec ? (len & ~(int64_t)7) : 0;
+  for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
+    float x[8];
+    Elem<T>::ld8(g + j, x);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc = fadd(acc, fmul(x[e], x[e]));
+  }
+  for (int64_t j = vend + threadIdx.x; j < len; j += kThreads) {
+    const float x = Elem<T>::ld(g + j);
+    acc = fadd(acc, fmul(x, x));
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads)
+sumsq_partial_kernel(const int64_t* __restrict__ table, float* __restrict__ partial) {
+  __shared__ float sm[kThreads / 32];
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  const int64_t fl = e[kFlags];
+  const bool vec = fl & kVec;
+  float acc;
+  if (fl & kBf16)
+    acc = sumsq_chunk(reinterpret_cast<const __nv_bfloat16*>(e[kG]) + ch.off, ch.len, vec);
+  else
+    acc = sumsq_chunk(reinterpret_cast<const float*>(e[kG]) + ch.off, ch.len, vec);
+  acc = block_sum<kThreads>(acc, sm);
+  if (threadIdx.x == 0) partial[blockIdx.x] = acc;
+}
+
+// one block: warp w sums the chunk partials of tensors w, w + 32, ...; then
+// one thread adds the tensors' sums in tensor order (as the JAX package's
+// Python `sum` does) and every tensor gets its clip scale
+// min(clip / max(norm, 1e-12), 1), of its own norm or of the global one
+__global__ void __launch_bounds__(kFinishThreads)
+sumsq_finish_kernel(const int64_t* __restrict__ table, const float* __restrict__ partial,
+                    float clip_norm, int scale_mode, float* __restrict__ out) {
+  __shared__ float total_sm;
+  const Header h = header(table);
+  const int n = h.n_tensors;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = w; i < n; i += kFinishThreads / 32) {
+    const int64_t* e = entry(table, i);
+    float acc = 0.f;
+    for (int64_t c = e[kChunkBegin] + lane; c < e[kChunkEnd]; c += 32)
+      acc = fadd(acc, partial[c]);
+    acc = warp_sum(acc);
+    if (lane == 0) out[i] = acc;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int i = 0; i < n; ++i) t = fadd(t, out[i]);
+    out[2 * n] = t;
+    total_sm = t;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kFinishThreads) {
+    float s = 1.f;
+    if (scale_mode != 0) {
+      const float norm = sqrtf(scale_mode == 2 ? total_sm : out[i]);
+      s = nanmin(fdiv(clip_norm, nanmax(norm, 1e-12f)), 1.f);
+    }
+    out[n + i] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// (b) Adam / AdamW (optimizer.py:265-276, decays :133-140)
+
+struct AdamArgs {
+  double b1d, b2d;  // the betas as given, for the bias corrections
+  float b1, b2, omb1, omb2, eps, wd;
+  int decoupled;
+  Clip clip;
+};
+
+template <typename T>
+__device__ void adam_chunk(const int64_t* e, int i, const Chunk& ch,
+                           const AdamArgs& a, const float* norms, int n,
+                           float lr, float c1, float c2) {
+  T* p = reinterpret_cast<T*>(e[kP]) + ch.off;
+  const T* g = reinterpret_cast<const T*>(e[kG]) + ch.off;
+  T* m = reinterpret_cast<T*>(e[kS0]) + ch.off;
+  T* v = reinterpret_cast<T*>(e[kS1]) + ch.off;
+  const int64_t fl = e[kFlags];
+  const bool flag = (fl & kDecay) && a.wd != 0.f;
+  const Prep<T> prep = make_prep<T>(a.clip, norms, n, i, a.wd,
+                                    flag && !a.decoupled);
+  const bool dec = flag && a.decoupled;
+  const float lrwd = fmul(lr, a.wd);
+  auto rule = [&](float& pf, float gf, float& mf, float& vf) {
+    gf = prep(gf, pf);
+    mf = fadd(fmul(a.b1, mf), fmul(a.omb1, gf));
+    vf = fadd(fmul(a.b2, vf), fmul(fmul(a.omb2, gf), gf));
+    const float upd = fdiv(fmul(lr, fdiv(mf, c1)),
+                           fadd(sqrtf(fdiv(vf, c2)), a.eps));
+    float pn = Elem<T>::rnd(fsub(pf, upd));
+    if (dec) pn = Elem<T>::rnd(fsub(pn, Elem<T>::rnd(fmul(lrwd, pf))));
+    pf = pn;
+  };
+  const int64_t len = ch.len;
+  const int64_t vend = (fl & kVec) ? (len & ~(int64_t)7) : 0;
+  for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
+    float pf[8], gf[8], mf[8], vf[8];
+    Elem<T>::ld8(p + j, pf);
+    Elem<T>::ld8(g + j, gf);
+    Elem<T>::ld8(m + j, mf);
+    Elem<T>::ld8(v + j, vf);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) rule(pf[q], gf[q], mf[q], vf[q]);
+    Elem<T>::st8(p + j, pf);
+    Elem<T>::st8(m + j, mf);
+    Elem<T>::st8(v + j, vf);
+  }
+  for (int64_t j = vend + threadIdx.x; j < len; j += kThreads) {
+    float pf = Elem<T>::ld(p + j), mf = Elem<T>::ld(m + j),
+          vf = Elem<T>::ld(v + j);
+    rule(pf, Elem<T>::ld(g + j), mf, vf);
+    Elem<T>::st(p + j, pf);
+    Elem<T>::st(m + j, mf);
+    Elem<T>::st(v + j, vf);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+adam_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
+            AdamArgs a) {
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  // 1 - b^t in double, rounded once: at t = 1 the corrections are the
+  // fp32 values of 1 - b1 and 1 - b2 that scale the moments, so the first
+  // step is exactly lr * g / (|g| + eps)
+  const float c1 = (float)(1.0 - pow(a.b1d, (double)h.step));
+  const float c2 = (float)(1.0 - pow(a.b2d, (double)h.step));
+  if (e[kFlags] & kBf16)
+    adam_chunk<__nv_bfloat16>(e, ch.tensor, ch, a, norms, h.n_tensors, h.lr, c1, c2);
+  else
+    adam_chunk<float>(e, ch.tensor, ch, a, norms, h.n_tensors, h.lr, c1, c2);
+}
+
+// ---------------------------------------------------------------------------
+// (c) Adafactor statistics (optimizer.py:448-458): g2 = g^2 + eps1 after the
+// clip and decay; vr from whole row sums, vc from column partials finished
+// in a fixed order, mean(vr) per matrix; the plain v of flat tensors; the
+// parameter's sum of squares for its RMS (:470-472)
+
+struct FactorArgs {
+  float decay, eps1, wd;
+  Clip clip;
+  int need_p;      // read p: the parameter scale or the coupled decay
+  int seg_cols;    // columns per pass over a tile (shared memory)
+  // the update pass
+  float b1, omb1, eps2, clip_threshold;
+  int pscale;
+};
+
+__device__ __forceinline__ void beta2(int step, float decay, float& bt, float& om) {
+  bt = fsub(1.f, powf((float)step, -decay));
+  om = fsub(1.f, bt);
+}
+
+template <typename T>
+__device__ float stats_chunk(const int64_t* e, int i, const Chunk& ch,
+                             const FactorArgs& a, const float* norms, int n,
+                             float bt, float om, float* colpart, float* smem) {
+  const T* g = reinterpret_cast<const T*>(e[kG]);
+  const T* p = reinterpret_cast<const T*>(e[kP]);
+  const int64_t fl = e[kFlags];
+  const bool vec = fl & kVec;
+  const Prep<T> prep = make_prep<T>(a.clip, norms, n, i, a.wd,
+                                    (fl & kDecay) && a.wd != 0.f);
+  const bool need_p = a.need_p;
+  float psum = 0.f;
+  if (!(fl & kFactored)) {
+    float* v = reinterpret_cast<float*>(e[kS0]) + ch.off;
+    g += ch.off;
+    p += ch.off;
+    const int64_t len = ch.len;
+    const int64_t vend = vec ? (len & ~(int64_t)7) : 0;
+    for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kStatsThreads * 8) {
+      float gf[8], pf[8], vf[8];
+      Elem<T>::ld8(g + j, gf);
+      if (need_p) Elem<T>::ld8(p + j, pf);
+      Elem<float>::ld8(v + j, vf);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float pq = need_p ? pf[q] : 0.f;
+        const float x = prep(gf[q], pq);
+        vf[q] = fadd(fmul(bt, vf[q]), fmul(om, fadd(fmul(x, x), a.eps1)));
+        psum = fadd(psum, fmul(pq, pq));
+      }
+      Elem<float>::st8(v + j, vf);
+    }
+    for (int64_t j = vend + threadIdx.x; j < len; j += kStatsThreads) {
+      const float pq = need_p ? Elem<T>::ld(p + j) : 0.f;
+      const float x = prep(Elem<T>::ld(g + j), pq);
+      v[j] = fadd(fmul(bt, v[j]), fmul(om, fadd(fmul(x, x), a.eps1)));
+      psum = fadd(psum, fmul(pq, pq));
+    }
+    return psum;
+  }
+  // a tile of nr whole rows of matrix b: warp w takes rows w, w + 4, ...;
+  // a lane takes 8 columns (or 1 where the tensor is not vectorised) in
+  // steps of 256 (32); row sums by warp_sum, column partials per warp in
+  // shared memory, summed over the warps in order, a pass per seg_cols
+  const int64_t C = e[kCols], R = e[kRows];
+  float* vr = reinterpret_cast<float*>(e[kS0]);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* rowacc = smem;                                // kMaxTileRows
+  float* colacc = smem + kMaxTileRows + w * a.seg_cols;  // this warp's
+  float* cols = colpart + e[kColBase] + ch.k * C;
+  for (int64_t s0 = 0; s0 < C; s0 += a.seg_cols) {
+    const int sw = (int)(C - s0 < a.seg_cols ? C - s0 : a.seg_cols);
+    for (int c = lane; c < sw; c += 32) colacc[c] = 0.f;
+    __syncwarp();
+    for (int r = w; r < ch.nr; r += kStatsWarps) {
+      const int64_t row = (ch.b * R + ch.r0 + r) * C + s0;
+      const T* gr = g + row;
+      const T* pr = p + row;
+      float racc = 0.f;
+      if (vec) {
+        for (int c = lane * 8; c < sw; c += 256) {
+          float gf[8], pf[8];
+          Elem<T>::ld8(gr + c, gf);
+          if (need_p) Elem<T>::ld8(pr + c, pf);
+          float ca[8];
+          Elem<float>::ld8(colacc + c, ca);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const float pq = need_p ? pf[q] : 0.f;
+            const float x = prep(gf[q], pq);
+            const float g2 = fadd(fmul(x, x), a.eps1);
+            racc = fadd(racc, g2);
+            ca[q] = fadd(ca[q], g2);
+            psum = fadd(psum, fmul(pq, pq));
+          }
+          Elem<float>::st8(colacc + c, ca);
+        }
+      } else {
+        for (int c = lane; c < sw; c += 32) {
+          const float pq = need_p ? Elem<T>::ld(pr + c) : 0.f;
+          const float x = prep(Elem<T>::ld(gr + c), pq);
+          const float g2 = fadd(fmul(x, x), a.eps1);
+          racc = fadd(racc, g2);
+          colacc[c] = fadd(colacc[c], g2);
+          psum = fadd(psum, fmul(pq, pq));
+        }
+      }
+      racc = warp_sum(racc);
+      if (lane == 0) rowacc[r] = s0 == 0 ? racc : fadd(rowacc[r], racc);
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < sw; c += kStatsThreads) {
+      const float* base = smem + kMaxTileRows + c;
+      float s = base[0];
+#pragma unroll
+      for (int q = 1; q < kStatsWarps; ++q) s = fadd(s, base[q * a.seg_cols]);
+      cols[s0 + c] = s;
+    }
+    __syncthreads();
+  }
+  // vr = beta2t * vr + (1 - beta2t) * mean over the row
+  const float fc = (float)C;
+  for (int r = threadIdx.x; r < ch.nr; r += kStatsThreads) {
+    float* x = vr + ch.b * R + ch.r0 + r;
+    *x = fadd(fmul(bt, *x), fmul(om, fdiv(rowacc[r], fc)));
+  }
+  return psum;
+}
+
+__global__ void __launch_bounds__(kStatsThreads)
+adafactor_stats_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
+                       FactorArgs a, float* __restrict__ colpart,
+                       float* __restrict__ pspart) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ float red[kStatsWarps];
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  float bt, om;
+  beta2(h.step, a.decay, bt, om);
+  float psum;
+  if (e[kFlags] & kBf16)
+    psum = stats_chunk<__nv_bfloat16>(e, ch.tensor, ch, a, norms, h.n_tensors,
+                                      bt, om, colpart, smem);
+  else
+    psum = stats_chunk<float>(e, ch.tensor, ch, a, norms, h.n_tensors, bt, om,
+                              colpart, smem);
+  psum = block_sum<kStatsThreads>(psum, red);
+  if (threadIdx.x == 0) pspart[blockIdx.x] = psum;
+}
+
+// blocks [0, n_matrices): one matrix each, vc from its tiles' column
+// partials in tile order, then mean(vr); blocks [n_matrices, + n_tensors):
+// one tensor each, its sum of p^2 from its chunk partials in order.
+// stats = [sum p^2 per tensor | mean(vr) per matrix]
+__global__ void __launch_bounds__(kThreads)
+adafactor_finish_kernel(const int64_t* __restrict__ table, int n_matrices,
+                        FactorArgs a, const float* __restrict__ colpart,
+                        const float* __restrict__ pspart, float* __restrict__ stats) {
+  __shared__ float red[kThreads / 32];
+  const Header h = header(table);
+  const int n = h.n_tensors;
+  if ((int)blockIdx.x >= n_matrices) {
+    const int i = blockIdx.x - n_matrices;
+    const int64_t* e = entry(table, i);
+    float acc = 0.f;
+    for (int64_t c = e[kChunkBegin] + threadIdx.x; c < e[kChunkEnd]; c += kThreads)
+      acc = fadd(acc, pspart[c]);
+    acc = block_sum<kThreads>(acc, red);
+    if (threadIdx.x == 0) stats[i] = acc;
+    return;
+  }
+  const int64_t mw = chunk_words(table, n)[h.n_chunks + blockIdx.x];
+  const int i = (int)(mw >> 40);
+  const int64_t b = mw & ((1LL << 40) - 1);
+  const int64_t* e = entry(table, i);
+  const int64_t C = e[kCols], R = e[kRows], tiles = e[kTiles];
+  float bt, om;
+  beta2(h.step, a.decay, bt, om);
+  float* vc = reinterpret_cast<float*>(e[kS1]) + b * C;
+  const float* cols = colpart + e[kColBase] + b * tiles * C;
+  const float fr = (float)R;
+  for (int64_t c = threadIdx.x; c < C; c += kThreads) {
+    float s = cols[c];
+    for (int64_t t = 1; t < tiles; ++t) s = fadd(s, cols[t * C + c]);
+    vc[c] = fadd(fmul(bt, vc[c]), fmul(om, fdiv(s, fr)));
+  }
+  const float* vr = reinterpret_cast<const float*>(e[kS0]) + b * R;
+  float acc = 0.f;
+  for (int64_t r = threadIdx.x; r < R; r += kThreads) acc = fadd(acc, vr[r]);
+  acc = block_sum<kThreads>(acc, red);
+  if (threadIdx.x == 0) stats[n + e[kMatBase] + b] = fdiv(acc, fr);
+}
+
+// ---------------------------------------------------------------------------
+// (d) Adafactor's update (optimizer.py:462-473): u = g / sqrt(vhat), vhat =
+// (vr / mean(vr)) * vc rebuilt per element, never stored; pass 1 sums u^2
+// per chunk, pass 2 re-sums a tensor's partials in order, clips u by its
+// RMS, applies the first moment and the parameter scale. The IEEE square
+// root and divisions cost more issue slots than the pass's bytes, so pass
+// 1 takes each term as x^2 / vhat (approximate division, no root): the
+// RMS is a sum in another order than the reference's anyway, and its
+// terms move by ~1e-7 of themselves; pass 2 skips the division by the
+// clip's divisor where it is 1 (x / 1 is x).
+
+template <typename T, bool kApply>
+__device__ float update_chunk(const int64_t* e, int i, const Chunk& ch,
+                              const FactorArgs& a, const float* norms, int n,
+                              const float* stats, float den, float lrs) {
+  T* p = reinterpret_cast<T*>(e[kP]);
+  const T* g = reinterpret_cast<const T*>(e[kG]);
+  T* m = reinterpret_cast<T*>(e[kS2]);  // null without a first moment
+  const int64_t fl = e[kFlags];
+  const bool vec = fl & kVec;
+  const Prep<T> prep = make_prep<T>(a.clip, norms, n, i, a.wd,
+                                    (fl & kDecay) && a.wd != 0.f);
+  const bool need_p = kApply || prep.coupled;
+  const bool has_m = m != nullptr;
+  float usq = 0.f;
+  // the first pass: u^2 = x^2 / vhat, with one approximate division (2
+  // ulp) and no square root; the apply pass: u = x / sqrt(vhat), each
+  // rounded as the JAX package rounds, then its new p (and m)
+  auto one = [&](float gf, float& pf, float& mf, float vh) {
+    const float x = prep(gf, pf);
+    if (!kApply) {
+      usq = fadd(usq, __fdividef(fmul(x, x), vh));
+      return;
+    }
+    float u = fdiv(x, sqrtf(vh));
+    if (den != 1.f) u = fdiv(u, den);
+    if (has_m) {
+      mf = fadd(fmul(a.b1, mf), fmul(a.omb1, u));
+      u = mf;
+    }
+    pf = Elem<T>::rnd(fsub(pf, fmul(lrs, u)));
+  };
+  if (!(fl & kFactored)) {
+    const float* v = reinterpret_cast<const float*>(e[kS0]) + ch.off;
+    p += ch.off;
+    g += ch.off;
+    if (has_m) m += ch.off;
+    const int64_t len = ch.len;
+    const int64_t vend = vec ? (len & ~(int64_t)7) : 0;
+    for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
+      float gf[8], pf[8], mf[8], vf[8];
+      Elem<T>::ld8(g + j, gf);
+      if (need_p) Elem<T>::ld8(p + j, pf);
+      if (kApply && has_m) Elem<T>::ld8(m + j, mf);
+      Elem<float>::ld8(v + j, vf);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        if (!need_p) pf[q] = 0.f;
+        one(gf[q], pf[q], mf[q], vf[q]);
+      }
+      if (kApply) {
+        Elem<T>::st8(p + j, pf);
+        if (has_m) Elem<T>::st8(m + j, mf);
+      }
+    }
+    for (int64_t j = vend + threadIdx.x; j < len; j += kThreads) {
+      float pf = need_p ? Elem<T>::ld(p + j) : 0.f;
+      float mf = (kApply && has_m) ? Elem<T>::ld(m + j) : 0.f;
+      one(Elem<T>::ld(g + j), pf, mf, v[j]);
+      if (kApply) {
+        Elem<T>::st(p + j, pf);
+        if (has_m) Elem<T>::st(m + j, mf);
+      }
+    }
+    return usq;
+  }
+  const int64_t C = e[kCols], R = e[kRows];
+  const float* vr = reinterpret_cast<const float*>(e[kS0]) + ch.b * R + ch.r0;
+  const float* vc = reinterpret_cast<const float*>(e[kS1]) + ch.b * C;
+  const float mean_vr = stats[n + e[kMatBase] + ch.b];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = w; r < ch.nr; r += kThreads / 32) {
+    const int64_t row = (ch.b * R + ch.r0 + r) * C;
+    const float rs = fdiv(vr[r], mean_vr);
+    T* pr = p + row;
+    const T* gr = g + row;
+    T* mr = has_m ? m + row : nullptr;
+    if (vec) {
+      for (int64_t c = lane * 8; c < C; c += 256) {
+        float gf[8], pf[8], mf[8], vcf[8];
+        Elem<T>::ld8(gr + c, gf);
+        if (need_p) Elem<T>::ld8(pr + c, pf);
+        if (kApply && has_m) Elem<T>::ld8(mr + c, mf);
+        Elem<float>::ld8(vc + c, vcf);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (!need_p) pf[q] = 0.f;
+          one(gf[q], pf[q], mf[q], fmul(rs, vcf[q]));
+        }
+        if (kApply) {
+          Elem<T>::st8(pr + c, pf);
+          if (has_m) Elem<T>::st8(mr + c, mf);
+        }
+      }
+    } else {
+      for (int64_t c = lane; c < C; c += 32) {
+        float pf = need_p ? Elem<T>::ld(pr + c) : 0.f;
+        float mf = (kApply && has_m) ? Elem<T>::ld(mr + c) : 0.f;
+        one(Elem<T>::ld(gr + c), pf, mf, fmul(rs, vc[c]));
+        if (kApply) {
+          Elem<T>::st(pr + c, pf);
+          if (has_m) Elem<T>::st(mr + c, mf);
+        }
+      }
+    }
+  }
+  return usq;
+}
+
+__global__ void __launch_bounds__(kThreads)
+adafactor_usq_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
+                     FactorArgs a, const float* __restrict__ stats,
+                     float* __restrict__ uspart) {
+  __shared__ float red[kThreads / 32];
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  float usq;
+  if (e[kFlags] & kBf16)
+    usq = update_chunk<__nv_bfloat16, false>(e, ch.tensor, ch, a, norms,
+                                            h.n_tensors, stats, 1.f, 0.f);
+  else
+    usq = update_chunk<float, false>(e, ch.tensor, ch, a, norms, h.n_tensors,
+                                     stats, 1.f, 0.f);
+  usq = block_sum<kThreads>(usq, red);
+  if (threadIdx.x == 0) uspart[blockIdx.x] = usq;
+}
+
+__global__ void __launch_bounds__(kThreads)
+adafactor_apply_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
+                       FactorArgs a, const float* __restrict__ stats,
+                       const float* __restrict__ uspart) {
+  __shared__ float red[kThreads / 32];
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  // the tensor's sum of u^2, in the same order in every one of its blocks
+  float usq = 0.f;
+  for (int64_t c = e[kChunkBegin] + threadIdx.x; c < e[kChunkEnd]; c += kThreads)
+    usq = fadd(usq, uspart[c]);
+  usq = block_sum<kThreads>(usq, red);
+  const float numel = (float)e[kNumel];
+  const float rms = sqrtf(fdiv(usq, numel));
+  const float den = nanmax(1.f, fdiv(rms, a.clip_threshold));
+  const float scale = a.pscale
+      ? nanmax(a.eps2, sqrtf(fdiv(stats[ch.tensor], numel))) : 1.f;
+  const float lrs = fmul(h.lr, scale);
+  if (e[kFlags] & kBf16)
+    update_chunk<__nv_bfloat16, true>(e, ch.tensor, ch, a, norms, h.n_tensors,
+                                      stats, den, lrs);
+  else
+    update_chunk<float, true>(e, ch.tensor, ch, a, norms, h.n_tensors, stats,
+                              den, lrs);
+}
+
+Clip make_clip(int mode, float lo, float hi) {
+  Clip c;
+  c.mode = mode;
+  c.lo = lo;
+  c.hi = hi;
+  return c;
+}
+
+}  // namespace
+
+// (a): partial [n_chunks] scratch; out [2 n_tensors + 1] = per-tensor sums
+// of squares, per-tensor clip scales, global sum; scale_mode 0 gives every
+// scale 1, 1 scales each tensor by its own norm, 2 all by the global norm
+extern "C" int pt_opt_sumsq(const void* table, int n_chunks, void* partial,
+                            float clip_norm, int scale_mode, void* out,
+                            void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* t = (const int64_t*)table;
+  if (n_chunks > 0)
+    sumsq_partial_kernel<<<n_chunks, kThreads, 0, st>>>(t, (float*)partial);
+  sumsq_finish_kernel<<<1, kFinishThreads, 0, st>>>(
+      t, (const float*)partial, clip_norm, scale_mode, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// (b): norms from pt_opt_sumsq (clip_mode 1) or null
+extern "C" int pt_opt_adam(const void* table, int n_chunks, const void* norms,
+                           double b1, double b2, float omb1, float omb2,
+                           float eps, float wd, int decoupled, int clip_mode,
+                           float lo, float hi, void* stream) {
+  if (n_chunks == 0) return (int)cudaGetLastError();
+  AdamArgs a;
+  a.b1d = b1;
+  a.b2d = b2;
+  a.b1 = (float)b1;
+  a.b2 = (float)b2;
+  a.omb1 = omb1;
+  a.omb2 = omb2;
+  a.eps = eps;
+  a.wd = wd;
+  a.decoupled = decoupled;
+  a.clip = make_clip(clip_mode, lo, hi);
+  adam_kernel<<<n_chunks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int64_t*)table, (const float*)norms, a);
+  return (int)cudaGetLastError();
+}
+
+static FactorArgs factor_args(float decay, float eps1, float wd, int clip_mode,
+                              float lo, float hi, int need_p, int seg_cols,
+                              float b1, float omb1, float eps2,
+                              float clip_threshold, int pscale) {
+  FactorArgs a;
+  a.decay = decay;
+  a.eps1 = eps1;
+  a.wd = wd;
+  a.clip = make_clip(clip_mode, lo, hi);
+  a.need_p = need_p;
+  a.seg_cols = seg_cols;
+  a.b1 = b1;
+  a.omb1 = omb1;
+  a.eps2 = eps2;
+  a.clip_threshold = clip_threshold;
+  a.pscale = pscale;
+  return a;
+}
+
+// (c): colpart [sum over factored chunks of C] and pspart [n_chunks] scratch;
+// stats [n_tensors + n_matrices] out
+extern "C" int pt_opt_adafactor_stats(const void* table, int n_tensors,
+                                      int n_chunks, int n_matrices,
+                                      const void* norms, float decay,
+                                      float eps1, float wd, int clip_mode,
+                                      float lo, float hi, int need_p,
+                                      int seg_cols, void* colpart,
+                                      void* pspart, void* stats,
+                                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* t = (const int64_t*)table;
+  const FactorArgs a = factor_args(decay, eps1, wd, clip_mode, lo, hi, need_p,
+                                   seg_cols, 0.f, 0.f, 0.f, 1.f, 0);
+  const size_t smem = sizeof(float) * ((size_t)kMaxTileRows +
+                                       (size_t)kStatsWarps * seg_cols);
+  cudaError_t err = cudaFuncSetAttribute(
+      adafactor_stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (n_chunks > 0)
+    adafactor_stats_kernel<<<n_chunks, kStatsThreads, smem, st>>>(
+        t, (const float*)norms, a, (float*)colpart, (float*)pspart);
+  if (n_matrices + n_tensors > 0)
+    adafactor_finish_kernel<<<n_matrices + n_tensors, kThreads, 0, st>>>(
+        t, n_matrices, a, (const float*)colpart, (const float*)pspart,
+        (float*)stats);
+  return (int)cudaGetLastError();
+}
+
+// (d): stats from pt_opt_adafactor_stats; uspart [n_chunks] scratch
+extern "C" int pt_opt_adafactor_update(const void* table, int n_chunks,
+                                       const void* norms, const void* stats,
+                                       void* uspart, float b1, float omb1,
+                                       float eps2, float clip_threshold,
+                                       int pscale, float wd, int clip_mode,
+                                       float lo, float hi, void* stream) {
+  if (n_chunks == 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* t = (const int64_t*)table;
+  const FactorArgs a = factor_args(0.f, 0.f, wd, clip_mode, lo, hi, 1, 0, b1,
+                                   omb1, eps2, clip_threshold, pscale);
+  adafactor_usq_kernel<<<n_chunks, kThreads, 0, st>>>(
+      t, (const float*)norms, a, (const float*)stats, (float*)uspart);
+  adafactor_apply_kernel<<<n_chunks, kThreads, 0, st>>>(
+      t, (const float*)norms, a, (const float*)stats, (const float*)uspart);
+  return (int)cudaGetLastError();
+}

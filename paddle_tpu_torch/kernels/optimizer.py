@@ -1,0 +1,527 @@
+"""Fused multi-tensor optimizer update: clip, decay and the Adam / AdamW or
+Adafactor rule over every parameter of a step in a few kernel launches.
+
+Counterpart of what the JAX package gets from XLA: ``Optimizer._get_fused``
+(``paddle_tpu/optimizer/optimizer.py:117-147``) jits clip, decay and the
+rule over all parameters as one function. Here the same update is four
+hand-written kernels (``csrc/optimizer.cu``), each beside its plain
+version, the per-tensor PyTorch loop:
+
+- :func:`multi_tensor_sumsq`: per-tensor fp32 sums of squares of the
+  gradients, their global sum and the clip scales (``ClipGradByNorm``,
+  ``ClipGradByGlobalNorm``);
+- :func:`adam_update`: Adam (coupled decay) and AdamW (decoupled);
+- :func:`adafactor_stats`: Adafactor's ``vr``/``vc`` (or ``v``),
+  ``mean(vr)`` per matrix and the parameters' sums of squares;
+- :func:`adafactor_update`: Adafactor's clipped update.
+
+All four take a :class:`StepBatch`, the step's tensors in lists, and read
+the learning rate and the step from the header of its table, which is
+copied to the device on the stream. A batch whose tensors lie on more
+than one device raises when it is made. On a CUDA batch a wrapper
+launches its kernel (building the library at first use) or raises: on a
+dtype the kernel does not take or a failed build. On a CPU batch it runs
+the plain version. The wrappers are module
+attributes that the optimizer looks up at call time, so a check can swap
+each for its plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import _build
+
+__all__ = ["StepBatch", "multi_tensor_sumsq", "multi_tensor_sumsq_plain",
+           "adam_update", "adam_update_plain", "adafactor_stats",
+           "adafactor_stats_plain", "adafactor_update",
+           "adafactor_update_plain", "clip_norms_plain", "clip_plain",
+           "FLAT_CHUNK", "TILE_ELEMENTS", "MAX_TILE_ROWS", "SEG_COLS",
+           "COUNTS_SUMSQ", "COUNTS_ADAM", "COUNTS_ADAFACTOR_STATS",
+           "COUNTS_ADAFACTOR_UPDATE"]
+
+# the chunk table (csrc/optimizer.cu): a header of two int64 words, one
+# entry of TENSOR_WORDS words per tensor, one word per chunk, one per matrix
+TENSOR_WORDS = 16
+(_P, _G, _S0, _S1, _S2, _NUMEL, _COLS, _ROWS, _SPAN, _TILES, _CHUNK_BEGIN,
+ _CHUNK_END, _FLAGS, _MAT_BASE, _COL_BASE) = range(15)
+_BF16, _DECAY, _VEC, _FACTORED = 1, 2, 4, 8
+FLAT_CHUNK = 65536        # elements a block of a flat tensor
+TILE_ELEMENTS = 262144    # about the elements of one row tile (Adafactor)
+MAX_TILE_ROWS = 1024      # rows of a tile at most (csrc kMaxTileRows)
+SEG_COLS = 6144           # columns per pass of the stats kernel at most
+_CLIP_MODES = {"none": 0, "scale": 1, "value": 2}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+COUNTS_SUMSQ = _build.Counts()
+COUNTS_ADAM = _build.Counts()
+COUNTS_ADAFACTOR_STATS = _build.Counts()
+COUNTS_ADAFACTOR_UPDATE = _build.Counts()
+
+
+class StepBatch:
+    """The tensors one optimizer step updates and the chunk table over them.
+
+    ``params`` and ``grads`` are lists of one length; ``slots`` three lists
+    of the rule's state (Adam: ``moment1``, ``moment2``, unused; Adafactor:
+    ``vr`` or ``v``, ``vc`` or None, ``m`` or None); ``decay`` the
+    per-tensor weight-decay flags; ``lr`` and ``step`` this step's rate and
+    1-based step number; ``rule`` ``"adam"`` or ``"adafactor"``, whose
+    tensors of 2+ dimensions are chunked by whole rows. Every tensor lies
+    on the first parameter's device (ValueError otherwise), so the
+    wrappers route the whole batch by that one device.
+
+    The table is built at most once per batch, on the host, and copied to
+    the device from pinned memory on the current stream; a batch holds the
+    step's pointers, so it lives for one step (autograd gives the
+    gradients new storage every step).
+    """
+
+    def __init__(self, params: Sequence[torch.Tensor],
+                 grads: Sequence[torch.Tensor],
+                 slots: Sequence[Sequence[Optional[torch.Tensor]]],
+                 decay: Sequence[bool], lr: float, step: int,
+                 rule: str = "adam"):
+        if rule not in ("adam", "adafactor"):
+            raise ValueError(f"unknown rule {rule!r}")
+        self.params = list(params)
+        self.grads = list(grads)
+        n = len(self.params)
+        self.slots = [list(s) for s in slots]
+        self.decay = [bool(d) for d in decay]
+        if len(self.grads) != n or len(self.decay) != n or \
+                len(self.slots) != 3 or any(len(s) != n for s in self.slots):
+            raise ValueError("StepBatch: lists of different lengths")
+        self.lr = float(lr)
+        self.step = int(step)
+        self.rule = rule
+        self.device = dev = (self.params[0].device if n
+                             else torch.device("cpu"))
+        for t in self.params + self.grads + [t for s in self.slots
+                                             for t in s if t is not None]:
+            if t.device != dev:
+                raise ValueError(f"optimizer: tensor on {t.device}, the "
+                                 f"step's first parameter on {dev}")
+        self.n_chunks = self.n_matrices = self.col_elems = 0
+        self.seg_cols = 256
+        self._table = None
+        self._pinned = None
+
+    def __len__(self):
+        return len(self.params)
+
+    def factored(self, i: int) -> bool:
+        """Adafactor keeps ``vr``/``vc`` for tensor ``i`` (2+ dims)."""
+        return self.rule == "adafactor" and self.params[i].dim() >= 2
+
+    def scalars(self):
+        """(lr fp32, step int32) 0-d tensors on the batch's device, as the
+        plain versions read them (the kernels read the two values from the
+        table's header). Not CPU scalars on a CUDA batch: CUDA divides by
+        a CPU scalar as a product with its reciprocal, which rounds
+        otherwise than the division the reference and the kernel take."""
+        return (torch.tensor(self.lr, dtype=torch.float32,
+                             device=self.device),
+                torch.tensor(self.step, dtype=torch.int32,
+                             device=self.device))
+
+    def _check(self):
+        for i, (p, g) in enumerate(zip(self.params, self.grads)):
+            if p.dtype not in _DTYPES:
+                raise TypeError(f"optimizer kernels take float32 or bfloat16 "
+                                f"parameters, got {p.dtype} (tensor {i})")
+            if g.dtype != p.dtype or g.shape != p.shape:
+                raise TypeError(f"tensor {i}: gradient {g.dtype} "
+                                f"{tuple(g.shape)} does not fit parameter "
+                                f"{p.dtype} {tuple(p.shape)}")
+            for j, (dtype, numel) in enumerate(self._slot_specs(i)):
+                t = self.slots[j][i]
+                if dtype is None or t is None:
+                    # Adafactor's first moment is optional
+                    if t is None and dtype is not None and not (
+                            self.rule == "adafactor" and j == 2):
+                        raise ValueError(f"tensor {i}: state {j} missing")
+                    continue
+                if t.dtype != dtype or t.numel() != numel:
+                    raise TypeError(f"tensor {i}: state {t.dtype} "
+                                    f"{tuple(t.shape)} is not {dtype} of "
+                                    f"{numel} elements")
+            for t in [p, g] + [s[i] for s in self.slots if s[i] is not None]:
+                if not t.is_contiguous():
+                    raise ValueError(f"tensor {i}: the optimizer kernels "
+                                     f"take contiguous tensors")
+
+    def _slot_specs(self, i):
+        """(dtype, numel) each slot must have for tensor ``i``."""
+        p = self.params[i]
+        n = p.numel()
+        if self.rule == "adam":
+            return [(p.dtype, n), (p.dtype, n), (None, None)]
+        if self.factored(i):
+            return [(torch.float32, n // p.shape[-1] if n else 0),
+                    (torch.float32, n // p.shape[-2] if n else 0),
+                    (p.dtype, n)]
+        return [(torch.float32, n), (None, None), (p.dtype, n)]
+
+    def _plan(self) -> np.ndarray:
+        """The table as an int64 array (layout: csrc/optimizer.cu). One
+        Python row per tensor; the chunk and matrix words are numpy ranges
+        (the host builds this every step)."""
+        n = len(self)
+        rows, nch, mats = [], [], []
+        c0 = mat_base = col_base = max_cols = 0
+        for i, (p, g) in enumerate(zip(self.params, self.grads)):
+            numel = p.numel()
+            ptrs = [p.data_ptr(), g.data_ptr()] + [
+                0 if s[i] is None else s[i].data_ptr() for s in self.slots]
+            flags = (_BF16 if p.dtype == torch.bfloat16 else 0) | \
+                (_DECAY if self.decay[i] else 0)
+            vec = not any(x % 16 for x in ptrs)
+            C = R = tiles = 0
+            span = FLAT_CHUNK
+            if self.factored(i) and numel:
+                C, R = p.shape[-1], p.shape[-2]
+                span = max(1, min(R, MAX_TILE_ROWS, TILE_ELEMENTS // C))
+                tiles = -(-R // span)
+                mats.append((i, numel // (R * C)))
+                count = mats[-1][1] * tiles
+                vec = vec and C % 8 == 0
+                flags |= _FACTORED
+                max_cols = max(max_cols, C)
+            else:
+                count = -(-numel // FLAT_CHUNK)
+            rows.append(ptrs + [numel, C, R, span, tiles, c0, c0 + count,
+                                flags | (_VEC if vec else 0), mat_base,
+                                col_base, 0])
+            if C:
+                mat_base += mats[-1][1]
+                col_base += count * C
+            nch.append(count)
+            c0 += count
+        self.n_chunks, self.n_matrices, self.col_elems = c0, mat_base, col_base
+        self.seg_cols = min(SEG_COLS, max(256, -(-max_cols // 256) * 256))
+        head = np.zeros(4, np.int32)
+        head[0] = np.array([self.lr], np.float32).view(np.int32)[0]
+        head[1:] = [self.step, n, c0]
+
+        def ranges(owner, counts):
+            """owner << 40 | index within the owner, for every item."""
+            owner, counts = np.asarray(owner, np.int64), \
+                np.asarray(counts, np.int64)
+            first = np.repeat(np.cumsum(counts) - counts, counts)
+            return (np.repeat(owner, counts) << 40) | \
+                (np.arange(counts.sum(), dtype=np.int64) - first)
+
+        words = np.asarray(rows, np.int64).reshape(n, TENSOR_WORDS)
+        mat_words = ranges([i for i, _ in mats], [b for _, b in mats])
+        return np.concatenate([head.view(np.int64), words.ravel(),
+                               ranges(np.arange(n), nch), mat_words])
+
+    def table(self) -> torch.Tensor:
+        """The chunk table on the device (int64), built and copied once."""
+        if self._table is None:
+            self._check()
+            host = self._plan()
+            pinned = torch.empty(host.size, dtype=torch.int64,
+                                 pin_memory=True)
+            pinned.numpy()[:] = host
+            dev = torch.empty(host.size, dtype=torch.int64,
+                              device=self.device)
+            dev.copy_(pinned, non_blocking=True)
+            self._pinned, self._table = pinned, dev
+        return self._table
+
+
+def _route(batch: StepBatch, counts) -> bool:
+    """True where the kernel runs (a CUDA batch); counts a plain call on a
+    CPU one; raises on any other device."""
+    if batch.device.type == "cpu":
+        counts.plain()
+        return False
+    if batch.device.type != "cuda":
+        raise ValueError(f"optimizer kernels take CUDA tensors, got "
+                         f"{batch.device}")
+    return True
+
+
+def _clip_args(batch: StepBatch, clip, norms):
+    """(mode, lo, hi) of ``clip`` for a kernel; ``("scale",)`` needs the
+    fp32 ``norms`` of :func:`multi_tensor_sumsq` over this batch."""
+    mode = clip[0]
+    if mode not in _CLIP_MODES:
+        raise ValueError(f"unknown clip mode {mode!r}")
+    if mode == "scale" and (
+            norms is None or norms.device != batch.device or
+            norms.dtype != torch.float32 or
+            norms.numel() != 2 * len(batch) + 1):
+        raise ValueError("clip ('scale',) needs the fp32 norms of "
+                         "multi_tensor_sumsq over the same batch")
+    lo, hi = (float(clip[1]), float(clip[2])) if mode == "value" else (0., 0.)
+    return _CLIP_MODES[mode], lo, hi
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# -- (a) sums of squares and clip scales ---------------------------------------
+
+def clip_norms_plain(grads, clip_norm=0.0, scale_mode=0):
+    """fp32 ``[2n + 1]``: per-tensor sums of squares, per-tensor scales
+    ``min(clip_norm / max(norm, 1e-12), 1)`` (scale_mode 1: the tensor's
+    own norm; 2: the global norm; 0: all 1) and the global sum, added in
+    tensor order as ``paddle_tpu/nn/clip.py:49`` does."""
+    n = len(grads)
+    dev = grads[0].device if n else torch.device("cpu")
+    sums = [g.float().square().sum() for g in grads]
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    for s in sums:
+        total = total + s
+    if not n:
+        return total.reshape(1)
+    sums = torch.stack(sums)
+    if scale_mode == 0:
+        scales = torch.ones_like(sums)
+    else:
+        norm = (total.expand(n) if scale_mode == 2 else sums).sqrt()
+        scales = (clip_norm / norm.clamp_min(1e-12)).clamp_max(1.0)
+    return torch.cat([sums, scales, total.reshape(1)])
+
+
+def multi_tensor_sumsq_plain(batch: StepBatch, clip_norm=0.0, scale_mode=0):
+    return clip_norms_plain(batch.grads, clip_norm, scale_mode)
+
+
+def multi_tensor_sumsq(batch: StepBatch, clip_norm=0.0, scale_mode=0):
+    """Sums of squares of ``batch.grads`` (fp32), the clip scales and the
+    global sum: ``[2n + 1]`` fp32, as :func:`clip_norms_plain`."""
+    if not _route(batch, COUNTS_SUMSQ):
+        return multi_tensor_sumsq_plain(batch, clip_norm, scale_mode)
+    table = batch.table()
+    partial = torch.empty(max(batch.n_chunks, 1), dtype=torch.float32,
+                          device=batch.device)
+    out = torch.empty(2 * len(batch) + 1, dtype=torch.float32,
+                      device=batch.device)
+    fn = _build.kernel("pt_opt_sumsq", [ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_float,
+                                        ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_void_p])
+    _build.launch(fn, "pt_opt_sumsq", batch.device, table.data_ptr(),
+                  batch.n_chunks, partial.data_ptr(), float(clip_norm),
+                  int(scale_mode), out.data_ptr())
+    COUNTS_SUMSQ.launched()
+    return out
+
+
+def clip_plain(g, clip, norms=None, i=0):
+    """Gradient ``g`` (the ``i``-th of a step) clipped in its dtype as
+    ``paddle_tpu/nn/clip.py:28, 40, 52`` round: ``clip`` ``("none",)``;
+    ``("value", lo, hi)``, clamped; ``("scale",)``, ``(g.float() *
+    scale).to(g.dtype)`` with tensor ``i``'s scale from ``norms``
+    (:func:`clip_norms_plain`)."""
+    if clip[0] == "scale":
+        return (g.float() * norms[(norms.numel() - 1) // 2 + i]).to(g.dtype)
+    if clip[0] == "value":
+        return g.clamp(clip[1], clip[2])
+    return g
+
+
+def _grad_plain(batch: StepBatch, i: int, clip, norms, weight_decay,
+               decoupled):
+    """Tensor ``i``'s gradient as the rule sees it: clipped
+    (:func:`clip_plain`), cast to the parameter's dtype, plus the coupled
+    decay ``wd * p`` (``paddle_tpu/optimizer/optimizer.py:128-134``)."""
+    p = batch.params[i]
+    g = clip_plain(batch.grads[i], clip, norms, i).to(p.dtype)
+    if weight_decay and not decoupled and batch.decay[i]:
+        g = g + weight_decay * p
+    return g
+
+
+# -- (b) Adam / AdamW ----------------------------------------------------------
+
+def adam_update_plain(batch: StepBatch, *, beta1, beta2, epsilon,
+                      weight_decay, decoupled, clip=("none",), norms=None):
+    """The per-tensor loop, in the rounding order of ``Adam._rule``
+    (``optimizer.py:265-276``) and the decays of ``_get_fused``. The bias
+    corrections ``1 - beta^t`` are taken in double and rounded once to
+    fp32 (the JAX package takes the power in fp32; at ``beta2`` 0.999 the
+    two differ by about 1e-5 of the correction)."""
+    lr, step = batch.scalars()
+    t = step.double()
+    c1 = (1.0 - torch.pow(beta1, t)).float()
+    c2 = (1.0 - torch.pow(beta2, t)).float()
+    omb1, omb2 = 1.0 - beta1, 1.0 - beta2
+    for i, p in enumerate(batch.params):
+        m, v = batch.slots[0][i], batch.slots[1][i]
+        g = _grad_plain(batch, i, clip, norms, weight_decay, decoupled)
+        gf = g.float()
+        mf = m.float() * beta1 + gf * omb1
+        vf = v.float() * beta2 + (gf * omb2) * gf
+        upd = (lr * (mf / c1)) / ((vf / c2).sqrt() + epsilon)
+        new = (p.float() - upd).to(p.dtype)
+        if weight_decay and decoupled and batch.decay[i]:
+            new = new - ((lr * weight_decay) * p.float()).to(p.dtype)
+        p.copy_(new)
+        m.copy_(mf)
+        v.copy_(vf)
+
+
+def adam_update(batch: StepBatch, *, beta1, beta2, epsilon, weight_decay,
+                decoupled, clip=("none",), norms=None):
+    """One Adam (``decoupled`` False: the decay added to g) or AdamW step
+    over ``batch`` in place: p, ``slots[0]`` (moment1), ``slots[1]``
+    (moment2). ``clip`` ``("scale",)`` reads the scales of ``norms``
+    (:func:`multi_tensor_sumsq`)."""
+    if not _route(batch, COUNTS_ADAM):
+        return adam_update_plain(batch, beta1=beta1, beta2=beta2,
+                                 epsilon=epsilon, weight_decay=weight_decay,
+                                 decoupled=decoupled, clip=clip, norms=norms)
+    mode, lo, hi = _clip_args(batch, clip, norms)
+    table = batch.table()
+    fn = _build.kernel("pt_opt_adam", [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p] +
+                       [ctypes.c_double] * 2 + [ctypes.c_float] * 4 +
+                       [ctypes.c_int] * 2 +
+                       [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    _build.launch(fn, "pt_opt_adam", batch.device, table.data_ptr(),
+                  batch.n_chunks, _ptr(norms), float(beta1), float(beta2),
+                  1.0 - beta1, 1.0 - beta2, float(epsilon),
+                  float(weight_decay), int(bool(decoupled)), mode, lo, hi)
+    COUNTS_ADAM.launched()
+
+
+# -- (c) Adafactor statistics ----------------------------------------------------
+
+def adafactor_stats_plain(batch: StepBatch, *, decay_rate, epsilon1,
+                          weight_decay, pscale, clip=("none",), norms=None):
+    """Updates ``vr``/``vc`` (or ``v``) in place as ``Adafactor._rule``
+    (``optimizer.py:448-458``) does; returns fp32 ``[n + matrices]``: each
+    parameter's sum of squares (0 where neither the parameter scale nor
+    the decay reads p), then ``mean(vr)`` of every matrix in order."""
+    _lr, step = batch.scalars()
+    bt = 1 - step.float().pow(-decay_rate)
+    om = 1 - bt
+    psums, means = [], []
+    for i, p in enumerate(batch.params):
+        g = _grad_plain(batch, i, clip, norms, weight_decay, False)
+        gf = g.float()
+        g2 = gf * gf + epsilon1
+        s0, s1 = batch.slots[0][i], batch.slots[1][i]
+        if batch.factored(i):
+            s0.copy_(bt * s0 + om * g2.mean(dim=-1))
+            s1.copy_(bt * s1 + om * g2.mean(dim=-2))
+            means.append(s0.mean(dim=-1).reshape(-1))
+        else:
+            s0.copy_(bt * s0 + om * g2)
+        pf = p.float()
+        need_p = pscale or weight_decay  # as the kernel reads p
+        psums.append((pf * pf).sum() if need_p else pf.new_zeros(()))
+    if not psums:
+        return torch.zeros(0, dtype=torch.float32, device=batch.device)
+    return torch.cat([torch.stack(psums)] + means)
+
+
+def adafactor_stats(batch: StepBatch, *, decay_rate, epsilon1, weight_decay,
+                    pscale, clip=("none",), norms=None):
+    """Adafactor's statistics over ``batch`` (rule ``"adafactor"``): the
+    factored ``vr``/``vc`` or plain ``v`` updated in place; returns the
+    stats :func:`adafactor_update` reads, as :func:`adafactor_stats_plain`."""
+    if not _route(batch, COUNTS_ADAFACTOR_STATS):
+        return adafactor_stats_plain(batch, decay_rate=decay_rate,
+                                     epsilon1=epsilon1,
+                                     weight_decay=weight_decay, pscale=pscale,
+                                     clip=clip, norms=norms)
+    mode, lo, hi = _clip_args(batch, clip, norms)
+    table = batch.table()
+    dev = batch.device
+    colpart = torch.empty(max(batch.col_elems, 1), dtype=torch.float32,
+                          device=dev)
+    pspart = torch.empty(max(batch.n_chunks, 1), dtype=torch.float32,
+                         device=dev)
+    stats = torch.empty(len(batch) + batch.n_matrices, dtype=torch.float32,
+                        device=dev)
+    need_p = int(bool(pscale) or bool(weight_decay))
+    fn = _build.kernel("pt_opt_adafactor_stats",
+                       [ctypes.c_void_p] + [ctypes.c_int] * 3 +
+                       [ctypes.c_void_p] + [ctypes.c_float] * 3 +
+                       [ctypes.c_int] + [ctypes.c_float] * 2 +
+                       [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
+    _build.launch(fn, "pt_opt_adafactor_stats", dev, table.data_ptr(),
+                  len(batch), batch.n_chunks, batch.n_matrices, _ptr(norms),
+                  float(decay_rate), float(epsilon1), float(weight_decay),
+                  mode, lo, hi, need_p, batch.seg_cols, colpart.data_ptr(),
+                  pspart.data_ptr(), stats.data_ptr())
+    COUNTS_ADAFACTOR_STATS.launched()
+    return stats
+
+
+# -- (d) Adafactor update -----------------------------------------------------------
+
+def adafactor_update_plain(batch: StepBatch, stats, *, beta1, epsilon2,
+                           clip_threshold, pscale, weight_decay,
+                           clip=("none",), norms=None):
+    """p (and ``m``) in place as ``optimizer.py:462-473``: u = g /
+    sqrt(vhat), clipped by its RMS, the first moment, the parameter
+    scale."""
+    lr, _step = batch.scalars()
+    n = len(batch)
+    mat = n
+    for i, p in enumerate(batch.params):
+        g = _grad_plain(batch, i, clip, norms, weight_decay, False)
+        gf = g.float()
+        numel = p.numel()
+        s0, s1, m = (s[i] for s in batch.slots)
+        if batch.factored(i):
+            b = numel // (p.shape[-1] * p.shape[-2])
+            mean = stats[mat:mat + b].reshape(p.shape[:-2] + (1,))
+            mat += b
+            vhat = (s0 / mean)[..., None] * s1[..., None, :]
+        else:
+            vhat = s0
+        u = gf / vhat.sqrt()
+        rms = ((u * u).sum() / numel).sqrt()
+        u = u / (rms / clip_threshold).clamp_min(1.0)
+        if m is not None:
+            mf = m.float() * beta1 + u * (1.0 - beta1)
+            m.copy_(mf)
+            u = mf
+        pf = p.float()
+        scale = (stats[i] / numel).sqrt().clamp_min(epsilon2) if pscale \
+            else 1.0
+        p.copy_((pf - (lr * scale) * u).to(p.dtype))
+
+
+def adafactor_update(batch: StepBatch, stats, *, beta1, epsilon2,
+                     clip_threshold, pscale, weight_decay, clip=("none",),
+                     norms=None):
+    """Adafactor's update over ``batch`` in place (p, and ``m`` where the
+    batch carries one), from ``stats`` of :func:`adafactor_stats`."""
+    if not _route(batch, COUNTS_ADAFACTOR_UPDATE):
+        return adafactor_update_plain(batch, stats, beta1=beta1,
+                                      epsilon2=epsilon2,
+                                      clip_threshold=clip_threshold,
+                                      pscale=pscale,
+                                      weight_decay=weight_decay, clip=clip,
+                                      norms=norms)
+    mode, lo, hi = _clip_args(batch, clip, norms)
+    table = batch.table()
+    if stats.device != batch.device or stats.dtype != torch.float32 or \
+            stats.numel() != len(batch) + batch.n_matrices:
+        raise ValueError("adafactor_update: stats do not fit the batch")
+    uspart = torch.empty(max(batch.n_chunks, 1), dtype=torch.float32,
+                         device=batch.device)
+    fn = _build.kernel("pt_opt_adafactor_update",
+                       [ctypes.c_void_p, ctypes.c_int] +
+                       [ctypes.c_void_p] * 3 + [ctypes.c_float] * 4 +
+                       [ctypes.c_int, ctypes.c_float, ctypes.c_int] +
+                       [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    _build.launch(fn, "pt_opt_adafactor_update", batch.device,
+                  table.data_ptr(), batch.n_chunks, _ptr(norms),
+                  stats.data_ptr(), uspart.data_ptr(), float(beta1),
+                  1.0 - beta1, float(epsilon2), float(clip_threshold),
+                  int(bool(pscale)), float(weight_decay), mode, lo, hi)
+    COUNTS_ADAFACTOR_UPDATE.launched()

@@ -1,3 +1,4 @@
-from .optimizer import Adafactor, AdamW
+from . import lr
+from .optimizer import Adafactor, Adam, AdamW, Optimizer
 
-__all__ = ["AdamW", "Adafactor"]
+__all__ = ["Optimizer", "Adam", "AdamW", "Adafactor", "lr"]

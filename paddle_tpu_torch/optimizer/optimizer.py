@@ -1,50 +1,56 @@
-"""AdamW and Adafactor (port of ``paddle_tpu/optimizer/optimizer.py``:
-``Adam``/``AdamW`` with the decoupled decay of ``Optimizer._get_fused``, and
-``Adafactor``).
+"""Optimizers (port of ``paddle_tpu/optimizer/optimizer.py``: the
+``Optimizer`` base, ``Adam``, ``AdamW`` and ``Adafactor``).
 
-The rule is written out rather than taken from ``torch.optim.AdamW`` so
-that it rounds where the reference rounds, which matters in bf16:
+As in the JAX package, ``step()`` applies the gradient clip, the weight
+decay (coupled: ``g + wd * p`` before the rule, as ``Adam`` and
+``Adafactor`` take it; decoupled: ``p_new - lr * wd * p_old`` after it,
+``AdamW``) and the rule to every parameter that has a gradient at once:
+the JAX package jits that as one function (``Optimizer._get_fused``);
+here it is a few launches of the hand-written multi-tensor kernels of
+``kernels/optimizer.py`` on CUDA (AdamW: one; with a norm clip, one more;
+Adafactor: two, with a norm clip three), and their plain versions, the
+per-tensor loop, on the CPU. The learning rate (a float or an
+``LRScheduler``) and the step number reach the kernels as device
+scalars, never as kernel arguments.
 
-- the moments have the parameter's dtype (``zeros_like(p)``);
-- the update is computed in fp32 with bias correction,
-  ``m_hat = m / (1 - b1^t)``, ``v_hat = v / (1 - b2^t)``,
-  ``p_new = cast(p - lr * m_hat / (sqrt(v_hat) + eps))``, and the moments
-  are cast back to their dtype;
-- the decoupled decay ``p_new - cast(lr * wd * p_old)`` is applied after the
-  rule, in the parameter's dtype.
+Rounding follows the reference, which matters in bf16: Adam's moments
+have the parameter's dtype (``zeros_like(p)``), the update is computed in
+fp32 and p, m and v are each cast back to their dtype; the decoupled
+decay subtracts ``cast(lr * wd * p_old)`` from the cast result.
 
-Adafactor (Shazeer & Stern 2018) is the JAX rule written out the same way:
-second moments factored into per-row ``vr`` and per-column ``vc`` fp32
-accumulators over the last two axes of a tensor of 2 or more dimensions
-(a plain fp32 ``v`` otherwise), ``beta2_t = 1 - t^-decay_rate``, the rank-1
-reconstruction ``vr vc^T / mean(vr)``, the update clipped by its RMS, and
-the step scaled by the parameter's RMS; the update is computed in fp32 and
-cast to the parameter's dtype. Its statistics (the clip's RMS, the
-parameter scale, the factoring) are taken per parameter tensor, and the
-port keeps one tensor per layer: the JAX package's scanned decoder stack
-keeps one stacked tensor for all layers, so the two agree with the JAX
-model built with ``scan_layers=False``.
-
-Only a constant learning rate is ported; schedulers come later, and so do
-gradient clipping and Adafactor's weight decay.
+Adafactor (Shazeer & Stern 2018) factors the second moments of a tensor of
+2 or more dimensions into per-row ``vr`` and per-column ``vc`` fp32
+accumulators over its last two axes (a plain fp32 ``v`` otherwise), with
+``beta2_t = 1 - t^-decay_rate``, the rank-1 reconstruction ``vr vc^T /
+mean(vr)``, the update clipped by its RMS and the step scaled by the
+parameter's RMS. Its statistics are per parameter tensor, and the port
+keeps one tensor per layer: the JAX package's scanned decoder stack keeps
+one stacked tensor for all layers, so the two agree with the JAX model
+built with ``scan_layers=False``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
-__all__ = ["AdamW", "Adafactor"]
+from ..kernels import optimizer as _kopt
+from .lr import LRScheduler
+
+__all__ = ["Optimizer", "Adam", "AdamW", "Adafactor"]
 
 
-class AdamW:
+class Optimizer:
     """``parameters``: the tensors to update, or ``(name, tensor)`` pairs
     (``model.named_parameters()``), which ``apply_decay_param_fun(name)``
-    needs: it returns True where the decay applies."""
+    needs (True where the decay applies) and which name the state in
+    :meth:`state_dict` (by index otherwise). ``learning_rate``: a float or
+    an ``LRScheduler``; ``grad_clip``: one of ``nn.ClipGradBy*``."""
 
-    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameters: Optional[Iterable] = None,
-                 weight_decay=0.01,
+    _rule = "adam"
+
+    def __init__(self, learning_rate=0.001, parameters: Optional[Iterable] = None,
+                 weight_decay=None, grad_clip=None,
                  apply_decay_param_fun: Optional[Callable[[str], bool]] = None):
         if parameters is None:
             raise ValueError("parameters must be provided")
@@ -53,67 +59,164 @@ class AdamW:
         if apply_decay_param_fun is not None and not named:
             raise ValueError("apply_decay_param_fun needs parameter names: "
                              "pass parameters=model.named_parameters()")
-        self._params = [p for _, p in items] if named else items
+        self._parameter_list = [p for _, p in items] if named else items
+        self._names = [n for n, _ in items] if named else \
+            [f"param_{i}" for i in range(len(items))]
         self._decay = [apply_decay_param_fun is None
-                       or bool(apply_decay_param_fun(n))
-                       for n, _ in items] if named \
-            else [True] * len(self._params)
-        self._lr = float(learning_rate)
-        self._b1, self._b2, self._eps = (float(beta1), float(beta2),
-                                         float(epsilon))
-        self._wd = float(weight_decay or 0.0)
+                       or bool(apply_decay_param_fun(n)) for n in self._names]
+        self._learning_rate = learning_rate
+        self._grad_clip = grad_clip
+        self._weight_decay = float(weight_decay or 0.0)
+        self._decoupled = False  # AdamW
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
         self._global_step = 0
 
+    # -- lr ------------------------------------------------------------------
+    def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate.get_lr())
+        return float(self._learning_rate)
+
+    def set_lr(self, value: float):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("set_lr cannot override an LRScheduler")
+        self._learning_rate = float(value)
+
+    # -- the rule (subclasses) -------------------------------------------------
+    def _init_state(self, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def _slots(self, st: Dict[str, torch.Tensor]) -> List[Optional[torch.Tensor]]:
+        """The state tensors in the kernels' slot order."""
+        raise NotImplementedError
+
+    def _update(self, batch, clip, norms):
+        raise NotImplementedError
+
+    # -- step ----------------------------------------------------------------
     @torch.no_grad()
     def step(self):
-        t = self._global_step + 1
-        b1, b2, lr, eps = self._b1, self._b2, self._lr, self._eps
-        c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
-        for p, decay in zip(self._params, self._decay):
-            if p.grad is None or not p.requires_grad:
-                continue
-            st = self._state.get(id(p))
-            if st is None:
-                st = self._state[id(p)] = {
-                    "moment1": torch.zeros_like(p),
-                    "moment2": torch.zeros_like(p)}
-            g = p.grad.to(p.dtype).float()
-            m = st["moment1"].float().mul_(b1).add_(g, alpha=1.0 - b1)
-            v = st["moment2"].float().mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            upd = (m / c1).div_((v / c2).sqrt_().add_(eps)).mul_(lr)
-            new = (p.float() - upd).to(p.dtype)
-            if self._wd and decay:
-                new -= (p.float() * (lr * self._wd)).to(p.dtype)
-            p.copy_(new)
-            st["moment1"].copy_(m)
-            st["moment2"].copy_(v)
-        self._global_step = t
+        """One update of every parameter with a gradient (and
+        ``requires_grad``), as ``optimizer.py:79-107``."""
+        live = [i for i, p in enumerate(self._parameter_list)
+                if p.requires_grad and p.grad is not None]
+        if live:
+            params = [self._parameter_list[i] for i in live]
+            states = []
+            for p in params:
+                st = self._state.get(id(p))
+                if st is None:
+                    st = self._state[id(p)] = self._init_state(p)
+                states.append(self._slots(st))
+            batch = _kopt.StepBatch(
+                params, [p.grad for p in params],
+                [list(s) for s in zip(*states)],
+                [self._decay[i] for i in live], self.get_lr(),
+                self._global_step + 1, rule=self._rule)
+            self._update(batch, *self._clip(batch))
+        self._global_step += 1
+
+    def _clip(self, batch):
+        """(clip, norms) for the update: the norm clips' sums of squares and
+        scales come from one ``multi_tensor_sumsq`` pass."""
+        c = self._grad_clip
+        if c is None:
+            return ("none",), None
+        spec = c._spec()
+        if spec[0] == "value":
+            return spec, None
+        return ("scale",), _kopt.multi_tensor_sumsq(batch, spec[1], spec[2])
 
     def clear_grad(self):
-        for p in self._params:
+        for p in self._parameter_list:
             p.grad = None
 
+    # -- state ---------------------------------------------------------------
+    def state_dict(self) -> Dict[str, object]:
+        """``global_step``, ``LR_Scheduler`` (a scheduler's state) and
+        ``{name}_{key}`` for every state tensor (a copy), as
+        ``optimizer.py:168-177``."""
+        sd: Dict[str, object] = {"global_step": int(self._global_step)}
+        if isinstance(self._learning_rate, LRScheduler):
+            sd["LR_Scheduler"] = self._learning_rate.state_dict()
+        for name, p in zip(self._names, self._parameter_list):
+            for k, v in self._state.get(id(p), {}).items():
+                sd[f"{name}_{k}"] = v.detach().clone()
+        return sd
 
-class Adafactor:
-    """``parameters``: the tensors to update. Defaults are the JAX
-    package's (``beta1`` 0: no first moment)."""
+    def set_state_dict(self, state_dict):
+        self._global_step = int(state_dict.get("global_step", 0))
+        if isinstance(self._learning_rate, LRScheduler) and \
+                "LR_Scheduler" in state_dict:
+            self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
+        for name, p in zip(self._names, self._parameter_list):
+            proto = self._init_state(p)
+            for k, v in proto.items():
+                saved = state_dict.get(f"{name}_{k}")
+                if saved is not None:
+                    v.copy_(torch.as_tensor(saved).to(v.device, v.dtype)
+                            .reshape(v.shape))
+            if proto:
+                self._state[id(p)] = proto
+
+
+class Adam(Optimizer):
+    """Adam with the coupled decay of the base path: ``g + wd * p`` before
+    the rule (``optimizer.py:133-134``)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters: Optional[Iterable] = None,
+                 weight_decay=None, grad_clip=None,
+                 apply_decay_param_fun: Optional[Callable[[str], bool]] = None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         apply_decay_param_fun)
+        self._b1, self._b2, self._eps = (float(beta1), float(beta2),
+                                         float(epsilon))
+
+    def _init_state(self, p):
+        return {"moment1": torch.zeros_like(p), "moment2": torch.zeros_like(p)}
+
+    def _slots(self, st):
+        return [st["moment1"], st["moment2"], None]
+
+    def _update(self, batch, clip, norms):
+        _kopt.adam_update(batch, beta1=self._b1, beta2=self._b2,
+                          epsilon=self._eps, weight_decay=self._weight_decay,
+                          decoupled=self._decoupled, clip=clip, norms=norms)
+
+
+class AdamW(Adam):
+    """Adam with the decoupled decay ``p_new - cast(lr * wd * p_old)``,
+    applied where ``apply_decay_param_fun(name)`` is True (every tensor
+    without one)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters: Optional[Iterable] = None,
+                 weight_decay=0.01,
+                 apply_decay_param_fun: Optional[Callable[[str], bool]] = None,
+                 grad_clip=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         weight_decay, grad_clip, apply_decay_param_fun)
+        self._decoupled = True
+
+
+class Adafactor(Optimizer):
+    """Defaults are the JAX package's (``beta1`` 0: no first moment); the
+    weight decay is the base path's, coupled."""
+
+    _rule = "adafactor"
 
     def __init__(self, learning_rate=0.01, beta1=0.0, decay_rate=0.8,
                  epsilon1=1e-30, epsilon2=1e-3, clip_threshold=1.0,
                  multiply_by_parameter_scale=True,
-                 parameters: Optional[Iterable] = None):
-        if parameters is None:
-            raise ValueError("parameters must be provided")
-        self._params = list(parameters)
-        self._lr = float(learning_rate)
+                 parameters: Optional[Iterable] = None, weight_decay=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._b1 = float(beta1)
-        self._decay = float(decay_rate)
+        self._decay_rate = float(decay_rate)
         self._eps1, self._eps2 = float(epsilon1), float(epsilon2)
-        self._clip = float(clip_threshold)
+        self._clip_threshold = float(clip_threshold)
         self._pscale = bool(multiply_by_parameter_scale)
-        self._state: Dict[int, Dict[str, torch.Tensor]] = {}
-        self._global_step = 0
 
     def _init_state(self, p):
         f32 = dict(dtype=torch.float32, device=p.device)
@@ -126,39 +229,16 @@ class Adafactor:
             st["m"] = torch.zeros_like(p)
         return st
 
-    @torch.no_grad()
-    def step(self):
-        t = self._global_step + 1
-        beta2t = 1.0 - t ** (-self._decay)
-        for p in self._params:
-            if p.grad is None or not p.requires_grad:
-                continue
-            st = self._state.get(id(p))
-            if st is None:
-                st = self._state[id(p)] = self._init_state(p)
-            g = p.grad.to(p.dtype).float()
-            g2 = g * g + self._eps1
-            if "v" in st:
-                vhat = st["v"].mul_(beta2t).add_(g2, alpha=1.0 - beta2t)
-            else:
-                vr = st["vr"].mul_(beta2t).add_(g2.mean(dim=-1),
-                                                alpha=1.0 - beta2t)
-                vc = st["vc"].mul_(beta2t).add_(g2.mean(dim=-2),
-                                                alpha=1.0 - beta2t)
-                vhat = (vr / vr.mean(dim=-1, keepdim=True))[..., None] * \
-                    vc[..., None, :]
-            u = g / vhat.sqrt()
-            u = u / (u.square().mean().sqrt() / self._clip).clamp_min(1.0)
-            if "m" in st:
-                m = st["m"].float() * self._b1 + u * (1.0 - self._b1)
-                st["m"].copy_(m)
-                u = m
-            pf = p.float()
-            if self._pscale:
-                u = u * pf.square().mean().sqrt().clamp_min(self._eps2)
-            p.copy_((pf - self._lr * u).to(p.dtype))
-        self._global_step = t
+    def _slots(self, st):
+        return [st["vr"] if "vr" in st else st["v"], st.get("vc"),
+                st.get("m")]
 
-    def clear_grad(self):
-        for p in self._params:
-            p.grad = None
+    def _update(self, batch, clip, norms):
+        wd = self._weight_decay
+        stats = _kopt.adafactor_stats(
+            batch, decay_rate=self._decay_rate, epsilon1=self._eps1,
+            weight_decay=wd, pscale=self._pscale, clip=clip, norms=norms)
+        _kopt.adafactor_update(
+            batch, stats, beta1=self._b1, epsilon2=self._eps2,
+            clip_threshold=self._clip_threshold, pscale=self._pscale,
+            weight_decay=wd, clip=clip, norms=norms)

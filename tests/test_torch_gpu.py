@@ -1058,3 +1058,209 @@ def test_fused_moe_mlp_backward_uses_the_kernels(cuda, dtype, monkeypatch):
     limit = 1e-4 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, ref):
         assert ((a - b).norm() / b.norm()).item() <= limit
+
+
+# -- the fused optimizer update (csrc/optimizer.cu) ----------------------------
+
+# odd shapes: sizes that are not a multiple of 8, one-element tensors, a
+# tensor of more elements than one flat chunk holds, a matrix wider than
+# one pass of the stats kernel, one with more rows than one tile, a 3-D
+# stack, and (offset 1) one whose storage is not 16-byte aligned
+_OPT_SHAPES = [(5, 3), (7,), (1,), (1, 1), (70001,), (3, 6200), (1100, 24),
+               (2, 9, 16), (40, 64), (33,)]
+_OPT_UNALIGNED = 3  # index of the tensor made a view at offset 1
+
+
+def _opt_tensors(cuda, dtype, seed=21):
+    """{name: parameter} at _OPT_SHAPES (the one at _OPT_UNALIGNED a view
+    one element into its storage) and two steps of gradients, from numpy."""
+    rng = np.random.default_rng(seed)
+    ps, grads = {}, [{}, {}]
+    for k, s in enumerate(_OPT_SHAPES):
+        a = (rng.choice([-1.0, 1.0], size=s) *
+             rng.uniform(0.5, 1.5, size=s)).astype(np.float32)
+        name = f"t{k}" if k != 2 else "norm.t2"
+        if k == _OPT_UNALIGNED:
+            buf = torch.zeros(a.size + 1, dtype=dtype, device=cuda)
+            t = buf[1:].view(s)
+            t.copy_(torch.from_numpy(a))
+        else:
+            t = torch.from_numpy(a).to(cuda).to(dtype)
+        ps[name] = torch.nn.Parameter(t)
+        for g in grads:
+            g[name] = torch.from_numpy(
+                rng.standard_normal(s).astype(np.float32)).to(cuda).to(dtype)
+    return ps, grads
+
+
+def _opt(rule, clip, params):
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.optimizer import Adafactor, Adam, AdamW
+
+    c = {"none": None, "value": pnn.ClipGradByValue(0.5),
+         "norm": pnn.ClipGradByNorm(1.0),
+         "global": pnn.ClipGradByGlobalNorm(1.0)}[clip]
+    named = list(params.items())
+    if rule == "adamw":
+        return AdamW(learning_rate=1e-3, parameters=named, weight_decay=0.1,
+                     apply_decay_param_fun=lambda n: "norm" not in n,
+                     grad_clip=c)
+    if rule == "adam":
+        return Adam(learning_rate=1e-3, parameters=named, weight_decay=0.01,
+                    grad_clip=c)
+    return Adafactor(learning_rate=1e-2, beta1=0.5 if rule == "adafactor_m"
+                     else 0.0, parameters=named, grad_clip=c,
+                     weight_decay=0.01 if rule == "adafactor_m" else None)
+
+
+_OPT_KERNELS = ("multi_tensor_sumsq", "adam_update", "adafactor_stats",
+                "adafactor_update")
+
+
+def _opt_snapshot(ps, opt):
+    out = {n: p.detach().clone() for n, p in ps.items()}
+    for n, p in ps.items():
+        for k, v in opt._state.get(id(p), {}).items():
+            out[f"{n}.{k}"] = v.clone()
+    return out
+
+
+def _opt_run(cuda, rule, clip, dtype, plain, monkeypatch, steps=2):
+    """Two steps of the optimizer on fresh tensors; with ``plain`` every
+    kernel wrapper is swapped for its plain version. Returns the
+    parameters and state tensors after the last step and before it."""
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    ps, grads = _opt_tensors(cuda, dtype)
+    opt = _opt(rule, clip, ps)
+    before = {}
+    with monkeypatch.context() as mp:
+        if plain:
+            for name in _OPT_KERNELS:
+                mp.setattr(kopt, name, getattr(kopt, name + "_plain"))
+        for g in grads[:steps]:
+            before = _opt_snapshot(ps, opt)
+            for n, p in ps.items():
+                p.grad = g[n].clone()
+            opt.step()
+            opt.clear_grad()
+    torch.cuda.synchronize()
+    return _opt_snapshot(ps, opt), before
+
+
+def _bf16_ulps(a, b, scale):
+    """|a - b| in bf16 ulps of ``scale`` (elementwise)."""
+    m = scale.float().abs().clamp_min(2.0 ** -126)
+    return (a.float() - b.float()).abs() / torch.exp2(
+        torch.floor(torch.log2(m)) - 7)
+
+
+def _bf16_close(got, ref, base, what):
+    """bf16: equal bit for bit in >= 99.9% of elements, within one ulp
+    everywhere (a rounding flipped by the last bit of an fp32 sum), an ulp
+    of the larger of the two and ``base``, the value before the step (an
+    update that cancels may land near zero, where its own ulp is tiny).
+    Prints both readings, at the result's scale and at the operands', and
+    the elements within one ulp only at the operands' scale."""
+    same = (got.view(torch.int16) == ref.view(torch.int16)).float().mean()
+    assert same.item() >= 0.999, f"{what}: {same.item():.5f} of elements equal"
+    top = torch.maximum(got.float().abs(), ref.float().abs())
+    own = _bf16_ulps(got, ref, top)
+    ulps = _bf16_ulps(got, ref, torch.maximum(top, base.float().abs()))
+    print(f"{what}: bitwise {same.item():.6f}, max ulps at the result's "
+          f"scale {own.max().item():g}, at the operands' "
+          f"{ulps.max().item():g}, within one only at the operands' "
+          f"{int(((own > 1) & (ulps <= 1)).sum())}")
+    assert ulps.max().item() <= 1, f"{what}: > 1 ulp apart"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", ["none", "value", "norm", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule", ["adamw", "adam", "adafactor",
+                                  "adafactor_m"])
+def test_optimizer_kernels_match_plain(cuda, rule, dtype, clip, monkeypatch):
+    """Two optimizer steps through the kernels against the same steps with
+    every wrapper swapped for its plain version, at odd shapes: fp32
+    within rtol 1e-6 (Adam, AdamW) or 1e-5 (Adafactor; state tensors
+    also within that rtol of their largest element, fp32 sums taken in
+    another order), bf16 parameters and moments equal bit for bit in
+    99.9% of elements and one ulp apart at most; each wrapper launches
+    once a step and never takes its plain version."""
+    reset_counters()
+    got, before = _opt_run(cuda, rule, clip, dtype, False, monkeypatch)
+    c = counters()
+    adam = rule.startswith("adam") and not rule.startswith("adafactor")
+    want = {"multi_tensor_sumsq": 2 if clip in ("norm", "global") else 0,
+            "adam_update": 2 if adam else 0,
+            "adafactor_stats": 0 if adam else 2,
+            "adafactor_update": 0 if adam else 2}
+    assert {n: c[n]["launches"] for n in _OPT_KERNELS} == want
+    assert all(c[n]["plain_calls"] == 0 for n in _OPT_KERNELS)
+    ref = _opt_run(cuda, rule, clip, dtype, True, monkeypatch)[0]
+    rtol = 1e-6 if adam else 1e-5
+    for k, r in ref.items():
+        g = got[k]
+        if g.dtype == torch.bfloat16:
+            _bf16_close(g, r, before[k], k)
+        else:
+            _close(g.cpu(), r.cpu(), (rtol, rtol * r.abs().max().item()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["adamw", "adafactor_m"])
+def test_optimizer_kernels_are_deterministic(cuda, rule, monkeypatch):
+    """Two runs of the same steps (global-norm clip, bf16) give the same
+    bits: every cross-block sum is taken in a fixed order."""
+    a = _opt_run(cuda, rule, "global", torch.bfloat16, False, monkeypatch)[0]
+    b = _opt_run(cuda, rule, "global", torch.bfloat16, False, monkeypatch)[0]
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["adamw", "adafactor"])
+def test_optimizer_updates_a_replaced_storage(cuda, rule, monkeypatch):
+    """A parameter whose storage is replaced between steps is updated at
+    its new address (the table is built per step), as the plain version
+    updates it."""
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    def run(plain):
+        ps, grads = _opt_tensors(cuda, torch.float32)
+        opt = _opt(rule, "none", ps)
+        with monkeypatch.context() as mp:
+            if plain:
+                for name in _OPT_KERNELS:
+                    mp.setattr(kopt, name, getattr(kopt, name + "_plain"))
+            for step, g in enumerate(grads):
+                if step == 1:
+                    for p in ps.values():
+                        p.data = p.data.clone() * 2
+                for n, p in ps.items():
+                    p.grad = g[n].clone()
+                opt.step()
+        torch.cuda.synchronize()
+        return {n: p.detach().clone() for n, p in ps.items()}
+
+    got, ref = run(False), run(True)
+    for n in ref:
+        _close(got[n].cpu(), ref[n].cpu(), (1e-5, 1e-6))
+
+
+@pytest.mark.gpu
+def test_optimizer_kernels_raise_on_what_they_do_not_take(cuda):
+    from paddle_tpu_torch.optimizer import AdamW
+
+    p = torch.nn.Parameter(torch.ones(8, device=cuda, dtype=torch.float16))
+    p.grad = torch.ones_like(p)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        AdamW(parameters=[p]).step()
+    p = torch.nn.Parameter(torch.ones(8, device=cuda))
+    q = torch.nn.Parameter(torch.ones(8))
+    p.grad, q.grad = torch.ones_like(p), torch.ones_like(q)
+    reset_counters()
+    for order in ([p, q], [q, p]):  # the CUDA tensor first, then second
+        with pytest.raises(ValueError, match="tensor on"):
+            AdamW(parameters=order).step()
+    assert counters()["adam_update"] == {"launches": 0, "plain_calls": 0}

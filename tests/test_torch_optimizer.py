@@ -1,0 +1,594 @@
+"""The port's optimizer module against the JAX package's.
+
+LR schedules, gradient clips, ``Adam``/``AdamW``/``Adafactor`` steps (the
+plain versions of the fused kernels, which a CPU tensor takes), the
+optimizer state and a ``TrainStep`` loss curve. Inputs are drawn with
+numpy and handed to both packages; the JAX package runs on its CPU
+backend, both in fp32.
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+import paddle_tpu.nn as jnn
+import paddle_tpu.optimizer as jopt
+from paddle_tpu import jit as jjit
+from paddle_tpu.core.tensor import Tensor as JTensor
+from paddle_tpu.models import llama as jllama
+from paddle_tpu.nn.layer.layers import Parameter as JParameter
+from paddle_tpu_torch import kernels, resolve_device
+from paddle_tpu_torch import nn as pnn
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.kernels import optimizer as kopt
+from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                     llama_state_from_numpy)
+from paddle_tpu_torch.optimizer import Adafactor, Adam, AdamW
+from paddle_tpu_torch.optimizer import lr as plr
+
+# -- LR schedules ---------------------------------------------------------------
+
+# (name, required arguments, one setting of the optional ones); a value
+# "sched" stands for a nested schedule built by each package
+SCHEDULES = [
+    ("NoamDecay", dict(d_model=64, warmup_steps=10),
+     dict(learning_rate=2.0, last_epoch=3)),
+    ("PiecewiseDecay", dict(boundaries=[5, 20], values=[0.1, 0.05, 0.01]),
+     dict(last_epoch=6)),
+    ("NaturalExpDecay", dict(learning_rate=0.5, gamma=0.1),
+     dict(last_epoch=2)),
+    ("InverseTimeDecay", dict(learning_rate=0.5, gamma=0.2),
+     dict(last_epoch=5)),
+    ("PolynomialDecay", dict(learning_rate=0.1, decay_steps=15),
+     dict(end_lr=0.01, power=2.0, cycle=True)),
+    ("LinearWarmup", dict(learning_rate=0.1, warmup_steps=10, start_lr=0.0,
+                          end_lr=0.1),
+     dict(learning_rate="sched")),
+    ("ExponentialDecay", dict(learning_rate=0.5, gamma=0.9),
+     dict(last_epoch=4)),
+    ("MultiStepDecay", dict(learning_rate=0.5, milestones=[5, 15]),
+     dict(gamma=0.5)),
+    ("StepDecay", dict(learning_rate=0.5, step_size=7), dict(gamma=0.3)),
+    ("LambdaDecay", dict(learning_rate=0.5, lr_lambda=lambda e: 0.95 ** e),
+     dict(lr_lambda=lambda e: 1.0 / (1.0 + e))),
+    ("CosineAnnealingDecay", dict(learning_rate=0.5, T_max=20),
+     dict(eta_min=0.01)),
+    ("CosineAnnealingWarmRestarts", dict(learning_rate=0.5, T_0=5),
+     dict(T_mult=2, eta_min=0.05)),
+    ("ReduceOnPlateau", dict(learning_rate=0.5),
+     dict(mode="max", factor=0.5, patience=2, threshold_mode="abs",
+          cooldown=1, min_lr=0.01)),
+    ("OneCycleLR", dict(max_learning_rate=1.0, total_steps=40),
+     dict(divide_factor=10.0, end_learning_rate=0.001, phase_pct=0.5,
+          anneal_strategy="linear")),
+    ("CyclicLR", dict(base_learning_rate=0.1, max_learning_rate=1.0,
+                      step_size_up=5),
+     dict(step_size_down=3, mode="exp_range", exp_gamma=0.9)),
+]
+STEPS = 40
+
+
+def _schedule(mod, name, kw):
+    kw = dict(kw)
+    if kw.get("learning_rate") == "sched":
+        kw["learning_rate"] = mod.CosineAnnealingDecay(0.1, T_max=12)
+    return getattr(mod, name)(**kw)
+
+
+def _metrics(mode):
+    """A seeded metric for ReduceOnPlateau that improves, then stalls."""
+    rng = np.random.default_rng(5)
+    x = np.maximum(1.0 - 0.05 * np.arange(STEPS), 0.4) + \
+        1e-3 * rng.standard_normal(STEPS)
+    return (x if mode == "min" else -x).tolist()
+
+
+def _run(sched, steps, metrics=None, start=0):
+    out = []
+    for i in range(start, start + steps):
+        if metrics is None:
+            sched.step()
+        else:
+            sched.step(metrics[i])
+        out.append(sched.last_lr)
+    return out
+
+
+def test_every_schedule_is_ported():
+    assert len(SCHEDULES) == 15
+    assert sorted(n for n, _, _ in SCHEDULES) == sorted(
+        n for n in plr.__all__ if n != "LRScheduler")
+
+
+@pytest.mark.parametrize("setting", ["default", "non_default"])
+@pytest.mark.parametrize("name,required,optional", SCHEDULES,
+                         ids=[s[0] for s in SCHEDULES])
+def test_schedule_matches_jax(name, required, optional, setting):
+    """40 steps of each schedule give the JAX schedule's floats exactly,
+    and a schedule restored from its ``state_dict`` after 20 steps goes on
+    as the uninterrupted one."""
+    kw = {**required, **(optional if setting == "non_default" else {})}
+    metrics = _metrics(kw.get("mode", "min")) \
+        if name == "ReduceOnPlateau" else None
+    ref_s = _schedule(jopt.lr, name, kw)
+    got_s = _schedule(plr, name, kw)
+    assert got_s.last_lr == ref_s.last_lr
+    ref = _run(ref_s, STEPS, metrics)
+    got = _run(got_s, STEPS, metrics)
+    assert got == ref
+    if name == "ReduceOnPlateau":
+        assert len(set(got)) > 1  # the metric made it reduce
+    first = _schedule(plr, name, kw)
+    head = _run(first, STEPS // 2, metrics)
+    second = _schedule(plr, name, kw)
+    second.set_state_dict(first.state_dict())
+    tail = _run(second, STEPS // 2, metrics, start=STEPS // 2)
+    assert head + tail == got
+
+
+# -- optimizer steps against the JAX Optimizer.step / _get_fused ------------------
+
+# (name, shape, grad?, trainable?): odd sizes, 1-, 2- and 3-D, one element,
+# one tensor without a gradient and one that is not trainable
+TENSORS = [("w2d", (5, 3), True, True), ("b1d", (7,), True, True),
+           ("w3d", (2, 3, 5), True, True), ("nograd", (4,), False, True),
+           ("frozen", (3, 6), True, False), ("norm.w", (6,), True, True),
+           ("one", (1,), True, True), ("wide", (3, 17), True, True)]
+CLIPS = {"none": None, "value": ("ClipGradByValue", (0.5,)),
+         "norm": ("ClipGradByNorm", (1.0,)),
+         "global": ("ClipGradByGlobalNorm", (1.0,))}
+RULES = {
+    "adam": (Adam, jopt.Adam, dict(learning_rate=None, weight_decay=0.01)),
+    "adamw": (AdamW, jopt.AdamW, dict(learning_rate=None, weight_decay=0.1,
+                                      apply_decay_param_fun="no_norm")),
+    "adafactor_b0": (Adafactor, jopt.Adafactor,
+                     dict(learning_rate=None, beta1=0.0)),
+    "adafactor_b05": (Adafactor, jopt.Adafactor,
+                      dict(learning_rate=None, beta1=0.5)),
+}
+# fp32: the rules differ from the JAX package's only in summation order
+# and where XLA fuses; Adam's bias corrections are taken in double here
+# (about 1e-5 of the correction at beta2 0.999, ~1e-8 of p at lr 1e-3)
+RTOL = {"adam": 1e-6, "adamw": 1e-6, "adafactor_b0": 1e-5,
+        "adafactor_b05": 1e-5, "adafactor_wd": 1e-5}
+
+
+def _inputs(seed=7, steps=3):
+    """Parameters of magnitude 0.5-1.5 (so rtol means something) with
+    random signs, and each step's gradients."""
+    rng = np.random.default_rng(seed)
+    params = {n: (rng.choice([-1.0, 1.0], size=s) *
+                  rng.uniform(0.5, 1.5, size=s)).astype(np.float32)
+              for n, s, _, _ in TENSORS}
+    grads = [{n: rng.standard_normal(s).astype(np.float32)
+              for n, s, has, _ in TENSORS if has} for _ in range(steps)]
+    return params, grads
+
+
+def _lr(mod, lr):
+    return mod.LinearWarmup(learning_rate=lr, warmup_steps=2,
+                            start_lr=lr / 4, end_lr=lr)
+
+
+def _make(rule, clip, pkg, params, lr):
+    """The optimizer of ``pkg`` ("jax" or "port") over fresh parameters
+    holding ``params``; returns (optimizer, {name: parameter}, schedule)."""
+    port_cls, jax_cls, kw = RULES["adafactor_b05" if rule == "adafactor_wd"
+                                  else rule]
+    kw = dict(kw)
+    if rule == "adafactor_wd":
+        kw["weight_decay"] = 0.01
+    sched = _lr(jopt.lr if pkg == "jax" else plr, lr)
+    kw["learning_rate"] = sched
+    if clip is not None:
+        kw["grad_clip"] = getattr(jnn if pkg == "jax" else pnn,
+                                  clip[0])(*clip[1])
+    fn = kw.pop("apply_decay_param_fun", None)
+    decay = (lambda name: "norm" not in name) if fn else None
+    if pkg == "jax":
+        ps = {n: JParameter(jnp.asarray(params[n]), name=n, trainable=tr)
+              for n, _, _, tr in TENSORS}
+        if decay:
+            kw["apply_decay_param_fun"] = decay
+        opt = jax_cls(parameters=list(ps.values()), **kw)
+    else:
+        ps = {n: torch.nn.Parameter(torch.from_numpy(params[n].copy()),
+                                    requires_grad=tr)
+              for n, _, _, tr in TENSORS}
+        if decay:
+            kw["apply_decay_param_fun"] = decay
+        opt = port_cls(parameters=list(ps.items()), **kw)
+    return opt, ps, sched
+
+
+def _step(pkg, opt, ps, grads, sched):
+    for n, g in grads.items():
+        if pkg == "jax":
+            ps[n].grad = JTensor(jnp.asarray(g))
+        else:
+            ps[n].grad = torch.from_numpy(g.copy())
+    opt.step()
+    opt.clear_grad()
+    sched.step()
+
+
+def _state_of(pkg, opt, p):
+    if pkg == "jax":
+        return {k: np.asarray(v) for k, v in opt._accumulators[id(p)].items()}
+    return {k: v.numpy() for k, v in opt._state[id(p)].items()}
+
+
+@pytest.mark.parametrize("clip", list(CLIPS))
+@pytest.mark.parametrize("rule", ["adam", "adamw", "adafactor_b0",
+                                  "adafactor_b05", "adafactor_wd"])
+def test_optimizer_step_matches_jax(rule, clip):
+    """Three steps of the port's ``Optimizer.step`` (the fused kernels'
+    plain versions) against the JAX ``Optimizer.step``, with an
+    ``LRScheduler`` for the rate: every parameter and state tensor within
+    rtol 1e-6 (Adam, AdamW) or 1e-5 (Adafactor), state tensors also within
+    that rtol of their largest element; the tensor without a gradient and
+    the frozen one keep their values and get no state."""
+    params, grads = _inputs()
+    lr = 1e-3 if rule.startswith("adam") else 1e-2
+    jo, jps, jsched = _make(rule, CLIPS[clip], "jax", params, lr)
+    po, pps, psched = _make(rule, CLIPS[clip], "port", params, lr)
+    for g in grads:
+        _step("jax", jo, jps, g, jsched)
+        _step("port", po, pps, g, psched)
+    rtol = RTOL[rule]
+    for name, _, has, trainable in TENSORS:
+        got = pps[name].detach().numpy()
+        np.testing.assert_allclose(got, np.asarray(jps[name].data), rtol=rtol,
+                                   err_msg=name)
+        if not (has and trainable):
+            np.testing.assert_array_equal(got, params[name])
+            assert id(pps[name]) not in po._state
+            continue
+        ref_st = _state_of("jax", jo, jps[name])
+        got_st = _state_of("port", po, pps[name])
+        assert set(got_st) == set(ref_st)
+        for k in ref_st:
+            # a moment is a sum that cancels (0.9 m + 0.1 g): its elements
+            # are held to rtol of the tensor's largest one as well
+            np.testing.assert_allclose(
+                got_st[k], ref_st[k], rtol=rtol,
+                atol=rtol * np.abs(ref_st[k]).max(), err_msg=f"{name} {k}")
+    assert po._global_step == jo._global_step == len(grads)
+
+
+def test_clips_match_jax():
+    """``_apply_plain`` of each clip against ``_apply_jax`` on the same
+    gradients (fp32, and bf16 rounded as the reference rounds)."""
+    rng = np.random.default_rng(3)
+    gs = [rng.standard_normal(s).astype(np.float32)
+          for s in [(5, 3), (7,), (2, 3, 5), (1,)]]
+    for name, args in [("ClipGradByValue", (0.3,)),
+                       ("ClipGradByNorm", (1.0,)),
+                       ("ClipGradByGlobalNorm", (2.0,))]:
+        ref = getattr(jnn, name)(*args)._apply_jax(
+            [jnp.asarray(g) for g in gs])
+        got = getattr(pnn, name)(*args)._apply_plain(
+            [torch.from_numpy(g) for g in gs])
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+        got16 = getattr(pnn, name)(*args)._apply_plain(
+            [torch.from_numpy(g).bfloat16() for g in gs])
+        ref16 = getattr(jnn, name)(*args)._apply_jax(
+            [jnp.asarray(g).astype(jnp.bfloat16) for g in gs])
+        for a, b in zip(got16, ref16):
+            assert a.dtype == torch.bfloat16
+            np.testing.assert_array_equal(
+                a.float().numpy(), np.asarray(b.astype(jnp.float32)))
+
+
+# -- lr and state ------------------------------------------------------------------
+
+def test_get_and_set_lr():
+    p = torch.nn.Parameter(torch.ones(3))
+    opt = AdamW(learning_rate=0.1, parameters=[p])
+    assert opt.get_lr() == 0.1
+    opt.set_lr(0.05)
+    assert opt.get_lr() == 0.05
+    sched = plr.StepDecay(0.2, step_size=1, gamma=0.5)
+    opt = AdamW(learning_rate=sched, parameters=[p])
+    assert opt.get_lr() == 0.2
+    sched.step()
+    assert opt.get_lr() == 0.1
+    with pytest.raises(RuntimeError, match="LRScheduler"):
+        opt.set_lr(0.3)
+
+
+@pytest.mark.parametrize("rule", ["adamw", "adafactor_b05"])
+def test_state_dict_restores_the_run_bit_for_bit(rule):
+    """Four steps, against two steps, a ``state_dict`` (parameters saved
+    beside it), a fresh optimizer and schedule restored from it and two
+    more steps: every parameter equal bit for bit. Keys follow the
+    reference: ``global_step``, ``LR_Scheduler``, ``{name}_{key}``."""
+    params, grads = _inputs(steps=4)
+    lr = 1e-3 if rule == "adamw" else 1e-2
+    opt, ps, sched = _make(rule, CLIPS["global"], "port", params, lr)
+    for g in grads:
+        _step("port", opt, ps, g, sched)
+    full = {n: p.detach().clone() for n, p in ps.items()}
+
+    opt, ps, sched = _make(rule, CLIPS["global"], "port", params, lr)
+    for g in grads[:2]:
+        _step("port", opt, ps, g, sched)
+    sd = opt.state_dict()
+    saved = {n: p.detach().clone() for n, p in ps.items()}
+    assert sd["global_step"] == 2 and "LR_Scheduler" in sd
+    key = "w2d_moment1" if rule == "adamw" else "w2d_vr"
+    assert key in sd and "nograd_moment1" not in sd
+
+    mid = {n: v.numpy() for n, v in saved.items()}
+    opt, ps, sched = _make(rule, CLIPS["global"], "port", mid, lr)
+    opt.set_state_dict(sd)
+    assert opt._global_step == 2 and sched.last_epoch == 2
+    for g in grads[2:]:
+        _step("port", opt, ps, g, sched)
+    for n, p in ps.items():
+        assert torch.equal(p.detach(), full[n]), n
+
+
+def test_unnamed_parameters_are_named_by_index():
+    a, b = torch.nn.Parameter(torch.ones(2)), torch.nn.Parameter(torch.ones(3))
+    opt = Adam(learning_rate=0.1, parameters=[a, b])
+    b.grad = torch.ones(3)
+    opt.step()
+    sd = opt.state_dict()
+    assert set(sd) == {"global_step", "param_1_moment1", "param_1_moment2"}
+
+
+# -- TrainStep curve: the JAX package's finetune recipe ---------------------------
+
+def _llama_pair(seed=3):
+    paddle.seed(seed)
+    cfg = dict(ce_chunk=8)
+    jm = jllama.LlamaForCausalLM(jllama.LlamaConfig.tiny(**cfg))
+    rng = np.random.default_rng(seed)
+    state = {}
+    for name, v in jm.state_dict().items():
+        shape = tuple(v.shape)
+        a = (1.0 if "norm" in name else 0.0) + 0.1 * rng.standard_normal(shape)
+        state[name] = a.astype(np.float32)
+    jm.set_state_dict(state)
+    pcfg = LlamaConfig.tiny(**cfg)
+    pm = LlamaForCausalLM(pcfg, device="cpu")
+    pm.load_state_dict(llama_state_from_numpy(state, pcfg))
+    return jm, pm
+
+
+@pytest.fixture
+def jax_flags():
+    """The JAX package's eager embedding needs the 'clip' OOV policy under
+    this jax; restored afterwards."""
+    from paddle_tpu.framework import flags as flags_mod
+
+    names = ["FLAGS_embedding_oov_policy"]
+    prior = flags_mod.get_flags(names)
+    paddle.set_flags({"FLAGS_embedding_oov_policy": "clip"})
+    yield
+    paddle.set_flags(prior)
+
+
+def test_trainstep_curve_with_warmup_and_global_clip_matches_jax(jax_flags):
+    """``LinearWarmup`` + ``ClipGradByGlobalNorm(1.0)`` + AdamW, the JAX
+    package's finetune recipe (``bench.py:855-864``), three steps of the
+    port's ``TrainStep`` against the JAX ``jit.TrainStep``: each loss
+    within 1e-4, and the clip active (the global norm exceeds 1)."""
+    jm, pm = _llama_pair()
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 256, size=(3, 12)).astype(np.int32)
+    labels = rng.integers(0, 256, size=(3, 12)).astype(np.int64)
+
+    def recipe(mod, nn_mod, params):
+        sched = mod.lr.LinearWarmup(learning_rate=1e-2, warmup_steps=2,
+                                    start_lr=0.0, end_lr=1e-2)
+        return sched, mod.AdamW(learning_rate=sched, parameters=params,
+                                weight_decay=0.01,
+                                grad_clip=nn_mod.ClipGradByGlobalNorm(1.0))
+
+    import paddle_tpu_torch.optimizer as popt
+
+    jsched, jo = recipe(jopt, jnn, jm.parameters())
+    psched, po = recipe(popt, pnn, pm.parameters())
+    jstep = jjit.TrainStep(jm, lambda m, x, y: m(x, labels=y), jo)
+    pstep = TrainStep(pm, lambda m, x, y: m(x, labels=y), po)
+    ref, got = [], []
+    for _ in range(3):
+        ref.append(float(jstep(paddle.to_tensor(ids),
+                               paddle.to_tensor(labels))))
+        jsched.step()
+    kernels.reset_counters()
+    norms = []
+    real = kopt.multi_tensor_sumsq
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        norms.append(math.sqrt(float(out[-1])))
+        return out
+
+    kopt.multi_tensor_sumsq = spy
+    try:
+        for _ in range(3):
+            got.append(float(pstep(torch.from_numpy(ids),
+                                   torch.from_numpy(labels))))
+            psched.step()
+    finally:
+        kopt.multi_tensor_sumsq = real
+    np.testing.assert_allclose(got, ref, rtol=1e-4)
+    assert min(norms) > 1.0
+    c = kernels.counters()
+    assert c["multi_tensor_sumsq"] == {"launches": 0, "plain_calls": 3}
+    assert c["adam_update"] == {"launches": 0, "plain_calls": 3}
+
+
+# -- the kernel wrappers on the CPU ------------------------------------------------
+
+def _batch(rule, device="cpu", shapes=((5, 3), (7,), (2, 3, 4))):
+    gen = torch.Generator().manual_seed(0)
+    params = [torch.randn(s, generator=gen).to(device) for s in shapes]
+    grads = [torch.randn(s, generator=gen).to(device) for s in shapes]
+    if rule == "adam":
+        slots = [[torch.zeros_like(p) for p in params],
+                 [torch.zeros_like(p) for p in params], [None] * len(params)]
+    else:
+        slots = [[torch.zeros(p.shape[:-1] if p.dim() > 1 else p.shape,
+                              device=device) for p in params],
+                 [torch.zeros(p.shape[:-2] + p.shape[-1:], device=device)
+                  if p.dim() > 1 else None for p in params],
+                 [None] * len(params)]
+    return kopt.StepBatch(params, grads, slots, [True] * len(params), 1e-2,
+                          1, rule=rule)
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu():
+    kernels.reset_counters()
+    b = _batch("adam")
+    norms = kopt.multi_tensor_sumsq(b, 1.0, 2)
+    kopt.adam_update(b, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                     weight_decay=0.1, decoupled=True, clip=("scale",),
+                     norms=norms)
+    b = _batch("adafactor")
+    stats = kopt.adafactor_stats(b, decay_rate=0.8, epsilon1=1e-30,
+                                 weight_decay=0.0, pscale=True)
+    kopt.adafactor_update(b, stats, beta1=0.0, epsilon2=1e-3,
+                          clip_threshold=1.0, pscale=True, weight_decay=0.0)
+    c = kernels.counters()
+    for name in ("multi_tensor_sumsq", "adam_update", "adafactor_stats",
+                 "adafactor_update"):
+        assert c[name] == {"launches": 0, "plain_calls": 1}, name
+    # stats: a sum of p^2 per tensor, then mean(vr) per matrix (1 + 2)
+    assert stats.shape == (3 + 3,)
+
+
+def test_a_cuda_request_without_a_card_raises():
+    """Neither CPU nor CUDA: the wrappers raise rather than run anything;
+    the port's default device, CUDA, raises on a machine without a card."""
+    b = _batch("adam", device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        kopt.adam_update(b, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                         weight_decay=0.0, decoupled=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        kopt.multi_tensor_sumsq(b)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device(None)
+
+
+@pytest.mark.parametrize("which", ["param", "grad", "state"])
+def test_a_batch_on_two_devices_raises(which):
+    """Every tensor of a step lies on its first parameter's device, or the
+    batch raises before any wrapper routes it: a CPU first parameter with
+    the rest elsewhere must not take the plain version for all of them."""
+    b = _batch("adam")
+    params, grads, slots = list(b.params), list(b.grads), b.slots
+    if which == "param":
+        params[1] = params[1].to("meta")
+    elif which == "grad":
+        grads[2] = grads[2].to("meta")
+    else:
+        slots[1][2] = slots[1][2].to("meta")
+    with pytest.raises(ValueError, match="tensor on meta"):
+        kopt.StepBatch(params, grads, slots, b.decay, 1e-2, 1)
+    p, q = torch.nn.Parameter(torch.ones(8)), torch.nn.Parameter(
+        torch.ones(8, device="meta"))
+    p.grad, q.grad = torch.ones_like(p), torch.ones_like(q)
+    kernels.reset_counters()
+    with pytest.raises(ValueError, match="tensor on meta"):
+        AdamW(parameters=[p, q]).step()
+    assert kernels.counters()["adam_update"] == {"launches": 0,
+                                                 "plain_calls": 0}
+
+
+def test_a_scale_clip_needs_norms_of_its_batch():
+    """A kernel's ``("scale",)`` clip reads fp32 norms of the batch's own
+    length, on its device."""
+    b = _batch("adam", device="meta")
+    with pytest.raises(ValueError, match="norms"):
+        kopt._clip_args(b, ("scale",), None)
+    with pytest.raises(ValueError, match="norms"):
+        kopt._clip_args(b, ("scale",), torch.zeros(3, device="meta"))
+    assert kopt._clip_args(b, ("scale",), torch.zeros(
+        7, device="meta")) == (1, 0.0, 0.0)
+    assert kopt._clip_args(b, ("value", -1, 2), None) == (2, -1.0, 2.0)
+
+
+def _decode(batch):
+    """The chunks of ``batch``'s table as the kernels read them:
+    {tensor: [(offset, length)]}, in order."""
+    host = batch._plan()
+    head = host[:2].view(np.int32)
+    n, n_chunks = int(head[2]), int(head[3])
+    words = host[2:2 + n * kopt.TENSOR_WORDS].reshape(n, kopt.TENSOR_WORDS)
+    chunks = host[2 + n * kopt.TENSOR_WORDS:][:n_chunks]
+    out = {}
+    for c, w in enumerate(chunks):
+        i, k = int(w >> 40), int(w & ((1 << 40) - 1))
+        e = words[i]
+        assert e[10] <= c < e[11]
+        span = int(e[8])
+        if e[12] & 8:  # factored: a tile of whole rows
+            C, R, tiles = int(e[6]), int(e[7]), int(e[9])
+            b, r0 = divmod(k, tiles)
+            r0 *= span
+            off, length = (b * R + r0) * C, min(span, R - r0) * C
+        else:
+            off = k * span
+            length = min(span, int(e[5]) - off)
+        out.setdefault(i, []).append((off, length))
+    return out, head, words
+
+
+@pytest.mark.parametrize("rule", ["adam", "adafactor"])
+def test_chunk_table_covers_every_element_once(rule, monkeypatch):
+    """With small chunks and tiles, the table's chunks of each tensor are
+    contiguous, in order and cover it exactly once; Adafactor's tiles of a
+    tensor of 2+ dims start on a row and stay in one matrix."""
+    monkeypatch.setattr(kopt, "FLAT_CHUNK", 16)
+    monkeypatch.setattr(kopt, "TILE_ELEMENTS", 20)
+    b = _batch(rule, shapes=((5, 3), (37,), (3, 7, 4), (1,), (2, 9)))
+    chunks, head, words = _decode(b)
+    assert head[0] == np.array([1e-2], np.float32).view(np.int32)[0]
+    assert head[1] == 1
+    for i, p in enumerate(b.params):
+        pos = 0
+        for off, length in chunks[i]:
+            assert off == pos and length > 0
+            pos += length
+            if b.factored(i):
+                C, R = p.shape[-1], p.shape[-2]
+                assert off % C == 0 and length % C == 0
+                assert off // (R * C) == (off + length - 1) // (R * C)
+        assert pos == p.numel()
+        assert words[i, 0] == p.data_ptr() and words[i, 1] == b.grads[i].data_ptr()
+
+
+def test_a_new_step_reads_a_replaced_storage():
+    """The table is built per step: a parameter whose storage is replaced
+    between steps (and every fresh gradient) is read at its new address,
+    and the update lands there."""
+    p = torch.nn.Parameter(torch.ones(6))
+    opt = AdamW(learning_rate=0.1, parameters=[p], weight_decay=0.0)
+    seen = []
+    real = kopt.adam_update
+
+    def spy(batch, **kw):
+        seen.append(batch._plan()[2:4].tolist())
+        return real(batch, **kw)
+
+    kopt.adam_update = spy
+    try:
+        p.grad = torch.ones(6)
+        opt.step()
+        p.data = torch.full((6,), 2.0)
+        p.grad = torch.ones(6)
+        opt.step()
+    finally:
+        kopt.adam_update = real
+    assert seen[1][0] == p.data_ptr() != seen[0][0]
+    assert seen[1][1] == p.grad.data_ptr()
+    assert float(p.detach()[0]) < 2.0
