@@ -69,19 +69,33 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              (and three planted backward faults that the check must
              catch, one the inverse RoPE reading its strided cotangent as
              if it were contiguous),
-             then several steps on one batch with the counters reset before
-             and read after (each kernel's launches per step as reckoned
-             from the code: every flash forward, dK/dV and dQ on the
-             tensor-core kernels, none on the CUDA-core ones; no plain
-             call; AdamW's update one fused launch a step), a falling
-             finite loss, step time, tokens/s, MFU, peak memory and a
-             profiled step.
+             then several eager steps (``TrainStep(graph=False)``) on one
+             batch with the counters reset before and read after (each
+             kernel's launches per step as reckoned from the code: every
+             flash forward, dK/dV and dQ on the tensor-core kernels, none
+             on the CUDA-core ones; no plain call; AdamW's update one
+             fused launch a step), a falling finite loss, step time,
+             tokens/s, MFU, peak memory and a profiled step. Then the main
+             path, the graphed step (one CUDA graph replay a step), from
+             the same weights and batch: losses, parameters and AdamW
+             state against the eager run bit for bit (or within
+             GRAPH_TOL), launches reckoned as the captures' counts plus
+             the counts per replay times the replays, the capture's debug
+             dump node by node against the launches reckoned per step (no
+             CUDA-core attention node), a planted stale table header
+             (replays that keep the first replay's step) that the check
+             must catch, the graphed and eager figures side by side with
+             PR 10's, the same at the bench's batch 16, and
+             ``TrainStep.accumulate(2)`` at batch 8 against the eager
+             recipe with fp32 accumulation.
    optimizer — the fused optimizer's kernels over the dense model's full
              parameter set, bf16 (AdamW, and with ClipGradByGlobalNorm):
              against their plain versions (99.9% of p, m, v bit for bit,
              one ulp at most; two runs the same bits), timed eager and in
              graph replay beside their bounds and
-             torch.optim.AdamW(fused=True); then in fp32 on the first
+             torch.optim.AdamW(fused=True), and with fp32 gradients beside
+             the bf16 parameters (the sums of ``TrainStep.accumulate``);
+             then in fp32 on the first
              tensors, with three planted faults (no bias correction, the
              decoupled decay dropped, the clip scale ignored) that the
              check must catch.
@@ -106,15 +120,18 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              (routing without its cross-block base, a grouped GEMM forward
              and a wgrad that drop each group's last partial row tile, the
              combine backward's scaled gather without its scale);
-             then steps with the
+             then eager steps with the
              counters reset before and read after (exact launches, every
              grouped GEMM on the tensor-core kernels, no plain
              call; Adafactor one stats and one update call a step), a
              falling finite loss, step time, tokens/s, MFU on activated
-             FLOPs, peak memory and a profiled step.
+             FLOPs, peak memory and a profiled step; then the graphed step
+             as for the dense model (no CUDA-core grouped GEMM node), at
+             batch 4 and at the bench's batch 8.
    optimizer — Adafactor's two kernels over the MoE model's full parameter
-             set, as for AdamW above (no library call computes its rule),
-             with a planted fault: the update's RMS clip dropped.
+             set, as for AdamW above (no library call computes its rule;
+             fp32 gradients too), with a planted fault: the update's RMS
+             clip dropped.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
@@ -1626,7 +1643,9 @@ def _worst(errs, k=3):
 def _train_curve(model, state, ids, steps, finetune=False):
     """AdamW lr 3e-4 / wd 0.1 losses; ``finetune``: the JAX package's
     finetune recipe (``bench.py:855-864``), the rate a ``LinearWarmup``
-    from 0 over 2 steps (stepped after each) and ClipGradByGlobalNorm(1.0)."""
+    from 0 over 2 steps (stepped after each) and ClipGradByGlobalNorm(1.0).
+    Eager steps (``graph=False``): the plain-swapped reference cannot be
+    captured (the plain grouped GEMM reads its group sizes on the host)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW, lr
@@ -1637,7 +1656,7 @@ def _train_curve(model, state, ids, steps, finetune=False):
     opt = AdamW(learning_rate=sched or 3e-4, parameters=model.parameters(),
                 weight_decay=0.1,
                 grad_clip=ClipGradByGlobalNorm(1.0) if finetune else None)
-    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt, graph=False)
     losses = []
     for _ in range(steps):
         losses.append(float(step(ids, ids)))
@@ -1812,14 +1831,45 @@ def _device_ms(prof, group_of):
             _busy_ms([x for sp in spans.values() for x in sp]))
 
 
-def _train_breakdown(model, opt, ids):
-    """One training step in three phases (forward, backward, optimizer),
-    each in its own profiler session and closed by a synchronise: wall ms
-    by the host clock, device ms by kernel group from torch.profiler's
-    device records, and the device's idle share of the wall."""
+def _step_profile(call, group_of=None):
+    """One call in one profiler session, closed by a synchronise: wall ms
+    by the host clock, events_ms (CUDA events around it: the stream's time
+    from its first operation to its last, gaps included, a bound on its
+    device time that does not rest on the profiler's records), device ms
+    (the union of kernel spans) by group (``group_of``, default
+    ``_train_group``) and in all, and the device's idle share of the wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # a marker kernel first: in this script's later sessions the
+        # first device records of a session went missing (PR 10's first
+        # runs lost the optimizer's table copy and its first kernel); the
+        # marker is not counted (_device_ms)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev0.record()
+        call()
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name, groups, device = _device_ms(prof, group_of or _train_group)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return {"wall_ms": wall, "events_ms": ev0.elapsed_time(ev1),
+            "device_ms": device or None,
+            "idle_share": (1.0 - device / wall) if device else None,
+            "kernels": len(by_name), "groups_ms": groups,
+            "top": [[k[:70], ms] for k, ms in top]}
+
+
+def _train_breakdown(model, opt, ids):
+    """One training step in three phases (forward, backward, optimizer),
+    each in its own profiler session (``_step_profile``)."""
     model.train()
     state = {}
 
@@ -1833,41 +1883,12 @@ def _train_breakdown(model, opt, ids):
         opt.step()
         opt.clear_grad()
 
-    phases = {}
-    for name, fn in (("forward", forward), ("backward", backward),
-                     ("optimizer", optimizer)):
-        torch.cuda.synchronize()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            # a marker kernel first: in this script's later sessions the
-            # first device records of a session went missing (PR 10's
-            # first runs lost the optimizer's table copy and its first
-            # kernel); the marker is not counted (_device_ms)
-            torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ev0.record()
-            fn()
-            ev1.record()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        by_name, groups, device = _device_ms(
-            prof, lambda k, phase=name: "optimizer" if phase == "optimizer"
-            else _train_group(k))
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        # events_ms: the stream's time from the phase's first operation to
-        # its last, gaps included (a bound on its device time that does not
-        # rest on the profiler's records)
-        phases[name] = {"wall_ms": wall,
-                        "device_ms": device,
-                        "events_ms": ev0.elapsed_time(ev1),
-                        "kernels": len(by_name),
-                        "groups_ms": groups,
-                        "top": [[k[:70], ms] for k, ms in top]}
+    phases = {name: _step_profile(fn, (lambda k: "optimizer")
+                                  if name == "optimizer" else None)
+              for name, fn in (("forward", forward), ("backward", backward),
+                               ("optimizer", optimizer))}
     wall = sum(p["wall_ms"] for p in phases.values())
-    device = sum(p["device_ms"] for p in phases.values())
+    device = sum(p["device_ms"] or 0.0 for p in phases.values())
     groups = {}
     for p in phases.values():
         for g, ms in p["groups_ms"].items():
@@ -1895,6 +1916,311 @@ EARLIER_GROUPS_MS = {"train": {"rope": 6.7, "other": 34.6, "rmsnorm": 6.39,
 def _beside_earlier(path, breakdown):
     return {g: {"ms": breakdown["groups_ms"].get(g, 0.0), "earlier_ms": ms}
             for g, ms in EARLIER_GROUPS_MS[path].items()}
+
+
+# -- the graphed step (jit.TrainStep) ------------------------------------------
+
+# the graphed step against the eager one: bit for bit expected (the same
+# kernels and cuBLAS calls on one stream, in the same order); where not,
+# each parameter's difference over its update ||a - b|| / ||b - before||
+# and each state tensor's ||a - b|| / ||b|| must stay under this limit,
+# tighter than the bf16 gradient gates (0.15 dense, 0.06 MoE). The planted
+# stale header (replays keep the first replay's rate and step) reads tens
+# of percent: the bias corrections 1 - b^t move by that much per step
+GRAPH_TOL = 0.01
+# PR 10's eager steps at batch 4 (PERF.md section 5; H100 80GB HBM3,
+# 700.00 W): step ms, profiled device ms, idle share, peak memory GB
+PR10_STEP = {"dense": {"step_ms": 170.8, "device_ms": 164.0,
+                       "idle_share": 0.109, "peak_mem_gb": 9.33},
+             "moe": {"step_ms": 169.9, "device_ms": 131.8,
+                     "idle_share": 0.270, "peak_mem_gb": 6.16}}
+# the bench's batches (bench.py:2024 dense 16, bench.py:2031 MoE 8), which
+# the steps above cut to 4
+BENCH_BATCH = {"dense": 16, "moe": 8}
+# the graph's kernel nodes by function name (csrc/), and the counters whose
+# launches each add one node of each name; nodes that a bf16 training graph
+# must not hold: the CUDA-core attention and grouped GEMM, the earlier
+# routing and RMSNorm column-sum kernels
+GRAPH_NODES = [
+    (("flash_fwd_sm90_kernel",), ("flash_attention_sm90",)),
+    (("flash_bwd_dkv_sm90_kernel",), ("flash_attention_bwd_dkv_sm90",)),
+    (("flash_bwd_dq_sm90_kernel",), ("flash_attention_bwd_dq_sm90",)),
+    (("rmsnorm_fwd_vec_kernel", "rmsnorm_fwd_scalar_kernel"),
+     ("rms_norm", "rms_norm_residual")),
+    (("rmsnorm_bwd_vec_kernel", "rmsnorm_bwd_kernel"),
+     ("rms_norm_bwd", "rms_norm_residual_bwd")),
+    (("rmsnorm_dw_cols_kernel",), ("rms_norm_bwd", "rms_norm_residual_bwd")),
+    (("rope_kernel",), ("rope", "rope_inverse")),
+    (("moe_route_mma_kernel", "moe_route_tokens_kernel"), ("moe_route",)),
+    (("moe_route_fix_kernel",), ("moe_route",)),
+    (("gather_rows_kernel",), ("moe_gather",)),
+    (("combine_rows_kernel",), ("moe_combine",)),
+    (("gmm_sm90_kernel",), ("grouped_matmul_sm90",
+                            "grouped_matmul_dgrad_sm90")),
+    (("tgmm_sm90_kernel",), ("grouped_matmul_wgrad_sm90",)),
+    (("sumsq_partial_kernel",), ("multi_tensor_sumsq",)),
+    (("sumsq_finish_kernel",), ("multi_tensor_sumsq",)),
+    (("adam_kernel",), ("adam_update",)),
+    (("adafactor_stats_kernel",), ("adafactor_stats",)),
+    (("adafactor_finish_kernel",), ("adafactor_stats",)),
+    (("adafactor_usq_kernel",), ("adafactor_update",)),
+    (("adafactor_apply_kernel",), ("adafactor_update",)),
+]
+GRAPH_FORBIDDEN = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
+                   "flash_bwd_dq_kernel", "flash_decode", "gmm_kernel",
+                   "tgmm_kernel", "route_local_kernel", "route_scan_kernel",
+                   "rmsnorm_dw_sum_kernel")
+
+
+def _graph_nodes(dot):
+    """{kernel function name: nodes} of a CUDA graph's debug dump (the DOT
+    text of ``cudaGraphDebugDotPrint``: a node's label opens with its type
+    and, for a kernel, its mangled name)."""
+    import re
+    from collections import Counter
+
+    return Counter(name for kind, name in re.findall(
+        r'label="\{(\w+)\s*\n\| \{ID \| \d+ \(topoId: \d+\) \| ([^\\}]+)',
+        dot) if kind == "KERNEL")
+
+
+def _count_named(nodes, name):
+    """Nodes whose (mangled) function name holds ``name`` as a whole
+    identifier: "gmm_kernel" counts no "tgmm_kernel" node."""
+    import re
+
+    pat = re.compile(r"(?<![A-Za-z_])" + re.escape(name))
+    return sum(c for n, c in nodes.items() if pat.search(n))
+
+
+def _node_check(nodes, per_step):
+    """The graph's node counts against the launches per step reckoned from
+    the code: (rows, forbidden nodes, total kernel nodes, ok)."""
+    rows, ok = [], True
+    for names, counters in GRAPH_NODES:
+        want = sum(per_step.get(c, 0) for c in counters)
+        got = sum(_count_named(nodes, n) for n in names)
+        rows.append({"kernels": list(names), "nodes": got, "reckoned": want})
+        ok = ok and got == want
+    forbidden = {n: _count_named(nodes, n) for n in GRAPH_FORBIDDEN}
+    ok = ok and not any(forbidden.values())
+    return rows, forbidden, sum(nodes.values()), ok
+
+
+def _snapshot(model, opt):
+    """Clones of every parameter and optimizer state tensor."""
+    out = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for n, p in model.named_parameters():
+        for k, v in opt._state.get(id(p), {}).items():
+            out[f"{n}.{k}"] = v.clone()
+    return out
+
+
+def _agreement(got, ref, before):
+    """(every tensor equal bit for bit, the largest relative difference, its
+    tensor): a parameter's difference over its update from ``before``, a
+    state tensor's over its norm."""
+    import torch
+
+    worst, where, same = 0.0, None, True
+    for k, r in ref.items():
+        g = got[k]
+        if torch.equal(g, r):
+            continue
+        same = False
+        scale = (r.float() - before[k].float()).norm() if k in before \
+            else r.float().norm()
+        rel = ((g.float() - r.float()).norm() /
+               scale.clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, where = rel, k
+    return same, worst, where
+
+
+def _stale_header():
+    """A planted fault: replays keep the table header their capture's first
+    replay wrote (its rate and step, so Adam's and Adafactor's step-dependent
+    corrections stay at that step's)."""
+    kopt = _opt_module()
+    real = kopt.StepBatch.set_step
+
+    def stale(self, lr, step):
+        if self._table is None or self._pending:
+            return real(self, lr, step)
+        return None
+    return [(kopt.StepBatch, "set_step", stale)]
+
+
+def _timed(step, ids, n):
+    """(losses, host ms of each call, each ending in a synchronise)."""
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, ids)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _reckoned(gstep):
+    """The graphed run's launches in the counters' form: the wrappers'
+    counts (eager warm-up steps and the captures) plus each graph's
+    captured launches times its replays."""
+    from paddle_tpu_torch import kernels
+
+    counts = kernels.counters()
+    for n, c in gstep.captured_launches().items():
+        counts[n]["launches"] += c
+    return counts
+
+
+def _graph_run(path, model, make_opt, ids, steps, per_step, flops, ref,
+               ref_losses, state0):
+    """The graphed ``TrainStep`` on the weights ``state0``: ``steps`` steps
+    (an eager warm-up, the capture and its replay, replays), launches
+    reckoned and held exactly to ``per_step`` x (steps + 1) (the capture's
+    launches are counted once when the wrappers run, then replayed), the
+    capture's debug dump node by node against ``per_step``, every loss,
+    parameter and state tensor against the eager run (``ref``), the planted
+    stale header caught, step times and one profiled replay."""
+    import os
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep
+
+    def fresh():
+        model.load_state_dict(state0)
+        opt = make_opt()
+        return opt, TrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+
+    before = {n: t.detach().clone() for n, t in state0.items()}
+    # the check's own copies, which the peak leaves out
+    held = _nbytes(ref.values()) + 2 * _nbytes(state0.values())
+    opt, gstep = fresh()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        gstep.debug_dump = os.path.join(tmp, "step.dot")
+        losses, ms = _timed(gstep, ids, steps)
+        dot = open(gstep.debug_dump).read()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 2**30
+    counts = _reckoned(gstep)
+    entry = next(iter(gstep._graphs.values()))
+    captured = entry.counts
+    wrong = {n: (c, per_step[n] * (steps + 1)) for n, c in counts.items()
+             if c["plain_calls"] or
+             c["launches"] != per_step[n] * (steps + 1)}
+    if wrong or captured != {n: c for n, c in per_step.items() if c}:
+        raise RuntimeError(f"{path}-graph: launches differ from the "
+                           f"reckoned (reading, expected): {wrong}, "
+                           f"captured {captured}")
+    rows, forbidden, total_nodes, nodes_ok = _node_check(_graph_nodes(dot),
+                                                         per_step)
+    got = _snapshot(model, opt)
+    same, worst, where = _agreement(got, ref, before)
+    loss_same = losses == ref_losses
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    del got
+    profile_ = _step_profile(lambda: gstep(ids, ids))
+    batch, seq = ids.shape
+    step_ms = sum(ms[2:]) / len(ms[2:])
+    tok_s = batch * seq / step_ms * 1e3
+    del gstep, opt, entry
+    _release()
+
+    # the planted fault: replays without their header update
+    with _swapped(_stale_header()):
+        opt, fstep = fresh()
+        flosses, _ = _timed(fstep, ids, steps)
+        fgot = _snapshot(model, opt)
+    fsame, fworst, fwhere = _agreement(fgot, ref, before)
+    del fstep, opt, fgot
+    _release()
+    check = {"phase": f"{path}-graph-check", "steps": steps,
+             "bitwise": same and loss_same, "max_rel_diff": worst,
+             "max_rel_where": where, "loss_max_rel_diff": loss_rel,
+             "limit": GRAPH_TOL, "nodes": rows, "forbidden_nodes": forbidden,
+             "kernel_nodes": total_nodes,
+             "captured_launches_per_step": captured,
+             "fault_stale_header": {"max_rel_diff": fworst,
+                                    "where": fwhere,
+                                    "caught": not fsame and
+                                    fworst > GRAPH_TOL}}
+    _emit(check)
+    if not (same or worst <= GRAPH_TOL) or not (
+            loss_same or loss_rel <= GRAPH_TOL):
+        raise RuntimeError(f"{path}-graph: the graphed step differs from "
+                           f"the eager one {check}")
+    if not nodes_ok:
+        raise RuntimeError(f"{path}-graph: the graph's kernel nodes differ "
+                           f"from the reckoned launches {check}")
+    if not check["fault_stale_header"]["caught"]:
+        raise RuntimeError(f"{path}-graph: the check missed the stale "
+                           f"header {check}")
+    return counts, {"losses": losses, "step_ms": step_ms,
+                    "step_ms_each": ms, "tokens_per_s": tok_s,
+                    "mfu": flops * tok_s / PEAK_FLOPS["bfloat16"],
+                    "peak_mem_gb": peak_gb, "profile": profile_}
+
+
+def _bench_batch(path, model, make_opt, vocab, seed, flops, state0):
+    """The steps at the bench's batch (``BENCH_BATCH``) x 2048: the eager
+    and the graphed step, each from ``state0``: step ms over the steps
+    after the first (eager) or after the capture (graph), tokens/s, MFU,
+    peak memory and one profiled step."""
+    import torch
+
+    from paddle_tpu_torch.jit import TrainStep
+
+    batch, seq = BENCH_BATCH[path], 2048
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    ids = torch.randint(0, vocab, (batch, seq), generator=gen,
+                        device=DEVICE)
+    out = {"batch": [batch, seq]}
+    held = _nbytes(state0.values())  # the check's copy, left out of the peak
+    for graph, n, skip in ((False, 3, 1), (True, 4, 2)):
+        model.load_state_dict(state0)
+        step = TrainStep(model, lambda m, x, y: m(x, labels=y), make_opt(),
+                         graph=graph)
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = _timed(step, ids, n)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        prof = _step_profile(lambda: step(ids, ids))
+        step_ms = sum(ms[skip:]) / len(ms[skip:])
+        tok_s = batch * seq / step_ms * 1e3
+        if not all(x == x for x in losses):
+            raise RuntimeError(f"{path}: a loss at batch {batch} is NaN")
+        out["graph" if graph else "eager"] = {
+            "losses": losses, "step_ms": step_ms, "step_ms_each": ms,
+            "tokens_per_s": tok_s,
+            "mfu": flops * tok_s / PEAK_FLOPS["bfloat16"],
+            "peak_mem_gb": peak, "profile": prof}
+        del step
+        _release()
+    return out
+
+
+def _side_by_side(path, eager, graph, eager_profile):
+    """The batch-4 figures of the graphed and the eager step and PR 10's."""
+    def row(r, prof):
+        return {"step_ms": r["step_ms"], "tokens_per_s": r["tokens_per_s"],
+                "mfu": r["mfu"], "peak_mem_gb": r["peak_mem_gb"],
+                "events_ms": prof["events_ms"],
+                "device_ms": prof["device_ms"],
+                "idle_share": prof["idle_share"],
+                "profiled_wall_ms": prof["wall_ms"]}
+    return {"phase": f"{path}-steps", "graph": row(graph, graph["profile"]),
+            "eager": row(eager, eager_profile), "pr10_eager": PR10_STEP[path],
+            "graph_groups_ms": graph["profile"]["groups_ms"]}
 
 
 def phase_train(seed):
@@ -1953,19 +2279,22 @@ def phase_train(seed):
         raise RuntimeError(f"train: the gradient check missed a planted "
                            f"fault {faults}")
 
-    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
-                weight_decay=0.1)
-    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+    def make_opt():
+        return AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                     weight_decay=0.1)
+
+    # the eager step (graph=False): the reference the graphed step is held to
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_opt()
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt, graph=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
-    losses, secs = [], []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        losses.append(float(step(ids, ids)))
-        secs.append(time.perf_counter() - t0)
+    losses, ms = _timed(step, ids, TRAIN_STEPS)
     counts = kernels.counters()
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # the check's copy of the weights is left out of the peak
+    peak_gb = (torch.cuda.max_memory_allocated() -
+               _nbytes(state0.values())) / 2**30
     L = cfg.num_hidden_layers
     per_step = _dense_launches(L)
     wrong = {n: (c, per_step[n] * TRAIN_STEPS) for n, c in counts.items()
@@ -1977,24 +2306,135 @@ def phase_train(seed):
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise RuntimeError(f"train: loss not finite and falling: {losses}")
-    step_s = sum(secs[1:]) / (len(secs) - 1)
-    tok_s = batch * seq / step_s
-    mfu = llama_flops_per_token(cfg, seq) * tok_s / PEAK_FLOPS["bfloat16"]
+    ref = _snapshot(model, opt)
+    step_ms = sum(ms[1:]) / (len(ms) - 1)
+    tok_s = batch * seq / step_ms * 1e3
+    flops = llama_flops_per_token(cfg, seq)
+    mfu = flops * tok_s / PEAK_FLOPS["bfloat16"]
     breakdown = _train_breakdown(model, opt, ids)
+    eager_profile = _step_profile(lambda: step(ids, ids))
     _emit({"phase": "train", "ok": True, "model": "llama-1.16b",
-           "params": llama_param_count(cfg), "layers": L,
+           "graph": False, "params": llama_param_count(cfg), "layers": L,
            "dtype": "bfloat16", "recompute": True, "batch": [batch, seq],
            "model_init_s": t_init, "losses": losses,
-           "step_ms": step_s * 1e3, "step_ms_each": [x * 1e3 for x in secs],
+           "step_ms": step_ms, "step_ms_each": ms,
            "tokens_per_s": tok_s, "mfu": mfu, "peak_mem_gb": peak_gb,
            "kernel_counts": counts,
            "expected_launches_per_step": per_step})
     _emit({"phase": "train-breakdown", **breakdown,
            "beside_earlier": _beside_earlier("train", breakdown)})
-    shapes = [tuple(p.shape) for p in model.parameters()]
-    del model, opt, step
+    eager = {"step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+             "peak_mem_gb": peak_gb}
+    del step, opt
     _release()
-    return counts, shapes
+
+    # the graphed step, the main path: against the eager run above
+    graph_counts, graph = _graph_run("train", model, make_opt, ids,
+                                     TRAIN_STEPS, per_step, flops, ref,
+                                     losses, state0)
+    del ref
+    _release()
+    _emit({**_side_by_side("dense", eager, graph, eager_profile),
+           "losses": graph["losses"], "step_ms_each": graph["step_ms_each"],
+           "kernel_counts": graph_counts})
+    _emit({"phase": "train-bench-batch",
+           **_bench_batch("dense", model, make_opt, cfg.vocab_size,
+                          seed + 40, flops, state0)})
+    accumulate = _accumulate_check(model, make_opt, cfg, seed, state0)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model, state0
+    _release()
+    return graph_counts, counts, accumulate, shapes
+
+
+ACC_STEPS, ACC_WINDOWS = 2, 3
+
+
+def _accumulate_check(model, make_opt, cfg, seed, state0):
+    """``TrainStep.accumulate(2)`` on the dense model at batch 8 x 2048,
+    three windows as a graph (an eager warm-up window, the capture, a
+    replay) against the eager recipe with fp32 accumulation (each
+    microbatch's backward, its bf16 gradients added into fp32 sums scaled
+    by 1/2, one ``Optimizer._apply`` from the sums, whose kernels read the
+    fp32 gradients beside the bf16 parameters): each window's loss against
+    the mean of its two microbatch losses, then every parameter and state
+    tensor, bit for bit or within GRAPH_TOL; the launches reckoned exactly
+    (one optimizer update a window)."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 41)
+    ids = torch.randint(0, cfg.vocab_size, (8, 2048), generator=gen,
+                        device=DEVICE)
+    micro = ids.reshape(ACC_STEPS, 8 // ACC_STEPS, 2048)
+    before = {n: t.detach().clone() for n, t in state0.items()}
+
+    model.load_state_dict(state0)
+    opt = make_opt()
+    params = list(model.parameters())
+    model.train()
+    ref_losses = []
+    for _ in range(ACC_WINDOWS):
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=DEVICE)
+               for p in params]
+        mls = []
+        for mb in micro:
+            loss = model(mb, labels=mb)
+            loss.backward()
+            with torch.no_grad():
+                for a, p in zip(acc, params):
+                    a.add_(p.grad.float() * (1.0 / ACC_STEPS))
+            model.zero_grad(set_to_none=True)
+            mls.append(loss.detach().float())
+        ref_losses.append(float(torch.stack(mls).mean()))
+        opt._apply(acc)
+        opt._global_step += 1
+        del acc
+    # the last loss's autograd graph holds the parameters' gradient
+    # accumulators, made on this (the default) stream: a capture whose
+    # backward met them would make the default stream wait on it
+    del loss, mls
+    ref = _snapshot(model, opt)
+    del opt
+    _release()
+
+    model.load_state_dict(state0)
+    opt = make_opt()
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt) \
+        .accumulate(ACC_STEPS)
+    kernels.reset_counters()
+    losses, ms = _timed(step, ids, ACC_WINDOWS)
+    counts = _reckoned(step)
+    per_window = {n: ACC_STEPS * c for n, c in
+                  _dense_launches(cfg.num_hidden_layers).items()}
+    per_window["adam_update"] = 1
+    wrong = {n: (c, per_window[n] * (ACC_WINDOWS + 1))
+             for n, c in counts.items() if c["plain_calls"] or
+             c["launches"] != per_window[n] * (ACC_WINDOWS + 1)}
+    got = _snapshot(model, opt)
+    same, worst, where = _agreement(got, ref, before)
+    loss_same = losses == ref_losses
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    del got, ref, step, opt
+    _release()
+    row = {"phase": "accumulate-check", "steps": ACC_STEPS,
+           "windows": ACC_WINDOWS, "batch": [8, 2048], "losses": losses,
+           "eager_recipe_losses": ref_losses, "bitwise": same and loss_same,
+           "max_rel_diff": worst, "max_rel_where": where,
+           "loss_max_rel_diff": loss_rel, "limit": GRAPH_TOL,
+           "window_ms_each": ms}
+    _emit(row)
+    if wrong:
+        raise RuntimeError(f"accumulate: launches differ from the reckoned "
+                           f"(reading, expected): {wrong}")
+    if not (same or worst <= GRAPH_TOL) or not (
+            loss_same or loss_rel <= GRAPH_TOL):
+        raise RuntimeError(f"accumulate: the graphed window differs from "
+                           f"the eager recipe {row}")
+    return counts
 
 
 # -- phase: MoE kernels -------------------------------------------------------
@@ -2564,7 +3004,7 @@ def _adafactor_curve(model, state, ids, steps):
     model.load_state_dict(state)
     step = TrainStep(model, lambda m, x, y: m(x, labels=y),
                      Adafactor(learning_rate=1e-2,
-                               parameters=model.parameters()))
+                               parameters=model.parameters()), graph=False)
     return [float(step(ids, ids)) for _ in range(steps)]
 
 
@@ -2688,18 +3128,21 @@ def phase_moe_train(seed):
         raise RuntimeError(f"moe-train: the gradient check missed a planted "
                            f"fault {faults}")
 
-    opt = Adafactor(learning_rate=1e-2, parameters=model.parameters())
-    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+    def make_opt():
+        return Adafactor(learning_rate=1e-2, parameters=model.parameters())
+
+    # the eager step (graph=False): the reference the graphed step is held to
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_opt()
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt, graph=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
-    losses, secs = [], []
-    for _ in range(MOE_TRAIN_STEPS):
-        t0 = time.perf_counter()
-        losses.append(float(step(ids, ids)))
-        secs.append(time.perf_counter() - t0)
+    losses, ms = _timed(step, ids, MOE_TRAIN_STEPS)
     counts = kernels.counters()
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    # the check's copy of the weights is left out of the peak
+    peak_gb = (torch.cuda.max_memory_allocated() -
+               _nbytes(state0.values())) / 2**30
     per_step = _dense_launches(L)
     per_step.update({n: c * L for n, c in MOE_KERNELS.items()})
     # Adafactor, not AdamW: its statistics and its update, one call each
@@ -2714,29 +3157,48 @@ def phase_moe_train(seed):
             not losses[-1] < losses[0]:
         raise RuntimeError(f"moe-train: loss not finite and falling: "
                            f"{losses}")
-    step_s = sum(secs[1:]) / (len(secs) - 1)
-    tok_s = batch * seq / step_s
-    mfu = llama_moe_flops_per_token(cfg, seq) * tok_s / \
-        PEAK_FLOPS["bfloat16"]
+    ref = _snapshot(model, opt)
+    step_ms = sum(ms[1:]) / (len(ms) - 1)
+    tok_s = batch * seq / step_ms * 1e3
+    flops = llama_moe_flops_per_token(cfg, seq)
+    mfu = flops * tok_s / PEAK_FLOPS["bfloat16"]
     total, activated = llama_moe_param_counts(cfg)
     breakdown = _train_breakdown(model, opt, ids)
+    eager_profile = _step_profile(lambda: step(ids, ids))
     _emit({"phase": "moe-train", "ok": True, "model": "llama-moe-1.46b",
-           "params": total, "activated_params": activated, "layers": L,
-           "experts": cfg.num_experts, "top_k": cfg.top_k,
+           "graph": False, "params": total, "activated_params": activated,
+           "layers": L, "experts": cfg.num_experts, "top_k": cfg.top_k,
            "dtype": "bfloat16", "recompute": True, "dispatch": "fused",
            "optimizer": "Adafactor lr 1e-2", "batch": [batch, seq],
            "model_init_s": t_init, "losses": losses,
-           "step_ms": step_s * 1e3, "step_ms_each": [x * 1e3 for x in secs],
+           "step_ms": step_ms, "step_ms_each": ms,
            "tokens_per_s": tok_s, "mfu_activated": mfu,
            "peak_mem_gb": peak_gb, "kernel_counts": counts,
            "expected_launches_per_step": per_step})
     _emit({"phase": "moe-train-breakdown", **breakdown,
            "beside_earlier": _beside_earlier("moe-train", breakdown)})
+    eager = {"step_ms": step_ms, "tokens_per_s": tok_s, "mfu": mfu,
+             "peak_mem_gb": peak_gb}
+    del step, opt
+    _release()
+
+    # the graphed step, the main path: against the eager run above
+    graph_counts, graph = _graph_run("moe-train", model, make_opt, ids,
+                                     MOE_TRAIN_STEPS, per_step, flops, ref,
+                                     losses, state0)
+    del ref
+    _release()
+    _emit({**_side_by_side("moe", eager, graph, eager_profile),
+           "losses": graph["losses"], "step_ms_each": graph["step_ms_each"],
+           "kernel_counts": graph_counts})
+    _emit({"phase": "moe-train-bench-batch",
+           **_bench_batch("moe", model, make_opt, cfg.vocab_size, seed + 42,
+                          flops, state0)})
     shapes = [tuple(p.shape) for p in model.parameters()]
-    del model, opt, step
+    del model, state0
     _release()
     set_flags({"FLAGS_moe_dispatch": "index"})
-    return counts, shapes
+    return graph_counts, counts, shapes
 
 
 # -- phase: the fused optimizer -----------------------------------------------
@@ -2778,14 +3240,16 @@ class _OptCase:
     (scale 0.02), g (1e-3) and the rule's state as after some steps
     (Adam's m and v; Adafactor's vr/vc or v at about a tenth of E[g^2],
     so that its update clip is active). AdamW lr 3e-4, wd 0.1;
-    Adafactor lr 1e-2; ``clip``: ClipGradByGlobalNorm(1.0)."""
+    Adafactor lr 1e-2; ``clip``: ClipGradByGlobalNorm(1.0); ``grad_dtype``:
+    the gradients' (fp32 beside bf16 parameters: the sums of
+    ``TrainStep.accumulate``), the parameters' by default."""
 
-    def __init__(self, rule, shapes, dtype, clip, gen):
+    def __init__(self, rule, shapes, dtype, clip, gen, grad_dtype=None):
         import torch
 
-        def rnd(shape, scale):
+        def rnd(shape, scale, dt=dtype):
             return (torch.randn(shape, generator=gen, device=DEVICE) *
-                    scale).to(dtype)
+                    scale).to(dt)
 
         def acc(shape):
             return (torch.rand(shape, generator=gen, device=DEVICE) +
@@ -2793,7 +3257,7 @@ class _OptCase:
 
         self.rule, self.clip = rule, clip
         self.p = [rnd(s, 0.02) for s in shapes]
-        self.g = [rnd(s, 1e-3) for s in shapes]
+        self.g = [rnd(s, 1e-3, grad_dtype or dtype) for s in shapes]
         if rule == "adam":
             self.slots = [[rnd(s, 1e-4) for s in shapes],
                           [rnd(s, 1e-3).square() for s in shapes]]
@@ -2928,11 +3392,17 @@ def phase_optimizer(path, shapes, rule, seed):
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed + 30)
-    variants = ([(f"{path}-bfloat16", False), (f"{path}-clip-bfloat16", True)]
-                if rule == "adam" else [(f"{path}-bfloat16", False)])
+    # the fp32-gradient cases: bf16 parameters, fp32 gradients (the table's
+    # fp32-gradient flag), 2 more bytes read per element
+    variants = ([(f"{path}-bfloat16", False, None),
+                 (f"{path}-clip-bfloat16", True, None),
+                 (f"{path}-fp32grad-bfloat16", True, torch.float32)]
+                if rule == "adam" else
+                [(f"{path}-bfloat16", False, None),
+                 (f"{path}-fp32grad-bfloat16", False, torch.float32)])
     rows = []
-    for case, clip in variants:
-        oc = _OptCase(rule, shapes, torch.bfloat16, clip, gen)
+    for case, clip, grad_dtype in variants:
+        oc = _OptCase(rule, shapes, torch.bfloat16, clip, gen, grad_dtype)
         ref = oc.update(plain=True)
         kernels.reset_counters()
         got = oc.update()
@@ -2971,7 +3441,7 @@ def phase_optimizer(path, shapes, rule, seed):
                   "adafactor_stats": G + P + 2 * S + 4 * (n + nm),
                   "adafactor_update": G + 2 * P + S + 4 * (n + nm)}
         lib = {}
-        if rule == "adam":
+        if rule == "adam" and grad_dtype is None:
             lp = [torch.nn.Parameter(t.clone()) for t in oc.p]
             for t, g in zip(lp, oc.g):
                 t.grad = g
@@ -3124,6 +3594,11 @@ def _kernels_line(rows, paths):
     ]
     # a second function of the same kernel: (TPU kernel it replaces where
     # another, its name; launches from its own counter where it has one)
+    # the optimizer's kernels with fp32 gradients beside bf16 parameters
+    fp32_grad = {"multi_tensor_sumsq": "dense-fp32grad-bfloat16",
+                 "adam_update": "dense-fp32grad-bfloat16",
+                 "adafactor_stats": "moe-fp32grad-bfloat16",
+                 "adafactor_update": "moe-fp32grad-bfloat16"}
     also = {"rms_norm": ("paddle_tpu/kernels/pallas/rmsnorm.py:47",
                          "rms_norm_residual"),
             "rms_norm_bwd": ("paddle_tpu/kernels/pallas/rmsnorm.py:127",
@@ -3167,6 +3642,12 @@ def _kernels_line(rows, paths):
             for key in extras:
                 if v.get(key) is not None:
                     entry["variant"][key] = v[key]
+        if name in fp32_grad:
+            v = next(x for x in rows if x["kernel"] == name and
+                     x["case"] == fp32_grad[name])
+            entry["fp32_grad"] = {key: v[key] for key in (
+                "case", "kernel_ms", "graph_ms", "plain_ms", "bound_ms",
+                "max_ulps", "bitwise_share")}
         if name == "rope":
             # the inverse as the training step runs it: on the cotangent's
             # [b, s, h, d] view of [b, h, s, d], read in place
@@ -3224,16 +3705,18 @@ def main() -> int:
     serving_fp32 = phase_parity(SEED)
     serving = phase_serving(SEED)
     training_fp32, finetune_fp32 = phase_train_parity(SEED)
-    training, dense_shapes = phase_train(SEED)
+    training, training_eager, accumulate, dense_shapes = phase_train(SEED)
     rows += phase_optimizer("dense", dense_shapes, "adam", SEED)
     rows += phase_moe_kernels(SEED)
     moe_fp32 = phase_moe_train_parity(SEED)
-    moe, moe_shapes = phase_moe_train(SEED)
+    moe, moe_eager, moe_shapes = phase_moe_train(SEED)
     rows += phase_optimizer("moe", moe_shapes, "adafactor", SEED)
 
     _emit({"kernels": _kernels_line(rows, {
         "serving": serving, "serving-fp32": serving_fp32,
         "training": training, "moe-training": moe,
+        "training-eager": training_eager, "moe-training-eager": moe_eager,
+        "accumulate": accumulate,
         "training-fp32": training_fp32, "moe-training-fp32": moe_fp32,
         "finetune-fp32": finetune_fp32})})
     print(smi, flush=True)

@@ -1,41 +1,298 @@
-"""One training step (port of ``paddle_tpu/jit`` ``TrainStep``).
+"""One training step (port of ``paddle_tpu/jit`` ``TrainStep`` and
+``AccumulateStep``).
 
-The JAX ``TrainStep`` traces forward, backward and the optimizer update into
-one compiled executable. PyTorch runs eagerly, so here the step is the same
-three phases in order, with autograd as the tape. The update is fused as
-the JAX package fuses it: ``optimizer.step()`` applies the gradient clip,
-the weight decay and the rule to every parameter in a few launches of the
-multi-tensor kernels (``kernels/optimizer.py``), with the learning rate and
-the step number read on the device. Capturing the whole step in a CUDA
-graph is later work.
+The JAX ``TrainStep`` traces forward, backward, clip and update into one
+executable with donated buffers (``paddle_tpu/jit/__init__.py:289-405``).
+Here a step on a CUDA model is one captured ``torch.cuda.CUDAGraph``,
+replayed per call: the forward and the backward (autograd's tape, the
+hand-written kernels launched on the capturing stream), the fused
+optimizer update (``kernels/optimizer.py``) and the gradients' reset. The
+tensors a replay reads and writes stay at their addresses, as donated
+buffers do: the parameters and the optimizer state where they are, the
+gradients and activations in the graph's private pool, the batch in
+static input buffers that each call copies into.
+
+- The first call on an input signature (shapes, dtypes, devices) runs
+  eagerly on a side stream: it builds the kernel library, creates the
+  optimizer state, cuBLAS's workspace and the kernels' one-time settings.
+  It is a real step. The next call captures the step on that stream and
+  replays it once; each later call replays it. A new signature gets a
+  graph of its own, as JAX retraces; so does a parameter or a state
+  tensor moved to new storage since its capture (``set_state_dict``).
+- The learning rate and the step number reach the kernels through the
+  header of the optimizer's chunk table, which the host writes before each
+  replay (``StepBatch.set_step``), so an ``LRScheduler`` or ``set_lr``
+  takes effect at the next call. The table's device buffer is allocated
+  before the capture, outside the graph's pool: what the host writes
+  between replays must lie where no node of the graph writes.
+- The wrappers count their launches in Python, which a replay does not
+  run: ``captured_launches`` and ``replays`` let a caller reckon them.
+- Nothing falls back: a capture or replay that fails raises. A capture
+  fails where an autograd graph built on another stream still holds the
+  parameters' gradient accumulators (a loss kept from an eager step on the
+  default stream): free it before the first graphed call.
+
+On the CPU, and on the card when the caller asks with ``graph=False``, the
+step runs eagerly: the same three phases in order. That eager step is the
+reference the graphed one is checked against.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["TrainStep"]
+from .. import kernels
+
+__all__ = ["TrainStep", "AccumulateStep"]
 
 
-class TrainStep:
+class _Captured:
+    """One input signature's graph and what it must keep alive: the static
+    inputs it reads, the loss it writes, the optimizer's table (whose
+    header is written before each replay) and the addresses it baked in."""
+
+    def __init__(self, graph, inputs, loss, batch, addresses, counts):
+        self.graph = graph
+        self.inputs = inputs
+        self.loss = loss
+        self.batch = batch
+        self.addresses = addresses
+        self.counts = counts
+
+
+class _Step:
+    """What a graphed step and a graphed accumulation window share: the
+    choice of eager or graph, warm-up, capture and replay. A subclass
+    gives ``_body(*batch) -> (fp32 loss, StepBatch or None)``: the step's
+    work without advancing the optimizer's step number."""
+
+    warmup_steps = 1
+
+    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
+                 graph: bool = True):
+        self.model = model
+        self.loss_fn = loss_fn
+        self.optimizer = optimizer
+        self.graph = bool(graph)
+        self.captures = 0
+        self.replays = 0
+        self.debug_dump: Optional[str] = None
+        self._replayed: Dict[str, int] = {}  # launches the replays made
+        self._graphs: Dict[tuple, _Captured] = {}
+        self._seen: Dict[tuple, int] = {}
+        self._stream = None
+
+    def _body(self, *batch):
+        raise NotImplementedError
+
+    def _device(self) -> torch.device:
+        for p in self.optimizer._parameter_list:
+            return p.device
+        for p in self.model.parameters():
+            return p.device
+        return torch.device("cpu")
+
+    def _run(self, *batch):
+        self.model.train()
+        dev = self._device()
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"{type(self).__name__}: the model is on {dev}; "
+                             f"it runs on CUDA or the CPU")
+        if dev.type == "cuda" and self.graph:
+            return self._graphed(dev, batch)
+        loss, _ = self._body(*batch)
+        self.optimizer._global_step += 1
+        return loss
+
+    # -- the graph -------------------------------------------------------------
+    @staticmethod
+    def _signature(batch) -> tuple:
+        sig = []
+        for a in batch:
+            if isinstance(a, torch.Tensor):
+                sig.append((tuple(a.shape), a.dtype, a.device))
+            else:
+                hash(a)  # a value the graph bakes in: it must be hashable
+                sig.append(("value", a))
+        return tuple(sig)
+
+    def _addresses(self) -> tuple:
+        opt = self.optimizer
+        out = []
+        for p in opt._parameter_list:
+            out.append(p.data_ptr())
+            out.extend(v.data_ptr() for v in opt._state.get(id(p), {}).values())
+        return tuple(out)
+
+    def _graphed(self, dev, batch):
+        key = self._signature(batch)
+        entry = self._graphs.get(key)
+        if entry is not None and entry.addresses != self._addresses():
+            del self._graphs[key]  # storage moved: capture again
+            entry = None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        main = torch.cuda.current_stream(dev)
+        opt = self.optimizer
+        if entry is None:
+            seen = self._seen.get(key, 0)
+            if seen < self.warmup_steps:
+                self._seen[key] = seen + 1
+                self._stream.wait_stream(main)
+                with torch.cuda.stream(self._stream):
+                    loss, _ = self._body(*batch)
+                main.wait_stream(self._stream)
+                loss.record_stream(main)
+                opt._global_step += 1
+                return loss
+            entry = self._capture(key, batch)
+        for s, a in zip(entry.inputs, batch):
+            if isinstance(a, torch.Tensor):
+                s.copy_(a)
+        if entry.batch is not None:
+            entry.batch.set_step(opt.get_lr(), opt._global_step + 1)
+        entry.graph.replay()
+        self.replays += 1
+        for n, c in entry.counts.items():
+            self._replayed[n] = self._replayed.get(n, 0) + c
+        opt._global_step += 1
+        return entry.loss.clone()
+
+    def _capture(self, key, batch) -> _Captured:
+        opt = self.optimizer
+        opt._reserve_table()  # creates the state, then the table's buffer
+        opt.clear_grad()  # the backward allocates them from the graph's pool
+        inputs = [a.clone() if isinstance(a, torch.Tensor) else a
+                  for a in batch]
+        # debug mode keeps the graph's description (keep_graph) to print it
+        graph = torch.cuda.CUDAGraph(keep_graph=bool(self.debug_dump))
+        if self.debug_dump:
+            graph.enable_debug_mode()
+        before = kernels.counters()
+        with torch.cuda.graph(graph, stream=self._stream):
+            loss, opt_batch = self._body(*inputs)
+        after = kernels.counters()
+        if self.debug_dump:
+            graph.debug_dump(self.debug_dump)
+            graph.instantiate()
+        counts = {n: after[n]["launches"] - before[n]["launches"]
+                  for n in after
+                  if after[n]["launches"] != before[n]["launches"]}
+        entry = _Captured(graph, inputs, loss, opt_batch, self._addresses(),
+                          counts)
+        self._graphs[key] = entry
+        self.captures += 1
+        return entry
+
+    def captured_launches(self) -> Dict[str, int]:
+        """{kernel counter: launches the replays made}: each replay adds
+        its graph's launches at capture (counted then, when the wrappers
+        ran), a graph captured again since included.
+        ``kernels.counters()`` holds the eager steps' launches and the
+        captures'."""
+        return dict(self._replayed)
+
+
+class TrainStep(_Step):
     """``step = TrainStep(model, loss_fn, optimizer); loss = step(*batch)``.
 
     ``loss_fn(model, *batch)`` returns a scalar loss. A call puts the model
     in training mode, runs the forward and the backward, applies one
-    optimizer update, clears the gradients and returns the loss as a
-    detached fp32 scalar (on the model's device; reading it synchronises).
+    optimizer update, clears the gradients and returns the loss as a fresh
+    fp32 scalar on the model's device (reading it synchronises).
+
+    On a CUDA model the call is a replay of one captured CUDA graph per
+    input signature (the module docstring says how). ``graph=False`` asks
+    for the eager step on the card instead, the reference a graphed step
+    is checked against; on the CPU the step is eager whatever ``graph``
+    says. ``debug_dump``, a path, makes the next capture in CUDA graph
+    debug mode and writes its graph there (Graphviz DOT).
     """
 
-    def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer):
-        self.model = model
-        self.loss_fn = loss_fn
-        self.optimizer = optimizer
-
-    def __call__(self, *batch):
-        self.model.train()
+    def _body(self, *batch):
+        opt = self.optimizer
         loss = self.loss_fn(self.model, *batch)
         loss.backward()
-        self.optimizer.step()
-        self.optimizer.clear_grad()
-        return loss.detach().float()
+        opt_batch = opt._apply()
+        opt.clear_grad()
+        return loss.detach().float(), opt_batch
+
+    def __call__(self, *batch):
+        return self._run(*batch)
+
+    def accumulate(self, steps: int, remat: bool = False,
+                   average: bool = True) -> "AccumulateStep":
+        """Gradient accumulation as the JAX ``TrainStep.accumulate``
+        (``paddle_tpu/jit/__init__.py:353-362``): one step over ``steps``
+        microbatches of the full batch (dim 0 must divide by ``steps``),
+        gradients summed in fp32 (scaled 1/steps when ``average``), one
+        clip and one update. It shares this step's model, optimizer and
+        ``graph`` choice."""
+        return AccumulateStep(self, steps, remat=remat, average=average)
+
+
+class AccumulateStep(_Step):
+    """One accumulation window (``TrainStep.accumulate``; JAX
+    ``AccumulateStep``, ``paddle_tpu/jit/__init__.py:407-540``): the batch's
+    dim 0 splits into ``steps`` microbatches; each runs its forward and
+    backward (under ``torch.utils.checkpoint`` when ``remat``, as
+    ``jax.checkpoint`` there), and its gradients are added into fp32
+    accumulators, scaled by ``1 / steps`` when ``average``; then one clip
+    and one update from those fp32 sums, which the optimizer's kernels read
+    beside bf16 parameters without rounding the sum first. Returns the mean
+    of the microbatch losses. On a CUDA model the window is one graph."""
+
+    def __init__(self, step: TrainStep, steps: int, remat: bool = False,
+                 average: bool = True):
+        if int(steps) < 1:
+            raise ValueError(f"accumulate: steps must be >= 1, got {steps}")
+        super().__init__(step.model, step.loss_fn, step.optimizer,
+                         graph=step.graph)
+        self.steps = int(steps)
+        self.remat = bool(remat)
+        self.average = bool(average)
+
+    def _loss(self, *mb):
+        return self.loss_fn(self.model, *mb)
+
+    def _body(self, *batch):
+        k = self.steps
+        opt = self.optimizer
+        plist = opt._parameter_list
+        train = [i for i, p in enumerate(plist) if p.requires_grad]
+        params = [plist[i] for i in train]
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in params]
+        scale = 1.0 / k if self.average else 1.0
+        micro = [a.reshape((k, a.shape[0] // k) + tuple(a.shape[1:]))
+                 if isinstance(a, torch.Tensor) else a for a in batch]
+        losses = []
+        for i in range(k):
+            mb = [m[i] if isinstance(m, torch.Tensor) else m for m in micro]
+            if self.remat:
+                loss = checkpoint(self._loss, *mb, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                loss = self._loss(*mb)
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            with torch.no_grad():
+                for a, g in zip(acc, grads):
+                    if g is not None:
+                        a.add_(g.float() * scale)
+            losses.append(loss.detach().float())
+        full: List[Optional[torch.Tensor]] = [None] * len(plist)
+        for i, a in zip(train, acc):
+            full[i] = a
+        opt_batch = opt._apply(full)
+        return torch.stack(losses).mean(), opt_batch
+
+    def __call__(self, *batch):
+        for a in batch:
+            if isinstance(a, torch.Tensor) and (
+                    a.dim() == 0 or a.shape[0] % self.steps != 0):
+                raise ValueError(
+                    f"accumulate({self.steps}): batch dim {tuple(a.shape)} "
+                    f"must divide by the microbatch count")
+        return self._run(*batch)

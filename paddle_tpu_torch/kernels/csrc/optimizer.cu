@@ -8,8 +8,9 @@
 // (:22-52) applied first. No Pallas kernel exists for it: the TPU gets the
 // fusion from XLA's jit of one function over all parameters.
 //
-// The chunk table (built by paddle_tpu_torch/kernels/optimizer.py once per
-// step, copied to the device from pinned memory on the stream):
+// The chunk table (built by paddle_tpu_torch/kernels/optimizer.py when the
+// step's tensors change, copied to the device from pinned memory on the
+// stream):
 //   words [0, 2): int32 view [lr as fp32 bits, step, n_tensors, n_chunks]
 //   then n_tensors entries of kTensorWords int64 (pointers, sizes, flags)
 //   then n_chunks chunk words: tensor << 40 | chunk index in the tensor
@@ -18,19 +19,27 @@
 // or a tile of kSpan whole rows of one [R, C] matrix of a factored one
 // (Adafactor's tensors of 2+ dimensions; rows are over the last axis).
 // One block takes one chunk. The learning rate and the step are read from
-// the table on the device, and the bias corrections 1 - b^t (in double,
-// rounded once to fp32) and Adafactor's 1 - t^-decay (in fp32, as the JAX
-// package takes it) are computed here from the step: nothing that changes
-// from step to step is a kernel argument.
+// the table on the device, and Adam's bias corrections 1 - b^t and
+// Adafactor's 1 - t^-decay are computed here from the step, in fp32 as the
+// JAX package takes them (`Adam._rule`, optimizer.py:270-272): nothing that
+// changes from step to step is a kernel argument. The host rewrites the
+// header alone before each step (or each replay of a CUDA graph that
+// captured these launches), and the rest of the table only when a pointer
+// changes.
+//
+// A gradient has its parameter's dtype, or is fp32 beside a bf16 parameter
+// (kGradF32: the fp32 sums of TrainStep.accumulate). Such a gradient is
+// clipped in fp32 and then rounded to bf16, as the reference's updater
+// (paddle_tpu/jit/__init__.py:105-110) casts g to p's dtype after the clip.
 //
 // Rounding follows the JAX package's order (and the plain versions in
 // kernels/optimizer.py, which the card tests hold these kernels to): each
 // fp32 operation is rounded on its own (__fmul_rn / __fadd_rn / __fdiv_rn,
 // so nvcc contracts nothing into an FMA); the clip's product is rounded to
-// the gradient's dtype, the coupled decay g + bf16(wd * p) is rounded to
-// the parameter's dtype, and p, m, v are each cast back to their dtype
-// after the rule; the decoupled decay subtracts bf16(lr * wd * p_old) from
-// the rounded new p.
+// the gradient's dtype, then to the parameter's, the coupled decay g +
+// bf16(wd * p) is rounded to the parameter's dtype, and p, m, v are each
+// cast back to their dtype after the rule; the decoupled decay subtracts
+// bf16(lr * wd * p_old) from the rounded new p.
 //
 // Sums across blocks take a second pass in a fixed order, never atomics,
 // so two runs give the same bits: the clip's per-tensor sums of squares
@@ -42,9 +51,10 @@
 //
 // What bounds it on the H100: bytes. AdamW reads p, g, m, v and writes p,
 // m, v (14 B per bf16 parameter: 4.84 ms for 1.16B parameters at 3.35
-// TB/s). Adafactor's update depends on two whole-tensor sums (the RMS of u
-// and of p), so it reads g three times: g and p (stats), g (sum of u^2),
-// g and p and writes p (apply), about 12 B per bf16 parameter.
+// TB/s; 16 B with an fp32 gradient). Adafactor's update depends on two
+// whole-tensor sums (the RMS of u and of p), so it reads g three times: g
+// and p (stats), g (sum of u^2), g and p and writes p (apply), about 12 B
+// per bf16 parameter (18 B with an fp32 gradient).
 // What the design does about it: 16-byte vector loads of 8 elements per
 // thread (two vectors for fp32), one block per chunk of 64K elements or
 // 256K-element row tiles, many blocks in flight; a tensor's operands that
@@ -52,6 +62,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "vec16.cuh"
 
@@ -64,7 +76,8 @@ constexpr int kP = 0, kG = 1, kS0 = 2, kS1 = 3, kS2 = 4, kNumel = 5,
               kCols = 6, kRows = 7, kSpan = 8, kTiles = 9, kChunkBegin = 10,
               kChunkEnd = 11, kFlags = 12, kMatBase = 13, kColBase = 14;
 // flags
-constexpr int64_t kBf16 = 1, kDecay = 2, kVec = 4, kFactored = 8;
+constexpr int64_t kBf16 = 1, kDecay = 2, kVec = 4, kFactored = 8,
+                  kGradF32 = 16;  // fp32 gradient, bf16 parameter
 constexpr int kThreads = 256;     // sumsq, adam and Adafactor's u passes
 constexpr int kStatsThreads = 128;  // Adafactor's stats pass: 4 warps
 constexpr int kStatsWarps = kStatsThreads / 32;
@@ -190,39 +203,52 @@ __device__ __forceinline__ Chunk chunk_at(const int64_t* table, int n_tensors,
 }
 
 // the clip and the coupled decay, in the JAX package's order
-// (optimizer.py:128-134): g = clip(g) in g's dtype, then g + wd * p in p's
+// (optimizer.py:128-134): g = clip(g) in g's dtype TG, cast to p's dtype
+// TP, then g + wd * p in p's
 struct Clip {
   int mode;  // 0 none, 1 scale from norms[n_tensors + i], 2 value [lo, hi]
   float lo, hi;
 };
-template <typename T>
+template <typename TP, typename TG>
 struct Prep {
   int mode;
   float scale, lo, hi, wd;
   bool coupled;
   __device__ __forceinline__ float operator()(float g, float p) const {
     if (mode == 1) {
-      g = Elem<T>::rnd(fmul(g, scale));
+      g = Elem<TG>::rnd(fmul(g, scale));
     } else if (mode == 2) {
       g = g < lo ? lo : g;
       g = g > hi ? hi : g;
     }
-    if (coupled) g = Elem<T>::rnd(fadd(g, Elem<T>::rnd(fmul(wd, p))));
+    if constexpr (!std::is_same<TP, TG>::value) g = Elem<TP>::rnd(g);
+    if (coupled) g = Elem<TP>::rnd(fadd(g, Elem<TP>::rnd(fmul(wd, p))));
     return g;
   }
 };
-template <typename T>
-__device__ __forceinline__ Prep<T> make_prep(const Clip& c, const float* norms,
-                                             int n_tensors, int i, float wd,
-                                             bool coupled) {
-  Prep<T> r;
+template <typename TP, typename TG>
+__device__ __forceinline__ Prep<TP, TG> make_prep(const Clip& c,
+                                                  const float* norms,
+                                                  int n_tensors, int i,
+                                                  float wd, bool coupled) {
+  Prep<TP, TG> r;
   r.mode = c.mode;
   r.scale = c.mode == 1 ? norms[n_tensors + i] : 1.f;
-  r.lo = Elem<T>::rnd(c.lo);
-  r.hi = Elem<T>::rnd(c.hi);
+  r.lo = Elem<TG>::rnd(c.lo);
+  r.hi = Elem<TG>::rnd(c.hi);
   r.wd = wd;
   r.coupled = coupled;
   return r;
+}
+
+// the (parameter, gradient) types of tensor entry e: (fp32, fp32), (bf16,
+// bf16) or (bf16, fp32); `f` is called with one value of each
+template <typename F>
+__device__ __forceinline__ auto by_types(const int64_t* e, F&& f) {
+  const int64_t fl = e[kFlags];
+  if (fl & kGradF32) return f(__nv_bfloat16(), float());
+  if (fl & kBf16) return f(__nv_bfloat16(), __nv_bfloat16());
+  return f(float(), float());
 }
 
 // ---------------------------------------------------------------------------
@@ -251,13 +277,11 @@ sumsq_partial_kernel(const int64_t* __restrict__ table, float* __restrict__ part
   const Header h = header(table);
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
-  const int64_t fl = e[kFlags];
-  const bool vec = fl & kVec;
-  float acc;
-  if (fl & kBf16)
-    acc = sumsq_chunk(reinterpret_cast<const __nv_bfloat16*>(e[kG]) + ch.off, ch.len, vec);
-  else
-    acc = sumsq_chunk(reinterpret_cast<const float*>(e[kG]) + ch.off, ch.len, vec);
+  const bool vec = e[kFlags] & kVec;
+  float acc = by_types(e, [&](auto, auto tg) {
+    using TG = decltype(tg);
+    return sumsq_chunk(reinterpret_cast<const TG*>(e[kG]) + ch.off, ch.len, vec);
+  });
   acc = block_sum<kThreads>(acc, sm);
   if (threadIdx.x == 0) partial[blockIdx.x] = acc;
 }
@@ -303,24 +327,23 @@ sumsq_finish_kernel(const int64_t* __restrict__ table, const float* __restrict__
 // (b) Adam / AdamW (optimizer.py:265-276, decays :133-140)
 
 struct AdamArgs {
-  double b1d, b2d;  // the betas as given, for the bias corrections
   float b1, b2, omb1, omb2, eps, wd;
   int decoupled;
   Clip clip;
 };
 
-template <typename T>
+template <typename T, typename TG>
 __device__ void adam_chunk(const int64_t* e, int i, const Chunk& ch,
                            const AdamArgs& a, const float* norms, int n,
                            float lr, float c1, float c2) {
   T* p = reinterpret_cast<T*>(e[kP]) + ch.off;
-  const T* g = reinterpret_cast<const T*>(e[kG]) + ch.off;
+  const TG* g = reinterpret_cast<const TG*>(e[kG]) + ch.off;
   T* m = reinterpret_cast<T*>(e[kS0]) + ch.off;
   T* v = reinterpret_cast<T*>(e[kS1]) + ch.off;
   const int64_t fl = e[kFlags];
   const bool flag = (fl & kDecay) && a.wd != 0.f;
-  const Prep<T> prep = make_prep<T>(a.clip, norms, n, i, a.wd,
-                                    flag && !a.decoupled);
+  const Prep<T, TG> prep = make_prep<T, TG>(a.clip, norms, n, i, a.wd,
+                                            flag && !a.decoupled);
   const bool dec = flag && a.decoupled;
   const float lrwd = fmul(lr, a.wd);
   auto rule = [&](float& pf, float gf, float& mf, float& vf) {
@@ -338,7 +361,7 @@ __device__ void adam_chunk(const int64_t* e, int i, const Chunk& ch,
   for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
     float pf[8], gf[8], mf[8], vf[8];
     Elem<T>::ld8(p + j, pf);
-    Elem<T>::ld8(g + j, gf);
+    Elem<TG>::ld8(g + j, gf);
     Elem<T>::ld8(m + j, mf);
     Elem<T>::ld8(v + j, vf);
 #pragma unroll
@@ -350,7 +373,7 @@ __device__ void adam_chunk(const int64_t* e, int i, const Chunk& ch,
   for (int64_t j = vend + threadIdx.x; j < len; j += kThreads) {
     float pf = Elem<T>::ld(p + j), mf = Elem<T>::ld(m + j),
           vf = Elem<T>::ld(v + j);
-    rule(pf, Elem<T>::ld(g + j), mf, vf);
+    rule(pf, Elem<TG>::ld(g + j), mf, vf);
     Elem<T>::st(p + j, pf);
     Elem<T>::st(m + j, mf);
     Elem<T>::st(v + j, vf);
@@ -363,15 +386,14 @@ adam_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
   const Header h = header(table);
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
-  // 1 - b^t in double, rounded once: at t = 1 the corrections are the
-  // fp32 values of 1 - b1 and 1 - b2 that scale the moments, so the first
-  // step is exactly lr * g / (|g| + eps)
-  const float c1 = (float)(1.0 - pow(a.b1d, (double)h.step));
-  const float c2 = (float)(1.0 - pow(a.b2d, (double)h.step));
-  if (e[kFlags] & kBf16)
-    adam_chunk<__nv_bfloat16>(e, ch.tensor, ch, a, norms, h.n_tensors, h.lr, c1, c2);
-  else
-    adam_chunk<float>(e, ch.tensor, ch, a, norms, h.n_tensors, h.lr, c1, c2);
+  // 1 - b^t in fp32 from the fp32 beta, as `Adam._rule` takes it
+  const float t = (float)h.step;
+  const float c1 = fsub(1.f, powf(a.b1, t));
+  const float c2 = fsub(1.f, powf(a.b2, t));
+  by_types(e, [&](auto tp, auto tg) {
+    adam_chunk<decltype(tp), decltype(tg)>(e, ch.tensor, ch, a, norms,
+                                           h.n_tensors, h.lr, c1, c2);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -395,16 +417,16 @@ __device__ __forceinline__ void beta2(int step, float decay, float& bt, float& o
   om = fsub(1.f, bt);
 }
 
-template <typename T>
+template <typename T, typename TG>
 __device__ float stats_chunk(const int64_t* e, int i, const Chunk& ch,
                              const FactorArgs& a, const float* norms, int n,
                              float bt, float om, float* colpart, float* smem) {
-  const T* g = reinterpret_cast<const T*>(e[kG]);
+  const TG* g = reinterpret_cast<const TG*>(e[kG]);
   const T* p = reinterpret_cast<const T*>(e[kP]);
   const int64_t fl = e[kFlags];
   const bool vec = fl & kVec;
-  const Prep<T> prep = make_prep<T>(a.clip, norms, n, i, a.wd,
-                                    (fl & kDecay) && a.wd != 0.f);
+  const Prep<T, TG> prep = make_prep<T, TG>(a.clip, norms, n, i, a.wd,
+                                            (fl & kDecay) && a.wd != 0.f);
   const bool need_p = a.need_p;
   float psum = 0.f;
   if (!(fl & kFactored)) {
@@ -415,7 +437,7 @@ __device__ float stats_chunk(const int64_t* e, int i, const Chunk& ch,
     const int64_t vend = vec ? (len & ~(int64_t)7) : 0;
     for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kStatsThreads * 8) {
       float gf[8], pf[8], vf[8];
-      Elem<T>::ld8(g + j, gf);
+      Elem<TG>::ld8(g + j, gf);
       if (need_p) Elem<T>::ld8(p + j, pf);
       Elem<float>::ld8(v + j, vf);
 #pragma unroll
@@ -429,7 +451,7 @@ __device__ float stats_chunk(const int64_t* e, int i, const Chunk& ch,
     }
     for (int64_t j = vend + threadIdx.x; j < len; j += kStatsThreads) {
       const float pq = need_p ? Elem<T>::ld(p + j) : 0.f;
-      const float x = prep(Elem<T>::ld(g + j), pq);
+      const float x = prep(Elem<TG>::ld(g + j), pq);
       v[j] = fadd(fmul(bt, v[j]), fmul(om, fadd(fmul(x, x), a.eps1)));
       psum = fadd(psum, fmul(pq, pq));
     }
@@ -451,13 +473,13 @@ __device__ float stats_chunk(const int64_t* e, int i, const Chunk& ch,
     __syncwarp();
     for (int r = w; r < ch.nr; r += kStatsWarps) {
       const int64_t row = (ch.b * R + ch.r0 + r) * C + s0;
-      const T* gr = g + row;
+      const TG* gr = g + row;
       const T* pr = p + row;
       float racc = 0.f;
       if (vec) {
         for (int c = lane * 8; c < sw; c += 256) {
           float gf[8], pf[8];
-          Elem<T>::ld8(gr + c, gf);
+          Elem<TG>::ld8(gr + c, gf);
           if (need_p) Elem<T>::ld8(pr + c, pf);
           float ca[8];
           Elem<float>::ld8(colacc + c, ca);
@@ -475,7 +497,7 @@ __device__ float stats_chunk(const int64_t* e, int i, const Chunk& ch,
       } else {
         for (int c = lane; c < sw; c += 32) {
           const float pq = need_p ? Elem<T>::ld(pr + c) : 0.f;
-          const float x = prep(Elem<T>::ld(gr + c), pq);
+          const float x = prep(Elem<TG>::ld(gr + c), pq);
           const float g2 = fadd(fmul(x, x), a.eps1);
           racc = fadd(racc, g2);
           colacc[c] = fadd(colacc[c], g2);
@@ -515,13 +537,10 @@ adafactor_stats_kernel(const int64_t* __restrict__ table, const float* __restric
   const int64_t* e = entry(table, ch.tensor);
   float bt, om;
   beta2(h.step, a.decay, bt, om);
-  float psum;
-  if (e[kFlags] & kBf16)
-    psum = stats_chunk<__nv_bfloat16>(e, ch.tensor, ch, a, norms, h.n_tensors,
-                                      bt, om, colpart, smem);
-  else
-    psum = stats_chunk<float>(e, ch.tensor, ch, a, norms, h.n_tensors, bt, om,
-                              colpart, smem);
+  float psum = by_types(e, [&](auto tp, auto tg) {
+    return stats_chunk<decltype(tp), decltype(tg)>(
+        e, ch.tensor, ch, a, norms, h.n_tensors, bt, om, colpart, smem);
+  });
   psum = block_sum<kStatsThreads>(psum, red);
   if (threadIdx.x == 0) pspart[blockIdx.x] = psum;
 }
@@ -580,17 +599,17 @@ adafactor_finish_kernel(const int64_t* __restrict__ table, int n_matrices,
 // terms move by ~1e-7 of themselves; pass 2 skips the division by the
 // clip's divisor where it is 1 (x / 1 is x).
 
-template <typename T, bool kApply>
+template <typename T, typename TG, bool kApply>
 __device__ float update_chunk(const int64_t* e, int i, const Chunk& ch,
                               const FactorArgs& a, const float* norms, int n,
                               const float* stats, float den, float lrs) {
   T* p = reinterpret_cast<T*>(e[kP]);
-  const T* g = reinterpret_cast<const T*>(e[kG]);
+  const TG* g = reinterpret_cast<const TG*>(e[kG]);
   T* m = reinterpret_cast<T*>(e[kS2]);  // null without a first moment
   const int64_t fl = e[kFlags];
   const bool vec = fl & kVec;
-  const Prep<T> prep = make_prep<T>(a.clip, norms, n, i, a.wd,
-                                    (fl & kDecay) && a.wd != 0.f);
+  const Prep<T, TG> prep = make_prep<T, TG>(a.clip, norms, n, i, a.wd,
+                                            (fl & kDecay) && a.wd != 0.f);
   const bool need_p = kApply || prep.coupled;
   const bool has_m = m != nullptr;
   float usq = 0.f;
@@ -620,7 +639,7 @@ __device__ float update_chunk(const int64_t* e, int i, const Chunk& ch,
     const int64_t vend = vec ? (len & ~(int64_t)7) : 0;
     for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
       float gf[8], pf[8], mf[8], vf[8];
-      Elem<T>::ld8(g + j, gf);
+      Elem<TG>::ld8(g + j, gf);
       if (need_p) Elem<T>::ld8(p + j, pf);
       if (kApply && has_m) Elem<T>::ld8(m + j, mf);
       Elem<float>::ld8(v + j, vf);
@@ -637,7 +656,7 @@ __device__ float update_chunk(const int64_t* e, int i, const Chunk& ch,
     for (int64_t j = vend + threadIdx.x; j < len; j += kThreads) {
       float pf = need_p ? Elem<T>::ld(p + j) : 0.f;
       float mf = (kApply && has_m) ? Elem<T>::ld(m + j) : 0.f;
-      one(Elem<T>::ld(g + j), pf, mf, v[j]);
+      one(Elem<TG>::ld(g + j), pf, mf, v[j]);
       if (kApply) {
         Elem<T>::st(p + j, pf);
         if (has_m) Elem<T>::st(m + j, mf);
@@ -654,12 +673,12 @@ __device__ float update_chunk(const int64_t* e, int i, const Chunk& ch,
     const int64_t row = (ch.b * R + ch.r0 + r) * C;
     const float rs = fdiv(vr[r], mean_vr);
     T* pr = p + row;
-    const T* gr = g + row;
+    const TG* gr = g + row;
     T* mr = has_m ? m + row : nullptr;
     if (vec) {
       for (int64_t c = lane * 8; c < C; c += 256) {
         float gf[8], pf[8], mf[8], vcf[8];
-        Elem<T>::ld8(gr + c, gf);
+        Elem<TG>::ld8(gr + c, gf);
         if (need_p) Elem<T>::ld8(pr + c, pf);
         if (kApply && has_m) Elem<T>::ld8(mr + c, mf);
         Elem<float>::ld8(vc + c, vcf);
@@ -677,7 +696,7 @@ __device__ float update_chunk(const int64_t* e, int i, const Chunk& ch,
       for (int64_t c = lane; c < C; c += 32) {
         float pf = need_p ? Elem<T>::ld(pr + c) : 0.f;
         float mf = (kApply && has_m) ? Elem<T>::ld(mr + c) : 0.f;
-        one(Elem<T>::ld(gr + c), pf, mf, fmul(rs, vc[c]));
+        one(Elem<TG>::ld(gr + c), pf, mf, fmul(rs, vc[c]));
         if (kApply) {
           Elem<T>::st(pr + c, pf);
           if (has_m) Elem<T>::st(mr + c, mf);
@@ -696,13 +715,10 @@ adafactor_usq_kernel(const int64_t* __restrict__ table, const float* __restrict_
   const Header h = header(table);
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
-  float usq;
-  if (e[kFlags] & kBf16)
-    usq = update_chunk<__nv_bfloat16, false>(e, ch.tensor, ch, a, norms,
-                                            h.n_tensors, stats, 1.f, 0.f);
-  else
-    usq = update_chunk<float, false>(e, ch.tensor, ch, a, norms, h.n_tensors,
-                                     stats, 1.f, 0.f);
+  float usq = by_types(e, [&](auto tp, auto tg) {
+    return update_chunk<decltype(tp), decltype(tg), false>(
+        e, ch.tensor, ch, a, norms, h.n_tensors, stats, 1.f, 0.f);
+  });
   usq = block_sum<kThreads>(usq, red);
   if (threadIdx.x == 0) uspart[blockIdx.x] = usq;
 }
@@ -726,12 +742,10 @@ adafactor_apply_kernel(const int64_t* __restrict__ table, const float* __restric
   const float scale = a.pscale
       ? nanmax(a.eps2, sqrtf(fdiv(stats[ch.tensor], numel))) : 1.f;
   const float lrs = fmul(h.lr, scale);
-  if (e[kFlags] & kBf16)
-    update_chunk<__nv_bfloat16, true>(e, ch.tensor, ch, a, norms, h.n_tensors,
-                                      stats, den, lrs);
-  else
-    update_chunk<float, true>(e, ch.tensor, ch, a, norms, h.n_tensors, stats,
-                              den, lrs);
+  by_types(e, [&](auto tp, auto tg) {
+    update_chunk<decltype(tp), decltype(tg), true>(
+        e, ch.tensor, ch, a, norms, h.n_tensors, stats, den, lrs);
+  });
 }
 
 Clip make_clip(int mode, float lo, float hi) {
@@ -761,15 +775,13 @@ extern "C" int pt_opt_sumsq(const void* table, int n_chunks, void* partial,
 
 // (b): norms from pt_opt_sumsq (clip_mode 1) or null
 extern "C" int pt_opt_adam(const void* table, int n_chunks, const void* norms,
-                           double b1, double b2, float omb1, float omb2,
+                           float b1, float b2, float omb1, float omb2,
                            float eps, float wd, int decoupled, int clip_mode,
                            float lo, float hi, void* stream) {
   if (n_chunks == 0) return (int)cudaGetLastError();
   AdamArgs a;
-  a.b1d = b1;
-  a.b2d = b2;
-  a.b1 = (float)b1;
-  a.b2 = (float)b2;
+  a.b1 = b1;
+  a.b2 = b2;
   a.omb1 = omb1;
   a.omb2 = omb2;
   a.eps = eps;

@@ -17,7 +17,13 @@ version, the per-tensor PyTorch loop:
 
 All four take a :class:`StepBatch`, the step's tensors in lists, and read
 the learning rate and the step from the header of its table, which is
-copied to the device on the stream. A batch whose tensors lie on more
+copied to the device on the stream. A batch lives as long as its tensors'
+storage: the optimizer keeps one across steps and only rewrites the
+table's header (:meth:`StepBatch.set_step`), so a CUDA graph that captured
+the launches reads the step's values at replay. A gradient has its
+parameter's dtype, or is fp32 beside a bf16 parameter (the fp32 sums of
+``TrainStep.accumulate``), clipped in fp32 and then rounded to bf16 as the
+JAX package's updater casts it. A batch whose tensors lie on more
 than one device raises when it is made. On a CUDA batch a wrapper
 launches its kernel (building the library at first use) or raises: on a
 dtype the kernel does not take or a failed build. On a CPU batch it runs
@@ -48,7 +54,7 @@ __all__ = ["StepBatch", "multi_tensor_sumsq", "multi_tensor_sumsq_plain",
 TENSOR_WORDS = 16
 (_P, _G, _S0, _S1, _S2, _NUMEL, _COLS, _ROWS, _SPAN, _TILES, _CHUNK_BEGIN,
  _CHUNK_END, _FLAGS, _MAT_BASE, _COL_BASE) = range(15)
-_BF16, _DECAY, _VEC, _FACTORED = 1, 2, 4, 8
+_BF16, _DECAY, _VEC, _FACTORED, _GRAD_F32 = 1, 2, 4, 8, 16
 FLAT_CHUNK = 65536        # elements a block of a flat tensor
 TILE_ELEMENTS = 262144    # about the elements of one row tile (Adafactor)
 MAX_TILE_ROWS = 1024      # rows of a tile at most (csrc kMaxTileRows)
@@ -75,9 +81,15 @@ class StepBatch:
     wrappers route the whole batch by that one device.
 
     The table is built at most once per batch, on the host, and copied to
-    the device from pinned memory on the current stream; a batch holds the
-    step's pointers, so it lives for one step (autograd gives the
-    gradients new storage every step).
+    the device from pinned memory on the current stream. Inside a CUDA
+    graph capture nothing is copied: the capture runs nothing, so the
+    whole table is copied by the first :meth:`set_step` after it, outside
+    the graph, and no graph reads pinned memory. Its device buffer is then
+    one given by :meth:`reserve`, allocated before the capture: a buffer
+    from the graph's pool may hold other tensors earlier in the replay,
+    which would overwrite the table between that copy and the kernels. A
+    batch holds its tensors' pointers: it serves again only for tensors
+    at the same addresses (the optimizer compares them).
     """
 
     def __init__(self, params: Sequence[torch.Tensor],
@@ -108,7 +120,9 @@ class StepBatch:
         self.n_chunks = self.n_matrices = self.col_elems = 0
         self.seg_cols = 256
         self._table = None
-        self._pinned = None
+        self._host = None       # the table's words, its header kept current
+        self._pending = False   # captured: the device table not yet written
+        self._reserved = None   # the device buffer for a captured table
 
     def __len__(self):
         return len(self.params)
@@ -133,7 +147,8 @@ class StepBatch:
             if p.dtype not in _DTYPES:
                 raise TypeError(f"optimizer kernels take float32 or bfloat16 "
                                 f"parameters, got {p.dtype} (tensor {i})")
-            if g.dtype != p.dtype or g.shape != p.shape:
+            fp32_sum = g.dtype == torch.float32 and p.dtype == torch.bfloat16
+            if (g.dtype != p.dtype and not fp32_sum) or g.shape != p.shape:
                 raise TypeError(f"tensor {i}: gradient {g.dtype} "
                                 f"{tuple(g.shape)} does not fit parameter "
                                 f"{p.dtype} {tuple(p.shape)}")
@@ -178,7 +193,8 @@ class StepBatch:
             ptrs = [p.data_ptr(), g.data_ptr()] + [
                 0 if s[i] is None else s[i].data_ptr() for s in self.slots]
             flags = (_BF16 if p.dtype == torch.bfloat16 else 0) | \
-                (_DECAY if self.decay[i] else 0)
+                (_DECAY if self.decay[i] else 0) | \
+                (_GRAD_F32 if g.dtype != p.dtype else 0)
             vec = not any(x % 16 for x in ptrs)
             C = R = tiles = 0
             span = FLAT_CHUNK
@@ -203,9 +219,7 @@ class StepBatch:
             c0 += count
         self.n_chunks, self.n_matrices, self.col_elems = c0, mat_base, col_base
         self.seg_cols = min(SEG_COLS, max(256, -(-max_cols // 256) * 256))
-        head = np.zeros(4, np.int32)
-        head[0] = np.array([self.lr], np.float32).view(np.int32)[0]
-        head[1:] = [self.step, n, c0]
+        head = self._header(np.zeros(4, np.int32))
 
         def ranges(owner, counts):
             """owner << 40 | index within the owner, for every item."""
@@ -220,19 +234,80 @@ class StepBatch:
         return np.concatenate([head.view(np.int64), words.ravel(),
                                ranges(np.arange(n), nch), mat_words])
 
+    def _header(self, out: np.ndarray) -> np.ndarray:
+        """The header words into int32 ``out`` [4]: lr (fp32 bits), step,
+        tensors, chunks."""
+        out[0] = np.array([self.lr], np.float32).view(np.int32)[0]
+        out[1:] = [self.step, len(self), self.n_chunks]
+        return out
+
     def table(self) -> torch.Tensor:
-        """The chunk table on the device (int64), built and copied once."""
+        """The chunk table on the device (int64), built and copied once.
+        Inside a CUDA graph capture it takes the buffer of :meth:`reserve`
+        and is left unwritten: the kernels the capture records read it when
+        the graph replays, after :meth:`set_step` has copied it."""
         if self._table is None:
-            self._check()
-            host = self._plan()
-            pinned = torch.empty(host.size, dtype=torch.int64,
-                                 pin_memory=True)
-            pinned.numpy()[:] = host
-            dev = torch.empty(host.size, dtype=torch.int64,
-                              device=self.device)
-            dev.copy_(pinned, non_blocking=True)
-            self._pinned, self._table = pinned, dev
+            host = self.host_table()
+            self._pending = torch.cuda.is_current_stream_capturing()
+            if not self._pending:
+                self._table = torch.empty(host.size, dtype=torch.int64,
+                                          device=self.device)
+                self._copy(host.size)
+            elif self._reserved is None or \
+                    self._reserved.numel() != host.size:
+                raise RuntimeError(
+                    "a step table made inside a CUDA graph capture needs a "
+                    "device buffer of its size reserved before the capture "
+                    "(StepBatch.reserve, Optimizer._reserve_table)")
+            else:
+                self._table = self._reserved
         return self._table
+
+    def reserve(self, buffer: torch.Tensor) -> None:
+        """The int64 device buffer, allocated outside any capture, that
+        the table takes when it is made inside a CUDA graph capture."""
+        self._reserved = buffer
+
+    def words(self) -> int:
+        """The table's length in int64 words (it depends on the tensors'
+        shapes and the rule, not on their addresses)."""
+        return self.host_table().size
+
+    def host_table(self) -> np.ndarray:
+        """The table's words as the device holds them after the last
+        :meth:`set_step` (built on the first call)."""
+        if self._host is None:
+            self._check()
+            self._host = self._plan()
+        return self._host
+
+    def _copy(self, words: int) -> None:
+        """Copy the first ``words`` of the host table to the device on the
+        current stream, from a fresh pinned buffer: the caching host
+        allocator records an event for the copy and reuses the buffer only
+        after it, so the host never overwrites words a queued copy has yet
+        to read (the allocator's pool is the ring of pinned slots)."""
+        pinned = torch.empty(words, dtype=torch.int64, pin_memory=True)
+        pinned.numpy()[:] = self._host[:words]
+        self._table[:words].copy_(pinned, non_blocking=True)
+
+    def set_step(self, lr: float, step: int) -> None:
+        """This step's rate and 1-based number, for a batch whose tensors
+        are the same. Where the table is on the device, its header (16
+        bytes) is copied there on the current stream (after a capture, the
+        whole table the first time; :meth:`_copy`)."""
+        self.lr = float(lr)
+        self.step = int(step)
+        if self._host is not None:
+            self._header(self._host[:2].view(np.int32))
+        if self._table is None:
+            return
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("set_step: the header is written outside a "
+                               "CUDA graph capture, before each replay")
+        # the first step after a capture writes the whole table
+        self._copy(self._host.size if self._pending else 2)
+        self._pending = False
 
 
 def _route(batch: StepBatch, counts) -> bool:
@@ -347,13 +422,12 @@ def adam_update_plain(batch: StepBatch, *, beta1, beta2, epsilon,
                       weight_decay, decoupled, clip=("none",), norms=None):
     """The per-tensor loop, in the rounding order of ``Adam._rule``
     (``optimizer.py:265-276``) and the decays of ``_get_fused``. The bias
-    corrections ``1 - beta^t`` are taken in double and rounded once to
-    fp32 (the JAX package takes the power in fp32; at ``beta2`` 0.999 the
-    two differ by about 1e-5 of the correction)."""
+    corrections ``1 - beta^t`` are taken in fp32, the power of the fp32
+    beta, as the JAX package takes them (``optimizer.py:270-272``)."""
     lr, step = batch.scalars()
-    t = step.double()
-    c1 = (1.0 - torch.pow(beta1, t)).float()
-    c2 = (1.0 - torch.pow(beta2, t)).float()
+    t = step.float()
+    c1 = 1.0 - torch.pow(torch.full_like(t, beta1), t)
+    c2 = 1.0 - torch.pow(torch.full_like(t, beta2), t)
     omb1, omb2 = 1.0 - beta1, 1.0 - beta2
     for i, p in enumerate(batch.params):
         m, v = batch.slots[0][i], batch.slots[1][i]
@@ -384,8 +458,7 @@ def adam_update(batch: StepBatch, *, beta1, beta2, epsilon, weight_decay,
     table = batch.table()
     fn = _build.kernel("pt_opt_adam", [ctypes.c_void_p, ctypes.c_int,
                                        ctypes.c_void_p] +
-                       [ctypes.c_double] * 2 + [ctypes.c_float] * 4 +
-                       [ctypes.c_int] * 2 +
+                       [ctypes.c_float] * 6 + [ctypes.c_int] * 2 +
                        [ctypes.c_float] * 2 + [ctypes.c_void_p])
     _build.launch(fn, "pt_opt_adam", batch.device, table.data_ptr(),
                   batch.n_chunks, _ptr(norms), float(beta1), float(beta2),

@@ -13,6 +13,12 @@ per-tensor loop, on the CPU. The learning rate (a float or an
 ``LRScheduler``) and the step number reach the kernels as device
 scalars, never as kernel arguments.
 
+The optimizer keeps the step's table (``kernels.optimizer.StepBatch``)
+across steps: it is built again only when a tensor's address, shape or
+dtype or a decay flag changes, and otherwise only its header (rate and
+step) is written, one 16-byte copy. So a CUDA graph that captured a step
+(``jit.TrainStep``) replays it with each step's rate and number.
+
 Rounding follows the reference, which matters in bf16: Adam's moments
 have the parameter's dtype (``zeros_like(p)``), the update is computed in
 fp32 and p, m and v are each cast back to their dtype; the decoupled
@@ -70,6 +76,9 @@ class Optimizer:
         self._decoupled = False  # AdamW
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
         self._global_step = 0
+        self._batch = None      # the last step's StepBatch, kept across steps
+        self._batch_key = None  # what it was built from
+        self._reserved = None   # the table buffer of the next captured step
 
     # -- lr ------------------------------------------------------------------
     def get_lr(self) -> float:
@@ -94,27 +103,86 @@ class Optimizer:
         raise NotImplementedError
 
     # -- step ----------------------------------------------------------------
-    @torch.no_grad()
     def step(self):
         """One update of every parameter with a gradient (and
         ``requires_grad``), as ``optimizer.py:79-107``."""
-        live = [i for i, p in enumerate(self._parameter_list)
-                if p.requires_grad and p.grad is not None]
-        if live:
-            params = [self._parameter_list[i] for i in live]
-            states = []
-            for p in params:
-                st = self._state.get(id(p))
-                if st is None:
-                    st = self._state[id(p)] = self._init_state(p)
-                states.append(self._slots(st))
-            batch = _kopt.StepBatch(
-                params, [p.grad for p in params],
-                [list(s) for s in zip(*states)],
-                [self._decay[i] for i in live], self.get_lr(),
-                self._global_step + 1, rule=self._rule)
-            self._update(batch, *self._clip(batch))
+        self._apply()
         self._global_step += 1
+
+    def _state_slots(self, params):
+        """The kernels' three state slot lists over ``params``, creating
+        the state of a parameter that has none."""
+        states = []
+        for p in params:
+            st = self._state.get(id(p))
+            if st is None:
+                st = self._state[id(p)] = self._init_state(p)
+            states.append(self._slots(st))
+        return [list(s) for s in zip(*states)]
+
+    def _reserve_table(self):
+        """Before a CUDA graph capture: create the state of every trainable
+        parameter that has none (a step inside the capture must not: each
+        replay would zero it again), and allocate the device table of a
+        step over all of them (each gets a gradient in a captured step),
+        which the capture's step then takes (``StepBatch.reserve``): its
+        length depends on the shapes alone."""
+        live = [i for i, p in enumerate(self._parameter_list)
+                if p.requires_grad]
+        if not live:
+            self._reserved = None
+            return
+        params = [self._parameter_list[i] for i in live]
+        shape_only = _kopt.StepBatch(params, params, self._state_slots(params),
+                                     [self._decay[i] for i in live], 0.0, 1,
+                                     rule=self._rule)
+        self._reserved = torch.empty(shape_only.words(), dtype=torch.int64,
+                                     device=params[0].device)
+
+    @torch.no_grad()
+    def _apply(self, grads: Optional[List[Optional[torch.Tensor]]] = None):
+        """The update of step ``_global_step + 1`` without advancing the
+        step: the parameters with a gradient (``grads``, one entry per
+        parameter or None, else each ``.grad``) and ``requires_grad``.
+        Returns the :class:`~paddle_tpu_torch.kernels.optimizer.StepBatch`
+        it ran (None where no parameter had a gradient). Inside a CUDA
+        graph capture the batch is always new and is not kept: the graph
+        owns it, and writes its header before each replay; its table takes
+        the buffer of :meth:`_reserve_table`. The kept batch stays the
+        optimizer's, for the eager steps."""
+        plist = self._parameter_list
+        if grads is None:
+            grads = [p.grad for p in plist]
+        live = [i for i, p in enumerate(plist)
+                if p.requires_grad and grads[i] is not None]
+        if not live:
+            return None
+        params = [plist[i] for i in live]
+        gs = [grads[i] for i in live]
+        slots = self._state_slots(params)
+        decay = [self._decay[i] for i in live]
+        lr, step = self.get_lr(), self._global_step + 1
+        capturing = params[0].is_cuda and \
+            torch.cuda.is_current_stream_capturing()
+        key = (tuple(decay),) + tuple(
+            None if t is None else (t.data_ptr(), t.dtype, t.shape,
+                                    t.stride())
+            for t in params + gs + [t for s in slots for t in s])
+        batch = self._batch
+        if batch is not None and key == self._batch_key and not capturing:
+            batch.grads = gs
+            batch.set_step(lr, step)
+        else:
+            batch = _kopt.StepBatch(params, gs, slots, decay, lr, step,
+                                    rule=self._rule)
+            if capturing:
+                batch.reserve(self._reserved)
+                self._reserved = None
+            else:
+                self._batch, self._batch_key = batch, key
+        self._update(batch, *self._clip(batch))
+        batch.grads = None  # the step's gradients are not kept alive
+        return batch
 
     def _clip(self, batch):
         """(clip, norms) for the update: the norm clips' sums of squares and
@@ -127,9 +195,26 @@ class Optimizer:
             return spec, None
         return ("scale",), _kopt.multi_tensor_sumsq(batch, spec[1], spec[2])
 
-    def clear_grad(self):
+    def clear_grad(self, set_to_zero: bool = False):
+        """Clear every parameter's gradient: with ``set_to_zero`` it is
+        zeroed in place (its storage kept), otherwise set to None. The
+        JAX package accepts ``set_to_zero`` and ignores it
+        (``optimizer.py:149-151``: its gradients are always dropped)."""
         for p in self._parameter_list:
-            p.grad = None
+            if set_to_zero and p.grad is not None:
+                p.grad.zero_()
+            else:
+                p.grad = None
+
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """Dygraph ``minimize``: one :meth:`step` from the gradients that
+        ``loss.backward()`` left, as ``optimizer.py:155-165`` outside static
+        mode; returns ``(None, None)``."""
+        self.step()
+        return None, None
 
     # -- state ---------------------------------------------------------------
     def state_dict(self) -> Dict[str, object]:

@@ -1264,3 +1264,207 @@ def test_optimizer_kernels_raise_on_what_they_do_not_take(cuda):
         with pytest.raises(ValueError, match="tensor on"):
             AdamW(parameters=order).step()
     assert counters()["adam_update"] == {"launches": 0, "plain_calls": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", ["none", "global"])
+@pytest.mark.parametrize("rule", ["adamw", "adafactor", "adafactor_m"])
+def test_optimizer_kernels_take_fp32_gradients(cuda, rule, clip,
+                                               monkeypatch):
+    """bf16 parameters with fp32 gradients (the sums of
+    ``TrainStep.accumulate``; the table's fp32-gradient flag): two steps
+    through the kernels against the plain versions, held as the bf16
+    steps above (99.9% bit for bit, one ulp at most; fp32 state within
+    rtol of its largest element), one launch a call."""
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    def run(plain):
+        ps, _ = _opt_tensors(cuda, torch.bfloat16)
+        _, grads = _opt_tensors(cuda, torch.float32)
+        opt = _opt(rule, clip, ps)
+        before = {}
+        with monkeypatch.context() as mp:
+            if plain:
+                for name in _OPT_KERNELS:
+                    mp.setattr(kopt, name, getattr(kopt, name + "_plain"))
+            for g in grads:
+                before = _opt_snapshot(ps, opt)
+                batch = opt._apply([g[n] for n in ps])
+                assert batch.params[0].dtype == torch.bfloat16
+                opt._global_step += 1
+        torch.cuda.synchronize()
+        return _opt_snapshot(ps, opt), before
+
+    reset_counters()
+    got, before = run(False)
+    c = counters()
+    adam = rule == "adamw"
+    want = {"multi_tensor_sumsq": 2 if clip == "global" else 0,
+            "adam_update": 2 if adam else 0,
+            "adafactor_stats": 0 if adam else 2,
+            "adafactor_update": 0 if adam else 2}
+    assert {n: c[n]["launches"] for n in _OPT_KERNELS} == want
+    assert all(c[n]["plain_calls"] == 0 for n in _OPT_KERNELS)
+    ref = run(True)[0]
+    rtol = 1e-6 if adam else 1e-5
+    for k, r in ref.items():
+        g = got[k]
+        if g.dtype == torch.bfloat16:
+            _bf16_close(g, r, before[k], k)
+        else:
+            _close(g.cpu(), r.cpu(), (rtol, rtol * r.abs().max().item()))
+
+
+@pytest.mark.gpu
+def test_a_kept_table_on_the_card_equals_a_fresh_one(cuda):
+    """The device table of a kept batch after ``set_step`` (its header
+    copied from pinned memory, step after step with no synchronise)
+    holds the words of a table built fresh for that rate and step."""
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    ps, grads = _opt_tensors(cuda, torch.float32)
+    params = list(ps.values())
+    gs = [grads[0][n] for n in ps]
+    slots = [[torch.zeros_like(p) for p in params],
+             [torch.zeros_like(p) for p in params], [None] * len(params)]
+    kept = kopt.StepBatch(params, gs, slots, [True] * len(params), 1e-3, 1)
+    kept.table()
+    for step in range(2, 10):
+        lr = 1e-3 / step
+        kept.set_step(lr, step)
+        fresh = kopt.StepBatch(params, gs, slots, [True] * len(params), lr,
+                               step)
+        assert torch.equal(kept.table().cpu(), fresh.table().cpu()), step
+
+
+# -- the graphed training step (jit.TrainStep) -----------------------------------
+
+def _small_llama(cuda, moe, seed=5):
+    """A 2-layer bf16 Llama (or MoE Llama, fused dispatch) with head dim
+    128, so its attention takes the tensor-core kernels, and recompute."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaMoEConfig)
+
+    kw = dict(hidden_size=256, num_attention_heads=2, num_key_value_heads=2,
+              dtype="bfloat16", use_recompute=True)
+    cfg = (LlamaMoEConfig if moe else LlamaConfig).tiny(**kw)
+    return cfg, LlamaForCausalLM(cfg, device=cuda,
+                                 generator=pt_seed(seed, cuda))
+
+
+def _train_run(cuda, moe, graph, steps=3, shapes=((4, 64),), lr_at=None,
+               accumulate=0, reload_at=None):
+    """``steps`` steps per batch shape of a fresh small model (AdamW for
+    the dense model, Adafactor for the MoE one); returns (losses, every
+    parameter and state tensor after the last step, the step)."""
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Adafactor, AdamW
+
+    set_flags({"FLAGS_moe_dispatch": "fused" if moe else "index"})
+    try:
+        cfg, model = _small_llama(cuda, moe)
+        opt = (Adafactor(learning_rate=1e-2, parameters=model.parameters())
+               if moe else AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters(),
+                                 weight_decay=0.1))
+        step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt,
+                         graph=graph)
+        if accumulate:
+            step = step.accumulate(accumulate)
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        losses = []
+        for shape in shapes:
+            ids = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                                device=cuda)
+            for i in range(steps):
+                if lr_at is not None and i == lr_at[0]:
+                    opt.set_lr(lr_at[1])
+                if i == reload_at:  # new state tensors, the same values
+                    opt.set_state_dict(opt.state_dict())
+                losses.append(step(ids, ids))
+        torch.cuda.synchronize()
+        out = {n: p.detach().clone() for n, p in model.named_parameters()}
+        for n, p in model.named_parameters():
+            for k, v in opt._state.get(id(p), {}).items():
+                out[f"{n}.{k}"] = v.clone()
+        return [float(x) for x in losses], out, step
+    finally:
+        set_flags({"FLAGS_moe_dispatch": "index"})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moe", [False, True])
+def test_graphed_step_equals_the_eager_step(cuda, moe):
+    """Three steps of the graphed ``TrainStep`` (one eager warm-up step, the
+    capture and its first replay, one more replay) against three eager
+    steps (``graph=False``) from the same weights and batch: every loss,
+    parameter and optimizer state tensor equal bit for bit (the same
+    kernels and cuBLAS calls on one stream, in the same order)."""
+    reset_counters()
+    lg, got, step = _train_run(cuda, moe, graph=True)
+    assert step.captures == 1 and step.replays == 2
+    c = counters()
+    assert all(v["plain_calls"] == 0 for v in c.values())
+    # the capture's launches, counted once by the wrappers, then replayed
+    assert step.captured_launches()["flash_attention_bwd_dq_sm90"] == 2 * 2
+    le, ref, _ = _train_run(cuda, moe, graph=False)
+    assert lg == le
+    for k, r in ref.items():
+        assert torch.equal(got[k], r), k
+
+
+@pytest.mark.gpu
+def test_a_second_input_shape_captures_a_second_graph(cuda):
+    """A new batch shape warms up and captures a graph of its own; the
+    steps of both shapes equal the eager ones."""
+    lg, got, step = _train_run(cuda, False, True,
+                               shapes=((4, 64), (2, 96)))
+    assert step.captures == 2 and step.replays == 4
+    le, ref, _ = _train_run(cuda, False, False, shapes=((4, 64), (2, 96)))
+    assert lg == le
+    for k, r in ref.items():
+        assert torch.equal(got[k], r), k
+
+
+@pytest.mark.gpu
+def test_a_replay_after_set_lr_uses_the_new_rate(cuda):
+    """``set_lr`` before the third step (a replay) reaches the kernels
+    through the table's header: the graphed run equals the eager run that
+    set the same rate, and differs from a run that kept the old one."""
+    _, got, step = _train_run(cuda, False, True, lr_at=(2, 5e-3))
+    assert step.replays == 2
+    _, ref, _ = _train_run(cuda, False, False, lr_at=(2, 5e-3))
+    _, kept, _ = _train_run(cuda, False, True)
+    for k, r in ref.items():
+        assert torch.equal(got[k], r), k
+    assert not torch.equal(got["lm_head.weight"], kept["lm_head.weight"])
+
+
+@pytest.mark.gpu
+def test_graphed_accumulation_equals_the_eager_window(cuda):
+    """``TrainStep.accumulate(2)``: three windows as graph replays against
+    three eager windows, bit for bit; one update a window."""
+    reset_counters()
+    lg, got, step = _train_run(cuda, False, True, accumulate=2)
+    assert step.captures == 1 and step.replays == 2
+    assert step.captured_launches()["adam_update"] == 2
+    le, ref, _ = _train_run(cuda, False, False, accumulate=2)
+    assert lg == le
+    for k, r in ref.items():
+        assert torch.equal(got[k], r), k
+
+
+@pytest.mark.gpu
+def test_state_moved_to_new_storage_is_captured_again(cuda):
+    """``set_state_dict`` gives the optimizer new state tensors, whose
+    addresses the graph does not hold: the next call captures again, and
+    the run equals the eager one that reloaded the same state."""
+    lg, got, step = _train_run(cuda, False, True, steps=4, reload_at=3)
+    assert step.captures == 2 and step.replays == 3
+    assert step.captured_launches()["adam_update"] == 3
+    le, ref, _ = _train_run(cuda, False, False, steps=4, reload_at=3)
+    assert lg == le
+    for k, r in ref.items():
+        assert torch.equal(got[k], r), k

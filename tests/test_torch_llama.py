@@ -246,29 +246,40 @@ def test_counts_and_device(monkeypatch):
 
 
 def test_adamw_rule_and_decay_selection():
-    """One step from zero moments is lr * g / (|g| + eps) (bias-corrected)
-    plus the decoupled decay lr * wd * p_old, applied only where
+    """One step from zero moments against the JAX ``AdamW`` step on the
+    same inputs (``Adam._rule``, bias corrections in fp32, plus the
+    decoupled decay lr * wd * p_old), applied only where
     ``apply_decay_param_fun(name)`` says so; moments keep the parameter's
     dtype."""
-    a = torch.nn.Parameter(torch.tensor([1.0, -2.0, 0.5]))
-    b = torch.nn.Parameter(torch.tensor([1.0, -2.0, 0.5]))
-    g = torch.tensor([0.3, -0.1, 2.0])
-    a.grad, b.grad = g.clone(), g.clone()
+    import jax.numpy as jnp
+    from paddle_tpu.core.tensor import Tensor as JTensor
+    from paddle_tpu.nn.layer.layers import Parameter as JParameter
+
+    p0 = np.array([1.0, -2.0, 0.5], np.float32)
+    g = np.array([0.3, -0.1, 2.0], np.float32)
+    ja, jb = (JParameter(jnp.asarray(p0), name=n) for n in ("w", "norm.w"))
+    jo = jopt.AdamW(learning_rate=0.1, parameters=[ja, jb], weight_decay=0.5,
+                    apply_decay_param_fun=lambda n: "norm" not in n)
+    ja.grad, jb.grad = JTensor(jnp.asarray(g)), JTensor(jnp.asarray(g))
+    jo.step()
+    a = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    b = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    a.grad, b.grad = torch.from_numpy(g.copy()), torch.from_numpy(g.copy())
     opt = AdamW(learning_rate=0.1, parameters=[("w", a), ("norm.w", b)],
                 weight_decay=0.5,
                 apply_decay_param_fun=lambda n: "norm" not in n)
     opt.step()
-    step = 0.1 * g / (g.abs() + 1e-8)
-    p0 = torch.tensor([1.0, -2.0, 0.5])
-    np.testing.assert_allclose(a.detach().numpy(),
-                               (p0 - step - 0.1 * 0.5 * p0).numpy(),
+    np.testing.assert_allclose(a.detach().numpy(), np.asarray(ja.data),
                                rtol=1e-6)
-    np.testing.assert_allclose(b.detach().numpy(), (p0 - step).numpy(),
+    np.testing.assert_allclose(b.detach().numpy(), np.asarray(jb.data),
                                rtol=1e-6)
+    # the decay went to "w" alone
+    assert not np.allclose(np.asarray(ja.data), np.asarray(jb.data))
     st = opt._state[id(a)]
     assert st["moment1"].dtype == a.dtype
-    np.testing.assert_allclose(st["moment1"].numpy(), (0.1 * g).numpy(),
-                               rtol=1e-6)
+    np.testing.assert_allclose(
+        st["moment1"].numpy(),
+        np.asarray(jo._accumulators[id(ja)]["moment1"]), rtol=1e-6)
     opt.clear_grad()
     assert a.grad is None
     with pytest.raises(ValueError, match="names"):

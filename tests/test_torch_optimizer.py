@@ -149,9 +149,9 @@ RULES = {
     "adafactor_b05": (Adafactor, jopt.Adafactor,
                       dict(learning_rate=None, beta1=0.5)),
 }
-# fp32: the rules differ from the JAX package's only in summation order
-# and where XLA fuses; Adam's bias corrections are taken in double here
-# (about 1e-5 of the correction at beta2 0.999, ~1e-8 of p at lr 1e-3)
+# fp32: the rules differ from the JAX package's only in summation order,
+# where XLA fuses, and in the last bit of a power (XLA's fp32 pow and the
+# C library's disagree at a few steps)
 RTOL = {"adam": 1e-6, "adamw": 1e-6, "adafactor_b0": 1e-5,
         "adafactor_b05": 1e-5, "adafactor_wd": 1e-5}
 
@@ -259,6 +259,65 @@ def test_optimizer_step_matches_jax(rule, clip):
     assert po._global_step == jo._global_step == len(grads)
 
 
+@pytest.mark.parametrize("rule", ["adam", "adamw"])
+def test_adam_update_and_moments_match_jax_over_1000_steps(rule):
+    """1000 steps at beta2 0.999 of the port's ``Adam``/``AdamW`` against
+    the JAX package's updater (``make_param_updater`` over ``Adam._rule``,
+    the decays of its fused step; run op by op, as the rule is written:
+    XLA's CPU compiler contracts ``b2 * v + x`` into one fused multiply-add,
+    which over 1000 steps moves v by ~2e-6 of itself), fed the same
+    gradients: at every step
+    the update p_new - p_old and both moments within rtol 1e-6 (and rtol
+    of the tensor's largest element: an update or a moment near a zero
+    crossing is a sum that cancels). The bias corrections ``1 - beta^t``
+    are taken in fp32 as the reference takes them (a double power, rounded
+    once, is ~6e-6 of the update off at step 1). Each step starts from the
+    same parameters, of magnitude 1e-3, so the update is not lost in the
+    rounding of p and the decay is ~1e-4 of it."""
+    rng = np.random.default_rng(11)
+    shapes = {"w": (4, 5), "norm.b": (7,)}
+    p0 = {n: (rng.choice([-1.0, 1.0], size=s) * rng.uniform(0.5, 1.5, size=s)
+              * 1e-3).astype(np.float32) for n, s in shapes.items()}
+    lr, steps = 1e-3, 1000
+    kw = dict(learning_rate=lr, beta1=0.9, beta2=0.999, epsilon=1e-8)
+    if rule == "adam":
+        kw["weight_decay"] = 0.01
+    else:
+        kw.update(weight_decay=0.1,
+                  apply_decay_param_fun=lambda n: "norm" not in n)
+    jps = [JParameter(jnp.asarray(p0[n]), name=n) for n in shapes]
+    jo = (jopt.Adam if rule == "adam" else jopt.AdamW)(parameters=jps, **kw)
+    update = jjit.make_param_updater(jo, jps)
+    jstates = [jo._init_state(p.data) for p in jps]
+    pps = {n: torch.nn.Parameter(torch.from_numpy(p0[n].copy()))
+           for n in shapes}
+    po = (Adam if rule == "adam" else AdamW)(parameters=list(pps.items()),
+                                             **kw)
+    rtol = RTOL[rule]
+    for t in range(1, steps + 1):
+        gs = {n: rng.standard_normal(s).astype(np.float32)
+              for n, s in shapes.items()}
+        new, jstates = update([jnp.asarray(p0[n]) for n in shapes],
+                              [jnp.asarray(gs[n]) for n in shapes], jstates,
+                              jnp.asarray(lr, jnp.float32),
+                              jnp.asarray(t, jnp.int32))
+        for n, p in pps.items():
+            p.data.copy_(torch.from_numpy(p0[n]))
+            p.grad = torch.from_numpy(gs[n])
+        po.step()
+        for k, n in enumerate(shapes):
+            ref = np.asarray(new[k], np.float64) - p0[n]
+            got = pps[n].detach().numpy().astype(np.float64) - p0[n]
+            pairs = [("update", got, ref)] + [
+                (m, po._state[id(pps[n])][m].numpy(),
+                 np.asarray(jstates[k][m])) for m in ("moment1", "moment2")]
+            for what, a, b in pairs:
+                np.testing.assert_allclose(
+                    a, b, rtol=rtol, atol=rtol * np.abs(b).max(),
+                    err_msg=f"step {t}, {n} {what}")
+    assert po._global_step == steps
+
+
 def test_clips_match_jax():
     """``_apply_plain`` of each clip against ``_apply_jax`` on the same
     gradients (fp32, and bf16 rounded as the reference rounds)."""
@@ -331,6 +390,90 @@ def test_state_dict_restores_the_run_bit_for_bit(rule):
         _step("port", opt, ps, g, sched)
     for n, p in ps.items():
         assert torch.equal(p.detach(), full[n]), n
+
+
+def test_clear_grad_zeroes_in_place_or_drops():
+    """``clear_grad(set_to_zero=True)`` zeroes each gradient in its
+    storage; without it the gradient is dropped (None), as the JAX package
+    always drops it; ``clear_gradients`` is the same method."""
+    a, b = torch.nn.Parameter(torch.ones(3)), torch.nn.Parameter(torch.ones(2))
+    a.grad = torch.full((3,), 2.0)
+    opt = AdamW(learning_rate=0.1, parameters=[a, b])
+    ptr = a.grad.data_ptr()
+    opt.clear_grad(set_to_zero=True)
+    assert a.grad.data_ptr() == ptr and not a.grad.any()
+    assert b.grad is None
+    opt.clear_grad()
+    assert a.grad is None
+    a.grad = torch.ones(3)
+    opt.clear_gradients()
+    assert a.grad is None
+    assert type(opt).clear_gradients is type(opt).clear_grad
+
+
+def test_minimize_is_one_step_as_in_jax():
+    """Dygraph ``minimize(loss)`` applies one step from the gradients the
+    backward left and returns ``(None, None)``, as the JAX package's: the
+    parameters equal the JAX ``minimize``'s and the port's ``step()``'s."""
+    rng = np.random.default_rng(2)
+    p0 = rng.standard_normal(6).astype(np.float32)
+    x = rng.standard_normal(6).astype(np.float32)
+    outs = []
+    for how in ("minimize", "step"):
+        p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+        opt = AdamW(learning_rate=0.1, parameters=[p], weight_decay=0.1)
+        loss = (p * torch.from_numpy(x)).square().sum()
+        loss.backward()
+        if how == "minimize":
+            assert opt.minimize(loss) == (None, None)
+        else:
+            opt.step()
+        assert opt._global_step == 1
+        outs.append(p.detach().numpy().copy())
+    jp = JParameter(jnp.asarray(p0), name="p")
+    jo = jopt.AdamW(learning_rate=0.1, parameters=[jp], weight_decay=0.1)
+    jp.grad = JTensor(jnp.asarray(2 * x * x * p0))
+    assert jo.minimize(None) == (None, None)
+    np.testing.assert_array_equal(outs[0], outs[1])
+    np.testing.assert_allclose(outs[0], np.asarray(jp.data), rtol=1e-6)
+
+
+def test_the_step_table_is_kept_while_its_tensors_stay():
+    """The optimizer builds its step's table once and keeps it while the
+    step's tensors keep their storage (gradients zeroed in place): a later
+    step only rewrites the header's rate and step. A replaced parameter
+    storage or a new gradient storage builds a new table."""
+    p = torch.nn.Parameter(torch.ones(6))
+    sched = plr.StepDecay(0.2, step_size=1, gamma=0.5)
+    opt = AdamW(learning_rate=sched, parameters=[p], weight_decay=0.0)
+    p.grad = torch.ones(6)
+    real = kopt.adam_update
+
+    def spy(batch, **kw):  # the words the card would hold (built once)
+        batch.host_table()
+        return real(batch, **kw)
+
+    kopt.adam_update = spy
+    try:
+        opt.step()
+    finally:
+        kopt.adam_update = real
+    first = opt._batch
+    opt.clear_grad(set_to_zero=True)
+    p.grad.fill_(1.0)
+    sched.step()
+    opt.step()
+    assert opt._batch is first and first.grads is None
+    head = first.host_table()[:2].view(np.int32)
+    assert head[0] == np.array([0.1], np.float32).view(np.int32)[0]
+    assert head[1] == 2
+    p.data = torch.full((6,), 2.0)
+    opt.step()
+    assert opt._batch is not first
+    p.grad = torch.ones(6)
+    second = opt._batch
+    opt.step()
+    assert opt._batch is not second
 
 
 def test_unnamed_parameters_are_named_by_index():
