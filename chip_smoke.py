@@ -87,7 +87,17 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              must catch, the graphed and eager figures side by side with
              PR 10's, the same at the bench's batch 16, and
              ``TrainStep.accumulate(2)`` at batch 8 against the eager
-             recipe with fp32 accumulation.
+             recipe with fp32 accumulation. Then the same graphed step
+             under each of the eight other optimizer rules (SGD, Momentum,
+             Adagrad, Adamax, RMSProp, Adadelta, Lamb, LarsMomentum; a
+             halving LR schedule), each against its own three eager steps
+             bit for bit, with its launches, graph nodes, stale-header
+             fault, step ms, the optimizer's device ms and peak memory;
+             and three eager AdamW steps under ``GradScaler`` (2**16)
+             against three unscaled ones bit for bit, then two with an
+             inf and a NaN planted into a gradient, both skipped with
+             everything unchanged and the scale and counters as the
+             reference's state machine moves them.
    optimizer — the fused optimizer's kernels over the dense model's full
              parameter set, bf16 (AdamW, and with ClipGradByGlobalNorm):
              against their plain versions (99.9% of p, m, v bit for bit,
@@ -99,6 +109,16 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              tensors, with three planted faults (no bias correction, the
              decoupled decay dropped, the clip scale ignored) that the
              check must catch.
+   rules   — the kernels of the eight other rules and of the unscale
+             (check_finite, unscale) over the dense model's full parameter
+             set, bf16: against their plain versions in every bit, timed
+             eager and in graph replay beside their bounds, the plain
+             versions and the torch.optim call that computes the same rule
+             (or a neighbour; none for Lamb and LARS); the finiteness
+             check clean and with a planted inf and NaN; then fp32 on the
+             first tensors, every bit, with planted faults that the check
+             must catch. ``make_master_update`` (AdamW over fp32 masters
+             of the same set): kernel against plain in every bit, timed.
 8. moe-kernels — the MoE path's kernels (routing, row gather, combine,
              grouped GEMM forward, dgrad and wgrad) at the MoE step's shapes
              (timed, with bound and yardstick) and at odd shapes (token
@@ -1782,7 +1802,14 @@ def _train_group(name):
                        ("flash_bwd_dq", "flash_bwd_dq"),
                        ("rmsnorm", "rmsnorm"), ("rope_kernel", "rope"),
                        ("softmax", "ce_softmax"),
-                       ("embedding", "embedding")):
+                       ("embedding", "embedding"),
+                       # csrc/optimizer.cu
+                       ("rule_kernel", "optimizer"),
+                       ("norms_kernel", "optimizer"),
+                       ("norm_apply_kernel", "optimizer"),
+                       ("adam_kernel", "optimizer"),
+                       ("sumsq_", "optimizer"),
+                       ("adafactor_", "optimizer")):
         if key in low:
             return group
     if any(s in low for s in ("gemm", "xmma", "cutlass", "cublas", "nvjet",
@@ -1965,6 +1992,13 @@ GRAPH_NODES = [
     (("adafactor_finish_kernel",), ("adafactor_stats",)),
     (("adafactor_usq_kernel",), ("adafactor_update",)),
     (("adafactor_apply_kernel",), ("adafactor_update",)),
+    (("rule_kernel",), ("sgd_update", "momentum_update", "adagrad_update",
+                        "adamax_update", "rmsprop_update",
+                        "adadelta_update")),
+    (("norms_kernel",), ("lamb_update", "lars_update")),
+    (("norm_apply_kernel",), ("lamb_update", "lars_update")),
+    (("finite_kernel",), ("check_finite",)),
+    (("unscale_kernel",), ("unscale",)),
 ]
 GRAPH_FORBIDDEN = ("flash_fwd_kernel", "flash_bwd_dkv_kernel",
                    "flash_bwd_dq_kernel", "flash_decode", "gmm_kernel",
@@ -2051,13 +2085,16 @@ def _stale_header():
     return [(kopt.StepBatch, "set_step", stale)]
 
 
-def _timed(step, ids, n):
-    """(losses, host ms of each call, each ending in a synchronise)."""
+def _timed(step, ids, n, tick=False):
+    """(losses, host ms of each call, each ending in a synchronise); with
+    ``tick`` the optimizer's LR schedule steps after each call."""
     losses, ms = [], []
     for _ in range(n):
         t0 = time.perf_counter()
         losses.append(float(step(ids, ids)))
         ms.append((time.perf_counter() - t0) * 1e3)
+        if tick:
+            step.optimizer._learning_rate.step()
     return losses, ms
 
 
@@ -2078,14 +2115,16 @@ def _reckoned(gstep):
 
 
 def _graph_run(path, model, make_opt, ids, steps, per_step, flops, ref,
-               ref_losses, state0):
+               ref_losses, state0, tick=False):
     """The graphed ``TrainStep`` on the weights ``state0``: ``steps`` steps
     (an eager warm-up, the capture and its replay, replays), launches
     reckoned and held exactly to ``per_step`` x (steps + 1) (the capture's
     launches are counted once when the wrappers run, then replayed), the
     capture's debug dump node by node against ``per_step``, every loss,
     parameter and state tensor against the eager run (``ref``), the planted
-    stale header caught, step times and one profiled replay."""
+    stale header caught, step times and one profiled replay. ``tick``: the
+    optimizer's LR schedule steps after each call, in the planted run too
+    (``_timed``)."""
     import os
     import tempfile
 
@@ -2108,7 +2147,7 @@ def _graph_run(path, model, make_opt, ids, steps, per_step, flops, ref,
     kernels.reset_counters()
     with tempfile.TemporaryDirectory() as tmp:
         gstep.debug_dump = os.path.join(tmp, "step.dot")
-        losses, ms = _timed(gstep, ids, steps)
+        losses, ms = _timed(gstep, ids, steps, tick)
         dot = open(gstep.debug_dump).read()
     peak_gb = (torch.cuda.max_memory_allocated() - held) / 2**30
     counts = _reckoned(gstep)
@@ -2138,7 +2177,7 @@ def _graph_run(path, model, make_opt, ids, steps, per_step, flops, ref,
     # the planted fault: replays without their header update
     with _swapped(_stale_header()):
         opt, fstep = fresh()
-        flosses, _ = _timed(fstep, ids, steps)
+        flosses, _ = _timed(fstep, ids, steps, tick)
         fgot = _snapshot(model, opt)
     fsame, fworst, fwhere = _agreement(fgot, ref, before)
     del fstep, opt, fgot
@@ -2341,10 +2380,13 @@ def phase_train(seed):
            **_bench_batch("dense", model, make_opt, cfg.vocab_size,
                           seed + 40, flops, state0)})
     accumulate = _accumulate_check(model, make_opt, cfg, seed, state0)
+    rule_counts, rule_rows = _rule_steps(model, cfg, ids, flops, state0)
+    scaler = _scaler_check(model, ids, state0)
     shapes = [tuple(p.shape) for p in model.parameters()]
     del model, state0
     _release()
-    return graph_counts, counts, accumulate, shapes
+    return (graph_counts, counts, accumulate, shapes, rule_counts, rule_rows,
+            scaler)
 
 
 ACC_STEPS, ACC_WINDOWS = 2, 3
@@ -3505,6 +3547,598 @@ def phase_optimizer(path, shapes, rule, seed):
     return rows
 
 
+# -- phase: the other optimizer rules, the unscale, the master update -----------
+
+# the kernel checks over the dense model's parameter set, bf16: (case,
+# wrapper, the rule of its batch, its keyword arguments, the rate); the
+# bytes its function moves are ``passes`` reads or writes of the set
+RULE_CHECKS = [
+    ("sgd", "sgd_update", "sgd", dict(weight_decay=0.01), 1e-2),
+    ("momentum", "momentum_update", "momentum",
+     dict(momentum=0.9, nesterov=True), 1e-2),
+    ("adagrad", "adagrad_update", "adagrad", dict(epsilon=1e-6), 1e-2),
+    ("adamax", "adamax_update", "adamax",
+     dict(beta1=0.9, beta2=0.999, epsilon=1e-8), 2e-3),
+    ("rmsprop", "rmsprop_update", "rmsprop",
+     dict(rho=0.95, epsilon=1e-6, momentum=0.0, centered=False,
+          weight_decay=0.01), 1e-3),
+    ("rmsprop-centered", "rmsprop_update", "rmsprop",
+     dict(rho=0.95, epsilon=1e-6, momentum=0.9, centered=True), 1e-3),
+    ("adadelta", "adadelta_update", "adadelta",
+     dict(rho=0.95, epsilon=1e-6), 1.0),
+    ("lamb", "lamb_update", "lamb",
+     dict(beta1=0.9, beta2=0.999, epsilon=1e-6, weight_decay=0.01), 1e-3),
+    ("lars", "lars_update", "lars",
+     dict(momentum=0.9, lars_coeff=0.001, weight_decay=5e-4, epsilon=0.0),
+     0.1),
+]
+# the state each rule's update reads and writes (RMSProp not centered
+# keeps mean_grad untouched)
+RULE_STATE = {"sgd": 0, "momentum": 1, "adagrad": 1, "adamax": 2,
+              "rmsprop": 2, "rmsprop-centered": 3, "adadelta": 2, "lamb": 2,
+              "lars": 1}
+# planted faults, set through the wrappers' arguments and caught in fp32:
+# the coupled decay dropped, Nesterov dropped, Adagrad's and Adadelta's
+# eps dropped, Adamax's and Lamb's bias corrections at an enormous step,
+# RMSProp not centered, Lamb's decay dropped, LARS's decay and momentum
+# dropped, the unscale's factor 1
+RULE_FAULTS = {"sgd": ("decay_dropped",), "momentum": ("nesterov_dropped",),
+               "adagrad": ("eps_dropped",), "adamax": ("no_bias_correction",),
+               "rmsprop": ("decay_dropped",),
+               "rmsprop-centered": ("not_centered",),
+               "adadelta": ("eps_dropped",),
+               "lamb": ("no_bias_correction", "decay_dropped"),
+               "lars": ("decay_dropped", "momentum_dropped"),
+               "unscale": ("not_unscaled",)}
+UNSCALE_SCALE = 2.0 ** 16
+
+
+def _fault_kw(kw, fault):
+    kw = dict(kw)
+    if fault == "decay_dropped":
+        kw["weight_decay"] = 0.0
+    elif fault == "nesterov_dropped":
+        kw["nesterov"] = False
+    elif fault == "eps_dropped":
+        kw["epsilon"] = 0.0
+    elif fault == "not_centered":
+        kw["centered"] = False
+    elif fault == "momentum_dropped":
+        kw["momentum"] = 0.0
+    return kw
+
+
+class _RuleCase:
+    """One update of a rule of RULE_CHECKS (or the unscale: ``case``
+    "unscale") over tensors of ``shapes``, through its kernel or its plain
+    version, each run from the same seeded tensors: p (scale 0.02), g
+    (1e-3; the unscale's times UNSCALE_SCALE, as the scaled loss's) and the
+    rule's state as after some steps. Decay flags: every tensor of 2+
+    dimensions (1-D ones, the norms' weights, excluded)."""
+
+    def __init__(self, case, shapes, dtype, gen):
+        import torch
+
+        def rnd(shape, scale):
+            return (torch.randn(shape, generator=gen, device=DEVICE) *
+                    scale).to(dtype)
+
+        self.case = case
+        self.p = [rnd(s, 0.02) for s in shapes]
+        n = len(shapes)
+        if case == "unscale":
+            self.g = [rnd(s, 1e-3 * UNSCALE_SCALE) for s in shapes]
+            self.name, self.rule, self.kw, self.lr = ("unscale", "grads", {},
+                                                      0.0)
+            self.slots = [[None] * n] * 3
+        else:
+            self.g = [rnd(s, 1e-3) for s in shapes]
+            _c, self.name, self.rule, self.kw, self.lr = next(
+                r for r in RULE_CHECKS if r[0] == case)
+            # the state: magnitudes as after some steps, squares positive
+            init = {"sgd": [], "momentum": [("g", 1e-3)],
+                    "adagrad": [("sq", 3e-3)],
+                    "adamax": [("g", 1e-4), ("abs", 1e-3)],
+                    "rmsprop": [("sq", 1e-3), ("g", 1e-4), ("g", 1e-4)],
+                    "adadelta": [("sq", 1e-3), ("sq", 1e-4)],
+                    "lamb": [("g", 1e-4), ("sq", 1e-3)],
+                    "lars": [("g", 1e-5)]}[self.rule]
+            self.slots = []
+            for kind, scale in init:
+                ts = [rnd(s, scale) for s in shapes]
+                if kind == "sq":
+                    ts = [t.square() for t in ts]
+                elif kind == "abs":
+                    ts = [t.abs() for t in ts]
+                self.slots.append(ts)
+            self.slots += [[None] * n] * (3 - len(self.slots))
+        self.decay = [len(s) > 1 for s in shapes]
+        self.init = [t.clone() for t in self.live()]
+
+    def live(self):
+        """What an update writes: p and the state (the unscale: g)."""
+        if self.case == "unscale":
+            return self.g
+        return self.p + [t for s in self.slots for t in s if t is not None]
+
+    def batch(self, step=OPT_STEP):
+        return _opt_module().StepBatch(self.p, self.g, self.slots,
+                                       self.decay, self.lr, step,
+                                       rule=self.rule)
+
+    def call(self, b, plain=False, fault=None):
+        """The update over batch ``b`` as a closure."""
+        kopt = _opt_module()
+        sfx = "_plain" if plain else ""
+        if self.case == "unscale":
+            inv = 1.0 if fault == "not_unscaled" else 1.0 / UNSCALE_SCALE
+            return lambda: getattr(kopt, "unscale" + sfx)(b, inv)
+        kw = _fault_kw(self.kw, fault)
+        return lambda: getattr(kopt, self.name + sfx)(b, **kw)
+
+    def update(self, plain=False, fault=None):
+        """One update from the initial tensors; returns what it wrote."""
+        import torch
+
+        for t, t0 in zip(self.live(), self.init):
+            t.copy_(t0)
+        b = self.batch(2 ** 30 if fault == "no_bias_correction"
+                       else OPT_STEP)
+        self.call(b, plain, fault)()
+        torch.cuda.synchronize()
+        return [t.clone() for t in self.live()]
+
+    def nbytes(self):
+        """The bytes the function must move: p and g read (the unscale: g),
+        its state read, p and its state written (the unscale: g)."""
+        P, G = _opt_nbytes(self.p), _opt_nbytes(self.g)
+        if self.case == "unscale":
+            return 2 * G
+        S = RULE_STATE[self.case] * P  # every state has p's dtype and size
+        return P + G + S + P + S
+
+
+def _rule_library(oc):
+    """(ms, call) of one PyTorch optimizer step on copies of ``oc``'s
+    tensors where torch has the rule (fused where it takes it on CUDA,
+    else foreach; "neighbour" where its eps sits elsewhere), else (None,
+    reason)."""
+    import torch
+
+    case, kw, lr = oc.case, oc.kw, oc.lr
+    make = {
+        "sgd": lambda ps: torch.optim.SGD(ps, lr=lr, weight_decay=0.01,
+                                          fused=True),
+        "momentum": lambda ps: torch.optim.SGD(ps, lr=lr, momentum=0.9,
+                                               nesterov=True, fused=True),
+        "adagrad": lambda ps: torch.optim.Adagrad(ps, lr=lr, eps=1e-6,
+                                                  foreach=True),
+        "adamax": lambda ps: torch.optim.Adamax(ps, lr=lr, foreach=True),
+        "rmsprop": lambda ps: torch.optim.RMSprop(ps, lr=lr, alpha=0.95,
+                                                  eps=1e-6, foreach=True),
+        "rmsprop-centered": lambda ps: torch.optim.RMSprop(
+            ps, lr=lr, alpha=0.95, eps=1e-6, momentum=0.9, centered=True,
+            foreach=True),
+        "adadelta": lambda ps: torch.optim.Adadelta(ps, lr=lr, rho=0.95,
+                                                    eps=1e-6, foreach=True),
+    }
+    names = {"sgd": "torch.optim.SGD(fused=True)",
+             "momentum": "torch.optim.SGD(momentum, nesterov, fused=True)",
+             "adagrad": "torch.optim.Adagrad(foreach=True)",
+             "adamax": "neighbour: torch.optim.Adamax(foreach=True), eps "
+                       "added to max(b2 u, |g| + eps)",
+             "rmsprop": "neighbour: torch.optim.RMSprop(foreach=True), eps "
+                        "outside the root",
+             "rmsprop-centered": "neighbour: torch.optim.RMSprop(centered, "
+                                 "momentum, foreach=True), eps outside the "
+                                 "root",
+             "adadelta": "torch.optim.Adadelta(foreach=True)"}
+    if case == "unscale":
+        # torch's check-and-unscale takes no bf16: fp16 copies, the same
+        # bytes
+        grads = [g.half() for g in oc.g]
+        found = torch.zeros(1, device=DEVICE)
+        inv = torch.full((1,), 1.0 / UNSCALE_SCALE, device=DEVICE)
+        ms = _time_ms(lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+            grads, found, inv), iters=5, warmup=2)
+        del grads
+        return ms, ("torch._amp_foreach_non_finite_check_and_unscale_ "
+                    "(check and unscale in one) on fp16 copies: it takes "
+                    "no bf16")
+    if case not in make:
+        return None, "no call"
+    ps = [torch.nn.Parameter(t.clone()) for t in oc.p]
+    for t, g in zip(ps, oc.g):
+        t.grad = g
+    opt = make[case](ps)
+    ms = _time_ms(opt.step, iters=5, warmup=2)
+    del opt, ps
+    return ms, names[case]
+
+
+def phase_rules(path, shapes, seed):
+    """The kernels of the eight other rules and of the gradient scaler's
+    unscale over a model's full parameter set (``shapes``), bf16: each
+    kernel's update against its plain version in every bit (two runs the
+    same bits, one launch a call), timed eager and in CUDA-graph replay
+    beside the plain version, the bound of the bytes its function moves
+    and a PyTorch call that computes the same function (or a neighbour,
+    or none); the finiteness check over the same gradients, clean and
+    with a planted inf; then each in fp32 on the set's first tensors,
+    which each planted fault must fail."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    kopt = _opt_module()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 50)
+    rows = []
+    for case in [r[0] for r in RULE_CHECKS] + ["unscale"]:
+        oc = _RuleCase(case, shapes, torch.bfloat16, gen)
+        ref = oc.update(plain=True)
+        kernels.reset_counters()
+        got = oc.update()
+        counts = kernels.counters()
+        again = oc.update()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, ref))
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        del ref, got, again
+        launched = {n: c["launches"] for n, c in counts.items()
+                    if c["launches"] or c["plain_calls"]}
+        check = {"phase": "rule-check", "case": f"{path}-{case}",
+                 "tensors": len(shapes),
+                 "elements": sum(p.numel() for p in oc.p),
+                 "bitwise": same, "max_abs_err": err,
+                 "deterministic": deterministic, "launches": launched}
+        _emit(check)
+        if not (same and deterministic and launched == {oc.name: 1}):
+            raise RuntimeError(f"rules: a kernel differs from its plain "
+                               f"version or launches otherwise {check}")
+        b = oc.batch()
+        fn, plain_fn = oc.call(b), oc.call(b, plain=True)
+        b_ms, b_by = _bound(oc.nbytes(), 0, "float32")
+        lib_ms, lib = _rule_library(oc)
+        row = {"phase": "kernel", "kernel": oc.name,
+               "case": f"{path}-{case}-bfloat16", "dtype": "bfloat16",
+               "tensors": len(shapes),
+               "elements": sum(p.numel() for p in oc.p),
+               "max_abs_err": err, "bitwise": same,
+               "kernel_ms": _time_ms(fn, iters=10, warmup=2),
+               "graph_ms": _graph_ms(fn, iters=5, reps=3),
+               "plain_ms": _time_ms(plain_fn, iters=2, warmup=1),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "library": lib}
+        if case == "lamb":  # two passes: p, g, m, v read twice
+            row["design_floor_ms"] = _bound(
+                oc.nbytes() + _opt_nbytes(oc.p + oc.g) +
+                2 * _opt_nbytes(oc.p), 0, "float32")[0]
+        if case == "lars":  # the norm pass reads p and g once more
+            row["design_floor_ms"] = _bound(
+                oc.nbytes() + _opt_nbytes(oc.p + oc.g), 0, "float32")[0]
+        rows.append(row)
+        _emit(row)
+        if case == "unscale":
+            rows += _finite_rows(path, oc, b, kopt, lib_ms, lib)
+        del oc, b, fn, plain_fn
+        _release()
+
+    # fp32 on the first tensors: equal in every bit, each fault caught
+    sub, total = [], 0
+    for s in shapes:
+        k = math.prod(s)
+        if sub and total + k > OPT_FP32_ELEMENTS:
+            break
+        sub.append(s)
+        total += k
+    faults = {}
+    for case, planted in RULE_FAULTS.items():
+        oc = _RuleCase(case, sub, torch.float32, gen)
+        ref = oc.update(plain=True)
+        if not all(torch.equal(a, b) for a, b in zip(oc.update(), ref)):
+            raise RuntimeError(f"rules: fp32 {case} differs from its plain "
+                               f"version")
+        for fault in planted:
+            got = oc.update(fault=fault)
+            rel = max(float(((a - b).abs() /
+                             (b.abs() + b.abs().max()).clamp_min(1e-30)
+                             ).max()) for a, b in zip(got, ref))
+            faults[f"{case}:{fault}"] = {
+                "max_rel_diff": rel,
+                "caught": not all(torch.equal(a, b)
+                                  for a, b in zip(got, ref))}
+            del got
+        del oc, ref
+        _release()
+    check = {"phase": "rule-fault-check", "tensors": len(sub),
+             "elements": total, "fp32": "every bit", "faults": faults}
+    _emit(check)
+    if not all(f["caught"] for f in faults.values()):
+        raise RuntimeError(f"rules: the check missed a planted fault "
+                           f"{faults}")
+    return rows
+
+
+def _finite_rows(path, oc, b, kopt, lib_ms, lib):
+    """The finiteness check over ``oc``'s gradients: its flag against the
+    plain version's, clean and with an inf planted into the last element
+    of the last tensor and a NaN into the first of the first (both must
+    set it); timed as the rules are."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    inv = 1.0 / UNSCALE_SCALE
+    flags = {}
+    for label, where in (("clean", []), ("inf-last", [(-1, -1, "inf")]),
+                         ("nan-first", [(0, 0, "nan")])):
+        saved = [(oc.g[t].view(-1)[e].clone(), t, e) for t, e, _v in where]
+        for t, e, v in where:
+            oc.g[t].view(-1)[e] = float(v)
+        kernels.reset_counters()
+        got = int(kopt.check_finite(b, inv).item())
+        ref = int(kopt.check_finite_plain(b, inv).item())
+        launched = kernels.counters()["check_finite"]
+        for x, t, e in saved:
+            oc.g[t].view(-1)[e] = x
+        flags[label] = {"kernel": got, "plain": ref}
+        if got != ref or got != bool(where) or launched != {
+                "launches": 1, "plain_calls": 0}:
+            raise RuntimeError(f"rules: the finiteness check reads "
+                               f"{got}, plain {ref}, on {label} gradients "
+                               f"({launched})")
+    G = _opt_nbytes(oc.g)
+    b_ms, b_by = _bound(G, 0, "float32")
+    row = {"phase": "kernel", "kernel": "check_finite",
+           "case": f"{path}-unscale-bfloat16", "dtype": "bfloat16",
+           "tensors": len(oc.g), "elements": sum(g.numel() for g in oc.g),
+           "max_abs_err": 0.0, "flags": flags,
+           "kernel_ms": _time_ms(lambda: kopt.check_finite(b, inv), iters=10,
+                                 warmup=2),
+           "graph_ms": _graph_ms(lambda: kopt.check_finite(b, inv), iters=5,
+                                 reps=3),
+           "plain_ms": _time_ms(lambda: kopt.check_finite_plain(b, inv),
+                                iters=2, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "library": lib,
+           "function_bound_ms": _bound(2 * G, 0, "float32")[0],
+           "design_floor_ms": _bound(3 * G, 0, "float32")[0]}
+    _emit(row)
+    return [row]
+
+
+# the dense step under each of the eight other rules, graphed against
+# eager: (counter, optimizer class, its arguments); the rate halves after
+# each step (StepDecay), so a replay that kept a stale header is caught
+# for rules that read no step number too
+RULE_STEP_OPTS = {
+    "sgd": ("sgd_update", "SGD", dict(learning_rate=0.1,
+                                      weight_decay=1e-4)),
+    "momentum": ("momentum_update", "Momentum",
+                 dict(learning_rate=0.05, use_nesterov=True)),
+    "adagrad": ("adagrad_update", "Adagrad", dict(learning_rate=1e-2)),
+    "adamax": ("adamax_update", "Adamax", dict(learning_rate=1e-3)),
+    "rmsprop": ("rmsprop_update", "RMSProp",
+                dict(learning_rate=1e-4, momentum=0.9, centered=True)),
+    "adadelta": ("adadelta_update", "Adadelta", dict(learning_rate=1.0)),
+    "lamb": ("lamb_update", "Lamb", dict(learning_rate=1e-3)),
+    "lars": ("lars_update", "LarsMomentum", dict(learning_rate=0.1)),
+}
+RULE_STEPS = 3
+
+
+def _rule_steps(model, cfg, ids, flops, state0):
+    """The dense bf16 step at batch 4 x 2048 under each rule of
+    RULE_STEP_OPTS, each from ``state0`` and its state released before the
+    next: RULE_STEPS eager steps (``graph=False``), then the graphed run
+    against them (``_graph_run``: every bit, the launches as reckoned, the
+    graph's nodes, a planted stale header); finite losses. Returns the
+    launches of all the graphed runs and one row per rule."""
+    import math
+
+    import paddle_tpu_torch.optimizer as popt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer.lr import StepDecay
+
+    L = cfg.num_hidden_layers
+    total, rows = {}, {}
+    for rule, (counter, cls, kw) in RULE_STEP_OPTS.items():
+        def make_opt():
+            args = dict(kw)
+            args["learning_rate"] = StepDecay(args["learning_rate"],
+                                              step_size=1, gamma=0.5)
+            return getattr(popt, cls)(parameters=model.parameters(), **args)
+
+        model.load_state_dict(state0)
+        opt = make_opt()
+        step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt,
+                         graph=False)
+        losses, _ms = _timed(step, ids, RULE_STEPS, tick=True)
+        ref = _snapshot(model, opt)
+        del step, opt
+        _release()
+        if not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"rule-steps: {rule} losses {losses}")
+        per_step = _dense_launches(L)
+        per_step["adam_update"] = 0
+        per_step[counter] = 1
+        counts, g = _graph_run(f"train-{rule}", model, make_opt, ids,
+                               RULE_STEPS, per_step, flops, ref, losses,
+                               state0, tick=True)
+        del ref
+        _release()
+        for n, c in counts.items():
+            t = total.setdefault(n, {"launches": 0, "plain_calls": 0})
+            t["launches"] += c["launches"]
+            t["plain_calls"] += c["plain_calls"]
+        prof = g["profile"]
+        rows[rule] = {"optimizer": cls, "losses": g["losses"],
+                      "step_ms": g["step_ms"], "step_ms_each":
+                      g["step_ms_each"], "device_ms": prof["device_ms"],
+                      "optimizer_device_ms": prof["groups_ms"].get(
+                          "optimizer"),
+                      "idle_share": prof["idle_share"],
+                      "peak_mem_gb": g["peak_mem_gb"],
+                      "launches_per_step": {counter: 1}}
+        _emit({"phase": "rule-step", "rule": rule, **rows[rule]})
+    return total, rows
+
+
+# (scale, good_steps, bad_steps) after each step of the scaler check:
+# three finite steps, then two with a non-finite gradient planted, as the
+# reference's state machine moves them (paddle_tpu/amp/grad_scaler.py:
+# 84-98; decr_every_n_nan_or_inf 2, incr_every_n_steps 2000)
+SCALER_STATES = [(65536.0, 1, 0), (65536.0, 2, 0), (65536.0, 3, 0),
+                 (65536.0, 0, 1), (32768.0, 0, 0)]
+SCALER_PLANTS = (float("inf"), float("nan"))
+
+
+def _scaler_check(model, ids, state0):
+    """Eager AdamW steps of the dense model (lr 3e-4, wd 0.1) under
+    ``GradScaler(init_loss_scaling=2**16)``: three against three unscaled
+    steps, every loss, parameter and state tensor equal bit for bit (a
+    power-of-two scale is exact through the backward and the unscale);
+    then two steps with an inf and a NaN planted into the embedding's
+    gradient, both skipped with parameters and state unchanged bit for
+    bit, the scale and counters as SCALER_STATES; the launches counted."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def run(scaled, plants=()):
+        model.load_state_dict(state0)
+        model.train()
+        opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                    weight_decay=0.1)
+        scaler = GradScaler(init_loss_scaling=2.0 ** 16) if scaled else None
+        losses, states, snap = [], [], None
+        emb = next(model.parameters())
+        for i in range(3 + len(plants)):
+            loss = model(ids, labels=ids)
+            losses.append(float(loss))
+            (scaler.scale(loss) if scaled else loss).backward()
+            if i >= 3:
+                emb.grad.view(-1)[i] = plants[i - 3]
+            if scaled:
+                scaler.step(opt)
+                states.append((scaler._scale, scaler._good_steps,
+                               scaler._bad_steps))
+            else:
+                opt.step()
+            opt.clear_grad()
+            del loss
+            if i == 2:
+                snap = _snapshot(model, opt)
+        end = _snapshot(model, opt) if plants else None
+        step_no = opt._global_step
+        del opt
+        return losses, states, snap, end, step_no
+
+    losses_u, _s, ref, _e, _n = run(False)
+    _release()
+    kernels.reset_counters()
+    losses_s, states, got, end, step_no = run(True, SCALER_PLANTS)
+    counts = kernels.counters()
+    torch.cuda.synchronize()
+    same = all(torch.equal(got[k], r) for k, r in ref.items())
+    kept = all(torch.equal(end[k], r) for k, r in got.items())
+    del ref, got, end
+    _release()
+    want = {"check_finite": 5, "unscale": 3, "adam_update": 3}
+    launched = {n: c["launches"] for n, c in counts.items() if c["launches"]}
+    check = {"phase": "scaler-check", "model": "llama-1.16b",
+             "init_loss_scaling": 2.0 ** 16,
+             "losses_scaled": losses_s, "losses_unscaled": losses_u,
+             "bitwise_with_unscaled": same and losses_s[:3] == losses_u,
+             "skipped_steps_unchanged": kept, "optimizer_steps": step_no,
+             "states": states, "expected_states": SCALER_STATES,
+             "launches": launched}
+    _emit(check)
+    if not (same and losses_s[:3] == losses_u and kept and step_no == 3 and
+            [tuple(s) for s in states] == SCALER_STATES and
+            launched == {**{n: c for n, c in launched.items()
+                            if n not in want}, **want} and
+            all(c["plain_calls"] == 0 for c in counts.values())):
+        raise RuntimeError(f"scaler: the scaled steps differ from the "
+                           f"reference {check}")
+    return counts
+
+
+def phase_master(shapes, seed):
+    """``make_master_update`` with AdamW (lr 3e-4, wd 0.1) over fp32
+    masters of a model's full parameter set (bf16 parameters and
+    gradients, fp32 m and v as after some steps): through the kernel
+    against its plain version, masters, states and the cast bf16
+    parameters equal in every bit; ms per call beside the bound (28 B an
+    element: masters, m, v read and written, the bf16 gradient read, the
+    bf16 parameter written) and the plain version's."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.optimizer import AdamW, make_master_update
+
+    kopt = _opt_module()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 60)
+
+    def rnd(shape, scale, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device=DEVICE) *
+                scale).to(dt)
+
+    params = [rnd(s, 0.02, torch.bfloat16) for s in shapes]
+    grads = [rnd(s, 1e-3, torch.bfloat16) for s in shapes]
+    opt = AdamW(learning_rate=3e-4, parameters=params, weight_decay=0.1)
+    up = make_master_update(opt, params, [torch.bfloat16] * len(params))
+    master = [p.float() for p in params]
+    states = [{"moment1": rnd(s, 1e-4), "moment2": rnd(s, 1e-3).square()}
+              for s in shapes]
+
+    def copies():
+        return ([m.clone() for m in master],
+                [{k: v.clone() for k, v in st.items()} for st in states])
+
+    km, ks = copies()
+    kernels.reset_counters()
+    _m, _s, kcast = up(km, grads, ks, 3e-4, OPT_STEP)
+    launched = kernels.counters()["adam_update"]
+    with _swapped([(kopt, "adam_update", kopt.adam_update_plain)]):
+        _m, _s, pcast = up(master, grads, states, 3e-4, OPT_STEP)
+    torch.cuda.synchronize()
+    got = km + [v for st in ks for v in st.values()] + kcast
+    ref = master + [v for st in states for v in st.values()] + pcast
+    same = all(torch.equal(a, b) for a, b in zip(got, ref))
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, ref))
+    del got, ref, kcast, pcast
+    n = sum(m.numel() for m in master)
+    b_ms, b_by = _bound(28 * n, 0, "float32")
+    row = {"phase": "kernel", "kernel": "adam_update",
+           "case": "dense-master-fp32", "dtype": "float32",
+           "tensors": len(shapes), "elements": n, "max_abs_err": err,
+           "bitwise": same, "launches_per_call": launched["launches"],
+           "kernel_ms": _time_ms(lambda: up(km, grads, ks, 3e-4, OPT_STEP),
+                                 iters=5, warmup=2),
+           "plain_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None,
+           "library": "no call: torch.optim.AdamW keeps no master"}
+    with _swapped([(kopt, "adam_update", kopt.adam_update_plain)]):
+        row["plain_ms"] = _time_ms(lambda: up(master, grads, states, 3e-4,
+                                              OPT_STEP), iters=2, warmup=1)
+    _emit({**row, "phase": "master-check"})
+    del km, ks, master, states, params, grads, opt, up
+    _release()
+    if not (same and launched == {"launches": 1, "plain_calls": 0}):
+        raise RuntimeError(f"master: the kernel differs from its plain "
+                           f"version or launches otherwise {row}")
+    return [row]
+
+
 def _kernels_line(rows, paths):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
@@ -3591,6 +4225,27 @@ def _kernels_line(rows, paths):
          "paddle_tpu/optimizer/optimizer.py:443", ["adafactor_stats"]),
         ("adafactor_update", "moe-bfloat16", "optimizer.cu",
          "paddle_tpu/optimizer/optimizer.py:443", ["adafactor_update"]),
+        ("sgd_update", "dense-sgd-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:214", ["sgd_update"]),
+        ("momentum_update", "dense-momentum-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:228", ["momentum_update"]),
+        ("adagrad_update", "dense-adagrad-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:248", ["adagrad_update"]),
+        ("adamax_update", "dense-adamax-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:301", ["adamax_update"]),
+        ("rmsprop_update", "dense-rmsprop-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:322", ["rmsprop_update"]),
+        ("adadelta_update", "dense-adadelta-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:491", ["adadelta_update"]),
+        ("lamb_update", "dense-lamb-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:351", ["lamb_update"]),
+        ("lars_update", "dense-lars-bfloat16", "optimizer.cu",
+         "paddle_tpu/optimizer/optimizer.py:396", ["lars_update"]),
+        # GradScaler.unscale_: the jitted finiteness test and the unscale
+        ("check_finite", "dense-unscale-bfloat16", "optimizer.cu",
+         "paddle_tpu/amp/grad_scaler.py:21", ["check_finite"]),
+        ("unscale", "dense-unscale-bfloat16", "optimizer.cu",
+         "paddle_tpu/amp/grad_scaler.py:62", ["unscale"]),
     ]
     # a second function of the same kernel: (TPU kernel it replaces where
     # another, its name; launches from its own counter where it has one)
@@ -3624,7 +4279,8 @@ def _kernels_line(rows, paths):
         extras = ("cuda_core_ms", "library_ms_spread", "graph_ms", "library",
                   "cuda_core_graph_ms", "library_graph_ms", "copy_graph_ms",
                   "copy_out_graph_ms", "composition_ms",
-                  "composition_graph_ms", "earlier_ms", "earlier_graph_ms")
+                  "composition_graph_ms", "earlier_ms", "earlier_graph_ms",
+                  "design_floor_ms", "function_bound_ms")
         for key in extras:
             if r.get(key) is not None:
                 entry[key] = r[key]
@@ -3648,6 +4304,19 @@ def _kernels_line(rows, paths):
             entry["fp32_grad"] = {key: v[key] for key in (
                 "case", "kernel_ms", "graph_ms", "plain_ms", "bound_ms",
                 "max_ulps", "bitwise_share")}
+        if name == "rmsprop_update":
+            v = next(x for x in rows if x["kernel"] == name and
+                     x["case"] == "dense-rmsprop-centered-bfloat16")
+            entry["centered"] = {key: v[key] for key in (
+                "case", "kernel_ms", "graph_ms", "plain_ms", "bound_ms",
+                "library_ms", "library")}
+        if name == "adam_update":
+            # make_master_update's AdamW over fp32 masters
+            v = next(x for x in rows if x["kernel"] == name and
+                     x["case"] == "dense-master-fp32")
+            entry["master_fp32"] = {key: v[key] for key in (
+                "case", "kernel_ms", "plain_ms", "bound_ms", "bitwise",
+                "max_abs_err")}
         if name == "rope":
             # the inverse as the training step runs it: on the cotangent's
             # [b, s, h, d] view of [b, h, s, d], read in place
@@ -3705,18 +4374,24 @@ def main() -> int:
     serving_fp32 = phase_parity(SEED)
     serving = phase_serving(SEED)
     training_fp32, finetune_fp32 = phase_train_parity(SEED)
-    training, training_eager, accumulate, dense_shapes = phase_train(SEED)
+    (training, training_eager, accumulate, dense_shapes, rule_graphs,
+     rule_steps, scaler) = phase_train(SEED)
     rows += phase_optimizer("dense", dense_shapes, "adam", SEED)
+    rows += phase_rules("dense", dense_shapes, SEED)
+    rows += phase_master(dense_shapes, SEED)
     rows += phase_moe_kernels(SEED)
     moe_fp32 = phase_moe_train_parity(SEED)
     moe, moe_eager, moe_shapes = phase_moe_train(SEED)
     rows += phase_optimizer("moe", moe_shapes, "adafactor", SEED)
 
+    _emit({"phase": "rule-steps", "model": "llama-1.16b",
+           "batch": [4, 2048], "rules": rule_steps})
     _emit({"kernels": _kernels_line(rows, {
         "serving": serving, "serving-fp32": serving_fp32,
         "training": training, "moe-training": moe,
         "training-eager": training_eager, "moe-training-eager": moe_eager,
-        "accumulate": accumulate,
+        "accumulate": accumulate, "rule-graphs": rule_graphs,
+        "grad-scaler": scaler,
         "training-fp32": training_fp32, "moe-training-fp32": moe_fp32,
         "finetune-fp32": finetune_fp32})})
     print(smi, flush=True)

@@ -51,7 +51,17 @@ _COUNTS = {"paged_attention": _paged.COUNTS,
            "multi_tensor_sumsq": _opt.COUNTS_SUMSQ,
            "adam_update": _opt.COUNTS_ADAM,
            "adafactor_stats": _opt.COUNTS_ADAFACTOR_STATS,
-           "adafactor_update": _opt.COUNTS_ADAFACTOR_UPDATE}
+           "adafactor_update": _opt.COUNTS_ADAFACTOR_UPDATE,
+           "sgd_update": _opt.COUNTS_SGD,
+           "momentum_update": _opt.COUNTS_MOMENTUM,
+           "adagrad_update": _opt.COUNTS_ADAGRAD,
+           "adamax_update": _opt.COUNTS_ADAMAX,
+           "rmsprop_update": _opt.COUNTS_RMSPROP,
+           "adadelta_update": _opt.COUNTS_ADADELTA,
+           "lamb_update": _opt.COUNTS_LAMB,
+           "lars_update": _opt.COUNTS_LARS,
+           "check_finite": _opt.COUNTS_CHECK_FINITE,
+           "unscale": _opt.COUNTS_UNSCALE}
 
 
 def counters():

@@ -1,12 +1,17 @@
 // Fused multi-tensor optimizer update for Hopper (sm_90a): gradient
-// clipping, coupled or decoupled weight decay and the Adam / AdamW or
-// Adafactor rule over every parameter of a step in a few launches.
+// clipping, coupled or decoupled weight decay and the rule of every
+// optimizer of the JAX package over every parameter of a step in a few
+// launches, and GradScaler's check_finite_and_unscale.
 //
 // Replaces what XLA fuses for the JAX package: `Optimizer._get_fused`
-// (paddle_tpu/optimizer/optimizer.py:117-147) over `Adam._rule` (:265-276)
-// and `Adafactor._rule` (:443-473), with the clips of paddle_tpu/nn/clip.py
-// (:22-52) applied first. No Pallas kernel exists for it: the TPU gets the
-// fusion from XLA's jit of one function over all parameters.
+// (paddle_tpu/optimizer/optimizer.py:117-147) over `Adam._rule` (:265-276),
+// `Adafactor._rule` (:443-473), the rules of SGD, Momentum, Adagrad,
+// Adamax, RMSProp and Adadelta (:212-332, 476-498; section (e)) and of Lamb
+// and LarsMomentum (:335-407; section (f)), with the clips of
+// paddle_tpu/nn/clip.py (:22-52) applied first; and the jitted finiteness
+// test and unscale of paddle_tpu/amp/grad_scaler.py:21-67 (section (g)).
+// No Pallas kernel exists for any of them: the TPU gets the fusion from
+// XLA's jit of one function over all parameters.
 //
 // The chunk table (built by paddle_tpu_torch/kernels/optimizer.py when the
 // step's tensors change, copied to the device from pinned memory on the
@@ -37,7 +42,8 @@
 // fp32 operation is rounded on its own (__fmul_rn / __fadd_rn / __fdiv_rn,
 // so nvcc contracts nothing into an FMA); the clip's product is rounded to
 // the gradient's dtype, then to the parameter's, the coupled decay g +
-// bf16(wd * p) is rounded to the parameter's dtype, and p, m, v are each
+// wd p is taken in the parameter's dtype (wd a constant of that dtype, as
+// the JAX package takes a Python float beside p), and p, m, v are each
 // cast back to their dtype after the rule; the decoupled decay subtracts
 // bf16(lr * wd * p_old) from the rounded new p.
 //
@@ -47,7 +53,11 @@
 // mean(vr) and parameter sum of squares (pt_opt_adafactor_stats, 2
 // launches), and its per-tensor sum of u^2, which every block of the apply
 // pass re-sums from the first pass's partials in the same order
-// (pt_opt_adafactor_update, 2 launches). pt_opt_adam is one launch.
+// (pt_opt_adafactor_update, 2 launches), and Lamb's and LARS's per-tensor
+// norms, whose fp64 chunk partials every block of the update pass re-sums
+// in the same order (pt_opt_norm_rule, 2 launches). pt_opt_adam and
+// pt_opt_rule are one launch; the unscale is a check (one launch, a flag
+// any block may set) and, where the host finds the flag clear, one more.
 //
 // What bounds it on the H100: bytes. AdamW reads p, g, m, v and writes p,
 // m, v (14 B per bf16 parameter: 4.84 ms for 1.16B parameters at 3.35
@@ -55,6 +65,11 @@
 // whole-tensor sums (the RMS of u and of p), so it reads g three times: g
 // and p (stats), g (sum of u^2), g and p and writes p (apply), about 12 B
 // per bf16 parameter (18 B with an fp32 gradient).
+// The rules of (e) read p, g and their state and write p and the state
+// once: SGD 3 bf16 passes, Momentum and Adagrad 5, Adamax, Adadelta and
+// RMSProp 7 (centered 9). Lamb reads g, p, m, v twice (pass 2 recomputes
+// r rather than reading a rounded moment) and writes p, m, v: 11 passes;
+// LARS reads g and p twice and v once and writes p and v: 7.
 // What the design does about it: 16-byte vector loads of 8 elements per
 // thread (two vectors for fp32), one block per chunk of 64K elements or
 // 256K-element row tiles, many blocks in flight; a tensor's operands that
@@ -236,7 +251,7 @@ __device__ __forceinline__ Prep<TP, TG> make_prep(const Clip& c,
   r.scale = c.mode == 1 ? norms[n_tensors + i] : 1.f;
   r.lo = Elem<TG>::rnd(c.lo);
   r.hi = Elem<TG>::rnd(c.hi);
-  r.wd = wd;
+  r.wd = Elem<TP>::rnd(wd);  // a Python float beside p: a constant of p's dtype
   r.coupled = coupled;
   return r;
 }
@@ -748,6 +763,412 @@ adafactor_apply_kernel(const int64_t* __restrict__ table, const float* __restric
   });
 }
 
+// ---------------------------------------------------------------------------
+// (e) the rules computed in the parameter's dtype (optimizer.py:212-332,
+// 476-498): SGD, Momentum (Nesterov), Adagrad, Adamax, RMSProp (centered or
+// not, with momentum) and Adadelta, one kernel per rule over the chunk table.
+// The JAX rule runs each operation in p's dtype: for a bf16 parameter every
+// product, sum, quotient and root is a bf16 result (here the fp32 operation,
+// then Elem<T>::rnd: fp32 keeps more than twice bf16's bits plus two, so the
+// second rounding gives the correctly rounded bf16 result), and the
+// Python-float hyperparameters and the rate (lr.astype(p.dtype)) are
+// constants of p's dtype. Adamax alone takes its rate lr / (1 - b1^t) in fp32
+// before the cast (:306). Each operation in the order of the Python
+// expression: Adagrad (lr g) / (sqrt(m) + eps), Adadelta's update from the
+// old avg_squared_update (:493-496).
+
+constexpr int kSGD = 0, kMomentum = 1, kAdagrad = 2, kAdamax = 3,
+              kRMSProp = 4, kAdadelta = 5;
+
+struct RuleArgs {
+  // Momentum mu; Adagrad eps; Adamax b1, 1 - b1, b2, eps; RMSProp rho,
+  // 1 - rho, eps, mu; Adadelta rho, 1 - rho, eps (each 1 - x taken in
+  // double on the host, as Python takes it)
+  float h[4];
+  int opt;   // Momentum: Nesterov; RMSProp: centered
+  float wd;  // the base path's coupled decay
+  Clip clip;
+};
+
+template <int RULE, typename T>
+struct RuleOp {
+  float lr, c0, c1, c2, c3;  // the rate and the hyperparameters in T
+  int opt;
+  static __device__ __forceinline__ float R(float x) { return Elem<T>::rnd(x); }
+  // one element: p and the state (s0, s1, s2 in the slot order of
+  // kernels/optimizer.py) in place, g clipped and decayed
+  __device__ __forceinline__ void operator()(float& p, float g, float& s0,
+                                             float& s1, float& s2) const {
+    if constexpr (RULE == kSGD) {
+      p = R(fsub(p, R(fmul(lr, g))));
+    } else if constexpr (RULE == kMomentum) {  // s0 velocity
+      s0 = R(fadd(R(fmul(c0, s0)), g));
+      const float upd = opt ? R(fadd(g, R(fmul(c0, s0)))) : s0;
+      p = R(fsub(p, R(fmul(lr, upd))));
+    } else if constexpr (RULE == kAdagrad) {  // s0 moment
+      s0 = R(fadd(s0, R(fmul(g, g))));
+      p = R(fsub(p, R(fdiv(R(fmul(lr, g)), R(fadd(R(sqrtf(s0)), c0))))));
+    } else if constexpr (RULE == kAdamax) {  // s0 moment, s1 inf_norm
+      s0 = R(fadd(R(fmul(c0, s0)), R(fmul(c1, g))));
+      s1 = nanmax(R(fmul(c2, s1)), fabsf(g));
+      p = R(fsub(p, R(fdiv(R(fmul(lr, s0)), R(fadd(s1, c3))))));
+    } else if constexpr (RULE == kRMSProp) {
+      // s0 mean_square, s1 mean_grad (centered only), s2 velocity
+      s0 = R(fadd(R(fmul(c0, s0)), R(fmul(R(fmul(c1, g)), g))));
+      float den;
+      if (opt) {
+        s1 = R(fadd(R(fmul(c0, s1)), R(fmul(c1, g))));
+        den = R(sqrtf(R(fadd(R(fsub(s0, R(fmul(s1, s1)))), c2))));
+      } else {
+        den = R(sqrtf(R(fadd(s0, c2))));
+      }
+      s2 = R(fadd(R(fmul(c3, s2)), R(fdiv(R(fmul(lr, g)), den))));
+      p = R(fsub(p, s2));
+    } else {  // Adadelta: s0 avg_squared_grad, s1 avg_squared_update
+      s0 = R(fadd(R(fmul(c0, s0)), R(fmul(R(fmul(c1, g)), g))));
+      const float upd = R(fmul(R(fdiv(-R(sqrtf(R(fadd(s1, c2)))),
+                                      R(sqrtf(R(fadd(s0, c2)))))), g));
+      s1 = R(fadd(R(fmul(c0, s1)), R(fmul(R(fmul(c1, upd)), upd))));
+      p = R(fadd(p, R(fmul(lr, upd))));
+    }
+  }
+};
+
+template <int RULE, typename T, typename TG>
+__device__ void rule_chunk(const int64_t* e, int i, const Chunk& ch,
+                           const RuleArgs& a, const float* norms, int n,
+                           float lr) {
+  T* p = reinterpret_cast<T*>(e[kP]) + ch.off;
+  const TG* g = reinterpret_cast<const TG*>(e[kG]) + ch.off;
+  // the slots this rule reads and writes (RMSProp's mean_grad if centered)
+  constexpr bool u0 = RULE != kSGD;
+  const bool u1 = RULE == kAdamax || RULE == kAdadelta ||
+                  (RULE == kRMSProp && a.opt);
+  constexpr bool u2 = RULE == kRMSProp;
+  T* s0 = u0 ? reinterpret_cast<T*>(e[kS0]) + ch.off : nullptr;
+  T* s1 = u1 ? reinterpret_cast<T*>(e[kS1]) + ch.off : nullptr;
+  T* s2 = u2 ? reinterpret_cast<T*>(e[kS2]) + ch.off : nullptr;
+  const int64_t fl = e[kFlags];
+  const Prep<T, TG> prep = make_prep<T, TG>(a.clip, norms, n, i, a.wd,
+                                            (fl & kDecay) && a.wd != 0.f);
+  RuleOp<RULE, T> op;
+  op.lr = Elem<T>::rnd(lr);
+  op.c0 = Elem<T>::rnd(a.h[0]);
+  op.c1 = Elem<T>::rnd(a.h[1]);
+  op.c2 = Elem<T>::rnd(a.h[2]);
+  op.c3 = Elem<T>::rnd(a.h[3]);
+  op.opt = a.opt;
+  const int64_t len = ch.len;
+  const int64_t vend = (fl & kVec) ? (len & ~(int64_t)7) : 0;
+  for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
+    float pf[8], gf[8], x0[8] = {}, x1[8] = {}, x2[8] = {};
+    Elem<T>::ld8(p + j, pf);
+    Elem<TG>::ld8(g + j, gf);
+    if (u0) Elem<T>::ld8(s0 + j, x0);
+    if (u1) Elem<T>::ld8(s1 + j, x1);
+    if (u2) Elem<T>::ld8(s2 + j, x2);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      op(pf[q], prep(gf[q], pf[q]), x0[q], x1[q], x2[q]);
+    Elem<T>::st8(p + j, pf);
+    if (u0) Elem<T>::st8(s0 + j, x0);
+    if (u1) Elem<T>::st8(s1 + j, x1);
+    if (u2) Elem<T>::st8(s2 + j, x2);
+  }
+  for (int64_t j = vend + threadIdx.x; j < len; j += kThreads) {
+    float pf = Elem<T>::ld(p + j);
+    float x0 = u0 ? Elem<T>::ld(s0 + j) : 0.f;
+    float x1 = u1 ? Elem<T>::ld(s1 + j) : 0.f;
+    float x2 = u2 ? Elem<T>::ld(s2 + j) : 0.f;
+    op(pf, prep(Elem<TG>::ld(g + j), pf), x0, x1, x2);
+    Elem<T>::st(p + j, pf);
+    if (u0) Elem<T>::st(s0 + j, x0);
+    if (u1) Elem<T>::st(s1 + j, x1);
+    if (u2) Elem<T>::st(s2 + j, x2);
+  }
+}
+
+template <int RULE>
+__global__ void __launch_bounds__(kThreads)
+rule_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
+            RuleArgs a) {
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  float lr = h.lr;
+  // Adamax: lr / (1 - b1^t) in fp32 from the fp32 b1 (optimizer.py:305-306)
+  if (RULE == kAdamax) lr = fdiv(lr, fsub(1.f, powf(a.h[0], (float)h.step)));
+  by_types(e, [&](auto tp, auto tg) {
+    rule_chunk<RULE, decltype(tp), decltype(tg)>(e, ch.tensor, ch, a, norms,
+                                                 h.n_tensors, lr);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// (f) Lamb (optimizer.py:335-366) and LarsMomentum (:369-407): computed in
+// fp32 and cast back, each scaled by norms of whole tensors. Pass 1
+// (norms_kernel): per chunk, the sums of squares of a (Lamb's r = mhat /
+// (sqrt(vhat) + eps) + wd p; LARS's gradient after the clip) and of p,
+// into partial[2 c] and partial[2 c + 1]. Pass 2 (norm_apply_kernel): each
+// block re-sums its tensor's partials in chunk order, so every block of a
+// tensor holds the same norms, rounds them to fp32 and takes their roots,
+// then updates: Lamb p - (lr trust) r with trust = |p| / |r| (1 where
+// either is 0), recomputing m, v and r from the old state (pass 1 writes
+// nothing but its partials: a bf16 m or v written there would give pass 2
+// a rounded moment, which the reference's r never sees); LARS v = mu v +
+// local_lr (g + wd p) with local_lr = lr coeff |p| / (|g| + wd |p| + eps)
+// where |p| > 0 and that denominator > 0, else lr. The decay is the rule's
+// own, zeroed for a tensor without the decay flag (:135-137).
+// The sums are fp64: an fp32 square is exact in fp64 and a sum of 2^26 of
+// them is within ~2^-40 of itself, far under half an fp32 ulp, so the
+// plain version's sum in another order rounds to the same fp32 value but
+// at a rounding boundary.
+
+constexpr int kLamb = 0, kLars = 1;
+
+struct NormArgs {
+  float b1, b2, omb1, omb2, eps, wd, coeff, mu;  // Lamb: b*, eps, wd; LARS:
+  Clip clip;                                     // wd, coeff, mu, eps
+};
+
+__device__ __forceinline__ double dadd(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double dsq(float x) {
+  return __dmul_rn((double)x, (double)x);
+}
+__device__ __forceinline__ double warp_sum_d(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = dadd(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ double block_sum_d(double v, double* sm) {
+  v = warp_sum_d(v);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) sm[w] = v;
+  __syncthreads();
+  return warp_sum_d(lane < kThreads / 32 ? sm[lane] : 0.0);
+}
+
+// Lamb's new m, v and its r for one element (optimizer.py:353-359)
+__device__ __forceinline__ float lamb_r(const NormArgs& a, float c1, float c2,
+                                        float wd, float g, float p, float& m,
+                                        float& v) {
+  m = fadd(fmul(a.b1, m), fmul(a.omb1, g));
+  v = fadd(fmul(a.b2, v), fmul(fmul(a.omb2, g), g));
+  return fadd(fdiv(fdiv(m, c1), fadd(sqrtf(fdiv(v, c2)), a.eps)), fmul(wd, p));
+}
+
+template <int RULE, typename T, typename TG>
+__device__ void norms_chunk(const int64_t* e, int i, const Chunk& ch,
+                            const NormArgs& a, const float* norms, int n,
+                            float c1, float c2, double& sa, double& sp) {
+  const T* p = reinterpret_cast<const T*>(e[kP]) + ch.off;
+  const TG* g = reinterpret_cast<const TG*>(e[kG]) + ch.off;
+  const T* m = RULE == kLamb ? reinterpret_cast<const T*>(e[kS0]) + ch.off : nullptr;
+  const T* v = RULE == kLamb ? reinterpret_cast<const T*>(e[kS1]) + ch.off : nullptr;
+  const int64_t fl = e[kFlags];
+  const float wd = (fl & kDecay) ? a.wd : 0.f;
+  const Prep<T, TG> prep = make_prep<T, TG>(a.clip, norms, n, i, 0.f, false);
+  auto one = [&](float gq, float pq, float mq, float vq) {
+    const float x = prep(gq, pq);
+    const float y = RULE == kLamb ? lamb_r(a, c1, c2, wd, x, pq, mq, vq) : x;
+    sa = dadd(sa, dsq(y));
+    sp = dadd(sp, dsq(pq));
+  };
+  const int64_t len = ch.len;
+  const int64_t vend = (fl & kVec) ? (len & ~(int64_t)7) : 0;
+  for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
+    float pf[8], gf[8], mf[8] = {}, vf[8] = {};
+    Elem<T>::ld8(p + j, pf);
+    Elem<TG>::ld8(g + j, gf);
+    if (RULE == kLamb) {
+      Elem<T>::ld8(m + j, mf);
+      Elem<T>::ld8(v + j, vf);
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) one(gf[q], pf[q], mf[q], vf[q]);
+  }
+  for (int64_t j = vend + threadIdx.x; j < len; j += kThreads)
+    one(Elem<TG>::ld(g + j), Elem<T>::ld(p + j),
+        RULE == kLamb ? Elem<T>::ld(m + j) : 0.f,
+        RULE == kLamb ? Elem<T>::ld(v + j) : 0.f);
+}
+
+__device__ __forceinline__ void corrections(const NormArgs& a, int step,
+                                            float& c1, float& c2) {
+  // 1 - b^t in fp32 from the fp32 beta, as `Lamb._rule` takes it (:356-358)
+  const float t = (float)step;
+  c1 = fsub(1.f, powf(a.b1, t));
+  c2 = fsub(1.f, powf(a.b2, t));
+}
+
+template <int RULE>
+__global__ void __launch_bounds__(kThreads)
+norms_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
+             NormArgs a, double* __restrict__ partial) {
+  __shared__ double red[kThreads / 32];
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  float c1 = 1.f, c2 = 1.f;
+  if (RULE == kLamb) corrections(a, h.step, c1, c2);
+  double sa = 0.0, sp = 0.0;
+  by_types(e, [&](auto tp, auto tg) {
+    norms_chunk<RULE, decltype(tp), decltype(tg)>(e, ch.tensor, ch, a, norms,
+                                                  h.n_tensors, c1, c2, sa, sp);
+  });
+  sa = block_sum_d(sa, red);
+  sp = block_sum_d(sp, red);
+  if (threadIdx.x == 0) {
+    partial[2 * (int64_t)blockIdx.x] = sa;
+    partial[2 * (int64_t)blockIdx.x + 1] = sp;
+  }
+}
+
+template <int RULE, typename T, typename TG>
+__device__ void norm_apply_chunk(const int64_t* e, int i, const Chunk& ch,
+                                 const NormArgs& a, const float* norms, int n,
+                                 float c1, float c2, float wd, float rate) {
+  T* p = reinterpret_cast<T*>(e[kP]) + ch.off;
+  const TG* g = reinterpret_cast<const TG*>(e[kG]) + ch.off;
+  T* m = reinterpret_cast<T*>(e[kS0]) + ch.off;  // Lamb moment1, LARS velocity
+  T* v = RULE == kLamb ? reinterpret_cast<T*>(e[kS1]) + ch.off : nullptr;
+  const int64_t fl = e[kFlags];
+  const Prep<T, TG> prep = make_prep<T, TG>(a.clip, norms, n, i, 0.f, false);
+  // rate: Lamb lr * trust, LARS local_lr
+  auto one = [&](float& pf, float gq, float& mf, float& vf) {
+    const float x = prep(gq, pf);
+    if (RULE == kLamb) {
+      const float r = lamb_r(a, c1, c2, wd, x, pf, mf, vf);
+      pf = Elem<T>::rnd(fsub(pf, fmul(rate, r)));
+    } else {
+      mf = fadd(fmul(a.mu, mf), fmul(rate, fadd(x, fmul(wd, pf))));
+      pf = Elem<T>::rnd(fsub(pf, mf));
+    }
+  };
+  const int64_t len = ch.len;
+  const int64_t vend = (fl & kVec) ? (len & ~(int64_t)7) : 0;
+  for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
+    float pf[8], gf[8], mf[8], vf[8] = {};
+    Elem<T>::ld8(p + j, pf);
+    Elem<TG>::ld8(g + j, gf);
+    Elem<T>::ld8(m + j, mf);
+    if (RULE == kLamb) Elem<T>::ld8(v + j, vf);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) one(pf[q], gf[q], mf[q], vf[q]);
+    Elem<T>::st8(p + j, pf);
+    Elem<T>::st8(m + j, mf);
+    if (RULE == kLamb) Elem<T>::st8(v + j, vf);
+  }
+  for (int64_t j = vend + threadIdx.x; j < len; j += kThreads) {
+    float pf = Elem<T>::ld(p + j), mf = Elem<T>::ld(m + j);
+    float vf = RULE == kLamb ? Elem<T>::ld(v + j) : 0.f;
+    one(pf, Elem<TG>::ld(g + j), mf, vf);
+    Elem<T>::st(p + j, pf);
+    Elem<T>::st(m + j, mf);
+    if (RULE == kLamb) Elem<T>::st(v + j, vf);
+  }
+}
+
+template <int RULE>
+__global__ void __launch_bounds__(kThreads)
+norm_apply_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
+                  NormArgs a, const double* __restrict__ partial) {
+  __shared__ double red[kThreads / 32];
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  // the tensor's sums, in the same order in every one of its blocks
+  double sa = 0.0, sp = 0.0;
+  for (int64_t c = e[kChunkBegin] + threadIdx.x; c < e[kChunkEnd]; c += kThreads) {
+    sa = dadd(sa, partial[2 * c]);
+    sp = dadd(sp, partial[2 * c + 1]);
+  }
+  sa = block_sum_d(sa, red);
+  sp = block_sum_d(sp, red);
+  const float an = sqrtf((float)sa), pn = sqrtf((float)sp);
+  const float wd = (e[kFlags] & kDecay) ? a.wd : 0.f;
+  float c1 = 1.f, c2 = 1.f, rate;
+  if (RULE == kLamb) {
+    corrections(a, h.step, c1, c2);
+    const float trust = (pn > 0.f && an > 0.f) ? fdiv(pn, an) : 1.f;
+    rate = fmul(h.lr, trust);
+  } else {
+    const float den = fadd(fadd(an, fmul(wd, pn)), a.eps);
+    rate = (pn > 0.f && den > 0.f) ? fdiv(fmul(fmul(h.lr, a.coeff), pn), den)
+                                   : h.lr;
+  }
+  by_types(e, [&](auto tp, auto tg) {
+    norm_apply_chunk<RULE, decltype(tp), decltype(tg)>(
+        e, ch.tensor, ch, a, norms, h.n_tensors, c1, c2, wd, rate);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// (g) GradScaler's unscale (paddle_tpu/amp/grad_scaler.py:52-67; Paddle's
+// check_finite_and_unscale): finite_kernel tests every g * (1 / scale) in
+// fp32 and sets one flag where any is not finite (any block may set it, in
+// any order: nothing is summed); the host reads the flag, and only where
+// it is 0 launches unscale_kernel, which writes cast(g * inv) in place.
+// Bytes bound them: the check reads g, the unscale reads and writes it.
+
+constexpr float kFloatMax = 3.402823466e38f;
+
+template <typename TG>
+__device__ bool finite_chunk(const TG* g, int64_t len, bool vec, float inv) {
+  bool bad = false;
+  const int64_t vend = vec ? (len & ~(int64_t)7) : 0;
+  for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
+    float x[8];
+    Elem<TG>::ld8(g + j, x);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) bad |= !(fabsf(fmul(x[q], inv)) <= kFloatMax);
+  }
+  for (int64_t j = vend + threadIdx.x; j < len; j += kThreads)
+    bad |= !(fabsf(fmul(Elem<TG>::ld(g + j), inv)) <= kFloatMax);
+  return bad;
+}
+
+__global__ void __launch_bounds__(kThreads)
+finite_kernel(const int64_t* __restrict__ table, float inv, int* __restrict__ flag) {
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  const bool vec = e[kFlags] & kVec;
+  const bool bad = by_types(e, [&](auto, auto tg) {
+    using TG = decltype(tg);
+    return finite_chunk(reinterpret_cast<const TG*>(e[kG]) + ch.off, ch.len,
+                        vec, inv);
+  });
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
+}
+
+template <typename TG>
+__device__ void unscale_chunk(TG* g, int64_t len, bool vec, float inv) {
+  const int64_t vend = vec ? (len & ~(int64_t)7) : 0;
+  for (int64_t j = (int64_t)threadIdx.x * 8; j < vend; j += kThreads * 8) {
+    float x[8];
+    Elem<TG>::ld8(g + j, x);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) x[q] = fmul(x[q], inv);
+    Elem<TG>::st8(g + j, x);
+  }
+  for (int64_t j = vend + threadIdx.x; j < len; j += kThreads)
+    Elem<TG>::st(g + j, fmul(Elem<TG>::ld(g + j), inv));
+}
+
+__global__ void __launch_bounds__(kThreads)
+unscale_kernel(const int64_t* __restrict__ table, float inv) {
+  const Header h = header(table);
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  const bool vec = e[kFlags] & kVec;
+  by_types(e, [&](auto, auto tg) {
+    using TG = decltype(tg);
+    unscale_chunk(reinterpret_cast<TG*>(e[kG]) + ch.off, ch.len, vec, inv);
+  });
+}
+
 Clip make_clip(int mode, float lo, float hi) {
   Clip c;
   c.mode = mode;
@@ -858,5 +1279,88 @@ extern "C" int pt_opt_adafactor_update(const void* table, int n_chunks,
       t, (const float*)norms, a, (const float*)stats, (float*)uspart);
   adafactor_apply_kernel<<<n_chunks, kThreads, 0, st>>>(
       t, (const float*)norms, a, (const float*)stats, (const float*)uspart);
+  return (int)cudaGetLastError();
+}
+
+// (e): rule kSGD..kAdadelta, h and opt as RuleArgs; norms from pt_opt_sumsq
+// (clip_mode 1) or null
+extern "C" int pt_opt_rule(const void* table, int n_chunks, const void* norms,
+                           int rule, float h0, float h1, float h2, float h3,
+                           int opt, float wd, int clip_mode, float lo,
+                           float hi, void* stream) {
+  if (rule < kSGD || rule > kAdadelta) return (int)cudaErrorInvalidValue;
+  if (n_chunks == 0) return (int)cudaGetLastError();
+  RuleArgs a;
+  a.h[0] = h0;
+  a.h[1] = h1;
+  a.h[2] = h2;
+  a.h[3] = h3;
+  a.opt = opt;
+  a.wd = wd;
+  a.clip = make_clip(clip_mode, lo, hi);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* t = (const int64_t*)table;
+  const float* nm = (const float*)norms;
+  switch (rule) {
+    case kSGD: rule_kernel<kSGD><<<n_chunks, kThreads, 0, st>>>(t, nm, a); break;
+    case kMomentum: rule_kernel<kMomentum><<<n_chunks, kThreads, 0, st>>>(t, nm, a); break;
+    case kAdagrad: rule_kernel<kAdagrad><<<n_chunks, kThreads, 0, st>>>(t, nm, a); break;
+    case kAdamax: rule_kernel<kAdamax><<<n_chunks, kThreads, 0, st>>>(t, nm, a); break;
+    case kRMSProp: rule_kernel<kRMSProp><<<n_chunks, kThreads, 0, st>>>(t, nm, a); break;
+    default: rule_kernel<kAdadelta><<<n_chunks, kThreads, 0, st>>>(t, nm, a); break;
+  }
+  return (int)cudaGetLastError();
+}
+
+// (f): rule kLamb or kLars; partial [2 n_chunks] fp64 scratch
+extern "C" int pt_opt_norm_rule(const void* table, int n_chunks,
+                                const void* norms, int rule, float b1,
+                                float b2, float omb1, float omb2, float eps,
+                                float wd, float coeff, float mu, int clip_mode,
+                                float lo, float hi, void* partial,
+                                void* stream) {
+  if (rule != kLamb && rule != kLars) return (int)cudaErrorInvalidValue;
+  if (n_chunks == 0) return (int)cudaGetLastError();
+  NormArgs a;
+  a.b1 = b1;
+  a.b2 = b2;
+  a.omb1 = omb1;
+  a.omb2 = omb2;
+  a.eps = eps;
+  a.wd = wd;
+  a.coeff = coeff;
+  a.mu = mu;
+  a.clip = make_clip(clip_mode, lo, hi);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int64_t* t = (const int64_t*)table;
+  const float* nm = (const float*)norms;
+  double* part = (double*)partial;
+  if (rule == kLamb) {
+    norms_kernel<kLamb><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
+    norm_apply_kernel<kLamb><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
+  } else {
+    norms_kernel<kLars><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
+    norm_apply_kernel<kLars><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
+  }
+  return (int)cudaGetLastError();
+}
+
+// (g): flag [1] int32, zeroed here, then 1 where some g * inv is not finite
+extern "C" int pt_opt_check_finite(const void* table, int n_chunks, float inv,
+                                   void* flag, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  if (n_chunks > 0)
+    finite_kernel<<<n_chunks, kThreads, 0, st>>>((const int64_t*)table, inv,
+                                                 (int*)flag);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pt_opt_unscale(const void* table, int n_chunks, float inv,
+                              void* stream) {
+  if (n_chunks > 0)
+    unscale_kernel<<<n_chunks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int64_t*)table, inv);
   return (int)cudaGetLastError();
 }

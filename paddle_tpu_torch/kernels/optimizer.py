@@ -1,5 +1,6 @@
-"""Fused multi-tensor optimizer update: clip, decay and the Adam / AdamW or
-Adafactor rule over every parameter of a step in a few kernel launches.
+"""Fused multi-tensor optimizer update: clip, decay and the rule of each of
+the JAX package's optimizers over every parameter of a step in a few kernel
+launches, and the gradient scaler's finiteness test and unscale.
 
 Counterpart of what the JAX package gets from XLA: ``Optimizer._get_fused``
 (``paddle_tpu/optimizer/optimizer.py:117-147``) jits clip, decay and the
@@ -13,9 +14,18 @@ version, the per-tensor PyTorch loop:
 - :func:`adam_update`: Adam (coupled decay) and AdamW (decoupled);
 - :func:`adafactor_stats`: Adafactor's ``vr``/``vc`` (or ``v``),
   ``mean(vr)`` per matrix and the parameters' sums of squares;
-- :func:`adafactor_update`: Adafactor's clipped update.
+- :func:`adafactor_update`: Adafactor's clipped update;
+- :func:`sgd_update`, :func:`momentum_update`, :func:`adagrad_update`,
+  :func:`adamax_update`, :func:`rmsprop_update`, :func:`adadelta_update`:
+  the rules computed in the parameter's dtype (``optimizer.py:212-332,
+  476-498``), one kernel over a rule id;
+- :func:`lamb_update`, :func:`lars_update`: Lamb and LarsMomentum
+  (``optimizer.py:335-407``), fp32 with per-tensor norms (two launches);
+- :func:`check_finite`, :func:`unscale`: ``GradScaler.unscale_``
+  (``paddle_tpu/amp/grad_scaler.py:52-67``), Paddle's
+  ``check_finite_and_unscale``.
 
-All four take a :class:`StepBatch`, the step's tensors in lists, and read
+All take a :class:`StepBatch`, the step's tensors in lists, and read
 the learning rate and the step from the header of its table, which is
 copied to the device on the stream. A batch lives as long as its tensors'
 storage: the optimizer keeps one across steps and only rewrites the
@@ -41,13 +51,23 @@ import torch
 
 from . import _build
 
-__all__ = ["StepBatch", "multi_tensor_sumsq", "multi_tensor_sumsq_plain",
-           "adam_update", "adam_update_plain", "adafactor_stats",
-           "adafactor_stats_plain", "adafactor_update",
-           "adafactor_update_plain", "clip_norms_plain", "clip_plain",
-           "FLAT_CHUNK", "TILE_ELEMENTS", "MAX_TILE_ROWS", "SEG_COLS",
-           "COUNTS_SUMSQ", "COUNTS_ADAM", "COUNTS_ADAFACTOR_STATS",
-           "COUNTS_ADAFACTOR_UPDATE"]
+__all__ = ["StepBatch", "RULES", "multi_tensor_sumsq",
+           "multi_tensor_sumsq_plain", "adam_update", "adam_update_plain",
+           "adafactor_stats", "adafactor_stats_plain", "adafactor_update",
+           "adafactor_update_plain", "sgd_update", "sgd_update_plain",
+           "momentum_update", "momentum_update_plain", "adagrad_update",
+           "adagrad_update_plain", "adamax_update", "adamax_update_plain",
+           "rmsprop_update", "rmsprop_update_plain", "adadelta_update",
+           "adadelta_update_plain", "lamb_update", "lamb_update_plain",
+           "lars_update", "lars_update_plain", "check_finite",
+           "check_finite_plain", "unscale", "unscale_plain",
+           "clip_norms_plain", "clip_plain", "FLAT_CHUNK", "TILE_ELEMENTS",
+           "MAX_TILE_ROWS", "SEG_COLS", "COUNTS_SUMSQ", "COUNTS_ADAM",
+           "COUNTS_ADAFACTOR_STATS", "COUNTS_ADAFACTOR_UPDATE",
+           "COUNTS_SGD", "COUNTS_MOMENTUM", "COUNTS_ADAGRAD",
+           "COUNTS_ADAMAX", "COUNTS_RMSPROP", "COUNTS_ADADELTA",
+           "COUNTS_LAMB", "COUNTS_LARS", "COUNTS_CHECK_FINITE",
+           "COUNTS_UNSCALE"]
 
 # the chunk table (csrc/optimizer.cu): a header of two int64 words, one
 # entry of TENSOR_WORDS words per tensor, one word per chunk, one per matrix
@@ -61,11 +81,33 @@ MAX_TILE_ROWS = 1024      # rows of a tile at most (csrc kMaxTileRows)
 SEG_COLS = 6144           # columns per pass of the stats kernel at most
 _CLIP_MODES = {"none": 0, "scale": 1, "value": 2}
 _DTYPES = (torch.float32, torch.bfloat16)
+# the state slots of each rule (the kernels' slot order), every one of the
+# parameter's dtype and size as the JAX package's zeros_like(p); Adafactor
+# keeps its own (StepBatch._slot_specs). "grads": a batch of gradients
+# alone, which the clip's __call__ and the gradient scaler read.
+_RULE_SLOTS = {"adam": 2, "sgd": 0, "momentum": 1, "adagrad": 1,
+               "adamax": 2, "rmsprop": 3, "adadelta": 2, "lamb": 2,
+               "lars": 1, "grads": 0}
+RULES = tuple(_RULE_SLOTS) + ("adafactor",)
+# pt_opt_rule's rule ids (csrc kSGD..kAdadelta) and pt_opt_norm_rule's
+_RULE_IDS = {"sgd": 0, "momentum": 1, "adagrad": 2, "adamax": 3,
+             "rmsprop": 4, "adadelta": 5}
+_NORM_RULE_IDS = {"lamb": 0, "lars": 1}
 
 COUNTS_SUMSQ = _build.Counts()
 COUNTS_ADAM = _build.Counts()
 COUNTS_ADAFACTOR_STATS = _build.Counts()
 COUNTS_ADAFACTOR_UPDATE = _build.Counts()
+COUNTS_SGD = _build.Counts()
+COUNTS_MOMENTUM = _build.Counts()
+COUNTS_ADAGRAD = _build.Counts()
+COUNTS_ADAMAX = _build.Counts()
+COUNTS_RMSPROP = _build.Counts()
+COUNTS_ADADELTA = _build.Counts()
+COUNTS_LAMB = _build.Counts()
+COUNTS_LARS = _build.Counts()
+COUNTS_CHECK_FINITE = _build.Counts()
+COUNTS_UNSCALE = _build.Counts()
 
 
 class StepBatch:
@@ -73,10 +115,12 @@ class StepBatch:
 
     ``params`` and ``grads`` are lists of one length; ``slots`` three lists
     of the rule's state (Adam: ``moment1``, ``moment2``, unused; Adafactor:
-    ``vr`` or ``v``, ``vc`` or None, ``m`` or None); ``decay`` the
-    per-tensor weight-decay flags; ``lr`` and ``step`` this step's rate and
-    1-based step number; ``rule`` ``"adam"`` or ``"adafactor"``, whose
-    tensors of 2+ dimensions are chunked by whole rows. Every tensor lies
+    ``vr`` or ``v``, ``vc`` or None, ``m`` or None; the other rules as the
+    optimizers' ``_slots`` give them, None where a rule keeps fewer);
+    ``decay`` the per-tensor weight-decay flags; ``lr`` and ``step`` this
+    step's rate and 1-based step number; ``rule`` one of :data:`RULES`
+    (Adafactor's tensors of 2+ dimensions are chunked by whole rows; the
+    others' by flat chunks; ``"grads"`` keeps no state). Every tensor lies
     on the first parameter's device (ValueError otherwise), so the
     wrappers route the whole batch by that one device.
 
@@ -97,7 +141,7 @@ class StepBatch:
                  slots: Sequence[Sequence[Optional[torch.Tensor]]],
                  decay: Sequence[bool], lr: float, step: int,
                  rule: str = "adam"):
-        if rule not in ("adam", "adafactor"):
+        if rule not in RULES:
             raise ValueError(f"unknown rule {rule!r}")
         self.params = list(params)
         self.grads = list(grads)
@@ -173,8 +217,10 @@ class StepBatch:
         """(dtype, numel) each slot must have for tensor ``i``."""
         p = self.params[i]
         n = p.numel()
-        if self.rule == "adam":
-            return [(p.dtype, n), (p.dtype, n), (None, None)]
+        if self.rule != "adafactor":
+            k = _RULE_SLOTS[self.rule]
+            return [(p.dtype, n) if j < k else (None, None)
+                    for j in range(3)]
         if self.factored(i):
             return [(torch.float32, n // p.shape[-1] if n else 0),
                     (torch.float32, n // p.shape[-2] if n else 0),
@@ -412,8 +458,16 @@ def _grad_plain(batch: StepBatch, i: int, clip, norms, weight_decay,
     p = batch.params[i]
     g = clip_plain(batch.grads[i], clip, norms, i).to(p.dtype)
     if weight_decay and not decoupled and batch.decay[i]:
-        g = g + weight_decay * p
+        g = g + _const(weight_decay, p) * p
     return g
+
+
+def _const(x, t):
+    """The Python float ``x`` as the JAX package takes it beside a tensor
+    of ``t``'s dtype (a weakly typed scalar): a 0-d tensor of that dtype on
+    ``t``'s device, so a bf16 product rounds the constant to bf16 first, as
+    the kernels do (``Elem<T>::rnd``)."""
+    return torch.tensor(x, dtype=t.dtype, device=t.device)
 
 
 # -- (b) Adam / AdamW ----------------------------------------------------------
@@ -598,3 +652,346 @@ def adafactor_update(batch: StepBatch, stats, *, beta1, epsilon2,
                   1.0 - beta1, float(epsilon2), float(clip_threshold),
                   int(bool(pscale)), float(weight_decay), mode, lo, hi)
     COUNTS_ADAFACTOR_UPDATE.launched()
+
+
+# -- (e) the rules computed in the parameter's dtype ---------------------------
+
+# each rule's hyperparameters as pt_opt_rule takes them (RuleArgs.h), its
+# option flag (Momentum: Nesterov; RMSProp: centered) and its counter
+def _rule_args(rule, kw):
+    if rule == "sgd":
+        return (), 0
+    if rule == "momentum":
+        return (kw["momentum"],), int(bool(kw["nesterov"]))
+    if rule == "adagrad":
+        return (kw["epsilon"],), 0
+    if rule == "adamax":
+        return (kw["beta1"], 1.0 - kw["beta1"], kw["beta2"],
+                kw["epsilon"]), 0
+    if rule == "rmsprop":
+        return (kw["rho"], 1.0 - kw["rho"], kw["epsilon"],
+                kw["momentum"]), int(bool(kw["centered"]))
+    return (kw["rho"], 1.0 - kw["rho"], kw["epsilon"]), 0  # adadelta
+
+
+_RULE_COUNTS = {"sgd": COUNTS_SGD, "momentum": COUNTS_MOMENTUM,
+                "adagrad": COUNTS_ADAGRAD, "adamax": COUNTS_ADAMAX,
+                "rmsprop": COUNTS_RMSPROP, "adadelta": COUNTS_ADADELTA}
+
+
+def _rule_plain(rule, batch: StepBatch, kw, weight_decay, clip, norms):
+    """The per-tensor loop of one of the six rules, each operation in the
+    parameter's dtype in the order of its ``_rule`` (``optimizer.py:
+    212-332, 476-498``): the Python-float hyperparameters and the rate
+    (``lr.astype(p.dtype)``) are constants of that dtype (:func:`_const`);
+    ``1 - x`` is taken in Python before it becomes one; Adamax's rate
+    ``lr / (1 - b1^t)`` is taken in fp32, then cast."""
+    h, opt = _rule_args(rule, kw)
+    lr, step = batch.scalars()
+    lr_t = lr
+    if rule == "adamax":
+        t = step.float()
+        lr_t = lr / (1 - torch.pow(torch.full_like(t, h[0]), t))
+    for i, p in enumerate(batch.params):
+        g = _grad_plain(batch, i, clip, norms, weight_decay, False)
+        s0, s1, s2 = (s[i] for s in batch.slots)
+        c = [_const(x, p) for x in h]
+        r = lr_t.to(p.dtype)
+        if rule == "sgd":
+            new = p - r * g
+        elif rule == "momentum":
+            v = c[0] * s0 + g
+            new = p - r * ((g + c[0] * v) if opt else v)
+            s0.copy_(v)
+        elif rule == "adagrad":
+            m = s0 + g * g
+            new = p - (r * g) / (m.sqrt() + c[0])
+            s0.copy_(m)
+        elif rule == "adamax":
+            m = c[0] * s0 + c[1] * g
+            u = torch.maximum(c[2] * s1, g.abs())
+            new = p - (r * m) / (u + c[3])
+            s0.copy_(m)
+            s1.copy_(u)
+        elif rule == "rmsprop":
+            ms = c[0] * s0 + (c[1] * g) * g
+            if opt:
+                mg = c[0] * s1 + c[1] * g
+                den = (ms - mg * mg + c[2]).sqrt()
+                s1.copy_(mg)
+            else:
+                den = (ms + c[2]).sqrt()
+            v = c[3] * s2 + (r * g) / den
+            new = p - v
+            s0.copy_(ms)
+            s2.copy_(v)
+        else:  # adadelta: the update reads the old avg_squared_update
+            g2 = c[0] * s0 + (c[1] * g) * g
+            upd = -(s1 + c[2]).sqrt() / (g2 + c[2]).sqrt() * g
+            u2 = c[0] * s1 + (c[1] * upd) * upd
+            new = p + r * upd
+            s0.copy_(g2)
+            s1.copy_(u2)
+        p.copy_(new)
+
+
+def _rule_update(rule, batch: StepBatch, kw, weight_decay, clip, norms):
+    """One of the six rules over ``batch`` in place: the kernel
+    (``pt_opt_rule``, one launch) on a CUDA batch, the plain loop on a CPU
+    one."""
+    if not _route(batch, _RULE_COUNTS[rule]):
+        return _rule_plain(rule, batch, kw, weight_decay, clip, norms)
+    mode, lo, hi = _clip_args(batch, clip, norms)
+    h, opt = _rule_args(rule, kw)
+    h = [float(x) for x in h] + [0.0] * (4 - len(h))
+    table = batch.table()
+    fn = _build.kernel("pt_opt_rule", [ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_int] +
+                       [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_float,
+                                               ctypes.c_int] +
+                       [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    _build.launch(fn, "pt_opt_rule", batch.device, table.data_ptr(),
+                  batch.n_chunks, _ptr(norms), _RULE_IDS[rule], *h, opt,
+                  float(weight_decay), mode, lo, hi)
+    _RULE_COUNTS[rule].launched()
+
+
+def sgd_update_plain(batch, *, weight_decay=0.0, clip=("none",), norms=None):
+    _rule_plain("sgd", batch, {}, weight_decay, clip, norms)
+
+
+def sgd_update(batch, *, weight_decay=0.0, clip=("none",), norms=None):
+    """SGD (``optimizer.py:212-215``): ``p - lr g`` with the coupled decay,
+    in place over ``batch`` (rule ``"sgd"``)."""
+    _rule_update("sgd", batch, {}, weight_decay, clip, norms)
+
+
+def momentum_update_plain(batch, *, momentum, nesterov, weight_decay=0.0,
+                          clip=("none",), norms=None):
+    _rule_plain("momentum", batch, dict(momentum=momentum, nesterov=nesterov),
+                weight_decay, clip, norms)
+
+
+def momentum_update(batch, *, momentum, nesterov, weight_decay=0.0,
+                    clip=("none",), norms=None):
+    """Momentum (``optimizer.py:218-235``): ``v = mu v + g``, ``p - lr v``
+    (Nesterov: ``p - lr (g + mu v)``); ``slots[0]`` velocity."""
+    _rule_update("momentum", batch, dict(momentum=momentum,
+                                         nesterov=nesterov),
+                 weight_decay, clip, norms)
+
+
+def adagrad_update_plain(batch, *, epsilon, weight_decay=0.0, clip=("none",),
+                         norms=None):
+    _rule_plain("adagrad", batch, dict(epsilon=epsilon), weight_decay, clip,
+                norms)
+
+
+def adagrad_update(batch, *, epsilon, weight_decay=0.0, clip=("none",),
+                   norms=None):
+    """Adagrad (``optimizer.py:238-250``): ``m += g g``, ``p - (lr g) /
+    (sqrt(m) + eps)``; ``slots[0]`` moment."""
+    _rule_update("adagrad", batch, dict(epsilon=epsilon), weight_decay, clip,
+                 norms)
+
+
+def adamax_update_plain(batch, *, beta1, beta2, epsilon, weight_decay=0.0,
+                        clip=("none",), norms=None):
+    _rule_plain("adamax", batch, dict(beta1=beta1, beta2=beta2,
+                                      epsilon=epsilon),
+                weight_decay, clip, norms)
+
+
+def adamax_update(batch, *, beta1, beta2, epsilon, weight_decay=0.0,
+                  clip=("none",), norms=None):
+    """Adamax (``optimizer.py:291-307``): ``m = b1 m + (1 - b1) g``, ``u =
+    max(b2 u, |g|)``, ``p - (lr_t m) / (u + eps)`` with ``lr_t = lr / (1 -
+    b1^t)`` in fp32; ``slots[0]`` moment, ``slots[1]`` inf_norm."""
+    _rule_update("adamax", batch, dict(beta1=beta1, beta2=beta2,
+                                       epsilon=epsilon),
+                 weight_decay, clip, norms)
+
+
+def rmsprop_update_plain(batch, *, rho, epsilon, momentum, centered,
+                         weight_decay=0.0, clip=("none",), norms=None):
+    _rule_plain("rmsprop", batch, dict(rho=rho, epsilon=epsilon,
+                                       momentum=momentum, centered=centered),
+                weight_decay, clip, norms)
+
+
+def rmsprop_update(batch, *, rho, epsilon, momentum, centered,
+                   weight_decay=0.0, clip=("none",), norms=None):
+    """RMSProp (``optimizer.py:310-332``), centered or not, with momentum:
+    ``slots`` mean_square, mean_grad (read and written only when
+    centered), velocity."""
+    _rule_update("rmsprop", batch, dict(rho=rho, epsilon=epsilon,
+                                        momentum=momentum,
+                                        centered=centered),
+                 weight_decay, clip, norms)
+
+
+def adadelta_update_plain(batch, *, rho, epsilon, weight_decay=0.0,
+                          clip=("none",), norms=None):
+    _rule_plain("adadelta", batch, dict(rho=rho, epsilon=epsilon),
+                weight_decay, clip, norms)
+
+
+def adadelta_update(batch, *, rho, epsilon, weight_decay=0.0, clip=("none",),
+                    norms=None):
+    """Adadelta (``optimizer.py:476-498``): ``slots`` avg_squared_grad,
+    avg_squared_update; the update reads the old avg_squared_update."""
+    _rule_update("adadelta", batch, dict(rho=rho, epsilon=epsilon),
+                 weight_decay, clip, norms)
+
+
+# -- (f) Lamb and LarsMomentum: fp32, per-tensor norms ---------------------------
+
+def _norm(x):
+    """fp32 ``||x||``: the sum of squares in fp64 (each fp32 square exact,
+    the sum within ~2^-40 of itself), rounded to fp32, then its root, as
+    the kernels take it (``csrc/optimizer.cu`` section (f))."""
+    return x.double().square().sum().float().sqrt()
+
+
+def lamb_update_plain(batch: StepBatch, *, beta1, beta2, epsilon,
+                      weight_decay, clip=("none",), norms=None):
+    """The per-tensor loop of ``Lamb._rule`` (``optimizer.py:347-366``) in
+    fp32: the decay ``weight_decay`` inside the rule, 0 for a tensor
+    without the decay flag; the bias corrections in fp32."""
+    lr, step = batch.scalars()
+    t = step.float()
+    c1 = 1.0 - torch.pow(torch.full_like(t, beta1), t)
+    c2 = 1.0 - torch.pow(torch.full_like(t, beta2), t)
+    omb1, omb2 = 1.0 - beta1, 1.0 - beta2
+    for i, p in enumerate(batch.params):
+        m0, v0 = batch.slots[0][i], batch.slots[1][i]
+        wd = weight_decay if batch.decay[i] else 0.0
+        gf = _grad_plain(batch, i, clip, norms, 0.0, False).float()
+        pf = p.float()
+        m = m0.float() * beta1 + gf * omb1
+        v = v0.float() * beta2 + (gf * omb2) * gf
+        r = (m / c1) / ((v / c2).sqrt() + epsilon) + pf * wd
+        pn, rn = _norm(pf), _norm(r)
+        trust = torch.where((pn > 0) & (rn > 0), pn / rn,
+                            torch.ones_like(pn))
+        new = (pf - (lr * trust) * r).to(p.dtype)
+        p.copy_(new)
+        m0.copy_(m)
+        v0.copy_(v)
+
+
+def _norm_rule(rule, counts, batch, args, clip, norms):
+    """Launch ``pt_opt_norm_rule`` (two kernels) over ``batch``."""
+    mode, lo, hi = _clip_args(batch, clip, norms)
+    table = batch.table()
+    partial = torch.empty(max(2 * batch.n_chunks, 1), dtype=torch.float64,
+                          device=batch.device)
+    fn = _build.kernel("pt_opt_norm_rule",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_int] + [ctypes.c_float] * 8 +
+                       [ctypes.c_int] + [ctypes.c_float] * 2 +
+                       [ctypes.c_void_p] * 2)
+    _build.launch(fn, "pt_opt_norm_rule", batch.device, table.data_ptr(),
+                  batch.n_chunks, _ptr(norms), _NORM_RULE_IDS[rule],
+                  *[float(x) for x in args], mode, lo, hi,
+                  partial.data_ptr())
+    counts.launched()
+
+
+def lamb_update(batch: StepBatch, *, beta1, beta2, epsilon, weight_decay,
+                clip=("none",), norms=None):
+    """Lamb over ``batch`` in place (p, ``slots[0]`` moment1, ``slots[1]``
+    moment2): per-tensor norms of p and of ``r = mhat / (sqrt(vhat) + eps)
+    + wd p``, then ``p - (lr trust) r``."""
+    if not _route(batch, COUNTS_LAMB):
+        return lamb_update_plain(batch, beta1=beta1, beta2=beta2,
+                                 epsilon=epsilon, weight_decay=weight_decay,
+                                 clip=clip, norms=norms)
+    _norm_rule("lamb", COUNTS_LAMB, batch,
+               (beta1, beta2, 1.0 - beta1, 1.0 - beta2, epsilon,
+                weight_decay, 0.0, 0.0), clip, norms)
+
+
+def lars_update_plain(batch: StepBatch, *, momentum, lars_coeff,
+                      weight_decay, epsilon, clip=("none",), norms=None):
+    """The per-tensor loop of ``LarsMomentum._rule`` (``optimizer.py:
+    394-407``) in fp32: ``local_lr = lr coeff |p| / (|g| + wd |p| + eps)``
+    where |p| and that denominator are positive (else lr), ``v = mu v +
+    local_lr (g + wd p)``, ``p - v``; the decay 0 for a tensor without the
+    decay flag."""
+    lr, _step = batch.scalars()
+    for i, p in enumerate(batch.params):
+        v0 = batch.slots[0][i]
+        wd = weight_decay if batch.decay[i] else 0.0
+        gf = _grad_plain(batch, i, clip, norms, 0.0, False).float()
+        pf = p.float()
+        pn, gn = _norm(pf), _norm(gf)
+        den = (gn + pn * wd) + epsilon
+        rate = torch.where((pn > 0) & (den > 0), ((lr * lars_coeff) * pn) / den,
+                           lr)
+        v = v0.float() * momentum + rate * (gf + pf * wd)
+        p.copy_((pf - v).to(p.dtype))
+        v0.copy_(v)
+
+
+def lars_update(batch: StepBatch, *, momentum, lars_coeff, weight_decay,
+                epsilon, clip=("none",), norms=None):
+    """LarsMomentum over ``batch`` in place (p, ``slots[0]`` velocity):
+    per-tensor norms of p and of the clipped gradient, then one update
+    pass."""
+    if not _route(batch, COUNTS_LARS):
+        return lars_update_plain(batch, momentum=momentum,
+                                 lars_coeff=lars_coeff,
+                                 weight_decay=weight_decay, epsilon=epsilon,
+                                 clip=clip, norms=norms)
+    _norm_rule("lars", COUNTS_LARS, batch,
+               (0.0, 0.0, 0.0, 0.0, epsilon, weight_decay, lars_coeff,
+                momentum), clip, norms)
+
+
+# -- (g) the gradient scaler's check_finite_and_unscale ----------------------------
+
+def check_finite_plain(batch: StepBatch, inv_scale):
+    """int32 ``[1]``: 1 where some ``g * inv_scale`` (fp32) of
+    ``batch.grads`` is not finite, else 0."""
+    flag = torch.zeros(1, dtype=torch.int32, device=batch.device)
+    for g in batch.grads:
+        flag |= (~torch.isfinite(g.float() * inv_scale).all()).to(
+            torch.int32)
+    return flag
+
+
+def check_finite(batch: StepBatch, inv_scale):
+    """The finiteness test of ``GradScaler.unscale_``
+    (``paddle_tpu/amp/grad_scaler.py:21-27, 62-64``) over ``batch.grads``
+    (rule ``"grads"``): int32 ``[1]`` on the batch's device, 1 where some
+    ``g * inv_scale`` in fp32 is not finite. The host reads it."""
+    if not _route(batch, COUNTS_CHECK_FINITE):
+        return check_finite_plain(batch, inv_scale)
+    table = batch.table()
+    flag = torch.empty(1, dtype=torch.int32, device=batch.device)
+    fn = _build.kernel("pt_opt_check_finite",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                        ctypes.c_void_p, ctypes.c_void_p])
+    _build.launch(fn, "pt_opt_check_finite", batch.device, table.data_ptr(),
+                  batch.n_chunks, float(inv_scale), flag.data_ptr())
+    COUNTS_CHECK_FINITE.launched()
+    return flag
+
+
+def unscale_plain(batch: StepBatch, inv_scale):
+    for g in batch.grads:
+        g.copy_((g.float() * inv_scale).to(g.dtype))
+
+
+def unscale(batch: StepBatch, inv_scale):
+    """Every gradient of ``batch`` to ``cast(g * inv_scale)`` in place, the
+    product in fp32 (``grad_scaler.py:62, 65-67``)."""
+    if not _route(batch, COUNTS_UNSCALE):
+        return unscale_plain(batch, inv_scale)
+    table = batch.table()
+    fn = _build.kernel("pt_opt_unscale", [ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_float, ctypes.c_void_p])
+    _build.launch(fn, "pt_opt_unscale", batch.device, table.data_ptr(),
+                  batch.n_chunks, float(inv_scale))
+    COUNTS_UNSCALE.launched()

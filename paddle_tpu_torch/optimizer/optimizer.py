@@ -1,5 +1,5 @@
 """Optimizers (port of ``paddle_tpu/optimizer/optimizer.py``: the
-``Optimizer`` base, ``Adam``, ``AdamW`` and ``Adafactor``).
+``Optimizer`` base, its eleven rules and ``make_master_update``).
 
 As in the JAX package, ``step()`` applies the gradient clip, the weight
 decay (coupled: ``g + wd * p`` before the rule, as ``Adam`` and
@@ -7,9 +7,10 @@ decay (coupled: ``g + wd * p`` before the rule, as ``Adam`` and
 ``AdamW``) and the rule to every parameter that has a gradient at once:
 the JAX package jits that as one function (``Optimizer._get_fused``);
 here it is a few launches of the hand-written multi-tensor kernels of
-``kernels/optimizer.py`` on CUDA (AdamW: one; with a norm clip, one more;
-Adafactor: two, with a norm clip three), and their plain versions, the
-per-tensor loop, on the CPU. The learning rate (a float or an
+``kernels/optimizer.py`` on CUDA (AdamW, SGD, Momentum, Adagrad, Adamax,
+RMSProp, Adadelta, Lamb, LarsMomentum: one wrapper call; with a norm clip,
+one more; Adafactor: two, with a norm clip three), and their plain
+versions, the per-tensor loop, on the CPU. The learning rate (a float or an
 ``LRScheduler``) and the step number reach the kernels as device
 scalars, never as kernel arguments.
 
@@ -19,10 +20,17 @@ dtype or a decay flag changes, and otherwise only its header (rate and
 step) is written, one 16-byte copy. So a CUDA graph that captured a step
 (``jit.TrainStep``) replays it with each step's rate and number.
 
-Rounding follows the reference, which matters in bf16: Adam's moments
-have the parameter's dtype (``zeros_like(p)``), the update is computed in
-fp32 and p, m and v are each cast back to their dtype; the decoupled
-decay subtracts ``cast(lr * wd * p_old)`` from the cast result.
+Rounding follows the reference, which matters in bf16: every state has
+the parameter's dtype (``zeros_like(p)``) but Adafactor's factors. Adam,
+Lamb and LarsMomentum compute in fp32 and cast p and their state back;
+the decoupled decay subtracts ``cast(lr * wd * p_old)`` from the cast
+result. SGD, Momentum, Adagrad, Adamax, RMSProp and Adadelta compute each
+operation in the parameter's dtype, their Python-float hyperparameters and
+the rate constants of that dtype. The coupled decay ``g + wd * p`` (the
+base path, ``weight_decay`` a float, an ``L2Decay`` or an ``L1Decay``,
+whose coefficient the reference adds as the same coupled term) is taken
+in the parameter's dtype; Lamb and LarsMomentum take theirs inside the
+rule.
 
 Adafactor (Shazeer & Stern 2018) factors the second moments of a tensor of
 2 or more dimensions into per-row ``vr`` and per-column ``vc`` fp32
@@ -43,7 +51,20 @@ import torch
 from ..kernels import optimizer as _kopt
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW", "Adafactor"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adam", "AdamW",
+           "Adamax", "RMSProp", "Lamb", "LarsMomentum", "Adafactor",
+           "Adadelta", "make_master_update"]
+
+
+def _wd_value(weight_decay) -> float:
+    """The coupled decay's coefficient (``optimizer.py:204-209``): None is
+    0; a regularizer (``L2Decay``, and ``L1Decay`` as well) gives its
+    ``_coeff``; anything else is a float."""
+    if weight_decay is None:
+        return 0.0
+    if hasattr(weight_decay, "_coeff"):
+        return float(weight_decay._coeff)
+    return float(weight_decay)
 
 
 class Optimizer:
@@ -66,13 +87,14 @@ class Optimizer:
             raise ValueError("apply_decay_param_fun needs parameter names: "
                              "pass parameters=model.named_parameters()")
         self._parameter_list = [p for _, p in items] if named else items
+        self._named = named
         self._names = [n for n, _ in items] if named else \
             [f"param_{i}" for i in range(len(items))]
         self._decay = [apply_decay_param_fun is None
                        or bool(apply_decay_param_fun(n)) for n in self._names]
         self._learning_rate = learning_rate
         self._grad_clip = grad_clip
-        self._weight_decay = float(weight_decay or 0.0)
+        self._weight_decay = _wd_value(weight_decay)
         self._decoupled = False  # AdamW
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
         self._global_step = 0
@@ -327,3 +349,267 @@ class Adafactor(Optimizer):
             batch, stats, beta1=self._b1, epsilon2=self._eps2,
             clip_threshold=self._clip_threshold, pscale=self._pscale,
             weight_decay=wd, clip=clip, norms=norms)
+
+
+class SGD(Optimizer):
+    """``p - lr g`` (``optimizer.py:212-215``), in the parameter's dtype."""
+
+    _rule = "sgd"
+
+    def __init__(self, learning_rate=0.001,
+                 parameters: Optional[Iterable] = None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+
+    def _slots(self, st):
+        return [None, None, None]
+
+    def _update(self, batch, clip, norms):
+        _kopt.sgd_update(batch, weight_decay=self._weight_decay, clip=clip,
+                         norms=norms)
+
+
+class Momentum(Optimizer):
+    """``v = mu v + g``; ``p - lr v``, or with ``use_nesterov`` ``p - lr (g
+    + mu v)`` (``optimizer.py:218-235``); state ``velocity``."""
+
+    _rule = "momentum"
+
+    def __init__(self, learning_rate=0.001, momentum=0.9,
+                 parameters: Optional[Iterable] = None, use_nesterov=False,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._momentum = float(momentum)
+        self._nesterov = bool(use_nesterov)
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _slots(self, st):
+        return [st["velocity"], None, None]
+
+    def _update(self, batch, clip, norms):
+        _kopt.momentum_update(batch, momentum=self._momentum,
+                              nesterov=self._nesterov,
+                              weight_decay=self._weight_decay, clip=clip,
+                              norms=norms)
+
+
+class Adagrad(Optimizer):
+    """``m += g g``; ``p - lr g / (sqrt(m) + eps)`` (``optimizer.py:
+    238-250``); state ``moment``, filled with ``initial_accumulator_value``
+    in the parameter's dtype."""
+
+    _rule = "adagrad"
+
+    def __init__(self, learning_rate, epsilon=1e-6,
+                 parameters: Optional[Iterable] = None, weight_decay=None,
+                 grad_clip=None, initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._eps = float(epsilon)
+        self._init = float(initial_accumulator_value)
+
+    def _init_state(self, p):
+        return {"moment": torch.full_like(p, self._init)}
+
+    def _slots(self, st):
+        return [st["moment"], None, None]
+
+    def _update(self, batch, clip, norms):
+        _kopt.adagrad_update(batch, epsilon=self._eps,
+                             weight_decay=self._weight_decay, clip=clip,
+                             norms=norms)
+
+
+class Adamax(Optimizer):
+    """Adam with the infinity norm (``optimizer.py:291-307``); state
+    ``moment``, ``inf_norm``."""
+
+    _rule = "adamax"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters: Optional[Iterable] = None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._b1, self._b2, self._eps = (float(beta1), float(beta2),
+                                         float(epsilon))
+
+    def _init_state(self, p):
+        return {"moment": torch.zeros_like(p),
+                "inf_norm": torch.zeros_like(p)}
+
+    def _slots(self, st):
+        return [st["moment"], st["inf_norm"], None]
+
+    def _update(self, batch, clip, norms):
+        _kopt.adamax_update(batch, beta1=self._b1, beta2=self._b2,
+                            epsilon=self._eps,
+                            weight_decay=self._weight_decay, clip=clip,
+                            norms=norms)
+
+
+class RMSProp(Optimizer):
+    """RMSProp (``optimizer.py:310-332``), ``centered`` or not, with
+    ``momentum``; state ``mean_square``, ``mean_grad`` (kept at zero unless
+    centered), ``velocity``."""
+
+    _rule = "rmsprop"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters: Optional[Iterable] = None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho, self._eps = float(rho), float(epsilon)
+        self._momentum = float(momentum)
+        self._centered = bool(centered)
+
+    def _init_state(self, p):
+        return {"mean_square": torch.zeros_like(p),
+                "mean_grad": torch.zeros_like(p),
+                "velocity": torch.zeros_like(p)}
+
+    def _slots(self, st):
+        return [st["mean_square"], st["mean_grad"], st["velocity"]]
+
+    def _update(self, batch, clip, norms):
+        _kopt.rmsprop_update(batch, rho=self._rho, epsilon=self._eps,
+                             momentum=self._momentum,
+                             centered=self._centered,
+                             weight_decay=self._weight_decay, clip=clip,
+                             norms=norms)
+
+
+class Lamb(Optimizer):
+    """Lamb (``optimizer.py:335-366``): Adam's moments, the update ``r``
+    with the decay ``lamb_weight_decay * p`` inside, scaled by the trust
+    ratio ``|p| / |r|`` per tensor, in fp32. ``exclude_from_weight_decay_fn
+    (param)`` True excludes a tensor from the decay. State ``moment1``,
+    ``moment2``."""
+
+    _rule = "lamb"
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6,
+                 parameters: Optional[Iterable] = None, grad_clip=None,
+                 exclude_from_weight_decay_fn=None, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._b1, self._b2, self._eps = (float(beta1), float(beta2),
+                                         float(epsilon))
+        self._lamb_wd = float(lamb_weight_decay)
+        if exclude_from_weight_decay_fn is not None:
+            self._decay = [not exclude_from_weight_decay_fn(p)
+                           for p in self._parameter_list]
+
+    def _init_state(self, p):
+        return {"moment1": torch.zeros_like(p), "moment2": torch.zeros_like(p)}
+
+    def _slots(self, st):
+        return [st["moment1"], st["moment2"], None]
+
+    def _update(self, batch, clip, norms):
+        _kopt.lamb_update(batch, beta1=self._b1, beta2=self._b2,
+                          epsilon=self._eps, weight_decay=self._lamb_wd,
+                          clip=clip, norms=norms)
+
+
+class LarsMomentum(Optimizer):
+    """LARS (``optimizer.py:369-407``): ``local_lr = lr lars_coeff |p| /
+    (|g| + lars_weight_decay |p| + epsilon)`` per tensor, ``v = mu v +
+    local_lr (g + wd p)``, ``p - v``, in fp32. ``exclude_from_weight_decay``:
+    name fragments; a tensor whose name holds one gets no decay (which
+    needs ``parameters=model.named_parameters()``). State ``velocity``."""
+
+    _rule = "lars"
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005,
+                 parameters: Optional[Iterable] = None, grad_clip=None,
+                 exclude_from_weight_decay=None, epsilon=0.0, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip)
+        self._momentum, self._coeff = float(momentum), float(lars_coeff)
+        self._lars_wd, self._eps = float(lars_weight_decay), float(epsilon)
+        if exclude_from_weight_decay:
+            if not self._named:
+                raise ValueError("exclude_from_weight_decay needs parameter "
+                                 "names: pass parameters="
+                                 "model.named_parameters()")
+            fragments = list(exclude_from_weight_decay)
+            self._decay = [not any(f in n for f in fragments)
+                           for n in self._names]
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _slots(self, st):
+        return [st["velocity"], None, None]
+
+    def _update(self, batch, clip, norms):
+        _kopt.lars_update(batch, momentum=self._momentum,
+                          lars_coeff=self._coeff,
+                          weight_decay=self._lars_wd, epsilon=self._eps,
+                          clip=clip, norms=norms)
+
+
+class Adadelta(Optimizer):
+    """Adadelta (``optimizer.py:476-498``): rho-averaged squared gradients
+    and squared updates; state ``avg_squared_grad``,
+    ``avg_squared_update``."""
+
+    _rule = "adadelta"
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters: Optional[Iterable] = None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip)
+        self._rho, self._eps = float(rho), float(epsilon)
+
+    def _init_state(self, p):
+        return {"avg_squared_grad": torch.zeros_like(p),
+                "avg_squared_update": torch.zeros_like(p)}
+
+    def _slots(self, st):
+        return [st["avg_squared_grad"], st["avg_squared_update"], None]
+
+    def _update(self, batch, clip, norms):
+        _kopt.adadelta_update(batch, rho=self._rho, epsilon=self._eps,
+                              weight_decay=self._weight_decay, clip=clip,
+                              norms=norms)
+
+
+def make_master_update(opt: Optimizer, train_params, dtypes,
+                       with_clip: bool = True):
+    """The fp32-master update (``optimizer.py:501-540``): returns
+    ``update(master, grads, states, lr, step_no) -> (new_master,
+    new_states, new_params)``, ``opt``'s rule, coupled or decoupled decay
+    and (``with_clip``) clip over fp32 ``master`` tensors, one per tensor of
+    ``train_params`` (which must be ``opt``'s parameters: their decay flags
+    are ``opt``'s), with ``states`` one state dict per tensor as
+    ``opt._init_state(master)`` makes them (fp32), ``grads`` of any float
+    dtype (cast to fp32 first, as the reference casts them), ``lr`` and
+    ``step_no`` the rate and the 1-based step. ``new_params`` are the new
+    masters cast to ``dtypes``.
+
+    Unlike the JAX function, which returns new arrays, ``update`` writes
+    the masters and the states in place and returns those same tensors:
+    on CUDA ``opt``'s kernels run over them (fp32 parameters, fp32 state,
+    fp32 gradients), on the CPU their plain versions."""
+    index = {id(p): i for i, p in enumerate(opt._parameter_list)}
+    missing = [k for k, p in enumerate(train_params) if id(p) not in index]
+    if missing:
+        raise ValueError(f"make_master_update: train_params {missing} are "
+                         f"not parameters of the optimizer")
+    decay = [opt._decay[index[id(p)]] for p in train_params]
+    dtypes = list(dtypes)
+
+    def update(master, grads, states, lr, step_no):
+        master = list(master)
+        per = [opt._slots(st) for st in states]
+        slots = [[s[j] for s in per] for j in range(3)]
+        batch = _kopt.StepBatch(master, [g.float() for g in grads], slots,
+                                decay, float(lr), int(step_no),
+                                rule=opt._rule)
+        clip, norms = opt._clip(batch) if with_clip else (("none",), None)
+        opt._update(batch, clip, norms)
+        return master, states, [m.to(dt) for m, dt in zip(master, dtypes)]
+
+    return update

@@ -1337,6 +1337,227 @@ def test_a_kept_table_on_the_card_equals_a_fresh_one(cuda):
         assert torch.equal(kept.table().cpu(), fresh.table().cpu()), step
 
 
+# -- the other optimizer rules, the unscale and the master update ---------------
+
+# each rule (its settings off the defaults) -> (its wrapper, its optimizer
+# over named parameters with a clip)
+def _rule_opt(rule, named, clip):
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch import regularizer as preg
+
+    kw = dict(parameters=named, grad_clip=clip)
+    if rule == "sgd":
+        return popt.SGD(learning_rate=1e-2, weight_decay=preg.L2Decay(0.01),
+                        **kw)
+    if rule == "momentum":
+        return popt.Momentum(learning_rate=1e-2, momentum=0.8,
+                             use_nesterov=True, weight_decay=0.01, **kw)
+    if rule == "adagrad":
+        return popt.Adagrad(1e-2, epsilon=1e-5,
+                            initial_accumulator_value=0.1, **kw)
+    if rule == "adamax":
+        return popt.Adamax(learning_rate=1e-2, beta1=0.8, beta2=0.99,
+                           weight_decay=0.01, **kw)
+    if rule == "rmsprop":
+        return popt.RMSProp(1e-2, rho=0.9, epsilon=1e-5, momentum=0.5,
+                            centered=True, **kw)
+    if rule == "rmsprop_plain":
+        return popt.RMSProp(1e-2, **kw)
+    if rule == "adadelta":
+        return popt.Adadelta(learning_rate=1.0, epsilon=1e-5, rho=0.9,
+                             weight_decay=preg.L2Decay(0.01), **kw)
+    if rule == "lamb":
+        return popt.Lamb(learning_rate=1e-2, lamb_weight_decay=0.02,
+                         exclude_from_weight_decay_fn=lambda p: p.ndim == 1,
+                         **kw)
+    return popt.LarsMomentum(learning_rate=1e-2, lars_coeff=0.01,
+                             lars_weight_decay=0.001,
+                             exclude_from_weight_decay=["norm"],
+                             epsilon=1e-6, **kw)
+
+
+_RULE_WRAPPERS = {"sgd": "sgd_update", "momentum": "momentum_update",
+                  "adagrad": "adagrad_update", "adamax": "adamax_update",
+                  "rmsprop": "rmsprop_update",
+                  "rmsprop_plain": "rmsprop_update",
+                  "adadelta": "adadelta_update", "lamb": "lamb_update",
+                  "lars": "lars_update"}
+
+
+def _rule_run(cuda, rule, clip, dtype, plain, monkeypatch):
+    """Two steps of ``rule`` on fresh tensors at _OPT_SHAPES; with
+    ``plain`` the rule's wrapper alone is swapped for its plain version
+    (the clip's norms come from the kernel in both runs, so both read the
+    same scales). Returns every parameter and state tensor."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    ps, grads = _opt_tensors(cuda, dtype)
+    c = {"none": None, "value": pnn.ClipGradByValue(0.5),
+         "global": pnn.ClipGradByGlobalNorm(1.0)}[clip]
+    opt = _rule_opt(rule, list(ps.items()), c)
+    name = _RULE_WRAPPERS[rule]
+    with monkeypatch.context() as mp:
+        if plain:
+            mp.setattr(kopt, name, getattr(kopt, name + "_plain"))
+        for g in grads:
+            for n, p in ps.items():
+                p.grad = g[n].clone()
+            opt.step()
+            opt.clear_grad()
+    torch.cuda.synchronize()
+    return _opt_snapshot(ps, opt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", ["none", "value", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule", list(_RULE_WRAPPERS))
+def test_rule_kernels_equal_plain_in_every_bit(cuda, rule, dtype, clip,
+                                               monkeypatch):
+    """Two steps of each of the eight rules through its kernel against the
+    same steps through its plain version, at odd shapes (an unaligned
+    tensor, one wider than a chunk, one-element ones), fp32 and bf16:
+    every parameter and state tensor equal in every bit (each fp32
+    operation rounded on its own in the rule's order; Lamb's and LARS's
+    norms fp64 sums rounded once); one launch a step, no plain call."""
+    reset_counters()
+    got = _rule_run(cuda, rule, clip, dtype, False, monkeypatch)
+    c = counters()
+    name = _RULE_WRAPPERS[rule]
+    assert c[name] == {"launches": 2, "plain_calls": 0}
+    assert c["multi_tensor_sumsq"]["launches"] == (2 if clip == "global"
+                                                   else 0)
+    ref = _rule_run(cuda, rule, clip, dtype, True, monkeypatch)
+    for k, r in ref.items():
+        assert torch.equal(got[k], r), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", list(_RULE_WRAPPERS))
+def test_rule_kernels_raise_on_fp16(cuda, rule):
+    p = torch.nn.Parameter(torch.ones(8, device=cuda, dtype=torch.float16))
+    p.grad = torch.ones_like(p)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        _rule_opt(rule, [("p", p)], None).step()
+
+
+def _scaler_batch(cuda, dtype, planted=None):
+    """Parameters at _OPT_SHAPES with gradients of ``dtype`` (the one at
+    _OPT_UNALIGNED a view at offset 1) and their "grads" batch;
+    ``planted`` (tensor, element, value) puts one value into a gradient."""
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    ps, grads = _opt_tensors(cuda, dtype)
+    gs = [grads[0][n] * 1024 for n in ps]
+    k = _OPT_UNALIGNED
+    buf = torch.zeros(gs[k].numel() + 1, dtype=dtype, device=cuda)
+    gs[k] = buf[1:].view(gs[k].shape).copy_(gs[k])
+    if planted is not None:
+        gs[planted[0]].view(-1)[planted[1]] = planted[2]
+    n = len(gs)
+    return kopt.StepBatch(list(ps.values()), gs, [[None] * n] * 3,
+                          [True] * n, 0.0, 1, rule="grads")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("planted", [None, (_OPT_UNALIGNED, -1, float("inf")),
+                                     (4, 65540, float("nan")),
+                                     (5, 0, -float("inf"))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_finite_and_unscale_match_plain(cuda, dtype, planted):
+    """The finiteness check and the unscale against their plain versions
+    at odd shapes: the same flag (a planted inf or NaN found), the
+    unscaled gradients equal in every bit but a planted NaN, which stays
+    a NaN (its bits are the converter's: CUDA's bf16 NaN is 0x7fff,
+    torch's 0x7fc0), one launch each."""
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    inv = 1.0 / 1024
+    reset_counters()
+    b = _scaler_batch(cuda, dtype, planted)
+    flag = kopt.check_finite(b, inv)
+    ref_flag = kopt.check_finite_plain(b, inv)
+    assert int(flag.item()) == int(ref_flag.item()) == (planted is not None)
+    ref = [g.clone() for g in b.grads]
+    kopt.unscale(b, inv)
+    r = _scaler_batch(cuda, dtype, planted)
+    kopt.unscale_plain(r, inv)
+    for a, e in zip(b.grads, r.grads):
+        assert bool(((a == e) | (a.isnan() & e.isnan())).all())
+        assert torch.equal(a.isnan(), e.isnan())
+    assert not torch.equal(b.grads[0], ref[0])
+    c = counters()
+    assert c["check_finite"] == {"launches": 1, "plain_calls": 0}
+    assert c["unscale"] == {"launches": 1, "plain_calls": 0}
+
+
+@pytest.mark.gpu
+def test_grad_scaler_on_the_card_raises_on_fp16(cuda):
+    from paddle_tpu_torch import amp, optimizer as popt
+
+    p = torch.nn.Parameter(torch.ones(8, device=cuda, dtype=torch.float16))
+    p.grad = torch.ones_like(p)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        amp.GradScaler().step(popt.SGD(parameters=[p]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["adamw", "lamb"])
+def test_master_update_kernels_equal_plain(cuda, rule, monkeypatch):
+    """``make_master_update`` over fp32 masters of bf16 parameters at odd
+    shapes, two steps with the global clip: through the kernels against
+    the plain versions (the clip's norms from the kernel in both), the
+    masters, states and cast parameters equal in every bit."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch import optimizer as popt
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    def run(plain):
+        ps, grads = _opt_tensors(cuda, torch.bfloat16)
+        named = list(ps.items())
+        clip = pnn.ClipGradByGlobalNorm(1.0)
+        opt = (popt.AdamW(learning_rate=1e-3, parameters=named,
+                          weight_decay=0.1, grad_clip=clip)
+               if rule == "adamw" else _rule_opt("lamb", named, clip))
+        up = popt.make_master_update(opt, list(ps.values()),
+                                     [torch.bfloat16] * len(ps))
+        master = [p.detach().float() for p in ps.values()]
+        states = [opt._init_state(m) for m in master]
+        name = "adam_update" if rule == "adamw" else "lamb_update"
+        with monkeypatch.context() as mp:
+            if plain:
+                mp.setattr(kopt, name, getattr(kopt, name + "_plain"))
+            for step, g in enumerate(grads, 1):
+                _m, _s, cast = up(master, list(g.values()), states, 1e-3,
+                                  step)
+        torch.cuda.synchronize()
+        return master + [v for st in states for v in st.values()] + cast
+
+    for a, b in zip(run(False), run(True)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", ["norm", "global"])
+def test_clip_call_on_the_card_equals_the_cpu(cuda, clip):
+    """A norm clip called on CUDA ``(param, grad)`` pairs (the sums of
+    squares by the kernel) against the same call on CPU copies: rtol 1e-6
+    (sums in another order)."""
+    from paddle_tpu_torch import nn as pnn
+
+    c = pnn.ClipGradByNorm(1.0) if clip == "norm" else \
+        pnn.ClipGradByGlobalNorm(1.0)
+    ps, grads = _opt_tensors(cuda, torch.float32)
+    pairs = [(n, grads[0][n]) for n in ps]
+    reset_counters()
+    got = c(pairs)
+    assert counters()["multi_tensor_sumsq"]["launches"] == 1
+    ref = c([(n, g.cpu()) for n, g in pairs])
+    for (_, a), (_, b) in zip(got, ref):
+        _close(a.cpu(), b, (1e-6, 1e-7))
+
+
 # -- the graphed training step (jit.TrainStep) -----------------------------------
 
 def _small_llama(cuda, moe, seed=5):
@@ -1354,10 +1575,11 @@ def _small_llama(cuda, moe, seed=5):
 
 
 def _train_run(cuda, moe, graph, steps=3, shapes=((4, 64),), lr_at=None,
-               accumulate=0, reload_at=None):
+               accumulate=0, reload_at=None, make_opt=None):
     """``steps`` steps per batch shape of a fresh small model (AdamW for
-    the dense model, Adafactor for the MoE one); returns (losses, every
-    parameter and state tensor after the last step, the step)."""
+    the dense model, Adafactor for the MoE one, or ``make_opt(model)``);
+    returns (losses, every parameter and state tensor after the last
+    step, the step)."""
     from paddle_tpu_torch import set_flags
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import Adafactor, AdamW
@@ -1365,10 +1587,14 @@ def _train_run(cuda, moe, graph, steps=3, shapes=((4, 64),), lr_at=None,
     set_flags({"FLAGS_moe_dispatch": "fused" if moe else "index"})
     try:
         cfg, model = _small_llama(cuda, moe)
-        opt = (Adafactor(learning_rate=1e-2, parameters=model.parameters())
-               if moe else AdamW(learning_rate=1e-3,
-                                 parameters=model.parameters(),
-                                 weight_decay=0.1))
+        if make_opt is not None:
+            opt = make_opt(model)
+        elif moe:
+            opt = Adafactor(learning_rate=1e-2,
+                            parameters=model.parameters())
+        else:
+            opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                        weight_decay=0.1)
         step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt,
                          graph=graph)
         if accumulate:
@@ -1465,6 +1691,28 @@ def test_state_moved_to_new_storage_is_captured_again(cuda):
     assert step.captures == 2 and step.replays == 3
     assert step.captured_launches()["adam_update"] == 3
     le, ref, _ = _train_run(cuda, False, False, steps=4, reload_at=3)
+    assert lg == le
+    for k, r in ref.items():
+        assert torch.equal(got[k], r), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["sgd", "momentum", "adagrad", "adamax",
+                                  "rmsprop", "adadelta", "lamb", "lars"])
+def test_graphed_step_equals_the_eager_step_under_each_rule(cuda, rule):
+    """The small bf16 Llama under each of the eight rules: three graphed
+    steps against three eager ones, every loss, parameter and state tensor
+    equal bit for bit; the rule's wrapper captured once, no plain call.
+    Lamb's and LARS's fp64 partials come from the graph's pool."""
+    def make(model):
+        return _rule_opt(rule, list(model.named_parameters()), None)
+
+    reset_counters()
+    lg, got, step = _train_run(cuda, False, True, make_opt=make)
+    assert step.captures == 1 and step.replays == 2
+    assert all(v["plain_calls"] == 0 for v in counters().values())
+    assert step.captured_launches()[_RULE_WRAPPERS[rule]] == 2
+    le, ref, _ = _train_run(cuda, False, False, make_opt=make)
     assert lg == le
     for k, r in ref.items():
         assert torch.equal(got[k], r), k

@@ -1,13 +1,14 @@
 """The port's optimizer module against the JAX package's.
 
-LR schedules, gradient clips, ``Adam``/``AdamW``/``Adafactor`` steps (the
+LR schedules, gradient clips, the steps of all eleven optimizers (the
 plain versions of the fused kernels, which a CPU tensor takes), the
-optimizer state and a ``TrainStep`` loss curve. Inputs are drawn with
+optimizer state and ``TrainStep`` loss curves. Inputs are drawn with
 numpy and handed to both packages; the JAX package runs on its CPU
-backend, both in fp32.
+backend, in fp32, and in bf16 op by op (``jax.disable_jit()``).
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,14 +20,18 @@ import paddle_tpu.optimizer as jopt
 from paddle_tpu import jit as jjit
 from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu.models import llama as jllama
+from paddle_tpu import regularizer as jreg
 from paddle_tpu.nn.layer.layers import Parameter as JParameter
 from paddle_tpu_torch import kernels, resolve_device
+from paddle_tpu_torch import regularizer as preg
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import optimizer as kopt
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      llama_state_from_numpy)
-from paddle_tpu_torch.optimizer import Adafactor, Adam, AdamW
+from paddle_tpu_torch.optimizer import (SGD, Adadelta, Adafactor, Adagrad,
+                                        Adam, Adamax, AdamW, Lamb,
+                                        LarsMomentum, Momentum, RMSProp)
 from paddle_tpu_torch.optimizer import lr as plr
 
 # -- LR schedules ---------------------------------------------------------------
@@ -148,12 +153,50 @@ RULES = {
                      dict(learning_rate=None, beta1=0.0)),
     "adafactor_b05": (Adafactor, jopt.Adafactor,
                       dict(learning_rate=None, beta1=0.5)),
+    # the eight other rules, with settings off their defaults: an L2Decay
+    # (and an L1Decay, which the reference adds as the same coupled term)
+    # as the base path's decay, Nesterov, centered RMSProp with momentum,
+    # Adagrad's initial accumulator, Lamb's exclude function (on rank, which
+    # both packages' parameters have) and LARS's name fragments
+    "sgd": (SGD, jopt.SGD, dict(learning_rate=None, weight_decay="L2Decay")),
+    "momentum": (Momentum, jopt.Momentum,
+                 dict(learning_rate=None, momentum=0.8, use_nesterov=True,
+                      weight_decay=0.01)),
+    "momentum_l1": (Momentum, jopt.Momentum,
+                    dict(learning_rate=None, weight_decay="L1Decay")),
+    "adagrad": (Adagrad, jopt.Adagrad,
+                dict(learning_rate=None, epsilon=1e-5,
+                     initial_accumulator_value=0.1)),
+    "adamax": (Adamax, jopt.Adamax,
+               dict(learning_rate=None, beta1=0.8, beta2=0.99, epsilon=1e-6,
+                    weight_decay=0.01)),
+    "rmsprop": (RMSProp, jopt.RMSProp,
+                dict(learning_rate=None, rho=0.9, epsilon=1e-5, momentum=0.5,
+                     centered=True)),
+    "rmsprop_plain": (RMSProp, jopt.RMSProp, dict(learning_rate=None)),
+    "adadelta": (Adadelta, jopt.Adadelta,
+                 dict(learning_rate=None, epsilon=1e-5, rho=0.9,
+                      weight_decay="L2Decay")),
+    "lamb": (Lamb, jopt.Lamb,
+             dict(learning_rate=None, lamb_weight_decay=0.02, beta1=0.8,
+                  exclude_from_weight_decay_fn="rank1")),
+    "lars": (LarsMomentum, jopt.LarsMomentum,
+             dict(learning_rate=None, momentum=0.8, lars_coeff=0.01,
+                  lars_weight_decay=0.001, exclude_from_weight_decay=["norm"],
+                  epsilon=1e-6)),
 }
+NEW_RULES = ["sgd", "momentum", "momentum_l1", "adagrad", "adamax",
+             "rmsprop", "rmsprop_plain", "adadelta", "lamb", "lars"]
 # fp32: the rules differ from the JAX package's only in summation order,
 # where XLA fuses, and in the last bit of a power (XLA's fp32 pow and the
-# C library's disagree at a few steps)
+# C library's disagree at a few steps); Lamb's and LARS's per-tensor norms
+# are sums the reference takes in fp32 in XLA's order (the port in fp64)
 RTOL = {"adam": 1e-6, "adamw": 1e-6, "adafactor_b0": 1e-5,
-        "adafactor_b05": 1e-5, "adafactor_wd": 1e-5}
+        "adafactor_b05": 1e-5, "adafactor_wd": 1e-5,
+        **{r: 1e-6 for r in NEW_RULES}, "lamb": 1e-5, "lars": 1e-5}
+# each rule's rate: updates of about 1e-3 to 1e-2 of the parameters
+LR = {"adafactor_b0": 1e-2, "adafactor_b05": 1e-2, "adafactor_wd": 1e-2,
+      "adadelta": 1.0, **{r: 1e-2 for r in NEW_RULES if r != "adadelta"}}
 
 
 def _inputs(seed=7, steps=3):
@@ -173,9 +216,10 @@ def _lr(mod, lr):
                             start_lr=lr / 4, end_lr=lr)
 
 
-def _make(rule, clip, pkg, params, lr):
+def _make(rule, clip, pkg, params, lr, bf16=False):
     """The optimizer of ``pkg`` ("jax" or "port") over fresh parameters
-    holding ``params``; returns (optimizer, {name: parameter}, schedule)."""
+    holding ``params`` (rounded to bf16 with ``bf16``); returns
+    (optimizer, {name: parameter}, schedule)."""
     port_cls, jax_cls, kw = RULES["adafactor_b05" if rule == "adafactor_wd"
                                   else rule]
     kw = dict(kw)
@@ -188,14 +232,22 @@ def _make(rule, clip, pkg, params, lr):
                                   clip[0])(*clip[1])
     fn = kw.pop("apply_decay_param_fun", None)
     decay = (lambda name: "norm" not in name) if fn else None
+    if isinstance(kw.get("weight_decay"), str):
+        kw["weight_decay"] = getattr(jreg if pkg == "jax" else preg,
+                                     kw["weight_decay"])(0.01)
+    if kw.get("exclude_from_weight_decay_fn") == "rank1":
+        kw["exclude_from_weight_decay_fn"] = lambda p: p.ndim == 1
     if pkg == "jax":
-        ps = {n: JParameter(jnp.asarray(params[n]), name=n, trainable=tr)
+        ps = {n: JParameter(jnp.asarray(params[n]).astype(
+                  jnp.bfloat16 if bf16 else jnp.float32), name=n,
+                  trainable=tr)
               for n, _, _, tr in TENSORS}
         if decay:
             kw["apply_decay_param_fun"] = decay
         opt = jax_cls(parameters=list(ps.values()), **kw)
     else:
-        ps = {n: torch.nn.Parameter(torch.from_numpy(params[n].copy()),
+        ps = {n: torch.nn.Parameter(torch.from_numpy(params[n].copy()).to(
+                  torch.bfloat16 if bf16 else torch.float32),
                                     requires_grad=tr)
               for n, _, _, tr in TENSORS}
         if decay:
@@ -205,11 +257,13 @@ def _make(rule, clip, pkg, params, lr):
 
 
 def _step(pkg, opt, ps, grads, sched):
+    """One step from the fp32 ``grads``, each cast to its parameter's
+    dtype."""
     for n, g in grads.items():
         if pkg == "jax":
-            ps[n].grad = JTensor(jnp.asarray(g))
+            ps[n].grad = JTensor(jnp.asarray(g).astype(ps[n].data.dtype))
         else:
-            ps[n].grad = torch.from_numpy(g.copy())
+            ps[n].grad = torch.from_numpy(g.copy()).to(ps[n].dtype)
     opt.step()
     opt.clear_grad()
     sched.step()
@@ -223,16 +277,18 @@ def _state_of(pkg, opt, p):
 
 @pytest.mark.parametrize("clip", list(CLIPS))
 @pytest.mark.parametrize("rule", ["adam", "adamw", "adafactor_b0",
-                                  "adafactor_b05", "adafactor_wd"])
+                                  "adafactor_b05", "adafactor_wd"] +
+                         NEW_RULES)
 def test_optimizer_step_matches_jax(rule, clip):
     """Three steps of the port's ``Optimizer.step`` (the fused kernels'
     plain versions) against the JAX ``Optimizer.step``, with an
     ``LRScheduler`` for the rate: every parameter and state tensor within
-    rtol 1e-6 (Adam, AdamW) or 1e-5 (Adafactor), state tensors also within
+    rtol 1e-6 (Adam, AdamW and the six rules computed in the parameter's
+    dtype) or 1e-5 (Adafactor, Lamb, LARS), state tensors also within
     that rtol of their largest element; the tensor without a gradient and
     the frozen one keep their values and get no state."""
     params, grads = _inputs()
-    lr = 1e-3 if rule.startswith("adam") else 1e-2
+    lr = LR.get(rule, 1e-3)
     jo, jps, jsched = _make(rule, CLIPS[clip], "jax", params, lr)
     po, pps, psched = _make(rule, CLIPS[clip], "port", params, lr)
     for g in grads:
@@ -257,6 +313,57 @@ def test_optimizer_step_matches_jax(rule, clip):
                 got_st[k], ref_st[k], rtol=rtol,
                 atol=rtol * np.abs(ref_st[k]).max(), err_msg=f"{name} {k}")
     assert po._global_step == jo._global_step == len(grads)
+
+
+def _bf16_ulps(a, b):
+    """|a - b| of two bf16 arrays (as fp32) in bf16 ulps of the larger."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    top = np.maximum(np.abs(a), np.abs(b))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(top, 2.0 ** -126))) - 7)
+    return np.abs(a - b) / ulp
+
+
+# bf16 against the JAX step run op by op: the six rules computed in the
+# parameter's dtype equal it in every bit (0 ulps), and so does Adam with
+# its coupled decay (the decay's constant rounded to bf16 as the
+# reference's weakly typed float); Lamb and LARS, which scale by
+# whole-tensor norms that the reference sums in fp32 in XLA's order,
+# within 1 ulp
+BF16_ULPS = {**{r: 0 for r in NEW_RULES}, "adam": 0, "lamb": 1, "lars": 1}
+
+
+@pytest.mark.parametrize("rule", ["adam"] + NEW_RULES)
+def test_bf16_step_matches_jax_op_by_op(rule):
+    """Three steps of the port's ``Optimizer.step`` over bf16 parameters
+    and gradients against the JAX ``Optimizer.step`` run op by op
+    (``jax.disable_jit()``: XLA's CPU compiler keeps excess precision
+    across fused bf16 operations and contracts into FMAs), with an
+    ``LRScheduler`` for the rate: every parameter and state tensor within
+    ``BF16_ULPS`` of the reference (bf16 ulps of the larger value)."""
+    params, grads = _inputs()
+    lr = LR.get(rule, 1e-3)
+    jo, jps, jsched = _make(rule, None, "jax", params, lr, bf16=True)
+    po, pps, psched = _make(rule, None, "port", params, lr, bf16=True)
+    with jax.disable_jit():
+        for g in grads:
+            _step("jax", jo, jps, g, jsched)
+    for g in grads:
+        _step("port", po, pps, g, psched)
+    worst = 0.0
+    for name, _, has, trainable in TENSORS:
+        pairs = [(name, pps[name].detach(), jps[name].data)]
+        if has and trainable:
+            ref_st = _state_of("jax", jo, jps[name])
+            got_st = po._state[id(pps[name])]
+            assert set(got_st) == set(ref_st)
+            pairs += [(f"{name} {k}", got_st[k], ref_st[k]) for k in ref_st]
+        for what, got, ref in pairs:
+            assert got.dtype == torch.bfloat16, what
+            ulps = _bf16_ulps(got.float().numpy(),
+                              np.asarray(ref.astype(jnp.float32)))
+            worst = max(worst, float(ulps.max()))
+            assert ulps.max() <= BF16_ULPS[rule], (what, ulps.max())
+    print(f"{rule}: largest distance {worst} bf16 ulps")
 
 
 @pytest.mark.parametrize("rule", ["adam", "adamw"])
@@ -360,14 +467,26 @@ def test_get_and_set_lr():
         opt.set_lr(0.3)
 
 
-@pytest.mark.parametrize("rule", ["adamw", "adafactor_b05"])
+# the reference's state names (optimizer.py:212-498), the state_dict keys
+STATE_KEYS = {"adamw": {"moment1", "moment2"}, "adafactor_b05": {"vr", "vc",
+                                                                 "m"},
+              "sgd": set(), "momentum": {"velocity"}, "adagrad": {"moment"},
+              "adamax": {"moment", "inf_norm"},
+              "rmsprop": {"mean_square", "mean_grad", "velocity"},
+              "adadelta": {"avg_squared_grad", "avg_squared_update"},
+              "lamb": {"moment1", "moment2"}, "lars": {"velocity"}}
+
+
+@pytest.mark.parametrize("rule", list(STATE_KEYS))
 def test_state_dict_restores_the_run_bit_for_bit(rule):
     """Four steps, against two steps, a ``state_dict`` (parameters saved
     beside it), a fresh optimizer and schedule restored from it and two
     more steps: every parameter equal bit for bit. Keys follow the
-    reference: ``global_step``, ``LR_Scheduler``, ``{name}_{key}``."""
+    reference: ``global_step``, ``LR_Scheduler``, ``{name}_{key}`` with
+    the JAX package's state names, which the JAX optimizer's state_dict
+    holds for the same tensors."""
     params, grads = _inputs(steps=4)
-    lr = 1e-3 if rule == "adamw" else 1e-2
+    lr = LR.get(rule, 1e-3)
     opt, ps, sched = _make(rule, CLIPS["global"], "port", params, lr)
     for g in grads:
         _step("port", opt, ps, g, sched)
@@ -379,8 +498,13 @@ def test_state_dict_restores_the_run_bit_for_bit(rule):
     sd = opt.state_dict()
     saved = {n: p.detach().clone() for n, p in ps.items()}
     assert sd["global_step"] == 2 and "LR_Scheduler" in sd
-    key = "w2d_moment1" if rule == "adamw" else "w2d_vr"
-    assert key in sd and "nograd_moment1" not in sd
+    assert {k[len("w2d_"):] for k in sd if k.startswith("w2d_")} == \
+        STATE_KEYS[rule]
+    assert not any(k.startswith("nograd_") for k in sd)
+    jo, jps, jsched = _make(rule, CLIPS["global"], "jax", params, lr)
+    for g in grads[:2]:
+        _step("jax", jo, jps, g, jsched)
+    assert set(jo.state_dict()) == set(sd)
 
     mid = {n: v.numpy() for n, v in saved.items()}
     opt, ps, sched = _make(rule, CLIPS["global"], "port", mid, lr)
@@ -487,10 +611,14 @@ def test_unnamed_parameters_are_named_by_index():
 
 # -- TrainStep curve: the JAX package's finetune recipe ---------------------------
 
-def _llama_pair(seed=3):
+def _llama_pair(seed=3, scan_layers=True):
+    """The JAX tiny Llama (its decoder layers stacked into one tensor per
+    weight with ``scan_layers``, else a tensor per layer as the port keeps
+    them) and the port's, holding the same seeded weights."""
     paddle.seed(seed)
     cfg = dict(ce_chunk=8)
-    jm = jllama.LlamaForCausalLM(jllama.LlamaConfig.tiny(**cfg))
+    jm = jllama.LlamaForCausalLM(jllama.LlamaConfig.tiny(
+        scan_layers=scan_layers, **cfg))
     rng = np.random.default_rng(seed)
     state = {}
     for name, v in jm.state_dict().items():
@@ -569,15 +697,63 @@ def test_trainstep_curve_with_warmup_and_global_clip_matches_jax(jax_flags):
     assert c["adam_update"] == {"launches": 0, "plain_calls": 3}
 
 
+@pytest.mark.parametrize("rule", ["momentum", "lamb"])
+def test_trainstep_curve_matches_jax(rule, jax_flags):
+    """Three steps of the port's ``TrainStep`` against the JAX
+    ``jit.TrainStep`` on the same small Llama, under Momentum (Nesterov,
+    an ``L2Decay``) or Lamb (1-D tensors excluded from its decay): each
+    loss within rtol 1e-4 and, after the steps, every weight within rtol
+    1e-4 of the JAX model's (plus 1e-4 of its tensor's largest element).
+    Lamb's trust ratio is per tensor, so the JAX model keeps a tensor per
+    layer (``scan_layers=False``), as the port does."""
+    jm, pm = _llama_pair(scan_layers=False)
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, 256, size=(3, 12)).astype(np.int32)
+    labels = rng.integers(0, 256, size=(3, 12)).astype(np.int64)
+
+    def make(mod, reg, params):
+        if rule == "momentum":
+            return mod.Momentum(learning_rate=0.05, momentum=0.9,
+                                parameters=params, use_nesterov=True,
+                                weight_decay=reg.L2Decay(1e-3))
+        return mod.Lamb(learning_rate=1e-2, lamb_weight_decay=0.01,
+                        parameters=params,
+                        exclude_from_weight_decay_fn=lambda p: p.ndim == 1)
+
+    import paddle_tpu_torch.optimizer as popt
+
+    jstep = jjit.TrainStep(jm, lambda m, x, y: m(x, labels=y),
+                           make(jopt, jreg, jm.parameters()))
+    pstep = TrainStep(pm, lambda m, x, y: m(x, labels=y),
+                      make(popt, preg, pm.parameters()))
+    ref = [float(jstep(paddle.to_tensor(ids), paddle.to_tensor(labels)))
+           for _ in range(3)]
+    kernels.reset_counters()
+    got = [float(pstep(torch.from_numpy(ids), torch.from_numpy(labels)))
+           for _ in range(3)]
+    np.testing.assert_allclose(got, ref, rtol=1e-4)
+    assert got[-1] < got[0]
+    name = "momentum_update" if rule == "momentum" else "lamb_update"
+    assert kernels.counters()[name] == {"launches": 0, "plain_calls": 3}
+    want = llama_state_from_numpy(
+        {k: np.asarray(v.data) for k, v in jm.state_dict().items()},
+        pm.config)
+    for k, v in pm.state_dict().items():
+        w = want[k].numpy()
+        np.testing.assert_allclose(v.detach().numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=k)
+
+
 # -- the kernel wrappers on the CPU ------------------------------------------------
 
 def _batch(rule, device="cpu", shapes=((5, 3), (7,), (2, 3, 4))):
     gen = torch.Generator().manual_seed(0)
     params = [torch.randn(s, generator=gen).to(device) for s in shapes]
     grads = [torch.randn(s, generator=gen).to(device) for s in shapes]
-    if rule == "adam":
-        slots = [[torch.zeros_like(p) for p in params],
-                 [torch.zeros_like(p) for p in params], [None] * len(params)]
+    if rule != "adafactor":
+        k = kopt._RULE_SLOTS[rule]
+        slots = [[torch.zeros_like(p) for p in params] if j < k
+                 else [None] * len(params) for j in range(3)]
     else:
         slots = [[torch.zeros(p.shape[:-1] if p.dim() > 1 else p.shape,
                               device=device) for p in params],
@@ -586,6 +762,39 @@ def _batch(rule, device="cpu", shapes=((5, 3), (7,), (2, 3, 4))):
                  [None] * len(params)]
     return kopt.StepBatch(params, grads, slots, [True] * len(params), 1e-2,
                           1, rule=rule)
+
+
+# (wrapper, rule of its batch, its keyword arguments) of the rules added
+# beside Adam and Adafactor
+RULE_WRAPPERS = [
+    ("sgd_update", "sgd", dict(weight_decay=0.01)),
+    ("momentum_update", "momentum", dict(momentum=0.9, nesterov=True)),
+    ("adagrad_update", "adagrad", dict(epsilon=1e-6)),
+    ("adamax_update", "adamax", dict(beta1=0.9, beta2=0.999, epsilon=1e-8)),
+    ("rmsprop_update", "rmsprop", dict(rho=0.95, epsilon=1e-6, momentum=0.5,
+                                       centered=True)),
+    ("adadelta_update", "adadelta", dict(rho=0.95, epsilon=1e-6)),
+    ("lamb_update", "lamb", dict(beta1=0.9, beta2=0.999, epsilon=1e-6,
+                                 weight_decay=0.01)),
+    ("lars_update", "lars", dict(momentum=0.9, lars_coeff=0.001,
+                                 weight_decay=5e-4, epsilon=0.0)),
+]
+
+
+@pytest.mark.parametrize("name,rule,kw", RULE_WRAPPERS,
+                         ids=[w[0] for w in RULE_WRAPPERS])
+def test_rule_wrappers_take_the_plain_version_on_the_cpu(name, rule, kw):
+    """Each new wrapper on a CPU batch runs its plain version (one plain
+    call, no launch) and updates the parameters; on a batch that is
+    neither on the CPU nor on CUDA it raises."""
+    kernels.reset_counters()
+    b = _batch(rule)
+    before = [p.clone() for p in b.params]
+    getattr(kopt, name)(b, **kw)
+    assert kernels.counters()[name] == {"launches": 0, "plain_calls": 1}
+    assert all(not torch.equal(p, q) for p, q in zip(b.params, before))
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(kopt, name)(_batch(rule, device="meta"), **kw)
 
 
 def test_wrappers_take_the_plain_version_on_the_cpu():
@@ -686,7 +895,7 @@ def _decode(batch):
     return out, head, words
 
 
-@pytest.mark.parametrize("rule", ["adam", "adafactor"])
+@pytest.mark.parametrize("rule", kopt.RULES)
 def test_chunk_table_covers_every_element_once(rule, monkeypatch):
     """With small chunks and tiles, the table's chunks of each tensor are
     contiguous, in order and cover it exactly once; Adafactor's tiles of a
@@ -708,6 +917,9 @@ def test_chunk_table_covers_every_element_once(rule, monkeypatch):
                 assert off // (R * C) == (off + length - 1) // (R * C)
         assert pos == p.numel()
         assert words[i, 0] == p.data_ptr() and words[i, 1] == b.grads[i].data_ptr()
+        for j in range(3):  # the rule's state slots, 0 where it keeps fewer
+            t = b.slots[j][i]
+            assert words[i, 2 + j] == (0 if t is None else t.data_ptr())
 
 
 def test_a_new_step_reads_a_replaced_storage():
