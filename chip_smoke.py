@@ -153,6 +153,48 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              fp32 gradients too), with a planted fault: the update's RMS
              clip dropped.
 
+After the serving phase (its engine freed first):
+
+gpt-train — bf16, GPT-3 6.7B at full width and depth (32 layers,
+             recompute), AdamW lr 3e-4 / wd 0.1, ids as labels, batch 2 x
+             2048: full-depth gradients against the plain-swapped step,
+             with three planted faults (dQ or dK without the softmax
+             scale, dK and dV swapped) that the check must catch; then
+             eager steps and the graphed step on one optimizer, each with
+             its launches exact (2L flash forwards, L dK/dV, L dQ, one
+             ``adam_update``; the graph's as reckoned and as kernel nodes),
+             a finite falling loss, step ms, tokens/s, MFU = (6N + 12 L h
+             s) x tokens/s / 989e12, peak memory, device ms by group and
+             idle share beside the card's name and power limit. The
+             graphed step again with dropout 0.1 in both places: step ms
+             and peak memory (recompute keeps no mask: one generator
+             rewind a layer). Graph = eager bit for bit at 8 of the 32
+             layers (a copy of the full
+             weights does not fit beside the moments), with the node check
+             and the stale-header fault.
+gpt-dropout — the same width at 2 layers with dropout 0.1 in attention
+             and on the residuals: every mask's keep share within 4 sigma
+             of 0.9, each recomputed layer's masks equal to its first
+             run's, replays at learning rate 0 drawing fresh masks (and
+             none with p = 0), the graphed step equal to the eager one
+             from the same weights and generator state, bit for bit.
+
+After the MoE phases:
+
+moe-modes — the MoE Llama at full width and depth 2, bf16: ``index``
+             and ``einsum`` on each MoE layer's inputs agree (output, aux,
+             every gradient) within MOE_MODES_TOL (``sort`` runs
+             ``index``); no MoE kernel runs.
+llama-cache — the 1.16B Llama's attention at full width: one token over a
+             2047-token cache runs the split-K decode kernel once and
+             equals the last row of the uncached causal call.
+adafactor_1p8b, long_seq_16k — the bench's configurations (bench.py
+             _configs() "big_1p8" with Adafactor at batch 4 x 2048, and
+             "long16k" with AdamW at batch 2 x 16384) as eager and graphed
+             steps with the dense line's figures; before the 16384-token
+             step the flash forward, dK/dV, dQ and RoPE are held to their
+             plain versions at that length (bh 1).
+
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
 """
@@ -1802,6 +1844,8 @@ def _train_group(name):
                        ("flash_bwd_dq", "flash_bwd_dq"),
                        ("rmsnorm", "rmsnorm"), ("rope_kernel", "rope"),
                        ("softmax", "ce_softmax"),
+                       ("layer_norm", "layernorm"),
+                       ("gammabeta", "layernorm"), ("gelu", "gelu"),
                        ("embedding", "embedding"),
                        # csrc/optimizer.cu
                        ("rule_kernel", "optimizer"),
@@ -4139,6 +4183,679 @@ def phase_master(shapes, seed):
     return [row]
 
 
+# -- phases: GPT-3 6.7B training and its dropout --------------------------------
+
+# GPT-3 6.7B (Brown et al. 2020, Table 2.1; GPTConfig.gpt3_6_7b, the model
+# the serving phase answers with) trained as the JAX package's GPT trains:
+# ids as labels, AdamW lr 3e-4 / wd 0.1, per-layer recompute, bf16
+GPT_BATCH = (2, 2048)
+GPT_SEED = 13
+# bf16 full-depth gradient check of GPT-3 6.7B: the largest relative L2
+# error of any parameter's gradient, kernels against plain-swapped, set as
+# the dense step's is, at about 3x the sound reading (0.0282, the position
+# embedding's; bf16 rounding on two paths through 32 layers; H100 80GB
+# HBM3, 700.00 W); the planted faults read 38.4 (dQ without the softmax
+# scale), 182 (dK without it) and 1.47 (dK and dV swapped)
+GPT_GRAD_TOL = 0.085
+GPT_FAULTS = ("dq_unscaled", "dk_unscaled", "dkv_swapped")
+GPT_EAGER_STEPS, GPT_GRAPH_STEPS = 3, 5
+# graph = eager bit for bit at this depth (full width): the check keeps a
+# copy of the weights (13.3 GB at 32 layers), which does not fit beside
+# the full model's AdamW moments (26.6 GB), gradients and activations
+GPT_GRAPH_LAYERS = 8
+GPT_DROPOUT_P = 0.1
+
+
+def _gpt_model(layers, seed, **overrides):
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig.gpt3_6_7b(dtype="bfloat16", use_recompute=True,
+                              num_hidden_layers=layers, **overrides)
+    return cfg, GPTForCausalLM(cfg, device=DEVICE,
+                               generator=pt_seed(seed, DEVICE),
+                               dropout_seed=seed)
+
+
+def _set_dropout(model, p):
+    """Sets every dropout of the GPT ``model`` (the ``nn.Dropout`` layers
+    and each attention's ``dropout_p``) to ``p``."""
+    from paddle_tpu_torch.models import GPTAttention
+    from paddle_tpu_torch.nn import Dropout
+
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = p
+        elif isinstance(m, GPTAttention):
+            m.dropout_p = p
+
+
+def _ids(vocab, batch, seed):
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    return torch.randint(0, vocab, batch, generator=gen, device=DEVICE)
+
+
+def _gpt_flops(cfg, seq):
+    """Model FLOPs per token, forward and backward: 6 N + 12 L h s."""
+    from paddle_tpu_torch.models import gpt_param_count
+
+    return 6 * gpt_param_count(cfg) + \
+        12 * cfg.num_hidden_layers * cfg.hidden_size * seq
+
+
+def _gpt_launches(L):
+    """{counter: launches per step} of the bf16 GPT step; every other
+    counter 0: 2L tensor-core flash forwards (recompute runs each layer's
+    forward twice), L dK/dV, L dQ, one ``adam_update``."""
+    from paddle_tpu_torch import kernels
+
+    per_step = {n: 0 for n in kernels.counters()}
+    per_step.update({"flash_attention_sm90": 2 * L,
+                     "flash_attention_bwd_dkv_sm90": L,
+                     "flash_attention_bwd_dq_sm90": L, "adam_update": 1})
+    return per_step
+
+
+def _gpt_faulty(fault):
+    """Planted backward faults of the GPT check: ``dq_unscaled`` (as the
+    dense step's), ``dk_unscaled`` (dK times sqrt(d)), ``dkv_swapped``."""
+    fa = _flash_module()
+    if fault == "dq_unscaled":
+        return _faulty(fault)
+    real = fa.flash_attention_bwd_dkv
+
+    def dkv(*a):
+        dk, dv = real(*a)
+        return (dk / a[-1], dv) if fault == "dk_unscaled" else (dv, dk)
+    return [(fa, "flash_attention_bwd_dkv", dkv)]
+
+
+def _exact(path, counts, per_step, n):
+    wrong = {k: (c, per_step[k] * n) for k, c in counts.items()
+             if c["plain_calls"] or c["launches"] != per_step[k] * n}
+    if wrong:
+        raise RuntimeError(f"{path}: launches differ from the reckoned "
+                           f"(reading, expected): {wrong}")
+
+
+def _run_figures(batch, seq, ms, skip, flops, peak, prof, losses):
+    step_ms = sum(ms[skip:]) / len(ms[skip:])
+    tok_s = batch * seq / step_ms * 1e3
+    return {"losses": losses, "step_ms": step_ms, "step_ms_each": ms,
+            "tokens_per_s": tok_s,
+            "mfu": flops * tok_s / PEAK_FLOPS["bfloat16"],
+            "peak_mem_gb": peak, "device_ms": prof["device_ms"],
+            "events_ms": prof["events_ms"], "idle_share": prof["idle_share"],
+            "profiled_wall_ms": prof["wall_ms"],
+            "groups_ms": prof["groups_ms"]}
+
+
+def _falling(path, losses):
+    import math
+
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise RuntimeError(f"{path}: loss not finite and falling: {losses}")
+
+
+def _eager_then_graph(path, model, opt, ids, per_step, flops, eager_steps,
+                      graph_steps, dump=False):
+    """``eager_steps`` eager steps then ``graph_steps`` calls of the graphed
+    step (an eager warm-up, the capture and its replay, replays), one
+    optimizer throughout: launches exact for both (the graph's reckoned),
+    the graph's kernel nodes against the launches (``dump``), losses
+    finite and falling, and the figures of each with a profiled step.
+    Returns (eager counters, graph counters, eager figures, graph
+    figures, node check)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep
+
+    batch, seq = ids.shape
+
+    def loss_fn(m, x, y):
+        return m(x, labels=y)
+
+    estep = TrainStep(model, loss_fn, opt, graph=False)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    elosses, ems = _timed(estep, ids, eager_steps)
+    ecounts = kernels.counters()
+    epeak = torch.cuda.max_memory_allocated() / 2**30
+    _exact(f"{path}-eager", ecounts, per_step, eager_steps)
+    eprof = _step_profile(lambda: estep(ids, ids))
+    del estep
+    _release()
+    gstep = TrainStep(model, loss_fn, opt)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        if dump:
+            gstep.debug_dump = os.path.join(tmp, "step.dot")
+        glosses, gms = _timed(gstep, ids, graph_steps)
+        dot = open(gstep.debug_dump).read() if dump else None
+    gpeak = torch.cuda.max_memory_allocated() / 2**30
+    gcounts = _reckoned(gstep)
+    _exact(f"{path}-graph", gcounts, per_step, graph_steps + 1)
+    captured = next(iter(gstep._graphs.values())).counts
+    if captured != {n: c for n, c in per_step.items() if c}:
+        raise RuntimeError(f"{path}-graph: captured {captured}")
+    nodes = None
+    if dump:
+        rows, forbidden, total, ok = _node_check(_graph_nodes(dot), per_step)
+        nodes = {"nodes": rows, "forbidden_nodes": forbidden,
+                 "kernel_nodes": total}
+        if not ok:
+            raise RuntimeError(f"{path}-graph: the graph's kernel nodes "
+                               f"differ from the reckoned launches {nodes}")
+    gprof = _step_profile(lambda: gstep(ids, ids))
+    del gstep
+    _release()
+    _falling(f"{path}-eager", elosses)
+    _falling(f"{path}-graph", glosses)
+    return (ecounts, gcounts,
+            _run_figures(batch, seq, ems, 1, flops, epeak, eprof, elosses),
+            _run_figures(batch, seq, gms, 2, flops, gpeak, gprof, glosses),
+            nodes)
+
+
+def phase_gpt_train(seed):
+    """GPT-3 6.7B at full width and depth, bf16, recompute, batch 2 x 2048:
+    the gradient check against the plain-swapped step with planted faults,
+    eager steps and the graphed step (exact launches, graph nodes, falling
+    loss, figures); the graphed step with dropout 0.1 (step ms, peak
+    memory, one rewind a layer); then graph = eager bit for bit at 8
+    layers."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import gpt_param_count
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _release()  # the serving engine, a reference cycle, holds its KV pool
+    t0 = time.perf_counter()
+    cfg, model = _gpt_model(32, seed + GPT_SEED)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    ids = _ids(cfg.vocab_size, GPT_BATCH, seed + GPT_SEED)
+    L = cfg.num_hidden_layers
+
+    # gradients at full depth, before the optimizer state exists
+    with _swapped(_plain_swaps()):
+        loss_p, grads_p = _loss_and_grads(model, ids)
+    loss_k, grads_k = _loss_and_grads(model, ids)
+    sound = _grad_errors(grads_k, grads_p)
+    del grads_k
+    faults = {}
+    for fault in GPT_FAULTS:
+        with _swapped(_gpt_faulty(fault)):
+            _l, grads_f = _loss_and_grads(model, ids)
+        errs = _grad_errors(grads_f, grads_p)
+        del grads_f
+        faults[fault] = {"grad_rel_l2_max": max(errs.values()),
+                         "worst": _worst(errs, 1),
+                         "caught": max(errs.values()) > GPT_GRAD_TOL}
+    del grads_p
+    _release()
+    check = {"phase": "gpt-train-grad-check", "layers": L,
+             "dtype": "bfloat16", "batch": list(GPT_BATCH),
+             "loss_kernels": loss_k, "loss_plain": loss_p,
+             "grad_rel_l2_max": max(sound.values()),
+             "grad_worst": _worst(sound), "grad_tol": GPT_GRAD_TOL,
+             "params_checked": len(sound), "faults": faults}
+    _emit(check)
+    if not max(sound.values()) <= GPT_GRAD_TOL:
+        raise RuntimeError(f"gpt-train: kernel gradients differ from plain "
+                           f"{check}")
+    if not all(f["caught"] for f in faults.values()):
+        raise RuntimeError(f"gpt-train: the gradient check missed a planted "
+                           f"fault {faults}")
+
+    per_step = _gpt_launches(L)
+    flops = _gpt_flops(cfg, GPT_BATCH[1])
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.1)
+    ecounts, gcounts, eager, graph, nodes = _eager_then_graph(
+        "gpt-train", model, opt, ids, per_step, flops, GPT_EAGER_STEPS,
+        GPT_GRAPH_STEPS, dump=True)
+    _emit({"phase": "gpt-train", "ok": True, "model": "gpt3-6.7b",
+           "card": _nvidia_smi(), "params": gpt_param_count(cfg),
+           "layers": L, "dtype": "bfloat16", "recompute": True,
+           "batch": list(GPT_BATCH), "optimizer": "AdamW lr 3e-4 wd 0.1",
+           "model_init_s": t_init, "flops_per_token": flops,
+           "graph": graph, "eager": eager,
+           "launches_per_step": {n: c for n, c in per_step.items() if c},
+           **nodes})
+
+    # the same model and optimizer with dropout in attention and on the
+    # residuals: the recompute keeps no keep mask (each layer rewinds its
+    # generator, in the graph through one twin a layer), so the peak is
+    # the step's without dropout plus one layer's attention composition
+    _set_dropout(model, GPT_DROPOUT_P)
+    dstep = TrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    dlosses, dms = _timed(dstep, ids, 4)
+    dpeak = torch.cuda.max_memory_allocated() / 2**30
+    entry = next(iter(dstep._graphs.values()))
+    twins = sum(len(t) for _, t, _ in entry.rewinds)
+    row = {"phase": "gpt-train-dropout", "layers": L, "p": GPT_DROPOUT_P,
+           "batch": list(GPT_BATCH), "card": _nvidia_smi(),
+           "losses": dlosses, "step_ms_each": dms,
+           "step_ms": sum(dms[2:]) / len(dms[2:]),
+           "step_ms_without": graph["step_ms"], "peak_mem_gb": dpeak,
+           "peak_mem_gb_without": graph["peak_mem_gb"],
+           "captures": dstep.captures, "replays": dstep.replays,
+           "rewinds_per_step": twins}
+    del dstep, entry
+    _set_dropout(model, 0.0)
+    _emit(row)
+    if not (all(math.isfinite(x) for x in dlosses) and twins == L
+            and row["replays"] == 3):
+        raise RuntimeError(f"gpt-train-dropout: {row}")
+    del opt, model
+    _release()
+
+    # the graphed step against the eager one, bit for bit, at 8 layers
+    cfg8, model = _gpt_model(GPT_GRAPH_LAYERS, seed + GPT_SEED)
+
+    def make_opt():
+        return AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                     weight_decay=0.1)
+
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_opt()
+    estep = TrainStep(model, lambda m, x, y: m(x, labels=y), opt,
+                      graph=False)
+    kernels.reset_counters()
+    ref_losses, _ms = _timed(estep, ids, 3)
+    ref = _snapshot(model, opt)
+    del estep, opt
+    _release()
+    counts8, _figures = _graph_run(
+        "gpt-train", model, make_opt, ids, 3,
+        _gpt_launches(GPT_GRAPH_LAYERS), _gpt_flops(cfg8, GPT_BATCH[1]),
+        ref, ref_losses, state0)
+    del model, state0, ref
+    _release()
+    return gcounts, ecounts, counts8
+
+
+def phase_gpt_dropout(seed):
+    """GPT-3 6.7B's width at 2 layers with dropout 0.1 in attention and on
+    the residuals (recompute on): the keep share of every mask one step
+    draws, each recomputed layer's masks equal to its first run's, a fresh
+    mask on each replay (learning rate 0: the losses of
+    replays on one batch differ; with p = 0 they do not), and the graphed
+    step against the eager step from the same weights and generator state,
+    bit for bit."""
+    import importlib
+    import math
+
+    import torch
+
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    pattn = importlib.import_module("paddle_tpu_torch.nn.functional.attention")
+    pcommon = importlib.import_module("paddle_tpu_torch.nn.functional.common")
+    p = GPT_DROPOUT_P
+    cfg, model = _gpt_model(2, seed + GPT_SEED + 1,
+                            attention_probs_dropout_prob=p,
+                            hidden_dropout_prob=p)
+    ids = _ids(cfg.vocab_size, GPT_BATCH, seed + GPT_SEED + 1)
+    gen = model.dropout_generator
+
+    def loss_fn(m, x, y):
+        return m(x, labels=y)
+
+    # 1. the keep share of every mask of one step; the recompute draws
+    # each layer's masks again, equal to its first run's
+    drawn = []
+    real = pcommon.keep_mask
+
+    def recorder(shape, p_, generator, device):
+        m = real(shape, p_, generator, device)
+        drawn.append(m)
+        return m
+    with _swapped([(pattn, "keep_mask", recorder),
+                   (pcommon, "keep_mask", recorder)]):
+        _loss_and_grads(model, ids)
+    layers = cfg.num_hidden_layers
+    first, again = drawn[:1 + 3 * layers], drawn[1 + 3 * layers:]
+    shares = []
+    for m in first:
+        n, kept = m.numel(), int(m.sum())
+        sigma = math.sqrt(p * (1 - p) / n)
+        shares.append({"shape": list(m.shape), "keep_share": kept / n,
+                       "sigmas": (kept / n - (1 - p)) / sigma})
+    # the backward recomputes the last layer first: layer j's three masks
+    # (attention's, then the two residuals') are again[3 * (L-1-j) + t]
+    redrawn_ok = len(again) == 3 * layers and all(
+        torch.equal(again[3 * (layers - 1 - j) + t], first[1 + 3 * j + t])
+        for j in range(layers) for t in range(3))
+    calls = len(drawn)
+    del drawn, first, again, m
+    # 7 masks: the embeddings', then per layer attention's and two residuals'
+    share_ok = len(shares) == 1 + 3 * layers and \
+        all(abs(s["sigmas"]) <= 4 for s in shares) and redrawn_ok
+
+    # 2. replays at learning rate 0 draw fresh masks; with p = 0 they do not
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def steps(lr, n):
+        step = TrainStep(model, loss_fn, AdamW(
+            learning_rate=lr, parameters=model.parameters(),
+            weight_decay=0.1 if lr else 0.0))
+        losses, _ = _timed(step, ids, n)
+        return step, losses
+
+    fstep, fresh = steps(0.0, 4)
+    replays = fstep.replays
+    del fstep
+    _set_dropout(model, 0.0)
+    zstep, still = steps(0.0, 4)
+    del zstep
+    _set_dropout(model, p)
+    _release()
+    fresh_ok = replays == 3 and len(set(fresh)) == len(fresh) and \
+        len(set(still)) == 1
+
+    # 3. graphed = eager from the same weights and generator state
+    model.load_state_dict(state0)
+    g0 = gen.get_state()
+    estep = TrainStep(model, loss_fn, AdamW(
+        learning_rate=3e-4, parameters=model.parameters(),
+        weight_decay=0.1), graph=False)
+    elosses, _ = _timed(estep, ids, 3)
+    ref = _snapshot(model, estep.optimizer)
+    g_eager = gen.get_state()
+    del estep
+    _release()
+    model.load_state_dict(state0)
+    gen.set_state(g0)
+    gstep = TrainStep(model, loss_fn, AdamW(
+        learning_rate=3e-4, parameters=model.parameters(),
+        weight_decay=0.1))
+    glosses, _ = _timed(gstep, ids, 3)
+    got = _snapshot(model, gstep.optimizer)
+    same, worst, where = _agreement(got, ref, state0)
+    gen_same = torch.equal(gen.get_state(), g_eager)
+    del gstep, got, ref
+    row = {"phase": "gpt-dropout", "layers": cfg.num_hidden_layers,
+           "width": cfg.hidden_size, "p": p, "batch": list(GPT_BATCH),
+           "masks": shares, "mask_draws": calls,
+           "recompute_redraws_first_masks": redrawn_ok,
+           "keep_share_ok": share_ok, "lr0_replay_losses": fresh,
+           "lr0_p0_losses": still, "fresh_mask_per_replay": fresh_ok,
+           "graph_losses": glosses, "eager_losses": elosses,
+           "graph_equals_eager_bitwise": same and glosses == elosses,
+           "max_rel_diff": worst, "max_rel_where": where,
+           "generator_state_equal": gen_same}
+    _emit(row)
+    if not (share_ok and fresh_ok and row["graph_equals_eager_bitwise"]
+            and gen_same):
+        raise RuntimeError(f"gpt-dropout: {row}")
+    del model, state0
+    _release()
+
+
+# -- phases: the Llama KV cache and the MoE dispatch modes -----------------------
+
+def phase_llama_cache(seed):
+    """The 1.16B Llama's attention at full width (hidden 2048, 16 heads of
+    128), bf16: one new token over a 2047-token cache runs the single-row
+    split-K decode kernel once; its row and the last row of the uncached
+    causal call (the tensor-core forward) are each within their kernel's
+    tolerance of the plain fp32 attention on the same q, k, v, so within
+    the sum of both of each other. Returns the counters of the cached
+    call."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.llama import (LlamaAttention,
+                                               apply_rotary_pos_emb)
+
+    fa = _flash_module()
+    cfg = LlamaConfig(**BIG, dtype="bfloat16")
+    torch.manual_seed(seed + 16)
+    att = LlamaAttention(cfg).to(DEVICE, torch.bfloat16)
+    s, h, d = 2048, cfg.num_attention_heads, 128
+    x = _rand(torch.Generator(device=DEVICE).manual_seed(seed + 16),
+              (1, s, cfg.hidden_size), torch.bfloat16)
+    cores = []
+    hook = att.o_proj.register_forward_pre_hook(
+        lambda m, a: cores.append(a[0].detach()))
+    with torch.no_grad():
+        full = att(x)
+        q = apply_rotary_pos_emb(att.q_proj(x).view(1, s, h, d),
+                                 cfg.rope_theta)
+        k = apply_rotary_pos_emb(att.k_proj(x).view(1, s, h, d),
+                                 cfg.rope_theta)
+        v = att.v_proj(x).view(1, s, h, d)
+        kernels.reset_counters()
+        last, cache = att(x[:, -1:], cache=(k[:, :-1], v[:, :-1]))
+        counts = kernels.counters()
+    hook.remove()
+    full_core, dec_core = (c.view(-1, h, d)[-1].float() for c in cores)
+
+    def bhsd(t):
+        return t[0].transpose(0, 1).float()
+    ro, _ = fa.flash_attention_plain(bhsd(q), bhsd(k), bhsd(v), 0, True,
+                                     d ** -0.5)
+    bound_full = fa.sm90_fwd_bound(bhsd(q), bhsd(k), bhsd(v), 0, True,
+                                   d ** -0.5, ro)[:, -1]
+    ref = ro[:, -1]
+    rtol, atol = _tol(torch.bfloat16)
+    tol_dec = rtol * ref.abs() + atol
+    dec_err = ((dec_core - ref).abs() - tol_dec).max().item()
+    full_err = ((full_core - ref).abs() - bound_full).max().item()
+    pair_err = ((dec_core - full_core).abs() -
+                (tol_dec + bound_full)).max().item()
+    launched = {n: c["launches"] for n, c in counts.items() if c["launches"]}
+    row = {"phase": "llama-cache", "hidden": cfg.hidden_size, "heads": h,
+           "cache_len": s - 1, "new_tokens": 1, "launches": launched,
+           "decode_max_abs_err": (dec_core - ref).abs().max().item(),
+           "full_max_abs_err": (full_core - ref).abs().max().item(),
+           "decode_vs_full_max_abs": (dec_core - full_core).abs().max()
+           .item(),
+           "module_out_max_abs": (last.float() - full[:, -1:].float()).abs()
+           .max().item(), "cache_shape": list(cache[0].shape),
+           "tol": "decode 2^-8|ref| + 1e-4; full sm90_fwd_bound; the pair "
+                  "their sum"}
+    _emit(row)
+    if launched != {"flash_attention_decode": 1, "rope": 2} or \
+            any(c["plain_calls"] for c in counts.values()):
+        raise RuntimeError(f"llama-cache: the cached call's launches {row}")
+    if not (dec_err <= 0 and full_err <= 0 and pair_err <= 0) or \
+            list(cache[0].shape) != [1, s, h, d]:
+        raise RuntimeError(f"llama-cache: the cached row differs {row}")
+    del att, x, q, k, v, ro
+    _release()
+    return counts
+
+
+# index and einsum on the same layer inputs: each output's and gradient's
+# relative L2 difference from index; the two compute the same slots, so
+# bf16 leaves one or two roundings of each product (einsum rounds the gates
+# and sums the choices in fp32 inside its matmul)
+MOE_MODES_TOL = 2.0 ** -6
+
+
+def phase_moe_modes(seed):
+    """The MoE Llama at full width (hidden 1536, 8 experts, top-2) and
+    depth 2, bf16, batch 4 x 2048: each MoE layer's input under the
+    ``index`` dispatch, then ``index`` and ``einsum`` on those inputs:
+    output, aux and the gradients of x, the router and the expert stacks
+    agree (MOE_MODES_TOL); no MoE kernel runs (``sort`` runs ``index``).
+    The model's loss under each mode is reported beside."""
+    import torch
+
+    from paddle_tpu_torch import kernels, set_flags
+    from paddle_tpu_torch.nn.layer.moe import moe_mlp
+
+    cfg, model = _moe_model("bfloat16", 2, seed + 17)
+    ids = _ids(cfg.vocab_size, MOE_BATCH, seed + 17)
+    inputs = []
+
+    def recording(mlp):
+        real = mlp.forward_with_aux
+
+        def forward_with_aux(x):
+            inputs.append(x.detach())
+            return real(x)
+        return forward_with_aux
+
+    losses = {}
+    mlps = [layer.mlp for layer in model.llama.layers]
+    try:
+        for mlp in mlps:  # the decoder layer calls forward_with_aux
+            mlp.forward_with_aux = recording(mlp)
+        for mode in ("index", "einsum"):
+            set_flags({"FLAGS_moe_dispatch": mode})
+            with torch.no_grad():
+                losses[mode] = float(model(ids, labels=ids))
+    finally:
+        set_flags({"FLAGS_moe_dispatch": "index"})
+        for mlp in mlps:
+            del mlp.forward_with_aux
+    layers = []
+    ok = True
+    kernels.reset_counters()
+    for li in range(cfg.num_hidden_layers):
+        mlp = model.llama.layers[li].mlp
+        x = inputs[li]  # the index run's inputs
+        runs = {}
+        for mode in ("index", "einsum"):
+            leaves = [x.clone().requires_grad_()] + [
+                w.detach().clone().requires_grad_() for w in (
+                    mlp.gate_weight, mlp.experts.gate, mlp.experts.up,
+                    mlp.experts.down)]
+            o, aux = moe_mlp(*leaves, top_k=mlp.top_k,
+                             capacity_factor=mlp.capacity_factor,
+                             dispatch=mode)
+            ((o.float() ** 2).mean() + 0.1 * aux).backward()
+            runs[mode] = [o.detach(), aux.detach().reshape(1)] + \
+                [t.grad for t in leaves]
+            del leaves, o, aux
+        names = ["out", "aux", "x", "router", "gate", "up", "down"]
+        entry = {"layer": li}
+        for mode in ("einsum",):
+            errs = {nm: ((a.float() - b.float()).norm() /
+                         b.float().norm().clamp_min(1e-30)).item()
+                    for nm, a, b in zip(names, runs[mode], runs["index"])}
+            entry[mode] = {"rel_l2_max": max(errs.values()),
+                           "worst": max(errs, key=errs.get),
+                           "bitwise": all(torch.equal(a, b) for a, b in
+                                          zip(runs[mode], runs["index"]))}
+            ok = ok and max(errs.values()) <= MOE_MODES_TOL
+        layers.append(entry)
+        del runs
+        _release()
+    counts = kernels.counters()
+    moe_kernels = {n: c for n, c in counts.items() if n.startswith(
+        ("moe_", "grouped_matmul")) and (c["launches"] or c["plain_calls"])}
+    row = {"phase": "moe-modes", "layers": cfg.num_hidden_layers,
+           "dtype": "bfloat16", "batch": list(MOE_BATCH),
+           "capacity_factor": cfg.capacity_factor, "per_layer": layers,
+           "tol": MOE_MODES_TOL, "model_losses": losses,
+           "moe_kernel_launches": moe_kernels}
+    _emit(row)
+    if not ok or moe_kernels:
+        raise RuntimeError(f"moe-modes: the dispatch modes disagree {row}")
+    del model, inputs
+    _release()
+
+
+# -- phase: the bench's adafactor_1p8b and long_seq_16k ------------------------
+
+# bench.py _configs(): "big_1p8" (:1846-1849), run as adafactor_1p8b
+# (:2025-2027: Adafactor lr 1e-2, batch 4 x 2048), and "long16k"
+# (:1852-1855), the 1.16B model at 16384 positions, run as long_seq_16k
+# (:2028-2029: AdamW, batch 2 x 16384)
+BIG_1P8 = dict(vocab_size=32000, hidden_size=2560, intermediate_size=6912,
+               num_hidden_layers=21, num_attention_heads=20,
+               num_key_value_heads=20, max_position_embeddings=2048)
+BENCH_CONFIGS = [
+    ("adafactor_1p8b", BIG_1P8, (4, 2048), "adafactor", 2, 5),
+    ("long_seq_16k", {**BIG, "max_position_embeddings": 16384}, (2, 16384),
+     "adamw", 2, 4),
+]
+
+
+def phase_bench_configs(seed):
+    """Each configuration as the bench runs it, bf16 with recompute: eager
+    steps then the graphed step (exact launches, finite falling loss, step
+    ms, tokens/s, MFU, peak memory, device ms by group and idle share). At
+    16384 the flash forward and backward and RoPE are first held to their
+    plain versions at one layer's sequence (bh 1: the plain forward's
+    scores take 1 GiB in fp32). Returns ({config: graph counters},
+    kernel rows)."""
+    import torch
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         llama_flops_per_token,
+                                         llama_param_count)
+    from paddle_tpu_torch.optimizer import Adafactor, AdamW
+
+    out, rows = {}, []
+    for name, shape, batch, rule, eager_n, graph_n in BENCH_CONFIGS:
+        if batch[1] > 2048:
+            gen = torch.Generator(device=DEVICE)
+            gen.manual_seed(seed + 18)
+            label = f"long{batch[1] // 1024}k-bfloat16"
+            rows.append(_flash_case(label, torch.bfloat16, 1, batch[1],
+                                    batch[1], True, gen))
+            rows += _flash_bwd_case(label, torch.bfloat16, 1, batch[1],
+                                    batch[1], 0, True, gen)
+            rows += _rope_case(label, torch.bfloat16, (1, batch[1], 16, 128),
+                               0, 1e4, gen, timed=False)
+            _release()
+        cfg = LlamaConfig(**shape, dtype="bfloat16", use_recompute=True)
+        model = LlamaForCausalLM(cfg, device=DEVICE,
+                                 generator=pt_seed(seed + 19, DEVICE))
+        ids = _ids(cfg.vocab_size, batch, seed + 19)
+        if rule == "adafactor":
+            opt = Adafactor(learning_rate=1e-2,
+                            parameters=model.parameters())
+        else:
+            opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                        weight_decay=0.1)
+        per_step = _dense_launches(cfg.num_hidden_layers)
+        if rule == "adafactor":
+            per_step.update(adam_update=0, adafactor_stats=1,
+                            adafactor_update=1)
+        flops = llama_flops_per_token(cfg, batch[1])
+        ecounts, gcounts, eager, graph, _nodes = _eager_then_graph(
+            name, model, opt, ids, per_step, flops, eager_n, graph_n)
+        _emit({"phase": name, "ok": True, "card": _nvidia_smi(),
+               "params": llama_param_count(cfg),
+               "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+               "dtype": "bfloat16", "recompute": True, "batch": list(batch),
+               "optimizer": rule, "flops_per_token": flops, "graph": graph,
+               "eager": eager,
+               "launches_per_step": {n: c for n, c in per_step.items()
+                                     if c}})
+        out[name] = gcounts
+        out[name + "-eager"] = ecounts
+        del model, opt
+        _release()
+    return out, rows
+
+
 def _kernels_line(rows, paths):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
@@ -4373,6 +5090,8 @@ def main() -> int:
     rows += phase_train_kernels(SEED)
     serving_fp32 = phase_parity(SEED)
     serving = phase_serving(SEED)
+    gpt, gpt_eager, gpt_graph_check = phase_gpt_train(SEED)
+    phase_gpt_dropout(SEED)
     training_fp32, finetune_fp32 = phase_train_parity(SEED)
     (training, training_eager, accumulate, dense_shapes, rule_graphs,
      rule_steps, scaler) = phase_train(SEED)
@@ -4383,6 +5102,10 @@ def main() -> int:
     moe_fp32 = phase_moe_train_parity(SEED)
     moe, moe_eager, moe_shapes = phase_moe_train(SEED)
     rows += phase_optimizer("moe", moe_shapes, "adafactor", SEED)
+    phase_moe_modes(SEED)
+    llama_cache = phase_llama_cache(SEED)
+    bench, bench_rows = phase_bench_configs(SEED)
+    rows += bench_rows
 
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
            "batch": [4, 2048], "rules": rule_steps})
@@ -4393,7 +5116,9 @@ def main() -> int:
         "accumulate": accumulate, "rule-graphs": rule_graphs,
         "grad-scaler": scaler,
         "training-fp32": training_fp32, "moe-training-fp32": moe_fp32,
-        "finetune-fp32": finetune_fp32})})
+        "finetune-fp32": finetune_fp32, "gpt-training": gpt,
+        "gpt-training-eager": gpt_eager, "gpt-graph-check": gpt_graph_check,
+        "llama-cache": llama_cache, **bench})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -1,11 +1,14 @@
 """Global flags (counterpart of ``paddle_tpu/framework/flags.py``).
 
 The port holds one flag so far, ``FLAGS_moe_dispatch``: how an MoE layer
-moves tokens to its experts. Its default and values are the JAX package's,
-less the two modes not ported yet (``sort``, ``einsum``):
+moves tokens to its experts. Its default and values are the JAX package's:
 
 - ``index`` (default): capacity routing by a cumsum over the expert one-hot,
   plain PyTorch (the JAX package has no kernel there either);
+- ``sort``: runs ``index``; the JAX package's stable sort by expert finds
+  the same capacity slots as its cumsum;
+- ``einsum``: GShard's one-hot dispatch and combine einsums, O(n * e *
+  cap), plain PyTorch (the JAX package's parity oracle);
 - ``gmm``: dropless; rows sorted by expert with a stable argsort, then the
   grouped-GEMM kernel;
 - ``fused``: dropless; the routing kernel orders the rows without a sort,
@@ -21,7 +24,7 @@ from typing import Any, Dict, Iterable, Union
 
 __all__ = ["set_flags", "get_flags", "MOE_DISPATCH_MODES"]
 
-MOE_DISPATCH_MODES = ("index", "gmm", "fused")
+MOE_DISPATCH_MODES = ("index", "sort", "gmm", "fused", "einsum")
 
 _VALUES: Dict[str, Any] = {"FLAGS_moe_dispatch": "index"}
 _CHOICES = {"FLAGS_moe_dispatch": MOE_DISPATCH_MODES}

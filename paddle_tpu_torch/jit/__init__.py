@@ -27,6 +27,17 @@ static input buffers that each call copies into.
   between replays must lie where no node of the graph writes.
 - The wrappers count their launches in Python, which a replay does not
   run: ``captured_launches`` and ``replays`` let a caller reckon them.
+- Dropout draws fresh masks on every replay: before the capture the
+  generators the model's dropouts draw from are registered with the graph
+  (``CUDAGraph.register_generator_state``; torch's default generator is
+  registered by torch itself), so each replay reads its generator's seed
+  and offset when it starts and advances the offset, as an eager step
+  would. A replay equals the eager step from the same generator state. On
+  a torch without that call a model with active dropout raises rather
+  than replay the capture's masks. A checkpointed region draws its first
+  run's masks again (``nn.functional.common.rewinding``): in a graph from
+  twin generators, registered with it too, which the eager warm-up step
+  records and each replay arms (``Rewinds``).
 - Nothing falls back: a capture or replay that fails raises. A capture
   fails where an autograd graph built on another stream still holds the
   parameters' gradient accumulators (a loss kept from an eager step on the
@@ -44,8 +55,43 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .. import kernels
+from ..nn.functional.common import Rewinds, drawing_generator, rewinding
 
 __all__ = ["TrainStep", "AccumulateStep"]
+
+
+def _active_generators(model: torch.nn.Module, device=None):
+    """The distinct generators that the model's active dropouts (``p`` or
+    ``dropout_p`` above 0) draw from: their ``generator`` attribute, or
+    with ``device`` given, torch's default generator there for a dropout
+    that holds none."""
+    out: Dict[int, torch.Generator] = {}
+    for m in model.modules():
+        p = getattr(m, "p", getattr(m, "dropout_p", 0.0))
+        if not isinstance(p, (int, float)) or p <= 0.0 or \
+                not hasattr(m, "generator"):
+            continue
+        g = m.generator
+        if g is None:
+            if device is None:
+                continue
+            g = drawing_generator(None, device)
+        out[id(g)] = g
+    return list(out.values())
+
+
+def _dropout_generators(model: torch.nn.Module) -> List[torch.Generator]:
+    """The distinct CUDA generators that the model's active dropouts
+    (``p`` or ``dropout_p`` above 0, a ``generator`` attribute) draw from;
+    raises on a torch that cannot register them with a graph."""
+    out = {id(g): g for g in _active_generators(model)
+           if g.device.type == "cuda"}
+    if out and not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
+        raise RuntimeError(
+            "TrainStep: this torch cannot register a dropout generator with "
+            "a CUDA graph, and the graph would replay one mask forever; "
+            "use graph=False or dropout 0")
+    return list(out.values())
 
 
 class _Captured:
@@ -53,13 +99,15 @@ class _Captured:
     inputs it reads, the loss it writes, the optimizer's table (whose
     header is written before each replay) and the addresses it baked in."""
 
-    def __init__(self, graph, inputs, loss, batch, addresses, counts):
+    def __init__(self, graph, inputs, loss, batch, addresses, counts,
+                 rewinds):
         self.graph = graph
         self.inputs = inputs
         self.loss = loss
         self.batch = batch
         self.addresses = addresses
         self.counts = counts
+        self.rewinds = rewinds  # [(Rewinds, twins, offsets)]
 
 
 class _Step:
@@ -82,6 +130,7 @@ class _Step:
         self._replayed: Dict[str, int] = {}  # launches the replays made
         self._graphs: Dict[tuple, _Captured] = {}
         self._seen: Dict[tuple, int] = {}
+        self._offsets: Dict[tuple, list] = {}  # the warm-up's rewinds
         self._stream = None
 
     def _body(self, *batch):
@@ -141,8 +190,15 @@ class _Step:
             if seen < self.warmup_steps:
                 self._seen[key] = seen + 1
                 self._stream.wait_stream(main)
-                with torch.cuda.stream(self._stream):
-                    loss, _ = self._body(*batch)
+                rewinds = [Rewinds.of(g) for g in _active_generators(
+                    self.model, dev) if g.device.type == "cuda"]
+                for r in rewinds:
+                    r.record()
+                try:
+                    with torch.cuda.stream(self._stream):
+                        loss, _ = self._body(*batch)
+                finally:
+                    self._offsets[key] = [(r, r.stop()) for r in rewinds]
                 main.wait_stream(self._stream)
                 loss.record_stream(main)
                 opt._global_step += 1
@@ -153,6 +209,8 @@ class _Step:
                 s.copy_(a)
         if entry.batch is not None:
             entry.batch.set_step(opt.get_lr(), opt._global_step + 1)
+        for r, twins, offsets in entry.rewinds:
+            r.arm(twins, offsets)
         entry.graph.replay()
         self.replays += 1
         for n, c in entry.counts.items():
@@ -164,15 +222,39 @@ class _Step:
         opt = self.optimizer
         opt._reserve_table()  # creates the state, then the table's buffer
         opt.clear_grad()  # the backward allocates them from the graph's pool
+        # the warm-up's gradients and activations sit in the allocator's
+        # cache, which the graph's private pool cannot reuse: return them
+        # first (GPT-3 6.7B's bf16 gradients alone take 13.3 GB)
+        torch.cuda.empty_cache()
         inputs = [a.clone() if isinstance(a, torch.Tensor) else a
                   for a in batch]
         # debug mode keeps the graph's description (keep_graph) to print it
         graph = torch.cuda.CUDAGraph(keep_graph=bool(self.debug_dump))
         if self.debug_dump:
             graph.enable_debug_mode()
+        for gen in _dropout_generators(self.model):
+            graph.register_generator_state(gen)
+        # a checkpointed region's recompute draws from a twin of the
+        # generator, one for each rewind the warm-up step made
+        rewinds = []
+        for r, offsets in self._offsets.get(key, []):
+            twins = [r.generator.clone_state() for _ in offsets]
+            for t in twins:
+                graph.register_generator_state(t)
+            rewinds.append((r, twins, offsets))
         before = kernels.counters()
-        with torch.cuda.graph(graph, stream=self._stream):
-            loss, opt_batch = self._body(*inputs)
+        try:
+            for r, twins, _ in rewinds:
+                r.capture(twins)
+            with torch.cuda.graph(graph, stream=self._stream):
+                loss, opt_batch = self._body(*inputs)
+        finally:
+            used = [r.capture(None) for r, _, _ in rewinds]
+        if used != [len(twins) for _, twins, _ in rewinds]:
+            raise RuntimeError(
+                f"{type(self).__name__}: the captured step rewound its "
+                f"checkpointed regions {used} times, the eager step "
+                f"{[len(t) for _, t, _ in rewinds]}")
         after = kernels.counters()
         if self.debug_dump:
             graph.debug_dump(self.debug_dump)
@@ -181,7 +263,7 @@ class _Step:
                   for n in after
                   if after[n]["launches"] != before[n]["launches"]}
         entry = _Captured(graph, inputs, loss, opt_batch, self._addresses(),
-                          counts)
+                          counts, rewinds)
         self._graphs[key] = entry
         self.captures += 1
         return entry
@@ -269,10 +351,14 @@ class AccumulateStep(_Step):
         micro = [a.reshape((k, a.shape[0] // k) + tuple(a.shape[1:]))
                  if isinstance(a, torch.Tensor) else a for a in batch]
         losses = []
+        gens = _active_generators(self.model, self._device()) \
+            if self.remat else []
         for i in range(k):
             mb = [m[i] if isinstance(m, torch.Tensor) else m for m in micro]
             if self.remat:
-                loss = checkpoint(self._loss, *mb, use_reentrant=False,
+                # the recompute draws the first run's dropout masks again
+                loss = checkpoint(rewinding(self._loss, gens), *mb,
+                                  use_reentrant=False,
                                   preserve_rng_state=False)
             else:
                 loss = self._loss(*mb)

@@ -6,7 +6,18 @@ Parameter names follow the JAX package (``gpt.layers.0.attn.qkv_proj.weight``)
 but Linear weights are PyTorch's ``[out, in]``; ``models.convert`` transposes
 the JAX package's ``[in, out]``. The qkv projection's output columns are
 ordered ``[3][heads][head_dim]``. Attention goes through
-``nn.functional.scaled_dot_product_attention``, i.e. the flash kernel on CUDA.
+``nn.functional.scaled_dot_product_attention``: the flash kernels on CUDA,
+or, with attention dropout in training, the JAX package's plain composition.
+
+Training follows the JAX model: dropout after the embeddings, in
+attention and after each residual branch (``hidden_dropout_prob``,
+``attention_probs_dropout_prob``; active only in ``train()``), each layer
+under ``torch.utils.checkpoint`` with ``use_recompute``, and
+``forward(ids, labels=)`` returning the chunked fused lm-head CE. Every
+dropout draws its keep mask from the one ``torch.Generator`` the model
+owns (``dropout_generator``); a recomputed layer draws the masks its
+first run drew, from the generator set back to where that run began
+(``nn.functional.common.rewinding``).
 """
 from __future__ import annotations
 
@@ -17,11 +28,16 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from ..device import resolve_device, seed
+from ..nn import Dropout
 from ..nn.functional import scaled_dot_product_attention
+from ..nn.functional.common import drawing_generator, rewinding
+from .llama import fused_linear_ce
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTBlock", "GPTModel",
-           "GPTForCausalLM"]
+           "GPTForCausalLM", "gpt_param_count"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -35,6 +51,9 @@ class GPTConfig:
     intermediate_size: int = 0  # 0 = 4*hidden
     max_position_embeddings: int = 1024
     layer_norm_epsilon: float = 1e-5
+    attention_probs_dropout_prob: float = 0.0
+    hidden_dropout_prob: float = 0.0
+    use_recompute: bool = False
     dtype: str = "bfloat16"
 
     def __post_init__(self):
@@ -51,6 +70,11 @@ class GPTConfig:
     def gpt2_small(**overrides):
         return GPTConfig(**{**dict(hidden_size=768, num_hidden_layers=12,
                                    num_attention_heads=12), **overrides})
+
+    @staticmethod
+    def gpt2_xl(**overrides):
+        return GPTConfig(**{**dict(hidden_size=1600, num_hidden_layers=48,
+                                   num_attention_heads=25), **overrides})
 
     @staticmethod
     def gpt3_6_7b(**overrides):
@@ -75,6 +99,8 @@ class GPTAttention(nn.Module):
         h = config.hidden_size
         self.qkv_proj = nn.Linear(h, 3 * h)
         self.out_proj = nn.Linear(h, h)
+        self.dropout_p = config.attention_probs_dropout_prob
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, hidden, cache=None, use_cache=False):
         b, s = hidden.shape[0], hidden.shape[1]
@@ -85,7 +111,10 @@ class GPTAttention(nn.Module):
             k = torch.cat([cache[0], k], dim=1)
             v = torch.cat([cache[1], v], dim=1)
         # bottom-right aligned causal mask: cache-safe
-        out = scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.dropout_p if self.training else 0.0,
+            generator=self.generator)
         out = self.out_proj(out.reshape(b, s, self.num_heads * self.head_dim))
         if use_cache:
             return out, (k, v)
@@ -103,15 +132,17 @@ class GPTBlock(nn.Module):
         self.ln_2 = nn.LayerNorm(h, eps)
         self.fc_in = nn.Linear(h, config.intermediate_size)
         self.fc_out = nn.Linear(config.intermediate_size, h)
+        self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, hidden, cache=None, use_cache=False):
         attn_out = self.attn(self.ln_1(hidden), cache=cache,
                              use_cache=use_cache)
         if use_cache:
             attn_out, new_cache = attn_out
-        hidden = hidden + attn_out
-        hidden = hidden + self.fc_out(
+        hidden = hidden + self.dropout(attn_out)
+        mlp = self.fc_out(
             TF.gelu(self.fc_in(self.ln_2(hidden)), approximate="tanh"))
+        hidden = hidden + self.dropout(mlp)
         if use_cache:
             return hidden, new_cache
         return hidden
@@ -125,6 +156,7 @@ class GPTModel(nn.Module):
                                          config.hidden_size)
         self.embed_positions = nn.Embedding(config.max_position_embeddings,
                                             config.hidden_size)
+        self.drop = Dropout(config.hidden_dropout_prob)
         self.layers = nn.ModuleList(
             [GPTBlock(config) for _ in range(config.num_hidden_layers)])
         self.ln_f = nn.LayerNorm(config.hidden_size,
@@ -136,12 +168,27 @@ class GPTModel(nn.Module):
         pos = torch.arange(position_offset, position_offset + s,
                            device=input_ids.device)
         hidden = self.embed_tokens(input_ids) + self.embed_positions(pos)
+        hidden = self.drop(hidden)
+        remat = self.config.use_recompute and self.training and \
+            torch.is_grad_enabled()
+        # a recomputed layer rewinds the generator its dropouts draw from
+        gens = []
+        if remat and (self.drop.p > 0 or any(
+                layer.dropout.p > 0 or layer.attn.dropout_p > 0
+                for layer in self.layers)):
+            gens = [drawing_generator(self.drop.generator, hidden.device)]
         new_caches = []
         for i, layer in enumerate(self.layers):
             if use_cache:
                 hidden, c = layer(hidden, cache=None if caches is None
                                   else caches[i], use_cache=True)
                 new_caches.append(c)
+            elif remat:
+                # the forward runs again in the backward and draws its
+                # first run's keep masks again
+                hidden = checkpoint(rewinding(layer, gens), hidden,
+                                    use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
                 hidden = layer(hidden)
         hidden = self.ln_f(hidden)
@@ -154,10 +201,13 @@ class GPTForCausalLM(nn.Module):
     """Tied-embedding LM head. Built on ``device`` (``None`` = CUDA) in
     ``config.dtype``, with random weights drawn from ``generator`` (a
     ``torch.Generator`` on that device; ``None`` = seed 0): normal(0, 0.02)
-    matrices and embeddings, zero biases, unit LayerNorm scales."""
+    matrices and embeddings, zero biases, unit LayerNorm scales. Its
+    dropouts draw from ``dropout_generator``, seeded with
+    ``dropout_seed``."""
 
     def __init__(self, config: GPTConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
@@ -167,6 +217,10 @@ class GPTForCausalLM(nn.Module):
         self.to(config.torch_dtype)
         self._init_weights(generator if generator is not None
                            else seed(0, dev))
+        self.dropout_generator = seed(dropout_seed, dev)
+        for m in self.modules():
+            if isinstance(m, (Dropout, GPTAttention)):
+                m.generator = self.dropout_generator
 
     @torch.no_grad()
     def _init_weights(self, g: torch.Generator):
@@ -178,10 +232,17 @@ class GPTForCausalLM(nn.Module):
             else:
                 p.normal_(0.0, 0.02, generator=g)
 
-    def forward(self, input_ids):
-        """``input_ids`` [b, s] int64 -> logits [b, s, vocab]."""
+    def forward(self, input_ids, labels=None):
+        """``input_ids`` [b, s] int64 -> logits [b, s, vocab]; with
+        ``labels`` [b, s], the mean next-token CE (fp32 scalar) through the
+        chunked fused head (chunks of 2048 tokens), labels equal to -100
+        not counted."""
         hidden = self.gpt(input_ids)
-        return TF.linear(hidden, self.gpt.embed_tokens.weight)
+        w = self.gpt.embed_tokens.weight
+        if labels is None:
+            return TF.linear(hidden, w)
+        h = hidden[:, :-1, :].reshape(-1, self.config.hidden_size)
+        return fused_linear_ce(h, w, labels[:, 1:].reshape(-1), 2048)
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=16, use_cache=True):
@@ -205,3 +266,12 @@ class GPTForCausalLM(nn.Module):
                                           position_offset=out.shape[1] - 1,
                                           caches=caches, use_cache=True)
         return out
+
+
+def gpt_param_count(config: GPTConfig) -> int:
+    h, L = config.hidden_size, config.num_hidden_layers
+    i = config.intermediate_size
+    # qkv (3h^2+3h) + out_proj (h^2+h) + mlp (2hi+i+h) + 2 LN (4h)
+    per_layer = 4 * h * h + 2 * h * i + i + 9 * h
+    return (L * per_layer + config.vocab_size * h
+            + config.max_position_embeddings * h + 2 * h)

@@ -11,8 +11,9 @@ hand-written kernels of ``paddle_tpu_torch.kernels``.
 Parameter names follow the JAX package with its scanned layer stack
 unrolled (``llama.layers.3.self_attn.q_proj.weight``); Linear weights are
 PyTorch's ``[out, in]``. ``models.convert.llama_state_from_numpy`` moves a
-JAX state dict across. Left out: the KV-cache branch of attention (training
-does not use it) and context parallelism (the distributed slice).
+JAX state dict across. ``LlamaAttention`` takes the JAX attention's KV
+cache; the decoder layers do not (as there). Left out: context parallelism
+(the distributed slice).
 
 ``LlamaMoEConfig`` (the DeepSeekMoE/Qwen2-MoE-style recipe) makes every MLP
 an ``nn.MoELayer`` (top-k routed experts, ``FLAGS_moe_dispatch`` picks the
@@ -137,21 +138,33 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False)
         self.o_proj = nn.Linear(self.num_heads * hd, h, bias=False)
 
-    def forward(self, hidden):
+    def forward(self, hidden, cache=None):
+        """``hidden`` [b, s, h] -> [b, s, h]. With ``cache`` ``(k, v)``
+        [b, past, kv_heads, hd] (before the GQA repeat), as the JAX
+        attention: the new rows are rotated at positions ``past ...``, K
+        and V are appended to the cache, and ``(out, (k, v))`` is returned.
+        Like the reference (``is_causal = cache is None``), a cached call
+        is not causal: each of several new rows sees every new key."""
         b, s = hidden.shape[0], hidden.shape[1]
         hd, theta = self.head_dim, self.config.rope_theta
         q = self.q_proj(hidden).view(b, s, self.num_heads, hd)
         k = self.k_proj(hidden).view(b, s, self.num_kv_heads, hd)
         v = self.v_proj(hidden).view(b, s, self.num_kv_heads, hd)
-        q = apply_rotary_pos_emb(q, theta)
-        k = apply_rotary_pos_emb(k, theta)
+        pos = 0 if cache is None else cache[0].shape[1]
+        q = apply_rotary_pos_emb(q, theta, pos)
+        k = apply_rotary_pos_emb(k, theta, pos)
+        if cache is not None:
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+            new_cache = (k, v)
         if self.num_kv_heads != self.num_heads:
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        out = scaled_dot_product_attention(q, k, v, is_causal=True,
+        out = scaled_dot_product_attention(q, k, v, is_causal=cache is None,
                                            training=self.training)
-        return self.o_proj(out.reshape(b, s, self.num_heads * hd))
+        out = self.o_proj(out.reshape(b, s, self.num_heads * hd))
+        return out if cache is None else (out, new_cache)
 
 
 class LlamaMLP(nn.Module):

@@ -1,6 +1,6 @@
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer import MoELayer, RMSNorm
+from .layer import Dropout, MoELayer, RMSNorm
 
-__all__ = ["functional", "MoELayer", "RMSNorm", "ClipGradByValue",
-           "ClipGradByNorm", "ClipGradByGlobalNorm"]
+__all__ = ["functional", "Dropout", "MoELayer", "RMSNorm",
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]

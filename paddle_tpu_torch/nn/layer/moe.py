@@ -13,7 +13,16 @@ parameters and layouts: the router ``gate_weight`` [h, e] (used as
   grouped-GEMM kernel (dropless);
 - ``index`` (default): capacity routing by a cumsum over the choice-major
   expert one-hot, dropped rows past ``capacity_factor``, batched expert
-  products; plain PyTorch (the JAX package has no kernel there).
+  products; plain PyTorch (the JAX package has no kernel there);
+- ``sort``: taken by ``index``. The JAX package finds the same capacity
+  slots with a stable sort by expert instead of a cumsum; the two give the
+  same slots, drops and output, so the port keeps one of them;
+- ``einsum``: GShard's one-hot dispatch and combine tensors [n, e, cap]
+  and two einsums, O(n * e * cap); plain PyTorch, the JAX package's parity
+  oracle.
+
+``index`` and ``einsum`` share the slot-major drop rule (every token's
+first choice outranks any second choice) and give the same output.
 
 Each returns the layer output and the load-balancing aux loss ``e *
 sum(me * ce)``. ``MoELayer.forward`` records the aux for an enclosing
@@ -96,7 +105,7 @@ def _moe_mlp_index(x, wg, w_gate, w_up, w_down, *, top_k, capacity_factor):
     n = b * s
     e = wg.shape[1]
     kn = top_k * n
-    cap = max(int(math.ceil(capacity_factor * top_k * n / e)), top_k)
+    cap = _capacity(n, e, top_k, capacity_factor)
     xt = x.reshape(n, h)
     gate_v, gate_i, aux = _route(xt, wg, top_k)
     flat_e = gate_i.t().reshape(kn)                        # choice-major
@@ -119,6 +128,37 @@ def _moe_mlp_index(x, wg, w_gate, w_up, w_down, *, top_k, capacity_factor):
     contrib = torch.where(keep[:, None], picked, picked.new_zeros(())) * \
         flat_g[:, None].to(y.dtype)
     out = contrib.reshape(top_k, n, h).sum(dim=0)
+    return out.reshape(b, s, h), aux
+
+
+def _capacity(n, e, top_k, capacity_factor):
+    return max(int(math.ceil(capacity_factor * top_k * n / e)), top_k)
+
+
+def _moe_mlp_einsum(x, wg, w_gate, w_up, w_down, *, top_k,
+                    capacity_factor):
+    """GShard one-hot dispatch: fp32 dispatch and combine tensors [n, e,
+    cap] from a cumsum over the choice-major one-hot, ``einsum`` into the
+    expert buffers and back."""
+    b, s, h = x.shape
+    n = b * s
+    e = wg.shape[1]
+    cap = _capacity(n, e, top_k, capacity_factor)
+    xt = x.reshape(n, h)
+    gate_v, gate_i, aux = _route(xt, wg, top_k)
+    oh = TF.one_hot(gate_i.t().reshape(top_k * n), e).float()  # [k*n, e]
+    pos_in_e = ((torch.cumsum(oh, dim=0) - 1.0) * oh).sum(dim=-1)
+    keep = (pos_in_e < cap).float()[:, None] * oh
+    # one_hot of a position past the buffer is all zeros, as jax's
+    cap_oh = (pos_in_e.long()[:, None] ==
+              torch.arange(cap, device=x.device)[None, :]).float()
+    disp = keep[:, :, None] * cap_oh[:, None, :]           # [k*n, e, cap]
+    disp = disp.reshape(top_k, n, e, cap).transpose(0, 1)  # [n, k, e, cap]
+    combine = (disp * gate_v[:, :, None, None]).sum(dim=1)
+    disp = disp.sum(dim=1)
+    expert_in = torch.einsum("nec,nh->ech", disp.to(x.dtype), xt)
+    y = _expert_ffn(expert_in, w_gate, w_up, w_down)
+    out = torch.einsum("ech,nec->nh", y, combine.to(x.dtype))
     return out.reshape(b, s, h), aux
 
 
@@ -150,13 +190,14 @@ def _moe_mlp_gmm(x, wg, w_gate, w_up, w_down, *, top_k):
 def moe_mlp(x, wg, w_gate, w_up, w_down, *, top_k, capacity_factor,
             dispatch="index"):
     """Routed expert FFN: [b, s, h] -> ([b, s, h], aux) by ``dispatch``
-    (``index`` | ``gmm`` | ``fused``)."""
+    (``index`` | ``sort`` | ``gmm`` | ``fused`` | ``einsum``)."""
     if dispatch == "fused" and wg.shape[1] <= MAX_EXPERTS:
         return fused_moe_mlp(x, wg, w_gate, w_up, w_down, top_k=top_k)
     if dispatch == "gmm":
         return _moe_mlp_gmm(x, wg, w_gate, w_up, w_down, top_k=top_k)
-    return _moe_mlp_index(x, wg, w_gate, w_up, w_down, top_k=top_k,
-                          capacity_factor=capacity_factor)
+    impl = _moe_mlp_einsum if dispatch == "einsum" else _moe_mlp_index
+    return impl(x, wg, w_gate, w_up, w_down, top_k=top_k,
+                capacity_factor=capacity_factor)
 
 
 class ExpertMLP(nn.Module):

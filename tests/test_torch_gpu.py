@@ -1716,3 +1716,143 @@ def test_graphed_step_equals_the_eager_step_under_each_rule(cuda, rule):
     assert lg == le
     for k, r in ref.items():
         assert torch.equal(got[k], r), k
+
+
+# -- GPT training: the graphed step, dropout, the attention routes -------------
+
+def _small_gpt(cuda, **cfg):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    config = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                       num_attention_heads=2, max_position_embeddings=128,
+                       dtype="bfloat16", use_recompute=True, **cfg)
+    return config, GPTForCausalLM(config, device=cuda,
+                                  generator=seed(3, cuda), dropout_seed=5)
+
+
+def _gpt_run(cuda, graph, steps=3, lr=1e-3, remat_window=False, **cfg):
+    """``steps`` AdamW steps of a fresh 2-layer bf16 GPT (head dim 128) on
+    one batch (with ``remat_window``, windows of ``accumulate(2,
+    remat=True)``): (losses, parameters and state after the last, the
+    step)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    config, model = _small_gpt(cuda, **cfg)
+    opt = AdamW(learning_rate=lr, parameters=model.parameters(),
+                weight_decay=0.1 if lr else 0.0)
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), opt, graph=graph)
+    if remat_window:
+        step = step.accumulate(2, remat=True)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    ids = torch.randint(0, config.vocab_size, (4, 128), generator=gen,
+                        device=cuda)
+    losses = [float(step(ids, ids)) for _ in range(steps)]
+    out = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for n, p in model.named_parameters():
+        for k, v in opt._state.get(id(p), {}).items():
+            out[f"{n}.{k}"] = v.clone()
+    return losses, out, step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_graphed_gpt_step_equals_the_eager_step(cuda, p):
+    """A 2-layer GPT with recompute, without and with dropout (0.1 in
+    attention and on the residuals): three graphed steps against three
+    eager ones from the same weights and generator state, every loss,
+    parameter and state tensor bit for bit; without dropout the flash
+    kernels and ``adam_update`` are the step's graph nodes."""
+    reset_counters()
+    lg, got, step = _gpt_run(cuda, True, attention_probs_dropout_prob=p,
+                             hidden_dropout_prob=p)
+    assert step.captures == 1 and step.replays == 2
+    assert all(v["plain_calls"] == 0 for v in counters().values())
+    if p == 0.0:
+        assert step.captured_launches() == {
+            "flash_attention_sm90": 2 * 2 * 2,
+            "flash_attention_bwd_dkv_sm90": 2 * 2,
+            "flash_attention_bwd_dq_sm90": 2 * 2, "adam_update": 2}
+    le, ref, _ = _gpt_run(cuda, False, attention_probs_dropout_prob=p,
+                          hidden_dropout_prob=p)
+    assert lg == le
+    for k, r in ref.items():
+        assert torch.equal(got[k], r), k
+
+
+@pytest.mark.gpu
+def test_graphed_remat_window_with_dropout_equals_eager(cuda):
+    """``accumulate(2, remat=True)`` over the 2-layer GPT with recompute
+    and dropout 0.1: each microbatch's loss is checkpointed around the
+    layers' own checkpoints, so a replay rewinds nested regions through
+    twin generators. Three graphed windows equal three eager ones bit for
+    bit."""
+    drop = dict(attention_probs_dropout_prob=0.1, hidden_dropout_prob=0.1)
+    lg, got, step = _gpt_run(cuda, True, remat_window=True, **drop)
+    assert step.captures == 1 and step.replays == 2
+    le, ref, _ = _gpt_run(cuda, False, remat_window=True, **drop)
+    assert lg == le
+    for k, r in ref.items():
+        assert torch.equal(got[k], r), k
+
+
+@pytest.mark.gpu
+def test_a_dropout_replay_draws_a_fresh_mask(cuda):
+    """At learning rate 0 the weights stay, so two replays on one batch
+    differ only by their masks: their losses differ, and with p = 0 they
+    do not."""
+    lg, _, step = _gpt_run(cuda, True, steps=4, lr=0.0,
+                           attention_probs_dropout_prob=0.1,
+                           hidden_dropout_prob=0.1)
+    assert step.replays == 3 and len(set(lg)) == 4
+    l0, _, _ = _gpt_run(cuda, True, steps=4, lr=0.0)
+    assert len(set(l0)) == 1
+
+
+@pytest.mark.gpu
+def test_attention_composition_launches_no_flash_kernel(cuda):
+    """On CUDA an additive mask or dropout takes the plain composition (the
+    JAX package's XLA one): no flash launch; the same call without them
+    launches the tensor-core forward."""
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(2, 256, 4, 128, generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    reset_counters()
+    masked = scaled_dot_product_attention(
+        q, k, v, attn_mask=torch.zeros(256, device=cuda), is_causal=True)
+    scaled_dot_product_attention(q, k, v, dropout_p=0.1, is_causal=True,
+                                 generator=gen)
+    c = counters()
+    assert all(c[n]["launches"] == 0 and c[n]["plain_calls"] == 0
+               for n in c if n.startswith("flash_attention"))
+    flash = scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert counters()["flash_attention_sm90"]["launches"] == 1
+    _close(masked.float().cpu(), flash.float().cpu(), (2.0 ** -7, 2e-2))
+
+
+@pytest.mark.gpu
+def test_cached_llama_attention_runs_the_decode_kernel(cuda):
+    """Hidden 2048, 16 heads: one new token over a 2047-token cache runs
+    the single-row decode kernel and equals the last row of the uncached
+    causal call within the bf16 tolerance."""
+    from paddle_tpu_torch.models import LlamaConfig
+    from paddle_tpu_torch.models.llama import LlamaAttention
+
+    cfg = LlamaConfig(hidden_size=2048, num_attention_heads=16,
+                      num_key_value_heads=16, dtype="bfloat16")
+    torch.manual_seed(0)
+    att = LlamaAttention(cfg).to(cuda, torch.bfloat16)
+    x = torch.randn(1, 2048, 2048, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        full = att(x)
+        k = att.k_proj(x[:, :-1]).view(1, 2047, 16, 128)
+        v = att.v_proj(x[:, :-1]).view(1, 2047, 16, 128)
+        k = rope.rope_apply(k, cfg.rope_theta, 0)
+        reset_counters()
+        last, cache = att(x[:, -1:], cache=(k, v))
+    assert counters()["flash_attention_decode"]["launches"] == 1
+    assert cache[0].shape == (1, 2048, 16, 128)
+    _close(last.float().cpu(), full[:, -1:].float().cpu(), (2.0 ** -6, 2e-3))

@@ -484,7 +484,7 @@ def test_moe_layer_flags_and_aux(moe_flags):
     _close(outs["fused"].detach(), outs["gmm"].detach())
     _close(outs["fused_aux"].detach(), outs["gmm_aux"].detach())
     with pytest.raises(ValueError, match="moe_dispatch"):
-        set_flags({"FLAGS_moe_dispatch": "sort"})
+        set_flags({"FLAGS_moe_dispatch": "scatter"})
     with pytest.raises(ValueError, match="unknown flag"):
         set_flags({"FLAGS_nope": "index"})
     assert get_flags("moe_dispatch") == {"FLAGS_moe_dispatch": "index"}
