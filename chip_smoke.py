@@ -195,6 +195,28 @@ adafactor_1p8b, long_seq_16k — the bench's configurations (bench.py
              step the flash forward, dK/dV, dQ and RoPE are held to their
              plain versions at that length (bh 1).
 
+distributed — the distributed slice on one card: (a) a world-1 NCCL
+             group (a FileStore in a temporary directory) and every port
+             collective over it on CUDA tensors, fp32 and bf16; (b)
+             ``ShardedTrainStep`` under ``group_sharded_parallel(level=
+             "os_g")`` on the 1.16B Llama step (bf16, recompute, AdamW,
+             4 x 2048) against ``jit.TrainStep``: three steps' losses and
+             every parameter bit for bit, eager and graphed, step ms side
+             by side and the graph nodes the sharded step adds; (d) the
+             flash forward, dK/dV and dQ kernels (bf16 tensor-core, fp32
+             CUDA-core) at the ring's offsets (a chunk wholly in the
+             future: o = 0, lse = -1e30, zero gradients exactly; the
+             diagonal; wholly in the past; odd lengths; a nonzero lse
+             cotangent) against their plain versions; (c) the ring and
+             Ulysses at the long_seq_16k shapes (b 2, 16 heads, 16384,
+             cp 4), the cp shards driven through the port's per-rank body
+             on the one card, held head by head to the plain version
+             within the tensor-core bounds, their distance from one-shot
+             flash reported, launches exact (cp^2 / cp per kernel), forward
+             + backward ms beside one-shot flash's; (e) two planted ring
+             faults in fp32 (a merge that drops a step, an offset one tile
+             off) that the check must catch.
+
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
 """
@@ -4856,6 +4878,510 @@ def phase_bench_configs(seed):
     return out, rows
 
 
+# -- the distributed slice ------------------------------------------------------
+
+# the ring at the long_seq_16k shapes (bench.py:1852-1855): b 2, 16 heads,
+# head dim 128, 16384 positions, cp 4 (4096 a rank); its planted faults run
+# in fp32 at 2 x 4096 with 4 heads (the CUDA-core kernels)
+RING_SHAPE = dict(b=2, h=16, s=16384, d=128, cp=4)
+RING_FAULT_SHAPE = dict(b=2, h=4, s=4096, d=128, cp=4)
+# the bf16 ring (and Ulysses) is held to the plain version over the whole
+# sequence, head by head, within the tensor-core kernels' bounds (SM90_TOL:
+# each ring step's partial obeys them, and so does their weighted sum), dQ
+# and dK also within the delta term (the backward's delta comes from the
+# ring's bf16 output, the reference's from its own); its distance from
+# one-shot flash (two bf16 results, whose P roundings differ) is reported
+# beside the single-rounding 2**-8 |ref| + 1e-4. The fp32 fault runs are
+# held to one-shot fp32 flash within 1e-4
+RING_TOL = SM90_TOL + "; dQ, dK + delta_error_bound"
+# (s_loc, offset) of the flash kernels at the ring's offsets: a chunk wholly
+# in the future (every row sees no key), the diagonal, wholly in the past;
+# odd lengths that no tile divides
+RING_OFFSETS = [(4096, -4096), (4096, 0), (4096, 4096), (4096, 3 * 4096),
+                (1000, -1000), (1000, 1000), (1000, -777), (1000, 777)]
+RING_FAULTS = ("merge_drops_a_step", "offset_off_by_a_tile")
+
+
+def _nccl_collectives():
+    """(a) Every port collective over the world-1 NCCL group on CUDA
+    tensors, fp32 and bf16: over one rank each leaves its input as it is
+    (reductions, broadcast, scatter) or returns it once (gathers,
+    all-to-all). Point-to-point needs a second rank."""
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.arange(1, 257, device=DEVICE).to(dtype)
+
+        def same(name, got, want):
+            if not torch.equal(got, want):
+                raise RuntimeError(f"nccl {name} ({dtype}): "
+                                   f"{got.flatten()[:4].tolist()} != "
+                                   f"{want.flatten()[:4].tolist()}")
+            checked.append(f"{name}-{_dname(dtype)}")
+
+        for op in ("sum", "max", "min", "prod", "avg"):
+            t = x.clone()
+            pdist.all_reduce(t, op=op)
+            same(f"all_reduce_{op}", t, x)
+        lst = []
+        pdist.all_gather(lst, x)
+        same("all_gather", torch.stack(lst), x[None])
+        for name, fn in (
+                ("broadcast", lambda t: pdist.broadcast(t, src=0)),
+                ("reduce", lambda t: pdist.reduce(t, dst=0)),
+                ("reduce_scatter", lambda t: pdist.reduce_scatter(t, [x])),
+                ("scatter", lambda t: pdist.scatter(t, [x], src=0))):
+            t = x.clone() if name in ("broadcast", "reduce") \
+                else torch.empty_like(x)
+            fn(t)
+            same(name, t, x)
+        got = []
+        pdist.alltoall([x], got)
+        same("alltoall", got[0], x)
+        pdist.barrier()
+    torch.cuda.synchronize()
+    row = {"phase": "distributed-collectives", "backend": "nccl",
+           "world": 1, "store": "FileStore", "checked": checked, "ok": True}
+    _emit(row)
+    return row
+
+
+def _node_kinds(dot):
+    """{node type: count} of a CUDA graph's debug dump (KERNEL, MEMCPY,
+    MEMSET, ...)."""
+    import re
+    from collections import Counter
+
+    return dict(Counter(re.findall(r'label="\{(\w+)\s*\n', dot)))
+
+
+def _params_equal(model, ref):
+    import torch
+
+    return [n for n, p in model.named_parameters()
+            if not torch.equal(p.detach(), ref[n])]
+
+
+def _sharded_step(seed):
+    """(b) The flagship 1.16B Llama step (``bench.py:1836-1840``: bf16,
+    recompute, AdamW lr 3e-4 / wd 0.1, batch 4 x 2048) from the same
+    weights four ways: ``jit.TrainStep``, then ``ShardedTrainStep`` under
+    ``group_sharded_parallel(level="os_g")`` over the world-1 NCCL mesh,
+    each eager and graphed. After 3 steps the sharded step's losses and
+    every parameter equal ``TrainStep``'s bit for bit in the same mode; 2
+    more steps are timed. The graphs' kernel nodes give the launches the
+    sharded step adds. Returns the sharded graphed run's counters."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(**BIG, dtype="bfloat16", use_recompute=True)
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=pt_seed(seed + 23, DEVICE))
+    ids = _ids(cfg.vocab_size, (4, 2048), seed + 23)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    pdist.init_mesh()  # every degree 1 over the world-1 NCCL group
+    ref, nodes, kinds, runs, gcounts = {}, {}, {}, {}, None
+
+    def loss_fn(m, x, y):
+        return m(x, labels=y)
+
+    for graph in (False, True):
+        mode = "graph" if graph else "eager"
+        for kind in ("train", "sharded"):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(init[n])
+            opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                        weight_decay=0.1)
+            if kind == "sharded":
+                _m, opt = pdist.group_sharded_parallel(model, opt,
+                                                       level="os_g")
+                step = pdist.ShardedTrainStep(model, loss_fn, opt,
+                                              graph=graph)
+            else:
+                step = TrainStep(model, loss_fn, opt, graph=graph)
+            if graph:
+                step.debug_dump = os.path.join(tmp, f"{kind}.dot")
+            kernels.reset_counters()
+            losses, ms = _timed(step, ids, 3)
+            if kind == "train":
+                ref[mode] = (losses, {n: p.detach().clone()
+                                      for n, p in model.named_parameters()})
+                differ = []
+            else:
+                differ = _params_equal(model, ref[mode][1])
+                if losses != ref[mode][0] or differ:
+                    raise RuntimeError(
+                        f"sharded step ({mode}) differs from TrainStep: "
+                        f"losses {losses} vs {ref[mode][0]}, parameters "
+                        f"{differ[:3]} ({len(differ)} of "
+                        f"{len(ref[mode][1])})")
+                del ref[mode]
+            if graph:
+                dot = open(step.debug_dump).read()
+                nodes[kind] = _graph_nodes(dot)
+                kinds[kind] = _node_kinds(dot)
+                if kind == "sharded":
+                    gcounts = _reckoned(step)
+            _l, more = _timed(step, ids, 2)
+            runs[f"{kind}-{mode}"] = {"losses": losses, "first_ms": ms,
+                                      "step_ms": more,
+                                      "peak_gb": torch.cuda.max_memory_allocated()
+                                      / 2 ** 30}
+            del step, opt
+            _release()
+            torch.cuda.reset_peak_memory_stats()
+    pdist.reset_mesh()
+    added = {n: c - nodes["train"].get(n, 0) for n, c in
+             nodes["sharded"].items() if c != nodes["train"].get(n, 0)}
+    removed = {n: c for n, c in nodes["train"].items()
+               if n not in nodes["sharded"]}
+    row = {"phase": "distributed-sharded-step", "ok": True,
+           "card": _nvidia_smi(), "model": "llama-1.16b",
+           "batch": [4, 2048], "dtype": "bfloat16", "recompute": True,
+           "zero": "os_g", "world": 1, "backend": "nccl",
+           "bitwise_equal": {"eager": True, "graph": True}, "runs": runs,
+           "graph_nodes_by_type": kinds,
+           "nodes_the_sharded_step_adds": added,
+           "nodes_it_drops": removed}
+    _emit(row)
+    del model, init
+    _release()
+    return gcounts
+
+
+def _ring_inputs(shape, dtype, gen):
+    """q, k, v, dO [b * h, s, d] and their cp chunks along the sequence."""
+    bh = shape["b"] * shape["h"]
+    ts = [_rand(gen, (bh, shape["s"], shape["d"]), dtype) for _ in range(4)]
+    chunks = [list(t.chunk(shape["cp"], dim=1)) for t in ts]
+    return ts, chunks
+
+
+def _ring_run(impl, chunks, shape):
+    """The ring or Ulysses through the port's per-rank body over the cp
+    chunks on this one device: (o, dq, dk, dv) over the whole sequence."""
+    import torch
+
+    from paddle_tpu_torch.distributed import (ring_attention_local,
+                                              ulysses_attention_local)
+
+    qs, ks, vs = ([c.detach().contiguous().requires_grad_(True) for c in cs]
+                  for cs in chunks[:3])
+    if impl == "ring":
+        outs = ring_attention_local(qs, ks, vs, causal=True)
+        dos = chunks[3]
+    else:  # [bh, s, d] chunks as the paddle layout [b, s, h, d]
+        b, h = shape["b"], shape["h"]
+
+        def bshd(t):
+            return t.reshape(b, h, t.shape[1], t.shape[2]).transpose(1, 2)
+
+        outs = [o.transpose(1, 2).reshape(b * h, o.shape[1], o.shape[3])
+                for o in ulysses_attention_local(
+                    [bshd(q) for q in qs], [bshd(k) for k in ks],
+                    [bshd(v) for v in vs], causal=True)]
+        dos = chunks[3]
+    torch.autograd.backward(outs, dos)
+    return [torch.cat(t, dim=1) for t in (
+        [o.detach() for o in outs], [q.grad for q in qs],
+        [k.grad for k in ks], [v.grad for v in vs])]
+
+
+def _one_shot(ts):
+    """One flash call over the whole sequence: (o, dq, dk, dv)."""
+    import torch
+
+    fa = _flash_module()
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in ts[:3])
+    o, _lse = fa.flash_attention_with_lse(q, k, v, 0, True)
+    o.backward(ts[3])
+    return [o.detach(), q.grad, k.grad, v.grad]
+
+
+def _ring_check(label, got, ref):
+    """fp32: each of o, dQ, dK, dV within 1e-4 of ``ref``; returns the worst
+    error."""
+    return max(_compare(f"{label}.{name}", g, r.float(), (0.0, 1e-4))[0]
+               for name, g, r in zip(("o", "dq", "dk", "dv"), got, ref))
+
+
+def _ring_distance(got, ref):
+    """(largest |got - ref| over o, dQ, dK, dV; the largest share of
+    elements beyond the single-rounding 2**-8 |ref| + 1e-4)."""
+    worst, beyond = 0.0, 0.0
+    for g, r in zip(got, ref):
+        diff = (g.float() - r.float()).abs()
+        worst = max(worst, diff.max().item())
+        beyond = max(beyond, (diff > 2.0 ** -8 * r.float().abs() + 1e-4)
+                     .float().mean().item())
+    return worst, beyond
+
+
+def _ring_vs_plain(label, got, ts):
+    """(o, dQ, dK, dV) of a bf16 ring over [bh, s, d] against the plain
+    version over the whole sequence, one head at a time: o within the
+    tensor-core forward's bound; the gradients against the plain backward
+    with its own ``delta = rowsum(dO * O)``, within the kernels' bounds
+    plus, for dQ and dK, the bound of what the backward's delta from the
+    ring's own output moves (``delta_error_bound``: the forward's measured
+    difference carried through). Returns (the worst error, the largest
+    delta term)."""
+    import torch
+
+    fa = _flash_module()
+    scale = 1.0 / ts[0].shape[-1] ** 0.5
+    worst = term = 0.0
+    for i in range(ts[0].shape[0]):
+        f32 = [t[i:i + 1].float() for t in ts]
+        o, dq, dk, dv = (t[i:i + 1] for t in got)
+        with torch.no_grad():
+            ro, rl = fa.flash_attention_plain(*f32[:3], 0, True, scale)
+        errs = [_compare_bound(f"{label}[{i}].o", o, ro, fa.sm90_fwd_bound(
+            *f32[:3], 0, True, scale, ro))[0]]
+        args = (rl, (f32[3] * ro).sum(-1), 0, True, scale)
+        # the ring's backward took delta from its own bf16 output
+        e_dq, e_dk = fa.delta_error_bound(
+            f32[0], f32[1], rl, (f32[3] * (o.float() - ro)).sum(-1), 0, True,
+            scale)
+        term = max(term, e_dq.max().item(), e_dk.max().item())
+        del ro
+        rdk, rdv = fa.flash_attention_bwd_dkv_plain(*f32, *args)
+        bdk, bdv = fa.sm90_dkv_bound(*f32, *args, rdk, rdv)
+        errs += [_compare_bound(f"{label}[{i}].dk", dk, rdk, bdk + e_dk)[0],
+                 _compare_bound(f"{label}[{i}].dv", dv, rdv, bdv)[0]]
+        del rdk, rdv, bdk, bdv, e_dk
+        rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
+        errs.append(_compare_bound(
+            f"{label}[{i}].dq", dq, rdq,
+            fa.sm90_dq_bound(*f32, *args, rdq) + e_dq)[0])
+        worst = max(worst, *errs)
+        del rdq, f32, args, e_dq
+    _release()
+    return worst, term
+
+
+def _ring_fault(fault):
+    """(module, attribute, replacement) planting ``fault`` in the ring's
+    per-rank body, which looks both names up at call time."""
+    import importlib
+
+    cpm = importlib.import_module(
+        "paddle_tpu_torch.distributed.context_parallel")
+    if fault == "merge_drops_a_step":
+        real = cpm.merge_partials
+
+        def merge(o, lse, o_r, lse_r, _n=[0]):
+            _n[0] += 1
+            if _n[0] % 3 == 0:  # every third merge keeps what it had
+                return o, lse
+            return real(o, lse, o_r, lse_r)
+        return [(cpm, "merge_partials", merge)]
+    real_off = cpm.ring_offset
+
+    def offset(idx, r, cp, s_loc):
+        off = real_off(idx, r, cp, s_loc)
+        return off + 64 if off else off  # a tile of the CUDA-core kernel
+    return [(cpm, "ring_offset", offset)]
+
+
+def _ring_phase(seed):
+    """(c) The ring and Ulysses at the long_seq_16k shapes, cp 4 on one
+    device, forward and backward, against one-shot flash over the whole
+    sequence (and at bh 1 against the plain version), with the launches
+    counted; (e) the planted faults that the check must catch. Returns
+    ({path: counters}, rows)."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    fa = _flash_module()
+    shape = dict(RING_SHAPE)
+    cp = shape["cp"]
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 29)
+    ts, chunks = _ring_inputs(shape, torch.bfloat16, gen)
+    ref = _one_shot(ts)
+    paths, worst, distance, delta_term = {}, {}, {}, {}
+    for impl in ("ring", "ulysses"):
+        kernels.reset_counters()
+        got = _ring_run(impl, chunks, shape)
+        torch.cuda.synchronize()
+        counts = kernels.counters()
+        paths[impl] = counts
+        per = cp * cp if impl == "ring" else cp
+        want = {"flash_attention_sm90": per,
+                "flash_attention_bwd_dkv_sm90": per,
+                "flash_attention_bwd_dq_sm90": per,
+                "flash_attention": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_bwd_dq": 0, "flash_attention_decode": 0}
+        seen = {n: counts[n]["launches"] for n in want}
+        plain = sum(c["plain_calls"] for c in counts.values())
+        if seen != want or plain:
+            raise RuntimeError(f"{impl}: launches {seen} (want {want}), "
+                               f"{plain} plain calls")
+        worst[impl], delta_term[impl] = _ring_vs_plain(impl, got, ts)
+        distance[impl] = _ring_distance(got, ref)
+        del got
+        _release()
+
+    ring_ms = _time_ms(lambda: _ring_run("ring", chunks, shape), iters=3,
+                       warmup=1)
+    uly_ms = _time_ms(lambda: _ring_run("ulysses", chunks, shape), iters=3,
+                      warmup=1)
+    one_ms = _time_ms(lambda: _one_shot(ts), iters=3, warmup=1)
+    del ts, chunks, ref
+    _release()
+
+    # (e) planted faults, fp32: the sound ring passes, each fault fails
+    fshape = dict(RING_FAULT_SHAPE)
+    fts, fchunks = _ring_inputs(fshape, torch.float32, gen)
+    fref = _one_shot(fts)
+    sound = _ring_check("ring-fp32", _ring_run("ring", fchunks, fshape),
+                        fref)
+    caught = {}
+    for fault in RING_FAULTS:
+        with _swapped(_ring_fault(fault)):
+            got = _ring_run("ring", fchunks, fshape)
+        try:
+            _ring_check(f"ring-{fault}", got, fref)
+        except RuntimeError as e:  # the check must fail: that is a catch
+            caught[fault] = str(e)[:160]
+        else:
+            raise RuntimeError(f"the ring check missed the planted fault "
+                               f"{fault}")
+    del fts, fchunks, fref
+    _release()
+    row = {"phase": "distributed-ring", "ok": True, "card": _nvidia_smi(),
+           "shape": shape, "s_loc": shape["s"] // cp, "dtype": "bfloat16",
+           "tol": RING_TOL + " against the plain version, head by head",
+           "max_abs_err": worst, "largest_delta_term": delta_term,
+           "one_shot_flash": {
+               impl: {"max_abs_diff": d, "share_beyond_2^-8|ref|+1e-4": b}
+               for impl, (d, b) in distance.items()},
+           "launches": {impl: {n: paths[impl][n]["launches"] for n in (
+               "flash_attention_sm90", "flash_attention_bwd_dkv_sm90",
+               "flash_attention_bwd_dq_sm90")} for impl in paths},
+           "fwd_bwd_ms": {"ring": ring_ms, "ulysses": uly_ms,
+                          "one_shot_flash": one_ms},
+           "faults_fp32": {"shape": fshape, "sound_max_abs_err": sound,
+                           "caught": caught}}
+    _emit(row)
+    return paths
+
+
+def _offset_case(label, dtype, s, offset, gen, with_dlse):
+    """(d) The forward, dK/dV and dQ kernels (bf16: tensor cores; fp32:
+    CUDA cores) on one ring step's chunk pair at ``offset`` against their
+    plain versions; a chunk wholly in the future must give o = 0, lse =
+    -1e30 and dQ = dK = dV = 0 exactly. Returns kernel rows."""
+    import torch
+
+    fa = _flash_module()
+    bh, d = 2, 128
+    scale = 1.0 / d ** 0.5
+    q, k, v, do = (_rand(gen, (bh, s, d), dtype) for _ in range(4))
+    f32 = [t.float() for t in (q, k, v, do)]
+    o, lse = fa.flash_attention_fwd(q, k, v, offset, True, scale)
+    with torch.no_grad():
+        ro, rl = fa.flash_attention_plain(*f32[:3], offset, True, scale)
+    delta = (f32[3] * ro).sum(-1)
+    if with_dlse:
+        delta = delta - _rand(gen, (bh, s), torch.float32)
+    args = (rl, delta, offset, True, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, *args)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(*f32, *args)
+    rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
+    sm90 = fa.takes_sm90(dtype, d, s)
+    if sm90:
+        bdk, bdv = fa.sm90_dkv_bound(*f32, *args, rdk, rdv)
+        errs = [_compare_bound(f"{label}.o", o, ro, fa.sm90_fwd_bound(
+                    *f32[:3], offset, True, scale, ro))[0],
+                max(_compare_bound(f"{label}.dk", dk, rdk, bdk)[0],
+                    _compare_bound(f"{label}.dv", dv, rdv, bdv)[0]),
+                _compare_bound(f"{label}.dq", dq, rdq, fa.sm90_dq_bound(
+                    *f32, *args, rdq))[0]]
+    else:
+        tol = _tol(dtype)
+        errs = [_compare(f"{label}.o", o, ro, tol)[0],
+                max(_compare(f"{label}.dk", dk, rdk, tol)[0],
+                    _compare(f"{label}.dv", dv, rdv, tol)[0]),
+                _compare(f"{label}.dq", dq, rdq, tol)[0]]
+    lse_err, _ = _compare(f"{label}.lse", lse, rl, (0.0, 1e-3))
+    exact = None
+    if offset <= -s:
+        exact = bool(not o.any() and not dk.any() and not dv.any()
+                     and not dq.any() and (lse == -1e30).all())
+        if not exact:
+            raise RuntimeError(f"{label}: a chunk wholly in the future gave "
+                               f"nonzero o/dQ/dK/dV or lse != -1e30")
+    suffix = "_sm90" if sm90 else ""
+    base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
+            "bh": bh, "sq": s, "sk": s, "offset": offset, "causal": True,
+            "dlse": with_dlse, "exact_zeros": exact,
+            "tol": SM90_TOL if sm90 else _tol(dtype)}
+    rows = [dict(base, kernel="flash_attention" + suffix,
+                 max_abs_err=errs[0], lse_max_abs_err=lse_err),
+            dict(base, kernel="flash_attention_bwd_dkv" + suffix,
+                 max_abs_err=errs[1]),
+            dict(base, kernel="flash_attention_bwd_dq" + suffix,
+                 max_abs_err=errs[2])]
+    for row in rows:
+        _emit(row)
+    del f32, ro, rl, rdk, rdv, rdq
+    _release()
+    return rows
+
+
+def phase_distributed(seed):
+    """The distributed slice on one card: (a) the collectives over a
+    world-1 NCCL group (a ``FileStore`` in a temporary directory), (b)
+    ``ShardedTrainStep`` on the flagship step against ``TrainStep``, (d)
+    the flash kernels at the ring's offsets, (c) the ring and Ulysses at
+    full width with (e) their planted faults. Returns ({path: counters},
+    kernel rows)."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import kernels
+
+    store = torch.distributed.FileStore(
+        os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl_"), "store"),
+        1)
+    pdist.init_parallel_env(backend="nccl", store=store, rank=0,
+                            world_size=1)
+    _nccl_collectives()
+    sharded = _sharded_step(seed)
+    torch.distributed.destroy_process_group()
+    rows = []
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 31)
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (s, off) in enumerate(RING_OFFSETS):
+            rows += _offset_case(f"ring{s}@{off}-{_dname(dtype)}", dtype, s,
+                                 off, gen, with_dlse=i % 2 == 1)
+    kernels.reset_counters()
+    paths = _ring_phase(seed)
+    paths["sharded-step"] = sharded
+    return paths, rows
+
+
 def _kernels_line(rows, paths):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
@@ -5106,6 +5632,8 @@ def main() -> int:
     llama_cache = phase_llama_cache(SEED)
     bench, bench_rows = phase_bench_configs(SEED)
     rows += bench_rows
+    distributed, dist_rows = phase_distributed(SEED)
+    rows += dist_rows
 
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
            "batch": [4, 2048], "rules": rule_steps})
@@ -5118,7 +5646,7 @@ def main() -> int:
         "training-fp32": training_fp32, "moe-training-fp32": moe_fp32,
         "finetune-fp32": finetune_fp32, "gpt-training": gpt,
         "gpt-training-eager": gpt_eager, "gpt-graph-check": gpt_graph_check,
-        "llama-cache": llama_cache, **bench})})
+        "llama-cache": llama_cache, **bench, **distributed})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -1,0 +1,180 @@
+"""ZeRO group sharding (port of ``paddle_tpu/distributed/sharding.py``).
+
+``group_sharded_parallel(model, optimizer, level)`` sets the ZeRO stage
+that :class:`~paddle_tpu_torch.distributed.ShardedTrainStep` applies over
+the ``sdp`` axis, as the JAX one does (``sharding.py:54-58``): ``"os"``
+stage 1 (optimizer state split), ``"os_g"`` stage 2 (+ gradients
+reduce-scattered), ``"p_g_os"`` stage 3 (+ parameters split). At stage 3
+each parameter that splits (the largest dim that divides by the degree,
+``zero_partition_spec``) becomes this rank's shard: a parametrization
+(``torch.nn.utils.parametrize``) all-gathers it whenever the module reads
+it, and its backward reduce-scatters the gradient into the shard. The
+optimizer it returns is a new one over the shards (stage 3) or over this
+rank's slices of the parameters (stages 1 and 2, which the step copies
+back after each update); the caller's optimizer is left as it was.
+"""
+from __future__ import annotations
+
+import copy
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.utils import parametrize
+
+from .collective import _AllGather, all_gather_dim
+from .mesh import MeshEnv, require_mesh_env
+from .parallel import _deferred, _zero_dim
+
+__all__ = ["group_sharded_parallel", "save_group_sharded_model",
+           "gather_full_state"]
+
+_LEVELS = {"os": 1, "os_g": 2, "p_g_os": 3}
+
+
+class _SdpGather(nn.Module):
+    """The full parameter from this rank's shard along ``dim``."""
+
+    def __init__(self, dim, pg, n, rank):
+        super().__init__()
+        self.dim, self.pg, self.n, self.rank = dim, pg, n, rank
+
+    def forward(self, shard):
+        return _AllGather.apply(shard, self.pg, self.n, self.dim)
+
+    def right_inverse(self, full):
+        per = full.shape[self.dim] // self.n
+        return full.narrow(self.dim, self.rank * per, per).clone()
+
+
+def _shard_parameters(model: nn.Module, env: MeshEnv) -> dict:
+    """Stage 3: every parameter that splits over sdp becomes its shard;
+    returns {id(parameter): shard}."""
+    n = env.get_dim("sdp")
+    if n == 1:
+        return {}
+    names = [id(p) for _, p in model.named_parameters(remove_duplicate=False)]
+    if len(names) != len(set(names)):
+        raise _deferred("ZeRO stage 3 over a shared (tied) parameter")
+    pg, rank = env.group("sdp"), env.coord("sdp")
+    remap = {}
+    for mod in list(model.modules()):
+        for name, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            dim = _zero_dim(p.shape, env)
+            if dim is None:
+                continue
+            parametrize.register_parametrization(
+                mod, name, _SdpGather(dim, pg, n, rank), unsafe=True)
+            shard = mod.parametrizations[name].original
+            shard.zero3_dim = dim
+            for attr in ("is_distributed", "mp_dim"):  # the mp layer's marks
+                if attr in vars(p):
+                    setattr(shard, attr, vars(p)[attr])
+            remap[id(p)] = shard
+    return remap
+
+
+def _slices(params, env: MeshEnv) -> dict:
+    """Stages 1 and 2: this rank's slice of every parameter that splits
+    over sdp, a tensor of its own (``zero_full`` the parameter,
+    ``zero_dim`` the dim); returns {id(parameter): slice}."""
+    n, rank = env.get_dim("sdp"), env.coord("sdp")
+    out = {}
+    for p in params:
+        dim = _zero_dim(p.shape, env)
+        if dim is None:
+            continue
+        per = p.shape[dim] // n
+        piece = nn.Parameter(p.detach().narrow(dim, rank * per, per).clone(),
+                             requires_grad=p.requires_grad)
+        piece.zero_full, piece.zero_dim = p, dim
+        out[id(p)] = piece
+    return out
+
+
+def _over(optimizer, params, stage: int):
+    """A copy of ``optimizer`` (its rule, hyperparameters, names and
+    learning rate or schedule) over ``params``, without state."""
+    new = copy.copy(optimizer)
+    new._parameter_list = list(params)
+    new._state = {}
+    new._batch = new._batch_key = new._reserved = None
+    new._zero_stage = stage
+    return new
+
+
+def group_sharded_parallel(model: nn.Module, optimizer, level: str = "p_g_os",
+                           scaler=None, group=None, offload=False,
+                           sync_buffers=False, buffer_max_size=2 ** 23,
+                           segment_size=2 ** 20, sync_comm=False):
+    """Reference ``group_sharded.py:group_sharded_parallel`` (``level`` in
+    ``{"os", "os_g", "p_g_os"}``); returns ``(model, optimizer)``, with
+    ``scaler`` ``(model, optimizer, scaler)``: the optimizer a copy of the
+    one given (which stays as it was) over this rank's slices of the
+    parameters that split over sdp (stage 3: the model's shards) and the
+    others whole. ``offload=True`` raises."""
+    if level not in _LEVELS:
+        raise ValueError(f"bad sharding level {level!r}")
+    if offload:
+        raise _deferred("group_sharded_parallel(offload=True)")
+    if optimizer._state:
+        raise ValueError("group_sharded_parallel takes an optimizer that has "
+                         "not stepped yet")
+    env = require_mesh_env()
+    stage = _LEVELS[level]
+    if stage == 3:
+        remap = _shard_parameters(model, env)
+    else:
+        remap = _slices(optimizer._parameter_list, env)
+    optimizer = _over(optimizer, [remap.get(id(p), p)
+                                  for p in optimizer._parameter_list], stage)
+    if scaler is not None:
+        return model, optimizer, scaler
+    return model, optimizer
+
+
+def gather_full_state(model: nn.Module, env: MeshEnv = None):
+    """The model's state with every ZeRO-3 and tensor-parallel shard
+    gathered, under the unparametrized names (collective: every rank
+    calls it; every rank gets it)."""
+    env = env or require_mesh_env()
+    out = {}
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            key = name.replace(".parametrizations.", ".")
+            if key.endswith(".original"):
+                key = key[:-len(".original")]
+            p = _find(model, name)
+            dim = getattr(p, "zero3_dim", None)
+            if dim is not None:
+                t = all_gather_dim(t, env.group("sdp"), env.get_dim("sdp"),
+                                   dim)
+            mp_dim = getattr(p, "mp_dim", None)
+            if mp_dim is not None and env.get_dim("mp") > 1:
+                t = all_gather_dim(t, env.group("mp"), env.get_dim("mp"),
+                                   mp_dim)
+            out[key] = t.contiguous().clone()
+    return out
+
+
+def _find(model, name):
+    obj = model
+    for part in name.split("."):
+        obj = getattr(obj, part) if not part.isdigit() else obj[int(part)]
+    return obj
+
+
+def save_group_sharded_model(model, output, optimizer=None):
+    """Rank 0 writes the gathered parameters to ``output + ".pdparams"``;
+    with ``optimizer`` each rank writes its own state (its shards) to
+    ``output + ".pdopt.<rank>"``."""
+    state = gather_full_state(model)
+    if dist.get_rank() == 0:
+        torch.save({k: v.cpu() for k, v in state.items()},
+                   output + ".pdparams")
+    if optimizer is not None:
+        torch.save(optimizer.state_dict(),
+                   f"{output}.pdopt.{dist.get_rank()}")
+    dist.barrier()

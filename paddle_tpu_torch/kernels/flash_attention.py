@@ -292,6 +292,20 @@ def sm90_dq_bound(q, k, v, do, lse, delta, offset, causal, scale, dq_ref):
             + 1e-4)
 
 
+def delta_error_bound(q, k, lse, d_delta, offset, causal, scale):
+    """Elementwise bounds (dQ, dK) of how far the backward moves when its
+    ``delta = rowsum(dO * O)`` is off by ``d_delta`` (taken from an O other
+    than the reference's): dS moves by ``-P d_delta scale``, so dQ by at
+    most ``scale |d_delta| (P |K|)`` and dK by at most ``scale P^T
+    (|d_delta| |Q|)``; dV does not read delta. Each is given with its
+    share of the ``sm90_*_bound`` rounding term of dS (``2**-8`` of it)."""
+    p = _probs_plain(q, k, lse, offset, causal, scale)
+    dd = d_delta.float().abs()[..., None]
+    grow = (1.0 + 2.0 ** -8) * scale
+    return (grow * dd * torch.einsum("bqk,bkd->bqd", p, k.float().abs()),
+            grow * torch.einsum("bqk,bqd->bkd", p, dd * q.float().abs()))
+
+
 def _check_kernel_inputs(name, q, tensors):
     for t in tensors:
         if t.device != q.device:

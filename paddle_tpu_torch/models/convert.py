@@ -17,6 +17,11 @@ router ``mlp.gate_weight`` [h, e] is a raw parameter used as ``x @ w`` and
 the expert stacks ``mlp.experts.{gate,up,down}`` ([e, h, i], [e, i, h])
 keep the JAX layout: neither is transposed.
 
+``shard_llama_state`` turns such a full state into one rank's slices under
+a mesh (tensor-parallel rows or columns, vocabulary rows, and under ZeRO-3
+each parameter's sdp shard); ``gather_llama_state`` is its inverse over
+every rank's state.
+
 ``gpt_engine_params`` reads a model's live weights into the nested dict the
 serving window step takes (the counterpart of the JAX engine's
 ``_extract_gpt_params``), with Linear weights in ``[out, in]`` for
@@ -33,7 +38,8 @@ from .gpt import GPTConfig
 from .llama import LlamaConfig
 
 __all__ = ["gpt_state_from_numpy", "gpt_engine_params",
-           "llama_state_from_numpy"]
+           "llama_state_from_numpy", "llama_mp_dim", "shard_llama_state",
+           "gather_llama_state"]
 
 _LINEARS = ("attn.qkv_proj", "attn.out_proj", "fc_in", "fc_out")
 
@@ -170,6 +176,125 @@ def llama_state_from_numpy(flat: Mapping[str, Any],
                 put(f"llama.layers.{i}.{leaf}", a[i], linear)
     if config.tie_word_embeddings:
         out["lm_head.weight"] = out["llama.embed_tokens.weight"]
+    return out
+
+
+# the dim of the torch-layout tensor that tensor parallelism splits
+_MP_DIMS = {"llama.embed_tokens.weight": 0, "lm_head.weight": 0,
+            "self_attn.q_proj.weight": 0, "self_attn.k_proj.weight": 0,
+            "self_attn.v_proj.weight": 0, "self_attn.o_proj.weight": 1,
+            "mlp.gate_proj.weight": 0, "mlp.up_proj.weight": 0,
+            "mlp.down_proj.weight": 1}
+_MESH_ORDER = ("pp", "dp", "sdp", "ep", "cp", "mp")
+
+
+def llama_mp_dim(name: str):
+    """The dim of the port Llama's parameter ``name`` split over mp (column
+    layers their rows, row layers their columns, the vocabulary its rows),
+    None for a replicated one."""
+    for suffix, dim in _MP_DIMS.items():
+        if name == suffix or name.endswith("." + suffix):
+            return dim
+    return None
+
+
+def _coords(rank: int, degrees: Mapping[str, int]) -> Dict[str, int]:
+    """A rank's coordinate on each axis of the row-major mesh grid."""
+    out = {}
+    for ax in reversed(_MESH_ORDER):
+        n = int(degrees.get(ax, 1))
+        out[ax] = rank % n
+        rank //= n
+    return out
+
+
+def _zero3_dim(shape, n):
+    """The dim ZeRO splits over ``n`` ranks: the largest that divides (the
+    first of equals), None where none does or n is 1."""
+    if n <= 1:
+        return None
+    best = None
+    for i, s in enumerate(shape):
+        if s % n == 0 and (best is None or s > shape[best]):
+            best = i
+    return best
+
+
+def _zero3_name(name: str) -> str:
+    mod, leaf = name.rsplit(".", 1)
+    return f"{mod}.parametrizations.{leaf}.original"
+
+
+def shard_llama_state(state: Mapping[str, torch.Tensor], env=None, *,
+                      degrees: Mapping[str, int] = None, rank: int = None,
+                      stage3: bool = False) -> Dict[str, torch.Tensor]:
+    """This rank's slices of a full port Llama ``state`` (as
+    ``llama_state_from_numpy`` gives it) under ``env`` (a ``MeshEnv``) or
+    ``degrees`` and ``rank``: tensor-parallel parameters cut on
+    :func:`llama_mp_dim`, and with ``stage3`` every parameter that splits
+    cut again over sdp, under the name its ZeRO-3 parametrization takes
+    (``...parametrizations.weight.original``)."""
+    if env is not None:
+        degrees, rank = env.degrees, env.rank
+    c = _coords(rank, degrees)
+    mp, sdp = int(degrees.get("mp", 1)), int(degrees.get("sdp", 1))
+    out = {}
+    for name, t in state.items():
+        dim = llama_mp_dim(name)
+        if dim is not None and mp > 1:
+            t = t.chunk(mp, dim=dim)[c["mp"]]
+        zdim = _zero3_dim(t.shape, sdp) if stage3 else None
+        if zdim is not None:
+            t = t.chunk(sdp, dim=zdim)[c["sdp"]]
+            name = _zero3_name(name)
+        out[name] = t.contiguous().clone()
+    return out
+
+
+def _llama_shapes(config: LlamaConfig) -> Dict[str, tuple]:
+    """The port Llama's parameter shapes (torch layout), per layer leaf or
+    top-level name."""
+    h, v = config.hidden_size, config.vocab_size
+    out = {"llama.embed_tokens.weight": (v, h), "llama.norm.weight": (h,),
+           "lm_head.weight": (v, h)}
+    for leaf, (shape, linear) in _llama_layer_entries(config).items():
+        out[leaf] = tuple(reversed(shape)) if linear else shape
+    return out
+
+
+def gather_llama_state(states, config: LlamaConfig,
+                       degrees: Mapping[str, int],
+                       stage3: bool = False) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_llama_state` over ``states``, every
+    rank's state in rank order: the full state under the plain names."""
+    mp, sdp = int(degrees.get("mp", 1)), int(degrees.get("sdp", 1))
+    coords = [_coords(r, degrees) for r in range(len(states))]
+    shapes = _llama_shapes(config)
+
+    def rank_at(m, z):
+        return next(r for r, c in enumerate(coords)
+                    if c["mp"] == m and c["sdp"] == z and
+                    all(c[a] == 0 for a in _MESH_ORDER
+                        if a not in ("mp", "sdp")))
+
+    out = {}
+    for key in states[0]:
+        name = key.replace(".parametrizations.", ".")
+        if name.endswith(".original"):
+            name = name[:-len(".original")]
+        dim = llama_mp_dim(name)
+        parts = []
+        for m in range(mp if dim is not None else 1):
+            shards = [states[rank_at(m, z)][key] for z in range(sdp)]
+            if stage3 and key != name:
+                local = list(shapes.get(name) or
+                             shapes[name.split(".", 3)[-1]])
+                if dim is not None:
+                    local[dim] //= mp
+                parts.append(torch.cat(shards, dim=_zero3_dim(local, sdp)))
+            else:
+                parts.append(shards[0])
+        out[name] = torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
     return out
 
 

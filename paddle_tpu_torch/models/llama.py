@@ -12,8 +12,25 @@ Parameter names follow the JAX package with its scanned layer stack
 unrolled (``llama.layers.3.self_attn.q_proj.weight``); Linear weights are
 PyTorch's ``[out, in]``. ``models.convert.llama_state_from_numpy`` moves a
 JAX state dict across. ``LlamaAttention`` takes the JAX attention's KV
-cache; the decoder layers do not (as there). Left out: context parallelism
-(the distributed slice).
+cache; the decoder layers do not (as there).
+
+The projections, the embedding and the head are the tensor-parallel layers
+of ``distributed.meta_parallel`` (at mp = 1 exactly ``F.linear`` /
+``F.embedding``). Under an installed mesh (``distributed.init_mesh``),
+each rank holds ``num_heads / mp`` query and ``num_key_value_heads / mp``
+key/value heads, its column and row shards of the MLP and its rows of the
+vocabulary, embedding and head. Under cp > 1 (no cache) the sequence is
+split over cp: RoPE rotates at global positions (``pos_offset = cp_rank *
+s_local``) and attention goes to ``ring_attention``, or to
+``ulysses_attention`` with ``cp_impl="ulysses"``. The labelled loss is
+then the global mean over the counted tokens: the labels are shifted over
+the global sequence (each cp rank takes its successor's first label, the
+last position of the last rank gets -100), each rank returns ``local sum
+/ global count``, its share (``loss_reduction = "sum"``: the
+``ShardedTrainStep`` sums the gradients over the data ranks), and under mp
+> 1 the softmax runs over the vocabulary split (``vocab_parallel_cross_
+entropy``). An MoE model under a mesh of more than one rank raises
+(expert parallelism is not ported).
 
 ``LlamaMoEConfig`` (the DeepSeekMoE/Qwen2-MoE-style recipe) makes every MLP
 an ``nn.MoELayer`` (top-k routed experts, ``FLAGS_moe_dispatch`` picks the
@@ -28,11 +45,20 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as TF
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, seed
+from ..distributed.collective import permute_ranks
+from ..distributed.context_parallel import ring_attention, ulysses_attention
+from ..distributed.mesh import get_mesh_env
+from ..distributed.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    copy_to_group, gather_from_group, mark_parameters, mp_info,
+    vocab_parallel_cross_entropy)
+from ..distributed.parallel import DATA_AXES, _deferred
 from ..kernels.rope import rope_apply
 from ..nn import MoELayer, RMSNorm
 from ..nn.functional import rms_norm_residual, scaled_dot_product_attention
@@ -61,11 +87,15 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     use_recompute: bool = False
     ce_chunk: int = 2048  # fused lm_head + CE token-chunk size
+    cp_impl: str = "ring"  # context-parallel attention: 'ring' | 'ulysses'
     dtype: str = "bfloat16"
 
     def __post_init__(self):
         if self.dtype not in _DTYPES:
             raise ValueError(f"dtype {self.dtype!r} not in {sorted(_DTYPES)}")
+        if self.cp_impl not in ("ring", "ulysses"):
+            raise ValueError(f"cp_impl {self.cp_impl!r}: 'ring' or "
+                             f"'ulysses'")
         if self.hidden_size % self.num_attention_heads or \
                 self.num_attention_heads % self.num_key_value_heads:
             raise ValueError("hidden_size must divide into the heads and the "
@@ -125,18 +155,35 @@ def apply_rotary_pos_emb(x, theta: float = 10000.0, pos_offset: int = 0):
     return rope_apply(x, theta, pos_offset)
 
 
+def _cp_degree():
+    env = get_mesh_env()
+    return 1 if env is None else env.get_dim("cp")
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
-        self.num_heads = config.num_attention_heads
-        self.num_kv_heads = config.num_key_value_heads
+        _, mp, _ = mp_info()
+        for what, n in (("num_attention_heads", config.num_attention_heads),
+                        ("num_key_value_heads",
+                         config.num_key_value_heads)):
+            if n % mp:
+                raise ValueError(f"{what} ({n}) must divide by the mp "
+                                 f"degree {mp}")
+        self.num_heads = config.num_attention_heads // mp  # this rank's
+        self.num_kv_heads = config.num_key_value_heads // mp
         self.head_dim = config.hidden_size // config.num_attention_heads
         h, hd = config.hidden_size, self.head_dim
-        self.q_proj = nn.Linear(h, self.num_heads * hd, bias=False)
-        self.k_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False)
-        self.v_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False)
-        self.o_proj = nn.Linear(self.num_heads * hd, h, bias=False)
+        nh, nkv = config.num_attention_heads, config.num_key_value_heads
+        self.q_proj = ColumnParallelLinear(h, nh * hd, has_bias=False,
+                                           gather_output=False)
+        self.k_proj = ColumnParallelLinear(h, nkv * hd, has_bias=False,
+                                           gather_output=False)
+        self.v_proj = ColumnParallelLinear(h, nkv * hd, has_bias=False,
+                                           gather_output=False)
+        self.o_proj = RowParallelLinear(nh * hd, h, has_bias=False,
+                                        input_is_parallel=True)
 
     def forward(self, hidden, cache=None):
         """``hidden`` [b, s, h] -> [b, s, h]. With ``cache`` ``(k, v)``
@@ -150,7 +197,9 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(hidden).view(b, s, self.num_heads, hd)
         k = self.k_proj(hidden).view(b, s, self.num_kv_heads, hd)
         v = self.v_proj(hidden).view(b, s, self.num_kv_heads, hd)
-        pos = 0 if cache is None else cache[0].shape[1]
+        cp = _cp_degree() if cache is None else 1
+        pos = cache[0].shape[1] if cache is not None else \
+            (get_mesh_env().coord("cp") * s if cp > 1 else 0)
         q = apply_rotary_pos_emb(q, theta, pos)
         k = apply_rotary_pos_emb(k, theta, pos)
         if cache is not None:
@@ -161,8 +210,14 @@ class LlamaAttention(nn.Module):
             rep = self.num_heads // self.num_kv_heads
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
-        out = scaled_dot_product_attention(q, k, v, is_causal=cache is None,
-                                           training=self.training)
+        if cp > 1:
+            cp_attention = ulysses_attention \
+                if self.config.cp_impl == "ulysses" else ring_attention
+            out = cp_attention(q, k, v, causal=True)
+        else:
+            out = scaled_dot_product_attention(q, k, v,
+                                               is_causal=cache is None,
+                                               training=self.training)
         out = self.o_proj(out.reshape(b, s, self.num_heads * hd))
         return out if cache is None else (out, new_cache)
 
@@ -171,9 +226,12 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = nn.Linear(h, i, bias=False)
-        self.up_proj = nn.Linear(h, i, bias=False)
-        self.down_proj = nn.Linear(i, h, bias=False)
+        self.gate_proj = ColumnParallelLinear(h, i, has_bias=False,
+                                              gather_output=False)
+        self.up_proj = ColumnParallelLinear(h, i, has_bias=False,
+                                            gather_output=False)
+        self.down_proj = RowParallelLinear(i, h, has_bias=False,
+                                           input_is_parallel=True)
 
     def forward(self, x):
         return self.down_proj(TF.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -215,8 +273,8 @@ class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size)
+        self.embed_tokens = VocabParallelEmbedding(config.vocab_size,
+                                                   config.hidden_size)
         self.layers = nn.ModuleList(
             [LlamaDecoderLayer(config)
              for _ in range(config.num_hidden_layers)])
@@ -258,6 +316,14 @@ def _ce_chunk_sum(h, w, lab):
     return -torch.where(mask, picked, 0.0).sum()
 
 
+def _ce_chunk_sum_split(h, w, lab, pg, start):
+    """The same over this rank's columns ``[start, start + vocab/mp)`` of
+    the vocabulary, the softmax all-reduced over ``pg``."""
+    logits = torch.matmul(h, w.t())
+    return vocab_parallel_cross_entropy(logits, lab, pg, start,
+                                        IGNORE_INDEX).sum()
+
+
 def fused_linear_ce(hidden2d, w, labels1d, chunk):
     """lm_head product + softmax cross entropy over token chunks (the JAX
     ``_fused_linear_ce``): ``n_chunks = max(n // chunk, 1)`` chunks of
@@ -266,6 +332,16 @@ def fused_linear_ce(hidden2d, w, labels1d, chunk):
     [vocab, h]. The fp32 [N, vocab] logits never exist at once: each chunk
     is checkpointed, so its logits are recomputed in the backward, one
     chunk at a time."""
+    total, count = fused_linear_ce_sum(hidden2d, w, labels1d, chunk)
+    return total / count.clamp_min(1)
+
+
+def fused_linear_ce_sum(hidden2d, w, labels1d, chunk, pg=None, start=0):
+    """(summed CE fp32, count of counted tokens) of :func:`fused_linear_ce`;
+    with ``pg`` the head ``w`` holds the vocabulary rows ``[start, start +
+    vocab/mp)`` of a split over ``pg``."""
+    if pg is not None:
+        hidden2d = copy_to_group(hidden2d, pg)
     n = hidden2d.shape[0]
     n_chunks = max(n // chunk, 1)
     c = -(-n // n_chunks)
@@ -278,44 +354,61 @@ def fused_linear_ce(hidden2d, w, labels1d, chunk):
                                         or w.requires_grad)
     for i in range(n_chunks):
         h, lab = hidden2d[i * c:(i + 1) * c], labels1d[i * c:(i + 1) * c]
+        args = (h, w, lab) if pg is None else (h, w, lab, pg, start)
+        fn = _ce_chunk_sum if pg is None else _ce_chunk_sum_split
         if grad:
-            total = total + checkpoint(_ce_chunk_sum, h, w, lab,
-                                       use_reentrant=False,
+            total = total + checkpoint(fn, *args, use_reentrant=False,
                                        preserve_rng_state=False)
         else:
-            total = total + _ce_chunk_sum(h, w, lab)
-    count = (labels1d != IGNORE_INDEX).sum().clamp_min(1)
-    return total / count
+            total = total + fn(*args)
+    return total, (labels1d != IGNORE_INDEX).sum()
 
 
 class LlamaForCausalLM(nn.Module):
     """Built on ``device`` (``None`` = CUDA) in ``config.dtype``, with
     random weights drawn from ``generator`` (a ``torch.Generator`` on that
     device; ``None`` = seed 0): normal(0, 0.02) matrices and embeddings,
-    unit RMSNorm weights."""
+    unit RMSNorm weights. Under a mesh with mp > 1 each rank draws every
+    full tensor and keeps its shard, so the model equals the one built at
+    mp = 1 from the same generator."""
+
+    loss_reduction = "sum"  # the labelled loss is this rank's share
 
     def __init__(self, config: LlamaConfig, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dev = resolve_device(device)
+        env = get_mesh_env()
+        if getattr(config, "num_experts", 0) > 1 and env is not None and \
+                env.nranks > 1:
+            raise _deferred("MoE Llama under a mesh (expert parallelism)")
         self.config = config
         with torch.device("meta"):
             self.llama = LlamaModel(config)
-            self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
-                                     bias=False)
+            self.lm_head = ColumnParallelLinear(
+                config.hidden_size, config.vocab_size, has_bias=False,
+                gather_output=False)
         self.to_empty(device=dev)
         self.to(config.torch_dtype)
         if config.tie_word_embeddings:
             # after materialising: to_empty gives every module its own copy
             self.lm_head.weight = self.llama.embed_tokens.weight
+        mark_parameters(self)  # on the parameters to_empty made
         self._init_weights(generator if generator is not None
                            else seed(0, dev))
 
     @torch.no_grad()
     def _init_weights(self, g: torch.Generator):
+        _, mp, r = mp_info()
         for name, p in self.named_parameters():
             if name.endswith("layernorm.weight") or name == "llama.norm.weight":
                 p.fill_(1.0)
+            elif getattr(p, "mp_dim", None) is not None:
+                shape = list(p.shape)
+                shape[p.mp_dim] *= mp
+                full = torch.empty(shape, dtype=p.dtype, device=p.device)
+                full.normal_(0.0, 0.02, generator=g)
+                p.copy_(full.chunk(mp, dim=p.mp_dim)[r])
             else:
                 p.normal_(0.0, 0.02, generator=g)
 
@@ -325,15 +418,43 @@ class LlamaForCausalLM(nn.Module):
         fused head, labels equal to -100 not counted, plus
         ``aux_loss_weight`` times the summed aux of an MoE model."""
         hidden, aux = self.llama.forward_with_aux(input_ids)
+        pg, _, _ = mp_info()
         if labels is None:
-            return self.lm_head(hidden)
-        h = hidden[:, :-1, :].reshape(-1, self.config.hidden_size)
-        lab = labels[:, 1:].reshape(-1)
-        loss = fused_linear_ce(h, self.lm_head.weight, lab,
-                               self.config.ce_chunk)
+            return gather_from_group(self.lm_head(hidden), pg)
+        env = get_mesh_env()
+        if env is None or env.nranks == 1:
+            h = hidden[:, :-1, :].reshape(-1, self.config.hidden_size)
+            lab = labels[:, 1:].reshape(-1)
+            loss = fused_linear_ce(h, self.lm_head.weight, lab,
+                                   self.config.ce_chunk)
+        else:
+            loss = self._share_of_loss(hidden, labels, env, pg)
         if aux is not None:
             loss = loss + self.config.aux_loss_weight * aux
         return loss
+
+    def _share_of_loss(self, hidden, labels, env, pg):
+        """This rank's share of the global mean CE: its summed CE over the
+        global count of counted tokens (all-reduced over the data ranks);
+        under cp the labels shift over the global sequence."""
+        cp = env.get_dim("cp")
+        if cp > 1:
+            me = env.coord("cp")
+            nxt = permute_ranks(labels[:, :1].contiguous(), env.group("cp"),
+                                me, [(i, i - 1) for i in range(1, cp)])
+            if me == cp - 1:
+                nxt = torch.full_like(nxt, IGNORE_INDEX)
+            lab = torch.cat([labels[:, 1:], nxt], dim=1)
+            h = hidden
+        else:
+            lab, h = labels[:, 1:], hidden[:, :-1, :]
+        start = 0 if pg is None else \
+            env.coord("mp") * self.lm_head.weight.shape[0]
+        total, count = fused_linear_ce_sum(
+            h.reshape(-1, self.config.hidden_size), self.lm_head.weight,
+            lab.reshape(-1), self.config.ce_chunk, pg, start)
+        dist.all_reduce(count, group=env.group_over(DATA_AXES))
+        return total / count.clamp_min(1)
 
     def loss_from_logits(self, logits, labels):
         v = self.config.vocab_size

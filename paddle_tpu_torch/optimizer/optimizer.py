@@ -162,10 +162,14 @@ class Optimizer:
                                      device=params[0].device)
 
     @torch.no_grad()
-    def _apply(self, grads: Optional[List[Optional[torch.Tensor]]] = None):
+    def _apply(self, grads: Optional[List[Optional[torch.Tensor]]] = None,
+               clip: Optional[Callable] = None):
         """The update of step ``_global_step + 1`` without advancing the
         step: the parameters with a gradient (``grads``, one entry per
         parameter or None, else each ``.grad``) and ``requires_grad``.
+        ``clip(batch)`` gives the update's (clip, norms) in place of
+        :meth:`_clip` (a caller whose tensors are shards of larger ones
+        reduces their norms).
         Returns the :class:`~paddle_tpu_torch.kernels.optimizer.StepBatch`
         it ran (None where no parameter had a gradient). Inside a CUDA
         graph capture the batch is always new and is not kept: the graph
@@ -202,7 +206,7 @@ class Optimizer:
                 self._reserved = None
             else:
                 self._batch, self._batch_key = batch, key
-        self._update(batch, *self._clip(batch))
+        self._update(batch, *(clip or self._clip)(batch))
         batch.grads = None  # the step's gradients are not kept alive
         return batch
 

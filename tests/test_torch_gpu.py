@@ -378,6 +378,64 @@ def test_flash_attention_sm90_kernels_match_plain(cuda, sq, sk, offset,
         assert not dq[:, :-offset].any()
 
 
+# the offsets a ring of cp chunks of s rows gives the kernels: a chunk
+# wholly in the future (every row sees no key), wholly in the past (every
+# key visible), and odd lengths that no tile divides
+_RING_OFFSET_CASES = [(256, -256), (256, 256), (256, 768), (200, -200),
+                      (200, -157), (200, 157), (200, 600)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s,offset", _RING_OFFSET_CASES)
+def test_flash_kernels_at_ring_offsets(cuda, s, offset, dtype):
+    """Forward, dK/dV and dQ (bf16: the tensor-core kernels, held to their
+    bounds; fp32: the CUDA-core ones, 1e-4) at the ring's offsets against
+    the plain versions, with a nonzero lse cotangent. A chunk wholly in the
+    future gives o = 0, lse = -1e30 and dQ = dK = dV = 0 exactly."""
+    rng = np.random.default_rng(23)
+    bh, d, scale = 2, 128, 1.0 / 128 ** 0.5
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda)
+
+    q, k, v, do = (rnd(bh, s, d).to(dtype) for _ in range(4))
+    f32 = [t.float() for t in (q, k, v, do)]
+    sm90 = takes_sm90(dtype, d, s)
+    reset_counters()
+    o, lse = flash_attention_fwd(q, k, v, offset, True, scale)
+    ro, rl = flash_attention_plain(*f32[:3], offset, True, scale)
+    delta = (f32[3] * ro).sum(-1) - rnd(bh, s)
+    args = (rl, delta, offset, True, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    c = counters()
+    suffix = "_sm90" if sm90 else ""
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert c[name + suffix]["launches"] == 1
+        assert c[name]["plain_calls"] == 0
+    rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
+    rdq = flash_attention_bwd_dq_plain(*f32, *args)
+    if sm90:
+        _within(o, ro, sm90_fwd_bound(*f32[:3], offset, True, scale, ro),
+                "o")
+        bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
+        _within(dk, rdk, bdk, "dk")
+        _within(dv, rdv, bdv, "dv")
+        _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
+    else:
+        for got, ref in ((o, ro), (dk, rdk), (dv, rdv), (dq, rdq)):
+            _close(got.float().cpu(), ref.cpu(), (0.0, 1e-4))
+    _close(lse.cpu(), rl.cpu(), (0.0, 1e-3))
+    if offset <= -s:
+        for t in (o, dk, dv, dq):
+            assert not t.any()
+        assert (lse == -1e30).all()
+
+
 @pytest.mark.gpu
 def test_flash_attention_picks_its_kernel(cuda):
     """bf16 at head dim 64 / 128 with more than one row takes the

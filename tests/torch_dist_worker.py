@@ -1,0 +1,509 @@
+"""What each rank of a 4-process gloo world runs for the port's distributed
+tests (``test_torch_distributed.py``, ``test_torch_context_parallel.py``).
+
+Spawned through ``paddle_tpu_torch.distributed.spawn``: each rank joins
+the group through a file store, reads the parent's inputs
+(``inputs.pkl``), runs every scenario of its suite in order and writes
+its results to ``out<rank>.pkl``. Imports neither jax nor the JAX
+package: the parent holds the results against it.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+import paddle_tpu_torch.distributed as dist
+from paddle_tpu_torch import optimizer as popt
+from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch.distributed.meta_parallel import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+
+WORLD = 4
+
+
+def _np(t):
+    return t.detach().float().numpy().copy()
+
+
+# -- collectives --------------------------------------------------------------
+
+def collectives(inp):
+    r = dist.get_rank()
+    base = torch.arange(6, dtype=torch.float32) + 10 * r
+    out = {}
+    for op in ("sum", "max", "min", "prod", "avg"):
+        t = base.clone() + 1
+        dist.all_reduce(t, op=op)
+        out[f"all_reduce_{op}"] = _np(t)
+    lst = []
+    dist.all_gather(lst, base)
+    out["all_gather"] = np.stack([_np(t) for t in lst])
+    t = base.clone()
+    dist.broadcast(t, src=2)
+    out["broadcast"] = _np(t)
+    t = base.clone()
+    dist.reduce(t, dst=1)
+    out["reduce"] = _np(t)
+    t = torch.empty(6)
+    dist.reduce_scatter(t, [base + j for j in range(WORLD)])
+    out["reduce_scatter"] = _np(t)
+    got = []
+    dist.alltoall([base + 100 * j for j in range(WORLD)], got)
+    out["alltoall"] = np.stack([_np(t) for t in got])
+    t = torch.empty(6)
+    dist.scatter(t, [base + 1000 * j for j in range(WORLD)]
+                 if r == 3 else None, src=3)
+    out["scatter"] = _np(t)
+    t = torch.empty(6)
+    if r % 2 == 0:
+        dist.send(base, dst=r + 1)
+        dist.recv(t, src=r + 1)
+    else:
+        dist.recv(t, src=r - 1)
+        dist.send(base, dst=r - 1)
+    out["send_recv"] = _np(t)
+    t = torch.empty(6)
+    task = dist.irecv(t, src=(r - 1) % WORLD)
+    dist.isend(base, dst=(r + 1) % WORLD).wait()
+    task.wait()
+    out["isend_irecv"] = _np(t)
+    dist.barrier()
+    # the differentiable axis helpers over dp = 4
+    dist.init_mesh(dp=WORLD)
+    x = (base[:4] + 1).reshape(2, 2).requires_grad_(True)
+    helpers = {
+        "psum": lambda t: dist.psum(t, "dp"),
+        "pmean": lambda t: dist.pmean(t, "dp"),
+        "ppermute": lambda t: dist.ppermute(
+            t, "dp", [(i, (i + 1) % WORLD) for i in range(WORLD - 1)]),
+        "all_to_all": lambda t: dist.all_to_all_axis(
+            t.repeat(1, 2), "dp", 1, 0),
+        "all_gather": lambda t: dist.all_gather_axis(t, "dp", 1),
+        "reduce_scatter": lambda t: dist.reduce_scatter_axis(
+            t.repeat(2, 1), "dp", 0),
+    }
+    for name, fn in helpers.items():
+        x.grad = None
+        y = fn(x)
+        (y * torch.arange(y.numel(), dtype=torch.float32)
+         .reshape(y.shape)).sum().backward()
+        out[f"{name}_fwd"] = _np(y)
+        out[f"{name}_grad"] = _np(x.grad)
+    out["axis_index"] = dist.axis_index("dp")
+    return out
+
+
+# -- the mesh and fleet --------------------------------------------------------
+
+def mesh_and_fleet(inp):
+    out = {}
+    try:
+        dist.init_mesh(dp=3, mp=2)
+        out["degree_check"] = "no error"
+    except ValueError as e:
+        out["degree_check"] = str(e)
+    env = dist.init_mesh(dp=2, mp=2)
+    out["mesh"] = (env.nranks, env.get_dim("mp"), env.coord("dp"),
+                   env.coord("mp"),
+                   dist.new_group(axis="mp").ranks,
+                   dist.new_group(axis="dp").ranks)
+    dist.reset_mesh()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": 2,
+                               "pp_degree": 1, "sharding_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    hcg = fleet.get_hybrid_communicate_group()
+    out["fleet"] = (
+        hcg.get_data_parallel_world_size(), hcg.get_model_parallel_world_size(),
+        hcg.get_global_rank(), hcg.get_data_parallel_rank(),
+        hcg.get_model_parallel_rank(), hcg.get_model_parallel_group().ranks,
+        hcg.get_data_parallel_group().ranks, hcg.get_parallel_mode(),
+        fleet.worker_index(), fleet.worker_num(),
+        hcg.topology().get_comm_list("model"))
+    fleet.base._STATE.__init__()
+    return out
+
+
+# -- layers and steps against the JAX package ----------------------------------
+
+class _TPMLP(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.up = ColumnParallelLinear(8, 16, gather_output=False)
+        self.down = RowParallelLinear(16, 8, input_is_parallel=True)
+
+    def forward(self, x):
+        return self.down(F.gelu(self.up(x)))
+
+
+def _load(model, full, env):
+    """Loads this rank's tensor-parallel slices of ``full`` (torch layout)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            t = torch.from_numpy(full[name])
+            if getattr(p, "mp_dim", None) is not None:
+                t = t.chunk(env.get_dim("mp"), dim=p.mp_dim)[env.coord("mp")]
+            p.copy_(t)
+
+
+def _mse(m, x, y):
+    return F.mse_loss(m(x), y)
+
+
+def tp_mlp(inp):
+    env = dist.init_mesh(dp=2, mp=2)
+    net = _TPMLP()
+    _load(net, inp["tp_mlp"]["state"], env)
+    o = popt.Adam(learning_rate=0.05, parameters=net.parameters())
+    step = dist.ShardedTrainStep(net, _mse, o)
+    x, y = (torch.from_numpy(a) for a in inp["tp_mlp"]["batch"])
+    losses = [float(step(x, y)) for _ in range(4)]
+    return {"losses": losses,
+            "state": {k: _np(v) for k, v in
+                      dist.sharding.gather_full_state(net).items()}}
+
+
+def zero(inp, level):
+    dist.init_mesh(sharding=WORLD)
+    net = torch.nn.Sequential(torch.nn.Linear(16, 32), torch.nn.Tanh(),
+                              torch.nn.Linear(32, 16))
+    net.load_state_dict({k: torch.from_numpy(v)
+                         for k, v in inp["zero"]["state"].items()})
+    given = popt.AdamW(learning_rate=0.02, parameters=net.parameters())
+    params = list(given._parameter_list)
+    net, o = dist.group_sharded_parallel(net, given, level=level)
+    step = dist.ShardedTrainStep(net, _mse, o)
+    x, y = (torch.from_numpy(a) for a in inp["zero"]["batch"])
+    losses = [float(step(x, y)) for _ in range(4)]
+    # the optimizer given keeps its parameters, no state and its own clip
+    untouched = (o is not given and len(given._parameter_list) == len(params)
+                 and all(a is b for a, b in zip(given._parameter_list, params))
+                 and not given._state and "_clip" not in vars(given)
+                 and "_clip" not in vars(o))
+    state = {k: _np(v) for k, v in
+             dist.sharding.gather_full_state(net).items()}
+    moment_sizes = sorted(v.numel() for s in o._state.values()
+                          for v in s.values())
+    dist.save_group_sharded_model(net, os.path.join(inp["tmpdir"], level))
+    return {"losses": losses, "state": state, "moments": moment_sizes,
+            "given_untouched": untouched}
+
+
+def placement_and_rng(inp):
+    """``place_model`` makes the replicas of each shard equal (ranks start
+    from different weights); the RNG tracker's streams: ``global_seed``
+    the same everywhere, ``model_parallel_rng`` one per mp rank."""
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        get_rng_state_tracker, model_parallel_random_seed)
+
+    dist.init_mesh(dp=2, mp=2)
+    torch.manual_seed(100 + dist.get_rank())
+    net = _TPMLP()
+    dist.place_model(net)
+    model_parallel_random_seed(7, device="cpu")
+    tracker = get_rng_state_tracker()
+    draws = {}
+    for name in ("global_seed", "model_parallel_rng", "local_seed"):
+        with tracker.rng_state(name):
+            draws[name] = _np(torch.rand(4))
+    outside = _np(torch.rand(4))
+    return {"state": {k: _np(v) for k, v in net.state_dict().items()},
+            "draws": draws, "outside": outside}
+
+
+def vocab_embedding(inp):
+    env = dist.init_mesh(mp=WORLD)
+    emb = VocabParallelEmbedding(64, 16)
+    with torch.no_grad():
+        emb.weight.copy_(torch.from_numpy(inp["vocab"]["weight"]).chunk(
+            WORLD)[env.coord("mp")])
+    ids = torch.from_numpy(inp["vocab"]["ids"])
+    out = emb(ids)
+    (out * torch.from_numpy(inp["vocab"]["cot"])).sum().backward()
+    return {"out": _np(out), "grad": _np(emb.weight.grad)}
+
+
+def data_parallel(inp):
+    dist.init_mesh(dp=WORLD)
+    r = dist.get_rank()
+    net = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(),
+                              torch.nn.Linear(16, 4))
+    net.load_state_dict({k: torch.from_numpy(v)
+                         for k, v in inp["dp"]["state"].items()})
+    model = dist.DataParallel(net, comm_buffer_size=1e-4)  # several buckets
+    x, y = (torch.from_numpy(a) for a in inp["dp"]["batch"])
+    xs, ys = x.chunk(WORLD)[r], y.chunk(WORLD)[r]
+    F.mse_loss(model(xs), ys).backward()
+    synced = {k: _np(p.grad) for k, p in net.named_parameters()}
+    for p in net.parameters():
+        p.grad = None
+    with model.no_sync():
+        F.mse_loss(model(xs), ys).backward()
+    unsynced = {k: _np(p.grad) for k, p in net.named_parameters()}
+    F.mse_loss(model(xs), ys).backward()  # reduces the sum of both
+    accumulated = {k: _np(p.grad) for k, p in net.named_parameters()}
+    return {"synced": synced, "unsynced": unsynced,
+            "accumulated": accumulated}
+
+
+def _llama_optimizer(case, params):
+    """AdamW lr 1e-3, or with ``clip`` Momentum lr 0.1 (0.9) under a
+    global-norm clip at ``clip``: its update follows the gradient's scale
+    where the clip does not bind and the clip's norm where it does."""
+    if case.get("clip") is None:
+        return popt.AdamW(learning_rate=1e-3, parameters=params)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    return popt.Momentum(learning_rate=0.1, momentum=0.9, parameters=params,
+                         grad_clip=ClipGradByGlobalNorm(case["clip"]))
+
+
+class _GradientsAveraged(dist.ShardedTrainStep):
+    """A planted fault: the gradients averaged over the data ranks where
+    the Llama's loss (each rank's share) needs their sum."""
+
+    def _gradients(self):
+        return [None if g is None else g / self._n_data
+                for g in super()._gradients()]
+
+
+class _NormWithoutMp(dist.ShardedTrainStep):
+    """A planted fault: the clip's norm without the mp all-reduce, each
+    rank counting only its own tensor-parallel shards."""
+
+    def _split_masks(self, params):
+        masks = super()._split_masks(params).clone()
+        masks[1] = 0
+        return masks
+
+
+PLANTED = {"gradients_averaged": _GradientsAveraged,
+           "norm_without_mp": _NormWithoutMp}
+
+
+def llama(inp, key, step_cls=dist.ShardedTrainStep):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.convert import shard_llama_state
+
+    case = inp["llama"][key]
+    env = dist.init_mesh(**case["degrees"])
+    cfg = LlamaConfig.tiny(**case["config"])
+    model = LlamaForCausalLM(cfg, device="cpu")
+    full = {k: torch.from_numpy(v) for k, v in case["state"].items()}
+    model.load_state_dict(shard_llama_state(full, env))
+    o = _llama_optimizer(case, model.parameters())
+    shards_match = None
+    if case.get("level"):
+        model, o = dist.group_sharded_parallel(model, o, level=case["level"])
+        # the converter's ZeRO-3 slices are the parametrized model's state
+        want = shard_llama_state(full, env, stage3=case["level"] == "p_g_os")
+        have = model.state_dict()
+        shards_match = set(want) == set(have) and all(
+            torch.equal(want[k], have[k]) for k in want)
+    step = step_cls(model, lambda m, x, y: m(x, labels=y), o)
+    ids = torch.from_numpy(case["ids"])
+    losses = [float(step(ids, ids)) for _ in range(3)]
+    return {"losses": losses, "shards_match": shards_match,
+            "state": {k: _np(v) for k, v in model.state_dict().items()}}
+
+
+def llama_tied(inp):
+    """The tied head at dp 2 x mp 2 (the vocabulary-split embedding is the
+    head's weight) against the same model in one process: the JAX tie is
+    broken, so the oracle is the port's own TrainStep on the whole batch."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.convert import shard_llama_state
+
+    cfg = LlamaConfig.tiny(**inp["llama"]["dp2_mp2"]["config"],
+                           tie_word_embeddings=True)
+    ids = torch.from_numpy(inp["llama"]["dp2_mp2"]["ids"])
+    model = LlamaForCausalLM(cfg, device="cpu", generator=seed(1, "cpu"))
+    full = {k: v.clone() for k, v in model.state_dict().items()}
+    o = popt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), o)
+    ref = [float(step(ids, ids)) for _ in range(3)]
+    ref_state = {k: _np(v) for k, v in model.state_dict().items()}
+    env = dist.init_mesh(dp=2, mp=2)
+    model = LlamaForCausalLM(cfg, device="cpu", generator=seed(1, "cpu"))
+    model.load_state_dict(shard_llama_state(full, env))
+    tied = model.lm_head.weight is model.llama.embed_tokens.weight
+    o = popt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    step = dist.ShardedTrainStep(model, lambda m, x, y: m(x, labels=y), o)
+    losses = [float(step(ids, ids)) for _ in range(3)]
+    state = {k: _np(v) for k, v in
+             dist.sharding.gather_full_state(model).items()}
+    return {"losses": losses, "ref_losses": ref, "state": state,
+            "ref_state": ref_state, "tied": tied}
+
+
+def parallel_cross_entropy(inp):
+    """``ParallelCrossEntropy`` at mp 4: per-row losses (an ignored label
+    gives 0) and this rank's columns of the logits' gradient."""
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        ParallelCrossEntropy)
+
+    env = dist.init_mesh(mp=WORLD)
+    c = inp["pce"]
+    logits = torch.from_numpy(c["logits"]).chunk(WORLD, dim=-1)[
+        env.coord("mp")].contiguous().requires_grad_(True)
+    loss = ParallelCrossEntropy()(logits, torch.from_numpy(c["labels"]))
+    (loss * torch.from_numpy(c["cot"])).sum().backward()
+    return {"loss": _np(loss), "grad": _np(logits.grad)}
+
+
+def deferred(inp):
+    """Each option that is not ported raises NotImplementedError."""
+    out = {}
+
+    def record(name, fn):
+        try:
+            fn()
+            out[name] = "no error"
+        except NotImplementedError as e:
+            out[name] = "NotImplementedError: " + str(e)
+
+    net = torch.nn.Linear(4, 4)
+
+    def fresh():
+        return popt.AdamW(learning_rate=0.1, parameters=net.parameters())
+
+    dist.init_mesh(dp=WORLD)
+
+    class _Scaler:
+        _enable = True
+
+    record("scaler", lambda: dist.ShardedTrainStep(net, _mse, fresh(),
+                                                   scaler=_Scaler()))
+    record("accum_steps", lambda: dist.ShardedTrainStep(
+        net, _mse, fresh(), accum_steps=2))
+    record("accumulate", lambda: dist.ShardedTrainStep(
+        net, _mse, fresh()).accumulate(2))
+    record("offload", lambda: dist.group_sharded_parallel(
+        net, fresh(), level="os_g", offload=True))
+
+    def offloaded():
+        o = fresh()
+        o._offload = True
+        dist.ShardedTrainStep(net, _mse, o)
+
+    record("optimizer_offload", offloaded)
+    dist.init_mesh(pp=2, dp=2)
+    record("pp", lambda: dist.ShardedTrainStep(net, _mse, fresh()))
+    dist.init_mesh(ep=2, dp=2)
+    record("ep", lambda: dist.ShardedTrainStep(net, _mse, fresh()))
+    dist.init_mesh(dp=2, mp=2)
+    tp = _TPMLP()
+    record("lamb_under_mp", lambda: dist.ShardedTrainStep(
+        tp, _mse, popt.Lamb(learning_rate=0.1,
+                            parameters=tp.parameters())))
+    from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
+
+    record("moe_under_mesh", lambda: LlamaForCausalLM(
+        LlamaMoEConfig.tiny(), device="cpu"))
+    return out
+
+
+# -- context parallelism ----------------------------------------------------------
+
+def ring(inp, impl):
+    """This rank's chunk of the ring (q/k/v [bh, s, d]) or of Ulysses
+    ([b, s, h, d]) at cp 4: its output and gradients of sum(o ** 2), and
+    the bytes the ring saved for its backward."""
+    from paddle_tpu_torch.distributed import (ring_attention_bhsd,
+                                              ulysses_attention_bshd)
+
+    env = dist.init_mesh(cp=WORLD)
+    i = env.coord("cp")
+    c = inp["ring" if impl == "ring" else "ulysses"]
+    q, k, v = (torch.from_numpy(a).chunk(WORLD, dim=1)[i].contiguous()
+               .requires_grad_(True) for a in (c["q"], c["k"], c["v"]))
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel() * t.element_size())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        if impl == "ring":
+            o = ring_attention_bhsd(q, k, v, causal=True)
+        else:
+            o = ulysses_attention_bshd(q, k, v, causal=True)
+    (o ** 2).sum().backward()
+    return {"o": _np(o), "dq": _np(q.grad), "dk": _np(k.grad),
+            "dv": _np(v.grad), "saved_bytes": sum(saved)}
+
+
+SUITES = {
+    "distributed": [
+        ("collectives", collectives),
+        ("mesh_and_fleet", mesh_and_fleet),
+        ("tp_mlp", tp_mlp),
+        ("zero_os", lambda inp: zero(inp, "os")),
+        ("zero_os_g", lambda inp: zero(inp, "os_g")),
+        ("zero_p_g_os", lambda inp: zero(inp, "p_g_os")),
+        ("vocab_embedding", vocab_embedding),
+        ("data_parallel", data_parallel),
+        ("placement_and_rng", placement_and_rng),
+        ("llama_dp2_mp2", lambda inp: llama(inp, "dp2_mp2")),
+        ("llama_cp2_dp2_ring", lambda inp: llama(inp, "cp2_dp2_ring")),
+        ("llama_cp2_dp2_ulysses", lambda inp: llama(inp, "cp2_dp2_ulysses")),
+        ("llama_sdp4", lambda inp: llama(inp, "sdp4")),
+        ("llama_dp2_mp2_clip", lambda inp: llama(inp, "dp2_mp2_clip")),
+        ("llama_cp2_dp2_ring_clip",
+         lambda inp: llama(inp, "cp2_dp2_ring_clip")),
+        ("llama_sdp4_os_g_clip", lambda inp: llama(inp, "sdp4_os_g_clip")),
+        ("llama_sdp4_p_g_os_clip",
+         lambda inp: llama(inp, "sdp4_p_g_os_clip")),
+        ("planted_gradients_averaged", lambda inp: llama(
+            inp, "dp2_mp2_clip", PLANTED["gradients_averaged"])),
+        ("planted_norm_without_mp", lambda inp: llama(
+            inp, "dp2_mp2_clip", PLANTED["norm_without_mp"])),
+        ("llama_tied", llama_tied),
+        ("parallel_cross_entropy", parallel_cross_entropy),
+        ("deferred", deferred),
+    ],
+    "context_parallel": [
+        ("ring", lambda inp: ring(inp, "ring")),
+        ("ulysses", lambda inp: ring(inp, "ulysses")),
+    ],
+}
+
+
+def main(tmpdir, suite):
+    torch.set_num_threads(1)
+    dist.init_parallel_env(backend="gloo",
+                           timeout=datetime.timedelta(seconds=120))
+    rank = dist.get_rank()
+    with open(os.path.join(tmpdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    out = {}
+    for name, fn in SUITES[suite]:
+        torch.manual_seed(0)
+        out[name] = fn(inp)
+        dist.reset_mesh()
+    with open(os.path.join(tmpdir, f"out{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def run(tmpdir, suite, inputs):
+    """In the parent: writes ``inputs``, spawns the world, returns each
+    rank's results."""
+    inputs = dict(inputs, tmpdir=str(tmpdir))
+    with open(os.path.join(tmpdir, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    dist.spawn(main, args=(str(tmpdir), suite), nprocs=WORLD,
+               store_dir=str(tmpdir))
+    outs = []
+    for r in range(WORLD):
+        with open(os.path.join(tmpdir, f"out{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
