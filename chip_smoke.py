@@ -216,6 +216,26 @@ distributed — the distributed slice on one card: (a) a world-1 NCCL
              + backward ms beside one-shot flash's; (e) two planted ring
              faults in fp32 (a merge that drops a step, an offset one tile
              off) that the check must catch.
+pipeline   — (a) the Llama at Llama-2 7B's widths, depth cut to 8, in 4
+             stages on the one card through ``pipeline_local``
+             (``tools/pipeline_harness.py``'s ``LocalPipelineStep``):
+             bf16, recompute, AdamW, M = 8 microbatches of 1 x 4096, two
+             steps eager and two graphed, equal bit for bit, launches
+             reckoned exactly, losses and parameters equal bit for bit to
+             the pp = 1 model's ``TrainStep.accumulate(8)``, step ms and
+             peak memory beside it; (a') its fp32 twin at 2 layers in 2
+             stages, gradients within PIPE_GRAD_TOL of the pp = 1 model's,
+             and two planted faults (an activation gradient dropped at the
+             boundary, one stage's microbatches reversed) that must fail
+             it; (b) on the 1.16B step over a world-1 NCCL group, graphed:
+             ``ShardedTrainStep(scaler=)`` with an inf planted in step 2's
+             gradient against the eager ``GradScaler`` loop (losses,
+             parameters, the skip, the halved scale, the update count, bit
+             for bit), ``accum_steps=2`` over two calls and
+             ``accumulate(2)`` against ``TrainStep.accumulate(2)`` bit for
+             bit; (c) a checkpoint round trip of the model and its AdamW
+             state: the resumed step equals the unbroken one bit for bit,
+             save and load GB/s.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
@@ -5382,6 +5402,536 @@ def phase_distributed(seed):
     return paths, rows
 
 
+# -- phase: the pipeline, the in-graph scaler, gradient merge, checkpoints ----
+
+PIPE_PP, PIPE_M, PIPE_ROWS, PIPE_SEQ = 4, 8, 8, 4096  # M = 8 x (1 x 4096)
+PIPE_LAYERS = 8          # Llama-2 7B's widths, depth cut from 32
+PIPE_GRAD_TOL = 1e-4     # fp32 twin: per-tensor ||g - ref|| / ||ref||
+PIPE_FAULTS = ("activation_grad_dropped", "microbatch_order_reversed")
+SCALER_KW = dict(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2,
+                 decr_every_n_nan_or_inf=1)
+
+
+def _pipe_stages(cfg, seed, pp):
+    """Every stage of the pp-stage Llama, each drawn as the pp = 1 model is
+    from the same generator."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    return [LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=pt_seed(seed, DEVICE), stage=(r, pp))
+            for r in range(pp)]
+
+
+def _local_pipeline_step():
+    """The one-device pipeline step, ``tools/pipeline_harness.py``."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.append(tools)
+    from pipeline_harness import LocalPipelineStep
+    return LocalPipelineStep
+
+
+def _stage_params(stages):
+    return {n: p for st in stages for n, p in st.named_parameters()}
+
+
+def _pipe_run(stages, state0, graph, ids, steps, timed):
+    """``LocalPipelineStep`` (AdamW lr 3e-4 / wd 0.1) from ``state0``:
+    (losses, step ms of ``timed`` more calls, the reckoned launches of the
+    first ``steps``, the parameters after them, peak GiB)."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    LocalPipelineStep = _local_pipeline_step()
+    params = _stage_params(stages)
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(state0[n])
+    opt = AdamW(learning_rate=3e-4, parameters=list(params.values()),
+                weight_decay=0.1)
+    step = LocalPipelineStep(stages, opt, PIPE_M, graph=graph)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    losses, _ms = _timed(step, ids, steps)
+    counts = _reckoned(step) if graph else kernels.counters()
+    after = {n: p.detach().clone() for n, p in params.items()}
+    _l, ms = _timed(step, ids, timed)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del step, opt
+    _release()
+    return losses, ms, counts, after, peak
+
+
+def _pipe_exact(path, counts, per_step, n):
+    wrong = {k: (c["launches"], per_step.get(k, 0) * n)
+             for k, c in counts.items()
+             if c["plain_calls"] or c["launches"] != per_step.get(k, 0) * n}
+    if wrong:
+        raise RuntimeError(f"{path}: launches differ from the reckoned "
+                           f"(reading, expected): {wrong}")
+
+
+def _pipe_twin_grads(stages, ids, m):
+    """Per-parameter fp32 gradient sums of ``pipeline_local`` over the
+    stages."""
+    from paddle_tpu_torch.distributed.meta_parallel import pipeline_local
+
+    _losses, accs = pipeline_local(stages, ids, ids, num_microbatches=m)
+    out = {}
+    for st, acc in zip(stages, accs):
+        for (n, _p), a in zip(st.named_parameters(), acc):
+            out[n] = a
+    return out
+
+
+def _pipe_fault(fault):
+    """(module, attribute, replacement) planting ``fault`` in the schedule:
+    the first stage's activation gradient of microbatch 1 dropped at the
+    boundary, or the second stage running its microbatches in reverse."""
+    import importlib
+
+    import torch
+
+    pm = importlib.import_module(
+        "paddle_tpu_torch.distributed.meta_parallel.pipeline")
+    real = pm.stage_body
+    if fault == "activation_grad_dropped":
+        def body(run, pp, rank, m):
+            gen = real(run, pp, rank, m)
+            got, seen = None, 0
+            while True:
+                try:
+                    hop, t = gen.send(got)
+                except StopIteration:
+                    return
+                got = yield (hop, t)
+                if rank == 0 and hop in ("recv_bwd", "send_fwd_recv_bwd") \
+                        and got is not None:
+                    seen += 1
+                    if seen == 2:
+                        got = torch.zeros_like(got)
+        return [(pm, "stage_body", body)]
+
+    def reversed_body(run, pp, rank, m):
+        if rank == 1:
+            run.mbs = run.mbs[::-1]
+        return real(run, pp, rank, m)
+    return [(pm, "stage_body", reversed_body)]
+
+
+def _pipe_twin(seed):
+    """(a') The fp32 twin: Llama-2 7B's widths at 2 layers in 2 stages,
+    ``pipeline_local``'s fp32 gradient sums over 4 microbatches against
+    the pp = 1 model's (each microbatch's backward, summed in fp32), per
+    tensor within PIPE_GRAD_TOL; each planted fault must exceed it."""
+    import torch
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
+    ids = _ids(cfg.vocab_size, (4, 512), seed + 53)
+    full = LlamaForCausalLM(cfg, device=DEVICE,
+                            generator=pt_seed(seed + 53, DEVICE))
+    stages = _pipe_stages(cfg, seed + 53, 2)
+    ref = {n: torch.zeros(p.shape, dtype=torch.float32, device=DEVICE)
+           for n, p in full.named_parameters()}
+    count = (ids[:, 1:] != -100).sum()
+    full.train()
+    for mb in ids.reshape(4, 1, 512):
+        full.zero_grad(set_to_none=True)
+        loss = full(mb, labels=mb) * ((mb[:, 1:] != -100).sum() / count)
+        loss.backward()
+        with torch.no_grad():
+            for n, p in full.named_parameters():
+                ref[n].add_(p.grad.float())
+    full.zero_grad(set_to_none=True)
+    del full, loss
+    _release()
+
+    def check(label, grads):
+        errs = _grad_errors(grads, ref)
+        worst = max(errs.values())
+        if worst > PIPE_GRAD_TOL:
+            raise RuntimeError(f"pipeline twin ({label}): gradient off by "
+                               f"{worst:.3e} > {PIPE_GRAD_TOL} at "
+                               f"{_worst(errs)}")
+        return worst
+
+    sound = check("sound", _pipe_twin_grads(stages, ids, 4))
+    caught = {}
+    for fault in PIPE_FAULTS:
+        with _swapped(_pipe_fault(fault)):
+            grads = _pipe_twin_grads(stages, ids, 4)
+        try:
+            check(fault, grads)
+        except RuntimeError as e:  # the check must fail: that is a catch
+            caught[fault] = str(e)[:160]
+        else:
+            raise RuntimeError(f"the pipeline check missed the planted "
+                               f"fault {fault}")
+        del grads
+    del stages, ref
+    _release()
+    return {"model": "llama2-7b-width", "layers": 2, "pp": 2,
+            "microbatches": 4, "batch": [4, 512], "dtype": "float32",
+            "grad_tol": PIPE_GRAD_TOL, "sound_worst": sound,
+            "caught": caught}
+
+
+def _pipe_full_width(seed):
+    """(a) The Llama at Llama-2 7B's widths (hidden 4096, 32 heads,
+    intermediate 11008, vocab 32000), depth 8 in 4 stages on one card,
+    bf16, recompute, AdamW: M = 8 microbatches of 1 x 4096 through
+    ``pipeline_local`` (``LocalPipelineStep``), two steps eager and two
+    graphed, equal bit for bit; both equal bit for bit to the pp = 1
+    model's ``TrainStep.accumulate(8)`` from the same generator; launches
+    reckoned exactly. Returns (row, the graphed run's counters)."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.distributed.meta_parallel import bubble_fraction
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=PIPE_LAYERS,
+                                dtype="bfloat16", use_recompute=True)
+    ids = _ids(cfg.vocab_size, (PIPE_ROWS, PIPE_SEQ), seed + 51)
+    stages = _pipe_stages(cfg, seed + 51, PIPE_PP)
+    state0 = {n: p.detach().clone() for n, p in _stage_params(stages).items()}
+    per_step = {n: PIPE_M * c for n, c in
+                _dense_launches(PIPE_LAYERS).items()}
+    per_step["adam_update"] = 1
+    runs = {}
+    for graph in (False, True):
+        mode = "graph" if graph else "eager"
+        losses, ms, counts, after, peak = _pipe_run(stages, state0, graph,
+                                                    ids, 2, 2)
+        # a graphed run's first call is the eager warm-up and its second
+        # the capture (the wrappers count) and a replay
+        _pipe_exact(f"pipeline ({mode})", counts, per_step,
+                    3 if graph else 2)
+        runs[mode] = {"losses": losses, "step_ms": ms, "peak_gib": peak,
+                      "after": after, "counts": counts}
+    same = runs["graph"]["losses"] == runs["eager"]["losses"] and all(
+        torch.equal(runs["graph"]["after"][n], runs["eager"]["after"][n])
+        for n in state0)
+    if not same:
+        raise RuntimeError("pipeline: the graphed steps differ from the "
+                           "eager ones")
+    # the pp = 1 model from the same generator, TrainStep.accumulate(8)
+    del stages
+    _release()
+    full = LlamaForCausalLM(cfg, device=DEVICE,
+                            generator=pt_seed(seed + 51, DEVICE))
+    for n, p in full.named_parameters():
+        if not torch.equal(p, state0[n]):
+            raise RuntimeError(f"pipeline: stage tensor {n} is not the pp = "
+                               f"1 model's draw")
+    opt = AdamW(learning_rate=3e-4, parameters=full.parameters(),
+                weight_decay=0.1)
+    acc = TrainStep(full, lambda m, x, y: m(x, labels=y), opt) \
+        .accumulate(PIPE_M)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    acc_losses, _ = _timed(acc, ids, 2)
+    acc_after = {n: p.detach().clone() for n, p in full.named_parameters()}
+    _l, acc_ms = _timed(acc, ids, 2)
+    acc_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    before = {n: t for n, t in state0.items()}
+    bitwise, worst, where = _agreement(runs["graph"]["after"], acc_after,
+                                       before)
+    loss_same = acc_losses == runs["graph"]["losses"]
+    del acc, opt, full, acc_after
+    _release()
+    # the same fp32 sums in the same microbatch order: every bit (should
+    # an op ever break that, the fp32 twin (a') is what holds the sums)
+    if not (bitwise and loss_same):
+        raise RuntimeError(
+            f"pipeline: differs from accumulate({PIPE_M}): losses "
+            f"{runs['graph']['losses']} vs {acc_losses}, parameters "
+            f"{worst:.3e} apart at {where}")
+    tokens = PIPE_ROWS * PIPE_SEQ
+    h, L = cfg.hidden_size, PIPE_LAYERS
+    row = {"phase": "pipeline", "ok": True, "card": _nvidia_smi(),
+           "model": "llama2-7b-width", "layers": L, "pp": PIPE_PP,
+           "microbatches": PIPE_M, "microbatch": [1, PIPE_SEQ],
+           "dtype": "bfloat16", "recompute": True,
+           "bubble_fraction": bubble_fraction(PIPE_M, PIPE_PP),
+           # activations forward and their gradients back, bf16, at each
+           # of the pp - 1 boundaries, per microbatch
+           "p2p_bytes_per_step": 2 * (PIPE_PP - 1) * PIPE_M * PIPE_SEQ * h
+           * 2,
+           "graph_equals_eager": same,
+           "losses": runs["graph"]["losses"],
+           "accumulate_losses": acc_losses,
+           "accumulate_bitwise": True,
+           "step_ms": {"eager": runs["eager"]["step_ms"],
+                       "graph": runs["graph"]["step_ms"],
+                       "accumulate_graph": acc_ms},
+           "tokens_per_s": tokens / (min(runs["graph"]["step_ms"]) / 1e3),
+           "peak_gib": {"eager": runs["eager"]["peak_gib"],
+                        "graph": runs["graph"]["peak_gib"],
+                        "accumulate_graph": acc_peak},
+           "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "launches_exact": True}
+    counts = runs["graph"]["counts"]
+    del runs, state0
+    _release()
+    return row, counts
+
+
+def _scaler_runs(model, state0, ids, seed):
+    """(b) The in-graph scaler on the 1.16B step at world-1 NCCL, graphed,
+    against the eager GradScaler loop from the same weights: an inf
+    planted in step 2's gradient (a hook multiplies the final norm's
+    gradient by a device scalar set to inf for that step). Both equal bit
+    for bit: losses, parameters, the skip, the scale, the update count."""
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.optimizer import AdamW
+
+    plant = torch.ones((), dtype=torch.float32, device=DEVICE)
+    hook = model.llama.norm.weight.register_hook(
+        lambda g: g * plant.to(g.dtype))
+    steps = 4
+    out = {}
+    try:
+        for kind in ("eager_scaler", "sharded_graph"):
+            model.load_state_dict(state0)
+            opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                        weight_decay=0.1)
+            sc = GradScaler(**SCALER_KW)
+            kernels.reset_counters()
+            losses, scales = [], []
+            if kind == "sharded_graph":
+                step = pdist.ShardedTrainStep(
+                    model, lambda m, x, y: m(x, labels=y), opt, scaler=sc)
+            for i in range(steps):
+                plant.fill_(float("inf") if i == 1 else 1.0)
+                if kind == "eager_scaler":
+                    model.train()
+                    loss = model(ids, labels=ids)
+                    sc.scale(loss).backward()
+                    sc.step(opt)
+                    opt.clear_grad()
+                    losses.append(float(loss.detach()))
+                    del loss
+                else:
+                    losses.append(float(step(ids, ids)))
+                scales.append(float(sc._scale))
+            counts = _reckoned(step) if kind == "sharded_graph" \
+                else kernels.counters()
+            out[kind] = {"losses": losses, "scales": scales,
+                         "updates": int(opt._global_step),
+                         "snap": _snapshot(model, opt), "counts": counts}
+            if kind == "sharded_graph":
+                out[kind]["amp_state"] = step.amp_state()
+                plant.fill_(1.0)
+                _l, out[kind]["step_ms"] = _timed(step, ids, 3)
+                del step
+            del opt
+            _release()
+    finally:
+        hook.remove()
+    a, b = out["eager_scaler"], out["sharded_graph"]
+    bitwise = a["losses"] == b["losses"] and all(
+        torch.equal(a["snap"][k], b["snap"][k]) for k in a["snap"])
+    state = b["amp_state"]
+    held = (a["scales"] == b["scales"] and a["updates"] == b["updates"]
+            == steps - 1 and state["updates"] == steps - 1 and
+            b["scales"][1] == SCALER_KW["init_loss_scaling"] / 2)
+    if not (bitwise and held):
+        raise RuntimeError(f"in-graph scaler: differs from the eager "
+                           f"GradScaler loop: losses {a['losses']} vs "
+                           f"{b['losses']}, scales {a['scales']} vs "
+                           f"{b['scales']}, updates {a['updates']} vs "
+                           f"{b['updates']}, bitwise {bitwise}")
+    per_step = _dense_launches(model.config.num_hidden_layers)
+    per_step.update({"check_finite": 1, "unscale": 1})
+    # warm-up, capture and steps - 1 replays; the skipped step's AdamW
+    # kernel launches too and returns at once (the device skip flag)
+    want = {k: v * (steps + 1) for k, v in per_step.items()}
+    got = {k: c["launches"] for k, c in b["counts"].items()}
+    if any(got.get(k, 0) != v for k, v in want.items()):
+        raise RuntimeError(f"in-graph scaler: launches {got} != {want}")
+    return {"steps": steps, "planted_inf_step": 2, "scaler": SCALER_KW,
+            "graph_step_ms": b["step_ms"],
+            "losses": b["losses"], "scales": b["scales"],
+            "amp_state": state, "bitwise_equal_eager_scaler": True,
+            "eager_launches_check_finite":
+                a["counts"]["check_finite"]["launches"]}, b["counts"]
+
+
+def _merge_runs(model, state0, ids):
+    """(b) ``accum_steps=2`` over two calls (each half the batch) and
+    ``accumulate(2)`` on the whole batch, both graphed, against
+    ``TrainStep.accumulate(2)``: two windows, losses and parameters bit
+    for bit."""
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def fresh():
+        model.load_state_dict(state0)
+        return AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                     weight_decay=0.1)
+
+    def loss_fn(m, x, y):
+        return m(x, labels=y)
+
+    windows = 3
+    opt = fresh()
+    ref = TrainStep(model, loss_fn, opt).accumulate(2)
+    ref_losses = [ref(ids, ids) for _ in range(windows)]
+    ref_snap = _snapshot(model, opt)
+    del ref, opt
+    _release()
+    rows, counts = {}, None
+    for kind in ("accum_steps", "accumulate"):
+        opt = fresh()
+        kernels.reset_counters()
+        if kind == "accum_steps":
+            step = pdist.ShardedTrainStep(model, loss_fn, opt, accum_steps=2)
+            halves = ids.chunk(2)
+            losses = []
+            for _ in range(windows):
+                pair = [step(h, h) for h in halves]
+                losses.append(torch.stack(pair).mean())
+        else:
+            step = pdist.ShardedTrainStep(model, loss_fn, opt).accumulate(2)
+            losses = [step(ids, ids) for _ in range(windows)]
+        snap = _snapshot(model, opt)
+        same = all(torch.equal(a, b) for a, b in zip(losses, ref_losses)) \
+            and all(torch.equal(snap[k], ref_snap[k]) for k in ref_snap)
+        if not same:
+            raise RuntimeError(f"{kind}: differs from TrainStep.accumulate"
+                               f"(2): losses {[float(x) for x in losses]} "
+                               f"vs {[float(x) for x in ref_losses]}")
+        rows[kind] = {"losses": [float(x) for x in losses],
+                      "bitwise_equal_accumulate": True}
+        if kind == "accumulate":
+            counts = _reckoned(step)
+        del step, opt, snap
+        _release()
+    return rows, counts
+
+
+def _checkpoint_round_trip(model, state0, ids, seed):
+    """(c) Save the 1.16B model and its AdamW state from
+    ``ShardedTrainStep`` after a step, load them into a fresh model and
+    optimizer, take one step: equal to the unbroken run's next step bit
+    for bit (eager, so both sides take the same path). GB/s of the save
+    and of the load."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    def loss_fn(m, x, y):
+        return m(x, labels=y)
+
+    model.load_state_dict(state0)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.1)
+    step = pdist.ShardedTrainStep(model, loss_fn, opt, graph=False)
+    step(ids, ids)
+    path = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_sharded_model(model, opt, path)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        want_loss = float(step(ids, ids))
+        want = _snapshot(model, opt)
+        del step, opt
+        _release()
+        fresh = LlamaForCausalLM(model.config, device=DEVICE,
+                                 generator=pt_seed(seed + 77, DEVICE))
+        fopt = AdamW(learning_rate=3e-4, parameters=fresh.parameters(),
+                     weight_decay=0.1)
+        t0 = time.perf_counter()
+        ckpt.load_sharded_model(fresh, fopt, path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        fstep = pdist.ShardedTrainStep(fresh, loss_fn, fopt, graph=False)
+        got_loss = float(fstep(ids, ids))
+        got = _snapshot(fresh, fopt)
+        same = got_loss == want_loss and all(
+            torch.equal(got[k], want[k]) for k in want)
+        steps = int(fopt._global_step)
+        del fstep, fopt, fresh, got, want
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    _release()
+    if not same or steps != 2:
+        raise RuntimeError(f"checkpoint: the resumed step differs from the "
+                           f"unbroken one (loss {got_loss} vs {want_loss}, "
+                           f"step count {steps})")
+    return {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+            "save_gb_s": nbytes / save_s / 1e9,
+            "load_gb_s": nbytes / load_s / 1e9,
+            "resumed_bitwise_equal": True}
+
+
+def phase_pipeline(seed):
+    """The pipeline slice on one card: (a) the full-width pp 4 pipeline,
+    (a') its fp32 twin with two planted faults, (b) the in-graph scaler,
+    ``accum_steps`` and ``accumulate`` on the 1.16B step over a world-1
+    NCCL group, (c) a checkpoint round trip. Returns ({path: counters})."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    t_phase = time.perf_counter()
+    row, pipe_counts = _pipe_full_width(seed)
+    row["fp32_twin"] = _pipe_twin(seed)
+    store = torch.distributed.FileStore(
+        os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pp_"), "store"), 1)
+    pdist.init_parallel_env(backend="nccl", store=store, rank=0,
+                            world_size=1)
+    pdist.init_mesh()
+    cfg = LlamaConfig(**BIG, dtype="bfloat16", use_recompute=True)
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=pt_seed(seed + 61, DEVICE))
+    state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    ids = _ids(cfg.vocab_size, (4, 2048), seed + 61)
+    row["scaler"], scaler_counts = _scaler_runs(model, state0, ids, seed)
+    row["gradient_merge"], merge_counts = _merge_runs(model, state0, ids)
+    row["checkpoint"] = _checkpoint_round_trip(model, state0, ids, seed)
+    pdist.reset_mesh()
+    torch.distributed.destroy_process_group()
+    del model, state0
+    _release()
+    row["seconds"] = time.perf_counter() - t_phase
+    _emit(row)
+    return {"pipeline": pipe_counts, "pipeline-scaler": scaler_counts,
+            "pipeline-accumulate": merge_counts}
+
+
 def _kernels_line(rows, paths):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
@@ -5634,6 +6184,7 @@ def main() -> int:
     rows += bench_rows
     distributed, dist_rows = phase_distributed(SEED)
     rows += dist_rows
+    pipeline = phase_pipeline(SEED)
 
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
            "batch": [4, 2048], "rules": rule_steps})
@@ -5646,7 +6197,8 @@ def main() -> int:
         "training-fp32": training_fp32, "moe-training-fp32": moe_fp32,
         "finetune-fp32": finetune_fp32, "gpt-training": gpt,
         "gpt-training-eager": gpt_eager, "gpt-graph-check": gpt_graph_check,
-        "llama-cache": llama_cache, **bench, **distributed})})
+        "llama-cache": llama_cache, **bench, **distributed,
+        **pipeline})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -13,6 +13,12 @@ value is finite does the unscale write ``cast(g * inv)`` into each gradient
 in place; on overflow the gradients stay as they were (``:63-67``). It
 takes bf16 and fp32 gradients and raises on any other dtype: no kernel of
 the port takes fp16. CPU gradients take the kernels' plain versions.
+
+A step that runs the state machine inside a CUDA graph
+(``distributed.ShardedTrainStep(scaler=)``) takes the state onto the device
+(:meth:`GradScaler.device_state`); from then on the scale, the good and bad
+counts and the found-inf flag are those tensors, which every field reads
+(a host read) and writes in place.
 """
 from __future__ import annotations
 
@@ -25,10 +31,36 @@ __all__ = ["GradScaler", "AmpScaler"]
 _GRAD_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def _field(i: int, kind):
+    """One field of the state: the host value, or where the state is on
+    the device its tensor, read when used and filled in place when set."""
+
+    def get(self):
+        if self._dev is None:
+            return self._host[i]
+        return kind(self._dev[i].item())
+
+    def put(self, v):
+        v = kind(v)
+        if self._dev is None:
+            self._host[i] = v
+        else:
+            self._dev[i].fill_(float(v) if kind is float else int(v))
+
+    return property(get, put)
+
+
 class GradScaler:
+    _scale = _field(0, float)
+    _good_steps = _field(1, int)
+    _bad_steps = _field(2, int)
+    _found_inf = _field(3, bool)
+
     def __init__(self, enable=True, init_loss_scaling=65536.0,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=2000,
                  decr_every_n_nan_or_inf=2, use_dynamic_loss_scaling=True):
+        self._dev = None
+        self._host = [1.0, 0, 0, False]
         self._enable = enable
         self._scale = float(init_loss_scaling) if enable else 1.0
         self._incr_ratio = incr_ratio
@@ -39,6 +71,22 @@ class GradScaler:
         self._good_steps = 0
         self._bad_steps = 0
         self._found_inf = False
+
+    def device_state(self, device) -> tuple:
+        """The state on ``device``: (scale fp32 [1], good, bad, found int32
+        [1]), made from the current state at the first call there. They
+        stay the state: a captured graph that updates them and the host
+        fields see one another's writes."""
+        device = torch.device(device)
+        d = self._dev
+        if d is None or d[0].device.type != device.type:
+            vals = (self._scale, self._good_steps, self._bad_steps,
+                    self._found_inf)
+            d = (torch.tensor([vals[0]], dtype=torch.float32, device=device),
+                 *(torch.tensor([int(v)], dtype=torch.int32, device=device)
+                   for v in vals[1:]))
+            self._dev = d
+        return d
 
     def scale(self, var: torch.Tensor) -> torch.Tensor:
         if not self._enable:

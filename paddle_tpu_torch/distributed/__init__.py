@@ -10,8 +10,12 @@ port follows PyTorch's idiom and Paddle's own: each rank is a process,
 agrees with the reference is the global result. The backend is the
 caller's: ``nccl`` on the card, ``gloo`` on the CPU.
 
-Not ported yet (ROADMAP Queue 1 item 3): the 1F1B pipeline, expert
-parallelism, ``checkpoint.py`` resharding, the elastic fleet, the
+The pipeline (``meta_parallel``: ``PipelineLayer``, the 1F1B schedule
+over P2P, ``PipelineParallel``, ``pipeline_local``) runs through
+``ShardedTrainStep``, which also carries the in-graph ``GradScaler``,
+gradient merge (``accum_steps``) and ``accumulate``; ``checkpoint``
+saves each rank's shards and reshards them on load. Not ported yet
+(ROADMAP Queue 1 item 3): expert parallelism, the elastic fleet, the
 parameter server, the launcher and the auto-parallel planner.
 """
 from __future__ import annotations
@@ -19,7 +23,7 @@ from __future__ import annotations
 import os
 import tempfile
 
-from . import fleet  # noqa: F401
+from . import checkpoint, fleet  # noqa: F401
 from .collective import (Group, ReduceOp, all_gather, all_gather_axis,
                          all_reduce, all_to_all_axis, alltoall, axis_index,
                          barrier, broadcast, get_group, get_rank,
@@ -33,12 +37,12 @@ from .context_parallel import (ring_attention, ring_attention_bhsd,
                                ulysses_attention_local)
 from .mesh import (MeshEnv, get_mesh_env, init_mesh, require_mesh_env,
                    reset_mesh)
-from .parallel import (DataParallel, ShardedTrainStep, default_batch_sharding,
-                       param_sharding, place_model, shard_batch,
-                       zero_partition_spec)
+from .parallel import (DataParallel, ShardedAccumulateStep, ShardedTrainStep,
+                       default_batch_sharding, param_sharding, place_model,
+                       shard_batch, zero_partition_spec)
 from .sharding import group_sharded_parallel, save_group_sharded_model
 
-__all__ = ["fleet", "Group", "ReduceOp", "new_group", "get_group",
+__all__ = ["fleet", "checkpoint", "ShardedAccumulateStep", "Group", "ReduceOp", "new_group", "get_group",
            "is_initialized", "init_parallel_env", "get_rank",
            "get_world_size", "all_reduce", "all_gather", "broadcast",
            "reduce", "reduce_scatter", "alltoall", "scatter", "barrier",

@@ -183,25 +183,36 @@ def get_hybrid_communicate_group() -> HybridCommunicateGroup:
 
 
 def distributed_model(model):
-    """``fleet_base.py:896``: pure data parallel wraps the model in
-    :class:`DataParallel`; under tensor parallelism or sharding the model's
-    replicas are made equal (``place_model``) and it is returned as it is
-    (its mp layers communicate; ``ShardedTrainStep`` reduces); the
-    pipeline raises."""
-    from ..parallel import DataParallel, _deferred, place_model
+    """``fleet_base.py:896`` (JAX ``fleet/base.py:194-211``): pure data
+    parallel wraps the model in :class:`DataParallel`; tensor parallelism
+    in ``TensorParallel`` and sharding in ``ShardingParallel`` (each
+    making the model's replicas equal: ``place_model``; its mp layers
+    communicate, ``ShardedTrainStep`` reduces); the pipeline in
+    ``PipelineParallel``, whose ``train_batch`` runs the step."""
+    from ..meta_parallel import (PipelineParallel, ShardingParallel,
+                                 TensorParallel)
+    from ..parallel import DataParallel
 
-    mode = get_hybrid_communicate_group().get_parallel_mode()
+    hcg = get_hybrid_communicate_group()
+    mode = hcg.get_parallel_mode()
     if mode == ParallelMode.PIPELINE_PARALLEL:
-        raise _deferred("the pipeline (PipelineParallel)")
-    if mode == ParallelMode.DATA_PARALLEL:
-        return DataParallel(model, strategy=_STATE.strategy)
-    return place_model(model)
+        return PipelineParallel(model, hcg, strategy=_STATE.strategy)
+    if mode == ParallelMode.TENSOR_PARALLEL:
+        return TensorParallel(model, hcg, strategy=_STATE.strategy)
+    if mode == ParallelMode.SHARDING_PARALLEL:
+        return ShardingParallel(model, hcg, strategy=_STATE.strategy)
+    return DataParallel(model, strategy=_STATE.strategy)
 
 
 def distributed_optimizer(optimizer, strategy=None):
-    """``fleet_base.py:839``: the optimizer itself; the gradient reduction
-    and the ZeRO split are ``ShardedTrainStep``'s (or ``DataParallel``'s)."""
-    return optimizer
+    """``fleet_base.py:839`` (JAX ``fleet/base.py:214-221``): the optimizer
+    in a ``HybridParallelOptimizer`` (the strategy's lamb / lars rule swap,
+    gradient merge and localsgd); the gradient reduction and the ZeRO split
+    are the step's."""
+    from ..meta_parallel import HybridParallelOptimizer
+
+    return HybridParallelOptimizer(optimizer, get_hybrid_communicate_group(),
+                                   strategy or _STATE.strategy)
 
 
 def worker_index():

@@ -15,6 +15,18 @@ explicit collectives. The axes and their order are the JAX package's::
 so a rank's coordinate is its place in the row-major grid
 ``(pp, dp, sdp, ep, cp, mp)``. ``shard_map_compat`` and
 ``shard_map_requires_native`` are JAX-only and have no counterpart.
+
+A mesh's process groups live as long as the world: ``reset_mesh``
+uninstalls the mesh and keeps its groups, and ``init_mesh`` with the same
+degrees installs the same ``MeshEnv`` again, so a world may go from mesh
+to mesh and back in one set of processes. Destroying a mesh's NCCL
+groups after a graphed step hung on every rank on four H100s: destroying
+a group while a CUDA graph that captured collectives over it is still
+alive does not return (a graphed step keeps its graphs), while the same
+destroys after plain all-reduces return on every rank, whatever their
+order. The groups are freed with the world, by
+``torch.distributed.destroy_process_group()``, PyTorch's idiom: process
+groups are made once.
 """
 from __future__ import annotations
 
@@ -30,6 +42,10 @@ AXES = ("dp", "pp", "sdp", "mp", "cp", "ep")
 MESH_ORDER = ("pp", "dp", "sdp", "ep", "cp", "mp")  # mp innermost
 
 _GLOBAL: Dict[str, Optional["MeshEnv"]] = {"env": None}
+# every mesh built in the current world, by (degrees, device type); the
+# world they were built in (a new default group starts a new cache)
+_BUILT: Dict[tuple, "MeshEnv"] = {}
+_WORLD: Dict[str, object] = {"pg": None}
 
 
 class MeshEnv:
@@ -108,18 +124,6 @@ class MeshEnv:
             self._combined[key] = pg
         return pg
 
-    def destroy(self):
-        """Destroys the groups this mesh created (never the default one)."""
-        seen = set()
-        groups = [self.group(ax) for ax in MESH_ORDER] + \
-            list(self._combined.values())
-        for pg in groups:
-            if pg is None or pg is dist.group.WORLD or id(pg) in seen:
-                continue
-            seen.add(id(pg))
-            dist.destroy_process_group(pg)
-        self._combined.clear()
-
     def __repr__(self):
         used = {k: v for k, v in self.degrees.items() if v > 1}
         return f"MeshEnv({used or 'single-rank'}, ranks={self.nranks})"
@@ -128,11 +132,21 @@ class MeshEnv:
 def init_mesh(dp=1, mp=1, pp=1, sharding=1, cp=1, ep=1,
               device_type: str = None) -> MeshEnv:
     """Creates and installs the global mesh (the JAX ``init_mesh``). The
-    default process group must exist; a mesh installed before is reset
-    first."""
+    default process group must exist; a mesh installed before is
+    uninstalled first. A mesh of the same degrees built before in this
+    world is installed again, groups and all (collective only when it is
+    new: every rank must build the same meshes in the same order)."""
     reset_mesh()
-    env = MeshEnv({"dp": dp, "mp": mp, "pp": pp, "sdp": sharding, "cp": cp,
-                   "ep": ep}, device_type)
+    degrees = {"dp": dp, "mp": mp, "pp": pp, "sdp": sharding, "cp": cp,
+               "ep": ep}
+    if dist.is_initialized() and _WORLD["pg"] is not dist.group.WORLD:
+        _BUILT.clear()  # a new world: the old groups went with the old one
+        _WORLD["pg"] = dist.group.WORLD
+    key = (tuple(int(degrees[ax]) for ax in AXES), device_type)
+    env = _BUILT.get(key)
+    if env is None:
+        env = MeshEnv(degrees, device_type)
+        _BUILT[key] = env
     _GLOBAL["env"] = env
     return env
 
@@ -151,8 +165,7 @@ def require_mesh_env() -> MeshEnv:
 
 
 def reset_mesh():
-    """Uninstalls the mesh and destroys its groups."""
-    env = _GLOBAL["env"]
+    """Uninstalls the mesh. Its process groups stay for the life of the
+    world (the module docstring says why); ``init_mesh`` with the same
+    degrees reuses them."""
     _GLOBAL["env"] = None
-    if env is not None and dist.is_initialized():
-        env.destroy()

@@ -16,7 +16,11 @@ and the reductions are explicit:
   applies the optimizer's fused update to this rank's shards and
   gathers what ZeRO split. On a CUDA model with ``graph`` it is one
   captured CUDA graph a step, collectives included (``jit.TrainStep``'s
-  machinery).
+  machinery). Under pp it runs the 1F1B pipeline of this rank's stage;
+  with a ``GradScaler`` its loss-scale state machine runs on the device;
+  ``accum_steps`` merges gradients across calls.
+- :class:`ShardedAccumulateStep` (``ShardedTrainStep.accumulate``): k
+  microbatches of the global batch in one call, one update.
 
 What must agree with the JAX ``ShardedTrainStep`` is the global result:
 the losses, and the parameters once gathered.
@@ -29,14 +33,17 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..jit import _Step
+from ..jit import _Step, _active_generators
 from ..kernels import optimizer as _kopt
+from ..nn.functional.common import rewinding
 from .collective import _pg, all_gather_dim, reduce_scatter_dim
 from .mesh import MESH_ORDER, MeshEnv, get_mesh_env, require_mesh_env
 from .meta_parallel.mp_layers import mark_parameters
 
-__all__ = ["DataParallel", "ShardedTrainStep", "param_sharding",
+__all__ = ["DataParallel", "ShardedTrainStep", "ShardedAccumulateStep",
+           "param_sharding",
            "zero_partition_spec", "place_model", "default_batch_sharding",
            "shard_batch", "DATA_AXES"]
 
@@ -307,6 +314,28 @@ class _Entry:
         self.stage3, self.mp = stage3, mp
 
 
+class _AmpState:
+    """The in-graph loss-scale state and the gradient-merge window, on the
+    device. With a scaler: ``scale`` fp32 [1], ``good`` / ``bad`` int32 [1]
+    (the finite and non-finite steps in a row) and ``found`` int32 [1]
+    (the last step's gradients were not finite), the scaler's own
+    (``GradScaler.device_state``), and ``updates`` int32 [1], the
+    optimizer's count of applied updates (Adam's t;
+    ``Optimizer.device_updates``). ``goodw`` int32 [1] (finite calls in
+    the open window) and ``acc``, the window's fp32 sums (``accum_steps >
+    1``), are the step's."""
+
+    def __init__(self, device, acc_shapes, scaler, optimizer):
+        if scaler is not None:
+            self.scale, self.good, self.bad, self.found = \
+                scaler.device_state(device)
+            self.updates = optimizer.device_updates(device)
+        self.goodw = torch.zeros(1, dtype=torch.int32, device=device)
+        self.acc = [None if s is None else
+                    torch.zeros(s, dtype=torch.float32, device=device)
+                    for s in acc_shapes]
+
+
 class ShardedTrainStep(_Step):
     """``step = ShardedTrainStep(model, loss_fn, optimizer); loss =
     step(*global_batch)`` over the installed mesh (or ``env``).
@@ -326,41 +355,79 @@ class ShardedTrainStep(_Step):
     the optimizer updates the slices (its state is 1/sdp) and stages 1
     and 2 all-gather them back. A global-norm clip counts every element
     once (tensor- and ZeRO-split parameters' sums of squares are
-    all-reduced over their axis), through the clip the step hands the
-    optimizer's update. Lamb, LARS and Adafactor take statistics over a
-    whole tensor and raise under a split.
+    all-reduced over their axis, the stages' totals over pp), through the
+    clip the step hands the optimizer's update. Lamb, LARS and Adafactor
+    take statistics over a whole tensor and raise under a split.
+
+    **pp > 1.** A model built as one stage of a pipeline (its
+    ``pipelined`` attribute: ``LlamaForCausalLM`` and ``PipelineLayer``
+    under a mesh with pp > 1) runs the 1F1B schedule
+    (``meta_parallel.pipeline``) over ``num_microbatches`` microbatches of
+    this rank's local batch (the model's ``pp_microbatches``, 0 meaning 2
+    pp), its activations and their gradients sent to the neighbouring pp
+    ranks over P2P. Its loss is the model's own (``pipeline_forward`` on
+    the last stage; ``loss_fn`` is not called). Each stage sums its
+    gradients in fp32 in microbatch order, the gradients of a weight tied
+    across stages (``pp_shared``) are all-reduced over pp, then reduced
+    over the data ranks; each stage updates its own parameters.
+
+    **scaler** (an ``amp.GradScaler``): the loss-scale state machine runs
+    inside the step, as the JAX package's (``parallel.py:420-441``): the
+    scale, the good and bad counts and the finite flag live in device
+    tensors; the loss is multiplied by the scale, ``check_finite`` writes
+    its flag on the device (summed over the world), ``unscale`` reads the
+    scale there, and a non-finite step skips the update: the optimizer's
+    kernels read the skip flag and the count of applied updates (Adam's t)
+    from the device (``Optimizer._apply(device_step=)``). That state is
+    the scaler's and the optimizer's own, held on the device from the
+    first call (``GradScaler.device_state``, ``Optimizer.device_updates``):
+    their fields read it when used. **accum_steps = k**: the
+    gradient-merge window across k calls: fp32 sums persist between
+    calls, and only the k-th call reduces them over the data ranks and
+    applies the update, averaged over the window's finite calls when
+    ``accum_avg``; under a scaler a non-finite call adds nothing
+    (``discard_accum_window`` drops a window). :meth:`accumulate` (``ShardedAccumulateStep``) takes k
+    microbatches of the global batch in one call.
 
     On a CUDA model the step is one captured CUDA graph a call, NCCL
-    collectives included, as ``jit.TrainStep`` (``graph=False``: eager).
-    ``scaler``, ``accum_steps > 1``, optimizer offload, ``accumulate`` and
-    ``pp`` or ``ep`` above 1 raise ``NotImplementedError``. ``donate`` and
-    ``accum_avg`` are the JAX signature's: the update writes the
-    parameters and state in place whatever ``donate`` says.
+    collectives and P2P included, as ``jit.TrainStep`` (``graph=False``:
+    eager); a window's accumulating call and its boundary call are two
+    graphs. Optimizer offload and ``ep`` above 1 raise
+    ``NotImplementedError``. ``donate`` is the JAX signature's: the update
+    writes the parameters and state in place whatever it says.
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable, optimizer,
                  batch_specs=None, env: Optional[MeshEnv] = None,
                  donate=True, scaler=None, accum_steps=1, accum_avg=True,
-                 graph: bool = True):
-        if scaler is not None and getattr(scaler, "_enable", True):
-            raise _deferred("ShardedTrainStep's in-graph GradScaler")
-        if int(accum_steps) != 1:
-            raise _deferred("ShardedTrainStep(accum_steps > 1)")
+                 graph: bool = True, num_microbatches: int = None):
         if getattr(optimizer, "_offload", False):
             raise _deferred("optimizer offload")
         env = env or require_mesh_env()
-        for ax, what in (("pp", "the pipeline (pp > 1)"),
-                         ("ep", "expert parallelism (ep > 1)")):
-            if env.get_dim(ax) > 1:
-                raise _deferred(what)
+        if env.get_dim("ep") > 1:
+            raise _deferred("expert parallelism (ep > 1)")
+        if int(accum_steps) < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         inner = mark_parameters(getattr(model, "_layers", model))
         super().__init__(inner, loss_fn, optimizer, graph=graph)
         self.env = env
         self.batch_specs = batch_specs
+        self.scaler = scaler if (scaler is not None and
+                                 getattr(scaler, "_enable", True)) else None
+        self.accum_steps = int(accum_steps)
+        self.accum_avg = bool(accum_avg)
         self.loss_reduction = getattr(inner, "loss_reduction", "mean")
         if self.loss_reduction not in ("mean", "sum"):
             raise ValueError(f"loss_reduction {self.loss_reduction!r}: "
                              f"'mean' or 'sum'")
+        self.pp = env.get_dim("pp")
+        self.pipelined = self.pp > 1 and bool(getattr(inner, "pipelined",
+                                                      False))
+        if self.pipelined and env.get_dim("cp") > 1:
+            raise _deferred("the pipeline with context parallelism (pp x cp)")
+        m = num_microbatches or getattr(inner, "pp_microbatches", 0) or \
+            2 * self.pp
+        self.num_microbatches = int(m)
         self.zero_stage = int(getattr(optimizer, "_zero_stage", 0))
         self._data = env.group_over(DATA_AXES)
         self._n_data = env.size_over(DATA_AXES)
@@ -368,6 +435,8 @@ class ShardedTrainStep(_Step):
         self._sdp_pg, self._sdp = env.group("sdp"), env.get_dim("sdp")
         self._sdp_rank = env.coord("sdp")
         self._mp_pg = env.group("mp") if env.get_dim("mp") > 1 else None
+        self._pp_pg = env.group("pp") if self.pp > 1 else None
+        self._pp_rank = env.coord("pp")
         self._plan = self._entries()
         self._split_norms = any(e.zdim is not None or e.mp
                                 for e in self._plan)
@@ -378,14 +447,65 @@ class ShardedTrainStep(_Step):
             raise _deferred(f"{type(optimizer).__name__} over tensor- or "
                             f"ZeRO-split parameters (per-tensor statistics)")
         self._masks: Dict[tuple, torch.Tensor] = {}
+        self._amp: Optional[_AmpState] = None
+        self._win_count = 0     # calls into the open window (host)
+        self._boundary = True   # whether this call applies the update
+        self._transports: Dict[tuple, object] = {}
+        self._check_words: Dict[tuple, int] = {}  # finiteness tables' sizes
+        self._check_reserved = None
+
+    @property
+    def _amp_mode(self) -> bool:
+        return self.scaler is not None or self.accum_steps > 1
 
     def accumulate(self, steps: int, remat: bool = False,
-                   average: bool = True):
-        raise _deferred("ShardedAccumulateStep (ShardedTrainStep."
-                        "accumulate)")
+                   average: bool = True) -> "ShardedAccumulateStep":
+        """Gradient accumulation over the mesh in one call (the JAX
+        ``ShardedTrainStep.accumulate``, ``parallel.py:390-406``): the
+        global batch splits on dim 0 into ``steps`` microbatches, their
+        gradients sum in fp32 in order (scaled 1/steps when ``average``),
+        then one reduction over the data ranks, one clip and one update.
+        Raises under a scaler, as the JAX step does."""
+        if self.scaler is not None:
+            raise NotImplementedError(
+                "ShardedTrainStep.accumulate: fused accumulation does not "
+                "compose with the in-graph GradScaler; use accum_steps for "
+                "the scaler path")
+        return ShardedAccumulateStep(self, steps, remat=remat,
+                                     average=average)
 
     def __call__(self, *batch):
-        return self._run(*batch)
+        if not self._amp_mode:
+            return self._run(*batch)
+        if self._amp is None:
+            shapes = [tuple(self._held(e).shape)
+                      if self._held(e).requires_grad else None
+                      for e in self._plan] if self.accum_steps > 1 else []
+            self._amp = _AmpState(self._device(), shapes, self.scaler,
+                                  self.optimizer)
+        k = self.accum_steps
+        self._boundary = (self._win_count + 1) % k == 0
+        loss = self._run(self._boundary, *batch)
+        self._win_count = 0 if self._boundary else self._win_count + 1
+        return loss
+
+    # -- the step count and the tables the graph replays ----------------------
+    def _header_step(self) -> int:
+        if self.scaler is not None:
+            return 1  # the kernels read count + 1 from the device
+        return super()._header_step()
+
+    def _advance(self) -> None:
+        if not self._amp_mode:
+            super()._advance()
+        elif self.scaler is None and self._boundary:
+            self.optimizer._global_step += 1
+
+    def _reserve(self, key) -> None:
+        super()._reserve(key)
+        words = self._check_words.get(key)
+        self._check_reserved = None if words is None else torch.empty(
+            words, dtype=torch.int64, device=self._device())
 
     # -- ZeRO ----------------------------------------------------------------
     def _entries(self) -> List[_Entry]:
@@ -407,6 +527,11 @@ class ShardedTrainStep(_Step):
         per = t.shape[dim] // self._sdp
         return t.narrow(dim, self._sdp_rank * per, per)
 
+    def _held(self, e: _Entry):
+        """The tensor the model's backward gives a gradient: the ZeRO-3
+        shard itself, else the whole parameter."""
+        return e.opt if e.stage3 else e.full
+
     # -- the step ------------------------------------------------------------
     def local_batch(self, batch) -> list:
         spec_of = default_batch_sharding(self.env)
@@ -414,14 +539,17 @@ class ShardedTrainStep(_Step):
         return [shard_batch(a, s if s is not None else spec_of(a), self.env)
                 for a, s in zip(batch, specs)]
 
-    def _gradients(self) -> List[Optional[torch.Tensor]]:
-        """Each optimizer tensor's gradient reduced over the data ranks
-        (and scaled for ``"mean"``), sliced as the tensor is."""
+    def _model_grads(self) -> List[Optional[torch.Tensor]]:
+        return [self._held(e).grad for e in self._plan]
+
+    def _reduce(self, raw) -> List[Optional[torch.Tensor]]:
+        """``raw`` (one local gradient per entry, each the shape of
+        :meth:`_held`, or None) reduced over the data ranks and sliced as
+        each optimizer tensor is."""
         scale = None if self.loss_reduction == "sum" or self._n_data == 1 \
             else 1.0 / self._n_data
         over_data, over_dpcp = [], []
-        for j, e in enumerate(self._plan):
-            g = e.opt.grad if e.stage3 else e.full.grad
+        for j, (e, g) in enumerate(zip(self._plan, raw)):
             if g is None:
                 continue
             if e.stage3 or (e.zdim is not None and self.zero_stage == 2):
@@ -443,37 +571,265 @@ class ShardedTrainStep(_Step):
                 g, self._sdp_pg, self._sdp, e.zdim).contiguous()
         return grads
 
-    def _body(self, *batch):
-        local = self.local_batch(batch)
-        loss = self.loss_fn(self.model, *local)
-        loss.backward()
-        grads = self._gradients()
+    def _local_grads(self, local, scale=None, remat=False):
+        """This rank's forward and backward over ``local``: (its loss, fp32,
+        the loss scale not applied; one gradient per entry, as
+        :meth:`_held`, None where none). ``scale``: an fp32 [1] device
+        tensor the loss is multiplied by before the backward. A pipelined
+        model runs the 1F1B schedule and gives fp32 sums."""
+        if self.pipelined:
+            return self._pipeline_grads(local, scale)
+        if remat:
+            gens = _active_generators(self.model, self._device())
+            loss = checkpoint(rewinding(self._loss, gens), *local,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            loss = self.loss_fn(self.model, *local)
+        (loss if scale is None else loss * scale.reshape(())).backward()
+        raw = self._model_grads()
         for p in self.model.parameters():
             p.grad = None
-        opt_batch = self.optimizer._apply(grads, clip=self._clip)
+        return loss.detach().float(), raw
+
+    def _loss(self, *local):
+        return self.loss_fn(self.model, *local)
+
+    def _pipeline_grads(self, local, scale):
+        """The 1F1B schedule of this rank's stage over the pp group: fp32
+        gradient sums per entry (the tied weights' all-reduced over pp)
+        and this rank's loss (the last stage's; 0 on the others)."""
+        from .meta_parallel.pipeline import (P2PTransport, StageRun, drive,
+                                             microbatch, stage_body)
+
+        m = self.num_microbatches
+        model = self.model
+        if hasattr(model, "pipeline_prepare"):
+            model.pipeline_prepare(*local)
+        mbs = list(zip(*[microbatch(a, m) if isinstance(a, torch.Tensor)
+                         else [a] * m for a in local]))
+        held = [self._held(e) for e in self._plan]
+        live = [j for j, t in enumerate(held) if t.requires_grad]
+        acc = [torch.zeros(held[j].shape, dtype=torch.float32,
+                           device=held[j].device) for j in live]
+        first, last = self._pp_rank == 0, self._pp_rank == self.pp - 1
+        key = tuple((tuple(a.shape), a.dtype) for a in local
+                    if isinstance(a, torch.Tensor))
+        transport = self._transports.get(key)
+        if transport is None:
+            transport = self._transports[key] = P2PTransport(
+                self._pp_pg, self._pp_rank, self.pp, self._device())
+        mean = self.loss_reduction != "sum"
+        run = StageRun(model, mbs, [held[j] for j in live], acc, first, last,
+                       seed=scale, grad_scale=(1.0 / m) if mean else None,
+                       meta=transport.meta)
+        drive(stage_body(run, self.pp, self._pp_rank, m), transport)
+        if last:
+            losses = torch.stack(run.losses)
+            loss = losses.mean() if mean else losses.sum()
+        else:
+            loss = torch.zeros((), dtype=torch.float32, device=self._device())
+        raw: List[Optional[torch.Tensor]] = [None] * len(self._plan)
+        for j, a in zip(live, acc):
+            raw[j] = a
+        self._shared_all_reduce(raw)
+        return loss, raw
+
+    def _shared_all_reduce(self, raw):
+        """Each weight tied across stages (``pp_shared``, by key; the
+        model's ``pp_shared_shapes()`` gives every key's shape) has its
+        fp32 gradient sum all-reduced over pp, stages that hold no copy
+        adding zeros: Paddle's shared-weight all-reduce."""
+        shapes = getattr(self.model, "pp_shared_shapes", lambda: {})()
+        if not shapes:
+            return
+        mine = {}
+        for j, e in enumerate(self._plan):
+            key = getattr(self._held(e), "pp_shared", None)
+            if key is not None and raw[j] is not None:
+                mine[key] = raw[j]
+        for key in sorted(shapes):
+            t = mine.get(key)
+            if t is None:
+                t = torch.zeros(shapes[key], dtype=torch.float32,
+                                device=self._device())
+            dist.all_reduce(t, group=self._pp_pg)
+
+    def _gather_zero(self):
         with torch.no_grad():
             for e in self._plan:  # ZeRO 1/2: the updated slices back
                 if e.full is not None and e.zdim is not None:
                     e.full.copy_(all_gather_dim(e.opt.detach(), self._sdp_pg,
                                                 self._sdp, e.zdim))
+
+    def _global_loss(self, loss):
         loss = loss.detach().float().clone()
+        if self.pipelined:  # the last stage's loss to every stage
+            dist.all_reduce(loss, group=self._pp_pg)
         dist.all_reduce(loss, group=self._data)
         if self.loss_reduction == "mean" and self._n_data > 1:
             loss = loss / self._n_data
-        return loss, opt_batch
+        return loss
+
+    def _body(self, *batch):
+        if self._amp_mode:
+            return self._amp_body(batch[0], *batch[1:])
+        loss, raw = self._local_grads(self.local_batch(batch))
+        grads = self._reduce(raw)
+        opt_batch = self.optimizer._apply(grads, clip=self._clip)
+        self._gather_zero()
+        return self._global_loss(loss), opt_batch
+
+    # -- the in-graph scaler and the gradient-merge window ----------------------
+    def _finite_flag(self, pairs, inv, key):
+        """int32 [1]: the number of ranks where some ``g * inv`` of
+        ``pairs`` ((tensor, gradient)) is not finite, and the gradient
+        batch (whose table a captured graph replays)."""
+        n = len(pairs)
+        gb = _kopt.StepBatch([t for t, _ in pairs], [g for _, g in pairs],
+                             [[None] * n] * 3, [True] * n, 0.0, 1,
+                             rule="grads")
+        if gb.device.type == "cuda":
+            if torch.cuda.is_current_stream_capturing():
+                gb.reserve(self._check_reserved)
+            else:
+                self._check_words[key] = gb.words()
+        flag = _kopt.check_finite(gb, inv)
+        if dist.get_world_size() > 1:
+            dist.all_reduce(flag)
+        return flag, gb
+
+    def _scale_update(self, fin):
+        """The dynamic loss-scale state machine (JAX ``_amp_update``,
+        ``parallel.py:420-441``; the eager ``GradScaler._update_scale``) on
+        the device: ``fin`` a bool [1]."""
+        sc, a = self.scaler, self._amp
+        a.found.copy_((~fin).to(torch.int32))
+        if not getattr(sc, "_dynamic", True):
+            return
+        good2 = torch.where(fin, a.good + 1, 0)
+        bad2 = torch.where(fin, 0, a.bad + 1)
+        incr = fin & (good2 >= sc._incr_every_n_steps)
+        decr = ~fin & (bad2 >= sc._decr_every_n_nan_or_inf)
+        scale = torch.where(incr, a.scale * float(sc._incr_ratio),
+                            torch.where(decr, torch.clamp_min(
+                                a.scale * float(sc._decr_ratio), 1.0),
+                                a.scale))
+        a.scale.copy_(scale)
+        a.good.copy_(torch.where(incr, 0, good2))
+        a.bad.copy_(torch.where(decr, 0, bad2))
+
+    def _amp_body(self, boundary, *batch):
+        """One call of the scaler / gradient-merge step: the forward and
+        backward (the loss scaled), the finite flag on the device, this
+        call's gradients added into the window's sums (or, with k = 1,
+        reduced and unscaled in place), and at the window's end the
+        reduction, the average and the update, skipped on the device where
+        nothing finite came."""
+        a, opt = self._amp, self.optimizer
+        k = self.accum_steps
+        has_scaler = self.scaler is not None
+        key = self._signature((boundary,) + tuple(batch))
+        local = self.local_batch(batch)
+        inv = (1.0 / a.scale) if has_scaler else None
+        loss, raw = self._local_grads(local, a.scale if has_scaler else None)
+        batches, opt_batch, skip = [], None, None
+        if k == 1:  # a scaler: k = 1 without one is not the amp mode
+            grads = self._reduce(raw)
+            pairs = [(e.opt, g) for e, g in zip(self._plan, grads)
+                     if g is not None]
+            flag, gb = self._finite_flag(pairs, inv, key)
+            batches.append(gb)
+            _kopt.unscale(gb, inv)
+            skip = flag.clamp(max=1)
+            self._scale_update(skip == 0)
+            opt_batch = opt._apply(grads, clip=self._clip,
+                                   device_step=(a.updates, skip))
+            a.updates.add_(1 - skip)
+        else:
+            with torch.no_grad():
+                if has_scaler:
+                    pairs = [(self._held(e), g)
+                             for e, g in zip(self._plan, raw)
+                             if g is not None]
+                    flag, gb = self._finite_flag(pairs, inv, key)
+                    batches.append(gb)
+                    fin = flag == 0
+                    for acc, g in zip(a.acc, raw):
+                        if g is not None:
+                            acc.add_(torch.where(fin, g.float() * inv, 0.0))
+                    a.goodw.add_(fin.to(torch.int32))
+                    self._scale_update(fin)
+                else:
+                    for acc, g in zip(a.acc, raw):
+                        if g is not None:
+                            acc.add_(g.float())
+                    a.goodw.add_(1)
+            if boundary:
+                grads = self._reduce(list(a.acc))
+                if self.accum_avg:
+                    denom = a.goodw.clamp_min(1).float()
+                    grads = [None if g is None else g / denom for g in grads]
+                if has_scaler:
+                    skip = (a.goodw == 0).to(torch.int32)
+                    opt_batch = opt._apply(grads, clip=self._clip,
+                                           device_step=(a.updates, skip))
+                    a.updates.add_(1 - skip)
+                else:
+                    opt_batch = opt._apply(grads, clip=self._clip)
+                with torch.no_grad():
+                    for acc in a.acc:
+                        if acc is not None:
+                            acc.zero_()
+                    a.goodw.zero_()
+        if opt_batch is not None:
+            self._gather_zero()
+            batches.insert(0, opt_batch)
+        return self._global_loss(loss), (batches or None)
+
+    def discard_accum_window(self):
+        """Drops the open gradient-merge window (the compiled twin of
+        ``HybridParallelOptimizer.discard_merge_window``): the fp32 sums
+        and the window's finite count zeroed, the window rewound."""
+        if self._amp is not None:
+            with torch.no_grad():
+                for acc in self._amp.acc:
+                    if acc is not None:
+                        acc.zero_()
+                self._amp.goodw.zero_()
+        self._win_count = 0
+
+    def amp_state(self):
+        """The in-graph scaler's state (a host read): ``loss_scale``,
+        ``good_steps``, ``bad_steps``, ``found_inf``, ``updates``; None
+        without a scaler or before the first call."""
+        if self.scaler is None or self._amp is None:
+            return None
+        a = self._amp
+        return {"loss_scale": float(a.scale.item()),
+                "good_steps": int(a.good.item()),
+                "bad_steps": int(a.bad.item()),
+                "found_inf": bool(a.found.item()),
+                "updates": int(a.updates.item())}
 
     # -- the clip over the mesh ------------------------------------------------
     def _split_masks(self, params) -> torch.Tensor:
-        """[2, n] fp32: which of ``params`` are ZeRO slices, which
-        tensor-parallel shards (made once per tensor list, before any
-        capture reads them)."""
+        """[3, n] fp32: which of ``params`` are ZeRO slices, which
+        tensor-parallel shards, and which count toward the global norm on
+        this stage (a weight tied across stages counts on its first
+        holder only); made once per tensor list, before any capture reads
+        them."""
         key = tuple(id(p) for p in params)
         m = self._masks.get(key)
         if m is None:
             kind = {id(e.opt): e for e in self._plan}
+            first_holder = self._pp_rank == 0
             m = torch.tensor([[float(kind[id(p)].zdim is not None)
                                for p in params],
-                              [float(kind[id(p)].mp) for p in params]],
+                              [float(kind[id(p)].mp) for p in params],
+                              [0.0 if getattr(self._held(kind[id(p)]),
+                                              "pp_shared", None) is not None
+                               and self.pipelined and not first_holder
+                               else 1.0 for p in params]],
                              device=params[0].device)
             self._masks[key] = m
         return m
@@ -482,14 +838,15 @@ class ShardedTrainStep(_Step):
         """The update's (clip, norms) over the mesh, in place of the
         optimizer's ``_clip``: each tensor's sum of squares all-reduced
         over the axes that split it (sdp, then mp), the global sum over
-        every tensor this rank updates."""
+        every tensor this rank updates, and under the pipeline over the
+        stages (each parameter lives on one)."""
         c = self.optimizer._grad_clip
         if c is None:
             return ("none",), None
         spec = c._spec()
         if spec[0] == "value":
             return spec, None
-        if not self._split_norms:
+        if not self._split_norms and not self.pipelined:
             return ("scale",), _kopt.multi_tensor_sumsq(batch, spec[1],
                                                         spec[2])
         n = len(batch.params)
@@ -502,7 +859,71 @@ class ShardedTrainStep(_Step):
                 t = s * mask
                 dist.all_reduce(t, group=pg)
                 s = t + s * (1.0 - mask)
-        total = s.sum()
+        if self.pipelined:
+            total = (s * masks[2]).sum()
+            dist.all_reduce(total, group=self._pp_pg)
+        else:
+            total = s.sum()
         norm = total.sqrt().expand(n) if spec[2] == 2 else s.sqrt()
         scales = (spec[1] / norm.clamp_min(1e-12)).clamp_max(1.0)
         return ("scale",), torch.cat([s, scales, total.reshape(1)])
+
+
+class ShardedAccumulateStep(_Step):
+    """``ShardedTrainStep.accumulate(k)`` (JAX ``parallel.py:915-1130``):
+    one call takes the global batch, splits it on dim 0 into k
+    microbatches (each sliced over the data ranks as the step slices a
+    batch), runs each one's forward and backward (under
+    ``torch.utils.checkpoint`` when ``remat``; the whole pipeline under
+    pp), adds its gradients into fp32 sums in microbatch order (times 1/k
+    when ``average``), then reduces once over the data ranks and applies
+    one clip and one update; it composes with ZeRO 1-3 and the mesh clip.
+    Returns the mean of the microbatches' global losses. On a CUDA model
+    one captured graph a call."""
+
+    def __init__(self, step: ShardedTrainStep, steps: int,
+                 remat: bool = False, average: bool = True):
+        if int(steps) < 1:
+            raise ValueError(f"accumulate: steps must be >= 1, got {steps}")
+        super().__init__(step.model, step.loss_fn, step.optimizer,
+                         graph=step.graph)
+        self._step = step
+        self.env = step.env
+        self.steps = int(steps)
+        self.remat = bool(remat)
+        self.average = bool(average)
+
+    def _body(self, *batch):
+        outer, k = self._step, self.steps
+        scale = 1.0 / k if self.average else None
+        micro = [a.reshape((k, a.shape[0] // k) + tuple(a.shape[1:]))
+                 if isinstance(a, torch.Tensor) else a for a in batch]
+        acc: List[Optional[torch.Tensor]] = [None] * len(outer._plan)
+        losses = []
+        for i in range(k):
+            mb = [m[i] if isinstance(m, torch.Tensor) else m for m in micro]
+            loss, raw = outer._local_grads(outer.local_batch(mb),
+                                           remat=self.remat)
+            with torch.no_grad():
+                for j, g in enumerate(raw):
+                    if g is None:
+                        continue
+                    if acc[j] is None:
+                        acc[j] = torch.zeros(g.shape, dtype=torch.float32,
+                                             device=g.device)
+                    acc[j].add_(g.float() if scale is None
+                                else g.float() * scale)
+            losses.append(loss)
+        grads = outer._reduce(acc)
+        opt_batch = self.optimizer._apply(grads, clip=outer._clip)
+        outer._gather_zero()
+        return outer._global_loss(torch.stack(losses).mean()), opt_batch
+
+    def __call__(self, *batch):
+        for a in batch:
+            if isinstance(a, torch.Tensor) and (
+                    a.dim() == 0 or a.shape[0] % self.steps != 0):
+                raise ValueError(
+                    f"accumulate({self.steps}): batch dim {tuple(a.shape)} "
+                    f"must divide by the microbatch count")
+        return self._run(*batch)

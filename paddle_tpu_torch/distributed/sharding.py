@@ -162,7 +162,9 @@ def gather_full_state(model: nn.Module, env: MeshEnv = None):
 def _find(model, name):
     obj = model
     for part in name.split("."):
-        obj = getattr(obj, part) if not part.isdigit() else obj[int(part)]
+        indexed = part.isdigit() and isinstance(obj, (nn.ModuleList,
+                                                      nn.Sequential))
+        obj = obj[int(part)] if indexed else getattr(obj, part)
     return obj
 
 

@@ -96,8 +96,9 @@ def _dropout_generators(model: torch.nn.Module) -> List[torch.Generator]:
 
 class _Captured:
     """One input signature's graph and what it must keep alive: the static
-    inputs it reads, the loss it writes, the optimizer's table (whose
-    header is written before each replay) and the addresses it baked in."""
+    inputs it reads, the loss it writes, the step tables (a ``StepBatch``
+    or a list of them, each header written before each replay) and the
+    addresses it baked in."""
 
     def __init__(self, graph, inputs, loss, batch, addresses, counts,
                  rewinds):
@@ -113,8 +114,9 @@ class _Captured:
 class _Step:
     """What a graphed step and a graphed accumulation window share: the
     choice of eager or graph, warm-up, capture and replay. A subclass
-    gives ``_body(*batch) -> (fp32 loss, StepBatch or None)``: the step's
-    work without advancing the optimizer's step number."""
+    gives ``_body(*batch) -> (fp32 loss, StepBatch, a list of them, or
+    None)``: the step's work without advancing the optimizer's step
+    number."""
 
     warmup_steps = 1
 
@@ -136,6 +138,21 @@ class _Step:
     def _body(self, *batch):
         raise NotImplementedError
 
+    # -- what a subclass whose step count lives elsewhere overrides ------------
+    def _header_step(self) -> int:
+        """The step number the optimizer's table header gets before a
+        replay."""
+        return self.optimizer._global_step + 1
+
+    def _advance(self) -> None:
+        """After a call: the optimizer's step count moves on."""
+        self.optimizer._global_step += 1
+
+    def _reserve(self, key) -> None:
+        """Before the capture of signature ``key``: what the captured step
+        must find allocated outside the graph's pool."""
+        self.optimizer._reserve_table()
+
     def _device(self) -> torch.device:
         for p in self.optimizer._parameter_list:
             return p.device
@@ -152,7 +169,7 @@ class _Step:
         if dev.type == "cuda" and self.graph:
             return self._graphed(dev, batch)
         loss, _ = self._body(*batch)
-        self.optimizer._global_step += 1
+        self._advance()
         return loss
 
     # -- the graph -------------------------------------------------------------
@@ -201,26 +218,29 @@ class _Step:
                     self._offsets[key] = [(r, r.stop()) for r in rewinds]
                 main.wait_stream(self._stream)
                 loss.record_stream(main)
-                opt._global_step += 1
+                self._advance()
                 return loss
             entry = self._capture(key, batch)
         for s, a in zip(entry.inputs, batch):
             if isinstance(a, torch.Tensor):
                 s.copy_(a)
         if entry.batch is not None:
-            entry.batch.set_step(opt.get_lr(), opt._global_step + 1)
+            step = self._header_step()
+            for b in (entry.batch if isinstance(entry.batch, list)
+                      else [entry.batch]):
+                b.set_step(opt.get_lr(), step)
         for r, twins, offsets in entry.rewinds:
             r.arm(twins, offsets)
         entry.graph.replay()
         self.replays += 1
         for n, c in entry.counts.items():
             self._replayed[n] = self._replayed.get(n, 0) + c
-        opt._global_step += 1
+        self._advance()
         return entry.loss.clone()
 
     def _capture(self, key, batch) -> _Captured:
         opt = self.optimizer
-        opt._reserve_table()  # creates the state, then the table's buffer
+        self._reserve(key)  # creates the state, then the table's buffer
         opt.clear_grad()  # the backward allocates them from the graph's pool
         # the warm-up's gradients and activations sit in the allocator's
         # cache, which the graph's private pool cannot reuse: return them

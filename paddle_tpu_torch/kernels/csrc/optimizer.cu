@@ -16,7 +16,8 @@
 // The chunk table (built by paddle_tpu_torch/kernels/optimizer.py when the
 // step's tensors change, copied to the device from pinned memory on the
 // stream):
-//   words [0, 2): int32 view [lr as fp32 bits, step, n_tensors, n_chunks]
+//   words [0, 3): int32 view [lr as fp32 bits, step, n_tensors, n_chunks,
+//                 skip, 0]
 //   then n_tensors entries of kTensorWords int64 (pointers, sizes, flags)
 //   then n_chunks chunk words: tensor << 40 | chunk index in the tensor
 //   then n_matrices matrix words (Adafactor): tensor << 40 | leading index
@@ -30,7 +31,15 @@
 // changes from step to step is a kernel argument. The host rewrites the
 // header alone before each step (or each replay of a CUDA graph that
 // captured these launches), and the rest of the table only when a pointer
-// changes.
+// changes. A step whose skip and count live on the device (the in-graph
+// GradScaler: an update skipped where a gradient was not finite, Adam's t
+// the count of updates applied) has the two header words written from
+// device tensors on the stream, after the host's copy and before these
+// kernels (kernels/optimizer.py StepBatch.bind_device_step). Every kernel
+// that writes a parameter or a state returns at once where the skip word
+// is set; the sums of squares, the finiteness test and the unscale run
+// whatever it says. The host writes skip 0, so a step without a device
+// flag runs as before.
 //
 // A gradient has its parameter's dtype, or is fp32 beside a bf16 parameter
 // (kGradF32: the fp32 sums of TrainStep.accumulate). Such a gradient is
@@ -85,7 +94,7 @@
 namespace {
 
 constexpr int kTensorWords = 16;
-constexpr int kHeaderWords = 2;
+constexpr int kHeaderWords = 3;
 // tensor entry words
 constexpr int kP = 0, kG = 1, kS0 = 2, kS1 = 3, kS2 = 4, kNumel = 5,
               kCols = 6, kRows = 7, kSpan = 8, kTiles = 9, kChunkBegin = 10,
@@ -168,11 +177,11 @@ __device__ __forceinline__ float block_sum(float v, float* sm) {
 
 struct Header {
   float lr;
-  int step, n_tensors, n_chunks;
+  int step, n_tensors, n_chunks, skip;
 };
 __device__ __forceinline__ Header header(const int64_t* table) {
   const int32_t* h = reinterpret_cast<const int32_t*>(table);
-  return {__int_as_float(h[0]), h[1], h[2], h[3]};
+  return {__int_as_float(h[0]), h[1], h[2], h[3], h[4]};
 }
 __device__ __forceinline__ const int64_t* entry(const int64_t* table, int i) {
   return table + kHeaderWords + (int64_t)i * kTensorWords;
@@ -399,6 +408,7 @@ __global__ void __launch_bounds__(kThreads)
 adam_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
             AdamArgs a) {
   const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
   // 1 - b^t in fp32 from the fp32 beta, as `Adam._rule` takes it
@@ -548,6 +558,7 @@ adafactor_stats_kernel(const int64_t* __restrict__ table, const float* __restric
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[kStatsWarps];
   const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
   float bt, om;
@@ -570,6 +581,7 @@ adafactor_finish_kernel(const int64_t* __restrict__ table, int n_matrices,
                         const float* __restrict__ pspart, float* __restrict__ stats) {
   __shared__ float red[kThreads / 32];
   const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
   const int n = h.n_tensors;
   if ((int)blockIdx.x >= n_matrices) {
     const int i = blockIdx.x - n_matrices;
@@ -728,6 +740,7 @@ adafactor_usq_kernel(const int64_t* __restrict__ table, const float* __restrict_
                      float* __restrict__ uspart) {
   __shared__ float red[kThreads / 32];
   const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
   float usq = by_types(e, [&](auto tp, auto tg) {
@@ -744,6 +757,7 @@ adafactor_apply_kernel(const int64_t* __restrict__ table, const float* __restric
                        const float* __restrict__ uspart) {
   __shared__ float red[kThreads / 32];
   const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
   // the tensor's sum of u^2, in the same order in every one of its blocks
@@ -893,6 +907,7 @@ __global__ void __launch_bounds__(kThreads)
 rule_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
             RuleArgs a) {
   const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
   float lr = h.lr;
@@ -1008,6 +1023,7 @@ norms_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
              NormArgs a, double* __restrict__ partial) {
   __shared__ double red[kThreads / 32];
   const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
   float c1 = 1.f, c2 = 1.f;
@@ -1076,6 +1092,7 @@ norm_apply_kernel(const int64_t* __restrict__ table, const float* __restrict__ n
                   NormArgs a, const double* __restrict__ partial) {
   __shared__ double red[kThreads / 32];
   const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
   // the tensor's sums, in the same order in every one of its blocks
@@ -1130,7 +1147,9 @@ __device__ bool finite_chunk(const TG* g, int64_t len, bool vec, float inv) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-finite_kernel(const int64_t* __restrict__ table, float inv, int* __restrict__ flag) {
+finite_kernel(const int64_t* __restrict__ table, float inv,
+              const float* __restrict__ inv_dev, int* __restrict__ flag) {
+  if (inv_dev) inv = *inv_dev;
   const Header h = header(table);
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
@@ -1158,7 +1177,9 @@ __device__ void unscale_chunk(TG* g, int64_t len, bool vec, float inv) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-unscale_kernel(const int64_t* __restrict__ table, float inv) {
+unscale_kernel(const int64_t* __restrict__ table, float inv,
+               const float* __restrict__ inv_dev) {
+  if (inv_dev) inv = *inv_dev;
   const Header h = header(table);
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
@@ -1345,22 +1366,25 @@ extern "C" int pt_opt_norm_rule(const void* table, int n_chunks,
   return (int)cudaGetLastError();
 }
 
-// (g): flag [1] int32, zeroed here, then 1 where some g * inv is not finite
+// (g): flag [1] int32, zeroed here, then 1 where some g * inv is not finite;
+// inv_dev (fp32 [1] on the device, nullable) gives the inverse scale in
+// place of inv, so a captured graph reads the scale of each replay
 extern "C" int pt_opt_check_finite(const void* table, int n_chunks, float inv,
-                                   void* flag, void* stream) {
+                                   const void* inv_dev, void* flag,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   if (n_chunks > 0)
-    finite_kernel<<<n_chunks, kThreads, 0, st>>>((const int64_t*)table, inv,
-                                                 (int*)flag);
+    finite_kernel<<<n_chunks, kThreads, 0, st>>>(
+        (const int64_t*)table, inv, (const float*)inv_dev, (int*)flag);
   return (int)cudaGetLastError();
 }
 
 extern "C" int pt_opt_unscale(const void* table, int n_chunks, float inv,
-                              void* stream) {
+                              const void* inv_dev, void* stream) {
   if (n_chunks > 0)
     unscale_kernel<<<n_chunks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int64_t*)table, inv);
+        (const int64_t*)table, inv, (const float*)inv_dev);
   return (int)cudaGetLastError();
 }

@@ -30,7 +30,10 @@ the learning rate and the step from the header of its table, which is
 copied to the device on the stream. A batch lives as long as its tensors'
 storage: the optimizer keeps one across steps and only rewrites the
 table's header (:meth:`StepBatch.set_step`), so a CUDA graph that captured
-the launches reads the step's values at replay. A gradient has its
+the launches reads the step's values at replay. A batch bound to a
+device step (:meth:`StepBatch.bind_device_step`, the in-graph
+``GradScaler``) has its step and a skip word written from device tensors
+on the stream; a skipped update writes nothing. A gradient has its
 parameter's dtype, or is fp32 beside a bf16 parameter (the fp32 sums of
 ``TrainStep.accumulate``), clipped in fp32 and then rounded to bf16 as the
 JAX package's updater casts it. A batch whose tensors lie on more
@@ -69,8 +72,10 @@ __all__ = ["StepBatch", "RULES", "multi_tensor_sumsq",
            "COUNTS_LAMB", "COUNTS_LARS", "COUNTS_CHECK_FINITE",
            "COUNTS_UNSCALE"]
 
-# the chunk table (csrc/optimizer.cu): a header of two int64 words, one
-# entry of TENSOR_WORDS words per tensor, one word per chunk, one per matrix
+# the chunk table (csrc/optimizer.cu): a header of HEADER_WORDS int64 words
+# (int32 lr bits, step, tensors, chunks, skip, 0), one entry of
+# TENSOR_WORDS words per tensor, one word per chunk, one per matrix
+HEADER_WORDS = 3
 TENSOR_WORDS = 16
 (_P, _G, _S0, _S1, _S2, _NUMEL, _COLS, _ROWS, _SPAN, _TILES, _CHUNK_BEGIN,
  _CHUNK_END, _FLAGS, _MAT_BASE, _COL_BASE) = range(15)
@@ -167,6 +172,7 @@ class StepBatch:
         self._host = None       # the table's words, its header kept current
         self._pending = False   # captured: the device table not yet written
         self._reserved = None   # the device buffer for a captured table
+        self.device_step = None  # (applied-update count, skip) on the device
 
     def __len__(self):
         return len(self.params)
@@ -180,11 +186,35 @@ class StepBatch:
         plain versions read them (the kernels read the two values from the
         table's header). Not CPU scalars on a CUDA batch: CUDA divides by
         a CPU scalar as a product with its reciprocal, which rounds
-        otherwise than the division the reference and the kernel take."""
-        return (torch.tensor(self.lr, dtype=torch.float32,
-                             device=self.device),
-                torch.tensor(self.step, dtype=torch.int32,
-                             device=self.device))
+        otherwise than the division the reference and the kernel take.
+        With a device step bound the step is its count + 1."""
+        lr = torch.tensor(self.lr, dtype=torch.float32, device=self.device)
+        if self.device_step is not None:
+            return lr, (self.device_step[0].reshape(()) + 1).to(torch.int32)
+        return lr, torch.tensor(self.step, dtype=torch.int32,
+                                device=self.device)
+
+    def bind_device_step(self, count: torch.Tensor,
+                         skip: torch.Tensor) -> None:
+        """Takes this step's number and skip flag from the device (the
+        in-graph GradScaler): ``count`` int32 [1], the updates applied
+        before this one (the step is ``count + 1``), ``skip`` int32 [1],
+        nonzero where the update must write nothing. The kernels read both
+        from the table's header, which :meth:`table` writes from them on
+        the stream (two copies, captured with the kernels); the plain
+        versions read them on the host."""
+        for t in (count, skip):
+            if t.device != self.device or t.dtype != torch.int32 or \
+                    t.numel() != 1:
+                raise ValueError("bind_device_step: int32 [1] tensors on "
+                                 "the batch's device")
+        self.device_step = (count, skip)
+
+    def skipped(self) -> bool:
+        """Whether a bound device flag says skip (a host read: the plain
+        versions' test; the kernels read the header)."""
+        return self.device_step is not None and \
+            bool(self.device_step[1].item())
 
     def _check(self):
         for i, (p, g) in enumerate(zip(self.params, self.grads)):
@@ -265,7 +295,7 @@ class StepBatch:
             c0 += count
         self.n_chunks, self.n_matrices, self.col_elems = c0, mat_base, col_base
         self.seg_cols = min(SEG_COLS, max(256, -(-max_cols // 256) * 256))
-        head = self._header(np.zeros(4, np.int32))
+        head = self._header(np.zeros(2 * HEADER_WORDS, np.int32))
 
         def ranges(owner, counts):
             """owner << 40 | index within the owner, for every item."""
@@ -281,17 +311,19 @@ class StepBatch:
                                ranges(np.arange(n), nch), mat_words])
 
     def _header(self, out: np.ndarray) -> np.ndarray:
-        """The header words into int32 ``out`` [4]: lr (fp32 bits), step,
-        tensors, chunks."""
+        """The header words into int32 ``out`` [6]: lr (fp32 bits), step,
+        tensors, chunks, skip (0: the host never skips), 0."""
         out[0] = np.array([self.lr], np.float32).view(np.int32)[0]
-        out[1:] = [self.step, len(self), self.n_chunks]
+        out[1:] = [self.step, len(self), self.n_chunks, 0, 0]
         return out
 
     def table(self) -> torch.Tensor:
         """The chunk table on the device (int64), built and copied once.
         Inside a CUDA graph capture it takes the buffer of :meth:`reserve`
         and is left unwritten: the kernels the capture records read it when
-        the graph replays, after :meth:`set_step` has copied it."""
+        the graph replays, after :meth:`set_step` has copied it. With a
+        device step bound (:meth:`bind_device_step`) each call writes the
+        header's step and skip words from it on the stream."""
         if self._table is None:
             host = self.host_table()
             self._pending = torch.cuda.is_current_stream_capturing()
@@ -307,6 +339,11 @@ class StepBatch:
                     "(StepBatch.reserve, Optimizer._reserve_table)")
             else:
                 self._table = self._reserved
+        if self.device_step is not None:
+            count, skip = self.device_step
+            head = self._table[:HEADER_WORDS].view(torch.int32)
+            head[1:2].copy_(count + 1)
+            head[4:5].copy_(skip)
         return self._table
 
     def reserve(self, buffer: torch.Tensor) -> None:
@@ -339,20 +376,20 @@ class StepBatch:
 
     def set_step(self, lr: float, step: int) -> None:
         """This step's rate and 1-based number, for a batch whose tensors
-        are the same. Where the table is on the device, its header (16
+        are the same. Where the table is on the device, its header (24
         bytes) is copied there on the current stream (after a capture, the
         whole table the first time; :meth:`_copy`)."""
         self.lr = float(lr)
         self.step = int(step)
         if self._host is not None:
-            self._header(self._host[:2].view(np.int32))
+            self._header(self._host[:HEADER_WORDS].view(np.int32))
         if self._table is None:
             return
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("set_step: the header is written outside a "
                                "CUDA graph capture, before each replay")
         # the first step after a capture writes the whole table
-        self._copy(self._host.size if self._pending else 2)
+        self._copy(self._host.size if self._pending else HEADER_WORDS)
         self._pending = False
 
 
@@ -483,6 +520,8 @@ def adam_update_plain(batch: StepBatch, *, beta1, beta2, epsilon,
     c1 = 1.0 - torch.pow(torch.full_like(t, beta1), t)
     c2 = 1.0 - torch.pow(torch.full_like(t, beta2), t)
     omb1, omb2 = 1.0 - beta1, 1.0 - beta2
+    if batch.skipped():
+        return
     for i, p in enumerate(batch.params):
         m, v = batch.slots[0][i], batch.slots[1][i]
         g = _grad_plain(batch, i, clip, norms, weight_decay, decoupled)
@@ -532,6 +571,12 @@ def adafactor_stats_plain(batch: StepBatch, *, decay_rate, epsilon1,
     _lr, step = batch.scalars()
     bt = 1 - step.float().pow(-decay_rate)
     om = 1 - bt
+    if batch.skipped():
+        mats = sum(p.numel() // (p.shape[-1] * p.shape[-2])
+                   for i, p in enumerate(batch.params)
+                   if batch.factored(i) and p.numel())
+        return torch.zeros(len(batch) + mats, dtype=torch.float32,
+                           device=batch.device)
     psums, means = [], []
     for i, p in enumerate(batch.params):
         g = _grad_plain(batch, i, clip, norms, weight_decay, False)
@@ -597,6 +642,8 @@ def adafactor_update_plain(batch: StepBatch, stats, *, beta1, epsilon2,
     lr, _step = batch.scalars()
     n = len(batch)
     mat = n
+    if batch.skipped():
+        return
     for i, p in enumerate(batch.params):
         g = _grad_plain(batch, i, clip, norms, weight_decay, False)
         gf = g.float()
@@ -689,6 +736,8 @@ def _rule_plain(rule, batch: StepBatch, kw, weight_decay, clip, norms):
     h, opt = _rule_args(rule, kw)
     lr, step = batch.scalars()
     lr_t = lr
+    if batch.skipped():
+        return
     if rule == "adamax":
         t = step.float()
         lr_t = lr / (1 - torch.pow(torch.full_like(t, h[0]), t))
@@ -863,6 +912,8 @@ def lamb_update_plain(batch: StepBatch, *, beta1, beta2, epsilon,
     c1 = 1.0 - torch.pow(torch.full_like(t, beta1), t)
     c2 = 1.0 - torch.pow(torch.full_like(t, beta2), t)
     omb1, omb2 = 1.0 - beta1, 1.0 - beta2
+    if batch.skipped():
+        return
     for i, p in enumerate(batch.params):
         m0, v0 = batch.slots[0][i], batch.slots[1][i]
         wd = weight_decay if batch.decay[i] else 0.0
@@ -920,6 +971,8 @@ def lars_update_plain(batch: StepBatch, *, momentum, lars_coeff,
     local_lr (g + wd p)``, ``p - v``; the decay 0 for a tensor without the
     decay flag."""
     lr, _step = batch.scalars()
+    if batch.skipped():
+        return
     for i, p in enumerate(batch.params):
         v0 = batch.slots[0][i]
         wd = weight_decay if batch.decay[i] else 0.0
@@ -951,9 +1004,23 @@ def lars_update(batch: StepBatch, *, momentum, lars_coeff, weight_decay,
 
 # -- (g) the gradient scaler's check_finite_and_unscale ----------------------------
 
+def _inv_args(batch: StepBatch, inv_scale):
+    """(inv as a kernel argument, its device pointer or None): a float, or
+    an fp32 [1] tensor on the batch's device that the kernel reads there
+    (a captured graph then reads each replay's scale)."""
+    if isinstance(inv_scale, torch.Tensor):
+        if inv_scale.device != batch.device or \
+                inv_scale.dtype != torch.float32 or inv_scale.numel() != 1:
+            raise ValueError("inv_scale: a float or an fp32 [1] tensor on "
+                             "the batch's device")
+        return 1.0, inv_scale.data_ptr()
+    return float(inv_scale), None
+
+
 def check_finite_plain(batch: StepBatch, inv_scale):
     """int32 ``[1]``: 1 where some ``g * inv_scale`` (fp32) of
-    ``batch.grads`` is not finite, else 0."""
+    ``batch.grads`` is not finite, else 0 (``inv_scale`` a float or an
+    fp32 [1] tensor)."""
     flag = torch.zeros(1, dtype=torch.int32, device=batch.device)
     for g in batch.grads:
         flag |= (~torch.isfinite(g.float() * inv_scale).all()).to(
@@ -965,16 +1032,18 @@ def check_finite(batch: StepBatch, inv_scale):
     """The finiteness test of ``GradScaler.unscale_``
     (``paddle_tpu/amp/grad_scaler.py:21-27, 62-64``) over ``batch.grads``
     (rule ``"grads"``): int32 ``[1]`` on the batch's device, 1 where some
-    ``g * inv_scale`` in fp32 is not finite. The host reads it."""
+    ``g * inv_scale`` in fp32 is not finite. ``inv_scale``: a float, or
+    an fp32 [1] tensor on the device that the kernel reads there."""
     if not _route(batch, COUNTS_CHECK_FINITE):
         return check_finite_plain(batch, inv_scale)
+    inv, inv_dev = _inv_args(batch, inv_scale)
     table = batch.table()
     flag = torch.empty(1, dtype=torch.int32, device=batch.device)
     fn = _build.kernel("pt_opt_check_finite",
                        [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                        ctypes.c_void_p, ctypes.c_void_p])
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     _build.launch(fn, "pt_opt_check_finite", batch.device, table.data_ptr(),
-                  batch.n_chunks, float(inv_scale), flag.data_ptr())
+                  batch.n_chunks, inv, inv_dev, flag.data_ptr())
     COUNTS_CHECK_FINITE.launched()
     return flag
 
@@ -986,12 +1055,15 @@ def unscale_plain(batch: StepBatch, inv_scale):
 
 def unscale(batch: StepBatch, inv_scale):
     """Every gradient of ``batch`` to ``cast(g * inv_scale)`` in place, the
-    product in fp32 (``grad_scaler.py:62, 65-67``)."""
+    product in fp32 (``grad_scaler.py:62, 65-67``); ``inv_scale`` as
+    :func:`check_finite` takes it."""
     if not _route(batch, COUNTS_UNSCALE):
         return unscale_plain(batch, inv_scale)
+    inv, inv_dev = _inv_args(batch, inv_scale)
     table = batch.table()
     fn = _build.kernel("pt_opt_unscale", [ctypes.c_void_p, ctypes.c_int,
-                                          ctypes.c_float, ctypes.c_void_p])
+                                          ctypes.c_float, ctypes.c_void_p,
+                                          ctypes.c_void_p])
     _build.launch(fn, "pt_opt_unscale", batch.device, table.data_ptr(),
-                  batch.n_chunks, float(inv_scale))
+                  batch.n_chunks, inv, inv_dev)
     COUNTS_UNSCALE.launched()

@@ -225,21 +225,45 @@ def _zero3_name(name: str) -> str:
     return f"{mod}.parametrizations.{leaf}.original"
 
 
+def llama_stage_of(name: str, num_layers: int, pp: int):
+    """The pp stages that hold the port Llama's parameter ``name``: a
+    decoder layer's ``L / pp`` block, the embedding the first, the final
+    norm and the head the last (a tied head: both)."""
+    if pp <= 1:
+        return [0]
+    if name.startswith("llama.layers."):
+        return [int(name.split(".")[2]) // (num_layers // pp)]
+    if name.startswith("llama.embed_tokens."):
+        return [0]
+    return [pp - 1]
+
+
+def _num_layers(state) -> int:
+    return 1 + max((int(k.split(".")[2]) for k in state
+                    if k.startswith("llama.layers.")), default=-1)
+
+
 def shard_llama_state(state: Mapping[str, torch.Tensor], env=None, *,
                       degrees: Mapping[str, int] = None, rank: int = None,
                       stage3: bool = False) -> Dict[str, torch.Tensor]:
     """This rank's slices of a full port Llama ``state`` (as
     ``llama_state_from_numpy`` gives it) under ``env`` (a ``MeshEnv``) or
-    ``degrees`` and ``rank``: tensor-parallel parameters cut on
-    :func:`llama_mp_dim`, and with ``stage3`` every parameter that splits
-    cut again over sdp, under the name its ZeRO-3 parametrization takes
+    ``degrees`` and ``rank``: under pp > 1 the tensors of this rank's
+    stage only (:func:`llama_stage_of`; a tied head, ``lm_head.weight``
+    equal to the embedding, also on the last stage), under their global
+    names; tensor-parallel parameters cut on :func:`llama_mp_dim`; and
+    with ``stage3`` every parameter that splits cut again over sdp, under
+    the name its ZeRO-3 parametrization takes
     (``...parametrizations.weight.original``)."""
     if env is not None:
         degrees, rank = env.degrees, env.rank
     c = _coords(rank, degrees)
     mp, sdp = int(degrees.get("mp", 1)), int(degrees.get("sdp", 1))
+    pp, L = int(degrees.get("pp", 1)), _num_layers(state)
     out = {}
     for name, t in state.items():
+        if c["pp"] not in llama_stage_of(name, L, pp):
+            continue
         dim = llama_mp_dim(name)
         if dim is not None and mp > 1:
             t = t.chunk(mp, dim=dim)[c["mp"]]
@@ -266,26 +290,33 @@ def gather_llama_state(states, config: LlamaConfig,
                        degrees: Mapping[str, int],
                        stage3: bool = False) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`shard_llama_state` over ``states``, every
-    rank's state in rank order: the full state under the plain names."""
+    rank's state in rank order: the full state under the plain names,
+    each tensor from the pp stage that holds it (a tied head under pp from
+    the last stage's copy)."""
     mp, sdp = int(degrees.get("mp", 1)), int(degrees.get("sdp", 1))
+    pp = int(degrees.get("pp", 1))
     coords = [_coords(r, degrees) for r in range(len(states))]
     shapes = _llama_shapes(config)
+    stage_of = {}
 
-    def rank_at(m, z):
+    def rank_at(m, z, s=0):
         return next(r for r, c in enumerate(coords)
-                    if c["mp"] == m and c["sdp"] == z and
+                    if c["mp"] == m and c["sdp"] == z and c["pp"] == s and
                     all(c[a] == 0 for a in _MESH_ORDER
-                        if a not in ("mp", "sdp")))
+                        if a not in ("mp", "sdp", "pp")))
 
+    for s in range(pp):
+        for key in states[rank_at(0, 0, s)]:
+            stage_of.setdefault(key, s)
     out = {}
-    for key in states[0]:
+    for key, s in stage_of.items():
         name = key.replace(".parametrizations.", ".")
         if name.endswith(".original"):
             name = name[:-len(".original")]
         dim = llama_mp_dim(name)
         parts = []
         for m in range(mp if dim is not None else 1):
-            shards = [states[rank_at(m, z)][key] for z in range(sdp)]
+            shards = [states[rank_at(m, z, s)][key] for z in range(sdp)]
             if stage3 and key != name:
                 local = list(shapes.get(name) or
                              shapes[name.split(".", 3)[-1]])

@@ -37,7 +37,7 @@ from ..nn.functional.common import drawing_generator, rewinding
 from .llama import fused_linear_ce
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTBlock", "GPTModel",
-           "GPTForCausalLM", "gpt_param_count"]
+           "GPTForCausalLM", "GPTForCausalLMPipe", "gpt_param_count"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -275,3 +275,115 @@ def gpt_param_count(config: GPTConfig) -> int:
     per_layer = 4 * h * h + 2 * h * i + i + 9 * h
     return (L * per_layer + config.vocab_size * h
             + config.max_position_embeddings * h + 2 * h)
+
+
+# -- the pipeline preset ---------------------------------------------------------
+# Reference: fleetx GPTForPretrainingPipe (a PipelineLayer of the
+# SharedLayerDesc embedding, GPTBlock LayerDescs and the tied head), run by
+# PipelineParallel.train_batch; JAX models/gpt.py:218-283.
+
+class _GPTEmbeddingPipe(nn.Module):
+    """ids -> token + learned position embeddings (with dropout); the tied
+    head too, through ``SharedLayerDesc``'s ``forward_func``."""
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size,
+                                         config.hidden_size)
+        self.embed_positions = nn.Embedding(config.max_position_embeddings,
+                                            config.hidden_size)
+        self.drop = Dropout(config.hidden_dropout_prob)
+
+    def forward(self, input_ids):
+        s = input_ids.shape[1]
+        pos = torch.arange(s, device=input_ids.device)
+        return self.drop(self.embed_tokens(input_ids)
+                         + self.embed_positions(pos))
+
+
+def _gpt_tied_logits(embed: _GPTEmbeddingPipe, hidden):
+    return TF.linear(hidden, embed.embed_tokens.weight)
+
+
+class _GPTFinalNormPipe(nn.Module):
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        self.ln_f = nn.LayerNorm(config.hidden_size,
+                                 config.layer_norm_epsilon)
+
+    def forward(self, hidden):
+        return self.ln_f(hidden)
+
+
+def _gpt_shifted_ce(logits, labels):
+    v = logits.shape[-1]
+    return TF.cross_entropy(logits[:, :-1, :].reshape(-1, v).float(),
+                            labels[:, 1:].reshape(-1), ignore_index=-100)
+
+
+def GPTForCausalLMPipe(config: GPTConfig, device=None,
+                       generator: Optional[torch.Generator] = None,
+                       dropout_seed: int = 0, **pipeline_kwargs):
+    """``GPTForCausalLM`` as a ``PipelineLayer`` (JAX ``models/gpt.py:
+    218-283``): the ``SharedLayerDesc`` embedding, a ``GPTBlock``
+    ``LayerDesc`` per layer, the final LayerNorm and the tied head (the
+    embedding again), the shifted cross entropy as its loss. Built on
+    ``device`` in ``config.dtype``; every stage draws the weights as
+    ``GPTForCausalLM`` draws them from ``generator`` and keeps its own (so
+    at pp = 1 the two models are equal from the same generator), and a
+    stage's dropouts draw from a generator of its own (``dropout_seed``
+    plus the stage). Under a mesh with pp > 1 a rank builds its stage: the
+    embedding on the first, the head on the last, tied across them
+    (``pp_shared``). ``use_recompute`` recomputes every block."""
+    from ..distributed.meta_parallel import (LayerDesc, PipelineLayer,
+                                             SharedLayerDesc)
+    from ..distributed.meta_parallel.pp_layers import _SharedProxy
+
+    dev = resolve_device(device)
+    descs = [SharedLayerDesc("embed", _GPTEmbeddingPipe, None,
+                             "embed_tokens.weight", config),
+             *[LayerDesc(GPTBlock, config)
+               for _ in range(config.num_hidden_layers)],
+             LayerDesc(_GPTFinalNormPipe, config),
+             SharedLayerDesc("embed", _GPTEmbeddingPipe, _gpt_tied_logits,
+                             "embed_tokens.weight", config)]
+    if config.use_recompute:
+        pipeline_kwargs.setdefault("recompute_interval", 1)
+    pipe = PipelineLayer(layers=descs, loss_fn=_gpt_shifted_ce,
+                         build_device="meta", **pipeline_kwargs)
+    pipe.to_empty(device=dev)
+    pipe.to(config.torch_dtype)
+    pipe.mark_shared()  # on the parameters to_empty made
+    mine = dict(pipe.named_parameters())
+    alias = {}  # a stage's copy of a weight tied to another stage's
+    for key, layer in pipe.run_function.items():
+        if isinstance(layer, _SharedProxy) and "shared" in layer._modules:
+            j = pipe.shared_first["embed"]
+            for n, _ in layer.shared.named_parameters():
+                alias[f"run_function.{j}.{n}"] = \
+                    f"run_function.{key}.shared.{n}"
+    g = generator if generator is not None else seed(0, dev)
+    with torch.no_grad():
+        for name, shape in pipe.full_param_shapes:
+            targets = [t for t in (mine.get(name), mine.get(alias.get(name)))
+                       if t is not None]
+            if name.endswith("bias"):
+                for t in targets:
+                    t.zero_()
+            elif ".ln_" in name:
+                for t in targets:
+                    t.fill_(1.0)
+            else:
+                w = torch.empty(shape, dtype=config.torch_dtype, device=dev)
+                w.normal_(0.0, 0.02, generator=g)
+                for t in targets:
+                    t.copy_(w)
+    pipe.dropout_generator = seed(dropout_seed + pipe.stage_id, dev)
+    for m in pipe.modules():
+        if isinstance(m, (Dropout, GPTAttention)):
+            m.generator = pipe.dropout_generator
+    if config.hidden_dropout_prob > 0 or \
+            config.attention_probs_dropout_prob > 0:
+        pipe.recompute_generators = [pipe.dropout_generator]
+    return pipe

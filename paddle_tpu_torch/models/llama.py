@@ -88,6 +88,7 @@ class LlamaConfig:
     use_recompute: bool = False
     ce_chunk: int = 2048  # fused lm_head + CE token-chunk size
     cp_impl: str = "ring"  # context-parallel attention: 'ring' | 'ulysses'
+    pp_microbatches: int = 0  # microbatches for the pp pipeline (0 = 2*pp)
     dtype: str = "bfloat16"
 
     def __post_init__(self):
@@ -270,23 +271,50 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig):
+    """The decoder stack, or with ``stage = (r, pp)`` stage r of a pp-stage
+    pipeline: its ``L / pp`` decoder layers under their global names
+    (``layers.{i}``), the embedding on the first stage, the final norm on
+    the last."""
+
+    def __init__(self, config: LlamaConfig, stage=None):
         super().__init__()
         self.config = config
-        self.embed_tokens = VocabParallelEmbedding(config.vocab_size,
-                                                   config.hidden_size)
-        self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config)
-             for _ in range(config.num_hidden_layers)])
-        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+        r, pp = stage if stage is not None else (0, 1)
+        L = config.num_hidden_layers
+        if L % pp:
+            raise ValueError(f"num_hidden_layers ({L}) must divide by the "
+                             f"pp degree {pp}")
+        self.first, self.last = r == 0, r == pp - 1
+        if self.first:
+            self.embed_tokens = VocabParallelEmbedding(config.vocab_size,
+                                                       config.hidden_size)
+        if pp == 1:
+            self.layers = nn.ModuleList(
+                [LlamaDecoderLayer(config) for _ in range(L)])
+        else:
+            per = L // pp
+            self.layers = nn.ModuleDict(
+                {str(i): LlamaDecoderLayer(config)
+                 for i in range(r * per, (r + 1) * per)})
+        if self.last:
+            self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps)
+
+    def stage_layers(self):
+        return list(self.layers.values()) \
+            if isinstance(self.layers, nn.ModuleDict) else list(self.layers)
 
     def forward_with_aux(self, input_ids):
         """-> (final hidden [b, s, h], summed MoE aux loss or None)."""
-        hidden = self.embed_tokens(input_ids)
+        hidden, aux = self.run_layers(self.embed_tokens(input_ids))
+        return self.norm(hidden), aux
+
+    def run_layers(self, hidden):
+        """This model's (or stage's) decoder layers over ``hidden`` ->
+        (hidden, summed MoE aux loss or None)."""
         remat = self.config.use_recompute and self.training and \
             torch.is_grad_enabled()
         aux = None
-        for layer in self.layers:
+        for layer in self.stage_layers():
             if remat:
                 # the layer's forward runs again in the backward; the model
                 # draws no random numbers, so no RNG state is stashed
@@ -299,7 +327,7 @@ class LlamaModel(nn.Module):
                 aux = a if aux is None else aux + a
             else:
                 hidden = out
-        return self.norm(hidden), aux
+        return hidden, aux
 
     def forward(self, input_ids):
         return self.forward_with_aux(input_ids)[0]
@@ -370,53 +398,160 @@ class LlamaForCausalLM(nn.Module):
     device; ``None`` = seed 0): normal(0, 0.02) matrices and embeddings,
     unit RMSNorm weights. Under a mesh with mp > 1 each rank draws every
     full tensor and keeps its shard, so the model equals the one built at
-    mp = 1 from the same generator."""
+    mp = 1 from the same generator.
+
+    **Pipeline.** Under a mesh with pp > 1 (or with ``stage = (r, pp)``
+    given, which one process may build for every r: ``pipeline_local``)
+    the model is stage r (``pipelined``): its ``L / pp`` decoder layers,
+    the embedding on the first stage, the final norm and the head on the
+    last; every tensor is drawn as the pp = 1 model draws it and the
+    stage keeps its own, so the stages together equal the pp = 1 model
+    from the same generator. A tied head under pp is a copy of the
+    embedding on the last stage (both marked ``pp_shared = "embed"``: the
+    step all-reduces their gradients). The stage runs through
+    ``pipeline_forward`` (``ShardedTrainStep``, ``pipeline_local``):
+    the last stage's loss of a microbatch is its summed CE over the
+    step's count of counted tokens (all microbatches, all data ranks,
+    ``pipeline_prepare``), its share of the step's loss. An MoE model
+    under pp raises (expert parallelism is not ported)."""
 
     loss_reduction = "sum"  # the labelled loss is this rank's share
 
     def __init__(self, config: LlamaConfig, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, stage=None):
         super().__init__()
         dev = resolve_device(device)
         env = get_mesh_env()
-        if getattr(config, "num_experts", 0) > 1 and env is not None and \
-                env.nranks > 1:
+        if stage is None and env is not None and env.get_dim("pp") > 1:
+            stage = (env.coord("pp"), env.get_dim("pp"))
+        self.pipelined = stage is not None and stage[1] > 1
+        self.pp_stage = tuple(stage) if self.pipelined else (0, 1)
+        self.pp_microbatches = config.pp_microbatches
+        if getattr(config, "num_experts", 0) > 1 and (
+                self.pipelined or (env is not None and env.nranks > 1)):
             raise _deferred("MoE Llama under a mesh (expert parallelism)")
         self.config = config
         with torch.device("meta"):
-            self.llama = LlamaModel(config)
-            self.lm_head = ColumnParallelLinear(
-                config.hidden_size, config.vocab_size, has_bias=False,
-                gather_output=False)
+            self.llama = LlamaModel(config, self.pp_stage)
+            if self.llama.last:
+                self.lm_head = ColumnParallelLinear(
+                    config.hidden_size, config.vocab_size, has_bias=False,
+                    gather_output=False)
         self.to_empty(device=dev)
         self.to(config.torch_dtype)
         if config.tie_word_embeddings:
-            # after materialising: to_empty gives every module its own copy
-            self.lm_head.weight = self.llama.embed_tokens.weight
+            if not self.pipelined:
+                # after materialising: to_empty gives every module its copy
+                self.lm_head.weight = self.llama.embed_tokens.weight
+            else:
+                for held in (self.llama.first and
+                             self.llama.embed_tokens.weight,
+                             self.llama.last and self.lm_head.weight):
+                    if held is not False:
+                        held.pp_shared = "embed"
         mark_parameters(self)  # on the parameters to_empty made
+        self._pp_count = None
         self._init_weights(generator if generator is not None
                            else seed(0, dev))
+
+    def _full_order(self):
+        """(name, mp_dim, local shape) of every parameter of the pp = 1
+        model, in its ``named_parameters`` order (shapes on meta)."""
+        if not self.pipelined:
+            return [(n, getattr(p, "mp_dim", None), tuple(p.shape))
+                    for n, p in self.named_parameters()]
+        cfg = self.config
+        with torch.device("meta"):
+            full = nn.Module()
+            full.llama = LlamaModel(cfg)
+            if not cfg.tie_word_embeddings:
+                full.lm_head = ColumnParallelLinear(
+                    cfg.hidden_size, cfg.vocab_size, has_bias=False,
+                    gather_output=False)
+        mark_parameters(full)
+        return [(n, getattr(p, "mp_dim", None), tuple(p.shape))
+                for n, p in full.named_parameters()]
 
     @torch.no_grad()
     def _init_weights(self, g: torch.Generator):
         _, mp, r = mp_info()
-        for name, p in self.named_parameters():
+        mine = dict(self.named_parameters())
+        tied_head = self.pipelined and self.config.tie_word_embeddings and \
+            self.llama.last
+        for name, mp_dim, shape in self._full_order():
             if name.endswith("layernorm.weight") or name == "llama.norm.weight":
-                p.fill_(1.0)
-            elif getattr(p, "mp_dim", None) is not None:
-                shape = list(p.shape)
-                shape[p.mp_dim] *= mp
-                full = torch.empty(shape, dtype=p.dtype, device=p.device)
-                full.normal_(0.0, 0.02, generator=g)
-                p.copy_(full.chunk(mp, dim=p.mp_dim)[r])
-            else:
-                p.normal_(0.0, 0.02, generator=g)
+                if name in mine:
+                    mine[name].fill_(1.0)
+                continue
+            p = mine.get(name)
+            dtype, dev = self.config.torch_dtype, next(
+                iter(mine.values())).device
+            full = list(shape)
+            if mp_dim is not None:
+                full[mp_dim] *= mp
+            t = torch.empty(full, dtype=dtype, device=dev)
+            t.normal_(0.0, 0.02, generator=g)
+            if mp_dim is not None:
+                t = t.chunk(mp, dim=mp_dim)[r]
+            if p is not None:
+                p.copy_(t)
+            if tied_head and name == "llama.embed_tokens.weight":
+                self.lm_head.weight.copy_(t)
+
+    def pp_shared_shapes(self):
+        """{key: local shape} of the weights tied across stages."""
+        if not (self.pipelined and self.config.tie_word_embeddings):
+            return {}
+        _, mp, _ = mp_info()
+        return {"embed": (self.config.vocab_size // mp,
+                          self.config.hidden_size)}
+
+    def pipeline_prepare(self, input_ids, labels=None):
+        """Before a step's microbatches: the last stage counts the counted
+        tokens of the step (this rank's batch, all-reduced over the data
+        ranks under a mesh), each microbatch's loss is its summed CE over
+        that count."""
+        if not self.llama.last or labels is None:
+            return
+        count = (labels[:, 1:] != IGNORE_INDEX).sum()
+        env = get_mesh_env()
+        if env is not None and env.nranks > 1:
+            dist.all_reduce(count, group=env.group_over(DATA_AXES))
+        self._pp_count = count
+
+    def pipeline_forward(self, inp, input_ids, labels=None):
+        """One microbatch through this stage: the first stage embeds
+        ``input_ids``, the others take ``inp``; the last returns the loss
+        share (with ``labels``) or the logits, the others the hidden state
+        [b, s, h] to send on."""
+        llama = self.llama
+        hidden = llama.embed_tokens(input_ids) if llama.first else inp
+        hidden, _aux = llama.run_layers(hidden)
+        if not llama.last:
+            return hidden
+        hidden = llama.norm(hidden)
+        pg, _, _ = mp_info()
+        if labels is None:
+            return gather_from_group(self.lm_head(hidden), pg)
+        env = get_mesh_env()
+        start = 0 if pg is None else \
+            env.coord("mp") * self.lm_head.weight.shape[0]
+        total, _ = fused_linear_ce_sum(
+            hidden[:, :-1, :].reshape(-1, self.config.hidden_size),
+            self.lm_head.weight, labels[:, 1:].reshape(-1),
+            self.config.ce_chunk, pg, start)
+        return total / self._pp_count.clamp_min(1)
 
     def forward(self, input_ids, labels=None):
         """``input_ids`` [b, s] -> logits [b, s, vocab]; with ``labels``
         [b, s], the mean next-token CE (fp32 scalar) through the chunked
         fused head, labels equal to -100 not counted, plus
         ``aux_loss_weight`` times the summed aux of an MoE model."""
+        if self.pipelined:
+            raise RuntimeError(
+                "LlamaForCausalLM: this model is one stage of a pipeline; "
+                "run it through ShardedTrainStep or pipeline_local "
+                "(pipeline_forward)")
         hidden, aux = self.llama.forward_with_aux(input_ids)
         pg, _, _ = mp_info()
         if labels is None:

@@ -17,7 +17,7 @@ scalars, never as kernel arguments.
 The optimizer keeps the step's table (``kernels.optimizer.StepBatch``)
 across steps: it is built again only when a tensor's address, shape or
 dtype or a decay flag changes, and otherwise only its header (rate and
-step) is written, one 16-byte copy. So a CUDA graph that captured a step
+step) is written, one 24-byte copy. So a CUDA graph that captured a step
 (``jit.TrainStep``) replays it with each step's rate and number.
 
 Rounding follows the reference, which matters in bf16: every state has
@@ -95,12 +95,44 @@ class Optimizer:
         self._learning_rate = learning_rate
         self._grad_clip = grad_clip
         self._weight_decay = _wd_value(weight_decay)
+        self._weight_decay_arg = weight_decay  # as given (None: unset)
         self._decoupled = False  # AdamW
         self._state: Dict[int, Dict[str, torch.Tensor]] = {}
-        self._global_step = 0
+        self._step_dev = None  # the update count, once held on the device
+        self._step_host = 0
         self._batch = None      # the last step's StepBatch, kept across steps
         self._batch_key = None  # what it was built from
         self._reserved = None   # the table buffer of the next captured step
+
+    # -- the update count ----------------------------------------------------
+    @property
+    def _global_step(self) -> int:
+        """The updates applied: a host int, or once a step keeps the count
+        on the device (:meth:`device_updates`) that tensor, read when
+        used."""
+        if self._step_dev is None:
+            return self._step_host
+        return int(self._step_dev.item())
+
+    @_global_step.setter
+    def _global_step(self, v):
+        if self._step_dev is None:
+            self._step_host = int(v)
+        else:
+            self._step_dev.fill_(int(v))
+
+    def device_updates(self, device) -> torch.Tensor:
+        """The update count as an int32 [1] tensor on ``device``, made from
+        the current count at the first call there; from then on it is the
+        count, which a captured step advances on the device (the in-graph
+        GradScaler's, whose skipped steps do not count)."""
+        device = torch.device(device)
+        d = self._step_dev
+        if d is None or d.device.type != device.type:
+            d = torch.tensor([self._global_step], dtype=torch.int32,
+                             device=device)
+            self._step_dev = d
+        return d
 
     # -- lr ------------------------------------------------------------------
     def get_lr(self) -> float:
@@ -163,7 +195,7 @@ class Optimizer:
 
     @torch.no_grad()
     def _apply(self, grads: Optional[List[Optional[torch.Tensor]]] = None,
-               clip: Optional[Callable] = None):
+               clip: Optional[Callable] = None, device_step=None):
         """The update of step ``_global_step + 1`` without advancing the
         step: the parameters with a gradient (``grads``, one entry per
         parameter or None, else each ``.grad``) and ``requires_grad``.
@@ -175,7 +207,10 @@ class Optimizer:
         graph capture the batch is always new and is not kept: the graph
         owns it, and writes its header before each replay; its table takes
         the buffer of :meth:`_reserve_table`. The kept batch stays the
-        optimizer's, for the eager steps."""
+        optimizer's, for the eager steps. ``device_step`` ``(count,
+        skip)``, int32 [1] device tensors, gives the step number (count +
+        1) and a skip flag from the device
+        (``StepBatch.bind_device_step``): the in-graph GradScaler's."""
         plist = self._parameter_list
         if grads is None:
             grads = [p.grad for p in plist]
@@ -187,7 +222,9 @@ class Optimizer:
         gs = [grads[i] for i in live]
         slots = self._state_slots(params)
         decay = [self._decay[i] for i in live]
-        lr, step = self.get_lr(), self._global_step + 1
+        # a device step count is read on the device: no host read here
+        lr = self.get_lr()
+        step = 1 if device_step is not None else self._global_step + 1
         capturing = params[0].is_cuda and \
             torch.cuda.is_current_stream_capturing()
         key = (tuple(decay),) + tuple(
@@ -206,6 +243,9 @@ class Optimizer:
                 self._reserved = None
             else:
                 self._batch, self._batch_key = batch, key
+        batch.device_step = None
+        if device_step is not None:
+            batch.bind_device_step(*device_step)
         self._update(batch, *(clip or self._clip)(batch))
         batch.grads = None  # the step's gradients are not kept alive
         return batch

@@ -7,6 +7,8 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
         tests/test_torch_gpu.py
 """
 import importlib
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -23,6 +25,10 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
     flash_attention_fwd, route, sm90_dkv_bound, sm90_dq_bound,
     sm90_fwd_bound, takes_sm90)
+
+# the one-device pipeline step, a harness (tools/pipeline_harness.py)
+sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
 
 # the module (the package re-exports a function of the same name)
 pa = importlib.import_module("paddle_tpu_torch.kernels.paged_attention")
@@ -1914,3 +1920,108 @@ def test_cached_llama_attention_runs_the_decode_kernel(cuda):
     assert counters()["flash_attention_decode"]["launches"] == 1
     assert cache[0].shape == (1, 2048, 16, 128)
     _close(last.float().cpu(), full[:, -1:].float().cpu(), (2.0 ** -6, 2e-3))
+
+
+# -- the device step count and skip flag (the in-graph GradScaler) -------------
+
+def _device_step_run(cuda, rule, dtype, skip, plain, monkeypatch):
+    """Two kernel steps of ``rule`` on fresh tensors, then a third taken
+    through ``Optimizer._apply(device_step=(count, flag))`` (count 6, flag
+    ``skip``), its wrappers swapped for their plain versions with
+    ``plain``. Returns the tensors before and after the third."""
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    ps, grads = _opt_tensors(cuda, dtype)
+    if rule in ("adamw", "adafactor_m"):
+        opt = _opt(rule, "global", ps)
+        names = _OPT_KERNELS[1:]
+    else:
+        from paddle_tpu_torch import nn as pnn
+
+        opt = _rule_opt(rule, list(ps.items()), pnn.ClipGradByGlobalNorm(1.0))
+        names = (_RULE_WRAPPERS[rule],)
+    for g in grads:
+        for n, p in ps.items():
+            p.grad = g[n].clone()
+        opt.step()
+    count = torch.tensor([6], dtype=torch.int32, device=cuda)
+    flag = torch.tensor([skip], dtype=torch.int32, device=cuda)
+    before = _opt_snapshot(ps, opt)
+    with monkeypatch.context() as mp:
+        if plain:
+            for name in names:
+                mp.setattr(kopt, name, getattr(kopt, name + "_plain"))
+        for n, p in ps.items():
+            p.grad = grads[0][n].clone()
+        opt._apply(device_step=(count, flag))
+    torch.cuda.synchronize()
+    return before, _opt_snapshot(ps, opt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skip", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule", ["adamw", "adafactor_m"] +
+                         list(_RULE_WRAPPERS))
+def test_device_step_kernels_equal_plain_in_every_bit(cuda, rule, dtype, skip,
+                                                      monkeypatch):
+    """The optimizer kernels with the step number and skip flag read from
+    the device (the header words ``StepBatch.bind_device_step`` writes on
+    the stream) against their plain versions, over every rule, with the
+    flag clear (the update at step count + 1 = 7) and set (nothing
+    written: equal to the tensors before the call): the eight rules of
+    ``_RULE_WRAPPERS`` equal in every bit, AdamW and Adafactor within the
+    criterion of ``test_optimizer_kernels_match_plain`` (their sums run
+    in another order); in fp32 the cleared flag's update moves the
+    tensors (in bf16 a small SGD or Adagrad step may round away)."""
+    before, got = _device_step_run(cuda, rule, dtype, skip, False,
+                                   monkeypatch)
+    _, ref = _device_step_run(cuda, rule, dtype, skip, True, monkeypatch)
+    for k, r in ref.items():
+        if rule in _RULE_WRAPPERS or skip:
+            assert torch.equal(got[k], r), k
+        elif got[k].dtype == torch.bfloat16:
+            _bf16_close(got[k], r, before[k], k)
+        else:
+            rtol = 1e-6 if rule == "adamw" else 1e-5
+            _close(got[k].cpu(), r.cpu(), (rtol, rtol * r.abs().max().item()))
+    if skip:
+        for k, b in before.items():
+            assert torch.equal(got[k], b), k
+    elif dtype == torch.float32:  # a bf16 SGD step may round away
+        assert any(not torch.equal(got[k], b) for k, b in before.items())
+
+
+@pytest.mark.gpu
+def test_pipeline_local_graph_replay_equals_eager(cuda):
+    """Two stages of a bf16 Llama (head dim 64: the tensor-core kernels)
+    on one card through ``LocalPipelineStep``: three graphed steps (the
+    eager warm-up, the capture, a replay) equal three eager ones from the
+    same weights, losses and parameters bit for bit."""
+    from paddle_tpu_torch import seed
+    from pipeline_harness import LocalPipelineStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig.tiny(num_hidden_layers=4, hidden_size=256,
+                           num_attention_heads=4, num_key_value_heads=2,
+                           dtype="bfloat16", use_recompute=True)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    ids = torch.randint(0, cfg.vocab_size, (4, 128), generator=gen,
+                        device=cuda)
+    out = {}
+    for graph in (False, True):
+        stages = [LlamaForCausalLM(cfg, device=cuda,
+                                   generator=seed(7, cuda), stage=(r, 2))
+                  for r in range(2)]
+        opt = AdamW(learning_rate=1e-3, weight_decay=0.1,
+                    parameters=[p for st in stages for p in st.parameters()])
+        step = LocalPipelineStep(stages, opt, 4, graph=graph)
+        losses = [step(ids, ids) for _ in range(3)]
+        out[graph] = (losses, {n: p.detach().clone() for st in stages
+                               for n, p in st.named_parameters()})
+    assert all(torch.equal(a, b) for a, b in zip(out[False][0],
+                                                 out[True][0]))
+    for n, p in out[False][1].items():
+        assert torch.equal(out[True][1][n], p), n

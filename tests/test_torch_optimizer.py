@@ -873,10 +873,11 @@ def _decode(batch):
     """The chunks of ``batch``'s table as the kernels read them:
     {tensor: [(offset, length)]}, in order."""
     host = batch._plan()
-    head = host[:2].view(np.int32)
+    hw = kopt.HEADER_WORDS
+    head = host[:hw].view(np.int32)
     n, n_chunks = int(head[2]), int(head[3])
-    words = host[2:2 + n * kopt.TENSOR_WORDS].reshape(n, kopt.TENSOR_WORDS)
-    chunks = host[2 + n * kopt.TENSOR_WORDS:][:n_chunks]
+    words = host[hw:hw + n * kopt.TENSOR_WORDS].reshape(n, kopt.TENSOR_WORDS)
+    chunks = host[hw + n * kopt.TENSOR_WORDS:][:n_chunks]
     out = {}
     for c, w in enumerate(chunks):
         i, k = int(w >> 40), int(w & ((1 << 40) - 1))
@@ -932,7 +933,8 @@ def test_a_new_step_reads_a_replaced_storage():
     real = kopt.adam_update
 
     def spy(batch, **kw):
-        seen.append(batch._plan()[2:4].tolist())
+        hw = kopt.HEADER_WORDS
+        seen.append(batch._plan()[hw:hw + 2].tolist())
         return real(batch, **kw)
 
     kopt.adam_update = spy

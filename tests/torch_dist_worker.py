@@ -267,9 +267,9 @@ class _GradientsAveraged(dist.ShardedTrainStep):
     """A planted fault: the gradients averaged over the data ranks where
     the Llama's loss (each rank's share) needs their sum."""
 
-    def _gradients(self):
+    def _reduce(self, raw):
         return [None if g is None else g / self._n_data
-                for g in super()._gradients()]
+                for g in super()._reduce(raw)]
 
 
 class _NormWithoutMp(dist.ShardedTrainStep):
@@ -375,16 +375,6 @@ def deferred(inp):
         return popt.AdamW(learning_rate=0.1, parameters=net.parameters())
 
     dist.init_mesh(dp=WORLD)
-
-    class _Scaler:
-        _enable = True
-
-    record("scaler", lambda: dist.ShardedTrainStep(net, _mse, fresh(),
-                                                   scaler=_Scaler()))
-    record("accum_steps", lambda: dist.ShardedTrainStep(
-        net, _mse, fresh(), accum_steps=2))
-    record("accumulate", lambda: dist.ShardedTrainStep(
-        net, _mse, fresh()).accumulate(2))
     record("offload", lambda: dist.group_sharded_parallel(
         net, fresh(), level="os_g", offload=True))
 
@@ -394,8 +384,6 @@ def deferred(inp):
         dist.ShardedTrainStep(net, _mse, o)
 
     record("optimizer_offload", offloaded)
-    dist.init_mesh(pp=2, dp=2)
-    record("pp", lambda: dist.ShardedTrainStep(net, _mse, fresh()))
     dist.init_mesh(ep=2, dp=2)
     record("ep", lambda: dist.ShardedTrainStep(net, _mse, fresh()))
     dist.init_mesh(dp=2, mp=2)
@@ -403,10 +391,19 @@ def deferred(inp):
     record("lamb_under_mp", lambda: dist.ShardedTrainStep(
         tp, _mse, popt.Lamb(learning_rate=0.1,
                             parameters=tp.parameters())))
-    from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         LlamaMoEConfig)
 
     record("moe_under_mesh", lambda: LlamaForCausalLM(
         LlamaMoEConfig.tiny(), device="cpu"))
+    dist.reset_mesh()
+    record("moe_under_pp", lambda: LlamaForCausalLM(
+        LlamaMoEConfig.tiny(), device="cpu", stage=(0, 2)))
+    dist.init_mesh(pp=2, cp=2)
+    pp_cp = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    record("pp_with_cp", lambda: dist.ShardedTrainStep(
+        pp_cp, lambda m, x, y: m(x, labels=y),
+        popt.AdamW(learning_rate=0.1, parameters=pp_cp.parameters())))
     return out
 
 
@@ -440,6 +437,219 @@ def ring(inp, impl):
             "dv": _np(v.grad), "saved_bytes": sum(saved)}
 
 
+# -- the pipeline, the in-graph scaler, gradient merge, checkpoints ------------
+
+def _llama_pp_model(case, env):
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.convert import shard_llama_state
+
+    cfg = LlamaConfig.tiny(**case["config"])
+    model = LlamaForCausalLM(cfg, device="cpu")
+    full = {k: torch.from_numpy(v) for k, v in case["state"].items()}
+    model.load_state_dict(shard_llama_state(full, env))
+    return model
+
+
+def _scaler(kw):
+    from paddle_tpu_torch.amp import GradScaler
+
+    return GradScaler(**kw)
+
+
+def llama_step(inp, key):
+    """The tiny Llama under ``ShardedTrainStep`` at the case's degrees and
+    step options (pp, a clip, ``accum_steps``, ``accumulate``, a scaler):
+    every call's loss, this rank's state, the scaler's state."""
+    case = inp["pipeline"][key]
+    env = dist.init_mesh(**case["degrees"])
+    model = _llama_pp_model(case, env)
+    o = _llama_optimizer(case, model.parameters())
+    kw = dict(case.get("step", {}))
+    if "scaler" in kw:
+        kw["scaler"] = _scaler(kw["scaler"])
+    step = dist.ShardedTrainStep(model, lambda m, x, y: m(x, labels=y), o,
+                                 **kw)
+    if case.get("accumulate"):
+        step = step.accumulate(case["accumulate"])
+    ids = torch.from_numpy(case["ids"])
+    losses = [float(step(ids, ids)) for _ in range(case["calls"])]
+    return {"losses": losses, "pipelined": getattr(model, "pipelined", None),
+            "state": {k: _np(v) for k, v in model.state_dict().items()}}
+
+
+def mlp_scaler(inp, key):
+    """The tensor-parallel MLP at dp 2 x mp 2 under the in-graph scaler
+    (and ``accum_steps``), an overflowing input planted in the second
+    call: losses, the gathered state, ``amp_state()`` after each call and
+    the scaler's and optimizer's host mirrors."""
+    case = inp["pipeline"][key]
+    env = dist.init_mesh(dp=2, mp=2)
+    net = _TPMLP()
+    _load(net, inp["tp_mlp"]["state"], env)
+    o = popt.Adam(learning_rate=0.05, parameters=net.parameters())
+    sc = _scaler(case["scaler"])
+    step = dist.ShardedTrainStep(net, _mse, o, scaler=sc,
+                                 accum_steps=case.get("accum_steps", 1))
+    losses, amps = [], []
+    for x, y in case["batches"]:
+        losses.append(float(step(torch.from_numpy(x), torch.from_numpy(y))))
+        amps.append(step.amp_state())
+    out = {"losses": losses, "amp": amps,
+           "host": {"scale": float(sc._scale), "good": int(sc._good_steps),
+                    "bad": int(sc._bad_steps),
+                    "found_inf": bool(sc._found_inf),
+                    "global_step": int(o._global_step),
+                    "state_dict": sc.state_dict()},
+           "state": {k: _np(v) for k, v in
+                     dist.sharding.gather_full_state(net).items()}}
+    # the scaler and the optimizer used eagerly after the in-graph calls,
+    # then a loaded state read by the next in-graph call
+    x, y = (torch.from_numpy(a) for a in case["batches"][0])
+    o.clear_grad()
+    sc.scale(_mse(net, x, y)).backward()
+    sc.step(o)
+    o.clear_grad()
+    out["eager"] = {"scale": float(sc.get_loss_scaling()),
+                    "good": sc._good_steps, "bad": sc._bad_steps,
+                    "found_inf": sc._found_inf,
+                    "global_step": o._global_step,
+                    "state_dict": sc.state_dict(),
+                    "hashable": len({sc._scale, sc._good_steps,
+                                     sc._found_inf})}
+    sc.load_state_dict({"scale": 8.0, "good_steps": 0, "bad_steps": 0})
+    step(x, y)
+    out["after_load"] = step.amp_state()
+    return out
+
+
+def fleet_wrappers(inp, key):
+    """``PipelineParallel.train_batch`` at dp 4 with ``accumulate_steps``,
+    with a ``HybridParallelOptimizer``'s gradient merge, and with its
+    lamb swap."""
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        HybridParallelOptimizer, PipelineParallel)
+
+    case = inp["pipeline"][key]
+    dist.init_mesh(dp=WORLD)
+    net = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(),
+                              torch.nn.Linear(16, 4))
+    net.load_state_dict({k: torch.from_numpy(v)
+                         for k, v in case["state"].items()})
+    strategy = fleet.DistributedStrategy()
+    for k, v in case["strategy"].items():
+        setattr(strategy, k, v)
+    opt = popt.AdamW(learning_rate=0.01, parameters=net.parameters(),
+                     weight_decay=0.01)
+    hopt = HybridParallelOptimizer(opt, None, strategy)
+    model = PipelineParallel(net, None, strategy)
+    x = torch.from_numpy(case["x"])
+    y = torch.from_numpy(case["y"])
+    losses = [float(model.train_batch((x, y), hopt))
+              for _ in range(case["calls"])]
+    return {"losses": losses, "rule": type(hopt._inner_opt).__name__,
+            "state": {k: _np(v) for k, v in net.state_dict().items()}}
+
+
+def gpt_pipe(inp):
+    """``GPTForCausalLMPipe`` at pp 2 x dp 2 over P2P through
+    ``PipelineParallel.train_batch``."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineParallel
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLMPipe
+
+    c = inp["gpt_pipe"]
+    dist.init_mesh(pp=2, dp=2)
+    cfg = GPTConfig.tiny(**c["config"])
+    model = GPTForCausalLMPipe(cfg, device="cpu", generator=seed(1, "cpu"))
+    strategy = fleet.DistributedStrategy()
+    strategy.pipeline = True
+    strategy.pipeline_configs = {"accumulate_steps": 2}
+    pipe = PipelineParallel(model, None, strategy)
+    opt = popt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    ids = torch.from_numpy(c["ids"])
+    losses = [float(pipe.train_batch((ids, ids), opt)) for _ in range(3)]
+    ev = float(pipe.eval_batch((ids, ids)))
+    return {"losses": losses, "eval": ev, "stage": model.stage_id,
+            "state": {k: _np(v) for k, v in model.state_dict().items()}}
+
+
+def localsgd(inp):
+    """``HybridParallelOptimizer`` with ``strategy.localsgd`` (k_steps 2)
+    at dp 4: each rank starts from its own weights; the first update
+    leaves them apart, the second averages them over the data ranks."""
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        HybridParallelOptimizer)
+
+    dist.init_mesh(dp=WORLD)
+    p = torch.nn.Parameter(torch.full((3,), float(dist.get_rank())))
+    strategy = fleet.DistributedStrategy()
+    strategy.localsgd = True
+    strategy.localsgd_configs = {"k_steps": 2, "begin_step": 1}
+    hopt = HybridParallelOptimizer(popt.SGD(learning_rate=0.0,
+                                            parameters=[p]), None, strategy)
+    seen = []
+    for _ in range(2):
+        p.grad = torch.ones(3)
+        hopt.step()
+        seen.append(_np(p))
+    return {"after": seen}
+
+
+def reset_cycle(inp):
+    """Three times over in one world: dp 2 x mp 2, a step, ``reset_mesh``;
+    pp 2 x dp 2, a step, ``reset_mesh``."""
+    case = inp["pipeline"]["pp2_dp2"]
+    ids = torch.from_numpy(case["ids"])
+    out = []
+    for _ in range(3):
+        for degrees in (dict(dp=2, mp=2), dict(pp=2, dp=2)):
+            env = dist.init_mesh(**degrees)
+            model = _llama_pp_model(case, env)
+            o = popt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+            step = dist.ShardedTrainStep(model,
+                                         lambda m, x, y: m(x, labels=y), o)
+            out.append(float(step(ids, ids)))
+            dist.reset_mesh()
+    return {"losses": out}
+
+
+def checkpoint_reshard(inp):
+    """A checkpoint saved at dp 2 x mp 2 after one step, loaded at pp 2 x
+    dp 2 and at sdp 4 (ZeRO-3), each taking two more steps beside the
+    unbroken run's two."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+
+    case = inp["pipeline"]["pp2_dp2"]
+    ids = torch.from_numpy(case["ids"])
+    path = os.path.join(inp["tmpdir"], "ckpt_dp2_mp2")
+
+    def run(degrees, level=None, load=False):
+        env = dist.init_mesh(**degrees)
+        model = _llama_pp_model(case, env)
+        o = popt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+        if level:
+            model, o = dist.group_sharded_parallel(model, o, level=level)
+        step = dist.ShardedTrainStep(model, lambda m, x, y: m(x, labels=y),
+                                     o)
+        if load:
+            ckpt.load_sharded_model(model, o, path)
+        else:
+            step(ids, ids)
+            ckpt.save_sharded_model(model, o, path)
+            dist.barrier()
+        losses = [float(step(ids, ids)) for _ in range(2)]
+        state = {k: _np(v) for k, v in model.state_dict().items()}
+        dist.reset_mesh()
+        return {"losses": losses, "state": state,
+                "global_step": int(o._global_step)}
+
+    out = {"unbroken": run(dict(dp=2, mp=2))}
+    dist.barrier()
+    out["pp2_dp2"] = run(dict(pp=2, dp=2), load=True)
+    out["sdp4"] = run(dict(sharding=WORLD), level="p_g_os", load=True)
+    return out
+
+
 SUITES = {
     "distributed": [
         ("collectives", collectives),
@@ -468,6 +678,29 @@ SUITES = {
         ("llama_tied", llama_tied),
         ("parallel_cross_entropy", parallel_cross_entropy),
         ("deferred", deferred),
+    ],
+    "pipeline": [
+        ("reset_cycle", reset_cycle),
+        ("llama_pp2_dp2", lambda inp: llama_step(inp, "pp2_dp2")),
+        ("llama_pp2_dp2_clip", lambda inp: llama_step(inp, "pp2_dp2_clip")),
+        ("llama_pp4", lambda inp: llama_step(inp, "pp4")),
+        ("llama_pp2_mp2", lambda inp: llama_step(inp, "pp2_mp2")),
+        ("llama_pp2_dp2_tied", lambda inp: llama_step(inp, "pp2_dp2_tied")),
+        ("llama_pp2_dp2_scaler_accum2",
+         lambda inp: llama_step(inp, "pp2_dp2_scaler_accum2")),
+        ("llama_dp2_mp2_accum2", lambda inp: llama_step(inp, "dp2_mp2_accum2")),
+        ("llama_dp2_mp2_accumulate2",
+         lambda inp: llama_step(inp, "dp2_mp2_accumulate2")),
+        ("mlp_scaler", lambda inp: mlp_scaler(inp, "mlp_scaler")),
+        ("mlp_scaler_accum2", lambda inp: mlp_scaler(inp, "mlp_scaler_accum2")),
+        ("fleet_accumulate_steps",
+         lambda inp: fleet_wrappers(inp, "fleet_accumulate_steps")),
+        ("fleet_gradient_merge",
+         lambda inp: fleet_wrappers(inp, "fleet_gradient_merge")),
+        ("fleet_lamb", lambda inp: fleet_wrappers(inp, "fleet_lamb")),
+        ("gpt_pipe", gpt_pipe),
+        ("localsgd", localsgd),
+        ("checkpoint", checkpoint_reshard),
     ],
     "context_parallel": [
         ("ring", lambda inp: ring(inp, "ring")),

@@ -5,20 +5,34 @@ over NCCL (or per CPU over gloo, a rehearsal at a tiny size).
     python3 tools/torch_dist_drill.py                   # every visible card
     python3 tools/torch_dist_drill.py --cpu --world 4   # gloo, tiny, no card
 
-Each rank runs, for each mesh below, the Llama's ``ShardedTrainStep`` for
-three steps from the same seeded weights and holds the losses and the
-gathered parameters to ``jit.TrainStep`` on the whole batch in one process
-(run on every rank alone, before the mesh): fp32, eager and graphed (the
-graphed step must also equal the eager one bit for bit). Meshes: dp 4, dp
-2 x mp 2, cp 2 x dp 2 (ring), cp 2 x dp 2 (Ulysses), ZeRO os_g and
-p_g_os at sdp 4. On the cards it then times the graphed bf16 step of the
-1.16B Llama (``bench.py:1836-1840``, recompute, AdamW lr 3e-4 / wd 0.1)
-on one card at batch 4 x 2048 and on the mesh at dp 4 and dp 2 x mp 2
-(4 x 2048 a data rank), and at cp 4 (ring) on 2 x 16384 (the
-long_seq_16k shapes). Each mesh runs in a world of fresh processes.
-Prints one JSON line a check and, last, ``{"ok": true, ...}``; any
-failure raises and the run exits non-zero. Rank 0 appends every line to
-``--out`` (default ``torch_dist_drill.jsonl`` in the working directory).
+Every job runs in ONE world of processes, one after the other, each mesh
+uninstalled by ``reset_mesh`` before the next is built (its groups kept
+for the world's life and reused when the same degrees come back).
+
+Parity (fp32, eager and graphed, the graphed step equal to the eager one
+bit for bit): the Llama's ``ShardedTrainStep`` for three steps from the
+same seeded weights against ``jit.TrainStep`` on the whole batch in one
+process (run on every rank alone first), losses within LOSS_RTOL and each
+tensor's update within UPDATE_RTOL in relative L2, on the meshes dp 4, dp
+2 x mp 2, cp 2 x dp 2 (ring and Ulysses), ZeRO os_g and p_g_os at sdp 4,
+pp 4, pp 2 x dp 2, pp 2 x mp 2 (1F1B over NCCL P2P), pp 2 x dp 2 with a
+``GradScaler`` and ``accum_steps=2`` (four calls against two steps), and
+dp 2 x mp 2 under Momentum with a global-norm clip at half the first
+step's norm (it binds). Then a checkpoint saved at dp 2 x mp 2 after one
+step and loaded at pp 2 x dp 2 continues as the unbroken run does.
+
+Timed (cards only, graphed bf16, recompute, AdamW lr 3e-4 / wd 0.1): the
+1.16B Llama (``bench.py:1836-1840``) on one card at 4 x 2048, at dp 4, dp
+2 x mp 2, cp 4 (ring, 2 x 16384), pp 4 and pp 2 x dp 2 (16 x 2048, 8
+microbatches of each rank's batch at pp 4, 4 at pp 2); and Llama-2 7B at
+full depth (32 layers, 8 a stage) at pp 4, M = 8 x (1 x 4096). Tokens/s a
+card.
+
+Prints one JSON line a check and, last, ``{"ok": true, ...}``; any failure
+raises and the run exits non-zero. A rank that has not finished a job
+within its limit prints every thread's stack and exits (a hung collective
+fails the drill, not the machine). Rank 0 appends every line to ``--out``
+(default ``torch_dist_drill.jsonl`` in the working directory).
 """
 from __future__ import annotations
 
@@ -40,29 +54,43 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 # elementwise bound does not hold (a gloo rehearsal at the tiny size
 # reads up to 6e-5; with the gradient all-reduce dropped, 1.26)
 LOSS_RTOL, UPDATE_RTOL = 1e-5, 1e-3
-MESHES = [("dp2_mp2", dict(dp=2, mp=2), None, "ring"),
-          ("dp4", dict(dp=4), None, "ring"),
-          ("cp2_dp2_ring", dict(cp=2, dp=2), None, "ring"),
-          ("cp2_dp2_ulysses", dict(cp=2, dp=2), None, "ulysses"),
-          ("sdp4_os_g", dict(sharding=4), "os_g", "ring"),
-          ("sdp4_p_g_os", dict(sharding=4), "p_g_os", "ring")]
+# (name, degrees, ZeRO level, cp attention, options)
+MESHES = [("dp2_mp2", dict(dp=2, mp=2), None, "ring", {}),
+          ("dp4", dict(dp=4), None, "ring", {}),
+          ("cp2_dp2_ring", dict(cp=2, dp=2), None, "ring", {}),
+          ("cp2_dp2_ulysses", dict(cp=2, dp=2), None, "ulysses", {}),
+          ("sdp4_os_g", dict(sharding=4), "os_g", "ring", {}),
+          ("sdp4_p_g_os", dict(sharding=4), "p_g_os", "ring", {}),
+          ("pp4", dict(pp=4), None, "ring", {}),
+          ("pp2_dp2", dict(pp=2, dp=2), None, "ring", {}),
+          ("pp2_mp2", dict(pp=2, mp=2), None, "ring", {}),
+          ("pp2_dp2_scaler_accum2", dict(pp=2, dp=2), None, "ring",
+           {"scaler": True, "accum_steps": 2}),
+          ("dp2_mp2_clip", dict(dp=2, mp=2), None, "ring", {"clip": True})]
 PARITY = {"card": dict(vocab_size=4096, hidden_size=512,
-                       intermediate_size=1408, num_hidden_layers=2,
+                       intermediate_size=1408, num_hidden_layers=4,
                        num_attention_heads=8, num_key_value_heads=4,
                        max_position_embeddings=512),
           "cpu": dict(vocab_size=128, hidden_size=64, intermediate_size=128,
-                      num_hidden_layers=2, num_attention_heads=4,
+                      num_hidden_layers=4, num_attention_heads=4,
                       num_key_value_heads=2, max_position_embeddings=64)}
-PARITY_BATCH = {"card": (8, 256), "cpu": (4, 32)}
+PARITY_BATCH = {"card": (8, 256), "cpu": (8, 32)}
 BIG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
            num_hidden_layers=20, num_attention_heads=16,
            num_key_value_heads=16)
-TIMED = [("one_card", None, None, (4, 2048)),
-         ("dp4", dict(dp=4), None, (16, 2048)),
-         ("dp2_mp2", dict(dp=2, mp=2), None, (8, 2048)),
-         ("cp4_ring", dict(cp=4), None, (2, 16384))]
+LLAMA2_7B = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+                 num_hidden_layers=32, num_attention_heads=32,
+                 num_key_value_heads=32, max_position_embeddings=4096)
+# (name, model, degrees, ZeRO level, global batch, pp microbatches)
+TIMED = [("one_card", BIG, None, None, (4, 2048), 0),
+         ("dp4", BIG, dict(dp=4), None, (16, 2048), 0),
+         ("dp2_mp2", BIG, dict(dp=2, mp=2), None, (8, 2048), 0),
+         ("cp4_ring", BIG, dict(cp=4), None, (2, 16384), 0),
+         ("pp4", BIG, dict(pp=4), None, (16, 2048), 8),
+         ("pp2_dp2", BIG, dict(pp=2, dp=2), None, (16, 2048), 4),
+         ("llama2_7b_pp4", LLAMA2_7B, dict(pp=4), None, (8, 4096), 8)]
 # seconds a rank may take for a job before it dumps its stacks and exits
-PARITY_LIMIT_S, TIMED_LIMIT_S = 150, 300
+PARITY_LIMIT_S, TIMED_LIMIT_S = 240, 420
 
 
 def _emit(obj, log):
@@ -83,74 +111,170 @@ def _ids(vocab, batch, seed, device):
     return torch.randint(0, vocab, batch, generator=g, device=device)
 
 
-def _parity(name, degrees, level, impl, size, device, log):
-    """One mesh's three fp32 steps, eager and graphed, against TrainStep on
-    the whole batch in this process."""
+def _optimizer(params, clip):
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, Momentum
+
+    if clip is None:
+        return AdamW(learning_rate=1e-3, parameters=params)
+    return Momentum(learning_rate=0.1, momentum=0.9, parameters=params,
+                    grad_clip=ClipGradByGlobalNorm(clip))
+
+
+def _global_norm(model, ids):
+    import torch
+
+    model.train()
+    model(ids, labels=ids).backward()
+    norm = torch.sqrt(sum(p.grad.float().square().sum()
+                          for p in model.parameters()))
+    model.zero_grad(set_to_none=True)
+    return float(norm)
+
+
+def _max_over_world(x):
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([x], dtype=torch.float64,
+                     device="cuda" if dist.get_backend() == "nccl" else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t.item())
+
+
+def _errors(state, ref, full):
+    """(largest |p - ref| here, largest update error in relative L2 here)
+    over the tensors this rank holds (a pp stage holds its own)."""
+    pe = max((state[n].float() - ref[n].float()).abs().max().item()
+             for n in state)
+    ue = max(((state[n] - ref[n]).float().norm() /
+              (ref[n] - full[n]).float().norm().clamp_min(1e-30)).item()
+             for n in state)
+    return pe, ue
+
+
+def _parity(name, degrees, level, impl, opts, size, device, log):
+    """One mesh's fp32 steps, eager and graphed, against TrainStep on the
+    whole batch in this process."""
     import torch
 
     from paddle_tpu_torch import distributed as pdist
     from paddle_tpu_torch import seed
+    from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.models.convert import shard_llama_state
-    from paddle_tpu_torch.optimizer import AdamW
 
     cfg = LlamaConfig(**PARITY[size], dtype="float32", cp_impl=impl)
     ids = _ids(cfg.vocab_size, PARITY_BATCH[size], 3, device)
     model = LlamaForCausalLM(cfg, device=device, generator=seed(5, device))
     full = {n: p.detach().clone() for n, p in model.named_parameters()}
-    opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+    clip = _global_norm(model, ids) / 2 if opts.get("clip") else None
+    opt = _optimizer(model.parameters(), clip)
     step = TrainStep(model, _loss_fn, opt, graph=False)
     ref_losses = [float(step(ids, ids)) for _ in range(3)]
     ref = {n: p.detach().clone() for n, p in model.named_parameters()}
     del model, opt, step
+    merge = int(opts.get("accum_steps", 1))
     graphs = [False, True] if device == "cuda" else [False]
-    out = {"mesh": name, "degrees": degrees, "zero": level, "impl": impl}
+    out = {"mesh": name, "degrees": degrees, "zero": level, "impl": impl,
+           "clip": clip, **{k: v for k, v in opts.items() if k != "clip"}}
     got = {}
     env = pdist.init_mesh(**degrees)
     for graph in graphs:
         model = LlamaForCausalLM(cfg, device=device,
                                  generator=seed(5, device))
-        model.load_state_dict(shard_llama_state(full, env))
-        opt = AdamW(learning_rate=1e-3, parameters=model.parameters())
+        model.load_state_dict(shard_llama_state(
+            {n: t for n, t in full.items()}, env))
+        opt = _optimizer(model.parameters(), clip)
         if level:
             model, opt = pdist.group_sharded_parallel(model, opt,
                                                       level=level)
-        step = pdist.ShardedTrainStep(model, _loss_fn, opt, graph=graph)
-        losses = [float(step(ids, ids)) for _ in range(3)]
+        kw = {"accum_steps": merge}
+        if opts.get("scaler"):
+            kw["scaler"] = GradScaler(init_loss_scaling=2.0 ** 10)
+        step = pdist.ShardedTrainStep(model, _loss_fn, opt, graph=graph,
+                                      **kw)
+        losses = [float(step(ids, ids)) for _ in range(3 * merge)]
         state = pdist.sharding.gather_full_state(model)
         mode = "graph" if graph else "eager"
-        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
-                                                           ref_losses))
-        param_err = max((state[n].float() - ref[n].float()).abs().max()
-                        .item() for n in ref)
-        update_err = max(((state[n] - ref[n]).float().norm() /
-                          (ref[n] - full[n]).float().norm().clamp_min(1e-30))
-                         .item() for n in ref)
-        if loss_rel > LOSS_RTOL or update_err > UPDATE_RTOL:
+        want = [x for x in ref_losses for _ in range(merge)]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        pe, ue = _errors(state, ref, full)
+        pe, ue = _max_over_world(pe), _max_over_world(ue)
+        if loss_rel > LOSS_RTOL or ue > UPDATE_RTOL:
             raise RuntimeError(f"{name} ({mode}): losses {losses} vs "
-                               f"{ref_losses} (rel {loss_rel}), updates "
-                               f"{update_err} off (max abs {param_err})")
+                               f"{want} (rel {loss_rel}), updates {ue} off "
+                               f"(max abs {pe})")
         got[mode] = (losses, state)
         out[mode] = {"losses": losses, "loss_rel_err": loss_rel,
-                     "update_rel_l2_err": update_err,
-                     "param_max_abs_err": param_err}
+                     "update_rel_l2_err": ue, "param_max_abs_err": pe}
+        if opts.get("scaler"):
+            out[mode]["amp_state"] = step.amp_state()
         del model, opt, step
     out["reference_losses"] = ref_losses
     if "graph" in got:
         same = got["graph"][0] == got["eager"][0] and all(
             torch.equal(got["graph"][1][n], got["eager"][1][n])
             for n in got["eager"][1])
-        if not same:
+        if not _max_over_world(0.0 if same else 1.0) == 0.0:
             raise RuntimeError(f"{name}: the graphed step differs from the "
                                f"eager one")
         out["graph_equals_eager"] = True
+    pdist.reset_mesh()
     _emit(dict(phase="parity", **out), log)
 
 
-def _timed(name, degrees, level, batch, log, card):
-    """The graphed bf16 1.16B step on the mesh (or one card alone): step ms
-    of 5 replays after warm-up and capture, tokens/s a card."""
+def _checkpoint(size, device, path, log):
+    """A checkpoint saved at dp 2 x mp 2 after one AdamW step, loaded at pp
+    2 x dp 2: two more steps there against the unbroken run's two."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.convert import shard_llama_state
+
+    cfg = LlamaConfig(**PARITY[size], dtype="float32")
+    ids = _ids(cfg.vocab_size, PARITY_BATCH[size], 3, device)
+    full = {n: p.detach().clone() for n, p in LlamaForCausalLM(
+        cfg, device=device, generator=seed(5, device)).named_parameters()}
+
+    def build(degrees):
+        env = pdist.init_mesh(**degrees)
+        model = LlamaForCausalLM(cfg, device=device,
+                                 generator=seed(5, device))
+        model.load_state_dict(shard_llama_state(full, env))
+        opt = _optimizer(model.parameters(), None)
+        return model, opt, pdist.ShardedTrainStep(model, _loss_fn, opt)
+
+    model, opt, step = build(dict(dp=2, mp=2))
+    step(ids, ids)
+    ckpt.save_sharded_model(model, opt, path)
+    pdist.barrier()
+    unbroken = [float(step(ids, ids)) for _ in range(2)]
+    want = pdist.sharding.gather_full_state(model)
+    pdist.reset_mesh()
+    del model, opt, step
+    model, opt, step = build(dict(pp=2, dp=2))
+    ckpt.load_sharded_model(model, opt, path)
+    resumed = [float(step(ids, ids)) for _ in range(2)]
+    got = pdist.sharding.gather_full_state(model)
+    pdist.reset_mesh()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, unbroken))
+    pe, ue = _errors(got, want, full)
+    pe, ue = _max_over_world(pe), _max_over_world(ue)
+    if loss_rel > LOSS_RTOL or ue > UPDATE_RTOL or opt._global_step != 3:
+        raise RuntimeError(f"checkpoint: resumed {resumed} vs unbroken "
+                           f"{unbroken}, updates {ue} off")
+    _emit({"phase": "checkpoint", "saved_at": "dp2_mp2",
+           "loaded_at": "pp2_dp2", "unbroken": unbroken, "resumed": resumed,
+           "loss_rel_err": loss_rel, "update_rel_l2_err": ue,
+           "param_max_abs_err": pe}, log)
+
+
+def _timed(name, model_cfg, degrees, level, batch, micro, log, card):
+    """The graphed bf16 step on the mesh (or one card alone): step ms of 5
+    replays after warm-up and capture, tokens/s a card."""
     import torch
 
     from paddle_tpu_torch import distributed as pdist
@@ -159,10 +283,12 @@ def _timed(name, degrees, level, batch, log, card):
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = LlamaConfig(**BIG, max_position_embeddings=max(2048, batch[1]),
-                      dtype="bfloat16", use_recompute=True)
+    cfg = LlamaConfig(**{**model_cfg, "max_position_embeddings": max(
+        model_cfg.get("max_position_embeddings", 2048), batch[1])},
+        dtype="bfloat16", use_recompute=True, pp_microbatches=micro)
     if degrees:
         pdist.init_mesh(**degrees)
+    torch.cuda.reset_peak_memory_stats()
     model = LlamaForCausalLM(cfg, device="cuda", generator=seed(9, "cuda"))
     opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
                 weight_decay=0.1)
@@ -181,48 +307,66 @@ def _timed(name, degrees, level, batch, log, card):
         raise RuntimeError(f"{name}: losses {losses} not finite and falling")
     world = pdist.get_world_size() if degrees else 1
     tokens = batch[0] * batch[1]
+    peak = _max_over_world(torch.cuda.max_memory_allocated() / 2 ** 30) \
+        if degrees else torch.cuda.max_memory_allocated() / 2 ** 30
     _emit({"phase": "timed", "mesh": name, "card": card,
+           "model": "llama2-7b" if model_cfg == LLAMA2_7B else "llama-1.16b",
            "degrees": degrees, "zero": level, "global_batch": list(batch),
+           "pp_microbatches": micro or None,
            "losses": losses, "step_ms": ms,
            "tokens_per_s_per_card": tokens / (min(ms) / 1e3) / world,
-           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}, log)
+           "peak_gib_max_over_cards": peak}, log)
+    if degrees:
+        pdist.reset_mesh()
+    del step, opt, model
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
-def _rank(out, cpu, card, job):
-    """One job (a parity mesh or a timed one) in a world of its own, so a
-    mesh starts from fresh processes and groups, and the process exits
-    without destroying them (on four H100s, torch 2.11, destroying an NCCL
-    subgroup that ran collectives hung: ROADMAP Queue 3). A rank that has
-    not finished after ``limit`` seconds prints every thread's stack and
-    exits, which ends the world (a hung collective fails the drill, not
-    the machine)."""
+def _rank(out, cpu, card, jobs):
+    """Every job in this world, one after the other; before each a
+    watchdog: a rank that has not finished the job within its limit prints
+    every thread's stack and exits, which ends the world."""
     import faulthandler
 
     import torch
 
     from paddle_tpu_torch import distributed as pdist
 
-    kind, spec, limit = job
-    faulthandler.dump_traceback_later(limit, exit=True)
+    limit = max(j[2] for j in jobs)
     pdist.init_parallel_env(backend="gloo" if cpu else "nccl",
                             timeout=datetime.timedelta(seconds=limit))
     if cpu:
         torch.set_num_threads(1)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log = []
-    if kind == "parity":
-        name, degrees, level, impl = spec
-        _parity(name, degrees, level, impl, "cpu" if cpu else "card",
-                "cpu" if cpu else "cuda", log)
     else:
-        _timed(*spec, log, card)
+        torch.cuda.set_device(pdist.get_rank())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    size, device = ("cpu", "cpu") if cpu else ("card", "cuda")
+    ckpt_dir = out + ".ckpt"  # removed by the parent after the world
+    log = []
+    t0 = time.perf_counter()
+    for kind, spec, job_limit in jobs:
+        faulthandler.dump_traceback_later(job_limit, exit=True)
+        if kind == "parity":
+            _parity(*spec, size, device, log)
+        elif kind == "checkpoint":
+            _checkpoint(size, device, ckpt_dir, log)
+        else:
+            _timed(*spec, log, card)
+        faulthandler.cancel_dump_traceback_later()
+        pdist.barrier()
     if pdist.get_rank() == 0:
         with open(out, "a") as f:
             for row in log:
                 f.write(json.dumps(row) + "\n")
+        print(json.dumps({"phase": "world", "jobs": len(jobs),
+                          "one_world": True,
+                          "seconds": time.perf_counter() - t0}), flush=True)
     pdist.barrier()
-    sys.stdout.flush()
-    os._exit(0)
+    pdist.reset_mesh()
+    torch.distributed.destroy_process_group()
 
 
 def main() -> int:
@@ -256,14 +400,17 @@ def main() -> int:
     os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
     open(a.out, "w").close()
     jobs = [("parity", m, PARITY_LIMIT_S) for m in MESHES]
+    jobs.append(("checkpoint", ("checkpoint",), PARITY_LIMIT_S))
     if not a.cpu:
         jobs += [("timed", t, TIMED_LIMIT_S) for t in TIMED]
     t0 = time.perf_counter()
-    for job in jobs:
-        pdist.spawn(_rank, args=(a.out, a.cpu, card, job), nprocs=world)
+    pdist.spawn(_rank, args=(a.out, a.cpu, card, jobs), nprocs=world)
+    import shutil
+
+    shutil.rmtree(a.out + ".ckpt", ignore_errors=True)
     print(json.dumps({"ok": True, "world": world, "card": card,
                       "backend": "gloo" if a.cpu else "nccl",
-                      "jobs": len(jobs),
+                      "jobs": len(jobs), "worlds": 1,
                       "seconds": time.perf_counter() - t0}), flush=True)
     return 0
 
