@@ -78,8 +78,8 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              tokens/s, MFU, peak memory and a profiled step. Then the main
              path, the graphed step (one CUDA graph replay a step), from
              the same weights and batch: losses, parameters and AdamW
-             state against the eager run bit for bit (or within
-             GRAPH_TOL), launches reckoned as the captures' counts plus
+             state against the eager run bit for bit, launches reckoned
+             as the captures' counts plus
              the counts per replay times the replays, the capture's debug
              dump node by node against the launches reckoned per step (no
              CUDA-core attention node), a planted stale table header
@@ -2033,14 +2033,13 @@ def _beside_earlier(path, breakdown):
 
 # -- the graphed step (jit.TrainStep) ------------------------------------------
 
-# the graphed step against the eager one: bit for bit expected (the same
-# kernels and cuBLAS calls on one stream, in the same order); where not,
-# each parameter's difference over its update ||a - b|| / ||b - before||
-# and each state tensor's ||a - b|| / ||b|| must stay under this limit,
-# tighter than the bf16 gradient gates (0.15 dense, 0.06 MoE). The planted
-# stale header (replays keep the first replay's rate and step) reads tens
-# of percent: the bias corrections 1 - b^t move by that much per step
-GRAPH_TOL = 0.01
+# the graphed step against the eager one: bit for bit (the same kernels and
+# cuBLAS calls on one stream, in the same order; every recorded run was).
+# The largest difference is still reported: each parameter's over its
+# update ||a - b|| / ||b - before||, each state tensor's ||a - b|| / ||b||;
+# the planted stale header (replays keep the first replay's rate and step)
+# reads tens of percent there (the bias corrections 1 - b^t move by that
+# much per step), and any difference at all fails the check
 # PR 10's eager steps at batch 4 (PERF.md section 5; H100 80GB HBM3,
 # 700.00 W): step ms, profiled device ms, idle share, peak memory GB
 PR10_STEP = {"dense": {"step_ms": 170.8, "device_ms": 164.0,
@@ -2271,16 +2270,15 @@ def _graph_run(path, model, make_opt, ids, steps, per_step, flops, ref,
     check = {"phase": f"{path}-graph-check", "steps": steps,
              "bitwise": same and loss_same, "max_rel_diff": worst,
              "max_rel_where": where, "loss_max_rel_diff": loss_rel,
-             "limit": GRAPH_TOL, "nodes": rows, "forbidden_nodes": forbidden,
-             "kernel_nodes": total_nodes,
+             "limit": "bit for bit", "nodes": rows,
+             "forbidden_nodes": forbidden, "kernel_nodes": total_nodes,
              "captured_launches_per_step": captured,
              "fault_stale_header": {"max_rel_diff": fworst,
                                     "where": fwhere,
-                                    "caught": not fsame and
-                                    fworst > GRAPH_TOL}}
+                                    "caught": not (fsame and
+                                                   flosses == ref_losses)}}
     _emit(check)
-    if not (same or worst <= GRAPH_TOL) or not (
-            loss_same or loss_rel <= GRAPH_TOL):
+    if not (same and loss_same):
         raise RuntimeError(f"{path}-graph: the graphed step differs from "
                            f"the eager one {check}")
     if not nodes_ok:
@@ -2486,8 +2484,8 @@ def _accumulate_check(model, make_opt, cfg, seed, state0):
     by 1/2, one ``Optimizer._apply`` from the sums, whose kernels read the
     fp32 gradients beside the bf16 parameters): each window's loss against
     the mean of its two microbatch losses, then every parameter and state
-    tensor, bit for bit or within GRAPH_TOL; the launches reckoned exactly
-    (one optimizer update a window)."""
+    tensor, bit for bit; the launches reckoned exactly (one optimizer
+    update a window)."""
     import torch
 
     from paddle_tpu_torch import kernels
@@ -2552,14 +2550,13 @@ def _accumulate_check(model, make_opt, cfg, seed, state0):
            "windows": ACC_WINDOWS, "batch": [8, 2048], "losses": losses,
            "eager_recipe_losses": ref_losses, "bitwise": same and loss_same,
            "max_rel_diff": worst, "max_rel_where": where,
-           "loss_max_rel_diff": loss_rel, "limit": GRAPH_TOL,
+           "loss_max_rel_diff": loss_rel, "limit": "bit for bit",
            "window_ms_each": ms}
     _emit(row)
     if wrong:
         raise RuntimeError(f"accumulate: launches differ from the reckoned "
                            f"(reading, expected): {wrong}")
-    if not (same or worst <= GRAPH_TOL) or not (
-            loss_same or loss_rel <= GRAPH_TOL):
+    if not (same and loss_same):
         raise RuntimeError(f"accumulate: the graphed window differs from "
                            f"the eager recipe {row}")
     return counts
@@ -5932,6 +5929,362 @@ def phase_pipeline(seed):
             "pipeline-accumulate": merge_counts}
 
 
+# -- phase: the MoE Llama across ranks ----------------------------------------
+
+MOE_MESH_STEPS = 3
+MOE_MESH_TIMED = 3       # (a): replays timed after the check
+MOE_MESH_LAYERS = 2      # (b): the flagship's widths, depth cut from 16
+MOE_MESH_RANKS = 4       # (b): dp 2 x ep 2
+# (b) the ranks' steps against the unsharded ones, fp32: each of the three
+# losses within this relative difference, and after the first step each
+# parameter's difference over its update ||p - ref|| / ||ref - init||
+# within this limit (from the second step on, a token within rounding of
+# a routing tie may route otherwise in the two runs, and an expert with few
+# tokens moves by a share of its update: 0.039 after three steps on an H100
+# 80GB HBM3 at 700 W, where the first step reads 4.8e-6 and the planted
+# faults 0.22 and 0.91)
+MOE_MESH_LOSS_RTOL = 1e-4
+MOE_MESH_PARAM_TOL = 1e-2
+# the optimizer kernels' split passes against their plain versions (fp32,
+# tensors marked split over degree-1 axes of the world-1 group): as the
+# optimizer-check holds the rules
+SPLIT_RTOL = 1e-5
+
+
+def _moe_mesh_world1(seed):
+    """(a) The flagship MoE step (``bench.py:1864-1872``: 1.46B, bf16,
+    recompute, Adafactor lr 1e-2, ``fused``) at batch 4 x 2048, graphed,
+    ``jit.TrainStep`` and then ``ShardedTrainStep`` over the world-1 NCCL
+    mesh from the same weights: after MOE_MESH_STEPS steps every loss,
+    parameter and Adafactor state tensor bit for bit the same, and the
+    sharded step's launches reckoned exactly; then MOE_MESH_TIMED more
+    replays of each are timed. Returns its counters."""
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import kernels, set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Adafactor
+
+    set_flags({"FLAGS_moe_dispatch": "fused"})
+    cfg, model = _moe_model("bfloat16", MOE["num_hidden_layers"], seed + 71)
+    L = cfg.num_hidden_layers
+    ids = _ids(cfg.vocab_size, MOE_BATCH, seed + 71)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    per_step = _dense_launches(L)
+    per_step.update({n: c * L for n, c in MOE_KERNELS.items()})
+    per_step.update(adam_update=0, adafactor_stats=1, adafactor_update=1)
+    pdist.init_mesh()  # every degree 1 over the world-1 NCCL group
+    got, counts = {}, None
+
+    def loss_fn(m, x, y):
+        return m(x, labels=y)
+
+    held = _nbytes(state0.values())
+    for kind in ("train", "sharded"):
+        model.load_state_dict(state0)
+        opt = Adafactor(learning_rate=1e-2, parameters=model.parameters())
+        step = pdist.ShardedTrainStep(model, loss_fn, opt) \
+            if kind == "sharded" else TrainStep(model, loss_fn, opt)
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+        losses, _ms = _timed(step, ids, MOE_MESH_STEPS)
+        if kind == "sharded":
+            counts = _reckoned(step)
+        snap = _snapshot(model, opt)
+        _l, ms = _timed(step, ids, MOE_MESH_TIMED)
+        # the check's copies of the weights are left out of the peak
+        got[kind] = (losses, snap, ms, (torch.cuda.max_memory_allocated()
+                                        - held) / 2 ** 30)
+        held += _nbytes(snap.values())
+        del step, opt, snap
+        _release()
+    pdist.reset_mesh()
+    (ref_l, ref_s, ref_ms, ref_gb), (losses, snap, ms, gb) = \
+        got["train"], got["sharded"]
+    differ = [k for k, v in ref_s.items() if not torch.equal(v, snap[k])]
+    n = MOE_MESH_STEPS + 1  # the capture's launches count once, then replay
+    wrong = {k: (c, per_step[k] * n) for k, c in counts.items()
+             if c["plain_calls"] or c["launches"] != per_step[k] * n}
+    moe_per_step = {k: counts[k]["launches"] / n for k in MOE_KERNELS}
+    row = {"phase": "moe-mesh-world1", "card": _nvidia_smi(),
+           "model": "llama-moe-1.46b", "layers": L, "dtype": "bfloat16",
+           "recompute": True, "dispatch": "fused",
+           "optimizer": "Adafactor lr 1e-2", "batch": list(MOE_BATCH),
+           "world": 1, "backend": "nccl", "graph": True,
+           "bitwise_equal": losses == ref_l and not differ,
+           "tensors_differ": differ[:4], "losses": losses,
+           "train_losses": ref_l, "step_ms_each": ms,
+           "step_ms": min(ms), "train_step_ms_each": ref_ms,
+           "train_step_ms": min(ref_ms), "tokens_per_s": MOE_BATCH[0] *
+           MOE_BATCH[1] / min(ms) * 1e3, "peak_gb": gb,
+           "train_peak_gb": ref_gb,
+           "moe_launches_per_step": moe_per_step,
+           "moe_reckoned_per_step": {k: per_step[k] for k in MOE_KERNELS},
+           "launches_wrong": wrong}
+    _emit(row)
+    del got, ref_s, snap, model, state0
+    _release()
+    if not row["bitwise_equal"]:
+        raise RuntimeError(f"moe-mesh: the world-1 sharded step differs from "
+                           f"TrainStep {row}")
+    if wrong:
+        raise RuntimeError(f"moe-mesh: the sharded step's launches differ "
+                           f"from the reckoned (reading, expected): {wrong}")
+    return counts
+
+
+def _split_calls(kopt, rule, rate, p, g, slots, split, plain=False):
+    """{kernel: its call} of one update of ``rule`` over ``p`` with
+    ``split`` marks (None: unsplit), through the kernels or their plain
+    versions; each call is one wrapper call over the tensors as they
+    stand. Adafactor's statistics run once here, and its update call
+    reads them."""
+    sfx = "_plain" if plain else ""
+    b = kopt.StepBatch(p, g, slots, [True] * len(p), rate, 5, rule=rule)
+    b.split = split
+    if rule == "adafactor":
+        stats = getattr(kopt, "adafactor_stats" + sfx)
+        update = getattr(kopt, "adafactor_update" + sfx)
+        kw = dict(decay_rate=0.8, epsilon1=1e-30, weight_decay=0.0,
+                  pscale=True)
+        st = stats(b, **kw)
+        return {"adafactor_stats": lambda: stats(b, **kw),
+                "adafactor_update": lambda: update(
+                    b, st, beta1=0.0, epsilon2=1e-3, clip_threshold=1.0,
+                    pscale=True, weight_decay=0.0)}
+    fn = getattr(kopt, f"{rule}_update" + sfx)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-6, weight_decay=0.01) \
+        if rule == "lamb" else dict(momentum=0.9, lars_coeff=0.001,
+                                    weight_decay=5e-4, epsilon=0.0)
+    return {f"{rule}_update": lambda: fn(b, **kw)}
+
+
+def _split_rules(seed):
+    """The optimizer kernels' split passes (Adafactor's statistics and
+    update, Lamb, LARS over tensors that ``TensorSplits`` marks split)
+    against their plain versions, fp32, and against the unsplit kernels:
+    the marks are over degree-1 axes of the world-1 group, so every sum
+    over ranks is the rank's own and the split step is the unsplit one.
+    Tensors: an expert stack [8, 1536, 2048] split on its expert and
+    intermediate dims, an embedding [32000, 1536] on its rows, a router
+    [1536, 8] and a norm [1536] whole. Returns kernel rows."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    kopt = _opt_module()
+    world = torch.distributed.group.WORLD
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 73)
+    shapes = [(8, 1536, 2048), (32000, 1536), (1536, 8), (1536,)]
+    rows = []
+    for rule, rate in (("adafactor", 1e-2), ("lamb", 1e-2), ("lars", 0.1)):
+        p = [(torch.randn(s, generator=gen, device=DEVICE) * 0.02)
+             for s in shapes]
+        g = [(torch.randn(s, generator=gen, device=DEVICE) * 1e-3)
+             for s in shapes]
+        if rule == "adafactor":
+            slots = [[(torch.rand(s[:-1] if len(s) > 1 else s, generator=gen,
+                                  device=DEVICE) + 0.5) * 1e-7
+                      for s in shapes],
+                     [(torch.rand(s[:-2] + s[-1:], generator=gen,
+                                  device=DEVICE) + 0.5) * 1e-7
+                      if len(s) > 1 else None for s in shapes],
+                     [None] * len(shapes)]
+        else:
+            slots = [[torch.randn(s, generator=gen, device=DEVICE) * 1e-4
+                      for s in shapes],
+                     [torch.randn(s, generator=gen, device=DEVICE).square()
+                      * 1e-6 if rule == "lamb" else None for s in shapes],
+                     [None] * len(shapes)]
+        live = p + [t for sl in slots for t in sl if t is not None]
+        init = [t.clone() for t in live]
+        splits = kopt.TensorSplits([(world, 1, {id(p[0]): 0}),
+                                    (world, 1, {id(p[0]): 2, id(p[1]): 0})])
+
+        def update(split, plain=False):
+            """One update from the initial tensors; what it wrote."""
+            for t, t0 in zip(live, init):
+                t.copy_(t0)
+            fns = _split_calls(kopt, rule, rate, p, g, slots, split, plain)
+            list(fns.values())[-1]()
+            torch.cuda.synchronize()
+            return [t.clone() for t in live]
+
+        ref = update(splits, plain=True)
+        kernels.reset_counters()
+        got = update(splits)
+        counts = kernels.counters()
+        whole = update(None)
+        agree = _opt_agreement(got, ref, init)
+        same_unsplit = all(torch.equal(a, b) for a, b in zip(got, whole))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        P, G = _opt_nbytes(p), _opt_nbytes(g)
+        S = sum(_opt_nbytes(sl) for sl in slots)
+        # the bytes each function must move: its reads and writes once
+        nbytes = {"adafactor_stats": G + P + 2 * S,
+                  "adafactor_update": G + 2 * P + S,
+                  "lamb_update": P + G + S + P + S,
+                  "lars_update": P + G + S + P + S}
+        timed = [_split_calls(kopt, rule, rate, p, g, slots, sp, pl)
+                 for sp, pl in ((splits, False), (splits, True),
+                                (None, False))]
+        for name in timed[0]:
+            row = {"phase": "kernel", "kernel": name,
+                   "case": f"split-{rule}-float32", "dtype": "float32",
+                   "tensors": len(p),
+                   "elements": sum(t.numel() for t in p),
+                   "max_abs_err": err, "fp32_err": agree[2],
+                   "rtol": SPLIT_RTOL, "equal_to_unsplit": same_unsplit,
+                   "launches": counts[name]["launches"],
+                   "kernel_ms": _time_ms(timed[0][name], iters=5, warmup=2),
+                   "unsplit_ms": _time_ms(timed[2][name], iters=5,
+                                          warmup=2),
+                   "plain_ms": _time_ms(timed[1][name], iters=2, warmup=1)}
+            row["bound_ms"], row["bound_by"] = _bound(nbytes[name], 0,
+                                                      "float32")
+            row["library_ms"] = None
+            rows.append(row)
+            _emit(row)
+            if not (agree[2] <= SPLIT_RTOL and same_unsplit and
+                    counts[name]["launches"] == 1 and
+                    counts[name]["plain_calls"] == 0):
+                raise RuntimeError(f"moe-mesh: the split {rule} kernels "
+                                   f"differ from plain or unsplit {row}")
+        del p, g, slots, live, init, ref, got, whole, timed
+        _release()
+    return rows
+
+
+def _moe_mesh_ranks(seed):
+    """(b, c) ``tools/moe_mesh_ranks.py`` as four processes on the one card
+    (dp 2 x ep 2 over gloo in place of NCCL; the file's docstring says
+    why): each holds its losses over three ``index`` steps of the fp32 MoE
+    Llama at the flagship's widths and MOE_MESH_LAYERS layers, and its
+    shards after the first, to the unsharded step's; each planted fault
+    must exceed the limits.
+    Every process is waited for or killed. Returns the ranks' summed
+    counters."""
+    import glob
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(here, "tools", "moe_mesh_ranks.py")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_mesh_")
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w")
+            for r in range(MOE_MESH_RANKS)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, script, "--rank", str(r), "--world",
+         str(MOE_MESH_RANKS), "--store", os.path.join(tmp, "store"),
+         "--out", tmp, "--layers", str(MOE_MESH_LAYERS), "--seed",
+         str(seed)], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(MOE_MESH_RANKS)]
+    try:
+        codes = [p.wait(timeout=420) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    seconds = time.perf_counter() - t0
+    if any(codes):
+        tails = {r: open(os.path.join(tmp, f"rank{r}.log")).read()[-1500:]
+                 for r, c in enumerate(codes) if c}
+        raise RuntimeError(f"moe-mesh: ranks exited {codes}: {tails}")
+    outs = [json.load(open(f)) for f in
+            sorted(glob.glob(os.path.join(tmp, "rank*.json")))]
+    runs = {name: {"loss_rel": max(o["runs"][name]["loss_rel"] for o in outs),
+                   "param_rel": max(o["runs"][name]["param_rel"]
+                                    for o in outs),
+                   "param_rel_where": max(
+                       ((o["runs"][name]["param_rel"],
+                         o["runs"][name]["param_rel_where"]) for o in outs),
+                       key=lambda x: x[0])[1],
+                   "param_rel_after_last": max(
+                       o["runs"][name]["param_rel_after_last"]
+                       for o in outs),
+                   "same_init": all(o["runs"][name]["same_init"]
+                                    for o in outs)}
+            for name in outs[0]["runs"]}
+
+    def within(r):
+        return r["loss_rel"] <= MOE_MESH_LOSS_RTOL and \
+            r["param_rel"] <= MOE_MESH_PARAM_TOL
+
+    counts = {}
+    for o in outs:
+        for k, c in o["counters"].items():
+            got = counts.setdefault(k, {"launches": 0, "plain_calls": 0})
+            got["launches"] += c["launches"]
+            got["plain_calls"] += c["plain_calls"]
+    need = ("moe_gather", "moe_combine", "grouped_matmul",
+            "grouped_matmul_dgrad", "grouped_matmul_wgrad",
+            "adafactor_stats", "adafactor_update")
+    row = {"phase": "moe-mesh-ranks", "card": _nvidia_smi(),
+           "degrees": {"dp": 2, "ep": 2}, "transport": "gloo (one card)",
+           "widths": "flagship", "layers": MOE_MESH_LAYERS,
+           "dtype": "float32", "dispatch": "index", "capacity_factor": 1.25,
+           "optimizer": "Adafactor lr 1e-2", "batch": list(MOE_BATCH),
+           "steps": MOE_MESH_STEPS, "ref_losses": outs[0]["ref_losses"],
+           "losses": outs[0]["runs"]["sound"]["losses"],
+           "expert_shard_shapes": outs[0]["runs"]["sound"]["shapes"],
+           "loss_rtol": MOE_MESH_LOSS_RTOL, "param_tol": MOE_MESH_PARAM_TOL,
+           "sound": runs["sound"],
+           "faults": {k: {**v, "caught": not within(v)}
+                      for k, v in runs.items() if k != "sound"},
+           "launches": {k: counts.get(k, {}).get("launches", 0)
+                        for k in need},
+           "seconds": seconds}
+    _emit(row)
+    if not (within(runs["sound"]) and runs["sound"]["same_init"]):
+        raise RuntimeError(f"moe-mesh: the dp 2 x ep 2 ranks differ from the "
+                           f"unsharded index step {row}")
+    if not all(f["caught"] for f in row["faults"].values()):
+        raise RuntimeError(f"moe-mesh: the check missed a planted fault "
+                           f"{row['faults']}")
+    unused = [k for k in need if not counts.get(k, {}).get("launches")]
+    plain = [k for k, c in counts.items() if c["plain_calls"]]
+    if unused or plain:
+        raise RuntimeError(f"moe-mesh: the ranks' step did not launch "
+                           f"{unused} (plain calls: {plain})")
+    return counts
+
+
+def phase_moe_mesh(seed):
+    """The MoE Llama across ranks on one card: (a) the world-1 NCCL mesh's
+    sharded step on the flagship against ``TrainStep`` bit for bit, with
+    its launches; the split optimizer passes against their plain versions;
+    (b) the per-rank steps of dp 2 x ep 2 against the unsharded ``index``
+    step; (c) the planted faults (a per-rank capacity, a per-rank aux).
+    Returns ({path: counters}, kernel rows)."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import set_flags
+
+    store = torch.distributed.FileStore(
+        os.path.join(tempfile.mkdtemp(prefix="chip_smoke_nccl_"), "store"),
+        1)
+    pdist.init_parallel_env(backend="nccl", store=store, rank=0,
+                            world_size=1)
+    try:
+        world1 = _moe_mesh_world1(seed)
+        rows = _split_rules(seed)
+    finally:
+        set_flags({"FLAGS_moe_dispatch": "index"})
+        _release()
+        torch.distributed.destroy_process_group()
+    ranks = _moe_mesh_ranks(seed)
+    return {"moe-mesh": world1, "moe-mesh-ranks": ranks}, rows
+
+
 def _kernels_line(rows, paths):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
@@ -6185,6 +6538,8 @@ def main() -> int:
     distributed, dist_rows = phase_distributed(SEED)
     rows += dist_rows
     pipeline = phase_pipeline(SEED)
+    moe_mesh, mesh_rows = phase_moe_mesh(SEED)
+    rows += mesh_rows
 
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
            "batch": [4, 2048], "rules": rule_steps})
@@ -6198,7 +6553,7 @@ def main() -> int:
         "finetune-fp32": finetune_fp32, "gpt-training": gpt,
         "gpt-training-eager": gpt_eager, "gpt-graph-check": gpt_graph_check,
         "llama-cache": llama_cache, **bench, **distributed,
-        **pipeline})})
+        **pipeline, **moe_mesh})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -14,9 +14,10 @@ The pipeline (``meta_parallel``: ``PipelineLayer``, the 1F1B schedule
 over P2P, ``PipelineParallel``, ``pipeline_local``) runs through
 ``ShardedTrainStep``, which also carries the in-graph ``GradScaler``,
 gradient merge (``accum_steps``) and ``accumulate``; ``checkpoint``
-saves each rank's shards and reshards them on load. Not ported yet
-(ROADMAP Queue 1 item 3): expert parallelism, the elastic fleet, the
-parameter server, the launcher and the auto-parallel planner.
+saves each rank's shards and reshards them on load; an MoE model splits
+its experts over ``ep`` (``models.moe``: ``global_scatter`` /
+``global_gather``). Not ported yet (ROADMAP Queue 1 item 3): the elastic
+fleet, the parameter server, the launcher and the auto-parallel planner.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from .context_parallel import (ring_attention, ring_attention_bhsd,
                                ulysses_attention_local)
 from .mesh import (MeshEnv, get_mesh_env, init_mesh, require_mesh_env,
                    reset_mesh)
+from .models.moe import global_gather, global_scatter, number_count
 from .parallel import (DataParallel, ShardedAccumulateStep, ShardedTrainStep,
                        default_batch_sharding, param_sharding, place_model,
                        shard_batch, zero_partition_spec)
@@ -55,7 +57,8 @@ __all__ = ["fleet", "checkpoint", "ShardedAccumulateStep", "Group", "ReduceOp", 
            "group_sharded_parallel", "save_group_sharded_model",
            "ring_attention", "ring_attention_bhsd", "ring_attention_local",
            "ulysses_attention", "ulysses_attention_bshd",
-           "ulysses_attention_local", "spawn", "ParallelEnv"]
+           "ulysses_attention_local", "global_scatter", "global_gather",
+           "number_count", "spawn", "ParallelEnv"]
 
 
 def _spawn_entry(i, func, args, nprocs, store_path):

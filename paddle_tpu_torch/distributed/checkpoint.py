@@ -10,10 +10,11 @@ file, ``fsync`` and ``os.replace``, the manifest fragment last (the
 commit point of the rank's save).
 
 Each rank writes only the shards it owns, replica 0 of each: a tensor's
-split is read from the attributes the port's layers put on it (``mp_dim``,
-over mp; ``zero3_dim`` / ``zero_dim``, over sdp inside the mp shard), and
-a rank writes a shard where its coordinate on every other axis but pp is
-0 (a pipeline stage's tensors live on that stage alone). A load
+split is read from the attributes the port's layers put on it (``ep_dim``,
+over ep; ``mp_dim``, over mp; ``zero3_dim`` / ``zero_dim``, over sdp
+inside the mp shard), and a rank writes a shard where its coordinate on
+every other axis but pp is 0 (a pipeline stage's tensors live on that
+stage alone). A load
 reassembles each tensor from whatever split it was saved with and slices
 it for the target's split on the current mesh: a checkpoint saved at dp 2
 x mp 2 loads at pp 2 x dp 2, at sdp 4 or in one process.
@@ -115,13 +116,16 @@ def _coords():
 
 def tensor_splits(t) -> List[tuple]:
     """``[(dim, axis), ...]``, outermost first: how the port splits ``t``
-    over the mesh, from its attributes (``mp_dim``: the tensor-parallel
-    shard; ``zero3_dim`` or ``zero_dim``: the ZeRO slice over sdp, inside
-    the mp shard; ``ckpt_splits`` given outright)."""
+    over the mesh, from its attributes (``ep_dim``: an MoE layer's expert
+    shard; ``mp_dim``: the tensor-parallel shard; ``zero3_dim`` or
+    ``zero_dim``: the ZeRO slice over sdp, inside the mp shard;
+    ``ckpt_splits`` given outright)."""
     given = getattr(t, "ckpt_splits", None)
     if given is not None:
         return list(given)
     out = []
+    if getattr(t, "ep_dim", None) is not None:
+        out.append((t.ep_dim, "ep"))
     if getattr(t, "mp_dim", None) is not None:
         out.append((t.mp_dim, "mp"))
     for attr in ("zero3_dim", "zero_dim"):
@@ -326,18 +330,35 @@ def _optimizer_tensors(layer, optimizer) -> Dict[str, torch.Tensor]:
         whole = getattr(p, "zero_full", None)
         name = names.get(id(whole if whole is not None else p),
                          optimizer._names[i])
-        splits = []
-        mp_dim = getattr(whole if whole is not None else p, "mp_dim", None)
-        if mp_dim is not None:
-            splits.append((mp_dim, "mp"))
+        marked = whole if whole is not None else p
+        splits = [(d, ax) for d, ax in ((getattr(marked, "ep_dim", None),
+                                         "ep"),
+                                        (getattr(marked, "mp_dim", None),
+                                         "mp")) if d is not None]
         zdim = getattr(p, "zero3_dim", getattr(p, "zero_dim", None))
+        if zdim is not None:
+            splits.append((zdim, "sdp"))
         for k, v in optimizer._state.get(id(p), {}).items():
-            # a state the size of its tensor splits as it does; others whole
-            v.ckpt_splits = splits + ([(zdim, "sdp")] if zdim is not None
-                                      else []) \
-                if v.shape == p.shape else []
+            v.ckpt_splits = _state_splits(v, p, splits)
             out[f"opt.{name}.{k}"] = v
     return out
+
+
+def _state_splits(v, p, splits):
+    """The split of an optimizer state ``v`` of tensor ``p`` (split as
+    ``splits``): one of p's size splits as p does; Adafactor's row and
+    column statistics (p's shape without its last dim, or without its
+    second to last) as p's dims they keep, a mean over a split dim being
+    whole on every rank; any other state whole."""
+    if v.shape == p.shape:
+        return list(splits)
+    d = p.dim()
+    if d >= 2 and tuple(v.shape) == tuple(p.shape[:-1]):        # vr
+        return [(k, ax) for k, ax in splits if k < d - 1]
+    if d >= 2 and tuple(v.shape) == tuple(p.shape[:-2]) + (p.shape[-1],):
+        return [(k if k < d - 2 else k - 1, ax) for k, ax in splits
+                if k != d - 2]                                      # vc
+    return []
 
 
 def save_sharded_model(layer, optimizer, path: str) -> None:

@@ -137,12 +137,12 @@ def _mark(p, mp_dim, n):
 
 
 def mark_parameters(model: nn.Module) -> nn.Module:
-    """Sets ``is_distributed`` and ``mp_dim`` on the parameters every
-    tensor-parallel layer of ``model`` holds now (a ZeRO-3 shard has them
-    from its parameter already)."""
+    """Sets ``is_distributed`` and ``mp_dim`` (an MoE layer's experts also
+    ``ep_dim``) on the parameters every tensor- or expert-parallel layer
+    of ``model`` holds now (a ZeRO-3 shard has them from its parameter
+    already)."""
     for m in model.modules():
-        if isinstance(m, (VocabParallelEmbedding, ColumnParallelLinear,
-                          RowParallelLinear)) and \
+        if callable(getattr(m, "_mark_params", None)) and \
                 not parametrize.is_parametrized(m):
             m._mark_params()
     return model

@@ -174,7 +174,12 @@ class StageRun:
     stage's place; ``seed``: what the last stage's loss is multiplied by
     before its backward (a loss scale, as a tensor, or None); ``meta``:
     the (shape, dtype) every activation must have, None until the first
-    one fixes it."""
+    one fixes it.
+
+    A stage whose ``pipeline_forward`` returns ``(result, aux)`` adds the
+    scalar ``aux`` (an MoE stage's aux-loss share) to its own objective:
+    its backward seeds it as the loss is seeded, whatever stage it is, and
+    its values are kept in ``aux``, in microbatch order."""
 
     def __init__(self, stage, mbs: Sequence[tuple], params, acc, first: bool,
                  last: bool, seed=None, grad_scale=None, meta=None):
@@ -187,6 +192,7 @@ class StageRun:
         self.grad_scale = grad_scale
         self.meta = meta
         self.losses: List[torch.Tensor] = []
+        self.aux: List[torch.Tensor] = []
         self._saved: Dict[int, tuple] = {}
 
     def _check(self, t, what):
@@ -204,23 +210,34 @@ class StageRun:
             self._check(inp, "a received activation")
             inp = inp.detach().requires_grad_(True)
         out = self.stage.pipeline_forward(inp, *self.mbs[i])
+        aux = None
+        if isinstance(out, tuple):
+            out, aux = out
+            self.aux.append(aux.detach().float())
         if self.last:
             self.losses.append(out.detach().float())
         else:
             self._check(out, "a stage's output")
-        self._saved[i] = (inp, out)
+        self._saved[i] = (inp, out, aux)
         return None if self.last else out.detach()
 
+    def _seeded(self, t):
+        return torch.ones_like(t) if self.seed is None else \
+            self.seed.reshape(t.shape).to(t.dtype)
+
     def backward(self, i: int, dout):
-        inp, out = self._saved.pop(i)
+        inp, out, aux = self._saved.pop(i)
         if self.last:
-            dout = None if self.seed is None else self.seed.reshape(
-                out.shape).to(out.dtype)
+            dout = None if self.seed is None and aux is None else \
+                self._seeded(out)
         elif dout is None:
             raise RuntimeError("pipeline: a stage's backward got no "
                                "gradient from the next stage")
+        outs, douts = out, dout
+        if aux is not None:
+            outs, douts = [out, aux], [dout, self._seeded(aux)]
         wrt = ([inp] if inp is not None else []) + self.params
-        grads = torch.autograd.grad(out, wrt, grad_outputs=dout,
+        grads = torch.autograd.grad(outs, wrt, grad_outputs=douts,
                                     allow_unused=True)
         din = grads[0] if inp is not None else None
         with torch.no_grad():
@@ -409,7 +426,9 @@ def pipeline_local(stages: Sequence[torch.nn.Module], *batch,
     ``pipeline_forward`` reads what it needs). Calls each stage's
     ``pipeline_prepare(*batch)`` where it has one first. Returns (the
     losses of the microbatches, fp32 [M]; per stage the fp32 gradient sums
-    of its trainable parameters, None where a parameter got none)."""
+    of its trainable parameters, None where a parameter got none). The
+    stages' aux shares (:class:`StageRun`) are added to the losses of
+    their microbatches."""
     m = int(num_microbatches)
     mbs = list(zip(*[microbatch(a, m) if isinstance(a, torch.Tensor)
                      else [a] * m for a in batch]))
@@ -422,4 +441,8 @@ def pipeline_local(stages: Sequence[torch.nn.Module], *batch,
         runs.append(StageRun(st, mbs, params, _fp32_acc(params), r == 0,
                              r == pp - 1, seed=seed, grad_scale=grad_scale))
     run_local(runs, m)
-    return torch.stack(runs[-1].losses), [r.acc for r in runs]
+    losses = torch.stack(runs[-1].losses)
+    for r in runs:
+        if r.aux:
+            losses = losses + torch.stack(r.aux)
+    return losses, [r.acc for r in runs]

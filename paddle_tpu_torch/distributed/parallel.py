@@ -226,9 +226,11 @@ def _zero_dim(shape, env):
 
 def param_sharding(p, env: MeshEnv):
     """Where ``p``'s dims are split: a tuple over its dims of None or the
-    axis (``"mp"`` for a tensor-parallel shard, ``"sdp"`` for a ZeRO-3
-    one)."""
+    axis (``"ep"`` for an expert-parallel shard, ``"mp"`` for a
+    tensor-parallel one, ``"sdp"`` for a ZeRO-3 one)."""
     spec = [None] * p.dim()
+    if getattr(p, "ep_dim", None) is not None:
+        spec[p.ep_dim] = "ep"
     if getattr(p, "mp_dim", None) is not None:
         spec[p.mp_dim] = "mp"
     if getattr(p, "zero3_dim", None) is not None:
@@ -307,11 +309,16 @@ class _Entry:
     """One tensor the optimizer updates: ``full`` the model's parameter
     (None for a ZeRO-3 shard, which is the model's own), ``opt`` the
     tensor updated, ``zdim`` the dim split over sdp (None: whole),
-    ``mp`` whether it is a tensor-parallel shard."""
+    ``mp`` whether it is a tensor-parallel shard, ``ep`` whether an
+    expert-parallel one; ``dims`` the dim each axis splits."""
 
     def __init__(self, full, opt, zdim, stage3, mp):
         self.full, self.opt, self.zdim = full, opt, zdim
         self.stage3, self.mp = stage3, mp
+        marked = opt if full is None else full
+        self.dims = {"sdp": zdim, "ep": getattr(marked, "ep_dim", None),
+                     "mp": getattr(marked, "mp_dim", None)}
+        self.ep = self.dims["ep"] is not None
 
 
 class _AmpState:
@@ -357,7 +364,14 @@ class ShardedTrainStep(_Step):
     once (tensor- and ZeRO-split parameters' sums of squares are
     all-reduced over their axis, the stages' totals over pp), through the
     clip the step hands the optimizer's update. Lamb, LARS and Adafactor
-    take statistics over a whole tensor and raise under a split.
+    take statistics over a whole tensor: over a split one they are
+    summed over its axes between the kernels' partial and finish passes
+    (``kernels.optimizer.TensorSplits``).
+
+    **ep > 1.** An MoE model's experts are split over ep (its
+    ``MoELayer``s hold ``e / ep`` each); the ranks of one ep group see the
+    same tokens, and every parameter ends the backward with its full
+    gradient there, so gradients are reduced over the data ranks only.
 
     **pp > 1.** A model built as one stage of a pipeline (its
     ``pipelined`` attribute: ``LlamaForCausalLM`` and ``PipelineLayer``
@@ -392,9 +406,9 @@ class ShardedTrainStep(_Step):
     On a CUDA model the step is one captured CUDA graph a call, NCCL
     collectives and P2P included, as ``jit.TrainStep`` (``graph=False``:
     eager); a window's accumulating call and its boundary call are two
-    graphs. Optimizer offload and ``ep`` above 1 raise
-    ``NotImplementedError``. ``donate`` is the JAX signature's: the update
-    writes the parameters and state in place whatever it says.
+    graphs. Optimizer offload raises ``NotImplementedError``. ``donate`` is
+    the JAX signature's: the update writes the parameters and state in
+    place whatever it says.
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable, optimizer,
@@ -404,8 +418,6 @@ class ShardedTrainStep(_Step):
         if getattr(optimizer, "_offload", False):
             raise _deferred("optimizer offload")
         env = env or require_mesh_env()
-        if env.get_dim("ep") > 1:
-            raise _deferred("expert parallelism (ep > 1)")
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         inner = mark_parameters(getattr(model, "_layers", model))
@@ -437,15 +449,19 @@ class ShardedTrainStep(_Step):
         self._mp_pg = env.group("mp") if env.get_dim("mp") > 1 else None
         self._pp_pg = env.group("pp") if self.pp > 1 else None
         self._pp_rank = env.coord("pp")
+        self._ep_pg = env.group("ep") if env.get_dim("ep") > 1 else None
         self._plan = self._entries()
-        self._split_norms = any(e.zdim is not None or e.mp
+        self._split_norms = any(e.zdim is not None or e.mp or e.ep
                                 for e in self._plan)
-        from ..optimizer import Adafactor, Lamb, LarsMomentum
-
-        if self._split_norms and isinstance(
-                optimizer, (Lamb, LarsMomentum, Adafactor)):
-            raise _deferred(f"{type(optimizer).__name__} over tensor- or "
-                            f"ZeRO-split parameters (per-tensor statistics)")
+        # the per-tensor statistics of Adafactor, Lamb and LARS over split
+        # tensors: summed over sdp, ep, mp in that order
+        self._splits = _kopt.TensorSplits(
+            [(pg, env.get_dim(ax),
+              {id(e.opt): e.dims[ax] for e in self._plan
+               if e.dims[ax] is not None})
+             for ax, pg in (("sdp", self._sdp_pg), ("ep", self._ep_pg),
+                            ("mp", self._mp_pg)) if env.get_dim(ax) > 1]) \
+            if self._split_norms else None
         self._masks: Dict[tuple, torch.Tensor] = {}
         self._amp: Optional[_AmpState] = None
         self._win_count = 0     # calls into the open window (host)
@@ -628,6 +644,9 @@ class ShardedTrainStep(_Step):
             loss = losses.mean() if mean else losses.sum()
         else:
             loss = torch.zeros((), dtype=torch.float32, device=self._device())
+        if run.aux:  # this stage's aux shares, in the reported loss too
+            aux = torch.stack(run.aux)
+            loss = loss + (aux.mean() if mean else aux.sum())
         raw: List[Optional[torch.Tensor]] = [None] * len(self._plan)
         for j, a in zip(live, acc):
             raw[j] = a
@@ -675,7 +694,8 @@ class ShardedTrainStep(_Step):
             return self._amp_body(batch[0], *batch[1:])
         loss, raw = self._local_grads(self.local_batch(batch))
         grads = self._reduce(raw)
-        opt_batch = self.optimizer._apply(grads, clip=self._clip)
+        opt_batch = self.optimizer._apply(grads, clip=self._clip,
+                                          split=self._splits)
         self._gather_zero()
         return self._global_loss(loss), opt_batch
 
@@ -743,7 +763,8 @@ class ShardedTrainStep(_Step):
             skip = flag.clamp(max=1)
             self._scale_update(skip == 0)
             opt_batch = opt._apply(grads, clip=self._clip,
-                                   device_step=(a.updates, skip))
+                                   device_step=(a.updates, skip),
+                                   split=self._splits)
             a.updates.add_(1 - skip)
         else:
             with torch.no_grad():
@@ -772,10 +793,12 @@ class ShardedTrainStep(_Step):
                 if has_scaler:
                     skip = (a.goodw == 0).to(torch.int32)
                     opt_batch = opt._apply(grads, clip=self._clip,
-                                           device_step=(a.updates, skip))
+                                           device_step=(a.updates, skip),
+                                           split=self._splits)
                     a.updates.add_(1 - skip)
                 else:
-                    opt_batch = opt._apply(grads, clip=self._clip)
+                    opt_batch = opt._apply(grads, clip=self._clip,
+                                           split=self._splits)
                 with torch.no_grad():
                     for acc in a.acc:
                         if acc is not None:
@@ -813,11 +836,11 @@ class ShardedTrainStep(_Step):
 
     # -- the clip over the mesh ------------------------------------------------
     def _split_masks(self, params) -> torch.Tensor:
-        """[3, n] fp32: which of ``params`` are ZeRO slices, which
-        tensor-parallel shards, and which count toward the global norm on
-        this stage (a weight tied across stages counts on its first
-        holder only); made once per tensor list, before any capture reads
-        them."""
+        """[4, n] fp32: which of ``params`` are ZeRO slices, which
+        tensor-parallel shards, which count toward the global norm on this
+        stage (a weight tied across stages counts on its first holder
+        only), and which are expert-parallel shards; made once per tensor
+        list, before any capture reads them."""
         key = tuple(id(p) for p in params)
         m = self._masks.get(key)
         if m is None:
@@ -829,7 +852,8 @@ class ShardedTrainStep(_Step):
                               [0.0 if getattr(self._held(kind[id(p)]),
                                               "pp_shared", None) is not None
                                and self.pipelined and not first_holder
-                               else 1.0 for p in params]],
+                               else 1.0 for p in params],
+                              [float(kind[id(p)].ep) for p in params]],
                              device=params[0].device)
             self._masks[key] = m
         return m
@@ -837,9 +861,10 @@ class ShardedTrainStep(_Step):
     def _clip(self, batch):
         """The update's (clip, norms) over the mesh, in place of the
         optimizer's ``_clip``: each tensor's sum of squares all-reduced
-        over the axes that split it (sdp, then mp), the global sum over
-        every tensor this rank updates, and under the pipeline over the
-        stages (each parameter lives on one)."""
+        over the axes that split it (sdp, then ep, then mp; a tensor
+        replicated over an axis is not summed over it), the global sum
+        over every tensor this rank updates, and under the pipeline over
+        the stages (each parameter lives on one)."""
         c = self.optimizer._grad_clip
         if c is None:
             return ("none",), None
@@ -853,6 +878,8 @@ class ShardedTrainStep(_Step):
         s = _kopt.multi_tensor_sumsq(batch, 0.0, 0)[:n]
         masks = self._split_masks(batch.params)
         for mask, pg, deg in ((masks[0], self._sdp_pg, self._sdp),
+                              (masks[3], self._ep_pg,
+                               self.env.get_dim("ep")),
                               (masks[1], self._mp_pg,
                                self.env.get_dim("mp"))):
             if deg > 1:
@@ -915,7 +942,8 @@ class ShardedAccumulateStep(_Step):
                                 else g.float() * scale)
             losses.append(loss)
         grads = outer._reduce(acc)
-        opt_batch = self.optimizer._apply(grads, clip=outer._clip)
+        opt_batch = self.optimizer._apply(grads, clip=outer._clip,
+                                          split=outer._splits)
         outer._gather_zero()
         return outer._global_loss(torch.stack(losses).mean()), opt_batch
 

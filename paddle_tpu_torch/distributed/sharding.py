@@ -69,7 +69,7 @@ def _shard_parameters(model: nn.Module, env: MeshEnv) -> dict:
                 mod, name, _SdpGather(dim, pg, n, rank), unsafe=True)
             shard = mod.parametrizations[name].original
             shard.zero3_dim = dim
-            for attr in ("is_distributed", "mp_dim"):  # the mp layer's marks
+            for attr in ("is_distributed", "mp_dim", "ep_dim"):  # the marks
                 if attr in vars(p):
                     setattr(shard, attr, vars(p)[attr])
             remap[id(p)] = shard
@@ -136,8 +136,8 @@ def group_sharded_parallel(model: nn.Module, optimizer, level: str = "p_g_os",
 
 
 def gather_full_state(model: nn.Module, env: MeshEnv = None):
-    """The model's state with every ZeRO-3 and tensor-parallel shard
-    gathered, under the unparametrized names (collective: every rank
+    """The model's state with every ZeRO-3, tensor- and expert-parallel
+    shard gathered, under the unparametrized names (collective: every rank
     calls it; every rank gets it)."""
     env = env or require_mesh_env()
     out = {}
@@ -155,6 +155,10 @@ def gather_full_state(model: nn.Module, env: MeshEnv = None):
             if mp_dim is not None and env.get_dim("mp") > 1:
                 t = all_gather_dim(t, env.group("mp"), env.get_dim("mp"),
                                    mp_dim)
+            ep_dim = getattr(p, "ep_dim", None)
+            if ep_dim is not None and env.get_dim("ep") > 1:
+                t = all_gather_dim(t, env.group("ep"), env.get_dim("ep"),
+                                   ep_dim)
             out[key] = t.contiguous().clone()
     return out
 

@@ -98,7 +98,9 @@ constexpr int kHeaderWords = 3;
 // tensor entry words
 constexpr int kP = 0, kG = 1, kS0 = 2, kS1 = 3, kS2 = 4, kNumel = 5,
               kCols = 6, kRows = 7, kSpan = 8, kTiles = 9, kChunkBegin = 10,
-              kChunkEnd = 11, kFlags = 12, kMatBase = 13, kColBase = 14;
+              kChunkEnd = 11, kFlags = 12, kMatBase = 13, kColBase = 14,
+              kSplitBase = 15;  // factored: vc offset << 32 | vr offset, of
+                                // the step's row and column sum buffers
 // flags
 constexpr int64_t kBf16 = 1, kDecay = 2, kVec = 4, kFactored = 8,
                   kGradF32 = 16;  // fp32 gradient, bf16 parameter
@@ -445,7 +447,8 @@ __device__ __forceinline__ void beta2(int step, float decay, float& bt, float& o
 template <typename T, typename TG>
 __device__ float stats_chunk(const int64_t* e, int i, const Chunk& ch,
                              const FactorArgs& a, const float* norms, int n,
-                             float bt, float om, float* colpart, float* smem) {
+                             float bt, float om, float* colpart, float* smem,
+                             float* rowsum) {
   const TG* g = reinterpret_cast<const TG*>(e[kG]);
   const T* p = reinterpret_cast<const T*>(e[kP]);
   const int64_t fl = e[kFlags];
@@ -542,6 +545,12 @@ __device__ float stats_chunk(const int64_t* e, int i, const Chunk& ch,
     }
     __syncthreads();
   }
+  if (rowsum != nullptr) {  // a split tensor: the raw sums, summed over
+    // the ranks before the finish pass takes the mean over every column
+    float* rs = rowsum + (e[kSplitBase] & 0xffffffffLL) + ch.b * R + ch.r0;
+    for (int r = threadIdx.x; r < ch.nr; r += kStatsThreads) rs[r] = rowacc[r];
+    return psum;
+  }
   // vr = beta2t * vr + (1 - beta2t) * mean over the row
   const float fc = (float)C;
   for (int r = threadIdx.x; r < ch.nr; r += kStatsThreads) {
@@ -554,7 +563,7 @@ __device__ float stats_chunk(const int64_t* e, int i, const Chunk& ch,
 __global__ void __launch_bounds__(kStatsThreads)
 adafactor_stats_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
                        FactorArgs a, float* __restrict__ colpart,
-                       float* __restrict__ pspart) {
+                       float* __restrict__ pspart, float* __restrict__ rowsum) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float red[kStatsWarps];
   const Header h = header(table);
@@ -565,7 +574,8 @@ adafactor_stats_kernel(const int64_t* __restrict__ table, const float* __restric
   beta2(h.step, a.decay, bt, om);
   float psum = by_types(e, [&](auto tp, auto tg) {
     return stats_chunk<decltype(tp), decltype(tg)>(
-        e, ch.tensor, ch, a, norms, h.n_tensors, bt, om, colpart, smem);
+        e, ch.tensor, ch, a, norms, h.n_tensors, bt, om, colpart, smem,
+        rowsum);
   });
   psum = block_sum<kStatsThreads>(psum, red);
   if (threadIdx.x == 0) pspart[blockIdx.x] = psum;
@@ -574,11 +584,14 @@ adafactor_stats_kernel(const int64_t* __restrict__ table, const float* __restric
 // blocks [0, n_matrices): one matrix each, vc from its tiles' column
 // partials in tile order, then mean(vr); blocks [n_matrices, + n_tensors):
 // one tensor each, its sum of p^2 from its chunk partials in order.
-// stats = [sum p^2 per tensor | mean(vr) per matrix]
+// stats = [sum p^2 per tensor | mean(vr) per matrix]. With colsum (a
+// split step) a matrix block writes its raw column sums there instead,
+// and vc, vr and the means wait for the sums over the ranks.
 __global__ void __launch_bounds__(kThreads)
 adafactor_finish_kernel(const int64_t* __restrict__ table, int n_matrices,
                         FactorArgs a, const float* __restrict__ colpart,
-                        const float* __restrict__ pspart, float* __restrict__ stats) {
+                        const float* __restrict__ pspart, float* __restrict__ stats,
+                        float* __restrict__ colsum) {
   __shared__ float red[kThreads / 32];
   const Header h = header(table);
   if (h.skip) return;  // a non-finite step: nothing is written
@@ -603,6 +616,15 @@ adafactor_finish_kernel(const int64_t* __restrict__ table, int n_matrices,
   float* vc = reinterpret_cast<float*>(e[kS1]) + b * C;
   const float* cols = colpart + e[kColBase] + b * tiles * C;
   const float fr = (float)R;
+  if (colsum != nullptr) {
+    float* cs = colsum + (e[kSplitBase] >> 32) + b * C;
+    for (int64_t c = threadIdx.x; c < C; c += kThreads) {
+      float s = cols[c];
+      for (int64_t t = 1; t < tiles; ++t) s = fadd(s, cols[t * C + c]);
+      cs[c] = s;
+    }
+    return;
+  }
   for (int64_t c = threadIdx.x; c < C; c += kThreads) {
     float s = cols[c];
     for (int64_t t = 1; t < tiles; ++t) s = fadd(s, cols[t * C + c]);
@@ -613,6 +635,46 @@ adafactor_finish_kernel(const int64_t* __restrict__ table, int n_matrices,
   for (int64_t r = threadIdx.x; r < R; r += kThreads) acc = fadd(acc, vr[r]);
   acc = block_sum<kThreads>(acc, red);
   if (threadIdx.x == 0) stats[n + e[kMatBase] + b] = fdiv(acc, fr);
+}
+
+// A split step's finish, after the row and column sums were summed over
+// the ranks that split the columns and the rows: per matrix, vr and vc
+// from the sums over the whole tensor (fulls: numel, C, R of each whole
+// tensor) and the sum of the new vr into stats[n + matrix], in the order
+// of adafactor_finish_kernel's mean (the host sums it over the ranks that
+// split the rows, then divides by the whole R).
+__global__ void __launch_bounds__(kThreads)
+adafactor_split_finish_kernel(const int64_t* __restrict__ table, FactorArgs a,
+                              const float* __restrict__ rowsum,
+                              const float* __restrict__ colsum,
+                              const float* __restrict__ fulls,
+                              float* __restrict__ stats) {
+  __shared__ float red[kThreads / 32];
+  const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
+  const int n = h.n_tensors;
+  const int64_t mw = chunk_words(table, n)[h.n_chunks + blockIdx.x];
+  const int i = (int)(mw >> 40);
+  const int64_t b = mw & ((1LL << 40) - 1);
+  const int64_t* e = entry(table, i);
+  const int64_t C = e[kCols], R = e[kRows];
+  float bt, om;
+  beta2(h.step, a.decay, bt, om);
+  const float fc = fulls[3 * i + 1], fr = fulls[3 * i + 2];
+  float* vc = reinterpret_cast<float*>(e[kS1]) + b * C;
+  const float* cs = colsum + (e[kSplitBase] >> 32) + b * C;
+  for (int64_t c = threadIdx.x; c < C; c += kThreads)
+    vc[c] = fadd(fmul(bt, vc[c]), fmul(om, fdiv(cs[c], fr)));
+  float* vr = reinterpret_cast<float*>(e[kS0]) + b * R;
+  const float* rs = rowsum + (e[kSplitBase] & 0xffffffffLL) + b * R;
+  float acc = 0.f;
+  for (int64_t r = threadIdx.x; r < R; r += kThreads) {
+    const float x = fadd(fmul(bt, vr[r]), fmul(om, fdiv(rs[r], fc)));
+    vr[r] = x;
+    acc = fadd(acc, x);
+  }
+  acc = block_sum<kThreads>(acc, red);
+  if (threadIdx.x == 0) stats[n + e[kMatBase] + b] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -751,21 +813,45 @@ adafactor_usq_kernel(const int64_t* __restrict__ table, const float* __restrict_
   if (threadIdx.x == 0) uspart[blockIdx.x] = usq;
 }
 
+// a tensor's sum of u^2 from its chunk partials, in the order every block
+// of adafactor_apply_kernel takes it (one block a tensor)
+__device__ __forceinline__ float tensor_usq(const int64_t* e,
+                                            const float* uspart, float* red) {
+  float usq = 0.f;
+  for (int64_t c = e[kChunkBegin] + threadIdx.x; c < e[kChunkEnd]; c += kThreads)
+    usq = fadd(usq, uspart[c]);
+  return block_sum<kThreads>(usq, red);
+}
+
+// a split step: each tensor's sum of u^2 into usq, for the sum over ranks
+__global__ void __launch_bounds__(kThreads)
+adafactor_usq_sum_kernel(const int64_t* __restrict__ table,
+                         const float* __restrict__ uspart, float* __restrict__ usq) {
+  __shared__ float red[kThreads / 32];
+  const Header h = header(table);
+  if (h.skip) return;
+  const float s = tensor_usq(entry(table, blockIdx.x), uspart, red);
+  if (threadIdx.x == 0) usq[blockIdx.x] = s;
+}
+
+// usq_all and fulls (a split step): each tensor's sum of u^2 over the
+// ranks, and its whole numel (fulls[3 i]); null: this rank's alone
 __global__ void __launch_bounds__(kThreads)
 adafactor_apply_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
                        FactorArgs a, const float* __restrict__ stats,
-                       const float* __restrict__ uspart) {
+                       const float* __restrict__ uspart,
+                       const float* __restrict__ usq_all,
+                       const float* __restrict__ fulls) {
   __shared__ float red[kThreads / 32];
   const Header h = header(table);
   if (h.skip) return;  // a non-finite step: nothing is written
   const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
   const int64_t* e = entry(table, ch.tensor);
   // the tensor's sum of u^2, in the same order in every one of its blocks
-  float usq = 0.f;
-  for (int64_t c = e[kChunkBegin] + threadIdx.x; c < e[kChunkEnd]; c += kThreads)
-    usq = fadd(usq, uspart[c]);
-  usq = block_sum<kThreads>(usq, red);
-  const float numel = (float)e[kNumel];
+  const float usq = usq_all != nullptr ? usq_all[ch.tensor]
+                                       : tensor_usq(e, uspart, red);
+  const float numel = fulls != nullptr ? fulls[3 * ch.tensor]
+                                       : (float)e[kNumel];
   const float rms = sqrtf(fdiv(usq, numel));
   const float den = nanmax(1.f, fdiv(rms, a.clip_threshold));
   const float scale = a.pscale
@@ -1086,23 +1172,57 @@ __device__ void norm_apply_chunk(const int64_t* e, int i, const Chunk& ch,
   }
 }
 
-template <int RULE>
-__global__ void __launch_bounds__(kThreads)
-norm_apply_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
-                  NormArgs a, const double* __restrict__ partial) {
-  __shared__ double red[kThreads / 32];
-  const Header h = header(table);
-  if (h.skip) return;  // a non-finite step: nothing is written
-  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
-  const int64_t* e = entry(table, ch.tensor);
-  // the tensor's sums, in the same order in every one of its blocks
-  double sa = 0.0, sp = 0.0;
+// a tensor's two sums from its chunk partials, in the order every block of
+// norm_apply_kernel takes them
+__device__ __forceinline__ void tensor_sums(const int64_t* e,
+                                            const double* partial, double* red,
+                                            double& sa, double& sp) {
+  sa = 0.0;
+  sp = 0.0;
   for (int64_t c = e[kChunkBegin] + threadIdx.x; c < e[kChunkEnd]; c += kThreads) {
     sa = dadd(sa, partial[2 * c]);
     sp = dadd(sp, partial[2 * c + 1]);
   }
   sa = block_sum_d(sa, red);
   sp = block_sum_d(sp, red);
+}
+
+// a split step: each tensor's two sums into sums[2 i], sums[2 i + 1], for
+// the sums over the ranks that split it (one block a tensor)
+__global__ void __launch_bounds__(kThreads)
+norm_sums_kernel(const int64_t* __restrict__ table,
+                 const double* __restrict__ partial, double* __restrict__ sums) {
+  __shared__ double red[kThreads / 32];
+  const Header h = header(table);
+  if (h.skip) return;
+  double sa, sp;
+  tensor_sums(entry(table, blockIdx.x), partial, red, sa, sp);
+  if (threadIdx.x == 0) {
+    sums[2 * blockIdx.x] = sa;
+    sums[2 * blockIdx.x + 1] = sp;
+  }
+}
+
+// sums (a split step): each tensor's sums over the ranks; null: re-summed
+// from this rank's partials
+template <int RULE>
+__global__ void __launch_bounds__(kThreads)
+norm_apply_kernel(const int64_t* __restrict__ table, const float* __restrict__ norms,
+                  NormArgs a, const double* __restrict__ partial,
+                  const double* __restrict__ sums) {
+  __shared__ double red[kThreads / 32];
+  const Header h = header(table);
+  if (h.skip) return;  // a non-finite step: nothing is written
+  const Chunk ch = chunk_at(table, h.n_tensors, blockIdx.x);
+  const int64_t* e = entry(table, ch.tensor);
+  // the tensor's sums, in the same order in every one of its blocks
+  double sa, sp;
+  if (sums != nullptr) {
+    sa = sums[2 * ch.tensor];
+    sp = sums[2 * ch.tensor + 1];
+  } else {
+    tensor_sums(e, partial, red, sa, sp);
+  }
   const float an = sqrtf((float)sa), pn = sqrtf((float)sp);
   const float wd = (e[kFlags] & kDecay) ? a.wd : 0.f;
   float c1 = 1.f, c2 = 1.f, rate;
@@ -1256,6 +1376,9 @@ static FactorArgs factor_args(float decay, float eps1, float wd, int clip_mode,
 
 // (c): colpart [sum over factored chunks of C] and pspart [n_chunks] scratch;
 // stats [n_tensors + n_matrices] out
+// rowsum and colsum (nullable; a split step): each factored tensor's raw
+// row sums and column sums land there (at its kSplitBase offsets) and its
+// vr, vc and mean(vr) are left to pt_opt_adafactor_split_finish
 extern "C" int pt_opt_adafactor_stats(const void* table, int n_tensors,
                                       int n_chunks, int n_matrices,
                                       const void* norms, float decay,
@@ -1263,6 +1386,7 @@ extern "C" int pt_opt_adafactor_stats(const void* table, int n_tensors,
                                       float lo, float hi, int need_p,
                                       int seg_cols, void* colpart,
                                       void* pspart, void* stats,
+                                      void* rowsum, void* colsum,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t* t = (const int64_t*)table;
@@ -1276,30 +1400,63 @@ extern "C" int pt_opt_adafactor_stats(const void* table, int n_tensors,
   if (err != cudaSuccess) return (int)err;
   if (n_chunks > 0)
     adafactor_stats_kernel<<<n_chunks, kStatsThreads, smem, st>>>(
-        t, (const float*)norms, a, (float*)colpart, (float*)pspart);
+        t, (const float*)norms, a, (float*)colpart, (float*)pspart,
+        (float*)rowsum);
   if (n_matrices + n_tensors > 0)
     adafactor_finish_kernel<<<n_matrices + n_tensors, kThreads, 0, st>>>(
         t, n_matrices, a, (const float*)colpart, (const float*)pspart,
-        (float*)stats);
+        (float*)stats, (float*)colsum);
   return (int)cudaGetLastError();
 }
 
-// (d): stats from pt_opt_adafactor_stats; uspart [n_chunks] scratch
-extern "C" int pt_opt_adafactor_update(const void* table, int n_chunks,
-                                       const void* norms, const void* stats,
-                                       void* uspart, float b1, float omb1,
-                                       float eps2, float clip_threshold,
-                                       int pscale, float wd, int clip_mode,
-                                       float lo, float hi, void* stream) {
+// (c) over split tensors, the finish after the sums over the ranks:
+// rowsum and colsum as pt_opt_adafactor_stats wrote them and the ranks
+// summed them; fulls [3 n_tensors] each whole tensor's numel, C, R;
+// stats[n_tensors + m] gets each matrix's sum of its new vr
+extern "C" int pt_opt_adafactor_split_finish(const void* table, int n_matrices,
+                                             float decay, const void* rowsum,
+                                             const void* colsum,
+                                             const void* fulls, void* stats,
+                                             void* stream) {
+  if (n_matrices == 0) return (int)cudaGetLastError();
+  const FactorArgs a = factor_args(decay, 0.f, 0.f, 0, 0.f, 0.f, 0, 0, 0.f,
+                                   0.f, 0.f, 1.f, 0);
+  adafactor_split_finish_kernel<<<n_matrices, kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      (const int64_t*)table, a, (const float*)rowsum, (const float*)colsum,
+      (const float*)fulls, (float*)stats);
+  return (int)cudaGetLastError();
+}
+
+// (d): stats from pt_opt_adafactor_stats; uspart [n_chunks] scratch.
+// phase 0: both passes. A split step runs phase 1 (the u^2 pass and each
+// tensor's sum into usq [n_tensors]), sums usq over the ranks, then phase
+// 2 (the update from usq, with fulls' whole numels)
+extern "C" int pt_opt_adafactor_update(const void* table, int n_tensors,
+                                       int n_chunks, const void* norms,
+                                       const void* stats, void* uspart,
+                                       float b1, float omb1, float eps2,
+                                       float clip_threshold, int pscale,
+                                       float wd, int clip_mode, float lo,
+                                       float hi, int phase, void* usq,
+                                       const void* fulls, void* stream) {
   if (n_chunks == 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t* t = (const int64_t*)table;
   const FactorArgs a = factor_args(0.f, 0.f, wd, clip_mode, lo, hi, 1, 0, b1,
                                    omb1, eps2, clip_threshold, pscale);
-  adafactor_usq_kernel<<<n_chunks, kThreads, 0, st>>>(
-      t, (const float*)norms, a, (const float*)stats, (float*)uspart);
+  if (phase != 2)
+    adafactor_usq_kernel<<<n_chunks, kThreads, 0, st>>>(
+        t, (const float*)norms, a, (const float*)stats, (float*)uspart);
+  if (phase == 1) {
+    adafactor_usq_sum_kernel<<<n_tensors, kThreads, 0, st>>>(
+        t, (const float*)uspart, (float*)usq);
+    return (int)cudaGetLastError();
+  }
   adafactor_apply_kernel<<<n_chunks, kThreads, 0, st>>>(
-      t, (const float*)norms, a, (const float*)stats, (const float*)uspart);
+      t, (const float*)norms, a, (const float*)stats, (const float*)uspart,
+      phase == 2 ? (const float*)usq : nullptr,
+      phase == 2 ? (const float*)fulls : nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -1333,12 +1490,16 @@ extern "C" int pt_opt_rule(const void* table, int n_chunks, const void* norms,
   return (int)cudaGetLastError();
 }
 
-// (f): rule kLamb or kLars; partial [2 n_chunks] fp64 scratch
-extern "C" int pt_opt_norm_rule(const void* table, int n_chunks,
-                                const void* norms, int rule, float b1,
-                                float b2, float omb1, float omb2, float eps,
-                                float wd, float coeff, float mu, int clip_mode,
-                                float lo, float hi, void* partial,
+// (f): rule kLamb or kLars; partial [2 n_chunks] fp64 scratch. phase 0:
+// both passes. A split step runs phase 1 (the norms pass and each
+// tensor's two sums into sums [2 n_tensors]), sums them over the ranks,
+// then phase 2 (the update from sums)
+extern "C" int pt_opt_norm_rule(const void* table, int n_tensors,
+                                int n_chunks, const void* norms, int rule,
+                                float b1, float b2, float omb1, float omb2,
+                                float eps, float wd, float coeff, float mu,
+                                int clip_mode, float lo, float hi,
+                                void* partial, int phase, void* sums,
                                 void* stream) {
   if (rule != kLamb && rule != kLars) return (int)cudaErrorInvalidValue;
   if (n_chunks == 0) return (int)cudaGetLastError();
@@ -1356,13 +1517,21 @@ extern "C" int pt_opt_norm_rule(const void* table, int n_chunks,
   const int64_t* t = (const int64_t*)table;
   const float* nm = (const float*)norms;
   double* part = (double*)partial;
-  if (rule == kLamb) {
-    norms_kernel<kLamb><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
-    norm_apply_kernel<kLamb><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
-  } else {
-    norms_kernel<kLars><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
-    norm_apply_kernel<kLars><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
+  const double* all = phase == 2 ? (const double*)sums : nullptr;
+  if (phase != 2) {
+    if (rule == kLamb)
+      norms_kernel<kLamb><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
+    else
+      norms_kernel<kLars><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part);
   }
+  if (phase == 1) {
+    norm_sums_kernel<<<n_tensors, kThreads, 0, st>>>(t, part, (double*)sums);
+    return (int)cudaGetLastError();
+  }
+  if (rule == kLamb)
+    norm_apply_kernel<kLamb><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part, all);
+  else
+    norm_apply_kernel<kLars><<<n_chunks, kThreads, 0, st>>>(t, nm, a, part, all);
   return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,8 @@ Around them, the JAX module's structure: :func:`fused_route`, the dispatch
 and combine autograd Functions with gather-only backwards (dispatch's is a
 unit-gate combine; combine's is two gathers, a scale and a rowwise dot), the
 router's backward a recompute of the differentiable chain
-(:func:`_route_diff`) from the saved top-k pick, and :func:`fused_moe_mlp`.
+(:func:`route_stats_diff`) from the saved top-k pick, and
+:func:`fused_moe_mlp`.
 The int32 scatter that maps grouped rows back to flat rows and the
 offsets cumsum stay plain PyTorch, as they sit outside any kernel in JAX.
 The autograd Functions look the wrappers up by module attribute at call
@@ -40,7 +41,9 @@ import torch.nn.functional as TF
 from . import _build
 from .grouped_matmul import grouped_matmul
 
-__all__ = ["fused_moe_mlp", "fused_route", "route", "route_plain",
+__all__ = ["fused_moe_mlp", "fused_route", "fused_route_stats",
+           "route_stats_diff", "router_aux", "expert_swiglu", "route",
+           "route_plain",
            "route_plan", "gather_rows", "gather_rows_plain", "combine_rows",
            "combine_rows_plain", "topk_first", "MAX_EXPERTS", "MAX_TOP_K",
            "ROUTE_BLOCKS_PER_SM", "COUNTS_ROUTE", "COUNTS_GATHER",
@@ -168,45 +171,64 @@ def route(xt, wg, top_k):
     return gv, gi, pos, cnt, me, ce
 
 
-def _route_diff(xt, wg, gate_i, e):
-    """The differentiable router chain, recomputed from the saved top-k
-    pick (the JAX ``_route_diff``): softmax, the chosen probabilities,
-    renormalisation, and the Switch/GShard aux."""
+def route_stats_diff(xt, wg, gate_i, e):
+    """The differentiable router chain recomputed from a top-k pick (the
+    JAX ``_route_diff``): (renormalised gates [n, k] fp32, probability sums
+    per expert ``me`` [e], differentiable; top-1 counts ``ce`` [e]), the
+    aux's sufficient statistics, which a mesh sums over its data ranks
+    before :func:`router_aux`."""
     p = torch.softmax(xt.float() @ wg.float(), dim=-1)
     v = p.gather(1, gate_i.long())
     gate = v / v.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-    me = p.mean(dim=0)
-    ce = TF.one_hot(gate_i[:, 0].long(), e).float().mean(dim=0)
-    return gate, e * (me * ce).sum()
+    ce = TF.one_hot(gate_i[:, 0].long(), e).float().sum(dim=0)
+    return gate, p.sum(dim=0), ce
+
+
+def router_aux(me_sum, ce_cnt, n, e):
+    """The Switch/GShard load-balancing loss ``e * sum(me * ce)`` of ``n``
+    tokens from the sums ``me_sum`` (probabilities) and ``ce_cnt`` (top-1
+    counts) per expert: ``me`` and ``ce`` are their means over the tokens
+    (``paddle_tpu/nn/layer/moe.py:73-75``)."""
+    return e * ((me_sum / n) * (ce_cnt / n)).sum()
 
 
 class _FusedRoute(torch.autograd.Function):
+    """The routing kernel with the aux's statistics as outputs: the
+    probability sums (differentiable) and the top-1 counts."""
+
     @staticmethod
     def forward(ctx, xt, wg, top_k):
         gv, gi, pos, cnt, me, ce = route(xt, wg, top_k)
-        n, e = xt.shape[0], wg.shape[1]
-        aux = e * ((me / n) * (ce / n)).sum()
         ctx.save_for_backward(xt, wg, gi)
-        ctx.mark_non_differentiable(gi, pos, cnt)
-        return gv, gi, pos, cnt, aux
+        ctx.mark_non_differentiable(gi, pos, cnt, ce)
+        return gv, gi, pos, cnt, me, ce
 
     @staticmethod
-    def backward(ctx, d_gv, _d_gi, _d_pos, _d_cnt, d_aux):
+    def backward(ctx, d_gv, _d_gi, _d_pos, _d_cnt, d_me, _d_ce):
         xt, wg, gi = ctx.saved_tensors
         with torch.enable_grad():
             x = xt.detach().requires_grad_()
             w = wg.detach().requires_grad_()
-            gate, aux = _route_diff(x, w, gi, wg.shape[1])
-            dx, dw = torch.autograd.grad((gate, aux), (x, w),
-                                         (d_gv.float(), d_aux.float()))
+            gate, me, _ce = route_stats_diff(x, w, gi, wg.shape[1])
+            dx, dw = torch.autograd.grad((gate, me), (x, w),
+                                         (d_gv.float(), d_me.float()))
         return dx.to(xt.dtype), dw.to(wg.dtype), None
+
+
+def fused_route_stats(xt, wg, top_k):
+    """(gate_v f32 [n, k], gate_i i32, pos_in_expert i32, counts i32 [e],
+    probability sums ``me`` f32 [e], top-1 counts ``ce`` f32 [e]): the
+    router in one kernel call; differentiable in (xt, wg) through gate_v
+    and ``me``."""
+    return _FusedRoute.apply(xt, wg, int(top_k))
 
 
 def fused_route(xt, wg, top_k):
     """(gate_v f32 [n, k], gate_i i32, pos_in_expert i32, counts i32 [e],
     aux): the router in one kernel call; differentiable in (xt, wg)
     through gate_v and aux."""
-    return _FusedRoute.apply(xt, wg, int(top_k))
+    gv, gi, pos, cnt, me, ce = fused_route_stats(xt, wg, top_k)
+    return gv, gi, pos, cnt, router_aux(me, ce, xt.shape[0], wg.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +349,8 @@ class _FusedDispatch(torch.autograd.Function):
 
 class _FusedCombine(torch.autograd.Function):
     """Weighted scatter-back with a gather-only backward (``g2f`` maps each
-    grouped row to its flat (token, choice) row)."""
+    grouped row to its flat (token, choice) row; ``k * n`` marks a row that
+    holds no choice, whose cotangent is zero)."""
 
     @staticmethod
     def forward(ctx, ys, gates, dest2, g2f):
@@ -339,7 +362,8 @@ class _FusedCombine(torch.autograd.Function):
         ys, gates, dest2, g2f = ctx.saved_tensors
         n, k = dest2.shape
         d_out = d_out.contiguous()
-        gate_sorted = gates.reshape(n * k)[g2f.long()]
+        # a row that holds no choice (k * n) reads gate 0
+        gate_sorted = TF.pad(gates.reshape(n * k), (0, 1))[g2f.long()]
         # the gathered cotangent times each row's gate, in the gather's pass
         d_ys = gather_rows(d_out, g2f // k, gate_sorted).to(ys.dtype)
         y_rows = gather_rows(ys, dest2.reshape(n * k)).reshape(n, k, -1)
@@ -351,12 +375,42 @@ class _FusedCombine(torch.autograd.Function):
 # the fused dropless MoE MLP
 # ---------------------------------------------------------------------------
 
-def fused_moe_mlp(x, wg, w_gate, w_up, w_down, *, top_k):
+def _group_ops(group):
+    """(copy in, reduce out) over ``group``, the ranks that hold slices of
+    the same experts (the identity without one): Megatron's conjugate
+    pair, so a partial output is summed in the forward and a partial input
+    gradient in the backward."""
+    if group is None:
+        return (lambda t: t), (lambda t: t)
+    from ..distributed.meta_parallel.mp_layers import (copy_to_group,
+                                                       reduce_from_group)
+
+    return (lambda t: copy_to_group(t, group)), \
+        (lambda t: reduce_from_group(t, group))
+
+
+def expert_swiglu(xs, w_gate, w_up, w_down, counts):
+    """The experts' SwiGLU over rows grouped by expert: three grouped
+    GEMMs (rows past ``sum(counts)`` give zeros)."""
+    act = TF.silu(grouped_matmul(xs, w_gate, counts)) * \
+        grouped_matmul(xs, w_up, counts)
+    return grouped_matmul(act, w_down, counts)
+
+
+def fused_moe_mlp(x, wg, w_gate, w_up, w_down, *, top_k, group=None,
+                  aux_of=None):
     """Dropless routed expert SwiGLU with fused dispatch: ``x`` [b, s, h],
     router ``wg`` [h, e], experts ``w_gate``/``w_up`` [e, h, i] and
     ``w_down`` [e, i, h] -> ([b, s, h], aux). Row order is the stable
     argsort's (token-major positions), so the result matches the ``gmm``
-    dispatch; ``capacity_factor`` does not apply."""
+    dispatch; ``capacity_factor`` does not apply.
+
+    ``group``: the process group of ranks that see the same tokens and
+    hold other slices of the experts' intermediate dim (mp): the experts'
+    partial output is summed over it, and the partial gradients of the
+    dispatched rows and the gates too. ``aux_of(me, ce, n, e)``: the aux
+    from the router's statistics (default :func:`router_aux`; a mesh sums
+    them over its data ranks first)."""
     b, s, h = x.shape
     n = b * s
     e = wg.shape[1]
@@ -365,7 +419,9 @@ def fused_moe_mlp(x, wg, w_gate, w_up, w_down, *, top_k):
                          f"experts, got {e}; use FLAGS_moe_dispatch='index'")
     kn = top_k * n
     xt = x.reshape(n, h)
-    gate_v, gate_i, pos, counts, aux = fused_route(xt, wg, top_k)
+    gate_v, gate_i, pos, counts, me, ce = fused_route_stats(xt, wg, top_k)
+    aux = (aux_of or router_aux)(me, ce, n, e)
+    copy_in, reduce_out = _group_ops(group)
     # grouped row of each flat (token, choice) row: the expert's block
     # offset plus the position in it (no argsort)
     offsets = torch.cumsum(counts, dim=0) - counts
@@ -375,10 +431,7 @@ def fused_moe_mlp(x, wg, w_gate, w_up, w_down, *, top_k):
     # the one int32 scatter: grouped row -> flat row (token = row // k)
     g2f = torch.zeros(kn, dtype=torch.int32, device=x.device).scatter_(
         0, dest, rng)
-    xs = _FusedDispatch.apply(xt, g2f // top_k, dest2)     # [kn, h] grouped
-    g_proj = grouped_matmul(xs, w_gate, counts)
-    u_proj = grouped_matmul(xs, w_up, counts)
-    act = TF.silu(g_proj) * u_proj
-    ys = grouped_matmul(act, w_down, counts)               # [kn, h]
-    out = _FusedCombine.apply(ys, gate_v, dest2, g2f)
+    xs = _FusedDispatch.apply(copy_in(xt), g2f // top_k, dest2)  # grouped
+    ys = expert_swiglu(xs, w_gate, w_up, w_down, counts)   # [kn, h]
+    out = reduce_out(_FusedCombine.apply(ys, copy_in(gate_v), dest2, g2f))
     return out.reshape(b, s, h).to(x.dtype), aux

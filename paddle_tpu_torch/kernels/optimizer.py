@@ -54,7 +54,7 @@ import torch
 
 from . import _build
 
-__all__ = ["StepBatch", "RULES", "multi_tensor_sumsq",
+__all__ = ["StepBatch", "TensorSplits", "RULES", "multi_tensor_sumsq",
            "multi_tensor_sumsq_plain", "adam_update", "adam_update_plain",
            "adafactor_stats", "adafactor_stats_plain", "adafactor_update",
            "adafactor_update_plain", "sgd_update", "sgd_update_plain",
@@ -167,12 +167,14 @@ class StepBatch:
                 raise ValueError(f"optimizer: tensor on {t.device}, the "
                                  f"step's first parameter on {dev}")
         self.n_chunks = self.n_matrices = self.col_elems = 0
+        self.row_sums = self.col_sums = 0  # a split Adafactor step's sums
         self.seg_cols = 256
         self._table = None
         self._host = None       # the table's words, its header kept current
         self._pending = False   # captured: the device table not yet written
         self._reserved = None   # the device buffer for a captured table
         self.device_step = None  # (applied-update count, skip) on the device
+        self.split = None  # TensorSplits: the tensors are split over ranks
 
     def __len__(self):
         return len(self.params)
@@ -263,7 +265,7 @@ class StepBatch:
         (the host builds this every step)."""
         n = len(self)
         rows, nch, mats = [], [], []
-        c0 = mat_base = col_base = max_cols = 0
+        c0 = mat_base = col_base = max_cols = vr_base = vc_base = 0
         for i, (p, g) in enumerate(zip(self.params, self.grads)):
             numel = p.numel()
             ptrs = [p.data_ptr(), g.data_ptr()] + [
@@ -272,7 +274,7 @@ class StepBatch:
                 (_DECAY if self.decay[i] else 0) | \
                 (_GRAD_F32 if g.dtype != p.dtype else 0)
             vec = not any(x % 16 for x in ptrs)
-            C = R = tiles = 0
+            C = R = tiles = split_base = 0
             span = FLAT_CHUNK
             if self.factored(i) and numel:
                 C, R = p.shape[-1], p.shape[-2]
@@ -283,17 +285,21 @@ class StepBatch:
                 vec = vec and C % 8 == 0
                 flags |= _FACTORED
                 max_cols = max(max_cols, C)
+                split_base = (vc_base << 32) | vr_base
+                vr_base += numel // C
+                vc_base += numel // R
             else:
                 count = -(-numel // FLAT_CHUNK)
             rows.append(ptrs + [numel, C, R, span, tiles, c0, c0 + count,
                                 flags | (_VEC if vec else 0), mat_base,
-                                col_base, 0])
+                                col_base, split_base])
             if C:
                 mat_base += mats[-1][1]
                 col_base += count * C
             nch.append(count)
             c0 += count
         self.n_chunks, self.n_matrices, self.col_elems = c0, mat_base, col_base
+        self.row_sums, self.col_sums = vr_base, vc_base
         self.seg_cols = min(SEG_COLS, max(256, -(-max_cols // 256) * 256))
         head = self._header(np.zeros(2 * HEADER_WORDS, np.int32))
 
@@ -391,6 +397,118 @@ class StepBatch:
         # the first step after a capture writes the whole table
         self._copy(self._host.size if self._pending else HEADER_WORDS)
         self._pending = False
+
+
+class TensorSplits:
+    """How the tensors of a step are split across ranks, for the rules
+    that take statistics over a whole tensor (Adafactor, Lamb, LARS): a
+    statistic is a partial sum on each rank, summed over the axes that
+    split its tensor, then finished. ``axes``: ``(process group, degree,
+    dims)`` per axis, in the order the sums are taken (fixed), where
+    ``dims`` maps ``id(tensor)`` to the dim that axis splits (absent:
+    whole over it).
+
+    :meth:`reduce` sums a buffer of per-tensor statistics over each axis
+    for the elements whose tensor the axis splits in the way the
+    statistic reads: ``"tensor"`` (one value a tensor) and ``"tensor2"``
+    (two) over any split; Adafactor's ``"rows"`` (a factored tensor's row
+    sums, over its columns) where its last dim is split, and ``"cols"``
+    (column sums) and ``"matrix"`` (each matrix's sum of vr) where its
+    second to last is. Its masks are made at the first call for a list of
+    tensors (a CUDA graph's eager warm-up), outside any capture."""
+
+    def __init__(self, axes):
+        self.axes = [(pg, int(n), dict(dims)) for pg, n, dims in axes]
+        self._masks = {}
+        self._fulls = {}
+
+    def dims(self, t) -> list:
+        """The dims of ``t`` split over each axis (None: whole)."""
+        return [dims.get(id(t)) for _, _, dims in self.axes]
+
+    def full_shape(self, t) -> list:
+        shape = list(t.shape)
+        for (_, n, _), d in zip(self.axes, self.dims(t)):
+            if d is not None:
+                shape[d] *= n
+        return shape
+
+    @staticmethod
+    def _count(kind, t) -> int:
+        if kind in ("tensor", "tensor2"):
+            return 1 if kind == "tensor" else 2
+        if t.dim() < 2 or not t.numel():
+            return 0
+        numel, C, R = t.numel(), t.shape[-1], t.shape[-2]
+        return {"rows": numel // C, "cols": numel // R,
+                "matrix": numel // (R * C)}[kind]
+
+    @staticmethod
+    def _reads(kind, d, t) -> bool:
+        """Whether a split of ``t`` on dim ``d`` makes ``kind`` partial."""
+        if d is None:
+            return False
+        if kind in ("tensor", "tensor2"):
+            return True
+        return d == t.dim() - (1 if kind == "rows" else 2)
+
+    def _mask(self, kind, params, j):
+        key = (kind, j, tuple(id(p) for p in params))
+        m = self._masks.get(key)
+        if m is None:
+            bits = []
+            for p in params:
+                d = self.dims(p)[j]
+                bits += [self._reads(kind, d, p)] * self._count(kind, p)
+            m = self._masks[key] = (
+                torch.tensor(bits, dtype=torch.bool, device=params[0].device)
+                if any(bits) else False)
+        return m
+
+    def reduce(self, buf: torch.Tensor, kind: str, params) -> None:
+        """Sums ``buf`` (the statistic ``kind`` of ``params``, in tensor
+        order) in place over each axis, where that axis splits the
+        statistic's tensor."""
+        import torch.distributed as dist
+
+        for j, (pg, _n, _dims) in enumerate(self.axes):
+            m = self._mask(kind, params, j)
+            if m is False:
+                continue
+            t = torch.where(m, buf, torch.zeros((), dtype=buf.dtype,
+                                                device=buf.device))
+            dist.all_reduce(t, group=pg)
+            buf.copy_(torch.where(m, t, buf))
+
+    def matrix_rows(self, params) -> torch.Tensor:
+        """fp32 [matrices]: the whole R of each matrix of the tensors of 2+
+        dims, the divisor of its mean of vr (made once per tensor list)."""
+        key = ("rows",) + tuple(id(p) for p in params)
+        t = self._fulls.get(key)
+        if t is None:
+            rs = [self.full_shape(p)[-2]
+                  for p in params if p.dim() >= 2 and p.numel()
+                  for _ in range(p.numel() // (p.shape[-1] * p.shape[-2]))]
+            t = self._fulls[key] = torch.tensor(rs, dtype=torch.float32,
+                                                device=params[0].device)
+        return t
+
+    def fulls(self, params) -> torch.Tensor:
+        """fp32 [3 n]: each whole tensor's numel, last dim (C) and second
+        to last (R), the divisors of its means (0 where it has none)."""
+        key = tuple(id(p) for p in params)
+        f = self._fulls.get(key)
+        if f is None:
+            rows = []
+            for p in params:
+                full = self.full_shape(p)
+                numel = int(np.prod(full)) if full else 1
+                rows += [numel, full[-1] if len(full) >= 1 else 0,
+                         full[-2] if len(full) >= 2 else 0]
+            f = self._fulls[key] = torch.tensor(
+                np.asarray(rows, np.float64).astype(np.float32),
+                device=params[0].device)
+        return f
 
 
 def _route(batch: StepBatch, counts) -> bool:
@@ -567,7 +685,9 @@ def adafactor_stats_plain(batch: StepBatch, *, decay_rate, epsilon1,
     """Updates ``vr``/``vc`` (or ``v``) in place as ``Adafactor._rule``
     (``optimizer.py:448-458``) does; returns fp32 ``[n + matrices]``: each
     parameter's sum of squares (0 where neither the parameter scale nor
-    the decay reads p), then ``mean(vr)`` of every matrix in order."""
+    the decay reads p), then ``mean(vr)`` of every matrix in order. Over
+    split tensors (``batch.split``) the row sums, column sums, sums of
+    squares and sums of vr are summed over the ranks before each mean."""
     _lr, step = batch.scalars()
     bt = 1 - step.float().pow(-decay_rate)
     om = 1 - bt
@@ -577,13 +697,17 @@ def adafactor_stats_plain(batch: StepBatch, *, decay_rate, epsilon1,
                    if batch.factored(i) and p.numel())
         return torch.zeros(len(batch) + mats, dtype=torch.float32,
                            device=batch.device)
-    psums, means = [], []
+    split = batch.split
+    psums, means, rows, cols = [], [], [], []
     for i, p in enumerate(batch.params):
         g = _grad_plain(batch, i, clip, norms, weight_decay, False)
         gf = g.float()
         g2 = gf * gf + epsilon1
         s0, s1 = batch.slots[0][i], batch.slots[1][i]
-        if batch.factored(i):
+        if batch.factored(i) and split is not None:
+            rows.append(g2.sum(dim=-1).reshape(-1))
+            cols.append(g2.sum(dim=-2).reshape(-1))
+        elif batch.factored(i):
             s0.copy_(bt * s0 + om * g2.mean(dim=-1))
             s1.copy_(bt * s1 + om * g2.mean(dim=-2))
             means.append(s0.mean(dim=-1).reshape(-1))
@@ -594,14 +718,43 @@ def adafactor_stats_plain(batch: StepBatch, *, decay_rate, epsilon1,
         psums.append((pf * pf).sum() if need_p else pf.new_zeros(()))
     if not psums:
         return torch.zeros(0, dtype=torch.float32, device=batch.device)
-    return torch.cat([torch.stack(psums)] + means)
+    if split is None:
+        return torch.cat([torch.stack(psums)] + means)
+    params = batch.params
+    psum = torch.stack(psums)
+    empty = psum.new_zeros(0)
+    rowsum = torch.cat(rows) if rows else empty
+    colsum = torch.cat(cols) if cols else empty
+    split.reduce(rowsum, "rows", params)
+    split.reduce(colsum, "cols", params)
+    split.reduce(psum, "tensor", params)
+    ro = co = 0
+    vrsums = []
+    for i, p in enumerate(params):
+        if not batch.factored(i):
+            continue
+        s0, s1 = batch.slots[0][i], batch.slots[1][i]
+        full = split.full_shape(p)
+        nr, nc = s0.numel(), s1.numel()
+        s0.copy_(bt * s0 + om * (rowsum[ro:ro + nr].reshape(s0.shape) /
+                                 float(full[-1])))
+        s1.copy_(bt * s1 + om * (colsum[co:co + nc].reshape(s1.shape) /
+                                 float(full[-2])))
+        ro, co = ro + nr, co + nc
+        vrsums.append(s0.sum(dim=-1).reshape(-1))
+    vrsum = torch.cat(vrsums) if vrsums else empty
+    split.reduce(vrsum, "matrix", params)
+    return torch.cat([psum, vrsum / split.matrix_rows(params)])
 
 
 def adafactor_stats(batch: StepBatch, *, decay_rate, epsilon1, weight_decay,
                     pscale, clip=("none",), norms=None):
     """Adafactor's statistics over ``batch`` (rule ``"adafactor"``): the
     factored ``vr``/``vc`` or plain ``v`` updated in place; returns the
-    stats :func:`adafactor_update` reads, as :func:`adafactor_stats_plain`."""
+    stats :func:`adafactor_update` reads, as :func:`adafactor_stats_plain`.
+    Over split tensors (``batch.split``) the kernels stop at the raw
+    sums, the ranks sum them (:meth:`TensorSplits.reduce`), and a finish
+    launch takes the means over the whole tensors."""
     if not _route(batch, COUNTS_ADAFACTOR_STATS):
         return adafactor_stats_plain(batch, decay_rate=decay_rate,
                                      epsilon1=epsilon1,
@@ -610,23 +763,47 @@ def adafactor_stats(batch: StepBatch, *, decay_rate, epsilon1, weight_decay,
     mode, lo, hi = _clip_args(batch, clip, norms)
     table = batch.table()
     dev = batch.device
+    split = batch.split
+    n = len(batch)
     colpart = torch.empty(max(batch.col_elems, 1), dtype=torch.float32,
                           device=dev)
     pspart = torch.empty(max(batch.n_chunks, 1), dtype=torch.float32,
                          device=dev)
-    stats = torch.empty(len(batch) + batch.n_matrices, dtype=torch.float32,
+    stats = torch.empty(n + batch.n_matrices, dtype=torch.float32,
                         device=dev)
+    rowsum = colsum = None
+    if split is not None:
+        rowsum = torch.empty(max(batch.row_sums, 1), dtype=torch.float32,
+                             device=dev)
+        colsum = torch.empty(max(batch.col_sums, 1), dtype=torch.float32,
+                             device=dev)
     need_p = int(bool(pscale) or bool(weight_decay))
     fn = _build.kernel("pt_opt_adafactor_stats",
                        [ctypes.c_void_p] + [ctypes.c_int] * 3 +
                        [ctypes.c_void_p] + [ctypes.c_float] * 3 +
                        [ctypes.c_int] + [ctypes.c_float] * 2 +
-                       [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
+                       [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6)
     _build.launch(fn, "pt_opt_adafactor_stats", dev, table.data_ptr(),
-                  len(batch), batch.n_chunks, batch.n_matrices, _ptr(norms),
+                  n, batch.n_chunks, batch.n_matrices, _ptr(norms),
                   float(decay_rate), float(epsilon1), float(weight_decay),
                   mode, lo, hi, need_p, batch.seg_cols, colpart.data_ptr(),
-                  pspart.data_ptr(), stats.data_ptr())
+                  pspart.data_ptr(), stats.data_ptr(), _ptr(rowsum),
+                  _ptr(colsum))
+    if split is not None:
+        params = batch.params
+        split.reduce(rowsum[:batch.row_sums], "rows", params)
+        split.reduce(colsum[:batch.col_sums], "cols", params)
+        split.reduce(stats[:n], "tensor", params)
+        fin = _build.kernel("pt_opt_adafactor_split_finish",
+                            [ctypes.c_void_p, ctypes.c_int, ctypes.c_float] +
+                            [ctypes.c_void_p] * 5)
+        _build.launch(fin, "pt_opt_adafactor_split_finish", dev,
+                      table.data_ptr(), batch.n_matrices, float(decay_rate),
+                      rowsum.data_ptr(), colsum.data_ptr(),
+                      split.fulls(params).data_ptr(), stats.data_ptr())
+        vrsum = stats[n:]
+        split.reduce(vrsum, "matrix", params)
+        vrsum.div_(split.matrix_rows(params))
     COUNTS_ADAFACTOR_STATS.launched()
     return stats
 
@@ -638,12 +815,16 @@ def adafactor_update_plain(batch: StepBatch, stats, *, beta1, epsilon2,
                            clip=("none",), norms=None):
     """p (and ``m``) in place as ``optimizer.py:462-473``: u = g /
     sqrt(vhat), clipped by its RMS, the first moment, the parameter
-    scale."""
+    scale. Over split tensors (``batch.split``) each RMS and parameter
+    scale is over the whole tensor: the sums of u^2 are summed over the
+    ranks first."""
     lr, _step = batch.scalars()
     n = len(batch)
     mat = n
     if batch.skipped():
         return
+    split = batch.split
+    us, usq = [], []
     for i, p in enumerate(batch.params):
         g = _grad_plain(batch, i, clip, norms, weight_decay, False)
         gf = g.float()
@@ -657,23 +838,47 @@ def adafactor_update_plain(batch: StepBatch, stats, *, beta1, epsilon2,
         else:
             vhat = s0
         u = gf / vhat.sqrt()
-        rms = ((u * u).sum() / numel).sqrt()
-        u = u / (rms / clip_threshold).clamp_min(1.0)
-        if m is not None:
-            mf = m.float() * beta1 + u * (1.0 - beta1)
-            m.copy_(mf)
-            u = mf
-        pf = p.float()
-        scale = (stats[i] / numel).sqrt().clamp_min(epsilon2) if pscale \
-            else 1.0
-        p.copy_((pf - (lr * scale) * u).to(p.dtype))
+        if split is not None:  # the update waits for the ranks' sums
+            us.append(u)
+            usq.append((u * u).sum())
+            continue
+        _adafactor_apply_plain(batch, i, u, (u * u).sum(), float(numel),
+                               stats[i], lr, beta1, epsilon2, clip_threshold,
+                               pscale)
+    if split is None:
+        return
+    usq = torch.stack(usq)
+    split.reduce(usq, "tensor", batch.params)
+    psum = stats[:n].clone()
+    for i, p in enumerate(batch.params):
+        full = float(np.prod(split.full_shape(p)))
+        _adafactor_apply_plain(batch, i, us[i], usq[i], full, psum[i], lr,
+                               beta1, epsilon2, clip_threshold, pscale)
+
+
+def _adafactor_apply_plain(batch, i, u, usq, numel, psum, lr, beta1,
+                           epsilon2, clip_threshold, pscale):
+    """Tensor ``i``'s update from its u, its sum of u^2 and sum of p^2 over
+    ``numel`` elements."""
+    p, m = batch.params[i], batch.slots[2][i]
+    rms = (usq / numel).sqrt()
+    u = u / (rms / clip_threshold).clamp_min(1.0)
+    if m is not None:
+        mf = m.float() * beta1 + u * (1.0 - beta1)
+        m.copy_(mf)
+        u = mf
+    pf = p.float()
+    scale = (psum / numel).sqrt().clamp_min(epsilon2) if pscale else 1.0
+    p.copy_((pf - (lr * scale) * u).to(p.dtype))
 
 
 def adafactor_update(batch: StepBatch, stats, *, beta1, epsilon2,
                      clip_threshold, pscale, weight_decay, clip=("none",),
                      norms=None):
     """Adafactor's update over ``batch`` in place (p, and ``m`` where the
-    batch carries one), from ``stats`` of :func:`adafactor_stats`."""
+    batch carries one), from ``stats`` of :func:`adafactor_stats`. Over
+    split tensors: the u^2 pass and each tensor's sum, the sums over the
+    ranks, then the update pass."""
     if not _route(batch, COUNTS_ADAFACTOR_UPDATE):
         return adafactor_update_plain(batch, stats, beta1=beta1,
                                       epsilon2=epsilon2,
@@ -688,16 +893,32 @@ def adafactor_update(batch: StepBatch, stats, *, beta1, epsilon2,
         raise ValueError("adafactor_update: stats do not fit the batch")
     uspart = torch.empty(max(batch.n_chunks, 1), dtype=torch.float32,
                          device=batch.device)
+    split = batch.split
+    usq = None if split is None else torch.empty(
+        max(len(batch), 1), dtype=torch.float32, device=batch.device)
+    fulls = None if split is None else split.fulls(batch.params)
     fn = _build.kernel("pt_opt_adafactor_update",
-                       [ctypes.c_void_p, ctypes.c_int] +
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] +
                        [ctypes.c_void_p] * 3 + [ctypes.c_float] * 4 +
                        [ctypes.c_int, ctypes.c_float, ctypes.c_int] +
-                       [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    _build.launch(fn, "pt_opt_adafactor_update", batch.device,
-                  table.data_ptr(), batch.n_chunks, _ptr(norms),
-                  stats.data_ptr(), uspart.data_ptr(), float(beta1),
-                  1.0 - beta1, float(epsilon2), float(clip_threshold),
-                  int(bool(pscale)), float(weight_decay), mode, lo, hi)
+                       [ctypes.c_float] * 2 + [ctypes.c_int] +
+                       [ctypes.c_void_p] * 3)
+
+    def run(phase):
+        _build.launch(fn, "pt_opt_adafactor_update", batch.device,
+                      table.data_ptr(), len(batch), batch.n_chunks,
+                      _ptr(norms), stats.data_ptr(), uspart.data_ptr(),
+                      float(beta1), 1.0 - beta1, float(epsilon2),
+                      float(clip_threshold), int(bool(pscale)),
+                      float(weight_decay), mode, lo, hi, phase, _ptr(usq),
+                      _ptr(fulls))
+
+    if split is None:
+        run(0)
+    else:
+        run(1)
+        split.reduce(usq[:len(batch)], "tensor", batch.params)
+        run(2)
     COUNTS_ADAFACTOR_UPDATE.launched()
 
 
@@ -899,14 +1120,28 @@ def _norm(x):
     """fp32 ``||x||``: the sum of squares in fp64 (each fp32 square exact,
     the sum within ~2^-40 of itself), rounded to fp32, then its root, as
     the kernels take it (``csrc/optimizer.cu`` section (f))."""
-    return x.double().square().sum().float().sqrt()
+    return _sumsq64(x).float().sqrt()
+
+
+def _sumsq64(x):
+    return x.double().square().sum()
+
+
+def _split_norms(batch: StepBatch, pairs):
+    """``pairs`` (per tensor two fp64 sums of squares) as fp32 norms,
+    each sum first summed over the ranks that split its tensor
+    (``batch.split``, kind ``"tensor2"``)."""
+    sums = torch.stack([x for pair in pairs for x in pair])
+    batch.split.reduce(sums, "tensor2", batch.params)
+    return sums.float().sqrt().reshape(-1, 2)
 
 
 def lamb_update_plain(batch: StepBatch, *, beta1, beta2, epsilon,
                       weight_decay, clip=("none",), norms=None):
     """The per-tensor loop of ``Lamb._rule`` (``optimizer.py:347-366``) in
     fp32: the decay ``weight_decay`` inside the rule, 0 for a tensor
-    without the decay flag; the bias corrections in fp32."""
+    without the decay flag; the bias corrections in fp32. Over split
+    tensors (``batch.split``) the norms are over the whole tensors."""
     lr, step = batch.scalars()
     t = step.float()
     c1 = 1.0 - torch.pow(torch.full_like(t, beta1), t)
@@ -914,6 +1149,8 @@ def lamb_update_plain(batch: StepBatch, *, beta1, beta2, epsilon,
     omb1, omb2 = 1.0 - beta1, 1.0 - beta2
     if batch.skipped():
         return
+    split = batch.split
+    held = []
     for i, p in enumerate(batch.params):
         m0, v0 = batch.slots[0][i], batch.slots[1][i]
         wd = weight_decay if batch.decay[i] else 0.0
@@ -922,30 +1159,58 @@ def lamb_update_plain(batch: StepBatch, *, beta1, beta2, epsilon,
         m = m0.float() * beta1 + gf * omb1
         v = v0.float() * beta2 + (gf * omb2) * gf
         r = (m / c1) / ((v / c2).sqrt() + epsilon) + pf * wd
-        pn, rn = _norm(pf), _norm(r)
-        trust = torch.where((pn > 0) & (rn > 0), pn / rn,
-                            torch.ones_like(pn))
-        new = (pf - (lr * trust) * r).to(p.dtype)
-        p.copy_(new)
-        m0.copy_(m)
-        v0.copy_(v)
+        if split is not None:
+            held.append((pf, m, v, r))
+            continue
+        _lamb_apply(p, m0, v0, pf, m, v, r, _norm(pf), _norm(r), lr)
+    if split is not None:
+        nrm = _split_norms(batch, [(_sumsq64(r), _sumsq64(pf))
+                                   for pf, _m, _v, r in held])
+        for i, (pf, m, v, r) in enumerate(held):
+            _lamb_apply(batch.params[i], batch.slots[0][i],
+                        batch.slots[1][i], pf, m, v, r, nrm[i, 1], nrm[i, 0],
+                        lr)
+
+
+def _lamb_apply(p, m0, v0, pf, m, v, r, pn, rn, lr):
+    trust = torch.where((pn > 0) & (rn > 0), pn / rn, torch.ones_like(pn))
+    p.copy_((pf - (lr * trust) * r).to(p.dtype))
+    m0.copy_(m)
+    v0.copy_(v)
 
 
 def _norm_rule(rule, counts, batch, args, clip, norms):
-    """Launch ``pt_opt_norm_rule`` (two kernels) over ``batch``."""
+    """Launch ``pt_opt_norm_rule`` (two kernels) over ``batch``; over split
+    tensors its norms pass and per-tensor sums, the sums over the ranks,
+    then its update pass."""
     mode, lo, hi = _clip_args(batch, clip, norms)
     table = batch.table()
+    n = len(batch)
     partial = torch.empty(max(2 * batch.n_chunks, 1), dtype=torch.float64,
                           device=batch.device)
+    split = batch.split
+    sums = None if split is None else torch.empty(
+        max(2 * n, 1), dtype=torch.float64, device=batch.device)
     fn = _build.kernel("pt_opt_norm_rule",
-                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                        ctypes.c_int] + [ctypes.c_float] * 8 +
-                       [ctypes.c_int] + [ctypes.c_float] * 2 +
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_int] +
+                       [ctypes.c_float] * 8 + [ctypes.c_int] +
+                       [ctypes.c_float] * 2 + [ctypes.c_void_p,
+                                               ctypes.c_int] +
                        [ctypes.c_void_p] * 2)
-    _build.launch(fn, "pt_opt_norm_rule", batch.device, table.data_ptr(),
-                  batch.n_chunks, _ptr(norms), _NORM_RULE_IDS[rule],
-                  *[float(x) for x in args], mode, lo, hi,
-                  partial.data_ptr())
+
+    def run(phase):
+        _build.launch(fn, "pt_opt_norm_rule", batch.device, table.data_ptr(),
+                      n, batch.n_chunks, _ptr(norms), _NORM_RULE_IDS[rule],
+                      *[float(x) for x in args], mode, lo, hi,
+                      partial.data_ptr(), phase, _ptr(sums))
+
+    if split is None:
+        run(0)
+    else:
+        run(1)
+        split.reduce(sums[:2 * n], "tensor2", batch.params)
+        run(2)
     counts.launched()
 
 
@@ -969,22 +1234,38 @@ def lars_update_plain(batch: StepBatch, *, momentum, lars_coeff,
     394-407``) in fp32: ``local_lr = lr coeff |p| / (|g| + wd |p| + eps)``
     where |p| and that denominator are positive (else lr), ``v = mu v +
     local_lr (g + wd p)``, ``p - v``; the decay 0 for a tensor without the
-    decay flag."""
+    decay flag. Over split tensors the norms are over the whole tensors."""
     lr, _step = batch.scalars()
     if batch.skipped():
         return
+    split = batch.split
+    held = []
     for i, p in enumerate(batch.params):
-        v0 = batch.slots[0][i]
-        wd = weight_decay if batch.decay[i] else 0.0
         gf = _grad_plain(batch, i, clip, norms, 0.0, False).float()
         pf = p.float()
-        pn, gn = _norm(pf), _norm(gf)
-        den = (gn + pn * wd) + epsilon
-        rate = torch.where((pn > 0) & (den > 0), ((lr * lars_coeff) * pn) / den,
-                           lr)
-        v = v0.float() * momentum + rate * (gf + pf * wd)
-        p.copy_((pf - v).to(p.dtype))
-        v0.copy_(v)
+        if split is not None:
+            held.append((gf, pf))
+            continue
+        _lars_apply(batch, i, gf, pf, _norm(pf), _norm(gf), lr, momentum,
+                    lars_coeff, weight_decay, epsilon)
+    if split is not None:
+        nrm = _split_norms(batch, [(_sumsq64(gf), _sumsq64(pf))
+                                   for gf, pf in held])
+        for i, (gf, pf) in enumerate(held):
+            _lars_apply(batch, i, gf, pf, nrm[i, 1], nrm[i, 0], lr, momentum,
+                        lars_coeff, weight_decay, epsilon)
+
+
+def _lars_apply(batch, i, gf, pf, pn, gn, lr, momentum, lars_coeff,
+                weight_decay, epsilon):
+    p, v0 = batch.params[i], batch.slots[0][i]
+    wd = weight_decay if batch.decay[i] else 0.0
+    den = (gn + pn * wd) + epsilon
+    rate = torch.where((pn > 0) & (den > 0), ((lr * lars_coeff) * pn) / den,
+                       lr)
+    v = v0.float() * momentum + rate * (gf + pf * wd)
+    p.copy_((pf - v).to(p.dtype))
+    v0.copy_(v)
 
 
 def lars_update(batch: StepBatch, *, momentum, lars_coeff, weight_decay,

@@ -38,7 +38,8 @@ from .gpt import GPTConfig
 from .llama import LlamaConfig
 
 __all__ = ["gpt_state_from_numpy", "gpt_engine_params",
-           "llama_state_from_numpy", "llama_mp_dim", "shard_llama_state",
+           "llama_state_from_numpy", "llama_mp_dim", "llama_ep_dim",
+           "shard_llama_state",
            "gather_llama_state"]
 
 _LINEARS = ("attn.qkv_proj", "attn.out_proj", "fc_in", "fc_out")
@@ -184,18 +185,32 @@ _MP_DIMS = {"llama.embed_tokens.weight": 0, "lm_head.weight": 0,
             "self_attn.q_proj.weight": 0, "self_attn.k_proj.weight": 0,
             "self_attn.v_proj.weight": 0, "self_attn.o_proj.weight": 1,
             "mlp.gate_proj.weight": 0, "mlp.up_proj.weight": 0,
-            "mlp.down_proj.weight": 1}
+            "mlp.down_proj.weight": 1, "mlp.experts.gate": 2,
+            "mlp.experts.up": 2, "mlp.experts.down": 1}
+# the dim expert parallelism splits: the MoE layer's expert stacks
+_EP_DIMS = {"mlp.experts.gate": 0, "mlp.experts.up": 0,
+            "mlp.experts.down": 0}
 _MESH_ORDER = ("pp", "dp", "sdp", "ep", "cp", "mp")
+
+
+def _dim_of(table, name):
+    for suffix, dim in table.items():
+        if name == suffix or name.endswith("." + suffix):
+            return dim
+    return None
 
 
 def llama_mp_dim(name: str):
     """The dim of the port Llama's parameter ``name`` split over mp (column
-    layers their rows, row layers their columns, the vocabulary its rows),
-    None for a replicated one."""
-    for suffix, dim in _MP_DIMS.items():
-        if name == suffix or name.endswith("." + suffix):
-            return dim
-    return None
+    layers their rows, row layers their columns, the vocabulary its rows,
+    the experts their intermediate dim), None for a replicated one."""
+    return _dim_of(_MP_DIMS, name)
+
+
+def llama_ep_dim(name: str):
+    """The dim of the port MoE Llama's parameter ``name`` split over ep
+    (the expert stacks' first), None for one every ep rank holds whole."""
+    return _dim_of(_EP_DIMS, name)
 
 
 def _coords(rank: int, degrees: Mapping[str, int]) -> Dict[str, int]:
@@ -251,7 +266,8 @@ def shard_llama_state(state: Mapping[str, torch.Tensor], env=None, *,
     ``degrees`` and ``rank``: under pp > 1 the tensors of this rank's
     stage only (:func:`llama_stage_of`; a tied head, ``lm_head.weight``
     equal to the embedding, also on the last stage), under their global
-    names; tensor-parallel parameters cut on :func:`llama_mp_dim`; and
+    names; expert stacks cut on :func:`llama_ep_dim` over ep, then
+    tensor-parallel parameters on :func:`llama_mp_dim`; and
     with ``stage3`` every parameter that splits cut again over sdp, under
     the name its ZeRO-3 parametrization takes
     (``...parametrizations.weight.original``)."""
@@ -260,10 +276,14 @@ def shard_llama_state(state: Mapping[str, torch.Tensor], env=None, *,
     c = _coords(rank, degrees)
     mp, sdp = int(degrees.get("mp", 1)), int(degrees.get("sdp", 1))
     pp, L = int(degrees.get("pp", 1)), _num_layers(state)
+    ep = int(degrees.get("ep", 1))
     out = {}
     for name, t in state.items():
         if c["pp"] not in llama_stage_of(name, L, pp):
             continue
+        edim = llama_ep_dim(name)
+        if edim is not None and ep > 1:
+            t = t.chunk(ep, dim=edim)[c["ep"]]
         dim = llama_mp_dim(name)
         if dim is not None and mp > 1:
             t = t.chunk(mp, dim=dim)[c["mp"]]
@@ -292,40 +312,50 @@ def gather_llama_state(states, config: LlamaConfig,
     """The inverse of :func:`shard_llama_state` over ``states``, every
     rank's state in rank order: the full state under the plain names,
     each tensor from the pp stage that holds it (a tied head under pp from
-    the last stage's copy)."""
+    the last stage's copy), the expert stacks joined over ep."""
     mp, sdp = int(degrees.get("mp", 1)), int(degrees.get("sdp", 1))
-    pp = int(degrees.get("pp", 1))
+    pp, ep = int(degrees.get("pp", 1)), int(degrees.get("ep", 1))
     coords = [_coords(r, degrees) for r in range(len(states))]
     shapes = _llama_shapes(config)
     stage_of = {}
 
-    def rank_at(m, z, s=0):
+    def rank_at(x, m, z, s=0):
         return next(r for r, c in enumerate(coords)
-                    if c["mp"] == m and c["sdp"] == z and c["pp"] == s and
+                    if c["ep"] == x and c["mp"] == m and c["sdp"] == z and
+                    c["pp"] == s and
                     all(c[a] == 0 for a in _MESH_ORDER
-                        if a not in ("mp", "sdp", "pp")))
+                        if a not in ("ep", "mp", "sdp", "pp")))
 
     for s in range(pp):
-        for key in states[rank_at(0, 0, s)]:
+        for key in states[rank_at(0, 0, 0, s)]:
             stage_of.setdefault(key, s)
     out = {}
     for key, s in stage_of.items():
         name = key.replace(".parametrizations.", ".")
         if name.endswith(".original"):
             name = name[:-len(".original")]
-        dim = llama_mp_dim(name)
-        parts = []
-        for m in range(mp if dim is not None else 1):
-            shards = [states[rank_at(m, z, s)][key] for z in range(sdp)]
-            if stage3 and key != name:
-                local = list(shapes.get(name) or
-                             shapes[name.split(".", 3)[-1]])
-                if dim is not None:
-                    local[dim] //= mp
-                parts.append(torch.cat(shards, dim=_zero3_dim(local, sdp)))
-            else:
-                parts.append(shards[0])
-        out[name] = torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
+        dim, edim = llama_mp_dim(name), llama_ep_dim(name)
+        experts = []
+        for x in range(ep if edim is not None else 1):
+            parts = []
+            for m in range(mp if dim is not None else 1):
+                shards = [states[rank_at(x, m, z, s)][key]
+                          for z in range(sdp)]
+                if stage3 and key != name:
+                    local = list(shapes.get(name) or
+                                 shapes[name.split(".", 3)[-1]])
+                    if dim is not None:
+                        local[dim] //= mp
+                    if edim is not None:
+                        local[edim] //= ep
+                    parts.append(torch.cat(shards,
+                                           dim=_zero3_dim(local, sdp)))
+                else:
+                    parts.append(shards[0])
+            experts.append(torch.cat(parts, dim=dim) if len(parts) > 1
+                           else parts[0])
+        out[name] = torch.cat(experts, dim=edim) if len(experts) > 1 \
+            else experts[0]
     return out
 
 

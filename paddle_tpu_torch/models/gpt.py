@@ -197,18 +197,29 @@ class GPTModel(nn.Module):
         return hidden
 
 
+def _no_mp():
+    from ..distributed.mesh import get_mesh_env
+    from ..distributed.parallel import _deferred
+
+    env = get_mesh_env()
+    if env is not None and env.get_dim("mp") > 1:
+        raise _deferred("GPT under tensor parallelism (mp > 1)")
+
+
 class GPTForCausalLM(nn.Module):
     """Tied-embedding LM head. Built on ``device`` (``None`` = CUDA) in
     ``config.dtype``, with random weights drawn from ``generator`` (a
     ``torch.Generator`` on that device; ``None`` = seed 0): normal(0, 0.02)
     matrices and embeddings, zero biases, unit LayerNorm scales. Its
     dropouts draw from ``dropout_generator``, seeded with
-    ``dropout_seed``."""
+    ``dropout_seed``. Its layers are not split over mp: under a mesh with
+    mp > 1 it raises."""
 
     def __init__(self, config: GPTConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  dropout_seed: int = 0):
         super().__init__()
+        _no_mp()
         dev = resolve_device(device)
         self.config = config
         with torch.device("meta"):
@@ -335,7 +346,9 @@ def GPTForCausalLMPipe(config: GPTConfig, device=None,
     stage's dropouts draw from a generator of its own (``dropout_seed``
     plus the stage). Under a mesh with pp > 1 a rank builds its stage: the
     embedding on the first, the head on the last, tied across them
-    (``pp_shared``). ``use_recompute`` recomputes every block."""
+    (``pp_shared``). ``use_recompute`` recomputes every block. Under mp
+    > 1 it raises, as ``GPTForCausalLM`` does."""
+    _no_mp()
     from ..distributed.meta_parallel import (LayerDesc, PipelineLayer,
                                              SharedLayerDesc)
     from ..distributed.meta_parallel.pp_layers import _SharedProxy

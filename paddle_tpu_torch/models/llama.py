@@ -58,9 +58,10 @@ from ..distributed.meta_parallel.mp_layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     copy_to_group, gather_from_group, mark_parameters, mp_info,
     vocab_parallel_cross_entropy)
-from ..distributed.parallel import DATA_AXES, _deferred
+from ..distributed.parallel import DATA_AXES
 from ..kernels.rope import rope_apply
 from ..nn import MoELayer, RMSNorm
+from ..nn.layer.moe import moe_mesh
 from ..nn.functional import rms_norm_residual, scaled_dot_product_attention
 
 __all__ = ["LlamaConfig", "LlamaMoEConfig", "LlamaAttention", "LlamaMLP",
@@ -427,9 +428,9 @@ class LlamaForCausalLM(nn.Module):
         self.pipelined = stage is not None and stage[1] > 1
         self.pp_stage = tuple(stage) if self.pipelined else (0, 1)
         self.pp_microbatches = config.pp_microbatches
-        if getattr(config, "num_experts", 0) > 1 and (
-                self.pipelined or (env is not None and env.nranks > 1)):
-            raise _deferred("MoE Llama under a mesh (expert parallelism)")
+        self.is_moe = getattr(config, "num_experts", 0) > 1
+        if self.is_moe:
+            moe_mesh()  # its groups, made by every rank before the layers
         self.config = config
         with torch.device("meta"):
             self.llama = LlamaModel(config, self.pp_stage)
@@ -451,15 +452,16 @@ class LlamaForCausalLM(nn.Module):
                         held.pp_shared = "embed"
         mark_parameters(self)  # on the parameters to_empty made
         self._pp_count = None
+        self._pp_batch = None
         self._init_weights(generator if generator is not None
                            else seed(0, dev))
 
     def _full_order(self):
-        """(name, mp_dim, local shape) of every parameter of the pp = 1
-        model, in its ``named_parameters`` order (shapes on meta)."""
+        """(name, mp_dim, ep_dim, local shape) of every parameter of the pp
+        = 1 model, in its ``named_parameters`` order (shapes on meta)."""
         if not self.pipelined:
-            return [(n, getattr(p, "mp_dim", None), tuple(p.shape))
-                    for n, p in self.named_parameters()]
+            return [(n, getattr(p, "mp_dim", None), getattr(p, "ep_dim", None),
+                     tuple(p.shape)) for n, p in self.named_parameters()]
         cfg = self.config
         with torch.device("meta"):
             full = nn.Module()
@@ -469,16 +471,19 @@ class LlamaForCausalLM(nn.Module):
                     cfg.hidden_size, cfg.vocab_size, has_bias=False,
                     gather_output=False)
         mark_parameters(full)
-        return [(n, getattr(p, "mp_dim", None), tuple(p.shape))
-                for n, p in full.named_parameters()]
+        return [(n, getattr(p, "mp_dim", None), getattr(p, "ep_dim", None),
+                 tuple(p.shape)) for n, p in full.named_parameters()]
 
     @torch.no_grad()
     def _init_weights(self, g: torch.Generator):
         _, mp, r = mp_info()
+        env = get_mesh_env()
+        ep, er = (env.get_dim("ep"), env.coord("ep")) if env is not None \
+            else (1, 0)
         mine = dict(self.named_parameters())
         tied_head = self.pipelined and self.config.tie_word_embeddings and \
             self.llama.last
-        for name, mp_dim, shape in self._full_order():
+        for name, mp_dim, ep_dim, shape in self._full_order():
             if name.endswith("layernorm.weight") or name == "llama.norm.weight":
                 if name in mine:
                     mine[name].fill_(1.0)
@@ -489,8 +494,12 @@ class LlamaForCausalLM(nn.Module):
             full = list(shape)
             if mp_dim is not None:
                 full[mp_dim] *= mp
+            if ep_dim is not None:
+                full[ep_dim] *= ep
             t = torch.empty(full, dtype=dtype, device=dev)
             t.normal_(0.0, 0.02, generator=g)
+            if ep_dim is not None:
+                t = t.chunk(ep, dim=ep_dim)[er]
             if mp_dim is not None:
                 t = t.chunk(mp, dim=mp_dim)[r]
             if p is not None:
@@ -510,7 +519,9 @@ class LlamaForCausalLM(nn.Module):
         """Before a step's microbatches: the last stage counts the counted
         tokens of the step (this rank's batch, all-reduced over the data
         ranks under a mesh), each microbatch's loss is its summed CE over
-        that count."""
+        that count; every stage notes the local batch, whose microbatches
+        it counts for an MoE stage's aux share."""
+        self._pp_batch = input_ids.shape[0]
         if not self.llama.last or labels is None:
             return
         count = (labels[:, 1:] != IGNORE_INDEX).sum()
@@ -523,12 +534,29 @@ class LlamaForCausalLM(nn.Module):
         """One microbatch through this stage: the first stage embeds
         ``input_ids``, the others take ``inp``; the last returns the loss
         share (with ``labels``) or the logits, the others the hidden state
-        [b, s, h] to send on."""
+        [b, s, h] to send on. An MoE stage with ``labels`` returns
+        ``(that, aux share)``: ``aux_loss_weight`` times its layers' aux
+        over the step's microbatches and data ranks, the JAX stage stack's
+        ``aux / M`` (``stage_stack.py:242-259``), seeded by the stage
+        itself."""
         llama = self.llama
         hidden = llama.embed_tokens(input_ids) if llama.first else inp
-        hidden, _aux = llama.run_layers(hidden)
+        hidden, aux = llama.run_layers(hidden)
+        if aux is not None and labels is not None:
+            m = max(self._pp_batch or input_ids.shape[0], 1) // \
+                input_ids.shape[0]
+            share = self.config.aux_loss_weight * aux / (m * _n_data())
+            out = self.pipeline_forward_head(hidden, labels) if llama.last \
+                else hidden
+            return out, share
         if not llama.last:
             return hidden
+        return self.pipeline_forward_head(hidden, labels)
+
+    def pipeline_forward_head(self, hidden, labels):
+        """The last stage's norm and head: the loss share, or the logits
+        without ``labels``."""
+        llama = self.llama
         hidden = llama.norm(hidden)
         pg, _, _ = mp_info()
         if labels is None:
@@ -565,7 +593,9 @@ class LlamaForCausalLM(nn.Module):
         else:
             loss = self._share_of_loss(hidden, labels, env, pg)
         if aux is not None:
-            loss = loss + self.config.aux_loss_weight * aux
+            # the aux is over the global tokens on every data rank: each
+            # adds its share, and the step's sum over them counts it once
+            loss = loss + self.config.aux_loss_weight * aux / _n_data()
         return loss
 
     def _share_of_loss(self, hidden, labels, env, pg):
@@ -596,6 +626,12 @@ class LlamaForCausalLM(nn.Module):
         return TF.cross_entropy(logits[:, :-1, :].reshape(-1, v).float(),
                                 labels[:, 1:].reshape(-1),
                                 ignore_index=IGNORE_INDEX)
+
+
+def _n_data() -> int:
+    """The data ranks of the installed mesh (dp x sdp), 1 without one."""
+    env = get_mesh_env()
+    return 1 if env is None else env.size_over(("dp", "sdp"))
 
 
 def llama_param_count(config: LlamaConfig) -> int:

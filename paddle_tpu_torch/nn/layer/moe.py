@@ -41,11 +41,14 @@ from torch import nn
 
 from ...framework.flags import get_flags
 from ...kernels.grouped_matmul import grouped_matmul
-from ...kernels.moe_dispatch import (MAX_EXPERTS, _route_diff,
-                                     fused_moe_mlp, topk_first)
+from ...kernels.moe_dispatch import (MAX_EXPERTS, _FusedCombine,
+                                     _FusedDispatch, _group_ops,
+                                     expert_swiglu, fused_moe_mlp,
+                                     route_stats_diff, router_aux,
+                                     topk_first)
 
-__all__ = ["MoELayer", "ExpertMLP", "collect_aux", "record_aux",
-           "drain_aux"]
+__all__ = ["MoELayer", "ExpertMLP", "MoEMesh", "moe_mesh", "moe_mlp",
+           "capacity_positions", "collect_aux", "record_aux", "drain_aux"]
 
 # -- aux-loss plumbing (the JAX package's side channel) ----------------------
 
@@ -78,17 +81,92 @@ def drain_aux(bucket):
     return total
 
 
+# -- the mesh ------------------------------------------------------------------
+
+class MoEMesh:
+    """What an MoE layer needs of the installed mesh (the JAX layer's
+    ``ep_degree`` and GSPMD's global view, made explicit per rank):
+
+    - ``data``: the group over dp x sdp, the ranks that see different
+      tokens (``n_data`` of them, this one at ``data_rank`` in batch
+      order), over which the aux's statistics and the capacity's counts
+      are global; None at one;
+    - ``experts``: the group over ep x mp, the ranks that see the same
+      tokens and hold different slices of the experts (``e / ep`` experts
+      each, their ``i / mp`` columns), over which the experts' partial
+      output and the partial gradients of its inputs are summed; None at
+      one.
+
+    Context parallelism under an MoE layer is not ported."""
+
+    def __init__(self, env):
+        if env.get_dim("cp") > 1:
+            from ...distributed.parallel import _deferred
+
+            raise _deferred("an MoE layer under context parallelism (MoE x "
+                            "cp)")
+        self.env = env
+        self.n_data = env.size_over(("dp", "sdp"))
+        self.data = _group(env, ("dp", "sdp"))
+        self.data_rank = env.coord("dp") * env.get_dim("sdp") + \
+            env.coord("sdp")
+        self.ep, self.ep_rank = env.get_dim("ep"), env.coord("ep")
+        self.mp = env.get_dim("mp")
+        self.experts = _group(env, ("ep", "mp"))
+
+
+def _group(env, axes):
+    """The group over those of ``axes`` of degree > 1, None at one rank."""
+    used = [ax for ax in axes if env.get_dim(ax) > 1]
+    return env.group_over(used) if used else None
+
+
+_MESHES = {}
+
+
+def moe_mesh(env=None):
+    """The :class:`MoEMesh` of ``env`` (default: the installed mesh), None
+    without a mesh of more than one rank. Its groups are made at the first
+    call for a mesh (collective: every rank calls it in the same order;
+    the layers call it when they are built)."""
+    if env is None:
+        from ...distributed.mesh import get_mesh_env
+
+        env = get_mesh_env()
+    if env is None or env.nranks == 1:
+        return None
+    m = _MESHES.get(id(env))
+    if m is None or m.env is not env:
+        m = _MESHES[id(env)] = MoEMesh(env)
+    return m
+
+
+def _global_aux(mesh):
+    """``aux_of(me, ce, n, e)`` for ``mesh``: the statistics summed over
+    its data ranks (a psum: the backward sums the cotangents), then the
+    aux over the global tokens."""
+    if mesh is None or mesh.data is None:
+        return router_aux
+    from ...distributed.collective import _PSum
+
+    def aux_of(me, ce, n, e):
+        both = _PSum.apply(torch.stack([me, ce.to(me.dtype)]), mesh.data)
+        return router_aux(both[0], both[1], n * mesh.n_data, e)
+
+    return aux_of
+
+
 # -- routing and the dispatch modes ------------------------------------------
 
-def _route(xt, wg, top_k):
+def _route(xt, wg, top_k, aux_of=router_aux):
     """Router: fp32 softmax, renormalised top-k (ties to the lowest
     expert), and the Switch/GShard aux ``e * sum(frac_probs *
     frac_top1)``: the fused router's differentiable chain on the pick."""
     with torch.no_grad():
         gate_i = topk_first(torch.softmax(xt.float() @ wg.float(), dim=-1),
                             top_k)[1]
-    gate_v, aux = _route_diff(xt, wg, gate_i, wg.shape[1])
-    return gate_v, gate_i, aux
+    gate_v, me, ce = route_stats_diff(xt, wg, gate_i, wg.shape[1])
+    return gate_v, gate_i, aux_of(me, ce, xt.shape[0], wg.shape[1])
 
 
 def _expert_ffn(buf, w_gate, w_up, w_down):
@@ -112,7 +190,7 @@ def _moe_mlp_index(x, wg, w_gate, w_up, w_down, *, top_k, capacity_factor):
     flat_g = gate_v.t().reshape(kn)
     oh = (flat_e[:, None] == torch.arange(e, device=x.device)[None, :]
           ).to(torch.int64)
-    pos_in_e = ((torch.cumsum(oh, dim=0) - 1) * oh).sum(dim=1)
+    pos_in_e = ((_cumsum(oh, 0) - 1) * oh).sum(dim=1)
     keep = pos_in_e < cap
     slot = torch.where(keep, flat_e * cap + pos_in_e, e * cap)
     # slot -> flat row (dropped rows all land on the scratch slot e*cap,
@@ -131,8 +209,101 @@ def _moe_mlp_index(x, wg, w_gate, w_up, w_down, *, top_k, capacity_factor):
     return out.reshape(b, s, h), aux
 
 
+def _cumsum(t, dim):
+    """``torch.cumsum(t, dim)`` of a one-hot, taken along the contiguous
+    dim of a copy: CUDA scans an outer dim with a thread a column over
+    every row (one [65536, 2] int64 scan took 3.9 ms on an H100, half the
+    MoE step at ep 4), an inner dim with a block a row."""
+    return torch.cumsum(t.movedim(dim, -1).contiguous(), dim=-1).movedim(
+        -1, dim)
+
+
 def _capacity(n, e, top_k, capacity_factor):
     return max(int(math.ceil(capacity_factor * top_k * n / e)), top_k)
+
+
+def capacity_positions(gate_i, e, data=None, n_data=1, data_rank=0):
+    """Each (choice, token)'s place in its expert's capacity buffer, in the
+    JAX package's order over the global tokens (``moe.py:221-247``): every
+    first choice before any second choice, the data ranks' tokens in batch
+    order. ``gate_i`` [n, k] -> (flat experts [k*n] choice-major, positions
+    [k*n]). Across ranks (``data``, this one ``data_rank`` of ``n_data``)
+    the place is the counts of the choices before this one over every rank
+    plus those of the ranks before this one at this choice, plus the local
+    cumsum. Each rank's [k, e] counts are all-gathered as an all-reduce of
+    a buffer with one row a rank (a few hundred bytes; every backend's
+    CUDA path has the all-reduce)."""
+    n, top_k = gate_i.shape
+    kn = top_k * n
+    flat_e = gate_i.t().reshape(kn).long()
+    oh = (flat_e[:, None] == torch.arange(e, device=gate_i.device)[None, :]
+          ).to(torch.int64)
+    local = (_cumsum(oh.reshape(top_k, n, e), 1) - 1).reshape(kn, e)
+    counts = oh.reshape(top_k, n, e).sum(dim=1)             # [k, e]
+    if data is None:
+        every = counts[None]
+        data_rank = 0
+    else:
+        import torch.distributed as dist
+
+        every = torch.zeros((n_data,) + tuple(counts.shape),
+                            dtype=counts.dtype, device=counts.device)
+        every[data_rank] = counts
+        dist.all_reduce(every, group=data)
+    total = every.sum(dim=0)                                 # [k, e]
+    before = (torch.cumsum(total, dim=0) - total) + \
+        every[:data_rank].sum(dim=0)                         # [k, e]
+    start = before.repeat_interleave(n, dim=0)               # [k*n, e]
+    return flat_e, ((start + local) * oh).sum(dim=1)
+
+
+def _moe_mlp_kept(x, wg, w_gate, w_up, w_down, *, top_k, capacity_factor,
+                  mesh):
+    """The capacity dispatch (``index``) over a mesh: the capacity and every
+    token's place from the global tokens (:func:`capacity_positions`), so
+    each drop is the reference's; this rank runs the kept rows bound for
+    its own experts (``e / ep`` of them) through the grouped-GEMM kernel,
+    grouped by local expert, with no capacity padding; its partial
+    combine is summed over the expert group (ep x mp) by an all-reduce,
+    whose conjugate sums the partial gradients of the dispatched rows and
+    the gates. The router runs whole on every rank, so a replicated
+    parameter ends with its full gradient, counted once."""
+    b, s, h = x.shape
+    n = b * s
+    e = wg.shape[1]
+    kn = top_k * n
+    e_loc = w_gate.shape[0]
+    lo = mesh.ep_rank * e_loc
+    xt = x.reshape(n, h)
+    gate_v, gate_i, aux = _route(xt, wg, top_k, _global_aux(mesh))
+    cap = _capacity(n * mesh.n_data, e, top_k, capacity_factor)
+    with torch.no_grad():
+        flat_e, pos = capacity_positions(gate_i, e, mesh.data, mesh.n_data,
+                                         mesh.data_rank)
+        mine = (pos < cap) & (flat_e >= lo) & (flat_e < lo + e_loc)
+        local_e = torch.where(mine, flat_e - lo, 0)
+        oh = (local_e[:, None] == torch.arange(
+            e_loc, device=x.device)[None, :]) & mine[:, None]
+        oh = oh.to(torch.int64)
+        slot = ((_cumsum(oh, 0) - 1) * oh).sum(dim=1)
+        sizes = oh.sum(dim=0)                                 # [e_loc]
+        rows = min(kn, e_loc * cap) + 1  # the last row stays zero: a pad
+        offsets = torch.cumsum(sizes, dim=0) - sizes
+        dest = torch.where(mine, offsets[local_e] + slot, rows - 1)
+        dest2 = dest.reshape(top_k, n).t().contiguous().to(torch.int32)
+        # grouped row -> flat token-major row (t * k + c); k * n: none
+        tok_major = (torch.arange(kn, device=x.device) % n) * top_k + \
+            torch.arange(kn, device=x.device) // n
+        g2f = torch.full((rows,), kn, dtype=torch.int64, device=x.device)
+        g2f = g2f.scatter(0, torch.where(mine, dest, rows - 1),
+                          torch.where(mine, tok_major, kn)).to(torch.int32)
+        gates_on = mine.reshape(top_k, n).t()                 # [n, k]
+    copy_in, reduce_out = _group_ops(mesh.experts)
+    xs = _FusedDispatch.apply(copy_in(xt), g2f // top_k, dest2)
+    ys = expert_swiglu(xs, w_gate, w_up, w_down, sizes.to(torch.int32))
+    gates = copy_in(gate_v) * gates_on
+    out = reduce_out(_FusedCombine.apply(ys, gates, dest2, g2f))
+    return out.reshape(b, s, h).to(x.dtype), aux
 
 
 def _moe_mlp_einsum(x, wg, w_gate, w_up, w_down, *, top_k,
@@ -162,7 +333,7 @@ def _moe_mlp_einsum(x, wg, w_gate, w_up, w_down, *, top_k,
     return out.reshape(b, s, h), aux
 
 
-def _moe_mlp_gmm(x, wg, w_gate, w_up, w_down, *, top_k):
+def _moe_mlp_gmm(x, wg, w_gate, w_up, w_down, *, top_k, mesh=None):
     """Dropless: the k*n (token, choice) rows sorted by expert with a stable
     argsort, one grouped GEMM per projection."""
     b, s, h = x.shape
@@ -170,7 +341,8 @@ def _moe_mlp_gmm(x, wg, w_gate, w_up, w_down, *, top_k):
     e = wg.shape[1]
     kn = top_k * n
     xt = x.reshape(n, h)
-    gate_v, gate_i, aux = _route(xt, wg, top_k)
+    gate_v, gate_i, aux = _route(xt, wg, top_k, _global_aux(mesh))
+    copy_in, reduce_out = _group_ops(None if mesh is None else mesh.experts)
     flat_e = gate_i.reshape(kn)           # token-major: row t*k + c
     order = torch.argsort(flat_e, stable=True)
     inv = torch.empty_like(order).scatter_(
@@ -178,23 +350,33 @@ def _moe_mlp_gmm(x, wg, w_gate, w_up, w_down, *, top_k):
     group_sizes = torch.zeros(e, dtype=torch.int32, device=x.device
                               ).scatter_add_(0, flat_e, torch.ones_like(
                                   flat_e, dtype=torch.int32))
-    xs = xt[order // top_k]
-    act = TF.silu(grouped_matmul(xs, w_gate, group_sizes)) * \
-        grouped_matmul(xs, w_up, group_sizes)
-    ys = grouped_matmul(act, w_down, group_sizes)
+    xs = copy_in(xt)[order // top_k]
+    ys = expert_swiglu(xs, w_gate, w_up, w_down, group_sizes)
     y_tok = ys[inv].reshape(n, top_k, h)
-    out = (y_tok * gate_v[:, :, None].to(x.dtype)).sum(dim=1)
-    return out.reshape(b, s, h), aux
+    out = (y_tok * copy_in(gate_v)[:, :, None].to(x.dtype)).sum(dim=1)
+    return reduce_out(out).reshape(b, s, h), aux
 
 
 def moe_mlp(x, wg, w_gate, w_up, w_down, *, top_k, capacity_factor,
-            dispatch="index"):
+            dispatch="index", mesh=None):
     """Routed expert FFN: [b, s, h] -> ([b, s, h], aux) by ``dispatch``
-    (``index`` | ``sort`` | ``gmm`` | ``fused`` | ``einsum``)."""
+    (``index`` | ``sort`` | ``gmm`` | ``fused`` | ``einsum``). Under a
+    mesh (``mesh``, a :class:`MoEMesh`) the aux is over the global tokens;
+    with ``ep > 1`` every mode takes ``index``, as the JAX layer does
+    (``moe.py:133-143``), and the capacity modes run
+    :func:`_moe_mlp_kept` (the global capacity and places)."""
+    if mesh is not None and mesh.ep > 1:
+        dispatch = "index"
     if dispatch == "fused" and wg.shape[1] <= MAX_EXPERTS:
-        return fused_moe_mlp(x, wg, w_gate, w_up, w_down, top_k=top_k)
+        return fused_moe_mlp(x, wg, w_gate, w_up, w_down, top_k=top_k,
+                             group=None if mesh is None else mesh.experts,
+                             aux_of=_global_aux(mesh))
     if dispatch == "gmm":
-        return _moe_mlp_gmm(x, wg, w_gate, w_up, w_down, top_k=top_k)
+        return _moe_mlp_gmm(x, wg, w_gate, w_up, w_down, top_k=top_k,
+                            mesh=mesh)
+    if mesh is not None:
+        return _moe_mlp_kept(x, wg, w_gate, w_up, w_down, top_k=top_k,
+                             capacity_factor=capacity_factor, mesh=mesh)
     impl = _moe_mlp_einsum if dispatch == "einsum" else _moe_mlp_index
     return impl(x, wg, w_gate, w_up, w_down, top_k=top_k,
                 capacity_factor=capacity_factor)
@@ -202,11 +384,23 @@ def moe_mlp(x, wg, w_gate, w_up, w_down, *, top_k, capacity_factor,
 
 class ExpertMLP(nn.Module):
     """Stacked per-expert SwiGLU weights in the JAX layout: ``gate`` and
-    ``up`` [e, h, i], ``down`` [e, i, h]; Xavier-uniform."""
+    ``up`` [e, h, i], ``down`` [e, i, h]; Xavier-uniform. Under a mesh
+    (``ep``, ``mp``) a rank holds its ``e / ep`` experts and their ``i /
+    mp`` columns, as the JAX specs ``P("ep", None, "mp")`` / ``P("ep",
+    "mp", None)`` place them (``moe.py:444-446``): each tensor carries
+    ``ep_dim`` (0) and ``mp_dim`` (2 for ``gate``/``up``, 1 for
+    ``down``)."""
 
-    def __init__(self, num_experts, hidden_size, intermediate_size):
+    def __init__(self, num_experts, hidden_size, intermediate_size, ep=1,
+                 mp=1):
         super().__init__()
-        e, h, i = num_experts, hidden_size, intermediate_size
+        for what, total, n in (("num_experts", num_experts, ep),
+                               ("intermediate_size", intermediate_size, mp)):
+            if total % n:
+                raise ValueError(f"{what} ({total}) must divide by its "
+                                 f"mesh degree {n}")
+        e, h, i = num_experts // ep, hidden_size, intermediate_size // mp
+        self._ep, self._mp = ep, mp
         self.gate = nn.Parameter(torch.empty(e, h, i))
         self.up = nn.Parameter(torch.empty(e, h, i))
         self.down = nn.Parameter(torch.empty(e, i, h))
@@ -214,12 +408,20 @@ class ExpertMLP(nn.Module):
                                      (self.down, (i, h))):
             bound = math.sqrt(6.0 / (fan_in + fan_out))
             nn.init.uniform_(p, -bound, bound)
+        self._mark_params()
+
+    def _mark_params(self):
+        for p, mp_dim in ((self.gate, 2), (self.up, 2), (self.down, 1)):
+            p.ep_dim = 0 if self._ep > 1 else None
+            p.mp_dim = mp_dim if self._mp > 1 else None
+            p.is_distributed = self._ep > 1 or self._mp > 1
 
 
 class MoELayer(nn.Module):
     """Top-k routed expert layer: router ``gate_weight`` [d_model, e] and
     :class:`ExpertMLP` experts (``intermediate_size`` defaults to 4 *
-    d_model)."""
+    d_model). Built under a mesh, it holds its ranks' experts and takes
+    the mesh's groups (:func:`moe_mesh`)."""
 
     def __init__(self, d_model, num_experts, intermediate_size=None, top_k=2,
                  capacity_factor=1.25):
@@ -232,14 +434,18 @@ class MoELayer(nn.Module):
         self.gate_weight = nn.Parameter(torch.empty(d_model, num_experts))
         bound = math.sqrt(6.0 / (d_model + num_experts))
         nn.init.uniform_(self.gate_weight, -bound, bound)
-        self.experts = ExpertMLP(num_experts, d_model, intermediate_size)
+        mesh = moe_mesh()
+        self.experts = ExpertMLP(num_experts, d_model, intermediate_size,
+                                 ep=1 if mesh is None else mesh.ep,
+                                 mp=1 if mesh is None else mesh.mp)
 
     def forward_with_aux(self, x):
-        """[b, s, d_model] -> (output, aux loss)."""
+        """[b, s, d_model] -> (output, aux loss over the global tokens)."""
         mode = get_flags("FLAGS_moe_dispatch")["FLAGS_moe_dispatch"]
         return moe_mlp(x, self.gate_weight, self.experts.gate,
                        self.experts.up, self.experts.down, top_k=self.top_k,
-                       capacity_factor=self.capacity_factor, dispatch=mode)
+                       capacity_factor=self.capacity_factor, dispatch=mode,
+                       mesh=moe_mesh())
 
     def forward(self, x):
         out, aux = self.forward_with_aux(x)

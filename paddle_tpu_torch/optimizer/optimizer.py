@@ -195,7 +195,8 @@ class Optimizer:
 
     @torch.no_grad()
     def _apply(self, grads: Optional[List[Optional[torch.Tensor]]] = None,
-               clip: Optional[Callable] = None, device_step=None):
+               clip: Optional[Callable] = None, device_step=None,
+               split=None):
         """The update of step ``_global_step + 1`` without advancing the
         step: the parameters with a gradient (``grads``, one entry per
         parameter or None, else each ``.grad``) and ``requires_grad``.
@@ -210,7 +211,10 @@ class Optimizer:
         optimizer's, for the eager steps. ``device_step`` ``(count,
         skip)``, int32 [1] device tensors, gives the step number (count +
         1) and a skip flag from the device
-        (``StepBatch.bind_device_step``): the in-graph GradScaler's."""
+        (``StepBatch.bind_device_step``): the in-graph GradScaler's.
+        ``split`` (a ``kernels.optimizer.TensorSplits``): the parameters
+        are shards, and the rules that take statistics over a whole tensor
+        sum them over the ranks that hold its other shards."""
         plist = self._parameter_list
         if grads is None:
             grads = [p.grad for p in plist]
@@ -244,6 +248,7 @@ class Optimizer:
             else:
                 self._batch, self._batch_key = batch, key
         batch.device_step = None
+        batch.split = split
         if device_step is not None:
             batch.bind_device_step(*device_step)
         self._update(batch, *(clip or self._clip)(batch))

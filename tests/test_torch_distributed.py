@@ -516,8 +516,8 @@ def test_parallel_cross_entropy_mp4(runs):
 
 
 @pytest.mark.parametrize("option", [
-    "offload", "optimizer_offload", "ep", "lamb_under_mp", "moe_under_mesh",
-    "moe_under_pp", "pp_with_cp"])
+    "offload", "optimizer_offload", "pp_with_cp", "moe_under_cp",
+    "gpt_under_mp"])
 def test_deferred_option_raises(runs, option):
     got = runs[2][0]["deferred"][option]
     assert got.startswith("NotImplementedError"), got

@@ -2025,3 +2025,106 @@ def test_pipeline_local_graph_replay_equals_eager(cuda):
                                                  out[True][0]))
     for n, p in out[False][1].items():
         assert torch.equal(out[True][1][n], p), n
+
+
+# -- the optimizer kernels' split passes (ShardedTrainStep over split tensors)
+
+def _world_one():
+    """A world-1 process group (gloo over a store in memory) where none is
+    up: the split passes sum over it, the rank's own sums."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return dist.group.WORLD
+
+
+_SPLIT_SHAPES = [(3, 5, 24), (7, 40), (9,), (1100, 24), (1, 1)]
+
+
+def _split_run(cuda, rule, dtype, split, plain, steps=2):
+    """``steps`` updates of ``rule`` over tensors at _SPLIT_SHAPES, the
+    first marked split on its dims 0 and 2, the second on 0, the fourth
+    on 1 (degree-1 axes of the world-1 group: ``split``), or unsplit;
+    through the kernels or their plain versions. Returns every tensor
+    the updates wrote."""
+    from paddle_tpu_torch.kernels import optimizer as kopt
+
+    rng = np.random.default_rng(31)
+
+    def t(shape, scale):
+        return (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)) * scale).to(cuda)
+
+    p = [t(s, 0.02).to(dtype) for s in _SPLIT_SHAPES]
+    grads = [[t(s, 1e-3).to(dtype) for s in _SPLIT_SHAPES]
+             for _ in range(steps)]
+    if rule == "adafactor":
+        slots = [[t(s[:-1] if len(s) > 1 else s, 1e-4).square()
+                  for s in _SPLIT_SHAPES],
+                 [t(s[:-2] + s[-1:], 1e-4).square() if len(s) > 1 else None
+                  for s in _SPLIT_SHAPES], [None] * len(p)]
+    else:
+        slots = [[t(s, 1e-4).to(dtype) for s in _SPLIT_SHAPES],
+                 [t(s, 1e-3).square().to(dtype) if rule == "lamb" else None
+                  for s in _SPLIT_SHAPES], [None] * len(p)]
+    world = _world_one()
+    marks = kopt.TensorSplits([(world, 1, {id(p[0]): 0}),
+                               (world, 1, {id(p[0]): 2, id(p[1]): 0,
+                                           id(p[3]): 1})]) if split else None
+    sfx = "_plain" if plain else ""
+    for k, g in enumerate(grads):
+        b = kopt.StepBatch(p, g, slots, [True] * len(p), 1e-2, k + 1,
+                           rule=rule)
+        b.split = marks
+        if rule == "adafactor":
+            st = getattr(kopt, "adafactor_stats" + sfx)(
+                b, decay_rate=0.8, epsilon1=1e-30, weight_decay=0.0,
+                pscale=True)
+            getattr(kopt, "adafactor_update" + sfx)(
+                b, st, beta1=0.0, epsilon2=1e-3, clip_threshold=1.0,
+                pscale=True, weight_decay=0.0)
+        elif rule == "lamb":
+            getattr(kopt, "lamb_update" + sfx)(
+                b, beta1=0.9, beta2=0.999, epsilon=1e-6, weight_decay=0.01)
+        else:
+            getattr(kopt, "lars_update" + sfx)(
+                b, momentum=0.9, lars_coeff=0.001, weight_decay=5e-4,
+                epsilon=0.0)
+    torch.cuda.synchronize()
+    return p + [s for sl in slots for s in sl if s is not None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule", ["adafactor", "lamb", "lars"])
+def test_split_rule_kernels_match_plain_and_unsplit(cuda, rule, dtype):
+    """The split passes of Adafactor's statistics and update, Lamb and LARS
+    (the partial launch, the sums over the ranks, the finish launch) over
+    tensors marked split on degree-1 axes: equal to the unsplit kernels in
+    every bit over two steps (the sums over one rank are its own), and to
+    their plain versions as the unsplit kernels are (Lamb and LARS in
+    every bit; Adafactor fp32 within rtol 1e-5 of each tensor's largest
+    element, bf16 within one ulp after one step: a one-ulp difference in
+    p moves the next step's parameter scale, and two steps read 2 ulps in
+    0.004% of the elements)."""
+    steps = 1 if rule == "adafactor" and dtype == torch.bfloat16 else 2
+    reset_counters()
+    got = _split_run(cuda, rule, dtype, True, False, steps)
+    c = counters()
+    names = ("adafactor_stats", "adafactor_update") if rule == "adafactor" \
+        else (f"{rule}_update",)
+    for n in names:
+        assert c[n] == {"launches": steps, "plain_calls": 0}
+    whole = _split_run(cuda, rule, dtype, False, False, steps)
+    ref = _split_run(cuda, rule, dtype, True, True, steps)
+    for a, w, r in zip(got, whole, ref):
+        assert torch.equal(a, w)
+        if rule != "adafactor":
+            assert torch.equal(a, r)
+        elif a.dtype == torch.bfloat16:
+            _bf16_close(a, r, r, "adafactor split")
+        else:
+            scale = r.abs() + r.abs().max()
+            assert ((a - r).abs() / scale.clamp_min(1e-30)).max() <= 1e-5

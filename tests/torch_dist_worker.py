@@ -12,6 +12,7 @@ from __future__ import annotations
 import datetime
 import os
 import pickle
+import sys
 
 import numpy as np
 import torch
@@ -24,6 +25,10 @@ from paddle_tpu_torch.distributed.meta_parallel import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 
 WORLD = 4
+# the MoE faults planted on the card too (tools/moe_mesh_ranks.py)
+sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
+from moe_mesh_ranks import Planted  # noqa: E402
 
 
 def _np(t):
@@ -384,21 +389,16 @@ def deferred(inp):
         dist.ShardedTrainStep(net, _mse, o)
 
     record("optimizer_offload", offloaded)
-    dist.init_mesh(ep=2, dp=2)
-    record("ep", lambda: dist.ShardedTrainStep(net, _mse, fresh()))
-    dist.init_mesh(dp=2, mp=2)
-    tp = _TPMLP()
-    record("lamb_under_mp", lambda: dist.ShardedTrainStep(
-        tp, _mse, popt.Lamb(learning_rate=0.1,
-                            parameters=tp.parameters())))
-    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         LlamaConfig, LlamaForCausalLM,
                                          LlamaMoEConfig)
 
-    record("moe_under_mesh", lambda: LlamaForCausalLM(
+    dist.init_mesh(cp=2, dp=2)
+    record("moe_under_cp", lambda: LlamaForCausalLM(
         LlamaMoEConfig.tiny(), device="cpu"))
-    dist.reset_mesh()
-    record("moe_under_pp", lambda: LlamaForCausalLM(
-        LlamaMoEConfig.tiny(), device="cpu", stage=(0, 2)))
+    dist.init_mesh(dp=2, mp=2)
+    record("gpt_under_mp", lambda: GPTForCausalLM(GPTConfig.tiny(),
+                                                  device="cpu"))
     dist.init_mesh(pp=2, cp=2)
     pp_cp = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     record("pp_with_cp", lambda: dist.ShardedTrainStep(
@@ -650,6 +650,179 @@ def checkpoint_reshard(inp):
     return out
 
 
+# -- the MoE Llama across ranks -------------------------------------------------
+
+def _moe_optimizer(case, params):
+    """The case's rule: AdamW lr 1e-3; Momentum (0.9) lr 0.1, or 10 for
+    ``momentum_lr10``, under the case's clip (``("global" | "tensor",
+    norm)`` or None); Adafactor lr 1e-2; Lamb lr 1e-2; LARS lr 0.1."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm, ClipGradByNorm
+
+    rule, clip = case["optimizer"], case.get("clip")
+    if rule.startswith("momentum"):
+        return popt.Momentum(
+            learning_rate=10.0 if rule == "momentum_lr10" else 0.1,
+            momentum=0.9, parameters=params, grad_clip=None if clip is None
+            else (ClipGradByGlobalNorm if clip[0] == "global"
+                  else ClipGradByNorm)(clip[1]))
+    return {"adamw": lambda: popt.AdamW(learning_rate=1e-3,
+                                        parameters=params),
+            "adafactor": lambda: popt.Adafactor(learning_rate=1e-2,
+                                                parameters=params),
+            "lamb": lambda: popt.Lamb(learning_rate=1e-2, parameters=params),
+            "lars": lambda: popt.LarsMomentum(learning_rate=0.1,
+                                              parameters=params)}[rule]()
+
+
+class _NormWithoutEp(dist.ShardedTrainStep):
+    """A planted fault: the clip's norm without the ep all-reduce, each
+    rank counting only its own experts."""
+
+    def _split_masks(self, params):
+        masks = super()._split_masks(params).clone()
+        masks[3] = 0
+        return masks
+
+
+class _EpGradCountedTwice(dist.ShardedTrainStep):
+    """A planted fault: the gradients of the parameters every ep rank holds
+    whole summed over ep, where each rank's is already the full one."""
+
+    def _reduce(self, raw):
+        grads = super()._reduce(raw)
+        for e, g in zip(self._plan, grads):
+            if g is not None and not e.ep:
+                torch.distributed.all_reduce(g, group=self._ep_pg)
+        return grads
+
+
+class _Drops:
+    """Counts, while open, the (choice, token) rows the capacity drops in
+    the MoE layers' forwards (``_moe_mlp_kept``)."""
+
+    def __init__(self):
+        from paddle_tpu_torch.nn.layer import moe
+
+        self.moe, self.dropped, self.rows = moe, 0, 0
+
+    def __enter__(self):
+        moe, orig = self.moe, self.moe.capacity_positions
+        cap_of = moe._capacity
+        self.saved = (orig, cap_of)
+        caps = []
+
+        def capacity(n, e, k, cf):
+            caps.append(cap_of(n, e, k, cf))
+            return caps[-1]
+
+        def positions(*a):
+            flat_e, pos = orig(*a)
+            self.dropped += int((pos >= caps[-1]).sum())
+            self.rows += pos.numel()
+            return flat_e, pos
+
+        moe._capacity, moe.capacity_positions = capacity, positions
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.capacity_positions, self.moe._capacity = self.saved
+
+
+MOE_STEPS = {"norm_without_ep": _NormWithoutEp,
+             "ep_grad_counted_twice": _EpGradCountedTwice}
+
+
+def moe_llama(inp, key, fault=None):
+    """The tiny MoE Llama at the case's degrees, dispatch and rule, three
+    steps: every loss, this rank's state, the capacity's drops."""
+    from paddle_tpu_torch import get_flags, set_flags
+    from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
+    from paddle_tpu_torch.models.convert import shard_llama_state
+
+    case = inp["moe"][key]
+    env = dist.init_mesh(**case["degrees"])
+    prior = get_flags("FLAGS_moe_dispatch")
+    set_flags({"FLAGS_moe_dispatch": case["dispatch"]})
+    n_data = env.size_over(("dp", "sdp"))
+    try:
+        with Planted(fault, n_data), _Drops() as drops:
+            model = LlamaForCausalLM(LlamaMoEConfig.tiny(**case["config"]),
+                                     device="cpu")
+            full = {k: torch.from_numpy(v) for k, v in case["state"].items()}
+            model.load_state_dict(shard_llama_state(full, env))
+            o = _moe_optimizer(case, model.parameters())
+            if case.get("level"):
+                model, o = dist.group_sharded_parallel(model, o,
+                                                       level=case["level"])
+            step = MOE_STEPS.get(fault, dist.ShardedTrainStep)(
+                model, lambda m, x, y: m(x, labels=y), o)
+            ids = torch.from_numpy(case["ids"])
+            losses = [float(step(ids, ids)) for _ in range(3)]
+    finally:
+        set_flags(prior)
+    return {"losses": losses, "dropped": drops.dropped, "rows": drops.rows,
+            "state": {k: _np(v) for k, v in model.state_dict().items()}}
+
+
+def moe_a2a(inp):
+    """``global_scatter`` / ``global_gather`` at ep 4 on the JAX test's
+    buckets ([4 sources, 4 experts, capacity 2, 8]; this rank's are
+    ``x[rank]``), full and ragged counts."""
+    env = dist.init_mesh(ep=WORLD)
+    x = torch.from_numpy(inp["a2a"][env.coord("ep")]).requires_grad_(True)
+    full = torch.full((4,), 2, dtype=torch.int64)
+    y = dist.global_scatter(x, full, full)
+    z = dist.global_gather(y, full, full)
+    (y * torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape)
+     ).sum().backward()
+    ragged = torch.full((4,), 1, dtype=torch.int64)
+    y2 = dist.global_scatter(x.detach(), ragged, ragged)
+    counts = dist.number_count(torch.tensor([[0, 3], [3, 1]]), 4)
+    return {"scatter": _np(y), "gather": _np(z), "ragged": _np(y2),
+            "grad": _np(x.grad), "count": counts.numpy().copy()}
+
+
+def moe_checkpoint(inp):
+    """The MoE Llama saved at ep 2 x dp 2 after one step and resumed at dp
+    4 and at pp 2 x dp 2 (one microbatch: the aux and the capacity are
+    then over the same tokens as without pp), two more steps each beside
+    the unbroken run's."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
+    from paddle_tpu_torch.models.convert import shard_llama_state
+
+    case = inp["moe"]["ep2_dp2"]
+    ids = torch.from_numpy(case["ids"])
+    path = os.path.join(inp["tmpdir"], "ckpt_moe_ep2_dp2")
+
+    def run(degrees, load=False):
+        env = dist.init_mesh(**degrees)
+        model = LlamaForCausalLM(LlamaMoEConfig.tiny(
+            **case["config"], pp_microbatches=1), device="cpu")
+        full = {k: torch.from_numpy(v) for k, v in case["state"].items()}
+        model.load_state_dict(shard_llama_state(full, env))
+        o = popt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+        step = dist.ShardedTrainStep(model, lambda m, x, y: m(x, labels=y),
+                                     o)
+        if load:
+            ckpt.load_sharded_model(model, o, path)
+        else:
+            step(ids, ids)
+            ckpt.save_sharded_model(model, o, path)
+            dist.barrier()
+        losses = [float(step(ids, ids)) for _ in range(2)]
+        state = {k: _np(v) for k, v in model.state_dict().items()}
+        dist.reset_mesh()
+        return {"losses": losses, "state": state,
+                "global_step": int(o._global_step)}
+
+    out = {"unbroken": run(dict(ep=2, dp=2))}
+    dist.barrier()
+    out["dp4"] = run(dict(dp=WORLD), load=True)
+    out["pp2_dp2"] = run(dict(pp=2, dp=2), load=True)
+    return out
+
+
 SUITES = {
     "distributed": [
         ("collectives", collectives),
@@ -701,6 +874,21 @@ SUITES = {
         ("gpt_pipe", gpt_pipe),
         ("localsgd", localsgd),
         ("checkpoint", checkpoint_reshard),
+    ],
+    "moe": [(f"moe_{key}", (lambda k: lambda inp: moe_llama(inp, k))(key))
+            for key in ("dp4_fused", "dp4_index", "sdp4_os_g", "sdp4_p_g_os",
+                        "ep4", "ep2_dp2", "ep2_mp2", "pp2_dp2",
+                        "ep2_dp2_clip", "ep2_dp2_tensor_clip",
+                        "ep2_dp2_momentum", "adafactor_ep2_dp2",
+                        "lamb_dp2_mp2", "lars_sdp4_os_g")] + [
+        (f"planted_{fault}",
+         (lambda f, k: lambda inp: moe_llama(inp, k, f))(fault, key))
+        for fault, key in (("per_rank_capacity", "dp4_index"),
+                           ("per_rank_aux", "dp4_fused"),
+                           ("norm_without_ep", "ep2_dp2_tensor_clip"),
+                           ("ep_grad_counted_twice", "ep2_dp2_momentum"))] + [
+        ("a2a", moe_a2a),
+        ("checkpoint", moe_checkpoint),
     ],
     "context_parallel": [
         ("ring", lambda inp: ring(inp, "ring")),

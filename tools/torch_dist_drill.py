@@ -21,12 +21,28 @@ dp 2 x mp 2 under Momentum with a global-norm clip at half the first
 step's norm (it binds). Then a checkpoint saved at dp 2 x mp 2 after one
 step and loaded at pp 2 x dp 2 continues as the unbroken run does.
 
+MoE parity (fp32, the same limits): the drill's Llama with every MLP an
+MoE layer (8 experts, top-2) at dp 4 (``fused``), ep 4, ep 2 x dp 2, ep 2
+x mp 2, sdp 2 x ep 2 (ZeRO ``p_g_os``) and pp 2 x dp 2 (``index``, the
+global capacity), each against one process: ``TrainStep`` on the whole
+batch in the same dispatch, or at pp ``TrainStep.accumulate(M)`` on the
+batch ordered as the pipeline's microbatches hold it (its aux and
+capacity are per microbatch). A checkpoint saved at ep 2 x dp 2 after one
+step and loaded at dp 4 continues as the unbroken run does.
+
 Timed (cards only, graphed bf16, recompute, AdamW lr 3e-4 / wd 0.1): the
 1.16B Llama (``bench.py:1836-1840``) on one card at 4 x 2048, at dp 4, dp
 2 x mp 2, cp 4 (ring, 2 x 16384), pp 4 and pp 2 x dp 2 (16 x 2048, 8
 microbatches of each rank's batch at pp 4, 4 at pp 2); and Llama-2 7B at
-full depth (32 layers, 8 a stage) at pp 4, M = 8 x (1 x 4096). Tokens/s a
-card.
+full depth (32 layers, 8 a stage) at pp 4, M = 8 x (1 x 4096); the MoE
+flagship (``bench.py:1864-1872``, Adafactor lr 1e-2) on one card at 4 x
+2048 (``fused``), at dp 4 (``fused``) and at ep 4 (``index``, capacity
+factor 1.25), 16 x 2048. Tokens/s a card.
+
+``--only a,b`` runs the jobs of those names alone (a mesh's, a timed
+job's, ``checkpoint``, ``moe_checkpoint``); ``--profile`` adds to each
+timed MoE job one more replay under ``torch.profiler`` on rank 0 and
+prints its device time by kernel (the top names and the sum).
 
 Prints one JSON line a check and, last, ``{"ok": true, ...}``; any failure
 raises and the run exits non-zero. A rank that has not finished a job
@@ -75,6 +91,15 @@ PARITY = {"card": dict(vocab_size=4096, hidden_size=512,
                       num_hidden_layers=4, num_attention_heads=4,
                       num_key_value_heads=2, max_position_embeddings=64)}
 PARITY_BATCH = {"card": (8, 256), "cpu": (8, 32)}
+MOE_EXPERTS = dict(num_experts=8, top_k=2, capacity_factor=1.25)
+# (name, degrees, ZeRO level, dispatch, pp microbatches)
+MOE_MESHES = [("moe_dp4_fused", dict(dp=4), None, "fused", 0),
+              ("moe_ep4", dict(ep=4), None, "index", 0),
+              ("moe_ep2_dp2", dict(ep=2, dp=2), None, "index", 0),
+              ("moe_ep2_mp2", dict(ep=2, mp=2), None, "index", 0),
+              ("moe_sdp2_ep2_p_g_os", dict(sharding=2, ep=2), "p_g_os",
+               "index", 0),
+              ("moe_pp2_dp2", dict(pp=2, dp=2), None, "index", 2)]
 BIG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
            num_hidden_layers=20, num_attention_heads=16,
            num_key_value_heads=16)
@@ -89,6 +114,14 @@ TIMED = [("one_card", BIG, None, None, (4, 2048), 0),
          ("pp4", BIG, dict(pp=4), None, (16, 2048), 8),
          ("pp2_dp2", BIG, dict(pp=2, dp=2), None, (16, 2048), 4),
          ("llama2_7b_pp4", LLAMA2_7B, dict(pp=4), None, (8, 4096), 8)]
+MOE_FLAGSHIP = dict(vocab_size=32000, hidden_size=1536,
+                    intermediate_size=2048, num_hidden_layers=16,
+                    num_attention_heads=12, num_key_value_heads=12,
+                    **MOE_EXPERTS)
+# (name, degrees, global batch, dispatch)
+MOE_TIMED = [("moe_one_card", None, (4, 2048), "fused"),
+             ("moe_dp4_fused", dict(dp=4), (16, 2048), "fused"),
+             ("moe_ep4_index", dict(ep=4), (16, 2048), "index")]
 # seconds a rank may take for a job before it dumps its stacks and exits
 PARITY_LIMIT_S, TIMED_LIMIT_S = 240, 420
 
@@ -272,6 +305,214 @@ def _checkpoint(size, device, path, log):
            "param_max_abs_err": pe}, log)
 
 
+def _dispatch(mode):
+    from paddle_tpu_torch import set_flags
+
+    set_flags({"FLAGS_moe_dispatch": mode})
+
+
+def _pp_order(ids, dp, m):
+    """The global batch's rows in the order the pipeline's microbatches
+    hold them: microbatch i of every data rank, rank by rank, then i + 1
+    (each rank's local rows split into ``m`` microbatches)."""
+    b = ids.shape[0]
+    per = b // dp // m
+    rows = [r * (b // dp) + i * per + j for i in range(m)
+            for r in range(dp) for j in range(per)]
+    return ids[rows]
+
+
+def _moe_parity(name, degrees, level, mode, micro, size, device, log):
+    """One MoE mesh's fp32 steps, eager and graphed, against one process:
+    ``TrainStep`` on the whole batch, or at pp ``TrainStep.accumulate(M)``
+    on the batch in the pipeline's microbatch order."""
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
+    from paddle_tpu_torch.models.convert import shard_llama_state
+
+    _dispatch(mode)
+    cfg = LlamaMoEConfig(**PARITY[size], **MOE_EXPERTS, dtype="float32",
+                         pp_microbatches=micro)
+    ids = _ids(cfg.vocab_size, PARITY_BATCH[size], 3, device)
+    model = LlamaForCausalLM(cfg, device=device, generator=seed(5, device))
+    full = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = _optimizer(model.parameters(), None)
+    if micro:
+        step = TrainStep(model, _loss_fn, opt, graph=False).accumulate(micro)
+        ref_ids = _pp_order(ids, degrees.get("dp", 1), micro)
+    else:
+        step, ref_ids = TrainStep(model, _loss_fn, opt, graph=False), ids
+    ref_losses = [float(step(ref_ids, ref_ids)) for _ in range(3)]
+    ref = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt, step
+    graphs = [False, True] if device == "cuda" else [False]
+    out = {"mesh": name, "degrees": degrees, "zero": level,
+           "dispatch": mode, "pp_microbatches": micro or None,
+           "experts": cfg.num_experts, "top_k": cfg.top_k}
+    got = {}
+    env = pdist.init_mesh(**degrees)
+    for graph in graphs:
+        model = LlamaForCausalLM(cfg, device=device,
+                                 generator=seed(5, device))
+        model.load_state_dict(shard_llama_state(full, env))
+        opt = _optimizer(model.parameters(), None)
+        if level:
+            model, opt = pdist.group_sharded_parallel(model, opt,
+                                                      level=level)
+        step = pdist.ShardedTrainStep(model, _loss_fn, opt, graph=graph)
+        losses = [float(step(ids, ids)) for _ in range(3)]
+        state = pdist.sharding.gather_full_state(model)
+        mode_ = "graph" if graph else "eager"
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref_losses))
+        pe, ue = _errors(state, ref, full)
+        pe, ue = _max_over_world(pe), _max_over_world(ue)
+        if loss_rel > LOSS_RTOL or ue > UPDATE_RTOL:
+            raise RuntimeError(f"{name} ({mode_}): losses {losses} vs "
+                               f"{ref_losses} (rel {loss_rel}), updates {ue} "
+                               f"off (max abs {pe})")
+        got[mode_] = (losses, state)
+        out[mode_] = {"losses": losses, "loss_rel_err": loss_rel,
+                      "update_rel_l2_err": ue, "param_max_abs_err": pe}
+        del model, opt, step
+    out["reference_losses"] = ref_losses
+    if "graph" in got:
+        same = got["graph"][0] == got["eager"][0] and all(
+            torch.equal(got["graph"][1][n], got["eager"][1][n])
+            for n in got["eager"][1])
+        if not _max_over_world(0.0 if same else 1.0) == 0.0:
+            raise RuntimeError(f"{name}: the graphed step differs from the "
+                               f"eager one")
+        out["graph_equals_eager"] = True
+    pdist.reset_mesh()
+    _dispatch("index")
+    _emit(dict(phase="parity", **out), log)
+
+
+def _moe_checkpoint(size, device, path, log):
+    """The MoE Llama (``index``) saved at ep 2 x dp 2 after one AdamW step
+    (each expert stack's ep split in the manifest), loaded at dp 4: two
+    more steps there against the unbroken run's two."""
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
+    from paddle_tpu_torch.models.convert import shard_llama_state
+
+    _dispatch("index")
+    cfg = LlamaMoEConfig(**PARITY[size], **MOE_EXPERTS, dtype="float32")
+    ids = _ids(cfg.vocab_size, PARITY_BATCH[size], 3, device)
+    full = {n: p.detach().clone() for n, p in LlamaForCausalLM(
+        cfg, device=device, generator=seed(5, device)).named_parameters()}
+
+    def build(degrees):
+        env = pdist.init_mesh(**degrees)
+        model = LlamaForCausalLM(cfg, device=device,
+                                 generator=seed(5, device))
+        model.load_state_dict(shard_llama_state(full, env))
+        opt = _optimizer(model.parameters(), None)
+        return model, opt, pdist.ShardedTrainStep(model, _loss_fn, opt)
+
+    model, opt, step = build(dict(ep=2, dp=2))
+    step(ids, ids)
+    ckpt.save_sharded_model(model, opt, path)
+    pdist.barrier()
+    unbroken = [float(step(ids, ids)) for _ in range(2)]
+    want = pdist.sharding.gather_full_state(model)
+    pdist.reset_mesh()
+    del model, opt, step
+    model, opt, step = build(dict(dp=4))
+    ckpt.load_sharded_model(model, opt, path)
+    resumed = [float(step(ids, ids)) for _ in range(2)]
+    got = pdist.sharding.gather_full_state(model)
+    pdist.reset_mesh()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, unbroken))
+    pe, ue = _errors(got, want, full)
+    pe, ue = _max_over_world(pe), _max_over_world(ue)
+    if loss_rel > LOSS_RTOL or ue > UPDATE_RTOL or opt._global_step != 3:
+        raise RuntimeError(f"moe checkpoint: resumed {resumed} vs unbroken "
+                           f"{unbroken}, updates {ue} off")
+    _emit({"phase": "checkpoint", "model": "moe", "saved_at": "ep2_dp2",
+           "loaded_at": "dp4", "unbroken": unbroken, "resumed": resumed,
+           "loss_rel_err": loss_rel, "update_rel_l2_err": ue,
+           "param_max_abs_err": pe}, log)
+
+
+def _device_profile(call, top=14):
+    """One ``call`` under ``torch.profiler`` on this rank: (device ms of
+    all kernels, [(kernel name, device ms, calls)] for the ``top``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:top]
+
+
+def _moe_timed(name, degrees, batch, mode, log, card, profile=False):
+    """The graphed bf16 MoE flagship step (recompute, Adafactor lr 1e-2)
+    on the mesh (or one card alone): step ms of 5 replays after warm-up
+    and capture, tokens/s a card, peak GiB."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
+    from paddle_tpu_torch.optimizer import Adafactor
+
+    _dispatch(mode)
+    cfg = LlamaMoEConfig(**MOE_FLAGSHIP, max_position_embeddings=batch[1],
+                         dtype="bfloat16", use_recompute=True)
+    if degrees:
+        pdist.init_mesh(**degrees)
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device="cuda", generator=seed(9, "cuda"))
+    opt = Adafactor(learning_rate=1e-2, parameters=model.parameters())
+    step = (pdist.ShardedTrainStep(model, _loss_fn, opt) if degrees
+            else TrainStep(model, _loss_fn, opt))
+    ids = _ids(cfg.vocab_size, batch, 11, "cuda")
+    losses = [float(step(ids, ids)) for _ in range(3)]
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, ids)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(map(lambda x: x == x, losses)) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"{name}: losses {losses} not finite and falling")
+    world = pdist.get_world_size() if degrees else 1
+    peak = _max_over_world(torch.cuda.max_memory_allocated() / 2 ** 30) \
+        if degrees else torch.cuda.max_memory_allocated() / 2 ** 30
+    if profile:
+        total, top = _device_profile(lambda: step(ids, ids))
+        _emit({"phase": "profile", "mesh": name, "card": card,
+               "rank": pdist.get_rank() if degrees else 0,
+               "device_ms": total, "top": top}, log)
+    _emit({"phase": "timed", "mesh": name, "card": card,
+           "model": "llama-moe-1.46b", "degrees": degrees,
+           "dispatch": mode, "capacity_factor": cfg.capacity_factor,
+           "global_batch": list(batch), "losses": losses, "step_ms": ms,
+           "tokens_per_s_per_card": batch[0] * batch[1] / (min(ms) / 1e3)
+           / world, "peak_gib_max_over_cards": peak}, log)
+    if degrees:
+        pdist.reset_mesh()
+    _dispatch("index")
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _timed(name, model_cfg, degrees, level, batch, micro, log, card):
     """The graphed bf16 step on the mesh (or one card alone): step ms of 5
     replays after warm-up and capture, tokens/s a card."""
@@ -325,7 +566,7 @@ def _timed(name, model_cfg, degrees, level, batch, micro, log, card):
     torch.cuda.empty_cache()
 
 
-def _rank(out, cpu, card, jobs):
+def _rank(out, cpu, card, jobs, profile=False):
     """Every job in this world, one after the other; before each a
     watchdog: a rank that has not finished the job within its limit prints
     every thread's stack and exits, which ends the world."""
@@ -351,8 +592,14 @@ def _rank(out, cpu, card, jobs):
         faulthandler.dump_traceback_later(job_limit, exit=True)
         if kind == "parity":
             _parity(*spec, size, device, log)
+        elif kind == "moe_parity":
+            _moe_parity(*spec, size, device, log)
         elif kind == "checkpoint":
             _checkpoint(size, device, ckpt_dir, log)
+        elif kind == "moe_checkpoint":
+            _moe_checkpoint(size, device, ckpt_dir + ".moe", log)
+        elif kind == "moe_timed":
+            _moe_timed(*spec, log, card, profile)
         else:
             _timed(*spec, log, card)
         faulthandler.cancel_dump_traceback_later()
@@ -375,6 +622,10 @@ def main() -> int:
                     help="gloo processes on the CPU at a tiny size")
     ap.add_argument("--world", type=int, default=None)
     ap.add_argument("--out", default="torch_dist_drill.jsonl")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated job names to run alone")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one replay of each timed MoE job")
     a = ap.parse_args()
     import subprocess
 
@@ -401,13 +652,21 @@ def main() -> int:
     open(a.out, "w").close()
     jobs = [("parity", m, PARITY_LIMIT_S) for m in MESHES]
     jobs.append(("checkpoint", ("checkpoint",), PARITY_LIMIT_S))
+    jobs += [("moe_parity", m, PARITY_LIMIT_S) for m in MOE_MESHES]
+    jobs.append(("moe_checkpoint", ("moe_checkpoint",), PARITY_LIMIT_S))
     if not a.cpu:
         jobs += [("timed", t, TIMED_LIMIT_S) for t in TIMED]
+        jobs += [("moe_timed", t, TIMED_LIMIT_S) for t in MOE_TIMED]
+    if a.only:
+        names = set(a.only.split(","))
+        jobs = [j for j in jobs if j[1][0] in names]
     t0 = time.perf_counter()
-    pdist.spawn(_rank, args=(a.out, a.cpu, card, jobs), nprocs=world)
+    pdist.spawn(_rank, args=(a.out, a.cpu, card, jobs, a.profile),
+                nprocs=world)
     import shutil
 
     shutil.rmtree(a.out + ".ckpt", ignore_errors=True)
+    shutil.rmtree(a.out + ".ckpt.moe", ignore_errors=True)
     print(json.dumps({"ok": True, "world": world, "card": card,
                       "backend": "gloo" if a.cpu else "nccl",
                       "jobs": len(jobs), "worlds": 1,
