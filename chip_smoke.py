@@ -236,6 +236,23 @@ pipeline   — (a) the Llama at Llama-2 7B's widths, depth cut to 8, in 4
              bit; (c) a checkpoint round trip of the model and its AdamW
              state: the resumed step equals the unbroken one bit for bit,
              save and load GB/s.
+offload    — optimizer offload over a world-1 NCCL group, ZeRO os_g,
+             graphed, AdamW lr 3e-4 / wd 0.1 under ClipGradByGlobalNorm
+             (1.0): (a) the 1.16B Llama in fp32 at 2 x 2048, three
+             offloaded steps (the lane overlapped and serialized, and under
+             ``accumulate(2)``) equal to the resident step bit for bit, and
+             a planted fault (one group's state download skipped) that
+             must differ; (b) the same model in bf16 at 4 x 2048, resident
+             against offloaded (the lane overlapped and serialized): step
+             ms, peak device GiB, pinned host GiB, the lane's bytes and
+             ``overlap_efficiency``; (c) Llama-2 13B at full width (depth
+             cut to what ``MemAvailable`` holds beside HOST_SPARE, at 12
+             bytes a parameter), bf16, recompute, batch 1 x 4096, three
+             steps on one batch with the optimizer offloaded: a finite
+             falling loss under 80 GiB on the card, step ms, tokens/s,
+             MFU, pinned host GiB, the lane's counters, the resident bytes
+             reckoned, and the walk's launches exact (one ``adam_update``
+             a group a step, one clip sum a step).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
@@ -6285,6 +6302,325 @@ def phase_moe_mesh(seed):
     return {"moe-mesh": world1, "moe-mesh-ranks": ranks}, rows
 
 
+# -- phase: optimizer offload through the streaming lane ------------------------
+
+OFFLOAD_KNOBS = dict(segment_size=2 ** 28, buffer_max_size=2 ** 30)
+OFFLOAD_CHECK_BATCH = (2, 2048)    # (a) fp32 "big"
+OFFLOAD_BENCH_BATCH = (4, 2048)    # (b) bf16 "big"
+OFFLOAD_CHECK_STEPS = 3
+OFFLOAD_TIMED = 3
+# Llama-2 13B (Touvron et al. 2023, Table 1; meta-llama/Llama-2-13b-hf)
+LLAMA2_13B = dict(vocab_size=32000, hidden_size=5120, intermediate_size=13824,
+                  num_hidden_layers=40, num_attention_heads=40,
+                  num_key_value_heads=40, max_position_embeddings=4096,
+                  rms_norm_eps=1e-5)
+L13B_BATCH = (1, 4096)
+L13B_STEPS = 3
+HOST_SPARE = 12 * 2 ** 30  # host memory left free beside the offloaded state
+
+
+def _mem_available() -> int:
+    """The host's MemAvailable in bytes (``/proc/meminfo``)."""
+    with open("/proc/meminfo") as f:
+        for ln in f:
+            if ln.startswith("MemAvailable:"):
+                return int(ln.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _offload_run(model, init, ids, *, offload, overlap=True, accumulate=0,
+                 steps=OFFLOAD_CHECK_STEPS, timed=0, clip=1.0, fault=None):
+    """``ShardedTrainStep`` (ZeRO os_g, graphed, AdamW lr 3e-4 / wd 0.1,
+    a global-norm clip) from the weights ``init``, resident or offloaded
+    (the lane overlapped or not; ``fault`` a group whose state download is
+    skipped): (losses, parameters after ``steps``, step ms of ``timed``
+    more, the step, its offloaded state)."""
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    os.environ["PT_OFFLOAD_OVERLAP"] = "1" if overlap else "0"
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(init[n])
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.1,
+                grad_clip=None if clip is None else ClipGradByGlobalNorm(clip))
+    _m, opt = pdist.group_sharded_parallel(model, opt, level="os_g",
+                                           offload=offload, **OFFLOAD_KNOBS)
+    step = pdist.ShardedTrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+    off = step._offloaded() if offload else None
+    if fault is not None:
+        down = off._down
+        off._down = lambda gi: None if gi == fault else down(gi)
+    run = step.accumulate(accumulate) if accumulate else step
+    losses, ms = [], []
+    for i in range(steps + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = run(ids, ids)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    return losses[:steps], params, ms[steps:], step, off
+
+
+def _offload_check(seed):
+    """(a) fp32 "big" at 2 x 2048: three offloaded steps against the
+    resident step bit for bit, the lane overlapped against serialized,
+    the same under ``accumulate(2)``, and a planted fault (one group's
+    state download skipped) that must differ."""
+    import torch
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**BIG, dtype="float32", use_recompute=True)
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=pt_seed(seed + 81, DEVICE))
+    ids = _ids(cfg.vocab_size, OFFLOAD_CHECK_BATCH, seed + 81)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    checks, groups, plain_ref = {}, None, None
+    for acc in (0, 2):
+        ref_l, ref_p, _ms, step, _o = _offload_run(model, init, ids,
+                                                   offload=False,
+                                                   accumulate=acc)
+        if not acc:
+            plain_ref = ref_p  # the planted fault's reference too
+        del step, _o
+        _release()
+        for overlap in (True, False):
+            losses, params, _ms, step, off = _offload_run(
+                model, init, ids, offload=True, overlap=overlap,
+                accumulate=acc)
+            groups = len(off.groups)
+            differ = [n for n in params if not torch.equal(params[n],
+                                                           ref_p[n])]
+            name = f"{'accumulate2-' if acc else ''}" \
+                   f"{'overlapped' if overlap else 'serialized'}"
+            checks[name] = {"losses": losses, "resident_losses": ref_l,
+                            "bitwise_equal": losses == ref_l and not differ,
+                            "tensors_differ": differ[:3]}
+            off.close()
+            del step, off, params
+            _release()
+        del ref_p
+        _release()
+    ref_p = plain_ref
+    fault_group = 1
+    losses, params, _ms, step, off = _offload_run(model, init, ids,
+                                                  offload=True,
+                                                  fault=fault_group)
+    differ = [n for n in params if not torch.equal(params[n], ref_p[n])]
+    caught = bool(differ)
+    off.close()
+    del step, off, params, ref_p, model, init
+    _release()
+    row = {"phase": "offload-check", "card": _nvidia_smi(),
+           "model": "llama-1.16b", "dtype": "float32", "recompute": True,
+           "batch": list(OFFLOAD_CHECK_BATCH), "zero": "os_g",
+           "optimizer": "AdamW lr 3e-4 wd 0.1, ClipGradByGlobalNorm(1.0)",
+           "graph": True, "knobs": OFFLOAD_KNOBS, "groups": groups,
+           "checks": checks,
+           "planted": {"state_download_skipped_group": fault_group,
+                       "caught": caught, "tensors_differ": len(differ)}}
+    _emit(row)
+    bad = [k for k, v in checks.items() if not v["bitwise_equal"]]
+    if bad or not caught:
+        raise RuntimeError(f"offload-check: {bad} differ from the resident "
+                           f"step, or the planted fault passed ({caught})")
+
+
+def _offload_bench(seed):
+    """(b) bf16 "big" at 4 x 2048: the resident step, then the offloaded
+    one with the lane overlapped and serialized; step ms, peak device GiB,
+    pinned host GiB and the lane's counters."""
+    import torch
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig(**BIG, dtype="bfloat16", use_recompute=True)
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=pt_seed(seed + 83, DEVICE))
+    ids = _ids(cfg.vocab_size, OFFLOAD_BENCH_BATCH, seed + 83)
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    held = _nbytes(init.values())
+    runs = {}
+    for kind, offload, overlap in (("resident", False, True),
+                                   ("offload-overlapped", True, True),
+                                   ("offload-serialized", True, False)):
+        _release()
+        torch.cuda.reset_peak_memory_stats()
+        losses, params, ms, step, off = _offload_run(
+            model, init, ids, offload=offload, overlap=overlap, steps=2,
+            timed=OFFLOAD_TIMED)
+        run = {"losses": losses, "step_ms_each": ms, "step_ms": min(ms),
+               "tokens_per_s": OFFLOAD_BENCH_BATCH[0] *
+               OFFLOAD_BENCH_BATCH[1] / min(ms) * 1e3,
+               "peak_device_gb": (torch.cuda.max_memory_allocated() - held)
+               / 2 ** 30}
+        if off is not None:
+            off.lane.reset_stats()
+            step(ids, ids)  # one step's lane counters
+            torch.cuda.synchronize()
+            run.update(pinned_host_gb=off.host.numel() * 4 / 2 ** 30,
+                       groups=len(off.groups), lane=off.lane.stats())
+            off.close()
+        runs[kind] = run
+        del step, off, params
+    del model, init
+    _release()
+    row = {"phase": "offload-bench", "card": _nvidia_smi(),
+           "model": "llama-1.16b", "dtype": "bfloat16", "recompute": True,
+           "batch": list(OFFLOAD_BENCH_BATCH), "zero": "os_g", "graph": True,
+           "knobs": OFFLOAD_KNOBS, "runs": runs}
+    _emit(row)
+
+
+def _offload_13b(seed):
+    """(c) Llama-2 13B at full width, bf16, recompute, AdamW lr 3e-4 / wd
+    0.1 under ClipGradByGlobalNorm(1.0), batch 1 x 4096, world-1
+    ``ShardedTrainStep`` with the optimizer offloaded, three steps on one
+    batch: a finite falling loss under 80 GiB on the card. The depth is
+    cut where the host cannot hold the fp32 masters and moments (12 bytes
+    a parameter) beside ``HOST_SPARE``. Returns its counters."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         llama_flops_per_token,
+                                         llama_param_count)
+
+    full = LlamaConfig(**LLAMA2_13B, dtype="bfloat16", use_recompute=True)
+    one = LlamaConfig(**{**LLAMA2_13B, "num_hidden_layers": 1})
+    per_layer = llama_param_count(one) - llama_param_count(
+        LlamaConfig(**{**LLAMA2_13B, "num_hidden_layers": 0}))
+    edge = llama_param_count(one) - per_layer
+    avail = _mem_available()
+    fit = int((avail - HOST_SPARE - 12 * edge) // (12 * per_layer))
+    layers = max(1, min(full.num_hidden_layers, fit))
+    cfg = LlamaConfig(**{**LLAMA2_13B, "num_hidden_layers": layers},
+                      dtype="bfloat16", use_recompute=True)
+    n_params = llama_param_count(cfg)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=pt_seed(seed + 87, DEVICE))
+    ids = _ids(cfg.vocab_size, L13B_BATCH, seed + 87)
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    os.environ["PT_OFFLOAD_OVERLAP"] = "1"
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))
+    _m, opt = pdist.group_sharded_parallel(model, opt, level="os_g",
+                                           offload=True, **OFFLOAD_KNOBS)
+    step = pdist.ShardedTrainStep(model, lambda m, x, y: m(x, labels=y), opt)
+    off = step._offloaded()
+    setup_s = time.perf_counter() - t0
+    kernels.reset_counters()
+    losses, ms = [], []
+    for _ in range(L13B_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss = step(ids, ids)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(loss))
+    counts = _reckoned(step)
+    lane = off.lane.stats()
+    off.lane.reset_stats()
+    step(ids, ids)
+    torch.cuda.synchronize()
+    lane_step = off.lane.stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tokens = L13B_BATCH[0] * L13B_BATCH[1]
+    best = min(ms[1:]) if len(ms) > 1 else ms[0]
+    flops = llama_flops_per_token(cfg, L13B_BATCH[1]) * tokens
+    groups = len(off.groups)
+    adam = counts["adam_update"]["launches"]
+    resident = 8 * n_params  # bf16 params, grads and both moments
+    row = {"phase": "offload-13b", "card": _nvidia_smi(),
+           "model": "llama2-13b", "source": "Touvron et al. 2023 Table 1",
+           "widths": LLAMA2_13B, "layers": layers,
+           "layers_cut": None if layers == full.num_hidden_layers else
+           f"{full.num_hidden_layers} -> {layers}",
+           "host_mem_available_gb": avail / 2 ** 30,
+           "params": n_params, "dtype": "bfloat16", "recompute": True,
+           "batch": list(L13B_BATCH), "graph": True,
+           "optimizer": "AdamW lr 3e-4 wd 0.1, ClipGradByGlobalNorm(1.0)",
+           "losses": losses, "step_ms_each": ms, "step_ms": best,
+           "tokens_per_s": tokens / best * 1e3,
+           "mfu": flops / (best / 1e3) / PEAK_FLOPS["bfloat16"],
+           "peak_device_gb": peak,
+           "pinned_host_gb": off.host.numel() * 4 / 2 ** 30,
+           "groups": groups, "knobs": OFFLOAD_KNOBS, "setup_s": setup_s,
+           "lane_three_steps": lane, "lane_one_step": lane_step,
+           "adam_update_calls": adam,
+           "resident_bytes_reckoned_gb": resident / 2 ** 30,
+           "resident_bytes_full_depth_gb":
+               8 * llama_param_count(full) / 2 ** 30}
+    _emit(row)
+    off.close()
+    del step, off, opt, model
+    _release()
+    finite = all(l == l and abs(l) != float("inf") for l in losses)
+    if not finite or not losses[-1] < losses[0] or peak >= 80.0:
+        raise RuntimeError(f"offload-13b: losses {losses} (finite, falling) "
+                           f"and peak {peak:.2f} GiB (< 80)")
+    # the walk: one adam_update a group a step, one clip sum a step
+    want = L13B_STEPS * groups
+    if adam != want or counts["multi_tensor_sumsq"]["launches"] != \
+            L13B_STEPS:
+        raise RuntimeError(f"offload-13b: adam_update {adam} calls (want "
+                           f"{want}), multi_tensor_sumsq "
+                           f"{counts['multi_tensor_sumsq']['launches']}")
+    return counts
+
+
+def phase_offload(seed):
+    """Optimizer offload on one card over a world-1 NCCL group: (a) the
+    fp32 check, (b) the bf16 "big" figures, (c) Llama-2 13B. Returns
+    ({path: counters}, kernel rows)."""
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+
+    store = torch.distributed.FileStore(
+        os.path.join(tempfile.mkdtemp(prefix="chip_smoke_offload_"),
+                     "store"), 1)
+    pdist.init_parallel_env(backend="nccl", store=store, rank=0,
+                            world_size=1)
+    pdist.init_mesh()
+    prior = os.environ.get("PT_OFFLOAD_OVERLAP")
+    host = {"start": _mem_available() / 2 ** 30}
+    try:
+        _offload_check(seed)
+        host["after_check"] = _mem_available() / 2 ** 30
+        _offload_bench(seed)
+        host["after_bench"] = _mem_available() / 2 ** 30
+        counts = _offload_13b(seed)
+        host["after_13b"] = _mem_available() / 2 ** 30
+        _emit({"phase": "offload-host-memory", "mem_available_gib": host})
+    finally:
+        if prior is None:
+            os.environ.pop("PT_OFFLOAD_OVERLAP", None)
+        else:
+            os.environ["PT_OFFLOAD_OVERLAP"] = prior
+        pdist.reset_mesh()
+        torch.distributed.destroy_process_group()
+    return {"offload-13b": counts}
+
+
 def _kernels_line(rows, paths):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
@@ -6540,6 +6876,7 @@ def main() -> int:
     pipeline = phase_pipeline(SEED)
     moe_mesh, mesh_rows = phase_moe_mesh(SEED)
     rows += mesh_rows
+    offload = phase_offload(SEED)
 
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
            "batch": [4, 2048], "rules": rule_steps})
@@ -6553,7 +6890,7 @@ def main() -> int:
         "finetune-fp32": finetune_fp32, "gpt-training": gpt,
         "gpt-training-eager": gpt_eager, "gpt-graph-check": gpt_graph_check,
         "llama-cache": llama_cache, **bench, **distributed,
-        **pipeline, **moe_mesh})})
+        **pipeline, **moe_mesh, **offload})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -16,8 +16,10 @@ over P2P, ``PipelineParallel``, ``pipeline_local``) runs through
 gradient merge (``accum_steps``) and ``accumulate``; ``checkpoint``
 saves each rank's shards and reshards them on load; an MoE model splits
 its experts over ``ep`` (``models.moe``: ``global_scatter`` /
-``global_gather``). Not ported yet (ROADMAP Queue 1 item 3): the elastic
-fleet, the parameter server, the launcher and the auto-parallel planner.
+``global_gather``); ``offload`` keeps an offloaded optimizer's masters and
+state in host memory and streams its update. Not ported yet (ROADMAP
+Queue 1 items 6 and 8): the elastic fleet, the parameter server, the
+launcher and the auto-parallel planner.
 """
 from __future__ import annotations
 

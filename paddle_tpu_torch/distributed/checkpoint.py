@@ -11,10 +11,15 @@ commit point of the rank's save).
 
 Each rank writes only the shards it owns, replica 0 of each: a tensor's
 split is read from the attributes the port's layers put on it (``ep_dim``,
-over ep; ``mp_dim``, over mp; ``zero3_dim`` / ``zero_dim``, over sdp
-inside the mp shard), and a rank writes a shard where its coordinate on
-every other axis but pp is 0 (a pipeline stage's tensors live on that
-stage alone). A load
+over ep; ``mp_dim``, over mp, in ``mp_blocks`` blocks where the dim is
+made of blocks each split over mp, as GPT's fused q/k/v rows are: a shard
+a block; ``zero3_dim`` / ``zero_dim``, over sdp inside the mp shard), and
+a rank writes a shard where its coordinate on every other axis but pp is
+0 (a pipeline stage's tensors live on that stage alone). A weight tied
+across pipeline stages is saved once, under the name its first holder
+gives it (the one name a model at pp = 1 holds it under): a later stage's
+copy carries ``ckpt_name`` and ``ckpt_copy`` and loads from that entry.
+A load
 reassembles each tensor from whatever split it was saved with and slices
 it for the target's split on the current mesh: a checkpoint saved at dp 2
 x mp 2 loads at pp 2 x dp 2, at sdp 4 or in one process.
@@ -39,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from .mesh import MESH_ORDER, get_mesh_env
+from .meta_parallel.mp_layers import mp_shard
 
 __all__ = ["CheckpointCorrupt", "save_state_dict", "load_state_dict",
            "load_manifest", "save_sharded_model", "load_sharded_model",
@@ -171,6 +177,8 @@ def save_state_dict(state_dict: Dict, path: str,
     manifest = {"format": 2, "entries": {}}
     for key, val in state_dict.items():
         if isinstance(val, torch.Tensor):
+            if getattr(val, "ckpt_copy", False):
+                continue  # a tied copy: its first holder writes it
             splits = tensor_splits(val)
             t = val.detach()
         else:
@@ -183,17 +191,34 @@ def save_state_dict(state_dict: Dict, path: str,
         if t.dtype not in _NP_DTYPES:
             raise TypeError(f"{key}: dtype {t.dtype} cannot be saved")
         gshape, starts = _layout(tuple(t.shape), splits, coords, degrees)
-        fname = f"{_sanitize(key)}.r{rank}.s0.npy"
-        sha = _atomic_npy(os.path.join(path, fname),
-                          t.to("cpu").contiguous())
+        pieces = [(starts, t)]
+        blocks = _blocks(val, splits, degrees)
+        if blocks > 1:  # one shard a block
+            dim = next(d for d, ax in splits if ax == "mp")
+            if any(d == dim for d, ax in splits if ax != "mp"):
+                raise NotImplementedError(
+                    f"{key}: a blocked mp split shares its dim with another "
+                    f"axis' split; save it without that split")
+            per = t.shape[dim] // blocks
+            pieces = []
+            for b in range(blocks):
+                st = list(starts)
+                st[dim] = b * per * degrees["mp"] + coords["mp"] * per
+                pieces.append((st, t.narrow(dim, b * per, per)))
+        shards = []
+        for i, (st, piece) in enumerate(pieces):
+            fname = f"{_sanitize(key)}.r{rank}.s{i}.npy"
+            sha = _atomic_npy(os.path.join(path, fname),
+                              piece.to("cpu").contiguous())
+            shards.append({"file": fname, "starts": st,
+                           "stops": [a + int(d) for a, d in
+                                     zip(st, piece.shape)],
+                           "sha256": sha})
         manifest["entries"][key] = {
             "global_shape": [int(d) for d in gshape],
             "dtype": _NP_DTYPES[t.dtype],
             "spec": _spec(t.dim(), splits),
-            "shards": [{"file": fname, "starts": starts,
-                        "stops": [a + int(d) for a, d in
-                                  zip(starts, t.shape)],
-                        "sha256": sha}]}
+            "shards": shards}
     frag = os.path.join(path, f"manifest.r{rank}.json")
     tmp = f"{frag}.tmp-{os.getpid()}"
     with open(tmp, "w") as f:
@@ -264,11 +289,19 @@ def load_manifest(path: str) -> dict:
     return {"entries": _read_manifest(path)}
 
 
-def _local_slice(full: torch.Tensor, splits, coords, degrees):
+def _blocks(t, splits, degrees) -> int:
+    """The blocks of ``t``'s mp split (``mp_blocks``), 1 at mp 1."""
+    if degrees.get("mp", 1) <= 1 or not any(ax == "mp" for _, ax in splits):
+        return 1
+    return int(getattr(t, "mp_blocks", 1) or 1)
+
+
+def _local_slice(full: torch.Tensor, splits, coords, degrees, blocks=1):
     for dim, ax in splits:  # outer split first
         n = degrees[ax]
         if n > 1:
-            full = full.chunk(n, dim=dim)[coords[ax]]
+            full = mp_shard(full, n, coords[ax], dim,
+                            blocks if ax == "mp" else 1)
     return full
 
 
@@ -290,7 +323,9 @@ def load_state_dict(state_dict: Dict, path: str, strict: bool = True,
             continue
         full = _assemble(path, entries[key], verify=verify)
         if isinstance(val, torch.Tensor):
-            local = _local_slice(full, tensor_splits(val), coords, degrees)
+            splits = tensor_splits(val)
+            local = _local_slice(full, splits, coords, degrees,
+                                 _blocks(val, splits, degrees))
             if tuple(local.shape) != tuple(val.shape):
                 raise ValueError(f"{key}: checkpoint shape "
                                  f"{tuple(full.shape)} does not give the "
@@ -313,7 +348,7 @@ def _model_tensors(layer) -> Dict[str, torch.Tensor]:
     inner = getattr(layer, "_layers", layer)
     out = {}
     for n, p in inner.named_parameters():
-        out.setdefault(_plain_name(n), p)
+        out.setdefault(getattr(p, "ckpt_name", None) or _plain_name(n), p)
     for n, b in inner.named_buffers():
         out.setdefault(_plain_name(n), b)
     return out
@@ -340,6 +375,10 @@ def _optimizer_tensors(layer, optimizer) -> Dict[str, torch.Tensor]:
             splits.append((zdim, "sdp"))
         for k, v in optimizer._state.get(id(p), {}).items():
             v.ckpt_splits = _state_splits(v, p, splits)
+            mp_dim = getattr(marked, "mp_dim", None)
+            v.mp_blocks = getattr(marked, "mp_blocks", 1) if any(
+                ax == "mp" and d == mp_dim for d, ax in v.ckpt_splits) else 1
+            v.ckpt_copy = getattr(marked, "ckpt_copy", False)
             out[f"opt.{name}.{k}"] = v
     return out
 

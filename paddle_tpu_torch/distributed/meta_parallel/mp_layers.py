@@ -18,7 +18,10 @@ sharded parameter carries ``is_distributed = True`` and ``mp_dim``, the
 dim it is split on (read ``mp_dim``: on a parameter no mp layer marked,
 ``is_distributed`` is ``torch.Tensor``'s method); ``mark_parameters(model)``
 sets them again on the parameters a module holds now (``to_empty`` and
-``to`` make new ones).
+``to`` make new ones). A parameter whose split dim is made of equal blocks
+split each over mp (GPT's fused q/k/v projection: ``[3][heads][head_dim]``
+rows, a rank holding its heads' rows of each) carries ``mp_blocks``
+(:func:`mp_shard`, :func:`mp_unshard`).
 
 At mp = 1 each layer is exactly ``F.linear`` / ``F.embedding``: it issues
 no collective and makes the same call as ``nn.Linear`` / ``nn.Embedding``
@@ -39,7 +42,40 @@ from ..mesh import get_mesh_env
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy", "copy_to_group",
            "reduce_from_group", "gather_from_group", "scatter_to_group",
-           "vocab_parallel_cross_entropy", "mp_info", "mark_parameters"]
+           "vocab_parallel_cross_entropy", "mp_info", "mark_parameters",
+           "mp_shard", "mp_unshard"]
+
+
+def mp_shard(full: torch.Tensor, n: int, r: int, dim: int,
+             blocks: int = 1) -> torch.Tensor:
+    """Rank ``r``'s shard of ``full`` split over ``n`` ranks on ``dim``:
+    the ``r``-th contiguous chunk, or with ``blocks`` > 1 (``dim`` made of
+    that many equal blocks, as a fused q/k/v projection's rows are) the
+    ``r``-th chunk of every block, in block order."""
+    if n == 1:
+        return full
+    if blocks == 1:
+        return full.chunk(n, dim=dim)[r]
+    shape = list(full.shape)
+    per = shape[dim] // (blocks * n)
+    v = full.reshape(shape[:dim] + [blocks, n, per] + shape[dim + 1:])
+    return v.select(dim + 1, r).reshape(
+        shape[:dim] + [blocks * per] + shape[dim + 1:])
+
+
+def mp_unshard(parts, dim: int, blocks: int = 1) -> torch.Tensor:
+    """The inverse of :func:`mp_shard` over every rank's shard, in rank
+    order."""
+    if len(parts) == 1:
+        return parts[0]
+    if blocks == 1:
+        return torch.cat(list(parts), dim=dim)
+    shape = list(parts[0].shape)
+    per = shape[dim] // blocks
+    split = [t.reshape(shape[:dim] + [blocks, per] + shape[dim + 1:])
+             for t in parts]
+    return torch.stack(split, dim=dim + 1).reshape(
+        shape[:dim] + [blocks * len(parts) * per] + shape[dim + 1:])
 
 
 def mp_info(mp_group=None):

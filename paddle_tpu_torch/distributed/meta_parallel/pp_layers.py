@@ -242,12 +242,19 @@ class PipelineLayer(nn.Module):
 
     def mark_shared(self):
         """Marks this stage's copies of the weights tied across stages
-        (``pp_shared = key``); again after a call that makes new
-        parameters (``to_empty``)."""
+        (``pp_shared = key``); every parameter of a later stage's copy of
+        a shared layer also takes the first holder's name (``ckpt_name``,
+        ``ckpt_copy``: a checkpoint holds the layer once, as at pp = 1).
+        Again after a call that makes new parameters (``to_empty``)."""
         for idx, path, key in self._shared_marks:
             w = _attr(self.run_function[idx], path)
             w.pp_shared = key
             self._shared_shapes[key] = tuple(w.shape)
+            if path.startswith("shared."):
+                first = self.shared_first[key]
+                for n, p in self.run_function[idx].shared.named_parameters():
+                    p.ckpt_name = f"run_function.{first}.{n}"
+                    p.ckpt_copy = True
 
     def pp_shared_shapes(self):
         """{key: shape} of the weights tied across stages."""

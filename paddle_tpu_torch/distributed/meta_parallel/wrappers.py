@@ -70,7 +70,9 @@ class PipelineParallel(_MetaParallelBase):
     the wrapped model (cached per optimizer, scaler and window), whose
     1F1B schedule runs ``accumulate_steps`` microbatches of this rank's
     batch on a pipelined model (``_pp_window``); a model that is not
-    pipelined takes the window as ``ShardedTrainStep.accumulate``. A
+    pipelined takes the window as ``ShardedTrainStep.accumulate``, or,
+    where a scaler or an offloaded optimizer meets it, as the reference's
+    eager microbatch loop (``ShardedTrainStep.eager_window``). A
     ``HybridParallelOptimizer``'s gradient merge becomes the step's
     ``accum_steps`` and a scaler its in-graph scaler. Without a mesh the
     eager loop runs (JAX ``wrappers.py:141-239``)."""
@@ -131,24 +133,38 @@ class PipelineParallel(_MetaParallelBase):
             return self._eager_batch(x, y, optimizer, pp_k, scaler,
                                      lr_scheduler)
         pipelined = bool(getattr(self._layers, "pipelined", False))
-        if pp_k > 1 and gm_k == 1 and not pipelined:
-            if sc is not None:
-                raise NotImplementedError(
-                    "PipelineParallel: accumulate_steps with a scaler on a "
-                    "model that is not pipelined; use gradient merge "
-                    "(accum_steps) for the scaler path")
-            step = self._step(("accum", id(inner), pp_k), lambda: (
+        offload = bool(getattr(inner, "_offload", False))
+        if gm_k == 1 and not pipelined and (
+                (pp_k > 1 and (sc is not None or offload))
+                or (offload and sc is not None)):
+            # the reference's eager microbatch loop (``_eager_accum_batch``):
+            # the window's semantics where the graphed step cannot host a
+            # scaler beside the accumulation or the offload
+            step = self._step(("eager", id(inner), pp_k), lambda: (
                 ShardedTrainStep(self._layers, self._loss_fn, inner,
-                                 env=env).accumulate(pp_k)), optimizer)
+                                 env=env, graph=False)), optimizer)
+            if int(x.shape[0]) % pp_k:
+                raise ValueError(
+                    f"pipeline_configs accumulate_steps={pp_k}: global "
+                    f"batch dim {int(x.shape[0])} must divide by the "
+                    f"microbatch count")
+            loss = step.eager_window(pp_k, sc, x, y)
         else:
-            m = pp_k if pp_k > 1 else None
-            step = self._step(
-                (id(inner), id(sc) if sc is not None else 0, gm_k, gm_avg, m),
-                lambda: ShardedTrainStep(
-                    self._layers, self._loss_fn, inner, env=env, scaler=sc,
-                    accum_steps=gm_k, accum_avg=gm_avg, num_microbatches=m),
-                optimizer)
-        loss = step(x, y)
+            if pp_k > 1 and gm_k == 1 and not pipelined:
+                step = self._step(("accum", id(inner), pp_k), lambda: (
+                    ShardedTrainStep(self._layers, self._loss_fn, inner,
+                                     env=env).accumulate(pp_k)), optimizer)
+            else:
+                m = pp_k if pp_k > 1 else None
+                step = self._step(
+                    (id(inner), id(sc) if sc is not None else 0, gm_k, gm_avg,
+                     m),
+                    lambda: ShardedTrainStep(
+                        self._layers, self._loss_fn, inner, env=env,
+                        scaler=sc, accum_steps=gm_k, accum_avg=gm_avg,
+                        num_microbatches=m),
+                    optimizer)
+            loss = step(x, y)
         if lr_scheduler is not None:
             lr_scheduler.step()
         return loss

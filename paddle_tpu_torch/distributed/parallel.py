@@ -49,12 +49,6 @@ __all__ = ["DataParallel", "ShardedTrainStep", "ShardedAccumulateStep",
 
 DATA_AXES = ("dp", "sdp", "cp")  # the ranks that see different data
 _BUCKET_BYTES = 25 * 2 ** 20  # a gradient all-reduce's bucket, as Paddle's
-_DEFERRED = ("{} is not ported yet (ROADMAP Queue 1 item 3, what the "
-             "distributed slice still lacks)")
-
-
-def _deferred(what):
-    return NotImplementedError(_DEFERRED.format(what))
 
 
 def _buckets(tensors, limit_bytes):
@@ -343,6 +337,18 @@ class _AmpState:
                     for s in acc_shapes]
 
 
+class _Pending:
+    """What an offloaded step's body leaves for the walk: the reduced
+    gradients (a captured graph rewrites them on each replay). Its
+    ``set_step`` is the optimizer table's, of which it has none."""
+
+    def __init__(self, grads):
+        self.grads = grads
+
+    def set_step(self, lr, step):
+        pass
+
+
 class ShardedTrainStep(_Step):
     """``step = ShardedTrainStep(model, loss_fn, optimizer); loss =
     step(*global_batch)`` over the installed mesh (or ``env``).
@@ -406,17 +412,23 @@ class ShardedTrainStep(_Step):
     On a CUDA model the step is one captured CUDA graph a call, NCCL
     collectives and P2P included, as ``jit.TrainStep`` (``graph=False``:
     eager); a window's accumulating call and its boundary call are two
-    graphs. Optimizer offload raises ``NotImplementedError``. ``donate`` is
-    the JAX signature's: the update writes the parameters and state in
-    place whatever it says.
+    graphs. ``donate`` is the JAX signature's: the update writes the
+    parameters and state in place whatever it says.
+
+    **Offload** (``group_sharded_parallel(..., offload=True)``; JAX
+    ``parallel.py:205-256, 671-860``): the fp32 masters and the
+    optimizer's state of this rank's tensors rest in host memory and the
+    update streams per group through a double-buffered lane, on the card
+    (``distributed.offload``); the graph holds the forward, the backward
+    and the reduction, the walk runs after it. ``stream_stats()`` and
+    ``stream_schedule()`` read the lane. It raises with an in-graph
+    scaler or ``accum_steps > 1``, as the reference does.
     """
 
     def __init__(self, model: nn.Module, loss_fn: Callable, optimizer,
                  batch_specs=None, env: Optional[MeshEnv] = None,
                  donate=True, scaler=None, accum_steps=1, accum_avg=True,
                  graph: bool = True, num_microbatches: int = None):
-        if getattr(optimizer, "_offload", False):
-            raise _deferred("optimizer offload")
         env = env or require_mesh_env()
         if int(accum_steps) < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -428,6 +440,12 @@ class ShardedTrainStep(_Step):
                                  getattr(scaler, "_enable", True)) else None
         self.accum_steps = int(accum_steps)
         self.accum_avg = bool(accum_avg)
+        self.offload = bool(getattr(optimizer, "_offload", False))
+        if self.offload and (self.scaler is not None or self.accum_steps > 1):
+            from .offload import OFFLOAD_AMP_ERROR
+
+            raise NotImplementedError(OFFLOAD_AMP_ERROR)
+        self._off = None  # the offloaded state, made at the first call
         self.loss_reduction = getattr(inner, "loss_reduction", "mean")
         if self.loss_reduction not in ("mean", "sum"):
             raise ValueError(f"loss_reduction {self.loss_reduction!r}: "
@@ -436,7 +454,12 @@ class ShardedTrainStep(_Step):
         self.pipelined = self.pp > 1 and bool(getattr(inner, "pipelined",
                                                       False))
         if self.pipelined and env.get_dim("cp") > 1:
-            raise _deferred("the pipeline with context parallelism (pp x cp)")
+            raise NotImplementedError(
+                "the pipeline with context parallelism (pp x cp) is not "
+                "ported: the JAX reference fails there itself (its pipeline "
+                "raises 'The context mesh ... should match the mesh passed "
+                "to shard_map' at pp 2 x cp 2), so there is no oracle; see "
+                "ROADMAP Queue 3, oracle caveats")
         m = num_microbatches or getattr(inner, "pp_microbatches", 0) or \
             2 * self.pp
         self.num_microbatches = int(m)
@@ -491,6 +514,8 @@ class ShardedTrainStep(_Step):
                                      average=average)
 
     def __call__(self, *batch):
+        if self.offload:
+            self._offloaded().prefetch()
         if not self._amp_mode:
             return self._run(*batch)
         if self._amp is None:
@@ -512,13 +537,16 @@ class ShardedTrainStep(_Step):
         return super()._header_step()
 
     def _advance(self) -> None:
+        if self.offload:
+            self._walk(self._last_out)
         if not self._amp_mode:
             super()._advance()
         elif self.scaler is None and self._boundary:
             self.optimizer._global_step += 1
 
     def _reserve(self, key) -> None:
-        super()._reserve(key)
+        if not self.offload:  # the offloaded update runs outside the graph
+            super()._reserve(key)
         words = self._check_words.get(key)
         self._check_reserved = None if words is None else torch.empty(
             words, dtype=torch.int64, device=self._device())
@@ -595,12 +623,16 @@ class ShardedTrainStep(_Step):
         model runs the 1F1B schedule and gives fp32 sums."""
         if self.pipelined:
             return self._pipeline_grads(local, scale)
-        if remat:
-            gens = _active_generators(self.model, self._device())
-            loss = checkpoint(rewinding(self._loss, gens), *local,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
-            loss = self.loss_fn(self.model, *local)
+        from .sharding import gather_once
+
+        with gather_once():  # a tied ZeRO-3 shard is gathered once
+            if remat:
+                gens = _active_generators(self.model, self._device())
+                loss = checkpoint(rewinding(self._loss, gens), *local,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                loss = self.loss_fn(self.model, *local)
         (loss if scale is None else loss * scale.reshape(())).backward()
         raw = self._model_grads()
         for p in self.model.parameters():
@@ -689,15 +721,143 @@ class ShardedTrainStep(_Step):
             loss = loss / self._n_data
         return loss
 
+    def _update(self, grads):
+        """The update from the reduced ``grads``: the optimizer's kernels
+        and ZeRO's gather (returns the batch a graph replays); offloaded,
+        the gradients, which the walk after the call takes."""
+        if self.offload:
+            return _Pending(grads)
+        opt_batch = self.optimizer._apply(grads, clip=self._clip,
+                                          split=self._splits)
+        self._gather_zero()
+        return opt_batch
+
     def _body(self, *batch):
         if self._amp_mode:
             return self._amp_body(batch[0], *batch[1:])
         loss, raw = self._local_grads(self.local_batch(batch))
-        grads = self._reduce(raw)
-        opt_batch = self.optimizer._apply(grads, clip=self._clip,
-                                          split=self._splits)
+        return self._global_loss(loss), self._update(self._reduce(raw))
+
+    def eager_window(self, steps: int, scaler, *batch):
+        """The reference's eager microbatch loop (``PipelineParallel.
+        _eager_accum_batch``, JAX ``wrappers.py:214-240``), which it takes
+        where a scaler or an offloaded optimizer meets ``accumulate_steps``:
+        the global batch split on dim 0 into ``steps`` microbatches, each
+        one's forward and the backward of ``scale * loss / steps`` (each
+        rank on its slice), the fp32 sums reduced over the data ranks; then
+        ``scaler.step``'s semantics on the device kernels: the unscale and
+        the finite check over every rank, the update (the walk, offloaded)
+        only where all is finite, one loss-scale update. Eager on the card
+        too. Returns the mean of the microbatches' global losses."""
+        k = int(steps)
+        sc = scaler if (scaler is not None and
+                        getattr(scaler, "_enable", True)) else None
+        self.model.train()
+        if self.offload:
+            self._offloaded().prefetch()
+        dev = self._device()
+        factor = torch.tensor([(1.0 / k) * (float(sc._scale) if sc else 1.0)],
+                              dtype=torch.float32, device=dev)
+        micro = [a.reshape((k, a.shape[0] // k) + tuple(a.shape[1:]))
+                 if isinstance(a, torch.Tensor) else a for a in batch]
+        acc: List[Optional[torch.Tensor]] = [None] * len(self._plan)
+        losses = []
+        for i in range(k):
+            mb = [m[i] if isinstance(m, torch.Tensor) else m for m in micro]
+            loss, raw = self._local_grads(self.local_batch(mb), factor)
+            with torch.no_grad():
+                for j, g in enumerate(raw):
+                    if g is None:
+                        continue
+                    if acc[j] is None:
+                        acc[j] = torch.zeros(g.shape, dtype=torch.float32,
+                                             device=g.device)
+                    acc[j].add_(g.float())
+            losses.append(loss)
+        grads = self._reduce(acc)
+        found = False
+        if sc is not None:
+            pairs = [(e.opt, g) for e, g in zip(self._plan, grads)
+                     if g is not None]
+            n = len(pairs)
+            gb = _kopt.StepBatch([t for t, _ in pairs], [g for _, g in pairs],
+                                 [[None] * n] * 3, [True] * n, 0.0, 1,
+                                 rule="grads")
+            inv = 1.0 / float(sc._scale)
+            flag = _kopt.check_finite(gb, inv)
+            if dist.get_world_size() > 1:
+                dist.all_reduce(flag)
+            found = bool(flag.item())
+            if not found:
+                _kopt.unscale(gb, inv)
+        if not found:
+            if self.offload:
+                self._walk(_Pending(grads))
+            else:
+                self.optimizer._apply(grads, clip=self._clip,
+                                      split=self._splits)
+                self._gather_zero()
+            self.optimizer._global_step += 1
+        if sc is not None:
+            sc._found_inf = found
+            sc._update_scale()
+        return self._global_loss(torch.stack(losses).mean())
+
+    # -- offload ------------------------------------------------------------------
+    def _offloaded(self):
+        """The offloaded state (made at the first call, from the tensors as
+        they are then)."""
+        if self._off is None:
+            from .offload import OffloadedState, _env_on
+
+            opt = self.optimizer
+            self._off = OffloadedState(
+                self, int(getattr(opt, "_stream_segment_size", 2 ** 20)),
+                int(getattr(opt, "_stream_buffer_max_size", 2 ** 23)),
+                _env_on("PT_OFFLOAD_OVERLAP"))
+        return self._off
+
+    def _walk(self, pending):
+        """After the call's forward and backward: the clip over every
+        reduced gradient, then the streamed update and ZeRO's gather."""
+        off = self._offloaded()
+        grads = [pending.grads[j] for j in off.live]
+        have = [k for k, g in enumerate(grads) if g is not None]
+        clip, norms = ("none",), None
+        if have and self.optimizer._grad_clip is not None:
+            n = len(have)
+            cb = _kopt.StepBatch([off.entries[k].opt for k in have],
+                                 [grads[k] for k in have], [[None] * n] * 3,
+                                 [True] * n, 0.0, 1, rule="grads")
+            clip, got = self._clip(cb)
+            if got is not None:  # rows by entry: the walk slices them
+                pos = torch.full((len(grads),), n, dtype=torch.long,
+                                 device=got.device)
+                pos[have] = torch.arange(n, device=got.device)
+                pad = torch.zeros(1, dtype=got.dtype, device=got.device)
+                sums = torch.cat([got[:n], pad])[pos]
+                scales = torch.cat([got[n:2 * n], pad])[pos]
+                norms = torch.cat([sums, scales, got[2 * n:]])
+        opt = self.optimizer
+        off.walk(grads, opt.get_lr(), opt._global_step + 1, clip, norms)
         self._gather_zero()
-        return self._global_loss(loss), opt_batch
+
+    def stream_stats(self):
+        """The offload lane's counters (bytes each way, transfers, transfer
+        and stall ms, ``overlap_efficiency``); None before the first
+        offloaded call."""
+        return None if self._off is None else self._off.lane.stats()
+
+    def stream_schedule(self):
+        """The lane's submissions in order, ``(kind, group)``: per step
+        ("h2d", 0), ("h2d", 1), then per group i ("d2h", i) and ("h2d", i +
+        2). None before the first offloaded call."""
+        return None if self._off is None else list(self._off.lane.events)
+
+    def offload_masters(self) -> List[torch.Tensor]:
+        """The fp32 masters in host memory, one per tensor the walk updates
+        (a host read)."""
+        return self._offloaded().masters()
 
     # -- the in-graph scaler and the gradient-merge window ----------------------
     def _finite_flag(self, pairs, inv, key):
@@ -941,13 +1101,21 @@ class ShardedAccumulateStep(_Step):
                     acc[j].add_(g.float() if scale is None
                                 else g.float() * scale)
             losses.append(loss)
-        grads = outer._reduce(acc)
-        opt_batch = self.optimizer._apply(grads, clip=outer._clip,
-                                          split=outer._splits)
-        outer._gather_zero()
+        opt_batch = outer._update(outer._reduce(acc))
         return outer._global_loss(torch.stack(losses).mean()), opt_batch
 
+    def _advance(self) -> None:
+        if self._step.offload:
+            self._step._walk(self._last_out)
+        super()._advance()
+
+    def _reserve(self, key) -> None:
+        if not self._step.offload:
+            super()._reserve(key)
+
     def __call__(self, *batch):
+        if self._step.offload:
+            self._step._offloaded().prefetch()
         for a in batch:
             if isinstance(a, torch.Tensor) and (
                     a.dim() == 0 or a.shape[0] % self.steps != 0):

@@ -8,13 +8,21 @@ reduce-scattered), ``"p_g_os"`` stage 3 (+ parameters split). At stage 3
 each parameter that splits (the largest dim that divides by the degree,
 ``zero_partition_spec``) becomes this rank's shard: a parametrization
 (``torch.nn.utils.parametrize``) all-gathers it whenever the module reads
-it, and its backward reduce-scatters the gradient into the shard. The
+it, and its backward reduce-scatters the gradient into the shard. A
+parameter tied across modules (a head that is the embedding) is one shard
+under one parametrization on each module that holds it; inside
+``ShardedTrainStep``'s forward every read of a shard gives the one
+gathered tensor (:func:`gather_once`), so its gradient is reduce-scattered
+once. ``offload=True`` marks the optimizer for the step's optimizer
+offload (``distributed.offload``), ``segment_size`` and
+``buffer_max_size`` sizing its stream groups. The
 optimizer it returns is a new one over the shards (stage 3) or over this
 rank's slices of the parameters (stages 1 and 2, which the step copies
 back after each update); the caller's optimizer is left as it was.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import torch
@@ -24,25 +32,49 @@ from torch.nn.utils import parametrize
 
 from .collective import _AllGather, all_gather_dim
 from .mesh import MeshEnv, require_mesh_env
-from .parallel import _deferred, _zero_dim
+from .meta_parallel.mp_layers import mp_unshard
+from .parallel import _zero_dim
 
 __all__ = ["group_sharded_parallel", "save_group_sharded_model",
-           "gather_full_state"]
+           "gather_full_state", "gather_once"]
 
 _LEVELS = {"os": 1, "os_g": 2, "p_g_os": 3}
+_GATHERED = []  # the open gather_once scopes: {id(shard): full}
+
+
+@contextlib.contextmanager
+def gather_once():
+    """Inside, each ZeRO-3 shard is all-gathered at its first read and
+    every later read (another module's tied use) takes that tensor."""
+    _GATHERED.append({})
+    try:
+        yield
+    finally:
+        _GATHERED.pop()
 
 
 class _SdpGather(nn.Module):
-    """The full parameter from this rank's shard along ``dim``."""
+    """The full parameter from this rank's shard along ``dim``. ``tied``:
+    registered on a second module that holds the same parameter, already
+    a shard (its right inverse keeps it)."""
 
-    def __init__(self, dim, pg, n, rank):
+    def __init__(self, dim, pg, n, rank, tied=False):
         super().__init__()
         self.dim, self.pg, self.n, self.rank = dim, pg, n, rank
+        self.tied = tied
 
     def forward(self, shard):
-        return _AllGather.apply(shard, self.pg, self.n, self.dim)
+        seen = _GATHERED[-1] if _GATHERED else None
+        if seen is not None and id(shard) in seen:
+            return seen[id(shard)]
+        full = _AllGather.apply(shard, self.pg, self.n, self.dim)
+        if seen is not None:
+            seen[id(shard)] = full
+        return full
 
     def right_inverse(self, full):
+        if self.tied:
+            return full
         per = full.shape[self.dim] // self.n
         return full.narrow(self.dim, self.rank * per, per).clone()
 
@@ -53,14 +85,16 @@ def _shard_parameters(model: nn.Module, env: MeshEnv) -> dict:
     n = env.get_dim("sdp")
     if n == 1:
         return {}
-    names = [id(p) for _, p in model.named_parameters(remove_duplicate=False)]
-    if len(names) != len(set(names)):
-        raise _deferred("ZeRO stage 3 over a shared (tied) parameter")
     pg, rank = env.group("sdp"), env.coord("sdp")
     remap = {}
     for mod in list(model.modules()):
         for name, p in list(mod._parameters.items()):
             if p is None:
+                continue
+            if id(p) in remap:  # tied: the same shard, gathered alike
+                parametrize.register_parametrization(
+                    mod, name, _SdpGather(p.zero3_dim, pg, n, rank,
+                                          tied=True), unsafe=True)
                 continue
             dim = _zero_dim(p.shape, env)
             if dim is None:
@@ -68,8 +102,10 @@ def _shard_parameters(model: nn.Module, env: MeshEnv) -> dict:
             parametrize.register_parametrization(
                 mod, name, _SdpGather(dim, pg, n, rank), unsafe=True)
             shard = mod.parametrizations[name].original
+            assert shard is p  # the parameter keeps its identity
             shard.zero3_dim = dim
-            for attr in ("is_distributed", "mp_dim", "ep_dim"):  # the marks
+            for attr in ("is_distributed", "mp_dim", "ep_dim",
+                         "mp_blocks"):  # the marks
                 if attr in vars(p):
                     setattr(shard, attr, vars(p)[attr])
             remap[id(p)] = shard
@@ -114,11 +150,11 @@ def group_sharded_parallel(model: nn.Module, optimizer, level: str = "p_g_os",
     ``scaler`` ``(model, optimizer, scaler)``: the optimizer a copy of the
     one given (which stays as it was) over this rank's slices of the
     parameters that split over sdp (stage 3: the model's shards) and the
-    others whole. ``offload=True`` raises."""
+    others whole. ``offload=True``: the optimizer's masters and state rest
+    in host memory (``ShardedTrainStep``'s offload), its stream groups
+    sized by ``segment_size`` and ``buffer_max_size`` bytes."""
     if level not in _LEVELS:
         raise ValueError(f"bad sharding level {level!r}")
-    if offload:
-        raise _deferred("group_sharded_parallel(offload=True)")
     if optimizer._state:
         raise ValueError("group_sharded_parallel takes an optimizer that has "
                          "not stepped yet")
@@ -130,6 +166,9 @@ def group_sharded_parallel(model: nn.Module, optimizer, level: str = "p_g_os",
         remap = _slices(optimizer._parameter_list, env)
     optimizer = _over(optimizer, [remap.get(id(p), p)
                                   for p in optimizer._parameter_list], stage)
+    optimizer._offload = bool(offload)
+    optimizer._stream_segment_size = int(segment_size)
+    optimizer._stream_buffer_max_size = int(buffer_max_size)
     if scaler is not None:
         return model, optimizer, scaler
     return model, optimizer
@@ -153,8 +192,10 @@ def gather_full_state(model: nn.Module, env: MeshEnv = None):
                                    dim)
             mp_dim = getattr(p, "mp_dim", None)
             if mp_dim is not None and env.get_dim("mp") > 1:
-                t = all_gather_dim(t, env.group("mp"), env.get_dim("mp"),
-                                   mp_dim)
+                n = env.get_dim("mp")
+                t = mp_unshard(all_gather_dim(t, env.group("mp"), n,
+                                              mp_dim).chunk(n, dim=mp_dim),
+                               mp_dim, getattr(p, "mp_blocks", 1))
             ep_dim = getattr(p, "ep_dim", None)
             if ep_dim is not None and env.get_dim("ep") > 1:
                 t = all_gather_dim(t, env.group("ep"), env.get_dim("ep"),

@@ -134,6 +134,8 @@ class _Step:
         self._seen: Dict[tuple, int] = {}
         self._offsets: Dict[tuple, list] = {}  # the warm-up's rewinds
         self._stream = None
+        self._last_out = None  # what the last call's body returned beside
+        # its loss (for a replay: what the capture's body returned)
 
     def _body(self, *batch):
         raise NotImplementedError
@@ -168,7 +170,7 @@ class _Step:
                              f"it runs on CUDA or the CPU")
         if dev.type == "cuda" and self.graph:
             return self._graphed(dev, batch)
-        loss, _ = self._body(*batch)
+        loss, self._last_out = self._body(*batch)
         self._advance()
         return loss
 
@@ -213,7 +215,7 @@ class _Step:
                     r.record()
                 try:
                     with torch.cuda.stream(self._stream):
-                        loss, _ = self._body(*batch)
+                        loss, self._last_out = self._body(*batch)
                 finally:
                     self._offsets[key] = [(r, r.stop()) for r in rewinds]
                 main.wait_stream(self._stream)
@@ -232,6 +234,7 @@ class _Step:
         for r, twins, offsets in entry.rewinds:
             r.arm(twins, offsets)
         entry.graph.replay()
+        self._last_out = entry.batch
         self.replays += 1
         for n, c in entry.counts.items():
             self._replayed[n] = self._replayed.get(n, 0) + c

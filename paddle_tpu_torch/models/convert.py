@@ -22,6 +22,10 @@ a mesh (tensor-parallel rows or columns, vocabulary rows, and under ZeRO-3
 each parameter's sdp shard); ``gather_llama_state`` is its inverse over
 every rank's state.
 
+``shard_gpt_state`` and ``gather_gpt_state`` do the same for GPT, whose
+fused ``qkv_proj`` is split per head (``models.gpt.gpt_shard``: a rank
+holds the q, k and v rows of its heads, not a contiguous third).
+
 ``gpt_engine_params`` reads a model's live weights into the nested dict the
 serving window step takes (the counterpart of the JAX engine's
 ``_extract_gpt_params``), with Linear weights in ``[out, in]`` for
@@ -34,13 +38,14 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from .gpt import GPTConfig
+from ..distributed.meta_parallel.mp_layers import mp_unshard
+from .gpt import GPTConfig, gpt_mp_dim, gpt_shard
 from .llama import LlamaConfig
 
 __all__ = ["gpt_state_from_numpy", "gpt_engine_params",
            "llama_state_from_numpy", "llama_mp_dim", "llama_ep_dim",
-           "shard_llama_state",
-           "gather_llama_state"]
+           "shard_llama_state", "gather_llama_state", "shard_gpt_state",
+           "gather_gpt_state"]
 
 _LINEARS = ("attn.qkv_proj", "attn.out_proj", "fc_in", "fc_out")
 
@@ -356,6 +361,66 @@ def gather_llama_state(states, config: LlamaConfig,
                            else parts[0])
         out[name] = torch.cat(experts, dim=edim) if len(experts) > 1 \
             else experts[0]
+    return out
+
+
+def shard_gpt_state(state: Mapping[str, torch.Tensor], env=None, *,
+                    degrees: Mapping[str, int] = None, rank: int = None,
+                    stage3: bool = False) -> Dict[str, torch.Tensor]:
+    """This rank's slices of a full port GPT ``state`` (as
+    ``gpt_state_from_numpy`` gives it) under ``env`` or ``degrees`` and
+    ``rank``: tensor-parallel parameters cut on ``models.gpt.gpt_mp_dim``
+    (the q/k/v projection per head), and with ``stage3`` every parameter
+    that splits cut again over sdp, under its ZeRO-3 name."""
+    if env is not None:
+        degrees, rank = env.degrees, env.rank
+    c = _coords(rank, degrees)
+    mp, sdp = int(degrees.get("mp", 1)), int(degrees.get("sdp", 1))
+    out = {}
+    for name, t in state.items():
+        t = gpt_shard(name, t, mp, c["mp"])
+        zdim = _zero3_dim(t.shape, sdp) if stage3 else None
+        if zdim is not None:
+            t = t.chunk(sdp, dim=zdim)[c["sdp"]]
+            name = _zero3_name(name)
+        out[name] = t.contiguous().clone()
+    return out
+
+
+def gather_gpt_state(states, config: GPTConfig, degrees: Mapping[str, int],
+                     stage3: bool = False) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_gpt_state` over ``states``, every rank's
+    state in rank order: the full state under the plain names."""
+    mp, sdp = int(degrees.get("mp", 1)), int(degrees.get("sdp", 1))
+    shapes = _expected_shapes(config)
+    coords = [_coords(r, degrees) for r in range(len(states))]
+
+    def rank_at(m, z):
+        return next(r for r, c in enumerate(coords)
+                    if c["mp"] == m and c["sdp"] == z and
+                    all(c[a] == 0 for a in _MESH_ORDER
+                        if a not in ("mp", "sdp")))
+
+    out = {}
+    for key in states[0]:
+        name = key.replace(".parametrizations.", ".")
+        if name.endswith(".original"):
+            name = name[:-len(".original")]
+        dim = gpt_mp_dim(name)
+        parts = []
+        for m in range(mp if dim is not None else 1):
+            shards = [states[rank_at(m, z)][key] for z in range(sdp)]
+            if stage3 and key != name:
+                local = list(shapes[name])
+                if dim is not None:
+                    local[dim] //= mp
+                parts.append(torch.cat(shards,
+                                       dim=_zero3_dim(local, sdp)))
+            else:
+                parts.append(shards[0])
+        blocks = 3 if ".attn.qkv_proj." in name else 1
+        out[name] = mp_unshard(parts, dim, blocks) if len(parts) > 1 \
+            else parts[0]
     return out
 
 

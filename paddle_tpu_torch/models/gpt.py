@@ -9,6 +9,16 @@ ordered ``[3][heads][head_dim]``. Attention goes through
 ``nn.functional.scaled_dot_product_attention``: the flash kernels on CUDA,
 or, with attention dropout in training, the JAX package's plain composition.
 
+Under a mesh with mp > 1 the layers are the tensor-parallel ones of
+``distributed.meta_parallel`` as in the JAX model (``gpt.py:71-73,
+105-108, 130``): ``qkv_proj`` and ``fc_in`` column-parallel, ``out_proj``
+and ``fc_out`` row-parallel, the token embedding vocabulary-parallel, and
+the tied head the vocabulary-split product with the parallel cross
+entropy. The fused ``qkv_proj`` is split per head: a rank holds the q, k
+and v rows of heads ``[r nh/mp, (r + 1) nh/mp)`` (``mp_blocks`` 3,
+:func:`gpt_shard`), so its output views as ``[3][its heads][head_dim]``.
+At mp = 1 those layers are exactly ``nn.Linear`` / ``nn.Embedding``.
+
 Training follows the JAX model: dropout after the embeddings, in
 attention and after each residual branch (``hidden_dropout_prob``,
 ``attention_probs_dropout_prob``; active only in ``train()``), each layer
@@ -31,13 +41,60 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device, seed
+from ..distributed.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    copy_to_group, gather_from_group, mark_parameters, mp_info, mp_shard)
 from ..nn import Dropout
 from ..nn.functional import scaled_dot_product_attention
 from ..nn.functional.common import drawing_generator, rewinding
-from .llama import fused_linear_ce
+from .llama import fused_linear_ce, fused_linear_ce_sum
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTBlock", "GPTModel",
-           "GPTForCausalLM", "GPTForCausalLMPipe", "gpt_param_count"]
+           "GPTForCausalLM", "GPTForCausalLMPipe", "gpt_param_count",
+           "gpt_mp_dim", "gpt_shard"]
+
+# the dim each tensor-parallel parameter is split on over mp, by name suffix
+_MP_DIMS = {"embed_tokens.weight": 0, "attn.qkv_proj.weight": 0,
+            "attn.qkv_proj.bias": 0, "attn.out_proj.weight": 1,
+            "fc_in.weight": 0, "fc_in.bias": 0, "fc_out.weight": 1}
+_QKV = ("attn.qkv_proj.weight", "attn.qkv_proj.bias")
+
+
+def _suffix_of(name, table):
+    for suffix in table:
+        if name == suffix or name.endswith("." + suffix):
+            return suffix
+    return None
+
+
+def gpt_mp_dim(name: str):
+    """The dim of GPT's parameter ``name`` split over mp (column layers
+    their rows, row layers their columns, the vocabulary its rows), None
+    for a replicated one."""
+    suffix = _suffix_of(name, _MP_DIMS)
+    return None if suffix is None else _MP_DIMS[suffix]
+
+
+def gpt_shard(name: str, full: torch.Tensor, mp: int, r: int):
+    """Rank ``r``'s shard over ``mp`` of GPT's full parameter ``name``: the
+    q/k/v projection's rows per head (``[3][heads][head_dim]``, each of q,
+    k, v cut alike), every other split tensor a contiguous chunk."""
+    dim = gpt_mp_dim(name)
+    if dim is None or mp == 1:
+        return full
+    blocks = 3 if _suffix_of(name, _QKV) else 1
+    return mp_shard(full, mp, r, dim, blocks)
+
+
+class _QKVColumn(ColumnParallelLinear):
+    """The fused q/k/v projection: column-parallel by head (``mp_blocks``
+    3: a rank's rows are its heads' rows of each of q, k, v)."""
+
+    def _mark_params(self):
+        super()._mark_params()
+        for p in (self.weight, self.bias):
+            if p is not None:
+                p.mp_blocks = 3
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -94,11 +151,18 @@ class GPTConfig:
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
-        self.num_heads = config.num_attention_heads
+        _, mp, _ = mp_info()
+        if config.num_attention_heads % mp:
+            raise ValueError(f"num_attention_heads "
+                             f"({config.num_attention_heads}) must divide by "
+                             f"the mp degree {mp}")
+        self.num_heads = config.num_attention_heads // mp  # this rank's
         self.head_dim = config.hidden_size // config.num_attention_heads
         h = config.hidden_size
-        self.qkv_proj = nn.Linear(h, 3 * h)
-        self.out_proj = nn.Linear(h, h)
+        self.qkv_proj = _QKVColumn(h, 3 * h, has_bias=True,
+                                   gather_output=False)
+        self.out_proj = RowParallelLinear(h, h, has_bias=True,
+                                          input_is_parallel=True)
         self.dropout_p = config.attention_probs_dropout_prob
         self.generator: Optional[torch.Generator] = None
 
@@ -130,8 +194,10 @@ class GPTBlock(nn.Module):
         self.ln_1 = nn.LayerNorm(h, eps)
         self.attn = GPTAttention(config)
         self.ln_2 = nn.LayerNorm(h, eps)
-        self.fc_in = nn.Linear(h, config.intermediate_size)
-        self.fc_out = nn.Linear(config.intermediate_size, h)
+        self.fc_in = ColumnParallelLinear(h, config.intermediate_size,
+                                          has_bias=True, gather_output=False)
+        self.fc_out = RowParallelLinear(config.intermediate_size, h,
+                                        has_bias=True, input_is_parallel=True)
         self.dropout = Dropout(config.hidden_dropout_prob)
 
     def forward(self, hidden, cache=None, use_cache=False):
@@ -152,8 +218,8 @@ class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size)
+        self.embed_tokens = VocabParallelEmbedding(config.vocab_size,
+                                                   config.hidden_size)
         self.embed_positions = nn.Embedding(config.max_position_embeddings,
                                             config.hidden_size)
         self.drop = Dropout(config.hidden_dropout_prob)
@@ -197,13 +263,28 @@ class GPTModel(nn.Module):
         return hidden
 
 
-def _no_mp():
-    from ..distributed.mesh import get_mesh_env
-    from ..distributed.parallel import _deferred
+def _draw(name, shape, mp, r, g, dtype, dev):
+    """GPT's initial value of parameter ``name`` (local ``shape``): zero
+    biases, unit LayerNorm scales, normal(0, 0.02) otherwise, drawn at its
+    full shape from ``g`` and cut to this rank's shard over ``mp``."""
+    if name.endswith("bias"):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if ".ln_" in name:
+        return torch.ones(shape, dtype=dtype, device=dev)
+    full = list(shape)
+    dim = gpt_mp_dim(name)
+    if dim is not None:
+        full[dim] *= mp
+    w = torch.empty(full, dtype=dtype, device=dev)
+    w.normal_(0.0, 0.02, generator=g)
+    return gpt_shard(name, w, mp, r)
 
-    env = get_mesh_env()
-    if env is not None and env.get_dim("mp") > 1:
-        raise _deferred("GPT under tensor parallelism (mp > 1)")
+
+def _tied_logits(hidden, w):
+    """Logits of the tied head ``w`` (this rank's vocabulary rows under
+    mp), gathered to the whole vocabulary."""
+    pg, _, _ = mp_info()
+    return gather_from_group(TF.linear(copy_to_group(hidden, pg), w), pg)
 
 
 class GPTForCausalLM(nn.Module):
@@ -212,20 +293,21 @@ class GPTForCausalLM(nn.Module):
     ``torch.Generator`` on that device; ``None`` = seed 0): normal(0, 0.02)
     matrices and embeddings, zero biases, unit LayerNorm scales. Its
     dropouts draw from ``dropout_generator``, seeded with
-    ``dropout_seed``. Its layers are not split over mp: under a mesh with
-    mp > 1 it raises."""
+    ``dropout_seed``. Under a mesh with mp > 1 each rank draws every full
+    tensor and keeps its shard, so the model equals the one built at mp =
+    1 from the same generator."""
 
     def __init__(self, config: GPTConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  dropout_seed: int = 0):
         super().__init__()
-        _no_mp()
         dev = resolve_device(device)
         self.config = config
         with torch.device("meta"):
             self.gpt = GPTModel(config)
         self.to_empty(device=dev)
         self.to(config.torch_dtype)
+        mark_parameters(self)  # on the parameters to_empty made
         self._init_weights(generator if generator is not None
                            else seed(0, dev))
         self.dropout_generator = seed(dropout_seed, dev)
@@ -235,25 +317,28 @@ class GPTForCausalLM(nn.Module):
 
     @torch.no_grad()
     def _init_weights(self, g: torch.Generator):
+        _, mp, r = mp_info()
         for name, p in self.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-            elif ".ln_" in name:
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, 0.02, generator=g)
+            p.copy_(_draw(name, p.shape, mp, r, g, p.dtype, p.device))
 
     def forward(self, input_ids, labels=None):
         """``input_ids`` [b, s] int64 -> logits [b, s, vocab]; with
         ``labels`` [b, s], the mean next-token CE (fp32 scalar) through the
         chunked fused head (chunks of 2048 tokens), labels equal to -100
-        not counted."""
+        not counted; under mp the softmax runs over the vocabulary split
+        (``vocab_parallel_cross_entropy``)."""
         hidden = self.gpt(input_ids)
         w = self.gpt.embed_tokens.weight
         if labels is None:
-            return TF.linear(hidden, w)
+            return _tied_logits(hidden, w)
         h = hidden[:, :-1, :].reshape(-1, self.config.hidden_size)
-        return fused_linear_ce(h, w, labels[:, 1:].reshape(-1), 2048)
+        lab = labels[:, 1:].reshape(-1)
+        pg, _, r = mp_info()
+        if pg is None:
+            return fused_linear_ce(h, w, lab, 2048)
+        total, count = fused_linear_ce_sum(h, w, lab, 2048, pg,
+                                           r * w.shape[0])
+        return total / count.clamp_min(1)
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens=16, use_cache=True):
@@ -269,7 +354,7 @@ class GPTForCausalLM(nn.Module):
             return out
         hidden, caches = self.gpt(out, use_cache=True)
         for step in range(max_new_tokens):
-            logits = TF.linear(hidden[:, -1, :], w)
+            logits = _tied_logits(hidden[:, -1, :], w)
             nxt = logits.argmax(dim=-1).view(-1, 1).to(out.dtype)
             out = torch.cat([out, nxt], dim=1)
             if step + 1 < max_new_tokens:  # last token needs no lookahead
@@ -300,8 +385,8 @@ class _GPTEmbeddingPipe(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size)
+        self.embed_tokens = VocabParallelEmbedding(config.vocab_size,
+                                                   config.hidden_size)
         self.embed_positions = nn.Embedding(config.max_position_embeddings,
                                             config.hidden_size)
         self.drop = Dropout(config.hidden_dropout_prob)
@@ -314,7 +399,7 @@ class _GPTEmbeddingPipe(nn.Module):
 
 
 def _gpt_tied_logits(embed: _GPTEmbeddingPipe, hidden):
-    return TF.linear(hidden, embed.embed_tokens.weight)
+    return _tied_logits(hidden, embed.embed_tokens.weight)
 
 
 class _GPTFinalNormPipe(nn.Module):
@@ -347,8 +432,9 @@ def GPTForCausalLMPipe(config: GPTConfig, device=None,
     plus the stage). Under a mesh with pp > 1 a rank builds its stage: the
     embedding on the first, the head on the last, tied across them
     (``pp_shared``). ``use_recompute`` recomputes every block. Under mp
-    > 1 it raises, as ``GPTForCausalLM`` does."""
-    _no_mp()
+    > 1 its layers are split as ``GPTForCausalLM``'s, each rank keeping its
+    shard of every tensor drawn; the head's logits are gathered over mp
+    before the loss."""
     from ..distributed.meta_parallel import (LayerDesc, PipelineLayer,
                                              SharedLayerDesc)
     from ..distributed.meta_parallel.pp_layers import _SharedProxy
@@ -367,6 +453,7 @@ def GPTForCausalLMPipe(config: GPTConfig, device=None,
                          build_device="meta", **pipeline_kwargs)
     pipe.to_empty(device=dev)
     pipe.to(config.torch_dtype)
+    mark_parameters(pipe)
     pipe.mark_shared()  # on the parameters to_empty made
     mine = dict(pipe.named_parameters())
     alias = {}  # a stage's copy of a weight tied to another stage's
@@ -377,21 +464,14 @@ def GPTForCausalLMPipe(config: GPTConfig, device=None,
                 alias[f"run_function.{j}.{n}"] = \
                     f"run_function.{key}.shared.{n}"
     g = generator if generator is not None else seed(0, dev)
+    _, mp, r = mp_info()
     with torch.no_grad():
         for name, shape in pipe.full_param_shapes:
             targets = [t for t in (mine.get(name), mine.get(alias.get(name)))
                        if t is not None]
-            if name.endswith("bias"):
-                for t in targets:
-                    t.zero_()
-            elif ".ln_" in name:
-                for t in targets:
-                    t.fill_(1.0)
-            else:
-                w = torch.empty(shape, dtype=config.torch_dtype, device=dev)
-                w.normal_(0.0, 0.02, generator=g)
-                for t in targets:
-                    t.copy_(w)
+            w = _draw(name, shape, mp, r, g, config.torch_dtype, dev)
+            for t in targets:
+                t.copy_(w)
     pipe.dropout_generator = seed(dropout_seed + pipe.stage_id, dev)
     for m in pipe.modules():
         if isinstance(m, (Dropout, GPTAttention)):

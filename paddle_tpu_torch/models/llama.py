@@ -450,6 +450,10 @@ class LlamaForCausalLM(nn.Module):
                              self.llama.last and self.lm_head.weight):
                     if held is not False:
                         held.pp_shared = "embed"
+                if self.llama.last:  # saved once, as the embedding
+                    self.lm_head.weight.ckpt_name = \
+                        "llama.embed_tokens.weight"
+                    self.lm_head.weight.ckpt_copy = True
         mark_parameters(self)  # on the parameters to_empty made
         self._pp_count = None
         self._pp_batch = None
@@ -629,9 +633,10 @@ class LlamaForCausalLM(nn.Module):
 
 
 def _n_data() -> int:
-    """The data ranks of the installed mesh (dp x sdp), 1 without one."""
+    """The data ranks of the installed mesh (dp x sdp x cp: each sees
+    other tokens), 1 without one."""
     env = get_mesh_env()
-    return 1 if env is None else env.size_over(("dp", "sdp"))
+    return 1 if env is None else env.size_over(DATA_AXES)
 
 
 def llama_param_count(config: LlamaConfig) -> int:

@@ -87,29 +87,28 @@ class MoEMesh:
     """What an MoE layer needs of the installed mesh (the JAX layer's
     ``ep_degree`` and GSPMD's global view, made explicit per rank):
 
-    - ``data``: the group over dp x sdp, the ranks that see different
-      tokens (``n_data`` of them, this one at ``data_rank`` in batch
-      order), over which the aux's statistics and the capacity's counts
-      are global; None at one;
+    - ``data``: the group over dp x sdp x cp, the ranks that see
+      different tokens (``n_data`` of them), over which the aux's
+      statistics and the capacity's counts are global; None at one. The
+      batch's rows split over dp x sdp (``n_blocks`` blocks, this rank's
+      at ``data_rank`` in batch order) and each row's positions over cp
+      (``cp`` chunks, this rank's ``cp_rank``): the global token order,
+      as the JAX layer sees the global ``[b, s]`` batch flattened, is
+      block, row, chunk, position;
     - ``experts``: the group over ep x mp, the ranks that see the same
       tokens and hold different slices of the experts (``e / ep`` experts
       each, their ``i / mp`` columns), over which the experts' partial
       output and the partial gradients of its inputs are summed; None at
-      one.
-
-    Context parallelism under an MoE layer is not ported."""
+      one."""
 
     def __init__(self, env):
-        if env.get_dim("cp") > 1:
-            from ...distributed.parallel import _deferred
-
-            raise _deferred("an MoE layer under context parallelism (MoE x "
-                            "cp)")
         self.env = env
-        self.n_data = env.size_over(("dp", "sdp"))
-        self.data = _group(env, ("dp", "sdp"))
+        self.n_data = env.size_over(("dp", "sdp", "cp"))
+        self.data = _group(env, ("dp", "sdp", "cp"))
+        self.n_blocks = env.size_over(("dp", "sdp"))
         self.data_rank = env.coord("dp") * env.get_dim("sdp") + \
             env.coord("sdp")
+        self.cp, self.cp_rank = env.get_dim("cp"), env.coord("cp")
         self.ep, self.ep_rank = env.get_dim("ep"), env.coord("ep")
         self.mp = env.get_dim("mp")
         self.experts = _group(env, ("ep", "mp"))
@@ -222,38 +221,46 @@ def _capacity(n, e, top_k, capacity_factor):
     return max(int(math.ceil(capacity_factor * top_k * n / e)), top_k)
 
 
-def capacity_positions(gate_i, e, data=None, n_data=1, data_rank=0):
+def capacity_positions(gate_i, e, data=None, n_data=1, data_rank=0,
+                       rows=1, cp=1, cp_rank=0):
     """Each (choice, token)'s place in its expert's capacity buffer, in the
     JAX package's order over the global tokens (``moe.py:221-247``): every
-    first choice before any second choice, the data ranks' tokens in batch
-    order. ``gate_i`` [n, k] -> (flat experts [k*n] choice-major, positions
-    [k*n]). Across ranks (``data``, this one ``data_rank`` of ``n_data``)
-    the place is the counts of the choices before this one over every rank
-    plus those of the ranks before this one at this choice, plus the local
-    cumsum. Each rank's [k, e] counts are all-gathered as an all-reduce of
-    a buffer with one row a rank (a few hundred bytes; every backend's
-    CUDA path has the all-reduce)."""
+    first choice before any second choice, the tokens in the global
+    batch's order. ``gate_i`` [n, k] (this rank's ``rows`` batch rows of
+    ``n / rows`` positions each) -> (flat experts [k*n] choice-major,
+    positions [k*n]). Across ranks (``data``; the batch's rows split into
+    ``n_data`` blocks, this rank's ``data_rank``, each row's positions
+    into ``cp`` chunks, this rank's ``cp_rank``) the place of a token at
+    choice c is: the counts of the choices before c over every rank, the
+    earlier blocks' at c, the earlier rows of its block at c (every
+    chunk), the earlier chunks of its row at c, and the cumsum within its
+    own chunk. Each rank's [k, rows, e] counts are all-gathered as an
+    all-reduce of a buffer with one slot a rank (a few hundred bytes;
+    every backend's CUDA path has the all-reduce)."""
     n, top_k = gate_i.shape
     kn = top_k * n
+    per = n // rows
     flat_e = gate_i.t().reshape(kn).long()
     oh = (flat_e[:, None] == torch.arange(e, device=gate_i.device)[None, :]
           ).to(torch.int64)
-    local = (_cumsum(oh.reshape(top_k, n, e), 1) - 1).reshape(kn, e)
-    counts = oh.reshape(top_k, n, e).sum(dim=1)             # [k, e]
-    if data is None:
-        every = counts[None]
-        data_rank = 0
-    else:
+    oh4 = oh.reshape(top_k, rows, per, e)
+    local = (_cumsum(oh4, 2) - 1).reshape(kn, e)
+    counts = oh4.sum(dim=2)                                  # [k, rows, e]
+    every = torch.zeros((n_data, cp) + tuple(counts.shape),
+                        dtype=counts.dtype, device=counts.device)
+    every[data_rank, cp_rank] = counts
+    if data is not None:
         import torch.distributed as dist
 
-        every = torch.zeros((n_data,) + tuple(counts.shape),
-                            dtype=counts.dtype, device=counts.device)
-        every[data_rank] = counts
         dist.all_reduce(every, group=data)
-    total = every.sum(dim=0)                                 # [k, e]
-    before = (torch.cumsum(total, dim=0) - total) + \
-        every[:data_rank].sum(dim=0)                         # [k, e]
-    start = before.repeat_interleave(n, dim=0)               # [k*n, e]
+    total = every.sum(dim=(0, 1, 3))                         # [k, e]
+    mine = every[data_rank]                                  # [cp, k, rows, e]
+    row_total = mine.sum(dim=0)                              # [k, rows, e]
+    before = ((torch.cumsum(total, dim=0) - total) +
+              every[:data_rank].sum(dim=(0, 1, 3)))[:, None, :] + \
+        (torch.cumsum(row_total, dim=1) - row_total) + \
+        mine[:cp_rank].sum(dim=0)                            # [k, rows, e]
+    start = before.repeat_interleave(per, dim=1).reshape(kn, e)
     return flat_e, ((start + local) * oh).sum(dim=1)
 
 
@@ -278,8 +285,9 @@ def _moe_mlp_kept(x, wg, w_gate, w_up, w_down, *, top_k, capacity_factor,
     gate_v, gate_i, aux = _route(xt, wg, top_k, _global_aux(mesh))
     cap = _capacity(n * mesh.n_data, e, top_k, capacity_factor)
     with torch.no_grad():
-        flat_e, pos = capacity_positions(gate_i, e, mesh.data, mesh.n_data,
-                                         mesh.data_rank)
+        flat_e, pos = capacity_positions(gate_i, e, mesh.data,
+                                         mesh.n_blocks, mesh.data_rank, b,
+                                         mesh.cp, mesh.cp_rank)
         mine = (pos < cap) & (flat_e >= lo) & (flat_e < lo + e_loc)
         local_e = torch.where(mine, flat_e - lo, 0)
         oh = (local_e[:, None] == torch.arange(

@@ -641,7 +641,11 @@ def make_master_update(opt: Optimizer, train_params, dtypes,
     Unlike the JAX function, which returns new arrays, ``update`` writes
     the masters and the states in place and returns those same tensors:
     on CUDA ``opt``'s kernels run over them (fp32 parameters, fp32 state,
-    fp32 gradients), on the CPU their plain versions."""
+    fp32 gradients), on the CPU their plain versions. ``update(...,
+    clip=, norms=, split=)`` takes a clip already reckoned over a larger
+    set of tensors (``norms`` this subset's rows of its
+    ``multi_tensor_sumsq``, as the offloaded step's walk passes them per
+    group) and the ``TensorSplits`` of tensors that are shards."""
     index = {id(p): i for i, p in enumerate(opt._parameter_list)}
     missing = [k for k, p in enumerate(train_params) if id(p) not in index]
     if missing:
@@ -650,14 +654,18 @@ def make_master_update(opt: Optimizer, train_params, dtypes,
     decay = [opt._decay[index[id(p)]] for p in train_params]
     dtypes = list(dtypes)
 
-    def update(master, grads, states, lr, step_no):
+    def update(master, grads, states, lr, step_no, clip=None, norms=None,
+               split=None):
         master = list(master)
         per = [opt._slots(st) for st in states]
         slots = [[s[j] for s in per] for j in range(3)]
         batch = _kopt.StepBatch(master, [g.float() for g in grads], slots,
                                 decay, float(lr), int(step_no),
                                 rule=opt._rule)
-        clip, norms = opt._clip(batch) if with_clip else (("none",), None)
+        batch.split = split
+        if clip is None:
+            clip, norms = opt._clip(batch) if with_clip else (("none",),
+                                                               None)
         opt._update(batch, clip, norms)
         return master, states, [m.to(dt) for m, dt in zip(master, dtypes)]
 

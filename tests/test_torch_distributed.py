@@ -495,6 +495,24 @@ def test_tied_llama_dp2_mp2_matches_one_process(runs):
               1e-5, 5e-5)
 
 
+def test_tied_llama_zero3_sdp4_matches_one_process(runs):
+    """ZeRO-3 over the tied head at sdp 4: the embedding and the head hold
+    one shard (one optimizer tensor), gathered once in the forward (its
+    gradient reduce-scattered once), and the step matches the port's
+    TrainStep in one process (rtol 1e-5 on losses, atol 5e-5 on
+    parameters; the JAX tie is broken)."""
+    outs = runs[2]
+    for r in range(W.WORLD):
+        got = outs[r]["llama_tied_sdp4"]
+        assert got["tied"] and got["shards"] == 1 and got["gathers"] == 1
+        state = {k: v for k, v in got["state"].items()}
+        state.setdefault("lm_head.weight", state["llama.embed_tokens.weight"])
+        ref = dict(got["ref_state"])
+        ref.setdefault("lm_head.weight", ref["llama.embed_tokens.weight"])
+        _held({"losses": got["losses"], "state": state},
+              {"losses": got["ref_losses"], "state": ref}, 1e-5, 5e-5)
+
+
 def test_parallel_cross_entropy_mp4(runs):
     """Per-row CE over mp-split logits (ignored label: 0) and each rank's
     columns of the gradient against torch's CE on the whole vocabulary
@@ -515,10 +533,12 @@ def test_parallel_cross_entropy_mp4(runs):
                                    rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("option", [
-    "offload", "optimizer_offload", "pp_with_cp", "moe_under_cp",
-    "gpt_under_mp"])
+@pytest.mark.parametrize("option", ["pp_with_cp"])
 def test_deferred_option_raises(runs, option):
+    """pp x cp stays refused: the JAX reference fails there itself (its
+    pipeline's ``shard_map`` mesh error), so the message names that and
+    the oracle caveat."""
     got = runs[2][0]["deferred"][option]
     assert got.startswith("NotImplementedError"), got
-    assert "ROADMAP Queue 1 item 3" in got
+    assert "should match the mesh passed to shard_map" in got
+    assert "ROADMAP Queue 3" in got

@@ -2128,3 +2128,102 @@ def test_split_rule_kernels_match_plain_and_unsplit(cuda, rule, dtype):
         else:
             scale = r.abs() + r.abs().max()
             assert ((a - r).abs() / scale.clamp_min(1e-30)).max() <= 1e-5
+
+
+# -- optimizer offload: the lane and the offloaded step on the card ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("overlap", [True, False])
+def test_stream_lane_on_the_card(cuda, overlap):
+    """Copies between page-locked host tensors and the card through the
+    lane: the values land, ``wait()`` orders the consumer's stream after
+    the copy (a kernel queued right after reads the new bytes), the
+    counters read the bytes, inline copies hide nothing."""
+    from paddle_tpu_torch.jit.offload_stream import (StreamLane, pin,
+                                                     pinned_host_supported)
+
+    assert pinned_host_supported()
+    host = pin(torch.arange(1 << 20, dtype=torch.float32))
+    assert host.is_pinned()
+    dev = torch.empty(1 << 20, dtype=torch.float32, device=cuda)
+    lane = StreamLane(overlap=overlap)
+    try:
+        lane.submit("h2d", [host], [dev], tag=0).wait()
+        total = dev.sum()  # queued after the wait on the compute stream
+        back = pin(torch.empty(1 << 20, dtype=torch.float32))
+        dev.mul_(2)
+        lane.submit("d2h", [dev], [back], tag=0).synchronize()
+        assert float(total) == float(host.double().sum())
+        assert torch.equal(back, host * 2)
+        s = lane.stats()
+        assert s["h2d_bytes"] == s["d2h_bytes"] == 4 << 20
+        assert s["transfers"] == 2 and s["transfer_ms"] > 0
+        if not overlap:
+            assert s["overlap_efficiency"] == 0.0
+    finally:
+        lane.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accumulate", [0, 2])
+def test_offloaded_step_equals_resident_on_the_card(cuda, accumulate,
+                                                    monkeypatch):
+    """A tiny fp32 Llama over a world-1 gloo mesh (eager: gloo's
+    collectives cannot be captured; ``chip_smoke.py``'s ``offload-check``
+    runs the graphed step over NCCL), AdamW under a global-norm clip:
+    three offloaded steps (the lane overlapped and serialized) equal the
+    resident step bit for bit; the moments and masters rest in
+    page-locked host memory; the walk's update is one ``adam_update``
+    launch a group a step."""
+    import paddle_tpu_torch.distributed as pdist
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _world_one()
+    cfg = LlamaConfig.tiny()
+    model = LlamaForCausalLM(cfg, device=cuda, generator=pt_seed(5, cuda))
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), device=cuda,
+                        generator=pt_seed(6, cuda))
+    pdist.init_mesh()
+    out = {}
+    try:
+        for kind in ("resident", "overlapped", "serialized"):
+            monkeypatch.setenv("PT_OFFLOAD_OVERLAP",
+                               "0" if kind == "serialized" else "1")
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(init[n])
+            opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                        weight_decay=0.1, grad_clip=ClipGradByGlobalNorm(1.0))
+            _m, opt = pdist.group_sharded_parallel(
+                model, opt, level="os_g", offload=kind != "resident",
+                segment_size=1 << 16, buffer_max_size=1 << 18)
+            step = pdist.ShardedTrainStep(model,
+                                          lambda m, x, y: m(x, labels=y),
+                                          opt, graph=False)
+            run = step.accumulate(accumulate) if accumulate else step
+            reset_counters()
+            losses = [float(run(ids, ids)) for _ in range(3)]
+            torch.cuda.synchronize()
+            out[kind] = (losses, {n: p.detach().clone()
+                                  for n, p in model.named_parameters()})
+            if kind != "resident":
+                off = step._off
+                assert off.host.is_pinned() and len(off.groups) > 2
+                for st in opt._state.values():
+                    for v in st.values():
+                        assert v.device.type == "cpu" and v.is_pinned()
+                assert counters()["adam_update"]["launches"] == \
+                    3 * len(off.groups)
+                off.close()
+    finally:
+        pdist.reset_mesh()
+    ref_l, ref_p = out["resident"]
+    for kind in ("overlapped", "serialized"):
+        losses, params = out[kind]
+        assert losses == ref_l, kind
+        for n, p in params.items():
+            assert torch.equal(p, ref_p[n]), (kind, n)

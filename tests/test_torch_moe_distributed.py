@@ -16,7 +16,9 @@ The cases: dp 4 (``fused``; ``index`` with a capacity factor that drops
 rows), sdp 4 (``os_g``, ``p_g_os``), ep 4, ep 2 x dp 2, ep 2 x mp 2, pp
 2 x dp 2, ep 2 x dp 2 under Momentum and a global-norm clip that binds,
 a per-tensor clip, and Momentum alone; Adafactor at ep 2 x dp 2, Lamb at
-dp 2 x mp 2, LARS at sdp 4 (``os_g``).
+dp 2 x mp 2, LARS at sdp 4 (``os_g``); cp 2 x dp 2 (ring attention,
+``index`` with a capacity that drops rows and ``fused``; Ulysses under
+Momentum and the clip).
 Four planted faults must fail their checks: a per-rank capacity, a
 per-rank aux, the clip's norm without its ep all-reduce, and the
 gradients of ep-replicated parameters summed over ep.
@@ -62,11 +64,20 @@ CASES = {
                           None),
     "lamb_dp2_mp2": (dict(dp=2, mp=2), "index", {}, "lamb", None, None),
     "lars_sdp4_os_g": (dict(sharding=4), "index", {}, "lars", "os_g", None),
+    # under cp the tokens of a row are split over the cp ranks: the
+    # capacity's places and the aux over the global batch's order
+    "cp2_dp2_index": (dict(cp=2, dp=2), "index", {"capacity_factor": 0.5},
+                      "adamw", None, None),
+    "cp2_dp2_fused": (dict(cp=2, dp=2), "fused", {}, "adamw", None, None),
+    "cp2_dp2_ulysses_momentum": (dict(cp=2, dp=2), "index",
+                                 {"cp_impl": "ulysses"}, "momentum", None,
+                                 CLIP),
 }
 # planted fault: the case whose check it must fail
 FAULTS = {"per_rank_capacity": "dp4_index", "per_rank_aux": "dp4_fused",
           "norm_without_ep": "ep2_dp2_tensor_clip",
-          "ep_grad_counted_twice": "ep2_dp2_momentum"}
+          "ep_grad_counted_twice": "ep2_dp2_momentum",
+          "cp_block_order": "cp2_dp2_index"}
 
 
 def _jax():

@@ -348,6 +348,53 @@ def llama_tied(inp):
             "ref_state": ref_state, "tied": tied}
 
 
+def llama_tied_sdp4(inp):
+    """The tied head under ZeRO-3 at sdp 4 (one shard of the one tensor,
+    registered on the embedding and the head) against the same model in
+    one process: the JAX tie is broken, so the oracle is the port's
+    TrainStep on the whole batch. Also the all-gathers of the tied shard
+    in the third step's forward."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.distributed import sharding
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.tiny(**inp["llama"]["dp2_mp2"]["config"],
+                           tie_word_embeddings=True)
+    ids = torch.from_numpy(inp["llama"]["dp2_mp2"]["ids"])
+    model = LlamaForCausalLM(cfg, device="cpu", generator=seed(1, "cpu"))
+    o = popt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    step = TrainStep(model, lambda m, x, y: m(x, labels=y), o)
+    ref = [float(step(ids, ids)) for _ in range(3)]
+    ref_state = {k: _np(v) for k, v in model.state_dict().items()}
+    dist.init_mesh(sharding=WORLD)
+    model = LlamaForCausalLM(cfg, device="cpu", generator=seed(1, "cpu"))
+    o = popt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    model, o = dist.group_sharded_parallel(model, o, level="p_g_os")
+    shard = model.llama.embed_tokens.parametrizations.weight.original
+    tied = model.lm_head.parametrizations.weight.original is shard
+    step = dist.ShardedTrainStep(model, lambda m, x, y: m(x, labels=y), o)
+    losses = [float(step(ids, ids)) for _ in range(2)]
+    seen = []
+    apply = sharding._AllGather.apply
+
+    def counting(t, *a):
+        seen.append(t)
+        return apply(t, *a)
+
+    sharding._AllGather.apply = counting
+    try:
+        losses.append(float(step(ids, ids)))
+    finally:
+        del sharding._AllGather.apply
+    state = {k: _np(v) for k, v in
+             dist.sharding.gather_full_state(model).items()}
+    return {"losses": losses, "ref_losses": ref, "state": state,
+            "ref_state": ref_state, "tied": tied,
+            "gathers": sum(1 for t in seen if t is shard),
+            "shards": sum(1 for p in o._parameter_list if p is shard)}
+
+
 def parallel_cross_entropy(inp):
     """``ParallelCrossEntropy`` at mp 4: per-row losses (an ignored label
     gives 0) and this rank's columns of the logits' gradient."""
@@ -374,37 +421,172 @@ def deferred(inp):
         except NotImplementedError as e:
             out[name] = "NotImplementedError: " + str(e)
 
-    net = torch.nn.Linear(4, 4)
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    def fresh():
-        return popt.AdamW(learning_rate=0.1, parameters=net.parameters())
-
-    dist.init_mesh(dp=WORLD)
-    record("offload", lambda: dist.group_sharded_parallel(
-        net, fresh(), level="os_g", offload=True))
-
-    def offloaded():
-        o = fresh()
-        o._offload = True
-        dist.ShardedTrainStep(net, _mse, o)
-
-    record("optimizer_offload", offloaded)
-    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
-                                         LlamaConfig, LlamaForCausalLM,
-                                         LlamaMoEConfig)
-
-    dist.init_mesh(cp=2, dp=2)
-    record("moe_under_cp", lambda: LlamaForCausalLM(
-        LlamaMoEConfig.tiny(), device="cpu"))
-    dist.init_mesh(dp=2, mp=2)
-    record("gpt_under_mp", lambda: GPTForCausalLM(GPTConfig.tiny(),
-                                                  device="cpu"))
     dist.init_mesh(pp=2, cp=2)
     pp_cp = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     record("pp_with_cp", lambda: dist.ShardedTrainStep(
         pp_cp, lambda m, x, y: m(x, labels=y),
         popt.AdamW(learning_rate=0.1, parameters=pp_cp.parameters())))
     return out
+
+
+# -- optimizer offload and the pipeline wrapper's eager loop ---------------------
+
+def offload_step(inp, key):
+    """The offloaded ``ShardedTrainStep`` (ZeRO os_g) at the case's degrees:
+    losses, the gathered state, this rank's host elements against the
+    full count."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    case = inp["offload"][key]
+    dist.init_mesh(**case["degrees"])
+    net = torch.nn.Sequential(torch.nn.Linear(16, 32), torch.nn.Tanh(),
+                              torch.nn.Linear(32, 16))
+    net.load_state_dict({k: torch.from_numpy(v)
+                         for k, v in case["state"].items()})
+    full = sum(p.numel() for p in net.parameters())
+    clip = None if case["clip"] is None else ClipGradByGlobalNorm(case["clip"])
+    if case["rule"] == "adamw":
+        o = popt.AdamW(learning_rate=0.02, parameters=net.parameters(),
+                       grad_clip=clip)
+    else:
+        o = popt.Momentum(learning_rate=0.1, momentum=0.9,
+                          parameters=net.parameters(), grad_clip=clip)
+    net, o = dist.group_sharded_parallel(net, o, level="os_g", offload=True,
+                                         **case["knobs"])
+    step = dist.ShardedTrainStep(net, _mse, o)
+    x, y = (torch.from_numpy(a) for a in case["batch"])
+    losses = [float(step(x, y)) for _ in range(3)]
+    return {"losses": losses,
+            "host_elems": sum(m.numel() for m in step.offload_masters()),
+            "full_elems": full,
+            "state": {k: _np(v) for k, v in net.state_dict().items()}}
+
+
+def pp_wrapper(inp, key):
+    """``PipelineParallel.train_batch`` at dp 4 with accumulate_steps 2 and
+    a ``GradScaler`` and / or an offloaded optimizer (the eager microbatch
+    loop): losses, the state, the final loss scale."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineParallel
+
+    case = inp["offload"][key]
+    dist.init_mesh(dp=WORLD)
+    net = torch.nn.Sequential(torch.nn.Linear(8, 16), torch.nn.Tanh(),
+                              torch.nn.Linear(16, 4))
+    net.load_state_dict({k: torch.from_numpy(v)
+                         for k, v in case["state"].items()})
+    strategy = fleet.DistributedStrategy()
+    strategy.pipeline = True
+    strategy.pipeline_configs = {"accumulate_steps": 2}
+    opt = popt.AdamW(learning_rate=0.01, parameters=net.parameters(),
+                     weight_decay=0.01)
+    if case["offload"]:
+        net, opt = dist.group_sharded_parallel(net, opt, level="os_g",
+                                               offload=True)
+    model = PipelineParallel(net, None, strategy)
+    sc = None if case["scaler"] is None else GradScaler(**case["scaler"])
+    x, y = torch.from_numpy(case["x"]), torch.from_numpy(case["y"])
+    losses = [float(model.train_batch((x, y), opt, scaler=sc))
+              for _ in range(3)]
+    return {"losses": losses,
+            "scale": None if sc is None else float(sc._scale),
+            "state": {k: _np(v) for k, v in net.state_dict().items()}}
+
+
+# -- GPT under tensor parallelism and ZeRO-3 over its tied embedding ------------
+
+def gpt_mp(inp, key, planted=None):
+    """The tiny GPT at the case's degrees (ZeRO level, clip), three steps:
+    every loss, this rank's state, and the all-gathers of the tied
+    embedding shard in the third step's forward (ZeRO-3). ``planted``
+    ``"qkv_contiguous"``: the q/k/v weights cut in contiguous thirds."""
+    from paddle_tpu_torch.distributed import sharding
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.convert import shard_gpt_state
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    case = inp["gpt"][key]
+    env = dist.init_mesh(**case["degrees"])
+    model = GPTForCausalLM(GPTConfig.tiny(**case["config"]), device="cpu")
+    full = {k: torch.from_numpy(v) for k, v in case["state"].items()}
+    mine = shard_gpt_state(full, env)
+    if planted == "qkv_contiguous":
+        mp, r = env.get_dim("mp"), env.coord("mp")
+        for k in mine:
+            if ".qkv_proj." in k:
+                mine[k] = full[k].chunk(mp, dim=0)[r].clone()
+    model.load_state_dict(mine)
+    params = model.parameters()
+    if case["clip"] is None:
+        o = popt.AdamW(learning_rate=1e-3, parameters=params)
+    else:
+        o = popt.Momentum(learning_rate=0.1, momentum=0.9, parameters=params,
+                          grad_clip=ClipGradByGlobalNorm(case["clip"]))
+    if case["level"]:
+        model, o = dist.group_sharded_parallel(model, o, level=case["level"])
+    step = dist.ShardedTrainStep(model, lambda m, x, y: m(x, labels=y), o)
+    ids = torch.from_numpy(case["ids"])
+    losses = [float(step(ids, ids)) for _ in range(2)]
+    embed = model.gpt.embed_tokens
+    seen = []
+    apply = sharding._AllGather.apply
+
+    def counting(shard, *a):
+        seen.append(shard)
+        return apply(shard, *a)
+
+    sharding._AllGather.apply = counting
+    try:
+        losses.append(float(step(ids, ids)))
+    finally:
+        del sharding._AllGather.apply  # back to Function.apply
+    assert sharding._AllGather.apply == apply
+    tied = getattr(getattr(embed, "parametrizations", None), "weight", None)
+    gathers = None if tied is None else sum(
+        1 for t in seen if t is tied.original)
+    return {"losses": losses, "gathers": gathers,
+            "state": {k: _np(v) for k, v in model.state_dict().items()}}
+
+
+def gpt_init_shards(inp):
+    """The tiny GPT built at dp 2 x mp 2 from seed 1: this rank's state."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    dist.init_mesh(dp=2, mp=2)
+    model = GPTForCausalLM(GPTConfig.tiny(**inp["gpt_pipe_mp"]["config"]),
+                           device="cpu", generator=seed(1, "cpu"))
+    return {k: _np(v) for k, v in model.state_dict().items()}
+
+
+def gpt_pipe_mp(inp):
+    """``GPTForCausalLMPipe`` at pp 2 x mp 2 through
+    ``PipelineParallel.train_batch`` (accumulate_steps 2)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineParallel
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLMPipe
+
+    c = inp["gpt_pipe_mp"]
+    dist.init_mesh(pp=2, mp=2)
+    model = GPTForCausalLMPipe(GPTConfig.tiny(**c["config"]), device="cpu",
+                               generator=seed(1, "cpu"))
+    strategy = fleet.DistributedStrategy()
+    strategy.pipeline = True
+    strategy.pipeline_configs = {"accumulate_steps": 2}
+    pipe = PipelineParallel(model, None, strategy)
+    opt = popt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    ids = torch.from_numpy(c["ids"])
+    losses = [float(pipe.train_batch((ids, ids), opt)) for _ in range(3)]
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+
+    ckpt.save_sharded_model(model, opt, os.path.join(inp["tmpdir"],
+                                                     "gpt_pipe_mp"))
+    dist.barrier()
+    return {"losses": losses, "stage": model.stage_id,
+            "eval": float(pipe.eval_batch((ids, ids))),
+            "state": {k: _np(v) for k, v in model.state_dict().items()}}
 
 
 # -- context parallelism ----------------------------------------------------------
@@ -849,6 +1031,7 @@ SUITES = {
         ("planted_norm_without_mp", lambda inp: llama(
             inp, "dp2_mp2_clip", PLANTED["norm_without_mp"])),
         ("llama_tied", llama_tied),
+        ("llama_tied_sdp4", llama_tied_sdp4),
         ("parallel_cross_entropy", parallel_cross_entropy),
         ("deferred", deferred),
     ],
@@ -880,16 +1063,32 @@ SUITES = {
                         "ep4", "ep2_dp2", "ep2_mp2", "pp2_dp2",
                         "ep2_dp2_clip", "ep2_dp2_tensor_clip",
                         "ep2_dp2_momentum", "adafactor_ep2_dp2",
-                        "lamb_dp2_mp2", "lars_sdp4_os_g")] + [
+                        "lamb_dp2_mp2", "lars_sdp4_os_g", "cp2_dp2_index",
+                        "cp2_dp2_fused", "cp2_dp2_ulysses_momentum")] + [
         (f"planted_{fault}",
          (lambda f, k: lambda inp: moe_llama(inp, k, f))(fault, key))
         for fault, key in (("per_rank_capacity", "dp4_index"),
                            ("per_rank_aux", "dp4_fused"),
                            ("norm_without_ep", "ep2_dp2_tensor_clip"),
-                           ("ep_grad_counted_twice", "ep2_dp2_momentum"))] + [
+                           ("ep_grad_counted_twice", "ep2_dp2_momentum"),
+                           ("cp_block_order", "cp2_dp2_index"))] + [
         ("a2a", moe_a2a),
         ("checkpoint", moe_checkpoint),
     ],
+    "gpt": [(f"gpt_{key}", (lambda k: lambda inp: gpt_mp(inp, k))(key))
+            for key in ("dp2_mp2", "dp2_mp2_clip", "mp4",
+                        "sdp4_p_g_os_tied")] + [
+        ("planted_qkv_contiguous",
+         lambda inp: gpt_mp(inp, "dp2_mp2", "qkv_contiguous")),
+        ("gpt_pipe_mp", gpt_pipe_mp),
+        ("gpt_init_shards", gpt_init_shards),
+    ],
+    "offload": [
+        (key, (lambda k: lambda inp: (pp_wrapper if k.startswith("wrapper")
+                                      else offload_step)(inp, k))(key))
+        for key in ("sdp2_dp2_adamw_clip", "sdp2_dp2_momentum",
+                    "wrapper_scaler", "wrapper_offload",
+                    "wrapper_offload_scaler")],
     "context_parallel": [
         ("ring", lambda inp: ring(inp, "ring")),
         ("ulysses", lambda inp: ring(inp, "ulysses")),

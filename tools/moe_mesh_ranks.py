@@ -49,7 +49,10 @@ class Planted:
     """Swaps module attributes of the MoE layer for a planted fault's
     while open (also the CPU tests' faults): ``per_rank_capacity``
     (each rank's capacity and places from its own tokens),
-    ``per_rank_aux`` (the aux from its own tokens); any other name
+    ``per_rank_aux`` (the aux from its own tokens), ``cp_block_order``
+    (under cp, each rank's tokens placed as one contiguous block of the
+    global order, where the reference interleaves the cp chunks row by
+    row); any other name
     swaps nothing."""
 
     def __init__(self, fault, n_data):
@@ -61,6 +64,12 @@ class Planted:
             self.swaps = {
                 "_capacity": lambda n, e, k, cf: cap(n // n_data, e, k, cf),
                 "capacity_positions": lambda gi, e, *a: pos(gi, e)}
+        elif fault == "cp_block_order":
+            pos = moe.capacity_positions
+            self.swaps = {
+                "capacity_positions":
+                    lambda gi, e, data, nb, dr, rows=1, cp=1, cr=0: pos(
+                        gi, e, data, nb * cp, dr * cp + cr)}
         elif fault == "per_rank_aux":
             self.swaps = {"_global_aux": lambda mesh: moe.router_aux}
         else:

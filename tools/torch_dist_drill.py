@@ -30,6 +30,16 @@ batch ordered as the pipeline's microbatches hold it (its aux and
 capacity are per microbatch). A checkpoint saved at ep 2 x dp 2 after one
 step and loaded at dp 4 continues as the unbroken run does.
 
+GPT parity (fp32, the same limits): the drill's GPT (the Llama's
+widths, learned positions, tied head) at dp 2 x mp 2, mp 4 and, tied, at
+sdp 4 (ZeRO ``p_g_os``: one shard of the tied embedding), each against
+``TrainStep`` on the whole batch in one process, and
+``GPTForCausalLMPipe`` at pp 2 x mp 2 (1F1B) against the pipe at pp 1;
+the MoE Llama at cp 2 x dp 2 (ring attention, ``index``: the capacity's
+places over the global batch's order); and the Llama with its optimizer
+offloaded (ZeRO ``os_g`` at sdp 2 x dp 2: each rank's fp32 masters and
+moments in page-locked host memory, the update streamed per group).
+
 Timed (cards only, graphed bf16, recompute, AdamW lr 3e-4 / wd 0.1): the
 1.16B Llama (``bench.py:1836-1840``) on one card at 4 x 2048, at dp 4, dp
 2 x mp 2, cp 4 (ring, 2 x 16384), pp 4 and pp 2 x dp 2 (16 x 2048, 8
@@ -37,7 +47,8 @@ microbatches of each rank's batch at pp 4, 4 at pp 2); and Llama-2 7B at
 full depth (32 layers, 8 a stage) at pp 4, M = 8 x (1 x 4096); the MoE
 flagship (``bench.py:1864-1872``, Adafactor lr 1e-2) on one card at 4 x
 2048 (``fused``), at dp 4 (``fused``) and at ep 4 (``index``, capacity
-factor 1.25), 16 x 2048. Tokens/s a card.
+factor 1.25), 16 x 2048; GPT-3 6.7B at dp 2 x mp 2, 4 x 2048. Tokens/s a
+card.
 
 ``--only a,b`` runs the jobs of those names alone (a mesh's, a timed
 job's, ``checkpoint``, ``moe_checkpoint``); ``--profile`` adds to each
@@ -82,7 +93,20 @@ MESHES = [("dp2_mp2", dict(dp=2, mp=2), None, "ring", {}),
           ("pp2_mp2", dict(pp=2, mp=2), None, "ring", {}),
           ("pp2_dp2_scaler_accum2", dict(pp=2, dp=2), None, "ring",
            {"scaler": True, "accum_steps": 2}),
-          ("dp2_mp2_clip", dict(dp=2, mp=2), None, "ring", {"clip": True})]
+          ("dp2_mp2_clip", dict(dp=2, mp=2), None, "ring", {"clip": True}),
+          ("offload_sdp2_dp2", dict(sharding=2, dp=2), "os_g", "ring",
+           {"offload": True})]
+# (name, degrees, ZeRO level, pipe): the GPT meshes
+GPT_MESHES = [("gpt_dp2_mp2", dict(dp=2, mp=2), None, False),
+              ("gpt_mp4", dict(mp=4), None, False),
+              ("gpt_sdp4_p_g_os_tied", dict(sharding=4), "p_g_os", False),
+              ("gpt_pp2_mp2", dict(pp=2, mp=2), None, True)]
+GPT_PARITY = {"card": dict(vocab_size=4096, hidden_size=512,
+                           num_hidden_layers=4, num_attention_heads=8,
+                           max_position_embeddings=512),
+              "cpu": dict(vocab_size=128, hidden_size=64,
+                          num_hidden_layers=4, num_attention_heads=4,
+                          max_position_embeddings=64)}
 PARITY = {"card": dict(vocab_size=4096, hidden_size=512,
                        intermediate_size=1408, num_hidden_layers=4,
                        num_attention_heads=8, num_key_value_heads=4,
@@ -99,7 +123,8 @@ MOE_MESHES = [("moe_dp4_fused", dict(dp=4), None, "fused", 0),
               ("moe_ep2_mp2", dict(ep=2, mp=2), None, "index", 0),
               ("moe_sdp2_ep2_p_g_os", dict(sharding=2, ep=2), "p_g_os",
                "index", 0),
-              ("moe_pp2_dp2", dict(pp=2, dp=2), None, "index", 2)]
+              ("moe_pp2_dp2", dict(pp=2, dp=2), None, "index", 2),
+              ("moe_cp2_dp2", dict(cp=2, dp=2), None, "index", 0)]
 BIG = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
            num_hidden_layers=20, num_attention_heads=16,
            num_key_value_heads=16)
@@ -119,6 +144,12 @@ MOE_FLAGSHIP = dict(vocab_size=32000, hidden_size=1536,
                     num_attention_heads=12, num_key_value_heads=12,
                     **MOE_EXPERTS)
 # (name, degrees, global batch, dispatch)
+GPT3_6_7B = dict(vocab_size=50304, hidden_size=4096, num_hidden_layers=32,
+                 num_attention_heads=32, max_position_embeddings=2048)
+# (name, degrees, global batch); ONE_CARD_GPT: GPT-3 6.7B's tokens/s on one
+# card, graphed at 2 x 2048 (chip_smoke.py's gpt-train line)
+ONE_CARD_GPT = 9874.0
+GPT_TIMED = [("gpt3_6_7b_dp2_mp2", dict(dp=2, mp=2), (4, 2048))]
 MOE_TIMED = [("moe_one_card", None, (4, 2048), "fused"),
              ("moe_dp4_fused", dict(dp=4), (16, 2048), "fused"),
              ("moe_ep4_index", dict(ep=4), (16, 2048), "index")]
@@ -221,8 +252,9 @@ def _parity(name, degrees, level, impl, opts, size, device, log):
             {n: t for n, t in full.items()}, env))
         opt = _optimizer(model.parameters(), clip)
         if level:
-            model, opt = pdist.group_sharded_parallel(model, opt,
-                                                      level=level)
+            model, opt = pdist.group_sharded_parallel(
+                model, opt, level=level, offload=bool(opts.get("offload")),
+                segment_size=2 ** 20, buffer_max_size=2 ** 22)
         kw = {"accum_steps": merge}
         if opts.get("scaler"):
             kw["scaler"] = GradScaler(init_loss_scaling=2.0 ** 10)
@@ -244,6 +276,13 @@ def _parity(name, degrees, level, impl, opts, size, device, log):
                      "update_rel_l2_err": ue, "param_max_abs_err": pe}
         if opts.get("scaler"):
             out[mode]["amp_state"] = step.amp_state()
+        if opts.get("offload"):
+            off = step._off
+            out[mode]["offload"] = {
+                "groups": len(off.groups), "pinned": off.host.is_pinned(),
+                "host_gib": off.host.numel() * 4 / 2 ** 30,
+                "lane": off.lane.stats()}
+            off.close()
         del model, opt, step
     out["reference_losses"] = ref_losses
     if "graph" in got:
@@ -256,6 +295,152 @@ def _parity(name, degrees, level, impl, opts, size, device, log):
         out["graph_equals_eager"] = True
     pdist.reset_mesh()
     _emit(dict(phase="parity", **out), log)
+
+
+def _gpt_parity(name, degrees, level, pipe, size, device, log):
+    """One GPT mesh's fp32 steps (AdamW lr 1e-3), eager and graphed,
+    against one process: ``GPTForCausalLM`` under ``TrainStep`` on the
+    whole batch, or for the pipe at pp 2 the pipe built at pp = 1 (the
+    same weights from the same generator)."""
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         GPTForCausalLMPipe)
+
+    cfg = GPTConfig(**GPT_PARITY[size], dtype="float32")
+    ids = _ids(cfg.vocab_size, PARITY_BATCH[size], 3, device)
+
+    def build():
+        if pipe:
+            return GPTForCausalLMPipe(cfg, device=device,
+                                      generator=seed(5, device))
+        return GPTForCausalLM(cfg, device=device, generator=seed(5, device))
+
+    def loss_fn(m, x, y):
+        return m.compute_loss(x, y) if pipe else m(x, labels=y)
+
+    model = build()
+    full = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = _optimizer(model.parameters(), None)
+    step = TrainStep(model, loss_fn, opt, graph=False)
+    ref_losses = [float(step(ids, ids)) for _ in range(3)]
+    ref = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del model, opt, step
+    graphs = [False, True] if device == "cuda" else [False]
+    out = {"mesh": name, "model": "gpt", "degrees": degrees, "zero": level,
+           "pipe": pipe}
+    got = {}
+    pdist.init_mesh(**degrees)
+    for graph in graphs:
+        model = build()  # under mp each rank draws its shards of the same
+        opt = _optimizer(model.parameters(), None)
+        if level:
+            model, opt = pdist.group_sharded_parallel(model, opt,
+                                                      level=level)
+        step = pdist.ShardedTrainStep(model, loss_fn, opt, graph=graph,
+                                      num_microbatches=2 if pipe else None)
+        losses = [float(step(ids, ids)) for _ in range(3)]
+        state, params = {}, dict(model.named_parameters())
+        for n, t in pdist.sharding.gather_full_state(model).items():
+            p = params.get(n)
+            if getattr(p, "ckpt_copy", False) and \
+                    getattr(p, "pp_shared", None) is None:
+                continue  # the head's copy of the position table: unused
+            state[getattr(p, "ckpt_name", None) or n] = t
+        mode = "graph" if graph else "eager"
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses, ref_losses))
+        held, kb = _key_bias_apart(state, ref, full, cfg.hidden_size)
+        pe, ue = _errors(*held)
+        pe, ue = _max_over_world(pe), _max_over_world(ue)
+        if loss_rel > LOSS_RTOL or ue > UPDATE_RTOL or kb > 3.01e-3:
+            raise RuntimeError(f"{name} ({mode}): losses {losses} vs "
+                               f"{ref_losses} (rel {loss_rel}), updates {ue} "
+                               f"off (max abs {pe}), key bias moved {kb}")
+        got[mode] = (losses, state)
+        out[mode] = {"losses": losses, "loss_rel_err": loss_rel,
+                     "update_rel_l2_err": ue, "param_max_abs_err": pe,
+                     "key_bias_max_move": kb}
+        del model, opt, step
+    out["reference_losses"] = ref_losses
+    if "graph" in got:
+        same = got["graph"][0] == got["eager"][0] and all(
+            torch.equal(got["graph"][1][n], got["eager"][1][n])
+            for n in got["eager"][1])
+        if not _max_over_world(0.0 if same else 1.0) == 0.0:
+            raise RuntimeError(f"{name}: the graphed step differs from the "
+                               f"eager one")
+        out["graph_equals_eager"] = True
+    pdist.reset_mesh()
+    _emit(dict(phase="parity", **out), log)
+
+
+def _key_bias_apart(state, ref, full, h):
+    """((state, ref, full) with the key rows of each q/k/v bias left out,
+    the largest move of those rows from their start). Their gradient is
+    zero in exact arithmetic (a key bias adds ``q . b`` to every score of a
+    query, which the softmax cancels): AdamW's ``m / sqrt(v)`` turns the
+    rounding noise there into steps of about the learning rate (1e-3), in
+    any summation order, so those rows are held to three such steps."""
+    import torch
+
+    kb = 0.0
+    out = [dict(state), dict(ref), dict(full)]
+    for n in state:
+        if n.endswith("qkv_proj.bias"):
+            kb = max(kb, (state[n][h:2 * h] - full[n][h:2 * h]).abs().max()
+                     .item())
+            for d in out:
+                d[n] = torch.cat([d[n][:h], d[n][2 * h:]])
+    return out, kb
+
+
+def _gpt_timed(name, degrees, batch, log, card):
+    """The graphed bf16 GPT-3 6.7B step (recompute, AdamW lr 3e-4 / wd 0.1)
+    over the mesh: step ms of 5 replays after warm-up and capture, tokens/s
+    a card against one card's (``ONE_CARD_GPT``), peak GiB a card."""
+    import gc
+
+    import torch
+
+    from paddle_tpu_torch import distributed as pdist
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = GPTConfig(**GPT3_6_7B, dtype="bfloat16", use_recompute=True)
+    pdist.init_mesh(**degrees)
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device="cuda", generator=seed(9, "cuda"))
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.1)
+    step = pdist.ShardedTrainStep(model, _loss_fn, opt)
+    ids = _ids(cfg.vocab_size, batch, 11, "cuda")
+    losses = [float(step(ids, ids)) for _ in range(3)]
+    ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, ids)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(map(lambda x: x == x, losses)) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"{name}: losses {losses} not finite and falling")
+    world = pdist.get_world_size()
+    per_card = batch[0] * batch[1] / (min(ms) / 1e3) / world
+    _emit({"phase": "timed", "mesh": name, "card": card,
+           "model": "gpt3-6.7b", "degrees": degrees,
+           "global_batch": list(batch), "losses": losses, "step_ms": ms,
+           "tokens_per_s_per_card": per_card,
+           "one_card_tokens_per_s": ONE_CARD_GPT,
+           "of_one_card": per_card / ONE_CARD_GPT,
+           "peak_gib_max_over_cards": _max_over_world(
+               torch.cuda.max_memory_allocated() / 2 ** 30)}, log)
+    pdist.reset_mesh()
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _checkpoint(size, device, path, log):
@@ -600,6 +785,10 @@ def _rank(out, cpu, card, jobs, profile=False):
             _moe_checkpoint(size, device, ckpt_dir + ".moe", log)
         elif kind == "moe_timed":
             _moe_timed(*spec, log, card, profile)
+        elif kind == "gpt_parity":
+            _gpt_parity(*spec, size, device, log)
+        elif kind == "gpt_timed":
+            _gpt_timed(*spec, log, card)
         else:
             _timed(*spec, log, card)
         faulthandler.cancel_dump_traceback_later()
@@ -654,9 +843,11 @@ def main() -> int:
     jobs.append(("checkpoint", ("checkpoint",), PARITY_LIMIT_S))
     jobs += [("moe_parity", m, PARITY_LIMIT_S) for m in MOE_MESHES]
     jobs.append(("moe_checkpoint", ("moe_checkpoint",), PARITY_LIMIT_S))
+    jobs += [("gpt_parity", m, PARITY_LIMIT_S) for m in GPT_MESHES]
     if not a.cpu:
         jobs += [("timed", t, TIMED_LIMIT_S) for t in TIMED]
         jobs += [("moe_timed", t, TIMED_LIMIT_S) for t in MOE_TIMED]
+        jobs += [("gpt_timed", t, TIMED_LIMIT_S) for t in GPT_TIMED]
     if a.only:
         names = set(a.only.split(","))
         jobs = [j for j in jobs if j[1][0] in names]
