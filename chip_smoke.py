@@ -56,6 +56,35 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              fault planted in the flash decode route (each step sees only
              its first split's keys). A profiled generate gives its
              device time by kernel group.
+5b. serving-tier — the single-process serving tier on a fresh GPT-3
+             6.7B (bf16, random weights, the serving phase's engine
+             config), each part with its kernels' launches exact (no plain
+             call) and every answer checked against the model's own
+             forward: (a) speculative decoding with a GPT-3 Small draft
+             (12 x 768, d_head 64), k 4, over the serving phase's 16
+             requests: proposals, acceptances, rounds, tokens/s, round ms,
+             TTFT; every verify window on the tensor-core paged kernel
+             (W = 5), every draft prefill on the tensor-core flash kernel;
+             a planted fault (proposals taken unverified) must fail the
+             check; (b) the model as its own draft, speculation switched
+             off mid-stream (the later rounds on the split-K decode
+             kernel); (c) ``swap_weights`` to a second seeded model while
+             requests are in flight: they finish on the first weights, the
+             later ones run the second (each set fails against the other
+             model), ``weight_version`` 2; (d) a 512-token prompt's pages
+             exported from one engine and installed into another over the
+             bf16 wire (continuation bit for bit the uninterrupted
+             engine's, from a 31-block prefix hit) and the int8 wire; (e)
+             a 240-page pool with the int8 host tier: the evicted prompt's
+             pages spilled and restored, each within its int8 step (plus
+             bf16's rounding) of the original; (f) ``ServingEngine`` over
+             a callable on the model's forward (argmax and log-probability
+             a position), buckets (1, 2, 4, 8) x (128, 256, 512), 32
+             concurrent requests: QPS, latency, occupancy, no runner built
+             after warm-up, each answer against the model alone; (g)
+             ``ReplicaRouter`` over two engines sharing the weights, two
+             tenants (one at a quota of 4), a replica marked down mid-run
+             and its queued requests resubmitted to the other.
 6. train-parity — fp32, the 1.16B Llama's width at depth 2, batch 2 x 512:
              one step's loss and every parameter gradient through the
              kernels against the same step with each kernel wrapper swapped
@@ -526,16 +555,15 @@ def _compare_bound(name, out, ref, bound):
 SM90_TOL = "2^-8|ref| + 2^-8 (P|V|, P^T|dO|, |dS^T||Q|, |dS||K|) + 1e-4"
 
 
-def _flash_case(label, dtype, bh, sq, sk, causal, gen):
+def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
     """The forward at one shape against its plain version on fp32 copies
-    of the same inputs. bf16 at head dim 128 with sq > 1 runs the
+    of the same inputs. bf16 at head dim 64 or 128 with sq > 1 runs the
     tensor-core kernel, held to its bound and timed beside the CUDA-core
     kernel on the same inputs; the rest runs the CUDA-core kernel."""
     import torch
     import torch.nn.functional as TF
 
     fa = _flash_module()
-    d = 128
     dev = DEVICE
     q = torch.randn(bh, sq, d, generator=gen, device=dev).to(dtype)
     k = torch.randn(bh, sk, d, generator=gen, device=dev).to(dtype)
@@ -577,7 +605,7 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen):
     row = {"phase": "kernel",
            "kernel": "flash_attention_sm90" if sm90 else "flash_attention",
            "case": label, "dtype": str(dtype).split(".")[1], "bh": bh,
-           "sq": sq, "sk": sk, "causal": causal, "max_abs_err": err,
+           "sq": sq, "sk": sk, "d": d, "causal": causal, "max_abs_err": err,
            "lse_max_abs_err": lse_err,
            "tol": SM90_TOL if sm90 else _tol(dtype), "kernel_ms": ms,
            "tflop_per_s": flops / ms / 1e9, "plain_ms": plain_ms,
@@ -743,6 +771,11 @@ def phase_kernels(seed):
                                 2048, 2048, True, gen))
     rows.append(_flash_case("causal512-float32", torch.float32, 32, 512, 512,
                             True, gen))
+    # the serving tier's draft prefill (GPT-3 Small: one prompt x 12 heads
+    # of 64, padded to the prefill buckets)
+    for sq in (128, 512):
+        rows.append(_flash_case(f"draft-hd64-causal{sq}-bfloat16",
+                                torch.bfloat16, 12, sq, sq, True, gen, d=64))
     # single-row decode, split-K: bh 32 at 640 keys and serving's generate
     # (two prompts x 32 heads, ~100 keys), timed; then odd cases, checked
     bf, f32 = torch.bfloat16, torch.float32
@@ -1131,6 +1164,687 @@ def phase_serving(seed):
     del model
     _release()
     return counts
+
+
+# -- phase: serving-tier -----------------------------------------------------
+
+TIER_SPEC_K = 4          # draft proposals a round (verify window W = 5)
+TIER_NEW = 64            # (a): new tokens a request, as the serving phase
+TIER_SELF_NEW = 32       # (b), (c), (g): cut from 64 to keep the phase short
+TIER_WARM_BYTES = 2 << 30
+TIER_WARM_PAGES = 240    # (e): 3840 tokens of device pool, so prefixes evict
+# (b): the self-draft's acceptance floor; its most is (k - 1) / k = 0.75
+# (the advance is capped at k), and a draft whose arena or prefill is wrong
+# proposes at random (about 0 of 50304 match)
+TIER_SELF_ACCEPT_MIN = 0.6
+
+
+def _tier_counts(total):
+    """Read the kernels' counters since the last reset into ``total`` (the
+    serving-tier path's sum) and return this part's own."""
+    from paddle_tpu_torch import kernels
+
+    c = kernels.counters()
+    for name, v in c.items():
+        t = total.setdefault(name, {"launches": 0, "plain_calls": 0})
+        t["launches"] += v["launches"]
+        t["plain_calls"] += v["plain_calls"]
+    return c
+
+
+def _tier_exact(part, c, want):
+    """Launches of this part equal ``want`` exactly, no plain call."""
+    got = {n: c[n]["launches"] for n in want}
+    plain = {n: v["plain_calls"] for n, v in c.items() if v["plain_calls"]}
+    if got != want or plain:
+        raise RuntimeError(f"serving-tier ({part}): launches {got}, expected "
+                           f"{want}; plain calls {plain}")
+    return got
+
+
+def _tier_prompts(rng, vocab, n, lo=100, hi=500, shared=256):
+    """``n`` prompts of lo..hi tokens; odd ones start with one shared
+    ``shared``-token prefix."""
+    import numpy as np
+
+    prefix = rng.integers(0, vocab, size=shared)
+    out = []
+    for i in range(n):
+        m = int(rng.integers(max(lo, shared + 44) if i % 2 else lo, hi + 1))
+        tail = rng.integers(0, vocab, size=m - shared * (i % 2))
+        out.append(np.concatenate([prefix, tail]) if i % 2 else tail)
+    return out
+
+
+def _tier_serve(eng, prompts, new):
+    """Submit ``prompts`` at once; returns the answers, the wall seconds and
+    each request's TTFT (ms)."""
+    import numpy as np
+
+    first, t_sub = {}, {}
+
+    def on_token_for(i):
+        def cb(_t, _lp):
+            first.setdefault(i, time.monotonic())
+        return cb
+
+    t0 = time.monotonic()
+    futs = []
+    for i, p in enumerate(prompts):
+        t_sub[i] = time.monotonic()
+        futs.append(eng.submit(p, max_new_tokens=new, return_logprobs=True,
+                               on_token=on_token_for(i)))
+    outs = [f.result(timeout=900) for f in futs]
+    wall = time.monotonic() - t0
+    ttft = np.array([(first[i] - t_sub[i]) * 1e3 for i in range(len(prompts))])
+    return outs, wall, ttft
+
+
+def _tier_check(part, model, prompts, outs, new):
+    """Every answer well formed and each token within GAP_TOL / LP_TOL of
+    the model's own forward (``outs``: (sequence, logprobs or None));
+    returns the largest readings."""
+    import numpy as np
+    import torch
+
+    with torch.inference_mode():
+        r = [_readings(model, seq, len(p), lps)
+             for p, (seq, lps) in zip(prompts, outs)]
+    vocab = model.config.vocab_size
+    for p, (seq, lps) in zip(prompts, outs):
+        if len(seq) != len(p) + new or \
+                (lps is not None and not np.isfinite(lps).all()) or \
+                seq.min() < 0 or seq.max() >= vocab or \
+                seq[:len(p)].tolist() != np.asarray(p).tolist():
+            raise RuntimeError(f"serving-tier ({part}): malformed response")
+    check = {"argmax_gap_max": max(x[0] for x in r),
+             "logprob_err_max": max(x[1] for x in r)}
+    if not _within(r, GAP_TOL, LP_TOL):
+        raise RuntimeError(f"serving-tier ({part}): answers differ from the "
+                           f"forward {check}")
+    return check
+
+
+def _tier_speculative(model, draft, prompts, total):
+    """(a): a GPT-3 Small draft at k = 4; then the planted fault (every
+    proposal accepted without verification) on a few requests."""
+    import numpy as np
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import GenerationConfig, GenerationEngine, \
+        generation
+
+    cfg = _serving_config()
+    cfg.draft_model, cfg.spec_tokens = draft, TIER_SPEC_K
+    eng = GenerationEngine(model, cfg, device=DEVICE).warmup()
+    kernels.reset_counters()
+    with eng:
+        outs, wall, ttft = _tier_serve(eng, prompts, TIER_NEW)
+        st = eng.stats()
+    c = _tier_counts(total)
+    L, Ld = model.config.num_hidden_layers, draft.config.num_hidden_layers
+    ec = st["counters"]
+    launches = _tier_exact("a", c, {
+        "paged_attention_sm90":
+            L * (ec["prefills_total"] + ec["decode_steps"]),
+        "paged_attention_decode": 0, "paged_attention": 0,
+        "flash_attention_sm90": Ld * ec["draft_prefills"],
+        "flash_attention_decode": 0, "flash_attention": 0})
+    if ec["spec_rounds"] != ec["decode_steps"]:
+        raise RuntimeError("serving-tier (a): a round ran without the draft")
+    check = _tier_check("a", model, prompts, outs, TIER_NEW)
+    del eng
+    _release()
+    # the planted fault: proposals taken without verification
+    real = generation.greedy_accept
+    generation.greedy_accept = lambda d, t: len(d)
+    try:
+        with GenerationEngine(model, cfg, device=DEVICE) as bad:
+            fouts = [bad.submit(p, max_new_tokens=16, return_logprobs=True)
+                     for p in prompts[:4]]
+            fouts = [f.result(timeout=600) for f in fouts]
+    finally:
+        generation.greedy_accept = real
+    import torch
+    with torch.inference_mode():
+        fr = [_readings(model, seq, len(p), lps)
+              for p, (seq, lps) in zip(prompts[:4], fouts)]
+    fault = {"argmax_gap_max": max(x[0] for x in fr),
+             "logprob_err_max": max(x[1] for x in fr),
+             "caught": not _within(fr, GAP_TOL, LP_TOL)}
+    if not fault["caught"]:
+        raise RuntimeError(f"serving-tier (a): the check missed unverified "
+                           f"proposals {fault}")
+    tokens = sum(len(s) - len(p) for p, (s, _l) in zip(prompts, outs))
+    return {"part": "a-speculative", "draft": "gpt3_small", "k": TIER_SPEC_K,
+            "requests": len(prompts), "new_tokens_each": TIER_NEW,
+            "proposed": ec["spec_proposed"], "accepted": ec["spec_accepted"],
+            "rounds": ec["spec_rounds"], "acceptance": st["spec_acceptance"],
+            "tokens_per_s": tokens / wall, "wall_s": wall,
+            "decode_round_ms_mean": st["decode_step_ms_mean"],
+            "prefill_ms_mean": ec["prefill_ms_total"] / ec["prefills_total"],
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p99": float(np.percentile(ttft, 99)),
+            "draft_prefills": ec["draft_prefills"], "launches": launches,
+            **check, "fault_accept_unverified": fault}
+
+
+def _tier_self_draft(model, prompts, total):
+    """(b): the target as its own draft; speculation switched off once a few
+    rounds have run: the later rounds are W = 1."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = _serving_config()
+    cfg.draft_model, cfg.spec_tokens = model, TIER_SPEC_K
+    eng = GenerationEngine(model, cfg, device=DEVICE).warmup()
+    kernels.reset_counters()
+    with eng:
+        futs = [eng.submit(p, max_new_tokens=TIER_SELF_NEW,
+                           return_logprobs=True) for p in prompts]
+        t0 = time.monotonic()
+        while eng.metrics.counter("spec_rounds") < 3 and \
+                time.monotonic() - t0 < 300:
+            time.sleep(0.001)
+        eng.set_speculative(False)
+        # a round already running when the switch came finishes as it began
+        at_switch = eng.metrics.counter("spec_rounds")
+        outs = [f.result(timeout=900) for f in futs]
+        st = eng.stats()
+    c = _tier_counts(total)
+    L = model.config.num_hidden_layers
+    ec = st["counters"]
+    spec_rounds = ec["spec_rounds"]
+    single = ec["decode_steps"] - spec_rounds
+    if not at_switch <= spec_rounds <= at_switch + 1 or not single:
+        raise RuntimeError(f"serving-tier (b): {spec_rounds} speculative "
+                           f"rounds ({at_switch} at the switch), {single} "
+                           f"single-token rounds")
+    launches = _tier_exact("b", c, {
+        "paged_attention_sm90": L * (ec["prefills_total"] + spec_rounds),
+        "paged_attention_decode": L * single, "paged_attention": 0,
+        "flash_attention_sm90": L * ec["draft_prefills"],
+        "flash_attention_decode": 0})
+    if not st["spec_acceptance"] >= TIER_SELF_ACCEPT_MIN:
+        raise RuntimeError(f"serving-tier (b): self-draft acceptance "
+                           f"{st['spec_acceptance']} < "
+                           f"{TIER_SELF_ACCEPT_MIN}")
+    check = _tier_check("b", model, prompts, outs, TIER_SELF_NEW)
+    return {"part": "b-self-draft", "requests": len(prompts),
+            "new_tokens_each": TIER_SELF_NEW, "proposed": ec["spec_proposed"],
+            "accepted": ec["spec_accepted"],
+            "acceptance": st["spec_acceptance"],
+            "acceptance_min": TIER_SELF_ACCEPT_MIN,
+            "acceptance_max": (TIER_SPEC_K - 1) / TIER_SPEC_K,
+            "speculative_rounds": spec_rounds, "single_token_rounds": single,
+            "tokens_per_speculative_slot_round": (
+                (ec["spec_accepted"] / (ec["spec_proposed"] / TIER_SPEC_K)) + 1
+                if ec["spec_proposed"] else None),
+            "decode_round_ms_mean": st["decode_step_ms_mean"],
+            "launches": launches, **check}
+
+
+def _tier_swap(model, seed, prompts, total):
+    """(c): a staged swap to a second seeded GPT-3 6.7B while requests are
+    in flight: they finish on the first weights, the later ones run the
+    second, and the answers of each set fail against the other model."""
+    import threading
+
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model2 = GPTForCausalLM(model.config, device=DEVICE,
+                            generator=pt_seed(seed + 3, DEVICE))
+    first_half, second_half = prompts[:4], prompts[4:8]
+    eng = GenerationEngine(model, _serving_config(), device=DEVICE).warmup()
+    kernels.reset_counters()
+    with eng:
+        early = [eng.submit(p, max_new_tokens=TIER_SELF_NEW,
+                            return_logprobs=True) for p in first_half]
+        t0 = time.monotonic()
+        while len(eng._active()) < len(first_half) and \
+                time.monotonic() - t0 < 300:
+            time.sleep(0.001)
+        swapped = {}
+        t_swap = time.monotonic()
+        th = threading.Thread(target=lambda: swapped.setdefault(
+            "v", eng.swap_weights(model2, version=2)))
+        th.start()
+        while eng._pending_swap is None and th.is_alive():
+            time.sleep(0.0005)
+        late = [eng.submit(p, max_new_tokens=TIER_SELF_NEW,
+                           return_logprobs=True) for p in second_half]
+        early = [f.result(timeout=900) for f in early]
+        th.join(timeout=900)
+        swap_s = time.monotonic() - t_swap
+        late = [f.result(timeout=900) for f in late]
+        st = eng.stats()
+    c = _tier_counts(total)
+    L = model.config.num_hidden_layers
+    ec = st["counters"]
+    launches = _tier_exact("c", c, {
+        "paged_attention_sm90": L * ec["prefills_total"],
+        "paged_attention_decode": L * ec["decode_steps"],
+        "paged_attention": 0})
+    if swapped.get("v") != 2 or eng.weight_version != 2:
+        raise RuntimeError(f"serving-tier (c): weight_version "
+                           f"{eng.weight_version}")
+    on_first = _tier_check("c-in-flight", model, first_half, early,
+                           TIER_SELF_NEW)
+    on_second = _tier_check("c-after", model2, second_half, late,
+                            TIER_SELF_NEW)
+    with torch.inference_mode():
+        cross = [_readings(model2, s, len(p), lp)
+                 for p, (s, lp) in zip(first_half, early)] + \
+            [_readings(model, s, len(p), lp)
+             for p, (s, lp) in zip(second_half, late)]
+    if _within(cross, GAP_TOL, LP_TOL):
+        raise RuntimeError("serving-tier (c): answers also pass against the "
+                           "other weights: the check cannot tell versions")
+    # the swap landed new tensors: the first model's weights are untouched
+    # (another engine over it would see no change)
+    if eng._params["embed"].data_ptr() == model.gpt.embed_tokens.weight \
+            .data_ptr():
+        raise RuntimeError("serving-tier (c): the swap wrote into the live "
+                           "weights")
+    del eng, model2
+    _release()
+    return {"part": "c-swap", "weight_version": 2, "in_flight": len(early),
+            "after": len(late), "swap_wait_s": swap_s,
+            "weight_swaps": ec["weight_swaps"], "launches": launches,
+            "in_flight_check": on_first, "after_check": on_second,
+            "cross_check_argmax_gap_min": min(x[0] for x in cross)}
+
+
+def _tier_loopback(model, rng, total):
+    """(d): export a 512-token prompt's pages from one engine and install
+    them into another over the native (bf16) wire and the int8 wire."""
+    import numpy as np
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.serving import kv_transfer as kv
+
+    vocab = model.config.vocab_size
+    prompt = rng.integers(0, vocab, size=512)
+    new = 16
+    src = GenerationEngine(model, _serving_config(), device=DEVICE).warmup()
+    dst = GenerationEngine(model, _serving_config(), device=DEVICE).warmup()
+    kernels.reset_counters()
+    with src, dst:
+        cold = src.submit(prompt, max_new_tokens=new,
+                          return_logprobs=True).result(timeout=600)
+        t0 = time.perf_counter()
+        n, k_st, v_st = src.export_kv_pages(prompt)
+        export_ms = (time.perf_counter() - t0) * 1e3
+        # the uninterrupted engine: src serves the prompt again from its
+        # own cache (31 of 32 blocks; the last one is prefilled)
+        ref = src.submit(prompt, max_new_tokens=new,
+                         return_logprobs=True).result(timeout=600)
+        wire = {}
+        for quant in (False, True):
+            t0 = time.perf_counter()
+            blob, man, meta = kv.pack_kv_pages(k_st, v_st, quantize=quant)
+            chunks = kv.chunk_blob(blob, chunk_bytes=64 << 20)
+            got = kv.assemble_chunks(chunks, meta["digest"])
+            k2, v2 = kv.unpack_kv_pages(got, man)
+            ship_ms = (time.perf_counter() - t0) * 1e3
+            wire["int8" if quant else "bf16"] = (k2, v2, meta, ship_ms)
+        k2, v2, meta, ship_ms = wire["bf16"]
+        hits0 = dst.stats()["kv_pages"]["prefix"]["hit_tokens"]
+        t0 = time.perf_counter()
+        adopted = dst.install_kv_pages(prompt, k2, v2)
+        install_ms = (time.perf_counter() - t0) * 1e3
+        cont = dst.submit(prompt, max_new_tokens=new,
+                          return_logprobs=True).result(timeout=600)
+        hit = dst.stats()["kv_pages"]["prefix"]["hit_tokens"] - hits0
+        st_src, st_dst = src.stats(), dst.stats()
+    c = _tier_counts(total)
+    L = model.config.num_hidden_layers
+    pre = st_src["counters"]["prefills_total"] + \
+        st_dst["counters"]["prefills_total"]
+    dec = st_src["counters"]["decode_steps"] + \
+        st_dst["counters"]["decode_steps"]
+    launches = _tier_exact("d", c, {"paged_attention_sm90": L * pre,
+                                    "paged_attention_decode": L * dec,
+                                    "paged_attention": 0})
+    if adopted != n or n != 32 or hit != 31 * 16:
+        raise RuntimeError(f"serving-tier (d): {adopted} of {n} pages "
+                           f"adopted, prefix hit {hit} tokens")
+    if cont[0].tolist() != ref[0].tolist() or \
+            not np.array_equal(cont[1], ref[1]):
+        raise RuntimeError("serving-tier (d): the installed engine's "
+                           "continuation differs from the uninterrupted one")
+    check = _tier_check("d", model, [prompt] * 3, [cold, ref, cont], new)
+    del dst
+    _release()
+    # the int8 wire into a fresh engine: a prefix hit; its tokens are read
+    # against the forward but not gated (the KV is int8-approximate)
+    k8, v8, meta8, ship8_ms = wire["int8"]
+    dst8 = GenerationEngine(model, _serving_config(), device=DEVICE)
+    kernels.reset_counters()
+    with dst8:
+        t0 = time.perf_counter()
+        dst8.install_kv_pages(prompt, k8, v8)
+        install8_ms = (time.perf_counter() - t0) * 1e3
+        out8 = dst8.submit(prompt, max_new_tokens=new,
+                           return_logprobs=True).result(timeout=600)
+        st8 = dst8.stats()
+    hit8 = st8["kv_pages"]["prefix"]["hit_tokens"]
+    launches8 = _tier_exact("d-int8", _tier_counts(total), {
+        "paged_attention_sm90": L * st8["counters"]["prefills_total"],
+        "paged_attention_decode": L * st8["counters"]["decode_steps"],
+        "paged_attention": 0})
+    import torch
+    with torch.inference_mode():
+        r8 = _readings(model, out8[0], len(prompt), out8[1])
+    same8 = int(sum(a == b for a, b in zip(out8[0][512:], ref[0][512:])))
+    del src, dst8
+    _release()
+    return {"part": "d-export-install", "prompt_tokens": 512, "pages": n,
+            "export_ms": export_ms, "install_ms": install_ms,
+            "wire_bytes": meta["wire_bytes"], "pack_ship_unpack_ms": ship_ms,
+            "int8_wire_bytes": meta8["wire_bytes"],
+            "int8_pack_ship_unpack_ms": ship8_ms,
+            "int8_install_ms": install8_ms, "prefix_hit_tokens": hit,
+            "int8_prefix_hit_tokens": hit8, "bit_identical": True,
+            "int8_tokens_equal_of_16": same8,
+            "int8_argmax_gap_max": r8[0], "int8_logprob_err_max": r8[1],
+            "launches": launches, "int8_launches": launches8, **check}
+
+
+def _tier_warm(model, rng, total):
+    """(e): a device pool of TIER_WARM_PAGES pages; a prompt's cached pages
+    are evicted by later traffic (spilled, int8, to the host tier) and
+    restored when it comes again."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.serving import kv_transfer as kv
+
+    vocab = model.config.vocab_size
+    cfg = _serving_config()
+    cfg.num_pages = TIER_WARM_PAGES
+    cfg.warm_pool_bytes = TIER_WARM_BYTES
+    eng = GenerationEngine(model, cfg, device=DEVICE)
+    hot = rng.integers(0, vocab, size=480)
+    others = [rng.integers(0, vocab, size=480) for _ in range(8)]
+    new = 16
+    kernels.reset_counters()
+    with eng:
+        eng.submit(hot, max_new_tokens=new).result(timeout=600)
+        _n, k0, v0 = eng.export_kv_pages(hot)
+        futs = [eng.submit(p, max_new_tokens=new) for p in others]
+        for f in futs:
+            f.result(timeout=600)
+        depth = eng.prefix_match_tokens(hot) // 16
+        t0 = time.perf_counter()
+        again = eng.submit(hot, max_new_tokens=new,
+                           return_logprobs=True).result(timeout=600)
+        again_ms = (time.perf_counter() - t0) * 1e3
+        _n, k1, v1 = eng.export_kv_pages(hot)
+        st = eng.stats()
+    L = model.config.num_hidden_layers
+    launches = _tier_exact("e", _tier_counts(total), {
+        "paged_attention_sm90": L * st["counters"]["prefills_total"],
+        "paged_attention_decode": L * st["counters"]["decode_steps"],
+        "paged_attention": 0})
+    warm = st["kv_pages"]["warm"]
+    restored = warm["restores"]
+    if depth >= 29 or not restored or not warm["admits"] or \
+            depth + restored > 29:
+        raise RuntimeError(f"serving-tier (e): {depth} blocks still cached "
+                           f"after the churn; warm tier {warm}")
+    # blocks [0, depth) stayed on the device: equal; [depth, depth +
+    # restored) came back from the host tier: |x - x^| <= scale/2 (the
+    # int8 step) + the bf16 rounding of the dequantized value (2^-8 |x^|);
+    # the rest were prefilled again (over restored pages: not compared)
+    worst = 0.0
+    for a, b in zip(k0 + v0, k1 + v1):
+        if not torch.equal(a[:depth], b[:depth]):
+            raise RuntimeError("serving-tier (e): a resident page changed")
+        for j in range(depth, depth + restored):
+            x, y = a[j].float().numpy(), b[j].float().numpy()
+            _q, s = kv.quantize_page(a[j])
+            excess = np.abs(x - y) - (s / 2 + 2.0 ** -8 * np.abs(y))
+            worst = max(worst, float(excess.max()))
+    if worst > 0:
+        raise RuntimeError(f"serving-tier (e): a restored page is off by "
+                           f"{worst} past its int8 step")
+    with torch.inference_mode():
+        r = _readings(model, again[0], len(hot), again[1])
+    del eng
+    _release()
+    return {"part": "e-warm-tier", "device_pages": TIER_WARM_PAGES,
+            "warm_bytes_budget": TIER_WARM_BYTES, "spills_seen": warm["admits"]
+            + warm["rejects"], "admits": warm["admits"],
+            "rejects": warm["rejects"], "restores": warm["restores"],
+            "warm_evictions": warm["evictions"], "warm_bytes": warm["bytes"],
+            "blocks_resident_after_churn": depth,
+            "restored_request_ms": again_ms,
+            "restored_argmax_gap": r[0], "restored_logprob_err": r[1],
+            "page_bound": "scale/2 + 2^-8 |x^|", "launches": launches}
+
+
+def _position_readings(model, ids, toks, lps):
+    """(gap, logprob error) of per-position answers ``toks``/``lps`` against
+    the model's own forward on ``ids`` alone (unpadded)."""
+    import torch
+
+    with torch.inference_mode():
+        logits = model(torch.as_tensor(ids, device=DEVICE)[None])[0].float()
+    t = torch.as_tensor(toks, device=DEVICE).long()[:, None]
+    chosen = logits.gather(1, t)[:, 0]
+    gap = (logits.max(dim=1).values - chosen).max().item()
+    ref = chosen - torch.logsumexp(logits, dim=1)
+    err = (ref.cpu() - torch.as_tensor(lps)).abs().max().item()
+    return gap, err
+
+
+def _tier_serving_engine(model, rng, total):
+    """(f): ``ServingEngine`` over a callable on the model's forward that
+    returns each position's argmax and its log-probability."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import (BucketSpec, ServingConfig,
+                                          ServingEngine)
+
+    def forward(ids):
+        logits = model(ids)
+        a = logits.argmax(dim=-1)
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        return a, lp.gather(-1, a[..., None])[..., 0]
+
+    eng = ServingEngine(forward, BucketSpec((1, 2, 4, 8),
+                                            seq_lens=(128, 256, 512)),
+                        input_specs=[((None,), "int64")],
+                        config=ServingConfig(max_batch_wait_ms=5.0),
+                        device=DEVICE)
+    vocab = model.config.vocab_size
+    reqs = [rng.integers(0, vocab, size=int(n))
+            for n in rng.integers(100, 513, size=32)]
+    t0 = time.monotonic()
+    eng.start()  # builds and runs the 12 bucket runners
+    warm_s = time.monotonic() - t0
+    kernels.reset_counters()
+    outs = [None] * len(reqs)
+
+    def client(c):
+        futs = [(i, eng.submit([reqs[i]])) for i in range(c, len(reqs), 4)]
+        for i, f in futs:
+            outs[i] = f.result(timeout=900)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.monotonic() - t0
+    st = eng.stats()
+    eng.close()
+    c = _tier_counts(total)
+    L = model.config.num_hidden_layers
+    ec = st["counters"]
+    launches = _tier_exact("f", c, {
+        "flash_attention_sm90": L * ec["batches_total"],
+        "flash_attention": 0, "flash_attention_decode": 0})
+    if ec.get("compile_cache_misses", 0) != 0 or \
+            ec["responses_total"] != len(reqs):
+        raise RuntimeError(f"serving-tier (f): counters {ec}")
+    r = [_position_readings(model, ids, o[0][:len(ids)], o[1][:len(ids)])
+         for ids, o in zip(reqs, outs)]
+    check = {"argmax_gap_max": max(x[0] for x in r),
+             "logprob_err_max": max(x[1] for x in r)}
+    if not _within(r, GAP_TOL, LP_TOL):
+        raise RuntimeError(f"serving-tier (f): batched answers differ from "
+                           f"the callable alone {check}")
+    return {"part": "f-serving-engine", "requests": len(reqs),
+            "buckets": st["buckets"], "warmup_s": warm_s,
+            "warmup_runners": ec["warmup_compiles"], "wall_s": wall,
+            "qps": len(reqs) / wall, "latency_ms": st["latency_ms"],
+            "batches": ec["batches_total"],
+            "occupancy": st["batch_occupancy"],
+            "execute_ms_mean": ec["execute_ms_total"] / ec["batches_total"],
+            "cache_misses_after_warmup": ec.get("compile_cache_misses", 0),
+            "launches": launches, **check}
+
+
+def _tier_router(model, rng, total):
+    """(g): ``ReplicaRouter`` over two engines that share the model's
+    weights: two tenants ("free" with a quota of 4 in flight), 32 requests
+    with half sharing a prefix; one replica marked down mid-run, its queued
+    requests cancelled and resubmitted through the router."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.serving import (GenerationEngine, ReplicaRouter,
+                                          RequestCancelled, RouterConfig,
+                                          TenantQuotaExceeded)
+
+    a = GenerationEngine(model, _serving_config(), device=DEVICE,
+                         name="replica-a").warmup()
+    b = GenerationEngine(model, _serving_config(), device=DEVICE,
+                         name="replica-b").warmup()
+    if a._params["embed"].data_ptr() != b._params["embed"].data_ptr():
+        raise RuntimeError("serving-tier (g): replicas copied the weights")
+    prompts = _tier_prompts(rng, model.config.vocab_size, 32)
+    tenants = ["free" if i % 4 == 0 else "pro" for i in range(32)]
+    router = ReplicaRouter([a, b], RouterConfig(tenant_quotas={"free": 4}))
+    kernels.reset_counters()
+    futs, quota_hits = {}, [0]
+
+    def submit(i):
+        while True:  # a tenant at its quota waits for one of its own
+            try:
+                futs[i] = router.submit(prompts[i], TIER_SELF_NEW,
+                                        tenant=tenants[i])
+                return
+            except TenantQuotaExceeded:
+                quota_hits[0] += 1
+                time.sleep(0.005)
+
+    with router:
+        # the first shared-prefix request lands alone: its replica then
+        # holds the prefix that the other half asks for
+        submit(1)
+        futs[1].result(timeout=600)
+        for i in range(32):
+            if i == 1:
+                continue
+            submit(i)
+            if i == 20:
+                router.mark_down("replica-a")
+                moved = [j for j, f in futs.items() if a.cancel(f)]
+                for j in moved:
+                    try:
+                        futs[j].result(timeout=5)
+                    except RequestCancelled:
+                        pass
+                    submit(j)
+        outs = [(futs[i].result(timeout=900), None) for i in range(32)]
+        st = router.stats()
+    c = _tier_counts(total)
+    L = model.config.num_hidden_layers
+    ca, cb = a.stats()["counters"], b.stats()["counters"]
+    launches = _tier_exact("g", c, {
+        "paged_attention_sm90": L * (ca["prefills_total"]
+                                     + cb["prefills_total"]),
+        "paged_attention_decode": L * (ca["decode_steps"]
+                                       + cb["decode_steps"]),
+        "paged_attention": 0})
+    if not moved or st["down"] != ["replica-a"] or not quota_hits[0]:
+        raise RuntimeError(f"serving-tier (g): rerouted {moved}, down "
+                           f"{st['down']}, quota hits {quota_hits[0]}")
+    check = _tier_check("g", model, prompts, outs, TIER_SELF_NEW)
+    routed = sum(r["routed"] for r in st["replicas"].values())
+    del a, b, router
+    _release()
+    return {"part": "g-router", "requests": 32, "rerouted": len(moved),
+            "affinity_hits": st["affinity_hits"],
+            "affinity_share": st["affinity_hits"] / routed,
+            "routed": {n: r["routed"] for n, r in st["replicas"].items()},
+            "responses": {n: r["responses"]
+                          for n, r in st["replicas"].items()},
+            "quota_rejections": quota_hits[0], "rejected": st["rejected"],
+            "launches": launches, **check}
+
+
+def phase_serving_tier(seed):
+    """(a)-(g) at GPT-3 6.7B's full width: each part's launches exact, every
+    answer checked; returns the path's counters (every part summed)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt3_6_7b(dtype="bfloat16")
+    model = GPTForCausalLM(cfg, device=DEVICE,
+                           generator=pt_seed(seed + 2, DEVICE))
+    # GPT-3 Small (Brown et al. 2020 Table 2.1): 12 x 768, 12 heads of 64
+    draft = GPTForCausalLM(
+        GPTConfig.gpt2_small(max_position_embeddings=2048,
+                             dtype="bfloat16"),
+        device=DEVICE, generator=pt_seed(seed + 4, DEVICE))
+    rng = np.random.default_rng(seed + 5)
+    prompts = _tier_prompts(rng, cfg.vocab_size, 16)
+    total = {}
+    parts = [_tier_speculative(model, draft, prompts, total)]
+    del draft
+    _release()
+    parts.append(_tier_self_draft(model, prompts[:8], total))
+    _release()
+    parts.append(_tier_swap(model, seed, prompts, total))
+    parts.append(_tier_loopback(model, rng, total))
+    parts.append(_tier_warm(model, rng, total))
+    parts.append(_tier_serving_engine(model, rng, total))
+    _release()
+    parts.append(_tier_router(model, rng, total))
+    plain = {n: c["plain_calls"] for n, c in total.items()
+             if c["plain_calls"]}
+    if plain:
+        raise RuntimeError(f"serving-tier: plain calls on the path {plain}")
+    for p in parts:
+        _emit({"phase": "serving-tier", **p})
+    _emit({"phase": "serving-tier-summary", "ok": True,
+           "model": "gpt3_6_7b", "dtype": "bfloat16",
+           "seconds": time.perf_counter() - t_phase,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "kernel_counts": {n: c for n, c in total.items()
+                             if c["launches"] or c["plain_calls"]}})
+    del model
+    _release()
+    return total
 
 
 def _kernel_group(name):
@@ -6855,6 +7569,7 @@ def main() -> int:
     rows += phase_train_kernels(SEED)
     serving_fp32 = phase_parity(SEED)
     serving = phase_serving(SEED)
+    serving_tier = phase_serving_tier(SEED)
     gpt, gpt_eager, gpt_graph_check = phase_gpt_train(SEED)
     phase_gpt_dropout(SEED)
     training_fp32, finetune_fp32 = phase_train_parity(SEED)
@@ -6881,7 +7596,8 @@ def main() -> int:
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
            "batch": [4, 2048], "rules": rule_steps})
     _emit({"kernels": _kernels_line(rows, {
-        "serving": serving, "serving-fp32": serving_fp32,
+        "serving": serving, "serving-tier": serving_tier,
+        "serving-fp32": serving_fp32,
         "training": training, "moe-training": moe,
         "training-eager": training_eager, "moe-training-eager": moe_eager,
         "accumulate": accumulate, "rule-graphs": rule_graphs,

@@ -1,13 +1,47 @@
-"""Continuous-batching GPT serving over a paged KV cache (the port's
-``paddle_tpu.serving``, generation engine only)."""
-from .base import (BadRequest, DeadlineExceeded, EngineBase, EngineClosed,
-                   QueueFull)
-from .generation import GenerationConfig, GenerationEngine, build_window_step
-from .metrics import LatencyWindow, MetricsRegistry
-from .paged_kv import (PageAllocator, PagedKVPool, PoolExhausted,
-                       PrefixCache, token_blocks)
+"""The serving tier in one process (the port's ``paddle_tpu.serving``):
 
-__all__ = ["GenerationConfig", "GenerationEngine", "build_window_step",
-           "EngineBase", "BadRequest", "DeadlineExceeded", "EngineClosed",
-           "QueueFull", "LatencyWindow", "MetricsRegistry", "PageAllocator",
-           "PagedKVPool", "PoolExhausted", "PrefixCache", "token_blocks"]
+- ``ServingEngine`` (+ ``BucketSpec``, ``ServingConfig``): batched
+  inference over an ``nn.Module`` or a callable on tensors — requests
+  coalesced into pre-declared shape buckets, admission control, deadlines,
+  per-request error isolation;
+- ``GenerationEngine`` (+ ``GenerationConfig``): continuous-batching GPT
+  decode over a paged KV cache with prefix reuse, an optional int8 warm
+  host tier, draft-model speculative decoding, weight swaps and KV page
+  export/install;
+- ``ReplicaRouter`` (+ ``RouterConfig``): N engines behind one
+  admission-controlled front door — tenant quotas, load-aware and
+  prefix-affinity dispatch, fencing on replica faults;
+- ``kv_transfer``: the page wire format (``pack_kv_pages`` …), shared
+  with the JAX package byte for byte.
+
+The multi-process fleet (``ServingFleet``) is not ported yet.
+"""
+from .base import (BadRequest, DeadlineExceeded, EngineBase, EngineClosed,
+                   QueueFull, ReplicaFault, RequestCancelled)
+from .buckets import BucketSpec
+from .engine import ServingConfig, ServingEngine
+from .generation import (GenerationConfig, GenerationEngine,
+                         build_decode_step, build_window_step,
+                         flatten_gpt_params, nest_gpt_params)
+from .kv_transfer import (FleetKVCache, KVMigrationStats, pack_kv_pages,
+                          prompt_cache_key, unpack_kv_pages)
+from .metrics import LatencyWindow, MetricsRegistry
+from .paged_kv import (HostPagePool, PageAllocator, PagedKVPool,
+                       PoolExhausted, PrefixCache, token_blocks)
+from .router import ReplicaRouter, RouterConfig, TenantQuotaExceeded
+from .speculative import greedy_accept, rejection_sample
+
+__all__ = [
+    "BucketSpec", "ServingConfig", "ServingEngine",
+    "GenerationConfig", "GenerationEngine",
+    "ReplicaRouter", "RouterConfig", "TenantQuotaExceeded",
+    "ReplicaFault", "RequestCancelled",
+    "PageAllocator", "PrefixCache", "PagedKVPool", "PoolExhausted",
+    "HostPagePool", "token_blocks", "greedy_accept", "rejection_sample",
+    "FleetKVCache", "KVMigrationStats", "pack_kv_pages",
+    "unpack_kv_pages", "prompt_cache_key",
+    "MetricsRegistry", "LatencyWindow",
+    "QueueFull", "DeadlineExceeded", "EngineClosed", "BadRequest",
+    "EngineBase", "build_window_step", "build_decode_step",
+    "flatten_gpt_params", "nest_gpt_params",
+]

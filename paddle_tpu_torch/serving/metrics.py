@@ -1,9 +1,9 @@
 """Per-engine counters and latency windows.
 
 A copy of ``LatencyWindow`` and ``MetricsRegistry`` from
-``paddle_tpu/observability/registry.py``, trimmed to what the engine's
-``stats()`` reads: the process-wide hub, families and histograms wait for
-the observability slice.
+``paddle_tpu/observability/registry.py``, trimmed to what the engines'
+``stats()`` and the router's load probe read: the process-wide hub,
+families and histograms wait for the observability slice.
 """
 from __future__ import annotations
 
@@ -98,6 +98,12 @@ class MetricsRegistry:
     def counter(self, name: str) -> float:
         with self._lock:
             return self._counters.get(name, 0)
+
+    def latency_percentile(self, q: int = 95) -> float:
+        """One recent-window latency percentile (ms) — cheap enough for a
+        router's per-dispatch load probe."""
+        with self._lock:
+            return self._latency.percentiles((q,))[f"p{q}"]
 
     def snapshot(self) -> Dict:
         """One coherent stats dict: QPS, latency percentiles (ms), batch

@@ -12,22 +12,28 @@
   holding their K/V; eviction is LRU over leaves nobody else holds.
 
 The allocator and the trie are pure Python, copied from the JAX package.
+A warm host tier (``HostPagePool``) takes the pages the trie evicts, int8
+on the host, and gives them back instead of a re-prefill; ``read_pages`` /
+``write_pages`` move page contents out and in (KV export/install).
+
 Page 0 is the scratch page: page-table rows of inactive slots (and
 positions beyond a request's allocation) point at it, so the fixed-shape
-window step always has somewhere harmless to write. The warm host tier and
-page export/install wait for a later slice.
+window step always has somewhere harmless to write.
 """
 from __future__ import annotations
 
 import threading
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
+from .kv_transfer import dequantize_page, quantize_page
 
 __all__ = ["PoolExhausted", "PageAllocator", "PrefixCache", "PagedKVPool",
-           "token_blocks"]
+           "HostPagePool", "token_blocks"]
 
 
 class PoolExhausted(RuntimeError):
@@ -178,6 +184,15 @@ class PrefixCache:
         self.inserts = 0
         self.evictions = 0
 
+    @staticmethod
+    def chain_key(blocks: Sequence[Tuple[int, ...]]):
+        """The trie key of chain ``blocks`` (deterministic — computable
+        without trie state, so warm-tier keys survive eviction)."""
+        parent = None
+        for block in blocks:
+            parent = (parent, block)
+        return parent
+
     def match(self, blocks: Sequence[Tuple[int, ...]], page_len: int,
               allocator: Optional[PageAllocator] = None) -> List[int]:
         """Longest cached chain for ``blocks``; returns its pages. When an
@@ -245,9 +260,14 @@ class PrefixCache:
                 parent = key
         return adopted
 
-    def evict(self, n_pages: int, allocator: PageAllocator) -> int:
+    def evict(self, n_pages: int, allocator: PageAllocator,
+              on_evict=None) -> int:
         """Free up to ``n_pages`` pages by dropping LRU leaves whose page
-        has no holder besides the trie (ref == 1). Returns pages freed."""
+        has no holder besides the trie (ref == 1). Returns pages freed.
+
+        ``on_evict(key, page)`` — if given — is called for each victim
+        BEFORE its page is released, while the page contents are still
+        valid: the warm-tier spill hook."""
         freed = 0
         with self._lock:
             while freed < n_pages:
@@ -261,6 +281,8 @@ class PrefixCache:
                         victim = node
                 if victim is None:
                     break
+                if on_evict is not None:
+                    on_evict(victim.key, victim.page)
                 del self._nodes[victim.key]
                 if victim.parent is not None:
                     self._nodes[victim.parent].children -= 1
@@ -268,6 +290,14 @@ class PrefixCache:
                 self.evictions += 1
                 freed += 1
         return freed
+
+    def release_all(self, allocator: PageAllocator) -> None:
+        """Drop every node (a weight swap, engine close): release the
+        trie's refs."""
+        with self._lock:
+            for node in self._nodes.values():
+                allocator.release(node.page)
+            self._nodes.clear()
 
     def evictable(self, allocator: PageAllocator) -> int:
         """Pages only the trie holds: leaf-only eviction frees parents as
@@ -290,23 +320,128 @@ class PrefixCache:
                                       max(self.lookup_tokens, 1), 4)}
 
 
+class HostPagePool:
+    """Replica-local warm tier: evicted prefix-cache pages spill here.
+
+    Page contents live in host RAM, int8-quantized with per-page scales
+    (~4x cheaper than device-resident fp32).  Admission is frequency
+    gated — a chain key must be *seen* ``admit_threshold`` times before
+    its bytes are kept (a ghost counter) — and residency is LRU under a
+    byte budget.  Keys are deterministic trie chain keys
+    (``PrefixCache.chain_key``) so a warm page can be restored into a
+    fresh trie after eviction.
+    """
+
+    def __init__(self, capacity_bytes: int = 64 << 20,
+                 admit_threshold: int = 2, ghost_cap: int = 2048):
+        self.capacity_bytes = int(capacity_bytes)
+        self.admit_threshold = int(admit_threshold)
+        self.ghost_cap = int(ghost_cap)
+        self._entries = OrderedDict()   # key -> (k_q, k_s, v_q, v_s, nbytes)
+        self._bytes = 0
+        self._ghost: Dict[Any, int] = {}
+        self.hits = 0
+        self.misses = 0
+        self.admits = 0
+        self.rejects = 0
+        self.evictions = 0
+        self.restores = 0
+        self._lock = threading.Lock()
+
+    def note_access(self, key) -> None:
+        with self._lock:
+            self._ghost[key] = self._ghost.get(key, 0) + 1
+            if len(self._ghost) > self.ghost_cap:
+                self._ghost = {k: v // 2 for k, v in self._ghost.items()
+                               if v // 2 > 0}
+
+    def put(self, key, k_layers, v_layers) -> bool:
+        """Spill one page (per-layer ``[page_len, heads, dim]`` arrays or
+        tensors)."""
+        with self._lock:
+            seen = self._ghost.get(key, 0)
+        if key is None or seen < self.admit_threshold:
+            with self._lock:
+                self.rejects += 1
+            return False
+        k_q, k_s, v_q, v_s = [], [], [], []
+        nbytes = 0
+        for arr in k_layers:
+            q, sc = quantize_page(arr)
+            k_q.append(q); k_s.append(sc); nbytes += q.nbytes
+        for arr in v_layers:
+            q, sc = quantize_page(arr)
+            v_q.append(q); v_s.append(sc); nbytes += q.nbytes
+        with self._lock:
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                return True
+            if nbytes > self.capacity_bytes:
+                self.rejects += 1
+                return False
+            while self._bytes + nbytes > self.capacity_bytes and self._entries:
+                _, old = self._entries.popitem(last=False)
+                self._bytes -= old[4]
+                self.evictions += 1
+            self._entries[key] = (k_q, k_s, v_q, v_s, nbytes)
+            self._bytes += nbytes
+            self.admits += 1
+            return True
+
+    def get(self, key, dtype=None):
+        """Dequantized ``(k_layers, v_layers)`` for ``key``, or None;
+        ``dtype`` as :func:`dequantize_page` takes it (default fp32
+        numpy)."""
+        with self._lock:
+            ent = self._entries.get(key)
+            if ent is None:
+                self.misses += 1
+                return None
+            self._entries.move_to_end(key)
+            self.hits += 1
+            k_q, k_s, v_q, v_s, _ = ent
+        dt = dtype or np.float32
+        return ([dequantize_page(q, sc, dt) for q, sc in zip(k_q, k_s)],
+                [dequantize_page(q, sc, dt) for q, sc in zip(v_q, v_s)])
+
+    def clear(self) -> None:
+        """Drop every entry (a weight swap: old-version KV)."""
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            total = self.hits + self.misses
+            return {"entries": len(self._entries), "bytes": self._bytes,
+                    "capacity_bytes": self.capacity_bytes,
+                    "hits": self.hits, "misses": self.misses,
+                    "hit_rate": round(self.hits / total, 4) if total else 0.0,
+                    "admits": self.admits, "rejects": self.rejects,
+                    "evictions": self.evictions, "restores": self.restores}
+
+
 class PagedKVPool:
     """The device half: per-layer K/V page arenas + the control plane.
 
     ``allocate(n)`` serves from the free list, evicting LRU prefix-cache
-    entries when short. The arenas are ordinary tensors that the window
-    step updates in place.
+    entries when short. With a ``warm_pool``, evicted prefix pages spill
+    (int8) to host RAM and ``warm_restore`` brings them back instead of a
+    re-prefill. The arenas are ordinary tensors that the window step
+    updates in place.
     """
 
     def __init__(self, num_layers: int, num_pages: int, page_len: int,
                  num_heads: int, head_dim: int, dtype=torch.float32,
-                 prefix_cache: bool = True, device=None):
+                 prefix_cache: bool = True, device=None,
+                 warm_pool: Optional[HostPagePool] = None):
         dev = resolve_device(device)
         self.page_len = int(page_len)
         self.num_pages = int(num_pages)
         self.allocator = PageAllocator(num_pages)
         self.trie: Optional[PrefixCache] = PrefixCache() if prefix_cache \
             else None
+        self.warm = warm_pool
         shape = (num_pages, page_len, num_heads, head_dim)
         self.k = [torch.zeros(shape, dtype=dtype, device=dev)
                   for _ in range(num_layers)]
@@ -317,8 +452,55 @@ class PagedKVPool:
         """n pages, evicting cached prefixes if the free list is short."""
         short = n - self.allocator.free_pages
         if short > 0 and self.trie is not None:
-            self.trie.evict(short, self.allocator)
+            self.trie.evict(short, self.allocator,
+                            on_evict=self._spill if self.warm is not None
+                            else None)
         return self.allocator.alloc(n)
+
+    def _spill(self, key, page: int) -> None:
+        """Warm-tier spill hook: page contents -> host RAM (int8)."""
+        self.warm.note_access(key)
+        k_layers, v_layers = self.read_pages([page])
+        self.warm.put(key, [a[0] for a in k_layers],
+                      [a[0] for a in v_layers])
+
+    def warm_restore(self, blocks: Sequence[Tuple[int, ...]]) -> int:
+        """Extend the trie's cached chain for ``blocks`` from the warm
+        tier: for each block past the device-resident match depth with a
+        warm hit, allocate a page, write its dequantized contents, and
+        adopt it into the trie. Returns pages restored."""
+        if self.trie is None or self.warm is None or not blocks:
+            return 0
+        depth = self.trie.match_len(blocks)
+        # note accesses for the whole tail so repeat traffic becomes
+        # admittable even before anything is ever spilled
+        for j in range(depth, len(blocks)):
+            self.warm.note_access(PrefixCache.chain_key(blocks[:j + 1]))
+        if depth >= len(blocks):
+            return 0
+        chain_pages = self.trie.match(blocks[:depth], self.page_len)
+        restored = 0
+        for j in range(depth, len(blocks)):
+            key = PrefixCache.chain_key(blocks[:j + 1])
+            ent = self.warm.get(key, dtype=self.k[0].dtype)
+            if ent is None:
+                break
+            try:
+                page = self.allocate(1)[0]
+            except PoolExhausted:
+                break
+            k_layers, v_layers = ent
+            self.write_pages([page], [kl[None] for kl in k_layers],
+                             [vl[None] for vl in v_layers])
+            chain_pages.append(page)
+            adopted = self.trie.insert(blocks[:j + 1], chain_pages,
+                                       self.allocator)
+            self.allocator.release(page)  # trie owns it now
+            if not adopted:
+                break  # raced: an identical chain landed first
+            self.warm.restores += 1
+            restored += 1
+        return restored
 
     def can_allocate(self, n: int) -> bool:
         free = self.allocator.free_pages
@@ -341,6 +523,27 @@ class PagedKVPool:
         for a in self.k + self.v:
             a[dst].copy_(a[src])
 
+    def read_pages(self, pages: Sequence[int]):
+        """Page CONTENTS as per-layer CPU tensors ``[n, page_len, h, d]``
+        in the arena dtype (the export path: an index gather and one copy
+        to the host). Caller must hold refs on ``pages``."""
+        idx = torch.as_tensor(list(pages), dtype=torch.long,
+                              device=self.k[0].device)
+        k = torch.stack([a[idx] for a in self.k]).cpu()
+        v = torch.stack([a[idx] for a in self.v]).cpu()
+        return list(k.unbind(0)), list(v.unbind(0))
+
+    def write_pages(self, pages: Sequence[int], k_stacks, v_stacks) -> None:
+        """Scatter-write page CONTENTS into the arenas (the install path).
+        ``k_stacks[li]``/``v_stacks[li]`` are ``[n, page_len, h, d]``
+        arrays or tensors; data is cast to the arena dtype."""
+        dev = self.k[0].device
+        idx = torch.as_tensor(list(pages), dtype=torch.long, device=dev)
+        for arenas, stacks in ((self.k, k_stacks), (self.v, v_stacks)):
+            for a, d in zip(arenas, stacks):
+                d = torch.as_tensor(d)
+                a[idx] = d.to(device=dev, dtype=a.dtype)
+
     def bytes(self) -> int:
         return sum(a.numel() * a.element_size() for a in self.k + self.v)
 
@@ -353,4 +556,6 @@ class PagedKVPool:
                "headroom": round(a.free_pages / max(a.usable_pages, 1), 4)}
         if self.trie is not None:
             out["prefix"] = self.trie.stats()
+        if self.warm is not None:
+            out["warm"] = self.warm.stats()
         return out

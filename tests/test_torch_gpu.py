@@ -169,6 +169,28 @@ def test_paged_attention_kernel_matches_plain(cuda, nh, kvh, hd, PL, W, lens,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("lens,idle", [
+    ((0, 15, 16, 100, 511, 1000, 2042, 2043), ()),
+    ((300, 0, 0, 1900, 0, 64, 0, 7), (1, 2, 4, 6))])
+def test_paged_attention_verify_window_at_w5(cuda, lens, idle):
+    """The speculative verify window (W = spec_tokens + 1 = 5) as the
+    engine runs it at GPT-3 6.7B's heads: bf16, 32 heads of 128, page 16,
+    8 slots, some idle on the scratch page, windows up to the last
+    positions; the tensor-core window kernel, once, within
+    ``sm90_paged_bound`` of the plain version."""
+    args = _paged_case(cuda, torch.bfloat16, 32, 32, 128, 16, 5, lens, idle,
+                       B=128)
+    assert pa.route(torch.bfloat16, 128, 5, 1, 16) == "sm90"
+    reset_counters()
+    got = paged_attention(*args)
+    torch.cuda.synchronize()
+    c = counters()
+    assert {n: c[n]["launches"] for n in _PAGED_COUNTERS.values()} == \
+        {n: int(n == "paged_attention_sm90") for n in _PAGED_COUNTERS.values()}
+    _check_paged(got, args, 128)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("W", [1, 130])
 def test_paged_attention_takes_a_q_that_is_not_16_byte_aligned(cuda, W):
     """TMA and 16-byte loads need aligned starts: the wrapper clones a q
