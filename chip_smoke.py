@@ -85,6 +85,27 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              ``ReplicaRouter`` over two engines sharing the weights, two
              tenants (one at a quota of 4), a replica marked down mid-run
              and its queued requests resubmitted to the other.
+5c. serving-fleet — ``ServingFleet`` over GPT-3 6.7B replica processes on
+             the one card (``build_fleet_replica``: bf16, random weights
+             from one seed, the serving engine config, a GPT-3 Small draft
+             at k 4), nothing of the model held by this process meanwhile:
+             (c) r0's first submit deferred 3 s (``replica_slow``), the
+             request hedged onto r1, the loser cancelled; (b) the serving
+             mix's 16 requests with r1 crashing at its third submit
+             (``replica_crash@name=r1&seq=3&inc=0``): every request
+             complete, each stream exactly its answer's tail, r1 fenced,
+             restarted and serving again, and a planted stitch that
+             re-appends the replayed tokens failing the stream check; (a)
+             16 more on the healthy pair: spawn -> ready, tokens/s, TTFT,
+             routing; (d) a low-priority burst past replica_capacity:
+             stage 3, speculation off on both replicas, a shed, a clamped
+             budget, then stage 0; (e) prefill -> decode pools without a
+             draft: each prompt's pages shipped over the frames, fp32
+             transit bit for bit against a lone engine on the same two
+             legs, one request over int8. Each live replica's launches
+             are read over its ``telemetry`` op and held exactly; every
+             answer is checked against the model's own forward once the
+             replicas are gone.
 6. train-parity — fp32, the 1.16B Llama's width at depth 2, batch 2 x 512:
              one step's loss and every parameter gradient through the
              kernels against the same step with each kernel wrapper swapped
@@ -1844,6 +1865,637 @@ def phase_serving_tier(seed):
                              if c["launches"] or c["plain_calls"]}})
     del model
     _release()
+    return total
+
+
+# -- phase: serving-fleet ----------------------------------------------------
+
+FLEET_SEED = SEED + 9     # every replica's weights (and the checking model)
+FLEET_NEW = 64            # (a), (b): new tokens a request, as the serving phase
+FLEET_HEDGE_NEW = 16      # (c)
+FLEET_SLOW_MS = 3000      # (c): r0's first submit is deferred this long
+FLEET_HEDGE_MS = 1000     # (c): a request this long without a token is hedged
+FLEET_FAULTS = (f"replica_slow@name=r0&ms={FLEET_SLOW_MS},"
+                "replica_crash@name=r1&seq=3&inc=0")
+# brownout's load is in-flight requests / (ready replicas x capacity):
+# (a)-(c) keep 16 requests on one replica under stage 1 (16 / 32 < 0.7),
+# (d)'s burst of 8 on two replicas lands at stage 3 (8 / (2 x 2) = 2)
+FLEET_TRAFFIC_CAPACITY = 32
+FLEET_CAPACITY = 2
+FLEET_BURST = 8           # (d): low-priority requests
+FLEET_BURST_NEW = 16
+FLEET_CLAMP_ASK = 32      # (d): asked at stage >= 2, clamped to 8
+# (e), fp32 transit: the decode leg resubmits prompt + first token, and an
+# engine refuses a prompt past its largest bucket (512) as the JAX one does,
+# so the longest prompt is 511 tokens (31 full pages shipped)
+FLEET_POOL_LENS = (511, 200, 100, 48)
+FLEET_INT8_LEN = 300                    # (e): the int8 request
+FLEET_POOL_NEW = 16
+FLEET_READY_S = 300.0
+
+
+def build_fleet_replica():
+    """One replica of the serving-fleet phase, built inside the replica
+    process (``PT_REPLICA_BUILDER=chip_smoke.py:build_fleet_replica``):
+    GPT-3 6.7B, bf16, random weights from FLEET_SEED, on the card its name
+    numbers (``r1`` -> card 1 modulo the cards), the serving phase's engine
+    config, and a GPT-3 Small draft at k 4 unless ``PT_FLEET_DRAFT=0``."""
+    import torch
+
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    name = os.environ.get("PT_REPLICA_NAME", "r0")
+    index = int("".join(ch for ch in name if ch.isdigit()) or 0)
+    dev = f"cuda:{index % torch.cuda.device_count()}"
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = GPTForCausalLM(GPTConfig.gpt3_6_7b(dtype="bfloat16"), device=dev,
+                           generator=pt_seed(FLEET_SEED, dev))
+    cfg = _serving_config()
+    if os.environ.get("PT_FLEET_DRAFT", "1") == "1":
+        cfg.draft_model = GPTForCausalLM(
+            GPTConfig.gpt2_small(max_position_embeddings=2048,
+                                 dtype="bfloat16"),
+            device=dev, generator=pt_seed(FLEET_SEED + 1, dev))
+        cfg.spec_tokens = TIER_SPEC_K
+    return GenerationEngine(model, cfg, device=dev, name=name)
+
+
+def _fleet_vocab():
+    from paddle_tpu_torch.models import GPTConfig
+
+    return GPTConfig.gpt3_6_7b().vocab_size
+
+
+def _fleet_model(device=DEVICE):
+    """The replicas' model, for the checks after the fleet is closed."""
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    return GPTForCausalLM(GPTConfig.gpt3_6_7b(dtype="bfloat16"),
+                          device=device,
+                          generator=pt_seed(FLEET_SEED, device))
+
+
+class _FleetRun:
+    """A fleet under test: every replica process it ever started is
+    remembered, and ``close`` kills whatever outlived ``fleet.close()``, so
+    a failing part leaves no process holding the card."""
+
+    def __init__(self, fleet):
+        self.fleet = fleet
+        self.procs = []
+
+    def handles(self):
+        return {h.name: h for h in self.fleet._handles}
+
+    def note_procs(self):
+        for h in self.fleet._handles:
+            if h.proc is not None and h.proc not in self.procs:
+                self.procs.append(h.proc)
+
+    def start(self, timeout=FLEET_READY_S):
+        """Start the replicas; returns each one's spawn -> ready seconds."""
+        t0 = time.monotonic()
+        self.fleet.start(wait_ready=False)
+        self.note_procs()
+        ready = {}
+        while time.monotonic() - t0 < timeout:
+            reps = self.fleet.provider_snapshot()["replicas"]
+            for name, r in reps.items():
+                if r["state"] == "ready" and name not in ready:
+                    ready[name] = time.monotonic() - t0
+                if r["state"] == "failed":
+                    raise RuntimeError(f"serving-fleet: {name} failed to "
+                                       f"start: {reps}")
+            if len(ready) == len(reps):
+                return ready
+            time.sleep(0.05)
+        raise RuntimeError(f"serving-fleet: replicas not ready within "
+                           f"{timeout} s: {self.fleet.provider_snapshot()}")
+
+    def clients(self):
+        return {n: h.client for n, h in self.handles().items()}
+
+    def close(self):
+        try:
+            self.fleet.close()
+        finally:
+            self.note_procs()
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+
+
+def _fleet_logs_tail(log_dir, n=4000):
+    """The replica logs' tails, for a failure's message."""
+    out = []
+    for f in sorted(os.listdir(log_dir)) if os.path.isdir(log_dir) else []:
+        with open(os.path.join(log_dir, f), "rb") as fh:
+            out.append(f"--- {f}\n" + fh.read()[-n:].decode(errors="replace"))
+    return "\n".join(out)
+
+
+def _fleet_submit(fleet, prompts, new, wait_first=0, block=True, **kw):
+    """Submit ``prompts`` to the fleet with ``on_token`` streams; the first
+    ``wait_first`` wait until their request has streamed 4 tokens before
+    the next goes. Returns one record a request, completed (``block``) or
+    for ``_fleet_collect``."""
+    recs = []
+    for i, p in enumerate(prompts):
+        rec = {"prompt": p, "stream": [], "times": []}
+
+        def cb(t, _lp, rec=rec):
+            rec["times"].append(time.monotonic())
+            rec["stream"].append(int(t))
+
+        rec["t_sub"] = time.monotonic()
+        rec["fut"] = fleet.submit(p, max_new_tokens=new, on_token=cb,
+                                  return_logprobs=True, **kw)
+        recs.append(rec)
+        if i < wait_first:
+            t_end = time.monotonic() + 30
+            while len(rec["stream"]) < 4 and time.monotonic() < t_end and \
+                    not rec["fut"].done():
+                time.sleep(0.005)
+    return _fleet_collect(recs) if block else recs
+
+
+def _fleet_collect(recs):
+    for rec in recs:
+        rec["seq"], rec["lps"] = rec["fut"].result(timeout=900)
+    return recs
+
+
+def _stream_ok(prompt, stream, seq, new):
+    """Each stream is exactly its answer's generated tail: no repeated and
+    no missing token, and the length the request asked for."""
+    p = len(prompt)
+    return (len(seq) == p + new and list(seq[:p]) == [int(x) for x in prompt]
+            and list(stream) == [int(x) for x in seq[p:]])
+
+
+def _stitch_reappend(prompt, emitted, replica_seq):
+    """A planted fault: a replay stitch that re-appends the tokens already
+    emitted (the replayed output already holds them)."""
+    return list(prompt) + list(emitted) + [int(t) for t in
+                                           replica_seq[len(prompt):]]
+
+
+def _fleet_streams(part, recs, new):
+    for r in recs:
+        if not _stream_ok(r["prompt"], r["stream"], r["seq"], new):
+            raise RuntimeError(f"serving-fleet ({part}): a stream differs "
+                               f"from its answer")
+
+
+def _ttft_ms(recs):
+    import numpy as np
+
+    t = np.array([(r["times"][0] - r["t_sub"]) * 1e3 for r in recs])
+    return float(np.percentile(t, 50)), float(np.percentile(t, 99))
+
+
+def _fleet_launch_check(name, tele, L, Ld, buckets):
+    """A replica's launches since its process started, exactly: the warm-up
+    (one window at W = 1, at each bucket and at k + 1; the draft's prefill
+    at each bucket) plus L per prefill window and verify window on the
+    tensor-core paged kernel, L per W = 1 round on the split-K decode
+    kernel, 12 per draft prefill on the tensor-core flash kernel; no other
+    attention kernel and no plain call."""
+    st = tele["engine"]["counters"]
+    counts = tele["kernels"]
+    draft = Ld > 0
+    warm = {"paged_attention_sm90": L * (len(buckets) + (1 if draft else 0)),
+            "paged_attention_decode": L,
+            "flash_attention_sm90": Ld * len(buckets)}
+    spec = st.get("spec_rounds", 0)
+    want = {
+        "paged_attention_sm90": warm["paged_attention_sm90"]
+        + L * (st.get("prefills_total", 0) + spec),
+        "paged_attention_decode": warm["paged_attention_decode"]
+        + L * (st.get("decode_steps", 0) - spec),
+        "flash_attention_sm90": warm["flash_attention_sm90"]
+        + Ld * st.get("draft_prefills", 0),
+        "paged_attention": 0, "flash_attention": 0,
+        "flash_attention_decode": 0}
+    got = {n: counts[n]["launches"] for n in want}
+    plain = {n: c["plain_calls"] for n, c in counts.items()
+             if c["plain_calls"]}
+    if got != want or plain:
+        raise RuntimeError(f"serving-fleet: {name}'s launches {got}, "
+                           f"expected {want}; plain calls {plain}")
+    return {"launches": got, "warmup": warm,
+            "prefills": st.get("prefills_total", 0),
+            "verify_windows": spec,
+            "w1_rounds": st.get("decode_steps", 0) - spec,
+            "draft_prefills": st.get("draft_prefills", 0)}
+
+
+def _fleet_telemetry(run, L, Ld, buckets, total):
+    """Each live replica's launches, read over the ``telemetry`` op and
+    checked exactly; summed into ``total`` (the path's counters)."""
+    out = {}
+    for name, client in run.clients().items():
+        tele = client.telemetry()["telemetry"]
+        out[name] = _fleet_launch_check(name, tele, L, Ld, buckets)
+        for n, c in tele["kernels"].items():
+            t = total.setdefault(n, {"launches": 0, "plain_calls": 0})
+            t["launches"] += c["launches"]
+            t["plain_calls"] += c["plain_calls"]
+    return out
+
+
+def _wait_for(cond, timeout, what):
+    t_end = time.monotonic() + timeout
+    while time.monotonic() < t_end:
+        if cond():
+            return
+        time.sleep(0.005)
+    raise RuntimeError(f"serving-fleet: {what} within {timeout} s")
+
+
+def _spec_states(run):
+    """Each replica's own report: is its draft speculation on?"""
+    return {n: c.stats()["spec_enabled"] for n, c in run.clients().items()}
+
+
+def _fleet_hedge(run, prompt):
+    """(c): r0's first submit is deferred FLEET_SLOW_MS; with hedge_ms set,
+    the request is hedged on r1, which finishes first; the loser is
+    cancelled."""
+    fleet = run.fleet
+    fleet.policy.hedge_ms = FLEET_HEDGE_MS
+    try:
+        recs = _fleet_submit(fleet, [prompt], FLEET_HEDGE_NEW)
+    finally:
+        fleet.policy.hedge_ms = None
+    # r0 runs the loser once its deferred submit fires (frames suppressed):
+    # let it finish before the next part's routing reads the load
+    time.sleep(max(0.0, recs[0]["t_sub"] + FLEET_SLOW_MS / 1e3 + 0.5
+                   - time.monotonic()))
+    c = fleet.provider_snapshot()["counters"]
+    if c.get("hedges", 0) < 1 or c.get("hedge_wins", 0) < 1 or \
+            c.get("hedge_cancelled", 0) != c.get("hedges", 0):
+        raise RuntimeError(f"serving-fleet (c): hedge counters {c}")
+    _fleet_streams("c", recs, FLEET_HEDGE_NEW)
+    r0 = run.clients()["r0"]
+    _wait_for(lambda: r0._probe(force=True).get("active", 0) == 0 and
+              r0.queue_depth() == 0, 60, "r0 did not drain the hedge loser")
+    return recs, {"part": "c-hedging", "hedge_ms": FLEET_HEDGE_MS,
+                  "slow_ms": FLEET_SLOW_MS,
+                  "latency_ms": (recs[0]["times"][-1] - recs[0]["t_sub"])
+                  * 1e3,
+                  "hedges": c["hedges"], "hedge_wins": c["hedge_wins"],
+                  "hedge_cancelled": c["hedge_cancelled"]}
+
+
+def _fleet_crash(run, prompts, later_prompts):
+    """(b): r1 dies at its third submit (``replica_crash@name=r1&seq=3&
+    inc=0``) with a request streaming; every request completes, each stream
+    exactly its answer's tail; r1 is fenced, restarts and serves again; a
+    planted stitch that re-appends the emitted tokens fails the check."""
+    import threading
+
+    from paddle_tpu_torch.serving import fleet as fl
+
+    fleet = run.fleet
+    r1 = run.handles()["r1"]
+    proc, exit_t = r1.proc, []
+
+    def watch():
+        while proc.poll() is None and not stop:
+            time.sleep(0.002)
+        if proc.poll() is not None:
+            exit_t.append(time.time())
+
+    stop = False
+    th = threading.Thread(target=watch, daemon=True)
+    th.start()
+    t0 = time.monotonic()
+    recs = _fleet_submit(fleet, prompts, FLEET_NEW, wait_first=4)
+    wall = time.monotonic() - t0
+    stop = True
+    th.join(timeout=5)
+    _fleet_streams("b", recs, FLEET_NEW)
+    _wait_for(lambda: (fleet.provider_snapshot()["replicas"]["r1"]["state"]
+                       == "ready"), FLEET_READY_S, "r1 not ready again")
+    run.note_procs()
+    snap = fleet.provider_snapshot()
+    c = snap["counters"]
+    if c.get("fences", 0) < 1 or c.get("restarts", 0) < 1 or \
+            c.get("replays", 0) < 1 or c.get("stream_mismatch", 0) or \
+            snap["replicas"]["r1"]["incarnation"] < 1 or not exit_t:
+        raise RuntimeError(f"serving-fleet (b): counters {c}, replicas "
+                           f"{snap['replicas']}, r1 exit seen {exit_t}")
+    rec = snap["recoveries"][0]
+    # the replayed requests: the fleet's own record of each replay (its
+    # dispatch prefix = prompt + the tokens emitted before the crash, and
+    # the tokens the survivor streamed) stitches back to the answer, and the
+    # planted re-appending stitch fails the stream check
+    replayed, caught = [], []
+    for r in recs:
+        req = r["fut"]._pt_req
+        if not req.replays:
+            continue
+        asg = req.primary
+        p = r["prompt"]
+        emitted = list(asg.prefix[len(p):])
+        replica_seq = list(asg.prefix) + list(asg.tokens)
+        if fl.stitch_replay(p, emitted, replica_seq) != \
+                [int(x) for x in r["seq"]]:
+            raise RuntimeError("serving-fleet (b): stitch_replay of the "
+                               "replay differs from the answer")
+        bad = _stitch_reappend(p, emitted, replica_seq)
+        replayed.append(len(emitted))
+        if emitted:
+            caught.append(not _stream_ok(p, r["stream"], bad, FLEET_NEW))
+    if not caught or not all(caught):
+        raise RuntimeError(f"serving-fleet (b): the planted re-appending "
+                           f"stitch was not caught (emitted before the "
+                           f"crash per replayed request: {replayed})")
+    # the restarted replica serves later requests
+    before = snap["replicas"]["r1"]["routed_since_ready"]
+    later = _fleet_submit(fleet, later_prompts, FLEET_HEDGE_NEW)
+    _fleet_streams("b-later", later, FLEET_HEDGE_NEW)
+    served = fleet.provider_snapshot()["replicas"]["r1"][
+        "routed_since_ready"] - before
+    if served < 1:
+        raise RuntimeError("serving-fleet (b): the restarted r1 served "
+                           "nothing")
+    tokens = sum(len(r["seq"]) - len(r["prompt"]) for r in recs)
+    return recs + later, {
+        "part": "b-crash", "faults": FLEET_FAULTS, "requests": len(recs),
+        "tokens_per_s": tokens / wall, "wall_s": wall,
+        "fence_cause": rec["cause"], "fence_rc": rec["rc"],
+        "crash_to_fence_ms": (rec["fence_t"] - exit_t[0]) * 1e3,
+        "fence_to_ready_ms": rec.get("ready_ms"),
+        "inflight_replayed": rec["inflight_replayed"],
+        "replayed_requests": len(replayed),
+        "emitted_before_crash": replayed,
+        "planted_reappend_caught": True,
+        "r1_incarnation": snap["replicas"]["r1"]["incarnation"],
+        "r1_served_after_restart": served,
+        "counters": {k: c.get(k, 0) for k in (
+            "fences", "restarts", "replays", "stream_mismatch",
+            "failover_reprefill", "failover_ship", "replayed_complete")}}
+
+
+def _fleet_clean(run, prompts, ready):
+    """(a): the 16 requests over the two healthy replicas."""
+    fleet = run.fleet
+    before = {n: r["routed"] for n, r in
+              fleet.provider_snapshot()["replicas"].items()}
+    t0 = time.monotonic()
+    recs = _fleet_submit(fleet, prompts, FLEET_NEW)
+    wall = time.monotonic() - t0
+    _fleet_streams("a", recs, FLEET_NEW)
+    routed = {n: r["routed"] - before[n] for n, r in
+              fleet.provider_snapshot()["replicas"].items()}
+    p50, p99 = _ttft_ms(recs)
+    tokens = sum(len(r["seq"]) - len(r["prompt"]) for r in recs)
+    return recs, {"part": "a-two-replicas", "replicas": 2,
+                  "draft": "gpt3_small", "k": TIER_SPEC_K,
+                  "spawn_to_ready_s": ready, "requests": len(recs),
+                  "new_tokens_each": FLEET_NEW,
+                  "tokens_per_s": tokens / wall, "wall_s": wall,
+                  "ttft_ms_p50": p50, "ttft_ms_p99": p99,
+                  "routed": routed}
+
+
+def _fleet_brownout(run, prompts):
+    """(d): a low-priority burst past replica_capacity walks the stages:
+    speculation off on both replicas, the burst's tail shed at stage 3
+    (``BrownoutShed``), a request's budget clamped; then back to stage 0
+    with speculation on."""
+    from paddle_tpu_torch.serving import BrownoutShed
+
+    fleet = run.fleet
+    fleet.policy.replica_capacity = FLEET_CAPACITY
+    recs, shed = [], []
+    try:
+        for p in prompts:
+            try:
+                recs += _fleet_submit(fleet, [p], FLEET_BURST_NEW,
+                                      block=False, priority=0)
+            except BrownoutShed as e:
+                shed.append(type(e).__name__)
+        _wait_for(lambda: fleet.brownout()["stage"] >= 3, 30,
+                  "the burst did not reach stage 3")
+        if not shed:                 # the whole burst got in: one more
+            try:
+                fleet.submit(prompts[0], max_new_tokens=4, priority=0)
+            except BrownoutShed as e:
+                shed.append(type(e).__name__)
+            else:
+                raise RuntimeError("serving-fleet (d): no shed at stage 3")
+        if fleet.brownout()["stage"] < 2:
+            raise RuntimeError("serving-fleet (d): the stage fell below 2 "
+                               "before the clamped request")
+        clamp = _fleet_submit(fleet, [prompts[1]], FLEET_CLAMP_ASK,
+                              block=False)[0]
+        _wait_for(lambda: all(v is False for v in
+                              _spec_states(run).values()), 30,
+                  "speculation not off on both replicas")
+        spec_off = _spec_states(run)
+        _fleet_collect(recs + [clamp])
+        _wait_for(lambda: fleet.brownout()["stage"] == 0, 60,
+                  "no decay to stage 0")
+        _wait_for(lambda: all(v is True for v in
+                              _spec_states(run).values()), 30,
+                  "speculation not back on")
+        spec_on = _spec_states(run)
+    finally:
+        fleet.policy.replica_capacity = FLEET_TRAFFIC_CAPACITY
+    clamped_to = fleet.policy.brownout_clamp_tokens
+    _fleet_streams("d", recs, FLEET_BURST_NEW)
+    _fleet_streams("d-clamp", [clamp], clamped_to)
+    c = fleet.provider_snapshot()["counters"]
+    hist = fleet.brownout()["history"]
+    return recs + [clamp], {
+        "part": "d-brownout", "replica_capacity": FLEET_CAPACITY,
+        "burst": len(prompts), "burst_admitted": len(recs),
+        "shed": shed, "stages": [h["stage"] for h in hist],
+        "loads": [h["load"] for h in hist],
+        "max_stage": max(h["stage"] for h in hist),
+        "spec_during": spec_off, "spec_after": spec_on,
+        "clamp_asked": FLEET_CLAMP_ASK, "clamped_to": clamped_to,
+        "counters": {k: c.get(k, 0) for k in (
+            "shed_brownout", "clamped", "brownout_transitions")}}
+
+
+def _fleet_pools(spec, log_dir, total, L):
+    """(e): a prefill replica and a decode replica (no draft); each request
+    prefills on p0, its pages ship to d1 over the frames (fp32 transit: the
+    bf16 pages as raw 16-bit words) and continue there; then one request
+    over the int8 wire."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import ServingFleet, ServingFleetPolicy
+
+    rng = np.random.default_rng(FLEET_SEED + 3)
+    vocab = _fleet_vocab()
+    prompts = [rng.integers(0, vocab, size=n) for n in FLEET_POOL_LENS]
+    run = _FleetRun(ServingFleet(
+        builder=spec, names=["p0", "d1"],
+        pools={"prefill": ["p0"], "decode": ["d1"]}, kv_transit="fp32",
+        # a 512-token prompt's 256 MiB of pages are packed and unpacked on
+        # the replica's RPC thread: give its beat the time
+        policy=ServingFleetPolicy(heartbeat_timeout=60.0,
+                                  rpc_timeout_s=120.0),
+        extra_env={"PT_FLEET_DRAFT": "0"}, log_dir=log_dir,
+        name="serving_fleet_pools"))
+    try:
+        ready = run.start()
+        fleet = run.fleet
+        recs, ships = [], []
+        for transit, ps in (("fp32", prompts),
+                            ("int8", [rng.integers(0, vocab,
+                                                   size=FLEET_INT8_LEN)])):
+            fleet.kv_transit = transit
+            for p in ps:                  # one at a time: each ship timed
+                w0 = fleet.kv_migration_snapshot()["wire_bytes"]
+                r = _fleet_submit(fleet, [p], FLEET_POOL_NEW)[0]
+                r["transit"] = transit
+                recs.append(r)
+                ships.append({"transit": transit, "prompt_tokens": len(p),
+                              "pages": len(p) // 16,
+                              "handoff_ms": (r["times"][1] - r["times"][0])
+                              * 1e3,
+                              "wire_bytes": fleet.kv_migration_snapshot()
+                              ["wire_bytes"] - w0})
+        _fleet_streams("e", recs, FLEET_POOL_NEW)
+        c = fleet.provider_snapshot()["counters"]
+        kvs = fleet.kv_migration_snapshot()
+        n = len(recs)
+        if c.get("migrations") != n or c.get("prefill_handoffs") != n or \
+                c.get("migrate_fallback", 0):
+            raise RuntimeError(f"serving-fleet (e): counters {c}")
+        for s in ships:
+            per = 2 * L * 16 * 4096 * (2 if s["transit"] == "fp32" else 1)
+            if s["wire_bytes"] < s["pages"] * per:
+                raise RuntimeError(f"serving-fleet (e): {s['wire_bytes']} "
+                                   f"wire bytes for {s['pages']} pages")
+        launches = _fleet_telemetry(run, L, 0, (128, 512), total)
+    finally:
+        run.close()
+    return recs, {"part": "e-pools", "pools": {"prefill": ["p0"],
+                                               "decode": ["d1"]},
+                  "spawn_to_ready_s": ready, "ships": ships,
+                  "kv_migration": kvs, "launches": launches,
+                  "counters": {k: c.get(k, 0) for k in (
+                      "migrations", "prefill_handoffs", "migrate_fallback",
+                      "pool_fallback")}}
+
+
+def _two_legs(model, recs, new):
+    """What a lone engine (no draft) gives on the fleet's two legs: the
+    prompt for one token, then prompt + that token from its own prefix
+    cache."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    out = []
+    with GenerationEngine(model, _serving_config(), device=DEVICE) as eng:
+        for r in recs:
+            s1, l1 = eng.submit(r["prompt"], max_new_tokens=1,
+                                return_logprobs=True).result(timeout=600)
+            s2, l2 = eng.submit(s1, max_new_tokens=new - 1,
+                                return_logprobs=True).result(timeout=600)
+            out.append((s2, l1, l2))
+    return out
+
+
+def phase_serving_fleet(seed):
+    """(a)-(e): GPT-3 6.7B replica processes behind ``ServingFleet`` on the
+    one card. Returns the path's counters (the live replicas' launches)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import ServingFleet, ServingFleetPolicy
+
+    t_phase = time.perf_counter()
+    _release()
+    spec = os.path.abspath(__file__) + ":build_fleet_replica"
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    vocab, L, Ld, buckets = _fleet_vocab(), 32, 12, (128, 512)
+    rng = np.random.default_rng(seed + 11)
+    # (a) and (b) draw the serving phase's traffic each (16 requests of
+    # 100-500 tokens, half sharing a 256-token prefix): one set would
+    # reach (a) with (b)'s pages cached
+    crash_prompts = _tier_prompts(rng, vocab, 16)
+    clean_prompts = _tier_prompts(rng, vocab, 16)
+    hedge_prompt = rng.integers(0, vocab, size=200)
+    later_prompts = [rng.integers(0, vocab, size=150) for _ in range(2)]
+    burst_prompts = [rng.integers(0, vocab, size=int(n))
+                     for n in rng.integers(100, 151, size=FLEET_BURST)]
+    total, parts, answers = {}, {}, {}
+    run = _FleetRun(ServingFleet(
+        builder=spec, names=["r0", "r1"],
+        policy=ServingFleetPolicy(heartbeat_timeout=10.0,
+                                  replica_capacity=FLEET_TRAFFIC_CAPACITY),
+        extra_env={"PT_FAULTS": FLEET_FAULTS}, log_dir=log_dir))
+    try:
+        try:
+            ready = run.start()
+            # execution order: (c) spends r0's slow rule and takes r1's
+            # first submit, so (b)'s traffic meets the crash at r1's third;
+            # (a) then runs on the healthy pair (r1 restarted), then (d)
+            answers["c"], parts["c"] = _fleet_hedge(run, hedge_prompt)
+            answers["b"], parts["b"] = _fleet_crash(run, crash_prompts,
+                                                    later_prompts)
+            answers["a"], parts["a"] = _fleet_clean(run, clean_prompts,
+                                                    ready)
+            answers["d"], parts["d"] = _fleet_brownout(run, burst_prompts)
+            parts["a"]["launches"] = _fleet_telemetry(run, L, Ld, buckets,
+                                                      total)
+        finally:
+            run.close()
+        answers["e"], parts["e"] = _fleet_pools(spec, log_dir, total, L)
+    except Exception as e:
+        raise RuntimeError(f"{e}\nreplica logs:\n"
+                           f"{_fleet_logs_tail(log_dir)}") from e
+    alive = [p for p in run.procs if p.poll() is None]
+    if alive:
+        raise RuntimeError(f"serving-fleet: {len(alive)} replica processes "
+                           f"outlived the fleet")
+    # the checks that need the model, with every replica gone
+    model = _fleet_model()
+    with torch.inference_mode():
+        readings = {}
+        for part in "abcde":
+            rd = [_readings(model, r["seq"], len(r["prompt"]), r["lps"])
+                  for r in answers[part]]
+            readings[part] = {"argmax_gap_max": max(x[0] for x in rd),
+                              "logprob_err_max": max(x[1] for x in rd),
+                              "answers": len(rd)}
+            if not _within(rd, GAP_TOL, LP_TOL):
+                raise RuntimeError(f"serving-fleet ({part}): answers differ "
+                                   f"from the forward {readings[part]}")
+    fp32 = [r for r in answers["e"] if r["transit"] == "fp32"]
+    lone = _two_legs(model, fp32, FLEET_POOL_NEW)
+    for r, (s2, l1, l2) in zip(fp32, lone):
+        if s2.tolist() != r["seq"].tolist() or \
+                not np.array_equal(np.concatenate([l1, l2]), r["lps"]):
+            raise RuntimeError("serving-fleet (e): the fp32-transit "
+                               "continuation differs from the lone engine's")
+    parts["e"]["fp32_bit_identical"] = len(fp32)
+    del model
+    _release()
+    for k in "abcde":
+        _emit({"phase": "serving-fleet", **parts[k],
+               "check": readings[k]})
+    _emit({"phase": "serving-fleet-summary", "ok": True,
+           "model": "gpt3_6_7b", "dtype": "bfloat16",
+           "gap_tol": GAP_TOL, "logprob_tol": LP_TOL,
+           "seconds": time.perf_counter() - t_phase,
+           "kernel_counts": {n: c for n, c in total.items()
+                             if c["launches"] or c["plain_calls"]}})
     return total
 
 
@@ -7528,6 +8180,7 @@ def _kernels_line(rows, paths):
 def main() -> int:
     import torch
 
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -7570,6 +8223,7 @@ def main() -> int:
     serving_fp32 = phase_parity(SEED)
     serving = phase_serving(SEED)
     serving_tier = phase_serving_tier(SEED)
+    serving_fleet = phase_serving_fleet(SEED)
     gpt, gpt_eager, gpt_graph_check = phase_gpt_train(SEED)
     phase_gpt_dropout(SEED)
     training_fp32, finetune_fp32 = phase_train_parity(SEED)
@@ -7593,10 +8247,12 @@ def main() -> int:
     rows += mesh_rows
     offload = phase_offload(SEED)
 
+    _emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
            "batch": [4, 2048], "rules": rule_steps})
     _emit({"kernels": _kernels_line(rows, {
         "serving": serving, "serving-tier": serving_tier,
+        "serving-fleet": serving_fleet,
         "serving-fp32": serving_fp32,
         "training": training, "moe-training": moe,
         "training-eager": training_eager, "moe-training-eager": moe_eager,

@@ -17,9 +17,12 @@ gradient merge (``accum_steps``) and ``accumulate``; ``checkpoint``
 saves each rank's shards and reshards them on load; an MoE model splits
 its experts over ``ep`` (``models.moe``: ``global_scatter`` /
 ``global_gather``); ``offload`` keeps an offloaded optimizer's masters and
-state in host memory and streams its update. Not ported yet (ROADMAP
-Queue 1 items 6 and 8): the elastic fleet, the parameter server, the
-launcher and the auto-parallel planner.
+state in host memory and streams its update. The serving fleet's control
+plane is here too: ``store`` (``TCPStore``), ``fleet.runtime`` (the
+supervisor's ``FleetStateMachine``) and ``resilience`` (``FaultInjector``,
+``PT_FAULTS``). Not ported yet (ROADMAP Queue 1 items 6 and 8): the
+elastic training fleet, the parameter server, the launcher and the
+auto-parallel planner.
 """
 from __future__ import annotations
 

@@ -12,14 +12,20 @@
   admission-controlled front door — tenant quotas, load-aware and
   prefix-affinity dispatch, fencing on replica faults;
 - ``kv_transfer``: the page wire format (``pack_kv_pages`` …), shared
-  with the JAX package byte for byte.
-
-The multi-process fleet (``ServingFleet``) is not ported yet.
+  with the JAX package byte for byte;
+- ``ServingFleet`` (+ ``ServingFleetPolicy``, ``ReplicaClient``,
+  ``BrownoutShed``): supervised replica processes behind one front door —
+  frame RPC and heartbeats through a ``TCPStore``, fencing and bounded
+  restarts, failover replay, hedging, brownout, rolling restarts and
+  prefill/decode pools that ship KV pages (``fleet.py``; a replica runs as
+  ``python -m paddle_tpu_torch.serving.fleet``).
 """
 from .base import (BadRequest, DeadlineExceeded, EngineBase, EngineClosed,
                    QueueFull, ReplicaFault, RequestCancelled)
 from .buckets import BucketSpec
 from .engine import ServingConfig, ServingEngine
+from .fleet import (BrownoutShed, ReplicaClient, ServingFleet,
+                    ServingFleetPolicy)
 from .generation import (GenerationConfig, GenerationEngine,
                          build_decode_step, build_window_step,
                          flatten_gpt_params, nest_gpt_params)
@@ -35,6 +41,7 @@ __all__ = [
     "BucketSpec", "ServingConfig", "ServingEngine",
     "GenerationConfig", "GenerationEngine",
     "ReplicaRouter", "RouterConfig", "TenantQuotaExceeded",
+    "ServingFleet", "ServingFleetPolicy", "ReplicaClient", "BrownoutShed",
     "ReplicaFault", "RequestCancelled",
     "PageAllocator", "PrefixCache", "PagedKVPool", "PoolExhausted",
     "HostPagePool", "token_blocks", "greedy_accept", "rejection_sample",

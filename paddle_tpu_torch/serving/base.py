@@ -2,7 +2,8 @@
 the request exceptions, and the lifecycle every engine shares — a bounded
 admission queue under a condition variable, one daemon worker thread,
 ``start``/``close``/``fence``/``health``/``cancel`` and the context
-manager. Lock-order witnessing, the flight recorder, the request tracer,
+manager, and the fault injector the engines' chaos sites consult.
+Lock-order witnessing, the flight recorder, the request tracer,
 the OOM guard and the retrace auditor wait for the observability slice;
 where the JAX engines call them, the port calls nothing.
 """
@@ -16,6 +17,14 @@ from .metrics import MetricsRegistry
 
 __all__ = ["EngineBase", "QueueFull", "DeadlineExceeded", "EngineClosed",
            "BadRequest", "ReplicaFault", "RequestCancelled"]
+
+
+def _injector():
+    """The process-wide fault injector (``PT_FAULTS``): the engines' chaos
+    sites (``batch_fault``, ``decode_fault``) consult it."""
+    from ..distributed.resilience.faults import injector
+
+    return injector()
 
 
 class QueueFull(RuntimeError):

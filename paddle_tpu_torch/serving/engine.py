@@ -32,7 +32,7 @@ import torch
 
 from ..device import resolve_device
 from .base import (BadRequest, DeadlineExceeded, EngineBase, EngineClosed,
-                   QueueFull)
+                   QueueFull, _injector)
 from .buckets import BucketSpec
 
 __all__ = ["ServingConfig", "ServingEngine", "QueueFull", "DeadlineExceeded",
@@ -405,6 +405,12 @@ class ServingEngine(EngineBase):
         t_exec = time.monotonic()
         for r in batch:
             self.metrics.observe_queue_wait((t_exec - r.t_submit) * 1e3)
+        # chaos site: a scripted batch fault at an exact executed-batch
+        # index (PT_FAULTS="batch_fault@batch=3") — only THIS batch's
+        # futures fail, the queue keeps draining
+        self._batch_no = getattr(self, "_batch_no", -1) + 1
+        _injector().check("batch_fault", engine=self.name,
+                          batch=self._batch_no)
         outs = self._runner(inputs)
         t_done = time.monotonic()
         for i, r in enumerate(batch):

@@ -42,7 +42,8 @@ import torch.nn.functional as TF
 from ..device import resolve_device
 from ..kernels.paged_attention import paged_attention
 from ..models.convert import gpt_engine_params
-from .base import BadRequest, DeadlineExceeded, EngineBase, EngineClosed
+from .base import (BadRequest, DeadlineExceeded, EngineBase, EngineClosed,
+                   _injector)
 from .paged_kv import HostPagePool, PagedKVPool, PoolExhausted, token_blocks
 from .speculative import greedy_accept
 
@@ -974,6 +975,12 @@ class GenerationEngine(EngineBase):
             tokens[i, 0] = s.last_token
             lengths[i] = min(s.length, self.max_len - 1)
             tables[i] = s.table
+        # chaos site: scripted decode fault at an exact decode-round index
+        # (PT_FAULTS="decode_fault@step=2") — the in-flight requests fail,
+        # their slots release, queued prompts keep being admitted
+        self._decode_no = getattr(self, "_decode_no", -1) + 1
+        _injector().check("decode_fault", engine=self.name,
+                          step=self._decode_no)
         t0 = time.monotonic()
         if k:
             self._propose(tokens, lengths, k)
@@ -1101,4 +1108,5 @@ class GenerationEngine(EngineBase):
             prop = c.get("spec_proposed", 0)
             snap["spec_acceptance"] = round(
                 c.get("spec_accepted", 0) / prop, 4) if prop else 0.0
+        snap["spec_enabled"] = self.speculative_enabled()
         return snap

@@ -182,6 +182,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "paddle_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "tools").glob("torch_*.py"))
+    # the replica worker's module and the test builder a replica loads
+    files.append(REPO / "tests" / "torch_fleet_builder.py")
+    assert REPO / "paddle_tpu_torch" / "serving" / "fleet.py" in files
     assert len(files) > 10
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "paddle_tpu")]

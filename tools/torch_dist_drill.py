@@ -50,10 +50,25 @@ flagship (``bench.py:1864-1872``, Adafactor lr 1e-2) on one card at 4 x
 factor 1.25), 16 x 2048; GPT-3 6.7B at dp 2 x mp 2, 4 x 2048. Tokens/s a
 card.
 
+Fleet (``--only fleet``; not a job of the rank world: the drill's own
+process supervises a ``ServingFleet``): four GPT-3 6.7B replica processes,
+one a card (``chip_smoke.py:build_fleet_replica``: bf16, the same seeded
+weights, a GPT-3 Small draft at k 4), under 64 requests of the serving mix
+(100-500 prompt tokens, half sharing a 256-token prefix, 64 new each): the
+first 32 at once, with ``r2`` crashing at its fifth submit
+(``replica_crash@name=r2&seq=5&inc=0``: fence, replay onto a survivor,
+restart), then 32 more paced while ``rolling_restart()`` rolls every
+replica, with no request failing; then a 2 + 2 prefill/decode fleet (no
+draft) ships each prompt's pages from cards 0-1 to cards 2-3. Every answer
+is checked against the model's own forward (``chip_smoke._readings``),
+each stream against its answer, and each live replica's launches exactly.
+Reports fleet tokens/s a card, TTFT p99, the restart timeline and the
+ships. ``--cpu`` rehearses it with four tiny CPU replicas.
+
 ``--only a,b`` runs the jobs of those names alone (a mesh's, a timed
-job's, ``checkpoint``, ``moe_checkpoint``); ``--profile`` adds to each
-timed MoE job one more replay under ``torch.profiler`` on rank 0 and
-prints its device time by kernel (the top names and the sum).
+job's, ``checkpoint``, ``moe_checkpoint``, ``fleet``); ``--profile`` adds
+to each timed MoE job one more replay under ``torch.profiler`` on rank 0
+and prints its device time by kernel (the top names and the sum).
 
 Prints one JSON line a check and, last, ``{"ok": true, ...}``; any failure
 raises and the run exits non-zero. A rank that has not finished a job
@@ -155,6 +170,14 @@ MOE_TIMED = [("moe_one_card", None, (4, 2048), "fused"),
              ("moe_ep4_index", dict(ep=4), (16, 2048), "index")]
 # seconds a rank may take for a job before it dumps its stacks and exits
 PARITY_LIMIT_S, TIMED_LIMIT_S = 240, 420
+# the fleet: 64 requests, the first FLEET_BURST at once (the crash lands in
+# them), the rest one every FLEET_PACE_S while the fleet rolls
+FLEET_REPLICAS, FLEET_REQUESTS, FLEET_BURST, FLEET_PACE_S = 4, 64, 32, 1.5
+FLEET_CRASH = "replica_crash@name=r2&seq=5&inc=0"
+FLEET_POOL_LENS = (511, 300, 200, 100)
+# the CPU rehearsal's replica: a tiny fp32 GPT at the serving config
+FLEET_CPU_GPT = dict(vocab_size=512, hidden_size=64, num_hidden_layers=2,
+                     num_attention_heads=4, max_position_embeddings=2048)
 
 
 def _emit(obj, log):
@@ -751,6 +774,202 @@ def _timed(name, model_cfg, degrees, level, batch, micro, log, card):
     torch.cuda.empty_cache()
 
 
+def build_cpu_replica():
+    """The fleet rehearsal's replica (``--cpu``): a tiny fp32 GPT on the
+    CPU at the serving config, weights from chip_smoke.FLEET_SEED, with a
+    one-layer draft unless ``PT_FLEET_DRAFT=0``."""
+    import chip_smoke as cs
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = cs._serving_config()
+    if os.environ.get("PT_FLEET_DRAFT", "1") == "1":
+        cfg.draft_model = GPTForCausalLM(
+            GPTConfig(**{**FLEET_CPU_GPT, "num_hidden_layers": 1},
+                      dtype="float32"), device="cpu",
+            generator=pt_seed(cs.FLEET_SEED + 1, "cpu"))
+        cfg.spec_tokens = cs.TIER_SPEC_K
+    return GenerationEngine(_fleet_cpu_model(), cfg, device="cpu",
+                            name=os.environ.get("PT_REPLICA_NAME", "r0"))
+
+
+def _fleet_cpu_model():
+    import chip_smoke as cs
+    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    return GPTForCausalLM(GPTConfig(**FLEET_CPU_GPT, dtype="float32"),
+                          device="cpu",
+                          generator=pt_seed(cs.FLEET_SEED, "cpu"))
+
+
+def _fleet_drill(cpu, card, out):
+    """The four-replica fleet: a burst through a crash, a paced load
+    through a rolling restart, then a 2 + 2 prefill/decode ship across
+    cards; checks every answer and stream, each live replica's launches."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from paddle_tpu_torch.serving import ServingFleet, ServingFleetPolicy
+
+    log = []
+    here = os.path.abspath(__file__)
+    repo = os.path.dirname(os.path.dirname(here))
+    if cpu:
+        cs.DEVICE = "cpu"
+        spec, vocab = here + ":build_cpu_replica", FLEET_CPU_GPT["vocab_size"]
+        L, Ld = FLEET_CPU_GPT["num_hidden_layers"], 1
+    else:
+        spec = os.path.join(repo, "chip_smoke.py") + ":build_fleet_replica"
+        vocab, L, Ld = GPT3_6_7B["vocab_size"], 32, 12
+    log_dir = tempfile.mkdtemp(prefix="torch_dist_drill_fleet_")
+    rng = np.random.default_rng(cs.SEED + 21)
+    prompts = [p for _ in range(FLEET_REQUESTS // 16)
+               for p in cs._tier_prompts(rng, vocab, 16)]
+    total, answers = {}, []
+    names = [f"r{i}" for i in range(FLEET_REPLICAS)]
+    run = cs._FleetRun(ServingFleet(
+        builder=spec, names=names,
+        policy=ServingFleetPolicy(heartbeat_timeout=10.0,
+                                  replica_capacity=64),
+        extra_env={"PT_FAULTS": FLEET_CRASH}, log_dir=log_dir))
+    try:
+        try:
+            ready = run.start()
+            fleet = run.fleet
+            t0 = time.monotonic()
+            burst = cs._fleet_submit(fleet, prompts[:FLEET_BURST],
+                                     cs.FLEET_NEW)
+            burst_s = time.monotonic() - t0
+            cs._fleet_streams("fleet-burst", burst, cs.FLEET_NEW)
+            snap = fleet.provider_snapshot()
+            c = snap["counters"]
+            if c.get("fences", 0) < 1 or c.get("replays", 0) < 1:
+                raise RuntimeError(f"fleet: the crash was not fenced and "
+                                   f"replayed: {c}")
+            # the paced rest, submitted while the whole fleet rolls
+            paced, errors = [], []
+
+            def produce():
+                try:
+                    for p in prompts[FLEET_BURST:]:
+                        paced.extend(cs._fleet_submit(
+                            fleet, [p], cs.FLEET_NEW, block=False))
+                        time.sleep(FLEET_PACE_S)
+                except Exception as e:  # the drill fails below
+                    errors.append(e)
+
+            th = threading.Thread(target=produce, daemon=True)
+            t_roll = time.monotonic()
+            th.start()
+            roll = fleet.rolling_restart()
+            roll_s = time.monotonic() - t_roll
+            th.join(timeout=FLEET_REQUESTS * FLEET_PACE_S + 600)
+            if errors:
+                raise errors[0]
+            cs._fleet_collect(paced)
+            run.note_procs()
+            cs._fleet_streams("fleet-paced", paced, cs.FLEET_NEW)
+            snap = fleet.provider_snapshot()
+            c = snap["counters"]
+            if not roll["ok"] or c.get("failed", 0) or \
+                    c.get("rolled_replicas", 0) != FLEET_REPLICAS or \
+                    c.get("stream_mismatch", 0):
+                raise RuntimeError(f"fleet: roll {roll}, counters {c}")
+            launches = cs._fleet_telemetry(run, L, Ld, (128, 512), total) \
+                if not cpu else None
+            timeline = [e for e in snap["timeline"] if e["event"] in (
+                "fence", "restart", "roll_drain", "roll_done")]
+            recs = burst + paced
+            answers += recs
+            tokens = sum(len(r["seq"]) - len(r["prompt"]) for r in burst)
+            p50, p99 = cs._ttft_ms(recs)
+            _emit({"drill": "fleet", "part": "crash-and-roll",
+                   "replicas": FLEET_REPLICAS, "card": card,
+                   "spawn_to_ready_s": ready, "requests": len(recs),
+                   "burst": FLEET_BURST, "burst_s": burst_s,
+                   "burst_tokens_per_s_per_card":
+                   tokens / burst_s / FLEET_REPLICAS,
+                   "ttft_ms_p50": p50, "ttft_ms_p99": p99,
+                   "roll": roll, "roll_s": roll_s,
+                   "failed": c.get("failed", 0),
+                   "recoveries": snap["recoveries"], "timeline": timeline,
+                   "counters": {k: c.get(k, 0) for k in (
+                       "fences", "restarts", "replays", "rolled_replicas",
+                       "stream_mismatch", "completed", "failed")},
+                   "routed": {n: r["routed"] for n, r in
+                              snap["replicas"].items()},
+                   "launches": launches}, log)
+        finally:
+            run.close()
+        # the 2 + 2 prefill/decode fleet: pages cross from cards 0-1 to
+        # cards 2-3 (each replica on the card its name numbers)
+        pools = cs._FleetRun(ServingFleet(
+            builder=spec, names=["p0", "p1", "d2", "d3"],
+            pools={"prefill": ["p0", "p1"], "decode": ["d2", "d3"]},
+            policy=ServingFleetPolicy(heartbeat_timeout=60.0,
+                                      rpc_timeout_s=120.0),
+            extra_env={"PT_FLEET_DRAFT": "0"}, log_dir=log_dir,
+            name="serving_fleet_pools"))
+        try:
+            ready = pools.start()
+            fleet = pools.fleet
+            ships = []
+            for n in FLEET_POOL_LENS:
+                p = rng.integers(0, vocab, size=n)
+                w0 = fleet.kv_migration_snapshot()["wire_bytes"]
+                r = cs._fleet_submit(fleet, [p], cs.FLEET_POOL_NEW)[0]
+                answers.append(r)
+                ships.append({"prompt_tokens": n, "pages": n // 16,
+                              "handoff_ms": (r["times"][1] - r["times"][0])
+                              * 1e3,
+                              "wire_bytes": fleet.kv_migration_snapshot()
+                              ["wire_bytes"] - w0})
+            cs._fleet_streams("fleet-pools", answers[-len(ships):],
+                              cs.FLEET_POOL_NEW)
+            c = fleet.provider_snapshot()["counters"]
+            if c.get("migrations") != len(ships) or \
+                    c.get("migrate_fallback", 0):
+                raise RuntimeError(f"fleet pools: counters {c}")
+            launches = cs._fleet_telemetry(pools, L, 0, (128, 512), total) \
+                if not cpu else None
+            _emit({"drill": "fleet", "part": "pools-2+2", "card": card,
+                   "spawn_to_ready_s": ready, "ships": ships,
+                   "kv_migration": fleet.kv_migration_snapshot(),
+                   "routed": {n: r["routed"] for n, r in
+                              fleet.provider_snapshot()["replicas"].items()},
+                   "launches": launches}, log)
+        finally:
+            pools.close()
+    except Exception as e:
+        raise RuntimeError(f"{e}\nreplica logs:\n"
+                           f"{cs._fleet_logs_tail(log_dir)}") from e
+    alive = [p for p in run.procs + pools.procs if p.poll() is None]
+    if alive:
+        raise RuntimeError(f"fleet: {len(alive)} replica processes outlived "
+                           f"the fleet")
+    model = _fleet_cpu_model() if cpu else cs._fleet_model("cuda:0")
+    with torch.inference_mode():
+        rd = [cs._readings(model, r["seq"], len(r["prompt"]), r["lps"])
+              for r in answers]
+    check = {"answers": len(rd), "argmax_gap_max": max(x[0] for x in rd),
+             "logprob_err_max": max(x[1] for x in rd),
+             "gap_tol": cs.GAP_TOL, "logprob_tol": cs.LP_TOL}
+    _emit({"drill": "fleet", "part": "check", **check,
+           "kernel_counts": {n: v for n, v in total.items()
+                             if v["launches"] or v["plain_calls"]}}, log)
+    if not cs._within(rd, cs.GAP_TOL, cs.LP_TOL):
+        raise RuntimeError(f"fleet: answers differ from the forward {check}")
+    with open(out, "a") as f:
+        for row in log:
+            f.write(json.dumps(row) + "\n")
+
+
 def _rank(out, cpu, card, jobs, profile=False):
     """Every job in this world, one after the other; before each a
     watchdog: a rank that has not finished the job within its limit prints
@@ -848,19 +1067,23 @@ def main() -> int:
         jobs += [("timed", t, TIMED_LIMIT_S) for t in TIMED]
         jobs += [("moe_timed", t, TIMED_LIMIT_S) for t in MOE_TIMED]
         jobs += [("gpt_timed", t, TIMED_LIMIT_S) for t in GPT_TIMED]
-    if a.only:
-        names = set(a.only.split(","))
+    names = set(a.only.split(",")) if a.only else None
+    if names is not None:
         jobs = [j for j in jobs if j[1][0] in names]
     t0 = time.perf_counter()
-    pdist.spawn(_rank, args=(a.out, a.cpu, card, jobs, a.profile),
-                nprocs=world)
+    if jobs:
+        pdist.spawn(_rank, args=(a.out, a.cpu, card, jobs, a.profile),
+                    nprocs=world)
+    if names is not None and "fleet" in names:
+        _fleet_drill(a.cpu, card, a.out)
     import shutil
 
     shutil.rmtree(a.out + ".ckpt", ignore_errors=True)
     shutil.rmtree(a.out + ".ckpt.moe", ignore_errors=True)
     print(json.dumps({"ok": True, "world": world, "card": card,
                       "backend": "gloo" if a.cpu else "nccl",
-                      "jobs": len(jobs), "worlds": 1,
+                      "jobs": len(jobs), "worlds": 1 if jobs else 0,
+                      "fleet": names is not None and "fleet" in names,
                       "seconds": time.perf_counter() - t0}), flush=True)
     return 0
 
