@@ -304,6 +304,30 @@ offload    — optimizer offload over a world-1 NCCL group, ZeRO os_g,
              reckoned, and the walk's launches exact (one ``adam_update``
              a group a step, one clip sum a step).
 
+bert-finetune — BERT-base (Devlin et al. 2019: L 12, H 768, A 12, FFN 3072,
+             vocab 30522; random weights from the seed) with a 2-class
+             head, built on the paddle surface (``nn.Layer``, the op
+             functions, ``F.cross_entropy``), the finetune recipe of
+             ``examples/finetune_bert.py`` (AdamW 2e-5,
+             ClipGradByGlobalNorm(1.0), CrossEntropyLoss, dropout 0.1,
+             batch 32 x 128 of its surrogate sentences) through
+             ``jit.TrainStep``: (a) fp32 graphed = eager for 3 steps, bit
+             for bit, both under ``torch.use_deterministic_algorithms``
+             (torch's CUDA embedding backward sums repeated ids with
+             atomics; eager twice without it is reported beside); (b) 30
+             graphed steps in fp32 and in bf16: step ms,
+             tokens/s, device ms, idle share, peak GiB, losses, MFU
+             against the dtype's peak (67 / 989 TFLOP/s); (c) ``eval()``
+             without a mask: 12 flash forward launches a forward (the
+             CUDA-core kernel in fp32, ``flash_fwd_sm90.cu`` in bf16),
+             each call and the logits held against the plain versions, and
+             a padded batch with ``attention_mask`` through the
+             composition; (d) fp32 with dropout 0: one step's gradients
+             through the flash forward and both backward kernels against
+             the plain versions, with a planted dQ fault caught; then the
+             flash forward timed at BERT's attention shape (bh 384, 128 x
+             128, d 64) beside SDPA.
+
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
 """
@@ -978,7 +1002,7 @@ def phase_parity(seed):
     import torch
 
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.serving import GenerationConfig, GenerationEngine
 
@@ -1048,7 +1072,7 @@ def phase_serving(seed):
     import torch
 
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.serving import GenerationEngine
 
@@ -1414,7 +1438,7 @@ def _tier_swap(model, seed, prompts, total):
     import torch
 
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import GPTForCausalLM
     from paddle_tpu_torch.serving import GenerationEngine
 
@@ -1825,7 +1849,7 @@ def phase_serving_tier(seed):
     import numpy as np
     import torch
 
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     t_phase = time.perf_counter()
@@ -1902,7 +1926,7 @@ def build_fleet_replica():
     config, and a GPT-3 Small draft at k 4 unless ``PT_FLEET_DRAFT=0``."""
     import torch
 
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.serving import GenerationEngine
 
@@ -1932,7 +1956,7 @@ def _fleet_vocab():
 
 def _fleet_model(device=DEVICE):
     """The replicas' model, for the checks after the fleet is closed."""
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     return GPTForCausalLM(GPTConfig.gpt3_6_7b(dtype="bfloat16"),
@@ -3184,7 +3208,7 @@ def phase_train_parity(seed):
     import torch
 
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig(**{**BIG, "num_hidden_layers": 2}, dtype="float32",
@@ -3735,7 +3759,7 @@ def phase_train(seed):
     import torch
 
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          llama_flops_per_token,
@@ -4496,7 +4520,7 @@ def _moe_faulty(fault):
 
 
 def _moe_model(dtype, layers, seed):
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
 
     cfg = LlamaMoEConfig(**{**MOE, "num_hidden_layers": layers},
@@ -5629,7 +5653,7 @@ GPT_DROPOUT_P = 0.1
 
 
 def _gpt_model(layers, seed, **overrides):
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     cfg = GPTConfig.gpt3_6_7b(dtype="bfloat16", use_recompute=True,
@@ -6227,7 +6251,7 @@ def phase_bench_configs(seed):
     kernel rows)."""
     import torch
 
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          llama_flops_per_token,
                                          llama_param_count)
@@ -6380,7 +6404,7 @@ def _sharded_step(seed):
 
     from paddle_tpu_torch import distributed as pdist
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -6795,7 +6819,7 @@ SCALER_KW = dict(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2,
 def _pipe_stages(cfg, seed, pp):
     """Every stage of the pp-stage Llama, each drawn as the pp = 1 model is
     from the same generator."""
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import LlamaForCausalLM
 
     return [LlamaForCausalLM(cfg, device=DEVICE,
@@ -6909,7 +6933,7 @@ def _pipe_twin(seed):
     tensor within PIPE_GRAD_TOL; each planted fault must exceed it."""
     import torch
 
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.llama2_7b(num_hidden_layers=2, dtype="float32")
@@ -6973,7 +6997,7 @@ def _pipe_full_width(seed):
     import torch
 
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.distributed.meta_parallel import bubble_fraction
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -7220,7 +7244,7 @@ def _checkpoint_round_trip(model, state0, ids, seed):
     import torch
 
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.distributed import checkpoint as ckpt
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -7283,7 +7307,7 @@ def phase_pipeline(seed):
     import torch
 
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     t_phase = time.perf_counter()
@@ -7741,7 +7765,7 @@ def _offload_check(seed):
     state download skipped) that must differ."""
     import torch
 
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig(**BIG, dtype="float32", use_recompute=True)
@@ -7806,7 +7830,7 @@ def _offload_bench(seed):
     pinned host GiB and the lane's counters."""
     import torch
 
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig(**BIG, dtype="bfloat16", use_recompute=True)
@@ -7857,7 +7881,7 @@ def _offload_13b(seed):
     import torch
 
     from paddle_tpu_torch import kernels
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          llama_flops_per_token,
                                          llama_param_count)
@@ -7985,6 +8009,441 @@ def phase_offload(seed):
         pdist.reset_mesh()
         torch.distributed.destroy_process_group()
     return {"offload-13b": counts}
+
+
+# -- phase: BERT-base finetuned on the paddle surface --------------------------
+
+BERT_BATCH = (32, 128)   # the finetune recipe's batch x sequence
+BERT_DATA = 2048         # surrogate sentences the steps walk through
+BERT_SEED = 23
+BERT_LR = 2e-5
+BERT_CHECK_STEPS = 3     # (a): graphed against eager, bit for bit
+BERT_STEPS = 30          # (b): graphed steps timed, per dtype
+BERT_GRAD_TOL = PARITY_GRAD_TOL   # (d): fp32, ||g - ref|| / ||ref||
+BERT_LOSS_RTOL = PARITY_LOSS_RTOL
+
+
+def _bert_surrogate(n, seq, vocab, seed, k=8):
+    """Sentences whose label is decided by which marker token dominates
+    (the rule of ``examples/finetune_bert.py:26-34``)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(min(1000, vocab // 2), vocab, (n, seq))
+    labels = rng.randint(0, 2, (n,))
+    for i, lab in enumerate(labels):
+        pos = rng.choice(seq, k, replace=False)
+        ids[i, pos] = 10 + lab
+    return ids.astype("int64"), labels.astype("int64")
+
+
+def _bert_model(dtype, seed):
+    """BERT-base (``BertConfig()``: L 12, H 768, A 12, FFN 3072, vocab
+    30522, 512 positions, dropout 0.1) with a 2-class head, its weights
+    drawn on the card from ``seed`` by the paddle initializers."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models import (BertConfig,
+                                         BertForSequenceClassification)
+
+    P.seed(seed)
+    cfg = BertConfig(dtype=dtype)
+    return cfg, BertForSequenceClassification(cfg, num_classes=2)
+
+
+def _bert_step(model, graph):
+    """The finetune recipe's step: AdamW 2e-5, ClipGradByGlobalNorm(1.0),
+    CrossEntropyLoss, through ``jit.TrainStep``."""
+    import paddle_tpu_torch.nn as pnn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    loss_fn = pnn.CrossEntropyLoss()
+    opt = AdamW(learning_rate=BERT_LR, parameters=model.parameters(),
+                grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+    return TrainStep(model, lambda m, x, y: loss_fn(m(x), y), opt,
+                     graph=graph)
+
+
+def _bert_batches(data, n):
+    ids, labels = data
+    b = BERT_BATCH[0]
+    for i in range(n):
+        j = (i * b) % (ids.shape[0] - b)
+        yield ids[j:j + b], labels[j:j + b]
+
+
+def _bert_run(step, data, n):
+    """(losses, host ms of each call ending in a synchronise)."""
+    losses, ms = [], []
+    for x, y in _bert_batches(data, n):
+        t0 = time.perf_counter()
+        losses.append(float(step(x, y)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def _bert_launches():
+    """{counter: launches a training step}: AdamW's one update and the
+    clip's one sum of squares. Training runs attention dropout 0.1, so
+    attention is the JAX ``_sdpa_xla`` composition (no flash launch), as
+    in the JAX package; every other counter reads 0."""
+    from paddle_tpu_torch import kernels
+
+    per_step = {n: 0 for n in kernels.counters()}
+    per_step.update({"adam_update": 1, "multi_tensor_sumsq": 1})
+    return per_step
+
+
+def _bert_flops(cfg):
+    """Model FLOPs a token, forward and backward: 6 N (N the 85.6M weights
+    outside the embedding tables) + 12 L h s (attention's products)."""
+    from paddle_tpu_torch.models import bert_param_count
+
+    return 6 * bert_param_count(cfg)[1] + \
+        12 * cfg.num_hidden_layers * cfg.hidden_size * BERT_BATCH[1]
+
+
+def _add_counts(total, counts):
+    for n, c in counts.items():
+        t = total.setdefault(n, {"launches": 0, "plain_calls": 0})
+        t["launches"] += c["launches"]
+        t["plain_calls"] += c["plain_calls"]
+    return total
+
+
+def _bert_graph_check(data, state0, seed):
+    """(a) fp32: the graphed step against ``graph=False`` for 3 steps from
+    the same weights and default-generator state (dropout 0.1 draws from
+    it), losses, parameters and AdamW state bit for bit; launches exact.
+
+    torch's CUDA embedding backward sums the rows of repeated ids with
+    atomics, so two eager runs differ in their last bits (the word and
+    token-type tables; PR 20's first card run read 7.5e-5 of an update
+    after 3 steps). The check therefore runs both under
+    ``torch.use_deterministic_algorithms`` (its sorted embedding
+    backward), which makes it a comparison of the graph with eager; the
+    eager-against-eager reading without it is reported beside."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import kernels
+
+    _cfg, model = _bert_model("float32", seed)
+    per_step = _bert_launches()
+
+    def run(graph):
+        model.load_state_dict(state0)
+        P.seed(seed + 1)
+        step = _bert_step(model, graph=graph)
+        kernels.reset_counters()
+        losses, _ = _bert_run(step, data, BERT_CHECK_STEPS)
+        counts = _reckoned(step)
+        snap = _snapshot(model, step.optimizer)
+        del step
+        _release()
+        return losses, counts, snap
+
+    # eager twice with torch's default (atomic) embedding backward
+    _l, _c, ref0 = run(False)
+    _l, _c, again = run(False)
+    eager_same, eager_worst, _w = _agreement(again, ref0, state0)
+    del ref0, again
+    prior = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        elosses, ecounts, ref = run(False)
+        glosses, gcounts, got = run(True)
+    finally:
+        torch.use_deterministic_algorithms(prior[0], warn_only=prior[1])
+    _exact("bert-graph-check-eager", ecounts, per_step, BERT_CHECK_STEPS)
+    _exact("bert-graph-check-graph", gcounts, per_step,
+           BERT_CHECK_STEPS + 1)
+    same, worst, where = _agreement(got, ref, state0)
+    row = {"phase": "bert-graph-check", "dtype": "float32",
+           "steps": BERT_CHECK_STEPS, "eager_losses": elosses,
+           "graph_losses": glosses, "deterministic_algorithms": True,
+           "bitwise": same and glosses == elosses, "max_rel_diff": worst,
+           "max_rel_where": where,
+           "eager_twice_bitwise_without_it": eager_same,
+           "eager_twice_max_rel_diff_without_it": eager_worst}
+    del got, ref, model
+    _release()
+    _emit(row)
+    if not row["bitwise"]:
+        raise RuntimeError(f"bert-graph-check: graph differs from eager "
+                           f"{row}")
+    return _add_counts(ecounts, gcounts)
+
+
+def _bert_steps(dtype, data, seed):
+    """(b) BERT_STEPS graphed steps: step ms, tokens/s, device ms and idle
+    share of a profiled step, peak GiB, losses, MFU against ``dtype``'s
+    peak; launches exact. Returns (counters, figures, model)."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    cfg, model = _bert_model(dtype, seed)
+    per_step = _bert_launches()
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    step = _bert_step(model, graph=True)
+    kernels.reset_counters()
+    losses, ms = _bert_run(step, data, BERT_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = _reckoned(step)
+    _exact(f"bert-steps-{dtype}", counts, per_step, BERT_STEPS + 1)
+    x, y = next(_bert_batches(data, 1))
+    prof = _step_profile(lambda: step(x, y))
+    flops = _bert_flops(cfg)
+    step_ms = sum(ms[2:]) / len(ms[2:])
+    tok_s = BERT_BATCH[0] * BERT_BATCH[1] / step_ms * 1e3
+    figures = {"dtype": dtype, "steps": BERT_STEPS,
+               "step_ms": step_ms, "step_ms_each": ms,
+               "tokens_per_s": tok_s, "flops_per_token": flops,
+               "mfu": flops * tok_s / PEAK_FLOPS[dtype],
+               "mfu_peak_tflops": PEAK_FLOPS[dtype] / 1e12,
+               "device_ms": prof["device_ms"], "events_ms": prof["events_ms"],
+               "idle_share": prof["idle_share"],
+               "groups_ms": prof["groups_ms"], "top": prof["top"],
+               "peak_mem_gb": peak, "loss_first": losses[0],
+               "loss_last": losses[-1], "losses": losses,
+               "captures": step.captures, "replays": step.replays}
+    del step
+    _release()
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"bert-steps-{dtype}: a loss is not finite "
+                           f"{losses}")
+    return counts, figures, model
+
+
+def _bert_eval_check(model, dtype, data):
+    """(c) ``eval()`` without a mask on the first batch: the flash forward
+    launched exactly 12 times (the CUDA-core kernel in fp32,
+    ``flash_fwd_sm90.cu`` in bf16), every call held against the plain
+    version on fp32 copies of its inputs at the kernel's tolerance (fp32
+    1e-4; bf16 ``sm90_fwd_bound``), and the logits against the forward
+    through the plain versions: fp32 within 1e-4; bf16 within 2^-8 |ref|
+    + L 2^-8 (|W| |pooled|) + 1e-4, the bound of the classifier's product
+    whose input carries one bf16 rounding from each of the L layers'
+    attention. Then a padded batch with ``attention_mask`` runs the
+    composition: no flash launch, finite logits."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+
+    fa = _flash_module()
+    x, _y = next(_bert_batches(data, 1))
+    L = model.bert.config.num_hidden_layers
+    want = "flash_attention_sm90" if dtype == "bfloat16" else \
+        "flash_attention"
+    calls = []
+    real = fa.flash_attention_fwd
+
+    def recorder(q, k, v, offset, causal, scale):
+        o, lse = real(q, k, v, offset, causal, scale)
+        calls.append((q, k, v, offset, causal, scale, o))
+        return o, lse
+
+    pooled = {}
+    hook = model.classifier.register_forward_hook(
+        lambda m, i, o: pooled.__setitem__("x", i[0]))
+    model.eval()
+    kernels.reset_counters()
+    with torch.no_grad(), _swapped([(fa, "flash_attention_fwd", recorder)]):
+        logits = model(x)
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    wrong = {n: c for n, c in counts.items() if c["plain_calls"] or
+             c["launches"] != (L if n == want else 0)}
+    if wrong:
+        raise RuntimeError(f"bert-eval-{dtype}: launches differ from {L} on "
+                           f"{want}: {wrong}")
+    errs, shares = [], []
+    for q, k, v, off, causal, scale, o in calls:
+        f32 = [t.float() for t in (q, k, v)]
+        ref, _ = fa.flash_attention_plain(*f32, off, causal, scale)
+        if dtype == "bfloat16":
+            e, s = _compare_bound(f"bert-eval-{dtype} flash", o, ref,
+                                  fa.sm90_fwd_bound(*f32, off, causal,
+                                                    scale, ref))
+            shares.append(s)
+        else:
+            e, _ = _compare(f"bert-eval-{dtype} flash", o, ref,
+                            _tol(torch.float32))
+        errs.append(e)
+    shape = list(calls[0][0].shape)
+    del calls
+    with torch.no_grad(), _swapped(_plain_swaps()):
+        ref_logits = model(x)
+        pooled_ref = pooled["x"]
+    hook.remove()
+    ref32 = ref_logits.float()
+    if dtype == "bfloat16":
+        w = model.classifier.weight.float()
+        bound = 2.0 ** -8 * ref32.abs() + L * 2.0 ** -8 * (
+            pooled_ref.float().abs() @ w.abs()) + 1e-4
+        logit_err, logit_share = _compare_bound(
+            f"bert-eval-{dtype} logits", logits, ref32, bound)
+    else:
+        logit_err, _ = _compare(f"bert-eval-{dtype} logits", logits, ref32,
+                                _tol(torch.float32))
+        logit_share = None
+    # a padded batch: attention_mask runs the composition
+    mask = torch.ones_like(x)
+    mask[::2, BERT_BATCH[1] // 2:] = 0
+    kernels.reset_counters()
+    with torch.no_grad():
+        padded = model(x, attention_mask=mask)
+    pcounts = kernels.counters()
+    padded_ok = bool(torch.isfinite(padded.float()).all()) and all(
+        c["launches"] == 0 and c["plain_calls"] == 0
+        for c in pcounts.values()) and tuple(padded.shape) == (
+        BERT_BATCH[0], 2)
+    row = {"phase": f"bert-eval-{dtype}", "kernel": want,
+           "launches_per_forward": counts[want]["launches"],
+           "call_shape_bhsd": shape, "flash_max_abs_err": max(errs),
+           "flash_bound_share_max": max(shares) if shares else None,
+           "logits_max_abs_err": logit_err,
+           "logits_bound_share_max": logit_share,
+           "masked_composition_ok": padded_ok}
+    _emit(row)
+    if not padded_ok:
+        raise RuntimeError(f"bert-eval-{dtype}: the masked forward {row}")
+    model.train()
+    return counts, max(errs)
+
+
+def _bert_grad_check(seed, state0, data):
+    """(d) fp32 with both dropouts at 0 and no mask, so the flash forward
+    and both backward kernels run (12 launches each): one step's loss and
+    every gradient against the same step through the plain versions, and
+    a planted fault (dQ without the softmax scale) that the check must
+    catch."""
+    import torch
+
+    import paddle_tpu_torch.nn as pnn
+    from paddle_tpu_torch import kernels
+
+    _cfg, model = _bert_model("float32", seed)
+    model.load_state_dict(state0)
+    for m in model.modules():
+        if isinstance(m, pnn.Dropout):
+            m.p = 0.0
+        if hasattr(m, "attn_dropout_p"):
+            m.attn_dropout_p = 0.0
+    x, y = next(_bert_batches(data, 1))
+    loss_fn = pnn.CrossEntropyLoss()
+
+    def loss_and_grads():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(model(x), y)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    with _swapped(_plain_swaps()):
+        loss_p, grads_p = loss_and_grads()
+    kernels.reset_counters()
+    loss_k, grads_k = loss_and_grads()
+    counts = kernels.counters()
+    L = model.bert.config.num_hidden_layers
+    want = {"flash_attention": L, "flash_attention_bwd_dkv": L,
+            "flash_attention_bwd_dq": L}
+    wrong = {n: c for n, c in counts.items() if c["plain_calls"] or
+             c["launches"] != want.get(n, 0)}
+    if wrong:
+        raise RuntimeError(f"bert-grad-check: launches {wrong}")
+    errs = _grad_errors(grads_k, grads_p)
+    del grads_k
+    with _swapped(_faulty("dq_unscaled")):
+        _l, grads_f = loss_and_grads()
+    fault = max(_grad_errors(grads_f, grads_p).values())
+    del grads_f, grads_p, model
+    _release()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    row = {"phase": "bert-grad-check", "dtype": "float32",
+           "batch": list(BERT_BATCH), "loss_kernels": loss_k,
+           "loss_plain": loss_p, "loss_rel_err": loss_rel,
+           "loss_rtol": BERT_LOSS_RTOL, "grad_rel_l2_max": max(errs.values()),
+           "grad_worst": _worst(errs), "grad_tol": BERT_GRAD_TOL,
+           "params_checked": len(errs),
+           "fault_dq_unscaled_grad_rel_l2": fault,
+           "fault_caught": fault > BERT_GRAD_TOL,
+           "launches": {n: counts[n]["launches"] for n in want}}
+    _emit(row)
+    if not (loss_rel <= BERT_LOSS_RTOL and
+            max(errs.values()) <= BERT_GRAD_TOL and row["fault_caught"]):
+        raise RuntimeError(f"bert-grad-check: {row}")
+    return counts
+
+
+def phase_bert_finetune(seed):
+    """BERT-base finetuned through the paddle surface (``models/bert.py``
+    on ``nn.Layer``, the op functions, ``F.cross_entropy``): (a) graph =
+    eager bit for bit, (b) graphed steps in fp32 and bf16 with their
+    figures, (c) the eval forward's flash launches and agreement, (d) the
+    fp32 gradient check with dropout 0; then the flash forward's kernel
+    rows at BERT's attention shape. Returns ({path: counters}, rows)."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models import bert_param_count
+
+    t0 = time.perf_counter()
+    prior = P.get_device()
+    P.set_device("gpu")
+    try:
+        _release()
+        ids, labels = _bert_surrogate(BERT_DATA, BERT_BATCH[1], 30522,
+                                      seed + BERT_SEED)
+        data = (torch.from_numpy(ids).to(DEVICE),
+                torch.from_numpy(labels).to(DEVICE))
+        s = seed + BERT_SEED
+        cfg, model = _bert_model("float32", s)
+        state0 = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
+        del model
+        total = _bert_graph_check(data, state0, s)
+        figures, evals = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            counts, figures[dtype], model = _bert_steps(dtype, data, s)
+            _add_counts(total, counts)
+            ecounts, evals[dtype] = _bert_eval_check(model, dtype, data)
+            _add_counts(total, ecounts)
+            del model
+            _release()
+        _add_counts(total, _bert_grad_check(s, state0, data))
+        del state0
+        _release()
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(seed + BERT_SEED)
+        b, sq = BERT_BATCH
+        bh = b * cfg.num_attention_heads
+        d = cfg.hidden_size // cfg.num_attention_heads
+        rows = [_flash_case(f"bert-{dt}", getattr(torch, dt), bh, sq, sq,
+                            False, gen, d=d)
+                for dt in ("float32", "bfloat16")]
+        total_p, body_p = bert_param_count(cfg)
+        _emit({"phase": "bert-finetune", "ok": True, "model": "bert-base",
+               "card": _nvidia_smi(), "params": total_p,
+               "params_outside_embeddings": body_p,
+               "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+               "heads": cfg.num_attention_heads, "batch": list(BERT_BATCH),
+               "recipe": "AdamW 2e-5, ClipGradByGlobalNorm(1.0), "
+                         "CrossEntropyLoss, dropout 0.1/0.1",
+               "peak_tflops": {k: v / 1e12 for k, v in PEAK_FLOPS.items()},
+               "steps": figures,
+               "eval_flash_max_abs_err": evals,
+               "seconds": time.perf_counter() - t0})
+    finally:
+        P.set_device(prior)
+    return {"bert-finetune": total}, rows
 
 
 def _kernels_line(rows, paths):
@@ -8165,6 +8624,13 @@ def _kernels_line(rows, paths):
             entry["master_fp32"] = {key: v[key] for key in (
                 "case", "kernel_ms", "plain_ms", "bound_ms", "bitwise",
                 "max_abs_err")}
+        bert = next((x for x in rows if x["kernel"] == name and
+                     x["case"].startswith("bert-")), None)
+        if bert is not None:
+            # the forward at BERT-base's attention (bh 384, 128 x 128, d 64)
+            entry["bert"] = {key: bert[key] for key in (
+                "case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
         if name == "rope":
             # the inverse as the training step runs it: on the cotangent's
             # [b, s, h, d] view of [b, h, s, d], read in place
@@ -8246,6 +8712,8 @@ def main() -> int:
     moe_mesh, mesh_rows = phase_moe_mesh(SEED)
     rows += mesh_rows
     offload = phase_offload(SEED)
+    bert, bert_rows = phase_bert_finetune(SEED)
+    rows += bert_rows
 
     _emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
@@ -8262,7 +8730,7 @@ def main() -> int:
         "finetune-fp32": finetune_fp32, "gpt-training": gpt,
         "gpt-training-eager": gpt_eager, "gpt-graph-check": gpt_graph_check,
         "llama-cache": llama_cache, **bench, **distributed,
-        **pipeline, **moe_mesh, **offload})})
+        **pipeline, **moe_mesh, **offload, **bert})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

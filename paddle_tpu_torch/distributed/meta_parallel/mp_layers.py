@@ -27,6 +27,13 @@ At mp = 1 each layer is exactly ``F.linear`` / ``F.embedding``: it issues
 no collective and makes the same call as ``nn.Linear`` / ``nn.Embedding``
 (which they subclass), so a model built from them steps bit for bit as
 one built from torch's layers.
+
+``weight_attr`` / ``bias_attr`` (a ``ParamAttr``, an initializer or a name;
+``bias_attr=False``: no bias) draw the parameter through
+``attr.initializer`` at the full weight's JAX shape (``[in, out]`` for the
+linears, ``[vocab, dim]`` for the embedding), so the fans are the full
+weight's; each rank keeps its shard of that draw (ranks seeded alike draw
+alike). Without an initializer a parameter keeps torch's default draw.
 """
 from __future__ import annotations
 
@@ -184,11 +191,30 @@ def mark_parameters(model: nn.Module) -> nn.Module:
     return model
 
 
-def _no_attr(weight_attr):
-    if weight_attr is not None:
-        raise NotImplementedError(
-            "weight_attr: the port's models draw their weights from a "
-            "generator; initialise the parameter after construction")
+def _draw_attr(param, attr, full_shape, to_port, dim, n, r):
+    """Sets ``param`` to this rank's shard (on ``dim``, of ``n``) of a draw
+    of the full JAX-shaped weight through ``attr``'s initializer
+    (``to_port`` maps that weight to the port's layout); takes its
+    ``trainable``. Nothing for an attr without an initializer."""
+    from ...nn.layer.layers import ParamAttr
+
+    attr = ParamAttr._to_attr(attr)
+    if not attr:
+        return
+    if attr.initializer is not None:
+        full = attr.initializer(full_shape, param.dtype, param.device)
+        with torch.no_grad():
+            param.copy_(mp_shard(to_port(full), n, r, dim))
+    if attr.trainable is False:
+        param.requires_grad_(False)
+
+
+def _same(t):
+    return t
+
+
+def _transposed(t):
+    return t.t()
 
 
 class VocabParallelEmbedding(nn.Embedding):
@@ -197,10 +223,11 @@ class VocabParallelEmbedding(nn.Embedding):
 
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
                  mp_group=None, name=None, device=None, dtype=None):
-        _no_attr(weight_attr)
         self._pg, self._mp, self._mp_rank = mp_info(mp_group)
         per = _divide(num_embeddings, self._mp, "num_embeddings")
         super().__init__(per, embedding_dim, device=device, dtype=dtype)
+        _draw_attr(self.weight, weight_attr, [num_embeddings, embedding_dim],
+                   _same, 0, self._mp, self._mp_rank)
         self.vocab_start = self._mp_rank * per
         self._mark_params()
 
@@ -224,12 +251,18 @@ class ColumnParallelLinear(nn.Linear):
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, gather_output=True, fuse_matmul_bias=False,
-                 mp_group=None, name=None, device=None, dtype=None):
-        _no_attr(weight_attr)
+                 mp_group=None, name=None, device=None, dtype=None,
+                 bias_attr=None):
         self._pg, self._mp, self._mp_rank = mp_info(mp_group)
         per = _divide(out_features, self._mp, "out_features")
+        has_bias = bool(has_bias) and bias_attr is not False
         super().__init__(in_features, per, bias=has_bias, device=device,
                          dtype=dtype)
+        n, r = self._mp, self._mp_rank
+        _draw_attr(self.weight, weight_attr, [in_features, out_features],
+                   _transposed, 0, n, r)
+        if has_bias:
+            _draw_attr(self.bias, bias_attr, [out_features], _same, 0, n, r)
         self.gather_output = gather_output
         self._mark_params()
 
@@ -253,12 +286,16 @@ class RowParallelLinear(nn.Linear):
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, input_is_parallel=False,
                  fuse_matmul_bias=False, mp_group=None, name=None,
-                 device=None, dtype=None):
-        _no_attr(weight_attr)
+                 device=None, dtype=None, bias_attr=None):
         self._pg, self._mp, self._mp_rank = mp_info(mp_group)
         per = _divide(in_features, self._mp, "in_features")
+        has_bias = bool(has_bias) and bias_attr is not False
         super().__init__(per, out_features, bias=has_bias, device=device,
                          dtype=dtype)
+        _draw_attr(self.weight, weight_attr, [in_features, out_features],
+                   _transposed, 1, self._mp, self._mp_rank)
+        if has_bias:  # replicated
+            _draw_attr(self.bias, bias_attr, [out_features], _same, 0, 1, 0)
         self.input_is_parallel = input_is_parallel
         self._mark_params()
 

@@ -1,7 +1,8 @@
 """Global flags (counterpart of ``paddle_tpu/framework/flags.py``).
 
-The port holds one flag so far, ``FLAGS_moe_dispatch``: how an MoE layer
-moves tokens to its experts. Its default and values are the JAX package's:
+The port holds the flags its modules read, with the JAX package's
+defaults and values. ``FLAGS_moe_dispatch`` says how an MoE layer moves
+tokens to its experts:
 
 - ``index`` (default): capacity routing by a cumsum over the expert one-hot,
   plain PyTorch (the JAX package has no kernel there either);
@@ -15,19 +16,32 @@ moves tokens to its experts. Its default and values are the JAX package's:
   the gather and combine kernels move them, the grouped-GEMM kernel runs
   the experts.
 
+``FLAGS_embedding_oov_policy`` says what ``nn.functional.embedding`` does
+with an id outside the table:
+
+- ``error`` (default): an eager lookup reads the ids' min and max back
+  (one readback) and raises; inside a CUDA graph capture no readback can
+  run, and there the lookup clamps the ids (see ``embedding``);
+- ``clip``: the ids are clamped to the table everywhere.
+
 Consumers read the flag per call, so ``set_flags`` takes effect at once.
-An unknown flag or value raises.
+An unknown flag or value raises, as the JAX registry's ``set_flags`` does
+for an unknown name.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Iterable, Union
 
-__all__ = ["set_flags", "get_flags", "MOE_DISPATCH_MODES"]
+__all__ = ["set_flags", "get_flags", "flag", "MOE_DISPATCH_MODES",
+           "EMBEDDING_OOV_POLICIES"]
 
 MOE_DISPATCH_MODES = ("index", "sort", "gmm", "fused", "einsum")
+EMBEDDING_OOV_POLICIES = ("error", "clip")
 
-_VALUES: Dict[str, Any] = {"FLAGS_moe_dispatch": "index"}
-_CHOICES = {"FLAGS_moe_dispatch": MOE_DISPATCH_MODES}
+_VALUES: Dict[str, Any] = {"FLAGS_moe_dispatch": "index",
+                           "FLAGS_embedding_oov_policy": "error"}
+_CHOICES = {"FLAGS_moe_dispatch": MOE_DISPATCH_MODES,
+            "FLAGS_embedding_oov_policy": EMBEDDING_OOV_POLICIES}
 
 
 def _key(name: str) -> str:
@@ -57,3 +71,9 @@ def get_flags(flags: Union[str, Iterable[str], None] = None
         return dict(_VALUES)
     names = [flags] if isinstance(flags, str) else list(flags)
     return {_key(n): _VALUES[_key(n)] for n in names}
+
+
+def flag(name: str):
+    """One flag's value (``FLAGS_`` prefix optional), for the modules that
+    read it per call."""
+    return _VALUES[_key(name)]

@@ -26,6 +26,13 @@ every rank's state.
 fused ``qkv_proj`` is split per head (``models.gpt.gpt_shard``: a rank
 holds the q, k and v rows of its heads, not a contiguous third).
 
+``bert_state_from_numpy`` does it for the JAX BERT models
+(``BertModel``, ``BertForPretraining``, ``BertForSequenceClassification``):
+only the tensor-parallel layers' weights (each layer's ``qkv``,
+``attn_out``, ``ffn_in``, ``ffn_out``) are transposed to ``[out, in]``;
+the paddle ``nn.Linear`` weights (pooler, heads) stay ``[in, out]``, as the
+port's ``nn.Linear`` holds them.
+
 ``gpt_engine_params`` reads a model's live weights into the nested dict the
 serving window step takes (the counterpart of the JAX engine's
 ``_extract_gpt_params``), with Linear weights in ``[out, in]`` for
@@ -43,6 +50,7 @@ from .gpt import GPTConfig, gpt_mp_dim, gpt_shard
 from .llama import LlamaConfig
 
 __all__ = ["gpt_state_from_numpy", "gpt_engine_params",
+           "bert_state_from_numpy",
            "llama_state_from_numpy", "llama_mp_dim", "llama_ep_dim",
            "shard_llama_state", "gather_llama_state", "shard_gpt_state",
            "gather_gpt_state"]
@@ -96,6 +104,25 @@ def gpt_state_from_numpy(flat: Mapping[str, Any],
         if a.shape != want[name]:
             raise ValueError(f"{name}: shape {a.shape} after conversion, "
                              f"expected {want[name]}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+_BERT_MP = ("qkv", "attn_out", "ffn_in", "ffn_out")
+
+
+def bert_state_from_numpy(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{name: np.ndarray}`` of a JAX BERT model -> a ``state_dict`` for
+    the port's model of the same class (CPU tensors; the names are the
+    same; ``set_state_dict`` / ``load_state_dict`` cast them to the
+    model's device and dtype)."""
+    out = {}
+    for name, arr in flat.items():
+        a = _as_f32(arr)
+        parts = name.split(".")
+        if name.endswith(".weight") and len(parts) >= 3 and \
+                parts[-2] in _BERT_MP and ".layers." in name:
+            a = a.T
         out[name] = torch.from_numpy(np.ascontiguousarray(a))
     return out
 

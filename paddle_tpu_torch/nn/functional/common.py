@@ -1,4 +1,9 @@
-"""Dropout (port of ``paddle_tpu/nn/functional/common.py:112-127``).
+"""Common functionals (port of the part of
+``paddle_tpu/nn/functional/common.py`` that is not about convolution,
+pooling or vision): ``linear`` (paddle's ``[in, out]`` weight), ``embedding``
+(with the out-of-vocabulary policy), ``layer_norm``, ``normalize``,
+``cosine_similarity``, ``bilinear``, ``pad``, and ``dropout``
+(``:112-127``).
 
 The JAX package draws each keep mask with ``jax.random.bernoulli`` from
 the framework's key stream. Here the mask comes from an explicit
@@ -29,9 +34,13 @@ import contextlib
 from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as TF
+
+from ...framework.flags import EMBEDDING_OOV_POLICIES, flag
 
 __all__ = ["dropout", "keep_mask", "rewinding", "Rewinds",
-           "drawing_generator"]
+           "drawing_generator", "linear", "embedding", "layer_norm",
+           "normalize", "cosine_similarity", "bilinear", "pad"]
 
 
 def drawing_generator(generator: Optional[torch.Generator],
@@ -211,3 +220,95 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         return torch.where(keep, x / _scalar(1.0 - p, x.dtype),
                            x.new_zeros(()))
     return torch.where(keep, x, x.new_zeros(()))
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight + bias`` with paddle's ``[in, out]`` weight."""
+    return TF.linear(x, weight.t(), bias)
+
+
+def _capturing_on(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda" and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None,
+              oov_policy=None):
+    """Rows of ``weight`` at the ids ``x``; the rows at ``padding_idx`` are
+    zero and pass no gradient.
+
+    The out-of-vocabulary policy (``FLAGS_embedding_oov_policy``, or
+    ``oov_policy`` for this call), as in
+    ``paddle_tpu/nn/functional/common.py:57-100``:
+
+    - ``'error'``: an eager call reads the ids' min and max back (one
+      readback for both) and raises ``ValueError`` on an id outside
+      ``[0, rows)``. Under a CUDA graph capture nothing can be read back,
+      and an id past the table would fire a device-side assert that
+      leaves the CUDA context unusable; there the ids are clamped to the
+      table, unchecked. (The JAX package's traced path is unchecked too,
+      but its ``jnp.take`` under jax 0.9.0 returns NaN rows for ids
+      ``>= rows`` or ``< -rows`` and wraps ids in ``[-rows, 0)``; a clamp
+      is what the port can do without a NaN poisoning the step.)
+    - ``'clip'``: the ids are clamped to ``[0, rows - 1]`` everywhere.
+
+    ``sparse`` is taken and has no effect (the gradient is dense)."""
+    policy = oov_policy or flag("embedding_oov_policy")
+    if policy not in EMBEDDING_OOV_POLICIES:
+        raise ValueError(f"embedding oov_policy must be 'error' or 'clip', "
+                         f"got {policy!r}")
+    n = weight.shape[0]
+    ids = x if x.dtype in (torch.int32, torch.int64) else x.long()
+    if policy == "clip" or _capturing_on(ids):
+        ids = ids.clamp(0, n - 1)
+    elif ids.numel():
+        lo, hi = (int(v) for v in torch.stack([ids.min(), ids.max()])
+                  .tolist())
+        if lo < 0 or hi >= n:
+            raise ValueError(
+                f"embedding: id out of range [0, {n}) (min={lo}, max={hi}); "
+                f"pass oov_policy='clip' or set "
+                f"FLAGS_embedding_oov_policy='clip' for the clamped lookup")
+    out = TF.embedding(ids, weight)
+    if padding_idx is not None:
+        out = out.masked_fill((ids == padding_idx)[..., None], 0.0)
+    return out
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    """Normalised over the trailing ``normalized_shape`` dims (biased
+    variance), then ``* weight + bias``."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    return TF.layer_norm(x, list(normalized_shape), weight, bias,
+                         float(epsilon))
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """``x / max(||x||_p, epsilon)`` along ``axis``."""
+    p = float(p)
+    norm = torch.pow(torch.sum(torch.pow(torch.abs(x), p), dim=int(axis),
+                               keepdim=True), 1.0 / p)
+    return x / torch.clamp(norm, min=float(epsilon))
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    """``sum(x1 * x2) / max(||x1|| * ||x2||, eps)`` along ``axis``."""
+    axis = int(axis)
+    dot = torch.sum(x1 * x2, dim=axis)
+    n1 = torch.sqrt(torch.sum(torch.square(x1), dim=axis))
+    n2 = torch.sqrt(torch.sum(torch.square(x2), dim=axis))
+    return dot / torch.clamp(n1 * n2, min=float(eps))
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """``out[n, o] = x1[n, i] weight[o, i, j] x2[n, j] + bias``."""
+    out = torch.einsum("ni,oij,nj->no", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def pad(x, pad, mode="constant", value=0.0, data_format="NCHW", name=None):
+    from ...ops.manipulation import pad as _pad
+
+    return _pad(x, pad, mode, value, data_format)

@@ -129,7 +129,7 @@ def test_model_and_adamw_resume_bit_for_bit(tmp_path):
     """The tiny Llama and its AdamW state saved after one step, loaded
     into a fresh model and optimizer: the next two steps equal the
     unbroken run's bit for bit, the step count restored."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW

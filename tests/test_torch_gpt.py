@@ -11,7 +11,7 @@ import torch
 import paddle_tpu as paddle
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JGPTForCausalLM
-from paddle_tpu_torch import seed as pt_seed
+from paddle_tpu_torch.device import seed as pt_seed
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                      gpt_engine_params, gpt_state_from_numpy)
 

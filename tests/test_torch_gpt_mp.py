@@ -101,7 +101,7 @@ def _jax_gpt(degrees, level, clip):
 def _gpt_reference(ids, calls):
     """The port's GPT in one process (TrainStep, AdamW lr 1e-3) from seed
     1: losses, the eval loss after, the final state."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -134,7 +134,7 @@ def runs(tmp_path_factory):
 # -- one process: the per-head split ----------------------------------------------
 
 def _full_state():
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     model = GPTForCausalLM(GPTConfig.tiny(**GPT), device="cpu",
@@ -187,7 +187,7 @@ def test_gpt_state_round_trip(degrees, stage3):
 def test_model_built_under_mp_draws_the_shards(runs):
     """Built at dp 2 x mp 2 from a seed, each rank holds exactly
     ``shard_gpt_state`` of the model built in one process from it."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.models.convert import shard_gpt_state
 
@@ -297,7 +297,7 @@ def test_pp2_mp2_checkpoint_loads_at_pp1(runs):
     built at pp = 1 in one process, its logits are those of
     ``GPTForCausalLM`` holding the same weights and its loss the pp 2 x
     mp 2 model's eval loss (rtol 1e-6)."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.distributed import checkpoint as ckpt
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          GPTForCausalLMPipe)

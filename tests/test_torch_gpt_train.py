@@ -25,7 +25,7 @@ from paddle_tpu.models.gpt import GPTForCausalLM as JGPTForCausalLM
 from paddle_tpu.models.gpt import gpt_param_count as jgpt_param_count
 from paddle_tpu.nn.functional import attention as jattn
 from paddle_tpu.nn.functional import common as jcommon
-from paddle_tpu_torch import seed as pt_seed
+from paddle_tpu_torch.device import seed as pt_seed
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import counters, reset_counters
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,

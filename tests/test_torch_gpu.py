@@ -1649,7 +1649,7 @@ def test_clip_call_on_the_card_equals_the_cpu(cuda, clip):
 def _small_llama(cuda, moe, seed=5):
     """A 2-layer bf16 Llama (or MoE Llama, fused dispatch) with head dim
     128, so its attention takes the tensor-core kernels, and recompute."""
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                          LlamaMoEConfig)
 
@@ -1807,7 +1807,7 @@ def test_graphed_step_equals_the_eager_step_under_each_rule(cuda, rule):
 # -- GPT training: the graphed step, dropout, the attention routes -------------
 
 def _small_gpt(cuda, **cfg):
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     config = GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
@@ -2020,7 +2020,7 @@ def test_pipeline_local_graph_replay_equals_eager(cuda):
     on one card through ``LocalPipelineStep``: three graphed steps (the
     eager warm-up, the capture, a replay) equal three eager ones from the
     same weights, losses and parameters bit for bit."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from pipeline_harness import LocalPipelineStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -2198,7 +2198,7 @@ def test_offloaded_step_equals_resident_on_the_card(cuda, accumulate,
     page-locked host memory; the walk's update is one ``adam_update``
     launch a group a step."""
     import paddle_tpu_torch.distributed as pdist
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
@@ -2249,3 +2249,62 @@ def test_offloaded_step_equals_resident_on_the_card(cuda, accumulate,
         assert losses == ref_l, kind
         for n, p in params.items():
             assert torch.equal(p, ref_p[n]), (kind, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bert_eval_forward_runs_the_flash_kernel_at_bert_shape(cuda, dtype):
+    """BERT-base's width (12 heads of 64) at 2 layers, batch 32 x 128, in
+    ``eval()`` without a mask: every attention call is one flash forward
+    (bh 384, 128 x 128, d 64, not causal) on the kernel the route names
+    (the CUDA-core one in fp32, ``flash_fwd_sm90.cu`` in bf16), held
+    against the plain version on fp32 copies of its inputs (fp32 1e-4,
+    bf16 ``sm90_fwd_bound``)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models import (BertConfig,
+                                         BertForSequenceClassification)
+
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    prior = P.get_device()
+    P.set_device("gpu")
+    try:
+        P.seed(5)
+        model = BertForSequenceClassification(
+            BertConfig(num_hidden_layers=2, dtype=dtype)).eval()
+        gen = torch.Generator(device=cuda).manual_seed(6)
+        ids = torch.randint(0, 30522, (32, 128), generator=gen, device=cuda)
+        calls = []
+        real = fa.flash_attention_fwd
+
+        def recorder(q, k, v, offset, causal, scale):
+            o, lse = real(q, k, v, offset, causal, scale)
+            calls.append((q, k, v, offset, causal, scale, o))
+            return o, lse
+
+        fa.flash_attention_fwd = recorder
+        try:
+            reset_counters()
+            with torch.no_grad():
+                logits = model(ids)
+            torch.cuda.synchronize()
+        finally:
+            fa.flash_attention_fwd = real
+        counts = counters()
+    finally:
+        P.set_device(prior)
+    assert logits.shape == (32, 2) and torch.isfinite(logits).all()
+    want = "flash_attention_sm90" if dtype == "bfloat16" else \
+        "flash_attention"
+    assert counts[want]["launches"] == 2
+    assert all(c["launches"] == 0 for n, c in counts.items() if n != want)
+    assert all(c["plain_calls"] == 0 for c in counts.values())
+    assert len(calls) == 2
+    for q, k, v, offset, causal, scale, o in calls:
+        assert tuple(q.shape) == (384, 128, 64) and not causal
+        f32 = [t.float() for t in (q, k, v)]
+        ref, _ = flash_attention_plain(*f32, offset, causal, scale)
+        if dtype == "bfloat16":
+            _within(o, ref, sm90_fwd_bound(*f32, offset, causal, scale, ref),
+                    "bert flash forward")
+        else:
+            _close(o.cpu(), ref.cpu(), (0.0, 1e-4))

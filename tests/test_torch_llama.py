@@ -14,7 +14,7 @@ import paddle_tpu as paddle
 import paddle_tpu.optimizer as jopt
 from paddle_tpu import jit as jjit
 from paddle_tpu.models import llama as jllama
-from paddle_tpu_torch import seed as pt_seed
+from paddle_tpu_torch.device import seed as pt_seed
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import counters, reset_counters
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,

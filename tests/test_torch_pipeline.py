@@ -134,7 +134,7 @@ def _jax_llama(degrees, overrides, clip, step_kw, accumulate, calls):
 
 def _one_process(state0, overrides, calls):
     """The port's ``TrainStep`` on the whole batch (AdamW lr 1e-3)."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -412,7 +412,7 @@ def test_fleet_wrappers_match_jax(runs, case):
 
 
 def _gpt_reference(cfg_kw, ids, calls):
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -582,7 +582,7 @@ def test_one_f_one_b_order(pp, m):
 
 
 def _llama_stages(pp, layers=4, **kw):
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
     cfg = LlamaConfig.tiny(num_hidden_layers=layers, **kw)
@@ -628,7 +628,7 @@ def test_gpt_pipe_local_matches_gpt():
     embedding on both, its gradients summed) against ``GPTForCausalLM``'s
     ``TrainStep.accumulate(4)``: losses rtol 1e-5 over three AdamW steps,
     the two copies of the tied weight equal after each."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from pipeline_harness import LocalPipelineStep
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,

@@ -17,7 +17,8 @@ import jax.numpy as jnp
 from paddle_tpu import serving as jserving
 from paddle_tpu.serving.generation import (_build_window_step,
                                            _extract_gpt_params)
-from paddle_tpu_torch import resolve_device, seed
+from paddle_tpu_torch import resolve_device
+from paddle_tpu_torch.device import seed
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                      LlamaConfig, LlamaForCausalLM,
                                      gpt_engine_params)
@@ -210,3 +211,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         GenerationEngine(model)
     assert resolve_device("cpu").type == "cpu"
+    # the paddle surface: the expected place is the card until
+    # set_device("cpu")
+    import paddle_tpu_torch as P
+
+    prior = P.get_device()
+    P.set_device("gpu")
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            P.nn.Linear(2, 2)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            P.to_tensor([1])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            P.seed(0)
+        P.set_device("cpu")
+        assert P.nn.Linear(2, 2).weight.device.type == "cpu"
+        assert P.to_tensor([1]).device.type == "cpu"
+    finally:
+        P.set_device(prior)

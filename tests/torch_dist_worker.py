@@ -321,7 +321,7 @@ def llama_tied(inp):
     """The tied head at dp 2 x mp 2 (the vocabulary-split embedding is the
     head's weight) against the same model in one process: the JAX tie is
     broken, so the oracle is the port's own TrainStep on the whole batch."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.models.convert import shard_llama_state
@@ -354,7 +354,7 @@ def llama_tied_sdp4(inp):
     one process: the JAX tie is broken, so the oracle is the port's
     TrainStep on the whole batch. Also the all-gathers of the tied shard
     in the third step's forward."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.distributed import sharding
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -552,7 +552,7 @@ def gpt_mp(inp, key, planted=None):
 
 def gpt_init_shards(inp):
     """The tiny GPT built at dp 2 x mp 2 from seed 1: this rank's state."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     dist.init_mesh(dp=2, mp=2)
@@ -564,7 +564,7 @@ def gpt_init_shards(inp):
 def gpt_pipe_mp(inp):
     """``GPTForCausalLMPipe`` at pp 2 x mp 2 through
     ``PipelineParallel.train_batch`` (accumulate_steps 2)."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.distributed.meta_parallel import PipelineParallel
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLMPipe
 
@@ -735,7 +735,7 @@ def fleet_wrappers(inp, key):
 def gpt_pipe(inp):
     """``GPTForCausalLMPipe`` at pp 2 x dp 2 over P2P through
     ``PipelineParallel.train_batch``."""
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.distributed.meta_parallel import PipelineParallel
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLMPipe
 

@@ -86,7 +86,7 @@ class Planted:
 
 
 def _model(widths, layers, seed, device):
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
 
     cfg = LlamaMoEConfig(**widths, num_hidden_layers=layers, dtype="float32",

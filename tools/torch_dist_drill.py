@@ -246,7 +246,7 @@ def _parity(name, degrees, level, impl, opts, size, device, log):
     import torch
 
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -328,7 +328,7 @@ def _gpt_parity(name, degrees, level, pipe, size, device, log):
     import torch
 
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
                                          GPTForCausalLMPipe)
@@ -430,7 +430,7 @@ def _gpt_timed(name, degrees, batch, log, card):
     import torch
 
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
 
@@ -470,7 +470,7 @@ def _checkpoint(size, device, path, log):
     """A checkpoint saved at dp 2 x mp 2 after one AdamW step, loaded at pp
     2 x dp 2: two more steps there against the unbroken run's two."""
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.distributed import checkpoint as ckpt
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.models.convert import shard_llama_state
@@ -537,7 +537,7 @@ def _moe_parity(name, degrees, level, mode, micro, size, device, log):
     import torch
 
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
     from paddle_tpu_torch.models.convert import shard_llama_state
@@ -606,7 +606,7 @@ def _moe_checkpoint(size, device, path, log):
     (each expert stack's ep split in the manifest), loaded at dp 4: two
     more steps there against the unbroken run's two."""
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.distributed import checkpoint as ckpt
     from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
     from paddle_tpu_torch.models.convert import shard_llama_state
@@ -675,7 +675,7 @@ def _moe_timed(name, degrees, batch, mode, log, card, profile=False):
     import torch
 
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM, LlamaMoEConfig
     from paddle_tpu_torch.optimizer import Adafactor
@@ -727,7 +727,7 @@ def _timed(name, model_cfg, degrees, level, batch, micro, log, card):
     import torch
 
     from paddle_tpu_torch import distributed as pdist
-    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.device import seed
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -779,7 +779,7 @@ def build_cpu_replica():
     CPU at the serving config, weights from chip_smoke.FLEET_SEED, with a
     one-layer draft unless ``PT_FLEET_DRAFT=0``."""
     import chip_smoke as cs
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.serving import GenerationEngine
 
@@ -796,7 +796,7 @@ def build_cpu_replica():
 
 def _fleet_cpu_model():
     import chip_smoke as cs
-    from paddle_tpu_torch import seed as pt_seed
+    from paddle_tpu_torch.device import seed as pt_seed
     from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 
     return GPTForCausalLM(GPTConfig(**FLEET_CPU_GPT, dtype="float32"),
