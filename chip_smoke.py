@@ -266,7 +266,7 @@ distributed — the distributed slice on one card: (a) a world-1 NCCL
              + backward ms beside one-shot flash's; (e) two planted ring
              faults in fp32 (a merge that drops a step, an offset one tile
              off) that the check must catch.
-pipeline   — (a) the Llama at Llama-2 7B's widths, depth cut to 8, in 4
+pipeline   — (a) the Llama at Llama-2 7B's widths, depth cut to 4, in 4
              stages on the one card through ``pipeline_local``
              (``tools/pipeline_harness.py``'s ``LocalPipelineStep``):
              bf16, recompute, AdamW, M = 8 microbatches of 1 x 4096, two
@@ -312,9 +312,9 @@ bert-finetune — BERT-base (Devlin et al. 2019: L 12, H 768, A 12, FFN 3072,
              ClipGradByGlobalNorm(1.0), CrossEntropyLoss, dropout 0.1,
              batch 32 x 128 of its surrogate sentences) through
              ``jit.TrainStep``: (a) fp32 graphed = eager for 3 steps, bit
-             for bit, both under ``torch.use_deterministic_algorithms``
-             (torch's CUDA embedding backward sums repeated ids with
-             atomics; eager twice without it is reported beside); (b) 30
+             for bit, both under ``FLAGS_cudnn_deterministic`` (torch's
+             CUDA embedding backward sums repeated ids with atomics; eager
+             twice without it is reported beside); (b) 30
              graphed steps in fp32 and in bf16: step ms,
              tokens/s, device ms, idle share, peak GiB, losses, MFU
              against the dtype's peak (67 / 989 TFLOP/s); (c) ``eval()``
@@ -327,6 +327,40 @@ bert-finetune — BERT-base (Devlin et al. 2019: L 12, H 768, A 12, FFN 3072,
              the plain versions, with a planted dQ fault caught; then the
              flash forward timed at BERT's attention shape (bh 384, 128 x
              128, d 64) beside SDPA.
+
+dit        — DiT-XL/2 (Peebles & Xie 2023 Table 1: 28 layers, hidden
+             1152, 16 heads, patch 2, 32 x 32 x 4 latents; random weights
+             from the seed, the adaLN-Zero parameters drawn non-zero),
+             ``dtype="bfloat16"`` with fp32 inputs as ``bench.py``'s DiT
+             row (so every activation is fp32 and attention runs the
+             CUDA-core flash kernels at head dim 72), AdamW 1e-4 without
+             decay, batch 32 (cut from 256), through ``jit.TrainStep``
+             over ``GaussianDiffusion.training_loss``: (a) graph = eager
+             for 2 steps bit for bit under ``FLAGS_cudnn_deterministic``,
+             and a replay on the same batch drawing fresh t, noise and
+             label drops; (b) 8 graphed calls then 3 eager steps: step ms,
+             images/s, MFU (bench.py's FLOPs against 989 TFLOP/s, and
+             against fp32's 67), peak GiB, device ms by group (SGEMM,
+             flash, elementwise, AdamW), idle share, launches exact (28
+             flash forwards, 28 dK/dV, 28 dQ on the CUDA-core kernels, one
+             AdamW update a step), a finite falling loss; (c) ``ddim_sample``
+             with 50 steps at eta 0, batch 8: images/s, 50 x 28 forward
+             launches, two runs of one seed equal bit for bit, the first
+             step's eps against the plain versions; (d) fp32 at depth 2:
+             every gradient against the plain versions and a planted fault
+             (a dQ kernel that reads only the first 64 of the 72 head dims)
+             caught; then the three flash kernels at DiT's attention
+             (fp32, bh 512, 256 x 256, d 72) beside SDPA in fp32 and their
+             fp32 bound.
+resnet     — ResNet-18 with 10 classes on 32 x 32 surrogate images from
+             the seed (``bench.py``'s CIFAR-10 stand-in), fp32, TF32 off:
+             bench.py's 12-step curve (Momentum 0.01, batch 32) eager =
+             graphed bit for bit under ``FLAGS_cudnn_deterministic``, with
+             every BatchNorm buffer; then 20 graphed steps of Momentum 0.05
+             / 0.9 at batch 128: step ms, images/s, peak GiB, device ms by
+             group (cuDNN convolutions, BatchNorm moments, pooling,
+             Momentum, elementwise), launches exact; ``resnet18(pretrained=
+             True)`` raises.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the package beside the script, it exits non-zero.
@@ -2024,13 +2058,14 @@ def _fleet_logs_tail(log_dir, n=4000):
     return "\n".join(out)
 
 
-def _fleet_submit(fleet, prompts, new, wait_first=0, block=True, **kw):
-    """Submit ``prompts`` to the fleet with ``on_token`` streams; the first
-    ``wait_first`` wait until their request has streamed 4 tokens before
-    the next goes. Returns one record a request, completed (``block``) or
-    for ``_fleet_collect``."""
+def _fleet_submit(fleet, prompts, new, wait_on=None, block=True, **kw):
+    """Submit ``prompts`` to the fleet with ``on_token`` streams; a request
+    the fleet placed on the replica ``wait_on`` waits until it has streamed
+    4 tokens before the next goes. Returns one record a request (``placed``:
+    the replica its submit went to), completed (``block``) or for
+    ``_fleet_collect``."""
     recs = []
-    for i, p in enumerate(prompts):
+    for p in prompts:
         rec = {"prompt": p, "stream": [], "times": []}
 
         def cb(t, _lp, rec=rec):
@@ -2040,8 +2075,10 @@ def _fleet_submit(fleet, prompts, new, wait_first=0, block=True, **kw):
         rec["t_sub"] = time.monotonic()
         rec["fut"] = fleet.submit(p, max_new_tokens=new, on_token=cb,
                                   return_logprobs=True, **kw)
+        asg = getattr(getattr(rec["fut"], "_pt_req", None), "primary", None)
+        rec["placed"] = asg.replica if asg is not None else None
         recs.append(rec)
-        if i < wait_first:
+        if wait_on is not None and rec["placed"] == wait_on:
             t_end = time.monotonic() + 30
             while len(rec["stream"]) < 4 and time.monotonic() < t_end and \
                     not rec["fut"].done():
@@ -2182,7 +2219,12 @@ def _fleet_crash(run, prompts, later_prompts):
     """(b): r1 dies at its third submit (``replica_crash@name=r1&seq=3&
     inc=0``) with a request streaming; every request completes, each stream
     exactly its answer's tail; r1 is fenced, restarts and serves again; a
-    planted stitch that re-appends the emitted tokens fails the check."""
+    planted stitch that re-appends the emitted tokens fails the check.
+
+    The router picks r1 by its live load and prefix affinity, so which of
+    the requests reach r1 varies from run to run: each request placed on
+    r1 waits until it has streamed 4 tokens before the next goes, and so
+    the crash at r1's next submit meets a request mid-stream."""
     import threading
 
     from paddle_tpu_torch.serving import fleet as fl
@@ -2201,7 +2243,7 @@ def _fleet_crash(run, prompts, later_prompts):
     th = threading.Thread(target=watch, daemon=True)
     th.start()
     t0 = time.monotonic()
-    recs = _fleet_submit(fleet, prompts, FLEET_NEW, wait_first=4)
+    recs = _fleet_submit(fleet, prompts, FLEET_NEW, wait_on="r1")
     wall = time.monotonic() - t0
     stop = True
     th.join(timeout=5)
@@ -2241,7 +2283,9 @@ def _fleet_crash(run, prompts, later_prompts):
     if not caught or not all(caught):
         raise RuntimeError(f"serving-fleet (b): the planted re-appending "
                            f"stitch was not caught (emitted before the "
-                           f"crash per replayed request: {replayed})")
+                           f"crash per replayed request: {replayed}; "
+                           f"placed: {[r['placed'] for r in recs]}; "
+                           f"counters {c})")
     # the restarted replica serves later requests
     before = snap["replicas"]["r1"]["routed_since_ready"]
     later = _fleet_submit(fleet, later_prompts, FLEET_HEDGE_NEW)
@@ -2636,15 +2680,15 @@ def _dname(dtype):
 
 
 def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
-                    timed=True, with_dlse=False):
+                    timed=True, with_dlse=False, d=128):
     """dK/dV and dQ kernels at one shape against their plain versions on
-    fp32 copies of the same inputs. bf16 runs the tensor-core kernels, each
-    held to the bound of its roundings and timed beside the CUDA-core
-    kernel on the same inputs. Returns one row per kernel."""
+    fp32 copies of the same inputs. bf16 at head dim 64 or 128 runs the
+    tensor-core kernels, each held to the bound of its roundings and timed
+    beside the CUDA-core kernel on the same inputs. Returns one row per
+    kernel."""
     import torch
 
     fa = _flash_module()
-    d = 128
     scale = 1.0 / d ** 0.5
     sm90 = fa.takes_sm90(dtype, d)
     q, do = (_rand(gen, (bh, sq, d), dtype) for _ in range(2))
@@ -2688,7 +2732,8 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
     del rdq, f32
     _release()
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
-            "bh": bh, "sq": sq, "sk": sk, "offset": offset, "causal": causal}
+            "bh": bh, "sq": sq, "sk": sk, "d": d, "offset": offset,
+            "causal": causal}
     suffix = "_sm90" if sm90 else ""
     rows = [dict(base, kernel="flash_attention_bwd_dkv" + suffix,
                  max_abs_err=err_dkv, tol=SM90_TOL if sm90 else tol),
@@ -6809,7 +6854,9 @@ def phase_distributed(seed):
 # -- phase: the pipeline, the in-graph scaler, gradient merge, checkpoints ----
 
 PIPE_PP, PIPE_M, PIPE_ROWS, PIPE_SEQ = 4, 8, 8, 4096  # M = 8 x (1 x 4096)
-PIPE_LAYERS = 8          # Llama-2 7B's widths, depth cut from 32
+PIPE_LAYERS = 4          # Llama-2 7B's widths, depth cut from 32 (8 up to
+                         # PR 20; halved to make room for the DiT and
+                         # ResNet phases: one layer a stage)
 PIPE_GRAD_TOL = 1e-4     # fp32 twin: per-tensor ||g - ref|| / ||ref||
 PIPE_FAULTS = ("activation_grad_dropped", "microbatch_order_reversed")
 SCALER_KW = dict(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2,
@@ -7706,6 +7753,11 @@ LLAMA2_13B = dict(vocab_size=32000, hidden_size=5120, intermediate_size=13824,
                   rms_norm_eps=1e-5)
 L13B_BATCH = (1, 4096)
 L13B_STEPS = 3
+# its depth: what the host holds, at most this many layers (PR 20 ran the
+# 19 that fit; cut to make room for the DiT and ResNet phases, whose
+# ~65 s the script's time limit must absorb: the host pinning and the
+# steps scale with the layers)
+L13B_MAX_LAYERS = 8
 HOST_SPARE = 12 * 2 ** 30  # host memory left free beside the offloaded state
 
 
@@ -7893,7 +7945,7 @@ def _offload_13b(seed):
     edge = llama_param_count(one) - per_layer
     avail = _mem_available()
     fit = int((avail - HOST_SPARE - 12 * edge) // (12 * per_layer))
-    layers = max(1, min(full.num_hidden_layers, fit))
+    layers = max(1, min(full.num_hidden_layers, fit, L13B_MAX_LAYERS))
     cfg = LlamaConfig(**{**LLAMA2_13B, "num_hidden_layers": layers},
                       dtype="bfloat16", use_recompute=True)
     n_params = llama_param_count(cfg)
@@ -8120,11 +8172,10 @@ def _bert_graph_check(data, state0, seed):
     atomics, so two eager runs differ in their last bits (the word and
     token-type tables; PR 20's first card run read 7.5e-5 of an update
     after 3 steps). The check therefore runs both under
-    ``torch.use_deterministic_algorithms`` (its sorted embedding
-    backward), which makes it a comparison of the graph with eager; the
-    eager-against-eager reading without it is reported beside."""
-    import torch
-
+    ``FLAGS_cudnn_deterministic`` (torch's strict deterministic mode: its
+    sorted embedding backward), which makes it a comparison of the graph
+    with eager; the eager-against-eager reading without it is reported
+    beside."""
     import paddle_tpu_torch as P
     from paddle_tpu_torch import kernels
 
@@ -8148,21 +8199,19 @@ def _bert_graph_check(data, state0, seed):
     _l, _c, again = run(False)
     eager_same, eager_worst, _w = _agreement(again, ref0, state0)
     del ref0, again
-    prior = (torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
+    P.set_flags({"FLAGS_cudnn_deterministic": True})
     try:
         elosses, ecounts, ref = run(False)
         glosses, gcounts, got = run(True)
     finally:
-        torch.use_deterministic_algorithms(prior[0], warn_only=prior[1])
+        P.set_flags({"FLAGS_cudnn_deterministic": False})
     _exact("bert-graph-check-eager", ecounts, per_step, BERT_CHECK_STEPS)
     _exact("bert-graph-check-graph", gcounts, per_step,
            BERT_CHECK_STEPS + 1)
     same, worst, where = _agreement(got, ref, state0)
     row = {"phase": "bert-graph-check", "dtype": "float32",
            "steps": BERT_CHECK_STEPS, "eager_losses": elosses,
-           "graph_losses": glosses, "deterministic_algorithms": True,
+           "graph_losses": glosses, "flags_cudnn_deterministic": True,
            "bitwise": same and glosses == elosses, "max_rel_diff": worst,
            "max_rel_where": where,
            "eager_twice_bitwise_without_it": eager_same,
@@ -8446,6 +8495,617 @@ def phase_bert_finetune(seed):
     return {"bert-finetune": total}, rows
 
 
+# -- DiT-XL/2 training and DDIM sampling ---------------------------------------
+
+DIT_BATCH = 32            # cut from the paper's 256, as bench.py:2056's row
+DIT_SEED = 31
+DIT_LR = 1e-4             # bench.py:532-533: AdamW 1e-4, weight decay 0
+DIT_CHECK_STEPS = 2       # graph = eager under FLAGS_cudnn_deterministic
+DIT_GRAPH_STEPS = 8       # graphed calls timed (warm-up, capture, replays)
+DIT_EAGER_STEPS = 3
+DIT_SAMPLE_BATCH = 8
+DIT_SAMPLE_STEPS = 50
+DIT_GRAD_LAYERS = 2       # dit-grad-check: XL/2's widths, depth cut from 28
+DIT_GRAD_BATCH = 8
+DIT_GRAD_TOL = PARITY_GRAD_TOL    # fp32, ||g - ref|| / ||ref||
+DIT_LOSS_RTOL = PARITY_LOSS_RTOL
+# dit-sample: the first DDIM step's eps through the kernels against the
+# plain versions, ||eps - ref|| / ||ref||: both fp32, differing by the
+# attention's summation order through 28 layers
+DIT_EPS_TOL = 1e-4
+
+
+def _dit_model(cfg, seed):
+    """``DiT(cfg)`` on the card from ``seed``, its adaLN-Zero parameters
+    (each block's ``ada``, ``final_ada``, ``final_proj``: zeros in the
+    recipe, so a fresh DiT outputs exactly 0 and its attention receives no
+    gradient) overwritten with N(0, 0.02) draws from the seed."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models import DiT
+
+    P.seed(seed)
+    model = DiT(cfg)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 1)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.split(".")[-2] in ("ada", "final_ada", "final_proj"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen,
+                                           device=DEVICE))
+    return model
+
+
+def _dit_data(cfg, batch, seed):
+    """fp32 latents [batch, 4, 32, 32] and class labels from ``seed`` (the
+    bench's inputs: ``paddle.randn`` and ``randint``)."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    x = torch.randn(batch, cfg.in_channels, cfg.input_size, cfg.input_size,
+                    generator=gen, device=DEVICE)
+    y = torch.randint(0, cfg.num_classes, (batch,), generator=gen,
+                      device=DEVICE)
+    return x, y
+
+
+def _dit_step(model, diffusion, graph):
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(learning_rate=DIT_LR, parameters=model.parameters(),
+                weight_decay=0.0)
+    return TrainStep(model, lambda m, x, y: diffusion.training_loss(m, x, y),
+                     opt, graph=graph)
+
+
+def _dit_launches(L, train=True):
+    """{counter: launches a step}: every attention call is fp32 at head
+    dim 72 (the inputs and the timestep embedding are fp32, so the
+    products promote), so L forwards, L dK/dV and L dQ on the CUDA-core
+    flash kernels, none on the tensor-core ones, and AdamW's one update;
+    every other counter 0. A forward alone (``train=False``): L."""
+    from paddle_tpu_torch import kernels
+
+    per = {n: 0 for n in kernels.counters()}
+    per["flash_attention"] = L
+    if train:
+        per.update(flash_attention_bwd_dkv=L, flash_attention_bwd_dq=L,
+                   adam_update=1)
+    return per
+
+
+def _dit_group(name):
+    """DiT's device ms by group: the fp32 GEMMs, the flash kernels, AdamW
+    and the elementwise passes (LayerNorm, GELU, the modulation, casts)."""
+    g = _train_group(name)
+    if g.startswith("flash"):
+        return "flash"
+    return {"gemm": "sgemm", "optimizer": "adamw"}.get(g, "elementwise")
+
+
+def _dit_graph_check(cfg, state0, x, y, seed):
+    """Graph = eager: DIT_CHECK_STEPS steps eager and graphed (warm-up,
+    then the capture and its replay) from the same weights and default
+    generator state, both under ``FLAGS_cudnn_deterministic``: losses,
+    parameters and AdamW state bit for bit, launches exact; then one more
+    replay on the same batch must draw fresh t, noise and label drops (its
+    loss differs)."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import GaussianDiffusion
+
+    model = _dit_model(cfg, seed)
+    diffusion = GaussianDiffusion()
+    per_step = _dit_launches(cfg.num_hidden_layers)
+
+    def run(graph):
+        model.load_state_dict(state0)
+        torch.cuda.manual_seed(seed + 2)
+        step = _dit_step(model, diffusion, graph)
+        kernels.reset_counters()
+        losses = [float(step(x, y)) for _ in range(DIT_CHECK_STEPS)]
+        counts = _reckoned(step)
+        snap = _snapshot(model, step.optimizer)
+        fresh = float(step(x, y)) if graph else None
+        del step
+        _release()
+        return losses, counts, snap, fresh
+
+    P.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        elosses, ecounts, ref, _ = run(False)
+        glosses, gcounts, got, fresh = run(True)
+    finally:
+        P.set_flags({"FLAGS_cudnn_deterministic": False})
+    _exact("dit-graph-check-eager", ecounts, per_step, DIT_CHECK_STEPS)
+    same, worst, where = _agreement(got, ref, state0)
+    row = {"phase": "dit-graph-check", "steps": DIT_CHECK_STEPS,
+           "eager_losses": elosses, "graph_losses": glosses,
+           "flags_cudnn_deterministic": True,
+           "bitwise": same and glosses == elosses, "max_rel_diff": worst,
+           "max_rel_where": where, "replay_on_same_batch_loss": fresh,
+           "fresh_draws": fresh != glosses[-1]}
+    del got, ref, model
+    _release()
+    _emit(row)
+    if not (row["bitwise"] and row["fresh_draws"]):
+        raise RuntimeError(f"dit-graph-check: {row}")
+    # the graph's reckoned launches: the warm-up step, the capture (the
+    # wrappers run once while it records) and the replays
+    _exact("dit-graph-check-graph", gcounts, per_step, DIT_CHECK_STEPS + 1)
+    return _add_counts(ecounts, gcounts)
+
+
+def _dit_train(cfg, state0, x, y, seed):
+    """The main path: DIT_GRAPH_STEPS graphed calls, then DIT_EAGER_STEPS
+    eager steps on the same optimizer, each with its launches exact; step
+    ms, images/s, MFU by bench.py's FLOPs, peak GiB, device ms by group
+    and idle share of a profiled replay and of a profiled eager step."""
+    import math
+
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import GaussianDiffusion, dit_flops_per_image
+
+    model = _dit_model(cfg, seed)
+    model.load_state_dict(state0)
+    diffusion = GaussianDiffusion()
+    per_step = _dit_launches(cfg.num_hidden_layers)
+    flops = dit_flops_per_image(cfg)
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.manual_seed(seed + 3)
+    gstep = _dit_step(model, diffusion, graph=True)
+    kernels.reset_counters()
+    losses, ms = [], []
+    for _ in range(DIT_GRAPH_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(gstep(x, y)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    gcounts = _reckoned(gstep)  # the capture's wrapper calls count once
+    _exact("dit-train-graph", gcounts, per_step, DIT_GRAPH_STEPS + 1)
+    gpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gprof = _step_profile(lambda: gstep(x, y), _dit_group)
+    losses.append(float(gstep(x, y)))
+    estep = TrainStep(model, gstep.loss_fn, gstep.optimizer, graph=False)
+    del gstep
+    _release()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    ems = []
+    for _ in range(DIT_EAGER_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(estep(x, y)))
+        ems.append((time.perf_counter() - t0) * 1e3)
+    ecounts = kernels.counters()
+    _exact("dit-train-eager", ecounts, per_step, DIT_EAGER_STEPS)
+    epeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eprof = _step_profile(lambda: estep(x, y), _dit_group)
+    del estep, model
+    _release()
+
+    def figures(step_ms, peak, prof):
+        ips = DIT_BATCH / step_ms * 1e3
+        return {"step_ms": step_ms, "images_per_s": ips,
+                "mfu": ips * flops / PEAK_FLOPS["bfloat16"],
+                "mfu_fp32_peak": ips * flops / PEAK_FLOPS["float32"],
+                "peak_mem_gb": peak, "device_ms": prof["device_ms"],
+                "events_ms": prof["events_ms"],
+                "idle_share": prof["idle_share"],
+                "groups_ms": prof["groups_ms"], "top": prof["top"]}
+
+    graph_ms = ms[2:]
+    row = {"phase": "dit-train", "model": "DiT-XL/2",
+           "card": _nvidia_smi(), "batch": DIT_BATCH,
+           "latent": [cfg.in_channels, cfg.input_size, cfg.input_size],
+           "layers": cfg.num_hidden_layers, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads, "dtype": cfg.dtype,
+           "flops_per_image": flops, "losses": losses,
+           "graph": figures(sum(graph_ms) / len(graph_ms), gpeak, gprof),
+           "graph_step_ms_each": ms,
+           "eager": figures(sum(ems[1:]) / len(ems[1:]), epeak, eprof),
+           "eager_step_ms_each": ems,
+           "launches_per_step": {n: c for n, c in per_step.items() if c}}
+    _emit(row)
+    tail = losses[-3:]
+    if not all(math.isfinite(v) for v in losses) or \
+            not sum(tail) / len(tail) < losses[0]:
+        raise RuntimeError(f"dit-train: loss not finite and falling "
+                           f"{losses}")
+    return _add_counts(gcounts, ecounts), row
+
+
+def _dit_sample(cfg, state0, seed):
+    """``ddim_sample`` on DiT-XL/2, DIT_SAMPLE_STEPS steps at eta 0, batch
+    DIT_SAMPLE_BATCH: images/s, exactly steps x L flash forward launches
+    on the CUDA-core kernel and nothing else, two runs of one seed equal
+    bit for bit; then the first step's eps through the kernels against the
+    same forward through the plain versions."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import GaussianDiffusion
+
+    model = _dit_model(cfg, seed)
+    model.load_state_dict(state0)
+    diffusion = GaussianDiffusion()
+    L = cfg.num_hidden_layers
+    shape = (DIT_SAMPLE_BATCH, cfg.in_channels, cfg.input_size,
+             cfg.input_size)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 4)
+    y = torch.randint(0, cfg.num_classes, (DIT_SAMPLE_BATCH,), generator=gen,
+                      device=DEVICE)
+    kernels.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = diffusion.ddim_sample(model, shape, y, steps=DIT_SAMPLE_STEPS,
+                              eta=0.0, seed=seed)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.counters()
+    per = _dit_launches(L, train=False)
+    _exact("dit-sample", counts, per, DIT_SAMPLE_STEPS)
+    b = diffusion.ddim_sample(model, shape, y, steps=DIT_SAMPLE_STEPS,
+                              eta=0.0, seed=seed)
+    same = torch.equal(a, b)
+    finite = bool(torch.isfinite(a).all()) and tuple(a.shape) == shape
+    # the first step: x_T as the sampler draws it, t = T - 1
+    g2 = torch.Generator(device=DEVICE)
+    g2.manual_seed(seed)
+    xt = torch.randn(shape, generator=g2, device=DEVICE)
+    t = torch.full((shape[0],), diffusion.T - 1, dtype=torch.int64,
+                   device=DEVICE)
+    model.eval()
+    with torch.no_grad():
+        eps = model(xt, t, y)
+        with _swapped(_plain_swaps()):
+            ref = model(xt, t, y)
+    eps_rel = ((eps - ref).norm() / ref.norm()).item()
+    del model, a, b, eps, ref
+    _release()
+    row = {"phase": "dit-sample", "model": "DiT-XL/2", "eta": 0.0,
+           "steps": DIT_SAMPLE_STEPS, "batch": DIT_SAMPLE_BATCH,
+           "seconds": secs, "images_per_s": DIT_SAMPLE_BATCH / secs,
+           "ms_per_step": secs / DIT_SAMPLE_STEPS * 1e3,
+           "flash_launches": counts["flash_attention"]["launches"],
+           "flash_launches_expected": DIT_SAMPLE_STEPS * L,
+           "same_seed_bitwise": same, "finite": finite,
+           "first_eps_rel_l2": eps_rel, "eps_tol": DIT_EPS_TOL}
+    _emit(row)
+    if not (same and finite and eps_rel <= DIT_EPS_TOL):
+        raise RuntimeError(f"dit-sample: {row}")
+    return counts
+
+
+def _dq_first64():
+    """A planted fault on the d 72 path: a dQ kernel that handles only the
+    first 64 head dims (the rest of each row left 0)."""
+    fa = _flash_module()
+    real = fa.flash_attention_bwd_dq
+
+    def first64(*a):
+        dq = real(*a)
+        dq[..., 64:] = 0
+        return dq
+    return [(fa, "flash_attention_bwd_dq", first64)]
+
+
+def _dit_grad_check(seed):
+    """fp32 at XL/2's widths, depth DIT_GRAD_LAYERS: one step's loss and
+    every gradient through the kernels (t and noise drawn once, given to
+    both) against the same step with every kernel wrapper swapped for its
+    plain version, and the planted ``_dq_first64`` fault, which the check
+    must catch."""
+    import torch
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import DiTConfig, GaussianDiffusion
+
+    cfg = DiTConfig.dit_xl_2(num_hidden_layers=DIT_GRAD_LAYERS)
+    model = _dit_model(cfg, seed)
+    diffusion = GaussianDiffusion()
+    x, y = _dit_data(cfg, DIT_GRAD_BATCH, seed + 5)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 6)
+    t = torch.randint(0, diffusion.T, (DIT_GRAD_BATCH,), generator=gen,
+                      device=DEVICE)
+    noise = torch.randn(x.shape, generator=gen, device=DEVICE)
+    model.y_embed.dropout_prob = 0.0  # the same labels in both runs
+
+    def loss_and_grads():
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss = diffusion.training_loss(model, x, y, t, noise)
+        loss.backward()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    with _swapped(_plain_swaps()):
+        loss_p, grads_p = loss_and_grads()
+    kernels.reset_counters()
+    loss_k, grads_k = loss_and_grads()
+    counts = kernels.counters()
+    L = cfg.num_hidden_layers
+    want = {"flash_attention": L, "flash_attention_bwd_dkv": L,
+            "flash_attention_bwd_dq": L}
+    wrong = {n: c for n, c in counts.items() if c["plain_calls"] or
+             c["launches"] != want.get(n, 0)}
+    if wrong:
+        raise RuntimeError(f"dit-grad-check: launches {wrong}")
+    errs = _grad_errors(grads_k, grads_p)
+    del grads_k
+    with _swapped(_dq_first64()):
+        _l, grads_f = loss_and_grads()
+    fault = max(_grad_errors(grads_f, grads_p).values())
+    del grads_f, grads_p, model
+    _release()
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    row = {"phase": "dit-grad-check", "dtype": "float32",
+           "layers": L, "hidden": cfg.hidden_size,
+           "head_dim": cfg.hidden_size // cfg.num_attention_heads,
+           "batch": DIT_GRAD_BATCH, "loss_kernels": loss_k,
+           "loss_plain": loss_p, "loss_rel_err": loss_rel,
+           "loss_rtol": DIT_LOSS_RTOL,
+           "grad_rel_l2_max": max(errs.values()),
+           "grad_worst": _worst(errs), "grad_tol": DIT_GRAD_TOL,
+           "params_checked": len(errs),
+           "fault_dq_first64_grad_rel_l2": fault,
+           "fault_caught": fault > DIT_GRAD_TOL,
+           "launches": {n: counts[n]["launches"] for n in want}}
+    _emit(row)
+    if not (loss_rel <= DIT_LOSS_RTOL and
+            max(errs.values()) <= DIT_GRAD_TOL and row["fault_caught"]):
+        raise RuntimeError(f"dit-grad-check: {row}")
+    return counts
+
+
+def phase_dit(seed):
+    """DiT-XL/2 (Peebles & Xie 2023 Table 1: 28 layers, hidden 1152, 16
+    heads, patch 2, 32 x 32 x 4 latents; bench.py:1876-1878's
+    ``dtype="bfloat16"``, fp32 inputs, AdamW 1e-4 with weight decay 0,
+    batch 32): the graph = eager check, the graphed and eager steps, the
+    DDIM sampler, the depth-2 fp32 gradient check, and the flash kernels'
+    rows at DiT's attention shape (fp32, bh 512, 256 x 256, d 72) beside
+    SDPA in fp32. Returns ({path: counters}, rows)."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models import DiTConfig, dit_param_count
+
+    t0 = time.perf_counter()
+    prior = P.get_device()
+    P.set_device("gpu")
+    try:
+        _release()
+        s = seed + DIT_SEED
+        cfg = DiTConfig.dit_xl_2(dtype="bfloat16")
+        model = _dit_model(cfg, s)
+        state0 = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
+        del model
+        x, y = _dit_data(cfg, DIT_BATCH, s + 7)
+        check = _dit_graph_check(cfg, state0, x, y, s)
+        train, train_row = _dit_train(cfg, state0, x, y, s)
+        sample = _dit_sample(cfg, state0, s)
+        del state0, x, y
+        _release()
+        grad = _dit_grad_check(s)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(s + 8)
+        bh = DIT_BATCH * cfg.num_attention_heads
+        n_tok = (cfg.input_size // cfg.patch_size) ** 2
+        d = cfg.hidden_size // cfg.num_attention_heads
+        rows = [_flash_case("dit-d72-float32", torch.float32, bh, n_tok,
+                            n_tok, False, gen, d=d)]
+        rows += _flash_bwd_case("dit-d72-float32", torch.float32, bh, n_tok,
+                                n_tok, 0, False, gen, d=d)
+        _release()
+        _emit({"phase": "dit", "ok": True, "model": "DiT-XL/2",
+               "card": _nvidia_smi(), "params": dit_param_count(cfg),
+               "graph_step_ms": train_row["graph"]["step_ms"],
+               "images_per_s": train_row["graph"]["images_per_s"],
+               "mfu": train_row["graph"]["mfu"],
+               "peak_mem_gb": train_row["graph"]["peak_mem_gb"],
+               "seconds": time.perf_counter() - t0})
+    finally:
+        P.set_device(prior)
+    return {"dit-graph-check": check, "dit-train": train,
+            "dit-sample": sample, "dit-grad-check": grad}, rows
+
+
+# -- ResNet-18 on CIFAR-10's shape ---------------------------------------------
+
+RESNET_BATCH = 128        # bench.py:782-808's throughput batch
+RESNET_LR = 0.05
+RESNET_STEPS = 20         # graphed calls timed
+RESNET_CURVE = (12, 32, 0.01)  # bench.py:750-777: steps, batch, lr
+RESNET_SEED = 41
+
+
+def _surrogate_cifar(n, seed):
+    """The CIFAR-10 stand-in of ``bench.py:737-747``: 10 fixed class
+    prototypes plus Gaussian noise, 32 x 32."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    protos = rng.randn(10, 3, 32, 32).astype("float32")
+    ys = rng.randint(0, 10, n).astype("int64")
+    xs = (protos[ys] + 0.7 * rng.randn(n, 3, 32, 32)).astype("float32")
+    return xs, ys
+
+
+def _resnet_group(name):
+    """ResNet's device ms by group: cuDNN's convolutions (and the GEMMs it
+    runs them as), the BatchNorm moments (reductions), pooling, the
+    Momentum update, and the elementwise passes."""
+    low = name.lower()
+    if "rule_kernel" in low:
+        return "momentum"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "wgrad",
+                              "dgrad", "fprop", "winograd", "gemm", "nvjet",
+                              "cutlass", "sm90_", "sm80_")):
+        return "cudnn_conv"
+    if "reduce" in low:
+        return "bn_moments"
+    if "pool" in low:
+        return "pool"
+    return "elementwise"
+
+
+def _resnet_step(model, lr, graph):
+    import paddle_tpu_torch.nn.functional as PF
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+
+    opt = Momentum(learning_rate=lr, momentum=0.9,
+                   parameters=model.parameters())
+    return TrainStep(model, lambda m, a, b: PF.cross_entropy(m(a), b), opt,
+                     graph=graph)
+
+
+def _resnet_launches():
+    from paddle_tpu_torch import kernels
+
+    per = {n: 0 for n in kernels.counters()}
+    per["momentum_update"] = 1
+    return per
+
+
+def _resnet_curve(seed):
+    """bench.py's CPU-reference curve (12 steps of batch 32, Momentum
+    0.01) eager and graphed from the same weights under
+    ``FLAGS_cudnn_deterministic``: losses, parameters and BatchNorm buffers
+    bit for bit, launches exact."""
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.vision.models import resnet18
+
+    steps, batch, lr = RESNET_CURVE
+    xs, ys = _surrogate_cifar(steps * batch, seed)
+    xs, ys = torch.from_numpy(xs).to(DEVICE), torch.from_numpy(ys).to(DEVICE)
+    P.seed(seed)
+    model = resnet18(num_classes=10)
+    state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    per = _resnet_launches()
+
+    def run(graph):
+        model.load_state_dict(state0)
+        step = _resnet_step(model, lr, graph)
+        kernels.reset_counters()
+        losses = [float(step(xs[i * batch:(i + 1) * batch],
+                             ys[i * batch:(i + 1) * batch]))
+                  for i in range(steps)]
+        counts = _reckoned(step)
+        out = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del step
+        _release()
+        return losses, counts, out
+
+    P.set_flags({"FLAGS_cudnn_deterministic": True})
+    try:
+        elosses, ecounts, ref = run(False)
+        glosses, gcounts, got = run(True)
+    finally:
+        P.set_flags({"FLAGS_cudnn_deterministic": False})
+    _exact("resnet18-curve-eager", ecounts, per, steps)
+    _exact("resnet18-curve-graph", gcounts, per, steps + 1)
+    diff = [k for k in ref if not torch.equal(ref[k], got[k])]
+    buffers = [k for k in ref if k.endswith(("_mean", "_variance"))]
+    moved = [k for k in buffers if not torch.equal(ref[k], state0[k])]
+    row = {"phase": "resnet18-curve", "steps": steps, "batch": batch,
+           "lr": lr, "eager_losses": elosses, "graph_losses": glosses,
+           "flags_cudnn_deterministic": True,
+           "bitwise": not diff and elosses == glosses,
+           "tensors_differing": diff[:5], "bn_buffers": len(buffers),
+           "bn_buffers_equal": not any(k in diff for k in buffers),
+           "bn_buffers_moved": len(moved)}
+    _emit(row)
+    if not (row["bitwise"] and len(moved) == len(buffers) and
+            elosses[-1] < elosses[0]):
+        raise RuntimeError(f"resnet18-curve: {row}")
+    return _add_counts(ecounts, gcounts)
+
+
+def phase_resnet(seed):
+    """ResNet-18 on CIFAR-10's shape (bench.py:782-808: ``resnet18(
+    num_classes=10)``, Momentum 0.05 / 0.9, batch 128 of 32 x 32 surrogate
+    images from the seed, fp32 with TF32 off as ``main`` sets it),
+    graphed: step ms, images/s, peak GiB, device ms by group and idle
+    share, launches exact; the 12-step curve eager = graphed bit for bit
+    under the flag with the BatchNorm buffers; ``pretrained=True``
+    raises. Returns {path: counters}."""
+    import math
+
+    import torch
+
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.vision.models import resnet18
+
+    t0 = time.perf_counter()
+    prior = P.get_device()
+    P.set_device("gpu")
+    try:
+        _release()
+        s = seed + RESNET_SEED
+        curve = _resnet_curve(s)
+        xs, ys = _surrogate_cifar(RESNET_BATCH, s + 1)
+        x, y = torch.from_numpy(xs).to(DEVICE), torch.from_numpy(ys).to(
+            DEVICE)
+        P.seed(s)
+        model = resnet18(num_classes=10)
+        per = _resnet_launches()
+        torch.cuda.reset_peak_memory_stats()
+        step = _resnet_step(model, RESNET_LR, graph=True)
+        kernels.reset_counters()
+        losses, ms = [], []
+        for _ in range(RESNET_STEPS):
+            t1 = time.perf_counter()
+            losses.append(float(step(x, y)))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        counts = _reckoned(step)
+        _exact("resnet18-cifar", counts, per, RESNET_STEPS + 1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = _step_profile(lambda: step(x, y), _resnet_group)
+        del step, model
+        _release()
+        try:
+            resnet18(pretrained=True)
+            refused = False
+        except ValueError:
+            refused = True
+        step_ms = sum(ms[2:]) / len(ms[2:])
+        row = {"phase": "resnet18-cifar", "card": _nvidia_smi(),
+               "batch": RESNET_BATCH, "lr": RESNET_LR, "dtype": "float32",
+               "tf32": torch.backends.cudnn.allow_tf32, "step_ms": step_ms,
+               "step_ms_each": ms,
+               "images_per_s": RESNET_BATCH / step_ms * 1e3,
+               "peak_mem_gb": peak, "device_ms": prof["device_ms"],
+               "events_ms": prof["events_ms"],
+               "idle_share": prof["idle_share"],
+               "groups_ms": prof["groups_ms"], "top": prof["top"],
+               "losses": losses, "pretrained_refused": refused,
+               "seconds": time.perf_counter() - t0}
+        _emit(row)
+        if not (refused and all(math.isfinite(v) for v in losses) and
+                losses[-1] < losses[0]):
+            raise RuntimeError(f"resnet18-cifar: {row}")
+    finally:
+        P.set_device(prior)
+    return {"resnet18-curve": curve, "resnet18-cifar": counts}
+
+
 def _kernels_line(rows, paths):
     """One entry per kernel for the ``kernels`` line: its representative
     case's times and bound, the largest error over all its cases, and its
@@ -8631,6 +9291,17 @@ def _kernels_line(rows, paths):
             entry["bert"] = {key: bert[key] for key in (
                 "case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err")}
+        dit = next((x for x in rows if x["kernel"] == name and
+                    x["case"].startswith("dit-")), None)
+        if dit is not None:
+            # the CUDA-core kernels at DiT-XL/2's attention (fp32, bh 512,
+            # 256 x 256, d 72), beside SDPA in fp32 and the fp32 bound
+            entry["dit"] = {key: dit[key] for key in (
+                "case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "max_abs_err")}
+            entry["dit"]["launches"] = sum(
+                c[n]["launches"] for p, c in paths.items()
+                if p.startswith("dit-") for n in counters)
         if name == "rope":
             # the inverse as the training step runs it: on the cotangent's
             # [b, s, h, d] view of [b, h, s, d], read in place
@@ -8714,6 +9385,9 @@ def main() -> int:
     offload = phase_offload(SEED)
     bert, bert_rows = phase_bert_finetune(SEED)
     rows += bert_rows
+    dit, dit_rows = phase_dit(SEED)
+    rows += dit_rows
+    resnet = phase_resnet(SEED)
 
     _emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
@@ -8730,7 +9404,7 @@ def main() -> int:
         "finetune-fp32": finetune_fp32, "gpt-training": gpt,
         "gpt-training-eager": gpt_eager, "gpt-graph-check": gpt_graph_check,
         "llama-cache": llama_cache, **bench, **distributed,
-        **pipeline, **moe_mesh, **offload, **bert})})
+        **pipeline, **moe_mesh, **offload, **bert, **dit, **resnet})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

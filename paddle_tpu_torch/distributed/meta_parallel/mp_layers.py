@@ -26,7 +26,10 @@ rows, a rank holding its heads' rows of each) carries ``mp_blocks``
 At mp = 1 each layer is exactly ``F.linear`` / ``F.embedding``: it issues
 no collective and makes the same call as ``nn.Linear`` / ``nn.Embedding``
 (which they subclass), so a model built from them steps bit for bit as
-one built from torch's layers.
+one built from torch's layers. An input whose float dtype differs from
+the weight's is promoted first, as the JAX layers' ``jnp.matmul`` does
+(``ops.linalg.linear_out_in``: an fp32 input against a bf16 weight gives
+fp32, and a bf16 gradient for the weight).
 
 ``weight_attr`` / ``bias_attr`` (a ``ParamAttr``, an initializer or a name;
 ``bias_attr=False``: no bias) draw the parameter through
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import parametrize
 
+from ...ops.linalg import linear_out_in
 from ..collective import Group, all_gather_dim
 from ..mesh import get_mesh_env
 
@@ -273,8 +277,8 @@ class ColumnParallelLinear(nn.Linear):
 
     def forward(self, x):
         if self._pg is None:
-            return F.linear(x, self.weight, self.bias)
-        y = F.linear(copy_to_group(x, self._pg), self.weight, self.bias)
+            return linear_out_in(x, self.weight, self.bias)
+        y = linear_out_in(copy_to_group(x, self._pg), self.weight, self.bias)
         return gather_from_group(y, self._pg) if self.gather_output else y
 
 
@@ -304,10 +308,10 @@ class RowParallelLinear(nn.Linear):
 
     def forward(self, x):
         if self._pg is None:
-            return F.linear(x, self.weight, self.bias)
+            return linear_out_in(x, self.weight, self.bias)
         if not self.input_is_parallel:
             x = scatter_to_group(x, self._pg)
-        y = reduce_from_group(F.linear(x, self.weight), self._pg)
+        y = reduce_from_group(linear_out_in(x, self.weight), self._pg)
         return y if self.bias is None else y + self.bias
 
 

@@ -19,6 +19,23 @@ __all__ = ["bool_", "uint8", "int8", "int16", "int32", "int64", "float16",
            "set_default_dtype", "is_floating", "is_integer", "iinfo",
            "finfo"]
 
+
+
+def promoted(*tensors):
+    """The tensors (``None`` passes through) cast to their common dtype,
+    as ``jnp.matmul`` and ``jnp``'s arithmetic promote mixed operands: an
+    fp32 input against a bf16 weight gives fp32, and a gradient flows back
+    to the bf16 operand in bf16. Operands of one dtype come back as they
+    are, with no cast launched."""
+    real = [t for t in tensors if t is not None]
+    dt = real[0].dtype
+    for t in real[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    if all(t.dtype == dt for t in real):
+        return tensors
+    return tuple(None if t is None else t.to(dt) for t in tensors)
+
+
 bool_ = torch.bool
 uint8 = torch.uint8
 int8 = torch.int8

@@ -33,6 +33,17 @@ only the tensor-parallel layers' weights (each layer's ``qkv``,
 the paddle ``nn.Linear`` weights (pooler, heads) stay ``[in, out]``, as the
 port's ``nn.Linear`` holds them.
 
+``dit_state_from_numpy`` does it for the JAX ``DiT``: each block's
+tensor-parallel ``qkv``, ``proj``, ``fc1`` and ``fc2`` weights are
+transposed to ``[out, in]``; the ``nn.Linear`` ones (``patch_proj``, the
+timestep MLP, ``ada``, ``final_ada``, ``final_proj``) stay ``[in, out]``.
+
+``resnet_state_from_numpy`` does it for the JAX vision ``ResNet``: the
+names and layouts are the same in both packages (conv kernels OIHW, the
+head's ``nn.Linear`` ``[in, out]``, each BatchNorm's ``_mean`` and
+``_variance`` buffers beside its weight and bias), so it only checks the
+entries and makes tensors.
+
 ``gpt_engine_params`` reads a model's live weights into the nested dict the
 serving window step takes (the counterpart of the JAX engine's
 ``_extract_gpt_params``), with Linear weights in ``[out, in]`` for
@@ -50,7 +61,8 @@ from .gpt import GPTConfig, gpt_mp_dim, gpt_shard
 from .llama import LlamaConfig
 
 __all__ = ["gpt_state_from_numpy", "gpt_engine_params",
-           "bert_state_from_numpy",
+           "bert_state_from_numpy", "dit_state_from_numpy",
+           "resnet_state_from_numpy",
            "llama_state_from_numpy", "llama_mp_dim", "llama_ep_dim",
            "shard_llama_state", "gather_llama_state", "shard_gpt_state",
            "gather_gpt_state"]
@@ -124,6 +136,40 @@ def bert_state_from_numpy(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 parts[-2] in _BERT_MP and ".layers." in name:
             a = a.T
         out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+_DIT_MP = ("qkv", "proj", "fc1", "fc2")
+
+
+def dit_state_from_numpy(flat: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{name: np.ndarray}`` of a JAX ``DiT`` -> a ``state_dict`` for the
+    port's (CPU tensors, the same names; loading casts them to the
+    model's device and dtype)."""
+    out = {}
+    for name, arr in flat.items():
+        a = _as_f32(arr)
+        parts = name.split(".")
+        if parts[0] == "blocks" and len(parts) == 4 and \
+                parts[2] in _DIT_MP and parts[3] == "weight":
+            a = a.T
+        out[name] = torch.from_numpy(np.ascontiguousarray(a))
+    return out
+
+
+def resnet_state_from_numpy(flat: Mapping[str, Any]
+                            ) -> Dict[str, torch.Tensor]:
+    """``{name: np.ndarray}`` of a JAX vision ``ResNet`` (parameters and
+    the BatchNorm buffers ``_mean`` / ``_variance``) -> a ``state_dict``
+    for the port's (CPU tensors; nothing is transposed). Raises on an
+    entry that is neither a parameter nor a BatchNorm buffer."""
+    out = {}
+    for name, arr in flat.items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf not in ("weight", "bias", "_mean", "_variance"):
+            raise KeyError(f"resnet_state_from_numpy: unexpected entry "
+                           f"{name!r}")
+        out[name] = torch.from_numpy(np.ascontiguousarray(_as_f32(arr)))
     return out
 
 

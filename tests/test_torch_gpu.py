@@ -2308,3 +2308,197 @@ def test_bert_eval_forward_runs_the_flash_kernel_at_bert_shape(cuda, dtype):
                     "bert flash forward")
         else:
             _close(o.cpu(), ref.cpu(), (0.0, 1e-4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(512, 256, 256, False), (7, 77, 131, True),
+                                   (5, 130, 64, False)],
+                         ids=["dit_xl2", "ragged_causal", "ragged"])
+def test_cuda_core_flash_kernels_at_head_dim_72(cuda, shape):
+    """DiT-XL/2's attention (fp32, head dim 1152 / 16 = 72, bh 32 x 16,
+    256 x 256) and ragged cases at d 72 run the CUDA-core forward, dK/dV
+    and dQ kernels (d 72 is not a tensor-core head dim), each against its
+    plain version on the same inputs: o within 1e-4, the gradients within
+    1e-4 relative + 1e-4 (fp32 sums over up to s terms in another order)."""
+    bh, sq, sk, causal = shape
+    d = 72
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, do = (torch.randn(bh, sq, d, generator=gen, device=cuda)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, generator=gen, device=cuda)
+            for _ in range(2))
+    off = sk - sq if causal else 0
+    scale = 1.0 / d ** 0.5
+    assert route(torch.float32, d, sq) == "cuda_core"
+    assert not takes_sm90(torch.float32, d)
+    reset_counters()
+    o, lse = flash_attention_fwd(q, k, v, off, causal, scale)
+    ro, rlse = flash_attention_plain(q, k, v, off, causal, scale)
+    _close(o.cpu(), ro.cpu(), (0.0, 1e-4))
+    _close(lse.cpu(), rlse.cpu(), (0.0, 1e-3))
+    delta = (do * ro).sum(-1)
+    args = (rlse, delta, off, causal, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    rdk, rdv = flash_attention_bwd_dkv_plain(q, k, v, do, *args)
+    rdq = flash_attention_bwd_dq_plain(q, k, v, do, *args)
+    for got, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
+        _close(got.cpu(), ref.cpu(), (1e-4, 1e-4))
+    counts = counters()
+    for n in ("flash_attention", "flash_attention_bwd_dkv",
+              "flash_attention_bwd_dq"):
+        assert counts[n] == {"launches": 1, "plain_calls": 0}, n
+        assert counts[n + "_sm90"]["launches"] == 0, n
+
+
+def _deterministic(on):
+    import paddle_tpu_torch as P
+
+    P.set_flags({"FLAGS_cudnn_deterministic": on})
+
+
+def _twice_under_the_flag(run):
+    """``run()`` twice from its own seeded start with
+    ``FLAGS_cudnn_deterministic`` on; the flag is turned off after."""
+    _deterministic(True)
+    try:
+        return run(), run()
+    finally:
+        _deterministic(False)
+
+
+@pytest.mark.gpu
+def test_two_eager_bert_steps_are_bit_for_bit_under_the_flag(cuda):
+    """BERT-base's width at 2 layers, fp32, dropout 0.1, the finetune
+    recipe, two eager steps on ids that repeat (the embedding backward sums
+    repeated rows): twice from the same weights and generator state, every
+    parameter and the losses equal bit for bit."""
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn as pnn
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import (BertConfig,
+                                         BertForSequenceClassification)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    prior = P.get_device()
+    P.set_device("gpu")
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        ids = torch.randint(1000, 1064, (16, 128), generator=gen,
+                            device=cuda)
+        labels = torch.randint(0, 2, (16,), generator=gen, device=cuda)
+
+        def run():
+            P.seed(4)
+            model = BertForSequenceClassification(
+                BertConfig(num_hidden_layers=2))
+            loss_fn = pnn.CrossEntropyLoss()
+            opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                        grad_clip=pnn.ClipGradByGlobalNorm(1.0))
+            step = TrainStep(model, lambda m, x, y: loss_fn(m(x), y), opt,
+                             graph=False)
+            losses = [float(step(ids, labels)) for _ in range(2)]
+            return losses, {n: p.detach().clone()
+                            for n, p in model.named_parameters()}
+
+        (la, pa_), (lb, pb) = _twice_under_the_flag(run)
+    finally:
+        P.set_device(prior)
+    assert la == lb
+    for n in pa_:
+        assert torch.equal(pa_[n], pb[n]), n
+
+
+@pytest.mark.gpu
+def test_resnet18_steps_are_bit_for_bit_under_the_flag(cuda):
+    """ResNet-18 (10 classes) on 32 x 32 images, fp32, Momentum, two eager
+    steps twice under the flag: cuDNN's convolution backward and the
+    adaptive pooling's mean run deterministically (the strict mode would
+    raise on an operation without a deterministic form), and losses,
+    parameters and BatchNorm buffers equal bit for bit."""
+    import paddle_tpu_torch as P
+    import paddle_tpu_torch.nn.functional as PF
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    prior = P.get_device()
+    P.set_device("gpu")
+    try:
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        x = torch.randn(16, 3, 32, 32, generator=gen, device=cuda)
+        y = torch.randint(0, 10, (16,), generator=gen, device=cuda)
+
+        def run():
+            P.seed(6)
+            model = resnet18(num_classes=10)
+            opt = Momentum(learning_rate=0.05, momentum=0.9,
+                           parameters=model.parameters())
+            step = TrainStep(model, lambda m, a, b: PF.cross_entropy(m(a), b),
+                             opt, graph=False)
+            losses = [float(step(x, y)) for _ in range(2)]
+            return losses, {n: t.detach().clone()
+                            for n, t in model.state_dict().items()}
+
+        (la, sa), (lb, sb) = _twice_under_the_flag(run)
+    finally:
+        P.set_device(prior)
+    assert la == lb
+    for n in sa:
+        assert torch.equal(sa[n], sb[n]), n
+
+
+@pytest.mark.gpu
+def test_dit_step_graph_equals_eager_under_the_flag(cuda):
+    """DiT-XL/2's widths at 2 layers, bf16 parameters (fp32 activations),
+    non-zero adaLN: two eager ``TrainStep`` steps and two graphed calls
+    (warm-up and the first replay) from the same weights and default
+    generator state draw the same t, noise and label drops, and give the
+    same losses and parameters bit for bit; a third replay on the same
+    batch draws fresh t and noise (its loss differs from the second's)."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import DiT, DiTConfig, GaussianDiffusion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    prior = P.get_device()
+    P.set_device("gpu")
+    try:
+        cfg = DiTConfig.dit_xl_2(num_hidden_layers=2, dtype="bfloat16")
+        P.seed(7)
+        model = DiT(cfg)
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if "ada" in n or "final_proj" in n:
+                    p.normal_(0.0, 0.02)
+        state0 = {k: v.clone() for k, v in model.state_dict().items()}
+        diffusion = GaussianDiffusion()
+        gen = torch.Generator(device=cuda).manual_seed(8)
+        x = torch.randn(4, 4, 32, 32, generator=gen, device=cuda)
+        y = torch.randint(0, 1000, (4,), generator=gen, device=cuda)
+
+        def run(graph):
+            model.load_state_dict(state0)
+            torch.cuda.manual_seed(9)
+            opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                        weight_decay=0.0)
+            step = TrainStep(model, lambda m, a, b:
+                             diffusion.training_loss(m, a, b), opt,
+                             graph=graph)
+            losses = [float(step(x, y)) for _ in range(2)]
+            params = {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+            if graph:  # one more replay on the same batch
+                losses.append(float(step(x, y)))
+            return losses, params
+
+        _deterministic(True)
+        try:
+            (le, pe), (lg, pg) = run(False), run(True)
+        finally:
+            _deterministic(False)
+    finally:
+        P.set_device(prior)
+    assert lg[:2] == le and lg[2] != lg[1]
+    for n in pe:
+        assert torch.equal(pe[n], pg[n]), n
