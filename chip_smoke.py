@@ -18,7 +18,10 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              tensor-core flash forward, dK/dV and dQ kernels (bf16, head
              dim 128) are held to the bound of their bf16 roundings of P
              and dS and timed beside the CUDA-core kernels on the same
-             inputs; the CUDA-core ones keep their fp32 cases. The
+             inputs; the fp32 cases run the 3xTF32 forward and dK/dV
+             (fp32 at head dims that are multiples of 8 up to 128), held to
+             the fp32 tolerances and timed beside PR 1's and PR 2's
+             CUDA-core kernels, and the CUDA-core dQ. The
              single-row split-K decode kernel is timed eager and in
              CUDA-graph replay beside the CUDA-core kernel and SDPA
              (both ways too) at bh 32 x 640 keys and at serving's
@@ -253,8 +256,9 @@ distributed — the distributed slice on one card: (a) a world-1 NCCL
              4 x 2048) against ``jit.TrainStep``: three steps' losses and
              every parameter bit for bit, eager and graphed, step ms side
              by side and the graph nodes the sharded step adds; (d) the
-             flash forward, dK/dV and dQ kernels (bf16 tensor-core, fp32
-             CUDA-core) at the ring's offsets (a chunk wholly in the
+             flash forward, dK/dV and dQ kernels (bf16 tensor-core; fp32
+             the 3xTF32 forward and dK/dV, the CUDA-core dQ) at the ring's
+             offsets (a chunk wholly in the
              future: o = 0, lse = -1e30, zero gradients exactly; the
              diagonal; wholly in the past; odd lengths; a nonzero lse
              cotangent) against their plain versions; (c) the ring and
@@ -318,22 +322,25 @@ bert-finetune — BERT-base (Devlin et al. 2019: L 12, H 768, A 12, FFN 3072,
              graphed steps in fp32 and in bf16: step ms,
              tokens/s, device ms, idle share, peak GiB, losses, MFU
              against the dtype's peak (67 / 989 TFLOP/s); (c) ``eval()``
-             without a mask: 12 flash forward launches a forward (the
-             CUDA-core kernel in fp32, ``flash_fwd_sm90.cu`` in bf16),
+             without a mask: 12 flash forward launches a forward
+             (``flash_fwd_tf32x3.cu`` in fp32, ``flash_fwd_sm90.cu`` in
+             bf16),
              each call and the logits held against the plain versions, and
              a padded batch with ``attention_mask`` through the
              composition; (d) fp32 with dropout 0: one step's gradients
              through the flash forward and both backward kernels against
              the plain versions, with a planted dQ fault caught; then the
-             flash forward timed at BERT's attention shape (bh 384, 128 x
-             128, d 64) beside SDPA.
+             flash forward (fp32 and bf16) and the fp32 backward timed at
+             BERT's attention shape (bh 384, 128 x 128, d 64) beside SDPA
+             and the CUDA-core kernels.
 
 dit        — DiT-XL/2 (Peebles & Xie 2023 Table 1: 28 layers, hidden
              1152, 16 heads, patch 2, 32 x 32 x 4 latents; random weights
              from the seed, the adaLN-Zero parameters drawn non-zero),
              ``dtype="bfloat16"`` with fp32 inputs as ``bench.py``'s DiT
-             row (so every activation is fp32 and attention runs the
-             CUDA-core flash kernels at head dim 72), AdamW 1e-4 without
+             row (so every activation is fp32 and attention runs the fp32
+             flash kernels at head dim 72: the 3xTF32 forward and dK/dV,
+             the CUDA-core dQ), AdamW 1e-4 without
              decay, batch 32 (cut from 256), through ``jit.TrainStep``
              over ``GaussianDiffusion.training_loss``: (a) graph = eager
              for 2 steps bit for bit under ``FLAGS_cudnn_deterministic``,
@@ -342,16 +349,27 @@ dit        — DiT-XL/2 (Peebles & Xie 2023 Table 1: 28 layers, hidden
              images/s, MFU (bench.py's FLOPs against 989 TFLOP/s, and
              against fp32's 67), peak GiB, device ms by group (SGEMM,
              flash, elementwise, AdamW), idle share, launches exact (28
-             flash forwards, 28 dK/dV, 28 dQ on the CUDA-core kernels, one
-             AdamW update a step), a finite falling loss; (c) ``ddim_sample``
+             3xTF32 flash forwards and dK/dV, 28 CUDA-core dQ, none on PR
+             1's forward or PR 2's dK/dV, one AdamW update a step), a
+             finite falling loss; (c) ``ddim_sample``
              with 50 steps at eta 0, batch 8: images/s, 50 x 28 forward
              launches, two runs of one seed equal bit for bit, the first
              step's eps against the plain versions; (d) fp32 at depth 2:
              every gradient against the plain versions and a planted fault
              (a dQ kernel that reads only the first 64 of the 72 head dims)
              caught; then the three flash kernels at DiT's attention
-             (fp32, bh 512, 256 x 256, d 72) beside SDPA in fp32 and their
-             fp32 bound.
+             (fp32, bh 512, 256 x 256, d 72), eager and in graph replay,
+             beside PR 1's and PR 2's CUDA-core kernels on the same inputs,
+             SDPA in fp32 and the plain versions, with the bound at the
+             3xTF32 rate (``bound_ms``) and at fp32's (``bound_fp32_ms``).
+gpt-d96    — the route left on PR 1's and PR 2's CUDA-core flash kernels:
+             GPT-3 Large's widths (Brown et al. 2020 Table 2.1: 1536, 16
+             heads of 96) at 2 layers, bf16, recompute, batch 2 x 2048
+             (head dim 96 has no tensor-core kernel): one step's gradients
+             against the plain-swapped step, eager and graphed steps with
+             exact launches (4 forwards, 2 dK/dV, 2 dQ on the CUDA-core
+             kernels, one AdamW update) and a falling loss, then the three
+             kernels timed at its attention shape beside SDPA.
 resnet     — ResNet-18 with 10 classes on 32 x 32 surrogate images from
              the seed (``bench.py``'s CIFAR-10 stand-in), fp32, TF32 off:
              bench.py's 12-step curve (Momentum 0.01, batch 32) eager =
@@ -375,7 +393,10 @@ import time
 
 PEAK_BYTES_S = 3.35e12                     # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense tensor-core bf16
-              "float32": 67e12}            # float32 outside the tensor cores
+              "float32": 67e12,            # float32 outside the tensor cores
+              # float32 on the tensor cores as three TF32 products a
+              # product (3xTF32; TF32 dense at 495 TFLOP/s)
+              "tf32x3": 495e12 / 3}
 DEVICE = "cuda"
 SEED = 0  # inputs and random weights are drawn from it
 # serving check of the bf16 32-layer model against its own forward: about
@@ -630,17 +651,28 @@ def _compare_bound(name, out, ref, bound):
     return diff.max().item(), (diff / bound).max().item()
 
 
+# the counter of each forward route (``flash_attention.route``)
+FLASH_FWD_COUNTERS = {"sm90": "flash_attention_sm90",
+                      "tf32x3": "flash_attention_tf32x3",
+                      "cuda_core": "flash_attention",
+                      "decode": "flash_attention_decode"}
 # the tensor-core kernels' tolerance, as the rows record it
 SM90_TOL = "2^-8|ref| + 2^-8 (P|V|, P^T|dO|, |dS^T||Q|, |dS||K|) + 1e-4"
 
 
 def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
     """The forward at one shape against its plain version on fp32 copies
-    of the same inputs. bf16 at head dim 64 or 128 with sq > 1 runs the
-    tensor-core kernel, held to its bound and timed beside the CUDA-core
-    kernel on the same inputs; the rest runs the CUDA-core kernel."""
+    of the same inputs, on the kernel ``route`` names. bf16 at head dim 64
+    or 128 with sq > 1 runs the tensor-core kernel, held to its bound and
+    timed beside the CUDA-core kernel on the same inputs; fp32 at a head
+    dim that is a multiple of 8 up to 128 the 3xTF32 kernel, held to 1e-4
+    and timed eager and in graph replay beside the CUDA-core kernel, with
+    its bound at the 3xTF32 rate (``bound_ms``) and at fp32's
+    (``bound_fp32_ms``); the rest runs the CUDA-core kernel."""
     import torch
     import torch.nn.functional as TF
+
+    from paddle_tpu_torch.kernels import counters, reset_counters
 
     fa = _flash_module()
     dev = DEVICE
@@ -649,9 +681,14 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
     v = torch.randn(bh, sk, d, generator=gen, device=dev).to(dtype)
     off = sk - sq if causal else 0
     scale = 1.0 / d ** 0.5
-    sm90 = fa.takes_sm90(dtype, d, sq)
+    which = fa.route(dtype, d, sq)
+    sm90 = which == "sm90"
+    name = FLASH_FWD_COUNTERS[which]
+    reset_counters()
     o, lse = fa.flash_attention_with_lse(q, k, v, off, causal, scale)
     torch.cuda.synchronize()
+    if counters()[name]["launches"] != 1:
+        raise RuntimeError(f"{name}[{label}]: not launched once")
     f32 = [t.float() for t in (q, k, v)]
     ro, rlse = fa.flash_attention_plain(*f32, off, causal, scale)
     if sm90:
@@ -660,9 +697,8 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
                                     bound)
         del bound
     else:
-        err, _rel = _compare(f"flash_attention[{label}]", o, ro, _tol(dtype))
-    lse_err, _ = _compare(f"flash_attention[{label}].lse", lse, rlse,
-                          (0.0, 1e-3))
+        err, _rel = _compare(f"{name}[{label}]", o, ro, _tol(dtype))
+    lse_err, _ = _compare(f"{name}[{label}].lse", lse, rlse, (0.0, 1e-3))
     del ro, rlse, f32
     _release()
     ms = _time_ms(lambda: fa.flash_attention_with_lse(q, k, v, off, causal,
@@ -680,9 +716,9 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
         else sq * sk
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * esz + bh * sq * 4
     flops = 4 * d * bh * pairs
-    bound_ms, bound_by = _bound(nbytes, flops, str(dtype).split(".")[1])
-    row = {"phase": "kernel",
-           "kernel": "flash_attention_sm90" if sm90 else "flash_attention",
+    bound_ms, bound_by = _bound(nbytes, flops, "tf32x3" if which == "tf32x3"
+                                else str(dtype).split(".")[1])
+    row = {"phase": "kernel", "kernel": name,
            "case": label, "dtype": str(dtype).split(".")[1], "bh": bh,
            "sq": sq, "sk": sk, "d": d, "causal": causal, "max_abs_err": err,
            "lse_max_abs_err": lse_err,
@@ -695,6 +731,15 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
             lambda: fa.flash_attention_fwd_cuda_core(q, k, v, off, causal,
                                                      scale), iters=5,
             warmup=1))
+    if which == "tf32x3":
+        # graph replay (no host time), PR 1's CUDA-core kernel on the same
+        # inputs, and the bound at fp32's rate on the CUDA cores
+        row.update(
+            graph_ms=_graph_ms(lambda: fa.flash_attention_fwd_tf32x3(
+                q, k, v, off, causal, scale)),
+            cuda_core_ms=_time_ms(lambda: fa.flash_attention_fwd_cuda_core(
+                q, k, v, off, causal, scale), iters=5, warmup=1),
+            bound_fp32_ms=_bound(nbytes, flops, "float32")[0])
     _emit(row)
     return row
 
@@ -2684,13 +2729,19 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
     """dK/dV and dQ kernels at one shape against their plain versions on
     fp32 copies of the same inputs. bf16 at head dim 64 or 128 runs the
     tensor-core kernels, each held to the bound of its roundings and timed
-    beside the CUDA-core kernel on the same inputs. Returns one row per
+    beside the CUDA-core kernel on the same inputs; fp32 at a head dim that
+    is a multiple of 8 up to 128 runs the 3xTF32 dK/dV kernel (timed eager
+    and in graph replay beside PR 2's on the same inputs, its bound at the
+    3xTF32 rate and at fp32's) and the CUDA-core dQ. Returns one row per
     kernel."""
     import torch
 
     fa = _flash_module()
     scale = 1.0 / d ** 0.5
     sm90 = fa.takes_sm90(dtype, d)
+    tf32x3 = fa.takes_tf32x3(dtype, d)
+    dkv_name = "flash_attention_bwd_dkv" + (
+        "_sm90" if sm90 else "_tf32x3" if tf32x3 else "")
     q, do = (_rand(gen, (bh, sq, d), dtype) for _ in range(2))
     k, v = (_rand(gen, (bh, sk, d), dtype) for _ in range(2))
     f32 = [t.float() for t in (q, k, v, do)]
@@ -2715,8 +2766,8 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         del bdk, bdv
     else:
         err_dkv = max(
-            _compare(f"flash_bwd_dkv[{label}].dk", dk, rdk, tol)[0],
-            _compare(f"flash_bwd_dkv[{label}].dv", dv, rdv, tol)[0])
+            _compare(f"{dkv_name}[{label}].dk", dk, rdk, tol)[0],
+            _compare(f"{dkv_name}[{label}].dv", dv, rdv, tol)[0])
     del rdk, rdv
     rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
     if sm90:
@@ -2735,7 +2786,7 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             "bh": bh, "sq": sq, "sk": sk, "d": d, "offset": offset,
             "causal": causal}
     suffix = "_sm90" if sm90 else ""
-    rows = [dict(base, kernel="flash_attention_bwd_dkv" + suffix,
+    rows = [dict(base, kernel=dkv_name,
                  max_abs_err=err_dkv, tol=SM90_TOL if sm90 else tol),
             dict(base, kernel="flash_attention_bwd_dq" + suffix,
                  max_abs_err=err_dq, tol=SM90_TOL if sm90 else tol)]
@@ -2758,6 +2809,14 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
                 lambda: fa.flash_attention_bwd_dq_cuda_core(q, k, v, do,
                                                             *args),
                 iters=3, warmup=1)
+        if tf32x3:  # graph replay, and PR 2's kernel on the same inputs
+            rows[0]["graph_ms"] = _graph_ms(
+                lambda: fa.flash_attention_bwd_dkv_tf32x3(q, k, v, do,
+                                                          *args))
+            rows[0]["cuda_core_ms"] = _time_ms(
+                lambda: fa.flash_attention_bwd_dkv_cuda_core(q, k, v, do,
+                                                             *args),
+                iters=3, warmup=1)
         rows[0]["plain_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, *args),
             iters=3, warmup=1)
@@ -2771,14 +2830,18 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         esz = q.element_size()
         pairs = bh * _visible_pairs(sq, sk, offset, causal)
         io = (2 * bh * sq * d + 2 * bh * sk * d) * esz + 2 * bh * sq * 4
-        for row, out_bytes, flops_per in (
-                (rows[0], 2 * bh * sk * d * esz, 8 * d),
-                (rows[1], bh * sq * d * esz, 6 * d)):
-            b_ms, b_by = _bound(io + out_bytes, flops_per * pairs,
-                                _dname(dtype))
+        for row, out_bytes, flops_per, rate in (
+                (rows[0], 2 * bh * sk * d * esz, 8 * d,
+                 "tf32x3" if tf32x3 else _dname(dtype)),
+                (rows[1], bh * sq * d * esz, 6 * d, _dname(dtype))):
+            b_ms, b_by = _bound(io + out_bytes, flops_per * pairs, rate)
             row.update(library_ms=lib, library_ms_spread=spread,
                        bound_ms=b_ms, bound_by=b_by, visible_pairs=pairs,
                        tflop_per_s=flops_per * pairs / row["kernel_ms"] / 1e9)
+            if rate == "tf32x3":
+                row["bound_fp32_ms"] = _bound(io + out_bytes,
+                                              flops_per * pairs,
+                                              "float32")[0]
     for row in rows:
         _emit(row)
     return rows
@@ -3221,12 +3284,13 @@ def _train_curve(model, state, ids, steps, finetune=False):
     return losses
 
 
-# the kernels of the dense training step in fp32 (the parity phases; bf16
-# takes the tensor-core flash forward, dK/dV and dQ instead of the CUDA-core
-# ones), and their launches per bf16 step as reckoned from the code:
-# recompute runs every layer's forward twice, the final norm adds one
-# forward and one backward
-DENSE_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd_dkv",
+# the kernels of the dense training step in fp32 (the parity phases: the
+# 3xTF32 flash forward and dK/dV and the CUDA-core dQ; bf16 takes the
+# tensor-core flash forward, dK/dV and dQ instead), and their launches per
+# bf16 step as reckoned from the code: recompute runs every layer's forward
+# twice, the final norm adds one forward and one backward
+DENSE_TRAIN_KERNELS = ("flash_attention_tf32x3",
+                       "flash_attention_bwd_dkv_tf32x3",
                        "flash_attention_bwd_dq", "rms_norm",
                        "rms_norm_residual", "rms_norm_bwd",
                        "rms_norm_residual_bwd", "rope", "rope_inverse")
@@ -3333,6 +3397,8 @@ def _train_group(name):
                        ("flash_fwd_sm90", "flash_fwd_sm90"),
                        ("flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90"),
                        ("flash_bwd_dq_sm90", "flash_bwd_dq_sm90"),
+                       ("flash_fwd_tf32x3", "flash_fwd_tf32x3"),
+                       ("flash_bwd_dkv_tf32x3", "flash_bwd_dkv_tf32x3"),
                        ("flash_fwd_kernel", "flash_fwd"),
                        ("flash_bwd_dkv", "flash_bwd_dkv"),
                        ("flash_bwd_dq", "flash_bwd_dq"),
@@ -3509,6 +3575,8 @@ GRAPH_NODES = [
     (("flash_fwd_sm90_kernel",), ("flash_attention_sm90",)),
     (("flash_bwd_dkv_sm90_kernel",), ("flash_attention_bwd_dkv_sm90",)),
     (("flash_bwd_dq_sm90_kernel",), ("flash_attention_bwd_dq_sm90",)),
+    (("flash_fwd_tf32x3_kernel",), ("flash_attention_tf32x3",)),
+    (("flash_bwd_dkv_tf32x3_kernel",), ("flash_attention_bwd_dkv_tf32x3",)),
     (("rmsnorm_fwd_vec_kernel", "rmsnorm_fwd_scalar_kernel"),
      ("rms_norm", "rms_norm_residual")),
     (("rmsnorm_bwd_vec_kernel", "rmsnorm_bwd_kernel"),
@@ -6695,7 +6763,9 @@ def _ring_phase(seed):
                 "flash_attention_bwd_dkv_sm90": per,
                 "flash_attention_bwd_dq_sm90": per,
                 "flash_attention": 0, "flash_attention_bwd_dkv": 0,
-                "flash_attention_bwd_dq": 0, "flash_attention_decode": 0}
+                "flash_attention_bwd_dq": 0, "flash_attention_decode": 0,
+                "flash_attention_tf32x3": 0,
+                "flash_attention_bwd_dkv_tf32x3": 0}
         seen = {n: counts[n]["launches"] for n in want}
         plain = sum(c["plain_calls"] for c in counts.values())
         if seen != want or plain:
@@ -6753,7 +6823,8 @@ def _ring_phase(seed):
 
 def _offset_case(label, dtype, s, offset, gen, with_dlse):
     """(d) The forward, dK/dV and dQ kernels (bf16: tensor cores; fp32:
-    CUDA cores) on one ring step's chunk pair at ``offset`` against their
+    the 3xTF32 forward and dK/dV, the CUDA-core dQ) on one ring step's
+    chunk pair at ``offset`` against their
     plain versions; a chunk wholly in the future must give o = 0, lse =
     -1e30 and dQ = dK = dV = 0 exactly. Returns kernel rows."""
     import torch
@@ -6799,13 +6870,14 @@ def _offset_case(label, dtype, s, offset, gen, with_dlse):
             raise RuntimeError(f"{label}: a chunk wholly in the future gave "
                                f"nonzero o/dQ/dK/dV or lse != -1e30")
     suffix = "_sm90" if sm90 else ""
+    tf32x3 = "_tf32x3" if fa.takes_tf32x3(dtype, d, s) else ""
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
             "bh": bh, "sq": s, "sk": s, "offset": offset, "causal": True,
             "dlse": with_dlse, "exact_zeros": exact,
             "tol": SM90_TOL if sm90 else _tol(dtype)}
-    rows = [dict(base, kernel="flash_attention" + suffix,
+    rows = [dict(base, kernel="flash_attention" + (suffix or tf32x3),
                  max_abs_err=errs[0], lse_max_abs_err=lse_err),
-            dict(base, kernel="flash_attention_bwd_dkv" + suffix,
+            dict(base, kernel="flash_attention_bwd_dkv" + (suffix or tf32x3),
                  max_abs_err=errs[1]),
             dict(base, kernel="flash_attention_bwd_dq" + suffix,
                  max_abs_err=errs[2])]
@@ -8271,7 +8343,7 @@ def _bert_steps(dtype, data, seed):
 
 def _bert_eval_check(model, dtype, data):
     """(c) ``eval()`` without a mask on the first batch: the flash forward
-    launched exactly 12 times (the CUDA-core kernel in fp32,
+    launched exactly 12 times (``flash_fwd_tf32x3.cu`` in fp32,
     ``flash_fwd_sm90.cu`` in bf16), every call held against the plain
     version on fp32 copies of its inputs at the kernel's tolerance (fp32
     1e-4; bf16 ``sm90_fwd_bound``), and the logits against the forward
@@ -8288,7 +8360,7 @@ def _bert_eval_check(model, dtype, data):
     x, _y = next(_bert_batches(data, 1))
     L = model.bert.config.num_hidden_layers
     want = "flash_attention_sm90" if dtype == "bfloat16" else \
-        "flash_attention"
+        "flash_attention_tf32x3"
     calls = []
     real = fa.flash_attention_fwd
 
@@ -8368,7 +8440,8 @@ def _bert_eval_check(model, dtype, data):
 
 def _bert_grad_check(seed, state0, data):
     """(d) fp32 with both dropouts at 0 and no mask, so the flash forward
-    and both backward kernels run (12 launches each): one step's loss and
+    and both backward kernels run (12 launches each: the 3xTF32 forward and
+    dK/dV, the CUDA-core dQ): one step's loss and
     every gradient against the same step through the plain versions, and
     a planted fault (dQ without the softmax scale) that the check must
     catch."""
@@ -8402,7 +8475,7 @@ def _bert_grad_check(seed, state0, data):
     loss_k, grads_k = loss_and_grads()
     counts = kernels.counters()
     L = model.bert.config.num_hidden_layers
-    want = {"flash_attention": L, "flash_attention_bwd_dkv": L,
+    want = {"flash_attention_tf32x3": L, "flash_attention_bwd_dkv_tf32x3": L,
             "flash_attention_bwd_dq": L}
     wrong = {n: c for n, c in counts.items() if c["plain_calls"] or
              c["launches"] != want.get(n, 0)}
@@ -8438,7 +8511,8 @@ def phase_bert_finetune(seed):
     eager bit for bit, (b) graphed steps in fp32 and bf16 with their
     figures, (c) the eval forward's flash launches and agreement, (d) the
     fp32 gradient check with dropout 0; then the flash forward's kernel
-    rows at BERT's attention shape. Returns ({path: counters}, rows)."""
+    rows at BERT's attention shape (fp32 and bf16) and the fp32 backward's.
+    Returns ({path: counters}, rows)."""
     import torch
 
     import paddle_tpu_torch as P
@@ -8478,6 +8552,10 @@ def phase_bert_finetune(seed):
         rows = [_flash_case(f"bert-{dt}", getattr(torch, dt), bh, sq, sq,
                             False, gen, d=d)
                 for dt in ("float32", "bfloat16")]
+        # the fp32 backward at BERT's shape: the 3xTF32 dK/dV, the
+        # CUDA-core dQ (the gradient check's kernels)
+        rows += _flash_bwd_case("bert-float32", torch.float32, bh, sq, sq, 0,
+                                False, gen, d=d)
         total_p, body_p = bert_param_count(cfg)
         _emit({"phase": "bert-finetune", "ok": True, "model": "bert-base",
                "card": _nvidia_smi(), "params": total_p,
@@ -8564,15 +8642,16 @@ def _dit_step(model, diffusion, graph):
 def _dit_launches(L, train=True):
     """{counter: launches a step}: every attention call is fp32 at head
     dim 72 (the inputs and the timestep embedding are fp32, so the
-    products promote), so L forwards, L dK/dV and L dQ on the CUDA-core
-    flash kernels, none on the tensor-core ones, and AdamW's one update;
-    every other counter 0. A forward alone (``train=False``): L."""
+    products promote), so L forwards and L dK/dV on the 3xTF32 kernels, L
+    dQ on the CUDA-core one, none on PR 1's forward or PR 2's dK/dV, and
+    AdamW's one update; every other counter 0. A forward alone
+    (``train=False``): L."""
     from paddle_tpu_torch import kernels
 
     per = {n: 0 for n in kernels.counters()}
-    per["flash_attention"] = L
+    per["flash_attention_tf32x3"] = L
     if train:
-        per.update(flash_attention_bwd_dkv=L, flash_attention_bwd_dq=L,
+        per.update(flash_attention_bwd_dkv_tf32x3=L, flash_attention_bwd_dq=L,
                    adam_update=1)
     return per
 
@@ -8725,7 +8804,7 @@ def _dit_train(cfg, state0, x, y, seed):
 def _dit_sample(cfg, state0, seed):
     """``ddim_sample`` on DiT-XL/2, DIT_SAMPLE_STEPS steps at eta 0, batch
     DIT_SAMPLE_BATCH: images/s, exactly steps x L flash forward launches
-    on the CUDA-core kernel and nothing else, two runs of one seed equal
+    on the 3xTF32 kernel and nothing else, two runs of one seed equal
     bit for bit; then the first step's eps through the kernels against the
     same forward through the plain versions."""
     import torch
@@ -8775,7 +8854,7 @@ def _dit_sample(cfg, state0, seed):
            "steps": DIT_SAMPLE_STEPS, "batch": DIT_SAMPLE_BATCH,
            "seconds": secs, "images_per_s": DIT_SAMPLE_BATCH / secs,
            "ms_per_step": secs / DIT_SAMPLE_STEPS * 1e3,
-           "flash_launches": counts["flash_attention"]["launches"],
+           "flash_launches": counts["flash_attention_tf32x3"]["launches"],
            "flash_launches_expected": DIT_SAMPLE_STEPS * L,
            "same_seed_bitwise": same, "finite": finite,
            "first_eps_rel_l2": eps_rel, "eps_tol": DIT_EPS_TOL}
@@ -8835,7 +8914,7 @@ def _dit_grad_check(seed):
     loss_k, grads_k = loss_and_grads()
     counts = kernels.counters()
     L = cfg.num_hidden_layers
-    want = {"flash_attention": L, "flash_attention_bwd_dkv": L,
+    want = {"flash_attention_tf32x3": L, "flash_attention_bwd_dkv_tf32x3": L,
             "flash_attention_bwd_dq": L}
     wrong = {n: c for n, c in counts.items() if c["plain_calls"] or
              c["launches"] != want.get(n, 0)}
@@ -8920,6 +8999,86 @@ def phase_dit(seed):
         P.set_device(prior)
     return {"dit-graph-check": check, "dit-train": train,
             "dit-sample": sample, "dit-grad-check": grad}, rows
+
+
+# -- the CUDA-core flash route: bf16 at a head dim of no tensor-core kernel ---
+
+# GPT-3 Large (Brown et al. 2020 Table 2.1: 24 layers of 1536, 16 heads of
+# 96) at 2 layers: bf16 at head dim 96, which neither tensor-core flash
+# kernel takes, runs PR 1's forward and PR 2's dK/dV and dQ
+D96_LAYERS = 2
+D96_BATCH = (2, 2048)
+D96_SEED = 61
+D96_EAGER_STEPS, D96_GRAPH_STEPS = 3, 4
+
+
+def _d96_launches(L):
+    """{counter: launches per step} of the bf16 GPT step at head dim 96;
+    every other counter 0: 2L forwards (recompute runs each layer's
+    forward twice), L dK/dV and L dQ on the CUDA-core flash kernels, one
+    ``adam_update``."""
+    from paddle_tpu_torch import kernels
+
+    per_step = {n: 0 for n in kernels.counters()}
+    per_step.update({"flash_attention": 2 * L, "flash_attention_bwd_dkv": L,
+                     "flash_attention_bwd_dq": L, "adam_update": 1})
+    return per_step
+
+
+def phase_cuda_core_route(seed):
+    """The route left on PR 1's and PR 2's CUDA-core flash kernels: GPT-3
+    Large's widths (head dim 96) at D96_LAYERS layers, bf16, recompute,
+    batch D96_BATCH: one step's gradients against the plain-swapped step
+    (within GPT_GRAD_TOL), eager and graphed steps with exact launches and
+    a falling loss, then the kernels' rows at its attention shape. Returns
+    ({path: counters}, rows)."""
+    import torch
+
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _release()
+    t0 = time.perf_counter()
+    cfg, model = _gpt_model(D96_LAYERS, seed + D96_SEED, hidden_size=1536,
+                            num_attention_heads=16)
+    ids = _ids(cfg.vocab_size, D96_BATCH, seed + D96_SEED)
+    L = cfg.num_hidden_layers
+    with _swapped(_plain_swaps()):
+        loss_p, grads_p = _loss_and_grads(model, ids)
+    loss_k, grads_k = _loss_and_grads(model, ids)
+    errs = _grad_errors(grads_k, grads_p)
+    del grads_k, grads_p
+    per_step = _d96_launches(L)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.1)
+    ecounts, gcounts, eager, graph, _nodes = _eager_then_graph(
+        "gpt-d96", model, opt, ids, per_step, _gpt_flops(cfg, D96_BATCH[1]),
+        D96_EAGER_STEPS, D96_GRAPH_STEPS)
+    del opt, model
+    _release()
+    row = {"phase": "gpt-d96", "model": "gpt3-large-widths",
+           "card": _nvidia_smi(), "layers": L, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads,
+           "head_dim": cfg.hidden_size // cfg.num_attention_heads,
+           "dtype": "bfloat16", "batch": list(D96_BATCH),
+           "loss_kernels": loss_k, "loss_plain": loss_p,
+           "grad_rel_l2_max": max(errs.values()), "grad_worst": _worst(errs),
+           "grad_tol": GPT_GRAD_TOL, "graph": graph, "eager": eager,
+           "launches_per_step": {n: c for n, c in per_step.items() if c},
+           "seconds": time.perf_counter() - t0}
+    _emit(row)
+    if not max(errs.values()) <= GPT_GRAD_TOL:
+        raise RuntimeError(f"gpt-d96: kernel gradients differ from plain "
+                           f"{row}")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + D96_SEED)
+    bh = D96_BATCH[0] * cfg.num_attention_heads
+    d, s = cfg.hidden_size // cfg.num_attention_heads, D96_BATCH[1]
+    rows = [_flash_case("gpt-d96-bfloat16", torch.bfloat16, bh, s, s, True,
+                        gen, d=d)]
+    rows += _flash_bwd_case("gpt-d96-bfloat16", torch.bfloat16, bh, s, s, 0,
+                            True, gen, d=d)
+    _release()
+    return {"gpt-d96": _add_counts(ecounts, gcounts)}, rows
 
 
 # -- ResNet-18 on CIFAR-10's shape ---------------------------------------------
@@ -9113,7 +9272,9 @@ def _kernels_line(rows, paths):
     run}): serving, the bf16 training steps, and the fp32 runs of the
     parity phases (the depth-2 engine, whose prefill windows run the
     general paged-attention kernel, and the depth-2 training steps, which
-    run the CUDA-core flash and grouped GEMM kernels)."""
+    run the 3xTF32 flash forward and dK/dV, the CUDA-core dQ and grouped
+    GEMM kernels); PR 1's forward and PR 2's dK/dV run on the bf16 head-dim
+    96 path (``gpt-d96``)."""
     # (kernel, representative case, source, TPU kernel replaced, the
     # counters whose launches it sums)
     table = [
@@ -9128,18 +9289,25 @@ def _kernels_line(rows, paths):
         ("paged_attention", "prefill128-float32", "paged_attention.cu",
          "paddle_tpu/kernels/pallas/paged_attention.py:46",
          ["paged_attention"]),
-        ("flash_attention", "causal512-float32", "flash_attention.cu",
+        ("flash_attention", "gpt-d96-bfloat16", "flash_attention.cu",
          "paddle_tpu/kernels/flash_attention.py:64", ["flash_attention"]),
+        ("flash_attention_tf32x3", "dit-d72-float32", "flash_fwd_tf32x3.cu",
+         "paddle_tpu/kernels/flash_attention.py:64",
+         ["flash_attention_tf32x3"]),
         ("flash_attention_sm90", "causal2048-bfloat16", "flash_fwd_sm90.cu",
          "paddle_tpu/kernels/flash_attention.py:64",
          ["flash_attention_sm90"]),
         ("flash_attention_decode", "decode1x640-bfloat16", "flash_decode.cu",
          "paddle_tpu/kernels/flash_attention.py:64",
          ["flash_attention_decode"]),
-        ("flash_attention_bwd_dkv", "train-float32",
+        ("flash_attention_bwd_dkv", "gpt-d96-bfloat16",
          "flash_attention_bwd.cu",
          "paddle_tpu/kernels/flash_attention.py:154",
          ["flash_attention_bwd_dkv"]),
+        ("flash_attention_bwd_dkv_tf32x3", "dit-d72-float32",
+         "flash_bwd_dkv_tf32x3.cu",
+         "paddle_tpu/kernels/flash_attention.py:154",
+         ["flash_attention_bwd_dkv_tf32x3"]),
         ("flash_attention_bwd_dkv_sm90", "train-bfloat16",
          "flash_bwd_dkv_sm90.cu",
          "paddle_tpu/kernels/flash_attention.py:154",
@@ -9247,7 +9415,7 @@ def _kernels_line(rows, paths):
                   "cuda_core_graph_ms", "library_graph_ms", "copy_graph_ms",
                   "copy_out_graph_ms", "composition_ms",
                   "composition_graph_ms", "earlier_ms", "earlier_graph_ms",
-                  "design_floor_ms", "function_bound_ms")
+                  "design_floor_ms", "function_bound_ms", "bound_fp32_ms")
         for key in extras:
             if r.get(key) is not None:
                 entry[key] = r[key]
@@ -9287,18 +9455,21 @@ def _kernels_line(rows, paths):
         bert = next((x for x in rows if x["kernel"] == name and
                      x["case"].startswith("bert-")), None)
         if bert is not None:
-            # the forward at BERT-base's attention (bh 384, 128 x 128, d 64)
+            # the kernel at BERT-base's attention (bh 384, 128 x 128, d 64)
             entry["bert"] = {key: bert[key] for key in (
                 "case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "max_abs_err")}
+                "bound_by", "max_abs_err", "cuda_core_ms", "graph_ms",
+                "bound_fp32_ms") if bert.get(key) is not None}
         dit = next((x for x in rows if x["kernel"] == name and
                     x["case"].startswith("dit-")), None)
         if dit is not None:
-            # the CUDA-core kernels at DiT-XL/2's attention (fp32, bh 512,
-            # 256 x 256, d 72), beside SDPA in fp32 and the fp32 bound
+            # the kernels at DiT-XL/2's attention (fp32, bh 512, 256 x 256,
+            # d 72), beside SDPA in fp32, PR 1's / PR 2's kernels and both
+            # bounds
             entry["dit"] = {key: dit[key] for key in (
                 "case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "max_abs_err")}
+                "bound_by", "max_abs_err", "cuda_core_ms", "graph_ms",
+                "bound_fp32_ms") if dit.get(key) is not None}
             entry["dit"]["launches"] = sum(
                 c[n]["launches"] for p, c in paths.items()
                 if p.startswith("dit-") for n in counters)
@@ -9355,41 +9526,56 @@ def main() -> int:
                                 default=None),
            "spill_lines": spills[:8]})
 
-    rows = phase_kernels(SEED)
-    rows += phase_train_kernels(SEED)
-    serving_fp32 = phase_parity(SEED)
-    serving = phase_serving(SEED)
-    serving_tier = phase_serving_tier(SEED)
-    serving_fleet = phase_serving_fleet(SEED)
-    gpt, gpt_eager, gpt_graph_check = phase_gpt_train(SEED)
-    phase_gpt_dropout(SEED)
-    training_fp32, finetune_fp32 = phase_train_parity(SEED)
-    (training, training_eager, accumulate, dense_shapes, rule_graphs,
-     rule_steps, scaler) = phase_train(SEED)
-    rows += phase_optimizer("dense", dense_shapes, "adam", SEED)
-    rows += phase_rules("dense", dense_shapes, SEED)
-    rows += phase_master(dense_shapes, SEED)
-    rows += phase_moe_kernels(SEED)
-    moe_fp32 = phase_moe_train_parity(SEED)
-    moe, moe_eager, moe_shapes = phase_moe_train(SEED)
-    rows += phase_optimizer("moe", moe_shapes, "adafactor", SEED)
-    phase_moe_modes(SEED)
-    llama_cache = phase_llama_cache(SEED)
-    bench, bench_rows = phase_bench_configs(SEED)
-    rows += bench_rows
-    distributed, dist_rows = phase_distributed(SEED)
-    rows += dist_rows
-    pipeline = phase_pipeline(SEED)
-    moe_mesh, mesh_rows = phase_moe_mesh(SEED)
-    rows += mesh_rows
-    offload = phase_offload(SEED)
-    bert, bert_rows = phase_bert_finetune(SEED)
-    rows += bert_rows
-    dit, dit_rows = phase_dit(SEED)
-    rows += dit_rows
-    resnet = phase_resnet(SEED)
+    phase_s = {}  # wall seconds of each phase, in the script line
 
-    _emit({"phase": "script", "seconds": time.perf_counter() - t_script})
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    rows = timed("kernels", phase_kernels, SEED)
+    rows += timed("train-kernels", phase_train_kernels, SEED)
+    serving_fp32 = timed("parity", phase_parity, SEED)
+    serving = timed("serving", phase_serving, SEED)
+    serving_tier = timed("serving-tier", phase_serving_tier, SEED)
+    serving_fleet = timed("serving-fleet", phase_serving_fleet, SEED)
+    gpt, gpt_eager, gpt_graph_check = timed("gpt-train", phase_gpt_train,
+                                            SEED)
+    timed("gpt-dropout", phase_gpt_dropout, SEED)
+    training_fp32, finetune_fp32 = timed("train-parity", phase_train_parity,
+                                         SEED)
+    (training, training_eager, accumulate, dense_shapes, rule_graphs,
+     rule_steps, scaler) = timed("train", phase_train, SEED)
+    rows += timed("optimizer-dense", phase_optimizer, "dense", dense_shapes,
+                  "adam", SEED)
+    rows += timed("rules", phase_rules, "dense", dense_shapes, SEED)
+    rows += timed("master", phase_master, dense_shapes, SEED)
+    rows += timed("moe-kernels", phase_moe_kernels, SEED)
+    moe_fp32 = timed("moe-train-parity", phase_moe_train_parity, SEED)
+    moe, moe_eager, moe_shapes = timed("moe-train", phase_moe_train, SEED)
+    rows += timed("optimizer-moe", phase_optimizer, "moe", moe_shapes,
+                  "adafactor", SEED)
+    timed("moe-modes", phase_moe_modes, SEED)
+    llama_cache = timed("llama-cache", phase_llama_cache, SEED)
+    bench, bench_rows = timed("bench-configs", phase_bench_configs, SEED)
+    rows += bench_rows
+    distributed, dist_rows = timed("distributed", phase_distributed, SEED)
+    rows += dist_rows
+    pipeline = timed("pipeline", phase_pipeline, SEED)
+    moe_mesh, mesh_rows = timed("moe-mesh", phase_moe_mesh, SEED)
+    rows += mesh_rows
+    offload = timed("offload", phase_offload, SEED)
+    bert, bert_rows = timed("bert-finetune", phase_bert_finetune, SEED)
+    rows += bert_rows
+    dit, dit_rows = timed("dit", phase_dit, SEED)
+    rows += dit_rows
+    d96, d96_rows = timed("gpt-d96", phase_cuda_core_route, SEED)
+    rows += d96_rows
+    resnet = timed("resnet", phase_resnet, SEED)
+
+    _emit({"phase": "script", "seconds": time.perf_counter() - t_script,
+           "phase_seconds": phase_s})
     _emit({"phase": "rule-steps", "model": "llama-1.16b",
            "batch": [4, 2048], "rules": rule_steps})
     _emit({"kernels": _kernels_line(rows, {
@@ -9404,7 +9590,8 @@ def main() -> int:
         "finetune-fp32": finetune_fp32, "gpt-training": gpt,
         "gpt-training-eager": gpt_eager, "gpt-graph-check": gpt_graph_check,
         "llama-cache": llama_cache, **bench, **distributed,
-        **pipeline, **moe_mesh, **offload, **bert, **dit, **resnet})})
+        **pipeline, **moe_mesh, **offload, **bert, **dit, **d96,
+        **resnet})})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

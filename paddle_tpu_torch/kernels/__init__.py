@@ -28,9 +28,11 @@ _COUNTS = {"paged_attention": _paged.COUNTS,
            "paged_attention_sm90": _paged.COUNTS_SM90,
            "flash_attention": _flash.COUNTS,
            "flash_attention_sm90": _flash.COUNTS_SM90,
+           "flash_attention_tf32x3": _flash.COUNTS_TF32X3,
            "flash_attention_decode": _flash.COUNTS_DECODE,
            "flash_attention_bwd_dkv": _flash.COUNTS_DKV,
            "flash_attention_bwd_dkv_sm90": _flash.COUNTS_DKV_SM90,
+           "flash_attention_bwd_dkv_tf32x3": _flash.COUNTS_DKV_TF32X3,
            "flash_attention_bwd_dq": _flash.COUNTS_DQ,
            "flash_attention_bwd_dq_sm90": _flash.COUNTS_DQ_SM90,
            "rms_norm": _rmsnorm.COUNTS,

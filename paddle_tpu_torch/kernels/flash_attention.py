@@ -13,21 +13,25 @@ Each kernel has a wrapper that launches it on a CUDA tensor or raises, and
 runs its plain version on a CPU tensor:
 
 - :func:`flash_attention_fwd` / :func:`flash_attention_plain`. On CUDA it
-  takes one of three kernels by (dtype, head dim, sq), which :func:`route`
+  takes one of four kernels by (dtype, head dim, sq), which :func:`route`
   picks in plain code: a single query row in fp32 or bf16 whose head dim
   (up to 256) is whole 16-byte chunks goes to the split-K decode kernel
   (``csrc/flash_decode.cu``, :func:`flash_decode`, whose plain version
   :func:`flash_decode_plain` computes the same split plan, partials and
   merge); bf16 with head dim 64 or 128 and more than one query row to the
   tensor-core kernel (``csrc/flash_fwd_sm90.cu``,
-  :func:`flash_attention_fwd_sm90`); everything else (fp32 with more than
-  one row, other head dims) to the CUDA-core kernel
+  :func:`flash_attention_fwd_sm90`); fp32 with a head dim that is a
+  multiple of 8 up to 128 and more than one query row to the fp32
+  tensor-core kernel (``csrc/flash_fwd_tf32x3.cu``,
+  :func:`flash_attention_fwd_tf32x3`: three TF32 products a product, fp32
+  accuracy); everything else (other head dims) to the CUDA-core kernel
   (``csrc/flash_attention.cu``, :func:`flash_attention_fwd_cuda_core`);
 - :func:`flash_attention_bwd_dkv` / :func:`flash_attention_bwd_dkv_plain`,
   likewise: bf16 with head dim 64 or 128 goes to
   ``csrc/flash_bwd_dkv_sm90.cu`` (:func:`flash_attention_bwd_dkv_sm90`),
-  the rest to ``csrc/flash_attention_bwd.cu``
-  (:func:`flash_attention_bwd_dkv_cuda_core`);
+  fp32 where :func:`takes_tf32x3` to ``csrc/flash_bwd_dkv_tf32x3.cu``
+  (:func:`flash_attention_bwd_dkv_tf32x3`), the rest to
+  ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dkv_cuda_core`);
 - :func:`flash_attention_bwd_dq` / :func:`flash_attention_bwd_dq_plain`,
   likewise: bf16 with head dim 64 or 128 goes to
   ``csrc/flash_bwd_dq_sm90.cu`` (:func:`flash_attention_bwd_dq_sm90`), the
@@ -35,8 +39,9 @@ runs its plain version on a CPU tensor:
   (:func:`flash_attention_bwd_dq_cuda_core`).
 
 Each kernel counts its own launches (``COUNTS`` / ``COUNTS_SM90`` /
-``COUNTS_DECODE`` for the forward, ``COUNTS_DKV`` / ``COUNTS_DKV_SM90`` for
-dK/dV, ``COUNTS_DQ`` / ``COUNTS_DQ_SM90`` for dQ), so a run shows which one
+``COUNTS_TF32X3`` / ``COUNTS_DECODE`` for the forward, ``COUNTS_DKV`` /
+``COUNTS_DKV_SM90`` / ``COUNTS_DKV_TF32X3`` for dK/dV, ``COUNTS_DQ`` /
+``COUNTS_DQ_SM90`` for dQ), so a run shows which one
 ran; CPU calls count as plain calls of the dispatching wrapper's CUDA-core
 counter, and :func:`flash_decode`'s own as plain calls of
 ``COUNTS_DECODE``.
@@ -72,10 +77,12 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd_dkv_sm90",
            "flash_attention_bwd_dkv_cuda_core",
            "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq_cuda_core",
+           "flash_attention_fwd_tf32x3", "flash_attention_bwd_dkv_tf32x3",
            "flash_decode", "flash_decode_plain", "decode_plan",
-           "merge_partials_plain", "route", "takes_sm90", "sm90_fwd_bound",
-           "sm90_dkv_bound", "sm90_dq_bound", "COUNTS", "COUNTS_SM90",
-           "COUNTS_DECODE", "COUNTS_DKV", "COUNTS_DKV_SM90", "COUNTS_DQ",
+           "merge_partials_plain", "route", "takes_sm90", "takes_tf32x3",
+           "sm90_fwd_bound", "sm90_dkv_bound", "sm90_dq_bound", "COUNTS",
+           "COUNTS_SM90", "COUNTS_TF32X3", "COUNTS_DECODE", "COUNTS_DKV",
+           "COUNTS_DKV_SM90", "COUNTS_DKV_TF32X3", "COUNTS_DQ",
            "COUNTS_DQ_SM90"]
 
 _NEG = -1e30
@@ -83,6 +90,7 @@ _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SM90_HEAD_DIMS = (64, 128)
+_TF32X3_HEAD_DIMS = (8, 128)  # the least and most; multiples of 8
 # the decode kernel's split plan: about 2 blocks per SM, and at least 32
 # keys a split (the keys a block folds per turn at bf16 head dim 128: 8
 # side by side, 4 deep); the plain version plans for an H100's 132 SMs
@@ -91,9 +99,11 @@ _DECODE_SPLIT_KEYS = 32
 _H100_SMS = 132
 COUNTS = _build.Counts()           # forward, CUDA cores
 COUNTS_SM90 = _build.Counts()      # forward, tensor cores
+COUNTS_TF32X3 = _build.Counts()    # forward, fp32 on the tensor cores
 COUNTS_DECODE = _build.Counts()    # forward, one row, split-K (+ its merge)
 COUNTS_DKV = _build.Counts()       # backward dK/dV, CUDA cores
 COUNTS_DKV_SM90 = _build.Counts()  # backward dK/dV, tensor cores
+COUNTS_DKV_TF32X3 = _build.Counts()  # backward dK/dV, fp32, tensor cores
 COUNTS_DQ = _build.Counts()        # backward dQ, CUDA cores
 COUNTS_DQ_SM90 = _build.Counts()   # backward dQ, tensor cores
 
@@ -164,17 +174,29 @@ def takes_sm90(dtype, head_dim, sq=None) -> bool:
             and (sq is None or sq > 1))
 
 
+def takes_tf32x3(dtype, head_dim, sq=None) -> bool:
+    """Whether a CUDA call goes to the fp32 tensor-core kernels (3xTF32):
+    fp32, a head dim that is a multiple of 8 from 8 to 128, and (forward,
+    ``sq`` given) more than one query row; dQ stays on the CUDA-core
+    kernel."""
+    return (dtype == torch.float32 and head_dim % 8 == 0
+            and _TF32X3_HEAD_DIMS[0] <= head_dim <= _TF32X3_HEAD_DIMS[1]
+            and (sq is None or sq > 1))
+
+
 def route(dtype, head_dim, sq) -> str:
     """Which forward kernel a CUDA call goes to: ``"decode"`` for one query
     row in fp32 or bf16 with head dim up to 256 whose rows are whole
-    16-byte chunks, ``"sm90"`` where :func:`takes_sm90`, ``"cuda_core"``
-    for the rest (whose kernel raises on a dtype or head dim it does not
-    take)."""
+    16-byte chunks, ``"sm90"`` where :func:`takes_sm90`, ``"tf32x3"``
+    where :func:`takes_tf32x3`, ``"cuda_core"`` for the rest (whose kernel
+    raises on a dtype or head dim it does not take)."""
     if sq == 1 and dtype in _DTYPES and head_dim <= 256 and \
             head_dim * dtype.itemsize % 16 == 0:
         return "decode"
     if takes_sm90(dtype, head_dim, sq):
         return "sm90"
+    if takes_tf32x3(dtype, head_dim, sq):
+        return "tf32x3"
     return "cuda_core"
 
 
@@ -326,7 +348,8 @@ def _on_cuda(name, q):
 
 
 def _tma_ready(t):
-    """t contiguous with a 16-byte aligned start, as TMA reads it."""
+    """t contiguous with a 16-byte aligned start, as TMA and cp.async read
+    it."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -339,6 +362,16 @@ def _fwd_inputs(name, q, k, v):
                          f"{tuple(k.shape)} {k.dtype}, v {tuple(v.shape)} "
                          f"{v.dtype} do not fit")
     _check_kernel_inputs(name, q, (k, v))
+
+
+def _check_tf32x3(name, q, sq=None):
+    if not takes_tf32x3(q.dtype, q.shape[2], sq):
+        raise ValueError(f"{name}: the fp32 tensor-core kernel takes float32 "
+                         f"with head_dim a multiple of 8 in "
+                         f"[{_TF32X3_HEAD_DIMS[0]}, {_TF32X3_HEAD_DIMS[1]}]"
+                         + ("" if sq is None else " and sq > 1") +
+                         f", got {q.dtype} head_dim {q.shape[2]} sq "
+                         f"{q.shape[1]}")
 
 
 def _check_sm90(name, q):
@@ -362,6 +395,8 @@ def flash_attention_fwd(q, k, v, offset, causal, scale):
         return o.view(q.shape), lse.view(q.shape[:2])
     if which == "sm90":
         return flash_attention_fwd_sm90(q, k, v, offset, causal, scale)
+    if which == "tf32x3":
+        return flash_attention_fwd_tf32x3(q, k, v, offset, causal, scale)
     return flash_attention_fwd_cuda_core(q, k, v, offset, causal, scale)
 
 
@@ -475,6 +510,29 @@ def flash_attention_fwd_sm90(q, k, v, offset, causal, scale):
     return o, lse
 
 
+def flash_attention_fwd_tf32x3(q, k, v, offset, causal, scale):
+    """(o, lse) from the fp32 tensor-core kernel (``csrc/flash_fwd_tf32x3.cu``,
+    3xTF32): float32, head dim a multiple of 8 from 8 to 128, more than one
+    query row."""
+    _fwd_inputs("flash_attention_tf32x3", q, k, v)
+    _check_tf32x3("flash_attention_tf32x3", q, q.shape[1])
+    _on_cuda("flash_attention_tf32x3", q)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, sq, dtype=torch.float32, device=q.device)
+    fn = _build.kernel("pt_flash_attention_fwd_tf32x3",
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 +
+                       [ctypes.c_float, ctypes.c_void_p])
+    _build.launch(fn, "pt_flash_attention_fwd_tf32x3", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), bh, sq, sk, d, int(offset),
+                  int(bool(causal)), float(scale))
+    COUNTS_TF32X3.launched()
+    return o, lse
+
+
 def _bwd_inputs(q, k, v, do, lse, delta):
     _check_kernel_inputs("flash_attention_bwd", q, (k, v, do, lse, delta))
     bh, sq, d = q.shape
@@ -494,7 +552,8 @@ def _bwd_inputs(q, k, v, do, lse, delta):
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, offset, causal, scale):
     """(dK, dV): on CUDA the tensor-core kernel where :func:`takes_sm90`,
-    else the CUDA-core kernel; the plain version on the CPU. ``delta`` =
+    the fp32 tensor-core kernel where :func:`takes_tf32x3`, else the
+    CUDA-core kernel; the plain version on the CPU. ``delta`` =
     rowsum(dO * O) - dlse, fp32 [bh, sq]."""
     if q.device.type == "cpu":
         COUNTS_DKV.plain()
@@ -503,6 +562,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, offset, causal, scale):
     if takes_sm90(q.dtype, q.shape[2]):
         return flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, offset,
                                             causal, scale)
+    if takes_tf32x3(q.dtype, q.shape[2]):
+        return flash_attention_bwd_dkv_tf32x3(q, k, v, do, lse, delta,
+                                              offset, causal, scale)
     return flash_attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta, offset,
                                              causal, scale)
 
@@ -548,6 +610,30 @@ def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, offset, causal,
                   dv.data_ptr(), bh, sq, sk, d, int(offset), int(bool(causal)),
                   float(scale))
     COUNTS_DKV_SM90.launched()
+    return dk, dv
+
+
+def flash_attention_bwd_dkv_tf32x3(q, k, v, do, lse, delta, offset, causal,
+                                   scale):
+    """(dK, dV) from the fp32 tensor-core kernel
+    (``csrc/flash_bwd_dkv_tf32x3.cu``, 3xTF32): float32, head dim a multiple
+    of 8 from 8 to 128."""
+    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    _check_tf32x3("flash_attention_bwd_dkv_tf32x3", q)
+    _on_cuda("flash_attention_bwd_dkv_tf32x3", q)
+    q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.kernel("pt_flash_attention_bwd_dkv_tf32x3",
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 +
+                       [ctypes.c_float, ctypes.c_void_p])
+    _build.launch(fn, "pt_flash_attention_bwd_dkv_tf32x3", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), bh, sq, sk, d, int(offset),
+                  int(bool(causal)), float(scale))
+    COUNTS_DKV_TF32X3.launched()
     return dk, dv
 
 

@@ -24,7 +24,7 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
     flash_attention_fwd, route, sm90_dkv_bound, sm90_dq_bound,
-    sm90_fwd_bound, takes_sm90)
+    sm90_fwd_bound, takes_sm90, takes_tf32x3)
 
 # the one-device pipeline step, a harness (tools/pipeline_harness.py)
 sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
@@ -51,10 +51,15 @@ def _counter(name, dtype, d, sq=None):
     """The counter of the kernel that ``name``'s wrapper picks: for a
     forward (``sq`` given) the decode kernel (``name``_decode) where
     ``route`` says so, else the tensor-core one (``name``_sm90) where
-    ``takes_sm90``."""
+    ``takes_sm90``, else, for the forward and dK/dV, the fp32 tensor-core
+    one (``name``_tf32x3) where ``takes_tf32x3``."""
     if sq is not None and route(dtype, d, sq) == "decode":
         return name + "_decode"
-    return name + "_sm90" if takes_sm90(dtype, d, sq) else name
+    if takes_sm90(dtype, d, sq):
+        return name + "_sm90"
+    if name != "flash_attention_bwd_dq" and takes_tf32x3(dtype, d, sq):
+        return name + "_tf32x3"
+    return name
 
 
 # (rtol, atol) against the plain version on fp32 copies of the inputs:
@@ -418,7 +423,8 @@ _RING_OFFSET_CASES = [(256, -256), (256, 256), (256, 768), (200, -200),
 @pytest.mark.parametrize("s,offset", _RING_OFFSET_CASES)
 def test_flash_kernels_at_ring_offsets(cuda, s, offset, dtype):
     """Forward, dK/dV and dQ (bf16: the tensor-core kernels, held to their
-    bounds; fp32: the CUDA-core ones, 1e-4) at the ring's offsets against
+    bounds; fp32: the 3xTF32 forward and dK/dV and the CUDA-core dQ, 1e-4)
+    at the ring's offsets against
     the plain versions, with a nonzero lse cotangent. A chunk wholly in the
     future gives o = 0, lse = -1e30 and dQ = dK = dV = 0 exactly."""
     rng = np.random.default_rng(23)
@@ -440,10 +446,10 @@ def test_flash_kernels_at_ring_offsets(cuda, s, offset, dtype):
     dq = flash_attention_bwd_dq(q, k, v, do, *args)
     torch.cuda.synchronize()
     c = counters()
-    suffix = "_sm90" if sm90 else ""
     for name in ("flash_attention", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq"):
-        assert c[name + suffix]["launches"] == 1
+        assert c[_counter(name, dtype, d, s if name == "flash_attention"
+                          else None)]["launches"] == 1
         assert c[name]["plain_calls"] == 0
     rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
     rdq = flash_attention_bwd_dq_plain(*f32, *args)
@@ -468,9 +474,10 @@ def test_flash_kernels_at_ring_offsets(cuda, s, offset, dtype):
 def test_flash_attention_picks_its_kernel(cuda):
     """bf16 at head dim 64 / 128 with more than one row takes the
     tensor-core kernels; a single-row forward the decode kernel (its
-    backward the kernels its dtype and head dim pick); fp32 and head dim
-    32 with more rows the CUDA-core ones; a CUDA tensor that none takes
-    raises."""
+    backward the kernels its dtype and head dim pick); fp32 at a head dim
+    that is a multiple of 8 up to 128 the 3xTF32 forward and dK/dV and the
+    CUDA-core dQ; bf16 at head dim 32 and fp32 at 36 with more rows the
+    CUDA-core ones; a CUDA tensor that none takes raises."""
     def run(dtype, sq, d):
         q = torch.randn(2, sq, d, device=cuda).to(dtype)
         k = torch.randn(2, 40, d, device=cuda).to(dtype)
@@ -482,22 +489,29 @@ def test_flash_attention_picks_its_kernel(cuda):
         torch.cuda.synchronize()
         c = counters()
         return [n for n in ("flash_attention", "flash_attention_sm90",
+                            "flash_attention_tf32x3",
                             "flash_attention_decode",
                             "flash_attention_bwd_dkv",
                             "flash_attention_bwd_dkv_sm90",
+                            "flash_attention_bwd_dkv_tf32x3",
                             "flash_attention_bwd_dq",
                             "flash_attention_bwd_dq_sm90")
                 if c[n]["launches"]]
 
     sm90_bwd = ["flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dq_sm90"]
+    tf32x3_bwd = ["flash_attention_bwd_dkv_tf32x3", "flash_attention_bwd_dq"]
     cuda_core_bwd = ["flash_attention_bwd_dkv", "flash_attention_bwd_dq"]
     assert run(torch.bfloat16, 8, 128) == ["flash_attention_sm90"] + sm90_bwd
     assert run(torch.bfloat16, 8, 64) == ["flash_attention_sm90"] + sm90_bwd
     assert run(torch.bfloat16, 1, 128) == ["flash_attention_decode"] + \
         sm90_bwd
     assert run(torch.float32, 1, 128) == ["flash_attention_decode"] + \
-        cuda_core_bwd
-    assert run(torch.float32, 8, 128) == ["flash_attention"] + cuda_core_bwd
+        tf32x3_bwd
+    assert run(torch.float32, 8, 128) == ["flash_attention_tf32x3"] + \
+        tf32x3_bwd
+    assert run(torch.float32, 8, 72) == ["flash_attention_tf32x3"] + \
+        tf32x3_bwd
+    assert run(torch.float32, 8, 36) == ["flash_attention"] + cuda_core_bwd
     assert run(torch.bfloat16, 8, 32) == ["flash_attention"] + cuda_core_bwd
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention_fwd(*[torch.zeros(1, 4, 64, device=cuda,
@@ -2257,7 +2271,7 @@ def test_bert_eval_forward_runs_the_flash_kernel_at_bert_shape(cuda, dtype):
     """BERT-base's width (12 heads of 64) at 2 layers, batch 32 x 128, in
     ``eval()`` without a mask: every attention call is one flash forward
     (bh 384, 128 x 128, d 64, not causal) on the kernel the route names
-    (the CUDA-core one in fp32, ``flash_fwd_sm90.cu`` in bf16), held
+    (``flash_fwd_tf32x3.cu`` in fp32, ``flash_fwd_sm90.cu`` in bf16), held
     against the plain version on fp32 copies of its inputs (fp32 1e-4,
     bf16 ``sm90_fwd_bound``)."""
     import paddle_tpu_torch as P
@@ -2294,7 +2308,7 @@ def test_bert_eval_forward_runs_the_flash_kernel_at_bert_shape(cuda, dtype):
         P.set_device(prior)
     assert logits.shape == (32, 2) and torch.isfinite(logits).all()
     want = "flash_attention_sm90" if dtype == "bfloat16" else \
-        "flash_attention"
+        "flash_attention_tf32x3"
     assert counts[want]["launches"] == 2
     assert all(c["launches"] == 0 for n, c in counts.items() if n != want)
     assert all(c["plain_calls"] == 0 for c in counts.values())
@@ -2316,10 +2330,10 @@ def test_bert_eval_forward_runs_the_flash_kernel_at_bert_shape(cuda, dtype):
                          ids=["dit_xl2", "ragged_causal", "ragged"])
 def test_cuda_core_flash_kernels_at_head_dim_72(cuda, shape):
     """DiT-XL/2's attention (fp32, head dim 1152 / 16 = 72, bh 32 x 16,
-    256 x 256) and ragged cases at d 72 run the CUDA-core forward, dK/dV
-    and dQ kernels (d 72 is not a tensor-core head dim), each against its
-    plain version on the same inputs: o within 1e-4, the gradients within
-    1e-4 relative + 1e-4 (fp32 sums over up to s terms in another order)."""
+    256 x 256) and ragged cases at d 72 run the 3xTF32 forward and dK/dV
+    kernels and the CUDA-core dQ kernel, each against its plain version on
+    the same inputs: o within 1e-4, the gradients within 1e-4 relative +
+    1e-4 (fp32 sums over up to s terms in another order)."""
     bh, sq, sk, causal = shape
     d = 72
     gen = torch.Generator(device=cuda).manual_seed(11)
@@ -2329,8 +2343,9 @@ def test_cuda_core_flash_kernels_at_head_dim_72(cuda, shape):
             for _ in range(2))
     off = sk - sq if causal else 0
     scale = 1.0 / d ** 0.5
-    assert route(torch.float32, d, sq) == "cuda_core"
-    assert not takes_sm90(torch.float32, d)
+    assert route(torch.float32, d, sq) == "tf32x3"
+    assert not takes_sm90(torch.float32, d) and takes_tf32x3(torch.float32,
+                                                             d)
     reset_counters()
     o, lse = flash_attention_fwd(q, k, v, off, causal, scale)
     ro, rlse = flash_attention_plain(q, k, v, off, causal, scale)
@@ -2345,10 +2360,166 @@ def test_cuda_core_flash_kernels_at_head_dim_72(cuda, shape):
     for got, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
         _close(got.cpu(), ref.cpu(), (1e-4, 1e-4))
     counts = counters()
-    for n in ("flash_attention", "flash_attention_bwd_dkv",
+    for n in ("flash_attention_tf32x3", "flash_attention_bwd_dkv_tf32x3",
               "flash_attention_bwd_dq"):
         assert counts[n] == {"launches": 1, "plain_calls": 0}, n
-        assert counts[n + "_sm90"]["launches"] == 0, n
+    for n in ("flash_attention", "flash_attention_bwd_dkv",
+              "flash_attention_sm90", "flash_attention_bwd_dkv_sm90",
+              "flash_attention_bwd_dq_sm90"):
+        assert counts[n]["launches"] == 0, n
+
+
+# the 3xTF32 kernels: (bh, sq, sk, offset, causal, d): DiT-XL/2's and
+# BERT-base's attention; ragged causal and non-causal cases at head dims 8
+# to 128; offsets below 0, where rows see no key (all of them at -96)
+_TF32X3_CASES = [(512, 256, 256, 0, False, 72), (384, 128, 128, 0, False, 64)]
+_TF32X3_CASES += [(3, 77, 131, 54, True, d) for d in (8, 32, 64, 72, 96, 128)]
+_TF32X3_CASES += [(3, 130, 61, 0, False, d)
+                  for d in (8, 32, 64, 72, 96, 128)]
+_TF32X3_CASES += [(3, 64, 64, -8, True, 72), (2, 200, 200, -157, True, 128),
+                  (2, 96, 96, -96, True, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,sk,offset,causal,d", _TF32X3_CASES)
+def test_tf32x3_kernels_match_plain(cuda, bh, sq, sk, offset, causal, d):
+    """The fp32 tensor-core forward and dK/dV kernels (3xTF32), through the
+    dispatching wrappers, against their plain versions on the same inputs
+    at the fp32 tolerances: o (0, 1e-4), lse (0, 1e-3), dK and dV (1e-4,
+    1e-4). Each call launches its kernel once and no other. Rows that see
+    no key give o = 0 and lse = -1e30 exactly and add nothing to dK and dV
+    (a dO of 1000 on them changes neither bit); two launches of each
+    kernel agree bit for bit."""
+    rng = np.random.default_rng(31)
+    scale = 1.0 / d ** 0.5
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda)
+
+    q, k, v, do = (rnd(bh, s, d) for s in (sq, sk, sk, sq))
+    assert route(torch.float32, d, sq) == "tf32x3"
+    reset_counters()
+    o, lse = flash_attention_fwd(q, k, v, offset, causal, scale)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_tf32x3"] == {"launches": 1, "plain_calls": 0}
+    assert sum(c[n]["launches"] for n in c) == 1
+    ro, rl = flash_attention_plain(q, k, v, offset, causal, scale)
+    _close(o.cpu(), ro.cpu(), (0.0, 1e-4))
+    _close(lse.cpu(), rl.cpu(), (0.0, 1e-3))
+    delta = (do * ro).sum(-1) - rnd(bh, sq)
+    args = (rl, delta, offset, causal, scale)
+    reset_counters()
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_bwd_dkv_tf32x3"] == {"launches": 1,
+                                                   "plain_calls": 0}
+    assert sum(c[n]["launches"] for n in c) == 1
+    rdk, rdv = flash_attention_bwd_dkv_plain(q, k, v, do, *args)
+    _close(dk.cpu(), rdk.cpu(), (1e-4, 1e-4))
+    _close(dv.cpu(), rdv.cpu(), (1e-4, 1e-4))
+    o2, lse2 = flash_attention_fwd(q, k, v, offset, causal, scale)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, *args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if causal and offset < 0:
+        blind = min(sq, -offset)  # rows i with i + offset < 0
+        assert not o[:, :blind].any()
+        assert (lse[:, :blind] == -1e30).all()
+        loud = do.clone()
+        loud[:, :blind] *= 1000
+        dk3, dv3 = flash_attention_bwd_dkv(q, k, v, loud, *args)
+        assert torch.equal(dk, dk3) and torch.equal(dv, dv3)
+        if blind == sq:
+            assert not dk.any() and not dv.any()
+
+
+@pytest.mark.gpu
+def test_tf32x3_wrappers_take_unaligned_and_strided_inputs(cuda):
+    """cp.async reads 16-byte aligned rows: the wrappers copy a q that
+    starts off a 16-byte boundary and a non-contiguous k, and the results
+    still match the plain versions."""
+    rng = np.random.default_rng(32)
+    bh, s, d = 4, 100, 72
+    flat = torch.empty(bh * s * d + 1, device=cuda)
+    q = flat[1:].view(bh, s, d)
+    q.copy_(torch.from_numpy(rng.standard_normal((bh, s, d),
+                                                 dtype=np.float32)))
+    assert q.data_ptr() % 16 != 0
+    k = torch.from_numpy(rng.standard_normal((s, bh, d), dtype=np.float32)
+                         ).to(cuda).transpose(0, 1)
+    v, do = (torch.from_numpy(rng.standard_normal((bh, s, d),
+                                                  dtype=np.float32)).to(cuda)
+             for _ in range(2))
+    assert not k.is_contiguous()
+    o, lse = flash_attention_fwd(q, k, v, 0, True, d ** -0.5)
+    ro, rl = flash_attention_plain(q, k, v, 0, True, d ** -0.5)
+    _close(o.cpu(), ro.cpu(), (0.0, 1e-4))
+    args = (rl, (do * ro).sum(-1), 0, True, d ** -0.5)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    rdk, rdv = flash_attention_bwd_dkv_plain(q, k, v, do, *args)
+    _close(dk.cpu(), rdk.cpu(), (1e-4, 1e-4))
+    _close(dv.cpu(), rdv.cpu(), (1e-4, 1e-4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [12, 36, 136])
+def test_cuda_core_flash_kernels_keep_the_other_fp32_head_dims(cuda, d):
+    """fp32 at a head dim that is not a multiple of 8, or above 128, still
+    runs PR 1's forward and PR 2's dK/dV and dQ on the CUDA cores, within
+    the fp32 tolerances of their plain versions."""
+    rng = np.random.default_rng(33)
+    bh, sq, sk, scale = 3, 50, 70, d ** -0.5
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda)
+
+    q, k, v, do = (rnd(bh, s, d) for s in (sq, sk, sk, sq))
+    assert route(torch.float32, d, sq) == "cuda_core"
+    assert not takes_tf32x3(torch.float32, d)
+    reset_counters()
+    o, lse = flash_attention_fwd(q, k, v, sk - sq, True, scale)
+    ro, rl = flash_attention_plain(q, k, v, sk - sq, True, scale)
+    args = (rl, (do * ro).sum(-1), sk - sq, True, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    c = counters()
+    for n in ("flash_attention", "flash_attention_bwd_dkv",
+              "flash_attention_bwd_dq"):
+        assert c[n] == {"launches": 1, "plain_calls": 0}, n
+    assert c["flash_attention_tf32x3"]["launches"] == 0
+    assert c["flash_attention_bwd_dkv_tf32x3"]["launches"] == 0
+    _close(o.cpu(), ro.cpu(), (0.0, 1e-4))
+    rdk, rdv = flash_attention_bwd_dkv_plain(q, k, v, do, *args)
+    rdq = flash_attention_bwd_dq_plain(q, k, v, do, *args)
+    for got, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
+        _close(got.cpu(), ref.cpu(), (1e-4, 1e-4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,sq", [(torch.bfloat16, 64, 8),
+                                        (torch.float32, 36, 8),
+                                        (torch.float32, 136, 8),
+                                        (torch.float32, 64, 1)])
+def test_tf32x3_wrappers_raise_on_what_their_kernels_do_not_take(
+        cuda, dtype, d, sq):
+    """On the card the 3xTF32 wrappers raise, before any launch, on a dtype,
+    head dim or (forward) single row that their kernels do not take."""
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    q = torch.zeros(2, sq, d, device=cuda, dtype=dtype)
+    stats = torch.zeros(2, sq, device=cuda)
+    reset_counters()
+    with pytest.raises(ValueError, match="fp32 tensor-core kernel"):
+        fa.flash_attention_fwd_tf32x3(q, q, q, 0, True, 0.1)
+    if sq > 1:
+        with pytest.raises(ValueError, match="fp32 tensor-core kernel"):
+            fa.flash_attention_bwd_dkv_tf32x3(q, q, q, q, stats, stats, 0,
+                                              True, 0.1)
+    assert all(c["launches"] == 0 for c in counters().values())
 
 
 def _deterministic(on):

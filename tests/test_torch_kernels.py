@@ -393,16 +393,19 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
                                                 monkeypatch):
     """The wrappers' choice of kernel on CUDA, in plain code: bf16 with
     head dim 64 or 128 (and, for the forward, more than one row) goes to
-    the tensor-core kernels, the rest to the CUDA-core ones. For the
-    backward (``sq`` None) the dK/dV and dQ dispatchers are driven on meta
-    tensors (neither CPU nor CUDA) with both kernels' wrappers replaced by
-    recorders, so the choice itself is what runs."""
+    the tensor-core kernels; fp32 dK/dV at those head dims to the 3xTF32
+    kernel, fp32 dQ and the rest to the CUDA-core ones. For the backward
+    (``sq`` None) the dK/dV and dQ dispatchers are driven on meta tensors
+    (neither CPU nor CUDA) with every kernel's wrapper replaced by a
+    recorder, so the choice itself is what runs."""
     assert _FA.takes_sm90(dtype, d, sq) is want
     if sq is not None:
         return
     took = []
-    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        for route in ("sm90", "cuda_core"):
+    for name, routes in (
+            ("flash_attention_bwd_dkv", ("sm90", "tf32x3", "cuda_core")),
+            ("flash_attention_bwd_dq", ("sm90", "cuda_core"))):
+        for route in routes:
             monkeypatch.setattr(
                 _FA, f"{name}_{route}",
                 lambda *a, n=name, r=route: took.append((n, r)))
@@ -412,7 +415,8 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
     _FA.flash_attention_bwd_dkv(*args)
     _FA.flash_attention_bwd_dq(*args)
     route = "sm90" if want else "cuda_core"
-    assert took == [("flash_attention_bwd_dkv", route),
+    dkv = "tf32x3" if dtype == torch.float32 else route
+    assert took == [("flash_attention_bwd_dkv", dkv),
                     ("flash_attention_bwd_dq", route)]
 
 
@@ -423,16 +427,17 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
     (torch.float32, 4, 1, "decode"), (torch.bfloat16, 12, 1, "cuda_core"),
     (torch.float32, 6, 1, "cuda_core"), (torch.bfloat16, 264, 1, "cuda_core"),
     (torch.float16, 128, 1, "cuda_core"), (torch.bfloat16, 128, 2, "sm90"),
-    (torch.bfloat16, 64, 300, "sm90"), (torch.float32, 128, 2, "cuda_core"),
+    (torch.bfloat16, 64, 300, "sm90"), (torch.float32, 128, 2, "tf32x3"),
     (torch.bfloat16, 32, 64, "cuda_core")])
 def test_forward_route_picks_by_dtype_head_dim_and_rows(dtype, d, sq, want,
                                                         monkeypatch):
     """``route`` in plain code: one query row in fp32 or bf16 whose head
     dim (up to 256) is whole 16-byte chunks goes to the decode kernel, bf16
-    at head dim 64 / 128 with more rows to the tensor-core kernel, the rest
-    to the CUDA-core one. ``flash_attention_fwd`` is driven on meta tensors
-    (neither CPU nor CUDA) with the three kernels' wrappers replaced by
-    recorders, so the choice itself is what runs."""
+    at head dim 64 / 128 with more rows to the tensor-core kernel, fp32 at
+    a head dim that is a multiple of 8 up to 128 with more rows to the
+    3xTF32 kernel, the rest to the CUDA-core one. ``flash_attention_fwd``
+    is driven on meta tensors (neither CPU nor CUDA) with the four kernels'
+    wrappers replaced by recorders, so the choice itself is what runs."""
     assert _FA.route(dtype, d, sq) == want
     took = []
 
@@ -444,6 +449,7 @@ def test_forward_route_picks_by_dtype_head_dim_and_rows(dtype, d, sq, want,
         return rec
 
     for name in ("flash_decode", "flash_attention_fwd_sm90",
+                 "flash_attention_fwd_tf32x3",
                  "flash_attention_fwd_cuda_core"):
         monkeypatch.setattr(_FA, name, recorder(name))
     q = torch.empty(2, sq, d, dtype=dtype, device="meta")
@@ -451,6 +457,7 @@ def test_forward_route_picks_by_dtype_head_dim_and_rows(dtype, d, sq, want,
     _FA.flash_attention_fwd(q, k, k, 39, True, 0.1)
     assert took == [{"decode": "flash_decode",
                      "sm90": "flash_attention_fwd_sm90",
+                     "tf32x3": "flash_attention_fwd_tf32x3",
                      "cuda_core": "flash_attention_fwd_cuda_core"}[want]]
 
 
