@@ -362,14 +362,20 @@ dit        — DiT-XL/2 (Peebles & Xie 2023 Table 1: 28 layers, hidden
              beside PR 1's and PR 2's CUDA-core kernels on the same inputs,
              SDPA in fp32 and the plain versions, with the bound at the
              3xTF32 rate (``bound_ms``) and at fp32's (``bound_fp32_ms``).
-gpt-d96    — the route left on PR 1's and PR 2's CUDA-core flash kernels:
-             GPT-3 Large's widths (Brown et al. 2020 Table 2.1: 1536, 16
-             heads of 96) at 2 layers, bf16, recompute, batch 2 x 2048
-             (head dim 96 has no tensor-core kernel): one step's gradients
-             against the plain-swapped step, eager and graphed steps with
-             exact launches (4 forwards, 2 dK/dV, 2 dQ on the CUDA-core
-             kernels, one AdamW update) and a falling loss, then the three
-             kernels timed at its attention shape beside SDPA.
+gpt-d96    — bf16 flash at head dims other than 64 and 128: GPT-3
+             Large's widths (Brown et al. 2020 Table 2.1: 1536, 16 heads
+             of 96) at 2 layers, bf16, recompute, batch 2 x 2048: one
+             step's gradients against the plain-swapped step, eager and
+             graphed steps with exact launches (4 tensor-core forwards and
+             2 tensor-core dK/dV at the padded head dim, 2 CUDA-core dQ,
+             one AdamW update) and a falling loss; then the kernels at its
+             attention shape (bh 32, causal 2048, d 96), at GPT-3 2.7B's
+             (bh 64, d 80) and at Gemma 7B's head dim 256 (bh 16, the
+             CUDA-core kernels), eager and in graph replay beside the
+             CUDA-core kernels on the same inputs, SDPA and the plain
+             versions; and a planted fault (the forward reading only the
+             first 64 of d 96's columns) that the forward's check against
+             its plain version must catch.
 resnet     — ResNet-18 with 10 classes on 32 x 32 surrogate images from
              the seed (``bench.py``'s CIFAR-10 stand-in), fp32, TF32 off:
              bench.py's 12-step curve (Momentum 0.01, batch 32) eager =
@@ -662,9 +668,10 @@ SM90_TOL = "2^-8|ref| + 2^-8 (P|V|, P^T|dO|, |dS^T||Q|, |dS||K|) + 1e-4"
 
 def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
     """The forward at one shape against its plain version on fp32 copies
-    of the same inputs, on the kernel ``route`` names. bf16 at head dim 64
-    or 128 with sq > 1 runs the tensor-core kernel, held to its bound and
-    timed beside the CUDA-core kernel on the same inputs; fp32 at a head
+    of the same inputs, on the kernel ``route`` names. bf16 at a head dim
+    that is a multiple of 8 up to 128 with sq > 1 runs the tensor-core
+    kernel, held to its bound and timed eager and in graph replay beside
+    the CUDA-core kernel on the same inputs; fp32 at a head
     dim that is a multiple of 8 up to 128 the 3xTF32 kernel, held to 1e-4
     and timed eager and in graph replay beside the CUDA-core kernel, with
     its bound at the 3xTF32 rate (``bound_ms``) and at fp32's
@@ -726,8 +733,11 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
            "tflop_per_s": flops / ms / 1e9, "plain_ms": plain_ms,
            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     if sm90:
-        # PR 1's CUDA-core kernel on the same inputs
-        row.update(bound_share_max=share, cuda_core_ms=_time_ms(
+        # graph replay, and the CUDA-core kernel on the same inputs
+        row.update(bound_share_max=share, graph_ms=_graph_ms(
+            lambda: fa.flash_attention_fwd_sm90(q, k, v, off, causal,
+                                                scale)),
+            cuda_core_ms=_time_ms(
             lambda: fa.flash_attention_fwd_cuda_core(q, k, v, off, causal,
                                                      scale), iters=5,
             warmup=1))
@@ -2727,18 +2737,21 @@ def _dname(dtype):
 def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
                     timed=True, with_dlse=False, d=128):
     """dK/dV and dQ kernels at one shape against their plain versions on
-    fp32 copies of the same inputs. bf16 at head dim 64 or 128 runs the
-    tensor-core kernels, each held to the bound of its roundings and timed
-    beside the CUDA-core kernel on the same inputs; fp32 at a head dim that
-    is a multiple of 8 up to 128 runs the 3xTF32 dK/dV kernel (timed eager
-    and in graph replay beside PR 2's on the same inputs, its bound at the
-    3xTF32 rate and at fp32's) and the CUDA-core dQ. Returns one row per
-    kernel."""
+    fp32 copies of the same inputs. bf16 at a head dim that is a multiple
+    of 8 up to 128 runs the tensor-core dK/dV kernel (timed eager and in
+    graph replay beside the CUDA-core kernel on the same inputs), and at
+    head dim 64 or 128 the tensor-core dQ kernel too (timed beside the
+    CUDA-core one), each held to the bound of its roundings; fp32 at a
+    head dim that is a multiple of 8 up to 128 runs the 3xTF32 dK/dV
+    kernel (timed eager and in graph replay beside the CUDA-core one on
+    the same inputs, its bound at the 3xTF32 rate and at fp32's); dQ
+    elsewhere runs the CUDA-core kernel. Returns one row per kernel."""
     import torch
 
     fa = _flash_module()
     scale = 1.0 / d ** 0.5
-    sm90 = fa.takes_sm90(dtype, d)
+    sm90 = fa.takes_sm90(dtype, d)  # dK/dV on the tensor cores
+    sm90_dq = fa.takes_sm90_dq(dtype, d)
     tf32x3 = fa.takes_tf32x3(dtype, d)
     dkv_name = "flash_attention_bwd_dkv" + (
         "_sm90" if sm90 else "_tf32x3" if tf32x3 else "")
@@ -2770,7 +2783,7 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             _compare(f"{dkv_name}[{label}].dv", dv, rdv, tol)[0])
     del rdk, rdv
     rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
-    if sm90:
+    if sm90_dq:
         bdq = fa.sm90_dq_bound(*f32, *args, rdq)
         err_dq, share_dq = _compare_bound(f"flash_bwd_dq_sm90[{label}].dq",
                                           dq, rdq, bdq)
@@ -2785,13 +2798,14 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
             "bh": bh, "sq": sq, "sk": sk, "d": d, "offset": offset,
             "causal": causal}
-    suffix = "_sm90" if sm90 else ""
     rows = [dict(base, kernel=dkv_name,
                  max_abs_err=err_dkv, tol=SM90_TOL if sm90 else tol),
-            dict(base, kernel="flash_attention_bwd_dq" + suffix,
-                 max_abs_err=err_dq, tol=SM90_TOL if sm90 else tol)]
+            dict(base, kernel="flash_attention_bwd_dq" + (
+                "_sm90" if sm90_dq else ""),
+                 max_abs_err=err_dq, tol=SM90_TOL if sm90_dq else tol)]
     if sm90:
         rows[0]["bound_share_max"] = share
+    if sm90_dq:
         rows[1]["bound_share_max"] = share_dq
     if timed:
         rows[0]["kernel_ms"] = _time_ms(
@@ -2800,22 +2814,20 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         rows[1]["kernel_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, *args), iters=10,
             warmup=2)
-        if sm90:  # the CUDA-core kernels on the same inputs
+        if sm90 or tf32x3:
+            # graph replay, and the CUDA-core kernel on the same inputs
+            wrapper = fa.flash_attention_bwd_dkv_sm90 if sm90 else \
+                fa.flash_attention_bwd_dkv_tf32x3
+            rows[0]["graph_ms"] = _graph_ms(
+                lambda: wrapper(q, k, v, do, *args))
             rows[0]["cuda_core_ms"] = _time_ms(
                 lambda: fa.flash_attention_bwd_dkv_cuda_core(q, k, v, do,
                                                              *args),
                 iters=3, warmup=1)
+        if sm90_dq:  # the CUDA-core dQ kernel on the same inputs
             rows[1]["cuda_core_ms"] = _time_ms(
                 lambda: fa.flash_attention_bwd_dq_cuda_core(q, k, v, do,
                                                             *args),
-                iters=3, warmup=1)
-        if tf32x3:  # graph replay, and PR 2's kernel on the same inputs
-            rows[0]["graph_ms"] = _graph_ms(
-                lambda: fa.flash_attention_bwd_dkv_tf32x3(q, k, v, do,
-                                                          *args))
-            rows[0]["cuda_core_ms"] = _time_ms(
-                lambda: fa.flash_attention_bwd_dkv_cuda_core(q, k, v, do,
-                                                             *args),
                 iters=3, warmup=1)
         rows[0]["plain_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, *args),
@@ -9001,37 +9013,80 @@ def phase_dit(seed):
             "dit-sample": sample, "dit-grad-check": grad}, rows
 
 
-# -- the CUDA-core flash route: bf16 at a head dim of no tensor-core kernel ---
+# -- bf16 flash at head dims other than 64 and 128 ------------------------------
 
 # GPT-3 Large (Brown et al. 2020 Table 2.1: 24 layers of 1536, 16 heads of
-# 96) at 2 layers: bf16 at head dim 96, which neither tensor-core flash
-# kernel takes, runs PR 1's forward and PR 2's dK/dV and dQ
+# 96) at 2 layers: bf16 at head dim 96 runs the tensor-core forward and
+# dK/dV at a padded head dim and the CUDA-core dQ
 D96_LAYERS = 2
 D96_BATCH = (2, 2048)
 D96_SEED = 61
 D96_EAGER_STEPS, D96_GRAPH_STEPS = 3, 4
+# GPT-3 2.7B's attention (Table 2.1: 32 heads of 80) at batch 2
+D80_BH = 64
+# Gemma 7B's attention (Gemma Team 2024 Table 1: 16 heads of 256) at batch
+# 1: a head dim above 128, which only the CUDA-core kernels take
+D256_BH = 16
 
 
 def _d96_launches(L):
     """{counter: launches per step} of the bf16 GPT step at head dim 96;
-    every other counter 0: 2L forwards (recompute runs each layer's
-    forward twice), L dK/dV and L dQ on the CUDA-core flash kernels, one
+    every other counter 0: 2L tensor-core forwards (recompute runs each
+    layer's forward twice), L tensor-core dK/dV, L CUDA-core dQ (the
+    tensor-core dQ takes head dims 64 and 128 alone), one
     ``adam_update``."""
-    from paddle_tpu_torch import kernels
-
-    per_step = {n: 0 for n in kernels.counters()}
-    per_step.update({"flash_attention": 2 * L, "flash_attention_bwd_dkv": L,
-                     "flash_attention_bwd_dq": L, "adam_update": 1})
+    per_step = _gpt_launches(L)
+    per_step.update(flash_attention_bwd_dq_sm90=0, flash_attention_bwd_dq=L)
     return per_step
 
 
-def phase_cuda_core_route(seed):
-    """The route left on PR 1's and PR 2's CUDA-core flash kernels: GPT-3
-    Large's widths (head dim 96) at D96_LAYERS layers, bf16, recompute,
-    batch D96_BATCH: one step's gradients against the plain-swapped step
-    (within GPT_GRAD_TOL), eager and graphed steps with exact launches and
-    a falling loss, then the kernels' rows at its attention shape. Returns
-    ({path: counters}, rows)."""
+def _first64_check(label, bh, s, d, gen):
+    """The kernel-against-plain check of the forward at one causal shape,
+    given a planted fault: the tensor-core forward reading only the first
+    64 columns of q, k and v (the rest zero), as a kernel that loaded one
+    64-column chunk alone would. The check must find it past
+    ``sm90_fwd_bound``. Returns the check's line."""
+    import torch
+
+    fa = _flash_module()
+    q, k, v = (_rand(gen, (bh, s, d), torch.bfloat16) for _ in range(3))
+    f32 = [t.float() for t in (q, k, v)]
+    scale = 1.0 / d ** 0.5
+    ro, _rl = fa.flash_attention_plain(*f32, 0, True, scale)
+    bound = fa.sm90_fwd_bound(*f32, 0, True, scale, ro)
+    for t in (q, k, v):
+        t[..., 64:] = 0
+    o, _lse = fa.flash_attention_fwd_sm90(q, k, v, 0, True, scale)
+    torch.cuda.synchronize()
+    excess = ((o.float() - ro).abs() - bound).max().item()
+    try:
+        _compare_bound(f"flash_attention_sm90[{label}]", o, ro, bound)
+        caught = False
+    except RuntimeError:
+        caught = True
+    del q, k, v, f32, ro, bound, o
+    _release()
+    row = {"phase": "gpt-d96-fault", "case": label, "fault":
+           "fwd_reads_first64", "bh": bh, "s": s, "d": d,
+           "excess_over_bound": excess, "fault_caught": caught}
+    _emit(row)
+    if not caught:
+        raise RuntimeError(f"gpt-d96: the planted fault was not caught "
+                           f"{row}")
+    return row
+
+
+def phase_gpt_d96(seed):
+    """bf16 flash at head dims other than 64 and 128: GPT-3 Large's widths
+    (head dim 96) at D96_LAYERS layers, bf16, recompute, batch D96_BATCH:
+    one step's gradients against the plain-swapped step (within
+    GPT_GRAD_TOL), eager and graphed steps with exact launches and a
+    falling loss; then the kernels' rows at its attention shape, at GPT-3
+    2.7B's (head dim 80, bh D80_BH) and, for the CUDA-core kernels, at
+    Gemma 7B's (head dim 256, bh D256_BH), and a planted fault (the
+    forward reading 64 of the 96 columns), which the forward's check
+    against its plain version must catch (``_first64_check``).
+    Returns ({path: counters}, rows)."""
     import torch
 
     from paddle_tpu_torch.optimizer import AdamW
@@ -9073,11 +9128,16 @@ def phase_cuda_core_route(seed):
     gen.manual_seed(seed + D96_SEED)
     bh = D96_BATCH[0] * cfg.num_attention_heads
     d, s = cfg.hidden_size // cfg.num_attention_heads, D96_BATCH[1]
-    rows = [_flash_case("gpt-d96-bfloat16", torch.bfloat16, bh, s, s, True,
-                        gen, d=d)]
-    rows += _flash_bwd_case("gpt-d96-bfloat16", torch.bfloat16, bh, s, s, 0,
-                            True, gen, d=d)
-    _release()
+    rows = []
+    for label, rbh, rd in (("gpt-d96-bfloat16", bh, d),
+                           ("gpt-d80-bfloat16", D80_BH, 80),
+                           ("d256-bfloat16", D256_BH, 256)):
+        rows.append(_flash_case(label, torch.bfloat16, rbh, s, s, True, gen,
+                                d=rd))
+        rows += _flash_bwd_case(label, torch.bfloat16, rbh, s, s, 0, True,
+                                gen, d=rd)
+        _release()
+    _first64_check("gpt-d96-bfloat16", bh, s, d, gen)
     return {"gpt-d96": _add_counts(ecounts, gcounts)}, rows
 
 
@@ -9273,8 +9333,11 @@ def _kernels_line(rows, paths):
     parity phases (the depth-2 engine, whose prefill windows run the
     general paged-attention kernel, and the depth-2 training steps, which
     run the 3xTF32 flash forward and dK/dV, the CUDA-core dQ and grouped
-    GEMM kernels); PR 1's forward and PR 2's dK/dV run on the bf16 head-dim
-    96 path (``gpt-d96``)."""
+    GEMM kernels); the CUDA-core forward and dK/dV run on no main path
+    now, and their rows are taken at head dim 256 (``d256-bfloat16``),
+    which only they take. The flash kernels also carry their rows at
+    DiT's (``dit``), GPT-3 Large's (``gpt_d96``) and GPT-3 2.7B's
+    (``gpt_d80``) attention shapes."""
     # (kernel, representative case, source, TPU kernel replaced, the
     # counters whose launches it sums)
     table = [
@@ -9289,7 +9352,7 @@ def _kernels_line(rows, paths):
         ("paged_attention", "prefill128-float32", "paged_attention.cu",
          "paddle_tpu/kernels/pallas/paged_attention.py:46",
          ["paged_attention"]),
-        ("flash_attention", "gpt-d96-bfloat16", "flash_attention.cu",
+        ("flash_attention", "d256-bfloat16", "flash_attention.cu",
          "paddle_tpu/kernels/flash_attention.py:64", ["flash_attention"]),
         ("flash_attention_tf32x3", "dit-d72-float32", "flash_fwd_tf32x3.cu",
          "paddle_tpu/kernels/flash_attention.py:64",
@@ -9300,7 +9363,7 @@ def _kernels_line(rows, paths):
         ("flash_attention_decode", "decode1x640-bfloat16", "flash_decode.cu",
          "paddle_tpu/kernels/flash_attention.py:64",
          ["flash_attention_decode"]),
-        ("flash_attention_bwd_dkv", "gpt-d96-bfloat16",
+        ("flash_attention_bwd_dkv", "d256-bfloat16",
          "flash_attention_bwd.cu",
          "paddle_tpu/kernels/flash_attention.py:154",
          ["flash_attention_bwd_dkv"]),
@@ -9460,19 +9523,23 @@ def _kernels_line(rows, paths):
                 "case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "cuda_core_ms", "graph_ms",
                 "bound_fp32_ms") if bert.get(key) is not None}
-        dit = next((x for x in rows if x["kernel"] == name and
-                    x["case"].startswith("dit-")), None)
-        if dit is not None:
-            # the kernels at DiT-XL/2's attention (fp32, bh 512, 256 x 256,
-            # d 72), beside SDPA in fp32, PR 1's / PR 2's kernels and both
-            # bounds
-            entry["dit"] = {key: dit[key] for key in (
+        # the kernels at DiT-XL/2's attention (fp32, bh 512, 256 x 256,
+        # d 72; beside SDPA in fp32 and both bounds), GPT-3 Large's (bf16,
+        # bh 32, causal 2048, d 96) and GPT-3 2.7B's (bh 64, d 80), beside
+        # the CUDA-core kernels on the same inputs
+        for key, prefix in (("dit", "dit-"), ("gpt_d96", "gpt-d96-"),
+                            ("gpt_d80", "gpt-d80-")):
+            at = next((x for x in rows if x["kernel"] == name and
+                       x["case"].startswith(prefix)), None)
+            if at is None:
+                continue
+            entry[key] = {k: at[k] for k in (
                 "case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "max_abs_err", "cuda_core_ms", "graph_ms",
-                "bound_fp32_ms") if dit.get(key) is not None}
-            entry["dit"]["launches"] = sum(
+                "bound_fp32_ms") if at.get(k) is not None}
+            entry[key]["launches"] = sum(
                 c[n]["launches"] for p, c in paths.items()
-                if p.startswith("dit-") for n in counters)
+                if p.startswith(prefix[:-1]) for n in counters)
         if name == "rope":
             # the inverse as the training step runs it: on the cotangent's
             # [b, s, h, d] view of [b, h, s, d], read in place
@@ -9570,7 +9637,7 @@ def main() -> int:
     rows += bert_rows
     dit, dit_rows = timed("dit", phase_dit, SEED)
     rows += dit_rows
-    d96, d96_rows = timed("gpt-d96", phase_cuda_core_route, SEED)
+    d96, d96_rows = timed("gpt-d96", phase_gpt_d96, SEED)
     rows += d96_rows
     resnet = timed("resnet", phase_resnet, SEED)
 

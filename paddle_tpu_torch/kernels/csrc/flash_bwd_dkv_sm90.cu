@@ -1,10 +1,13 @@
 // Flash-attention dK/dV backward on Hopper's tensor cores (sm_90a): bf16
-// inputs, head dim 64 or 128, fp32 accumulation.
+// inputs, any head dim d that is a multiple of 8 from 8 to 128, fp32
+// accumulation.
 //
 // Replaces the TPU kernel `_bwd_dkv_kernel` (paddle_tpu/kernels/
 // flash_attention.py:154, launched by `_flash_bwd` at :268) for the inputs it
-// takes; fp32 and other head dims stay on the CUDA-core kernel of
-// flash_attention_bwd.cu, as does dQ (`_bwd_dq_kernel`, :206). Same function,
+// takes; fp32 has its own tensor-core kernel (flash_bwd_dkv_tf32x3.cu), and
+// other head dims stay on the CUDA-core kernel of flash_attention_bwd.cu.
+// dQ (`_bwd_dq_kernel`, :206) is flash_bwd_dq_sm90.cu's at d 64 and 128
+// and the CUDA-core kernel's elsewhere. Same function,
 // from q, dO [bh, sq, d], k, v [bh, sk, d] and fp32 lse, delta = rowsum(dO*O)
 // - dlse [bh, sq]: for every visible pair (i, j) (j <= i + offset under
 // `causal`)
@@ -33,6 +36,12 @@
 //   dV  += P^T.dO    wgmma, P^T the bf16 register A operand, dO MN-major;
 //   dK  += dS^T.Q    the same with Q.
 // dK and dV are written once at the end: no atomics, deterministic.
+//
+// Head dims, as in flash_fwd_sm90.cu: an instance for each padded width
+// DP = ceil16(d), the real d at run time; ceil(DP / 64) 64-column chunks a
+// tile, the columns past d zeros from TMA; S^T and dP^T run DP / 16 k16
+// steps, dV and dK accumulate at N = DP, and only the columns below d are
+// written.
 
 #include "sm90_common.cuh"
 
@@ -44,20 +53,20 @@ constexpr int kKeys = 128;  // keys per block (two warpgroups of 64)
 constexpr int kRows = 64;   // query rows per streamed tile
 constexpr int kThreads = 256;
 
-template <int D>
+template <int DP>
 struct DkvLayout {
-  static constexpr int kHalves = D / 64;
-  static constexpr uint32_t kHalfKV = kKeys * 128;  // bytes of one K/V half
-  static constexpr uint32_t kHalfQ = kRows * 128;   // bytes of one Q/dO half
-  static constexpr uint32_t kKV = kHalves * kHalfKV;
-  static constexpr uint32_t kTileQ = kHalves * kHalfQ;
+  static constexpr int kChunks = (DP + 63) / 64;     // 64-column regions
+  static constexpr uint32_t kChunkKV = kKeys * 128;  // bytes of a K/V chunk
+  static constexpr uint32_t kChunkQ = kRows * 128;   // of a Q/dO chunk
+  static constexpr uint32_t kKV = kChunks * kChunkKV;
+  static constexpr uint32_t kTileQ = kChunks * kChunkQ;
   // [K][V][stage 0: Q, dO][stage 1: Q, dO][full[2] empty[2] kv]
   static constexpr uint32_t kStages = 2 * kKV;
   static constexpr uint32_t kBars = kStages + 2 * 2 * kTileQ;
   static constexpr size_t kSmem = kBars + 64 + 1024;  // + alignment slack
 };
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -67,11 +76,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const float* __restrict__ delta,
                           __nv_bfloat16* __restrict__ dk,
                           __nv_bfloat16* __restrict__ dv, int sq, int sk,
-                          int offset, int causal, float scale,
+                          int d, int offset, int causal, float scale,
                           float scale_log2) {
-  using L = DkvLayout<D>;
-  constexpr int H = L::kHalves;
-  constexpr int NA = D / 2;  // accumulator floats of dK (and of dV)
+  using L = DkvLayout<DP>;
+  constexpr int C = L::kChunks;
+  constexpr int NA = DP / 2;  // accumulator floats of dK (and of dV)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sV = sK + L::kKV;
@@ -98,9 +107,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t sQ = sQ0 + 2 * stage * L::kTileQ;
     mbar_expect_tx(full, 2 * L::kTileQ);
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      tma_load(sQ + h * L::kHalfQ, mq, full, 64 * h, tile * kRows, b);
-      tma_load(sQ + L::kTileQ + h * L::kHalfQ, mdo, full, 64 * h,
+    for (int c = 0; c < C; ++c) {
+      tma_load(sQ + c * L::kChunkQ, mq, full, 64 * c, tile * kRows, b);
+      tma_load(sQ + L::kTileQ + c * L::kChunkQ, mdo, full, 64 * c,
                tile * kRows, b);
     }
   };
@@ -117,9 +126,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     mbar_expect_tx(kvbar, 2 * L::kKV);
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      tma_load(sK + h * L::kHalfKV, &tk, kvbar, 64 * h, j0, b);
-      tma_load(sV + h * L::kHalfKV, &tv, kvbar, 64 * h, j0, b);
+    for (int c = 0; c < C; ++c) {
+      tma_load(sK + c * L::kChunkKV, &tk, kvbar, 64 * c, j0, b);
+      tma_load(sV + c * L::kChunkKV, &tv, kvbar, 64 * c, j0, b);
     }
     for (int s = 0; s < 2 && s < n_it; ++s) load_q(s, t0 + s);
   }
@@ -141,20 +150,20 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t sDO = sQ + L::kTileQ;
     mbar_wait(bar + 8 * stage, parity);
 
-    // S^T = K . Q^T and dP^T = V . dO^T over d in k16 steps
+    // S^T = K . Q^T and dP^T = V . dO^T over DP in k16 steps
     float st[32], dpt[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * L::kHalfKV + (kk % 4) * 32;
-      const uint32_t offq = (kk / 4) * L::kHalfQ + (kk % 4) * 32;
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kChunkKV + (kk % 4) * 32;
+      const uint32_t offq = (kk / 4) * L::kChunkQ + (kk % 4) * 32;
       wgmma_ss_n64(st, desc(sKw + off, 16, 1024), desc(sQ + offq, 16, 1024),
                    kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * L::kHalfKV + (kk % 4) * 32;
-      const uint32_t offq = (kk / 4) * L::kHalfQ + (kk % 4) * 32;
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kChunkKV + (kk % 4) * 32;
+      const uint32_t offq = (kk / 4) * L::kChunkQ + (kk % 4) * 32;
       wgmma_ss_n64(dpt, desc(sVw + off, 16, 1024),
                    desc(sDO + offq, 16, 1024), kk > 0);
     }
@@ -195,15 +204,8 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t ddo = desc(sDO + kk * 16 * 128, L::kHalfQ, 1024);
-      const uint64_t dqd = desc(sQ + kk * 16 * 128, L::kHalfQ, 1024);
-      if constexpr (D == 128) {
-        wgmma_rs_n128(dva, pa[kk], ddo);
-        wgmma_rs_n128(dka, sa[kk], dqd);
-      } else {
-        wgmma_rs_n64(dva, pa[kk], ddo);
-        wgmma_rs_n64(dka, sa[kk], dqd);
-      }
+      wgmma_rs<DP>(dva, pa[kk], desc(sDO + kk * 16 * 128, L::kChunkQ, 1024));
+      wgmma_rs<DP>(dka, sa[kk], desc(sQ + kk * 16 * 128, L::kChunkQ, 1024));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -224,8 +226,9 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < NA; i += 2) {
     const int key = (i & 2) ? key_hi : key_lo;
-    if (key < sk) {
-      const size_t at = (kbase + key) * D + 8 * (i / 4) + cq;
+    // d is a multiple of 8: an 8-column group lies wholly below d or not
+    if (key < sk && 8 * (i / 4) < d) {
+      const size_t at = (kbase + key) * d + 8 * (i / 4) + cq;
       *reinterpret_cast<__nv_bfloat162*>(dk + at) =
           __floats2bfloat162_rn(dka[i], dka[i + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dv + at) =
@@ -234,31 +237,32 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dk, void* dv, int bh,
-           int sq, int sk, int offset, int causal, float scale,
+           int sq, int sk, int d, int offset, int causal, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = DkvLayout<D>::kSmem;
-  if (const cudaError_t e = allow_smem(flash_bwd_dkv_sm90_kernel<D>, smem))
+  constexpr size_t smem = DkvLayout<DP>::kSmem;
+  if (const cudaError_t e = allow_smem(flash_bwd_dkv_sm90_kernel<DP>, smem))
     return (int)e;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, bh, sq, D, kRows) ||
-      !make_map(&tk, k, bh, sk, D, kKeys) ||
-      !make_map(&tv, v, bh, sk, D, kKeys) ||
-      !make_map(&tdo, dout, bh, sq, D, kRows))
+  if (!make_map(&tq, q, bh, sq, d, kRows) ||
+      !make_map(&tk, k, bh, sk, d, kKeys) ||
+      !make_map(&tv, v, bh, sk, d, kKeys) ||
+      !make_map(&tdo, dout, bh, sq, d, kRows))
     return kMapRefused;
   const dim3 grid((unsigned)((sk + kKeys - 1) / kKeys), (unsigned)bh);
-  flash_bwd_dkv_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_sm90_kernel<DP><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
-      sq, sk, offset, causal, scale, scale * kLog2e);
+      sq, sk, d, offset, causal, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // bf16 q, dout [bh, sq, hd]; k, v, dk, dv [bh, sk, hd]; lse, delta [bh, sq]
-// fp32; hd 64 or 128; every bf16 pointer 16-byte aligned (TMA). Returns
+// fp32; hd a multiple of 8 from 8 to 128; every bf16 pointer 16-byte
+// aligned (TMA). Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for a head dim
 // the kernel does not take, or kMapRefused (-1) for a tensor map that
 // cuTensorMapEncodeTiled refuses.
@@ -267,12 +271,18 @@ extern "C" int pt_flash_attention_bwd_dkv_sm90(
     const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
     int sk, int hd, int offset, int causal, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd % 8 != 0 || hd < 8 || hd > 128) return (int)cudaErrorInvalidValue;
   if (bh * sk == 0) return (int)cudaGetLastError();
-  if (hd == 128)
-    return launch<128>(q, k, v, dout, (const float*)lse, (const float*)delta,
-                       dk, dv, bh, sq, sk, offset, causal, scale, st);
-  if (hd == 64)
-    return launch<64>(q, k, v, dout, (const float*)lse, (const float*)delta,
-                      dk, dv, bh, sq, sk, offset, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const float* l = (const float*)lse;
+  const float* dl = (const float*)delta;
+  switch ((hd + 15) / 16) {  // the instance of DP = ceil16(hd)
+    case 1: return launch<16>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);
+    case 2: return launch<32>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);
+    case 3: return launch<48>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);
+    case 4: return launch<64>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);
+    case 5: return launch<80>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);
+    case 6: return launch<96>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);
+    case 7: return launch<112>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);
+    default: return launch<128>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);
+  }
 }

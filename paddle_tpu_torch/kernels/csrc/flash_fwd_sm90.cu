@@ -1,9 +1,11 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a): bf16 inputs,
-// head dim 64 or 128, fp32 accumulation, per-row log-sum-exp.
+// any head dim d that is a multiple of 8 from 8 to 128, fp32 accumulation,
+// per-row log-sum-exp.
 //
 // Replaces the TPU kernel `_fwd_kernel` (paddle_tpu/kernels/flash_attention.py
-// :64, launched by `_flash_fwd` at :124) for the inputs it takes; fp32, other
-// head dims and single-row decode stay on the CUDA-core kernel of
+// :64, launched by `_flash_fwd` at :124) for the inputs it takes; fp32 has
+// its own tensor-core kernel (flash_fwd_tf32x3.cu), single-row decode
+// flash_decode.cu, and other head dims stay on the CUDA-core kernel of
 // flash_attention.cu. Same function: q [bh,sq,d] against k, v [bh,sk,d];
 // under `causal` row i sees key j iff j <= i + offset; o [bh,sq,d] bf16 and
 // lse [bh,sq] fp32; a row that sees no key gives o = 0 and lse = -1e30. P is
@@ -11,7 +13,8 @@
 // (:96-98); the row sum l adds the fp32 p.
 //
 // What bounds it on the H100: operations (4 d FLOPs per visible (row, key)
-// pair; causal 2048 at d 128 is ~500 FLOPs per byte of q/k/v/o).
+// pair; causal 2048 at d 128 is ~500 FLOPs per byte of q/k/v/o, at d 96
+// the same).
 //
 // What the design does about it: both products run as wgmma on the tensor
 // cores. One block of two warpgroups per (bh, tile of 128 query rows); each
@@ -29,6 +32,16 @@
 // the keys are masked. Rows and keys past sq / sk read zeros from TMA and
 // are masked or not written, so any length works. Thread 0 issues the TMA
 // loads between its own tiles (no producer warp yet).
+//
+// Head dims. An instance is compiled for each padded width DP = ceil16(d)
+// (16, 32, .., 128) and takes the real d at run time. Shared memory holds
+// ceil(DP / 64) 64-column chunks of each tile, loaded as whole 64-column
+// boxes: TMA fills the columns past d with zeros (and counts them in the
+// barrier's bytes), so S = Q.K^T runs DP / 16 k16 steps, the last of which
+// adds zeros where d % 16 == 8, and O += P.V runs at N = DP (one wgmma of
+// N 96 at d 96, reading one whole chunk of V and half of the next). Only
+// the columns below d are written. At d 64 and 128 (DP = d) nothing is
+// padded.
 
 #include "sm90_common.cuh"
 
@@ -40,27 +53,27 @@ constexpr int kRows = 128;    // query rows per block (two warpgroups of 64)
 constexpr int kKeys = 128;    // keys per K / V tile
 constexpr int kThreads = 256;
 
-template <int D>
+template <int DP>
 struct FwdLayout {
-  static constexpr int kHalves = D / 64;
-  static constexpr uint32_t kHalfQ = kRows * 128;   // bytes of one Q half
-  static constexpr uint32_t kHalfKV = kKeys * 128;  // bytes of one K/V half
-  static constexpr uint32_t kTileKV = kHalves * kHalfKV;
-  static constexpr uint32_t kQ = kHalves * kHalfQ;
+  static constexpr int kChunks = (DP + 63) / 64;     // 64-column regions
+  static constexpr uint32_t kChunkQ = kRows * 128;   // bytes of a Q chunk
+  static constexpr uint32_t kChunkKV = kKeys * 128;  // of a K / V chunk
+  static constexpr uint32_t kTileKV = kChunks * kChunkKV;
+  static constexpr uint32_t kQ = kChunks * kChunkQ;
   static constexpr uint32_t kBars = kQ + 2 * 2 * kTileKV;  // full[2] empty[2] q
   static constexpr size_t kSmem = kBars + 64 + 1024;       // + alignment slack
 };
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv,
                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int sq, int sk, int offset, int causal,
+                      int sq, int sk, int d, int offset, int causal,
                       float scale_log2) {
-  using L = FwdLayout<D>;
-  constexpr int H = L::kHalves;
+  using L = FwdLayout<DP>;
+  constexpr int C = L::kChunks;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sKV = sQ + L::kQ;  // stage s: K at + 2 s kTileKV, V after it
@@ -85,9 +98,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t sK = sKV + 2 * stage * L::kTileKV;
     mbar_expect_tx(full, 2 * L::kTileKV);
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      tma_load(sK + h * L::kHalfKV, mk, full, 64 * h, tile * kKeys, b);
-      tma_load(sK + L::kTileKV + h * L::kHalfKV, mv, full, 64 * h,
+    for (int c = 0; c < C; ++c) {
+      tma_load(sK + c * L::kChunkKV, mk, full, 64 * c, tile * kKeys, b);
+      tma_load(sK + L::kTileKV + c * L::kChunkKV, mv, full, 64 * c,
                tile * kKeys, b);
     }
   };
@@ -104,15 +117,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     mbar_expect_tx(qbar, L::kQ);
 #pragma unroll
-    for (int h = 0; h < H; ++h)
-      tma_load(sQ + h * L::kHalfQ, &tq, qbar, 64 * h, q0, b);
+    for (int c = 0; c < C; ++c)
+      tma_load(sQ + c * L::kChunkQ, &tq, qbar, 64 * c, q0, b);
     for (int s = 0; s < 2 && s < n_tiles; ++s) load_kv(s, s);
   }
   __syncwarp();
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m_lo = kNeg, m_hi = kNeg, l_lo = 0.f, l_hi = 0.f;
   const uint32_t sQw = sQ + wg * 64 * 128;  // this warpgroup's 64 rows
   mbar_wait(qbar, 0);
@@ -125,14 +138,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t sV = sK + L::kTileKV;
     mbar_wait(bar + 8 * stage, parity);
 
-    // S = Q . K^T over d in k16 steps
+    // S = Q . K^T over DP in k16 steps
     float s[64];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;  // k within the 64-wide half
-      wgmma_ss_n128(s, desc(sQw + (kk / 4) * L::kHalfQ + off, 16, 1024),
-                    desc(sK + (kk / 4) * L::kHalfKV + off, 16, 1024), kk > 0);
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // k within the 64-wide chunk
+      wgmma_ss_n128(s, desc(sQw + (kk / 4) * L::kChunkQ + off, 16, 1024),
+                    desc(sK + (kk / 4) * L::kChunkKV + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -179,7 +192,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         l_lo += p;
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= (i & 2) ? a_hi : a_lo;
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= (i & 2) ? a_hi : a_lo;
 
     // O += P . V over the 128 keys in k16 steps, P rounded to bf16
     uint32_t pa[8][4];
@@ -187,11 +200,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
-      const uint64_t dv = desc(sV + kk * 16 * 128, L::kHalfKV, 1024);
-      if constexpr (D == 128)
-        wgmma_rs_n128(acc, pa[kk], dv);
-      else
-        wgmma_rs_n64(acc, pa[kk], dv);
+      wgmma_rs<DP>(acc, pa[kk], desc(sV + kk * 16 * 128, L::kChunkKV, 1024));
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -216,12 +225,13 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
   const size_t base = (size_t)b * sq;
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < DP / 2; i += 2) {
     const int row = (i & 2) ? row_hi : row_lo;
     const float inv = (i & 2) ? inv_hi : inv_lo;
-    if (row < sq) {
+    // d is a multiple of 8: an 8-column group lies wholly below d or not
+    if (row < sq && 8 * (i / 4) < d) {
       const int col = 8 * (i / 4) + cq;
-      *reinterpret_cast<__nv_bfloat162*>(o + (base + row) * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(o + (base + row) * d + col) =
           __floats2bfloat162_rn(acc[i] * inv, acc[i + 1] * inv);
     }
   }
@@ -234,20 +244,20 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int D>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int bh, int sq, int sk, int offset, int causal, float scale,
+           int bh, int sq, int sk, int d, int offset, int causal, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = FwdLayout<D>::kSmem;
-  if (const cudaError_t e = allow_smem(flash_fwd_sm90_kernel<D>, smem))
+  constexpr size_t smem = FwdLayout<DP>::kSmem;
+  if (const cudaError_t e = allow_smem(flash_fwd_sm90_kernel<DP>, smem))
     return (int)e;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, bh, sq, D, kRows) || !make_map(&tk, k, bh, sk, D, kKeys) ||
-      !make_map(&tv, v, bh, sk, D, kKeys))
+  if (!make_map(&tq, q, bh, sq, d, kRows) || !make_map(&tk, k, bh, sk, d, kKeys) ||
+      !make_map(&tv, v, bh, sk, d, kKeys))
     return kMapRefused;
   const dim3 grid((unsigned)((sq + kRows - 1) / kRows), (unsigned)bh);
-  flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, (__nv_bfloat16*)o, lse, sq, sk, offset, causal,
+  flash_fwd_sm90_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, (__nv_bfloat16*)o, lse, sq, sk, d, offset, causal,
       scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -255,22 +265,27 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }  // namespace
 
 // bf16 q [bh, sq, hd], k, v [bh, sk, hd], o [bh, sq, hd]; lse [bh, sq] fp32;
-// hd 64 or 128; every pointer 16-byte aligned (TMA). Returns
-// cudaGetLastError() after the launch, cudaErrorInvalidValue for a head dim
-// the kernel does not take, or kMapRefused (-1) for a tensor map that
-// cuTensorMapEncodeTiled refuses.
+// hd a multiple of 8 from 8 to 128; every pointer 16-byte aligned (TMA).
+// Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for a
+// head dim the kernel does not take, or kMapRefused (-1) for a tensor map
+// that cuTensorMapEncodeTiled refuses.
 extern "C" int pt_flash_attention_fwd_sm90(const void* q, const void* k,
                                            const void* v, void* o, void* lse,
                                            int bh, int sq, int sk, int hd,
                                            int offset, int causal, float scale,
                                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd % 8 != 0 || hd < 8 || hd > 128) return (int)cudaErrorInvalidValue;
   if (bh * sq == 0) return (int)cudaGetLastError();
-  if (hd == 128)
-    return launch<128>(q, k, v, o, (float*)lse, bh, sq, sk, offset, causal,
-                       scale, st);
-  if (hd == 64)
-    return launch<64>(q, k, v, o, (float*)lse, bh, sq, sk, offset, causal,
-                      scale, st);
-  return (int)cudaErrorInvalidValue;
+  float* l = (float*)lse;
+  switch ((hd + 15) / 16) {  // the instance of DP = ceil16(hd)
+    case 1: return launch<16>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);
+    case 2: return launch<32>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);
+    case 3: return launch<48>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);
+    case 4: return launch<64>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);
+    case 5: return launch<80>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);
+    case 6: return launch<96>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);
+    case 7: return launch<112>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);
+    default: return launch<128>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);
+  }
 }

@@ -18,22 +18,22 @@ runs its plain version on a CPU tensor:
   (up to 256) is whole 16-byte chunks goes to the split-K decode kernel
   (``csrc/flash_decode.cu``, :func:`flash_decode`, whose plain version
   :func:`flash_decode_plain` computes the same split plan, partials and
-  merge); bf16 with head dim 64 or 128 and more than one query row to the
-  tensor-core kernel (``csrc/flash_fwd_sm90.cu``,
-  :func:`flash_attention_fwd_sm90`); fp32 with a head dim that is a
-  multiple of 8 up to 128 and more than one query row to the fp32
-  tensor-core kernel (``csrc/flash_fwd_tf32x3.cu``,
+  merge); bf16 with a head dim that is a multiple of 8 up to 128 and more
+  than one query row to the tensor-core kernel
+  (``csrc/flash_fwd_sm90.cu``, :func:`flash_attention_fwd_sm90`); fp32
+  likewise to the fp32 tensor-core kernel (``csrc/flash_fwd_tf32x3.cu``,
   :func:`flash_attention_fwd_tf32x3`: three TF32 products a product, fp32
   accuracy); everything else (other head dims) to the CUDA-core kernel
   (``csrc/flash_attention.cu``, :func:`flash_attention_fwd_cuda_core`);
 - :func:`flash_attention_bwd_dkv` / :func:`flash_attention_bwd_dkv_plain`,
-  likewise: bf16 with head dim 64 or 128 goes to
-  ``csrc/flash_bwd_dkv_sm90.cu`` (:func:`flash_attention_bwd_dkv_sm90`),
-  fp32 where :func:`takes_tf32x3` to ``csrc/flash_bwd_dkv_tf32x3.cu``
+  likewise: bf16 where :func:`takes_sm90` (a head dim that is a multiple
+  of 8 up to 128) goes to ``csrc/flash_bwd_dkv_sm90.cu``
+  (:func:`flash_attention_bwd_dkv_sm90`), fp32 where :func:`takes_tf32x3`
+  to ``csrc/flash_bwd_dkv_tf32x3.cu``
   (:func:`flash_attention_bwd_dkv_tf32x3`), the rest to
   ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dkv_cuda_core`);
-- :func:`flash_attention_bwd_dq` / :func:`flash_attention_bwd_dq_plain`,
-  likewise: bf16 with head dim 64 or 128 goes to
+- :func:`flash_attention_bwd_dq` / :func:`flash_attention_bwd_dq_plain`:
+  bf16 with head dim 64 or 128 (:func:`takes_sm90_dq`) goes to
   ``csrc/flash_bwd_dq_sm90.cu`` (:func:`flash_attention_bwd_dq_sm90`), the
   rest to ``csrc/flash_attention_bwd.cu``
   (:func:`flash_attention_bwd_dq_cuda_core`).
@@ -79,8 +79,9 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq_cuda_core",
            "flash_attention_fwd_tf32x3", "flash_attention_bwd_dkv_tf32x3",
            "flash_decode", "flash_decode_plain", "decode_plan",
-           "merge_partials_plain", "route", "takes_sm90", "takes_tf32x3",
-           "sm90_fwd_bound", "sm90_dkv_bound", "sm90_dq_bound", "COUNTS",
+           "merge_partials_plain", "route", "takes_sm90", "takes_sm90_dq",
+           "takes_tf32x3", "sm90_fwd_bound", "sm90_dkv_bound",
+           "sm90_dq_bound", "COUNTS",
            "COUNTS_SM90", "COUNTS_TF32X3", "COUNTS_DECODE", "COUNTS_DKV",
            "COUNTS_DKV_SM90", "COUNTS_DKV_TF32X3", "COUNTS_DQ",
            "COUNTS_DQ_SM90"]
@@ -89,8 +90,10 @@ _NEG = -1e30
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SM90_HEAD_DIMS = (64, 128)
-_TF32X3_HEAD_DIMS = (8, 128)  # the least and most; multiples of 8
+# the head dims of the tensor-core forward and dK/dV kernels, bf16 and fp32
+# alike: the least and most, multiples of 8
+_TC_HEAD_DIMS = (8, 128)
+_SM90_DQ_HEAD_DIMS = (64, 128)  # the bf16 tensor-core dQ kernel's
 # the decode kernel's split plan: about 2 blocks per SM, and at least 32
 # keys a split (the keys a block folds per turn at bf16 head dim 128: 8
 # side by side, 4 deep); the plain version plans for an H100's 132 SMs
@@ -165,13 +168,29 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset, causal,
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
 
 
+def _tc_head_dim(head_dim) -> bool:
+    """A head dim the tensor-core forward and dK/dV kernels take: a
+    multiple of 8 from 8 to 128."""
+    return (head_dim % 8 == 0
+            and _TC_HEAD_DIMS[0] <= head_dim <= _TC_HEAD_DIMS[1])
+
+
 def takes_sm90(dtype, head_dim, sq=None) -> bool:
-    """Whether a CUDA call goes to the tensor-core kernel: bf16, head dim 64
-    or 128, and (forward, ``sq`` given) more than one query row; a
-    single-row decode reads each key once and is bound by bytes, which the
-    split-K decode kernel serves (:func:`route`)."""
-    return (dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS
+    """Whether a CUDA forward or dK/dV call goes to the bf16 tensor-core
+    kernel: bf16, a head dim that is a multiple of 8 from 8 to 128, and
+    (forward, ``sq`` given) more than one query row; a single-row decode
+    reads each key once and is bound by bytes, which the split-K decode
+    kernel serves (:func:`route`). dQ has its own rule
+    (:func:`takes_sm90_dq`)."""
+    return (dtype == torch.bfloat16 and _tc_head_dim(head_dim)
             and (sq is None or sq > 1))
+
+
+def takes_sm90_dq(dtype, head_dim) -> bool:
+    """Whether a CUDA dQ call goes to the bf16 tensor-core dQ kernel: bf16
+    with head dim 64 or 128; the other head dims stay on the CUDA-core
+    kernel."""
+    return dtype == torch.bfloat16 and head_dim in _SM90_DQ_HEAD_DIMS
 
 
 def takes_tf32x3(dtype, head_dim, sq=None) -> bool:
@@ -179,8 +198,7 @@ def takes_tf32x3(dtype, head_dim, sq=None) -> bool:
     fp32, a head dim that is a multiple of 8 from 8 to 128, and (forward,
     ``sq`` given) more than one query row; dQ stays on the CUDA-core
     kernel."""
-    return (dtype == torch.float32 and head_dim % 8 == 0
-            and _TF32X3_HEAD_DIMS[0] <= head_dim <= _TF32X3_HEAD_DIMS[1]
+    return (dtype == torch.float32 and _tc_head_dim(head_dim)
             and (sq is None or sq > 1))
 
 
@@ -368,7 +386,7 @@ def _check_tf32x3(name, q, sq=None):
     if not takes_tf32x3(q.dtype, q.shape[2], sq):
         raise ValueError(f"{name}: the fp32 tensor-core kernel takes float32 "
                          f"with head_dim a multiple of 8 in "
-                         f"[{_TF32X3_HEAD_DIMS[0]}, {_TF32X3_HEAD_DIMS[1]}]"
+                         f"[{_TC_HEAD_DIMS[0]}, {_TC_HEAD_DIMS[1]}]"
                          + ("" if sq is None else " and sq > 1") +
                          f", got {q.dtype} head_dim {q.shape[2]} sq "
                          f"{q.shape[1]}")
@@ -377,8 +395,16 @@ def _check_tf32x3(name, q, sq=None):
 def _check_sm90(name, q):
     if not takes_sm90(q.dtype, q.shape[2]):
         raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 "
-                         f"with head_dim in {_SM90_HEAD_DIMS}, got {q.dtype}"
-                         f" head_dim {q.shape[2]}")
+                         f"with head_dim a multiple of 8 in "
+                         f"[{_TC_HEAD_DIMS[0]}, {_TC_HEAD_DIMS[1]}], got "
+                         f"{q.dtype} head_dim {q.shape[2]}")
+
+
+def _check_sm90_dq(name, q):
+    if not takes_sm90_dq(q.dtype, q.shape[2]):
+        raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 "
+                         f"with head_dim in {_SM90_DQ_HEAD_DIMS}, got "
+                         f"{q.dtype} head_dim {q.shape[2]}")
 
 
 def flash_attention_fwd(q, k, v, offset, causal, scale):
@@ -492,10 +518,10 @@ def flash_attention_fwd_cuda_core(q, k, v, offset, causal, scale):
 
 def flash_attention_fwd_sm90(q, k, v, offset, causal, scale):
     """(o, lse) from the tensor-core kernel (``csrc/flash_fwd_sm90.cu``):
-    bf16, head dim 64 or 128."""
-    _on_cuda("flash_attention_sm90", q)
+    bf16, a head dim that is a multiple of 8 from 8 to 128."""
     _fwd_inputs("flash_attention_sm90", q, k, v)
     _check_sm90("flash_attention_sm90", q)
+    _on_cuda("flash_attention_sm90", q)
     bh, sq, d = q.shape
     sk = k.shape[1]
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
@@ -593,10 +619,10 @@ def flash_attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta, offset,
 def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, offset, causal,
                                  scale):
     """(dK, dV) from the tensor-core kernel (``csrc/flash_bwd_dkv_sm90.cu``):
-    bf16, head dim 64 or 128."""
-    _on_cuda("flash_attention_bwd_dkv_sm90", q)
+    bf16, a head dim that is a multiple of 8 from 8 to 128."""
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
     _check_sm90("flash_attention_bwd_dkv_sm90", q)
+    _on_cuda("flash_attention_bwd_dkv_sm90", q)
     q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -638,13 +664,13 @@ def flash_attention_bwd_dkv_tf32x3(q, k, v, do, lse, delta, offset, causal,
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, offset, causal, scale):
-    """dQ: on CUDA the tensor-core kernel where :func:`takes_sm90`, else the
-    CUDA-core kernel; the plain version on the CPU."""
+    """dQ: on CUDA the tensor-core kernel where :func:`takes_sm90_dq`, else
+    the CUDA-core kernel; the plain version on the CPU."""
     if q.device.type == "cpu":
         COUNTS_DQ.plain()
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset,
                                             causal, scale)
-    if takes_sm90(q.dtype, q.shape[2]):
+    if takes_sm90_dq(q.dtype, q.shape[2]):
         return flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset,
                                            causal, scale)
     return flash_attention_bwd_dq_cuda_core(q, k, v, do, lse, delta, offset,
@@ -676,7 +702,7 @@ def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset, causal,
     """dQ from the tensor-core kernel (``csrc/flash_bwd_dq_sm90.cu``): bf16,
     head dim 64 or 128."""
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
-    _check_sm90("flash_attention_bwd_dq_sm90", q)
+    _check_sm90_dq("flash_attention_bwd_dq_sm90", q)
     _on_cuda("flash_attention_bwd_dq_sm90", q)
     q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
     bh, sq, d = q.shape

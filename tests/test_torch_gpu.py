@@ -24,7 +24,7 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
     flash_attention_fwd, route, sm90_dkv_bound, sm90_dq_bound,
-    sm90_fwd_bound, takes_sm90, takes_tf32x3)
+    sm90_fwd_bound, takes_sm90, takes_sm90_dq, takes_tf32x3)
 
 # the one-device pipeline step, a harness (tools/pipeline_harness.py)
 sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
@@ -50,14 +50,17 @@ def _within(got, ref, bound, what):
 def _counter(name, dtype, d, sq=None):
     """The counter of the kernel that ``name``'s wrapper picks: for a
     forward (``sq`` given) the decode kernel (``name``_decode) where
-    ``route`` says so, else the tensor-core one (``name``_sm90) where
-    ``takes_sm90``, else, for the forward and dK/dV, the fp32 tensor-core
-    one (``name``_tf32x3) where ``takes_tf32x3``."""
+    ``route`` says so; for dQ the tensor-core one (``name``_sm90) where
+    ``takes_sm90_dq``, else the CUDA-core one; for the forward and dK/dV
+    the tensor-core one where ``takes_sm90``, else the fp32 tensor-core one
+    (``name``_tf32x3) where ``takes_tf32x3``."""
     if sq is not None and route(dtype, d, sq) == "decode":
         return name + "_decode"
+    if name == "flash_attention_bwd_dq":
+        return name + "_sm90" if takes_sm90_dq(dtype, d) else name
     if takes_sm90(dtype, d, sq):
         return name + "_sm90"
-    if name != "flash_attention_bwd_dq" and takes_tf32x3(dtype, d, sq):
+    if takes_tf32x3(dtype, d, sq):
         return name + "_tf32x3"
     return name
 
@@ -293,10 +296,12 @@ def test_flash_attention_backward_kernels_match_plain(cuda, sq, sk, offset,
         bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
         _within(dk, rdk, bdk, "dk")
         _within(dv, rdv, bdv, "dv")
-        _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
     else:
         _close(dk.float().cpu(), rdk.cpu(), tol)
         _close(dv.float().cpu(), rdv.cpu(), tol)
+    if takes_sm90_dq(dtype, d):
+        _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
+    else:
         _close(dq.float().cpu(), rdq.cpu(), tol)
     if offset < 0:
         assert not dq[:, :-offset].any()
@@ -341,12 +346,14 @@ def test_flash_attention_autograd_uses_the_kernels(cuda, dtype, tol):
                                   rdv)
         _within(leaves[1].grad, rdk, bdk, "dk")
         _within(leaves[2].grad, rdv, bdv, "dv")
+    else:
+        _close(leaves[1].grad.float().cpu(), rdk.cpu(), btol)
+        _close(leaves[2].grad.float().cpu(), rdv.cpu(), btol)
+    if takes_sm90_dq(dtype, d):
         _within(leaves[0].grad, rdq, sm90_dq_bound(
             *f32, go.to(dtype).float(), *args, rdq), "dq")
     else:
         _close(leaves[0].grad.float().cpu(), rdq.cpu(), btol)
-        _close(leaves[1].grad.float().cpu(), rdk.cpu(), btol)
-        _close(leaves[2].grad.float().cpu(), rdv.cpu(), btol)
 
 
 # the tensor-core kernels at tile edges: lengths that 64 and 128 do not
@@ -473,10 +480,12 @@ def test_flash_kernels_at_ring_offsets(cuda, s, offset, dtype):
 @pytest.mark.gpu
 def test_flash_attention_picks_its_kernel(cuda):
     """bf16 at head dim 64 / 128 with more than one row takes the
-    tensor-core kernels; a single-row forward the decode kernel (its
-    backward the kernels its dtype and head dim pick); fp32 at a head dim
-    that is a multiple of 8 up to 128 the 3xTF32 forward and dK/dV and the
-    CUDA-core dQ; bf16 at head dim 32 and fp32 at 36 with more rows the
+    tensor-core kernels; bf16 at the other head dims that are multiples of
+    8 up to 128 (32, 96) the tensor-core forward and dK/dV and the
+    CUDA-core dQ; a single-row forward the decode kernel (its backward the
+    kernels its dtype and head dim pick); fp32 at a head dim that is a
+    multiple of 8 up to 128 the 3xTF32 forward and dK/dV and the CUDA-core
+    dQ; bf16 at head dim 12 and 136 and fp32 at 36 with more rows the
     CUDA-core ones; a CUDA tensor that none takes raises."""
     def run(dtype, sq, d):
         q = torch.randn(2, sq, d, device=cuda).to(dtype)
@@ -499,6 +508,7 @@ def test_flash_attention_picks_its_kernel(cuda):
                 if c[n]["launches"]]
 
     sm90_bwd = ["flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dq_sm90"]
+    sm90_dkv_bwd = ["flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dq"]
     tf32x3_bwd = ["flash_attention_bwd_dkv_tf32x3", "flash_attention_bwd_dq"]
     cuda_core_bwd = ["flash_attention_bwd_dkv", "flash_attention_bwd_dq"]
     assert run(torch.bfloat16, 8, 128) == ["flash_attention_sm90"] + sm90_bwd
@@ -512,7 +522,14 @@ def test_flash_attention_picks_its_kernel(cuda):
     assert run(torch.float32, 8, 72) == ["flash_attention_tf32x3"] + \
         tf32x3_bwd
     assert run(torch.float32, 8, 36) == ["flash_attention"] + cuda_core_bwd
-    assert run(torch.bfloat16, 8, 32) == ["flash_attention"] + cuda_core_bwd
+    assert run(torch.bfloat16, 8, 32) == ["flash_attention_sm90"] + \
+        sm90_dkv_bwd
+    assert run(torch.bfloat16, 8, 96) == ["flash_attention_sm90"] + \
+        sm90_dkv_bwd
+    assert run(torch.bfloat16, 1, 96) == ["flash_attention_decode"] + \
+        sm90_dkv_bwd
+    assert run(torch.bfloat16, 8, 12) == ["flash_attention"] + cuda_core_bwd
+    assert run(torch.bfloat16, 8, 136) == ["flash_attention"] + cuda_core_bwd
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention_fwd(*[torch.zeros(1, 4, 64, device=cuda,
                                           dtype=torch.float16)] * 3, 0,
@@ -2520,6 +2537,151 @@ def test_tf32x3_wrappers_raise_on_what_their_kernels_do_not_take(
             fa.flash_attention_bwd_dkv_tf32x3(q, q, q, q, stats, stats, 0,
                                               True, 0.1)
     assert all(c["launches"] == 0 for c in counters().values())
+
+
+# the bf16 tensor-core forward and dK/dV at head dims other than 64 and 128:
+# (bh, sq, sk, offset, causal, d): ragged causal and non-causal cases at
+# head dims 8 to 112; offsets below 0, where rows see no key (all of them
+# at -96); d 64 and 128 on the same kernels
+_SM90_HEADDIMS = (8, 16, 40, 72, 80, 96, 112)
+_SM90_HEADDIM_CASES = [(3, 77, 131, 54, True, d) for d in _SM90_HEADDIMS]
+_SM90_HEADDIM_CASES += [(3, 130, 61, 0, False, d) for d in _SM90_HEADDIMS]
+_SM90_HEADDIM_CASES += [(3, 64, 64, -8, True, 72),
+                        (2, 200, 200, -157, True, 96),
+                        (2, 96, 96, -96, True, 40),
+                        (2, 300, 340, 40, True, 80),
+                        (2, 200, 200, -157, True, 128),
+                        (3, 130, 61, 0, False, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bh,sq,sk,offset,causal,d", _SM90_HEADDIM_CASES)
+def test_sm90_kernels_at_every_head_dim_match_plain(cuda, bh, sq, sk, offset,
+                                                    causal, d):
+    """The bf16 tensor-core forward and dK/dV kernels, through the
+    dispatching wrappers, against their fp32 plain versions on the same
+    bf16 inputs: o within ``sm90_fwd_bound``, lse within 1e-3, dK and dV
+    within ``sm90_dkv_bound``. Each call launches its kernel once and no
+    other. Rows that see no key give o = 0 and lse = -1e30 exactly and add
+    nothing to dK and dV (a dO of 1000 on them changes neither bit); two
+    launches of each kernel agree bit for bit."""
+    rng = np.random.default_rng(37)
+    scale = 1.0 / d ** 0.5
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda)
+
+    q, k, v, do = (rnd(bh, s, d).to(torch.bfloat16)
+                   for s in (sq, sk, sk, sq))
+    f32 = [t.float() for t in (q, k, v, do)]
+    assert route(torch.bfloat16, d, sq) == "sm90"
+    reset_counters()
+    o, lse = flash_attention_fwd(q, k, v, offset, causal, scale)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_sm90"] == {"launches": 1, "plain_calls": 0}
+    assert sum(c[n]["launches"] for n in c) == 1
+    ro, rl = flash_attention_plain(*f32[:3], offset, causal, scale)
+    _within(o, ro, sm90_fwd_bound(*f32[:3], offset, causal, scale, ro), "o")
+    _close(lse.cpu(), rl.cpu(), (0.0, 1e-3))
+    delta = (f32[3] * ro).sum(-1) - rnd(bh, sq)
+    args = (rl, delta, offset, causal, scale)
+    reset_counters()
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_bwd_dkv_sm90"] == {"launches": 1,
+                                                 "plain_calls": 0}
+    assert sum(c[n]["launches"] for n in c) == 1
+    rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
+    bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
+    _within(dk, rdk, bdk, "dk")
+    _within(dv, rdv, bdv, "dv")
+    o2, lse2 = flash_attention_fwd(q, k, v, offset, causal, scale)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, *args)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if causal and offset < 0:
+        blind = min(sq, -offset)  # rows i with i + offset < 0
+        assert not o[:, :blind].any()
+        assert (lse[:, :blind] == -1e30).all()
+        loud = do.clone()
+        loud[:, :blind] = 1000
+        dk3, dv3 = flash_attention_bwd_dkv(q, k, v, loud, *args)
+        assert torch.equal(dk, dk3) and torch.equal(dv, dv3)
+        if blind == sq:
+            assert not dk.any() and not dv.any()
+
+
+@pytest.mark.gpu
+def test_sm90_wrappers_take_unaligned_and_strided_inputs_at_d96(cuda):
+    """TMA reads 16-byte aligned rows: at head dim 96 the tensor-core
+    wrappers copy a q that starts off a 16-byte boundary and a
+    non-contiguous k, and the results still hold their bounds."""
+    rng = np.random.default_rng(38)
+    bh, s, d = 4, 100, 96
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    flat = torch.empty(bh * s * d + 1, **bf)
+    q = flat[1:].view(bh, s, d)
+    q.copy_(torch.from_numpy(rng.standard_normal((bh, s, d),
+                                                 dtype=np.float32)))
+    assert q.data_ptr() % 16 != 0
+    k = torch.from_numpy(rng.standard_normal((s, bh, d), dtype=np.float32)
+                         ).to(**bf).transpose(0, 1)
+    v, do = (torch.from_numpy(rng.standard_normal((bh, s, d),
+                                                  dtype=np.float32)).to(**bf)
+             for _ in range(2))
+    assert not k.is_contiguous()
+    f32 = [t.float() for t in (q, k, v, do)]
+    o, lse = flash_attention_fwd(q, k, v, 0, True, d ** -0.5)
+    ro, rl = flash_attention_plain(*f32[:3], 0, True, d ** -0.5)
+    _within(o, ro, sm90_fwd_bound(*f32[:3], 0, True, d ** -0.5, ro), "o")
+    args = (rl, (f32[3] * ro).sum(-1), 0, True, d ** -0.5)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
+    bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
+    _within(dk, rdk, bdk, "dk")
+    _within(dv, rdv, bdv, "dv")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [12, 136])
+def test_cuda_core_flash_kernels_keep_the_other_bf16_head_dims(cuda, d):
+    """bf16 at a head dim that is not a multiple of 8, or above 128, still
+    runs the CUDA-core forward, dK/dV and dQ kernels, within one bf16
+    rounding of their plain versions (the backward with rtol 1e-4 more for
+    its longer sums)."""
+    rng = np.random.default_rng(39)
+    bh, sq, sk, scale = 3, 50, 70, d ** -0.5
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda)
+
+    q, k, v, do = (rnd(bh, s, d).to(torch.bfloat16)
+                   for s in (sq, sk, sk, sq))
+    f32 = [t.float() for t in (q, k, v, do)]
+    assert route(torch.bfloat16, d, sq) == "cuda_core"
+    assert not takes_sm90(torch.bfloat16, d)
+    reset_counters()
+    o, lse = flash_attention_fwd(q, k, v, sk - sq, True, scale)
+    ro, rl = flash_attention_plain(*f32[:3], sk - sq, True, scale)
+    args = (rl, (f32[3] * ro).sum(-1), sk - sq, True, scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, *args)
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    c = counters()
+    for n in ("flash_attention", "flash_attention_bwd_dkv",
+              "flash_attention_bwd_dq"):
+        assert c[n] == {"launches": 1, "plain_calls": 0}, n
+    assert sum(c[n]["launches"] for n in c) == 3
+    _close(o.float().cpu(), ro.cpu(), (2.0 ** -8, 1e-4))
+    _close(lse.cpu(), rl.cpu(), (0.0, 1e-3))
+    rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
+    rdq = flash_attention_bwd_dq_plain(*f32, *args)
+    for got, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
+        _close(got.float().cpu(), ref.cpu(), (2.0 ** -8 + 1e-4, 1e-4))
 
 
 def _deterministic(on):

@@ -37,14 +37,14 @@ _LN2 = 0.6931471805599453
     (torch.float32, 4, 64, "cuda_core"), (torch.float32, 136, 64,
                                           "cuda_core"),
     (torch.float32, 256, 64, "cuda_core"), (torch.bfloat16, 72, 256,
-                                            "cuda_core"),
+                                            "sm90"),
     (torch.bfloat16, 64, 256, "sm90"), (torch.bfloat16, 128, 2, "sm90"),
     (torch.float16, 64, 256, "cuda_core")])
 def test_route_sends_fp32_at_multiples_of_8_to_tf32x3(dtype, d, sq, want):
     """fp32 with more than one query row and a head dim that is a multiple
     of 8 from 8 to 128 takes the 3xTF32 forward; one row stays on the
-    decode kernel; bf16 keeps its routes; everything else the CUDA-core
-    kernel."""
+    decode kernel; bf16 at those head dims takes its own tensor-core
+    kernel; everything else the CUDA-core kernel."""
     assert _FA.route(dtype, d, sq) == want
     assert _FA.takes_tf32x3(dtype, d, sq) is (want == "tf32x3")
 
@@ -70,12 +70,13 @@ def test_takes_tf32x3_without_rows_is_the_backward_rule(dtype, d, want):
     (torch.float32, 36, "cuda_core", "cuda_core"),
     (torch.float32, 256, "cuda_core", "cuda_core"),
     (torch.bfloat16, 128, "sm90", "sm90"),
-    (torch.bfloat16, 72, "cuda_core", "cuda_core")])
+    (torch.bfloat16, 72, "sm90", "cuda_core")])
 def test_backward_dispatch_takes_tf32x3_for_dkv_only(dtype, d, dkv, dq,
                                                      monkeypatch):
     """The dK/dV and dQ dispatchers on meta tensors (neither CPU nor CUDA),
     every kernel wrapper replaced by a recorder: fp32 dK/dV at the 3xTF32
-    head dims goes to its kernel, fp32 dQ stays on the CUDA cores."""
+    head dims goes to its kernel, fp32 dQ stays on the CUDA cores (and
+    bf16 dQ away from head dims 64 and 128)."""
     took = []
     for name, routes in (
             ("flash_attention_bwd_dkv", ("sm90", "tf32x3", "cuda_core")),
