@@ -18,11 +18,10 @@ Phases (each raises on failure, so the process exits non-zero and prints no
              tensor-core flash forward, dK/dV and dQ kernels (bf16, head
              dim 128) are held to the bound of their bf16 roundings of P
              and dS and timed beside the CUDA-core kernels on the same
-             inputs; the fp32 cases run the 3xTF32 forward and dK/dV
+             inputs; the fp32 cases run the 3xTF32 forward, dK/dV and dQ
              (fp32 at head dims that are multiples of 8 up to 128), held to
-             the fp32 tolerances and timed beside PR 1's and PR 2's
-             CUDA-core kernels, and the CUDA-core dQ. The
-             single-row split-K decode kernel is timed eager and in
+             the fp32 tolerances and timed beside the CUDA-core kernels.
+             The single-row split-K decode kernel is timed eager and in
              CUDA-graph replay beside the CUDA-core kernel and SDPA
              (both ways too) at bh 32 x 640 keys and at serving's
              generate (bh 64 x 100), and checked at odd cases (2047 keys,
@@ -257,8 +256,7 @@ distributed — the distributed slice on one card: (a) a world-1 NCCL
              every parameter bit for bit, eager and graphed, step ms side
              by side and the graph nodes the sharded step adds; (d) the
              flash forward, dK/dV and dQ kernels (bf16 tensor-core; fp32
-             the 3xTF32 forward and dK/dV, the CUDA-core dQ) at the ring's
-             offsets (a chunk wholly in the
+             3xTF32) at the ring's offsets (a chunk wholly in the
              future: o = 0, lse = -1e30, zero gradients exactly; the
              diagonal; wholly in the past; odd lengths; a nonzero lse
              cotangent) against their plain versions; (c) the ring and
@@ -339,8 +337,8 @@ dit        — DiT-XL/2 (Peebles & Xie 2023 Table 1: 28 layers, hidden
              from the seed, the adaLN-Zero parameters drawn non-zero),
              ``dtype="bfloat16"`` with fp32 inputs as ``bench.py``'s DiT
              row (so every activation is fp32 and attention runs the fp32
-             flash kernels at head dim 72: the 3xTF32 forward and dK/dV,
-             the CUDA-core dQ), AdamW 1e-4 without
+             flash kernels at head dim 72: the 3xTF32 forward, dK/dV and
+             dQ), AdamW 1e-4 without
              decay, batch 32 (cut from 256), through ``jit.TrainStep``
              over ``GaussianDiffusion.training_loss``: (a) graph = eager
              for 2 steps bit for bit under ``FLAGS_cudnn_deterministic``,
@@ -349,8 +347,8 @@ dit        — DiT-XL/2 (Peebles & Xie 2023 Table 1: 28 layers, hidden
              images/s, MFU (bench.py's FLOPs against 989 TFLOP/s, and
              against fp32's 67), peak GiB, device ms by group (SGEMM,
              flash, elementwise, AdamW), idle share, launches exact (28
-             3xTF32 flash forwards and dK/dV, 28 CUDA-core dQ, none on PR
-             1's forward or PR 2's dK/dV, one AdamW update a step), a
+             3xTF32 flash forwards, dK/dV and dQ, none on the CUDA-core
+             flash kernels, one AdamW update a step), a
              finite falling loss; (c) ``ddim_sample``
              with 50 steps at eta 0, batch 8: images/s, 50 x 28 forward
              launches, two runs of one seed equal bit for bit, the first
@@ -359,23 +357,23 @@ dit        — DiT-XL/2 (Peebles & Xie 2023 Table 1: 28 layers, hidden
              (a dQ kernel that reads only the first 64 of the 72 head dims)
              caught; then the three flash kernels at DiT's attention
              (fp32, bh 512, 256 x 256, d 72), eager and in graph replay,
-             beside PR 1's and PR 2's CUDA-core kernels on the same inputs,
+             beside the CUDA-core kernels on the same inputs,
              SDPA in fp32 and the plain versions, with the bound at the
              3xTF32 rate (``bound_ms``) and at fp32's (``bound_fp32_ms``).
 gpt-d96    — bf16 flash at head dims other than 64 and 128: GPT-3
              Large's widths (Brown et al. 2020 Table 2.1: 1536, 16 heads
              of 96) at 2 layers, bf16, recompute, batch 2 x 2048: one
              step's gradients against the plain-swapped step, eager and
-             graphed steps with exact launches (4 tensor-core forwards and
-             2 tensor-core dK/dV at the padded head dim, 2 CUDA-core dQ,
-             one AdamW update) and a falling loss; then the kernels at its
-             attention shape (bh 32, causal 2048, d 96), at GPT-3 2.7B's
-             (bh 64, d 80) and at Gemma 7B's head dim 256 (bh 16, the
-             CUDA-core kernels), eager and in graph replay beside the
+             graphed steps with exact launches (4 tensor-core forwards, 2
+             dK/dV and 2 dQ at the padded head dim, no CUDA-core flash
+             kernel, one AdamW update) and a falling loss; then the kernels
+             at its attention shape (bh 32, causal 2048, d 96), at GPT-3
+             2.7B's (bh 64, d 80) and at Gemma 7B's head dim 256 (bh 16,
+             the CUDA-core kernels), eager and in graph replay beside the
              CUDA-core kernels on the same inputs, SDPA and the plain
-             versions; and a planted fault (the forward reading only the
-             first 64 of d 96's columns) that the forward's check against
-             its plain version must catch.
+             versions; and two planted faults (the forward and dQ reading
+             only the first 64 of d 96's columns) that each kernel's check
+             against its plain version must catch.
 resnet     — ResNet-18 with 10 classes on 32 x 32 surrogate images from
              the seed (``bench.py``'s CIFAR-10 stand-in), fp32, TF32 off:
              bench.py's 12-step curve (Momentum 0.01, batch 32) eager =
@@ -2738,23 +2736,21 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
                     timed=True, with_dlse=False, d=128):
     """dK/dV and dQ kernels at one shape against their plain versions on
     fp32 copies of the same inputs. bf16 at a head dim that is a multiple
-    of 8 up to 128 runs the tensor-core dK/dV kernel (timed eager and in
-    graph replay beside the CUDA-core kernel on the same inputs), and at
-    head dim 64 or 128 the tensor-core dQ kernel too (timed beside the
-    CUDA-core one), each held to the bound of its roundings; fp32 at a
-    head dim that is a multiple of 8 up to 128 runs the 3xTF32 dK/dV
-    kernel (timed eager and in graph replay beside the CUDA-core one on
-    the same inputs, its bound at the 3xTF32 rate and at fp32's); dQ
-    elsewhere runs the CUDA-core kernel. Returns one row per kernel."""
+    of 8 up to 128 runs the tensor-core dK/dV and dQ kernels, each held to
+    the bound of its roundings; fp32 at those head dims runs the 3xTF32
+    dK/dV and dQ kernels (their bound at the 3xTF32 rate and at fp32's);
+    each of these is timed eager and in graph replay beside the CUDA-core
+    kernel on the same inputs. Other head dims run the CUDA-core kernels.
+    Returns one row per kernel."""
     import torch
 
     fa = _flash_module()
     scale = 1.0 / d ** 0.5
-    sm90 = fa.takes_sm90(dtype, d)  # dK/dV on the tensor cores
-    sm90_dq = fa.takes_sm90_dq(dtype, d)
+    sm90 = fa.takes_sm90(dtype, d)  # dK/dV and dQ on the tensor cores
     tf32x3 = fa.takes_tf32x3(dtype, d)
-    dkv_name = "flash_attention_bwd_dkv" + (
-        "_sm90" if sm90 else "_tf32x3" if tf32x3 else "")
+    suffix = "_sm90" if sm90 else "_tf32x3" if tf32x3 else ""
+    dkv_name = "flash_attention_bwd_dkv" + suffix
+    dq_name = "flash_attention_bwd_dq" + suffix
     q, do = (_rand(gen, (bh, sq, d), dtype) for _ in range(2))
     k, v = (_rand(gen, (bh, sk, d), dtype) for _ in range(2))
     f32 = [t.float() for t in (q, k, v, do)]
@@ -2783,15 +2779,15 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             _compare(f"{dkv_name}[{label}].dv", dv, rdv, tol)[0])
     del rdk, rdv
     rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
-    if sm90_dq:
+    if sm90:
         bdq = fa.sm90_dq_bound(*f32, *args, rdq)
         err_dq, share_dq = _compare_bound(f"flash_bwd_dq_sm90[{label}].dq",
                                           dq, rdq, bdq)
         del bdq
     else:
-        err_dq = _compare(f"flash_bwd_dq[{label}].dq", dq, rdq, tol)[0]
+        err_dq = _compare(f"{dq_name}[{label}].dq", dq, rdq, tol)[0]
     if offset < 0 and causal and dq[:, :-offset].abs().max().item() != 0.0:
-        raise RuntimeError(f"flash_bwd_dq[{label}]: rows that see no key "
+        raise RuntimeError(f"{dq_name}[{label}]: rows that see no key "
                            f"have non-zero dq")
     del rdq, f32
     _release()
@@ -2800,12 +2796,10 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             "causal": causal}
     rows = [dict(base, kernel=dkv_name,
                  max_abs_err=err_dkv, tol=SM90_TOL if sm90 else tol),
-            dict(base, kernel="flash_attention_bwd_dq" + (
-                "_sm90" if sm90_dq else ""),
-                 max_abs_err=err_dq, tol=SM90_TOL if sm90_dq else tol)]
+            dict(base, kernel=dq_name,
+                 max_abs_err=err_dq, tol=SM90_TOL if sm90 else tol)]
     if sm90:
         rows[0]["bound_share_max"] = share
-    if sm90_dq:
         rows[1]["bound_share_max"] = share_dq
     if timed:
         rows[0]["kernel_ms"] = _time_ms(
@@ -2816,19 +2810,13 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             warmup=2)
         if sm90 or tf32x3:
             # graph replay, and the CUDA-core kernel on the same inputs
-            wrapper = fa.flash_attention_bwd_dkv_sm90 if sm90 else \
-                fa.flash_attention_bwd_dkv_tf32x3
-            rows[0]["graph_ms"] = _graph_ms(
-                lambda: wrapper(q, k, v, do, *args))
-            rows[0]["cuda_core_ms"] = _time_ms(
-                lambda: fa.flash_attention_bwd_dkv_cuda_core(q, k, v, do,
-                                                             *args),
-                iters=3, warmup=1)
-        if sm90_dq:  # the CUDA-core dQ kernel on the same inputs
-            rows[1]["cuda_core_ms"] = _time_ms(
-                lambda: fa.flash_attention_bwd_dq_cuda_core(q, k, v, do,
-                                                            *args),
-                iters=3, warmup=1)
+            for row, kind in ((rows[0], "dkv"), (rows[1], "dq")):
+                wrapper = getattr(fa, f"flash_attention_bwd_{kind}{suffix}")
+                core = getattr(fa, f"flash_attention_bwd_{kind}_cuda_core")
+                row["graph_ms"] = _graph_ms(
+                    lambda w=wrapper: w(q, k, v, do, *args))
+                row["cuda_core_ms"] = _time_ms(
+                    lambda c=core: c(q, k, v, do, *args), iters=3, warmup=1)
         rows[0]["plain_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, *args),
             iters=3, warmup=1)
@@ -2842,10 +2830,10 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         esz = q.element_size()
         pairs = bh * _visible_pairs(sq, sk, offset, causal)
         io = (2 * bh * sq * d + 2 * bh * sk * d) * esz + 2 * bh * sq * 4
-        for row, out_bytes, flops_per, rate in (
-                (rows[0], 2 * bh * sk * d * esz, 8 * d,
-                 "tf32x3" if tf32x3 else _dname(dtype)),
-                (rows[1], bh * sq * d * esz, 6 * d, _dname(dtype))):
+        rate = "tf32x3" if tf32x3 else _dname(dtype)
+        for row, out_bytes, flops_per in (
+                (rows[0], 2 * bh * sk * d * esz, 8 * d),
+                (rows[1], bh * sq * d * esz, 6 * d)):
             b_ms, b_by = _bound(io + out_bytes, flops_per * pairs, rate)
             row.update(library_ms=lib, library_ms_spread=spread,
                        bound_ms=b_ms, bound_by=b_by, visible_pairs=pairs,
@@ -3297,15 +3285,19 @@ def _train_curve(model, state, ids, steps, finetune=False):
 
 
 # the kernels of the dense training step in fp32 (the parity phases: the
-# 3xTF32 flash forward and dK/dV and the CUDA-core dQ; bf16 takes the
-# tensor-core flash forward, dK/dV and dQ instead), and their launches per
-# bf16 step as reckoned from the code: recompute runs every layer's forward
-# twice, the final norm adds one forward and one backward
+# 3xTF32 flash forward, dK/dV and dQ; bf16 takes the tensor-core flash
+# forward, dK/dV and dQ instead), and their launches per bf16 step as
+# reckoned from the code: recompute runs every layer's forward twice, the
+# final norm adds one forward and one backward
 DENSE_TRAIN_KERNELS = ("flash_attention_tf32x3",
                        "flash_attention_bwd_dkv_tf32x3",
-                       "flash_attention_bwd_dq", "rms_norm",
+                       "flash_attention_bwd_dq_tf32x3", "rms_norm",
                        "rms_norm_residual", "rms_norm_bwd",
                        "rms_norm_residual_bwd", "rope", "rope_inverse")
+# the CUDA-core flash kernels, which no training path at a head dim that is
+# a multiple of 8 up to 128 launches
+CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd_dkv",
+                   "flash_attention_bwd_dq")
 
 
 def _dense_launches(L):
@@ -3347,9 +3339,11 @@ def phase_train_parity(seed):
     loss_k, grads_k = _loss_and_grads(model, ids)
     counts = kernels.counters()
     unused = [n for n, c in counts.items() if c["plain_calls"]
-              or (c["launches"] == 0 and n in DENSE_TRAIN_KERNELS)]
+              or (c["launches"] == 0 and n in DENSE_TRAIN_KERNELS)
+              or (c["launches"] and n in CUDA_CORE_FLASH)]
     if unused:
-        raise RuntimeError(f"train-parity: kernels not all launched: "
+        raise RuntimeError(f"train-parity: kernels not all launched, or "
+                           f"CUDA-core flash launched: "
                            f"{ {n: counts[n] for n in unused} }")
     errs = _grad_errors(grads_k, grads_p)
     del grads_k, grads_p
@@ -3589,6 +3583,7 @@ GRAPH_NODES = [
     (("flash_bwd_dq_sm90_kernel",), ("flash_attention_bwd_dq_sm90",)),
     (("flash_fwd_tf32x3_kernel",), ("flash_attention_tf32x3",)),
     (("flash_bwd_dkv_tf32x3_kernel",), ("flash_attention_bwd_dkv_tf32x3",)),
+    (("flash_bwd_dq_tf32x3_kernel",), ("flash_attention_bwd_dq_tf32x3",)),
     (("rmsnorm_fwd_vec_kernel", "rmsnorm_fwd_scalar_kernel"),
      ("rms_norm", "rms_norm_residual")),
     (("rmsnorm_bwd_vec_kernel", "rmsnorm_bwd_kernel"),
@@ -4684,9 +4679,11 @@ def phase_moe_train_parity(seed):
     counts = kernels.counters()
     unused = [n for n, c in counts.items() if c["plain_calls"] or (
         c["launches"] == 0 and (n in DENSE_TRAIN_KERNELS
-                                or n in MOE_FP32_KERNELS))]
+                                or n in MOE_FP32_KERNELS))
+        or (c["launches"] and n in CUDA_CORE_FLASH)]
     if unused:
-        raise RuntimeError(f"moe-train-parity: kernels not all launched: "
+        raise RuntimeError(f"moe-train-parity: kernels not all launched, or "
+                           f"CUDA-core flash launched: "
                            f"{ {n: counts[n] for n in unused} }")
     errs = _grad_errors(grads_k, grads_p)
     del grads_k, grads_p
@@ -6777,7 +6774,8 @@ def _ring_phase(seed):
                 "flash_attention": 0, "flash_attention_bwd_dkv": 0,
                 "flash_attention_bwd_dq": 0, "flash_attention_decode": 0,
                 "flash_attention_tf32x3": 0,
-                "flash_attention_bwd_dkv_tf32x3": 0}
+                "flash_attention_bwd_dkv_tf32x3": 0,
+                "flash_attention_bwd_dq_tf32x3": 0}
         seen = {n: counts[n]["launches"] for n in want}
         plain = sum(c["plain_calls"] for c in counts.values())
         if seen != want or plain:
@@ -6835,10 +6833,9 @@ def _ring_phase(seed):
 
 def _offset_case(label, dtype, s, offset, gen, with_dlse):
     """(d) The forward, dK/dV and dQ kernels (bf16: tensor cores; fp32:
-    the 3xTF32 forward and dK/dV, the CUDA-core dQ) on one ring step's
-    chunk pair at ``offset`` against their
-    plain versions; a chunk wholly in the future must give o = 0, lse =
-    -1e30 and dQ = dK = dV = 0 exactly. Returns kernel rows."""
+    the 3xTF32 kernels) on one ring step's chunk pair at ``offset`` against
+    their plain versions; a chunk wholly in the future must give o = 0,
+    lse = -1e30 and dQ = dK = dV = 0 exactly. Returns kernel rows."""
     import torch
 
     fa = _flash_module()
@@ -6881,15 +6878,15 @@ def _offset_case(label, dtype, s, offset, gen, with_dlse):
         if not exact:
             raise RuntimeError(f"{label}: a chunk wholly in the future gave "
                                f"nonzero o/dQ/dK/dV or lse != -1e30")
-    suffix = "_sm90" if sm90 else ""
-    tf32x3 = "_tf32x3" if fa.takes_tf32x3(dtype, d, s) else ""
+    suffix = "_sm90" if sm90 else \
+        "_tf32x3" if fa.takes_tf32x3(dtype, d, s) else ""
     base = {"phase": "kernel", "case": label, "dtype": _dname(dtype),
             "bh": bh, "sq": s, "sk": s, "offset": offset, "causal": True,
             "dlse": with_dlse, "exact_zeros": exact,
             "tol": SM90_TOL if sm90 else _tol(dtype)}
-    rows = [dict(base, kernel="flash_attention" + (suffix or tf32x3),
+    rows = [dict(base, kernel="flash_attention" + suffix,
                  max_abs_err=errs[0], lse_max_abs_err=lse_err),
-            dict(base, kernel="flash_attention_bwd_dkv" + (suffix or tf32x3),
+            dict(base, kernel="flash_attention_bwd_dkv" + suffix,
                  max_abs_err=errs[1]),
             dict(base, kernel="flash_attention_bwd_dq" + suffix,
                  max_abs_err=errs[2])]
@@ -7762,7 +7759,7 @@ def _moe_mesh_ranks(seed):
             got["plain_calls"] += c["plain_calls"]
     need = ("moe_gather", "moe_combine", "grouped_matmul",
             "grouped_matmul_dgrad", "grouped_matmul_wgrad",
-            "adafactor_stats", "adafactor_update")
+            "adafactor_stats", "adafactor_update") + DENSE_TRAIN_KERNELS[:3]
     row = {"phase": "moe-mesh-ranks", "card": _nvidia_smi(),
            "degrees": {"dp": 2, "ep": 2}, "transport": "gloo (one card)",
            "widths": "flagship", "layers": MOE_MESH_LAYERS,
@@ -7787,9 +7784,12 @@ def _moe_mesh_ranks(seed):
                            f"{row['faults']}")
     unused = [k for k in need if not counts.get(k, {}).get("launches")]
     plain = [k for k, c in counts.items() if c["plain_calls"]]
-    if unused or plain:
+    core = [k for k in CUDA_CORE_FLASH
+            if counts.get(k, {}).get("launches")]
+    if unused or plain or core:
         raise RuntimeError(f"moe-mesh: the ranks' step did not launch "
-                           f"{unused} (plain calls: {plain})")
+                           f"{unused} (plain calls: {plain}; CUDA-core "
+                           f"flash launched: {core})")
     return counts
 
 
@@ -8452,8 +8452,8 @@ def _bert_eval_check(model, dtype, data):
 
 def _bert_grad_check(seed, state0, data):
     """(d) fp32 with both dropouts at 0 and no mask, so the flash forward
-    and both backward kernels run (12 launches each: the 3xTF32 forward and
-    dK/dV, the CUDA-core dQ): one step's loss and
+    and both backward kernels run (12 launches each: the 3xTF32 forward,
+    dK/dV and dQ): one step's loss and
     every gradient against the same step through the plain versions, and
     a planted fault (dQ without the softmax scale) that the check must
     catch."""
@@ -8488,7 +8488,7 @@ def _bert_grad_check(seed, state0, data):
     counts = kernels.counters()
     L = model.bert.config.num_hidden_layers
     want = {"flash_attention_tf32x3": L, "flash_attention_bwd_dkv_tf32x3": L,
-            "flash_attention_bwd_dq": L}
+            "flash_attention_bwd_dq_tf32x3": L}
     wrong = {n: c for n, c in counts.items() if c["plain_calls"] or
              c["launches"] != want.get(n, 0)}
     if wrong:
@@ -8564,8 +8564,8 @@ def phase_bert_finetune(seed):
         rows = [_flash_case(f"bert-{dt}", getattr(torch, dt), bh, sq, sq,
                             False, gen, d=d)
                 for dt in ("float32", "bfloat16")]
-        # the fp32 backward at BERT's shape: the 3xTF32 dK/dV, the
-        # CUDA-core dQ (the gradient check's kernels)
+        # the fp32 backward at BERT's shape: the 3xTF32 dK/dV and dQ (the
+        # gradient check's kernels)
         rows += _flash_bwd_case("bert-float32", torch.float32, bh, sq, sq, 0,
                                 False, gen, d=d)
         total_p, body_p = bert_param_count(cfg)
@@ -8654,17 +8654,16 @@ def _dit_step(model, diffusion, graph):
 def _dit_launches(L, train=True):
     """{counter: launches a step}: every attention call is fp32 at head
     dim 72 (the inputs and the timestep embedding are fp32, so the
-    products promote), so L forwards and L dK/dV on the 3xTF32 kernels, L
-    dQ on the CUDA-core one, none on PR 1's forward or PR 2's dK/dV, and
-    AdamW's one update; every other counter 0. A forward alone
-    (``train=False``): L."""
+    products promote), so L forwards, L dK/dV and L dQ on the 3xTF32
+    kernels, none on the CUDA-core flash kernels, and AdamW's one update;
+    every other counter 0. A forward alone (``train=False``): L."""
     from paddle_tpu_torch import kernels
 
     per = {n: 0 for n in kernels.counters()}
     per["flash_attention_tf32x3"] = L
     if train:
-        per.update(flash_attention_bwd_dkv_tf32x3=L, flash_attention_bwd_dq=L,
-                   adam_update=1)
+        per.update(flash_attention_bwd_dkv_tf32x3=L,
+                   flash_attention_bwd_dq_tf32x3=L, adam_update=1)
     return per
 
 
@@ -8877,8 +8876,8 @@ def _dit_sample(cfg, state0, seed):
 
 
 def _dq_first64():
-    """A planted fault on the d 72 path: a dQ kernel that handles only the
-    first 64 head dims (the rest of each row left 0)."""
+    """A planted fault on the d 72 path: a dQ kernel (the 3xTF32 one) that
+    handles only the first 64 head dims (the rest of each row left 0)."""
     fa = _flash_module()
     real = fa.flash_attention_bwd_dq
 
@@ -8927,7 +8926,7 @@ def _dit_grad_check(seed):
     counts = kernels.counters()
     L = cfg.num_hidden_layers
     want = {"flash_attention_tf32x3": L, "flash_attention_bwd_dkv_tf32x3": L,
-            "flash_attention_bwd_dq": L}
+            "flash_attention_bwd_dq_tf32x3": L}
     wrong = {n: c for n, c in counts.items() if c["plain_calls"] or
              c["launches"] != want.get(n, 0)}
     if wrong:
@@ -9016,8 +9015,8 @@ def phase_dit(seed):
 # -- bf16 flash at head dims other than 64 and 128 ------------------------------
 
 # GPT-3 Large (Brown et al. 2020 Table 2.1: 24 layers of 1536, 16 heads of
-# 96) at 2 layers: bf16 at head dim 96 runs the tensor-core forward and
-# dK/dV at a padded head dim and the CUDA-core dQ
+# 96) at 2 layers: bf16 at head dim 96 runs the tensor-core forward, dK/dV
+# and dQ at a padded head dim
 D96_LAYERS = 2
 D96_BATCH = (2, 2048)
 D96_SEED = 61
@@ -9032,42 +9031,51 @@ D256_BH = 16
 def _d96_launches(L):
     """{counter: launches per step} of the bf16 GPT step at head dim 96;
     every other counter 0: 2L tensor-core forwards (recompute runs each
-    layer's forward twice), L tensor-core dK/dV, L CUDA-core dQ (the
-    tensor-core dQ takes head dims 64 and 128 alone), one
-    ``adam_update``."""
-    per_step = _gpt_launches(L)
-    per_step.update(flash_attention_bwd_dq_sm90=0, flash_attention_bwd_dq=L)
-    return per_step
+    layer's forward twice), L tensor-core dK/dV, L tensor-core dQ, one
+    ``adam_update``, as at head dim 128: no CUDA-core flash kernel."""
+    return _gpt_launches(L)
 
 
-def _first64_check(label, bh, s, d, gen):
-    """The kernel-against-plain check of the forward at one causal shape,
-    given a planted fault: the tensor-core forward reading only the first
-    64 columns of q, k and v (the rest zero), as a kernel that loaded one
-    64-column chunk alone would. The check must find it past
-    ``sm90_fwd_bound``. Returns the check's line."""
+def _first64_check(label, bh, s, d, gen, kind):
+    """The kernel-against-plain check of the forward (``kind`` "fwd") or
+    of dQ ("dq") at one causal shape, given a planted fault: the
+    tensor-core kernel reading only the first 64 columns of its inputs
+    (the rest zero), as a kernel that loaded one 64-column chunk alone
+    would. The check must find it past ``sm90_fwd_bound`` /
+    ``sm90_dq_bound``. Returns the check's line."""
     import torch
 
     fa = _flash_module()
-    q, k, v = (_rand(gen, (bh, s, d), torch.bfloat16) for _ in range(3))
-    f32 = [t.float() for t in (q, k, v)]
+    ins = [_rand(gen, (bh, s, d), torch.bfloat16)
+           for _ in range(3 if kind == "fwd" else 4)]
+    f32 = [t.float() for t in ins]
     scale = 1.0 / d ** 0.5
-    ro, _rl = fa.flash_attention_plain(*f32, 0, True, scale)
-    bound = fa.sm90_fwd_bound(*f32, 0, True, scale, ro)
-    for t in (q, k, v):
+    ro, rl = fa.flash_attention_plain(*f32[:3], 0, True, scale)
+    if kind == "fwd":
+        name, ref = "flash_attention_sm90", ro
+        bound = fa.sm90_fwd_bound(*f32, 0, True, scale, ro)
+    else:
+        name = "flash_attention_bwd_dq_sm90"
+        args = (rl, (f32[3] * ro).sum(-1), 0, True, scale)
+        ref = fa.flash_attention_bwd_dq_plain(*f32, *args)
+        bound = fa.sm90_dq_bound(*f32, *args, ref)
+    for t in ins:
         t[..., 64:] = 0
-    o, _lse = fa.flash_attention_fwd_sm90(q, k, v, 0, True, scale)
+    if kind == "fwd":
+        got = fa.flash_attention_fwd_sm90(*ins, 0, True, scale)[0]
+    else:
+        got = fa.flash_attention_bwd_dq_sm90(*ins, *args)
     torch.cuda.synchronize()
-    excess = ((o.float() - ro).abs() - bound).max().item()
+    excess = ((got.float() - ref).abs() - bound).max().item()
     try:
-        _compare_bound(f"flash_attention_sm90[{label}]", o, ro, bound)
+        _compare_bound(f"{name}[{label}]", got, ref, bound)
         caught = False
     except RuntimeError:
         caught = True
-    del q, k, v, f32, ro, bound, o
+    del ins, f32, ro, rl, ref, bound, got
     _release()
     row = {"phase": "gpt-d96-fault", "case": label, "fault":
-           "fwd_reads_first64", "bh": bh, "s": s, "d": d,
+           f"{kind}_reads_first64", "bh": bh, "s": s, "d": d,
            "excess_over_bound": excess, "fault_caught": caught}
     _emit(row)
     if not caught:
@@ -9083,9 +9091,9 @@ def phase_gpt_d96(seed):
     GPT_GRAD_TOL), eager and graphed steps with exact launches and a
     falling loss; then the kernels' rows at its attention shape, at GPT-3
     2.7B's (head dim 80, bh D80_BH) and, for the CUDA-core kernels, at
-    Gemma 7B's (head dim 256, bh D256_BH), and a planted fault (the
-    forward reading 64 of the 96 columns), which the forward's check
-    against its plain version must catch (``_first64_check``).
+    Gemma 7B's (head dim 256, bh D256_BH), and two planted faults (the
+    forward and dQ reading 64 of the 96 columns), which each kernel's
+    check against its plain version must catch (``_first64_check``).
     Returns ({path: counters}, rows)."""
     import torch
 
@@ -9137,7 +9145,8 @@ def phase_gpt_d96(seed):
         rows += _flash_bwd_case(label, torch.bfloat16, rbh, s, s, 0, True,
                                 gen, d=rd)
         _release()
-    _first64_check("gpt-d96-bfloat16", bh, s, d, gen)
+    for kind in ("fwd", "dq"):
+        _first64_check("gpt-d96-bfloat16", bh, s, d, gen, kind)
     return {"gpt-d96": _add_counts(ecounts, gcounts)}, rows
 
 
@@ -9332,10 +9341,11 @@ def _kernels_line(rows, paths):
     run}): serving, the bf16 training steps, and the fp32 runs of the
     parity phases (the depth-2 engine, whose prefill windows run the
     general paged-attention kernel, and the depth-2 training steps, which
-    run the 3xTF32 flash forward and dK/dV, the CUDA-core dQ and grouped
-    GEMM kernels); the CUDA-core forward and dK/dV run on no main path
-    now, and their rows are taken at head dim 256 (``d256-bfloat16``),
-    which only they take. The flash kernels also carry their rows at
+    run the 3xTF32 flash forward, dK/dV and dQ and the CUDA-core grouped
+    GEMM kernels); the CUDA-core flash forward, dK/dV and dQ run on no
+    main path now, and their rows are taken at head dim 256
+    (``d256-bfloat16``), which only they take. The flash kernels also
+    carry their rows at
     DiT's (``dit``), GPT-3 Large's (``gpt_d96``) and GPT-3 2.7B's
     (``gpt_d80``) attention shapes."""
     # (kernel, representative case, source, TPU kernel replaced, the
@@ -9375,10 +9385,14 @@ def _kernels_line(rows, paths):
          "flash_bwd_dkv_sm90.cu",
          "paddle_tpu/kernels/flash_attention.py:154",
          ["flash_attention_bwd_dkv_sm90"]),
-        ("flash_attention_bwd_dq", "train-float32",
+        ("flash_attention_bwd_dq", "d256-bfloat16",
          "flash_attention_bwd.cu",
          "paddle_tpu/kernels/flash_attention.py:206",
          ["flash_attention_bwd_dq"]),
+        ("flash_attention_bwd_dq_tf32x3", "dit-d72-float32",
+         "flash_bwd_dq_tf32x3.cu",
+         "paddle_tpu/kernels/flash_attention.py:206",
+         ["flash_attention_bwd_dq_tf32x3"]),
         ("flash_attention_bwd_dq_sm90", "train-bfloat16",
          "flash_bwd_dq_sm90.cu",
          "paddle_tpu/kernels/flash_attention.py:206",

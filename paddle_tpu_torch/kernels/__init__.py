@@ -35,6 +35,7 @@ _COUNTS = {"paged_attention": _paged.COUNTS,
            "flash_attention_bwd_dkv_tf32x3": _flash.COUNTS_DKV_TF32X3,
            "flash_attention_bwd_dq": _flash.COUNTS_DQ,
            "flash_attention_bwd_dq_sm90": _flash.COUNTS_DQ_SM90,
+           "flash_attention_bwd_dq_tf32x3": _flash.COUNTS_DQ_TF32X3,
            "rms_norm": _rmsnorm.COUNTS,
            "rms_norm_residual": _rmsnorm.COUNTS_RESIDUAL,
            "rms_norm_bwd": _rmsnorm.COUNTS_BWD,

@@ -6,8 +6,7 @@
 // flash_attention.py:154, launched by `_flash_bwd` at :268) for the inputs it
 // takes; fp32 has its own tensor-core kernel (flash_bwd_dkv_tf32x3.cu), and
 // other head dims stay on the CUDA-core kernel of flash_attention_bwd.cu.
-// dQ (`_bwd_dq_kernel`, :206) is flash_bwd_dq_sm90.cu's at d 64 and 128
-// and the CUDA-core kernel's elsewhere. Same function,
+// dQ (`_bwd_dq_kernel`, :206) is flash_bwd_dq_sm90.cu's. Same function,
 // from q, dO [bh, sq, d], k, v [bh, sk, d] and fp32 lse, delta = rowsum(dO*O)
 // - dlse [bh, sq]: for every visible pair (i, j) (j <= i + offset under
 // `causal`)

@@ -32,7 +32,7 @@
 // erred by 1.4e-4 in dK and 2.3e-4 in dV; this way by 1.4e-5). Ragged sq
 // and sk read as zeros and are masked. No atomics: every sum runs in a
 // fixed order, so two launches agree bit for bit. See DkvShape for the
-// tiles. dQ stays on flash_attention_bwd.cu.
+// tiles. dQ is flash_bwd_dq_tf32x3.cu's.
 
 #include "tf32x3.cuh"
 

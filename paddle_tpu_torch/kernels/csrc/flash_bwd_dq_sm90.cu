@@ -1,13 +1,15 @@
 // Flash-attention dQ backward on Hopper's tensor cores (sm_90a): bf16
-// inputs, head dim 64 or 128, fp32 accumulation.
+// inputs, any head dim d that is a multiple of 8 from 8 to 128, fp32
+// accumulation.
 //
 // Replaces the TPU kernel `_bwd_dq_kernel` (paddle_tpu/kernels/
 // flash_attention.py:206, launched by `_flash_bwd` at :296) for the inputs it
-// takes; fp32 and other head dims stay on the CUDA-core kernel of
-// flash_attention_bwd.cu. Same function, from the same inputs as the dK/dV
-// kernel (flash_bwd_dkv_sm90.cu): q, dO [bh, sq, d], k, v [bh, sk, d] and
-// fp32 lse, delta = rowsum(dO*O) - dlse [bh, sq]. For every visible pair
-// (i, j) (j <= i + offset under `causal`)
+// takes; fp32 has its own tensor-core kernel (flash_bwd_dq_tf32x3.cu), and
+// other head dims stay on the CUDA-core kernel of flash_attention_bwd.cu.
+// Same function, from the same inputs as the dK/dV kernel
+// (flash_bwd_dkv_sm90.cu): q, dO [bh, sq, d], k, v [bh, sk, d] and fp32 lse,
+// delta = rowsum(dO*O) - dlse [bh, sq]. For every visible pair (i, j)
+// (j <= i + offset under `causal`)
 //   p_ij = exp(scale q_i.k_j - lse_i),  dp_ij = dO_i.v_j,
 //   ds_ij = p_ij (dp_ij - delta_i) scale,   dQ_i += ds_ij k_j.
 // Masked pairs give exactly 0 (p is selected to 0 before any use), so a row
@@ -35,6 +37,11 @@
 // kernel's skip at :241-246), a warpgroup skips the tiles that none of its
 // rows sees, and only tiles on the diagonal or the ragged end of the keys
 // pay for the mask. dQ is written once: no atomics, deterministic.
+//
+// Head dims, as in flash_bwd_dkv_sm90.cu: an instance for each padded width
+// DP = ceil16(d), the real d at run time; ceil(DP / 64) 64-column chunks a
+// tile, the columns past d zeros from TMA; S and dP run DP / 16 k16 steps,
+// dQ accumulates at N = DP, and only the columns below d are written.
 
 #include "sm90_common.cuh"
 
@@ -46,20 +53,20 @@ constexpr int kRows = 128;  // query rows per block (two warpgroups of 64)
 constexpr int kKeys = 64;   // keys per streamed K / V tile
 constexpr int kThreads = 256;
 
-template <int D>
+template <int DP>
 struct DqLayout {
-  static constexpr int kHalves = D / 64;
-  static constexpr uint32_t kHalfQ = kRows * 128;   // bytes of one Q/dO half
-  static constexpr uint32_t kHalfKV = kKeys * 128;  // bytes of one K/V half
-  static constexpr uint32_t kQ = kHalves * kHalfQ;
-  static constexpr uint32_t kTileKV = kHalves * kHalfKV;
+  static constexpr int kChunks = (DP + 63) / 64;     // 64-column regions
+  static constexpr uint32_t kChunkQ = kRows * 128;   // bytes of a Q/dO chunk
+  static constexpr uint32_t kChunkKV = kKeys * 128;  // of a K/V chunk
+  static constexpr uint32_t kQ = kChunks * kChunkQ;
+  static constexpr uint32_t kTileKV = kChunks * kChunkKV;
   // [Q][dO][stage 0: K, V][stage 1: K, V][full[2] empty[2] q]
   static constexpr uint32_t kStages = 2 * kQ;
   static constexpr uint32_t kBars = kStages + 2 * 2 * kTileKV;
   static constexpr size_t kSmem = kBars + 64 + 1024;  // + alignment slack
 };
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -68,10 +75,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dq, int sq, int sk,
-                         int offset, int causal, float scale,
+                         int d, int offset, int causal, float scale,
                          float scale_log2) {
-  using L = DqLayout<D>;
-  constexpr int H = L::kHalves;
+  using L = DqLayout<DP>;
+  constexpr int C = L::kChunks;
+  constexpr int NA = DP / 2;  // accumulator floats of dQ
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sDO = sQ + L::kQ;
@@ -100,9 +108,9 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t sK = sKV0 + 2 * stage * L::kTileKV;
     mbar_expect_tx(full, 2 * L::kTileKV);
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      tma_load(sK + h * L::kHalfKV, mk, full, 64 * h, tile * kKeys, b);
-      tma_load(sK + L::kTileKV + h * L::kHalfKV, mv, full, 64 * h,
+    for (int c = 0; c < C; ++c) {
+      tma_load(sK + c * L::kChunkKV, mk, full, 64 * c, tile * kKeys, b);
+      tma_load(sK + L::kTileKV + c * L::kChunkKV, mv, full, 64 * c,
                tile * kKeys, b);
     }
   };
@@ -119,17 +127,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid == 0) {
     mbar_expect_tx(qbar, 2 * L::kQ);
 #pragma unroll
-    for (int h = 0; h < H; ++h) {
-      tma_load(sQ + h * L::kHalfQ, &tq, qbar, 64 * h, i0, b);
-      tma_load(sDO + h * L::kHalfQ, &tdo, qbar, 64 * h, i0, b);
+    for (int c = 0; c < C; ++c) {
+      tma_load(sQ + c * L::kChunkQ, &tq, qbar, 64 * c, i0, b);
+      tma_load(sDO + c * L::kChunkQ, &tdo, qbar, 64 * c, i0, b);
     }
     for (int s = 0; s < 2 && s < n_tiles; ++s) load_kv(s, s);
   }
   __syncwarp();
 
-  float acc[D / 2];
+  float acc[NA];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
   // lse (in log2 units) and delta of this thread's two rows
   const size_t rbase = (size_t)b * sq;
   const float l_lo = row_lo < sq ? lse[rbase + row_lo] * kLog2e : 0.f;
@@ -149,20 +157,20 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(bar + 8 * stage, parity);
 
     if (k0 <= wg_last) {  // uniform across the warpgroup
-      // S = Q . K^T and dP = dO . V^T over d in k16 steps
+      // S = Q . K^T and dP = dO . V^T over DP in k16 steps
       float s[32], dp[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t offq = (kk / 4) * L::kHalfQ + (kk % 4) * 32;
-        const uint32_t offk = (kk / 4) * L::kHalfKV + (kk % 4) * 32;
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t offq = (kk / 4) * L::kChunkQ + (kk % 4) * 32;
+        const uint32_t offk = (kk / 4) * L::kChunkKV + (kk % 4) * 32;
         wgmma_ss_n64(s, desc(sQw + offq, 16, 1024), desc(sK + offk, 16, 1024),
                      kk > 0);
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t offq = (kk / 4) * L::kHalfQ + (kk % 4) * 32;
-        const uint32_t offk = (kk / 4) * L::kHalfKV + (kk % 4) * 32;
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t offq = (kk / 4) * L::kChunkQ + (kk % 4) * 32;
+        const uint32_t offk = (kk / 4) * L::kChunkKV + (kk % 4) * 32;
         wgmma_ss_n64(dp, desc(sDOw + offq, 16, 1024),
                      desc(sV + offk, 16, 1024), kk > 0);
       }
@@ -191,13 +199,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       acc_to_a<32>(s, sa);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t dk = desc(sK + kk * 16 * 128, L::kHalfKV, 1024);
-        if constexpr (D == 128)
-          wgmma_rs_n128(acc, sa[kk], dk);
-        else
-          wgmma_rs_n64(acc, sa[kk], dk);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<DP>(acc, sa[kk], desc(sK + kk * 16 * 128, L::kChunkKV, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -214,32 +217,34 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
 #pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
+  for (int i = 0; i < NA; i += 2) {
     const int row = (i & 2) ? row_hi : row_lo;
-    if (row < sq) {
+    // d is a multiple of 8: an 8-column group lies wholly below d or not
+    if (row < sq && 8 * (i / 4) < d) {
       const int col = 8 * (i / 4) + cq;
-      *reinterpret_cast<__nv_bfloat162*>(dq + (rbase + row) * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(dq + (rbase + row) * d + col) =
           __floats2bfloat162_rn(acc[i], acc[i + 1]);
     }
   }
 }
 
-template <int D>
+template <int DP>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, int bh, int sq,
-           int sk, int offset, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = DqLayout<D>::kSmem;
-  if (const cudaError_t e = allow_smem(flash_bwd_dq_sm90_kernel<D>, smem))
+           int sk, int d, int offset, int causal, float scale,
+           cudaStream_t stream) {
+  constexpr size_t smem = DqLayout<DP>::kSmem;
+  if (const cudaError_t e = allow_smem(flash_bwd_dq_sm90_kernel<DP>, smem))
     return (int)e;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, bh, sq, D, kRows) ||
-      !make_map(&tk, k, bh, sk, D, kKeys) ||
-      !make_map(&tv, v, bh, sk, D, kKeys) ||
-      !make_map(&tdo, dout, bh, sq, D, kRows))
+  if (!make_map(&tq, q, bh, sq, d, kRows) ||
+      !make_map(&tk, k, bh, sk, d, kKeys) ||
+      !make_map(&tv, v, bh, sk, d, kKeys) ||
+      !make_map(&tdo, dout, bh, sq, d, kRows))
     return kMapRefused;
   const dim3 grid((unsigned)((sq + kRows - 1) / kRows), (unsigned)bh);
-  flash_bwd_dq_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, sq, sk, offset,
+  flash_bwd_dq_sm90_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, sq, sk, d, offset,
       causal, scale, scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -247,21 +252,27 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // bf16 q, dout, dq [bh, sq, hd]; k, v [bh, sk, hd]; lse, delta [bh, sq]
-// fp32; hd 64 or 128; every bf16 pointer 16-byte aligned (TMA). Returns
-// cudaGetLastError() after the launch, cudaErrorInvalidValue for a head dim
-// the kernel does not take, or kMapRefused (-1) for a tensor map that
-// cuTensorMapEncodeTiled refuses.
+// fp32; hd a multiple of 8 from 8 to 128; every bf16 pointer 16-byte
+// aligned (TMA). Returns cudaGetLastError() after the launch,
+// cudaErrorInvalidValue for a head dim the kernel does not take, or
+// kMapRefused (-1) for a tensor map that cuTensorMapEncodeTiled refuses.
 extern "C" int pt_flash_attention_bwd_dq_sm90(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
     int hd, int offset, int causal, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (hd % 8 != 0 || hd < 8 || hd > 128) return (int)cudaErrorInvalidValue;
   if (bh * sq == 0) return (int)cudaGetLastError();
-  if (hd == 128)
-    return launch<128>(q, k, v, dout, (const float*)lse, (const float*)delta,
-                       dq, bh, sq, sk, offset, causal, scale, st);
-  if (hd == 64)
-    return launch<64>(q, k, v, dout, (const float*)lse, (const float*)delta,
-                      dq, bh, sq, sk, offset, causal, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const float* l = (const float*)lse;
+  const float* dl = (const float*)delta;
+  switch ((hd + 15) / 16) {  // the instance of DP = ceil16(hd)
+    case 1: return launch<16>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);
+    case 2: return launch<32>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);
+    case 3: return launch<48>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);
+    case 4: return launch<64>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);
+    case 5: return launch<80>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);
+    case 6: return launch<96>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);
+    case 7: return launch<112>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);
+    default: return launch<128>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);
+  }
 }

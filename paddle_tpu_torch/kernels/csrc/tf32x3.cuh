@@ -1,6 +1,7 @@
 // Shared pieces of the fp32 attention kernels on the tensor cores
-// (flash_fwd_tf32x3.cu, flash_bwd_dkv_tf32x3.cu): the 3xTF32 split and
-// product, cp.async staging, and the shared-memory row layout.
+// (flash_fwd_tf32x3.cu, flash_bwd_dkv_tf32x3.cu, flash_bwd_dq_tf32x3.cu):
+// the 3xTF32 split and product, cp.async staging, and the shared-memory row
+// layout.
 //
 // 3xTF32. An fp32 operand x is split into hi = tf32(x), rounded to nearest
 // with ties away (cvt.rna), and lo = tf32(x - hi); a product is then

@@ -32,16 +32,17 @@ runs its plain version on a CPU tensor:
   to ``csrc/flash_bwd_dkv_tf32x3.cu``
   (:func:`flash_attention_bwd_dkv_tf32x3`), the rest to
   ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dkv_cuda_core`);
-- :func:`flash_attention_bwd_dq` / :func:`flash_attention_bwd_dq_plain`:
-  bf16 with head dim 64 or 128 (:func:`takes_sm90_dq`) goes to
-  ``csrc/flash_bwd_dq_sm90.cu`` (:func:`flash_attention_bwd_dq_sm90`), the
-  rest to ``csrc/flash_attention_bwd.cu``
-  (:func:`flash_attention_bwd_dq_cuda_core`).
+- :func:`flash_attention_bwd_dq` / :func:`flash_attention_bwd_dq_plain`,
+  likewise: bf16 where :func:`takes_sm90` goes to
+  ``csrc/flash_bwd_dq_sm90.cu`` (:func:`flash_attention_bwd_dq_sm90`), fp32
+  where :func:`takes_tf32x3` to ``csrc/flash_bwd_dq_tf32x3.cu``
+  (:func:`flash_attention_bwd_dq_tf32x3`), the rest to
+  ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dq_cuda_core`).
 
 Each kernel counts its own launches (``COUNTS`` / ``COUNTS_SM90`` /
 ``COUNTS_TF32X3`` / ``COUNTS_DECODE`` for the forward, ``COUNTS_DKV`` /
 ``COUNTS_DKV_SM90`` / ``COUNTS_DKV_TF32X3`` for dK/dV, ``COUNTS_DQ`` /
-``COUNTS_DQ_SM90`` for dQ), so a run shows which one
+``COUNTS_DQ_SM90`` / ``COUNTS_DQ_TF32X3`` for dQ), so a run shows which one
 ran; CPU calls count as plain calls of the dispatching wrapper's CUDA-core
 counter, and :func:`flash_decode`'s own as plain calls of
 ``COUNTS_DECODE``.
@@ -78,22 +79,21 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_bwd_dkv_cuda_core",
            "flash_attention_bwd_dq_sm90", "flash_attention_bwd_dq_cuda_core",
            "flash_attention_fwd_tf32x3", "flash_attention_bwd_dkv_tf32x3",
+           "flash_attention_bwd_dq_tf32x3",
            "flash_decode", "flash_decode_plain", "decode_plan",
-           "merge_partials_plain", "route", "takes_sm90", "takes_sm90_dq",
-           "takes_tf32x3", "sm90_fwd_bound", "sm90_dkv_bound",
-           "sm90_dq_bound", "COUNTS",
+           "merge_partials_plain", "route", "takes_sm90", "takes_tf32x3",
+           "sm90_fwd_bound", "sm90_dkv_bound", "sm90_dq_bound", "COUNTS",
            "COUNTS_SM90", "COUNTS_TF32X3", "COUNTS_DECODE", "COUNTS_DKV",
            "COUNTS_DKV_SM90", "COUNTS_DKV_TF32X3", "COUNTS_DQ",
-           "COUNTS_DQ_SM90"]
+           "COUNTS_DQ_SM90", "COUNTS_DQ_TF32X3"]
 
 _NEG = -1e30
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the head dims of the tensor-core forward and dK/dV kernels, bf16 and fp32
-# alike: the least and most, multiples of 8
+# the head dims of the tensor-core kernels, bf16 and fp32 alike: the least
+# and most, multiples of 8
 _TC_HEAD_DIMS = (8, 128)
-_SM90_DQ_HEAD_DIMS = (64, 128)  # the bf16 tensor-core dQ kernel's
 # the decode kernel's split plan: about 2 blocks per SM, and at least 32
 # keys a split (the keys a block folds per turn at bf16 head dim 128: 8
 # side by side, 4 deep); the plain version plans for an H100's 132 SMs
@@ -109,6 +109,7 @@ COUNTS_DKV_SM90 = _build.Counts()  # backward dK/dV, tensor cores
 COUNTS_DKV_TF32X3 = _build.Counts()  # backward dK/dV, fp32, tensor cores
 COUNTS_DQ = _build.Counts()        # backward dQ, CUDA cores
 COUNTS_DQ_SM90 = _build.Counts()   # backward dQ, tensor cores
+COUNTS_DQ_TF32X3 = _build.Counts()  # backward dQ, fp32, tensor cores
 
 
 def _mask(sq, sk, offset, causal, device):
@@ -169,35 +170,27 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset, causal,
 
 
 def _tc_head_dim(head_dim) -> bool:
-    """A head dim the tensor-core forward and dK/dV kernels take: a
-    multiple of 8 from 8 to 128."""
+    """A head dim the tensor-core kernels take: a multiple of 8 from 8 to
+    128."""
     return (head_dim % 8 == 0
             and _TC_HEAD_DIMS[0] <= head_dim <= _TC_HEAD_DIMS[1])
 
 
 def takes_sm90(dtype, head_dim, sq=None) -> bool:
-    """Whether a CUDA forward or dK/dV call goes to the bf16 tensor-core
-    kernel: bf16, a head dim that is a multiple of 8 from 8 to 128, and
-    (forward, ``sq`` given) more than one query row; a single-row decode
-    reads each key once and is bound by bytes, which the split-K decode
-    kernel serves (:func:`route`). dQ has its own rule
-    (:func:`takes_sm90_dq`)."""
+    """Whether a CUDA call goes to the bf16 tensor-core kernels: bf16, a
+    head dim that is a multiple of 8 from 8 to 128, and (forward, ``sq``
+    given) more than one query row; a single-row decode reads each key once
+    and is bound by bytes, which the split-K decode kernel serves
+    (:func:`route`). The backward (dK/dV and dQ) asks without ``sq``."""
     return (dtype == torch.bfloat16 and _tc_head_dim(head_dim)
             and (sq is None or sq > 1))
-
-
-def takes_sm90_dq(dtype, head_dim) -> bool:
-    """Whether a CUDA dQ call goes to the bf16 tensor-core dQ kernel: bf16
-    with head dim 64 or 128; the other head dims stay on the CUDA-core
-    kernel."""
-    return dtype == torch.bfloat16 and head_dim in _SM90_DQ_HEAD_DIMS
 
 
 def takes_tf32x3(dtype, head_dim, sq=None) -> bool:
     """Whether a CUDA call goes to the fp32 tensor-core kernels (3xTF32):
     fp32, a head dim that is a multiple of 8 from 8 to 128, and (forward,
-    ``sq`` given) more than one query row; dQ stays on the CUDA-core
-    kernel."""
+    ``sq`` given) more than one query row. The backward (dK/dV and dQ)
+    asks without ``sq``."""
     return (dtype == torch.float32 and _tc_head_dim(head_dim)
             and (sq is None or sq > 1))
 
@@ -397,13 +390,6 @@ def _check_sm90(name, q):
         raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 "
                          f"with head_dim a multiple of 8 in "
                          f"[{_TC_HEAD_DIMS[0]}, {_TC_HEAD_DIMS[1]}], got "
-                         f"{q.dtype} head_dim {q.shape[2]}")
-
-
-def _check_sm90_dq(name, q):
-    if not takes_sm90_dq(q.dtype, q.shape[2]):
-        raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 "
-                         f"with head_dim in {_SM90_DQ_HEAD_DIMS}, got "
                          f"{q.dtype} head_dim {q.shape[2]}")
 
 
@@ -664,15 +650,19 @@ def flash_attention_bwd_dkv_tf32x3(q, k, v, do, lse, delta, offset, causal,
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, offset, causal, scale):
-    """dQ: on CUDA the tensor-core kernel where :func:`takes_sm90_dq`, else
-    the CUDA-core kernel; the plain version on the CPU."""
+    """dQ: on CUDA the tensor-core kernel where :func:`takes_sm90`, the fp32
+    tensor-core kernel where :func:`takes_tf32x3`, else the CUDA-core
+    kernel; the plain version on the CPU."""
     if q.device.type == "cpu":
         COUNTS_DQ.plain()
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset,
                                             causal, scale)
-    if takes_sm90_dq(q.dtype, q.shape[2]):
+    if takes_sm90(q.dtype, q.shape[2]):
         return flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset,
                                            causal, scale)
+    if takes_tf32x3(q.dtype, q.shape[2]):
+        return flash_attention_bwd_dq_tf32x3(q, k, v, do, lse, delta, offset,
+                                             causal, scale)
     return flash_attention_bwd_dq_cuda_core(q, k, v, do, lse, delta, offset,
                                             causal, scale)
 
@@ -700,9 +690,9 @@ def flash_attention_bwd_dq_cuda_core(q, k, v, do, lse, delta, offset, causal,
 def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset, causal,
                                 scale):
     """dQ from the tensor-core kernel (``csrc/flash_bwd_dq_sm90.cu``): bf16,
-    head dim 64 or 128."""
+    a head dim that is a multiple of 8 from 8 to 128."""
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
-    _check_sm90_dq("flash_attention_bwd_dq_sm90", q)
+    _check_sm90("flash_attention_bwd_dq_sm90", q)
     _on_cuda("flash_attention_bwd_dq_sm90", q)
     q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
     bh, sq, d = q.shape
@@ -716,6 +706,28 @@ def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset, causal,
                   delta.data_ptr(), dq.data_ptr(), bh, sq, sk, d, int(offset),
                   int(bool(causal)), float(scale))
     COUNTS_DQ_SM90.launched()
+    return dq
+
+
+def flash_attention_bwd_dq_tf32x3(q, k, v, do, lse, delta, offset, causal,
+                                  scale):
+    """dQ from the fp32 tensor-core kernel (``csrc/flash_bwd_dq_tf32x3.cu``,
+    3xTF32): float32, head dim a multiple of 8 from 8 to 128."""
+    q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
+    _check_tf32x3("flash_attention_bwd_dq_tf32x3", q)
+    _on_cuda("flash_attention_bwd_dq_tf32x3", q)
+    q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    dq = torch.empty_like(q)
+    fn = _build.kernel("pt_flash_attention_bwd_dq_tf32x3",
+                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 +
+                       [ctypes.c_float, ctypes.c_void_p])
+    _build.launch(fn, "pt_flash_attention_bwd_dq_tf32x3", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, sq, sk,
+                  d, int(offset), int(bool(causal)), float(scale))
+    COUNTS_DQ_TF32X3.launched()
     return dq
 
 

@@ -24,7 +24,7 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
     flash_attention_fwd, route, sm90_dkv_bound, sm90_dq_bound,
-    sm90_fwd_bound, takes_sm90, takes_sm90_dq, takes_tf32x3)
+    sm90_fwd_bound, takes_sm90, takes_tf32x3)
 
 # the one-device pipeline step, a harness (tools/pipeline_harness.py)
 sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
@@ -50,14 +50,11 @@ def _within(got, ref, bound, what):
 def _counter(name, dtype, d, sq=None):
     """The counter of the kernel that ``name``'s wrapper picks: for a
     forward (``sq`` given) the decode kernel (``name``_decode) where
-    ``route`` says so; for dQ the tensor-core one (``name``_sm90) where
-    ``takes_sm90_dq``, else the CUDA-core one; for the forward and dK/dV
-    the tensor-core one where ``takes_sm90``, else the fp32 tensor-core one
-    (``name``_tf32x3) where ``takes_tf32x3``."""
+    ``route`` says so; else the tensor-core one (``name``_sm90) where
+    ``takes_sm90``, the fp32 tensor-core one (``name``_tf32x3) where
+    ``takes_tf32x3``, and the CUDA-core one for the rest."""
     if sq is not None and route(dtype, d, sq) == "decode":
         return name + "_decode"
-    if name == "flash_attention_bwd_dq":
-        return name + "_sm90" if takes_sm90_dq(dtype, d) else name
     if takes_sm90(dtype, d, sq):
         return name + "_sm90"
     if takes_tf32x3(dtype, d, sq):
@@ -299,7 +296,7 @@ def test_flash_attention_backward_kernels_match_plain(cuda, sq, sk, offset,
     else:
         _close(dk.float().cpu(), rdk.cpu(), tol)
         _close(dv.float().cpu(), rdv.cpu(), tol)
-    if takes_sm90_dq(dtype, d):
+    if takes_sm90(dtype, d):
         _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
     else:
         _close(dq.float().cpu(), rdq.cpu(), tol)
@@ -349,7 +346,7 @@ def test_flash_attention_autograd_uses_the_kernels(cuda, dtype, tol):
     else:
         _close(leaves[1].grad.float().cpu(), rdk.cpu(), btol)
         _close(leaves[2].grad.float().cpu(), rdv.cpu(), btol)
-    if takes_sm90_dq(dtype, d):
+    if takes_sm90(dtype, d):
         _within(leaves[0].grad, rdq, sm90_dq_bound(
             *f32, go.to(dtype).float(), *args, rdq), "dq")
     else:
@@ -430,8 +427,7 @@ _RING_OFFSET_CASES = [(256, -256), (256, 256), (256, 768), (200, -200),
 @pytest.mark.parametrize("s,offset", _RING_OFFSET_CASES)
 def test_flash_kernels_at_ring_offsets(cuda, s, offset, dtype):
     """Forward, dK/dV and dQ (bf16: the tensor-core kernels, held to their
-    bounds; fp32: the 3xTF32 forward and dK/dV and the CUDA-core dQ, 1e-4)
-    at the ring's offsets against
+    bounds; fp32: the 3xTF32 kernels, 1e-4) at the ring's offsets against
     the plain versions, with a nonzero lse cotangent. A chunk wholly in the
     future gives o = 0, lse = -1e30 and dQ = dK = dV = 0 exactly."""
     rng = np.random.default_rng(23)
@@ -479,14 +475,13 @@ def test_flash_kernels_at_ring_offsets(cuda, s, offset, dtype):
 
 @pytest.mark.gpu
 def test_flash_attention_picks_its_kernel(cuda):
-    """bf16 at head dim 64 / 128 with more than one row takes the
-    tensor-core kernels; bf16 at the other head dims that are multiples of
-    8 up to 128 (32, 96) the tensor-core forward and dK/dV and the
-    CUDA-core dQ; a single-row forward the decode kernel (its backward the
-    kernels its dtype and head dim pick); fp32 at a head dim that is a
-    multiple of 8 up to 128 the 3xTF32 forward and dK/dV and the CUDA-core
-    dQ; bf16 at head dim 12 and 136 and fp32 at 36 with more rows the
-    CUDA-core ones; a CUDA tensor that none takes raises."""
+    """bf16 at a head dim that is a multiple of 8 up to 128 (32, 64, 96,
+    128) with more than one row takes the tensor-core kernels; a
+    single-row forward the decode kernel (its backward the kernels its
+    dtype and head dim pick); fp32 at a head dim that is a multiple of 8
+    up to 128 the 3xTF32 kernels; bf16 at head dim 12 and 136 and fp32 at
+    36 with more rows the CUDA-core ones; a CUDA tensor that none takes
+    raises."""
     def run(dtype, sq, d):
         q = torch.randn(2, sq, d, device=cuda).to(dtype)
         k = torch.randn(2, 40, d, device=cuda).to(dtype)
@@ -504,12 +499,13 @@ def test_flash_attention_picks_its_kernel(cuda):
                             "flash_attention_bwd_dkv_sm90",
                             "flash_attention_bwd_dkv_tf32x3",
                             "flash_attention_bwd_dq",
-                            "flash_attention_bwd_dq_sm90")
+                            "flash_attention_bwd_dq_sm90",
+                            "flash_attention_bwd_dq_tf32x3")
                 if c[n]["launches"]]
 
     sm90_bwd = ["flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dq_sm90"]
-    sm90_dkv_bwd = ["flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dq"]
-    tf32x3_bwd = ["flash_attention_bwd_dkv_tf32x3", "flash_attention_bwd_dq"]
+    tf32x3_bwd = ["flash_attention_bwd_dkv_tf32x3",
+                  "flash_attention_bwd_dq_tf32x3"]
     cuda_core_bwd = ["flash_attention_bwd_dkv", "flash_attention_bwd_dq"]
     assert run(torch.bfloat16, 8, 128) == ["flash_attention_sm90"] + sm90_bwd
     assert run(torch.bfloat16, 8, 64) == ["flash_attention_sm90"] + sm90_bwd
@@ -522,12 +518,10 @@ def test_flash_attention_picks_its_kernel(cuda):
     assert run(torch.float32, 8, 72) == ["flash_attention_tf32x3"] + \
         tf32x3_bwd
     assert run(torch.float32, 8, 36) == ["flash_attention"] + cuda_core_bwd
-    assert run(torch.bfloat16, 8, 32) == ["flash_attention_sm90"] + \
-        sm90_dkv_bwd
-    assert run(torch.bfloat16, 8, 96) == ["flash_attention_sm90"] + \
-        sm90_dkv_bwd
+    assert run(torch.bfloat16, 8, 32) == ["flash_attention_sm90"] + sm90_bwd
+    assert run(torch.bfloat16, 8, 96) == ["flash_attention_sm90"] + sm90_bwd
     assert run(torch.bfloat16, 1, 96) == ["flash_attention_decode"] + \
-        sm90_dkv_bwd
+        sm90_bwd
     assert run(torch.bfloat16, 8, 12) == ["flash_attention"] + cuda_core_bwd
     assert run(torch.bfloat16, 8, 136) == ["flash_attention"] + cuda_core_bwd
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -2347,10 +2341,10 @@ def test_bert_eval_forward_runs_the_flash_kernel_at_bert_shape(cuda, dtype):
                          ids=["dit_xl2", "ragged_causal", "ragged"])
 def test_cuda_core_flash_kernels_at_head_dim_72(cuda, shape):
     """DiT-XL/2's attention (fp32, head dim 1152 / 16 = 72, bh 32 x 16,
-    256 x 256) and ragged cases at d 72 run the 3xTF32 forward and dK/dV
-    kernels and the CUDA-core dQ kernel, each against its plain version on
-    the same inputs: o within 1e-4, the gradients within 1e-4 relative +
-    1e-4 (fp32 sums over up to s terms in another order)."""
+    256 x 256) and ragged cases at d 72 run the 3xTF32 forward, dK/dV and
+    dQ kernels (no CUDA-core one), each against its plain version on the
+    same inputs: o within 1e-4, the gradients within 1e-4 relative + 1e-4
+    (fp32 sums over up to s terms in another order)."""
     bh, sq, sk, causal = shape
     d = 72
     gen = torch.Generator(device=cuda).manual_seed(11)
@@ -2378,18 +2372,20 @@ def test_cuda_core_flash_kernels_at_head_dim_72(cuda, shape):
         _close(got.cpu(), ref.cpu(), (1e-4, 1e-4))
     counts = counters()
     for n in ("flash_attention_tf32x3", "flash_attention_bwd_dkv_tf32x3",
-              "flash_attention_bwd_dq"):
+              "flash_attention_bwd_dq_tf32x3"):
         assert counts[n] == {"launches": 1, "plain_calls": 0}, n
     for n in ("flash_attention", "flash_attention_bwd_dkv",
-              "flash_attention_sm90", "flash_attention_bwd_dkv_sm90",
-              "flash_attention_bwd_dq_sm90"):
+              "flash_attention_bwd_dq", "flash_attention_sm90",
+              "flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dq_sm90"):
         assert counts[n]["launches"] == 0, n
 
 
 # the 3xTF32 kernels: (bh, sq, sk, offset, causal, d): DiT-XL/2's and
 # BERT-base's attention; ragged causal and non-causal cases at head dims 8
-# to 128; offsets below 0, where rows see no key (all of them at -96)
-_TF32X3_CASES = [(512, 256, 256, 0, False, 72), (384, 128, 128, 0, False, 64)]
+# to 128; offsets below 0, where rows see no key (all of them at -96); 4096
+# keys at d 128, where a running sum in the tensor cores truncated
+_TF32X3_CASES = [(512, 256, 256, 0, False, 72), (384, 128, 128, 0, False, 64),
+                 (2, 256, 4096, 3840, True, 128)]
 _TF32X3_CASES += [(3, 77, 131, 54, True, d) for d in (8, 32, 64, 72, 96, 128)]
 _TF32X3_CASES += [(3, 130, 61, 0, False, d)
                   for d in (8, 32, 64, 72, 96, 128)]
@@ -2400,13 +2396,13 @@ _TF32X3_CASES += [(3, 64, 64, -8, True, 72), (2, 200, 200, -157, True, 128),
 @pytest.mark.gpu
 @pytest.mark.parametrize("bh,sq,sk,offset,causal,d", _TF32X3_CASES)
 def test_tf32x3_kernels_match_plain(cuda, bh, sq, sk, offset, causal, d):
-    """The fp32 tensor-core forward and dK/dV kernels (3xTF32), through the
-    dispatching wrappers, against their plain versions on the same inputs
-    at the fp32 tolerances: o (0, 1e-4), lse (0, 1e-3), dK and dV (1e-4,
-    1e-4). Each call launches its kernel once and no other. Rows that see
-    no key give o = 0 and lse = -1e30 exactly and add nothing to dK and dV
-    (a dO of 1000 on them changes neither bit); two launches of each
-    kernel agree bit for bit."""
+    """The fp32 tensor-core forward, dK/dV and dQ kernels (3xTF32), through
+    the dispatching wrappers, against their plain versions on the same
+    inputs at the fp32 tolerances: o (0, 1e-4), lse (0, 1e-3), dK, dV and
+    dQ (1e-4, 1e-4). Each call launches its kernel once and no other. Rows
+    that see no key give o = 0, lse = -1e30 and dQ = 0 exactly and add
+    nothing to dK and dV (a dO of 1000 on them changes neither bit); two
+    launches of each kernel agree bit for bit."""
     rng = np.random.default_rng(31)
     scale = 1.0 / d ** 0.5
 
@@ -2437,14 +2433,26 @@ def test_tf32x3_kernels_match_plain(cuda, bh, sq, sk, offset, causal, d):
     rdk, rdv = flash_attention_bwd_dkv_plain(q, k, v, do, *args)
     _close(dk.cpu(), rdk.cpu(), (1e-4, 1e-4))
     _close(dv.cpu(), rdv.cpu(), (1e-4, 1e-4))
+    reset_counters()
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_bwd_dq_tf32x3"] == {"launches": 1,
+                                                  "plain_calls": 0}
+    assert sum(c[n]["launches"] for n in c) == 1
+    rdq = flash_attention_bwd_dq_plain(q, k, v, do, *args)
+    _close(dq.cpu(), rdq.cpu(), (1e-4, 1e-4))
     o2, lse2 = flash_attention_fwd(q, k, v, offset, causal, scale)
     dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, *args)
+    dq2 = flash_attention_bwd_dq(q, k, v, do, *args)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, dq2)
     if causal and offset < 0:
         blind = min(sq, -offset)  # rows i with i + offset < 0
         assert not o[:, :blind].any()
         assert (lse[:, :blind] == -1e30).all()
+        assert not dq[:, :blind].any()
         loud = do.clone()
         loud[:, :blind] *= 1000
         dk3, dv3 = flash_attention_bwd_dkv(q, k, v, loud, *args)
@@ -2479,6 +2487,9 @@ def test_tf32x3_wrappers_take_unaligned_and_strided_inputs(cuda):
     rdk, rdv = flash_attention_bwd_dkv_plain(q, k, v, do, *args)
     _close(dk.cpu(), rdk.cpu(), (1e-4, 1e-4))
     _close(dv.cpu(), rdv.cpu(), (1e-4, 1e-4))
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    rdq = flash_attention_bwd_dq_plain(q, k, v, do, *args)
+    _close(dq.cpu(), rdq.cpu(), (1e-4, 1e-4))
 
 
 @pytest.mark.gpu
@@ -2510,6 +2521,7 @@ def test_cuda_core_flash_kernels_keep_the_other_fp32_head_dims(cuda, d):
         assert c[n] == {"launches": 1, "plain_calls": 0}, n
     assert c["flash_attention_tf32x3"]["launches"] == 0
     assert c["flash_attention_bwd_dkv_tf32x3"]["launches"] == 0
+    assert c["flash_attention_bwd_dq_tf32x3"]["launches"] == 0
     _close(o.cpu(), ro.cpu(), (0.0, 1e-4))
     rdk, rdv = flash_attention_bwd_dkv_plain(q, k, v, do, *args)
     rdq = flash_attention_bwd_dq_plain(q, k, v, do, *args)
@@ -2536,6 +2548,9 @@ def test_tf32x3_wrappers_raise_on_what_their_kernels_do_not_take(
         with pytest.raises(ValueError, match="fp32 tensor-core kernel"):
             fa.flash_attention_bwd_dkv_tf32x3(q, q, q, q, stats, stats, 0,
                                               True, 0.1)
+        with pytest.raises(ValueError, match="fp32 tensor-core kernel"):
+            fa.flash_attention_bwd_dq_tf32x3(q, q, q, q, stats, stats, 0,
+                                             True, 0.1)
     assert all(c["launches"] == 0 for c in counters().values())
 
 
@@ -2558,13 +2573,14 @@ _SM90_HEADDIM_CASES += [(3, 64, 64, -8, True, 72),
 @pytest.mark.parametrize("bh,sq,sk,offset,causal,d", _SM90_HEADDIM_CASES)
 def test_sm90_kernels_at_every_head_dim_match_plain(cuda, bh, sq, sk, offset,
                                                     causal, d):
-    """The bf16 tensor-core forward and dK/dV kernels, through the
+    """The bf16 tensor-core forward, dK/dV and dQ kernels, through the
     dispatching wrappers, against their fp32 plain versions on the same
     bf16 inputs: o within ``sm90_fwd_bound``, lse within 1e-3, dK and dV
-    within ``sm90_dkv_bound``. Each call launches its kernel once and no
-    other. Rows that see no key give o = 0 and lse = -1e30 exactly and add
-    nothing to dK and dV (a dO of 1000 on them changes neither bit); two
-    launches of each kernel agree bit for bit."""
+    within ``sm90_dkv_bound``, dQ within ``sm90_dq_bound``. Each call
+    launches its kernel once and no other. Rows that see no key give o = 0,
+    lse = -1e30 and dQ = 0 exactly and add nothing to dK and dV (a dO of
+    1000 on them changes neither bit); two launches of each kernel agree
+    bit for bit."""
     rng = np.random.default_rng(37)
     scale = 1.0 / d ** 0.5
 
@@ -2598,14 +2614,26 @@ def test_sm90_kernels_at_every_head_dim_match_plain(cuda, bh, sq, sk, offset,
     bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
     _within(dk, rdk, bdk, "dk")
     _within(dv, rdv, bdv, "dv")
+    reset_counters()
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_bwd_dq_sm90"] == {"launches": 1,
+                                                "plain_calls": 0}
+    assert sum(c[n]["launches"] for n in c) == 1
+    rdq = flash_attention_bwd_dq_plain(*f32, *args)
+    _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
     o2, lse2 = flash_attention_fwd(q, k, v, offset, causal, scale)
     dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, *args)
+    dq2 = flash_attention_bwd_dq(q, k, v, do, *args)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, dq2)
     if causal and offset < 0:
         blind = min(sq, -offset)  # rows i with i + offset < 0
         assert not o[:, :blind].any()
         assert (lse[:, :blind] == -1e30).all()
+        assert not dq[:, :blind].any()
         loud = do.clone()
         loud[:, :blind] = 1000
         dk3, dv3 = flash_attention_bwd_dkv(q, k, v, loud, *args)
@@ -2617,8 +2645,9 @@ def test_sm90_kernels_at_every_head_dim_match_plain(cuda, bh, sq, sk, offset,
 @pytest.mark.gpu
 def test_sm90_wrappers_take_unaligned_and_strided_inputs_at_d96(cuda):
     """TMA reads 16-byte aligned rows: at head dim 96 the tensor-core
-    wrappers copy a q that starts off a 16-byte boundary and a
-    non-contiguous k, and the results still hold their bounds."""
+    wrappers (forward, dK/dV and dQ) copy a q that starts off a 16-byte
+    boundary and a non-contiguous k, and the results still hold their
+    bounds."""
     rng = np.random.default_rng(38)
     bh, s, d = 4, 100, 96
     bf = dict(device=cuda, dtype=torch.bfloat16)
@@ -2643,6 +2672,9 @@ def test_sm90_wrappers_take_unaligned_and_strided_inputs_at_d96(cuda):
     bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
     _within(dk, rdk, bdk, "dk")
     _within(dv, rdv, bdv, "dv")
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    rdq = flash_attention_bwd_dq_plain(*f32, *args)
+    _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
 
 
 @pytest.mark.gpu

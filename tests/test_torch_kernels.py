@@ -393,9 +393,8 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
                                                 monkeypatch):
     """The wrappers' choice of kernel on CUDA, in plain code: bf16 with a
     head dim that is a multiple of 8 up to 128 (and, for the forward, more
-    than one row) goes to the tensor-core forward and dK/dV kernels, and
-    its dQ to the tensor-core dQ kernel only at head dim 64 or 128; fp32
-    dK/dV at those head dims to the 3xTF32 kernel, fp32 dQ and the rest to
+    than one row) goes to the tensor-core forward, dK/dV and dQ kernels;
+    fp32 dK/dV and dQ at those head dims to the 3xTF32 kernels, the rest to
     the CUDA-core ones. For the backward (``sq`` None) the dK/dV and dQ
     dispatchers are driven on meta tensors (neither CPU nor CUDA) with
     every kernel's wrapper replaced by a recorder, so the choice itself is
@@ -406,7 +405,7 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
     took = []
     for name, routes in (
             ("flash_attention_bwd_dkv", ("sm90", "tf32x3", "cuda_core")),
-            ("flash_attention_bwd_dq", ("sm90", "cuda_core"))):
+            ("flash_attention_bwd_dq", ("sm90", "tf32x3", "cuda_core"))):
         for route in routes:
             monkeypatch.setattr(
                 _FA, f"{name}_{route}",
@@ -416,12 +415,10 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
     args = (q, q, q, q, stats, stats, 0, True, 0.1)
     _FA.flash_attention_bwd_dkv(*args)
     _FA.flash_attention_bwd_dq(*args)
-    dkv = "tf32x3" if dtype == torch.float32 else \
+    bwd = "tf32x3" if dtype == torch.float32 else \
         "sm90" if want else "cuda_core"
-    dq = "sm90" if want and d in (64, 128) else "cuda_core"
-    assert _FA.takes_sm90_dq(dtype, d) is (dq == "sm90")
-    assert took == [("flash_attention_bwd_dkv", dkv),
-                    ("flash_attention_bwd_dq", dq)]
+    assert took == [("flash_attention_bwd_dkv", bwd),
+                    ("flash_attention_bwd_dq", bwd)]
 
 
 @pytest.mark.parametrize("dtype,d,sq,want", [
@@ -467,15 +464,16 @@ def test_forward_route_picks_by_dtype_head_dim_and_rows(dtype, d, sq, want,
 
 @pytest.mark.parametrize("dtype,d,device,error,match", [
     (torch.float32, 128, "cpu", ValueError, "bfloat16"),
-    (torch.bfloat16, 32, "cpu", ValueError, "head_dim"),
+    (torch.bfloat16, 36, "cpu", ValueError, "head_dim"),
     (torch.float16, 128, "cpu", TypeError, "float32 or bfloat16"),
     (torch.bfloat16, 128, "cpu", ValueError, "CUDA tensors"),
     (torch.bfloat16, 64, "meta", ValueError, "CUDA tensors")])
 def test_sm90_dq_wrapper_rejects_what_its_kernel_does_not_take(
         dtype, d, device, error, match):
     """The tensor-core dQ wrapper raises, before any build or launch, on
-    inputs its kernel does not take (not bf16, head dim other than 64 or
-    128) and on tensors off the card; it never falls back."""
+    inputs its kernel does not take (not bf16, a head dim that is not a
+    multiple of 8 up to 128) and on tensors off the card; it never falls
+    back."""
     q = torch.zeros(2, 8, d, dtype=dtype, device=device)
     stats = torch.zeros(2, 8, device=device)
     reset_counters()

@@ -1,17 +1,17 @@
-"""The bf16 tensor-core flash forward and dK/dV at every head dim that is a
-multiple of 8 up to 128, on the CPU.
+"""The bf16 tensor-core flash forward, dK/dV and dQ at every head dim that
+is a multiple of 8 up to 128, on the CPU.
 
 The kernels themselves run only on the card (``test_torch_gpu.py -k
-sm90``). Here: which calls they take (``route``, ``takes_sm90``,
-``takes_sm90_dq`` and the dispatchers, driven on meta tensors with the
-kernel wrappers replaced by recorders), the wrappers' refusals before any
-build, and the kernels' arithmetic emulated in PyTorch (the head dim padded
-to a multiple of 16 with zero columns, 128-key tiles, the online softmax in
-log2 units, P and dS rounded to bf16 a tile) against the JAX package's
-Pallas kernels in interpret mode on the same numpy inputs, within the
-bounds the card tests hold the kernels to (``sm90_fwd_bound``,
-``sm90_dkv_bound``); an emulation that reads only the first 64 columns of
-head dim 96 breaks them.
+sm90``). Here: which calls they take (``route``, ``takes_sm90`` and the
+dispatchers, driven on meta tensors with the kernel wrappers replaced by
+recorders), the wrappers' refusals before any build, and the kernels'
+arithmetic emulated in PyTorch (the head dim padded to a multiple of 16
+with zero columns, 128-key tiles forward, 64-row tiles for dK/dV, 64-key
+tiles for dQ, the online softmax in log2 units, P and dS rounded to bf16 a
+tile) against the JAX package's Pallas kernels in interpret mode on the
+same numpy inputs, within the bounds the card tests hold the kernels to
+(``sm90_fwd_bound``, ``sm90_dkv_bound``, ``sm90_dq_bound``); an emulation
+that reads only the first 64 columns of head dim 96 breaks them.
 """
 import importlib
 
@@ -43,8 +43,8 @@ def test_route_and_takes_at_every_head_dim(dtype, d, sq):
     16-byte chunks (bf16 d 12 is not); more rows go to the tensor-core
     kernel of their dtype at a head dim that is a multiple of 8 up to 128,
     and to the CUDA-core kernel at the others (12, 136, 256). The backward
-    rule (``sq`` None) is the forward's without the row count; the bf16 dQ
-    kernel takes head dims 64 and 128 alone."""
+    rule (``sq`` None), for dK/dV and dQ alike, is the forward's without
+    the row count."""
     bf16 = dtype == torch.bfloat16
     if sq == 1:
         want = "cuda_core" if bf16 and d == 12 else "decode"
@@ -56,29 +56,28 @@ def test_route_and_takes_at_every_head_dim(dtype, d, sq):
     assert _FA.takes_sm90(dtype, d, sq) is (want == "sm90")
     assert _FA.takes_sm90(dtype, d) is (bf16 and d in _TC)
     assert _FA.takes_tf32x3(dtype, d) is (not bf16 and d in _TC)
-    assert _FA.takes_sm90_dq(dtype, d) is (bf16 and d in (64, 128))
 
 
 @pytest.mark.parametrize("dtype,d,dkv,dq", [
-    (torch.bfloat16, 96, "sm90", "cuda_core"),
-    (torch.bfloat16, 80, "sm90", "cuda_core"),
-    (torch.bfloat16, 8, "sm90", "cuda_core"),
-    (torch.bfloat16, 112, "sm90", "cuda_core"),
+    (torch.bfloat16, 96, "sm90", "sm90"),
+    (torch.bfloat16, 80, "sm90", "sm90"),
+    (torch.bfloat16, 8, "sm90", "sm90"),
+    (torch.bfloat16, 112, "sm90", "sm90"),
     (torch.bfloat16, 64, "sm90", "sm90"),
     (torch.bfloat16, 128, "sm90", "sm90"),
     (torch.bfloat16, 12, "cuda_core", "cuda_core"),
     (torch.bfloat16, 136, "cuda_core", "cuda_core"),
-    (torch.float32, 96, "tf32x3", "cuda_core")])
+    (torch.float32, 96, "tf32x3", "tf32x3")])
 def test_backward_dispatch_splits_dkv_from_dq(dtype, d, dkv, dq,
                                               monkeypatch):
     """The dK/dV and dQ dispatchers on meta tensors (neither CPU nor CUDA),
-    every kernel wrapper replaced by a recorder: bf16 dK/dV at the
-    tensor-core head dims goes to the tensor-core kernel, its dQ there only
-    at 64 and 128."""
+    every kernel wrapper replaced by a recorder: at the tensor-core head
+    dims bf16 dK/dV and dQ both go to their tensor-core kernels and fp32
+    both to their 3xTF32 kernels; elsewhere both stay on the CUDA cores."""
     took = []
     for name, routes in (
             ("flash_attention_bwd_dkv", ("sm90", "tf32x3", "cuda_core")),
-            ("flash_attention_bwd_dq", ("sm90", "cuda_core"))):
+            ("flash_attention_bwd_dq", ("sm90", "tf32x3", "cuda_core"))):
         for route in routes:
             monkeypatch.setattr(
                 _FA, f"{name}_{route}",
@@ -106,12 +105,11 @@ def test_sm90_wrappers_refuse_before_any_build(fn, dtype, d, device, error,
     """The tensor-core wrappers raise, before any build or launch, on
     inputs their kernels do not take and on tensors off the card; they
     never fall back to another kernel or the plain version. At bf16 d 96
-    and 8 the forward and dK/dV refuse only for the device, and dQ for the
-    head dim."""
+    and 8 all three refuse only for the device."""
     q = torch.zeros(2, 8, d, dtype=dtype, device=device)
     stats = torch.zeros(2, 8, device=device)
     if match is None:
-        match = "head_dim" if fn == "dq" else "CUDA tensors"
+        match = "CUDA tensors"
     reset_counters()
     with pytest.raises(error, match=match):
         if fn == "fwd":
@@ -217,6 +215,27 @@ def _dkv_emulated(q, k, v, do, lse, delta, offset, causal, scale, read=128,
     return _bf16(dk)[..., :d], _bf16(dv)[..., :d]
 
 
+def _dq_emulated(q, k, v, do, lse, delta, offset, causal, scale, read=128,
+                 kt=64):
+    """The dQ kernel's arithmetic: key tiles of ``kt``; S = Q K^T and
+    dP = dO V^T over the padded columns; p = exp2(s scale log2e - lse
+    log2e), exactly 0 where masked; ds = p (dp - delta) scale; dQ +=
+    bf16(dS) K a tile; rounded to bf16 and cut to d columns."""
+    d = q.shape[-1]
+    qp, kp, vp, dop = (_padded(t, d, read) for t in (q, k, v, do))
+    vis = _visible(q.shape[1], k.shape[1], offset, causal)
+    dq = torch.zeros_like(qp)
+    for j0 in range(0, k.shape[1], kt):
+        kt_, vt = kp[:, j0:j0 + kt], vp[:, j0:j0 + kt]
+        s = qp @ kt_.transpose(1, 2)
+        dp = dop @ vt.transpose(1, 2)
+        p = torch.exp2(s * (scale * _LOG2E) - lse[..., None] * _LOG2E)
+        p = torch.where(vis[:, j0:j0 + kt], p, 0.0)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + _bf16(ds) @ kt_
+    return _bf16(dq)[..., :d]
+
+
 def _inputs(sq, sk, d, seed):
     """bf16-valued fp32 inputs from numpy: q, k, v, the cotangents of o
     and lse."""
@@ -231,14 +250,14 @@ def _inputs(sq, sk, d, seed):
 
 
 def _jax_reference(c, causal, offset, scale):
-    """o, lse, dK, dV of the Pallas kernels (interpret mode, 64-row
+    """o, lse, dK, dV, dQ of the Pallas kernels (interpret mode, 64-row
     blocks) on the same fp32 inputs, through a loss reading o and lse."""
     q, k, v, go, gl = (jnp.asarray(c[n]) for n in ("q", "k", "v", "go",
                                                    "gl"))
     (o, lse), vjp = jax.vjp(lambda a, b, e: jflash.flash_attention_with_lse(
         a, b, e, offset, causal, scale, 64, 64), q, k, v)
-    _dq, dk, dv = vjp((go, gl))
-    return [torch.from_numpy(np.array(t)) for t in (o, lse, dk, dv)]
+    dq, dk, dv = vjp((go, gl))
+    return [torch.from_numpy(np.array(t)) for t in (o, lse, dk, dv, dq)]
 
 
 def _excess(got, ref, bound):
@@ -260,11 +279,12 @@ def test_padded_head_dims_hold_the_sm90_bounds(sq, sk, offset, causal, d):
     """The kernels' arithmetic at d 96, 80, 72, 40 and 8 against the JAX
     Pallas kernels (interpret mode) on the same inputs: o within
     ``sm90_fwd_bound``, lse within 1e-3, dK and dV within
-    ``sm90_dkv_bound``; rows that see no key give o = 0 and lse = -1e30
-    exactly and add nothing to dK and dV."""
+    ``sm90_dkv_bound``, dQ within ``sm90_dq_bound``; rows that see no key
+    give o = 0, lse = -1e30 and dQ = 0 exactly and add nothing to dK and
+    dV."""
     c = _inputs(sq, sk, d, seed=d + sq)
     scale = 1.0 / d ** 0.5
-    jo, jl, jdk, jdv = _jax_reference(c, causal, offset, scale)
+    jo, jl, jdk, jdv, jdq = _jax_reference(c, causal, offset, scale)
     q, k, v, go, gl = (torch.from_numpy(c[n]) for n in ("q", "k", "v", "go",
                                                          "gl"))
     o, lse = _forward_emulated(q, k, v, offset, causal, scale)
@@ -277,24 +297,27 @@ def test_padded_head_dims_hold_the_sm90_bounds(sq, sk, offset, causal, d):
     dk, dv = _dkv_emulated(q, k, v, go, *args)
     assert _excess(dk, jdk, bdk) <= 0
     assert _excess(dv, jdv, bdv) <= 0
+    dq = _dq_emulated(q, k, v, go, *args)
+    assert _excess(dq, jdq, _FA.sm90_dq_bound(q, k, v, go, *args, jdq)) <= 0
     if causal and offset < 0:
         blind = -offset
         assert not o[:, :blind].any() and (lse[:, :blind] == _NEG).all()
+        assert not dq[:, :blind].any()
         go[:, :blind] = 1000.0  # a row that sees no key adds nothing
         dk2, dv2 = _dkv_emulated(q, k, v, go, *args)
         assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
-@pytest.mark.parametrize("out", ["o", "dk", "dv"])
+@pytest.mark.parametrize("out", ["o", "dk", "dv", "dq"])
 def test_reading_64_of_96_columns_breaks_the_bounds(out):
     """At d 96 the bounds are not loose (the roundings' own error fills a
     fair part of them), and an emulation that reads only the first 64
     columns (as a kernel built for 64-column halves would) exceeds them
-    for o, dK and dV alike."""
+    for o, dK, dV and dQ alike."""
     sq = sk = 256
     d, offset, scale = 96, 0, 96 ** -0.5
     c = _inputs(sq, sk, d, seed=5)
-    jo, jl, jdk, jdv = _jax_reference(c, True, offset, scale)
+    jo, jl, jdk, jdv, jdq = _jax_reference(c, True, offset, scale)
     q, k, v, go, gl = (torch.from_numpy(c[n]) for n in ("q", "k", "v", "go",
                                                          "gl"))
     delta = (go * jo).sum(-1) - gl
@@ -304,6 +327,11 @@ def test_reading_64_of_96_columns_breaks_the_bounds(out):
         bound = _FA.sm90_fwd_bound(q, k, v, offset, True, scale, jo)
         sound = _forward_emulated(q, k, v, offset, True, scale)[0]
         fault = _forward_emulated(q, k, v, offset, True, scale, read=64)[0]
+    elif out == "dq":
+        ref = jdq
+        bound = _FA.sm90_dq_bound(q, k, v, go, *args, jdq)
+        sound = _dq_emulated(q, k, v, go, *args)
+        fault = _dq_emulated(q, k, v, go, *args, read=64)
     else:
         i = 0 if out == "dk" else 1
         ref = (jdk, jdv)[i]

@@ -1,14 +1,15 @@
-"""The fp32 tensor-core flash kernels (3xTF32) on the CPU.
+"""The fp32 tensor-core flash kernels (3xTF32: forward, dK/dV and dQ) on
+the CPU.
 
 The kernels themselves run only on the card (``test_torch_gpu.py -k
 tf32x3``). Here: which calls they take (``route``, ``takes_tf32x3`` and the
 dispatchers, driven on meta tensors with the kernel wrappers replaced by
 recorders), the wrappers' refusals before any build, and the kernels'
 arithmetic emulated in PyTorch (the hi / lo split, three TF32 products a
-product, the tile-by-tile online softmax in log2 units) against the JAX
-package's Pallas kernels in interpret mode on the same numpy inputs, at the
-fp32 tolerances the card tests hold the kernels to; one TF32 pass does not
-hold them.
+product, the tile-by-tile online softmax in log2 units, dQ's per-tile sums
+added in fp32) against the JAX package's Pallas kernels in interpret mode
+on the same numpy inputs, at the fp32 tolerances the card tests hold the
+kernels to; one TF32 pass does not hold them.
 """
 import importlib
 
@@ -64,23 +65,23 @@ def test_takes_tf32x3_without_rows_is_the_backward_rule(dtype, d, want):
 
 
 @pytest.mark.parametrize("dtype,d,dkv,dq", [
-    (torch.float32, 72, "tf32x3", "cuda_core"),
-    (torch.float32, 64, "tf32x3", "cuda_core"),
-    (torch.float32, 8, "tf32x3", "cuda_core"),
+    (torch.float32, 72, "tf32x3", "tf32x3"),
+    (torch.float32, 64, "tf32x3", "tf32x3"),
+    (torch.float32, 8, "tf32x3", "tf32x3"),
     (torch.float32, 36, "cuda_core", "cuda_core"),
     (torch.float32, 256, "cuda_core", "cuda_core"),
     (torch.bfloat16, 128, "sm90", "sm90"),
-    (torch.bfloat16, 72, "sm90", "cuda_core")])
+    (torch.bfloat16, 72, "sm90", "sm90")])
 def test_backward_dispatch_takes_tf32x3_for_dkv_only(dtype, d, dkv, dq,
                                                      monkeypatch):
     """The dK/dV and dQ dispatchers on meta tensors (neither CPU nor CUDA),
-    every kernel wrapper replaced by a recorder: fp32 dK/dV at the 3xTF32
-    head dims goes to its kernel, fp32 dQ stays on the CUDA cores (and
-    bf16 dQ away from head dims 64 and 128)."""
+    every kernel wrapper replaced by a recorder: fp32 dK/dV and dQ at the
+    3xTF32 head dims both go to their 3xTF32 kernels (bf16 to its
+    tensor-core kernels), the other head dims to the CUDA cores."""
     took = []
     for name, routes in (
             ("flash_attention_bwd_dkv", ("sm90", "tf32x3", "cuda_core")),
-            ("flash_attention_bwd_dq", ("sm90", "cuda_core"))):
+            ("flash_attention_bwd_dq", ("sm90", "tf32x3", "cuda_core"))):
         for route in routes:
             monkeypatch.setattr(
                 _FA, f"{name}_{route}",
@@ -94,7 +95,7 @@ def test_backward_dispatch_takes_tf32x3_for_dkv_only(dtype, d, dkv, dq,
                     ("flash_attention_bwd_dq", dq)]
 
 
-@pytest.mark.parametrize("fn", ["fwd", "dkv"])
+@pytest.mark.parametrize("fn", ["fwd", "dkv", "dq"])
 @pytest.mark.parametrize("dtype,d,sq,device,error,match", [
     (torch.bfloat16, 64, 8, "cpu", ValueError, "fp32 tensor-core kernel"),
     (torch.float32, 36, 8, "cpu", ValueError, "fp32 tensor-core kernel"),
@@ -113,9 +114,12 @@ def test_tf32x3_wrappers_refuse_before_any_build(fn, dtype, d, sq, device,
     with pytest.raises(error, match=match):
         if fn == "fwd":
             _FA.flash_attention_fwd_tf32x3(q, q, q, 0, True, 0.1)
-        else:
+        elif fn == "dkv":
             _FA.flash_attention_bwd_dkv_tf32x3(q, q, q, q, stats, stats, 0,
                                                True, 0.1)
+        else:
+            _FA.flash_attention_bwd_dq_tf32x3(q, q, q, q, stats, stats, 0,
+                                              True, 0.1)
     assert all(c == {"launches": 0, "plain_calls": 0}
                for c in counters().values())
 
@@ -135,12 +139,12 @@ def test_cpu_calls_count_on_the_cuda_core_counters():
     reset_counters()
     _FA.flash_attention_fwd(q, q, q, 0, True, 0.1)
     _FA.flash_attention_bwd_dkv(q, q, q, q, stats, stats, 0, True, 0.1)
+    _FA.flash_attention_bwd_dq(q, q, q, q, stats, stats, 0, True, 0.1)
     c = counters()
-    assert c["flash_attention"] == {"launches": 0, "plain_calls": 1}
-    assert c["flash_attention_bwd_dkv"] == {"launches": 0, "plain_calls": 1}
-    assert c["flash_attention_tf32x3"] == {"launches": 0, "plain_calls": 0}
-    assert c["flash_attention_bwd_dkv_tf32x3"] == {"launches": 0,
-                                                   "plain_calls": 0}
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert c[name] == {"launches": 0, "plain_calls": 1}
+        assert c[name + "_tf32x3"] == {"launches": 0, "plain_calls": 0}
 
 
 # -- the kernels' arithmetic, emulated --------------------------------------
@@ -213,6 +217,26 @@ def _dkv_emulated(q, k, v, do, lse, delta, offset, causal, scale, passes):
     return _mm(ds, q, passes), _mm(p, do, passes)
 
 
+def _dq_emulated(q, k, v, do, lse, delta, offset, causal, scale, passes,
+                 kt=16):
+    """The dQ kernel's arithmetic: key tiles of ``kt``; S = Q K^T and
+    dP = dO V^T, p = exp2(s log2e scale - lse log2e) on visible pairs (0
+    elsewhere), ds = p (dp - delta) scale; each tile's dS K summed on its
+    own and added to the running dQ in fp32."""
+    vis = _visible(q.shape[1], k.shape[1], offset, causal)
+    dq = torch.zeros_like(q)
+    for j0 in range(0, k.shape[1], kt):
+        kt_, vt = k[:, j0:j0 + kt], v[:, j0:j0 + kt]
+        s = _mm(q, kt_.transpose(1, 2), passes)
+        dp = _mm(do, vt.transpose(1, 2), passes)
+        p = torch.where(vis[:, j0:j0 + kt],
+                        torch.exp2(s * (scale * _LOG2E)
+                                   - lse[..., None] * _LOG2E), 0.0)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + _mm(ds, kt_, passes)
+    return dq
+
+
 # (sq, sk, offset, causal, d): DiT's head dim non-causal, causal with an
 # offset, rows that see no key, BERT's and the parity steps' head dims
 _EMULATED_CASES = [(128, 128, 0, False, 72), (128, 192, 64, True, 72),
@@ -225,8 +249,8 @@ def _jax_reference(c, causal, offset, scale):
                                                    "gl"))
     (o, lse), vjp = jax.vjp(lambda a, b, e: jflash.flash_attention_with_lse(
         a, b, e, offset, causal, scale, 64, 64), q, k, v)
-    _dq, dk, dv = vjp((go, gl))
-    return [np.array(t) for t in (o, lse, dk, dv)]
+    dq, dk, dv = vjp((go, gl))
+    return [np.array(t) for t in (o, lse, dk, dv, dq)]
 
 
 def _inputs(sq, sk, d, seed):
@@ -253,7 +277,7 @@ def test_three_tf32_passes_hold_the_fp32_tolerances(sq, sk, offset, causal,
     breaks o's tolerance."""
     c = _inputs(sq, sk, d, seed=d + sq)
     scale = 1.0 / d ** 0.5
-    jo, jl, jdk, jdv = _jax_reference(c, causal, offset, scale)
+    jo, jl, jdk, jdv, _ = _jax_reference(c, causal, offset, scale)
     q, k, v, go, gl = (torch.from_numpy(c[n]) for n in ("q", "k", "v", "go",
                                                          "gl"))
     o, lse = _forward_emulated(q, k, v, offset, causal, scale, passes=3)
@@ -269,3 +293,25 @@ def test_three_tf32_passes_hold_the_fp32_tolerances(sq, sk, offset, causal,
         assert not o[:, :blind].any() and (lse[:, :blind] == -1e30).all()
     o1, _ = _forward_emulated(q, k, v, offset, causal, scale, passes=1)
     assert _excess(o1, jo, 0.0, 1e-4) > 0
+
+
+@pytest.mark.parametrize("sq,sk,offset,causal,d", _EMULATED_CASES)
+def test_three_tf32_passes_hold_the_fp32_dq_tolerance(sq, sk, offset, causal,
+                                                      d):
+    """The dQ kernel's arithmetic against the JAX Pallas kernel's dQ
+    (interpret mode) on the same inputs, within (1e-4, 1e-4), the tolerance
+    of the card tests; rows that see no key give dQ = 0 exactly. One TF32
+    pass in the same arithmetic breaks it."""
+    c = _inputs(sq, sk, d, seed=d + sq)
+    scale = 1.0 / d ** 0.5
+    jo, jl, _, _, jdq = _jax_reference(c, causal, offset, scale)
+    q, k, v, go, gl = (torch.from_numpy(c[n]) for n in ("q", "k", "v", "go",
+                                                         "gl"))
+    delta = (go * torch.from_numpy(jo)).sum(-1) - gl
+    args = (torch.from_numpy(jl), delta, offset, causal, scale)
+    dq = _dq_emulated(q, k, v, go, *args, passes=3)
+    assert _excess(dq, jdq, 1e-4, 1e-4) <= 0
+    if causal and offset < 0:
+        assert not dq[:, :min(sq, -offset)].any()
+    dq1 = _dq_emulated(q, k, v, go, *args, passes=1)
+    assert _excess(dq1, jdq, 1e-4, 1e-4) > 0
