@@ -299,7 +299,7 @@ offload    — optimizer offload over a world-1 NCCL group, ZeRO os_g,
              ms, peak device GiB, pinned host GiB, the lane's bytes and
              ``overlap_efficiency``; (c) Llama-2 13B at full width (depth
              cut to what ``MemAvailable`` holds beside HOST_SPARE, at 12
-             bytes a parameter), bf16, recompute, batch 1 x 4096, three
+             bytes a parameter, and to at most L13B_MAX_LAYERS), bf16, recompute, batch 1 x 4096, three
              steps on one batch with the optimizer offloaded: a finite
              falling loss under 80 GiB on the card, step ms, tokens/s,
              MFU, pinned host GiB, the lane's counters, the resident bytes
@@ -366,14 +366,24 @@ gpt-d96    — bf16 flash at head dims other than 64 and 128: GPT-3
              step's gradients against the plain-swapped step, eager and
              graphed steps with exact launches (4 tensor-core forwards, 2
              dK/dV and 2 dQ at the padded head dim, no CUDA-core flash
-             kernel, one AdamW update) and a falling loss; then the kernels
-             at its attention shape (bh 32, causal 2048, d 96), at GPT-3
-             2.7B's (bh 64, d 80) and at Gemma 7B's head dim 256 (bh 16,
-             the CUDA-core kernels), eager and in graph replay beside the
-             CUDA-core kernels on the same inputs, SDPA and the plain
-             versions; and two planted faults (the forward and dQ reading
-             only the first 64 of d 96's columns) that each kernel's check
-             against its plain version must catch.
+             kernel, one AdamW update) and a falling loss; the same for
+             the repo's Llama at Gemma 2B's widths (``llama-d256`` lines;
+             Gemma Team 2024 Table 1: 2048, 8 heads of 256, 1 key/value
+             head, feed-forward 16384 a half, vocabulary 256128) at 2 of 18
+             layers, batch 2 x 2048: it is not Gemma (SwiGLU for GeGLU, no
+             sqrt(d) embedding scale, an untied head); 4 tensor-core
+             forwards and 2 dK/dV on the 64-key instances above 128, 2
+             CUDA-core dQ, the dense step's RMSNorm, RoPE and AdamW
+             launches; step ms, tokens/s, MFU, device ms by group, idle
+             share and peak GiB; then the kernels at GPT-3 Large's
+             attention shape (bh 32, causal 2048, d 96), at GPT-3 2.7B's
+             (bh 64, d 80), at Gemma's head dim 256 (bh 16) and at 136
+             (bh 16), eager and in graph replay beside the CUDA-core
+             kernels on the same inputs (at 256 with rows of their own),
+             SDPA and the plain versions; and four planted faults (the
+             forward and dQ reading only the first 64 of d 96's columns,
+             the forward and dK/dV the first 128 of d 256's) that each
+             kernel's check against its plain version must catch.
 resnet     — ResNet-18 with 10 classes on 32 x 32 surrogate images from
              the seed (``bench.py``'s CIFAR-10 stand-in), fp32, TF32 off:
              bench.py's 12-step curve (Momentum 0.01, batch 32) eager =
@@ -664,16 +674,20 @@ FLASH_FWD_COUNTERS = {"sm90": "flash_attention_sm90",
 SM90_TOL = "2^-8|ref| + 2^-8 (P|V|, P^T|dO|, |dS^T||Q|, |dS||K|) + 1e-4"
 
 
-def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
+def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128,
+                cuda_core_row=False):
     """The forward at one shape against its plain version on fp32 copies
     of the same inputs, on the kernel ``route`` names. bf16 at a head dim
-    that is a multiple of 8 up to 128 with sq > 1 runs the tensor-core
+    that is a multiple of 8 up to 256 with sq > 1 runs the tensor-core
     kernel, held to its bound and timed eager and in graph replay beside
-    the CUDA-core kernel on the same inputs; fp32 at a head
+    the CUDA-core kernel on the same inputs (with ``cuda_core_row``, that
+    kernel also gets a row of its own, held to one bf16 rounding: it runs
+    on no main path now); fp32 at a head
     dim that is a multiple of 8 up to 128 the 3xTF32 kernel, held to 1e-4
     and timed eager and in graph replay beside the CUDA-core kernel, with
     its bound at the 3xTF32 rate (``bound_ms``) and at fp32's
-    (``bound_fp32_ms``); the rest runs the CUDA-core kernel."""
+    (``bound_fp32_ms``); the rest runs the CUDA-core kernel. Returns the
+    row, or with ``cuda_core_row`` the list of both rows."""
     import torch
     import torch.nn.functional as TF
 
@@ -688,6 +702,8 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
     scale = 1.0 / d ** 0.5
     which = fa.route(dtype, d, sq)
     sm90 = which == "sm90"
+    if cuda_core_row and not sm90:
+        raise ValueError(f"{label}: a CUDA-core row beside route {which}")
     name = FLASH_FWD_COUNTERS[which]
     reset_counters()
     o, lse = fa.flash_attention_with_lse(q, k, v, off, causal, scale)
@@ -739,6 +755,25 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
             lambda: fa.flash_attention_fwd_cuda_core(q, k, v, off, causal,
                                                      scale), iters=5,
             warmup=1))
+    if cuda_core_row:
+        # the CUDA-core kernel on the same inputs, checked as its own route
+        # checks it
+        co, cl = fa.flash_attention_fwd_cuda_core(q, k, v, off, causal,
+                                                  scale)
+        torch.cuda.synchronize()
+        ro, rlse = fa.flash_attention_plain(*[t.float() for t in (q, k, v)],
+                                            off, causal, scale)
+        core = dict(row, kernel="flash_attention", tol=_tol(dtype),
+                    kernel_ms=row["cuda_core_ms"],
+                    tflop_per_s=flops / row["cuda_core_ms"] / 1e9,
+                    max_abs_err=_compare(f"flash_attention[{label}]", co, ro,
+                                         _tol(dtype))[0],
+                    lse_max_abs_err=_compare(f"flash_attention[{label}].lse",
+                                             cl, rlse, (0.0, 1e-3))[0])
+        for key in ("cuda_core_ms", "graph_ms", "bound_share_max"):
+            core.pop(key, None)
+        del co, cl, ro, rlse
+        _release()
     if which == "tf32x3":
         # graph replay (no host time), PR 1's CUDA-core kernel on the same
         # inputs, and the bound at fp32's rate on the CUDA cores
@@ -749,6 +784,9 @@ def _flash_case(label, dtype, bh, sq, sk, causal, gen, d=128):
                 q, k, v, off, causal, scale), iters=5, warmup=1),
             bound_fp32_ms=_bound(nbytes, flops, "float32")[0])
     _emit(row)
+    if cuda_core_row:
+        _emit(core)
+        return [row, core]
     return row
 
 
@@ -2733,24 +2771,31 @@ def _dname(dtype):
 
 
 def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
-                    timed=True, with_dlse=False, d=128):
+                    timed=True, with_dlse=False, d=128, cuda_core_row=False):
     """dK/dV and dQ kernels at one shape against their plain versions on
     fp32 copies of the same inputs. bf16 at a head dim that is a multiple
-    of 8 up to 128 runs the tensor-core dK/dV and dQ kernels, each held to
-    the bound of its roundings; fp32 at those head dims runs the 3xTF32
-    dK/dV and dQ kernels (their bound at the 3xTF32 rate and at fp32's);
-    each of these is timed eager and in graph replay beside the CUDA-core
-    kernel on the same inputs. Other head dims run the CUDA-core kernels.
-    Returns one row per kernel."""
+    of 8 runs the tensor-core dK/dV kernel up to 256 and the tensor-core dQ
+    kernel up to 128, each held to the bound of its roundings; fp32 at
+    such head dims up to 128 runs the 3xTF32 dK/dV and dQ kernels (their
+    bound at the 3xTF32 rate and at fp32's); each of these is timed eager
+    and in graph replay beside the CUDA-core kernel on the same inputs.
+    The rest runs the CUDA-core kernels. With ``cuda_core_row`` the
+    CUDA-core dK/dV kernel, which runs on no main path now, also gets a row
+    of its own beside the tensor-core one (held to its tolerance). Returns
+    one row per kernel."""
     import torch
 
     fa = _flash_module()
     scale = 1.0 / d ** 0.5
-    sm90 = fa.takes_sm90(dtype, d)  # dK/dV and dQ on the tensor cores
+    sm90 = fa.takes_sm90(dtype, d)  # dK/dV on the tensor cores
+    sm90_dq = fa.takes_sm90_dq(dtype, d)  # dQ on the tensor cores
     tf32x3 = fa.takes_tf32x3(dtype, d)
+    if cuda_core_row and not sm90:
+        raise ValueError(f"{label}: a CUDA-core row beside a CUDA-core route")
     suffix = "_sm90" if sm90 else "_tf32x3" if tf32x3 else ""
+    dq_suffix = "_sm90" if sm90_dq else "_tf32x3" if tf32x3 else ""
     dkv_name = "flash_attention_bwd_dkv" + suffix
-    dq_name = "flash_attention_bwd_dq" + suffix
+    dq_name = "flash_attention_bwd_dq" + dq_suffix
     q, do = (_rand(gen, (bh, sq, d), dtype) for _ in range(2))
     k, v = (_rand(gen, (bh, sk, d), dtype) for _ in range(2))
     f32 = [t.float() for t in (q, k, v, do)]
@@ -2779,7 +2824,7 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             _compare(f"{dkv_name}[{label}].dv", dv, rdv, tol)[0])
     del rdk, rdv
     rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
-    if sm90:
+    if sm90_dq:
         bdq = fa.sm90_dq_bound(*f32, *args, rdq)
         err_dq, share_dq = _compare_bound(f"flash_bwd_dq_sm90[{label}].dq",
                                           dq, rdq, bdq)
@@ -2797,10 +2842,24 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
     rows = [dict(base, kernel=dkv_name,
                  max_abs_err=err_dkv, tol=SM90_TOL if sm90 else tol),
             dict(base, kernel=dq_name,
-                 max_abs_err=err_dq, tol=SM90_TOL if sm90 else tol)]
+                 max_abs_err=err_dq, tol=SM90_TOL if sm90_dq else tol)]
     if sm90:
         rows[0]["bound_share_max"] = share
+    if sm90_dq:
         rows[1]["bound_share_max"] = share_dq
+    if cuda_core_row:
+        ck, cv = fa.flash_attention_bwd_dkv_cuda_core(q, k, v, do, *args)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, do)]
+        rdk, rdv = fa.flash_attention_bwd_dkv_plain(*f32, *args)
+        rows.append(dict(base, kernel="flash_attention_bwd_dkv", tol=tol,
+                         max_abs_err=max(
+            _compare(f"flash_attention_bwd_dkv[{label}].dk", ck, rdk,
+                     tol)[0],
+            _compare(f"flash_attention_bwd_dkv[{label}].dv", cv, rdv,
+                     tol)[0])))
+        del ck, cv, rdk, rdv, f32
+        _release()
     if timed:
         rows[0]["kernel_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, *args), iters=10,
@@ -2808,21 +2867,28 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         rows[1]["kernel_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, *args), iters=10,
             warmup=2)
-        if sm90 or tf32x3:
-            # graph replay, and the CUDA-core kernel on the same inputs
-            for row, kind in ((rows[0], "dkv"), (rows[1], "dq")):
-                wrapper = getattr(fa, f"flash_attention_bwd_{kind}{suffix}")
-                core = getattr(fa, f"flash_attention_bwd_{kind}_cuda_core")
-                row["graph_ms"] = _graph_ms(
-                    lambda w=wrapper: w(q, k, v, do, *args))
-                row["cuda_core_ms"] = _time_ms(
-                    lambda c=core: c(q, k, v, do, *args), iters=3, warmup=1)
+        # graph replay, and the CUDA-core kernel on the same inputs, for the
+        # kernels that are not the CUDA-core ones
+        for row, kind, sfx in ((rows[0], "dkv", suffix),
+                               (rows[1], "dq", dq_suffix)):
+            if not sfx:
+                continue
+            wrapper = getattr(fa, f"flash_attention_bwd_{kind}{sfx}")
+            core = getattr(fa, f"flash_attention_bwd_{kind}_cuda_core")
+            row["graph_ms"] = _graph_ms(
+                lambda w=wrapper: w(q, k, v, do, *args))
+            row["cuda_core_ms"] = _time_ms(
+                lambda c=core: c(q, k, v, do, *args), iters=3, warmup=1)
+        if cuda_core_row:
+            rows[2]["kernel_ms"] = rows[0]["cuda_core_ms"]
         rows[0]["plain_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, *args),
             iters=3, warmup=1)
         rows[1]["plain_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dq_plain(q, k, v, do, *args),
             iters=3, warmup=1)
+        if cuda_core_row:
+            rows[2]["plain_ms"] = rows[0]["plain_ms"]
         _release()
         lib = spread = None
         if not causal or (sq == sk and offset == 0):
@@ -2831,9 +2897,11 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         pairs = bh * _visible_pairs(sq, sk, offset, causal)
         io = (2 * bh * sq * d + 2 * bh * sk * d) * esz + 2 * bh * sq * 4
         rate = "tf32x3" if tf32x3 else _dname(dtype)
-        for row, out_bytes, flops_per in (
-                (rows[0], 2 * bh * sk * d * esz, 8 * d),
-                (rows[1], bh * sq * d * esz, 6 * d)):
+        work = [(rows[0], 2 * bh * sk * d * esz, 8 * d),
+                (rows[1], bh * sq * d * esz, 6 * d)]
+        if cuda_core_row:
+            work.append((rows[2], 2 * bh * sk * d * esz, 8 * d))
+        for row, out_bytes, flops_per in work:
             b_ms, b_by = _bound(io + out_bytes, flops_per * pairs, rate)
             row.update(library_ms=lib, library_ms_spread=spread,
                        bound_ms=b_ms, bound_by=b_by, visible_pairs=pairs,
@@ -3578,8 +3646,10 @@ BENCH_BATCH = {"dense": 16, "moe": 8}
 # must not hold: the CUDA-core attention and grouped GEMM, the earlier
 # routing and RMSNorm column-sum kernels
 GRAPH_NODES = [
-    (("flash_fwd_sm90_kernel",), ("flash_attention_sm90",)),
-    (("flash_bwd_dkv_sm90_kernel",), ("flash_attention_bwd_dkv_sm90",)),
+    (("flash_fwd_sm90_kernel", "flash_fwd_sm90_wide_kernel"),
+     ("flash_attention_sm90",)),
+    (("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_sm90_wide_kernel"),
+     ("flash_attention_bwd_dkv_sm90",)),
     (("flash_bwd_dq_sm90_kernel",), ("flash_attention_bwd_dq_sm90",)),
     (("flash_fwd_tf32x3_kernel",), ("flash_attention_tf32x3",)),
     (("flash_bwd_dkv_tf32x3_kernel",), ("flash_attention_bwd_dkv_tf32x3",)),
@@ -7838,10 +7908,11 @@ LLAMA2_13B = dict(vocab_size=32000, hidden_size=5120, intermediate_size=13824,
 L13B_BATCH = (1, 4096)
 L13B_STEPS = 3
 # its depth: what the host holds, at most this many layers (PR 20 ran the
-# 19 that fit; cut to make room for the DiT and ResNet phases, whose
-# ~65 s the script's time limit must absorb: the host pinning and the
-# steps scale with the layers)
-L13B_MAX_LAYERS = 8
+# 19 that fit; cut to 8 to make room for the DiT and ResNet phases, whose
+# ~65 s the script's time limit must absorb, then to 4 for the build of
+# the flash instances above head dim 128 and the llama-d256 step: the host
+# pinning and the steps scale with the layers)
+L13B_MAX_LAYERS = 4
 HOST_SPARE = 12 * 2 ** 30  # host memory left free beside the offloaded state
 
 
@@ -9024,8 +9095,20 @@ D96_EAGER_STEPS, D96_GRAPH_STEPS = 3, 4
 # GPT-3 2.7B's attention (Table 2.1: 32 heads of 80) at batch 2
 D80_BH = 64
 # Gemma 7B's attention (Gemma Team 2024 Table 1: 16 heads of 256) at batch
-# 1: a head dim above 128, which only the CUDA-core kernels take
+# 1, and a head dim of two whole 64-column chunks and 16 columns (136, DP
+# 144) at the same bh: the 64-key tensor-core instances above 128
 D256_BH = 16
+# the repo's Llama at Gemma 2B's widths (Gemma Team 2024 Table 1: d_model
+# 2048, 8 heads of 256, 1 key/value head, 18 layers, feed-forward 32768 =
+# both halves of the gated unit, vocabulary 256128, context 8192): depth
+# cut from 18 to 2 for time, bf16, recompute, batch 2 x 2048; SwiGLU where
+# Gemma has GeGLU, no sqrt(d) embedding scale, the head untied
+GEMMA2B = dict(vocab_size=256128, hidden_size=2048, intermediate_size=16384,
+               num_hidden_layers=2, num_attention_heads=8,
+               num_key_value_heads=1, max_position_embeddings=8192)
+D256_BATCH = (2, 2048)
+D256_SEED = 67
+D256_EAGER_STEPS, D256_GRAPH_STEPS = 3, 4
 
 
 def _d96_launches(L):
@@ -9036,13 +9119,25 @@ def _d96_launches(L):
     return _gpt_launches(L)
 
 
-def _first64_check(label, bh, s, d, gen, kind):
-    """The kernel-against-plain check of the forward (``kind`` "fwd") or
-    of dQ ("dq") at one causal shape, given a planted fault: the
-    tensor-core kernel reading only the first 64 columns of its inputs
-    (the rest zero), as a kernel that loaded one 64-column chunk alone
-    would. The check must find it past ``sm90_fwd_bound`` /
-    ``sm90_dq_bound``. Returns the check's line."""
+def _d256_launches(L):
+    """{counter: launches per step} of the bf16 Llama step at head dim
+    256; every other counter 0: the dense step's (``_dense_launches``: 2L
+    tensor-core forwards, L tensor-core dK/dV, the RMSNorm, RoPE and AdamW
+    launches) but dQ on the CUDA-core kernel, L a step: the one flash
+    kernel left on the CUDA cores above head dim 128."""
+    per_step = _dense_launches(L)
+    per_step.update({"flash_attention_bwd_dq_sm90": 0,
+                     "flash_attention_bwd_dq": L})
+    return per_step
+
+
+def _first_columns_check(phase, label, bh, s, d, gen, kind, read):
+    """The kernel-against-plain check of the forward (``kind`` "fwd"), of
+    dK/dV ("dkv") or of dQ ("dq") at one causal shape, given a planted
+    fault: the tensor-core kernel reading only the first ``read`` columns
+    of its inputs (the rest zero), as a kernel that loaded too few 64-column
+    chunks would. The check must find it past ``sm90_fwd_bound`` /
+    ``sm90_dkv_bound`` / ``sm90_dq_bound``. Returns the check's line."""
     import torch
 
     fa = _flash_module()
@@ -9051,37 +9146,105 @@ def _first64_check(label, bh, s, d, gen, kind):
     f32 = [t.float() for t in ins]
     scale = 1.0 / d ** 0.5
     ro, rl = fa.flash_attention_plain(*f32[:3], 0, True, scale)
+    if kind != "fwd":
+        args = (rl, (f32[3] * ro).sum(-1), 0, True, scale)
     if kind == "fwd":
-        name, ref = "flash_attention_sm90", ro
-        bound = fa.sm90_fwd_bound(*f32, 0, True, scale, ro)
+        name, refs = "flash_attention_sm90", [ro]
+        bounds = [fa.sm90_fwd_bound(*f32, 0, True, scale, ro)]
+    elif kind == "dkv":
+        name = "flash_attention_bwd_dkv_sm90"
+        refs = list(fa.flash_attention_bwd_dkv_plain(*f32, *args))
+        bounds = list(fa.sm90_dkv_bound(*f32, *args, *refs))
     else:
         name = "flash_attention_bwd_dq_sm90"
-        args = (rl, (f32[3] * ro).sum(-1), 0, True, scale)
-        ref = fa.flash_attention_bwd_dq_plain(*f32, *args)
-        bound = fa.sm90_dq_bound(*f32, *args, ref)
+        refs = [fa.flash_attention_bwd_dq_plain(*f32, *args)]
+        bounds = [fa.sm90_dq_bound(*f32, *args, refs[0])]
     for t in ins:
-        t[..., 64:] = 0
+        t[..., read:] = 0
     if kind == "fwd":
-        got = fa.flash_attention_fwd_sm90(*ins, 0, True, scale)[0]
+        got = [fa.flash_attention_fwd_sm90(*ins, 0, True, scale)[0]]
+    elif kind == "dkv":
+        got = list(fa.flash_attention_bwd_dkv_sm90(*ins, *args))
     else:
-        got = fa.flash_attention_bwd_dq_sm90(*ins, *args)
+        got = [fa.flash_attention_bwd_dq_sm90(*ins, *args)]
     torch.cuda.synchronize()
-    excess = ((got.float() - ref).abs() - bound).max().item()
-    try:
-        _compare_bound(f"{name}[{label}]", got, ref, bound)
-        caught = False
-    except RuntimeError:
-        caught = True
-    del ins, f32, ro, rl, ref, bound, got
+    excess = max(((g.float() - r).abs() - b).max().item()
+                 for g, r, b in zip(got, refs, bounds))
+    caught = False
+    for g, r, b in zip(got, refs, bounds):
+        try:
+            _compare_bound(f"{name}[{label}]", g, r, b)
+        except RuntimeError:
+            caught = True
+    del ins, f32, ro, rl, refs, bounds, got
     _release()
-    row = {"phase": "gpt-d96-fault", "case": label, "fault":
-           f"{kind}_reads_first64", "bh": bh, "s": s, "d": d,
+    row = {"phase": f"{phase}-fault", "case": label, "fault":
+           f"{kind}_reads_first{read}", "bh": bh, "s": s, "d": d,
            "excess_over_bound": excess, "fault_caught": caught}
     _emit(row)
     if not caught:
-        raise RuntimeError(f"gpt-d96: the planted fault was not caught "
+        raise RuntimeError(f"{phase}: the planted fault was not caught "
                            f"{row}")
     return row
+
+
+def _llama_d256(seed):
+    """The repo's Llama at Gemma 2B's widths (GEMMA2B; head dim 256, one
+    key/value head, repeated to the 8 query heads), bf16, recompute, batch
+    D256_BATCH: one step's gradients against the plain-swapped step (within
+    TRAIN_GRAD_TOL, the dense Llama step's), eager and graphed steps with
+    exact launches (``_d256_launches``) and a falling loss. Returns its
+    counters (eager and graphed added)."""
+    import torch
+
+    from paddle_tpu_torch.device import seed as pt_seed
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         llama_flops_per_token,
+                                         llama_param_count)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _release()
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(**GEMMA2B, dtype="bfloat16", use_recompute=True)
+    model = LlamaForCausalLM(cfg, device=DEVICE,
+                             generator=pt_seed(seed + D256_SEED, DEVICE))
+    ids = _ids(cfg.vocab_size, D256_BATCH, seed + D256_SEED)
+    L = cfg.num_hidden_layers
+    with _swapped(_plain_swaps()):
+        loss_p, grads_p = _loss_and_grads(model, ids)
+    loss_k, grads_k = _loss_and_grads(model, ids)
+    errs = _grad_errors(grads_k, grads_p)
+    del grads_k, grads_p
+    per_step = _d256_launches(L)
+    opt = AdamW(learning_rate=3e-4, parameters=model.parameters(),
+                weight_decay=0.1)
+    ecounts, gcounts, eager, graph, _nodes = _eager_then_graph(
+        "llama-d256", model, opt, ids, per_step,
+        llama_flops_per_token(cfg, D256_BATCH[1]), D256_EAGER_STEPS,
+        D256_GRAPH_STEPS)
+    del opt, model
+    _release()
+    row = {"phase": "llama-d256", "model": "llama-at-gemma-2b-widths",
+           "deviations_from_gemma": [
+               "SwiGLU where Gemma has GeGLU", "no sqrt(d) embedding scale",
+               "untied head", f"{L} of 18 layers"],
+           "card": _nvidia_smi(), "params": llama_param_count(cfg),
+           "layers": L, "hidden": cfg.hidden_size,
+           "heads": cfg.num_attention_heads,
+           "kv_heads": cfg.num_key_value_heads,
+           "head_dim": cfg.hidden_size // cfg.num_attention_heads,
+           "intermediate": cfg.intermediate_size, "vocab": cfg.vocab_size,
+           "dtype": "bfloat16", "batch": list(D256_BATCH),
+           "loss_kernels": loss_k, "loss_plain": loss_p,
+           "grad_rel_l2_max": max(errs.values()), "grad_worst": _worst(errs),
+           "grad_tol": TRAIN_GRAD_TOL, "graph": graph, "eager": eager,
+           "launches_per_step": {n: c for n, c in per_step.items() if c},
+           "seconds": time.perf_counter() - t0}
+    _emit(row)
+    if not max(errs.values()) <= TRAIN_GRAD_TOL:
+        raise RuntimeError(f"llama-d256: kernel gradients differ from plain "
+                           f"{row}")
+    return _add_counts(ecounts, gcounts)
 
 
 def phase_gpt_d96(seed):
@@ -9089,12 +9252,18 @@ def phase_gpt_d96(seed):
     (head dim 96) at D96_LAYERS layers, bf16, recompute, batch D96_BATCH:
     one step's gradients against the plain-swapped step (within
     GPT_GRAD_TOL), eager and graphed steps with exact launches and a
-    falling loss; then the kernels' rows at its attention shape, at GPT-3
-    2.7B's (head dim 80, bh D80_BH) and, for the CUDA-core kernels, at
-    Gemma 7B's (head dim 256, bh D256_BH), and two planted faults (the
-    forward and dQ reading 64 of the 96 columns), which each kernel's
-    check against its plain version must catch (``_first64_check``).
-    Returns ({path: counters}, rows)."""
+    falling loss; the same for the repo's Llama at Gemma 2B's widths
+    (``llama-d256`` lines, ``_llama_d256``: head dim 256 with one
+    key/value head; not Gemma: SwiGLU for GeGLU, no sqrt(d) embedding
+    scale, an untied head, 2 of 18 layers); then the kernels' rows at
+    GPT-3 Large's attention shape, at GPT-3 2.7B's (head dim 80, bh
+    D80_BH), at Gemma 7B's and 2B's head dim 256 (bh D256_BH; the
+    tensor-core forward and dK/dV beside the CUDA-core kernels, which also
+    get rows of their own there, and the CUDA-core dQ) and at head dim 136,
+    and four planted faults (the forward and dQ reading 64 of d 96's
+    columns, the forward and dK/dV reading 128 of d 256's), which each
+    kernel's check against its plain version must catch
+    (``_first_columns_check``). Returns ({path: counters}, rows)."""
     import torch
 
     from paddle_tpu_torch.optimizer import AdamW
@@ -9137,17 +9306,26 @@ def phase_gpt_d96(seed):
     bh = D96_BATCH[0] * cfg.num_attention_heads
     d, s = cfg.hidden_size // cfg.num_attention_heads, D96_BATCH[1]
     rows = []
+    llama = _llama_d256(seed)
     for label, rbh, rd in (("gpt-d96-bfloat16", bh, d),
                            ("gpt-d80-bfloat16", D80_BH, 80),
-                           ("d256-bfloat16", D256_BH, 256)):
-        rows.append(_flash_case(label, torch.bfloat16, rbh, s, s, True, gen,
-                                d=rd))
+                           ("d256-bfloat16", D256_BH, 256),
+                           ("d136-bfloat16", D256_BH, 136)):
+        core = rd == 256  # the CUDA-core kernels' rows
+        fwd = _flash_case(label, torch.bfloat16, rbh, s, s, True, gen, d=rd,
+                          cuda_core_row=core)
+        rows += fwd if core else [fwd]
         rows += _flash_bwd_case(label, torch.bfloat16, rbh, s, s, 0, True,
-                                gen, d=rd)
+                                gen, d=rd, cuda_core_row=core)
         _release()
     for kind in ("fwd", "dq"):
-        _first64_check("gpt-d96-bfloat16", bh, s, d, gen, kind)
-    return {"gpt-d96": _add_counts(ecounts, gcounts)}, rows
+        _first_columns_check("gpt-d96", "gpt-d96-bfloat16", bh, s, d, gen,
+                             kind, 64)
+    for kind in ("fwd", "dkv"):
+        _first_columns_check("llama-d256", "d256-bfloat16", D256_BH, s, 256,
+                             gen, kind, 128)
+    return {"gpt-d96": _add_counts(ecounts, gcounts),
+            "llama-d256": llama}, rows
 
 
 # -- ResNet-18 on CIFAR-10's shape ---------------------------------------------
@@ -9342,12 +9520,14 @@ def _kernels_line(rows, paths):
     parity phases (the depth-2 engine, whose prefill windows run the
     general paged-attention kernel, and the depth-2 training steps, which
     run the 3xTF32 flash forward, dK/dV and dQ and the CUDA-core grouped
-    GEMM kernels); the CUDA-core flash forward, dK/dV and dQ run on no
-    main path now, and their rows are taken at head dim 256
-    (``d256-bfloat16``), which only they take. The flash kernels also
-    carry their rows at
-    DiT's (``dit``), GPT-3 Large's (``gpt_d96``) and GPT-3 2.7B's
-    (``gpt_d80``) attention shapes."""
+    GEMM kernels); the CUDA-core flash forward and dK/dV run on no main
+    path now, and their rows are taken at head dim 256 (``d256-bfloat16``)
+    on the same inputs as the tensor-core kernels there; the CUDA-core dQ,
+    which the ``llama-d256`` step runs, has its row there too. The flash
+    kernels also carry their rows at DiT's (``dit``), GPT-3 Large's
+    (``gpt_d96``), GPT-3 2.7B's (``gpt_d80``) and Gemma's (``d256``, with
+    the ``llama-d256`` step's launches) attention shapes and at head dim
+    136 (``d136``)."""
     # (kernel, representative case, source, TPU kernel replaced, the
     # counters whose launches it sums)
     table = [
@@ -9539,13 +9719,17 @@ def _kernels_line(rows, paths):
                 "bound_fp32_ms") if bert.get(key) is not None}
         # the kernels at DiT-XL/2's attention (fp32, bh 512, 256 x 256,
         # d 72; beside SDPA in fp32 and both bounds), GPT-3 Large's (bf16,
-        # bh 32, causal 2048, d 96) and GPT-3 2.7B's (bh 64, d 80), beside
-        # the CUDA-core kernels on the same inputs
-        for key, prefix in (("dit", "dit-"), ("gpt_d96", "gpt-d96-"),
-                            ("gpt_d80", "gpt-d80-")):
+        # bh 32, causal 2048, d 96), GPT-3 2.7B's (bh 64, d 80), Gemma's
+        # (bh 16, d 256) and at d 136, beside the CUDA-core kernels on the
+        # same inputs; with the launches of the main paths at that shape
+        for key, prefix, path in (("dit", "dit-", "dit"),
+                                  ("gpt_d96", "gpt-d96-", "gpt-d96"),
+                                  ("gpt_d80", "gpt-d80-", None),
+                                  ("d256", "d256-", "llama-d256"),
+                                  ("d136", "d136-", None)):
             at = next((x for x in rows if x["kernel"] == name and
                        x["case"].startswith(prefix)), None)
-            if at is None:
+            if at is None or at["case"] == case:
                 continue
             entry[key] = {k: at[k] for k in (
                 "case", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
@@ -9553,7 +9737,8 @@ def _kernels_line(rows, paths):
                 "bound_fp32_ms") if at.get(k) is not None}
             entry[key]["launches"] = sum(
                 c[n]["launches"] for p, c in paths.items()
-                if p.startswith(prefix[:-1]) for n in counters)
+                if path is not None and p.startswith(path)
+                for n in counters)
         if name == "rope":
             # the inverse as the training step runs it: on the cotangent's
             # [b, s, h, d] view of [b, h, s, d], read in place

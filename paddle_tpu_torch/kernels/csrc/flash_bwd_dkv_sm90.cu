@@ -1,6 +1,8 @@
 // Flash-attention dK/dV backward on Hopper's tensor cores (sm_90a): bf16
 // inputs, any head dim d that is a multiple of 8 from 8 to 128, fp32
-// accumulation.
+// accumulation. The entry point also takes d from 136 to 256, which
+// flash_bwd_dkv_sm90_wide.cu's instances serve (a column half of dK and dV
+// a warpgroup: see there).
 //
 // Replaces the TPU kernel `_bwd_dkv_kernel` (paddle_tpu/kernels/
 // flash_attention.py:154, launched by `_flash_bwd` at :268) for the inputs it
@@ -259,8 +261,15 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+// hd a multiple of 8 from 136 to 256 (flash_bwd_dkv_sm90_wide.cu)
+int flash_bwd_dkv_sm90_wide(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dk, void* dv, int bh,
+                            int sq, int sk, int hd, int offset, int causal,
+                            float scale, cudaStream_t st);
+
 // bf16 q, dout [bh, sq, hd]; k, v, dk, dv [bh, sk, hd]; lse, delta [bh, sq]
-// fp32; hd a multiple of 8 from 8 to 128; every bf16 pointer 16-byte
+// fp32; hd a multiple of 8 from 8 to 256; every bf16 pointer 16-byte
 // aligned (TMA). Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for a head dim
 // the kernel does not take, or kMapRefused (-1) for a tensor map that
@@ -270,10 +279,13 @@ extern "C" int pt_flash_attention_bwd_dkv_sm90(
     const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
     int sk, int hd, int offset, int causal, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (hd % 8 != 0 || hd < 8 || hd > 128) return (int)cudaErrorInvalidValue;
+  if (hd % 8 != 0 || hd < 8 || hd > 256) return (int)cudaErrorInvalidValue;
   if (bh * sk == 0) return (int)cudaGetLastError();
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
+  if (hd > 128)
+    return flash_bwd_dkv_sm90_wide(q, k, v, dout, l, dl, dk, dv, bh, sq, sk,
+                                   hd, offset, causal, scale, st);
   switch ((hd + 15) / 16) {  // the instance of DP = ceil16(hd)
     case 1: return launch<16>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);
     case 2: return launch<32>(q, k, v, dout, l, dl, dk, dv, bh, sq, sk, hd, offset, causal, scale, st);

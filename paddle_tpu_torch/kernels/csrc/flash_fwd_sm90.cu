@@ -1,6 +1,7 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a): bf16 inputs,
 // any head dim d that is a multiple of 8 from 8 to 128, fp32 accumulation,
-// per-row log-sum-exp.
+// per-row log-sum-exp. The entry point also takes d from 136 to 256, which
+// flash_fwd_sm90_wide.cu's instances serve (64-key tiles: see there).
 //
 // Replaces the TPU kernel `_fwd_kernel` (paddle_tpu/kernels/flash_attention.py
 // :64, launched by `_flash_fwd` at :124) for the inputs it takes; fp32 has
@@ -264,8 +265,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
+// hd a multiple of 8 from 136 to 256 (flash_fwd_sm90_wide.cu)
+int flash_fwd_sm90_wide(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int bh, int sq, int sk, int hd,
+                        int offset, int causal, float scale, cudaStream_t st);
+
 // bf16 q [bh, sq, hd], k, v [bh, sk, hd], o [bh, sq, hd]; lse [bh, sq] fp32;
-// hd a multiple of 8 from 8 to 128; every pointer 16-byte aligned (TMA).
+// hd a multiple of 8 from 8 to 256; every pointer 16-byte aligned (TMA).
 // Returns cudaGetLastError() after the launch, cudaErrorInvalidValue for a
 // head dim the kernel does not take, or kMapRefused (-1) for a tensor map
 // that cuTensorMapEncodeTiled refuses.
@@ -275,9 +281,12 @@ extern "C" int pt_flash_attention_fwd_sm90(const void* q, const void* k,
                                            int offset, int causal, float scale,
                                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (hd % 8 != 0 || hd < 8 || hd > 128) return (int)cudaErrorInvalidValue;
+  if (hd % 8 != 0 || hd < 8 || hd > 256) return (int)cudaErrorInvalidValue;
   if (bh * sq == 0) return (int)cudaGetLastError();
   float* l = (float*)lse;
+  if (hd > 128)
+    return flash_fwd_sm90_wide(q, k, v, o, l, bh, sq, sk, hd, offset, causal,
+                               scale, st);
   switch ((hd + 15) / 16) {  // the instance of DP = ceil16(hd)
     case 1: return launch<16>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);
     case 2: return launch<32>(q, k, v, o, l, bh, sq, sk, hd, offset, causal, scale, st);

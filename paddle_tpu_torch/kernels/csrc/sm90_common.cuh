@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu,
-// grouped_matmul_sm90.cu, paged_attention_sm90.cu): TMA tensor maps and
+// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu, their
+// head dims above 128 in flash_fwd_sm90_wide.cu and
+// flash_bwd_dkv_sm90_wide.cu, grouped_matmul_sm90.cu,
+// paged_attention_sm90.cu): TMA tensor maps and
 // loads, mbarriers, wgmma descriptors and the wgmma instructions they use.
 //
 // Layout contract. Every operand tile in shared memory is what a TMA load

@@ -18,26 +18,31 @@ runs its plain version on a CPU tensor:
   (up to 256) is whole 16-byte chunks goes to the split-K decode kernel
   (``csrc/flash_decode.cu``, :func:`flash_decode`, whose plain version
   :func:`flash_decode_plain` computes the same split plan, partials and
-  merge); bf16 with a head dim that is a multiple of 8 up to 128 and more
+  merge); bf16 with a head dim that is a multiple of 8 up to 256 and more
   than one query row to the tensor-core kernel
-  (``csrc/flash_fwd_sm90.cu``, :func:`flash_attention_fwd_sm90`); fp32
-  likewise to the fp32 tensor-core kernel (``csrc/flash_fwd_tf32x3.cu``,
-  :func:`flash_attention_fwd_tf32x3`: three TF32 products a product, fp32
-  accuracy); everything else (other head dims) to the CUDA-core kernel
-  (``csrc/flash_attention.cu``, :func:`flash_attention_fwd_cuda_core`);
+  (``csrc/flash_fwd_sm90.cu``, whose head dims above 128 are the 64-key
+  tiles of ``csrc/flash_fwd_sm90_wide.cu``;
+  :func:`flash_attention_fwd_sm90`); fp32 with a head dim that is a
+  multiple of 8 up to 128 to the fp32 tensor-core kernel
+  (``csrc/flash_fwd_tf32x3.cu``, :func:`flash_attention_fwd_tf32x3`: three
+  TF32 products a product, fp32 accuracy); everything else (other head
+  dims) to the CUDA-core kernel (``csrc/flash_attention.cu``,
+  :func:`flash_attention_fwd_cuda_core`);
 - :func:`flash_attention_bwd_dkv` / :func:`flash_attention_bwd_dkv_plain`,
   likewise: bf16 where :func:`takes_sm90` (a head dim that is a multiple
-  of 8 up to 128) goes to ``csrc/flash_bwd_dkv_sm90.cu``
-  (:func:`flash_attention_bwd_dkv_sm90`), fp32 where :func:`takes_tf32x3`
-  to ``csrc/flash_bwd_dkv_tf32x3.cu``
-  (:func:`flash_attention_bwd_dkv_tf32x3`), the rest to
-  ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dkv_cuda_core`);
+  of 8 up to 256) goes to ``csrc/flash_bwd_dkv_sm90.cu`` (above 128
+  ``csrc/flash_bwd_dkv_sm90_wide.cu``; :func:`flash_attention_bwd_dkv_sm90`),
+  fp32 where :func:`takes_tf32x3` (up to 128) to
+  ``csrc/flash_bwd_dkv_tf32x3.cu`` (:func:`flash_attention_bwd_dkv_tf32x3`),
+  the rest to ``csrc/flash_attention_bwd.cu``
+  (:func:`flash_attention_bwd_dkv_cuda_core`);
 - :func:`flash_attention_bwd_dq` / :func:`flash_attention_bwd_dq_plain`,
-  likewise: bf16 where :func:`takes_sm90` goes to
-  ``csrc/flash_bwd_dq_sm90.cu`` (:func:`flash_attention_bwd_dq_sm90`), fp32
-  where :func:`takes_tf32x3` to ``csrc/flash_bwd_dq_tf32x3.cu``
-  (:func:`flash_attention_bwd_dq_tf32x3`), the rest to
-  ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd_dq_cuda_core`).
+  likewise but only up to 128 in either dtype: bf16 where
+  :func:`takes_sm90_dq` goes to ``csrc/flash_bwd_dq_sm90.cu``
+  (:func:`flash_attention_bwd_dq_sm90`), fp32 where :func:`takes_tf32x3` to
+  ``csrc/flash_bwd_dq_tf32x3.cu`` (:func:`flash_attention_bwd_dq_tf32x3`),
+  the rest (d % 8 != 0, d > 128) to ``csrc/flash_attention_bwd.cu``
+  (:func:`flash_attention_bwd_dq_cuda_core`).
 
 Each kernel counts its own launches (``COUNTS`` / ``COUNTS_SM90`` /
 ``COUNTS_TF32X3`` / ``COUNTS_DECODE`` for the forward, ``COUNTS_DKV`` /
@@ -81,7 +86,8 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd_tf32x3", "flash_attention_bwd_dkv_tf32x3",
            "flash_attention_bwd_dq_tf32x3",
            "flash_decode", "flash_decode_plain", "decode_plan",
-           "merge_partials_plain", "route", "takes_sm90", "takes_tf32x3",
+           "merge_partials_plain", "route", "takes_sm90", "takes_sm90_dq",
+           "takes_tf32x3",
            "sm90_fwd_bound", "sm90_dkv_bound", "sm90_dq_bound", "COUNTS",
            "COUNTS_SM90", "COUNTS_TF32X3", "COUNTS_DECODE", "COUNTS_DKV",
            "COUNTS_DKV_SM90", "COUNTS_DKV_TF32X3", "COUNTS_DQ",
@@ -91,9 +97,11 @@ _NEG = -1e30
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the head dims of the tensor-core kernels, bf16 and fp32 alike: the least
-# and most, multiples of 8
+# the head dims of the tensor-core kernels, multiples of 8: the least, the
+# most of the fp32 kernels and of bf16 dQ, and the most of the bf16 forward
+# and dK/dV
 _TC_HEAD_DIMS = (8, 128)
+_SM90_WIDEST = 256
 # the decode kernel's split plan: about 2 blocks per SM, and at least 32
 # keys a split (the keys a block folds per turn at bf16 head dim 128: 8
 # side by side, 4 deep); the plain version plans for an H100's 132 SMs
@@ -169,21 +177,29 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset, causal,
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
 
 
-def _tc_head_dim(head_dim) -> bool:
+def _tc_head_dim(head_dim, widest=_TC_HEAD_DIMS[1]) -> bool:
     """A head dim the tensor-core kernels take: a multiple of 8 from 8 to
-    128."""
-    return (head_dim % 8 == 0
-            and _TC_HEAD_DIMS[0] <= head_dim <= _TC_HEAD_DIMS[1])
+    ``widest``."""
+    return head_dim % 8 == 0 and _TC_HEAD_DIMS[0] <= head_dim <= widest
 
 
 def takes_sm90(dtype, head_dim, sq=None) -> bool:
-    """Whether a CUDA call goes to the bf16 tensor-core kernels: bf16, a
-    head dim that is a multiple of 8 from 8 to 128, and (forward, ``sq``
-    given) more than one query row; a single-row decode reads each key once
-    and is bound by bytes, which the split-K decode kernel serves
-    (:func:`route`). The backward (dK/dV and dQ) asks without ``sq``."""
-    return (dtype == torch.bfloat16 and _tc_head_dim(head_dim)
+    """Whether a CUDA call of the forward or of dK/dV goes to the bf16
+    tensor-core kernels: bf16, a head dim that is a multiple of 8 from 8 to
+    256, and (forward, ``sq`` given) more than one query row; a single-row
+    decode reads each key once and is bound by bytes, which the split-K
+    decode kernel serves (:func:`route`). dK/dV asks without ``sq``; dQ
+    asks :func:`takes_sm90_dq`."""
+    return (dtype == torch.bfloat16 and _tc_head_dim(head_dim, _SM90_WIDEST)
             and (sq is None or sq > 1))
+
+
+def takes_sm90_dq(dtype, head_dim) -> bool:
+    """Whether a CUDA call of dQ goes to the bf16 tensor-core dQ kernel:
+    bf16 and a head dim that is a multiple of 8 from 8 to 128. Above 128
+    dQ stays on the CUDA-core kernel (its tensor-core instances stop at
+    128)."""
+    return dtype == torch.bfloat16 and _tc_head_dim(head_dim)
 
 
 def takes_tf32x3(dtype, head_dim, sq=None) -> bool:
@@ -385,11 +401,11 @@ def _check_tf32x3(name, q, sq=None):
                          f"{q.shape[1]}")
 
 
-def _check_sm90(name, q):
-    if not takes_sm90(q.dtype, q.shape[2]):
+def _check_sm90(name, q, widest=_SM90_WIDEST):
+    if not (q.dtype == torch.bfloat16 and _tc_head_dim(q.shape[2], widest)):
         raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 "
                          f"with head_dim a multiple of 8 in "
-                         f"[{_TC_HEAD_DIMS[0]}, {_TC_HEAD_DIMS[1]}], got "
+                         f"[{_TC_HEAD_DIMS[0]}, {widest}], got "
                          f"{q.dtype} head_dim {q.shape[2]}")
 
 
@@ -503,8 +519,9 @@ def flash_attention_fwd_cuda_core(q, k, v, offset, causal, scale):
 
 
 def flash_attention_fwd_sm90(q, k, v, offset, causal, scale):
-    """(o, lse) from the tensor-core kernel (``csrc/flash_fwd_sm90.cu``):
-    bf16, a head dim that is a multiple of 8 from 8 to 128."""
+    """(o, lse) from the tensor-core kernel (``csrc/flash_fwd_sm90.cu``;
+    ``csrc/flash_fwd_sm90_wide.cu`` above 128): bf16, a head dim that is a
+    multiple of 8 from 8 to 256."""
     _fwd_inputs("flash_attention_sm90", q, k, v)
     _check_sm90("flash_attention_sm90", q)
     _on_cuda("flash_attention_sm90", q)
@@ -604,8 +621,9 @@ def flash_attention_bwd_dkv_cuda_core(q, k, v, do, lse, delta, offset,
 
 def flash_attention_bwd_dkv_sm90(q, k, v, do, lse, delta, offset, causal,
                                  scale):
-    """(dK, dV) from the tensor-core kernel (``csrc/flash_bwd_dkv_sm90.cu``):
-    bf16, a head dim that is a multiple of 8 from 8 to 128."""
+    """(dK, dV) from the tensor-core kernel (``csrc/flash_bwd_dkv_sm90.cu``;
+    ``csrc/flash_bwd_dkv_sm90_wide.cu`` above 128): bf16, a head dim that
+    is a multiple of 8 from 8 to 256."""
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
     _check_sm90("flash_attention_bwd_dkv_sm90", q)
     _on_cuda("flash_attention_bwd_dkv_sm90", q)
@@ -650,14 +668,14 @@ def flash_attention_bwd_dkv_tf32x3(q, k, v, do, lse, delta, offset, causal,
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, offset, causal, scale):
-    """dQ: on CUDA the tensor-core kernel where :func:`takes_sm90`, the fp32
-    tensor-core kernel where :func:`takes_tf32x3`, else the CUDA-core
+    """dQ: on CUDA the tensor-core kernel where :func:`takes_sm90_dq`, the
+    fp32 tensor-core kernel where :func:`takes_tf32x3`, else the CUDA-core
     kernel; the plain version on the CPU."""
     if q.device.type == "cpu":
         COUNTS_DQ.plain()
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset,
                                             causal, scale)
-    if takes_sm90(q.dtype, q.shape[2]):
+    if takes_sm90_dq(q.dtype, q.shape[2]):
         return flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset,
                                            causal, scale)
     if takes_tf32x3(q.dtype, q.shape[2]):
@@ -692,7 +710,7 @@ def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset, causal,
     """dQ from the tensor-core kernel (``csrc/flash_bwd_dq_sm90.cu``): bf16,
     a head dim that is a multiple of 8 from 8 to 128."""
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
-    _check_sm90("flash_attention_bwd_dq_sm90", q)
+    _check_sm90("flash_attention_bwd_dq_sm90", q, _TC_HEAD_DIMS[1])
     _on_cuda("flash_attention_bwd_dq_sm90", q)
     q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
     bh, sq, d = q.shape

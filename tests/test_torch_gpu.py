@@ -24,7 +24,7 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
     flash_attention_fwd, route, sm90_dkv_bound, sm90_dq_bound,
-    sm90_fwd_bound, takes_sm90, takes_tf32x3)
+    sm90_fwd_bound, takes_sm90, takes_sm90_dq, takes_tf32x3)
 
 # the one-device pipeline step, a harness (tools/pipeline_harness.py)
 sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
@@ -51,11 +51,13 @@ def _counter(name, dtype, d, sq=None):
     """The counter of the kernel that ``name``'s wrapper picks: for a
     forward (``sq`` given) the decode kernel (``name``_decode) where
     ``route`` says so; else the tensor-core one (``name``_sm90) where
-    ``takes_sm90``, the fp32 tensor-core one (``name``_tf32x3) where
-    ``takes_tf32x3``, and the CUDA-core one for the rest."""
+    ``takes_sm90`` (``takes_sm90_dq`` for dQ), the fp32 tensor-core one
+    (``name``_tf32x3) where ``takes_tf32x3``, and the CUDA-core one for the
+    rest."""
     if sq is not None and route(dtype, d, sq) == "decode":
         return name + "_decode"
-    if takes_sm90(dtype, d, sq):
+    if (takes_sm90_dq(dtype, d) if name.endswith("_dq")
+            else takes_sm90(dtype, d, sq)):
         return name + "_sm90"
     if takes_tf32x3(dtype, d, sq):
         return name + "_tf32x3"
@@ -296,7 +298,7 @@ def test_flash_attention_backward_kernels_match_plain(cuda, sq, sk, offset,
     else:
         _close(dk.float().cpu(), rdk.cpu(), tol)
         _close(dv.float().cpu(), rdv.cpu(), tol)
-    if takes_sm90(dtype, d):
+    if takes_sm90_dq(dtype, d):
         _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
     else:
         _close(dq.float().cpu(), rdq.cpu(), tol)
@@ -346,7 +348,7 @@ def test_flash_attention_autograd_uses_the_kernels(cuda, dtype, tol):
     else:
         _close(leaves[1].grad.float().cpu(), rdk.cpu(), btol)
         _close(leaves[2].grad.float().cpu(), rdv.cpu(), btol)
-    if takes_sm90(dtype, d):
+    if takes_sm90_dq(dtype, d):
         _within(leaves[0].grad, rdq, sm90_dq_bound(
             *f32, go.to(dtype).float(), *args, rdq), "dq")
     else:
@@ -476,11 +478,12 @@ def test_flash_kernels_at_ring_offsets(cuda, s, offset, dtype):
 @pytest.mark.gpu
 def test_flash_attention_picks_its_kernel(cuda):
     """bf16 at a head dim that is a multiple of 8 up to 128 (32, 64, 96,
-    128) with more than one row takes the tensor-core kernels; a
+    128) with more than one row takes the tensor-core kernels, and at 136
+    and 256 the tensor-core forward and dK/dV with the CUDA-core dQ; a
     single-row forward the decode kernel (its backward the kernels its
     dtype and head dim pick); fp32 at a head dim that is a multiple of 8
-    up to 128 the 3xTF32 kernels; bf16 at head dim 12 and 136 and fp32 at
-    36 with more rows the CUDA-core ones; a CUDA tensor that none takes
+    up to 128 the 3xTF32 kernels; bf16 at head dim 12 and fp32 at 36 and
+    256 with more rows the CUDA-core ones; a CUDA tensor that none takes
     raises."""
     def run(dtype, sq, d):
         q = torch.randn(2, sq, d, device=cuda).to(dtype)
@@ -523,7 +526,12 @@ def test_flash_attention_picks_its_kernel(cuda):
     assert run(torch.bfloat16, 1, 96) == ["flash_attention_decode"] + \
         sm90_bwd
     assert run(torch.bfloat16, 8, 12) == ["flash_attention"] + cuda_core_bwd
-    assert run(torch.bfloat16, 8, 136) == ["flash_attention"] + cuda_core_bwd
+    wide_bwd = ["flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dq"]
+    assert run(torch.bfloat16, 8, 136) == ["flash_attention_sm90"] + wide_bwd
+    assert run(torch.bfloat16, 8, 256) == ["flash_attention_sm90"] + wide_bwd
+    assert run(torch.bfloat16, 1, 256) == ["flash_attention_decode"] + \
+        wide_bwd
+    assert run(torch.float32, 8, 256) == ["flash_attention"] + cuda_core_bwd
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention_fwd(*[torch.zeros(1, 4, 64, device=cuda,
                                           dtype=torch.float16)] * 3, 0,
@@ -896,11 +904,14 @@ def test_grouped_matmul_sm90_autograd_uses_the_tensor_core_kernels(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dkv", "flash_dq",
+                                    "flash_fwd_d256", "flash_dkv_d256",
                                     "gmm", "gmm_dgrad", "tgmm", "paged",
                                     "flash_decode", "route", "rms_norm_bwd"])
 def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
     """Each tensor-core kernel, the decode kernel, the routing kernels and
-    the RMSNorm backward as the first CUDA call of a new host thread (as
+    the RMSNorm backward (the flash forward and dK/dV also at head dim
+    256, their 64-key instances) as the first CUDA call of a new host
+    thread (as
     autograd's worker thread makes it): cuTensorMapEncodeTiled encodes no
     TMA map in a thread without a current context, so the launcher must
     bind one first; the routing and backward launchers set their shared
@@ -915,6 +926,7 @@ def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
     fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
     bf = dict(device=cuda, dtype=torch.bfloat16)
     q = torch.randn(2, 130, 128, **bf)
+    q256 = torch.randn(2, 130, 256, **bf)
     stats = torch.zeros(2, 130, device=cuda)
     lhs, rhs = torch.randn(40, 64, **bf), torch.randn(2, 64, 72, **bf)
     dout = torch.randn(40, 72, **bf)
@@ -937,6 +949,10 @@ def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
             q, q, q, q, stats, stats, 0, True, 0.1),
         "flash_dq": lambda: fa.flash_attention_bwd_dq_sm90(
             q, q, q, q, stats, stats, 0, True, 0.1),
+        "flash_fwd_d256": lambda: fa.flash_attention_fwd_sm90(
+            q256, q256, q256, 0, True, 0.1),
+        "flash_dkv_d256": lambda: fa.flash_attention_bwd_dkv_sm90(
+            q256, q256, q256, q256, stats, stats, 0, True, 0.1),
         "gmm": lambda: gm.gmm_sm90(lhs, rhs, sizes),
         "gmm_dgrad": lambda: gm.gmm_sm90(dout, rhs, sizes, trans_rhs=True),
         "tgmm": lambda: gm.tgmm_sm90(lhs, dout, sizes),
@@ -2554,11 +2570,49 @@ def test_tf32x3_wrappers_raise_on_what_their_kernels_do_not_take(
     assert all(c["launches"] == 0 for c in counters().values())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", ["fwd", "dkv", "dq"])
+@pytest.mark.parametrize("dtype,d,match", [
+    (torch.bfloat16, 12, "tensor-core kernel"),
+    (torch.bfloat16, 264, "head_dim <= 256"),
+    (torch.float32, 256, "tensor-core kernel"),
+    (torch.bfloat16, 136, None), (torch.bfloat16, 256, None)])
+def test_sm90_wrappers_raise_on_what_their_kernels_do_not_take(
+        cuda, fn, dtype, d, match):
+    """On the card the bf16 tensor-core wrappers raise, before any launch,
+    on a dtype or head dim that their kernels do not take; none hands the
+    call to another kernel. At 136 and 256 the forward and dK/dV take the
+    call (``match`` None) and the dQ wrapper, whose kernel stops at 128,
+    raises."""
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
+    q = torch.zeros(2, 8, d, device=cuda, dtype=dtype)
+    stats = torch.zeros(2, 8, device=cuda)
+    calls = {"fwd": lambda: fa.flash_attention_fwd_sm90(q, q, q, 0, True,
+                                                        0.1),
+             "dkv": lambda: fa.flash_attention_bwd_dkv_sm90(
+                 q, q, q, q, stats, stats, 0, True, 0.1),
+             "dq": lambda: fa.flash_attention_bwd_dq_sm90(
+                 q, q, q, q, stats, stats, 0, True, 0.1)}
+    reset_counters()
+    if match is None and fn != "dq":
+        calls[fn]()
+        torch.cuda.synchronize()
+        launched = {n: c["launches"] for n, c in counters().items()
+                    if c["launches"]}
+        assert launched == {"flash_attention_sm90" if fn == "fwd" else
+                            "flash_attention_bwd_dkv_sm90": 1}
+        return
+    with pytest.raises(ValueError, match=match or r"in \[8, 128\]"):
+        calls[fn]()
+    assert all(c["launches"] == 0 for c in counters().values())
+
+
 # the bf16 tensor-core forward and dK/dV at head dims other than 64 and 128:
 # (bh, sq, sk, offset, causal, d): ragged causal and non-causal cases at
-# head dims 8 to 112; offsets below 0, where rows see no key (all of them
-# at -96); d 64 and 128 on the same kernels
-_SM90_HEADDIMS = (8, 16, 40, 72, 80, 96, 112)
+# head dims 8 to 112 and, on the 64-key instances, 136 (two whole chunks
+# and 16 columns), 192 and 256; offsets below 0, where rows see no key (all
+# of them at -96); d 64 and 128 on the same kernels
+_SM90_HEADDIMS = (8, 16, 40, 72, 80, 96, 112, 136, 192, 256)
 _SM90_HEADDIM_CASES = [(3, 77, 131, 54, True, d) for d in _SM90_HEADDIMS]
 _SM90_HEADDIM_CASES += [(3, 130, 61, 0, False, d) for d in _SM90_HEADDIMS]
 _SM90_HEADDIM_CASES += [(3, 64, 64, -8, True, 72),
@@ -2566,7 +2620,10 @@ _SM90_HEADDIM_CASES += [(3, 64, 64, -8, True, 72),
                         (2, 96, 96, -96, True, 40),
                         (2, 300, 340, 40, True, 80),
                         (2, 200, 200, -157, True, 128),
-                        (3, 130, 61, 0, False, 64)]
+                        (3, 130, 61, 0, False, 64),
+                        (2, 200, 200, -157, True, 256),
+                        (2, 96, 96, -96, True, 136),
+                        (2, 300, 340, 40, True, 256)]
 
 
 @pytest.mark.gpu
@@ -2576,8 +2633,10 @@ def test_sm90_kernels_at_every_head_dim_match_plain(cuda, bh, sq, sk, offset,
     """The bf16 tensor-core forward, dK/dV and dQ kernels, through the
     dispatching wrappers, against their fp32 plain versions on the same
     bf16 inputs: o within ``sm90_fwd_bound``, lse within 1e-3, dK and dV
-    within ``sm90_dkv_bound``, dQ within ``sm90_dq_bound``. Each call
-    launches its kernel once and no other. Rows that see no key give o = 0,
+    within ``sm90_dkv_bound``, dQ within ``sm90_dq_bound`` (above 128 dQ
+    is the CUDA-core kernel's, within one bf16 rounding and rtol 1e-4 for
+    its longer sums). Each call launches its kernel once and no other. Rows
+    that see no key give o = 0,
     lse = -1e30 and dQ = 0 exactly and add nothing to dK and dV (a dO of
     1000 on them changes neither bit); two launches of each kernel agree
     bit for bit."""
@@ -2618,11 +2677,15 @@ def test_sm90_kernels_at_every_head_dim_match_plain(cuda, bh, sq, sk, offset,
     dq = flash_attention_bwd_dq(q, k, v, do, *args)
     torch.cuda.synchronize()
     c = counters()
-    assert c["flash_attention_bwd_dq_sm90"] == {"launches": 1,
-                                                "plain_calls": 0}
+    dq_name = "flash_attention_bwd_dq" + ("_sm90" if d <= 128 else "")
+    assert takes_sm90_dq(torch.bfloat16, d) is (d <= 128)
+    assert c[dq_name] == {"launches": 1, "plain_calls": 0}
     assert sum(c[n]["launches"] for n in c) == 1
     rdq = flash_attention_bwd_dq_plain(*f32, *args)
-    _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
+    if d <= 128:
+        _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
+    else:
+        _close(dq.float().cpu(), rdq.cpu(), (2.0 ** -8 + 1e-4, 1e-4))
     o2, lse2 = flash_attention_fwd(q, k, v, offset, causal, scale)
     dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, *args)
     dq2 = flash_attention_bwd_dq(q, k, v, do, *args)
@@ -2678,12 +2741,13 @@ def test_sm90_wrappers_take_unaligned_and_strided_inputs_at_d96(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [12, 136])
+@pytest.mark.parametrize("d", [12, 136, 256])
 def test_cuda_core_flash_kernels_keep_the_other_bf16_head_dims(cuda, d):
-    """bf16 at a head dim that is not a multiple of 8, or above 128, still
-    runs the CUDA-core forward, dK/dV and dQ kernels, within one bf16
-    rounding of their plain versions (the backward with rtol 1e-4 more for
-    its longer sums)."""
+    """bf16 at a head dim that is not a multiple of 8 still runs the
+    CUDA-core forward, dK/dV and dQ kernels, and above 128 the CUDA-core
+    dQ (the forward and dK/dV there take the tensor cores), each within one
+    bf16 rounding of its plain version (the backward with rtol 1e-4 more
+    for its longer sums; the tensor-core kernels within their bounds)."""
     rng = np.random.default_rng(39)
     bh, sq, sk, scale = 3, 50, 70, d ** -0.5
 
@@ -2694,8 +2758,10 @@ def test_cuda_core_flash_kernels_keep_the_other_bf16_head_dims(cuda, d):
     q, k, v, do = (rnd(bh, s, d).to(torch.bfloat16)
                    for s in (sq, sk, sk, sq))
     f32 = [t.float() for t in (q, k, v, do)]
-    assert route(torch.bfloat16, d, sq) == "cuda_core"
-    assert not takes_sm90(torch.bfloat16, d)
+    wide = d > 128  # the forward and dK/dV on the tensor cores
+    assert route(torch.bfloat16, d, sq) == ("sm90" if wide else "cuda_core")
+    assert takes_sm90(torch.bfloat16, d) is wide
+    assert not takes_sm90_dq(torch.bfloat16, d)
     reset_counters()
     o, lse = flash_attention_fwd(q, k, v, sk - sq, True, scale)
     ro, rl = flash_attention_plain(*f32[:3], sk - sq, True, scale)
@@ -2704,16 +2770,27 @@ def test_cuda_core_flash_kernels_keep_the_other_bf16_head_dims(cuda, d):
     dq = flash_attention_bwd_dq(q, k, v, do, *args)
     torch.cuda.synchronize()
     c = counters()
-    for n in ("flash_attention", "flash_attention_bwd_dkv",
+    tc = "_sm90" if wide else ""
+    for n in ("flash_attention" + tc, "flash_attention_bwd_dkv" + tc,
               "flash_attention_bwd_dq"):
         assert c[n] == {"launches": 1, "plain_calls": 0}, n
     assert sum(c[n]["launches"] for n in c) == 3
-    _close(o.float().cpu(), ro.cpu(), (2.0 ** -8, 1e-4))
+    if wide:
+        _within(o, ro, sm90_fwd_bound(*f32[:3], sk - sq, True, scale, ro),
+                "o")
+    else:
+        _close(o.float().cpu(), ro.cpu(), (2.0 ** -8, 1e-4))
     _close(lse.cpu(), rl.cpu(), (0.0, 1e-3))
     rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
     rdq = flash_attention_bwd_dq_plain(*f32, *args)
-    for got, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
-        _close(got.float().cpu(), ref.cpu(), (2.0 ** -8 + 1e-4, 1e-4))
+    if wide:
+        bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
+        _within(dk, rdk, bdk, "dk")
+        _within(dv, rdv, bdv, "dv")
+    else:
+        for got, ref in ((dk, rdk), (dv, rdv)):
+            _close(got.float().cpu(), ref.cpu(), (2.0 ** -8 + 1e-4, 1e-4))
+    _close(dq.float().cpu(), rdq.cpu(), (2.0 ** -8 + 1e-4, 1e-4))
 
 
 def _deterministic(on):

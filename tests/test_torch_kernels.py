@@ -385,20 +385,21 @@ def test_sm90_bounds_hold_for_the_kernels_roundings(out):
 @pytest.mark.parametrize("dtype,d,sq,want", [
     (torch.bfloat16, 128, 2048, True), (torch.bfloat16, 64, 2, True),
     (torch.bfloat16, 128, 1, False), (torch.bfloat16, 128, None, True),
-    (torch.bfloat16, 32, 64, True), (torch.bfloat16, 256, 64, False),
+    (torch.bfloat16, 32, 64, True), (torch.bfloat16, 256, 64, True),
     (torch.float32, 128, 64, False), (torch.float32, 64, None, False),
     (torch.bfloat16, 64, None, True), (torch.bfloat16, 32, None, True),
-    (torch.bfloat16, 256, None, False), (torch.float32, 128, None, False)])
+    (torch.bfloat16, 256, None, True), (torch.float32, 128, None, False),
+    (torch.bfloat16, 264, None, False), (torch.bfloat16, 136, 2, True)])
 def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
                                                 monkeypatch):
     """The wrappers' choice of kernel on CUDA, in plain code: bf16 with a
-    head dim that is a multiple of 8 up to 128 (and, for the forward, more
-    than one row) goes to the tensor-core forward, dK/dV and dQ kernels;
-    fp32 dK/dV and dQ at those head dims to the 3xTF32 kernels, the rest to
-    the CUDA-core ones. For the backward (``sq`` None) the dK/dV and dQ
-    dispatchers are driven on meta tensors (neither CPU nor CUDA) with
-    every kernel's wrapper replaced by a recorder, so the choice itself is
-    what runs."""
+    head dim that is a multiple of 8 up to 256 (and, for the forward, more
+    than one row) goes to the tensor-core forward and dK/dV kernels, and
+    up to 128 to the tensor-core dQ kernel; fp32 dK/dV and dQ at head dims
+    up to 128 to the 3xTF32 kernels, the rest to the CUDA-core ones. For
+    the backward (``sq`` None) the dK/dV and dQ dispatchers are driven on
+    meta tensors (neither CPU nor CUDA) with every kernel's wrapper
+    replaced by a recorder, so the choice itself is what runs."""
     assert _FA.takes_sm90(dtype, d, sq) is want
     if sq is not None:
         return
@@ -415,10 +416,12 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
     args = (q, q, q, q, stats, stats, 0, True, 0.1)
     _FA.flash_attention_bwd_dkv(*args)
     _FA.flash_attention_bwd_dq(*args)
-    bwd = "tf32x3" if dtype == torch.float32 else \
-        "sm90" if want else "cuda_core"
-    assert took == [("flash_attention_bwd_dkv", bwd),
-                    ("flash_attention_bwd_dq", bwd)]
+    fp32 = dtype == torch.float32
+    dkv = "tf32x3" if fp32 else "sm90" if want else "cuda_core"
+    dq = "tf32x3" if fp32 else "sm90" if want and d <= 128 else "cuda_core"
+    assert _FA.takes_sm90_dq(dtype, d) is (dq == "sm90")
+    assert took == [("flash_attention_bwd_dkv", dkv),
+                    ("flash_attention_bwd_dq", dq)]
 
 
 @pytest.mark.parametrize("dtype,d,sq,want", [
@@ -429,14 +432,16 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
     (torch.float32, 6, 1, "cuda_core"), (torch.bfloat16, 264, 1, "cuda_core"),
     (torch.float16, 128, 1, "cuda_core"), (torch.bfloat16, 128, 2, "sm90"),
     (torch.bfloat16, 64, 300, "sm90"), (torch.float32, 128, 2, "tf32x3"),
-    (torch.bfloat16, 32, 64, "sm90")])
+    (torch.bfloat16, 32, 64, "sm90"), (torch.bfloat16, 256, 2048, "sm90"),
+    (torch.bfloat16, 136, 2, "sm90"), (torch.float32, 256, 64,
+                                       "cuda_core")])
 def test_forward_route_picks_by_dtype_head_dim_and_rows(dtype, d, sq, want,
                                                         monkeypatch):
     """``route`` in plain code: one query row in fp32 or bf16 whose head
     dim (up to 256) is whole 16-byte chunks goes to the decode kernel, bf16
-    at a head dim that is a multiple of 8 up to 128 with more rows to the
-    tensor-core kernel, fp32 at those head dims with more rows to the
-    3xTF32 kernel, the rest to the CUDA-core one. ``flash_attention_fwd``
+    at a head dim that is a multiple of 8 up to 256 with more rows to the
+    tensor-core kernel, fp32 at such head dims up to 128 with more rows to
+    the 3xTF32 kernel, the rest to the CUDA-core one. ``flash_attention_fwd``
     is driven on meta tensors (neither CPU nor CUDA) with the four kernels'
     wrappers replaced by recorders, so the choice itself is what runs."""
     assert _FA.route(dtype, d, sq) == want

@@ -147,6 +147,41 @@ def test_adamw_loss_curve_matches_jax_trainstep(jax_flags):
     assert got[-1] < got[0] - 0.5  # it learns the repeated batch
 
 
+def test_head_dim_256_with_one_kv_head_matches_jax(jax_flags):
+    """Head dim 256 (hidden 512 over 2 heads) with one key/value head, which
+    the attention repeats to both heads: the shape of the card's
+    ``llama-d256`` step (Gemma 2B's attention) at tiny widths. On the same
+    numpy weights the fp32 logits within 1e-4 (rows of 512 and logits up to
+    ~10 summed in different orders: 2.8e-5 seen) and the labelled loss
+    within rtol 1e-5 of the JAX Llama's, and every parameter's gradient
+    within 1e-4 (rtol and atol); on the CPU the
+    attention runs the flash kernels' plain versions, once a layer each."""
+    jm, pm, _ = make_pair(seed=7, hidden_size=512, num_attention_heads=2,
+                          num_key_value_heads=1)
+    assert pm.llama.layers[0].self_attn.head_dim == 256
+    ids, labels = _batch(seed=8)
+    ref = np.asarray(jm(paddle.to_tensor(ids)).numpy())
+    with torch.no_grad():
+        got = pm(torch.from_numpy(ids)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
+    jm.train()
+    jloss = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+    jloss.backward()
+    jgrads = {n: np.asarray(p.grad.numpy()) for n, p in jm.named_parameters()}
+    reset_counters()
+    loss, grads = _loss_and_grads(pm, ids, labels)
+    np.testing.assert_allclose(loss, float(jloss), rtol=1e-5)
+    want = llama_state_from_numpy(jgrads, pm.config)
+    assert set(want) == set(grads)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name].numpy(), rtol=1e-4,
+                                   atol=1e-4, err_msg=name)
+    c = counters()
+    for kernel in ("flash_attention", "flash_attention_bwd_dkv",
+                   "flash_attention_bwd_dq"):
+        assert c[kernel] == {"launches": 0, "plain_calls": 2}, kernel
+
+
 def _loss_and_grads(model, ids, labels):
     model.train()
     loss = model(torch.from_numpy(ids), labels=torch.from_numpy(labels))

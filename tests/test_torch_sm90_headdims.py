@@ -1,17 +1,19 @@
-"""The bf16 tensor-core flash forward, dK/dV and dQ at every head dim that
-is a multiple of 8 up to 128, on the CPU.
+"""The bf16 tensor-core flash forward and dK/dV at every head dim that is
+a multiple of 8 up to 256, and dQ up to 128, on the CPU.
 
 The kernels themselves run only on the card (``test_torch_gpu.py -k
-sm90``). Here: which calls they take (``route``, ``takes_sm90`` and the
-dispatchers, driven on meta tensors with the kernel wrappers replaced by
-recorders), the wrappers' refusals before any build, and the kernels'
-arithmetic emulated in PyTorch (the head dim padded to a multiple of 16
-with zero columns, 128-key tiles forward, 64-row tiles for dK/dV, 64-key
-tiles for dQ, the online softmax in log2 units, P and dS rounded to bf16 a
-tile) against the JAX package's Pallas kernels in interpret mode on the
-same numpy inputs, within the bounds the card tests hold the kernels to
-(``sm90_fwd_bound``, ``sm90_dkv_bound``, ``sm90_dq_bound``); an emulation
-that reads only the first 64 columns of head dim 96 breaks them.
+sm90``). Here: which calls they take (``route``, ``takes_sm90``,
+``takes_sm90_dq`` and the dispatchers, driven on meta tensors with the
+kernel wrappers replaced by recorders), the wrappers' refusals before any
+build, and the kernels' arithmetic emulated in PyTorch (the head dim
+padded to a multiple of 16 with zero columns, 128-key tiles forward (64
+above 128), 64-row tiles for dK/dV (above 128 each warpgroup's column half
+accumulated on its own), 64-key tiles for dQ, the online softmax in log2
+units, P and dS rounded to bf16 a tile) against the JAX package's Pallas
+kernels in interpret mode on the same numpy inputs, within the bounds the
+card tests hold the kernels to (``sm90_fwd_bound``, ``sm90_dkv_bound``,
+``sm90_dq_bound``); an emulation that reads only the first 64 columns of
+head dim 96, or the first 128 of 256, breaks them.
 """
 import importlib
 
@@ -31,8 +33,10 @@ _LN2 = 0.6931471805599453
 _NEG = -1e30
 
 _HEAD_DIMS = [8, 12, 16, 24, 40, 64, 72, 80, 96, 112, 128, 136, 256]
-# the head dims of the tensor-core forward and dK/dV kernels among them
-_TC = {8, 16, 24, 40, 64, 72, 80, 96, 112, 128}
+# the head dims of the bf16 tensor-core forward and dK/dV kernels among them
+_TC = {8, 16, 24, 40, 64, 72, 80, 96, 112, 128, 136, 256}
+# those of the bf16 tensor-core dQ and of the fp32 (3xTF32) kernels
+_TC_DQ = {d for d in _TC if d <= 128}
 
 
 @pytest.mark.parametrize("sq", [1, 2, 2048])
@@ -41,21 +45,22 @@ _TC = {8, 16, 24, 40, 64, 72, 80, 96, 112, 128}
 def test_route_and_takes_at_every_head_dim(dtype, d, sq):
     """One query row goes to the decode kernel wherever its rows are whole
     16-byte chunks (bf16 d 12 is not); more rows go to the tensor-core
-    kernel of their dtype at a head dim that is a multiple of 8 up to 128,
-    and to the CUDA-core kernel at the others (12, 136, 256). The backward
-    rule (``sq`` None), for dK/dV and dQ alike, is the forward's without
-    the row count."""
+    kernel of their dtype at a head dim that is a multiple of 8, up to 256
+    in bf16 and 128 in fp32, and to the CUDA-core kernel at the others (12;
+    136 and 256 in fp32). The dK/dV rule (``sq`` None) is the forward's
+    without the row count; dQ's (``takes_sm90_dq``) stops at 128."""
     bf16 = dtype == torch.bfloat16
     if sq == 1:
         want = "cuda_core" if bf16 and d == 12 else "decode"
-    elif d in _TC:
+    elif d in (_TC if bf16 else _TC_DQ):
         want = "sm90" if bf16 else "tf32x3"
     else:
         want = "cuda_core"
     assert _FA.route(dtype, d, sq) == want
     assert _FA.takes_sm90(dtype, d, sq) is (want == "sm90")
     assert _FA.takes_sm90(dtype, d) is (bf16 and d in _TC)
-    assert _FA.takes_tf32x3(dtype, d) is (not bf16 and d in _TC)
+    assert _FA.takes_sm90_dq(dtype, d) is (bf16 and d in _TC_DQ)
+    assert _FA.takes_tf32x3(dtype, d) is (not bf16 and d in _TC_DQ)
 
 
 @pytest.mark.parametrize("dtype,d,dkv,dq", [
@@ -66,14 +71,17 @@ def test_route_and_takes_at_every_head_dim(dtype, d, sq):
     (torch.bfloat16, 64, "sm90", "sm90"),
     (torch.bfloat16, 128, "sm90", "sm90"),
     (torch.bfloat16, 12, "cuda_core", "cuda_core"),
-    (torch.bfloat16, 136, "cuda_core", "cuda_core"),
-    (torch.float32, 96, "tf32x3", "tf32x3")])
+    (torch.bfloat16, 136, "sm90", "cuda_core"),
+    (torch.bfloat16, 256, "sm90", "cuda_core"),
+    (torch.float32, 96, "tf32x3", "tf32x3"),
+    (torch.float32, 256, "cuda_core", "cuda_core")])
 def test_backward_dispatch_splits_dkv_from_dq(dtype, d, dkv, dq,
                                               monkeypatch):
     """The dK/dV and dQ dispatchers on meta tensors (neither CPU nor CUDA),
-    every kernel wrapper replaced by a recorder: at the tensor-core head
-    dims bf16 dK/dV and dQ both go to their tensor-core kernels and fp32
-    both to their 3xTF32 kernels; elsewhere both stay on the CUDA cores."""
+    every kernel wrapper replaced by a recorder: up to 128 bf16 dK/dV and
+    dQ both go to their tensor-core kernels and fp32 both to their 3xTF32
+    kernels; above 128 bf16 dK/dV goes to the tensor cores and dQ stays on
+    the CUDA cores; elsewhere both stay on the CUDA cores."""
     took = []
     for name, routes in (
             ("flash_attention_bwd_dkv", ("sm90", "tf32x3", "cuda_core")),
@@ -92,22 +100,27 @@ def test_backward_dispatch_splits_dkv_from_dq(dtype, d, dkv, dq,
 
 
 @pytest.mark.parametrize("fn", ["fwd", "dkv", "dq"])
-@pytest.mark.parametrize("dtype,d,device,error,match", [
-    (torch.bfloat16, 12, "cpu", ValueError, "tensor-core kernel"),
-    (torch.bfloat16, 136, "cpu", ValueError, "tensor-core kernel"),
-    (torch.bfloat16, 256, "meta", ValueError, "tensor-core kernel"),
-    (torch.float32, 96, "cpu", ValueError, "tensor-core kernel"),
-    (torch.float16, 96, "cpu", TypeError, "float32 or bfloat16"),
-    (torch.bfloat16, 96, "meta", ValueError, None),
-    (torch.bfloat16, 8, "cpu", ValueError, None)])
+@pytest.mark.parametrize("dtype,d,device,error,match,dq_match", [
+    (torch.bfloat16, 12, "cpu", ValueError, "tensor-core kernel", None),
+    (torch.bfloat16, 136, "cpu", ValueError, None, r"in \[8, 128\]"),
+    (torch.bfloat16, 256, "meta", ValueError, None, "tensor-core kernel"),
+    (torch.bfloat16, 264, "cpu", ValueError, "head_dim <= 256", None),
+    (torch.float32, 96, "cpu", ValueError, "tensor-core kernel", None),
+    (torch.float16, 96, "cpu", TypeError, "float32 or bfloat16", None),
+    (torch.bfloat16, 96, "meta", ValueError, None, None),
+    (torch.bfloat16, 8, "cpu", ValueError, None, None)])
 def test_sm90_wrappers_refuse_before_any_build(fn, dtype, d, device, error,
-                                               match):
+                                               match, dq_match):
     """The tensor-core wrappers raise, before any build or launch, on
     inputs their kernels do not take and on tensors off the card; they
     never fall back to another kernel or the plain version. At bf16 d 96
-    and 8 all three refuse only for the device."""
+    and 8 all three refuse only for the device, and so do the forward and
+    dK/dV at 136 and 256, where the dQ wrapper refuses the head dim
+    (``dq_match``, where it differs from ``match``)."""
     q = torch.zeros(2, 8, d, dtype=dtype, device=device)
     stats = torch.zeros(2, 8, device=device)
+    if fn == "dq" and dq_match is not None:
+        match = dq_match
     if match is None:
         match = "CUDA tensors"
     reset_counters()
@@ -163,7 +176,7 @@ def _visible(sq, sk, offset, causal):
     return torch.arange(sk)[None, :] <= torch.arange(sq)[:, None] + offset
 
 
-def _forward_emulated(q, k, v, offset, causal, scale, read=128, kt=128):
+def _forward_emulated(q, k, v, offset, causal, scale, read=256, kt=128):
     """The forward kernel's arithmetic on bf16-valued fp32 inputs: key
     tiles of ``kt``; logits in log2 units, masked ones -1e30; a running max
     from -1e30; p exactly 0 where masked; the row sum adds the fp32 p and
@@ -190,17 +203,21 @@ def _forward_emulated(q, k, v, offset, causal, scale, read=128, kt=128):
     return o, lse
 
 
-def _dkv_emulated(q, k, v, do, lse, delta, offset, causal, scale, read=128,
+def _dkv_emulated(q, k, v, do, lse, delta, offset, causal, scale, read=256,
                   rt=64):
     """The dK/dV kernel's arithmetic: query tiles of ``rt``; S^T = K Q^T
     and dP^T = V dO^T over the padded columns; p^T = exp2(s^T scale log2e -
     lse log2e), exactly 0 where masked; ds^T = p^T (dp^T - delta) scale;
-    dV += bf16(P^T) dO and dK += bf16(dS^T) Q a tile; both rounded to bf16
-    and cut to d columns."""
+    dV += bf16(P^T) dO and dK += bf16(dS^T) Q a tile, above 128 (the
+    64-key instances) for each warpgroup's columns on their own (0 .. 127
+    and 128 on, from the same P^T and dS^T); both rounded to bf16 and cut
+    to d columns."""
     d = q.shape[-1]
     qp, kp, vp, dop = (_padded(t, d, read) for t in (q, k, v, do))
+    dp_ = qp.shape[-1]
+    halves = [(0, dp_)] if dp_ <= 128 else [(0, 128), (128, dp_)]
     vis = _visible(q.shape[1], k.shape[1], offset, causal).T
-    dk = torch.zeros(*k.shape[:2], qp.shape[-1])
+    dk = torch.zeros(*k.shape[:2], dp_)
     dv = torch.zeros_like(dk)
     for i0 in range(0, q.shape[1], rt):
         qt, dot = qp[:, i0:i0 + rt], dop[:, i0:i0 + rt]
@@ -210,12 +227,13 @@ def _dkv_emulated(q, k, v, do, lse, delta, offset, causal, scale, read=128,
                        - lse[:, None, i0:i0 + rt] * _LOG2E)
         p = torch.where(vis[:, i0:i0 + rt], p, 0.0)
         ds = p * (dpt - delta[:, None, i0:i0 + rt]) * scale
-        dv = dv + _bf16(p) @ dot
-        dk = dk + _bf16(ds) @ qt
+        for c0, c1 in halves:
+            dv[..., c0:c1] += _bf16(p) @ dot[..., c0:c1]
+            dk[..., c0:c1] += _bf16(ds) @ qt[..., c0:c1]
     return _bf16(dk)[..., :d], _bf16(dv)[..., :d]
 
 
-def _dq_emulated(q, k, v, do, lse, delta, offset, causal, scale, read=128,
+def _dq_emulated(q, k, v, do, lse, delta, offset, causal, scale, read=256,
                  kt=64):
     """The dQ kernel's arithmetic: key tiles of ``kt``; S = Q K^T and
     dP = dO V^T over the padded columns; p = exp2(s scale log2e - lse
@@ -308,15 +326,65 @@ def test_padded_head_dims_hold_the_sm90_bounds(sq, sk, offset, causal, d):
         assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
-@pytest.mark.parametrize("out", ["o", "dk", "dv", "dq"])
-def test_reading_64_of_96_columns_breaks_the_bounds(out):
-    """At d 96 the bounds are not loose (the roundings' own error fills a
-    fair part of them), and an emulation that reads only the first 64
-    columns (as a kernel built for 64-column halves would) exceeds them
-    for o, dK, dV and dQ alike."""
+def _fwd_tile(d):
+    """Keys a forward tile takes: 128 up to head dim 128, 64 above (the
+    64-key instances of ``csrc/flash_fwd_sm90_wide.cu``)."""
+    return 128 if d <= 128 else 64
+
+
+# (sq, sk, offset, causal, d) at the 64-key instances: two whole chunks and
+# a 16-column remainder (136), four whole chunks (256); ragged lengths,
+# causal with an offset, rows that see no key (offset -64), and not causal
+_WIDE_CASES = [(192, 320, 128, True, 136), (320, 192, -64, True, 256),
+               (64, 192, 0, False, 256), (128, 192, 64, True, 136)]
+
+
+@pytest.mark.parametrize("sq,sk,offset,causal,d", _WIDE_CASES)
+def test_wide_head_dims_hold_the_sm90_bounds(sq, sk, offset, causal, d):
+    """Above 128 the forward's 64-key tiles and dK/dV's column halves
+    against the JAX Pallas kernels (interpret mode) on the same inputs: o
+    within ``sm90_fwd_bound``, lse within 1e-3, dK and dV within
+    ``sm90_dkv_bound``. dQ stays on the CUDA-core kernel there; its plain
+    version (what a CPU call runs, in fp32) equals the JAX dQ within 1e-4.
+    Rows that see no key give o = 0 and lse = -1e30 exactly and add nothing
+    to dK and dV."""
+    c = _inputs(sq, sk, d, seed=d + sq)
+    scale = 1.0 / d ** 0.5
+    jo, jl, jdk, jdv, jdq = _jax_reference(c, causal, offset, scale)
+    q, k, v, go, gl = (torch.from_numpy(c[n]) for n in ("q", "k", "v", "go",
+                                                         "gl"))
+    o, lse = _forward_emulated(q, k, v, offset, causal, scale,
+                               kt=_fwd_tile(d))
+    assert _excess(o, jo, _FA.sm90_fwd_bound(q, k, v, offset, causal, scale,
+                                              jo)) <= 0
+    assert (lse - jl).abs().max().item() <= 1e-3
+    delta = (go * jo).sum(-1) - gl
+    args = (jl, delta, offset, causal, scale)
+    bdk, bdv = _FA.sm90_dkv_bound(q, k, v, go, *args, jdk, jdv)
+    dk, dv = _dkv_emulated(q, k, v, go, *args)
+    assert _excess(dk, jdk, bdk) <= 0
+    assert _excess(dv, jdv, bdv) <= 0
+    assert not _FA.takes_sm90_dq(torch.bfloat16, d)
+    dq = _FA.flash_attention_bwd_dq_plain(q, k, v, go, *args)
+    np.testing.assert_allclose(dq.numpy(), jdq.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    if causal and offset < 0:
+        blind = -offset
+        assert not o[:, :blind].any() and (lse[:, :blind] == _NEG).all()
+        go[:, :blind] = 1000.0  # a row that sees no key adds nothing
+        dk2, dv2 = _dkv_emulated(q, k, v, go, *args)
+        assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+
+
+def _first_columns_check(out, d, read, seed):
+    """The emulated kernel that reads every column, and one that reads
+    only the first ``read`` (the rest zero), against the JAX Pallas
+    kernels at a causal 256 x 256 for ``out`` (o, dk, dv or dq): the sound
+    one holds its bound and fills more than 5% of it, the faulty one
+    breaks it."""
     sq = sk = 256
-    d, offset, scale = 96, 0, 96 ** -0.5
-    c = _inputs(sq, sk, d, seed=5)
+    offset, scale = 0, d ** -0.5
+    c = _inputs(sq, sk, d, seed=seed)
     jo, jl, jdk, jdv, jdq = _jax_reference(c, True, offset, scale)
     q, k, v, go, gl = (torch.from_numpy(c[n]) for n in ("q", "k", "v", "go",
                                                          "gl"))
@@ -325,20 +393,39 @@ def test_reading_64_of_96_columns_breaks_the_bounds(out):
     if out == "o":
         ref = jo
         bound = _FA.sm90_fwd_bound(q, k, v, offset, True, scale, jo)
-        sound = _forward_emulated(q, k, v, offset, True, scale)[0]
-        fault = _forward_emulated(q, k, v, offset, True, scale, read=64)[0]
+        sound, fault = (_forward_emulated(q, k, v, offset, True, scale,
+                                          read=r, kt=_fwd_tile(d))[0]
+                        for r in (d, read))
     elif out == "dq":
         ref = jdq
         bound = _FA.sm90_dq_bound(q, k, v, go, *args, jdq)
-        sound = _dq_emulated(q, k, v, go, *args)
-        fault = _dq_emulated(q, k, v, go, *args, read=64)
+        sound, fault = (_dq_emulated(q, k, v, go, *args, read=r)
+                        for r in (d, read))
     else:
         i = 0 if out == "dk" else 1
         ref = (jdk, jdv)[i]
         bound = _FA.sm90_dkv_bound(q, k, v, go, *args, jdk, jdv)[i]
-        sound = _dkv_emulated(q, k, v, go, *args)[i]
-        fault = _dkv_emulated(q, k, v, go, *args, read=64)[i]
+        sound, fault = (_dkv_emulated(q, k, v, go, *args, read=r)[i]
+                        for r in (d, read))
     assert _excess(sound, ref, bound) <= 0
     assert (sound - ref).abs().max().item() > \
         0.05 * (bound - 1e-4).max().item()
     assert _excess(fault, ref, bound) > 0
+
+
+@pytest.mark.parametrize("out", ["o", "dk", "dv", "dq"])
+def test_reading_64_of_96_columns_breaks_the_bounds(out):
+    """At d 96 the bounds are not loose (the roundings' own error fills a
+    fair part of them), and an emulation that reads only the first 64
+    columns (as a kernel built for 64-column halves would) exceeds them
+    for o, dK, dV and dQ alike."""
+    _first_columns_check(out, 96, 64, seed=5)
+
+
+@pytest.mark.parametrize("out", ["o", "dk", "dv"])
+def test_reading_128_of_256_columns_breaks_the_bounds(out):
+    """At d 256 likewise for the 64-key forward and the column-split dK/dV:
+    an emulation that reads only the first 128 columns (as a kernel that
+    loaded two of the four chunks would) exceeds the bounds of o, dK and
+    dV."""
+    _first_columns_check(out, 256, 128, seed=6)
