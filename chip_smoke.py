@@ -373,16 +373,17 @@ gpt-d96    — bf16 flash at head dims other than 64 and 128: GPT-3
              layers, batch 2 x 2048: it is not Gemma (SwiGLU for GeGLU, no
              sqrt(d) embedding scale, an untied head); 4 tensor-core
              forwards and 2 dK/dV on the 64-key instances above 128, 2
-             CUDA-core dQ, the dense step's RMSNorm, RoPE and AdamW
-             launches; step ms, tokens/s, MFU, device ms by group, idle
-             share and peak GiB; then the kernels at GPT-3 Large's
-             attention shape (bh 32, causal 2048, d 96), at GPT-3 2.7B's
-             (bh 64, d 80), at Gemma's head dim 256 (bh 16) and at 136
-             (bh 16), eager and in graph replay beside the CUDA-core
-             kernels on the same inputs (at 256 with rows of their own),
-             SDPA and the plain versions; and four planted faults (the
+             dQ on the 32-key ones, no CUDA-core flash kernel, the dense
+             step's RMSNorm, RoPE and AdamW launches; step ms, tokens/s,
+             MFU, device ms by group, idle share and peak GiB; then the
+             kernels at GPT-3 Large's attention shape (bh 32, causal
+             2048, d 96), at GPT-3 2.7B's (bh 64, d 80), at Gemma's head
+             dim 256 (bh 16) and at 136 (bh 16), eager and in graph
+             replay beside the CUDA-core kernels on the same inputs (at
+             256 with rows of their own),
+             SDPA and the plain versions; and five planted faults (the
              forward and dQ reading only the first 64 of d 96's columns,
-             the forward and dK/dV the first 128 of d 256's) that each
+             the forward, dK/dV and dQ the first 128 of d 256's) that each
              kernel's check against its plain version must catch.
 resnet     — ResNet-18 with 10 classes on 32 x 32 surrogate images from
              the seed (``bench.py``'s CIFAR-10 stand-in), fp32, TF32 off:
@@ -2774,28 +2775,26 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
                     timed=True, with_dlse=False, d=128, cuda_core_row=False):
     """dK/dV and dQ kernels at one shape against their plain versions on
     fp32 copies of the same inputs. bf16 at a head dim that is a multiple
-    of 8 runs the tensor-core dK/dV kernel up to 256 and the tensor-core dQ
-    kernel up to 128, each held to the bound of its roundings; fp32 at
-    such head dims up to 128 runs the 3xTF32 dK/dV and dQ kernels (their
-    bound at the 3xTF32 rate and at fp32's); each of these is timed eager
-    and in graph replay beside the CUDA-core kernel on the same inputs.
-    The rest runs the CUDA-core kernels. With ``cuda_core_row`` the
-    CUDA-core dK/dV kernel, which runs on no main path now, also gets a row
-    of its own beside the tensor-core one (held to its tolerance). Returns
-    one row per kernel."""
+    of 8 up to 256 runs the tensor-core dK/dV and dQ kernels, each held to
+    the bound of its roundings; fp32 at such head dims up to 128 runs the
+    3xTF32 dK/dV and dQ kernels (their bound at the 3xTF32 rate and at
+    fp32's); each of these is timed eager and in graph replay beside the
+    CUDA-core kernel on the same inputs. The rest runs the CUDA-core
+    kernels. With ``cuda_core_row`` the CUDA-core dK/dV and dQ kernels,
+    which run on no main path now, also get rows of their own beside the
+    tensor-core ones (held to their tolerance). Returns one row per
+    kernel."""
     import torch
 
     fa = _flash_module()
     scale = 1.0 / d ** 0.5
-    sm90 = fa.takes_sm90(dtype, d)  # dK/dV on the tensor cores
-    sm90_dq = fa.takes_sm90_dq(dtype, d)  # dQ on the tensor cores
+    sm90 = fa.takes_sm90(dtype, d)  # dK/dV and dQ on the tensor cores
     tf32x3 = fa.takes_tf32x3(dtype, d)
     if cuda_core_row and not sm90:
         raise ValueError(f"{label}: a CUDA-core row beside a CUDA-core route")
     suffix = "_sm90" if sm90 else "_tf32x3" if tf32x3 else ""
-    dq_suffix = "_sm90" if sm90_dq else "_tf32x3" if tf32x3 else ""
     dkv_name = "flash_attention_bwd_dkv" + suffix
-    dq_name = "flash_attention_bwd_dq" + dq_suffix
+    dq_name = "flash_attention_bwd_dq" + suffix
     q, do = (_rand(gen, (bh, sq, d), dtype) for _ in range(2))
     k, v = (_rand(gen, (bh, sk, d), dtype) for _ in range(2))
     f32 = [t.float() for t in (q, k, v, do)]
@@ -2824,7 +2823,7 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             _compare(f"{dkv_name}[{label}].dv", dv, rdv, tol)[0])
     del rdk, rdv
     rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
-    if sm90_dq:
+    if sm90:
         bdq = fa.sm90_dq_bound(*f32, *args, rdq)
         err_dq, share_dq = _compare_bound(f"flash_bwd_dq_sm90[{label}].dq",
                                           dq, rdq, bdq)
@@ -2842,13 +2841,13 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
     rows = [dict(base, kernel=dkv_name,
                  max_abs_err=err_dkv, tol=SM90_TOL if sm90 else tol),
             dict(base, kernel=dq_name,
-                 max_abs_err=err_dq, tol=SM90_TOL if sm90_dq else tol)]
+                 max_abs_err=err_dq, tol=SM90_TOL if sm90 else tol)]
     if sm90:
         rows[0]["bound_share_max"] = share
-    if sm90_dq:
         rows[1]["bound_share_max"] = share_dq
     if cuda_core_row:
         ck, cv = fa.flash_attention_bwd_dkv_cuda_core(q, k, v, do, *args)
+        cq = fa.flash_attention_bwd_dq_cuda_core(q, k, v, do, *args)
         torch.cuda.synchronize()
         f32 = [t.float() for t in (q, k, v, do)]
         rdk, rdv = fa.flash_attention_bwd_dkv_plain(*f32, *args)
@@ -2858,7 +2857,13 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
                      tol)[0],
             _compare(f"flash_attention_bwd_dkv[{label}].dv", cv, rdv,
                      tol)[0])))
-        del ck, cv, rdk, rdv, f32
+        del ck, cv, rdk, rdv
+        rdq = fa.flash_attention_bwd_dq_plain(*f32, *args)
+        rows.append(dict(base, kernel="flash_attention_bwd_dq", tol=tol,
+                         max_abs_err=_compare(
+                             f"flash_attention_bwd_dq[{label}].dq", cq, rdq,
+                             tol)[0]))
+        del cq, rdq, f32
         _release()
     if timed:
         rows[0]["kernel_ms"] = _time_ms(
@@ -2869,11 +2874,10 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             warmup=2)
         # graph replay, and the CUDA-core kernel on the same inputs, for the
         # kernels that are not the CUDA-core ones
-        for row, kind, sfx in ((rows[0], "dkv", suffix),
-                               (rows[1], "dq", dq_suffix)):
-            if not sfx:
-                continue
-            wrapper = getattr(fa, f"flash_attention_bwd_{kind}{sfx}")
+        for row, kind in ((rows[0], "dkv"), (rows[1], "dq")):
+            if not suffix:
+                break
+            wrapper = getattr(fa, f"flash_attention_bwd_{kind}{suffix}")
             core = getattr(fa, f"flash_attention_bwd_{kind}_cuda_core")
             row["graph_ms"] = _graph_ms(
                 lambda w=wrapper: w(q, k, v, do, *args))
@@ -2881,6 +2885,7 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
                 lambda c=core: c(q, k, v, do, *args), iters=3, warmup=1)
         if cuda_core_row:
             rows[2]["kernel_ms"] = rows[0]["cuda_core_ms"]
+            rows[3]["kernel_ms"] = rows[1]["cuda_core_ms"]
         rows[0]["plain_ms"] = _time_ms(
             lambda: fa.flash_attention_bwd_dkv_plain(q, k, v, do, *args),
             iters=3, warmup=1)
@@ -2889,6 +2894,7 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
             iters=3, warmup=1)
         if cuda_core_row:
             rows[2]["plain_ms"] = rows[0]["plain_ms"]
+            rows[3]["plain_ms"] = rows[1]["plain_ms"]
         _release()
         lib = spread = None
         if not causal or (sq == sk and offset == 0):
@@ -2900,7 +2906,8 @@ def _flash_bwd_case(label, dtype, bh, sq, sk, offset, causal, gen,
         work = [(rows[0], 2 * bh * sk * d * esz, 8 * d),
                 (rows[1], bh * sq * d * esz, 6 * d)]
         if cuda_core_row:
-            work.append((rows[2], 2 * bh * sk * d * esz, 8 * d))
+            work += [(rows[2], 2 * bh * sk * d * esz, 8 * d),
+                     (rows[3], bh * sq * d * esz, 6 * d)]
         for row, out_bytes, flops_per in work:
             b_ms, b_by = _bound(io + out_bytes, flops_per * pairs, rate)
             row.update(library_ms=lib, library_ms_spread=spread,
@@ -3363,7 +3370,7 @@ DENSE_TRAIN_KERNELS = ("flash_attention_tf32x3",
                        "rms_norm_residual", "rms_norm_bwd",
                        "rms_norm_residual_bwd", "rope", "rope_inverse")
 # the CUDA-core flash kernels, which no training path at a head dim that is
-# a multiple of 8 up to 128 launches
+# a multiple of 8 launches (up to 128 in fp32, up to 256 in bf16)
 CUDA_CORE_FLASH = ("flash_attention", "flash_attention_bwd_dkv",
                    "flash_attention_bwd_dq")
 
@@ -3650,7 +3657,8 @@ GRAPH_NODES = [
      ("flash_attention_sm90",)),
     (("flash_bwd_dkv_sm90_kernel", "flash_bwd_dkv_sm90_wide_kernel"),
      ("flash_attention_bwd_dkv_sm90",)),
-    (("flash_bwd_dq_sm90_kernel",), ("flash_attention_bwd_dq_sm90",)),
+    (("flash_bwd_dq_sm90_kernel", "flash_bwd_dq_sm90_wide_kernel"),
+     ("flash_attention_bwd_dq_sm90",)),
     (("flash_fwd_tf32x3_kernel",), ("flash_attention_tf32x3",)),
     (("flash_bwd_dkv_tf32x3_kernel",), ("flash_attention_bwd_dkv_tf32x3",)),
     (("flash_bwd_dq_tf32x3_kernel",), ("flash_attention_bwd_dq_tf32x3",)),
@@ -9096,7 +9104,7 @@ D96_EAGER_STEPS, D96_GRAPH_STEPS = 3, 4
 D80_BH = 64
 # Gemma 7B's attention (Gemma Team 2024 Table 1: 16 heads of 256) at batch
 # 1, and a head dim of two whole 64-column chunks and 16 columns (136, DP
-# 144) at the same bh: the 64-key tensor-core instances above 128
+# 144) at the same bh: the tensor-core instances above 128
 D256_BH = 16
 # the repo's Llama at Gemma 2B's widths (Gemma Team 2024 Table 1: d_model
 # 2048, 8 heads of 256, 1 key/value head, 18 layers, feed-forward 32768 =
@@ -9122,13 +9130,9 @@ def _d96_launches(L):
 def _d256_launches(L):
     """{counter: launches per step} of the bf16 Llama step at head dim
     256; every other counter 0: the dense step's (``_dense_launches``: 2L
-    tensor-core forwards, L tensor-core dK/dV, the RMSNorm, RoPE and AdamW
-    launches) but dQ on the CUDA-core kernel, L a step: the one flash
-    kernel left on the CUDA cores above head dim 128."""
-    per_step = _dense_launches(L)
-    per_step.update({"flash_attention_bwd_dq_sm90": 0,
-                     "flash_attention_bwd_dq": L})
-    return per_step
+    tensor-core forwards, L tensor-core dK/dV, L tensor-core dQ, the
+    RMSNorm, RoPE and AdamW launches): no CUDA-core flash kernel."""
+    return _dense_launches(L)
 
 
 def _first_columns_check(phase, label, bh, s, d, gen, kind, read):
@@ -9258,12 +9262,12 @@ def phase_gpt_d96(seed):
     scale, an untied head, 2 of 18 layers); then the kernels' rows at
     GPT-3 Large's attention shape, at GPT-3 2.7B's (head dim 80, bh
     D80_BH), at Gemma 7B's and 2B's head dim 256 (bh D256_BH; the
-    tensor-core forward and dK/dV beside the CUDA-core kernels, which also
-    get rows of their own there, and the CUDA-core dQ) and at head dim 136,
-    and four planted faults (the forward and dQ reading 64 of d 96's
-    columns, the forward and dK/dV reading 128 of d 256's), which each
-    kernel's check against its plain version must catch
-    (``_first_columns_check``). Returns ({path: counters}, rows)."""
+    tensor-core forward, dK/dV and dQ beside the CUDA-core kernels, which
+    also get rows of their own there) and at head dim 136, and five planted
+    faults (the forward and dQ reading 64 of d 96's columns, the forward,
+    dK/dV and dQ reading 128 of d 256's), which each kernel's check against
+    its plain version must catch (``_first_columns_check``). Returns
+    ({path: counters}, rows)."""
     import torch
 
     from paddle_tpu_torch.optimizer import AdamW
@@ -9321,7 +9325,7 @@ def phase_gpt_d96(seed):
     for kind in ("fwd", "dq"):
         _first_columns_check("gpt-d96", "gpt-d96-bfloat16", bh, s, d, gen,
                              kind, 64)
-    for kind in ("fwd", "dkv"):
+    for kind in ("fwd", "dkv", "dq"):
         _first_columns_check("llama-d256", "d256-bfloat16", D256_BH, s, 256,
                              gen, kind, 128)
     return {"gpt-d96": _add_counts(ecounts, gcounts),
@@ -9520,14 +9524,13 @@ def _kernels_line(rows, paths):
     parity phases (the depth-2 engine, whose prefill windows run the
     general paged-attention kernel, and the depth-2 training steps, which
     run the 3xTF32 flash forward, dK/dV and dQ and the CUDA-core grouped
-    GEMM kernels); the CUDA-core flash forward and dK/dV run on no main
-    path now, and their rows are taken at head dim 256 (``d256-bfloat16``)
-    on the same inputs as the tensor-core kernels there; the CUDA-core dQ,
-    which the ``llama-d256`` step runs, has its row there too. The flash
-    kernels also carry their rows at DiT's (``dit``), GPT-3 Large's
-    (``gpt_d96``), GPT-3 2.7B's (``gpt_d80``) and Gemma's (``d256``, with
-    the ``llama-d256`` step's launches) attention shapes and at head dim
-    136 (``d136``)."""
+    GEMM kernels); the CUDA-core flash forward, dK/dV and dQ run on no
+    main path now, and their rows are taken at head dim 256
+    (``d256-bfloat16``) on the same inputs as the tensor-core kernels
+    there. The flash kernels also carry their rows at DiT's (``dit``),
+    GPT-3 Large's (``gpt_d96``), GPT-3 2.7B's (``gpt_d80``) and Gemma's
+    (``d256``, with the ``llama-d256`` step's launches) attention shapes
+    and at head dim 136 (``d136``)."""
     # (kernel, representative case, source, TPU kernel replaced, the
     # counters whose launches it sums)
     table = [

@@ -1,11 +1,13 @@
 // Flash-attention dQ backward on Hopper's tensor cores (sm_90a): bf16
 // inputs, any head dim d that is a multiple of 8 from 8 to 128, fp32
-// accumulation.
+// accumulation; the entry point also takes 136 to 256, which
+// flash_bwd_dq_sm90_wide.cu's instances serve (32-key tiles: see there).
 //
 // Replaces the TPU kernel `_bwd_dq_kernel` (paddle_tpu/kernels/
 // flash_attention.py:206, launched by `_flash_bwd` at :296) for the inputs it
 // takes; fp32 has its own tensor-core kernel (flash_bwd_dq_tf32x3.cu), and
-// other head dims stay on the CUDA-core kernel of flash_attention_bwd.cu.
+// other head dims (d % 8 != 0, fp32 above 128) stay on the CUDA-core kernel
+// of flash_attention_bwd.cu.
 // Same function, from the same inputs as the dK/dV kernel
 // (flash_bwd_dkv_sm90.cu): q, dO [bh, sq, d], k, v [bh, sk, d] and fp32 lse,
 // delta = rowsum(dO*O) - dlse [bh, sq]. For every visible pair (i, j)
@@ -251,8 +253,15 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+// hd a multiple of 8 from 136 to 256 (flash_bwd_dq_sm90_wide.cu)
+int flash_bwd_dq_sm90_wide(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dq, int bh, int sq,
+                           int sk, int hd, int offset, int causal,
+                           float scale, cudaStream_t st);
+
 // bf16 q, dout, dq [bh, sq, hd]; k, v [bh, sk, hd]; lse, delta [bh, sq]
-// fp32; hd a multiple of 8 from 8 to 128; every bf16 pointer 16-byte
+// fp32; hd a multiple of 8 from 8 to 256; every bf16 pointer 16-byte
 // aligned (TMA). Returns cudaGetLastError() after the launch,
 // cudaErrorInvalidValue for a head dim the kernel does not take, or
 // kMapRefused (-1) for a tensor map that cuTensorMapEncodeTiled refuses.
@@ -261,10 +270,13 @@ extern "C" int pt_flash_attention_bwd_dq_sm90(
     const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
     int hd, int offset, int causal, float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (hd % 8 != 0 || hd < 8 || hd > 128) return (int)cudaErrorInvalidValue;
+  if (hd % 8 != 0 || hd < 8 || hd > 256) return (int)cudaErrorInvalidValue;
   if (bh * sq == 0) return (int)cudaGetLastError();
   const float* l = (const float*)lse;
   const float* dl = (const float*)delta;
+  if (hd > 128)
+    return flash_bwd_dq_sm90_wide(q, k, v, dout, l, dl, dq, bh, sq, sk, hd,
+                                  offset, causal, scale, st);
   switch ((hd + 15) / 16) {  // the instance of DP = ceil16(hd)
     case 1: return launch<16>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);
     case 2: return launch<32>(q, k, v, dout, l, dl, dq, bh, sq, sk, hd, offset, causal, scale, st);

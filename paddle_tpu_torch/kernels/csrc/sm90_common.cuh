@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels
 // (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu, flash_bwd_dq_sm90.cu, their
-// head dims above 128 in flash_fwd_sm90_wide.cu and
-// flash_bwd_dkv_sm90_wide.cu, grouped_matmul_sm90.cu,
+// head dims above 128 in flash_fwd_sm90_wide.cu, flash_bwd_dkv_sm90_wide.cu
+// and flash_bwd_dq_sm90_wide.cu, grouped_matmul_sm90.cu,
 // paged_attention_sm90.cu): TMA tensor maps and
 // loads, mbarriers, wgmma descriptors and the wgmma instructions they use.
 //
@@ -241,6 +241,18 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[N],
     for (int r = 0; r < 4; ++r)
       a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
   }
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[16 x 32]; A and B K-major in shared
+// memory (descriptors), fp32 accumulators, bf16 inputs.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64]; A and B K-major in shared

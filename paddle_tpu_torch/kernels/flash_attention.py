@@ -37,11 +37,12 @@ runs its plain version on a CPU tensor:
   the rest to ``csrc/flash_attention_bwd.cu``
   (:func:`flash_attention_bwd_dkv_cuda_core`);
 - :func:`flash_attention_bwd_dq` / :func:`flash_attention_bwd_dq_plain`,
-  likewise but only up to 128 in either dtype: bf16 where
-  :func:`takes_sm90_dq` goes to ``csrc/flash_bwd_dq_sm90.cu``
-  (:func:`flash_attention_bwd_dq_sm90`), fp32 where :func:`takes_tf32x3` to
-  ``csrc/flash_bwd_dq_tf32x3.cu`` (:func:`flash_attention_bwd_dq_tf32x3`),
-  the rest (d % 8 != 0, d > 128) to ``csrc/flash_attention_bwd.cu``
+  by the same rules: bf16 where :func:`takes_sm90` goes to
+  ``csrc/flash_bwd_dq_sm90.cu`` (above 128 the 32-key tiles of
+  ``csrc/flash_bwd_dq_sm90_wide.cu``; :func:`flash_attention_bwd_dq_sm90`),
+  fp32 where :func:`takes_tf32x3` to ``csrc/flash_bwd_dq_tf32x3.cu``
+  (:func:`flash_attention_bwd_dq_tf32x3`), the rest (d % 8 != 0, fp32
+  d > 128) to ``csrc/flash_attention_bwd.cu``
   (:func:`flash_attention_bwd_dq_cuda_core`).
 
 Each kernel counts its own launches (``COUNTS`` / ``COUNTS_SM90`` /
@@ -86,8 +87,7 @@ __all__ = ["flash_attention", "flash_attention_with_lse",
            "flash_attention_fwd_tf32x3", "flash_attention_bwd_dkv_tf32x3",
            "flash_attention_bwd_dq_tf32x3",
            "flash_decode", "flash_decode_plain", "decode_plan",
-           "merge_partials_plain", "route", "takes_sm90", "takes_sm90_dq",
-           "takes_tf32x3",
+           "merge_partials_plain", "route", "takes_sm90", "takes_tf32x3",
            "sm90_fwd_bound", "sm90_dkv_bound", "sm90_dq_bound", "COUNTS",
            "COUNTS_SM90", "COUNTS_TF32X3", "COUNTS_DECODE", "COUNTS_DKV",
            "COUNTS_DKV_SM90", "COUNTS_DKV_TF32X3", "COUNTS_DQ",
@@ -98,8 +98,7 @@ _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims of the tensor-core kernels, multiples of 8: the least, the
-# most of the fp32 kernels and of bf16 dQ, and the most of the bf16 forward
-# and dK/dV
+# most of the fp32 kernels, and the most of the bf16 ones
 _TC_HEAD_DIMS = (8, 128)
 _SM90_WIDEST = 256
 # the decode kernel's split plan: about 2 blocks per SM, and at least 32
@@ -184,22 +183,13 @@ def _tc_head_dim(head_dim, widest=_TC_HEAD_DIMS[1]) -> bool:
 
 
 def takes_sm90(dtype, head_dim, sq=None) -> bool:
-    """Whether a CUDA call of the forward or of dK/dV goes to the bf16
-    tensor-core kernels: bf16, a head dim that is a multiple of 8 from 8 to
-    256, and (forward, ``sq`` given) more than one query row; a single-row
-    decode reads each key once and is bound by bytes, which the split-K
-    decode kernel serves (:func:`route`). dK/dV asks without ``sq``; dQ
-    asks :func:`takes_sm90_dq`."""
+    """Whether a CUDA call goes to the bf16 tensor-core kernels: bf16, a
+    head dim that is a multiple of 8 from 8 to 256, and (forward, ``sq``
+    given) more than one query row; a single-row decode reads each key once
+    and is bound by bytes, which the split-K decode kernel serves
+    (:func:`route`). The backward (dK/dV and dQ) asks without ``sq``."""
     return (dtype == torch.bfloat16 and _tc_head_dim(head_dim, _SM90_WIDEST)
             and (sq is None or sq > 1))
-
-
-def takes_sm90_dq(dtype, head_dim) -> bool:
-    """Whether a CUDA call of dQ goes to the bf16 tensor-core dQ kernel:
-    bf16 and a head dim that is a multiple of 8 from 8 to 128. Above 128
-    dQ stays on the CUDA-core kernel (its tensor-core instances stop at
-    128)."""
-    return dtype == torch.bfloat16 and _tc_head_dim(head_dim)
 
 
 def takes_tf32x3(dtype, head_dim, sq=None) -> bool:
@@ -401,11 +391,11 @@ def _check_tf32x3(name, q, sq=None):
                          f"{q.shape[1]}")
 
 
-def _check_sm90(name, q, widest=_SM90_WIDEST):
-    if not (q.dtype == torch.bfloat16 and _tc_head_dim(q.shape[2], widest)):
+def _check_sm90(name, q):
+    if not takes_sm90(q.dtype, q.shape[2]):
         raise ValueError(f"{name}: the tensor-core kernel takes bfloat16 "
                          f"with head_dim a multiple of 8 in "
-                         f"[{_TC_HEAD_DIMS[0]}, {widest}], got "
+                         f"[{_TC_HEAD_DIMS[0]}, {_SM90_WIDEST}], got "
                          f"{q.dtype} head_dim {q.shape[2]}")
 
 
@@ -668,14 +658,14 @@ def flash_attention_bwd_dkv_tf32x3(q, k, v, do, lse, delta, offset, causal,
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, offset, causal, scale):
-    """dQ: on CUDA the tensor-core kernel where :func:`takes_sm90_dq`, the
+    """dQ: on CUDA the tensor-core kernel where :func:`takes_sm90`, the
     fp32 tensor-core kernel where :func:`takes_tf32x3`, else the CUDA-core
     kernel; the plain version on the CPU."""
     if q.device.type == "cpu":
         COUNTS_DQ.plain()
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, offset,
                                             causal, scale)
-    if takes_sm90_dq(q.dtype, q.shape[2]):
+    if takes_sm90(q.dtype, q.shape[2]):
         return flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset,
                                            causal, scale)
     if takes_tf32x3(q.dtype, q.shape[2]):
@@ -707,10 +697,11 @@ def flash_attention_bwd_dq_cuda_core(q, k, v, do, lse, delta, offset, causal,
 
 def flash_attention_bwd_dq_sm90(q, k, v, do, lse, delta, offset, causal,
                                 scale):
-    """dQ from the tensor-core kernel (``csrc/flash_bwd_dq_sm90.cu``): bf16,
-    a head dim that is a multiple of 8 from 8 to 128."""
+    """dQ from the tensor-core kernel (``csrc/flash_bwd_dq_sm90.cu``;
+    ``csrc/flash_bwd_dq_sm90_wide.cu`` above 128): bf16, a head dim that is
+    a multiple of 8 from 8 to 256."""
     q, k, v, do, lse, delta = _bwd_inputs(q, k, v, do, lse, delta)
-    _check_sm90("flash_attention_bwd_dq_sm90", q, _TC_HEAD_DIMS[1])
+    _check_sm90("flash_attention_bwd_dq_sm90", q)
     _on_cuda("flash_attention_bwd_dq_sm90", q)
     q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
     bh, sq, d = q.shape

@@ -24,7 +24,7 @@ from paddle_tpu_torch.kernels.flash_attention import (
     flash_attention_bwd_dkv, flash_attention_bwd_dkv_plain,
     flash_attention_bwd_dq, flash_attention_bwd_dq_plain,
     flash_attention_fwd, route, sm90_dkv_bound, sm90_dq_bound,
-    sm90_fwd_bound, takes_sm90, takes_sm90_dq, takes_tf32x3)
+    sm90_fwd_bound, takes_sm90, takes_tf32x3)
 
 # the one-device pipeline step, a harness (tools/pipeline_harness.py)
 sys.path.append(os.path.join(os.path.dirname(os.path.dirname(
@@ -51,13 +51,11 @@ def _counter(name, dtype, d, sq=None):
     """The counter of the kernel that ``name``'s wrapper picks: for a
     forward (``sq`` given) the decode kernel (``name``_decode) where
     ``route`` says so; else the tensor-core one (``name``_sm90) where
-    ``takes_sm90`` (``takes_sm90_dq`` for dQ), the fp32 tensor-core one
-    (``name``_tf32x3) where ``takes_tf32x3``, and the CUDA-core one for the
-    rest."""
+    ``takes_sm90``, the fp32 tensor-core one (``name``_tf32x3) where
+    ``takes_tf32x3``, and the CUDA-core one for the rest."""
     if sq is not None and route(dtype, d, sq) == "decode":
         return name + "_decode"
-    if (takes_sm90_dq(dtype, d) if name.endswith("_dq")
-            else takes_sm90(dtype, d, sq)):
+    if takes_sm90(dtype, d, sq):
         return name + "_sm90"
     if takes_tf32x3(dtype, d, sq):
         return name + "_tf32x3"
@@ -298,7 +296,7 @@ def test_flash_attention_backward_kernels_match_plain(cuda, sq, sk, offset,
     else:
         _close(dk.float().cpu(), rdk.cpu(), tol)
         _close(dv.float().cpu(), rdv.cpu(), tol)
-    if takes_sm90_dq(dtype, d):
+    if takes_sm90(dtype, d):
         _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
     else:
         _close(dq.float().cpu(), rdq.cpu(), tol)
@@ -348,7 +346,7 @@ def test_flash_attention_autograd_uses_the_kernels(cuda, dtype, tol):
     else:
         _close(leaves[1].grad.float().cpu(), rdk.cpu(), btol)
         _close(leaves[2].grad.float().cpu(), rdv.cpu(), btol)
-    if takes_sm90_dq(dtype, d):
+    if takes_sm90(dtype, d):
         _within(leaves[0].grad, rdq, sm90_dq_bound(
             *f32, go.to(dtype).float(), *args, rdq), "dq")
     else:
@@ -526,7 +524,7 @@ def test_flash_attention_picks_its_kernel(cuda):
     assert run(torch.bfloat16, 1, 96) == ["flash_attention_decode"] + \
         sm90_bwd
     assert run(torch.bfloat16, 8, 12) == ["flash_attention"] + cuda_core_bwd
-    wide_bwd = ["flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dq"]
+    wide_bwd = ["flash_attention_bwd_dkv_sm90", "flash_attention_bwd_dq_sm90"]
     assert run(torch.bfloat16, 8, 136) == ["flash_attention_sm90"] + wide_bwd
     assert run(torch.bfloat16, 8, 256) == ["flash_attention_sm90"] + wide_bwd
     assert run(torch.bfloat16, 1, 256) == ["flash_attention_decode"] + \
@@ -905,12 +903,12 @@ def test_grouped_matmul_sm90_autograd_uses_the_tensor_core_kernels(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_dkv", "flash_dq",
                                     "flash_fwd_d256", "flash_dkv_d256",
-                                    "gmm", "gmm_dgrad", "tgmm", "paged",
+                                    "flash_dq_d256", "gmm", "gmm_dgrad", "tgmm", "paged",
                                     "flash_decode", "route", "rms_norm_bwd"])
 def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
     """Each tensor-core kernel, the decode kernel, the routing kernels and
-    the RMSNorm backward (the flash forward and dK/dV also at head dim
-    256, their 64-key instances) as the first CUDA call of a new host
+    the RMSNorm backward (the flash forward, dK/dV and dQ also at head dim
+    256, their instances above 128) as the first CUDA call of a new host
     thread (as
     autograd's worker thread makes it): cuTensorMapEncodeTiled encodes no
     TMA map in a thread without a current context, so the launcher must
@@ -952,6 +950,8 @@ def test_sm90_kernel_launches_from_a_fresh_thread(cuda, kernel):
         "flash_fwd_d256": lambda: fa.flash_attention_fwd_sm90(
             q256, q256, q256, 0, True, 0.1),
         "flash_dkv_d256": lambda: fa.flash_attention_bwd_dkv_sm90(
+            q256, q256, q256, q256, stats, stats, 0, True, 0.1),
+        "flash_dq_d256": lambda: fa.flash_attention_bwd_dq_sm90(
             q256, q256, q256, q256, stats, stats, 0, True, 0.1),
         "gmm": lambda: gm.gmm_sm90(lhs, rhs, sizes),
         "gmm_dgrad": lambda: gm.gmm_sm90(dout, rhs, sizes, trans_rhs=True),
@@ -2581,9 +2581,8 @@ def test_sm90_wrappers_raise_on_what_their_kernels_do_not_take(
         cuda, fn, dtype, d, match):
     """On the card the bf16 tensor-core wrappers raise, before any launch,
     on a dtype or head dim that their kernels do not take; none hands the
-    call to another kernel. At 136 and 256 the forward and dK/dV take the
-    call (``match`` None) and the dQ wrapper, whose kernel stops at 128,
-    raises."""
+    call to another kernel. At 136 and 256 all three take the call
+    (``match`` None) and launch their own kernel once."""
     fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
     q = torch.zeros(2, 8, d, device=cuda, dtype=dtype)
     stats = torch.zeros(2, 8, device=cuda)
@@ -2594,15 +2593,16 @@ def test_sm90_wrappers_raise_on_what_their_kernels_do_not_take(
              "dq": lambda: fa.flash_attention_bwd_dq_sm90(
                  q, q, q, q, stats, stats, 0, True, 0.1)}
     reset_counters()
-    if match is None and fn != "dq":
+    if match is None:
         calls[fn]()
         torch.cuda.synchronize()
         launched = {n: c["launches"] for n, c in counters().items()
                     if c["launches"]}
-        assert launched == {"flash_attention_sm90" if fn == "fwd" else
-                            "flash_attention_bwd_dkv_sm90": 1}
+        assert launched == {{"fwd": "flash_attention_sm90",
+                             "dkv": "flash_attention_bwd_dkv_sm90",
+                             "dq": "flash_attention_bwd_dq_sm90"}[fn]: 1}
         return
-    with pytest.raises(ValueError, match=match or r"in \[8, 128\]"):
+    with pytest.raises(ValueError, match=match):
         calls[fn]()
     assert all(c["launches"] == 0 for c in counters().values())
 
@@ -2633,9 +2633,8 @@ def test_sm90_kernels_at_every_head_dim_match_plain(cuda, bh, sq, sk, offset,
     """The bf16 tensor-core forward, dK/dV and dQ kernels, through the
     dispatching wrappers, against their fp32 plain versions on the same
     bf16 inputs: o within ``sm90_fwd_bound``, lse within 1e-3, dK and dV
-    within ``sm90_dkv_bound``, dQ within ``sm90_dq_bound`` (above 128 dQ
-    is the CUDA-core kernel's, within one bf16 rounding and rtol 1e-4 for
-    its longer sums). Each call launches its kernel once and no other. Rows
+    within ``sm90_dkv_bound``, dQ within ``sm90_dq_bound`` (above 128 the
+    32-key instances). Each call launches its kernel once and no other. Rows
     that see no key give o = 0,
     lse = -1e30 and dQ = 0 exactly and add nothing to dK and dV (a dO of
     1000 on them changes neither bit); two launches of each kernel agree
@@ -2677,15 +2676,12 @@ def test_sm90_kernels_at_every_head_dim_match_plain(cuda, bh, sq, sk, offset,
     dq = flash_attention_bwd_dq(q, k, v, do, *args)
     torch.cuda.synchronize()
     c = counters()
-    dq_name = "flash_attention_bwd_dq" + ("_sm90" if d <= 128 else "")
-    assert takes_sm90_dq(torch.bfloat16, d) is (d <= 128)
-    assert c[dq_name] == {"launches": 1, "plain_calls": 0}
+    assert takes_sm90(torch.bfloat16, d)
+    assert c["flash_attention_bwd_dq_sm90"] == {"launches": 1,
+                                                "plain_calls": 0}
     assert sum(c[n]["launches"] for n in c) == 1
     rdq = flash_attention_bwd_dq_plain(*f32, *args)
-    if d <= 128:
-        _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
-    else:
-        _close(dq.float().cpu(), rdq.cpu(), (2.0 ** -8 + 1e-4, 1e-4))
+    _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
     o2, lse2 = flash_attention_fwd(q, k, v, offset, causal, scale)
     dk2, dv2 = flash_attention_bwd_dkv(q, k, v, do, *args)
     dq2 = flash_attention_bwd_dq(q, k, v, do, *args)
@@ -2703,6 +2699,91 @@ def test_sm90_kernels_at_every_head_dim_match_plain(cuda, bh, sq, sk, offset,
         assert torch.equal(dk, dk3) and torch.equal(dv, dv3)
         if blind == sq:
             assert not dk.any() and not dv.any()
+
+
+# the dQ kernel's instances above 128 at the shapes of the CPU emulation
+# (``_WIDE_CASES`` in tests/test_torch_sm90_headdims.py): ragged lengths,
+# causal with offsets 128 and 64, rows that see no key (offset -64), not
+# causal; at d 136 (DP 144), 184 (DP 192: a third chunk of 56 columns) and
+# 256
+_WIDE_DQ_SHAPES = [(192, 320, 128, True), (320, 192, -64, True),
+                   (64, 192, 0, False), (128, 192, 64, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [136, 184, 256])
+@pytest.mark.parametrize("sq,sk,offset,causal", _WIDE_DQ_SHAPES)
+def test_sm90_dq_above_128_matches_plain(cuda, sq, sk, offset, causal, d):
+    """The tensor-core dQ above head dim 128
+    (``csrc/flash_bwd_dq_sm90_wide.cu``), through the dispatching wrapper,
+    against its fp32 plain version on the same bf16 inputs and an lse
+    cotangent: within ``sm90_dq_bound``, one launch of its kernel a call
+    and none of another, rows that see no key exactly 0, and two calls
+    equal bit for bit."""
+    rng = np.random.default_rng(41 + d)
+    bh, scale = 2, d ** -0.5
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda)
+
+    q, k, v, do = (rnd(bh, s, d).to(torch.bfloat16)
+                   for s in (sq, sk, sk, sq))
+    f32 = [t.float() for t in (q, k, v, do)]
+    ro, rl = flash_attention_plain(*f32[:3], offset, causal, scale)
+    args = (rl, (f32[3] * ro).sum(-1) - rnd(bh, sq), offset, causal, scale)
+    reset_counters()
+    dq = flash_attention_bwd_dq(q, k, v, do, *args)
+    torch.cuda.synchronize()
+    c = counters()
+    assert c["flash_attention_bwd_dq_sm90"] == {"launches": 1,
+                                                "plain_calls": 0}
+    assert sum(c[n]["launches"] for n in c) == 1
+    rdq = flash_attention_bwd_dq_plain(*f32, *args)
+    _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
+    if causal and offset < 0:
+        assert not dq[:, :-offset].any()
+    assert torch.equal(dq, flash_attention_bwd_dq(q, k, v, do, *args))
+
+
+@pytest.mark.gpu
+def test_sm90_dq_at_d256_in_the_llama_mqa_layout(cuda):
+    """The attention layout of the ``llama-d256`` step: one key/value head
+    repeated to 8 query heads by ``repeat_interleave`` (as the Llama
+    repeats them), the [b, s, h, 256] tensors taken to [b h, s, d] as
+    ``flash_attention`` takes them, causal over 300 rows, through autograd:
+    one launch each of the tensor-core forward, dK/dV and dQ and none of
+    any other kernel, and dQ within ``sm90_dq_bound`` of the plain version
+    on the same inputs, lse and delta."""
+    rng = np.random.default_rng(43)
+    b, s, h, d = 2, 300, 8, 256
+
+    def rnd(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(cuda).to(torch.bfloat16)
+
+    def bhsd(t):
+        return t.transpose(1, 2).reshape(b * h, s, d)
+
+    q = rnd(b, s, h, d).requires_grad_()
+    k1, v1 = (rnd(b, s, 1, d).requires_grad_() for _ in range(2))
+    go = rnd(b, s, h, d)
+    reset_counters()
+    k, v = (t.repeat_interleave(h, dim=2) for t in (k1, v1))
+    o, lse = flash_attention_with_lse(bhsd(q), bhsd(k), bhsd(v), 0, True)
+    o.backward(bhsd(go))
+    torch.cuda.synchronize()
+    launched = {n: c["launches"] for n, c in counters().items()
+                if c["launches"]}
+    assert launched == {"flash_attention_sm90": 1,
+                        "flash_attention_bwd_dkv_sm90": 1,
+                        "flash_attention_bwd_dq_sm90": 1}
+    assert k1.grad is not None and v1.grad is not None
+    f32 = [bhsd(t.detach()).float() for t in (q, k, v, go)]
+    args = (lse.detach(), (f32[3] * o.detach().float()).sum(-1), 0, True,
+            d ** -0.5)
+    rdq = flash_attention_bwd_dq_plain(*f32, *args)
+    _within(bhsd(q.grad), rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
 
 
 @pytest.mark.gpu
@@ -2744,10 +2825,13 @@ def test_sm90_wrappers_take_unaligned_and_strided_inputs_at_d96(cuda):
 @pytest.mark.parametrize("d", [12, 136, 256])
 def test_cuda_core_flash_kernels_keep_the_other_bf16_head_dims(cuda, d):
     """bf16 at a head dim that is not a multiple of 8 still runs the
-    CUDA-core forward, dK/dV and dQ kernels, and above 128 the CUDA-core
-    dQ (the forward and dK/dV there take the tensor cores), each within one
-    bf16 rounding of its plain version (the backward with rtol 1e-4 more
-    for its longer sums; the tensor-core kernels within their bounds)."""
+    CUDA-core forward, dK/dV and dQ kernels; above 128 the dispatch takes
+    the tensor cores for all three, and the CUDA-core kernels, which keep
+    fp32 there, still compute the bf16 function when called. Each
+    CUDA-core kernel holds one bf16 rounding of its plain version (the
+    backward with rtol 1e-4 more for its longer sums), the tensor-core
+    kernels their bounds."""
+    fa = importlib.import_module("paddle_tpu_torch.kernels.flash_attention")
     rng = np.random.default_rng(39)
     bh, sq, sk, scale = 3, 50, 70, d ** -0.5
 
@@ -2758,10 +2842,9 @@ def test_cuda_core_flash_kernels_keep_the_other_bf16_head_dims(cuda, d):
     q, k, v, do = (rnd(bh, s, d).to(torch.bfloat16)
                    for s in (sq, sk, sk, sq))
     f32 = [t.float() for t in (q, k, v, do)]
-    wide = d > 128  # the forward and dK/dV on the tensor cores
+    wide = d > 128  # every flash kernel on the tensor cores
     assert route(torch.bfloat16, d, sq) == ("sm90" if wide else "cuda_core")
     assert takes_sm90(torch.bfloat16, d) is wide
-    assert not takes_sm90_dq(torch.bfloat16, d)
     reset_counters()
     o, lse = flash_attention_fwd(q, k, v, sk - sq, True, scale)
     ro, rl = flash_attention_plain(*f32[:3], sk - sq, True, scale)
@@ -2771,26 +2854,33 @@ def test_cuda_core_flash_kernels_keep_the_other_bf16_head_dims(cuda, d):
     torch.cuda.synchronize()
     c = counters()
     tc = "_sm90" if wide else ""
-    for n in ("flash_attention" + tc, "flash_attention_bwd_dkv" + tc,
+    for n in ("flash_attention", "flash_attention_bwd_dkv",
               "flash_attention_bwd_dq"):
-        assert c[n] == {"launches": 1, "plain_calls": 0}, n
+        assert c[n + tc] == {"launches": 1, "plain_calls": 0}, n
     assert sum(c[n]["launches"] for n in c) == 3
-    if wide:
-        _within(o, ro, sm90_fwd_bound(*f32[:3], sk - sq, True, scale, ro),
-                "o")
-    else:
-        _close(o.float().cpu(), ro.cpu(), (2.0 ** -8, 1e-4))
-    _close(lse.cpu(), rl.cpu(), (0.0, 1e-3))
     rdk, rdv = flash_attention_bwd_dkv_plain(*f32, *args)
     rdq = flash_attention_bwd_dq_plain(*f32, *args)
     if wide:
+        _within(o, ro, sm90_fwd_bound(*f32[:3], sk - sq, True, scale, ro),
+                "o")
         bdk, bdv = sm90_dkv_bound(*f32, *args, rdk, rdv)
         _within(dk, rdk, bdk, "dk")
         _within(dv, rdv, bdv, "dv")
-    else:
-        for got, ref in ((dk, rdk), (dv, rdv)):
-            _close(got.float().cpu(), ref.cpu(), (2.0 ** -8 + 1e-4, 1e-4))
-    _close(dq.float().cpu(), rdq.cpu(), (2.0 ** -8 + 1e-4, 1e-4))
+        _within(dq, rdq, sm90_dq_bound(*f32, *args, rdq), "dq")
+        # the CUDA-core kernels on the same inputs
+        o, lse = fa.flash_attention_fwd_cuda_core(q, k, v, sk - sq, True,
+                                                  scale)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda_core(q, k, v, do, *args)
+        dq = fa.flash_attention_bwd_dq_cuda_core(q, k, v, do, *args)
+        torch.cuda.synchronize()
+        c = counters()
+        for n in ("flash_attention", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq"):
+            assert c[n] == {"launches": 1, "plain_calls": 0}, n
+    _close(o.float().cpu(), ro.cpu(), (2.0 ** -8, 1e-4))
+    _close(lse.cpu(), rl.cpu(), (0.0, 1e-3))
+    for got, ref in ((dk, rdk), (dv, rdv), (dq, rdq)):
+        _close(got.float().cpu(), ref.cpu(), (2.0 ** -8 + 1e-4, 1e-4))
 
 
 def _deterministic(on):

@@ -394,9 +394,9 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
                                                 monkeypatch):
     """The wrappers' choice of kernel on CUDA, in plain code: bf16 with a
     head dim that is a multiple of 8 up to 256 (and, for the forward, more
-    than one row) goes to the tensor-core forward and dK/dV kernels, and
-    up to 128 to the tensor-core dQ kernel; fp32 dK/dV and dQ at head dims
-    up to 128 to the 3xTF32 kernels, the rest to the CUDA-core ones. For
+    than one row) goes to the tensor-core forward, dK/dV and dQ kernels;
+    fp32 dK/dV and dQ at head dims up to 128 to the 3xTF32 kernels, the
+    rest to the CUDA-core ones. For
     the backward (``sq`` None) the dK/dV and dQ dispatchers are driven on
     meta tensors (neither CPU nor CUDA) with every kernel's wrapper
     replaced by a recorder, so the choice itself is what runs."""
@@ -417,9 +417,10 @@ def test_sm90_kernels_take_bf16_head_dim_64_128(dtype, d, sq, want,
     _FA.flash_attention_bwd_dkv(*args)
     _FA.flash_attention_bwd_dq(*args)
     fp32 = dtype == torch.float32
-    dkv = "tf32x3" if fp32 else "sm90" if want else "cuda_core"
-    dq = "tf32x3" if fp32 else "sm90" if want and d <= 128 else "cuda_core"
-    assert _FA.takes_sm90_dq(dtype, d) is (dq == "sm90")
+    dkv = dq = "tf32x3" if fp32 else "sm90" if want else "cuda_core"
+    # bf16 dQ on the tensor cores at every multiple of 8 from 8 to 256
+    assert (dq == "sm90") is (dtype == torch.bfloat16 and d % 8 == 0
+                              and 8 <= d <= 256)
     assert took == [("flash_attention_bwd_dkv", dkv),
                     ("flash_attention_bwd_dq", dq)]
 

@@ -1,17 +1,17 @@
-"""The bf16 tensor-core flash forward and dK/dV at every head dim that is
-a multiple of 8 up to 256, and dQ up to 128, on the CPU.
+"""The bf16 tensor-core flash forward, dK/dV and dQ at every head dim
+that is a multiple of 8 up to 256, on the CPU.
 
 The kernels themselves run only on the card (``test_torch_gpu.py -k
-sm90``). Here: which calls they take (``route``, ``takes_sm90``,
-``takes_sm90_dq`` and the dispatchers, driven on meta tensors with the
-kernel wrappers replaced by recorders), the wrappers' refusals before any
-build, and the kernels' arithmetic emulated in PyTorch (the head dim
-padded to a multiple of 16 with zero columns, 128-key tiles forward (64
-above 128), 64-row tiles for dK/dV (above 128 each warpgroup's column half
-accumulated on its own), 64-key tiles for dQ, the online softmax in log2
-units, P and dS rounded to bf16 a tile) against the JAX package's Pallas
-kernels in interpret mode on the same numpy inputs, within the bounds the
-card tests hold the kernels to (``sm90_fwd_bound``, ``sm90_dkv_bound``,
+sm90``). Here: which calls they take (``route``, ``takes_sm90`` and the
+dispatchers, driven on meta tensors with the kernel wrappers replaced by
+recorders), the wrappers' refusals before any build, and the kernels'
+arithmetic emulated in PyTorch (the head dim padded to a multiple of 16
+with zero columns, 128-key tiles forward (64 above 128), 64-row tiles for
+dK/dV (above 128 each warpgroup's column half accumulated on its own),
+64-key tiles for dQ (32 above 128), the online softmax in log2 units, P
+and dS rounded to bf16 a tile) against the JAX package's Pallas kernels in
+interpret mode on the same numpy inputs, within the bounds the card tests
+hold the kernels to (``sm90_fwd_bound``, ``sm90_dkv_bound``,
 ``sm90_dq_bound``); an emulation that reads only the first 64 columns of
 head dim 96, or the first 128 of 256, breaks them.
 """
@@ -33,34 +33,54 @@ _LN2 = 0.6931471805599453
 _NEG = -1e30
 
 _HEAD_DIMS = [8, 12, 16, 24, 40, 64, 72, 80, 96, 112, 128, 136, 256]
-# the head dims of the bf16 tensor-core forward and dK/dV kernels among them
+# the head dims of the bf16 tensor-core kernels among them
 _TC = {8, 16, 24, 40, 64, 72, 80, 96, 112, 128, 136, 256}
-# those of the bf16 tensor-core dQ and of the fp32 (3xTF32) kernels
-_TC_DQ = {d for d in _TC if d <= 128}
+# those of the fp32 (3xTF32) kernels
+_TF32 = {d for d in _TC if d <= 128}
+
+
+def _dispatched(dtype, d, monkeypatch):
+    """[(dispatcher, route)] of one dK/dV and one dQ call on meta tensors
+    (neither CPU nor CUDA), every kernel wrapper replaced by a
+    recorder."""
+    took = []
+    for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+        for route in ("sm90", "tf32x3", "cuda_core"):
+            monkeypatch.setattr(
+                _FA, f"{name}_{route}",
+                lambda *a, n=name, r=route: took.append((n, r)))
+    q = torch.empty(2, 16, d, dtype=dtype, device="meta")
+    stats = torch.empty(2, 16, device="meta")
+    args = (q, q, q, q, stats, stats, 0, True, 0.1)
+    _FA.flash_attention_bwd_dkv(*args)
+    _FA.flash_attention_bwd_dq(*args)
+    return took
 
 
 @pytest.mark.parametrize("sq", [1, 2, 2048])
 @pytest.mark.parametrize("d", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_route_and_takes_at_every_head_dim(dtype, d, sq):
+def test_route_and_takes_at_every_head_dim(dtype, d, sq, monkeypatch):
     """One query row goes to the decode kernel wherever its rows are whole
     16-byte chunks (bf16 d 12 is not); more rows go to the tensor-core
     kernel of their dtype at a head dim that is a multiple of 8, up to 256
     in bf16 and 128 in fp32, and to the CUDA-core kernel at the others (12;
-    136 and 256 in fp32). The dK/dV rule (``sq`` None) is the forward's
-    without the row count; dQ's (``takes_sm90_dq``) stops at 128."""
+    136 and 256 in fp32). The backward's rule (``sq`` None) is the
+    forward's without the row count, for dQ as for dK/dV: bf16 dQ takes
+    the tensor cores at every multiple of 8 up to 256."""
     bf16 = dtype == torch.bfloat16
     if sq == 1:
         want = "cuda_core" if bf16 and d == 12 else "decode"
-    elif d in (_TC if bf16 else _TC_DQ):
+    elif d in (_TC if bf16 else _TF32):
         want = "sm90" if bf16 else "tf32x3"
     else:
         want = "cuda_core"
     assert _FA.route(dtype, d, sq) == want
     assert _FA.takes_sm90(dtype, d, sq) is (want == "sm90")
     assert _FA.takes_sm90(dtype, d) is (bf16 and d in _TC)
-    assert _FA.takes_sm90_dq(dtype, d) is (bf16 and d in _TC_DQ)
-    assert _FA.takes_tf32x3(dtype, d) is (not bf16 and d in _TC_DQ)
+    dq = _dispatched(dtype, d, monkeypatch)[1][1]
+    assert (dq == "sm90") is (bf16 and d in _TC)
+    assert _FA.takes_tf32x3(dtype, d) is (not bf16 and d in _TF32)
 
 
 @pytest.mark.parametrize("dtype,d,dkv,dq", [
@@ -71,56 +91,42 @@ def test_route_and_takes_at_every_head_dim(dtype, d, sq):
     (torch.bfloat16, 64, "sm90", "sm90"),
     (torch.bfloat16, 128, "sm90", "sm90"),
     (torch.bfloat16, 12, "cuda_core", "cuda_core"),
-    (torch.bfloat16, 136, "sm90", "cuda_core"),
-    (torch.bfloat16, 256, "sm90", "cuda_core"),
+    (torch.bfloat16, 136, "sm90", "sm90"),
+    (torch.bfloat16, 256, "sm90", "sm90"),
     (torch.float32, 96, "tf32x3", "tf32x3"),
-    (torch.float32, 256, "cuda_core", "cuda_core")])
+    (torch.float32, 256, "cuda_core", "cuda_core")] + [
+    # every other bf16 head dim above 128 (the wide instances)
+    (torch.bfloat16, d, "sm90", "sm90") for d in range(144, 256, 8)])
 def test_backward_dispatch_splits_dkv_from_dq(dtype, d, dkv, dq,
                                               monkeypatch):
     """The dK/dV and dQ dispatchers on meta tensors (neither CPU nor CUDA),
-    every kernel wrapper replaced by a recorder: up to 128 bf16 dK/dV and
-    dQ both go to their tensor-core kernels and fp32 both to their 3xTF32
-    kernels; above 128 bf16 dK/dV goes to the tensor cores and dQ stays on
-    the CUDA cores; elsewhere both stay on the CUDA cores."""
-    took = []
-    for name, routes in (
-            ("flash_attention_bwd_dkv", ("sm90", "tf32x3", "cuda_core")),
-            ("flash_attention_bwd_dq", ("sm90", "tf32x3", "cuda_core"))):
-        for route in routes:
-            monkeypatch.setattr(
-                _FA, f"{name}_{route}",
-                lambda *a, n=name, r=route: took.append((n, r)))
-    q = torch.empty(2, 16, d, dtype=dtype, device="meta")
-    stats = torch.empty(2, 16, device="meta")
-    args = (q, q, q, q, stats, stats, 0, True, 0.1)
-    _FA.flash_attention_bwd_dkv(*args)
-    _FA.flash_attention_bwd_dq(*args)
-    assert took == [("flash_attention_bwd_dkv", dkv),
-                    ("flash_attention_bwd_dq", dq)]
+    every kernel wrapper replaced by a recorder: bf16 dK/dV and dQ both go
+    to their tensor-core kernels at every multiple of 8 up to 256 (above
+    128 ``csrc/flash_bwd_dkv_sm90_wide.cu`` and
+    ``csrc/flash_bwd_dq_sm90_wide.cu``), fp32 both to their 3xTF32 kernels
+    up to 128; elsewhere both stay on the CUDA cores."""
+    assert _dispatched(dtype, d, monkeypatch) == [
+        ("flash_attention_bwd_dkv", dkv), ("flash_attention_bwd_dq", dq)]
 
 
 @pytest.mark.parametrize("fn", ["fwd", "dkv", "dq"])
-@pytest.mark.parametrize("dtype,d,device,error,match,dq_match", [
-    (torch.bfloat16, 12, "cpu", ValueError, "tensor-core kernel", None),
-    (torch.bfloat16, 136, "cpu", ValueError, None, r"in \[8, 128\]"),
-    (torch.bfloat16, 256, "meta", ValueError, None, "tensor-core kernel"),
-    (torch.bfloat16, 264, "cpu", ValueError, "head_dim <= 256", None),
-    (torch.float32, 96, "cpu", ValueError, "tensor-core kernel", None),
-    (torch.float16, 96, "cpu", TypeError, "float32 or bfloat16", None),
-    (torch.bfloat16, 96, "meta", ValueError, None, None),
-    (torch.bfloat16, 8, "cpu", ValueError, None, None)])
+@pytest.mark.parametrize("dtype,d,device,error,match", [
+    (torch.bfloat16, 12, "cpu", ValueError, "tensor-core kernel"),
+    (torch.bfloat16, 136, "cpu", ValueError, None),
+    (torch.bfloat16, 256, "meta", ValueError, None),
+    (torch.bfloat16, 264, "cpu", ValueError, "head_dim <= 256"),
+    (torch.float32, 96, "cpu", ValueError, "tensor-core kernel"),
+    (torch.float16, 96, "cpu", TypeError, "float32 or bfloat16"),
+    (torch.bfloat16, 96, "meta", ValueError, None),
+    (torch.bfloat16, 8, "cpu", ValueError, None)])
 def test_sm90_wrappers_refuse_before_any_build(fn, dtype, d, device, error,
-                                               match, dq_match):
+                                               match):
     """The tensor-core wrappers raise, before any build or launch, on
     inputs their kernels do not take and on tensors off the card; they
-    never fall back to another kernel or the plain version. At bf16 d 96
-    and 8 all three refuse only for the device, and so do the forward and
-    dK/dV at 136 and 256, where the dQ wrapper refuses the head dim
-    (``dq_match``, where it differs from ``match``)."""
+    never fall back to another kernel or the plain version. At bf16 d 8,
+    96, 136 and 256 all three refuse only for the device."""
     q = torch.zeros(2, 8, d, dtype=dtype, device=device)
     stats = torch.zeros(2, 8, device=device)
-    if fn == "dq" and dq_match is not None:
-        match = dq_match
     if match is None:
         match = "CUDA tensors"
     reset_counters()
@@ -235,7 +241,8 @@ def _dkv_emulated(q, k, v, do, lse, delta, offset, causal, scale, read=256,
 
 def _dq_emulated(q, k, v, do, lse, delta, offset, causal, scale, read=256,
                  kt=64):
-    """The dQ kernel's arithmetic: key tiles of ``kt``; S = Q K^T and
+    """The dQ kernel's arithmetic: key tiles of ``kt`` (:func:`_dq_tile`);
+    S = Q K^T and
     dP = dO V^T over the padded columns; p = exp2(s scale log2e - lse
     log2e), exactly 0 where masked; ds = p (dp - delta) scale; dQ +=
     bf16(dS) K a tile; rounded to bf16 and cut to d columns."""
@@ -332,6 +339,12 @@ def _fwd_tile(d):
     return 128 if d <= 128 else 64
 
 
+def _dq_tile(d):
+    """Keys a dQ tile takes: 64 up to head dim 128, 32 above (the 32-key
+    instances of ``csrc/flash_bwd_dq_sm90_wide.cu``)."""
+    return 64 if d <= 128 else 32
+
+
 # (sq, sk, offset, causal, d) at the 64-key instances: two whole chunks and
 # a 16-column remainder (136), four whole chunks (256); ragged lengths,
 # causal with an offset, rows that see no key (offset -64), and not causal
@@ -341,13 +354,13 @@ _WIDE_CASES = [(192, 320, 128, True, 136), (320, 192, -64, True, 256),
 
 @pytest.mark.parametrize("sq,sk,offset,causal,d", _WIDE_CASES)
 def test_wide_head_dims_hold_the_sm90_bounds(sq, sk, offset, causal, d):
-    """Above 128 the forward's 64-key tiles and dK/dV's column halves
-    against the JAX Pallas kernels (interpret mode) on the same inputs: o
-    within ``sm90_fwd_bound``, lse within 1e-3, dK and dV within
-    ``sm90_dkv_bound``. dQ stays on the CUDA-core kernel there; its plain
+    """Above 128 the forward's 64-key tiles, dK/dV's column halves and
+    dQ's 32-key tiles against the JAX Pallas kernels (interpret mode) on
+    the same inputs: o within ``sm90_fwd_bound``, lse within 1e-3, dK and
+    dV within ``sm90_dkv_bound``, dQ within ``sm90_dq_bound``; dQ's plain
     version (what a CPU call runs, in fp32) equals the JAX dQ within 1e-4.
-    Rows that see no key give o = 0 and lse = -1e30 exactly and add nothing
-    to dK and dV."""
+    Rows that see no key give o = 0, lse = -1e30 and dQ = 0 exactly and add
+    nothing to dK and dV."""
     c = _inputs(sq, sk, d, seed=d + sq)
     scale = 1.0 / d ** 0.5
     jo, jl, jdk, jdv, jdq = _jax_reference(c, causal, offset, scale)
@@ -364,13 +377,15 @@ def test_wide_head_dims_hold_the_sm90_bounds(sq, sk, offset, causal, d):
     dk, dv = _dkv_emulated(q, k, v, go, *args)
     assert _excess(dk, jdk, bdk) <= 0
     assert _excess(dv, jdv, bdv) <= 0
-    assert not _FA.takes_sm90_dq(torch.bfloat16, d)
-    dq = _FA.flash_attention_bwd_dq_plain(q, k, v, go, *args)
-    np.testing.assert_allclose(dq.numpy(), jdq.numpy(), rtol=1e-4,
+    dq = _dq_emulated(q, k, v, go, *args, kt=_dq_tile(d))
+    assert _excess(dq, jdq, _FA.sm90_dq_bound(q, k, v, go, *args, jdq)) <= 0
+    plain = _FA.flash_attention_bwd_dq_plain(q, k, v, go, *args)
+    np.testing.assert_allclose(plain.numpy(), jdq.numpy(), rtol=1e-4,
                                atol=1e-4)
     if causal and offset < 0:
         blind = -offset
         assert not o[:, :blind].any() and (lse[:, :blind] == _NEG).all()
+        assert not dq[:, :blind].any()
         go[:, :blind] = 1000.0  # a row that sees no key adds nothing
         dk2, dv2 = _dkv_emulated(q, k, v, go, *args)
         assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
@@ -399,7 +414,8 @@ def _first_columns_check(out, d, read, seed):
     elif out == "dq":
         ref = jdq
         bound = _FA.sm90_dq_bound(q, k, v, go, *args, jdq)
-        sound, fault = (_dq_emulated(q, k, v, go, *args, read=r)
+        sound, fault = (_dq_emulated(q, k, v, go, *args, read=r,
+                                     kt=_dq_tile(d))
                         for r in (d, read))
     else:
         i = 0 if out == "dk" else 1
@@ -422,10 +438,10 @@ def test_reading_64_of_96_columns_breaks_the_bounds(out):
     _first_columns_check(out, 96, 64, seed=5)
 
 
-@pytest.mark.parametrize("out", ["o", "dk", "dv"])
+@pytest.mark.parametrize("out", ["o", "dk", "dv", "dq"])
 def test_reading_128_of_256_columns_breaks_the_bounds(out):
-    """At d 256 likewise for the 64-key forward and the column-split dK/dV:
-    an emulation that reads only the first 128 columns (as a kernel that
-    loaded two of the four chunks would) exceeds the bounds of o, dK and
-    dV."""
+    """At d 256 likewise for the 64-key forward, the column-split dK/dV
+    and the 32-key dQ: an emulation that reads only the first 128 columns
+    (as a kernel that loaded two of the four chunks would) exceeds the
+    bounds of o, dK, dV and dQ."""
     _first_columns_check(out, 256, 128, seed=6)
